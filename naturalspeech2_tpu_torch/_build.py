@@ -1,0 +1,151 @@
+"""Builds the port's CUDA kernels at first use and binds them with ctypes.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into
+one shared library with a plain C interface. The library's file name
+carries a hash of the sources and flags, so an edited source is rebuilt
+and an unchanged one is loaded from ``_build/`` (listed in .gitignore).
+Nothing here runs at import: the CPU-only tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every entry point: pointers and the stream as c_void_p
+# (ctypes would otherwise pass 32-bit ints and cut them), sizes as c_int.
+SIGNATURES = {
+    "ns2_wavenet_body": [_P] * 11 + [_I] * 5 + [_P],
+    "ns2_attn_block": [_P] * 7 + [_I] * 5 + [_F, _P],
+    "ns2_ff_block": [_P] * 12 + [_I] * 4 + [_P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of the last nvcc run, if any
+build_log = ""  # nvcc's output of that run: ptxas registers, spills, shared memory
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _compile(target: Path) -> None:
+    global build_seconds, build_log
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    units = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *units]
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        build_seconds = time.perf_counter() - start
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
+        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built from ``csrc/`` on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            target = BUILD_DIR / f"ns2_kernels_{_digest()}.so"
+            if not target.exists():
+                _compile(target)
+            lib = ctypes.CDLL(str(target))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.ns2_error_name.argtypes = [ctypes.c_int]
+            lib.ns2_error_name.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if err != 0:
+        err_name = library().ns2_error_name(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({err_name})")
+
+
+def stream(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda_f32(name: str, **tensors: torch.Tensor) -> torch.device:
+    """Check that every tensor is a contiguous f32 tensor on one CUDA
+    device, and that no gradient is asked of the kernel (it has no
+    backward yet); return that device."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP Queue 1, slice 3); "
+            "run it under torch.no_grad()"
+        )
+    device = None
+    for arg, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected a CUDA device")
+        if device is None:
+            device = t.device
+        elif t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, other inputs on {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}; the kernel takes float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+    return device
+
+
+def require_shapes(name: str, **pairs: tuple[torch.Tensor, tuple[int, ...]]) -> None:
+    """Check ``tensor.shape == shape`` for every ``arg=(tensor, shape)``."""
+    for arg, (t, shape) in pairs.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -1,0 +1,34 @@
+// Shared device helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel in this directory runs in f32 on the CUDA cores with tiles
+// staged in shared memory. Each host entry point is a plain C function
+// (bound with ctypes): it takes device pointers, sizes and the caller's
+// stream, launches without synchronising, and returns cudaGetLastError()
+// so the Python wrapper can raise on a launch that was refused.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace ns2 {
+
+// 256 threads as a 16 x 16 grid; a thread owns rows ty + 16*i and
+// columns tx + 16*j of its block's output tile, so neighbouring threads
+// touch neighbouring columns (coalesced global stores, conflict-free
+// shared-memory reads of the B operand, broadcast reads of the A operand).
+constexpr int kThreads = 256;
+constexpr int kGrid = 16;
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// tanh-approximate GELU, the formula of jax.nn.gelu(approximate=True)
+// and torch's F.gelu(approximate="tanh").
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * x * (1.0f + tanhf(k * (x + 0.044715f * x * x * x)));
+}
+
+}  // namespace ns2
+
+// Every kernel translation unit defines its entry points with C linkage.
+#define NS2_API extern "C" __attribute__((visibility("default")))

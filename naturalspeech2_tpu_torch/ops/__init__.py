@@ -1,0 +1,18 @@
+"""The port's kernels: each wrapper launches its CUDA kernel on CUDA
+tensors and runs its plain PyTorch version on CPU tensors, and counts its
+kernel launches in ``<wrapper>.launches``."""
+
+from naturalspeech2_tpu_torch.ops.attn_block_kernel import attn_block
+from naturalspeech2_tpu_torch.ops.ff_block_kernel import ff_block
+from naturalspeech2_tpu_torch.ops.wavenet_kernel import wavenet_body
+
+KERNEL_WRAPPERS = (wavenet_body, attn_block, ff_block)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}

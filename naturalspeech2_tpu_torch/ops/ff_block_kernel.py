@@ -1,0 +1,98 @@
+"""K3: the fused pre-norm feed-forward block (twin of
+`naturalspeech2_tpu/ops/ff_block_kernel.py`).
+
+    y = x + W₂·conv₃(gelu_tanh(n(x)·W_g + b_g) ∘ (n(x)·W_v + b_v)) + b₂
+
+with n(x) the adaptive RMSNorm and conv₃ the causal k=3 conv
+a_{t-2}·Wc₀ + a_{t-1}·Wc₁ + a_t·Wc₂ + b_c. ``ff_block`` takes the
+`FeedForward` parameter layouts and runs the CUDA kernel of
+``csrc/ff_block.cu`` on CUDA tensors and the plain version
+``ff_block_torch`` on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from naturalspeech2_tpu_torch import _build
+
+
+def ff_block_torch(x, gamma, beta, w_val, b_val, w_gate, b_gate, wc, bc, w2, b2):
+    """Plain PyTorch version, the twin of ``ff_block_xla`` (tanh GELU).
+
+    x: [b, n, dm]; gamma/beta: [b, dm]; w_val/w_gate: [dm, inner];
+    wc: [3, inner, inner]; w2: [inner, dm].
+    """
+    dm = x.shape[-1]
+    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    xn = x / norm.clamp(min=1e-12) * math.sqrt(dm)
+    xn = xn * gamma[:, None, :] + beta[:, None, :]
+    val = xn @ w_val + b_val
+    gate = xn @ w_gate + b_gate
+    a = F.gelu(gate, approximate="tanh") * val
+    n = a.shape[1]
+    c = (
+        F.pad(a, (0, 0, 2, 0))[:, :n] @ wc[0]
+        + F.pad(a, (0, 0, 1, 0))[:, :n] @ wc[1]
+        + a @ wc[2]
+        + bc
+    )
+    return x + (c @ w2 + b2)
+
+
+# The kernel's inner width: a multiple of its 16-column thread grid.
+_INNER_ALIGN = 16
+
+
+def ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2):
+    """``x + FF(adaRMSNorm(x))``.
+
+    w1/b1: the GEGLU Dense(2·inner), value half first and gate half
+    second; wc/bc: the causal conv [3, inner, inner]; w2/b2: the out
+    Dense [inner, dm]. CUDA tensors run the kernel; CPU tensors run the
+    plain version.
+    """
+    inner = w1.shape[-1] // 2
+    w_val, w_gate = w1[:, :inner], w1[:, inner:]
+    b_val, b_gate = b1[:inner], b1[inner:]
+    if x.device.type == "cpu":
+        return ff_block_torch(x, gamma, beta, w_val, b_val, w_gate, b_gate, wc, bc, w2, b2)
+    _build.require_cuda_f32(
+        "ff_block", x=x, gamma=gamma, beta=beta, w1=w1, b1=b1, wc=wc, bc=bc, w2=w2, b2=b2
+    )
+    b, n, dm = x.shape
+    _build.require_shapes(
+        "ff_block", gamma=(gamma, (b, dm)), beta=(beta, (b, dm)), w1=(w1, (dm, 2 * inner)),
+        b1=(b1, (2 * inner,)), wc=(wc, (3, inner, inner)), bc=(bc, (inner,)),
+        w2=(w2, (inner, dm)), b2=(b2, (dm,)),
+    )
+    inner_p = -(-inner // _INNER_ALIGN) * _INNER_ALIGN
+    if dm != 128 or inner_p != 352:
+        raise ValueError(
+            f"ff_block: the CUDA kernel takes dim 128 and inner 337..352, got {dm}, {inner}"
+        )
+    # exact zeros in the padded columns and rows change no sum
+    pad = inner_p - inner
+    w_val_p = F.pad(w_val, (0, pad)).contiguous()
+    w_gate_p = F.pad(w_gate, (0, pad)).contiguous()
+    b_val_p = F.pad(b_val, (0, pad))
+    b_gate_p = F.pad(b_gate, (0, pad))
+    wc_p = F.pad(wc, (0, pad, 0, pad))
+    bc_p = F.pad(bc, (0, pad))
+    w2_p = F.pad(w2, (0, 0, 0, pad))
+    out = torch.empty_like(x)
+    err = _build.library().ns2_ff_block(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_val_p.data_ptr(),
+        b_val_p.data_ptr(), w_gate_p.data_ptr(), b_gate_p.data_ptr(), wc_p.data_ptr(),
+        bc_p.data_ptr(), w2_p.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        b, n, dm, inner_p, _build.stream(x),
+    )
+    _build.check(err, "ns2_ff_block")
+    ff_block.launches += 1
+    return out
+
+
+ff_block.launches = 0

@@ -1,0 +1,55 @@
+"""The port stands alone: importing it loads no JAX, flax or JAX package,
+and `chip_smoke.py` refuses to run without a CUDA device, both from the
+repository and from a directory holding nothing but the script."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _run(args, cwd, timeout=300):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run(
+        [sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True,
+        timeout=timeout,
+    )
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import json, sys\n"
+        "import naturalspeech2_tpu_torch\n"
+        "import naturalspeech2_tpu_torch.ops, naturalspeech2_tpu_torch.params\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'naturalspeech2_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    proc = _run(["-c", code], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def _no_cuda() -> bool:
+    import torch
+
+    return not torch.cuda.is_available()
+
+
+@pytest.mark.parametrize("where", ["repo", "script_alone"])
+def test_chip_smoke_fails_without_a_card(where, tmp_path):
+    if not _no_cuda():
+        pytest.skip("this host has a CUDA device; chip_smoke.py would run for real")
+    cwd = ROOT
+    if where == "script_alone":
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    proc = _run(["chip_smoke.py"], cwd=cwd)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
