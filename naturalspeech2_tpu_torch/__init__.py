@@ -1,14 +1,16 @@
 """PyTorch / CUDA port of naturalspeech2_tpu for one NVIDIA H100.
 
-The JAX package is the reference; this package imports torch and numpy
-only. Its kernels (``ops/``) are hand-written CUDA for ``sm_90a``, built
-from ``csrc/`` at first use; on CPU tensors each runs its plain PyTorch
-version.
+The JAX package is the reference; this package imports torch, numpy
+and (for audio files) scipy only. Its kernels (``ops/``) are hand-written
+CUDA for ``sm_90a``, built from ``csrc/`` at first use, and differentiable;
+on CPU tensors each runs its plain PyTorch version.
 """
 
 from naturalspeech2_tpu_torch.models.codec import SoundStream
 from naturalspeech2_tpu_torch.models.denoiser import Model
 from naturalspeech2_tpu_torch.models.naturalspeech2 import NaturalSpeech2, ddim_sample, sample
 from naturalspeech2_tpu_torch.params import load_jax_params
+from naturalspeech2_tpu_torch.trainer import Trainer
 
-__all__ = ["Model", "NaturalSpeech2", "SoundStream", "sample", "ddim_sample", "load_jax_params"]
+__all__ = ["Model", "NaturalSpeech2", "SoundStream", "Trainer", "sample", "ddim_sample",
+           "load_jax_params"]

@@ -1,10 +1,11 @@
 """Builds the port's CUDA kernels at first use and binds them with ctypes.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface. The library's file name
-carries a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is loaded from ``_build/`` (listed in .gitignore).
-Nothing here runs at import: the CPU-only tests import every module.
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and linked into one
+shared library with a plain C interface. The library's file name carries
+a hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is loaded from ``_build/`` (listed in .gitignore). Nothing
+here runs at import: the CPU-only tests import every module.
 """
 
 from __future__ import annotations
@@ -25,18 +26,25 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 _F = ctypes.c_float
+# the flash kernels' scale and dropout arguments: scale, seed words, rate,
+# counter stride, keep threshold, keep scale
+_FLASH_TAIL = [_F, _U, _U, _F, _I, _U, _F, _P]
 # C signature of every entry point: pointers and the stream as c_void_p
 # (ctypes would otherwise pass 32-bit ints and cut them), sizes as c_int.
 SIGNATURES = {
     "ns2_wavenet_body": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_attn_block": [_P] * 7 + [_I] * 5 + [_F, _P],
     "ns2_ff_block": [_P] * 12 + [_I] * 4 + [_P],
+    "ns2_flash_fwd": [_P] * 6 + [_I] * 6 + _FLASH_TAIL,
+    "ns2_flash_bwd": [_P] * 10 + [_I] * 6 + _FLASH_TAIL,
+    "ns2_rvq": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -68,25 +76,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Run the commands in parallel; (return code, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        outputs = [p.communicate(timeout=900)[0] for p in procs]
+        return [(p.returncode, out) for p, out in zip(procs, outputs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def _compile(target: Path) -> None:
     global build_seconds, build_log
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    units = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *units]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        units = sorted(CSRC.glob("*.cu"))
+        objects = [str(Path(tmp) / f"{u.stem}.o") for u in units]
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        compiled = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(u)]
+                             for u, o in zip(units, objects)])
+        build_log = "".join(out for _, out in compiled)
+        failed = [u.name for u, (rc, _) in zip(units, compiled) if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        lib = str(Path(tmp) / "lib.so")
+        (rc, out), = _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]])
         build_seconds = time.perf_counter() - start
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
-        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        build_log += out
+        if rc != 0:
+            raise RuntimeError(f"nvcc link failed ({rc}):\n{out}")
+        os.replace(lib, target)  # atomic: a concurrent loader sees all or nothing
 
 
 def library() -> ctypes.CDLL:
@@ -122,13 +146,7 @@ def stream(t: torch.Tensor) -> int:
 
 def require_cuda_f32(name: str, **tensors: torch.Tensor) -> torch.device:
     """Check that every tensor is a contiguous f32 tensor on one CUDA
-    device, and that no gradient is asked of the kernel (it has no
-    backward yet); return that device."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP Queue 1, slice 3); "
-            "run it under torch.no_grad()"
-        )
+    device; return that device."""
     device = None
     for arg, t in tensors.items():
         if t.device.type != "cuda":

@@ -1,16 +1,17 @@
-"""NaturalSpeech 2 sampling: v-objective diffusion over codec latents,
-DDIM, then codec decode (twins of `get_sampling_time_pairs`,
-`_reconstruct_x0`, `ddim_sample` and the unconditional `sample()` in
-`naturalspeech2_tpu/models/naturalspeech2.py`).
+"""NaturalSpeech 2: diffusion over codec latents. The unconditional
+training losses (`NaturalSpeech2.forward`, the twin of
+`NaturalSpeech2.__call__`), and sampling by DDIM then codec decode (twins
+of `get_sampling_time_pairs`, `_reconstruct_x0`, `ddim_sample` and the
+unconditional `sample()` in `naturalspeech2_tpu/models/naturalspeech2.py`).
 
-Randomness is explicit: the samplers draw the starting noise from a
-``torch.Generator`` or take it as ``noise=`` (how the tests inject JAX's
-draw).
+Randomness is explicit: the diffusion times and noise, and the samplers'
+starting noise, are drawn from a ``torch.Generator`` or taken as
+``times=`` / ``noise=`` (how the tests inject JAX's draws).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,7 +23,8 @@ from naturalspeech2_tpu_torch.utils.helpers import safe_div
 
 
 class NaturalSpeech2(nn.Module):
-    """Holds the denoiser, the codec and the diffusion settings."""
+    """Holds the denoiser, the codec and the diffusion settings; its
+    forward returns the training losses."""
 
     def __init__(
         self,
@@ -35,6 +37,9 @@ class NaturalSpeech2(nn.Module):
         objective: str = "v",
         time_difference: float = 0.0,
         scale: float = 1.0,
+        min_snr_loss_weight: bool = True,
+        min_snr_gamma: float = 5.0,
+        rvq_cross_entropy_loss_weight: float = 0.0,
     ):
         super().__init__()
         name = sampler or ("ddim" if use_ddim else "ddpm")
@@ -60,13 +65,82 @@ class NaturalSpeech2(nn.Module):
         self.objective = objective
         self.time_difference = time_difference
         self.scale = scale
+        self.min_snr_loss_weight = min_snr_loss_weight
+        self.min_snr_gamma = min_snr_gamma
+        self.rvq_cross_entropy_loss_weight = rvq_cross_entropy_loss_weight
 
     @property
     def dim(self) -> int:
         return self.codec.codebook_dim if self.codec is not None else self.model.dim
 
+    @property
+    def sample_hz(self) -> Optional[int]:
+        return self.codec.target_sample_hz if self.codec is not None else None
+
     def gamma_schedule(self, times: torch.Tensor) -> torch.Tensor:
         return get_schedule(self.noise_schedule)(times)
+
+    def forward(
+        self,
+        audio: torch.Tensor,
+        *,
+        times: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Training losses: ``{"loss", "diffusion"}`` and, with a positive
+        ``rvq_cross_entropy_loss_weight``, ``"rvq_ce"``.
+
+        ``audio`` is raw audio [b, T], encoded by the frozen codec without
+        gradient (the RVQ cross-entropy needs its codes), or latents
+        [b, n, dim]. ``times`` [b] and ``noise`` [b, n, dim] are drawn from
+        ``generator`` unless given.
+        """
+        codes = None
+        if audio.ndim == 2:
+            if self.codec is None:
+                raise ValueError("raw audio needs a codec")
+            with torch.no_grad():
+                audio, codes, _ = self.codec(audio, return_encoded=True)
+        b, n, d = audio.shape
+        if d != self.dim:
+            raise ValueError(f"latents have width {d}, the model takes {self.dim}")
+        if times is None:
+            times = torch.rand(b, generator=generator, device=audio.device)
+        if noise is None:
+            noise = torch.randn(audio.shape, generator=generator, device=audio.device)
+
+        gamma = self.gamma_schedule(times)[:, None, None]
+        alpha, sigma = gamma_to_alpha_sigma(gamma, self.scale)
+        noised = alpha * audio + sigma * noise
+        pred = self.model(noised, times)
+
+        if self.objective == "eps":
+            target = noise
+        elif self.objective == "x0":
+            target = audio
+        else:  # v
+            target = alpha * noise - sigma * audio
+        loss = ((pred - target) ** 2).mean(dim=(1, 2))  # per sample
+
+        # min-SNR weighting per sample (PARITY #10)
+        snr = ((alpha * alpha) / (sigma * sigma))[:, 0, 0]
+        clipped_snr = snr.clamp(max=self.min_snr_gamma) if self.min_snr_loss_weight else snr
+        if self.objective == "eps":
+            loss_weight = clipped_snr / snr
+        elif self.objective == "x0":
+            loss_weight = clipped_snr
+        else:
+            loss_weight = clipped_snr / (snr + 1)
+        diffusion = (loss * loss_weight).mean()
+        losses = {"loss": diffusion, "diffusion": diffusion}
+
+        if self.rvq_cross_entropy_loss_weight > 0 and codes is not None:
+            x_start = _reconstruct_x0(self.objective, audio, pred, alpha, sigma)
+            _, ce = self.codec.rq(x_start, codes)
+            losses["rvq_ce"] = ce
+            losses["loss"] = diffusion + self.rvq_cross_entropy_loss_weight * ce
+        return losses
 
 
 def get_sampling_time_pairs(timesteps: int, device=None) -> torch.Tensor:

@@ -6,7 +6,11 @@
 
 ``attn_block`` takes the Dense layouts of the `Attention` module and runs
 the CUDA kernels of ``csrc/attn_block.cu`` on CUDA tensors and the plain
-version ``attn_block_torch`` on CPU tensors.
+version ``attn_block_torch`` on CPU tensors. It is differentiable: its
+backward, as `_fused_bwd` in the JAX package, is the vjp of
+``attn_core_flash_torch``, which recomputes the norm and the projections
+with plain tensor ops and runs the attention core through flash attention
+(forward K4, backward K5).
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import math
 import torch
 
 from naturalspeech2_tpu_torch import _build
+from naturalspeech2_tpu_torch.ops.flash_attention import FlashAttention
+from naturalspeech2_tpu_torch.utils.helpers import vjp
 
 
 def attn_block_torch(x, gamma, beta, wq, wk, wv, wo, *, scale: float):
@@ -46,13 +52,25 @@ def split_heads(wq, wkv, wo, heads: int, dim_head: int):
     return to_heads(wq), to_heads(wk), to_heads(wv), wo.reshape(heads, dim_head, dm)
 
 
-def attn_block(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
-    """``x + W_o·attn(adaRMSNorm(x)·W_{q,k,v})``.
+def attn_core_flash_torch(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int,
+                          scale: float):
+    """The block with its attention core through flash attention, the twin
+    of `_attn_core_flash` (Dense layouts, as ``attn_block`` takes them)."""
+    b, n, dm = x.shape
+    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    xn = x / norm.clamp(min=1e-12) * math.sqrt(dm)
+    xn = xn * gamma[:, None, :] + beta[:, None, :]
 
-    x: [b, n, dm]; gamma/beta: [b, dm]; wq: [dm, H·dh]; wkv: [dm, 2·H·dh];
-    wo: [H·dh, dm]. CUDA tensors run the kernel (two launches, counted as
-    one launch of K2); CPU tensors run the plain version.
-    """
+    def to_heads(t):
+        return t.reshape(b, n, heads, dim_head).transpose(1, 2).contiguous()
+
+    k, v = (xn @ wkv).chunk(2, dim=-1)
+    o = FlashAttention.apply(to_heads(xn @ wq), to_heads(k), to_heads(v), None, None, False,
+                             float(scale), 0.0)
+    return x + o.transpose(1, 2).reshape(b, n, heads * dim_head) @ wo
+
+
+def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
     if x.device.type == "cpu":
         wq_h, wk_h, wv_h, wo_h = split_heads(wq, wkv, wo, heads, dim_head)
         return attn_block_torch(x, gamma, beta, wq_h, wk_h, wv_h, wo_h, scale=scale)
@@ -80,6 +98,30 @@ def attn_block(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale:
     _build.check(err, "ns2_attn_block")
     attn_block.launches += 1
     return out
+
+
+class _AttnBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wq, wkv, wo, heads, dim_head, scale):
+        ctx.save_for_backward(x, gamma, beta, wq, wkv, wo)
+        ctx.cfg = dict(heads=heads, dim_head=dim_head, scale=scale)
+        return _forward(x, gamma, beta, wq, wkv, wo, **ctx.cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = vjp(lambda *a: attn_core_flash_torch(*a, **ctx.cfg), ctx.saved_tensors,
+                    ctx.needs_input_grad[:6], g)
+        return (*grads, None, None, None)
+
+
+def attn_block(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
+    """``x + W_o·attn(adaRMSNorm(x)·W_{q,k,v})``, differentiable.
+
+    x: [b, n, dm]; gamma/beta: [b, dm]; wq: [dm, H·dh]; wkv: [dm, 2·H·dh];
+    wo: [H·dh, dm]. CUDA tensors run the kernel (two launches, counted as
+    one launch of K2); CPU tensors run the plain version.
+    """
+    return _AttnBlock.apply(x, gamma, beta, wq, wkv, wo, heads, dim_head, float(scale))
 
 
 attn_block.launches = 0

@@ -7,7 +7,8 @@ with n(x) the adaptive RMSNorm and conv₃ the causal k=3 conv
 a_{t-2}·Wc₀ + a_{t-1}·Wc₁ + a_t·Wc₂ + b_c. ``ff_block`` takes the
 `FeedForward` parameter layouts and runs the CUDA kernel of
 ``csrc/ff_block.cu`` on CUDA tensors and the plain version
-``ff_block_torch`` on CPU tensors.
+``ff_block_torch`` on CPU tensors. It is differentiable: as `_fused_bwd`
+in the JAX package, its backward is the vjp of the plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
+from naturalspeech2_tpu_torch.utils.helpers import vjp
 
 
 def ff_block_torch(x, gamma, beta, w_val, b_val, w_gate, b_gate, wc, bc, w2, b2):
@@ -47,19 +49,19 @@ def ff_block_torch(x, gamma, beta, w_val, b_val, w_gate, b_gate, wc, bc, w2, b2)
 _INNER_ALIGN = 16
 
 
-def ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2):
-    """``x + FF(adaRMSNorm(x))``.
+def ff_block_plain(x, gamma, beta, w1, b1, wc, bc, w2, b2):
+    """``ff_block_torch`` on the `FeedForward` layouts (w1/b1 unsplit)."""
+    inner = w1.shape[-1] // 2
+    return ff_block_torch(x, gamma, beta, w1[:, :inner], b1[:inner], w1[:, inner:], b1[inner:],
+                          wc, bc, w2, b2)
 
-    w1/b1: the GEGLU Dense(2·inner), value half first and gate half
-    second; wc/bc: the causal conv [3, inner, inner]; w2/b2: the out
-    Dense [inner, dm]. CUDA tensors run the kernel; CPU tensors run the
-    plain version.
-    """
+
+def _forward(x, gamma, beta, w1, b1, wc, bc, w2, b2):
+    if x.device.type == "cpu":
+        return ff_block_plain(x, gamma, beta, w1, b1, wc, bc, w2, b2)
     inner = w1.shape[-1] // 2
     w_val, w_gate = w1[:, :inner], w1[:, inner:]
     b_val, b_gate = b1[:inner], b1[inner:]
-    if x.device.type == "cpu":
-        return ff_block_torch(x, gamma, beta, w_val, b_val, w_gate, b_gate, wc, bc, w2, b2)
     _build.require_cuda_f32(
         "ff_block", x=x, gamma=gamma, beta=beta, w1=w1, b1=b1, wc=wc, bc=bc, w2=w2, b2=b2
     )
@@ -93,6 +95,28 @@ def ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     _build.check(err, "ns2_ff_block")
     ff_block.launches += 1
     return out
+
+
+class _FFBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _forward(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return vjp(ff_block_plain, ctx.saved_tensors, ctx.needs_input_grad, g)
+
+
+def ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2):
+    """``x + FF(adaRMSNorm(x))``, differentiable.
+
+    w1/b1: the GEGLU Dense(2·inner), value half first and gate half
+    second; wc/bc: the causal conv [3, inner, inner]; w2/b2: the out
+    Dense [inner, dm]. CUDA tensors run the kernel; CPU tensors run the
+    plain version.
+    """
+    return _FFBlock.apply(x, gamma, beta, w1, b1, wc, bc, w2, b2)
 
 
 ff_block.launches = 0

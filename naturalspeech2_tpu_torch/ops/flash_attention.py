@@ -1,0 +1,270 @@
+"""K4 and K5: flash attention forward and its dq / dk,dv backward (twins of
+`naturalspeech2_tpu/ops/flash_attention.py`).
+
+    o = softmax(q kᵀ · scale, masked) · v,   lse = log Σ exp(q kᵀ · scale)
+
+over ``[b, h, n, d]`` f32 tensors, with an optional ``[b, n_kv]``
+key-padding mask, causal masking (row ≥ col) and attention dropout on the
+probabilities (the softmax normaliser uses the undropped ones). Masked
+logits are the finite ``NEG_INF``; a fully masked row gives o = 0 and
+lse = NEG_INF, and its backward leaks nothing into the masked keys.
+
+Dropout draws its keep mask from Threefry-2x32-20, counter (row·n_kvp +
+col, b·65536 + h) and key (seed[0], seed[1]), with n_kvp the key length
+padded as the JAX package pads it, so the port keeps exactly the JAX
+package's elements for the same seed and can regenerate them in the
+backward without storing them.
+
+``flash_forward`` (K4, ``csrc/flash_fwd.cu``) and ``flash_backward`` (K5,
+``csrc/flash_bwd.cu``) launch the kernels on CUDA tensors and run the plain
+versions ``flash_forward_torch`` / ``flash_backward_torch`` on CPU tensors.
+``flash_attention`` is differentiable (forward K4, backward K5);
+``flash_attention_with_lse`` is forward only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from naturalspeech2_tpu_torch import _build
+
+NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+
+_MASK32 = 0xFFFFFFFF
+_ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
+
+
+def threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+    """First output word of Threefry-2x32-20 (the twin of `_threefry2x32`),
+    elementwise. Words are int64 tensors holding uint32 values; every sum
+    wraps mod 2³²."""
+    ks0, ks1 = k0 & _MASK32, k1 & _MASK32
+    ks2 = ks0 ^ ks1 ^ 0x1BD11BDA
+    x0 = (x0 + ks0) & _MASK32
+    x1 = (x1 + ks1) & _MASK32
+    subkeys = ((ks1, ks2), (ks2, ks0), (ks0, ks1), (ks1, ks2), (ks2, ks0))
+    for block in range(5):
+        for r in _ROTATIONS[:4] if block % 2 == 0 else _ROTATIONS[4:]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _MASK32) ^ x0
+        a, b = subkeys[block]
+        x0 = (x0 + a) & _MASK32
+        x1 = (x1 + b + block + 1) & _MASK32
+    return x0
+
+
+def dropout_stride(n_kv: int) -> int:
+    """The key length the JAX package counts dropout positions with: n_kv
+    padded to its kv block, min(1024, max(128, next_pow2(n_kv)))."""
+    block_kv = min(1024, max(128, 1 << (n_kv - 1).bit_length()))
+    return -(-n_kv // block_kv) * block_kv
+
+
+def keep_threshold(rate: float) -> int:
+    """An element is kept when its 32 random bits are ≥ this."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def keep_scale(rate: float) -> float:
+    """The kept probabilities' multiplier, 1/(1−rate) rounded to f32."""
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
+def dropout_keep_scaled(seed: Sequence[int], b: int, h: int, n_q: int, n_kv: int,
+                        rate: float, device=None) -> torch.Tensor:
+    """[b, h, n_q, n_kv] multiplier keep/(1−rate) (twin of
+    `_dropout_keep_scaled` over the whole grid)."""
+    rows = torch.arange(n_q, dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(n_kv, dtype=torch.int64, device=device)[None, :]
+    x0 = ((rows * dropout_stride(n_kv) + cols) & _MASK32).expand(b, h, n_q, n_kv)
+    bh = torch.arange(b, dtype=torch.int64, device=device)[:, None] * 65536 + torch.arange(
+        h, dtype=torch.int64, device=device)[None, :]
+    x1 = (bh & _MASK32)[:, :, None, None].expand(b, h, n_q, n_kv)
+    bits = threefry2x32(int(seed[0]), int(seed[1]), x0, x1)
+    keep = (bits >= keep_threshold(rate)).to(torch.float32)
+    return keep * keep_scale(rate)
+
+
+def _valid(b: int, n_q: int, n_kv: int, mask, causal: bool, device) -> torch.Tensor:
+    """[b, 1, n_q, n_kv] bool: key kept by the padding mask and, if causal,
+    not after the query."""
+    valid = torch.ones((b, 1, n_q, n_kv), dtype=torch.bool, device=device)
+    if mask is not None:
+        valid = valid & mask.to(torch.bool)[:, None, None, :]
+    if causal:
+        rows = torch.arange(n_q, device=device)[:, None]
+        cols = torch.arange(n_kv, device=device)[None, :]
+        valid = valid & (rows >= cols)
+    return valid
+
+
+def flash_forward_torch(q, k, v, mask, seed, *, causal: bool, scale: float,
+                        dropout_rate: float = 0.0):
+    """Plain version of K4: ``(o [b,h,n_q,d], lse [b,h,n_q])``, the function
+    of `_flash_oneshot_kernel` / `_flash_kernel`."""
+    b, h, n_q, _ = q.shape
+    n_kv = k.shape[2]
+    valid = _valid(b, n_q, n_kv, mask, causal, q.device)
+    s = torch.where(valid, torch.einsum("bhid,bhjd->bhij", q, k) * scale, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    lse = (m + torch.log(safe_l))[..., 0]
+    if dropout_rate > 0.0:
+        p = p * dropout_keep_scaled(seed, b, h, n_q, n_kv, dropout_rate, q.device)
+    o = torch.einsum("bhij,bhjd->bhid", p, v) / safe_l
+    return o, lse
+
+
+def flash_backward_torch(q, k, v, mask, seed, lse, o, do, *, causal: bool, scale: float,
+                         dropout_rate: float = 0.0):
+    """Plain version of K5: ``(dq, dk, dv)`` from the saved lse, with
+    delta = Σ_d dO·O and P recomputed as in `_flash_backward`."""
+    b, h, n_q, _ = q.shape
+    n_kv = k.shape[2]
+    valid = _valid(b, n_q, n_kv, mask, causal, q.device)
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    s = torch.einsum("bhid,bhjd->bhij", q, k) * scale
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhid,bhjd->bhij", do, v)
+    a = p
+    if dropout_rate > 0.0:
+        keep = dropout_keep_scaled(seed, b, h, n_q, n_kv, dropout_rate, q.device)
+        a = p * keep
+        dp = dp * keep
+    dv = torch.einsum("bhij,bhid->bhjd", a, do)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhij,bhjd->bhid", ds, k)
+    dk = torch.einsum("bhij,bhid->bhjd", ds, q)
+    return dq, dk, dv
+
+
+def _check(name: str, q, k, v, mask):
+    _build.require_cuda_f32(name, q=q, k=k, v=v)
+    b, h, n_q, d = q.shape
+    n_kv = k.shape[2]
+    _build.require_shapes(name, k=(k, (b, h, n_kv, d)), v=(v, (b, h, n_kv, d)))
+    if d != 64:
+        raise ValueError(f"{name}: the CUDA kernel takes head dim 64, got {d}")
+    if mask is None:
+        return None
+    if mask.device != q.device or tuple(mask.shape) != (b, n_kv):
+        raise ValueError(f"{name}: mask must be [{b}, {n_kv}] on {q.device}")
+    return mask.to(torch.uint8).contiguous()
+
+
+def _dropout_args(seed, dropout_rate: float, n_kv: int) -> list:
+    """(seed0, seed1, rate, stride, threshold, keep scale) as the kernels
+    take them; a rate of 0 turns dropout off."""
+    if dropout_rate <= 0.0:
+        return [0, 0, 0.0, 0, 0, 1.0]
+    if seed is None:
+        raise ValueError("dropout needs a seed")
+    return [int(seed[0]) & _MASK32, int(seed[1]) & _MASK32, float(dropout_rate),
+            dropout_stride(n_kv), keep_threshold(dropout_rate), keep_scale(dropout_rate)]
+
+
+def flash_forward(q, k, v, mask=None, seed=None, *, causal: bool = False, scale: float,
+                  dropout_rate: float = 0.0):
+    """K4: ``(o, lse)``. CUDA tensors launch ``csrc/flash_fwd.cu``; CPU
+    tensors run ``flash_forward_torch``."""
+    if q.device.type == "cpu":
+        return flash_forward_torch(q, k, v, mask, seed, causal=causal, scale=scale,
+                                   dropout_rate=dropout_rate)
+    mask8 = _check("flash_forward", q, k, v, mask)
+    b, h, n_q, d = q.shape
+    n_kv = k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
+    err = _build.library().ns2_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask8 is None else mask8.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), b, h, n_q, n_kv, d, int(causal), float(scale),
+        *_dropout_args(seed, dropout_rate, n_kv), _build.stream(q),
+    )
+    _build.check(err, "ns2_flash_fwd")
+    flash_forward.launches += 1
+    return o, lse
+
+
+def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, scale: float,
+                   dropout_rate: float = 0.0):
+    """K5: ``(dq, dk, dv)``. CUDA tensors launch the dq and dk/dv kernels of
+    ``csrc/flash_bwd.cu`` (counted as one launch of K5) after delta =
+    Σ dO·O as a plain reduction (XLA computes it outside the kernels too);
+    CPU tensors run ``flash_backward_torch``."""
+    if q.device.type == "cpu":
+        return flash_backward_torch(q, k, v, mask, seed, lse, o, do, causal=causal, scale=scale,
+                                    dropout_rate=dropout_rate)
+    mask8 = _check("flash_backward", q, k, v, mask)
+    _build.require_cuda_f32("flash_backward", lse=lse, o=o, do=do)
+    b, h, n_q, d = q.shape
+    n_kv = k.shape[2]
+    _build.require_shapes("flash_backward", lse=(lse, (b, h, n_q)), o=(o, q.shape),
+                          do=(do, q.shape))
+    delta = (do * o).sum(dim=-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _build.library().ns2_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask8 is None else mask8.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, h, n_q, n_kv, d, int(causal), float(scale),
+        *_dropout_args(seed, dropout_rate, n_kv), _build.stream(q),
+    )
+    _build.check(err, "ns2_flash_bwd")
+    flash_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_forward.launches = 0
+flash_backward.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """``FlashAttention.apply(q, k, v, mask, seed, causal, scale,
+    dropout_rate)`` → o; forward K4, backward K5 (the twin of `_flash`'s
+    custom_vjp). ``seed`` is two ints or None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, seed, causal, scale, dropout_rate):
+        o, lse = flash_forward(q, k, v, mask, seed, causal=causal, scale=scale,
+                               dropout_rate=dropout_rate)
+        ctx.save_for_backward(q, k, v, lse, o)
+        ctx.mask, ctx.seed = mask, seed
+        ctx.cfg = dict(causal=causal, scale=scale, dropout_rate=dropout_rate)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse, o = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, ctx.mask, ctx.seed, lse, o, do.contiguous(),
+                                    **ctx.cfg)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, mask: Optional[torch.Tensor] = None, causal: bool = False,
+                    scale: Optional[float] = None, dropout: float = 0.0,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Differentiable flash attention over ``[b, h, n, d]`` with an optional
+    ``[b, n_kv]`` key-padding mask, causal masking and attention dropout,
+    whose two seed words are drawn from ``generator``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    seed = None
+    if dropout > 0.0:
+        device = generator.device if generator is not None else "cpu"
+        seed = tuple(torch.randint(0, 2**32, (2,), generator=generator, device=device).tolist())
+    return FlashAttention.apply(q, k, v, mask, seed, causal, float(scale), float(dropout))
+
+
+def flash_attention_with_lse(q, k, v, *, mask: Optional[torch.Tensor] = None,
+                             scale: Optional[float] = None):
+    """Forward only: ``(o, lse [b, h, n_q])``; fully masked rows give o = 0
+    and lse = NEG_INF, so they drop out of a logsumexp combination of
+    partial results."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    with torch.no_grad():
+        return flash_forward(q, k, v, mask, None, causal=False, scale=float(scale))

@@ -13,21 +13,15 @@ module never sees JAX. Layout rules:
   projections and the feed-forward tree.
 
 Every leaf must be consumed and every expected leaf present; otherwise
-``load_jax_params`` raises. The codec encoder's leaves are the one
-exception: codec encode is not ported yet, so they are recognised and
-dropped.
+``load_jax_params`` raises.
 """
 
 from __future__ import annotations
 
-import re
 from typing import Mapping
 
 import numpy as np
 import torch
-
-_ENCODER_LEAF = re.compile(r"^(encoder_stem|encoder_blocks_\d+|encoder_head)/")
-
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     out = {}
@@ -107,16 +101,24 @@ def _model(conv: _Converter) -> None:
     conv.dense("transformer/to_pred", "transformer.to_pred", bias=False)
 
 
+def _residual_units(conv: _Converter, src: str, dst: str) -> None:
+    for unit in (0, 1):
+        conv.conv(f"{src}/ResidualUnit_{unit}/Conv_0", f"{dst}.res{unit + 1}.conv1")
+        conv.conv(f"{src}/ResidualUnit_{unit}/Conv_1", f"{dst}.res{unit + 1}.conv2")
+
+
 def _codec(conv: _Converter) -> None:
-    for path in [p for p in conv.leaves if _ENCODER_LEAF.match(p)]:
-        del conv.leaves[path]  # codec encode is not ported yet
+    conv.conv("encoder_stem", "encoder_stem")
+    for i in range(conv.count("encoder_blocks_{}")):
+        src, dst = f"encoder_blocks_{i}", f"encoder_blocks.{i}"
+        _residual_units(conv, src, dst)
+        conv.conv(f"{src}/Conv_0", f"{dst}.down")
+    conv.conv("encoder_head", "encoder_head")
     conv.conv("decoder_stem", "decoder_stem")
     for i in range(conv.count("decoder_blocks_{}")):
         src, dst = f"decoder_blocks_{i}", f"decoder_blocks.{i}"
         conv.conv_transpose(f"{src}/ConvTranspose_0", f"{dst}.up")
-        for unit in (0, 1):
-            conv.conv(f"{src}/ResidualUnit_{unit}/Conv_0", f"{dst}.res{unit + 1}.conv1")
-            conv.conv(f"{src}/ResidualUnit_{unit}/Conv_1", f"{dst}.res{unit + 1}.conv2")
+        _residual_units(conv, src, dst)
     conv.conv("decoder_head", "decoder_head")
     conv.raw("codebooks", "codebooks")
 

@@ -1,0 +1,356 @@
+"""Training harness for the unconditional model (twin of `Trainer` in
+`naturalspeech2_tpu/trainer.py`).
+
+One optimizer step: grad accumulation over micro-batches (a Python loop;
+gradients summed, then divided by their count), global-norm clipping as
+optax's ``clip_by_global_norm`` (g·max/‖g‖ when ‖g‖ ≥ max, no ε), Adam
+(torch's, whose update equals optax's ``adam``), then the EMA of every
+parameter, the frozen codec's included, every ``ema_update_every`` steps.
+Checkpoints are ``torch.save`` files of {step, params, opt_state,
+ema_params, version}; ``train()`` resumes from the newest one in
+``results_folder``.
+
+The diffusion times and noise of every micro-batch come from the
+trainer's own generator (seeded with ``seed + 1``) and are handed to the
+loss, so a rematerialised forward (``remat=True``) sees the same draws.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import time
+from pathlib import Path
+from typing import Callable, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from naturalspeech2_tpu_torch.data import SoundDataset, data_loader, write_wav
+from naturalspeech2_tpu_torch.models.naturalspeech2 import NaturalSpeech2, sample
+from naturalspeech2_tpu_torch.version import __version__
+
+
+def _not_ported(option: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{option} is not ported yet (ROADMAP Queue 1, {item})")
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule."""
+    if steps <= 0:
+        return lambda count: init
+    return lambda count: (init - end) * (1 - min(max(count, 0), steps) / steps) + end
+
+
+def _cosine(init: float, decay_steps: int, alpha: float) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule."""
+    if decay_steps <= 0:
+        raise ValueError(f"cosine decay needs positive decay steps, got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        decay = 0.5 * (1 + math.cos(math.pi * min(count, decay_steps) / decay_steps))
+        return init * ((1 - alpha) * decay + alpha)
+
+    return schedule
+
+
+def _join(first: Callable, second: Callable, boundary: int) -> Callable[[int], float]:
+    """optax.join_schedules with one boundary."""
+    return lambda count: first(count) if count < boundary else second(count - boundary)
+
+
+def make_lr_schedule(lr: float, lr_schedule: Optional[str], warmup_steps: int,
+                     train_num_steps: int) -> Callable[[int], float]:
+    """Learning rate at optimizer-update count c (0 for the first update),
+    as the JAX trainer builds it from optax schedules: None → constant
+    (after a linear warmup if ``warmup_steps``); "cosine" → warmup, then
+    cosine decay to 10 % of ``lr`` at ``train_num_steps``; "linear" →
+    warmup, then linear decay to 0."""
+    if lr_schedule == "cosine":
+        return _join(_linear(0.0, lr, warmup_steps),
+                     _cosine(lr, train_num_steps - warmup_steps, 0.1), warmup_steps)
+    if lr_schedule == "linear":
+        return _join(_linear(0.0, lr, max(warmup_steps, 1)),
+                     _linear(lr, 0.0, max(train_num_steps - warmup_steps, 1)), warmup_steps)
+    if lr_schedule is not None:
+        raise ValueError(f"lr_schedule must be None, 'cosine' or 'linear', got {lr_schedule!r}")
+    if warmup_steps > 0:
+        return _linear(0.0, lr, warmup_steps)
+    return lambda count: lr
+
+
+class Trainer:
+    def __init__(
+        self,
+        diffusion_model: NaturalSpeech2,
+        *,
+        folder: Optional[str] = None,
+        dataset=None,
+        batches: Optional[Iterator[np.ndarray]] = None,
+        train_batch_size: int = 16,
+        grad_accum_every: int = 1,
+        lr: float = 1e-4,
+        betas: Tuple[float, float] = (0.9, 0.99),
+        max_grad_norm: float = 1.0,
+        ema_decay: float = 0.995,
+        ema_update_every: int = 10,
+        train_num_steps: int = 100_000,
+        save_and_sample_every: int = 1000,
+        results_folder: str = "./results",
+        amp: bool = False,
+        remat: bool = False,
+        data_max_length: Optional[int] = None,
+        data_max_length_seconds: Optional[float] = 2.0,
+        sample_length: int = 1024,
+        mesh=None,
+        seed: int = 0,
+        checkpoint_backend: str = "torch",
+        param_sharding: Optional[str] = None,
+        steps_per_dispatch: int = 1,
+        skip_nonfinite_updates: bool = False,
+        lr_schedule: Optional[str] = None,
+        warmup_steps: int = 0,
+        val_batches: Optional[Iterator[np.ndarray]] = None,
+        validate_every: int = 500,
+        val_fraction: Optional[float] = None,
+    ):
+        """Trains ``diffusion_model`` on the device of its parameters.
+        ``skip_nonfinite_updates`` leaves params and optimizer state as they
+        were after a step whose gradients are not finite (reported as
+        ``skipped``); ``val_batches`` / ``val_fraction`` add a held-out
+        loss every ``validate_every`` steps."""
+        if amp:
+            raise _not_ported("amp=True", "the bf16 slice")
+        if mesh is not None or param_sharding is not None:
+            raise _not_ported("mesh / param_sharding", "item 21, parallel/")
+        if checkpoint_backend == "orbax":
+            raise _not_ported("checkpoint_backend='orbax'", "item 11")
+        if checkpoint_backend != "torch":
+            raise ValueError(f"checkpoint_backend must be 'torch', got {checkpoint_backend!r}")
+        if steps_per_dispatch != 1:
+            raise _not_ported("steps_per_dispatch > 1", "item 11")
+        self.ns2 = diffusion_model
+        self.device = next(diffusion_model.parameters()).device
+        self.train_batch_size = train_batch_size
+        self.grad_accum_every = grad_accum_every
+        self.max_grad_norm = max_grad_norm
+        self.ema_decay = ema_decay
+        self.ema_update_every = ema_update_every
+        self.train_num_steps = train_num_steps
+        self.save_and_sample_every = save_and_sample_every
+        self.results_folder = Path(results_folder)
+        self.results_folder.mkdir(parents=True, exist_ok=True)
+        self.remat = remat
+        self.sample_length = sample_length
+        self.seed = seed
+        self.skip_nonfinite_updates = skip_nonfinite_updates
+        self.val_batches = val_batches
+        self.validate_every = validate_every
+
+        if data_max_length is None and data_max_length_seconds is not None:
+            data_max_length = int(data_max_length_seconds * self.ns2.sample_hz)
+        self.data_max_length = data_max_length
+        if batches is not None:
+            self.batches = batches
+        else:
+            if dataset is None:
+                if folder is None:
+                    raise ValueError("provide folder, dataset or batches")
+                codec = self.ns2.codec
+                ds_kwargs = dict(
+                    max_length=data_max_length, target_sample_hz=self.ns2.sample_hz,
+                    seq_len_multiple_of=codec.seq_len_multiple_of if codec is not None else None,
+                )
+                dataset = SoundDataset(folder, split="train" if val_fraction else None,
+                                       val_fraction=val_fraction or 0.05, **ds_kwargs)
+                if val_fraction and self.val_batches is None:
+                    val_ds = SoundDataset(folder, split="val", val_fraction=val_fraction,
+                                          **ds_kwargs)
+                    self.val_batches = data_loader(val_ds, train_batch_size, seed=seed + 1)
+            self.batches = data_loader(dataset, train_batch_size * grad_accum_every, seed=seed)
+
+        self.lr_at = make_lr_schedule(lr, lr_schedule, warmup_steps, train_num_steps)
+        self.params = dict(self.ns2.named_parameters())
+        self.optimizer = torch.optim.Adam(self.params.values(), lr=lr, betas=betas, eps=1e-8)
+        self.ema = {name: p.detach().clone() for name, p in self.params.items()}
+        self.step = 0
+        self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+        self._resume_checked = False
+
+    # ------------------------------------------------------------------ #
+
+    def draw(self, audio: torch.Tensor):
+        """(times [b], noise [b, n, dim]) for one micro-batch of raw audio
+        [b, T] or latents [b, n, dim], from the trainer's generator."""
+        b = audio.shape[0]
+        if audio.ndim == 2:
+            n = audio.shape[-1] // self.ns2.codec.seq_len_multiple_of
+        else:
+            n = audio.shape[1]
+        times = torch.rand(b, generator=self.generator, device=self.device)
+        noise = torch.randn((b, n, self.ns2.dim), generator=self.generator, device=self.device)
+        return times, noise
+
+    def _losses(self, audio, times, noise) -> dict:
+        def forward(a):
+            return self.ns2(a, times=times, noise=noise)
+
+        if self.remat:  # recompute the forward in the backward pass
+            return checkpoint(forward, audio, use_reentrant=False)
+        return forward(audio)
+
+    def _update_count(self) -> int:
+        """Optimizer updates applied so far (the optax schedule's count)."""
+        state = self.optimizer.state.get(next(iter(self.params.values())), {})
+        return int(state["step"]) if "step" in state else 0
+
+    def train_step(self, batch) -> dict:
+        """One optimizer step over a batch of ``grad_accum_every ×
+        train_batch_size`` examples; returns the metrics as floats."""
+        if isinstance(batch, dict):
+            raise _not_ported("conditional (dict) batches", "item 15, slice 4")
+        audio = torch.as_tensor(np.asarray(batch), dtype=torch.float32).to(self.device)
+        micros = audio.reshape(self.grad_accum_every, self.train_batch_size, *audio.shape[1:])
+        params = list(self.params.values())
+        for p in params:
+            p.grad = None
+        sums: dict = {}
+        for micro in micros:
+            losses = self._losses(micro, *self.draw(micro))
+            losses["loss"].backward()
+            for k, v in losses.items():
+                sums[k] = sums.get(k, 0.0) + v.detach()
+        metrics = {k: v / self.grad_accum_every for k, v in sums.items()}
+
+        # parameters the loss does not reach (the frozen codec) get zero
+        # gradients, as jax.grad gives them, so Adam's state covers them too
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        if self.grad_accum_every > 1:
+            torch._foreach_div_(grads, self.grad_accum_every)
+        skipped = False
+        if self.skip_nonfinite_updates:
+            skipped = not bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        # optax.clip_by_global_norm: g / ‖g‖ · max when ‖g‖ ≥ max, no ε; as
+        # device scalars (1 and 1 when not clipping), so the host never waits
+        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        clip = g_norm >= self.max_grad_norm
+        torch._foreach_div_(grads, torch.where(clip, g_norm, 1.0))
+        torch._foreach_mul_(grads, torch.where(clip, self.max_grad_norm, 1.0))
+        for p, g in zip(params, grads):
+            p.grad = g
+        if not skipped:
+            lr = self.lr_at(self._update_count())
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+        for p in params:
+            p.grad = None
+
+        self.step += 1
+        if self.step % self.ema_update_every == 0:
+            d = self.ema_decay
+            with torch.no_grad():
+                ema = list(self.ema.values())
+                torch._foreach_mul_(ema, d)
+                torch._foreach_add_(ema, torch._foreach_mul(params, 1 - d))
+        out = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        if self.skip_nonfinite_updates:
+            out["skipped"] = float(skipped)
+        return out
+
+    def evaluate(self) -> dict:
+        """Loss components on one ``val_batches`` batch, with fixed draws
+        (a generator seeded ``seed + 1234``) and the training weights."""
+        if self.val_batches is None:
+            raise ValueError("pass val_batches= or val_fraction= to Trainer")
+        batch = np.asarray(next(self.val_batches))[: self.train_batch_size]
+        audio = torch.as_tensor(batch, dtype=torch.float32).to(self.device)
+        generator = torch.Generator(self.device).manual_seed(self.seed + 1234)
+        with torch.no_grad():
+            losses = self.ns2(audio, generator=generator)
+        return {f"val_{k}": float(v) for k, v in losses.items()}
+
+    # ------------------------------------------------------------------ #
+
+    def save(self, milestone) -> str:
+        path = self.results_folder / f"model-{milestone}.ckpt"
+        torch.save({
+            "step": self.step,
+            "params": self.ns2.state_dict(),
+            "opt_state": self.optimizer.state_dict(),
+            "ema_params": self.ema,
+            "version": __version__,
+        }, path)
+        return str(path)
+
+    def latest_checkpoint(self) -> Optional[str]:
+        ckpts = sorted(self.results_folder.glob("model-*.ckpt"), key=lambda p: p.stat().st_mtime)
+        return str(ckpts[-1]) if ckpts else None
+
+    def load(self, path) -> None:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        self.ns2.load_state_dict(payload["params"], strict=True)
+        self.optimizer.load_state_dict(payload["opt_state"])  # moves the moments to the params
+        with torch.no_grad():
+            for name, e in self.ema.items():
+                e.copy_(payload["ema_params"][name])
+        self.step = int(payload["step"])
+        self._resume_checked = True
+        if payload.get("version") != __version__:
+            print(f"checkpoint saved with version {payload.get('version')}, "
+                  f"loading into {__version__}")
+
+    # ------------------------------------------------------------------ #
+
+    def train(self, log_every: int = 50, profile_steps: Optional[Tuple[int, int]] = None):
+        """Steps until ``train_num_steps``, resuming first from the newest
+        checkpoint in ``results_folder``. Every ``log_every`` steps a line of
+        metrics (and the step's wall time, host clock, synchronised) goes to
+        ``metrics.jsonl``; every ``save_and_sample_every`` steps an EMA
+        sample and a checkpoint are written."""
+        if profile_steps is not None:
+            raise _not_ported("profile_steps", "item 11")
+        batch = next(self.batches)
+        if not self._resume_checked:
+            self._resume_checked = True
+            latest = self.latest_checkpoint()
+            if latest is not None:
+                print(f"resuming from {latest}")
+                self.load(latest)
+        metrics_path = self.results_folder / "metrics.jsonl"
+        while self.step < self.train_num_steps:
+            prev = self.step
+            start = time.perf_counter()
+            metrics = self.train_step(batch)
+            step_time = time.perf_counter() - start
+            step = self.step
+            if step // log_every > prev // log_every:
+                print(f"step {step}: loss {metrics['loss']:.4f} ({step_time * 1e3:.0f} ms)")
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps({"step": step, "step_time_s": step_time, **metrics}) + "\n")
+            if self.val_batches is not None and step // self.validate_every > prev // self.validate_every:
+                val = self.evaluate()
+                print(f"step {step}: val_loss {val['val_loss']:.4f}")
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps({"step": step, **val}) + "\n")
+            if step // self.save_and_sample_every > prev // self.save_and_sample_every:
+                self.sample_and_save(step // self.save_and_sample_every)
+            batch = next(self.batches)
+        print("training complete")
+
+    def sample_and_save(self, milestone) -> None:
+        """Write ``sample-{milestone}.wav`` (one unconditional sample of
+        ``sample_length`` frames from the EMA weights, seeded with the
+        milestone) and ``model-{milestone}.ckpt``."""
+        if self.ns2.codec is not None:
+            ema_model = copy.deepcopy(self.ns2)
+            with torch.no_grad():
+                for name, p in ema_model.named_parameters():
+                    p.copy_(self.ema[name])
+            generator = torch.Generator(self.device).manual_seed(int(milestone))
+            audio = sample(ema_model, length=self.sample_length, batch_size=1, generator=generator)
+            write_wav(self.results_folder / f"sample-{milestone}.wav", audio[0].cpu().numpy(),
+                      self.ns2.sample_hz)
+        self.save(milestone)

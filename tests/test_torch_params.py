@@ -50,10 +50,14 @@ def test_model_tree_loads_whole(trees):
 
 def test_codec_tree_loads_whole(trees):
     state = load_jax_params(trees[1])
-    encoder = [k for k in trees[1] if k.startswith("encoder")]
-    assert encoder  # present in the tree, dropped: codec encode is not ported
-    assert len(state) == _n_leaves(trees[1]) - sum(_n_leaves(trees[1][k]) for k in encoder)
-    SoundStream(**CODEC_CFG).load_state_dict(state, strict=True)
+    assert len(state) == _n_leaves(trees[1])  # the encoder's leaves included
+    port = SoundStream(**CODEC_CFG)
+    port.load_state_dict(state, strict=True)
+    # the strided encoder conv: flax [k, in, out] becomes [out, in, k]
+    np.testing.assert_array_equal(
+        port.encoder_blocks[2].down.weight.detach().numpy(),
+        trees[1]["encoder_blocks_2"]["Conv_0"]["kernel"].transpose(2, 1, 0),
+    )
 
 
 def test_naturalspeech2_tree_loads_whole(trees):

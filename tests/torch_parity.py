@@ -36,3 +36,22 @@ def t(a) -> torch.Tensor:
 def assert_close(actual, expected, atol: float, rtol: float = 0.0) -> None:
     actual = actual.detach().numpy() if isinstance(actual, torch.Tensor) else np.asarray(actual)
     np.testing.assert_allclose(actual, np.asarray(expected), atol=atol, rtol=rtol)
+
+
+def assert_codes_match(x, codebooks, codes, expected, tie_tol: float) -> np.ndarray:
+    """RVQ codes against expected codes, tie-tolerantly: a row may differ
+    only from a stage where the two candidates' distances to the residual
+    (advanced along the expected codes) are within ``tie_tol``; after that
+    its residuals part ways. Returns the mask of rows that agree
+    everywhere."""
+    x, codebooks = np.asarray(x, np.float64), np.asarray(codebooks, np.float64)
+    codes, expected = np.asarray(codes), np.asarray(expected)
+    assert codes.shape == expected.shape
+    same = (codes == expected).all(axis=1)
+    for row in np.flatnonzero(~same):
+        stage = int(np.flatnonzero(codes[row] != expected[row])[0])
+        residual = x[row] - sum(codebooks[q][expected[row, q]] for q in range(stage))
+        d_got = np.sum((residual - codebooks[stage][codes[row, stage]]) ** 2)
+        d_want = np.sum((residual - codebooks[stage][expected[row, stage]]) ** 2)
+        assert abs(d_got - d_want) <= tie_tol, (row, stage, d_got, d_want)
+    return same
