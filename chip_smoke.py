@@ -27,14 +27,36 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      resume at step 10 with equal state, ms per step, peak memory, and the
      exact launch counts of one optimizer step;
   8. one `NaturalSpeech2.forward` loss and its gradients at b2 x 0.4 s,
-     flagship widths: the card (kernels) against the CPU (plain versions).
-The line before the last is the kernels' JSON summary; the last line is
+     flagship widths: the card (kernels) against the CPU (plain versions);
+  9. the conditional path's kernels against their plain versions: the
+     cross-attention block (K2b) at x [8, 512, 128], ctx [8, 32, 128], and
+     flash attention (K4) at the resampler's [8, 8, 32 | 134, 64] and the
+     prompt encoder's [4, 8, 102, 64]; F.scaled_dot_product_attention is
+     timed beside K4 and K5 as a yardstick the port never calls;
+ 10. the conditional slice: README config 2 (Model dim 128, depth 6,
+     dim_prompt 512, condition_on_prompt; SoundStream; the default
+     conditioning stack) with seeded random weights; `sample()` from
+     prompt audio (4, 32768) and text ids (4, 100), length 512, cond_scale
+     3, 100 DDIM steps: a finite (4, 163840) waveform, wall time, ms per
+     guided denoise step, the time of `conditioning_for_sample`, and
+     exact launch counts;
+ 11. `conditioning_for_sample` and a short conditional sample (2 steps, 48
+     frames, cond_scale 3) on the card against the CPU, with the
+     durations and pitch the card predicted passed to both.
+The line before the last is the kernels' JSON summary (each kernel's
+time, plain time, bound and launches); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
+
+    python3 chip_smoke.py --profile
+
+instead profiles a 10-step conditional sample of README config 2 with
+torch.profiler and prints the device time by kernel.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import math
@@ -73,10 +95,24 @@ GRAD_RTOL = 1e-3
 TRAIN_BATCH, TRAIN_SECONDS, TRAIN_STEPS, SAMPLE_FRAMES = 16, 2.0, 10, 32
 # per optimizer step: the forward runs K1, 6 x K2, 6 x K3 and the codec's
 # RVQ (K6); each K2 backward recomputes the core with K4 and runs K5
-PER_STEP = {"wavenet_body": 1, "attn_block": DEPTH, "ff_block": DEPTH, "flash_forward": DEPTH,
-            "flash_backward": DEPTH, "rvq": 1}
-PER_DENOISE = {"wavenet_body": 1, "attn_block": DEPTH, "ff_block": DEPTH, "flash_forward": 0,
-               "flash_backward": 0, "rvq": 0}
+PER_STEP = {"wavenet_body": 1, "attn_block": DEPTH, "cross_attn_block": 0, "ff_block": DEPTH,
+            "flash_forward": DEPTH, "flash_backward": DEPTH, "rvq": 1}
+PER_DENOISE = {"wavenet_body": 1, "attn_block": DEPTH, "cross_attn_block": 0, "ff_block": DEPTH,
+               "flash_forward": 0, "flash_backward": 0, "rvq": 0}
+# README config 2 and the old bench's conditional leg (bench.py:334-380)
+DIM_PROMPT, NUM_LATENTS, RESAMPLER_DEPTH, PROMPT_DEPTH = 512, 32, 2, 6
+COND_BATCH, TEXT_LEN, PROMPT_SAMPLES, COND_LENGTH, COND_SCALE = 4, 100, 32768, 512, 3.0
+TEXT_LENS = (100, 100, 80, 120)
+# per conditional sample of STEPS guided steps: each runs the denoiser on
+# the doubled batch (K1, 6 x K2, 6 x K2b, 6 x K3, the resampler's 2 x K4);
+# the conditioning runs the prompt encoder's 6 x K4 and the prompt's RVQ
+PER_COND_SAMPLE = {"wavenet_body": STEPS, "attn_block": DEPTH * STEPS,
+                   "cross_attn_block": DEPTH * STEPS, "ff_block": DEPTH * STEPS,
+                   "flash_forward": PROMPT_DEPTH + RESAMPLER_DEPTH * STEPS,
+                   "flash_backward": 0, "rvq": 1}
+# H100 SXM peaks at 700 W (NVIDIA's data sheet): f32 outside the tensor
+# cores, and HBM3
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
 
 def log(phase: str, msg: str) -> None:
@@ -132,53 +168,76 @@ def kernel_cases(gen):
         return torch.randn(shape, generator=gen, device="cuda") * scale
 
     b, n, d, S, L = BATCH, LENGTH, DIM, 4, 8
+    hd, inner = HEADS * DIM_HEAD, int(d * 4 * 2 / 3)
+    out_bytes = b * n * d * 4
     wn = (rn(b, n, d), rn(S, L, 3 * d, d, scale=(3 * d) ** -0.5), rn(S, L, d, scale=0.1),
           rn(S, L, d, d, scale=d**-0.5), rn(S, L, d, scale=0.1), rn(L, d, d, scale=d**-0.5),
           rn(L, d, scale=0.1), 1 + rn(b, S, L, 2 * d, scale=0.1))
-    hd = HEADS * DIM_HEAD
     x, gamma, beta = rn(b, n, d), 1 + rn(b, d, scale=0.1), rn(b, d, scale=0.1)
     wq, wkv, wo = rn(d, hd, scale=d**-0.5), rn(d, 2 * hd, scale=d**-0.5), rn(hd, d, scale=hd**-0.5)
     heads = attn_block_kernel.split_heads(wq, wkv, wo, HEADS, DIM_HEAD)
-    inner = int(d * 4 * 2 / 3)
     w1, b1 = rn(d, 2 * inner, scale=d**-0.5), rn(2 * inner, scale=0.1)
     wc, bc = rn(3, inner, inner, scale=(3 * inner) ** -0.5), rn(inner, scale=0.1)
     w2, b2 = rn(inner, d, scale=inner**-0.5), rn(d, scale=0.1)
     scale = DIM_HEAD**-0.5
+    # multiply-adds of the matrix products, 2 FLOPs each
+    wn_flops = 2 * b * n * d * d * (S * L * 4 + L)
+    attn_flops = 2 * b * n * d * 4 * hd + 4 * b * HEADS * n * n * DIM_HEAD
+    ff_flops = 2 * b * n * (d * 2 * inner + 3 * inner * inner + inner * d)
     return [
         ("wavenet_body", "naturalspeech2_tpu_torch/csrc/wavenet.cu",
          "naturalspeech2_tpu/ops/wavenet_kernel.py:80",
          lambda: wavenet_kernel.wavenet_body(*wn),
-         lambda: wavenet_kernel.wavenet_body_torch(*wn)),
+         lambda: wavenet_kernel.wavenet_body_torch(*wn),
+         bound(wn_flops, nbytes(*wn) + out_bytes)),
         ("attn_block", "naturalspeech2_tpu_torch/csrc/attn_block.cu",
          "naturalspeech2_tpu/ops/attn_block_kernel.py:92",
          lambda: attn_block_kernel.attn_block(x, gamma, beta, wq, wkv, wo, heads=HEADS,
                                               dim_head=DIM_HEAD, scale=scale),
-         lambda: attn_block_kernel.attn_block_torch(x, gamma, beta, *heads, scale=scale)),
+         lambda: attn_block_kernel.attn_block_torch(x, gamma, beta, *heads, scale=scale),
+         bound(attn_flops, nbytes(x, gamma, beta, wq, wkv, wo) + out_bytes)),
         ("ff_block", "naturalspeech2_tpu_torch/csrc/ff_block.cu",
          "naturalspeech2_tpu/ops/ff_block_kernel.py:97",
          lambda: ff_block_kernel.ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2),
          lambda: ff_block_kernel.ff_block_torch(x, gamma, beta, w1[:, :inner], b1[:inner],
-                                                w1[:, inner:], b1[inner:], wc, bc, w2, b2)),
+                                                w1[:, inner:], b1[inner:], wc, bc, w2, b2),
+         bound(ff_flops, nbytes(x, gamma, beta, w1, b1, wc, bc, w2, b2) + out_bytes)),
     ]
 
 
-def flagship(seed: int):
-    """The flagship NaturalSpeech2 on the CPU, seeded noise on every
-    parameter, so no zero or one init hides a layout fault."""
+def flagship(seed: int, conditional: bool = False):
+    """The flagship NaturalSpeech2 on the CPU, or with ``conditional`` README
+    config 2, with seeded noise on every parameter, so no zero or one init
+    hides a layout fault."""
     import torch
 
     import naturalspeech2_tpu_torch as ns2pkg
 
+    cond = dict(dim_prompt=DIM_PROMPT, cond_drop_prob=0.25, condition_on_prompt=True)
     torch.manual_seed(seed)
     with torch.no_grad():
         ns2 = ns2pkg.NaturalSpeech2(
-            ns2pkg.Model(dim=DIM, depth=DEPTH, heads=HEADS, dim_head=DIM_HEAD),
+            ns2pkg.Model(dim=DIM, depth=DEPTH, heads=HEADS, dim_head=DIM_HEAD,
+                         **(cond if conditional else {})),
             ns2pkg.SoundStream(), timesteps=1000,
         )
         jitter = torch.Generator().manual_seed(seed + 1)
         for p in ns2.parameters():
             p.add_(torch.randn(p.shape, generator=jitter) * 0.02)
     return ns2
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, moved: int) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the f32 peak and the bytes (each input read once, each output
+    written once) over the memory rate."""
+    ops_ms, bytes_ms = flops / PEAK_F32_FLOPS * 1e3, moved / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def phase1_card_and_build() -> None:
@@ -208,14 +267,16 @@ def phase2_sampling_kernels() -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     summary = []
-    for name, source, replaces, kernel, plain in kernel_cases(gen):
+    for name, source, replaces, kernel, plain, work in kernel_cases(gen):
         out = kernel()
         torch.cuda.synchronize()
         err = compare("2", name, out, plain(), KERNEL_TOL)
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        log("2", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)")
+        log("2", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20), bound "
+                 f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
         summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work,
+                        "library_ms": None})
     return summary
 
 
@@ -277,31 +338,72 @@ def phase4_5_card_vs_cpu(ns2, ns2_cpu) -> None:
             ns2pkg.sample(ns2_cpu, noise=noise, **short), PATH_TOL)
 
 
-def _flash_timed_cases(gen) -> tuple[list, dict]:
-    """K4 and K5 at the training shape and at n 1024: errors and times."""
+def sdpa_calls(q, k, v, do, scale: float):
+    """One PyTorch call computing K4's function (F.scaled_dot_product_attention)
+    and one computing K5's (its autograd backward), a yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    fwd = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
+    bwd = lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
+    return fwd, bwd
+
+
+def flash_work(b, h, n_q, n_kv, d, backward: bool = False) -> dict:
+    """Bound of K4 (QKᵀ and PV) or K5 (QKᵀ, dO·Vᵀ, dV, dQ, dK), unmasked: the
+    inputs q, k, v (and lse, o, dO) read once, the outputs written once."""
+    q_bytes, kv_bytes, lse_bytes = 4 * b * h * n_q * d, 4 * b * h * n_kv * d, 4 * b * h * n_q
+    if backward:
+        return bound(10 * b * h * n_q * n_kv * d,
+                     3 * q_bytes + 2 * kv_bytes + lse_bytes + q_bytes + 2 * kv_bytes)
+    return bound(4 * b * h * n_q * n_kv * d, q_bytes + 2 * kv_bytes + q_bytes + lse_bytes)
+
+
+def flash_case(phase: str, gen, b, h, n_q, n_kv, d=DIM_HEAD, backward: bool = True):
+    """K4 (and K5) at one shape against the plain versions: errors, the
+    kernels', plain versions' and SDPA's times, and the bounds."""
     import torch
 
     from naturalspeech2_tpu_torch.ops import flash_attention as fa
 
+    q, do = (torch.randn(b, h, n_q, d, generator=gen, device="cuda") for _ in range(2))
+    k, v = (torch.randn(b, h, n_kv, d, generator=gen, device="cuda") for _ in range(2))
+    cfg = dict(causal=False, scale=d**-0.5)
+    fwd = lambda: fa.flash_forward(q, k, v, None, None, **cfg)  # noqa: E731
+    fwd_plain = lambda: fa.flash_forward_torch(q, k, v, None, None, **cfg)  # noqa: E731
+    o, lse = fwd_plain()
+    bwd = lambda: fa.flash_backward(q, k, v, None, None, lse, o, do, **cfg)  # noqa: E731
+    bwd_plain = lambda: fa.flash_backward_torch(q, k, v, None, None, lse, o, do, **cfg)  # noqa: E731
+    lib_fwd, lib_bwd = sdpa_calls(q, k, v, do, cfg["scale"])
+    shape = f"[{b},{h},{n_q},{d}]" if n_q == n_kv else f"[{b},{h},{n_q}|{n_kv},{d}]"
+    cases = [("flash_forward", fwd, fwd_plain, lib_fwd, flash_work(b, h, n_q, n_kv, d))]
+    if backward:
+        cases.append(("flash_backward", bwd, bwd_plain, lib_bwd,
+                      flash_work(b, h, n_q, n_kv, d, backward=True)))
+    results = {}
+    for name, kernel, plain, library, work in cases:
+        out = kernel()
+        torch.cuda.synchronize()
+        err = compare(phase, f"{name} {shape}", out, plain(), KERNEL_TOL)
+        ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+        log(phase, f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                   f"SDPA {lib_ms:.4f} ms (median of 20), bound {work['bound_ms']:.4f} ms "
+                   f"({work['bound_by']})")
+        results[name] = (shape, err, {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                      **work})
+    return results
+
+
+def _flash_timed_cases(gen) -> tuple[dict, dict]:
+    """K4 and K5 at the training shape and at n 1024: errors and times."""
     errs = {"flash_forward": 0.0, "flash_backward": 0.0}
     times = {}
-    for b, h, n, d in ((16, 8, 150, 64), (4, 8, 1024, 64)):
-        q, k, v, do = (torch.randn(b, h, n, d, generator=gen, device="cuda") for _ in range(4))
-        cfg = dict(causal=False, scale=d**-0.5)
-        fwd = lambda: fa.flash_forward(q, k, v, None, None, **cfg)  # noqa: E731
-        fwd_plain = lambda: fa.flash_forward_torch(q, k, v, None, None, **cfg)  # noqa: E731
-        o, lse = fwd_plain()
-        bwd = lambda: fa.flash_backward(q, k, v, None, None, lse, o, do, **cfg)  # noqa: E731
-        bwd_plain = lambda: fa.flash_backward_torch(q, k, v, None, None, lse, o, do, **cfg)  # noqa: E731
-        shape = f"[{b},{h},{n},{d}]"
-        for name, kernel, plain in (("flash_forward", fwd, fwd_plain),
-                                    ("flash_backward", bwd, bwd_plain)):
-            out = kernel()
-            torch.cuda.synchronize()
-            errs[name] = max(errs[name], compare("6", f"{name} {shape}", out, plain(), KERNEL_TOL))
-            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-            log("6", f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)")
-            times.setdefault(name, {})[shape] = {"ms": ms, "plain_ms": plain_ms}
+    for b, h, n, d in ((TRAIN_BATCH, HEADS, 150, DIM_HEAD), (4, HEADS, 1024, DIM_HEAD)):
+        for name, (shape, err, timing) in flash_case("6", gen, b, h, n, n, d).items():
+            errs[name] = max(errs[name], err)
+            times.setdefault(name, {})[shape] = timing
     return errs, times
 
 
@@ -387,9 +489,10 @@ def _rvq_case(gen) -> tuple[float, float, float]:
     err = compare("6", "rvq quantized (agreeing rows)", q[same.cuda()], q_ref[same.cuda()],
                   KERNEL_TOL)
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    work = bound(2 * num_q * m * size * d, nbytes(x, cb, q, codes))
     log("6", f"rvq [{m},{d}] Q{num_q} K{size}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-             "(median of 20)")
-    return err, ms, plain_ms
+             f"(median of 20), bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
+    return err, ms, plain_ms, work
 
 
 def phase6_training_kernels() -> list:
@@ -399,7 +502,7 @@ def phase6_training_kernels() -> list:
     errs, times = _flash_timed_cases(gen)
     for name, err in _flash_masked_dropout_case(gen).items():
         errs[name] = max(errs[name], err)
-    rvq_err, rvq_ms, rvq_plain_ms = _rvq_case(gen)
+    rvq_err, rvq_ms, rvq_plain_ms, rvq_work = _rvq_case(gen)
     train_shape = f"[{TRAIN_BATCH},{HEADS},150,{DIM_HEAD}]"
     summary = []
     for name, source, replaces, also in (
@@ -410,12 +513,11 @@ def phase6_training_kernels() -> list:
             "name": name, "route": "cuda", "source": f"naturalspeech2_tpu_torch/csrc/{source}",
             "replaces": f"naturalspeech2_tpu/ops/flash_attention.py{replaces}",
             "replaces_also": f"naturalspeech2_tpu/ops/flash_attention.py{also}",
-            "max_abs_err": errs[name], "ms": times[name][train_shape]["ms"],
-            "plain_ms": times[name][train_shape]["plain_ms"], "by_shape": times[name],
+            "max_abs_err": errs[name], **times[name][train_shape], "by_shape": times[name],
         })
     summary.append({"name": "rvq", "route": "cuda", "source": "naturalspeech2_tpu_torch/csrc/rvq.cu",
                     "replaces": "naturalspeech2_tpu/ops/rvq.py:60", "max_abs_err": rvq_err,
-                    "ms": rvq_ms, "plain_ms": rvq_plain_ms})
+                    "ms": rvq_ms, "plain_ms": rvq_plain_ms, **rvq_work, "library_ms": None})
     return summary
 
 
@@ -554,9 +656,215 @@ def phase8_loss_card_vs_cpu(ns2, ns2_cpu) -> None:
         raise AssertionError(f"gradient card vs CPU: {worst:.3e} at {worst_name}")
 
 
+def phase9_conditional_kernels() -> tuple[list, dict]:
+    """K2b at the conditional denoiser's shape, and K4 at the resampler's
+    and the prompt encoder's shapes; returns K2b's summary entry and K4's
+    timings by shape."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    # the guided batch is doubled; the context is the 32 resampled latents
+    b, n, m, d, hd = 2 * COND_BATCH, COND_LENGTH, NUM_LATENTS, DIM, HEADS * DIM_HEAD
+    x, ctx = rn(b, n, d), rn(b, m, d)
+    gamma, beta = 1 + rn(b, d, scale=0.1), rn(b, d, scale=0.1)
+    wq, wkv, wo = rn(d, hd, scale=d**-0.5), rn(d, 2 * hd, scale=d**-0.5), rn(hd, d, scale=hd**-0.5)
+    heads = ak.split_heads(wq, wkv, wo, HEADS, DIM_HEAD)
+    scale = DIM_HEAD**-0.5
+    kernel = lambda: ak.cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, heads=HEADS,  # noqa: E731
+                                         dim_head=DIM_HEAD, scale=scale)
+    plain = lambda: ak.cross_attn_block_torch(x, ctx, gamma, beta, *heads, scale=scale)  # noqa: E731
+    out = kernel()
+    torch.cuda.synchronize()
+    err = compare("9", f"cross_attn_block x [{b},{n},{d}] ctx [{b},{m},{d}]", out, plain(),
+                  KERNEL_TOL)
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    flops = 2 * b * n * d * 2 * hd + 2 * b * m * d * 2 * hd + 4 * b * HEADS * n * m * DIM_HEAD
+    work = bound(flops, nbytes(x, ctx, gamma, beta, wq, wkv, wo) + nbytes(out))
+    log("9", f"cross_attn_block: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20), "
+             f"{flops / 1e9:.3f} GFLOP, bound {work['bound_ms']:.4f} ms ({work['bound_by']}), "
+             f"{flops / ms / 1e9:.2f} TFLOP/s")
+    entry = {"name": "cross_attn_block", "route": "cuda",
+             "source": "naturalspeech2_tpu_torch/csrc/cross_attn_block.cu",
+             "replaces": "naturalspeech2_tpu/ops/attn_block_kernel.py:237", "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, **work, "library_ms": None}
+
+    prompt_frames = PROMPT_SAMPLES // 320
+    flash = {}
+    for shape in ((b, HEADS, m, m + prompt_frames), (COND_BATCH, HEADS, prompt_frames,
+                                                      prompt_frames)):
+        for name, (key, err_k4, timing) in flash_case("9", gen, *shape, backward=False).items():
+            flash[key] = (err_k4, timing)
+    return [entry], flash
+
+
+def _conditional_inputs():
+    """Prompt audio (4, 32768) in [-1, 1), text ids (4, 100) in [0, 100)
+    and text_lens, seeded, on the CPU."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 11)
+    prompt = torch.rand(COND_BATCH, PROMPT_SAMPLES, generator=g) * 2 - 1
+    text = torch.randint(0, 100, (COND_BATCH, TEXT_LEN), generator=g)
+    return prompt, text, torch.tensor(TEXT_LENS)
+
+
+def phase10_conditional_sample(ns2) -> dict:
+    """The conditional sampling path; returns its launch counts."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+    from naturalspeech2_tpu_torch.models.denoiser import forward_with_cond_scale
+
+    prompt, text, text_lens = (t.cuda() for t in _conditional_inputs())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    audio = ns2pkg.sample(ns2, length=COND_LENGTH, prompt=prompt, text=text, text_lens=text_lens,
+                          cond_scale=COND_SCALE, timesteps=STEPS, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = ops.launch_counts()
+    samples = COND_LENGTH * 320
+    if tuple(audio.shape) != (COND_BATCH, samples):
+        raise AssertionError(f"conditional sample: shape {tuple(audio.shape)}")
+    if not torch.isfinite(audio).all():
+        raise AssertionError("conditional sample: non-finite waveform")
+    seconds = COND_BATCH * samples / 24000
+    log("10", f"sample(prompt (4, {PROMPT_SAMPLES}), text (4, {TEXT_LEN}), length={COND_LENGTH}, "
+              f"cond_scale={COND_SCALE:g}, timesteps={STEPS}): waveform {tuple(audio.shape)} "
+              f"finite, |audio| max {audio.abs().max().item():.4f}; wall {wall:.3f} s incl. "
+              f"conditioning and codec decode for {seconds:.2f} s of audio: "
+              f"{seconds / wall:.2f}x real time")
+    log("10", f"launch counts {counts}, expected {PER_COND_SAMPLE}")
+    if counts != PER_COND_SAMPLE:
+        raise AssertionError(f"launch counts {counts} != {PER_COND_SAMPLE}")
+
+    with torch.no_grad():
+        cond_ms = cuda_ms(lambda: ns2.conditioning_for_sample(prompt, text, text_lens,
+                                                              COND_LENGTH), reps=5, warmup=1)
+        prompt_enc, cond, duration = ns2.conditioning_for_sample(prompt, text, text_lens,
+                                                                 COND_LENGTH)
+        x = torch.randn(COND_BATCH, COND_LENGTH, DIM, generator=gen, device="cuda")
+        times = torch.full((COND_BATCH,), 0.5, device="cuda")
+        step_ms = cuda_ms(lambda: forward_with_cond_scale(
+            ns2.model, x, times, prompt=prompt_enc, cond=cond, cond_scale=COND_SCALE), reps=10)
+        decode_ms = cuda_ms(lambda: ns2.codec.decode(x), reps=3, warmup=1)
+    frames = duration.to(torch.int32).sum(dim=-1).tolist()
+    log("10", f"conditioning_for_sample {cond_ms:.3f} ms (median of 5; prompt encoding "
+              f"{tuple(prompt_enc.shape)}, predicted frames per row {frames}); guided denoise "
+              f"step {step_ms:.3f} ms (median of 10, batch {2 * COND_BATCH}); codec decode "
+              f"{decode_ms:.3f} ms (median of 3)")
+    return counts
+
+
+def phase11_conditional_card_vs_cpu(ns2, ns2_cpu) -> None:
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+
+    prompt, text, _ = _conditional_inputs()
+    length = 48  # off every kernel's tile
+    results = []
+    with torch.no_grad():
+        for model, device in ((ns2, "cuda"), (ns2_cpu, "cpu")):
+            model.eval()
+            p, t = prompt.to(device), text.to(device)
+            prompt_enc = model.prompt_enc(model.process_prompt(p))
+            duration, pitch = model.duration_pitch(model.phoneme_enc(t), prompt_enc)
+            results.append([prompt_enc, duration, pitch])
+    (enc_card, dur_card, pitch_card), (enc_cpu, dur_cpu, pitch_cpu) = results
+    compare("11", "prompt encoding, card vs CPU", enc_card, enc_cpu, PATH_TOL)
+    compare("11", "duration prediction (frames), card vs CPU", dur_card, dur_cpu, PATH_TOL)
+    compare("11", "pitch prediction (log1p Hz), card vs CPU", pitch_card, pitch_cpu, PATH_TOL)
+
+    # the card's predictions fix the integer frame layout on both sides
+    duration, pitch = dur_card.cpu(), torch.expm1(pitch_card).cpu()
+    fixed = dict(pitch=pitch, duration=duration)
+    with torch.no_grad():
+        conds = [model.conditioning_for_sample(prompt.to(device), text.to(device), None, length,
+                                               **{k: v.to(device) for k, v in fixed.items()})[1]
+                 for model, device in ((ns2, "cuda"), (ns2_cpu, "cpu"))]
+    compare("11", f"cond [{COND_BATCH},{length},{DIM_PROMPT}], card vs CPU", *conds, PATH_TOL)
+    log("11", f"predicted frames per row {duration.to(torch.int32).sum(-1).tolist()}, cut to "
+              f"{length}")
+    noise = torch.randn(COND_BATCH, length, DIM, generator=torch.Generator().manual_seed(SEED + 13))
+    short = dict(length=length, timesteps=2, cond_scale=COND_SCALE)
+    waves = [ns2pkg.sample(model, prompt=prompt.to(device), text=text.to(device),
+                           noise=noise.to(device), **short,
+                           **{k: v.to(device) for k, v in fixed.items()})
+             for model, device in ((ns2, "cuda"), (ns2_cpu, "cpu"))]
+    compare("11", f"conditional sample 2 steps x {length} frames, card vs CPU", *waves, PATH_TOL)
+
+
+def _profile(label: str, fn) -> None:
+    """torch.profiler around ``fn()`` (after one warm-up call): wall time,
+    the device's busy share and the device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    # device-side events only (kernels, copies): the operators that launch
+    # them report the same device time again
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log("profile", f"{label}: wall {wall_ms:.2f} ms (profiled), device busy {busy_ms:.2f} ms "
+                   f"({100 * busy_ms / wall_ms:.1f} %)")
+    for e in kernels[:20]:
+        log("profile", f"{e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d} calls  "
+                       f"{e.key[:100]}")
+
+
+def profile_conditional() -> int:
+    """torch.profiler over a 10-step conditional sample of README config 2,
+    and over 10 guided denoise steps alone."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch.models.denoiser import forward_with_cond_scale
+
+    phase1_card_and_build()
+    ns2 = flagship(SEED + 30, conditional=True).cuda().eval()
+    prompt, text, text_lens = (t.cuda() for t in _conditional_inputs())
+    kwargs = dict(length=COND_LENGTH, prompt=prompt, text=text, text_lens=text_lens,
+                  cond_scale=COND_SCALE, timesteps=10)
+    _profile("10-step conditional sample", lambda: ns2pkg.sample(ns2, **kwargs))
+    with torch.no_grad():
+        prompt_enc, cond, _ = ns2.conditioning_for_sample(prompt, text, text_lens, COND_LENGTH)
+        x = torch.randn(COND_BATCH, COND_LENGTH, DIM, device="cuda")
+        times = torch.full((COND_BATCH,), 0.5, device="cuda")
+
+        def steps():
+            for _ in range(10):
+                forward_with_cond_scale(ns2.model, x, times, prompt=prompt_enc, cond=cond,
+                                        cond_scale=COND_SCALE)
+
+        _profile("10 guided denoise steps", steps)
+    return 0
+
+
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="profile a 10-step conditional sample instead of the smoke run")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
@@ -565,6 +873,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
+    if args.profile:
+        return profile_conditional()
 
     phase1_card_and_build()
     summary = phase2_sampling_kernels()
@@ -576,11 +886,30 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         train_counts = phase7_train(Path(work))
     phase8_loss_card_vs_cpu(ns2, ns2_cpu)
+    del ns2, ns2_cpu
+
+    cross, flash_shapes = phase9_conditional_kernels()
+    summary += cross
+    for entry in summary:
+        if entry["name"] == "flash_forward":
+            for shape, (err, timing) in flash_shapes.items():
+                entry["by_shape"][shape] = timing
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    cond_cpu = flagship(SEED + 30, conditional=True)
+    cond = copy.deepcopy(cond_cpu).cuda()
+    cond_counts = phase10_conditional_sample(cond)
+    phase11_conditional_card_vs_cpu(cond, cond_cpu)
 
     for entry in summary:
-        by_path = {"sample": sample_counts[entry["name"]], "train": train_counts[entry["name"]]}
+        by_path = {"sample": sample_counts[entry["name"]], "train": train_counts[entry["name"]],
+                   "conditional_sample": cond_counts[entry["name"]]}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
+        missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
+                               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+                   if k not in entry]
+        if missing:
+            raise AssertionError(f"{entry['name']}: summary lacks {missing}")
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

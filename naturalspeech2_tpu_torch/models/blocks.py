@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -64,34 +65,93 @@ class CausalConv1d(nn.Module):
         return self.conv(x).transpose(1, 2)
 
 
-class FeedForward(nn.Module):
-    """GEGLU MLP with a causal k=3 conv between gate and out-projection,
-    as one pre-norm residual block: ``x + FF(adaRMSNorm(x))`` through
-    kernel K3.
+class ConvUnit(nn.Module):
+    """Conv(k, same) → GroupNorm(groups, eps 1e-5) → SiLU → dropout;
+    input and output ``[b, n, d]``."""
 
-    The weights keep the JAX layouts the kernel consumes: ``w1`` [dim,
-    2·inner] (value half first), ``wc`` [3, inner, inner], ``w2``
-    [inner, dim], with ``inner = int(dim·mult·2/3)``.
+    def __init__(self, dim_in: int, dim_out: int, kernel: int = 3, groups: int = 8,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.conv = nn.Conv1d(dim_in, dim_out, kernel, padding=kernel // 2)
+        self.norm = nn.GroupNorm(groups, dim_out, eps=1e-5)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.silu(self.norm(self.conv(x.transpose(1, 2)))).transpose(1, 2)
+        return self.dropout(x)
+
+
+class ResnetBlock(nn.Module):
+    """``num_convs`` ConvUnits plus the input, projected by a 1×1 conv
+    when the widths differ."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel: int, dropout: float = 0.0,
+                 groups: int = 8, num_convs: int = 2):
+        super().__init__()
+        self.units = nn.ModuleList(
+            ConvUnit(dim_in if i == 0 else dim_out, dim_out, kernel, groups, dropout)
+            for i in range(num_convs)
+        )
+        self.res_conv = nn.Conv1d(dim_in, dim_out, 1) if dim_in != dim_out else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for unit in self.units:
+            h = unit(h)
+        if self.res_conv is not None:
+            x = self.res_conv(x.transpose(1, 2)).transpose(1, 2)
+        return h + x
+
+
+class ConvBlock(nn.Module):
+    """Conv(k, same) → SiLU → dropout, no norm."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel: int, dropout: float = 0.0):
+        super().__init__()
+        self.conv = nn.Conv1d(dim_in, dim_out, kernel, padding=kernel // 2)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dropout(F.silu(self.conv(x.transpose(1, 2)).transpose(1, 2)))
+
+
+class FeedForward(nn.Module):
+    """GEGLU MLP, ``inner = int(dim·mult·2/3)``, in one of two routes:
+
+    - ``causal_conv=True``, the denoiser's block: a causal k=3 conv between
+      gate and out-projection, as one pre-norm residual block
+      ``x + FF(adaRMSNorm(x))`` through kernel K3, called as
+      ``ff(x, gamma, beta)``;
+    - ``causal_conv=False``, the encoders' plain MLP
+      ``W₂·(gelu(x·W_g + b_g) ∘ (x·W_v + b_v)) + b₂`` with no norm and no
+      residual, called as ``ff(x)``.
+
+    The weights keep the JAX layouts: ``w1`` [dim, 2·inner] (value half
+    first), ``wc`` [3, inner, inner], ``w2`` [inner, dim].
     """
 
     def __init__(self, dim: int, mult: int = 4, causal_conv: bool = True,
                  gelu_approximate: bool = True):
         super().__init__()
-        if not causal_conv:
+        if causal_conv and not gelu_approximate:
             raise NotImplementedError(
-                "FeedForward(causal_conv=False) is not ported yet (ROADMAP Queue 1, slice 4)"
+                "gelu_approximate=False in the causal-conv block is not ported yet "
+                "(ROADMAP Queue 1, option list)"
             )
-        if not gelu_approximate:
-            raise NotImplementedError(
-                "gelu_approximate=False is not ported yet (ROADMAP Queue 1, option list)"
-            )
+        self.causal_conv = causal_conv
+        self.approximate = "tanh" if gelu_approximate else "none"
         inner = int(dim * mult * 2 / 3)
         self.w1 = nn.Parameter(torch.randn(dim, 2 * inner) / math.sqrt(dim))
         self.b1 = nn.Parameter(torch.zeros(2 * inner))
-        self.wc = nn.Parameter(torch.randn(3, inner, inner) / math.sqrt(3 * inner))
-        self.bc = nn.Parameter(torch.zeros(inner))
+        if causal_conv:
+            self.wc = nn.Parameter(torch.randn(3, inner, inner) / math.sqrt(3 * inner))
+            self.bc = nn.Parameter(torch.zeros(inner))
         self.w2 = nn.Parameter(torch.randn(inner, dim) / math.sqrt(inner))
         self.b2 = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-        return ff_block(x, gamma, beta, self.w1, self.b1, self.wc, self.bc, self.w2, self.b2)
+    def forward(self, x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
+                beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.causal_conv:
+            return ff_block(x, gamma, beta, self.w1, self.b1, self.wc, self.bc, self.w2, self.b2)
+        val, gate = (x @ self.w1 + self.b1).chunk(2, dim=-1)
+        return (F.gelu(gate, approximate=self.approximate) * val) @ self.w2 + self.b2

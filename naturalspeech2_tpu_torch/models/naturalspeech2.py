@@ -1,8 +1,11 @@
 """NaturalSpeech 2: diffusion over codec latents. The unconditional
 training losses (`NaturalSpeech2.forward`, the twin of
-`NaturalSpeech2.__call__`), and sampling by DDIM then codec decode (twins
-of `get_sampling_time_pairs`, `_reconstruct_x0`, `ddim_sample` and the
-unconditional `sample()` in `naturalspeech2_tpu/models/naturalspeech2.py`).
+`NaturalSpeech2.__call__`); the conditioning stack of zero-shot TTS
+(prompt and phoneme encoders, duration / pitch prediction, the aligned
+frame condition: `conditioning_for_sample`); and sampling by DDIM with
+batch-doubled classifier-free guidance, then codec decode (twins of
+`get_sampling_time_pairs`, `_reconstruct_x0`, `ddim_sample` and `sample()`
+in `naturalspeech2_tpu/models/naturalspeech2.py`).
 
 Randomness is explicit: the diffusion times and noise, and the samplers'
 starting noise, are drawn from a ``torch.Generator`` or taken as
@@ -11,20 +14,55 @@ starting noise, are drawn from a ``torch.Generator`` or taken as
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from naturalspeech2_tpu_torch.models.aligner import AlignerNet
 from naturalspeech2_tpu_torch.models.codec import SoundStream
 from naturalspeech2_tpu_torch.models.denoiser import Model, forward_with_cond_scale
+from naturalspeech2_tpu_torch.models.encoders import (
+    DurationPitchPredictor,
+    PhonemeEncoder,
+    SpeechPromptEncoder,
+)
+from naturalspeech2_tpu_torch.ops.pitch import f0_to_coarse
 from naturalspeech2_tpu_torch.ops.schedules import gamma_to_alpha_sigma, get_schedule
-from naturalspeech2_tpu_torch.utils.helpers import safe_div
+from naturalspeech2_tpu_torch.utils.helpers import (
+    create_mask,
+    generate_mask_from_repeats,
+    safe_div,
+)
+
+_CONDITIONAL_TRAINING = "ROADMAP Queue 1, item 15 (conditional training)"
+
+
+@contextlib.contextmanager
+def _eval_mode(module: nn.Module):
+    """Run with every submodule in eval mode (no dropout), then restore
+    each one's mode: the JAX package's ``deterministic=True``."""
+    modes = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        yield
+    finally:
+        for m, training in modes:
+            m.training = training
 
 
 class NaturalSpeech2(nn.Module):
     """Holds the denoiser, the codec and the diffusion settings; its
-    forward returns the training losses."""
+    forward returns the unconditional training losses.
+
+    With ``model.condition_on_prompt`` it also holds the conditioning
+    stack, sized as the JAX package's defaults unless the ``*_kwargs``
+    override them: `PhonemeEncoder`, `SpeechPromptEncoder`,
+    `DurationPitchPredictor`, the aligner's network and the pitch
+    embedding. ``pitch_space="log"`` means the pitch trunk predicts
+    log1p(F0 Hz).
+    """
 
     def __init__(
         self,
@@ -40,6 +78,19 @@ class NaturalSpeech2(nn.Module):
         min_snr_loss_weight: bool = True,
         min_snr_gamma: float = 5.0,
         rvq_cross_entropy_loss_weight: float = 0.0,
+        dim_codebook: int = 128,
+        duration_pitch_dim: int = 512,
+        aligner_dim_in: int = 80,
+        aligner_dim_hidden: int = 512,
+        aligner_attn_channels: int = 80,
+        num_phoneme_tokens: int = 150,
+        pitch_emb_dim: int = 256,
+        pitch_emb_pp_hidden_dim: int = 512,
+        pitch_space: str = "log",
+        mask_phoneme_encoder: bool = False,
+        phoneme_enc_kwargs: Optional[dict] = None,
+        prompt_enc_kwargs: Optional[dict] = None,
+        duration_pitch_kwargs: Optional[dict] = None,
     ):
         super().__init__()
         name = sampler or ("ddim" if use_ddim else "ddpm")
@@ -68,6 +119,33 @@ class NaturalSpeech2(nn.Module):
         self.min_snr_loss_weight = min_snr_loss_weight
         self.min_snr_gamma = min_snr_gamma
         self.rvq_cross_entropy_loss_weight = rvq_cross_entropy_loss_weight
+        if pitch_space not in ("log", "hz"):
+            raise ValueError(f"pitch_space must be 'log' or 'hz', got {pitch_space!r}")
+        self.pitch_space = pitch_space
+        self.mask_phoneme_encoder = mask_phoneme_encoder
+        if self.conditional:
+            self.phoneme_enc = PhonemeEncoder(num_tokens=num_phoneme_tokens,
+                                              **(phoneme_enc_kwargs or {}))
+            self.prompt_enc = SpeechPromptEncoder(
+                dim_codebook=codec.codebook_dim if codec is not None else dim_codebook,
+                **(prompt_enc_kwargs or {}),
+            )
+            self.duration_pitch = DurationPitchPredictor(dim=duration_pitch_dim,
+                                                         **(duration_pitch_kwargs or {}))
+            self.aligner = AlignerNet(dim_in=aligner_dim_in, dim_hidden=aligner_dim_hidden,
+                                      attn_channels=aligner_attn_channels)
+            self.pitch_emb = nn.Embedding(pitch_emb_dim, pitch_emb_pp_hidden_dim)
+            widths = {"prompt encoding": self.prompt_enc.dim_out,
+                      "phoneme encoding": self.phoneme_enc.conv.conv.out_channels,
+                      "model's prompt input": model.to_prompt_cond.in_features,
+                      "pitch embedding": pitch_emb_pp_hidden_dim,
+                      "model's frame condition": model.cond_to_model_dim.in_features}
+            if len(set(widths.values())) != 1:
+                raise ValueError(f"the conditioning widths must agree: {widths}")
+
+    @property
+    def conditional(self) -> bool:
+        return self.model.condition_on_prompt
 
     @property
     def dim(self) -> int:
@@ -96,6 +174,10 @@ class NaturalSpeech2(nn.Module):
         [b, n, dim]. ``times`` [b] and ``noise`` [b, n, dim] are drawn from
         ``generator`` unless given.
         """
+        if self.conditional:
+            raise NotImplementedError(
+                f"the conditional training forward is not ported yet ({_CONDITIONAL_TRAINING})"
+            )
         codes = None
         if audio.ndim == 2:
             if self.codec is None:
@@ -141,6 +223,66 @@ class NaturalSpeech2(nn.Module):
             losses["rvq_ce"] = ce
             losses["loss"] = diffusion + self.rvq_cross_entropy_loss_weight * ce
         return losses
+
+    # ------------------------------------------------------------------ #
+    # conditioning for sampling
+    # ------------------------------------------------------------------ #
+
+    def process_prompt(self, prompt: torch.Tensor) -> torch.Tensor:
+        """Raw prompt audio [b, T] → codec latents [b, T // hop, dim]
+        (the last whole frames), without gradient; 3-D latents pass
+        through."""
+        if prompt.ndim == 2:
+            if self.codec is None:
+                raise ValueError("raw prompt audio needs a codec")
+            with torch.no_grad():
+                prompt, _, _ = self.codec(prompt, return_encoded=True, curtail_from_left=True)
+        return prompt
+
+    def expand_encodings(self, phoneme_enc: torch.Tensor, attn: torch.Tensor,
+                         pitch: torch.Tensor) -> torch.Tensor:
+        """Phoneme encodings [b, t_x, d] and the pitch embedding of
+        ``pitch`` [b, 1, t_x] (Hz), expanded to frames through the alignment
+        ``attn`` [b, t_x, n] (float): [b, n, d]."""
+        expanded_dur = torch.einsum("btn,btd->bnd", attn, phoneme_enc)
+        pitch_emb = self.pitch_emb(f0_to_coarse(pitch[:, 0],
+                                                f0_bin=self.pitch_emb.num_embeddings))
+        return expanded_dur + torch.einsum("btn,btd->bnd", attn, pitch_emb)
+
+    def conditioning_for_sample(
+        self,
+        prompt: torch.Tensor,
+        text: torch.Tensor,
+        text_lens: Optional[torch.Tensor] = None,
+        max_frames: Optional[int] = None,
+        pitch: Optional[torch.Tensor] = None,
+        duration: Optional[torch.Tensor] = None,
+    ):
+        """Encode the prompt (raw audio [b, T] or latents) and the phoneme
+        ids ``text`` [b, t_x], predict duration and pitch, and expand the
+        text to ``max_frames`` frames (default 2·t_x): ``(prompt_enc,
+        cond, duration)``. ``pitch`` (F0 Hz) and ``duration`` (frames),
+        each [b, t_x], replace the predictions. Float durations are
+        truncated. Runs without dropout whatever the module's mode."""
+        if not self.conditional:
+            raise ValueError("conditioning needs a Model with condition_on_prompt=True")
+        with _eval_mode(self):
+            prompt_enc = self.prompt_enc(self.process_prompt(prompt))
+            text_mask = None
+            if self.mask_phoneme_encoder and text_lens is not None:
+                width = text.shape[-1]
+                text_mask = create_mask(text_lens.clamp(max=width), width)
+            phoneme_enc = self.phoneme_enc(text, mask=text_mask)
+            duration_pred, pitch_pred = self.duration_pitch(phoneme_enc, prompt_enc)
+        if duration is None:
+            duration = duration_pred
+        if pitch is None:  # the prediction → Hz; an explicit pitch is in Hz
+            pitch = torch.expm1(pitch_pred) if self.pitch_space == "log" else pitch_pred
+        if max_frames is None:
+            max_frames = text.shape[-1] * 2
+        aln_mask = generate_mask_from_repeats(duration, max_frames).to(phoneme_enc.dtype)
+        cond = self.expand_encodings(phoneme_enc, aln_mask, pitch[:, None, :])
+        return prompt_enc, cond, duration
 
 
 def get_sampling_time_pairs(timesteps: int, device=None) -> torch.Tensor:
@@ -213,35 +355,69 @@ def sample(
     timesteps: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
-    prompt=None,
+    prompt: Optional[torch.Tensor] = None,
     text=None,
+    text_lens: Optional[torch.Tensor] = None,
+    cond_scale: float = 1.0,
+    cfg_rescale: float = 0.0,
+    cfg_interval: Optional[Tuple[float, float]] = None,
+    pitch: Optional[torch.Tensor] = None,
+    duration: Optional[torch.Tensor] = None,
     dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """Unconditional sampling: DDIM over ``[batch_size, length, dim]``
-    latents, then codec decode to ``[batch_size, length·hop]`` audio (the
-    latents if ``ns2`` has no codec). Runs on the device of ``ns2``'s
-    parameters; ``timesteps`` overrides the configured step count."""
-    if prompt is not None or text is not None:
+    """DDIM over ``[batch_size, length, dim]`` latents, then codec decode
+    to ``[batch_size, length·hop]`` audio (the latents if ``ns2`` has no
+    codec). Runs on the device of ``ns2``'s parameters, without dropout;
+    ``timesteps`` overrides the configured step count.
+
+    A conditional ``ns2`` takes the speech ``prompt`` (raw audio [b, T] or
+    latents) and phoneme ids ``text`` [b, t_x]; the batch is the prompt's.
+    ``cond_scale`` ≠ 1 guides every step with one batch-doubled forward,
+    or only the steps whose time lies in ``cfg_interval=(lo, hi)``;
+    ``cfg_rescale``, ``pitch`` and ``duration`` are as in
+    `forward_with_cond_scale` and `NaturalSpeech2.conditioning_for_sample`.
+    """
+    if isinstance(text, (list, tuple)) and text and isinstance(text[0], str):
         raise NotImplementedError(
-            "conditional sampling (prompt/text) is not ported yet (ROADMAP Queue 1, slice 4)"
+            "text as strings needs the tokenizer, which is not ported yet (ROADMAP Queue 1, "
+            "item 16); pass phoneme ids"
         )
     if dtype not in (None, torch.float32):
         raise NotImplementedError(
             f"sampling in {dtype} is not ported yet (ROADMAP Queue 1, option list)"
         )
     device = next(ns2.parameters()).device
-    latents = ddim_sample(
-        lambda audio, times: forward_with_cond_scale(ns2.model, audio, times),
-        (batch_size, length, ns2.dim),
-        timesteps=timesteps if timesteps is not None else ns2.timesteps,
-        gamma_schedule=ns2.gamma_schedule,
-        objective=ns2.objective,
-        scale=ns2.scale,
-        time_difference=ns2.time_difference,
-        device=device,
-        generator=generator,
-        noise=noise,
-    )
-    if ns2.codec is None:
-        return latents
-    return ns2.codec.decode(latents)
+    prompt_enc = cond = None
+    with _eval_mode(ns2):
+        if ns2.conditional:
+            if prompt is None or text is None:
+                raise ValueError("a conditional model samples from prompt= and text=")
+            prompt_enc, cond, _ = ns2.conditioning_for_sample(
+                prompt, text, text_lens, length, pitch, duration)
+            batch_size = prompt.shape[0]
+
+        def denoise_fn(audio, times):
+            scale = cond_scale
+            if cfg_interval is not None and ns2.conditional and cond_scale != 1.0:
+                lo, hi = cfg_interval
+                if not lo <= times[0].item() <= hi:
+                    scale = 1.0  # one conditional forward, no null half
+            return forward_with_cond_scale(ns2.model, audio, times, prompt=prompt_enc,
+                                           cond=cond, cond_scale=scale,
+                                           cfg_rescale=cfg_rescale)
+
+        latents = ddim_sample(
+            denoise_fn,
+            (batch_size, length, ns2.dim),
+            timesteps=timesteps if timesteps is not None else ns2.timesteps,
+            gamma_schedule=ns2.gamma_schedule,
+            objective=ns2.objective,
+            scale=ns2.scale,
+            time_difference=ns2.time_difference,
+            device=device,
+            generator=generator,
+            noise=noise,
+        )
+        if ns2.codec is None:
+            return latents
+        return ns2.codec.decode(latents)

@@ -1,11 +1,14 @@
-"""Adaptive-RMSNorm transformer of the denoiser (twins of `Attention` and
-`ConditionableTransformer` in `naturalspeech2_tpu/models/transformer.py`),
-``[b, n, d]`` layout.
+"""Attention and transformer stacks, ``[b, n, d]`` layout (twins of
+`Attention`, `Transformer` and `ConditionableTransformer` in
+`naturalspeech2_tpu/models/transformer.py`).
 
-Each layer is a pre-norm self-attention block (kernel K2) and a pre-norm
-GEGLU + causal-conv feed-forward block (kernel K3), both residual, with
+The denoiser's adaptive transformer runs, per layer, a pre-norm
+self-attention block (kernel K2), with ``cross_attn`` a pre-norm
+cross-attention block to the prompt latents (kernel K2b), and a pre-norm
+GEGLU + causal-conv feed-forward block (kernel K3), all residual, with
 every norm's γ/β computed from the time condition by one stacked einsum;
-the head is RMSNorm + a bias-free Linear.
+the head is RMSNorm + a bias-free Linear. The encoders' `Transformer` is
+pre-RMSNorm attention (masked, flash K4 or plain) and a plain GEGLU MLP.
 """
 
 from __future__ import annotations
@@ -17,33 +20,103 @@ import torch
 from torch import nn
 
 from naturalspeech2_tpu_torch.models.blocks import FeedForward, RMSNorm
-from naturalspeech2_tpu_torch.ops.attn_block_kernel import attn_block
+from naturalspeech2_tpu_torch.ops.attention import attend
+from naturalspeech2_tpu_torch.ops.attn_block_kernel import attn_block, cross_attn_block
 
 
 class Attention(nn.Module):
-    """Pre-norm residual self-attention, ``x + attn(adaRMSNorm(x))``,
-    through kernel K2. The projections keep the JAX Dense layouts the
-    kernel consumes: to_q [dim, H·dh], to_kv [dim, 2·H·dh] (k first),
-    to_out [H·dh, dim], all without bias."""
+    """Multi-head attention with the JAX Dense layouts, all without bias:
+    to_q [dim, H·dh], to_kv [dim_context, 2·H·dh] (k first), to_out
+    [H·dh, dim].
 
-    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8):
+    ``attn(x, gamma, beta)`` is the pre-norm residual block
+    ``x + attn(adaRMSNorm(x))``: kernel K2, or K2b with ``context=``. It
+    takes no mask, causal masking or dropout. ``attn(x, context=...,
+    mask=...)`` without γ/β is plain attention (no norm, no residual)
+    through flash attention (K4/K5) if ``use_flash``, else plain PyTorch.
+    ``cross_attn_include_queries`` prepends x to the context and left-pads
+    the key mask with True, as the JAX package does.
+    """
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, *,
+                 dim_context: Optional[int] = None, causal: bool = False, dropout: float = 0.0,
+                 use_flash: bool = False, cross_attn_include_queries: bool = False):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.causal, self.dropout, self.use_flash = causal, dropout, use_flash
+        self.include_queries = cross_attn_include_queries
         inner = dim_head * heads
+        dim_context = dim_context or dim
         self.to_q = nn.Parameter(torch.randn(dim, inner) / math.sqrt(dim))
-        self.to_kv = nn.Parameter(torch.randn(dim, 2 * inner) / math.sqrt(dim))
+        self.to_kv = nn.Parameter(torch.randn(dim_context, 2 * inner) / math.sqrt(dim_context))
         self.to_out = nn.Parameter(torch.randn(inner, dim) / math.sqrt(inner))
 
-    def forward(self, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-        return attn_block(
-            x, gamma, beta, self.to_q, self.to_kv, self.to_out,
-            heads=self.heads, dim_head=self.dim_head, scale=self.dim_head**-0.5,
+    def forward(self, x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
+                beta: Optional[torch.Tensor] = None, *, context: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h, dh = self.heads, self.dim_head
+        if gamma is not None:
+            if mask is not None or self.causal or self.include_queries:
+                raise ValueError("the pre-norm attention block takes no mask, causal masking "
+                                 "or queries in its context")
+            cfg = dict(heads=h, dim_head=dh, scale=dh**-0.5)
+            if context is None:
+                return attn_block(x, gamma, beta, self.to_q, self.to_kv, self.to_out, **cfg)
+            return cross_attn_block(x, context.contiguous(), gamma, beta, self.to_q, self.to_kv,
+                                    self.to_out, **cfg)
+
+        ctx = x if context is None else context
+        if context is not None and self.include_queries:
+            ctx = torch.cat([x, ctx], dim=-2)
+            if mask is not None:
+                mask = nn.functional.pad(mask, (x.shape[-2], 0), value=True)
+        k, v = (ctx @ self.to_kv).chunk(2, dim=-1)
+
+        def split_heads(t):
+            b, n, _ = t.shape
+            return t.reshape(b, n, h, dh).transpose(1, 2).contiguous()
+
+        out = attend(
+            split_heads(x @ self.to_q), split_heads(k), split_heads(v), mask=mask,
+            causal=self.causal, scale=dh**-0.5,
+            dropout=self.dropout if self.training else 0.0,
+            backend="flash" if self.use_flash else "xla",
         )
+        b, _, n, _ = out.shape
+        return out.transpose(1, 2).reshape(b, n, h * dh) @ self.to_out
+
+
+class Transformer(nn.Module):
+    """Pre-norm encoder: depth × [RMSNorm → attention, RMSNorm → GEGLU
+    MLP], both residual."""
+
+    def __init__(self, dim: int, depth: int, *, dim_head: int = 64, heads: int = 8,
+                 use_flash: bool = False, dropout: float = 0.0, ff_mult: int = 4,
+                 gelu_approximate: bool = True):
+        super().__init__()
+        self.attn_norm = nn.ModuleList(RMSNorm(dim) for _ in range(depth))
+        self.attn = nn.ModuleList(
+            Attention(dim, dim_head, heads, dropout=dropout, use_flash=use_flash)
+            for _ in range(depth)
+        )
+        self.ff_norm = nn.ModuleList(RMSNorm(dim) for _ in range(depth))
+        self.ff = nn.ModuleList(
+            FeedForward(dim, mult=ff_mult, causal_conv=False, gelu_approximate=gelu_approximate)
+            for _ in range(depth)
+        )
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for attn_norm, attn, ff_norm, ff in zip(self.attn_norm, self.attn, self.ff_norm, self.ff):
+            x = attn(attn_norm(x), mask=mask) + x
+            x = ff(ff_norm(x)) + x
+        return x
 
 
 class ConditionableTransformer(nn.Module):
-    """Unrolled adaptive transformer: per layer adaRMSNorm(t)→self-attn and
-    adaRMSNorm(t)→FF(causal conv), then RMSNorm + Linear."""
+    """Unrolled adaptive transformer: per layer adaRMSNorm(t)→self-attn,
+    with ``cross_attn`` adaRMSNorm(t)→cross-attn(context), and
+    adaRMSNorm(t)→FF(causal conv), then RMSNorm + Linear. The stacked
+    norms are ordered [self, cross, ff] per layer."""
 
     def __init__(
         self,
@@ -60,21 +133,23 @@ class ConditionableTransformer(nn.Module):
         gelu_approximate: bool = True,
     ):
         super().__init__()
-        if cross_attn:
-            raise NotImplementedError(
-                "cross_attn=True is not ported yet (ROADMAP Queue 1, slice 4; kernel K2b)"
-            )
         if dim_cond_mult is None:
             raise NotImplementedError(
                 "the unconditioned transformer (dim_cond_mult=None) is not ported yet "
-                "(ROADMAP Queue 1, slice 4)"
+                "(ROADMAP Queue 1, item 5)"
+            )
+        if not ff_causal_conv:
+            raise NotImplementedError(
+                "ff_causal_conv=False in the adaptive transformer is not ported yet "
+                "(ROADMAP Queue 1, item 5)"
             )
         if scan_layers:
             raise NotImplementedError("scan_layers=True is not ported yet (ROADMAP Queue 1, option list)")
         if not use_flash:
             raise NotImplementedError("use_flash=False is not ported yet (ROADMAP Queue 1, option list)")
         self.dim, self.depth = dim, depth
-        n_norms = depth * 2  # [attn, ff] per layer
+        self.norms_per_layer = 3 if cross_attn else 2
+        n_norms = depth * self.norms_per_layer
         dim_cond = dim * dim_cond_mult
         self.ada_norm_w = nn.Parameter(torch.zeros(n_norms, dim_cond, 2 * dim))
         self.ada_norm_b = nn.Parameter(
@@ -83,21 +158,30 @@ class ConditionableTransformer(nn.Module):
         self.attn = nn.ModuleList(
             Attention(dim, dim_head=dim_head, heads=heads) for _ in range(depth)
         )
+        self.cross_attn = nn.ModuleList(
+            Attention(dim, dim_head=dim_head, heads=heads) for _ in range(depth if cross_attn else 0)
+        )
         self.ff = nn.ModuleList(
-            FeedForward(dim, mult=ff_mult, causal_conv=ff_causal_conv,
-                        gelu_approximate=gelu_approximate)
+            FeedForward(dim, mult=ff_mult, causal_conv=True, gelu_approximate=gelu_approximate)
             for _ in range(depth)
         )
         self.pred_norm = RMSNorm(dim)
         self.to_pred = nn.Linear(dim, dim, bias=False)
 
-    def forward(self, x: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, times: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if (context is not None) != bool(self.cross_attn):
+            raise ValueError("a context is needed exactly when cross_attn=True")
         d = self.dim
         ada = torch.einsum("bt,ntc->bnc", times, self.ada_norm_w) + self.ada_norm_b
         gammas = ada[..., :d].transpose(0, 1).contiguous()  # [n_norms, b, d]
         betas = ada[..., d:].transpose(0, 1).contiguous()
         x = x.contiguous()
         for i in range(self.depth):
-            x = self.attn[i](x, gammas[2 * i], betas[2 * i])
-            x = self.ff[i](x, gammas[2 * i + 1], betas[2 * i + 1])
+            base = i * self.norms_per_layer
+            x = self.attn[i](x, gammas[base], betas[base])
+            if context is not None:
+                x = self.cross_attn[i](x, gammas[base + 1], betas[base + 1], context=context)
+            last = base + self.norms_per_layer - 1
+            x = self.ff[i](x, gammas[last], betas[last])
         return self.to_pred(self.pred_norm(x))

@@ -2,7 +2,7 @@
 tensors and runs its plain PyTorch version on CPU tensors, and counts its
 kernel launches in ``<wrapper>.launches``."""
 
-from naturalspeech2_tpu_torch.ops.attn_block_kernel import attn_block
+from naturalspeech2_tpu_torch.ops.attn_block_kernel import attn_block, cross_attn_block
 from naturalspeech2_tpu_torch.ops.ff_block_kernel import ff_block
 from naturalspeech2_tpu_torch.ops.flash_attention import flash_backward, flash_forward
 from naturalspeech2_tpu_torch.ops.wavenet_kernel import wavenet_body
@@ -10,7 +10,8 @@ from naturalspeech2_tpu_torch.ops.wavenet_kernel import wavenet_body
 # `ops.rvq` stays the module; its wrapper is `ops.rvq.rvq`
 from naturalspeech2_tpu_torch.ops import rvq as _rvq  # noqa: E402
 
-KERNEL_WRAPPERS = (wavenet_body, attn_block, ff_block, flash_forward, flash_backward, _rvq.rvq)
+KERNEL_WRAPPERS = (wavenet_body, attn_block, cross_attn_block, ff_block, flash_forward,
+                   flash_backward, _rvq.rvq)
 
 
 def reset_launch_counts() -> None:

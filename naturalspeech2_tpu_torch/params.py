@@ -8,6 +8,8 @@ module never sees JAX. Layout rules:
 - a Conv kernel [k, in, out] becomes a Conv1d weight [out, in, k];
 - a ConvTranspose kernel [k, in, out] becomes a ConvTranspose1d weight
   [in, out, k] with k reversed (see `models/codec.py`);
+- an Embed table [num, dim] is an Embedding weight as it is, and a
+  GroupNorm's scale/bias are its weight/bias;
 - the weights a kernel consumes keep their JAX layouts: the stacked
   WaveNet tensors, ``ada_norm_w``/``ada_norm_b``, the attention
   projections and the feed-forward tree.
@@ -64,12 +66,32 @@ class _Converter:
         self.state[f"{dst}.weight"] = kernel.flip(0).permute(1, 2, 0).contiguous()
         self.raw(f"{src}/bias", f"{dst}.bias")
 
+    def embed(self, src: str, dst: str) -> None:
+        self.raw(f"{src}/embedding", f"{dst}.weight")
+
+    def group_norm(self, src: str, dst: str) -> None:
+        self.raw(f"{src}/scale", f"{dst}.weight")
+        self.raw(f"{src}/bias", f"{dst}.bias")
+
+    def has(self, prefix: str) -> bool:
+        return any(p.startswith(prefix + "/") for p in self.leaves)
+
     def count(self, pattern: str) -> int:
         """Number of consecutive indices i with a leaf under ``pattern.format(i)``."""
         i = 0
         while any(p.startswith(pattern.format(i) + "/") for p in self.leaves):
             i += 1
         return i
+
+    def attention(self, src: str, dst: str) -> None:
+        for proj in ("to_q", "to_kv", "to_out"):
+            self.raw(f"{src}/{proj}/kernel", f"{dst}.{proj}")
+
+    def plain_ff(self, src: str, dst: str) -> None:
+        self.raw(f"{src}/Dense_0/kernel", f"{dst}.w1")
+        self.raw(f"{src}/Dense_0/bias", f"{dst}.b1")
+        self.raw(f"{src}/Dense_1/kernel", f"{dst}.w2")
+        self.raw(f"{src}/Dense_1/bias", f"{dst}.b2")
 
     def finish(self) -> dict[str, torch.Tensor]:
         if self.leaves:
@@ -88,17 +110,89 @@ def _model(conv: _Converter) -> None:
     conv.raw("transformer/ada_norm_b", "transformer.ada_norm_b")
     depth = conv.count("transformer/attn_{}")
     for i in range(depth):
-        for proj in ("to_q", "to_kv", "to_out"):
-            conv.raw(f"transformer/attn_{i}/{proj}/kernel", f"transformer.attn.{i}.{proj}")
+        conv.attention(f"transformer/attn_{i}", f"transformer.attn.{i}")
+        if conv.has(f"transformer/cross_attn_{i}"):
+            conv.attention(f"transformer/cross_attn_{i}", f"transformer.cross_attn.{i}")
         ff = f"transformer/ff_{i}"
-        conv.raw(f"{ff}/Dense_0/kernel", f"transformer.ff.{i}.w1")
-        conv.raw(f"{ff}/Dense_0/bias", f"transformer.ff.{i}.b1")
+        conv.plain_ff(ff, f"transformer.ff.{i}")
         conv.raw(f"{ff}/CausalConv1d_0/Conv_0/kernel", f"transformer.ff.{i}.wc")
         conv.raw(f"{ff}/CausalConv1d_0/Conv_0/bias", f"transformer.ff.{i}.bc")
-        conv.raw(f"{ff}/Dense_1/kernel", f"transformer.ff.{i}.w2")
-        conv.raw(f"{ff}/Dense_1/bias", f"transformer.ff.{i}.b2")
     conv.raw("transformer/pred_norm/gamma", "transformer.pred_norm.gamma")
     conv.dense("transformer/to_pred", "transformer.to_pred", bias=False)
+    if conv.has("perceiver_resampler"):  # condition_on_prompt=True
+        for name in ("null_prompt_cond", "null_prompt_tokens", "null_cond"):
+            conv.raw(name, name)
+        conv.dense("to_prompt_cond", "to_prompt_cond")
+        conv.dense("cond_to_model_dim", "cond_to_model_dim")
+        _resampler(conv, "perceiver_resampler", "perceiver_resampler")
+
+
+def _resampler(conv: _Converter, src: str, dst: str) -> None:
+    if conv.has(f"{src}/proj_context"):
+        conv.dense(f"{src}/proj_context", f"{dst}.proj_context")
+    conv.raw(f"{src}/latents", f"{dst}.latents")
+    for i in range(conv.count(f"{src}/attn_{{}}")):
+        conv.attention(f"{src}/attn_{i}", f"{dst}.attn.{i}")
+        conv.plain_ff(f"{src}/ff_{i}", f"{dst}.ff.{i}")
+    conv.raw(f"{src}/norm/gamma", f"{dst}.norm.gamma")
+
+
+def _transformer(conv: _Converter, src: str, dst: str) -> None:
+    """The encoders' `Transformer`."""
+    for i in range(conv.count(f"{src}/attn_{{}}")):
+        conv.raw(f"{src}/attn_norm_{i}/gamma", f"{dst}.attn_norm.{i}.gamma")
+        conv.attention(f"{src}/attn_{i}", f"{dst}.attn.{i}")
+        conv.raw(f"{src}/ff_norm_{i}/gamma", f"{dst}.ff_norm.{i}.gamma")
+        conv.plain_ff(f"{src}/ff_{i}", f"{dst}.ff.{i}")
+
+
+def _trunk(conv: _Converter, src: str, dst: str) -> None:
+    """`DurationPitchPredictorTrunk`: ResnetBlocks (ConvUnit_j: Conv_0 +
+    GroupNorm_0, and a 1×1 Conv_0 where the widths differ) or ConvBlocks
+    (Conv_0)."""
+    for i in range(conv.count(f"{src}/norm_{{}}")):
+        for c in range(conv.count(f"{src}/conv_{i}_{{}}")):
+            block, out = f"{src}/conv_{i}_{c}", f"{dst}.convs.{i}.{c}"
+            units = conv.count(f"{block}/ConvUnit_{{}}")
+            for j in range(units):
+                conv.conv(f"{block}/ConvUnit_{j}/Conv_0", f"{out}.units.{j}.conv")
+                conv.group_norm(f"{block}/ConvUnit_{j}/GroupNorm_0", f"{out}.units.{j}.norm")
+            if conv.has(f"{block}/Conv_0"):
+                conv.conv(f"{block}/Conv_0", f"{out}.res_conv" if units else f"{out}.conv")
+        conv.raw(f"{src}/norm_{i}/gamma", f"{dst}.norms.{i}.gamma")
+        conv.attention(f"{src}/attn_{i}", f"{dst}.attn.{i}")
+    conv.dense(f"{src}/to_pred", f"{dst}.to_pred")
+
+
+def _phoneme_enc(conv: _Converter, src: str, dst: str) -> None:
+    conv.embed(f"{src}/token_emb", f"{dst}.token_emb")
+    conv.conv(f"{src}/conv/Conv_0", f"{dst}.conv.conv")
+    _transformer(conv, f"{src}/transformer", f"{dst}.transformer")
+
+
+def _prompt_enc(conv: _Converter, src: str, dst: str) -> None:
+    for i in range(conv.count(f"{src}/conv_{{}}")):
+        conv.conv(f"{src}/conv_{i}", f"{dst}.convs.{i}")
+    _transformer(conv, f"{src}/transformer", f"{dst}.transformer")
+
+
+def _duration_pitch(conv: _Converter, src: str, dst: str) -> None:
+    for trunk in ("to_duration_pred", "to_pitch_pred"):
+        _trunk(conv, f"{src}/{trunk}", f"{dst}.{trunk}")
+
+
+def _aligner_net(conv: _Converter, src: str, dst: str) -> None:
+    for name in ("key_conv1", "key_conv2", "query_conv1", "query_conv2", "query_conv3"):
+        conv.conv(f"{src}/{name}", f"{dst}.{name}")
+
+
+def _conditioning(conv: _Converter) -> None:
+    """The conditional `NaturalSpeech2`'s own submodules."""
+    _phoneme_enc(conv, "phoneme_enc", "phoneme_enc")
+    _prompt_enc(conv, "prompt_enc", "prompt_enc")
+    _duration_pitch(conv, "duration_pitch", "duration_pitch")
+    _aligner_net(conv, "aligner/aligner", "aligner")
+    conv.embed("pitch_emb", "pitch_emb")
 
 
 def _residual_units(conv: _Converter, src: str, dst: str) -> None:
@@ -127,16 +221,22 @@ def load_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
     """JAX param tree → state dict of the matching port module.
 
     ``tree`` is one of: a `NaturalSpeech2` tree ``{"model": ..., "codec":
-    ...}`` (codec optional), a `Model` tree (it has ``"wavenet"``), or a
-    `SoundStream` tree (it has ``"codebooks"``). Load the result with
+    ...}`` (codec optional; a conditional one also holds ``phoneme_enc``,
+    ``prompt_enc``, ``duration_pitch``, ``aligner`` and ``pitch_emb``), a
+    `Model` tree (it has ``"wavenet"``), or a `SoundStream` tree (it has
+    ``"codebooks"``). Load the result with
     ``module.load_state_dict(state, strict=True)``.
     """
     keys = set(tree)
-    if "model" in keys and keys <= {"model", "codec"}:
-        state = load_jax_params(tree["model"])
-        out = {f"model.{k}": v for k, v in state.items()}
+    if "model" in keys and not keys & {"wavenet", "codebooks"}:
+        out = {f"model.{k}": v for k, v in load_jax_params(tree["model"]).items()}
         if "codec" in tree:
             out.update({f"codec.{k}": v for k, v in load_jax_params(tree["codec"]).items()})
+        rest = {k: v for k, v in tree.items() if k not in ("model", "codec")}
+        if rest:
+            conv = _Converter(rest)
+            _conditioning(conv)
+            out.update(conv.finish())
         return out
     conv = _Converter(tree)
     if "wavenet" in keys:

@@ -1,10 +1,41 @@
-"""Math helpers shared by the samplers (twins of
-`naturalspeech2_tpu/utils/helpers.py:142-149`), and the recomputing vjp
-the kernels' backward passes share."""
+"""Mask and length helpers of the conditioning stack and math helpers of
+the samplers (twins of `naturalspeech2_tpu/utils/helpers.py:42-106,
+142-149`), and the recomputing vjp the kernels' backward passes share."""
 
 from __future__ import annotations
 
 import torch
+
+
+def create_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Boolean key-padding mask ``[b, max_len]``: True where position < length."""
+    seq = torch.arange(max_len, dtype=lengths.dtype, device=lengths.device)
+    return seq[None, :] < lengths[:, None]
+
+
+def pad_or_curtail_to_length(t: torch.Tensor, length: int, axis: int = 1) -> torch.Tensor:
+    """Pad ``t`` with zeros at the end of ``axis``, or slice it, to ``length``."""
+    axis = axis % t.ndim
+    cur = t.shape[axis]
+    if cur >= length:
+        return t.narrow(axis, 0, length)
+    pad = [0, 0] * (t.ndim - axis)  # F.pad lists the last axis first
+    pad[-1] = length - cur
+    return torch.nn.functional.pad(t, pad)
+
+
+def generate_mask_from_repeats(repeats: torch.Tensor, max_length: int) -> torch.Tensor:
+    """Integer durations ``[b, t_x]`` → boolean alignment ``[b, t_x,
+    max_length]``: row i is True on the frames of phoneme i; frames past
+    the total length stay False. Float durations are truncated, as JAX's
+    ``astype(int32)`` does."""
+    repeats = repeats.to(torch.int32)
+    lengths = repeats.sum(dim=-1)
+    cumsum = torch.cumsum(repeats, dim=-1, dtype=torch.int32)
+    cumsum_exclusive = cumsum - repeats
+    seq = torch.arange(max_length, dtype=torch.int32, device=repeats.device)[None, None, :]
+    return ((seq < cumsum[..., None]) & (seq >= cumsum_exclusive[..., None])
+            & (seq < lengths[:, None, None]))
 
 
 def safe_log(t: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:

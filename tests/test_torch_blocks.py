@@ -74,9 +74,7 @@ def test_causal_conv1d(kernel_size, dilation):
     assert torch.equal(port(t(x2))[:, :-1], out[:, :-1])
 
 
-@pytest.mark.parametrize(
-    "kwargs", [{"causal_conv": False}, {"gelu_approximate": False}]
-)
+@pytest.mark.parametrize("kwargs", [{"gelu_approximate": False}])
 def test_feedforward_options_outside_the_slice_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tb.FeedForward(16, **kwargs)

@@ -59,7 +59,6 @@ def test_scalar_time_broadcasts(jax_model):
 @pytest.mark.parametrize(
     "option",
     [
-        {"condition_on_prompt": True},
         {"self_cond": True},
         {"scan_layers": True},
         {"use_fused_wavenet": False},
