@@ -42,7 +42,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      exact launch counts;
  11. `conditioning_for_sample` and a short conditional sample (2 steps, 48
      frames, cond_scale 3) on the card against the CPU, with the
-     durations and pitch the card predicted passed to both.
+     durations and pitch the card predicted passed to both;
+ 12. the long-form and scaled kernels against their plain versions: the
+     per-lane WaveNet body (K1b) at b1 x n9000 and n6501 (d 128, 4 x 8), K1
+     against K1b at n9000, K1, K2 and K3 at b1 x n4500 and K3 at n9000,
+     K1, K2 and K3 at the scaled width (b16 x n1024, d 512, inner 1365),
+     and K2 against the JAX package's long-sequence route (norm and
+     projections, then flash attention K4) at n9000;
+ 13. long-form `sample()` (Model dim 128, depth 6, scan_layers; SoundStream)
+     at b1, 50 DDIM steps, n4500 (60 s of audio, K1) and n9000 (120 s, K1b):
+     wall time, real-time factor and exact launch counts;
+ 14. scaled sampling: Model(dim=512, depth=12, scan_layers=True) at b16 x
+     n1024, latents only, STEPS_SCALED DDIM steps: ms per step and exact
+     launch counts;
+ 15. one denoiser forward on the card against the CPU: the long-form model
+     at b1 x n4500 and n9000 and the scaled model at b2 x n1024.
 The line before the last is the kernels' JSON summary (each kernel's
 time, plain time, bound and launches); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -50,8 +64,9 @@ and prints no result.
 
     python3 chip_smoke.py --profile
 
-instead profiles a 10-step conditional sample of README config 2 with
-torch.profiler and prints the device time by kernel.
+instead profiles a 10-step conditional sample of README config 2 and one
+long-form denoise step at n4500 and at n9000 with torch.profiler and
+prints the device time by kernel.
 """
 
 from __future__ import annotations
@@ -95,10 +110,12 @@ GRAD_RTOL = 1e-3
 TRAIN_BATCH, TRAIN_SECONDS, TRAIN_STEPS, SAMPLE_FRAMES = 16, 2.0, 10, 32
 # per optimizer step: the forward runs K1, 6 x K2, 6 x K3 and the codec's
 # RVQ (K6); each K2 backward recomputes the core with K4 and runs K5
-PER_STEP = {"wavenet_body": 1, "attn_block": DEPTH, "cross_attn_block": 0, "ff_block": DEPTH,
-            "flash_forward": DEPTH, "flash_backward": DEPTH, "rvq": 1}
-PER_DENOISE = {"wavenet_body": 1, "attn_block": DEPTH, "cross_attn_block": 0, "ff_block": DEPTH,
-               "flash_forward": 0, "flash_backward": 0, "rvq": 0}
+PER_STEP = {"wavenet_body": 1, "wavenet_body_lanes": 0, "attn_block": DEPTH,
+            "cross_attn_block": 0, "ff_block": DEPTH, "flash_forward": DEPTH,
+            "flash_backward": DEPTH, "rvq": 1}
+PER_DENOISE = {"wavenet_body": 1, "wavenet_body_lanes": 0, "attn_block": DEPTH,
+               "cross_attn_block": 0, "ff_block": DEPTH, "flash_forward": 0,
+               "flash_backward": 0, "rvq": 0}
 # README config 2 and the old bench's conditional leg (bench.py:334-380)
 DIM_PROMPT, NUM_LATENTS, RESAMPLER_DEPTH, PROMPT_DEPTH = 512, 32, 2, 6
 COND_BATCH, TEXT_LEN, PROMPT_SAMPLES, COND_LENGTH, COND_SCALE = 4, 100, 32768, 512, 3.0
@@ -106,10 +123,21 @@ TEXT_LENS = (100, 100, 80, 120)
 # per conditional sample of STEPS guided steps: each runs the denoiser on
 # the doubled batch (K1, 6 x K2, 6 x K2b, 6 x K3, the resampler's 2 x K4);
 # the conditioning runs the prompt encoder's 6 x K4 and the prompt's RVQ
-PER_COND_SAMPLE = {"wavenet_body": STEPS, "attn_block": DEPTH * STEPS,
+PER_COND_SAMPLE = {"wavenet_body": STEPS, "wavenet_body_lanes": 0, "attn_block": DEPTH * STEPS,
                    "cross_attn_block": DEPTH * STEPS, "ff_block": DEPTH * STEPS,
                    "flash_forward": PROMPT_DEPTH + RESAMPLER_DEPTH * STEPS,
                    "flash_backward": 0, "rvq": 1}
+# Long-form and scaled sampling, the JAX bench's legs `longform` and
+# `scaled` (bench.py:147-192, :617-628): Model(heads=8, dim_head=64,
+# scan_layers=True), v-objective, sigmoid schedule. Long-form: dim 128,
+# depth 6 with SoundStream, b1, 50 DDIM steps, 60 s (n 4500, K1) and 120 s
+# (n 9000, past K1's L2 budget, so K1b). Scaled: dim 512, depth 12, b16 x
+# n1024, latents only (SoundStream's codebook is 128 wide), cut from 100
+# DDIM steps to STEPS_SCALED (each step is the same work).
+LONG_LENGTHS, LONG_STEPS = (4500, 9000), 50
+RAGGED_LANES = 6501  # still past K1's L2 budget, and off every tile
+SCALED_DIM, SCALED_DEPTH, SCALED_BATCH, STEPS_SCALED = 512, 12, 16, 20
+WAVENET_STACKS, WAVENET_LAYERS = 4, 8
 # H100 SXM peaks at 700 W (NVIDIA's data sheet): f32 outside the tensor
 # cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -157,45 +185,61 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_cases(gen):
-    """(name, source, replaces, kernel call, plain call) at the flagship's
-    shapes, inputs drawn from ``gen`` on the card."""
+def _randn(gen):
     import torch
-
-    from naturalspeech2_tpu_torch.ops import attn_block_kernel, ff_block_kernel, wavenet_kernel
 
     def rn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
 
-    b, n, d, S, L = BATCH, LENGTH, DIM, 4, 8
-    hd, inner = HEADS * DIM_HEAD, int(d * 4 * 2 / 3)
-    out_bytes = b * n * d * 4
+    return rn
+
+
+def wavenet_inputs(gen, b, n, d, S=WAVENET_STACKS, L=WAVENET_LAYERS):
+    """The WaveNet body's inputs at one shape, and its bound."""
+    rn = _randn(gen)
     wn = (rn(b, n, d), rn(S, L, 3 * d, d, scale=(3 * d) ** -0.5), rn(S, L, d, scale=0.1),
           rn(S, L, d, d, scale=d**-0.5), rn(S, L, d, scale=0.1), rn(L, d, d, scale=d**-0.5),
           rn(L, d, scale=0.1), 1 + rn(b, S, L, 2 * d, scale=0.1))
-    x, gamma, beta = rn(b, n, d), 1 + rn(b, d, scale=0.1), rn(b, d, scale=0.1)
-    wq, wkv, wo = rn(d, hd, scale=d**-0.5), rn(d, 2 * hd, scale=d**-0.5), rn(hd, d, scale=hd**-0.5)
-    heads = attn_block_kernel.split_heads(wq, wkv, wo, HEADS, DIM_HEAD)
+    # multiply-adds of the matrix products, 2 FLOPs each
+    return wn, bound(2 * b * n * d * d * (S * L * 4 + L), nbytes(*wn) + b * n * d * 4)
+
+
+def attn_inputs(gen, b, n, d):
+    """x, γ, β and the Dense layouts W_q, W_kv, W_o of the attention block."""
+    rn = _randn(gen)
+    hd = HEADS * DIM_HEAD
+    return (rn(b, n, d), 1 + rn(b, d, scale=0.1), rn(b, d, scale=0.1), rn(d, hd, scale=d**-0.5),
+            rn(d, 2 * hd, scale=d**-0.5), rn(hd, d, scale=hd**-0.5))
+
+
+def kernel_cases(gen, b=BATCH, n=LENGTH, d=DIM):
+    """(name, source, replaces, kernel call, plain call, bound) of K1, K2
+    and K3 at one shape (the flagship's by default), inputs drawn from
+    ``gen`` on the card."""
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel, ff_block_kernel, wavenet_kernel
+
+    rn = _randn(gen)
+    hd, inner = HEADS * DIM_HEAD, int(d * 4 * 2 / 3)
+    out_bytes = b * n * d * 4
+    wn, wn_work = wavenet_inputs(gen, b, n, d)
+    attn = attn_inputs(gen, b, n, d)
+    x, gamma, beta = attn[:3]
+    heads = attn_block_kernel.split_heads(*attn[3:], HEADS, DIM_HEAD)
     w1, b1 = rn(d, 2 * inner, scale=d**-0.5), rn(2 * inner, scale=0.1)
     wc, bc = rn(3, inner, inner, scale=(3 * inner) ** -0.5), rn(inner, scale=0.1)
     w2, b2 = rn(inner, d, scale=inner**-0.5), rn(d, scale=0.1)
     scale = DIM_HEAD**-0.5
-    # multiply-adds of the matrix products, 2 FLOPs each
-    wn_flops = 2 * b * n * d * d * (S * L * 4 + L)
-    attn_flops = 2 * b * n * d * 4 * hd + 4 * b * HEADS * n * n * DIM_HEAD
     ff_flops = 2 * b * n * (d * 2 * inner + 3 * inner * inner + inner * d)
     return [
         ("wavenet_body", "naturalspeech2_tpu_torch/csrc/wavenet.cu",
          "naturalspeech2_tpu/ops/wavenet_kernel.py:80",
-         lambda: wavenet_kernel.wavenet_body(*wn),
-         lambda: wavenet_kernel.wavenet_body_torch(*wn),
-         bound(wn_flops, nbytes(*wn) + out_bytes)),
+         lambda: wavenet_kernel._forward("stack", *wn),
+         lambda: wavenet_kernel.wavenet_body_torch(*wn), wn_work),
         ("attn_block", "naturalspeech2_tpu_torch/csrc/attn_block.cu",
          "naturalspeech2_tpu/ops/attn_block_kernel.py:92",
-         lambda: attn_block_kernel.attn_block(x, gamma, beta, wq, wkv, wo, heads=HEADS,
-                                              dim_head=DIM_HEAD, scale=scale),
+         lambda: attn_block_kernel.attn_block(*attn, heads=HEADS, dim_head=DIM_HEAD, scale=scale),
          lambda: attn_block_kernel.attn_block_torch(x, gamma, beta, *heads, scale=scale),
-         bound(attn_flops, nbytes(x, gamma, beta, wq, wkv, wo) + out_bytes)),
+         attn_work(b, n, d, attn)),
         ("ff_block", "naturalspeech2_tpu_torch/csrc/ff_block.cu",
          "naturalspeech2_tpu/ops/ff_block_kernel.py:97",
          lambda: ff_block_kernel.ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2),
@@ -205,22 +249,46 @@ def kernel_cases(gen):
     ]
 
 
-def flagship(seed: int, conditional: bool = False):
+def attn_work(b, n, d, attn) -> dict:
+    """Bound of K2: the q/k/v and out projections and the n² logits and
+    P·V products."""
+    hd = HEADS * DIM_HEAD
+    flops = 2 * b * n * d * 4 * hd + 4 * b * HEADS * n * n * DIM_HEAD
+    return bound(flops, nbytes(*attn) + b * n * d * 4)
+
+
+def timed_case(phase: str, label: str, kernel, plain, work: dict, reps: int = 20) -> dict:
+    """A kernel against its plain version on the card: the max abs error
+    (raises above KERNEL_TOL), both times and the bound."""
+    import torch
+
+    out = kernel()
+    torch.cuda.synchronize()
+    err = compare(phase, label, out, plain(), KERNEL_TOL)
+    del out
+    ms, plain_ms = cuda_ms(kernel, reps=reps), cuda_ms(plain, reps=reps)
+    log(phase, f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of {reps}), bound "
+               f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work}
+
+
+def flagship(seed: int, conditional: bool = False, codec: bool = True, **model_kw):
     """The flagship NaturalSpeech2 on the CPU, or with ``conditional`` README
-    config 2, with seeded noise on every parameter, so no zero or one init
-    hides a layout fault."""
+    config 2, or with ``model_kw`` overriding the Model's arguments (the
+    long-form and scaled configs; ``codec=False`` samples latents only),
+    with seeded noise on every parameter, so no zero or one init hides a
+    layout fault."""
     import torch
 
     import naturalspeech2_tpu_torch as ns2pkg
 
     cond = dict(dim_prompt=DIM_PROMPT, cond_drop_prob=0.25, condition_on_prompt=True)
+    model_kw = {"dim": DIM, "depth": DEPTH, "heads": HEADS, "dim_head": DIM_HEAD,
+                **(cond if conditional else {}), **model_kw}
     torch.manual_seed(seed)
     with torch.no_grad():
-        ns2 = ns2pkg.NaturalSpeech2(
-            ns2pkg.Model(dim=DIM, depth=DEPTH, heads=HEADS, dim_head=DIM_HEAD,
-                         **(cond if conditional else {})),
-            ns2pkg.SoundStream(), timesteps=1000,
-        )
+        ns2 = ns2pkg.NaturalSpeech2(ns2pkg.Model(**model_kw),
+                                    ns2pkg.SoundStream() if codec else None, timesteps=1000)
         jitter = torch.Generator().manual_seed(seed + 1)
         for p in ns2.parameters():
             p.add_(torch.randn(p.shape, generator=jitter) * 0.02)
@@ -268,15 +336,10 @@ def phase2_sampling_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     summary = []
     for name, source, replaces, kernel, plain, work in kernel_cases(gen):
-        out = kernel()
-        torch.cuda.synchronize()
-        err = compare("2", name, out, plain(), KERNEL_TOL)
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        log("2", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20), bound "
-                 f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
+        timing = timed_case("2", name, kernel, plain, work)
         summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work,
-                        "library_ms": None})
+                        **timing, "library_ms": None,
+                        "by_shape": {f"[{BATCH},{LENGTH},{DIM}]": timing}})
     return summary
 
 
@@ -804,6 +867,203 @@ def phase11_conditional_card_vs_cpu(ns2, ns2_cpu) -> None:
     compare("11", f"conditional sample 2 steps x {length} frames, card vs CPU", *waves, PATH_TOL)
 
 
+def denoise_counts(depth: int, route: str, steps: int) -> dict:
+    """Launch counts of ``steps`` unconditional denoise steps of a depth-
+    ``depth`` model whose WaveNet takes ``route`` ("stack": K1, "lanes":
+    K1b)."""
+    per = dict(PER_DENOISE, attn_block=depth, ff_block=depth, wavenet_body=int(route == "stack"),
+               wavenet_body_lanes=int(route == "lanes"))
+    return {k: steps * v for k, v in per.items()}
+
+
+def l2_bytes() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).L2_cache_size
+
+
+def phase12_longform_scaled_kernels(summary: list) -> dict:
+    """K1b at the long-form shapes against its plain version and K1; K1,
+    K2 and K3 at n 4500 and K3 at n 9000 against their plain versions; K1,
+    K2 and K3 at the scaled width; K2 against the K4 route at n 9000.
+    Returns K1b's summary entry and adds the other shapes to the entries of
+    ``summary`` under "by_shape"."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    entries = {e["name"]: e for e in summary}
+    lanes = {"name": "wavenet_body_lanes", "route": "cuda",
+             "source": "naturalspeech2_tpu_torch/csrc/wavenet_lane.cu",
+             "replaces": "naturalspeech2_tpu/ops/wavenet_kernel.py:167", "library_ms": None,
+             "by_shape": {}}
+    for n in (LONG_LENGTHS[1], RAGGED_LANES):
+        route = wk.wavenet_route(n, DIM, WAVENET_LAYERS, l2_bytes())
+        if route != "lanes":
+            raise AssertionError(f"n {n} routes {route}, not K1b, on an L2 of {l2_bytes()} bytes")
+        wn, work = wavenet_inputs(gen, 1, n, DIM)
+        shape = f"[1,{n},{DIM}]"
+        timing = timed_case("12", f"wavenet_body_lanes {shape}", lambda: wk.wavenet_body_lanes(*wn),
+                            lambda: wk.wavenet_body_lanes_torch(*wn), work)
+        lanes["by_shape"][shape] = timing
+        if n == LONG_LENGTHS[1]:
+            lanes.update(timing)
+            k1 = lambda: wk._forward("stack", *wn)  # noqa: E731
+            err = compare("12", f"wavenet_body (K1) against K1b {shape}", k1(),
+                          wk.wavenet_body_lanes(*wn), KERNEL_TOL)
+            k1_ms, k1_plain_ms = cuda_ms(k1), cuda_ms(lambda: wk.wavenet_body_torch(*wn))
+            log("12", f"K1 {shape}: {k1_ms:.4f} ms against K1b {timing['ms']:.4f} ms, plain "
+                      f"{k1_plain_ms:.4f} ms (median of 20); K1's lane scratch "
+                      f"{2 * WAVENET_LAYERS * n * DIM * 4} bytes, K1b's state {3 * n * DIM * 4}, "
+                      f"L2 {l2_bytes()}")
+            entries["wavenet_body"]["by_shape"][shape] = {
+                "max_abs_err": err, "ms": k1_ms, "plain_ms": k1_plain_ms, **work}
+        del wn
+
+    # the long-form shapes at b1 d128, off every 64-row tile: K1, K2 and K3
+    # at n 4500 (routed K1, as in the JAX package), and K3 at n 9000 (K2
+    # there is timed below, K1 above)
+    if wk.wavenet_route(LONG_LENGTHS[0], DIM, WAVENET_LAYERS, l2_bytes()) != "stack":
+        raise AssertionError(f"n {LONG_LENGTHS[0]} does not route K1")
+    for n, names in ((LONG_LENGTHS[0], ("wavenet_body", "attn_block", "ff_block")),
+                     (LONG_LENGTHS[1], ("ff_block",))):
+        shape = f"[1,{n},{DIM}]"
+        for name, _, _, kernel, plain, work in kernel_cases(gen, 1, n, DIM):
+            if name in names:
+                entries[name]["by_shape"][shape] = timed_case("12", f"{name} {shape}", kernel,
+                                                              plain, work)
+
+    # the scaled width: K1 (routed K1, as K1b's state would not fit L2), K2, K3
+    b, n, d = SCALED_BATCH, LENGTH, SCALED_DIM
+    shape = f"[{b},{n},{d}]"
+    for name, _, _, kernel, plain, work in kernel_cases(gen, b, n, d):
+        entries[name]["by_shape"][shape] = timed_case("12", f"{name} {shape}", kernel, plain, work,
+                                                      reps=5)
+    torch.cuda.empty_cache()
+
+    # K2 at the long-form n 9000 against the JAX package's route there
+    # (norm and projections, then flash attention K4)
+    n = LONG_LENGTHS[1]
+    shape = f"[1,{n},{DIM}]"
+    attn = attn_inputs(gen, 1, n, DIM)
+    cfg = dict(heads=HEADS, dim_head=DIM_HEAD, scale=DIM_HEAD**-0.5)
+    kernel = lambda: ak.attn_block(*attn, **cfg)  # noqa: E731
+    heads = ak.split_heads(*attn[3:], HEADS, DIM_HEAD)
+    timing = timed_case("12", f"attn_block {shape}", kernel,
+                        lambda: ak.attn_block_torch(*attn[:3], *heads, scale=cfg["scale"]),
+                        attn_work(1, n, DIM, attn))
+    k4_route = lambda: ak.attn_core_flash_torch(*attn, **cfg)  # noqa: E731
+    with torch.no_grad():
+        timing["k4_route_err"] = compare("12", f"attn_block against the K4 route {shape}",
+                                         kernel(), k4_route(), KERNEL_TOL)
+        timing["k4_route_ms"] = cuda_ms(k4_route)
+    log("12", f"attn_block {shape}: K2 {timing['ms']:.4f} ms, the K4 route "
+              f"{timing['k4_route_ms']:.4f} ms (median of 20)")
+    entries["attn_block"]["by_shape"][shape] = timing
+    return lanes
+
+
+def phase13_longform(ns2) -> dict:
+    """Long-form `sample()`, b1 at n 4500 (60 s, K1) and n 9000 (120 s,
+    K1b), codec decode included; returns the launch counts by length."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+
+    counts_by_n = {}
+    for n in LONG_LENGTHS:
+        route = "lanes" if n == LONG_LENGTHS[1] else "stack"
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        audio = ns2pkg.sample(ns2, batch_size=1, length=n, timesteps=LONG_STEPS, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = ops.launch_counts()
+        if tuple(audio.shape) != (1, n * 320):
+            raise AssertionError(f"long-form sample: shape {tuple(audio.shape)}")
+        if not torch.isfinite(audio).all():
+            raise AssertionError("long-form sample: non-finite waveform")
+        seconds = n * 320 / 24000
+        log("13", f"sample(batch_size=1, length={n}, timesteps={LONG_STEPS}): waveform "
+                  f"{tuple(audio.shape)} finite, |audio| max {audio.abs().max().item():.4f}; "
+                  f"wall {wall:.3f} s incl. codec decode for {seconds:g} s of audio: "
+                  f"{seconds / wall:.2f}x real time")
+        expect = denoise_counts(DEPTH, route, LONG_STEPS)
+        log("13", f"launch counts {counts}, expected {expect}")
+        if counts != expect:
+            raise AssertionError(f"launch counts {counts} != {expect}")
+        del audio
+        with torch.no_grad():
+            x = torch.randn(1, n, DIM, generator=gen, device="cuda")
+            times = torch.full((1,), 0.5, device="cuda")
+            step_ms = cuda_ms(lambda: ns2.model(x, times), reps=5, warmup=1)
+            decode_ms = cuda_ms(lambda: ns2.codec.decode(x), reps=3, warmup=1)
+        log("13", f"n {n}: denoiser forward {step_ms:.3f} ms per denoise step (median of 5), "
+                  f"codec decode {decode_ms:.3f} ms (median of 3)")
+        counts_by_n[n] = counts
+    return counts_by_n
+
+
+def phase14_scaled(ns2) -> dict:
+    """Scaled sampling: the dim-512, depth-12 model at b16 x n1024, latents
+    only, STEPS_SCALED DDIM steps; returns its launch counts."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    latents = ns2pkg.sample(ns2, batch_size=SCALED_BATCH, length=LENGTH, timesteps=STEPS_SCALED,
+                            generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = ops.launch_counts()
+    if tuple(latents.shape) != (SCALED_BATCH, LENGTH, SCALED_DIM):
+        raise AssertionError(f"scaled sample: shape {tuple(latents.shape)}")
+    if not torch.isfinite(latents).all():
+        raise AssertionError("scaled sample: non-finite latents")
+    expect = denoise_counts(SCALED_DEPTH, "stack", STEPS_SCALED)
+    log("14", f"sample(batch_size={SCALED_BATCH}, length={LENGTH}, timesteps={STEPS_SCALED}) of "
+              f"Model(dim={SCALED_DIM}, depth={SCALED_DEPTH}): latents {tuple(latents.shape)} "
+              f"finite, |latents| max {latents.abs().max().item():.4f}; wall {wall:.3f} s, "
+              f"{wall / STEPS_SCALED * 1e3:.3f} ms per denoise step (host clock)")
+    log("14", f"launch counts {counts}, expected {expect}")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    with torch.no_grad():
+        x = torch.randn(SCALED_BATCH, LENGTH, SCALED_DIM, generator=gen, device="cuda")
+        times = torch.full((SCALED_BATCH,), 0.5, device="cuda")
+        step_ms = cuda_ms(lambda: ns2.model(x, times), reps=5, warmup=1)
+    log("14", f"denoiser forward {step_ms:.3f} ms per denoise step (median of 5)")
+    return counts
+
+
+def phase15_card_vs_cpu(long_ns2, long_cpu, scaled, scaled_cpu) -> None:
+    """One denoiser forward on the card (kernels) against the CPU (plain
+    versions): the long-form model at b1 x n4500 (K1) and n9000 (K1b), and
+    the scaled model at b2 x n1024."""
+    import torch
+
+    cases = ((long_ns2, long_cpu, 1, LONG_LENGTHS[0], DIM, "long-form"),
+             (long_ns2, long_cpu, 1, LONG_LENGTHS[1], DIM, "long-form"),
+             (scaled, scaled_cpu, 2, LENGTH, SCALED_DIM, "scaled"))
+    for i, (card, cpu, b, n, d, label) in enumerate(cases):
+        g = torch.Generator().manual_seed(SEED + 17 + i)
+        x, times = torch.randn(b, n, d, generator=g), torch.rand(b, generator=g)
+        with torch.no_grad():
+            on_card = card.model(x.cuda(), times.cuda())
+            on_cpu = cpu.model(x, times)
+        compare("15", f"{label} denoiser b{b} x n{n}, card vs CPU", on_card, on_cpu, PATH_TOL)
+
+
 def _profile(label: str, fn) -> None:
     """torch.profiler around ``fn()`` (after one warm-up call): wall time,
     the device's busy share and the device time by kernel."""
@@ -830,9 +1090,10 @@ def _profile(label: str, fn) -> None:
                        f"{e.key[:100]}")
 
 
-def profile_conditional() -> int:
+def profile_runs() -> int:
     """torch.profiler over a 10-step conditional sample of README config 2,
-    and over 10 guided denoise steps alone."""
+    over 10 guided denoise steps alone, and over one long-form denoise step
+    at n 4500 (K1) and at n 9000 (K1b)."""
     import torch
 
     import naturalspeech2_tpu_torch as ns2pkg
@@ -855,6 +1116,14 @@ def profile_conditional() -> int:
                                         cond_scale=COND_SCALE)
 
         _profile("10 guided denoise steps", steps)
+    del ns2
+
+    long_ns2 = flagship(SEED + 40, scan_layers=True).cuda().eval()
+    for n in LONG_LENGTHS:
+        with torch.no_grad():
+            x = torch.randn(1, n, DIM, device="cuda")
+            times = torch.full((1,), 0.5, device="cuda")
+            _profile(f"1 long-form denoise step at n {n}", lambda: long_ns2.model(x, times))
     return 0
 
 
@@ -863,7 +1132,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile a 10-step conditional sample instead of the smoke run")
+                        help="profile a conditional sample and long-form steps instead of the "
+                             "smoke run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -874,7 +1144,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
     if args.profile:
-        return profile_conditional()
+        return profile_runs()
 
     phase1_card_and_build()
     summary = phase2_sampling_kernels()
@@ -899,10 +1169,24 @@ def main() -> int:
     cond = copy.deepcopy(cond_cpu).cuda()
     cond_counts = phase10_conditional_sample(cond)
     phase11_conditional_card_vs_cpu(cond, cond_cpu)
+    del cond, cond_cpu
+
+    summary.append(phase12_longform_scaled_kernels(summary))
+    long_cpu = flagship(SEED + 40, scan_layers=True)
+    long_ns2 = copy.deepcopy(long_cpu).cuda()
+    long_counts = phase13_longform(long_ns2)
+    scaled_cpu = flagship(SEED + 50, codec=False, dim=SCALED_DIM, depth=SCALED_DEPTH,
+                          scan_layers=True)
+    scaled = copy.deepcopy(scaled_cpu).cuda()
+    scaled_counts = phase14_scaled(scaled)
+    phase15_card_vs_cpu(long_ns2, long_cpu, scaled, scaled_cpu)
 
     for entry in summary:
-        by_path = {"sample": sample_counts[entry["name"]], "train": train_counts[entry["name"]],
-                   "conditional_sample": cond_counts[entry["name"]]}
+        name = entry["name"]
+        by_path = {"sample": sample_counts[name], "train": train_counts[name],
+                   "conditional_sample": cond_counts[name],
+                   **{f"longform_{n}": c[name] for n, c in long_counts.items()},
+                   "scaled_sample": scaled_counts[name]}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",

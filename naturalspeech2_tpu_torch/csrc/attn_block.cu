@@ -11,7 +11,10 @@
 // 64) the logits and P·V products are 8.6 GFLOP per block against 2 MB of
 // x and 12 MB of q/k/v, so HBM is not the limit; the core's 2x4 register
 // tiles cost 0.75 shared-memory loads per FMA, and its 128 blocks are one
-// wave on 132 SMs: near 9 TFLOP/s of the 67 (H100 SXM, 700 W).
+// wave on 132 SMs: near 9 TFLOP/s of the 67 (H100 SXM, 700 W). At dm 512
+// (b16 n1024) a core block needs 186 KB of shared memory, one per SM: near
+// 10 TFLOP/s. At b1 and long n the core's ⌈n/32⌉ blocks are one wave and a
+// short tail (n 9000: 282 blocks, 264 resident), near 7 TFLOP/s.
 //
 // Design: the TPU kernel holds one head's whole [n, n] logits tile in
 // VMEM; a Hopper block cannot, and cannot recompute k and v for all n keys
@@ -285,17 +288,21 @@ int launch_core(const float* x, const float* qkv, const float* wo, float* out, i
 
 // x [b,n,dm] -> out [b,n,dm]. wqkv [dm, 3·H·dh] is [W_q | W_k | W_v] with
 // head h in columns h·dh..(h+1)·dh of each third; wo [H, dh, dm]; qkv is
-// [3, b, H, n, dh] f32 scratch. Supports dh = 64 and dm = 128 (checked by
-// the Python wrapper; other widths return cudaErrorInvalidValue).
+// [3, b, H, n, dh] f32 scratch. Supports dh = 64 and dm = 128 or 512
+// (checked by the Python wrapper; other widths return
+// cudaErrorInvalidValue). At dm 512 the core's shared memory is 186 KB,
+// W_o,h alone 128 KB of it: one block per SM.
 NS2_API int ns2_attn_block(const float* x, const float* gamma, const float* beta,
                            const float* wqkv, const float* wo, float* qkv, float* out, int b,
                            int n, int dm, int heads, int dh, float scale, void* stream) {
-  if (dh != 64 || dm != 128 || (3 * heads * dh) % TN != 0) return cudaErrorInvalidValue;
+  if (dh != 64 || (dm != 128 && dm != 512) || (3 * heads * dh) % TN != 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid_qkv((n + TM - 1) / TM, 3 * heads * dh / TN, b);
   attn_qkv_kernel<<<grid_qkv, ns2::kThreads, 0, st>>>(x, gamma, beta, wqkv, qkv, b, n, dm, heads,
                                                        dh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (dm == 512) return launch_core<64, 512>(x, qkv, wo, out, b, n, heads, scale, st);
   return launch_core<64, 128>(x, qkv, wo, out, b, n, heads, scale, st);
 }

@@ -21,7 +21,22 @@
 // block's ~105 KB of shared memory (two blocks fit on an SM); the
 // weights stream through an 8-row staging buffer. The wrapper pads
 // inner with exact zeros to a multiple of 16, which changes no sum.
-#include "common.cuh"
+//
+// Wide shapes (the scaled config's dm 512, inner 1365 padded to 1408):
+// the fused tiling would need ~370 KB of shared memory, so the block is
+// split at the causal conv into three launches of 64 x 64 tiles (tile.cuh)
+// through two f32 [b, n, inner] scratches in device memory:
+//   1. ff_geglu_kernel: a = gelu_tanh(n(x)·W_g + b_g) ∘ (n(x)·W_v + b_v),
+//      the norm in the prologue, both products in one block;
+//   2. ff_tap_kernel, 3 taps: c_t = a_{t-2}·Wc₀ + a_{t-1}·Wc₁ + a_t·Wc₂ + b_c;
+//   3. ff_tap_kernel, 1 tap: y = x + c·W₂ + b₂.
+// The weights (Wc is 23 MB at inner 1408) are not held on chip: every
+// 64-row tile streams its 64-column slice of them through shared memory,
+// from L2. With the row tiles of one batch row first in the grid, a wave
+// of blocks shares one pass over the weights. The wrapper pads inner to a
+// multiple of 64 with exact zeros. Bound as the fused kernel is: about
+// 16 TFLOP/s at b16 n1024 dm512 (252 GFLOP; H100 SXM, 700 W).
+#include "tile.cuh"
 
 namespace {
 
@@ -181,7 +196,137 @@ ff_block_kernel(const float* __restrict__ x,       // [b, n, DM]
   }
 }
 
+// ---- wide shapes: three launches of 64 x 64 tiles ---------------------
+
+// a[b, n, ip] = gelu_tanh(n(x)·W_g + b_g) ∘ (n(x)·W_v + b_v):
+// grid (ceil(n/TM), ip/TN, b)
+__global__ void __launch_bounds__(ns2::kThreads)
+ff_geglu_kernel(const float* __restrict__ x,       // [b, n, dm]
+                const float* __restrict__ gamma,   // [b, dm]
+                const float* __restrict__ beta,    // [b, dm]
+                const float* __restrict__ w_val,   // [dm, ip]
+                const float* __restrict__ b_val,   // [ip]
+                const float* __restrict__ w_gate,  // [dm, ip]
+                const float* __restrict__ b_gate,  // [ip]
+                float* __restrict__ a,             // [b, n, ip]
+                int n, int dm, int ip) {
+  __shared__ float As[ns2::KC][ns2::TM];
+  __shared__ float Vs[ns2::KC][ns2::TN];
+  __shared__ float Gs[ns2::KC][ns2::TN];
+  __shared__ float part[ns2::TM][4];
+  __shared__ float rnorm[ns2::TM];
+
+  const int tid = threadIdx.x;
+  const int ty = tid / ns2::kGrid, tx = tid % ns2::kGrid;
+  const int t0 = blockIdx.x * ns2::TM, n0 = blockIdx.y * ns2::TN, bi = blockIdx.z;
+  const float* xb = x + (size_t)bi * n * dm;
+  const float* g = gamma + (size_t)bi * dm;
+  const float* be = beta + (size_t)bi * dm;
+
+  {  // row norms: 4 threads per row
+    const int r = tid / 4, q = tid % 4, t = t0 + r;
+    float ss = 0.0f;
+    if (t < n)
+      for (int k = q; k < dm; k += 4) {
+        const float v = xb[(size_t)t * dm + k];
+        ss += v * v;
+      }
+    part[r][q] = ss;
+  }
+  __syncthreads();
+  if (tid < ns2::TM)
+    rnorm[tid] = fmaxf(sqrtf(part[tid][0] + part[tid][1] + part[tid][2] + part[tid][3]), 1e-12f);
+  __syncthreads();
+
+  const float sqrt_dm = sqrtf((float)dm);
+  float accv[4][4] = {}, accg[4][4] = {};
+  for (int k0 = 0; k0 < dm; k0 += ns2::KC) {
+    for (int e = tid; e < ns2::TM * ns2::KC; e += ns2::kThreads) {
+      const int r = e / ns2::KC, kk = e % ns2::KC, t = t0 + r, k = k0 + kk;
+      As[kk][r] = (t < n) ? xb[(size_t)t * dm + k] / rnorm[r] * sqrt_dm * g[k] + be[k] : 0.0f;
+    }
+    ns2::stage_cols(w_val, ip, k0, n0, Vs);
+    ns2::stage_cols(w_gate, ip, k0, n0, Gs);
+    __syncthreads();
+    ns2::fma_chunk(accv, As, Vs);
+    ns2::fma_chunk(accg, As, Gs);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty + 16 * i;
+    if (t >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + tx + 16 * j;
+      a[((size_t)bi * n + t) * ip + c] =
+          ns2::gelu_tanh(accg[i][j] + b_gate[c]) * (accv[i][j] + b_val[c]);
+    }
+  }
+}
+
+// out[b, t, :] = Σ_tap in[b, t - (taps - 1 - tap), :] · w[tap] + bias
+// (+ residual[b, t, :]), rows before t = 0 read as zero: the causal conv
+// (3 taps) and the out-projection with the residual (1 tap).
+// grid (ceil(n/TM), ncols/TN, b)
+__global__ void __launch_bounds__(ns2::kThreads)
+ff_tap_kernel(const float* __restrict__ in,        // [b, n, K]
+              const float* __restrict__ w,         // [taps, K, ncols]
+              const float* __restrict__ bias,      // [ncols]
+              const float* __restrict__ residual,  // [b, n, ncols] or null
+              float* __restrict__ out,             // [b, n, ncols]
+              int n, int K, int ncols, int taps) {
+  __shared__ float As[ns2::KC][ns2::TM];
+  __shared__ float Ws[ns2::KC][ns2::TN];
+
+  const int ty = threadIdx.x / ns2::kGrid, tx = threadIdx.x % ns2::kGrid;
+  const int t0 = blockIdx.x * ns2::TM, n0 = blockIdx.y * ns2::TN, bi = blockIdx.z;
+  const float* inb = in + (size_t)bi * n * K;
+
+  float acc[4][4] = {};
+  for (int tap = 0; tap < taps; ++tap)
+    ns2::tile_gemm(acc, inb, K, n, t0, taps - 1 - tap, w + (size_t)tap * K * ncols, ncols, n0, K,
+                   As, Ws);
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty + 16 * i;
+    if (t >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + tx + 16 * j;
+      const size_t idx = ((size_t)bi * n + t) * ncols + c;
+      out[idx] = acc[i][j] + bias[c] + (residual ? residual[idx] : 0.0f);
+    }
+  }
+}
+
 }  // namespace
+
+// x [b,n,dm] -> out [b,n,dm] for the shapes the fused kernel does not take:
+// dm % 64 == 0 and inner padded with zeros to `inner_p`, a multiple of 64.
+// a_buf and c_buf are [b, n, inner_p] f32 scratch. Three launches.
+NS2_API int ns2_ff_block_wide(const float* x, const float* gamma, const float* beta,
+                              const float* w_val, const float* b_val, const float* w_gate,
+                              const float* b_gate, const float* wc, const float* bc,
+                              const float* w2, const float* b2, float* a_buf, float* c_buf,
+                              float* out, int b, int n, int dm, int inner_p, void* stream) {
+  if (dm % ns2::TN != 0 || inner_p % ns2::TN != 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int row_tiles = (n + ns2::TM - 1) / ns2::TM;
+  const dim3 grid_inner(row_tiles, inner_p / ns2::TN, b), grid_out(row_tiles, dm / ns2::TN, b);
+  ff_geglu_kernel<<<grid_inner, ns2::kThreads, 0, st>>>(x, gamma, beta, w_val, b_val, w_gate,
+                                                        b_gate, a_buf, n, dm, inner_p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ff_tap_kernel<<<grid_inner, ns2::kThreads, 0, st>>>(a_buf, wc, bc, nullptr, c_buf, n, inner_p,
+                                                      inner_p, 3);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ff_tap_kernel<<<grid_out, ns2::kThreads, 0, st>>>(c_buf, w2, b2, x, out, n, inner_p, dm, 1);
+  return cudaGetLastError();
+}
 
 // x [b,n,dm] -> out [b,n,dm]. Weights are padded with zeros to the inner
 // width `inner_p`. Supports dm = 128 with inner_p = 352 (the flagship's

@@ -23,33 +23,16 @@
 // in place would race. A block computes a 64-row x 64-column tile of one
 // lane as one GEMM over K = 3d (the three taps, rows before t = 0 read as
 // zero) and fuses the residual GEMM on the x_t tap, FiLM and the gate
-// into its epilogue. The skips are a last launch that loops over the
-// lanes inside each block, so the sum is deterministic without atomics.
-#include "common.cuh"
+// into its epilogue (`wavenet_block_tile`, wavenet.cuh, shared with K1b).
+// The skips are a last launch that loops over the lanes inside each
+// block, so the sum is deterministic without atomics.
+#include "wavenet.cuh"
 
 namespace {
 
-constexpr int TM = 64;  // time rows per block
-constexpr int TN = 64;  // output channels per block
-constexpr int KC = 16;  // reduction chunk staged in shared memory
-
-// Stages A[TM x KC] (rows t0..t0+TM-1 shifted back by `shift`, zero
-// outside [0, n)) transposed into As[KC][TM], and W[k0..k0+KC, n0..n0+TN]
-// into Bs[KC][TN].
-__device__ __forceinline__ void stage(const float* __restrict__ lane, int n, int d, int t0,
-                                      int shift, int k0, const float* __restrict__ w, int n0,
-                                      float (*As)[TM], float (*Bs)[TN]) {
-  const int tid = threadIdx.x;
-  for (int e = tid; e < TM * KC; e += ns2::kThreads) {
-    const int r = e / KC, kk = e % KC;
-    const int t = t0 + r - shift;
-    As[kk][r] = (t >= 0 && t < n) ? lane[(size_t)t * d + k0 + kk] : 0.0f;
-  }
-  for (int e = tid; e < KC * TN; e += ns2::kThreads) {
-    const int kk = e / TN, c = e % TN;
-    Bs[kk][c] = w[(size_t)(k0 + kk) * d + n0 + c];
-  }
-}
+using ns2::KC;
+using ns2::TM;
+using ns2::TN;
 
 // One stack: grid (ceil(n/TM), d/TN, L*b), blockIdx.z = l*b + batch.
 // `in` holds the stack's input lanes with stride `in_lane_stride` between
@@ -64,69 +47,16 @@ wavenet_stack_kernel(const float* __restrict__ in, size_t in_lane_stride,
                      float* __restrict__ out,           // [L, b, n, d]
                      int b, int n, int d, int S, int L, int s) {
   __shared__ float As[KC][TM];
-  __shared__ float Bs[KC][TN];
+  __shared__ float Ws[KC][TN];
   __shared__ float Rs[KC][TN];
 
-  const int ty = threadIdx.x / ns2::kGrid, tx = threadIdx.x % ns2::kGrid;
-  const int t0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
   const int l = blockIdx.z / b, bi = blockIdx.z % b;
-  const int dil = 1 << l;
-  const float* lane = in + l * in_lane_stride + (size_t)bi * n * d;
-  const float* cw = conv_w + (size_t)l * 3 * d * d;
-  const float* rw = res_w + (size_t)l * d * d;
-
-  float acc[4][4] = {};
-  float accr[4][4] = {};
-  for (int tap = 0; tap < 3; ++tap) {
-    const int shift = (2 - tap) * dil;  // tap 0 reads x_{t-2δ}
-    for (int k0 = 0; k0 < d; k0 += KC) {
-      stage(lane, n, d, t0, shift, k0, cw + (size_t)tap * d * d, n0, As, Bs);
-      if (tap == 2) {
-        for (int e = threadIdx.x; e < KC * TN; e += ns2::kThreads) {
-          const int kk = e / TN, c = e % TN;
-          Rs[kk][c] = rw[(size_t)(k0 + kk) * d + n0 + c];
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        float a[4], w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * w[j];
-        if (tap == 2) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) w[j] = Rs[kk][tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) accr[i][j] += a[i] * w[j];
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  const float* f = film + ((size_t)(bi * S + s) * L + l) * 2 * d;
-  float* o = out + ((size_t)l * b + bi) * n * d;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
-    if (t >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + tx + 16 * j;
-      float y = acc[i][j] + conv_b[(size_t)l * d + c];
-      y = y * f[c] + f[d + c];
-      const float g = tanhf(y) * ns2::sigmoid(y);
-      o[(size_t)t * d + c] = g + accr[i][j] + res_b[(size_t)l * d + c];
-    }
-  }
+  ns2::wavenet_block_tile(in + l * in_lane_stride + (size_t)bi * n * d,
+                          conv_w + (size_t)l * 3 * d * d, conv_b + (size_t)l * d,
+                          res_w + (size_t)l * d * d, res_b + (size_t)l * d,
+                          film + ((size_t)(bi * S + s) * L + l) * 2 * d,
+                          out + ((size_t)l * b + bi) * n * d, n, d, 1 << l, blockIdx.x * TM,
+                          blockIdx.y * TN, As, Ws, Rs);
 }
 
 // Σ_l lanes[l] · skip_w[l] + skip_b[l]: grid (ceil(n/TM), d/TN, b).
@@ -137,32 +67,15 @@ wavenet_skip_kernel(const float* __restrict__ lanes,   // [L, b, n, d]
                     float* __restrict__ out,           // [b, n, d]
                     int b, int n, int d, int L) {
   __shared__ float As[KC][TM];
-  __shared__ float Bs[KC][TN];
+  __shared__ float Ws[KC][TN];
 
   const int ty = threadIdx.x / ns2::kGrid, tx = threadIdx.x % ns2::kGrid;
   const int t0 = blockIdx.x * TM, n0 = blockIdx.y * TN, bi = blockIdx.z;
 
   float acc[4][4] = {};
-  for (int l = 0; l < L; ++l) {
-    const float* lane = lanes + ((size_t)l * b + bi) * n * d;
-    for (int k0 = 0; k0 < d; k0 += KC) {
-      stage(lane, n, d, t0, 0, k0, skip_w + (size_t)l * d * d, n0, As, Bs);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        float a[4], w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * w[j];
-      }
-      __syncthreads();
-    }
-  }
+  for (int l = 0; l < L; ++l)
+    ns2::tile_gemm(acc, lanes + ((size_t)l * b + bi) * n * d, d, n, t0, 0,
+                   skip_w + (size_t)l * d * d, d, n0, d, As, Ws);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

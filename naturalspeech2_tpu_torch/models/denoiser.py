@@ -57,8 +57,6 @@ class Model(nn.Module):
         super().__init__()
         if self_cond:
             raise _not_ported("self_cond=True", "slice 3")
-        if scan_layers:
-            raise _not_ported("scan_layers=True", "option list")
         if not use_fused_wavenet:
             raise _not_ported("use_fused_wavenet=False", "option list")
         if not use_flash_attn:
@@ -92,6 +90,7 @@ class Model(nn.Module):
         self.transformer = ConditionableTransformer(
             dim, depth, dim_head=dim_head, heads=heads, ff_mult=ff_mult,
             ff_causal_conv=True, dim_cond_mult=cond_mult, cross_attn=condition_on_prompt,
+            scan_layers=scan_layers,
         )
 
     def _drop_masks(self, b: int, device, cond_drop_prob, cond_drop_mask):

@@ -116,7 +116,12 @@ class ConditionableTransformer(nn.Module):
     """Unrolled adaptive transformer: per layer adaRMSNorm(t)→self-attn,
     with ``cross_attn`` adaRMSNorm(t)→cross-attn(context), and
     adaRMSNorm(t)→FF(causal conv), then RMSNorm + Linear. The stacked
-    norms are ordered [self, cross, ff] per layer."""
+    norms are ordered [self, cross, ff] per layer.
+
+    ``scan_layers`` names the JAX parameter layout only (per-layer weights
+    stacked under ``layers``, which `load_jax_params` unbinds into these
+    modules): PyTorch has nothing to scan, and the forward is the unrolled
+    one, which the JAX package holds equal to its scanned one."""
 
     def __init__(
         self,
@@ -143,11 +148,9 @@ class ConditionableTransformer(nn.Module):
                 "ff_causal_conv=False in the adaptive transformer is not ported yet "
                 "(ROADMAP Queue 1, item 5)"
             )
-        if scan_layers:
-            raise NotImplementedError("scan_layers=True is not ported yet (ROADMAP Queue 1, option list)")
         if not use_flash:
             raise NotImplementedError("use_flash=False is not ported yet (ROADMAP Queue 1, option list)")
-        self.dim, self.depth = dim, depth
+        self.dim, self.depth, self.scan_layers = dim, depth, scan_layers
         self.norms_per_layer = 3 if cross_attn else 2
         n_norms = depth * self.norms_per_layer
         dim_cond = dim * dim_cond_mult

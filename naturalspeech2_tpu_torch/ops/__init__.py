@@ -5,13 +5,13 @@ kernel launches in ``<wrapper>.launches``."""
 from naturalspeech2_tpu_torch.ops.attn_block_kernel import attn_block, cross_attn_block
 from naturalspeech2_tpu_torch.ops.ff_block_kernel import ff_block
 from naturalspeech2_tpu_torch.ops.flash_attention import flash_backward, flash_forward
-from naturalspeech2_tpu_torch.ops.wavenet_kernel import wavenet_body
+from naturalspeech2_tpu_torch.ops.wavenet_kernel import wavenet_body, wavenet_body_lanes
 
 # `ops.rvq` stays the module; its wrapper is `ops.rvq.rvq`
 from naturalspeech2_tpu_torch.ops import rvq as _rvq  # noqa: E402
 
-KERNEL_WRAPPERS = (wavenet_body, attn_block, cross_attn_block, ff_block, flash_forward,
-                   flash_backward, _rvq.rvq)
+KERNEL_WRAPPERS = (wavenet_body, wavenet_body_lanes, attn_block, cross_attn_block, ff_block,
+                   flash_forward, flash_backward, _rvq.rvq)
 
 
 def reset_launch_counts() -> None:

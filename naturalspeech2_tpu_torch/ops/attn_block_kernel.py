@@ -89,9 +89,9 @@ def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: f
         "attn_block", gamma=(gamma, (b, dm)), beta=(beta, (b, dm)), wq=(wq, (dm, hd)),
         wkv=(wkv, (dm, 2 * hd)), wo=(wo, (hd, dm)),
     )
-    if dim_head != 64 or dm != 128:
+    if dim_head != 64 or dm not in (128, 512):
         raise ValueError(
-            f"attn_block: the CUDA kernel takes dim_head 64 and dim 128, got {dim_head}, {dm}"
+            f"attn_block: the CUDA kernel takes dim_head 64 and dim 128 or 512, got {dim_head}, {dm}"
         )
     wqkv = torch.cat([wq, wkv], dim=-1)  # [dm, 3·H·dh]: q, then k, then v
     qkv = torch.empty((3, b, heads, n, dim_head), dtype=torch.float32, device=x.device)

@@ -45,8 +45,12 @@ def ff_block_torch(x, gamma, beta, w_val, b_val, w_gate, b_gate, wc, bc, w2, b2)
     return x + (c @ w2 + b2)
 
 
-# The kernel's inner width: a multiple of its 16-column thread grid.
+# The fused kernel's inner width, a multiple of its 16-column thread
+# grid, and the one shape it is built for: (dm, padded inner).
 _INNER_ALIGN = 16
+_FUSED_SHAPE = (128, 352)
+# The wide path's tile width: dm and the padded inner are multiples of it.
+_WIDE_ALIGN = 64
 
 
 def ff_block_plain(x, gamma, beta, w1, b1, wc, bc, w2, b2):
@@ -54,6 +58,10 @@ def ff_block_plain(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     inner = w1.shape[-1] // 2
     return ff_block_torch(x, gamma, beta, w1[:, :inner], b1[:inner], w1[:, inner:], b1[inner:],
                           wc, bc, w2, b2)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 def _forward(x, gamma, beta, w1, b1, wc, bc, w2, b2):
@@ -71,11 +79,13 @@ def _forward(x, gamma, beta, w1, b1, wc, bc, w2, b2):
         b1=(b1, (2 * inner,)), wc=(wc, (3, inner, inner)), bc=(bc, (inner,)),
         w2=(w2, (inner, dm)), b2=(b2, (dm,)),
     )
-    inner_p = -(-inner // _INNER_ALIGN) * _INNER_ALIGN
-    if dm != 128 or inner_p != 352:
+    fused = (dm, _round_up(inner, _INNER_ALIGN)) == _FUSED_SHAPE
+    if not fused and dm % _WIDE_ALIGN != 0:
         raise ValueError(
-            f"ff_block: the CUDA kernel takes dim 128 and inner 337..352, got {dm}, {inner}"
+            f"ff_block: the CUDA kernel takes dim 128 with inner 337..352, or a dim that is a "
+            f"multiple of {_WIDE_ALIGN}, got {dm}, {inner}"
         )
+    inner_p = _round_up(inner, _INNER_ALIGN if fused else _WIDE_ALIGN)
     # exact zeros in the padded columns and rows change no sum
     pad = inner_p - inner
     w_val_p = F.pad(w_val, (0, pad)).contiguous()
@@ -86,13 +96,21 @@ def _forward(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     bc_p = F.pad(bc, (0, pad))
     w2_p = F.pad(w2, (0, 0, 0, pad))
     out = torch.empty_like(x)
-    err = _build.library().ns2_ff_block(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_val_p.data_ptr(),
-        b_val_p.data_ptr(), w_gate_p.data_ptr(), b_gate_p.data_ptr(), wc_p.data_ptr(),
-        bc_p.data_ptr(), w2_p.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        b, n, dm, inner_p, _build.stream(x),
-    )
-    _build.check(err, "ns2_ff_block")
+    weights = (w_val_p, b_val_p, w_gate_p, b_gate_p, wc_p, bc_p, w2_p, b2)
+    lib = _build.library()
+    if fused:
+        err = lib.ns2_ff_block(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *(w.data_ptr() for w in weights),
+            out.data_ptr(), b, n, dm, inner_p, _build.stream(x),
+        )
+    else:
+        scratch = torch.empty((2, b, n, inner_p), dtype=torch.float32, device=x.device)
+        err = lib.ns2_ff_block_wide(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *(w.data_ptr() for w in weights),
+            scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(), b, n, dm, inner_p,
+            _build.stream(x),
+        )
+    _build.check(err, "ns2_ff_block" if fused else "ns2_ff_block_wide")
     ff_block.launches += 1
     return out
 
@@ -113,8 +131,10 @@ def ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2):
 
     w1/b1: the GEGLU Dense(2·inner), value half first and gate half
     second; wc/bc: the causal conv [3, inner, inner]; w2/b2: the out
-    Dense [inner, dm]. CUDA tensors run the kernel; CPU tensors run the
-    plain version.
+    Dense [inner, dm]. CUDA tensors run the kernel (one launch at dm 128,
+    inner 341; three at dims that are multiples of 64, such as the scaled
+    config's dm 512, inner 1365; counted as one launch of K3); CPU tensors
+    run the plain version.
     """
     return _FFBlock.apply(x, gamma, beta, w1, b1, wc, bc, w2, b2)
 

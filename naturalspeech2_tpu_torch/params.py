@@ -12,7 +12,10 @@ module never sees JAX. Layout rules:
   GroupNorm's scale/bias are its weight/bias;
 - the weights a kernel consumes keep their JAX layouts: the stacked
   WaveNet tensors, ``ada_norm_w``/``ada_norm_b``, the attention
-  projections and the feed-forward tree.
+  projections and the feed-forward tree;
+- a ``scan_layers=True`` tree's ``transformer/layers/{attn,cross_attn,ff}``
+  leaves, stacked on a leading depth axis, are unbound along that axis
+  into the same per-layer modules as the unrolled ``attn_{i}`` / ``ff_{i}``.
 
 Every leaf must be consumed and every expected leaf present; otherwise
 ``load_jax_params`` raises.
@@ -93,6 +96,25 @@ class _Converter:
         self.raw(f"{src}/Dense_1/kernel", f"{dst}.w2")
         self.raw(f"{src}/Dense_1/bias", f"{dst}.b2")
 
+    def unstack(self, src: str, dst: str) -> None:
+        """Rewrites the leaves ``{src}/{name}/...`` of a `nn.scan` tree,
+        stacked on a leading depth axis, as the unrolled leaves
+        ``{dst}/{name}_{i}/...`` (``{name}_{i}/...`` if ``dst`` is
+        empty); the depth is that leading axis."""
+        stacked = {p: v for p, v in self.leaves.items() if p.startswith(src + "/")}
+        depths = {v.shape[0] if v.ndim else None for v in stacked.values()}
+        if len(depths) != 1 or None in depths:
+            raise ValueError(f"the leaves under {src!r} disagree on their depth axis: {depths}")
+        depth = depths.pop()
+        for path, value in stacked.items():
+            name, rest = path[len(src) + 1:].split("/", 1)
+            for i in range(depth):
+                unrolled = f"{dst}/{name}_{i}/{rest}".lstrip("/")
+                if unrolled in self.leaves:
+                    raise ValueError(f"JAX tree has both {path!r} and {unrolled!r}")
+                self.leaves[unrolled] = value[i]
+            del self.leaves[path]
+
     def finish(self) -> dict[str, torch.Tensor]:
         if self.leaves:
             raise ValueError(f"JAX tree has leaves the port does not take: {sorted(self.leaves)}")
@@ -106,25 +128,33 @@ def _model(conv: _Converter) -> None:
     for name in ("conv_w", "conv_b", "res_w", "res_b", "skip_w", "skip_b", "film_w", "film_b"):
         conv.raw(f"wavenet/{name}", f"wavenet.{name}")
     conv.conv("wavenet/final_conv/Conv_0", "wavenet.final_conv.conv")
-    conv.raw("transformer/ada_norm_w", "transformer.ada_norm_w")
-    conv.raw("transformer/ada_norm_b", "transformer.ada_norm_b")
-    depth = conv.count("transformer/attn_{}")
-    for i in range(depth):
-        conv.attention(f"transformer/attn_{i}", f"transformer.attn.{i}")
-        if conv.has(f"transformer/cross_attn_{i}"):
-            conv.attention(f"transformer/cross_attn_{i}", f"transformer.cross_attn.{i}")
-        ff = f"transformer/ff_{i}"
-        conv.plain_ff(ff, f"transformer.ff.{i}")
-        conv.raw(f"{ff}/CausalConv1d_0/Conv_0/kernel", f"transformer.ff.{i}.wc")
-        conv.raw(f"{ff}/CausalConv1d_0/Conv_0/bias", f"transformer.ff.{i}.bc")
-    conv.raw("transformer/pred_norm/gamma", "transformer.pred_norm.gamma")
-    conv.dense("transformer/to_pred", "transformer.to_pred", bias=False)
+    _adaptive_transformer(conv, "transformer/", "transformer.")
     if conv.has("perceiver_resampler"):  # condition_on_prompt=True
         for name in ("null_prompt_cond", "null_prompt_tokens", "null_cond"):
             conv.raw(name, name)
         conv.dense("to_prompt_cond", "to_prompt_cond")
         conv.dense("cond_to_model_dim", "cond_to_model_dim")
         _resampler(conv, "perceiver_resampler", "perceiver_resampler")
+
+
+def _adaptive_transformer(conv: _Converter, src: str, dst: str) -> None:
+    """The denoiser's `ConditionableTransformer`, unrolled or with
+    ``scan_layers=True``; ``src`` and ``dst`` are path prefixes ("" for a
+    bare tree)."""
+    conv.raw(f"{src}ada_norm_w", f"{dst}ada_norm_w")
+    conv.raw(f"{src}ada_norm_b", f"{dst}ada_norm_b")
+    if conv.has(f"{src}layers"):  # scan_layers=True
+        conv.unstack(f"{src}layers", src.rstrip("/"))
+    for i in range(conv.count(f"{src}attn_{{}}")):
+        conv.attention(f"{src}attn_{i}", f"{dst}attn.{i}")
+        if conv.has(f"{src}cross_attn_{i}"):
+            conv.attention(f"{src}cross_attn_{i}", f"{dst}cross_attn.{i}")
+        ff = f"{src}ff_{i}"
+        conv.plain_ff(ff, f"{dst}ff.{i}")
+        conv.raw(f"{ff}/CausalConv1d_0/Conv_0/kernel", f"{dst}ff.{i}.wc")
+        conv.raw(f"{ff}/CausalConv1d_0/Conv_0/bias", f"{dst}ff.{i}.bc")
+    conv.raw(f"{src}pred_norm/gamma", f"{dst}pred_norm.gamma")
+    conv.dense(f"{src}to_pred", f"{dst}to_pred", bias=False)
 
 
 def _resampler(conv: _Converter, src: str, dst: str) -> None:
@@ -223,8 +253,10 @@ def load_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
     ``tree`` is one of: a `NaturalSpeech2` tree ``{"model": ..., "codec":
     ...}`` (codec optional; a conditional one also holds ``phoneme_enc``,
     ``prompt_enc``, ``duration_pitch``, ``aligner`` and ``pitch_emb``), a
-    `Model` tree (it has ``"wavenet"``), or a `SoundStream` tree (it has
-    ``"codebooks"``). Load the result with
+    `Model` tree (it has ``"wavenet"``), a `SoundStream` tree (it has
+    ``"codebooks"``) or a `ConditionableTransformer` tree (it has
+    ``"ada_norm_w"``); `Model` and `ConditionableTransformer` trees may
+    come from ``scan_layers=True``. Load the result with
     ``module.load_state_dict(state, strict=True)``.
     """
     keys = set(tree)
@@ -243,6 +275,9 @@ def load_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
         _model(conv)
     elif "codebooks" in keys:
         _codec(conv)
+    elif "ada_norm_w" in keys:
+        _adaptive_transformer(conv, "", "")
     else:
-        raise ValueError(f"not a Model, SoundStream or NaturalSpeech2 tree: keys {sorted(keys)}")
+        raise ValueError(f"not a Model, SoundStream, ConditionableTransformer or NaturalSpeech2 "
+                         f"tree: keys {sorted(keys)}")
     return conv.finish()

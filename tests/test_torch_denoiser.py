@@ -60,7 +60,6 @@ def test_scalar_time_broadcasts(jax_model):
     "option",
     [
         {"self_cond": True},
-        {"scan_layers": True},
         {"use_fused_wavenet": False},
         {"use_flash_attn": False},
         {"gelu_approximate": False},

@@ -31,6 +31,7 @@ def test_import_loads_no_jax():
         "import naturalspeech2_tpu_torch.ops.flash_attention, naturalspeech2_tpu_torch.ops.rvq\n"
         "import naturalspeech2_tpu_torch.ops.attention, naturalspeech2_tpu_torch.ops.pitch\n"
         "import naturalspeech2_tpu_torch.models.encoders, naturalspeech2_tpu_torch.models.aligner\n"
+        "import naturalspeech2_tpu_torch.ops.wavenet_kernel, naturalspeech2_tpu_torch.ops.ff_block_kernel\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'naturalspeech2_tpu'))\n"
         "print(json.dumps(bad))\n"
