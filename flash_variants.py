@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Where the flash-attention kernels' time goes, on one NVIDIA GPU.
+
+    python3 flash_variants.py
+
+Builds the port's kernel library (as `chip_smoke.py` does), prints the SASS
+opcode counts of the K4 and K5 kernels, then builds variants of
+`csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, each with one design choice
+undone or one part of the work taken out, and times them side by side
+(CUDA events, the C entry points called directly, without the Python
+wrappers), with each variant's error against the plain versions:
+
+  base            the kernels as committed
+  k4_3blocks      K4 held to 168 registers, three blocks an SM
+  k5_walk64       K5's two kernels walk 64 rows a tile (two blocks an SM)
+  dq64, dkv64     only K5's dq or dk/dv kernel walks 64 rows
+  expf            e^x by expf instead of the special-function unit
+  one_pass        one TF32 pass per product (hi·hi): fast and wrong
+  one_acc         the small terms of S and dP into the large ones'
+                  accumulator, and K5's tile products straight into its
+                  sums: the tensor cores' truncating adds pile up
+
+Exits non-zero without a CUDA device. Not part of the smoke run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+from collections import Counter
+
+VARIANTS = {
+    "base": [],
+    "k4_3blocks": [("flash_fwd.cu", "__launch_bounds__(kFlashThreads, 2)",
+                    "__launch_bounds__(kFlashThreads, 3)")],
+    "k5_walk64": [("flash_bwd.cu", "constexpr int kDqWalk = 32;", "constexpr int kDqWalk = 64;"),
+                  ("flash_bwd.cu", "constexpr int kDkvWalk = 32;", "constexpr int kDkvWalk = 64;")],
+    "dq64": [("flash_bwd.cu", "constexpr int kDqWalk = 32;", "constexpr int kDqWalk = 64;")],
+    "dkv64": [("flash_bwd.cu", "constexpr int kDkvWalk = 32;", "constexpr int kDkvWalk = 64;")],
+    "expf": [("flash.cuh", "return exp2f(x * 1.4426950408889634f);", "return expf(x);")],
+    "one_pass": [("flash.cuh", "  mma_tf32(d, a_hi, b_lo);\n  mma_tf32(d, a_lo, b_hi);\n", ""),
+                 ("flash.cuh", "        mma_tf32(small[j + i], a_hi, bl);\n"
+                               "        mma_tf32(small[j + i], a_lo, bh);\n", ""),
+                 ("flash_fwd.cu", "      wgmma_ss_n32(small, qa_hi, kb_lo);\n"
+                                  "      wgmma_ss_n32(small, qa_lo, kb_hi);\n", ""),
+                 ("flash_fwd.cu", "      wgmma_rs_n64(part, pa_hi[ks], vb_lo);\n"
+                                  "      wgmma_rs_n64(part, pa_lo[ks], vb_hi);\n", "")],
+    "one_acc": [("flash.cuh", "        mma_tf32(small[j + i], a_hi, bl);\n"
+                              "        mma_tf32(small[j + i], a_lo, bh);\n",
+                 "        mma_tf32(d[j + i], a_hi, bl);\n        mma_tf32(d[j + i], a_lo, bh);\n"),
+                ("flash.cuh", "mma_split(part[j], a_hi, a_lo, b_hi, b_lo);",
+                 "mma_split(acc[j], a_hi, a_lo, b_hi, b_lo);"),
+                ("flash_fwd.cu", "      wgmma_ss_n32(small, qa_hi, kb_lo);\n"
+                                 "      wgmma_ss_n32(small, qa_lo, kb_hi);\n",
+                 "      wgmma_ss_n32(s, qa_hi, kb_lo);\n      wgmma_ss_n32(s, qa_lo, kb_hi);\n")],
+}
+# (b, h, n, with K5)
+SHAPES = ((16, 8, 150, True), (4, 8, 1024, True), (1, 8, 4500, False), (1, 8, 9000, False),
+          (8, 8, 32, False), (4, 8, 102, False))
+
+
+def sass_counts(lib_path) -> None:
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    fn, counts = None, {}
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = Counter()
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and fn:
+            counts[fn][m.group(2).split(".")[0]] += 1
+    for fn, c in counts.items():
+        if "flash" in fn:
+            print(f"SASS {fn[:80]}: {sum(c.values())} instructions (static); "
+                  + ", ".join(f"{k} {v}" for k, v in c.most_common(12)), flush=True)
+
+
+def build_variants(_build) -> dict:
+    work = _build.BUILD_DIR / "variants"
+    shutil.rmtree(work, ignore_errors=True)
+    procs = {}
+    for name, edits in VARIANTS.items():
+        d = work / name
+        shutil.copytree(_build.CSRC, d)
+        for f, old, new in edits:
+            text = (d / f).read_text()
+            if old not in text:
+                raise AssertionError(f"variant {name}: {old[:40]!r} not in {f}")
+            (d / f).write_text(text.replace(old, new))
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+             str(d / "flash_fwd.cu"), str(d / "flash_bwd.cu"), str(d / "runtime.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, p in procs.items():
+        out = p.communicate(timeout=900)[0]
+        if p.returncode:
+            raise RuntimeError(f"variant {name} failed to build:\n{out[-3000:]}")
+        regs = [l.split("info    :")[-1].strip() for l in out.splitlines() if "registers" in l]
+        print(f"variant {name}: {' | '.join(regs)}", flush=True)
+        lib = ctypes.CDLL(str(work / name / "lib.so"))
+        for fn in ("ns2_flash_fwd", "ns2_flash_bwd"):
+            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("flash_variants: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from naturalspeech2_tpu_torch import _build
+    from naturalspeech2_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs.phase1_card_and_build()
+    sass_counts(_build.BUILD_DIR / f"ns2_kernels_{_build._digest()}.so")
+    libs = build_variants(_build)
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    for b, h, n, backward in SHAPES:
+        q, k, v, do = (torch.randn(b, h, n, 64, generator=gen, device="cuda") for _ in range(4))
+        o_ref, lse_ref = fa.flash_forward_torch(q, k, v, None, None, causal=False, scale=0.125)
+        refs = fa.flash_backward_torch(q, k, v, None, None, lse_ref, o_ref, do, causal=False,
+                                       scale=0.125) if backward else None
+        delta = (do * o_ref).sum(-1)
+        o, lse = torch.empty_like(q), torch.empty(b, h, n, device="cuda")
+        grads = [torch.empty_like(q) for _ in range(3)]
+        tail = (*fa._dropout_args(None, 0.0, n), stream)
+        fwd = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), lse.data_ptr(),
+               b, h, n, n, 64, 0, 0.125, *tail)
+        bwd = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, lse_ref.data_ptr(),
+               delta.data_ptr(), do.data_ptr(), *(g.data_ptr() for g in grads), b, h, n, n, 64, 0,
+               0.125, *tail)
+        cases = [("K4", "ns2_flash_fwd", fwd)]
+        if backward:
+            cases.append(("K5", "ns2_flash_bwd", bwd))
+        for label, entry, args in cases:
+            times, errs = {}, {}
+            for name, lib in libs.items():
+                fn = getattr(lib, entry)
+                _build.check(fn(*args), entry)
+                torch.cuda.synchronize()
+                if label == "K4":
+                    errs[name] = max((o - o_ref).abs().max().item(),
+                                     (lse - lse_ref).abs().max().item())
+                else:
+                    errs[name] = max(((g - r).abs().max() / r.abs().max()).item()
+                                     for g, r in zip(grads, refs))
+            for _ in range(2):  # two rounds, variants in turn
+                for name, lib in libs.items():
+                    fn = getattr(lib, entry)
+                    times.setdefault(name, []).append(cs.cuda_ms(lambda: fn(*args)))
+            print(f"{label} [{b},{h},{n},64] ms (two rounds) and max error (K4 abs, K5 relative): "
+                  + "; ".join(f"{name} {t[0]:.4f} {t[1]:.4f} err {errs[name]:.1e}"
+                              for name, t in times.items()), flush=True)
+        del q, k, v, do, o_ref, lse_ref, refs
+        torch.cuda.empty_cache()
+    print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                            capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,5 @@
-// K5: flash attention backward, dq and dk/dv.
+// K5: flash attention backward, dq and dk/dv, on the tensor cores in split
+// TF32.
 //
 // Replaces the Pallas kernels `_flash_bwd_dq_kernel` and
 // `_flash_bwd_dkv_kernel` in naturalspeech2_tpu/ops/flash_attention.py. With
@@ -10,320 +11,277 @@
 //   dS = P ∘ (dP − delta) · scale
 //   dq = dS k,  dk = dSᵀ q,  dv = Aᵀ dO.
 //
-// What bounds it on the card: f32 multiply-adds from shared memory, as in
-// K4; the backward does 2.5 times the forward's products (S, dP and two
-// accumulating products per tile in each kernel).
+// What bounds it on the card: the matrix products. The bound counts five
+// n_q·n_kv·64 products (S, dP, dV, dQ, dK); this kernel executes seven,
+// since each owner kernel recomputes S and dP for itself, and each product
+// takes three TF32 passes (split TF32, flash.cuh) on the tensor cores.
 //
-// Design: the TPU grid accumulates across a sequential axis in VMEM
-// scratch. Here each output has one owner block that loops inside itself:
-// flash_bwd_dq_kernel owns (batch·head, 64 query rows) and walks the key
-// tiles; flash_bwd_dkv_kernel owns (batch·head, 64 keys) and walks the
-// query tiles. Every sum stays in one thread's registers, so there are no
-// atomics and the result is deterministic. Causal blocks skip the tiles
-// above the diagonal. Shared tiles are padded by one column so the
-// transposed stores and the column reads hit distinct banks.
+// Design: each output has one owner block that loops inside itself, as
+// the TPU grid accumulates across a sequential axis: flash_bwd_dq_kernel
+// owns (batch·head, 64 query rows) and walks the keys in tiles of 32;
+// flash_bwd_dkv_kernel owns (batch·head, 64 keys) and walks the queries in
+// tiles of 32. Every sum stays in one warp's accumulators, so there are no
+// atomics and the result is deterministic. Four warps per block, each
+// owning 16 of the block's 64 rows (queries, or keys), run every product on
+// `mma.sync.m16n8k8` TF32 tiles in split TF32. The backward needs P and dS
+// in both orientations; `mma.sync` fragments are loaded from shared memory
+// by arbitrary index, so the transposed products read the same padded tiles
+// (flash.cuh's direct and paired patterns, both free of bank conflicts) and
+// the accumulators of S and dP become the A operands of dV, dK and dQ in
+// registers. `wgmma`'s TF32 operands would have to be K-major copies in
+// shared memory, one per orientation. The owner's own tiles (Q and dO, or
+// K and V) are staged once; the walked tiles arrive by `cp.async` in a
+// two-stage ring, the next one in flight while this one's products run.
+// Operands are split into hi and lo once per fragment read, never per
+// product; S and dP keep their small terms apart, and each tile's dQ, dK
+// and dV are summed apart and added in f32, as in K4, against the tensor
+// cores' truncating adds. A tile that no rule cuts skips the per-element
+// test. Causal blocks skip the tiles past the diagonal. With 32-row walked
+// tiles three blocks share an SM; at the training shape [16,8,150,64] that
+// took 0.11 ms on the card against 0.18 with 64-row tiles (two blocks), at
+// [4,8,1024,64] 0.81 against 0.77.
 #include "flash.cuh"
 
 namespace {
 
-using ns2::kTK;
-using ns2::kTQ;
+using ns2::kD;
+using ns2::kFlashThreads;
+using ns2::kLd;
+using ns2::kTile;
 
-template <int D>
+// Rows per walked tile, and with them the blocks an SM holds: at 32 rows
+// three (about 70 KB of shared memory and at most 168 registers a thread
+// each), 12 warps to hide the latency of the fragment loads, splits and
+// mmas; at 64 two.
+constexpr int kDqWalk = 32;
+constexpr int kDkvWalk = 32;
+
+template <int kWalk>
 struct DqSmem {
-  float q[D][kTQ + 1];     // query tile, transposed
-  float dout[D][kTQ + 1];  // dO tile, transposed
-  float k[kTK][D + 1];
-  float v[kTK][D + 1];
-  float ds[kTK][kTQ + 1];  // dS, transposed
+  float q[kTile][kLd];      // the block's query rows
+  float dout[kTile][kLd];   // and their dO
+  float k[2][kWalk][kLd];   // key tiles, a two-stage ring
+  float v[2][kWalk][kLd];   // value tiles
 };
 
-template <int D>
+template <int kWalk>
 struct DkvSmem {
-  float k[D][kTK + 1];     // key tile, transposed
-  float v[D][kTK + 1];     // value tile, transposed
-  float q[kTQ][D + 1];
-  float dout[kTQ][D + 1];
-  float a[kTQ][kTK + 1];   // dropped probabilities
-  float ds[kTQ][kTK + 1];
-  float lse[kTQ];
-  float delta[kTQ];
+  float k[kTile][kLd];       // the block's keys
+  float v[kTile][kLd];       // and their values
+  float q[2][kWalk][kLd];    // query tiles, a two-stage ring
+  float dout[2][kWalk][kLd]; // dO tiles
+  float lse[2][kWalk];
+  float delta[2][kWalk];
 };
 
-// grid (ceil(n_q / kTQ), b·h); dynamic shared memory sizeof(DqSmem<D>)
-template <int D>
-__global__ void __launch_bounds__(ns2::kThreads)
+// grid (ceil(n_q / 64), b·h), 128 threads; dynamic shared memory
+// sizeof(DqSmem<kWalk>)
+template <int kWalk>
+__global__ void __launch_bounds__(kFlashThreads, kWalk == 32 ? 3 : 2)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const unsigned char* __restrict__ mask,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const float* __restrict__ dout, float* __restrict__ dq, int heads, int n_q,
                     int n_kv, int causal, float scale, ns2::Dropout dr) {
-  constexpr int JD = D / ns2::kGrid;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(smem_raw);
+  DqSmem<kWalk>& sm = *reinterpret_cast<DqSmem<kWalk>*>(smem_raw);
 
-  const int tid = threadIdx.x;
-  const int ty = tid / ns2::kGrid, tx = tid % ns2::kGrid;
-  const int q0 = blockIdx.x * kTQ, bh = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int bi = bh / heads, hi = bh % heads;
   const size_t qbase = (size_t)bh * n_q, kbase = (size_t)bh * n_kv;
+  const float* kh = k + kbase * kD;
+  const float* vh = v + kbase * kD;
   const unsigned char* mask_b = mask ? mask + (size_t)bi * n_kv : nullptr;
 
-  for (int e = tid; e < kTQ * D; e += ns2::kThreads) {
-    const int r = e / D, c = e % D;
-    const bool ok = q0 + r < n_q;
-    sm.q[c][r] = ok ? q[(qbase + q0 + r) * D + c] : 0.0f;
-    sm.dout[c][r] = ok ? dout[(qbase + q0 + r) * D + c] : 0.0f;
-  }
-  float row_lse[4], row_delta[4];
+  const int k_end = causal ? min(n_kv, q0 + kTile) : n_kv;
+  const int n_tiles = (k_end + kWalk - 1) / kWalk;
+  ns2::load_tile_async(sm.q, q + qbase * kD, q0, n_q, tid, kFlashThreads);
+  ns2::load_tile_async(sm.dout, dout + qbase * kD, q0, n_q, tid, kFlashThreads);
+  ns2::load_tile_async<kWalk>(sm.k[0], kh, 0, n_kv, tid, kFlashThreads);
+  ns2::load_tile_async<kWalk>(sm.v[0], vh, 0, n_kv, tid, kFlashThreads);
+  ns2::cp_async_commit();
+
+  const int w0 = 16 * warp, ra = q0 + w0 + g;
+  float row_lse[2], row_delta[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    row_lse[i] = row < n_q ? lse[qbase + row] : 0.0f;
-    row_delta[i] = row < n_q ? delta[qbase + row] : 0.0f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = ra + 8 * r;
+    row_lse[r] = row < n_q ? lse[qbase + row] : 0.0f;
+    row_delta[r] = row < n_q ? delta[qbase + row] : 0.0f;
   }
 
-  float acc[4][JD] = {};
-  const int k_end = causal ? min(n_kv, q0 + kTQ) : n_kv;
-  for (int k0 = 0; k0 < k_end; k0 += kTK) {
-    __syncthreads();  // the previous tile is done with sm.k / sm.v / sm.ds
-    for (int e = tid; e < kTK * D; e += ns2::kThreads) {
-      const int r = e / D, c = e % D;
-      const bool ok = k0 + r < n_kv;
-      sm.k[r][c] = ok ? k[(kbase + k0 + r) * D + c] : 0.0f;
-      sm.v[r][c] = ok ? v[(kbase + k0 + r) * D + c] : 0.0f;
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt & 1, k0 = kt * kWalk;
+    if (kt + 1 < n_tiles) {
+      ns2::load_tile_async<kWalk>(sm.k[st ^ 1], kh, k0 + kWalk, n_kv, tid, kFlashThreads);
+      ns2::load_tile_async<kWalk>(sm.v[st ^ 1], vh, k0 + kWalk, n_kv, tid, kFlashThreads);
+      ns2::cp_async_commit();
+      ns2::cp_async_wait<1>();
+    } else {
+      ns2::cp_async_wait<0>();
     }
     __syncthreads();
 
-    float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll 2
-    for (int c = 0; c < D; ++c) {
-      float aq[4], ad[4], bk[4], bv[4];
+    float s[kWalk / 8][4], dp[kWalk / 8][4];
+    ns2::product_xyt(sm.q, sm.k[st], w0, lane, s);      // S = Q Kᵀ
+    ns2::product_xyt(sm.dout, sm.v[st], w0, lane, dp);  // dP = dO Vᵀ
+    // dS into s: element (j, i) is query ra + 8·(i / 2), key k0 + 8j + 2t + (i & 1);
+    // a tile that no rule cuts skips the per-element test
+    const bool whole = mask_b == nullptr && q0 + w0 + 16 <= n_q && k0 + kWalk <= n_kv &&
+                       (!causal || k0 + kWalk - 1 <= q0 + w0);
+#pragma unroll
+    for (int j = 0; j < kWalk / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        aq[i] = sm.q[c][ty + 16 * i];
-        ad[i] = sm.dout[c][ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = sm.k[tx + 16 * j][c];
-        bv[j] = sm.v[tx + 16 * j][c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += aq[i] * bk[j];
-          dp[i][j] += ad[i] * bv[j];
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
+        const int row = ra + 8 * (i / 2), col = k0 + 8 * j + 2 * t + (i & 1);
         float ds = 0.0f;
-        if (ns2::visible(mask_b, row, col, n_q, n_kv, causal)) {
-          const float p = expf(s[i][j] * scale - row_lse[i]);
-          float d = dp[i][j];
+        if (whole || ns2::visible(mask_b, row, col, n_q, n_kv, causal)) {
+          const float p = ns2::exp_sfu(s[j][i] * scale - row_lse[i / 2]);
+          float d = dp[j][i];
           if (dr.rate > 0.0f) d *= ns2::keep_mult(dr, bi, hi, row, col);
-          ds = p * (d - row_delta[i]) * scale;
+          ds = p * (d - row_delta[i / 2]) * scale;
         }
-        sm.ds[tx + 16 * j][ty + 16 * i] = ds;
+        s[j][i] = ds;
       }
-    }
+    ns2::add_product(acc, s, sm.k[st], g, t);  // dQ += dS K
     __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kTK; ++c) {
-      float a[4], b[JD];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sm.ds[c][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < JD; ++j) b[j] = sm.k[c][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < JD; ++j) acc[i][j] += a[i] * b[j];
-    }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= n_q) continue;
-#pragma unroll
-    for (int j = 0; j < JD; ++j) dq[(qbase + row) * D + tx + 16 * j] = acc[i][j];
-  }
+  const float one[2] = {1.0f, 1.0f};
+  ns2::store_rows(dq + qbase * kD, acc, ra, n_q, t, one);
 }
 
-// grid (ceil(n_kv / kTK), b·h); dynamic shared memory sizeof(DkvSmem<D>)
-template <int D>
-__global__ void __launch_bounds__(ns2::kThreads)
+// grid (ceil(n_kv / 64), b·h), 128 threads; dynamic shared memory
+// sizeof(DkvSmem<kWalk>)
+template <int kWalk>
+__global__ void __launch_bounds__(kFlashThreads, kWalk == 32 ? 3 : 2)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const unsigned char* __restrict__ mask,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const float* __restrict__ dout, float* __restrict__ dk,
                      float* __restrict__ dv, int heads, int n_q, int n_kv, int causal,
                      float scale, ns2::Dropout dr) {
-  constexpr int JD = D / ns2::kGrid;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(smem_raw);
+  DkvSmem<kWalk>& sm = *reinterpret_cast<DkvSmem<kWalk>*>(smem_raw);
 
-  const int tid = threadIdx.x;
-  const int ty = tid / ns2::kGrid, tx = tid % ns2::kGrid;
-  const int kv0 = blockIdx.x * kTK, bh = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kv0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int bi = bh / heads, hi = bh % heads;
   const size_t qbase = (size_t)bh * n_q, kbase = (size_t)bh * n_kv;
+  const float* qh = q + qbase * kD;
+  const float* dh = dout + qbase * kD;
   const unsigned char* mask_b = mask ? mask + (size_t)bi * n_kv : nullptr;
 
-  for (int e = tid; e < kTK * D; e += ns2::kThreads) {
-    const int r = e / D, c = e % D;
-    const bool ok = kv0 + r < n_kv;
-    sm.k[c][r] = ok ? k[(kbase + kv0 + r) * D + c] : 0.0f;
-    sm.v[c][r] = ok ? v[(kbase + kv0 + r) * D + c] : 0.0f;
-  }
-
-  float acc_k[4][JD] = {}, acc_v[4][JD] = {};
   // causal: query tiles that end before this key tile starts see none of it
-  const int q_begin = causal ? (kv0 / kTQ) * kTQ : 0;
-  for (int q0 = q_begin; q0 < n_q; q0 += kTQ) {
-    __syncthreads();  // the previous tile is done with sm.q / sm.dout / sm.a / sm.ds
-    for (int e = tid; e < kTQ * D; e += ns2::kThreads) {
-      const int r = e / D, c = e % D;
-      const bool ok = q0 + r < n_q;
-      sm.q[r][c] = ok ? q[(qbase + q0 + r) * D + c] : 0.0f;
-      sm.dout[r][c] = ok ? dout[(qbase + q0 + r) * D + c] : 0.0f;
+  const int q_begin = causal ? kv0 : 0;
+  const int n_tiles = q_begin < n_q ? (n_q - q_begin + kWalk - 1) / kWalk : 0;
+  auto load_query_tile = [&](int stage, int qs) {
+    ns2::load_tile_async<kWalk>(sm.q[stage], qh, qs, n_q, tid, kFlashThreads);
+    ns2::load_tile_async<kWalk>(sm.dout[stage], dh, qs, n_q, tid, kFlashThreads);
+    if (tid < kWalk) {
+      const bool ok = qs + tid < n_q;
+      sm.lse[stage][tid] = ok ? lse[qbase + qs + tid] : 0.0f;
+      sm.delta[stage][tid] = ok ? delta[qbase + qs + tid] : 0.0f;
     }
-    if (tid < kTQ) {
-      const bool ok = q0 + tid < n_q;
-      sm.lse[tid] = ok ? lse[qbase + q0 + tid] : 0.0f;
-      sm.delta[tid] = ok ? delta[qbase + q0 + tid] : 0.0f;
+  };
+  ns2::load_tile_async(sm.k, k + kbase * kD, kv0, n_kv, tid, kFlashThreads);
+  ns2::load_tile_async(sm.v, v + kbase * kD, kv0, n_kv, tid, kFlashThreads);
+  if (n_tiles > 0) load_query_tile(0, q_begin);
+  ns2::cp_async_commit();
+
+  const int w0 = 16 * warp, ka = kv0 + w0 + g;
+  float acc_k[kD / 8][4], acc_v[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.0f;
+
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    const int st = qt & 1, qs = q_begin + qt * kWalk;
+    if (qt + 1 < n_tiles) {
+      load_query_tile(st ^ 1, qs + kWalk);
+      ns2::cp_async_commit();
+      ns2::cp_async_wait<1>();
+    } else {
+      ns2::cp_async_wait<0>();
     }
     __syncthreads();
 
-    // transposed tiles: element [i][j] is (key kv0 + ty + 16i, query q0 + tx + 16j)
-    float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll 2
-    for (int c = 0; c < D; ++c) {
-      float ak[4], av[4], bq[4], bd[4];
+    // transposed: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, element (j, i) is key
+    // ka + 8·(i / 2), query qs + 8j + 2t + (i & 1)
+    float s[kWalk / 8][4], dp[kWalk / 8][4];
+    ns2::product_xyt(sm.k, sm.q[st], w0, lane, s);      // Sᵀ = K Qᵀ
+    ns2::product_xyt(sm.v, sm.dout[st], w0, lane, dp);  // dPᵀ = V dOᵀ
+    const bool whole = mask_b == nullptr && qs + kWalk <= n_q && kv0 + w0 + 16 <= n_kv &&
+                       (!causal || kv0 + w0 + 15 <= qs);
+#pragma unroll
+    for (int j = 0; j < kWalk / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        ak[i] = sm.k[c][ty + 16 * i];
-        av[i] = sm.v[c][ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bq[j] = sm.q[tx + 16 * j][c];
-        bd[j] = sm.dout[tx + 16 * j][c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += ak[i] * bq[j];
-          dp[i][j] += av[i] * bd[j];
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = kv0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qr = tx + 16 * j, row = q0 + qr;
+        const int qc = 8 * j + 2 * t + (i & 1), row = qs + qc, col = ka + 8 * (i / 2);
         float a = 0.0f, ds = 0.0f;
-        if (ns2::visible(mask_b, row, col, n_q, n_kv, causal)) {
-          const float p = expf(s[i][j] * scale - sm.lse[qr]);
-          float d = dp[i][j];
+        if (whole || ns2::visible(mask_b, row, col, n_q, n_kv, causal)) {
+          const float p = ns2::exp_sfu(s[j][i] * scale - sm.lse[st][qc]);
+          float d = dp[j][i];
           a = p;
           if (dr.rate > 0.0f) {
             const float keep = ns2::keep_mult(dr, bi, hi, row, col);
             a = p * keep;
             d *= keep;
           }
-          ds = p * (d - sm.delta[qr]) * scale;
+          ds = p * (d - sm.delta[st][qc]) * scale;
         }
-        sm.a[qr][ty + 16 * i] = a;
-        sm.ds[qr][ty + 16 * i] = ds;
+        s[j][i] = a;
+        dp[j][i] = ds;
       }
-    }
+    ns2::add_product(acc_v, s, sm.dout[st], g, t);  // dV += Aᵀ dO
+    ns2::add_product(acc_k, dp, sm.q[st], g, t);    // dK += dSᵀ Q
     __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kTQ; ++c) {
-      float aa[4], ad[4], bd[JD], bq[JD];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        aa[i] = sm.a[c][ty + 16 * i];
-        ad[i] = sm.ds[c][ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < JD; ++j) {
-        bd[j] = sm.dout[c][tx + 16 * j];
-        bq[j] = sm.q[c][tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < JD; ++j) {
-          acc_v[i][j] += aa[i] * bd[j];
-          acc_k[i][j] += ad[i] * bq[j];
-        }
-    }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int col = kv0 + ty + 16 * i;
-    if (col >= n_kv) continue;
-#pragma unroll
-    for (int j = 0; j < JD; ++j) {
-      dk[(kbase + col) * D + tx + 16 * j] = acc_k[i][j];
-      dv[(kbase + col) * D + tx + 16 * j] = acc_v[i][j];
-    }
-  }
-}
-
-template <int D>
-int launch_bwd(const float* q, const float* k, const float* v, const unsigned char* mask,
-               const float* lse, const float* delta, const float* dout, float* dq, float* dk,
-               float* dv, int b, int h, int n_q, int n_kv, int causal, float scale,
-               const ns2::Dropout& dr, cudaStream_t st) {
-  const int dq_bytes = (int)sizeof(DqSmem<D>);
-  const int dkv_bytes = (int)sizeof(DkvSmem<D>);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((n_q + kTQ - 1) / kTQ, b * h);
-  flash_bwd_dq_kernel<D><<<grid_q, ns2::kThreads, dq_bytes, st>>>(
-      q, k, v, mask, lse, delta, dout, dq, h, n_q, n_kv, causal, scale, dr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid_kv((n_kv + kTK - 1) / kTK, b * h);
-  flash_bwd_dkv_kernel<D><<<grid_kv, ns2::kThreads, dkv_bytes, st>>>(
-      q, k, v, mask, lse, delta, dout, dk, dv, h, n_q, n_kv, causal, scale, dr);
-  return cudaGetLastError();
+  ns2::cp_async_wait<0>();  // with no query tile (causal, n_kv > n_q) K, V may be in flight
+  const float one[2] = {1.0f, 1.0f};
+  ns2::store_rows(dk + kbase * kD, acc_k, ka, n_kv, t, one);
+  ns2::store_rows(dv + kbase * kD, acc_v, ka, n_kv, t, one);
 }
 
 }  // namespace
 
-// q/dout [b,h,n_q,d], k/v [b,h,n_kv,d], mask [b,n_kv] uint8 or null, lse and
-// delta [b,h,n_q] -> dq [b,h,n_q,d], dk/dv [b,h,n_kv,d]. Dropout arguments as
-// for ns2_flash_fwd; d = 64 only (other widths return cudaErrorInvalidValue).
+// q/dout [b,h,n_q,64], k/v [b,h,n_kv,64], 16-byte aligned, mask [b,n_kv]
+// uint8 or null, lse and delta [b,h,n_q] -> dq [b,h,n_q,64], dk/dv
+// [b,h,n_kv,64]. Dropout arguments as for ns2_flash_fwd; other head widths
+// return cudaErrorInvalidValue.
 NS2_API int ns2_flash_bwd(const float* q, const float* k, const float* v,
                           const unsigned char* mask, const float* lse, const float* delta,
                           const float* dout, float* dq, float* dk, float* dv, int b, int h,
                           int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                           unsigned seed1, float rate, int stride, unsigned threshold,
                           float keep_scale, void* stream) {
-  if (d != 64 || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
+  if (d != kD || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
   const ns2::Dropout dr{seed0, seed1, rate, stride, threshold, keep_scale};
-  return launch_bwd<64>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, causal,
-                        scale, dr, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int dq_bytes = (int)sizeof(DqSmem<kDqWalk>);
+  const int dkv_bytes = (int)sizeof(DkvSmem<kDkvWalk>);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<kDqWalk>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<kDkvWalk>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((n_q + kTile - 1) / kTile, b * h);
+  flash_bwd_dq_kernel<kDqWalk><<<grid_q, kFlashThreads, dq_bytes, st>>>(
+      q, k, v, mask, lse, delta, dout, dq, h, n_q, n_kv, causal, scale, dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((n_kv + kTile - 1) / kTile, b * h);
+  flash_bwd_dkv_kernel<kDkvWalk><<<grid_kv, kFlashThreads, dkv_bytes, st>>>(
+      q, k, v, mask, lse, delta, dout, dk, dv, h, n_q, n_kv, causal, scale, dr);
+  return cudaGetLastError();
 }

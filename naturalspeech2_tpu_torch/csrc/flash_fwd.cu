@@ -1,4 +1,4 @@
-// K4: flash attention forward.
+// K4: flash attention forward, on the tensor cores in split TF32.
 //
 // Replaces the Pallas kernels `_flash_kernel` (online softmax over kv
 // blocks) and `_flash_oneshot_kernel` (one kv block) in
@@ -9,177 +9,388 @@
 // ones). Masked logits are NEG_INF (finite) and masked probabilities exactly
 // 0, so a fully masked row gives o = 0 and lse = NEG_INF.
 //
-// What bounds it on the card: f32 multiply-adds fed from shared memory. At
-// the training shape (b16 h8 n150 d64) the logits and P·V products are
-// 0.74 GFLOP against 7.4 MB of q/k/v/o, far above the f32 ridge of the
-// H100 (67 TFLOP/s over 3.35 TB/s, 20 FLOP per byte), so the limit is the
-// CUDA cores and the shared-memory loads that feed them.
+// What bounds it on the card: the matrix products, 4·n_q·n_kv·64 FLOP per
+// (batch, head) against 16·(n_q + n_kv)·64 bytes of q, k, v and o, far past
+// the ridge at the training shape (b16 h8 n150) and beyond. The fastest
+// f32-accurate way the H100 has is split TF32 on the tensor cores: three
+// TF32 products per f32 product, 495 / 3 = 165 TFLOP/s, where f32 FMAs on
+// the CUDA cores peak at 67.
 //
-// Design: the TPU kernels hold up to 1024 x 1024 logits in VMEM and carry
-// the online-softmax state across the sequential grid axis. Here one block
-// owns (batch·head, 64 query rows) and walks the kv axis inside the block
-// in 64-key tiles: S = Q Kᵀ in 4 x 4 register tiles per thread, the row
-// max and sum by half-warp shuffles, the scaled probabilities staged
-// transposed in shared memory for O += P V. Causal blocks stop at the
-// diagonal. The dropout mask is regenerated per element from its global
-// (row, col), so tiles need not match the TPU's.
+// Design: one block, one warpgroup of four warps, owns (batch·head, 64
+// query rows), each warp 16 rows, and walks the keys in tiles of 32. Both
+// products run on `wgmma` TF32 tiles in split TF32 (flash.cuh: hi·hi +
+// hi·lo + lo·hi, f32 accumulation); one TF32 pass alone would change the
+// function at the 1e-4 level. Every operand is split into hi and lo once:
+// Q, K and V as they are staged in shared memory, P as it leaves the
+// softmax. S = Q·Kᵀ is `wgmma.m64n32k8` with both operands K-major in
+// shared memory (Q and K are row-major in device memory, so their rows go
+// straight into 8-row core matrices). For O += P·V, `wgmma.m64n64k8` takes P
+// from registers and V transposed: V is staged as Vᵀ, each head dim a row
+// of keys, the keys of each 8 in the paired order (flash.cuh), so that the
+// accumulator of S is, element for element, P's register operand. The
+// tensor cores truncate where they add, so S keeps its large and small terms
+// in separate accumulators and each tile's P·V is summed apart and added to
+// O in f32: no accumulator runs through more than 24 products. The online
+// softmax runs on the accumulator in registers: row max and sum across the
+// four lanes of a row, e^x on the special-function unit, the mask, causal
+// and dropout rules by global (row, col), so the tiles need not match the
+// TPU's; a tile that no rule cuts skips the per-element test. Causal blocks
+// stop at the diagonal.
+//
+// Loads: the split and the transpose pass every element through registers
+// anyway, so the next tile's K and V are loaded into registers right after
+// this tile is stored, and their loads are in flight while this tile's
+// products run; a `cp.async` or TMA ring would add a raw copy in shared
+// memory and a second pass over it. The block takes 64 KB of shared memory
+// and 210 registers a thread, two blocks an SM, so that one block's softmax
+// and staging run while the other's products do. Registers that wgmma reads
+// or writes are pinned around its fence and wait, or the compiler waits for
+// the products at every access.
 #include "flash.cuh"
 
 namespace {
 
-using ns2::kTK;
-using ns2::kTQ;
+using ns2::kD;
+using ns2::kFlashThreads;
+using ns2::kTile;
 
-template <int D>
+// Keys per tile: 32, so that two blocks (64 KB of shared memory, at most
+// 255 registers a thread) share an SM and one's softmax runs while the
+// other's products do.
+constexpr int kKeys = 32;
+
+// ---- wgmma on K-major operands without swizzle ---------------------------
+//
+// A K-major operand tile of R rows by K k is stored in k-steps of 8 (8·R
+// floats each); a k-step is two halves of 4 k, each R/8 core matrices of 8
+// rows by 16 bytes, rows 16 bytes apart. The descriptor holds the k-step's
+// address, the bytes between its two halves (LBO) and between 8-row groups
+// (SBO): PTX ISA "Matrix Descriptor Format", CUTLASS's canonical
+// INTERLEAVE K-major layout ((8,n),2):((1,SBO),LBO) in 16-byte units.
+template <int R>
+__device__ __forceinline__ int kmajor(int r, int k) {
+  return (k / 8) * 8 * R + ((k % 8) / 4 * (R / 8) + r / 8) * 32 + (r % 8) * 4 + k % 4;
+}
+
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_desc(const float* tile, int ks) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(tile + ks * 8 * R);
+  constexpr uint32_t lbo = R / 8 * 128, sbo = 128;
+  return (uint64_t)((a >> 4) & 0x3FFF) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32;
+}
+
+// Shared memory written by ordinary stores, made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Pins registers that wgmma reads or writes at this point of the program,
+// so that the compiler moves no access to them across the fence or the wait
+// (it would otherwise wait for the products before each such access).
+template <int N, class T>
+__device__ __forceinline__ void pin(T (&r)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile("" : "+r"(*reinterpret_cast<uint32_t*>(&r[j][i]))::"memory");
+}
+
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d[64 x 32] += A·Bᵀ over one k-step of 8, both operands K-major in shared
+// memory. Each warp holds its 16 rows in mma.m16n8k8's accumulator layout:
+// d[j][i] is row g + 8·(i / 2), column 8j + 2t + (i % 2).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, "
+      "p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 64] += A·B over one k-step of 8, A in registers (mma.m16n8k8's A
+// layout on each warp's 16 rows), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Split f32 values into K-major hi and lo tiles.
+__device__ __forceinline__ void store_split4(float* hi, float* lo, int at, float4 x) {
+  uint32_t h[4], l[4];
+  ns2::split_tf32(x.x, h[0], l[0]);
+  ns2::split_tf32(x.y, h[1], l[1]);
+  ns2::split_tf32(x.z, h[2], l[2]);
+  ns2::split_tf32(x.w, h[3], l[3]);
+  *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+__device__ __forceinline__ void store_split1(float* hi, float* lo, int at, float x) {
+  uint32_t h, l;
+  ns2::split_tf32(x, h, l);
+  hi[at] = __uint_as_float(h);
+  lo[at] = __uint_as_float(l);
+}
+
 struct FwdSmem {
-  float q[D][kTQ + 1];   // query tile, transposed
-  float k[kTK][D + 1];   // key tile
-  float v[kTK][D];       // value tile
-  float p[kTK][kTQ + 1]; // probabilities (dropped, scaled), transposed
+  float q_hi[kTile * kD], q_lo[kTile * kD];  // Q, K-major (64 rows, k = head dims)
+  float k_hi[kKeys * kD], k_lo[kKeys * kD];  // K, K-major (32 keys, k = head dims)
+  float v_hi[kD * kKeys], v_lo[kD * kKeys];  // Vᵀ, K-major (64 dims, k = keys paired)
 };
 
-// grid (ceil(n_q / kTQ), b·h); dynamic shared memory sizeof(FwdSmem<D>)
-template <int D>
-__global__ void __launch_bounds__(ns2::kThreads)
+// A tile's K and V in registers, loaded ahead of their turn: K as float4s of
+// row e % 32, columns 4·(e / 32) (e = tid + 128·i), so that eight lanes
+// store one 128-byte run of a core matrix; V as keys 8·warp + 2·(lane / 8) +
+// p, head dims lane % 8 + 8q, so that the transposed stores, by head dim
+// % 8 and key position % 4, hit 32 distinct banks.
+struct KvRegs {
+  float4 k[kKeys * kD / 4 / kFlashThreads];
+  float v[2][8];
+};
+
+__device__ __forceinline__ void load_kv(KvRegs& r, const float* kh, const float* vh, int k0,
+                                        int n_kv, int tid) {
+#pragma unroll
+  for (int i = 0; i < kKeys * kD / 4 / kFlashThreads; ++i) {
+    const int e = tid + kFlashThreads * i, row = k0 + e % kKeys, c4 = 4 * (e / kKeys);
+    r.k[i] = row < n_kv ? *reinterpret_cast<const float4*>(kh + (size_t)row * kD + c4)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  const int lane = tid % 32;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int row = k0 + 8 * (tid / 32) + 2 * (lane / 8) + p;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      r.v[p][q] = row < n_kv ? vh[(size_t)row * kD + lane % 8 + 8 * q] : 0.0f;
+  }
+}
+
+// K stays in key order; Vᵀ takes its keys in the paired order (flash.cuh),
+// key 2t of each 8 at k position t and key 2t + 1 at t + 4, so that P's
+// accumulator is the A operand of P·V as it stands.
+__device__ __forceinline__ void store_kv(FwdSmem& sm, const KvRegs& r, int tid) {
+#pragma unroll
+  for (int i = 0; i < kKeys * kD / 4 / kFlashThreads; ++i) {
+    const int e = tid + kFlashThreads * i;
+    store_split4(sm.k_hi, sm.k_lo, kmajor<kKeys>(e % kKeys, 4 * (e / kKeys)), r.k[i]);
+  }
+  const int lane = tid % 32;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int key = 8 * (tid / 32) + 2 * (lane / 8) + p;
+    const int pos = key / 8 * 8 + key % 8 / 2 + 4 * (key % 2);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      store_split1(sm.v_hi, sm.v_lo, kmajor<kD>(lane % 8 + 8 * q, pos), r.v[p][q]);
+  }
+}
+
+// grid (ceil(n_q / 64), b·h), 128 threads (one warpgroup); dynamic shared
+// memory sizeof(FwdSmem) = 65,536 bytes.
+__global__ void __launch_bounds__(kFlashThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const unsigned char* __restrict__ mask,
                  float* __restrict__ o, float* __restrict__ lse, int heads, int n_q, int n_kv,
                  int causal, float scale, ns2::Dropout dr) {
-  static_assert(D % ns2::kGrid == 0, "head dim");
-  constexpr int JD = D / ns2::kGrid;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(smem_raw);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
 
-  const int tid = threadIdx.x;
-  const int ty = tid / ns2::kGrid, tx = tid % ns2::kGrid;
-  const int q0 = blockIdx.x * kTQ, bh = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int t = lane % 4;
+  const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int bi = bh / heads, hi = bh % heads;
-  const float* qh = q + (size_t)bh * n_q * D;
-  const float* kh = k + (size_t)bh * n_kv * D;
-  const float* vh = v + (size_t)bh * n_kv * D;
+  const float* qh = q + (size_t)bh * n_q * kD;
+  const float* kh = k + (size_t)bh * n_kv * kD;
+  const float* vh = v + (size_t)bh * n_kv * kD;
   const unsigned char* mask_b = mask ? mask + (size_t)bi * n_kv : nullptr;
 
-  for (int e = tid; e < kTQ * D; e += ns2::kThreads) {
-    const int r = e / D, c = e % D;
-    sm.q[c][r] = (q0 + r < n_q) ? qh[(size_t)(q0 + r) * D + c] : 0.0f;
+  const int k_end = causal ? min(n_kv, q0 + kTile) : n_kv;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+  KvRegs regs;
+  load_kv(regs, kh, vh, 0, n_kv, tid);
+#pragma unroll
+  for (int i = 0; i < kTile * kD / 4 / kFlashThreads; ++i) {
+    const int e = tid + kFlashThreads * i, row = q0 + e % kTile, c4 = 4 * (e / kTile);
+    const float4 x = row < n_q ? *reinterpret_cast<const float4*>(qh + (size_t)row * kD + c4)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    store_split4(sm.q_hi, sm.q_lo, kmajor<kTile>(e % kTile, c4), x);
   }
 
-  float m[4], l[4], acc[4][JD];
+  // this lane's rows of the warp's 16: ra = q0 + w0 + g (index 0) and
+  // ra + 8 (index 1); acc[j] holds columns 8j + 2t, 8j + 2t + 1 of both
+  const int w0 = 16 * warp, ra = q0 + w0 + lane / 4;
+  float m[2] = {ns2::kNegInf, ns2::kNegInf}, l[2] = {0.0f, 0.0f};
+  float acc[kD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = ns2::kNegInf;
-    l[i] = 0.0f;
+  for (int j = 0; j < kD / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < JD; ++j) acc[i][j] = 0.0f;
-  }
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
 
-  const int k_end = causal ? min(n_kv, q0 + kTQ) : n_kv;
-  for (int k0 = 0; k0 < k_end; k0 += kTK) {
-    __syncthreads();  // the previous tile is done with sm.k / sm.v / sm.p
-    for (int e = tid; e < kTK * D; e += ns2::kThreads) {
-      const int r = e / D, c = e % D;
-      const bool ok = k0 + r < n_kv;
-      sm.k[r][c] = ok ? kh[(size_t)(k0 + r) * D + c] : 0.0f;
-      sm.v[r][c] = ok ? vh[(size_t)(k0 + r) * D + c] : 0.0f;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kKeys;
+    __syncthreads();  // the last tile's products are done with sm.k / sm.v
+    store_kv(sm, regs, tid);
+    fence_proxy_async();
+    __syncthreads();  // tile kt is in shared memory, for wgmma too
+    if (kt + 1 < n_tiles)  // the next tile's loads overlap this tile's products
+      load_kv(regs, kh, vh, k0 + kKeys, n_kv, tid);
+
+    // S = Q Kᵀ: element (j, i) is row ra + 8·(i / 2), key k0 + 8j + 2t + (i & 1);
+    // the large terms and the small ones in separate accumulators
+    float s[kKeys / 8][4], small[kKeys / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = small[j][i] = 0.0f;
+    pin(s);
+    pin(small);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kD / 8; ++ks) {
+      const uint64_t qa_hi = kmajor_desc<kTile>(sm.q_hi, ks);
+      const uint64_t qa_lo = kmajor_desc<kTile>(sm.q_lo, ks);
+      const uint64_t kb_hi = kmajor_desc<kKeys>(sm.k_hi, ks);
+      const uint64_t kb_lo = kmajor_desc<kKeys>(sm.k_lo, ks);
+      wgmma_ss_n32(small, qa_hi, kb_lo);
+      wgmma_ss_n32(small, qa_lo, kb_hi);
+      wgmma_ss_n32(s, qa_hi, kb_hi);
     }
-    __syncthreads();
+    wg_commit_wait();
+    pin(s);
+    pin(small);
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] += small[j][i];
 
-    float s[4][4] = {};
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float a[4], b[4];
+    // online softmax on the accumulator; a tile that no rule cuts (all keys
+    // inside n_kv, no padding mask, causal only below the diagonal) skips
+    // the per-element test
+    const bool whole = mask_b == nullptr && k0 + kKeys <= n_kv &&
+                       (!causal || k0 + kKeys - 1 <= q0 + w0);
+    float row_max[2] = {ns2::kNegInf, ns2::kNegInf};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sm.q[c][ty + 16 * i];
+    for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sm.k[tx + 16 * j][c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += a[i] * b[j];
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      bool ok[4];
-      float mt = ns2::kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = ns2::visible(mask_b, row, k0 + tx + 16 * j, n_q, n_kv, causal);
-        s[i][j] = ok[j] ? s[i][j] * scale : ns2::kNegInf;
-        mt = fmaxf(mt, s[i][j]);
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = whole || ns2::visible(mask_b, ra + 8 * (i / 2),
+                                              k0 + 8 * j + 2 * t + (i & 1), n_q, n_kv, causal);
+        s[j][i] = ok ? s[j][i] * scale : ns2::kNegInf;
+        row_max[i / 2] = fmaxf(row_max[i / 2], s[j][i]);
       }
-      const float m_new = fmaxf(m[i], ns2::half_warp_max(mt));
-      float ps = 0.0f;
+    float corr[2], row_sum[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
-        ps += p;
-        if (dr.rate > 0.0f && ok[j]) p *= ns2::keep_mult(dr, bi, hi, row, k0 + tx + 16 * j);
-        sm.p[tx + 16 * j][ty + 16 * i] = p;
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], ns2::quad_max(row_max[r]));
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // a masked logit is NEG_INF: exactly 0 once the row has a visible key
+        // (m finite), and tested for while every key so far was masked
+        float p = s[j][i] == ns2::kNegInf ? 0.0f : ns2::exp_sfu(s[j][i] - m[i / 2]);
+        row_sum[i / 2] += p;
+        if (dr.rate > 0.0f && p != 0.0f)
+          p *= ns2::keep_mult(dr, bi, hi, ra + 8 * (i / 2), k0 + 8 * j + 2 * t + (i & 1));
+        s[j][i] = p;
       }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + ns2::half_warp_sum(ps);
-      m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < JD; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ns2::quad_sum(row_sum[r]);
 
-#pragma unroll 4
-    for (int c = 0; c < kTK; ++c) {
-      float a[4], b[JD];
+    // O += P V: P from the accumulator in registers, summed apart and added in f32
+    uint32_t pa_hi[kKeys / 8][4], pa_lo[kKeys / 8][4];
+    float part[kD / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sm.p[c][ty + 16 * i];
+    for (int ks = 0; ks < kKeys / 8; ++ks) ns2::a_from_acc(s[ks], pa_hi[ks], pa_lo[ks]);
 #pragma unroll
-      for (int j = 0; j < JD; ++j) b[j] = sm.v[c][tx + 16 * j];
+    for (int j = 0; j < kD / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) part[j][i] = 0.0f;
+    pin(part);
+    pin(pa_hi);
+    pin(pa_lo);
+    wg_fence();
 #pragma unroll
-        for (int j = 0; j < JD; ++j) acc[i][j] += a[i] * b[j];
+    for (int ks = 0; ks < kKeys / 8; ++ks) {
+      const uint64_t vb_hi = kmajor_desc<kD>(sm.v_hi, ks), vb_lo = kmajor_desc<kD>(sm.v_lo, ks);
+      wgmma_rs_n64(part, pa_hi[ks], vb_lo);
+      wgmma_rs_n64(part, pa_lo[ks], vb_hi);
+      wgmma_rs_n64(part, pa_hi[ks], vb_hi);
+    }
+    wg_commit_wait();
+    pin(part);
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      acc[j][0] = acc[j][0] * corr[0] + part[j][0];
+      acc[j][1] = acc[j][1] * corr[0] + part[j][1];
+      acc[j][2] = acc[j][2] * corr[1] + part[j][2];
+      acc[j][3] = acc[j][3] * corr[1] + part[j][3];
     }
   }
 
+  float inv_l[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= n_q) continue;
-    const float safe_l = l[i] == 0.0f ? 1.0f : l[i];
-    float* orow = o + ((size_t)bh * n_q + row) * D;
-#pragma unroll
-    for (int j = 0; j < JD; ++j) orow[tx + 16 * j] = acc[i][j] / safe_l;
-    if (tx == 0) lse[(size_t)bh * n_q + row] = m[i] + logf(safe_l);
+  for (int r = 0; r < 2; ++r) {
+    const float safe_l = l[r] == 0.0f ? 1.0f : l[r];
+    inv_l[r] = 1.0f / safe_l;
+    const int row = ra + 8 * r;
+    if (t == 0 && row < n_q) lse[(size_t)bh * n_q + row] = m[r] + logf(safe_l);
   }
-}
-
-template <int D>
-int launch_fwd(const float* q, const float* k, const float* v, const unsigned char* mask,
-               float* o, float* lse, int b, int h, int n_q, int n_kv, int causal, float scale,
-               const ns2::Dropout& dr, cudaStream_t st) {
-  const int bytes = (int)sizeof(FwdSmem<D>);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n_q + kTQ - 1) / kTQ, b * h);
-  flash_fwd_kernel<D><<<grid, ns2::kThreads, bytes, st>>>(q, k, v, mask, o, lse, h, n_q, n_kv,
-                                                          causal, scale, dr);
-  return cudaGetLastError();
+  ns2::store_rows(o + (size_t)bh * n_q * kD, acc, ra, n_q, t, inv_l);
 }
 
 }  // namespace
 
-// q [b,h,n_q,d], k/v [b,h,n_kv,d], mask [b,n_kv] uint8 or null -> o
-// [b,h,n_q,d], lse [b,h,n_q]. Dropout is on when rate > 0: seed, counter
-// stride, keep threshold and keep scale come from the Python wrapper, as
-// the JAX package derives them. Supports d = 64 (checked by the wrapper;
-// other widths return cudaErrorInvalidValue).
+// q [b,h,n_q,64], k/v [b,h,n_kv,64], 16-byte aligned, mask [b,n_kv] uint8
+// or null -> o [b,h,n_q,64], lse [b,h,n_q]. Dropout is on when rate > 0:
+// seed, counter stride, keep threshold and keep scale come from the Python
+// wrapper, as the JAX package derives them. Other head widths return
+// cudaErrorInvalidValue (the wrapper checks first).
 NS2_API int ns2_flash_fwd(const float* q, const float* k, const float* v,
                           const unsigned char* mask, float* o, float* lse, int b, int h, int n_q,
                           int n_kv, int d, int causal, float scale, unsigned seed0,
                           unsigned seed1, float rate, int stride, unsigned threshold,
                           float keep_scale, void* stream) {
-  if (d != 64 || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
+  if (d != kD || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
   const ns2::Dropout dr{seed0, seed1, rate, stride, threshold, keep_scale};
-  return launch_fwd<64>(q, k, v, mask, o, lse, b, h, n_q, n_kv, causal, scale, dr,
-                        static_cast<cudaStream_t>(stream));
+  const int bytes = (int)sizeof(FwdSmem);
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_q + kTile - 1) / kTile, b * h);
+  flash_fwd_kernel<<<grid, kFlashThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, mask, o, lse, h, n_q, n_kv, causal, scale, dr);
+  return cudaGetLastError();
 }

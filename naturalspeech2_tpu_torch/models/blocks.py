@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from naturalspeech2_tpu_torch.ops.ff_block_kernel import ff_block
+from naturalspeech2_tpu_torch.ops.ff_block_kernel import causal_conv3, ff_block, fits_fused_ff_block
 
 
 def _normalize(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -120,8 +120,9 @@ class FeedForward(nn.Module):
 
     - ``causal_conv=True``, the denoiser's block: a causal k=3 conv between
       gate and out-projection, as one pre-norm residual block
-      ``x + FF(adaRMSNorm(x))`` through kernel K3, called as
-      ``ff(x, gamma, beta)``;
+      ``x + FF(adaRMSNorm(x))``, called as ``ff(x, gamma, beta)``: kernel K3
+      where the JAX package's gate `fits_fused_ff_block` passes, else the
+      same function as separate tensor ops, as the JAX module runs it;
     - ``causal_conv=False``, the encoders' plain MLP
       ``W₂·(gelu(x·W_g + b_g) ∘ (x·W_v + b_v)) + b₂`` with no norm and no
       residual, called as ``ff(x)``.
@@ -138,7 +139,7 @@ class FeedForward(nn.Module):
                 "gelu_approximate=False in the causal-conv block is not ported yet "
                 "(ROADMAP Queue 1, option list)"
             )
-        self.causal_conv = causal_conv
+        self.dim, self.causal_conv = dim, causal_conv
         self.approximate = "tanh" if gelu_approximate else "none"
         inner = int(dim * mult * 2 / 3)
         self.w1 = nn.Parameter(torch.randn(dim, 2 * inner) / math.sqrt(dim))
@@ -151,7 +152,14 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
                 beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        residual = None
         if self.causal_conv:
-            return ff_block(x, gamma, beta, self.w1, self.b1, self.wc, self.bc, self.w2, self.b2)
+            if fits_fused_ff_block(x.shape[1], self.dim, self.w2.shape[0]):
+                return ff_block(x, gamma, beta, self.w1, self.b1, self.wc, self.bc, self.w2,
+                                self.b2)
+            residual, x = x, ada_rmsnorm(x, gamma, beta, self.dim)
         val, gate = (x @ self.w1 + self.b1).chunk(2, dim=-1)
-        return (F.gelu(gate, approximate=self.approximate) * val) @ self.w2 + self.b2
+        a = F.gelu(gate, approximate=self.approximate) * val
+        if residual is None:
+            return a @ self.w2 + self.b2
+        return residual + (causal_conv3(a, self.wc, self.bc) @ self.w2 + self.b2)

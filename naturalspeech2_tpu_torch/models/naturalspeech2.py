@@ -319,15 +319,19 @@ def ddim_sample(
     objective: str = "v",
     scale: float = 1.0,
     time_difference: float = 0.0,
-    device: torch.device | str = "cpu",
+    device: Optional[torch.device | str] = None,
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """DDIM from pure noise to latents ``shape`` in ``timesteps`` steps.
 
     ``denoise_fn(audio, times)`` is the model forward. The starting noise
-    is ``noise`` if given, else drawn from ``generator``.
+    is ``noise`` if given, else drawn from ``generator``. It runs on
+    ``device``: by default the device of ``noise`` when given, else the
+    current CUDA device; a caller asks for the CPU with ``device="cpu"``.
     """
+    if device is None:
+        device = noise.device if noise is not None else "cuda"
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())

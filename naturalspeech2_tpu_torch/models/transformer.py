@@ -3,11 +3,14 @@
 `naturalspeech2_tpu/models/transformer.py`).
 
 The denoiser's adaptive transformer runs, per layer, a pre-norm
-self-attention block (kernel K2), with ``cross_attn`` a pre-norm
-cross-attention block to the prompt latents (kernel K2b), and a pre-norm
-GEGLU + causal-conv feed-forward block (kernel K3), all residual, with
-every norm's γ/β computed from the time condition by one stacked einsum;
-the head is RMSNorm + a bias-free Linear. The encoders' `Transformer` is
+self-attention block, with ``cross_attn`` a pre-norm cross-attention block
+to the prompt latents, and a pre-norm GEGLU + causal-conv feed-forward
+block, all residual, with every norm's γ/β computed from the time
+condition by one stacked einsum; the head is RMSNorm + a bias-free Linear.
+Each block runs fused (K2, K2b, K3) where the JAX package's shape gate
+takes its fused kernel, and unfused where it does not: the attention
+blocks through flash attention (K4, K5 backward), the feed-forward
+through tensor ops. The encoders' `Transformer` is
 pre-RMSNorm attention (masked, flash K4 or plain) and a plain GEGLU MLP.
 """
 
@@ -19,9 +22,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from naturalspeech2_tpu_torch.models.blocks import FeedForward, RMSNorm
+from naturalspeech2_tpu_torch.models.blocks import FeedForward, RMSNorm, ada_rmsnorm
 from naturalspeech2_tpu_torch.ops.attention import attend
-from naturalspeech2_tpu_torch.ops.attn_block_kernel import attn_block, cross_attn_block
+from naturalspeech2_tpu_torch.ops.attn_block_kernel import (
+    attn_block,
+    cross_attn_block,
+    fits_fused_attn_block,
+    fits_fused_cross_attn_block,
+)
 
 
 class Attention(nn.Module):
@@ -30,10 +38,14 @@ class Attention(nn.Module):
     [H·dh, dim].
 
     ``attn(x, gamma, beta)`` is the pre-norm residual block
-    ``x + attn(adaRMSNorm(x))``: kernel K2, or K2b with ``context=``. It
-    takes no mask, causal masking or dropout. ``attn(x, context=...,
-    mask=...)`` without γ/β is plain attention (no norm, no residual)
-    through flash attention (K4/K5) if ``use_flash``, else plain PyTorch.
+    ``x + attn(adaRMSNorm(x))``, with ``context=`` the cross block. It takes
+    no mask, causal masking or dropout. With ``use_flash``, as the JAX
+    module, it runs kernel K2 (K2b) where `fits_fused_attn_block`
+    (`fits_fused_cross_attn_block`) passes; otherwise the norm, the
+    projections, attention and W_o as separate ops, the attention through
+    flash attention (K4/K5) if ``use_flash``, else plain PyTorch.
+    ``attn(x, context=..., mask=...)`` without γ/β is that attention alone
+    (no norm, no residual).
     ``cross_attn_include_queries`` prepends x to the context and left-pads
     the key mask with True, as the JAX package does.
     """
@@ -55,16 +67,25 @@ class Attention(nn.Module):
                 beta: Optional[torch.Tensor] = None, *, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h, dh = self.heads, self.dim_head
-        if gamma is not None:
-            if mask is not None or self.causal or self.include_queries:
-                raise ValueError("the pre-norm attention block takes no mask, causal masking "
-                                 "or queries in its context")
-            cfg = dict(heads=h, dim_head=dh, scale=dh**-0.5)
-            if context is None:
-                return attn_block(x, gamma, beta, self.to_q, self.to_kv, self.to_out, **cfg)
+        if gamma is None:
+            return self._attend(x, context, mask)
+        if mask is not None or self.causal or self.include_queries:
+            raise ValueError("the pre-norm attention block takes no mask, causal masking "
+                             "or queries in its context")
+        # the JAX module's gates: a fused block where it would take one
+        n, dim = x.shape[1:]
+        cfg = dict(heads=h, dim_head=dh, scale=dh**-0.5)
+        if self.use_flash and context is None and fits_fused_attn_block(n, dim, dh):
+            return attn_block(x, gamma, beta, self.to_q, self.to_kv, self.to_out, **cfg)
+        if self.use_flash and context is not None and fits_fused_cross_attn_block(
+                n, context.shape[1], dim, context.shape[2], dh):
             return cross_attn_block(x, context.contiguous(), gamma, beta, self.to_q, self.to_kv,
                                     self.to_out, **cfg)
+        return x + self._attend(ada_rmsnorm(x, gamma, beta, dim), context, None)
 
+    def _attend(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+        h, dh = self.heads, self.dim_head
         ctx = x if context is None else context
         if context is not None and self.include_queries:
             ctx = torch.cat([x, ctx], dim=-2)
@@ -159,10 +180,11 @@ class ConditionableTransformer(nn.Module):
             torch.cat([torch.ones(n_norms, dim), torch.zeros(n_norms, dim)], dim=-1)
         )
         self.attn = nn.ModuleList(
-            Attention(dim, dim_head=dim_head, heads=heads) for _ in range(depth)
+            Attention(dim, dim_head=dim_head, heads=heads, use_flash=True) for _ in range(depth)
         )
         self.cross_attn = nn.ModuleList(
-            Attention(dim, dim_head=dim_head, heads=heads) for _ in range(depth if cross_attn else 0)
+            Attention(dim, dim_head=dim_head, heads=heads, use_flash=True)
+            for _ in range(depth if cross_attn else 0)
         )
         self.ff = nn.ModuleList(
             FeedForward(dim, mult=ff_mult, causal_conv=True, gelu_approximate=gelu_approximate)

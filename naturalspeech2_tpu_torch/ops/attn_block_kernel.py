@@ -14,9 +14,12 @@ plain version.
 the CUDA kernels of ``csrc/attn_block.cu`` on CUDA tensors and the plain
 version ``attn_block_torch`` on CPU tensors. It is differentiable: its
 backward, as `_fused_bwd` in the JAX package, is the vjp of
-``attn_core_flash_torch``, which recomputes the norm and the projections
-with plain tensor ops and runs the attention core through flash attention
-(forward K4, backward K5).
+``attn_block_flash``, which recomputes the norm and the projections with
+tensor ops and runs the attention core through flash attention (forward
+K4, backward K5).
+
+``fits_fused_attn_block`` and ``fits_fused_cross_attn_block`` are the JAX
+package's shape gates, which `Attention` consults before it takes a block.
 """
 
 from __future__ import annotations
@@ -28,6 +31,47 @@ import torch
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops.flash_attention import FlashAttention
 from naturalspeech2_tpu_torch.utils.helpers import vjp
+
+# The JAX package's budget for its fused attention blocks
+# (`VMEM_BUDGET_BYTES` of `naturalspeech2_tpu/ops/attn_block_kernel.py`).
+VMEM_BUDGET_BYTES = 40 * 2**20
+
+
+def _vmem_bytes(n: int, dm: int, dh: int) -> int:
+    """The JAX package's footprint estimate of its fused self block."""
+    dh_pad = max(dh, 128)
+    return 4 * (4 * n * dm + n * n + 3 * n * dh_pad + 4 * dm * dh_pad + n)
+
+
+def fits_fused_attn_block(n: int, dm: int, dh: int) -> bool:
+    """Whether the self-attention block runs fused (K2) at sequence length
+    ``n``, model width ``dm`` and head width ``dh``.
+
+    This is the reference's routing rule (the JAX package's
+    `fits_fused_attn_block`, its integer arithmetic unchanged), kept so that
+    the port runs the reference's route at every shape. It is not a limit
+    of the card: past it the port runs the unfused block (norm, projections,
+    flash attention K4, W_o, residual), as the JAX package does."""
+    return n % 8 == 0 and _vmem_bytes(n, dm, dh) <= VMEM_BUDGET_BYTES
+
+
+def _cross_vmem_bytes(n: int, m: int, dm: int, dc: int, dh: int) -> int:
+    """The JAX package's footprint estimate of its fused cross block."""
+    dh_pad = max(dh, 128)
+    return 4 * (4 * n * dm + m * dc + n * m + n * dh_pad + 2 * m * dh_pad
+                + 2 * dm * dh_pad + 2 * dc * dh_pad + n)
+
+
+def fits_fused_cross_attn_block(n: int, m: int, dm: int, dc: int, dh: int) -> bool:
+    """Whether the cross-attention block to an ``m``-long, ``dc``-wide
+    context runs fused (K2b).
+
+    This is the reference's routing rule (the JAX package's
+    `fits_fused_cross_attn_block`, its integer arithmetic unchanged), kept
+    so that the port runs the reference's route at every shape. It is not a
+    limit of the card: past it the port runs the unfused block through
+    flash attention K4, as the JAX package does."""
+    return n % 8 == 0 and m % 8 == 0 and _cross_vmem_bytes(n, m, dm, dc, dh) <= VMEM_BUDGET_BYTES
 
 
 def attn_block_torch(x, gamma, beta, wq, wk, wv, wo, *, scale: float):
@@ -58,10 +102,10 @@ def split_heads(wq, wkv, wo, heads: int, dim_head: int):
     return to_heads(wq), to_heads(wk), to_heads(wv), wo.reshape(heads, dim_head, wq.shape[0])
 
 
-def attn_core_flash_torch(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int,
-                          scale: float):
-    """The block with its attention core through flash attention, the twin
-    of `_attn_core_flash` (Dense layouts, as ``attn_block`` takes them)."""
+def attn_block_flash(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
+    """The block with its attention core through flash attention (K4
+    forward, K5 backward on a card), the twin of `_attn_core_flash` (Dense
+    layouts, as ``attn_block`` takes them): K2's backward."""
     b, n, dm = x.shape
     norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
     xn = x / norm.clamp(min=1e-12) * math.sqrt(dm)
@@ -115,7 +159,7 @@ class _AttnBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        grads = vjp(lambda *a: attn_core_flash_torch(*a, **ctx.cfg), ctx.saved_tensors,
+        grads = vjp(lambda *a: attn_block_flash(*a, **ctx.cfg), ctx.saved_tensors,
                     ctx.needs_input_grad[:6], g)
         return (*grads, None, None, None)
 

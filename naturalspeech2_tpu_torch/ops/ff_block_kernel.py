@@ -9,6 +9,9 @@ a_{t-2}·Wc₀ + a_{t-1}·Wc₁ + a_t·Wc₂ + b_c. ``ff_block`` takes the
 ``csrc/ff_block.cu`` on CUDA tensors and the plain version
 ``ff_block_torch`` on CPU tensors. It is differentiable: as `_fused_bwd`
 in the JAX package, its backward is the vjp of the plain version.
+
+``fits_fused_ff_block`` is the JAX package's shape gate, which
+`FeedForward` consults before it takes the block.
 """
 
 from __future__ import annotations
@@ -35,14 +38,45 @@ def ff_block_torch(x, gamma, beta, w_val, b_val, w_gate, b_gate, wc, bc, w2, b2)
     val = xn @ w_val + b_val
     gate = xn @ w_gate + b_gate
     a = F.gelu(gate, approximate="tanh") * val
+    return x + (causal_conv3(a, wc, bc) @ w2 + b2)
+
+
+def causal_conv3(a, wc, bc):
+    """The causal k=3 conv a_{t-2}·Wc₀ + a_{t-1}·Wc₁ + a_t·Wc₂ + b_c over
+    ``a`` [b, n, c], as three shifted matrix products (never cuDNN, whose
+    TF32 default would change the function on a card)."""
     n = a.shape[1]
-    c = (
-        F.pad(a, (0, 0, 2, 0))[:, :n] @ wc[0]
-        + F.pad(a, (0, 0, 1, 0))[:, :n] @ wc[1]
-        + a @ wc[2]
-        + bc
-    )
-    return x + (c @ w2 + b2)
+    return (F.pad(a, (0, 0, 2, 0))[:, :n] @ wc[0] + F.pad(a, (0, 0, 1, 0))[:, :n] @ wc[1]
+            + a @ wc[2] + bc)
+
+
+# The JAX package's budget for its fused feed-forward block
+# (`VMEM_BUDGET_BYTES` of `naturalspeech2_tpu/ops/ff_block_kernel.py`).
+VMEM_BUDGET_BYTES = 80 * 2**20
+
+
+def _pad128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+def _vmem_bytes(n: int, dm: int, inner: int) -> int:
+    """The JAX package's footprint estimate of its fused block."""
+    ip = _pad128(inner)
+    acts = 4 * n * dm + n * dm + 4 * n * ip
+    weights = 2 * dm * ip + 3 * ip * ip + ip * dm
+    return 4 * (acts + weights)
+
+
+def fits_fused_ff_block(n: int, dm: int, inner: int) -> bool:
+    """Whether the feed-forward block runs fused (K3) at sequence length
+    ``n``, model width ``dm`` and inner width ``inner``.
+
+    This is the reference's routing rule (the JAX package's
+    `fits_fused_ff_block`, its integer arithmetic unchanged), kept so that
+    the port runs the reference's route at every shape. It is not a limit
+    of the card: past it the port runs the unfused block, as the JAX
+    package does."""
+    return n % 8 == 0 and _vmem_bytes(n, dm, inner) <= VMEM_BUDGET_BYTES
 
 
 # The fused kernel's inner width, a multiple of its 16-column thread

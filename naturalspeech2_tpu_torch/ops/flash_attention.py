@@ -18,6 +18,8 @@ backward without storing them.
 ``flash_forward`` (K4, ``csrc/flash_fwd.cu``) and ``flash_backward`` (K5,
 ``csrc/flash_bwd.cu``) launch the kernels on CUDA tensors and run the plain
 versions ``flash_forward_torch`` / ``flash_backward_torch`` on CPU tensors.
+The kernels run every product on the tensor cores in split TF32 (three
+TF32 products per f32 product), which keeps f32 accuracy.
 ``flash_attention`` is differentiable (forward K4, backward K5);
 ``flash_attention_with_lse`` is forward only.
 """
@@ -150,6 +152,9 @@ def _check(name: str, q, k, v, mask):
     _build.require_shapes(name, k=(k, (b, h, n_kv, d)), v=(v, (b, h, n_kv, d)))
     if d != 64:
         raise ValueError(f"{name}: the CUDA kernel takes head dim 64, got {d}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: the CUDA kernel copies rows in 16-byte pieces; q, k and v "
+                         "must start on a 16-byte boundary")
     if mask is None:
         return None
     if mask.device != q.device or tuple(mask.shape) != (b, n_kv):
@@ -201,6 +206,8 @@ def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, sca
                                     dropout_rate=dropout_rate)
     mask8 = _check("flash_backward", q, k, v, mask)
     _build.require_cuda_f32("flash_backward", lse=lse, o=o, do=do)
+    if do.data_ptr() % 16:
+        raise ValueError("flash_backward: do must start on a 16-byte boundary")
     b, h, n_q, d = q.shape
     n_kv = k.shape[2]
     _build.require_shapes("flash_backward", lse=(lse, (b, h, n_q)), o=(o, q.shape),

@@ -1,12 +1,15 @@
 """K1 and K1b: the fused WaveNet body (twins of `_wavenet_kernel` and
 `_lane_kernel` in `naturalspeech2_tpu/ops/wavenet_kernel.py`).
 
-``wavenet_body`` runs, on a CUDA tensor, K1 (``csrc/wavenet.cu``, every
-lane of a stack at once) or, for sequences past ``wavenet_route``'s
-length gate, K1b (``csrc/wavenet_lane.cu``, one lane through every stack
-at a time); on a CPU tensor it runs the plain version
-``wavenet_body_torch``. ``wavenet_body_lanes`` runs K1b whatever the
-shape, and ``wavenet_body_lanes_torch`` on a CPU tensor. Both are
+``wavenet_body`` takes the route that ``wavenet_route``, the JAX
+package's dispatch rule, picks for the shape: K1 (``csrc/wavenet.cu``,
+every lane of a stack at once), K1b (``csrc/wavenet_lane.cu``, one lane
+through every stack at a time), or, past both of the JAX package's
+budgets, the plain body ``wavenet_body_torch``, the twin of the
+`wavenet_body_xla` that the JAX dispatch calls there, on any device. On a
+CPU tensor the kernels' routes run their plain versions.
+``wavenet_body_lanes`` runs K1b whatever the shape, and
+``wavenet_body_lanes_torch`` on a CPU tensor. Both are
 differentiable: as `_bwd` in the JAX package, the backward is the vjp of
 the plain version on the saved inputs, in f32 (the JAX package has no
 backward kernel here, so neither has the port).
@@ -75,25 +78,55 @@ def wavenet_body_lanes_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, fi
     return out
 
 
-def wavenet_route(n: int, d: int, layers: int, l2_bytes: int) -> str:
-    """Which kernel runs the body on a card with ``l2_bytes`` of L2 cache:
-    ``"lanes"`` (K1b) when one batch row's K1 lanes, 2·L·n·d f32, exceed
-    the L2 and its K1b state, 3·n·d f32, fits in it; ``"stack"`` (K1)
-    otherwise. Per batch row, as the JAX package's VMEM gate
-    (`_kernel_vmem_bytes(n, d, L)`), so that the port runs K1b where that
-    package does: long sequences, never large batches. On a 50 MiB L2 at
-    d 128, L 8 that is 6,400 < n ≤ 34,133 (the JAX package: n ≥ 6,713).
-    The gate follows the reference, not speed: on an H100 K1b is slower
-    than K1 at n 9000 (PERF.md)."""
-    k1_lanes = 2 * layers * n * d * 4
-    k1b_state = 3 * n * d * 4
-    return "lanes" if k1_lanes > l2_bytes and k1b_state <= l2_bytes else "stack"
+# The JAX package's budgets (`naturalspeech2_tpu/ops/wavenet_kernel.py`):
+# the whole-stack kernel's, the per-lane kernel's, and the widest d that
+# the per-lane kernel takes.
+VMEM_SCRATCH_LIMIT_BYTES = 32 * 2**20
+LANE_VMEM_LIMIT_BYTES = 64 * 2**20
+LANE_MAX_DIM = 256
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _kernel_vmem_bytes(n: int, d: int, L: int) -> int:
+    """The JAX package's footprint estimate of its whole-stack kernel."""
+    return (L * n * d + n * d) * 4 + L * (3 * d * d + d * d + d * d) * 4
+
+
+def _lane_vmem_bytes(n: int, d: int, L: int) -> int:
+    """The JAX package's footprint estimate of its per-lane kernel."""
+    pad = _round_up(max(8, 2 * 2 ** (L - 1)), 8)
+    return ((pad + n) * d + n * d) * 4 + 2 * (2 * n * d + (3 * d * d + d * d + d * d)) * 4
+
+
+def wavenet_route(n: int, d: int, layers: int) -> str:
+    """The body's route at sequence length ``n``, width ``d`` and ``layers``
+    lanes: ``"stack"`` (K1) within the whole-stack budget, ``"lanes"`` (K1b)
+    past it at d ≤ 256 within the per-lane budget, ``"plain"``
+    (``wavenet_body_torch``) otherwise. At d 128, L 8: K1 for n ≤ 6,712,
+    K1b for 6,713 ≤ n ≤ 21,589; at d 512 the plain body.
+
+    This is the reference's routing rule (the JAX package's
+    `_forward_dispatch`, its integer arithmetic unchanged), kept so that
+    the port runs the reference's route at every shape. It is not a limit
+    of the card."""
+    if _kernel_vmem_bytes(n, d, layers) <= VMEM_SCRATCH_LIMIT_BYTES:
+        return "stack"
+    if d <= LANE_MAX_DIM and _lane_vmem_bytes(n, d, layers) <= LANE_VMEM_LIMIT_BYTES:
+        return "lanes"
+    return "plain"
 
 
 def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     """One body through ``route`` ("stack": K1, "lanes": K1b, None: as
     ``wavenet_route`` picks), or its plain version on a CPU tensor."""
     args = (x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
+    if route is None:
+        route = wavenet_route(x.shape[1], x.shape[2], conv_w.shape[1])
+    if route == "plain":
+        return wavenet_body_torch(*args)
     if x.device.type == "cpu":
         return (wavenet_body_lanes_torch if route == "lanes" else wavenet_body_torch)(*args)
     _build.require_cuda_f32(
@@ -109,8 +142,6 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     )
     if d % 64 != 0:
         raise ValueError(f"wavenet_body: the CUDA kernel needs d % 64 == 0, got d={d}")
-    if route is None:
-        route = wavenet_route(n, d, L, torch.cuda.get_device_properties(x.device).L2_cache_size)
     out = torch.empty_like(x)
     if route == "lanes":
         state = torch.empty((2, b, n, d), dtype=torch.float32, device=x.device)
@@ -139,11 +170,11 @@ class _WavenetBody(torch.autograd.Function):
 
 
 def wavenet_body(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
-    """The WaveNet body, differentiable. CUDA tensors run K1 (S stack
-    launches and one skip launch, counted in ``wavenet_body.launches``) or
-    K1b (L·S block launches and L skip launches, counted in
-    ``wavenet_body_lanes.launches``), as ``wavenet_route`` picks for the
-    card's L2; CPU tensors run ``wavenet_body_torch``."""
+    """The WaveNet body, differentiable, by ``wavenet_route``: CUDA tensors
+    run K1 (S stack launches and one skip launch, counted in
+    ``wavenet_body.launches``), K1b (L·S block launches and L skip
+    launches, counted in ``wavenet_body_lanes.launches``) or the plain
+    body; CPU tensors run ``wavenet_body_torch``."""
     return _WavenetBody.apply(None, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
 
 

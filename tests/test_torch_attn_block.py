@@ -72,7 +72,7 @@ def test_attention_module_matches_flax_fused_route():
     params = jitter(numpy_tree(params["params"]), 3)
     expected = mod.apply({"params": params}, jnp.asarray(x), pre_norm=pre_norm, residual=True)
 
-    port = Attention(DM, dim_head=DH, heads=H)
+    port = Attention(DM, dim_head=DH, heads=H, use_flash=True)
     port.load_state_dict({k: t(params[k]["kernel"]) for k in ("to_q", "to_kv", "to_out")})
     with torch.no_grad():
         assert_close(port(t(x), t(g), t(b)), expected, atol=ATOL)

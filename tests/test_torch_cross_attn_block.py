@@ -103,7 +103,7 @@ def test_attention_cross_route_matches_flax_fused_route():
     params = jitter(numpy_tree(params["params"]), 5)
     expected = mod.apply({"params": params}, jnp.asarray(x), **kwargs)
 
-    port = Attention(dm, dim_head=DH, heads=H, dim_context=ctx.shape[-1])
+    port = Attention(dm, dim_head=DH, heads=H, dim_context=ctx.shape[-1], use_flash=True)
     port.load_state_dict({k: t(params[k]["kernel"]) for k in ("to_q", "to_kv", "to_out")})
     with torch.no_grad():
         assert_close(port(t(x), t(g), t(b), context=t(ctx)), expected, atol=ATOL)

@@ -4,7 +4,7 @@
 the loss and the gradient of every parameter. At n = 8 frames the JAX
 module routes through its fused Pallas blocks, at n = 5 through
 `ada_rmsnorm` → flash attention and the unfused feed-forward; the port
-runs K2 and K3 at every n, and both must agree with it."""
+takes the same route at each n (tests/test_torch_routes.py)."""
 
 import jax
 import jax.numpy as jnp

@@ -68,7 +68,7 @@ def test_ddim_latents_match_jax(pair):
     )
     actual = ddim_sample(
         ns2_t.model, (B, LENGTH, 16), timesteps=STEPS, gamma_schedule=ns2_t.gamma_schedule,
-        noise=_jax_noise(),
+        noise=_jax_noise(), device="cpu",
     )
     assert_close(actual, expected, atol=ATOL)
 

@@ -1,7 +1,7 @@
 """Port parity for kernel K1b: the lane-major plain WaveNet body against the
 JAX package's per-lane Pallas kernel (interpret mode on the CPU) and
-against the stack-major plain body, the wrapper's CPU route, and the K1 /
-K1b route on the card's L2."""
+against the stack-major plain body, the wrapper's CPU route, and the
+route rule (K1, K1b or the plain body) against the JAX package's."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +10,7 @@ import torch
 
 from naturalspeech2_tpu.ops import wavenet_kernel as jwk
 from naturalspeech2_tpu_torch.ops.wavenet_kernel import (
+    wavenet_body,
     wavenet_body_lanes,
     wavenet_body_lanes_torch,
     wavenet_body_torch,
@@ -23,7 +24,6 @@ B, N, D = 2, 40, 16
 # order by Pallas (three tap matmuls) and torch (one over the concatenated
 # taps); outputs are O(1)
 ATOL = 1e-4
-L2_H100 = 50 * 2**20  # torch.cuda.get_device_properties(0).L2_cache_size on an H100
 
 
 def _inputs(S, L, seed):
@@ -87,34 +87,52 @@ def _jax_route(n, d, L):
         return "stack"
     if d <= jwk.LANE_MAX_DIM and jwk._lane_vmem_bytes(n, d, L) <= jwk.LANE_VMEM_LIMIT_BYTES:
         return "lanes"
-    return "xla"
+    return "plain"
 
 
 @pytest.mark.parametrize(
-    "b, n, d, port, jax_route",
+    "b, n, d, route",
     [
-        (4, 1024, 128, "stack", "stack"),  # flagship sampling
-        (8, 512, 128, "stack", "stack"),   # guided conditional sampling
-        (8, 1024, 128, "stack", "stack"),  # the flagship under CFG, batch 4 doubled
-        (16, 150, 128, "stack", "stack"),  # training, b16 x 2 s
-        (1, 4500, 128, "stack", "stack"),  # long-form 60 s
-        (1, 9000, 128, "lanes", "lanes"),  # long-form 120 s
-        (16, 1024, 512, "stack", "xla"),   # scaled dim 512
+        (4, 1024, 128, "stack"),  # flagship sampling
+        (8, 512, 128, "stack"),   # guided conditional sampling
+        (8, 1024, 128, "stack"),  # the flagship under CFG, batch 4 doubled
+        (16, 150, 128, "stack"),  # training, b16 x 2 s
+        (1, 4500, 128, "stack"),  # long-form 60 s
+        (1, 9000, 128, "lanes"),  # long-form 120 s
+        (16, 1024, 512, "plain"),  # scaled dim 512: the JAX package's XLA twin
     ],
     ids=["flagship", "guided", "flagship_cfg", "training", "longform_60s", "longform_120s", "scaled"],
 )
-def test_route_on_an_h100_l2(b, n, d, port, jax_route):
-    """The route is per batch row, as the JAX package's gate: b never
-    moves a shape from K1 to K1b."""
-    assert wavenet_route(n, d, 8, L2_H100) == port
-    assert _jax_route(n, d, 8) == jax_route
+def test_route_on_an_h100_l2(b, n, d, route):
+    """The route is the JAX package's at every shape, whatever the card:
+    the rule reads neither the batch nor a cache size."""
+    assert wavenet_route(n, d, 8) == route
+    assert _jax_route(n, d, 8) == route
 
 
 def test_route_edges():
-    """K1b from the first n whose K1 scratch passes the L2 to the last one
-    whose own state fits it; the ragged n 6501 of the chip run is inside."""
-    assert wavenet_route(6400, 128, 8, L2_H100) == "stack"
-    assert wavenet_route(6401, 128, 8, L2_H100) == "lanes"
-    assert wavenet_route(6501, 128, 8, L2_H100) == "lanes"
-    assert wavenet_route(34133, 128, 8, L2_H100) == "lanes"
-    assert wavenet_route(34134, 128, 8, L2_H100) == "stack"
+    """K1b from the first n past the whole-stack budget to the last one in
+    the per-lane budget, then the plain body; the ragged n 6733 of the chip
+    run is inside; past the whole-stack budget, every d above 256 takes
+    the plain body."""
+    edges = {6712: "stack", 6713: "lanes", 6733: "lanes", 21589: "lanes", 21590: "plain"}
+    for n, route in edges.items():
+        assert wavenet_route(n, 128, 8) == route == _jax_route(n, 128, 8), n
+    assert wavenet_route(64, 320, 8) == "stack" == _jax_route(64, 320, 8)
+    assert wavenet_route(4096, 320, 8) == "plain" == _jax_route(4096, 320, 8)
+
+
+def test_plain_route_runs_the_plain_body_on_any_device():
+    """Past both budgets (here n 8000 past the whole-stack one at d 320 >
+    256) the body is the plain one, as the JAX dispatch calls its XLA twin
+    there: on a tensor off the CPU it neither launches a kernel nor raises,
+    while a kernel route raises."""
+    b, n, d, S, L = 1, 8000, 320, 2, 3
+    shapes = [(b, n, d), (S, L, 3 * d, d), (S, L, d), (S, L, d, d), (S, L, d), (L, d, d), (L, d),
+              (b, S, L, 2 * d)]
+    args = [torch.empty(s, device="meta") for s in shapes]
+    wavenet_body.launches = 0
+    assert wavenet_body(*args).shape == (b, n, d)
+    assert wavenet_body.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        wavenet_body_lanes(*args)
