@@ -62,7 +62,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      launch counts (the WaveNet is the plain body at d 512, as the JAX
      package runs its XLA twin there);
  15. one denoiser forward on the card against the CPU: the long-form model
-     at b1 x n4500 and n9000 and the scaled model at b2 x n1024.
+     at b1 x n4500 and n9000 and the scaled model at b2 x n1024;
+ 16. the widths of the JAX package's tests (dim 16, dim_head 8, codebook
+     dim 16, a 24-wide context), which every wrapper pads to its kernel's:
+     each kernel against its plain version, then the port's two CPU test
+     configs (tests/test_torch_conditional.py, tests/test_torch_scan_layers.py)
+     card against CPU, a guided forward and a 2-step conditional sample
+     each with exact launch counts, and the scan-layers transformer.
+K2 and K3 are held to BLOCK_TOL (split TF32 on the tensor cores against
+f32 plain versions) at every shape they run: b4 x n1024 x dim 128, the
+conditional [8, 512, 128], the long-form n4500 and n9000 and the scaled
+b16 x n1024 x dim 512.
 The line before the last is the kernels' JSON summary (each kernel's
 time, plain time, bound and launches); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -70,9 +80,10 @@ and prints no result.
 
     python3 chip_smoke.py --profile
 
-instead profiles a 10-step conditional sample of README config 2, one
-long-form denoise step at n4500 and at n9000 and one training step with
-torch.profiler and prints the device time by kernel, and the kernels that
+instead profiles 10 flagship denoise steps, a 10-step conditional sample
+of README config 2, one long-form denoise step at n4500 and at n9000, one
+scaled denoise step and one training step with torch.profiler and prints
+the device time by kernel, and the kernels that
 F.scaled_dot_product_attention (K4's and K5's yardstick) runs.
 """
 
@@ -112,6 +123,16 @@ PATH_TOL = 2e-3
 # adds bring the kernels to a few 1e-6. 1e-5 passes three passes with room
 # and fails one.
 FLASH_TOL = 1e-5
+# The fused blocks K2 and K3 vs plain on the card, relative to the largest
+# entry of y - x (the block's own output, without the residual): both run
+# their products in split TF32 on the GEMM core (K2's attention core on
+# K4), the plain versions in f32. Emulated on the CPU with the tensor
+# cores' truncating adds, the core stays within 5e-7 of f64 at the K of K3's
+# conv (3 x 352 and 3 x 1376) and one TF32 pass errs by 3e-4
+# (tests/test_torch_tf32_split.py). 1e-5 passes three passes with room and
+# fails one; KERNEL_TOL's 1e-3 absolute would pass a kernel that quietly
+# ran one pass.
+BLOCK_TOL = 1e-5
 # RVQ near-ties: squared distances are ~256 at d 128; two candidates closer
 # than this may swap between the kernel and the plain version.
 RVQ_TIE_TOL = 1e-3
@@ -161,6 +182,37 @@ PER_LONG_DENOISE = {LONG_LENGTHS[0]: {"wavenet_body": 1, "flash_forward": DEPTH}
                                       "flash_forward": DEPTH}}
 PER_SCALED_DENOISE = {"attn_block": SCALED_DEPTH, "ff_block": SCALED_DEPTH}
 WAVENET_STACKS, WAVENET_LAYERS = 4, 8
+# Phase 16, the widths the JAX package's tests run its Pallas kernels at:
+# dim 16, dim_head 8, codebook dim 16, a context 24 wide, 16 frames; and the
+# port's CPU test configs, copied from tests/test_torch_conditional.py
+# (MODEL_CFG, CODEC_CFG, NS2_CFG) and tests/test_torch_scan_layers.py
+# (CT_CFG; COND_MODEL_CFG with scan_layers and its CODEC_CFG).
+W_DIM, W_HEADS, W_DIM_HEAD, W_CONTEXT, W_LENGTH, W_BATCH = 16, 2, 8, 24, 16, 2
+W_COND_MODEL = dict(dim=16, depth=2, heads=2, dim_head=8, wavenet_layers=2, wavenet_stacks=2,
+                    condition_on_prompt=True, dim_prompt=24, num_latents_m=8, resampler_depth=1,
+                    cond_drop_prob=0.25)
+W_COND_CODEC = dict(codebook_dim=16, channels=4, num_quantizers=2, codebook_size=16)
+W_NS2 = dict(
+    timesteps=1000, num_phoneme_tokens=20, duration_pitch_dim=24, aligner_dim_in=8,
+    aligner_dim_hidden=24, aligner_attn_channels=8, pitch_emb_pp_hidden_dim=24,
+    phoneme_enc_kwargs=dict(dim=24, dim_hidden=24, depth=1, heads=2, dim_head=8),
+    prompt_enc_kwargs=dict(dims=(24, 24), depth=1, heads=2, dim_head=8),
+    duration_pitch_kwargs=dict(dim_hidden=24, depth=1, heads=2, dim_head=8,
+                               dim_encoded_prompts=24),
+)
+W_CT = dict(dim=16, depth=3, dim_head=8, heads=2, ff_causal_conv=True, dim_cond_mult=4)
+W_SCAN_MODEL = dict(dim=16, depth=2, heads=2, dim_head=8, wavenet_layers=3, wavenet_stacks=2,
+                    condition_on_prompt=True, dim_prompt=24, num_latents_m=8, resampler_depth=1,
+                    scan_layers=True)
+W_SCAN_CODEC = dict(channels=4, codebook_dim=16)
+# per guided forward of those models at 16 frames, by the JAX package's
+# gates (all pass): K1, K2, K2b and K3 per layer, the resampler's K4; a
+# 2-step guided sample adds the conditioning's prompt encoder (K4) and the
+# prompt's RVQ (K6)
+W_PER_FORWARD = {"wavenet_body": 1, "wavenet_body_lanes": 0, "attn_block": 2,
+                 "cross_attn_block": 2, "ff_block": 2, "flash_forward": 1, "flash_backward": 0,
+                 "rvq": 0}
+W_PER_SAMPLE = {**{k: 2 * v for k, v in W_PER_FORWARD.items()}, "flash_forward": 1 + 2, "rvq": 1}
 # H100 SXM peaks at 700 W (NVIDIA's data sheet): dense TF32 on the tensor
 # cores, and HBM3. Split TF32, three TF32 products per f32 product, is the
 # fastest f32-accurate way the card has to run a matrix product.
@@ -232,67 +284,76 @@ def wavenet_inputs(gen, b, n, d, S=WAVENET_STACKS, L=WAVENET_LAYERS):
     return wn, bound(2 * b * n * d * d * (S * L * 4 + L), nbytes(*wn) + b * n * d * 4)
 
 
-def attn_inputs(gen, b, n, d):
+def attn_inputs(gen, b, n, d, heads=HEADS, dim_head=DIM_HEAD):
     """x, γ, β and the Dense layouts W_q, W_kv, W_o of the attention block."""
     rn = _randn(gen)
-    hd = HEADS * DIM_HEAD
+    hd = heads * dim_head
     return (rn(b, n, d), 1 + rn(b, d, scale=0.1), rn(b, d, scale=0.1), rn(d, hd, scale=d**-0.5),
             rn(d, 2 * hd, scale=d**-0.5), rn(hd, d, scale=hd**-0.5))
 
 
-def kernel_cases(gen, b=BATCH, n=LENGTH, d=DIM):
-    """(name, source, replaces, kernel call, plain call, bound) of K1, K2
-    and K3 at one shape (the flagship's by default), inputs drawn from
-    ``gen`` on the card."""
+def kernel_cases(gen, b=BATCH, n=LENGTH, d=DIM, heads=HEADS, dim_head=DIM_HEAD,
+                 stacks=WAVENET_STACKS, layers=WAVENET_LAYERS):
+    """(name, source, replaces, kernel call, plain call, bound, residual) of
+    K1, K2 and K3 at one shape (the flagship's by default), inputs drawn
+    from ``gen`` on the card; ``residual`` is the block's x (K2, K3), which
+    BLOCK_TOL's comparison takes off, or None (K1)."""
     from naturalspeech2_tpu_torch.ops import attn_block_kernel, ff_block_kernel, wavenet_kernel
 
     rn = _randn(gen)
-    hd, inner = HEADS * DIM_HEAD, int(d * 4 * 2 / 3)
+    inner = int(d * 4 * 2 / 3)
     out_bytes = b * n * d * 4
-    wn, wn_work = wavenet_inputs(gen, b, n, d)
-    attn = attn_inputs(gen, b, n, d)
+    wn, wn_work = wavenet_inputs(gen, b, n, d, stacks, layers)
+    attn = attn_inputs(gen, b, n, d, heads, dim_head)
     x, gamma, beta = attn[:3]
-    heads = attn_block_kernel.split_heads(*attn[3:], HEADS, DIM_HEAD)
+    split = attn_block_kernel.split_heads(*attn[3:], heads, dim_head)
     w1, b1 = rn(d, 2 * inner, scale=d**-0.5), rn(2 * inner, scale=0.1)
     wc, bc = rn(3, inner, inner, scale=(3 * inner) ** -0.5), rn(inner, scale=0.1)
     w2, b2 = rn(inner, d, scale=inner**-0.5), rn(d, scale=0.1)
-    scale = DIM_HEAD**-0.5
+    scale = dim_head**-0.5
     ff_flops = 2 * b * n * (d * 2 * inner + 3 * inner * inner + inner * d)
     return [
         ("wavenet_body", "naturalspeech2_tpu_torch/csrc/wavenet.cu",
          "naturalspeech2_tpu/ops/wavenet_kernel.py:80",
          lambda: wavenet_kernel._forward("stack", *wn),
-         lambda: wavenet_kernel.wavenet_body_torch(*wn), wn_work),
+         lambda: wavenet_kernel.wavenet_body_torch(*wn), wn_work, None),
         ("attn_block", "naturalspeech2_tpu_torch/csrc/attn_block.cu",
          "naturalspeech2_tpu/ops/attn_block_kernel.py:92",
-         lambda: attn_block_kernel.attn_block(*attn, heads=HEADS, dim_head=DIM_HEAD, scale=scale),
-         lambda: attn_block_kernel.attn_block_torch(x, gamma, beta, *heads, scale=scale),
-         attn_work(b, n, d, attn)),
+         lambda: attn_block_kernel.attn_block(*attn, heads=heads, dim_head=dim_head, scale=scale),
+         lambda: attn_block_kernel.attn_block_torch(x, gamma, beta, *split, scale=scale),
+         attn_work(b, n, d, attn, heads, dim_head), x),
         ("ff_block", "naturalspeech2_tpu_torch/csrc/ff_block.cu",
          "naturalspeech2_tpu/ops/ff_block_kernel.py:97",
          lambda: ff_block_kernel.ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2),
          lambda: ff_block_kernel.ff_block_torch(x, gamma, beta, w1[:, :inner], b1[:inner],
                                                 w1[:, inner:], b1[inner:], wc, bc, w2, b2),
-         bound(ff_flops, nbytes(x, gamma, beta, w1, b1, wc, bc, w2, b2) + out_bytes)),
+         bound(ff_flops, nbytes(x, gamma, beta, w1, b1, wc, bc, w2, b2) + out_bytes), x),
     ]
 
 
-def attn_work(b, n, d, attn) -> dict:
+def attn_work(b, n, d, attn, heads=HEADS, dim_head=DIM_HEAD) -> dict:
     """Bound of K2: the q/k/v and out projections and the n² logits and
     P·V products."""
-    hd = HEADS * DIM_HEAD
-    flops = 2 * b * n * d * 4 * hd + 4 * b * HEADS * n * n * DIM_HEAD
+    hd = heads * dim_head
+    flops = 2 * b * n * d * 4 * hd + 4 * b * heads * n * n * dim_head
     return bound(flops, nbytes(*attn) + b * n * d * 4)
 
 
-def timed_case(phase: str, label: str, kernel, plain, work: dict, reps: int = 20) -> dict:
+def timed_case(phase: str, label: str, kernel, plain, work: dict, reps: int = 20,
+               residual=None) -> dict:
     """A kernel against its plain version on the card: the max abs error
-    (raises above KERNEL_TOL), both times and the bound."""
+    (raises above KERNEL_TOL; with the block's ``residual`` x, above
+    BLOCK_TOL relative to the largest entry of y - x), both times and the
+    bound."""
     import torch
 
     out = kernel()
     torch.cuda.synchronize()
-    err = compare(phase, label, out, plain(), KERNEL_TOL)
+    if residual is None:
+        err = compare(phase, label, out, plain(), KERNEL_TOL)
+    else:
+        err = compare(phase, f"{label} (y - x)", out - residual, plain() - residual, BLOCK_TOL,
+                      relative=True)
     del out
     ms, plain_ms = cuda_ms(kernel, reps=reps), cuda_ms(plain, reps=reps)
     log(phase, f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of {reps}), bound "
@@ -365,8 +426,8 @@ def phase2_sampling_kernels() -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     summary = []
-    for name, source, replaces, kernel, plain, work in kernel_cases(gen):
-        timing = timed_case("2", name, kernel, plain, work)
+    for name, source, replaces, kernel, plain, work, residual in kernel_cases(gen):
+        timing = timed_case("2", name, kernel, plain, work, residual=residual)
         summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         **timing, "library_ms": None,
                         "by_shape": {f"[{BATCH},{LENGTH},{DIM}]": timing}})
@@ -556,12 +617,14 @@ def _flash_masked_dropout_case(gen) -> dict:
     return {"flash_forward": err, "flash_backward": err_b}
 
 
-def _rvq_case(gen) -> tuple[float, float, float]:
+def _rvq_case(gen, m=TRAIN_BATCH * int(TRAIN_SECONDS * 24000) // 320, num_q=8, size=1024,
+              d=128, phase="6", timed=True):
+    """K6 against its plain version, codes tie-tolerantly: the error of the
+    agreeing rows and, if ``timed``, both times and the bound."""
     import torch
 
     from naturalspeech2_tpu_torch.ops import rvq as rvq_ops
 
-    m, num_q, size, d = TRAIN_BATCH * int(TRAIN_SECONDS * 24000) // 320, 8, 1024, 128
     x = torch.randn(m, d, generator=gen, device="cuda")
     cb = torch.randn(num_q, size, d, generator=gen, device="cuda")
     kernel = lambda: rvq_ops.rvq(x, cb)  # noqa: E731
@@ -582,10 +645,12 @@ def _rvq_case(gen) -> tuple[float, float, float]:
             raise AssertionError(f"rvq: row {row} stage {stage} code differs by {gap:.3e} in d²")
     if (~same).sum() > m // 100:
         raise AssertionError(f"rvq: {int((~same).sum())} rows part at near-ties, over 1 %")
-    log("6", f"rvq: codes [{m},{num_q}] equal in {int(same.sum())} of {m} rows, the rest "
-             f"near-ties within {RVQ_TIE_TOL:g}")
-    err = compare("6", "rvq quantized (agreeing rows)", q[same.cuda()], q_ref[same.cuda()],
-                  KERNEL_TOL)
+    log(phase, f"rvq: codes [{m},{num_q}] at d {d} equal in {int(same.sum())} of {m} rows, the "
+               f"rest near-ties within {RVQ_TIE_TOL:g}")
+    err = compare(phase, f"rvq quantized d {d} (agreeing rows)", q[same.cuda()],
+                  q_ref[same.cuda()], KERNEL_TOL)
+    if not timed:
+        return err
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
     work = bound(2 * num_q * m * size * d, nbytes(x, cb, q, codes))
     log("6", f"rvq [{m},{d}] Q{num_q} K{size}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
@@ -754,43 +819,60 @@ def phase8_loss_card_vs_cpu(ns2, ns2_cpu) -> None:
         raise AssertionError(f"gradient card vs CPU: {worst:.3e} at {worst_name}")
 
 
-def phase9_conditional_kernels() -> tuple[list, dict]:
-    """K2b at the conditional denoiser's shape, and K4 at the resampler's
-    and the prompt encoder's shapes; returns K2b's summary entry and K4's
-    timings by shape."""
+def cross_case(phase: str, gen, b, n, m, d, dc, heads=HEADS, dim_head=DIM_HEAD,
+               timed: bool = True) -> dict:
+    """K2b against its plain version at x [b, n, d], ctx [b, m, dc]: the max
+    abs error (KERNEL_TOL) and, if ``timed``, both times and the bound."""
     import torch
 
     from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-
-    def rn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device="cuda") * scale
-
-    # the guided batch is doubled; the context is the 32 resampled latents
-    b, n, m, d, hd = 2 * COND_BATCH, COND_LENGTH, NUM_LATENTS, DIM, HEADS * DIM_HEAD
-    x, ctx = rn(b, n, d), rn(b, m, d)
+    rn = _randn(gen)
+    hd = heads * dim_head
+    x, ctx = rn(b, n, d), rn(b, m, dc)
     gamma, beta = 1 + rn(b, d, scale=0.1), rn(b, d, scale=0.1)
-    wq, wkv, wo = rn(d, hd, scale=d**-0.5), rn(d, 2 * hd, scale=d**-0.5), rn(hd, d, scale=hd**-0.5)
-    heads = ak.split_heads(wq, wkv, wo, HEADS, DIM_HEAD)
-    scale = DIM_HEAD**-0.5
-    kernel = lambda: ak.cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, heads=HEADS,  # noqa: E731
-                                         dim_head=DIM_HEAD, scale=scale)
-    plain = lambda: ak.cross_attn_block_torch(x, ctx, gamma, beta, *heads, scale=scale)  # noqa: E731
+    wq, wkv = rn(d, hd, scale=d**-0.5), rn(dc, 2 * hd, scale=dc**-0.5)
+    wo = rn(hd, d, scale=hd**-0.5)
+    split = ak.split_heads(wq, wkv, wo, heads, dim_head)
+    scale = dim_head**-0.5
+    kernel = lambda: ak.cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, heads=heads,  # noqa: E731
+                                         dim_head=dim_head, scale=scale)
+    plain = lambda: ak.cross_attn_block_torch(x, ctx, gamma, beta, *split, scale=scale)  # noqa: E731
     out = kernel()
     torch.cuda.synchronize()
-    err = compare("9", f"cross_attn_block x [{b},{n},{d}] ctx [{b},{m},{d}]", out, plain(),
-                  KERNEL_TOL)
+    err = compare(phase, f"cross_attn_block x [{b},{n},{d}] ctx [{b},{m},{dc}] dh {dim_head}",
+                  out, plain(), KERNEL_TOL)
+    if not timed:
+        return {"max_abs_err": err}
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-    flops = 2 * b * n * d * 2 * hd + 2 * b * m * d * 2 * hd + 4 * b * HEADS * n * m * DIM_HEAD
+    flops = 2 * b * n * d * 2 * hd + 2 * b * m * dc * 2 * hd + 4 * b * heads * n * m * dim_head
     work = bound(flops, nbytes(x, ctx, gamma, beta, wq, wkv, wo) + nbytes(out))
-    log("9", f"cross_attn_block: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20), "
-             f"{flops / 1e9:.3f} GFLOP, bound {work['bound_ms']:.4f} ms ({work['bound_by']}), "
-             f"{flops / ms / 1e9:.2f} TFLOP/s")
+    log(phase, f"cross_attn_block: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20), "
+               f"{flops / 1e9:.3f} GFLOP, bound {work['bound_ms']:.4f} ms ({work['bound_by']}), "
+               f"{flops / ms / 1e9:.2f} TFLOP/s")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work}
+
+
+def phase9_conditional_kernels(summary: list) -> tuple[list, dict]:
+    """K2b, K2 and K3 at the conditional denoiser's shape (K2's and K3's
+    timings go to their entries in ``summary``), and K4 at the resampler's
+    and the prompt encoder's shapes; returns K2b's summary entry and K4's
+    timings by shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    # the guided batch is doubled; the context is the 32 resampled latents
+    b, n, m, d = 2 * COND_BATCH, COND_LENGTH, NUM_LATENTS, DIM
     entry = {"name": "cross_attn_block", "route": "cuda",
              "source": "naturalspeech2_tpu_torch/csrc/cross_attn_block.cu",
-             "replaces": "naturalspeech2_tpu/ops/attn_block_kernel.py:237", "max_abs_err": err,
-             "ms": ms, "plain_ms": plain_ms, **work, "library_ms": None}
+             "replaces": "naturalspeech2_tpu/ops/attn_block_kernel.py:237",
+             **cross_case("9", gen, b, n, m, d, d), "library_ms": None}
+    entries = {e["name"]: e for e in summary}
+    shape = f"[{b},{n},{d}]"
+    for name, _, _, kernel, plain, work, residual in kernel_cases(gen, b, n, d):
+        if residual is not None:
+            entries[name]["by_shape"][shape] = timed_case("9", f"{name} {shape}", kernel, plain,
+                                                          work, residual=residual)
 
     prompt_frames = PROMPT_SAMPLES // 320
     flash = {}
@@ -956,18 +1038,18 @@ def phase12_longform_scaled_kernels(summary: list) -> dict:
     for n, names in ((LONG_LENGTHS[0], ("wavenet_body", "attn_block", "ff_block")),
                      (LONG_LENGTHS[1], ("ff_block",))):
         shape = f"[1,{n},{DIM}]"
-        for name, _, _, kernel, plain, work in kernel_cases(gen, 1, n, DIM):
+        for name, _, _, kernel, plain, work, residual in kernel_cases(gen, 1, n, DIM):
             if name in names:
                 entries[name]["by_shape"][shape] = timed_case("12", f"{name} {shape}", kernel,
-                                                              plain, work)
+                                                              plain, work, residual=residual)
 
     # the scaled width: K1 (pinned: the path runs the plain body there, as
     # the JAX package its XLA twin), K2, K3
     b, n, d = SCALED_BATCH, LENGTH, SCALED_DIM
     shape = f"[{b},{n},{d}]"
-    for name, _, _, kernel, plain, work in kernel_cases(gen, b, n, d):
+    for name, _, _, kernel, plain, work, residual in kernel_cases(gen, b, n, d):
         entries[name]["by_shape"][shape] = timed_case("12", f"{name} {shape}", kernel, plain, work,
-                                                      reps=5)
+                                                      reps=5, residual=residual)
     torch.cuda.empty_cache()
 
     # K2 at the long-form n 9000 against the JAX package's route there,
@@ -980,7 +1062,7 @@ def phase12_longform_scaled_kernels(summary: list) -> dict:
     heads = ak.split_heads(*attn[3:], HEADS, DIM_HEAD)
     timing = timed_case("12", f"attn_block {shape}", kernel,
                         lambda: ak.attn_block_torch(*attn[:3], *heads, scale=cfg["scale"]),
-                        attn_work(1, n, DIM, attn))
+                        attn_work(1, n, DIM, attn), residual=attn[0])
     flash_route = lambda: ak.attn_block_flash(*attn, **cfg)  # noqa: E731
     with torch.no_grad():
         timing["flash_route_err"] = compare("12", f"attn_block against attn_block_flash {shape}",
@@ -1100,6 +1182,106 @@ def phase15_card_vs_cpu(long_ns2, long_cpu, scaled, scaled_cpu) -> None:
         compare("15", f"{label} denoiser b{b} x n{n}, card vs CPU", on_card, on_cpu, PATH_TOL)
 
 
+def check_counts(phase: str, label: str, counts: dict, expect: dict) -> None:
+    log(phase, f"{label}: launch counts {counts}, expected {expect}")
+    if counts != expect:
+        raise AssertionError(f"{label}: launch counts {counts} != {expect}")
+
+
+def phase16_widths() -> None:
+    """The JAX package's test widths on the card: each kernel against its
+    plain version at dim 16, dim_head 8, codebook dim 16 and a 24-wide
+    context (narrower than the kernels' tiles, so padded by the wrappers);
+    then the port's two CPU test configs, card against CPU under PATH_TOL
+    with exact launch counts: a guided denoiser forward and a 2-step
+    conditional sample each, and the scan-layers transformer's forward."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+    from naturalspeech2_tpu_torch.models.denoiser import forward_with_cond_scale
+    from naturalspeech2_tpu_torch.models.transformer import ConditionableTransformer
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    b, n, d = W_BATCH, W_LENGTH, W_DIM
+    for name, _, _, kernel, plain, _, residual in kernel_cases(gen, b, n, d, W_HEADS, W_DIM_HEAD,
+                                                               stacks=2, layers=2):
+        out = kernel()
+        torch.cuda.synchronize()
+        if residual is None:
+            compare("16", f"{name} [{b},{n},{d}]", out, plain(), KERNEL_TOL)
+        else:
+            compare("16", f"{name} [{b},{n},{d}] dh {W_DIM_HEAD} (y - x)", out - residual,
+                    plain() - residual, BLOCK_TOL, relative=True)
+    wn, _ = wavenet_inputs(gen, b, n, d, 2, 2)
+    compare("16", f"wavenet_body_lanes [{b},{n},{d}]", wk.wavenet_body_lanes(*wn),
+            wk.wavenet_body_lanes_torch(*wn), KERNEL_TOL)
+    cross_case("16", gen, b, n, 8, d, W_CONTEXT, W_HEADS, W_DIM_HEAD, timed=False)
+    for shape in ((b, W_HEADS, n, n), (b, W_HEADS, 8, 12)):
+        flash_case("16", gen, *shape, d=W_DIM_HEAD)
+    _rvq_case(gen, m=200, num_q=2, size=16, d=16, phase="16", timed=False)
+
+    g = torch.Generator().manual_seed(SEED + 61)
+    prompt = torch.rand(b, 4 * 320, generator=g) * 2 - 1
+    text = torch.randint(0, 20, (b, 6), generator=g)
+    duration = torch.randint(1, 7, (b, 6), generator=g).float() + 0.5
+    pitch = 80 + 220 * torch.rand(b, 6, generator=g)
+    x, noise = torch.randn(b, n, d, generator=g), torch.randn(b, n, d, generator=g)
+    times = torch.rand(b, generator=g)
+    prompt_enc, cond = torch.randn(b, 5, 24, generator=g), torch.randn(b, 20, 24, generator=g)
+    for label, model_kw, codec_kw in (("conditional test config", W_COND_MODEL, W_COND_CODEC),
+                                      ("scan-layers test config", W_SCAN_MODEL, W_SCAN_CODEC)):
+        torch.manual_seed(SEED + 62)
+        with torch.no_grad():
+            cpu = ns2pkg.NaturalSpeech2(ns2pkg.Model(**model_kw), ns2pkg.SoundStream(**codec_kw),
+                                        **W_NS2)
+            jitter = torch.Generator().manual_seed(SEED + 63)
+            for p in cpu.parameters():
+                p.add_(torch.randn(p.shape, generator=jitter) * 0.02)
+        card = copy.deepcopy(cpu).cuda().eval()
+        cpu.eval()
+        outs = []
+        for model, device in ((card, "cuda"), (cpu, "cpu")):
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                outs.append(forward_with_cond_scale(
+                    model.model, x.to(device), times.to(device), prompt=prompt_enc.to(device),
+                    cond=cond.to(device), cond_scale=COND_SCALE))
+            if device == "cuda":
+                check_counts("16", f"{label} guided forward", ops.launch_counts(), W_PER_FORWARD)
+        compare("16", f"{label}: guided denoiser forward [{b},{n},{d}], card vs CPU", *outs,
+                PATH_TOL)
+        waves = []
+        for model, device in ((card, "cuda"), (cpu, "cpu")):
+            ops.reset_launch_counts()
+            waves.append(ns2pkg.sample(
+                model, prompt=prompt.to(device), text=text.to(device), noise=noise.to(device),
+                length=n, timesteps=2, cond_scale=COND_SCALE, duration=duration.to(device),
+                pitch=pitch.to(device)))
+            if device == "cuda":
+                check_counts("16", f"{label} 2-step sample", ops.launch_counts(), W_PER_SAMPLE)
+        compare("16", f"{label}: 2-step conditional sample, card vs CPU", *waves, PATH_TOL)
+        del card, cpu
+
+    torch.manual_seed(SEED + 64)
+    ct_cpu = ConditionableTransformer(**W_CT, cross_attn=True, scan_layers=True).eval()
+    with torch.no_grad():
+        for p in ct_cpu.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.02)
+    ct_card = copy.deepcopy(ct_cpu).cuda()
+    h, context = torch.randn(b, n, d, generator=g), torch.randn(b, 8, d, generator=g)
+    t_cond = torch.randn(b, 4 * d, generator=g)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        on_card = ct_card(h.cuda(), t_cond.cuda(), context.cuda())
+        check_counts("16", "scan-layers transformer forward", ops.launch_counts(),
+                     {**dict.fromkeys(W_PER_FORWARD, 0), "attn_block": 3, "cross_attn_block": 3,
+                      "ff_block": 3})
+        compare("16", f"scan-layers transformer [{b},{n},{d}], card vs CPU", on_card,
+                ct_cpu(h, t_cond, context), PATH_TOL)
+
+
 def _profile(label: str, fn) -> None:
     """torch.profiler around ``fn()`` (after one warm-up call): wall time,
     the device's busy share and the device time by kernel."""
@@ -1148,16 +1330,29 @@ def sdpa_kernel_names() -> None:
 
 
 def profile_runs() -> int:
-    """torch.profiler over a 10-step conditional sample of README config 2,
-    over 10 guided denoise steps alone, over one long-form denoise step at
-    n 4500 and at n 9000, and over one training loss and backward at b16 x
-    2 s; then the kernels SDPA runs."""
+    """torch.profiler over 10 flagship denoise steps at b4 x n1024, over a
+    10-step conditional sample of README config 2, over 10 guided denoise
+    steps alone, over one long-form denoise step at n 4500 and at n 9000,
+    over one scaled denoise step at b16 x n1024 x dim 512, and over one
+    training loss and backward at b16 x 2 s; then the kernels SDPA runs."""
     import torch
 
     import naturalspeech2_tpu_torch as ns2pkg
     from naturalspeech2_tpu_torch.models.denoiser import forward_with_cond_scale
 
     phase1_card_and_build()
+    ns2 = flagship(SEED).cuda().eval()
+    with torch.no_grad():
+        x = torch.randn(BATCH, LENGTH, DIM, device="cuda")
+        times = torch.full((BATCH,), 0.5, device="cuda")
+
+        def flagship_steps():
+            for _ in range(10):
+                ns2.model(x, times)
+
+        _profile(f"10 flagship denoise steps at b{BATCH} x n{LENGTH}", flagship_steps)
+    del ns2
+
     ns2 = flagship(SEED + 30, conditional=True).cuda().eval()
     prompt, text, text_lens = (t.cuda() for t in _conditional_inputs())
     kwargs = dict(length=COND_LENGTH, prompt=prompt, text=text, text_lens=text_lens,
@@ -1184,6 +1379,16 @@ def profile_runs() -> int:
             _profile(f"1 long-form denoise step at n {n}", lambda: long_ns2.model(x, times))
     del long_ns2
 
+    scaled = flagship(SEED + 50, codec=False, dim=SCALED_DIM, depth=SCALED_DEPTH,
+                      scan_layers=True).cuda().eval()
+    with torch.no_grad():
+        x = torch.randn(SCALED_BATCH, LENGTH, SCALED_DIM, device="cuda")
+        times = torch.full((SCALED_BATCH,), 0.5, device="cuda")
+        _profile(f"1 scaled denoise step at b{SCALED_BATCH} x n{LENGTH} x dim {SCALED_DIM}",
+                 lambda: scaled.model(x, times))
+    del scaled
+    torch.cuda.empty_cache()
+
     ns2 = flagship(SEED + 10).cuda()
     g = torch.Generator(device="cuda").manual_seed(SEED + 31)
     audio = torch.tanh(torch.randn(TRAIN_BATCH, int(TRAIN_SECONDS * 24000), generator=g,
@@ -1203,8 +1408,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile a conditional sample and long-form steps instead of the "
-                             "smoke run")
+                        help="profile flagship, conditional, long-form, scaled and training "
+                             "steps instead of the smoke run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1229,7 +1434,7 @@ def main() -> int:
     phase8_loss_card_vs_cpu(ns2, ns2_cpu)
     del ns2, ns2_cpu
 
-    cross, flash_shapes = phase9_conditional_kernels()
+    cross, flash_shapes = phase9_conditional_kernels(summary)
     summary += cross
     for entry in summary:
         if entry["name"] == "flash_forward":
@@ -1251,6 +1456,8 @@ def main() -> int:
     scaled = copy.deepcopy(scaled_cpu).cuda()
     scaled_counts = phase14_scaled(scaled)
     phase15_card_vs_cpu(long_ns2, long_cpu, scaled, scaled_cpu)
+    del long_ns2, long_cpu, scaled, scaled_cpu
+    phase16_widths()
 
     for entry in summary:
         name = entry["name"]

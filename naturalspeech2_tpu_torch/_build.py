@@ -41,10 +41,9 @@ _FLASH_TAIL = [_F, _U, _U, _F, _I, _U, _F, _P]
 SIGNATURES = {
     "ns2_wavenet_body": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes": [_P] * 11 + [_I] * 5 + [_P],
-    "ns2_attn_block": [_P] * 7 + [_I] * 5 + [_F, _P],
-    "ns2_cross_attn_block": [_P] * 9 + [_I] * 7 + [_F, _P],
-    "ns2_ff_block": [_P] * 12 + [_I] * 4 + [_P],
-    "ns2_ff_block_wide": [_P] * 14 + [_I] * 4 + [_P],
+    "ns2_attn_block": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "ns2_cross_attn_block": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "ns2_ff_block": [_P] * 13 + [_I] * 4 + [_P],
     "ns2_flash_fwd": [_P] * 6 + [_I] * 6 + _FLASH_TAIL,
     "ns2_flash_bwd": [_P] * 10 + [_I] * 6 + _FLASH_TAIL,
     "ns2_rvq": [_P] * 5 + [_I] * 4 + [_P],

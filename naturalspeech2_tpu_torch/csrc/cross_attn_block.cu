@@ -96,10 +96,12 @@ constexpr int TQ = 32;  // queries per block
 constexpr int TK = 32;  // keys per tile
 constexpr int NPART = ns2::kThreads / TQ;  // threads per row in the norm
 
+constexpr int WC = 128;  // model rows of W_q,h (columns of W_o,h) staged at a time
+
 template <int DH, int DM>
 struct CrossSmem {
   float xn[DM][TQ];   // normalised x tile, transposed
-  float w[DM * DH];   // W_q,h as [DM][DH], then W_o,h as [DH][DM]
+  float w[WC * DH];   // 128 rows of W_q,h as [WC][DH], or 128 columns of W_o,h as [DH][WC]
   float q[DH][TQ];    // q tile, transposed
   float k[DH][TK];    // key tile, transposed
   float v[TK][DH];
@@ -120,8 +122,8 @@ cross_core_kernel(const float* __restrict__ x,      // [b, n, DM]
                   const float* __restrict__ kv,     // [2, b, H, m, DH]
                   const float* __restrict__ wo,     // [H·DH, DM]
                   float* __restrict__ out,          // [b, n, DM]
-                  int b, int n, int m, int heads, float scale) {
-  static_assert(DH % ns2::kGrid == 0 && DM % ns2::kGrid == 0, "tile shape");
+                  int b, int n, int m, int heads, float sqrt_dm, float scale) {
+  static_assert(DH % ns2::kGrid == 0 && DM % WC == 0, "tile shape");
   constexpr int JO = DH / ns2::kGrid;  // head columns per thread
   constexpr int JY = DM / ns2::kGrid;  // model columns per thread
   constexpr int JS = TK / ns2::kGrid;  // key columns per thread
@@ -155,7 +157,6 @@ cross_core_kernel(const float* __restrict__ x,      // [b, n, DM]
     sm.rnorm[tid] = fmaxf(sqrtf(ss), 1e-12f);
   }
   __syncthreads();
-  const float sqrt_dm = sqrtf((float)DM);
   for (int e = tid; e < TQ * DM; e += ns2::kThreads) {
     const int r = e / DM, c = e % DM, t = q0 + r;
     sm.xn[c][r] = (t < n) ? xb[(size_t)t * DM + c] / sm.rnorm[r] * sqrt_dm * g[c] + be[c] : 0.0f;
@@ -166,22 +167,24 @@ cross_core_kernel(const float* __restrict__ x,      // [b, n, DM]
     const float* kh = kv + ((size_t)bi * heads + h) * m * DH;
     const float* vh = kh + plane;
 
-    __syncthreads();  // the previous head is done with sm.w and sm.o
-    for (int e = tid; e < DM * DH; e += ns2::kThreads) {
-      const int c = e / DH, j = e % DH;
-      sm.w[e] = wq[(size_t)c * hd + h * DH + j];
-    }
-    __syncthreads();
     {
       float qa[2][JO] = {};
+      for (int c0 = 0; c0 < DM; c0 += WC) {
+        __syncthreads();  // the previous head (or chunk) is done with sm.w and sm.o
+        for (int e = tid; e < WC * DH; e += ns2::kThreads) {
+          const int c = e / DH, j = e % DH;
+          sm.w[e] = wq[(size_t)(c0 + c) * hd + h * DH + j];
+        }
+        __syncthreads();
 #pragma unroll 8
-      for (int c = 0; c < DM; ++c) {
-        const float a0 = sm.xn[c][ty], a1 = sm.xn[c][ty + 16];
+        for (int c = 0; c < WC; ++c) {
+          const float a0 = sm.xn[c0 + c][ty], a1 = sm.xn[c0 + c][ty + 16];
 #pragma unroll
-        for (int j = 0; j < JO; ++j) {
-          const float w = sm.w[c * DH + tx + 16 * j];
-          qa[0][j] += a0 * w;
-          qa[1][j] += a1 * w;
+          for (int j = 0; j < JO; ++j) {
+            const float w = sm.w[c * DH + tx + 16 * j];
+            qa[0][j] += a0 * w;
+            qa[1][j] += a1 * w;
+          }
         }
       }
 #pragma unroll
@@ -267,22 +270,30 @@ cross_core_kernel(const float* __restrict__ x,      // [b, n, DM]
       }
     }
 
-    // head output → shared, W_o,h over W_q,h (whose last reader passed
-    // the first barrier of the key loop), then y += o_h · W_o,h
+    // head output → shared, then y += o_h · W_o,h, 128 columns of W_o,h at
+    // a time in the buffer of W_q,h (whose last reader passed the first
+    // barrier of the key loop)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < JO; ++j) sm.o[tx + 16 * j][ty + 16 * i] = o[i][j] / lsum[i];
-    for (int e = tid; e < DH * DM; e += ns2::kThreads) sm.w[e] = wo[(size_t)h * DH * DM + e];
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < DH; ++c) {
-      const float a0 = sm.o[c][ty], a1 = sm.o[c][ty + 16];
 #pragma unroll
-      for (int j = 0; j < JY; ++j) {
-        const float w = sm.w[c * DM + tx + 16 * j];
-        y[0][j] += a0 * w;
-        y[1][j] += a1 * w;
+    for (int cc = 0; cc < DM / WC; ++cc) {
+      if (cc > 0) __syncthreads();  // the previous columns are consumed
+      for (int e = tid; e < DH * WC; e += ns2::kThreads) {
+        const int r = e / WC, c = e % WC;
+        sm.w[e] = wo[((size_t)h * DH + r) * DM + cc * WC + c];
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < DH; ++c) {
+        const float a0 = sm.o[c][ty], a1 = sm.o[c][ty + 16];
+#pragma unroll
+        for (int j = 0; j < WC / ns2::kGrid; ++j) {
+          const float w = sm.w[c * WC + tx + 16 * j];
+          y[0][cc * (WC / ns2::kGrid) + j] += a0 * w;
+          y[1][cc * (WC / ns2::kGrid) + j] += a1 * w;
+        }
       }
     }
   }
@@ -297,31 +308,55 @@ cross_core_kernel(const float* __restrict__ x,      // [b, n, DM]
   }
 }
 
+template <int DM>
+int launch_core(const float* x, const float* gamma, const float* beta, const float* wq,
+                const float* kv, const float* wo, float* out, int b, int n, int m, int heads,
+                float sqrt_dm, float scale, cudaStream_t st) {
+  const int bytes = (int)sizeof(CrossSmem<64, DM>);
+  cudaError_t err = cudaFuncSetAttribute(cross_core_kernel<64, DM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + TQ - 1) / TQ, b);
+  cross_core_kernel<64, DM><<<grid, ns2::kThreads, bytes, st>>>(x, gamma, beta, wq, kv, wo, out,
+                                                               b, n, m, heads, sqrt_dm, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x [b,n,dm], ctx [b,m,dc] -> out [b,n,dm]. wq [dm, H·dh]; wkv [dc, 2·H·dh]
 // with k in the first H·dh columns and head h in columns h·dh..(h+1)·dh of
-// each half; wo [H·dh, dm]; kv is [2, b, H, m, dh] f32 scratch. Supports
-// dh = 64 and dm = dc = 128 (checked by the Python wrapper; other widths
-// return cudaErrorInvalidValue), any n ≥ 1 and m ≥ 1.
+// each half; wo [H·dh, dm]; kv is [2, b, H, m, dh] f32 scratch. Takes dh =
+// 64, dm ∈ {128, 256, 384, 512} and dc % 16 == 0 (the Python wrapper pads
+// narrower widths with zeros; other widths return cudaErrorInvalidValue),
+// any n ≥ 1 and m ≥ 1. The norm takes √ from `norm_dim`, the width before
+// padding.
 NS2_API int ns2_cross_attn_block(const float* x, const float* ctx, const float* gamma,
                                  const float* beta, const float* wq, const float* wkv,
                                  const float* wo, float* kv, float* out, int b, int n, int m,
-                                 int dm, int dc, int heads, int dh, float scale, void* stream) {
-  if (dh != 64 || dm != 128 || dc != 128 || m < 1 || (2 * heads * dh) % TN != 0)
+                                 int dm, int dc, int heads, int dh, int norm_dim, float scale,
+                                 void* stream) {
+  if (dh != 64 || dm % WC != 0 || dm > 4 * WC || dc % KC != 0 || m < 1 ||
+      (2 * heads * dh) % TN != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid_kv((m + TM - 1) / TM, 2 * heads * dh / TN, b);
   cross_kv_kernel<<<grid_kv, ns2::kThreads, 0, st>>>(ctx, wkv, kv, b, m, dc, heads, dh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  const int bytes = (int)sizeof(CrossSmem<64, 128>);
-  err = cudaFuncSetAttribute(cross_core_kernel<64, 128>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + TQ - 1) / TQ, b);
-  cross_core_kernel<64, 128><<<grid, ns2::kThreads, bytes, st>>>(x, gamma, beta, wq, kv, wo, out,
-                                                                b, n, m, heads, scale);
-  return cudaGetLastError();
+  const float sqrt_dm = sqrtf((float)norm_dim);
+  switch (dm) {
+    case 128:
+      return launch_core<128>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, sqrt_dm, scale,
+                              st);
+    case 256:
+      return launch_core<256>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, sqrt_dm, scale,
+                              st);
+    case 384:
+      return launch_core<384>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, sqrt_dm, scale,
+                              st);
+    default:
+      return launch_core<512>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, sqrt_dm, scale,
+                              st);
+  }
 }

@@ -46,7 +46,7 @@
 // and staging run while the other's products do. Registers that wgmma reads
 // or writes are pinned around its fence and wait, or the compiler waits for
 // the products at every access.
-#include "flash.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -59,106 +59,16 @@ using ns2::kTile;
 // other's products do.
 constexpr int kKeys = 32;
 
-// ---- wgmma on K-major operands without swizzle ---------------------------
-//
-// A K-major operand tile of R rows by K k is stored in k-steps of 8 (8·R
-// floats each); a k-step is two halves of 4 k, each R/8 core matrices of 8
-// rows by 16 bytes, rows 16 bytes apart. The descriptor holds the k-step's
-// address, the bytes between its two halves (LBO) and between 8-row groups
-// (SBO): PTX ISA "Matrix Descriptor Format", CUTLASS's canonical
-// INTERLEAVE K-major layout ((8,n),2):((1,SBO),LBO) in 16-byte units.
-template <int R>
-__device__ __forceinline__ int kmajor(int r, int k) {
-  return (k / 8) * 8 * R + ((k % 8) / 4 * (R / 8) + r / 8) * 32 + (r % 8) * 4 + k % 4;
-}
-
-template <int R>
-__device__ __forceinline__ uint64_t kmajor_desc(const float* tile, int ks) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(tile + ks * 8 * R);
-  constexpr uint32_t lbo = R / 8 * 128, sbo = 128;
-  return (uint64_t)((a >> 4) & 0x3FFF) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32;
-}
-
-// Shared memory written by ordinary stores, made visible to wgmma's reads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-// Pins registers that wgmma reads or writes at this point of the program,
-// so that the compiler moves no access to them across the fence or the wait
-// (it would otherwise wait for the products before each such access).
-template <int N, class T>
-__device__ __forceinline__ void pin(T (&r)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      asm volatile("" : "+r"(*reinterpret_cast<uint32_t*>(&r[j][i]))::"memory");
-}
-
-__device__ __forceinline__ void wg_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d[64 x 32] += A·Bᵀ over one k-step of 8, both operands K-major in shared
-// memory. Each warp holds its 16 rows in mma.m16n8k8's accumulator layout:
-// d[j][i] is row g + 8·(i / 2), column 8j + 2t + (i % 2).
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, "
-      "p, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d[64 x 64] += A·B over one k-step of 8, A in registers (mma.m16n8k8's A
-// layout on each warp's 16 rows), B K-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// Split f32 values into K-major hi and lo tiles.
-__device__ __forceinline__ void store_split4(float* hi, float* lo, int at, float4 x) {
-  uint32_t h[4], l[4];
-  ns2::split_tf32(x.x, h[0], l[0]);
-  ns2::split_tf32(x.y, h[1], l[1]);
-  ns2::split_tf32(x.z, h[2], l[2]);
-  ns2::split_tf32(x.w, h[3], l[3]);
-  *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
-  *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
-}
-
-__device__ __forceinline__ void store_split1(float* hi, float* lo, int at, float x) {
-  uint32_t h, l;
-  ns2::split_tf32(x, h, l);
-  hi[at] = __uint_as_float(h);
-  lo[at] = __uint_as_float(l);
-}
+using ns2::fence_proxy_async;
+using ns2::kmajor;
+using ns2::kmajor_desc;
+using ns2::pin;
+using ns2::store_split1;
+using ns2::store_split4;
+using ns2::wg_commit_wait;
+using ns2::wg_fence;
+using ns2::wgmma_rs_n64;
+using ns2::wgmma_ss_n32;
 
 struct FwdSmem {
   float q_hi[kTile * kD], q_lo[kTile * kD];  // Q, K-major (64 rows, k = head dims)
@@ -215,7 +125,9 @@ __device__ __forceinline__ void store_kv(FwdSmem& sm, const KvRegs& r, int tid) 
 }
 
 // grid (ceil(n_q / 64), b·h), 128 threads (one warpgroup); dynamic shared
-// memory sizeof(FwdSmem) = 65,536 bytes.
+// memory sizeof(FwdSmem) = 65,536 bytes. kLse: store lse (K2's attention
+// core, which needs no backward state, skips it).
+template <bool kLse>
 __global__ void __launch_bounds__(kFlashThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const unsigned char* __restrict__ mask,
@@ -366,7 +278,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float safe_l = l[r] == 0.0f ? 1.0f : l[r];
     inv_l[r] = 1.0f / safe_l;
     const int row = ra + 8 * r;
-    if (t == 0 && row < n_q) lse[(size_t)bh * n_q + row] = m[r] + logf(safe_l);
+    if (kLse && t == 0 && row < n_q) lse[(size_t)bh * n_q + row] = m[r] + logf(safe_l);
   }
   ns2::store_rows(o + (size_t)bh * n_q * kD, acc, ra, n_q, t, inv_l);
 }
@@ -374,10 +286,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace
 
 // q [b,h,n_q,64], k/v [b,h,n_kv,64], 16-byte aligned, mask [b,n_kv] uint8
-// or null -> o [b,h,n_q,64], lse [b,h,n_q]. Dropout is on when rate > 0:
-// seed, counter stride, keep threshold and keep scale come from the Python
-// wrapper, as the JAX package derives them. Other head widths return
-// cudaErrorInvalidValue (the wrapper checks first).
+// or null -> o [b,h,n_q,64], lse [b,h,n_q] (not written when lse is null).
+// Dropout is on when rate > 0: seed, counter stride, keep threshold and keep
+// scale come from the Python wrapper, as the JAX package derives them. Other
+// head widths return cudaErrorInvalidValue (the wrapper pads d ≤ 64 to 64).
 NS2_API int ns2_flash_fwd(const float* q, const float* k, const float* v,
                           const unsigned char* mask, float* o, float* lse, int b, int h, int n_q,
                           int n_kv, int d, int causal, float scale, unsigned seed0,
@@ -386,11 +298,12 @@ NS2_API int ns2_flash_fwd(const float* q, const float* k, const float* v,
   if (d != kD || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
   const ns2::Dropout dr{seed0, seed1, rate, stride, threshold, keep_scale};
   const int bytes = (int)sizeof(FwdSmem);
+  auto kernel = lse ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
   cudaError_t err =
-      cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_q + kTile - 1) / kTile, b * h);
-  flash_fwd_kernel<<<grid, kFlashThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kFlashThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, mask, o, lse, h, n_q, n_kv, causal, scale, dr);
   return cudaGetLastError();
 }

@@ -1,9 +1,9 @@
 // 64 x 64 output tiles of f32 matrix products on the CUDA cores, staged
 // through shared memory in chunks of 16 along the reduction. The building
-// blocks of K1 (wavenet.cu), K1b (wavenet_lane.cu) and the wide K3
-// (ff_block.cu). Thread (ty, tx) of the 16 x 16 grid owns rows ty + 16·i
-// and columns tx + 16·j of the tile, i, j < 4: 4 x 4 register tiles, so
-// each multiply-add costs half a shared-memory load.
+// blocks of K1 (wavenet.cu) and K1b (wavenet_lane.cu). Thread (ty, tx) of
+// the 16 x 16 grid owns rows ty + 16·i and columns tx + 16·j of the tile,
+// i, j < 4: 4 x 4 register tiles, so each multiply-add costs half a
+// shared-memory load.
 #pragma once
 
 #include "common.cuh"

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from naturalspeech2_tpu_torch.ops.rvq import rvq_cross_entropy, rvq_quantize
+from naturalspeech2_tpu_torch.ops.rvq import rvq_cross_entropy, rvq_quantize, rvq_reference
 
 
 class SameConv1d(nn.Conv1d):
@@ -104,9 +104,10 @@ class DecoderBlock(nn.Module):
 
 class SoundStream(nn.Module):
     """The codec: encoder, residual VQ codebooks and decoder. Audio is
-    ``[b, T]`` float in [-1, 1] at ``target_sample_hz``."""
-
-    target_sample_hz = 24000
+    ``[b, T]`` float in [-1, 1] at ``target_sample_hz``. With
+    ``use_pallas_rvq`` the quantizer is K6 (``rvq_quantize``); without it,
+    the twin of ``rvq_xla`` (``rvq_reference``) with the same explicit
+    straight-through as the JAX module."""
 
     def __init__(
         self,
@@ -115,8 +116,12 @@ class SoundStream(nn.Module):
         strides: Sequence[int] = (2, 4, 5, 8),
         num_quantizers: int = 8,
         codebook_size: int = 1024,
+        target_sample_hz: int = 24000,
+        use_pallas_rvq: bool = True,
     ):
         super().__init__()
+        self.target_sample_hz = target_sample_hz
+        self.use_pallas_rvq = use_pallas_rvq
         self.codebook_dim = codebook_dim
         self.num_quantizers = num_quantizers
         self.seq_len_multiple_of = math.prod(strides)  # the hop, 320 samples per frame
@@ -146,7 +151,12 @@ class SoundStream(nn.Module):
         """latents [b, n, d] → (quantized [b, n, d], codes [b, n, Q] int32),
         straight-through to the latents."""
         b, n, d = latents.shape
-        quantized, codes = rvq_quantize(latents.reshape(b * n, d).contiguous(), self.codebooks)
+        flat = latents.reshape(b * n, d).contiguous()
+        if self.use_pallas_rvq:
+            quantized, codes = rvq_quantize(flat, self.codebooks)
+        else:
+            quantized, codes = rvq_reference(flat, self.codebooks)
+            quantized = flat + (quantized - flat).detach()
         return quantized.reshape(b, n, d), codes.reshape(b, n, self.num_quantizers)
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:

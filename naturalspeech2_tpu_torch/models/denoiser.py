@@ -53,6 +53,7 @@ class Model(nn.Module):
         scan_layers: bool = False,
         self_cond: bool = False,
         gelu_approximate: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
         if self_cond:
@@ -90,7 +91,7 @@ class Model(nn.Module):
         self.transformer = ConditionableTransformer(
             dim, depth, dim_head=dim_head, heads=heads, ff_mult=ff_mult,
             ff_causal_conv=True, dim_cond_mult=cond_mult, cross_attn=condition_on_prompt,
-            scan_layers=scan_layers,
+            scan_layers=scan_layers, remat=remat,
         )
 
     def _drop_masks(self, b: int, device, cond_drop_prob, cond_drop_mask):

@@ -37,6 +37,20 @@ from naturalspeech2_tpu_torch.utils.helpers import (
 )
 
 _CONDITIONAL_TRAINING = "ROADMAP Queue 1, item 15 (conditional training)"
+# Fields of the JAX module that belong to later slices, and their ROADMAP
+# Queue 1 items: passing any of them raises NotImplementedError.
+_LATER_FIELDS = {
+    "tokenizer": "item 16 (text frontend)",
+    "calc_pitch_with_pyworld": "item 15 (conditional training: pitch)",
+    "train_prob_self_cond": "item 15 (conditional training: self-conditioning)",
+    "mel_hop_length": "item 15 (conditional training: mel)",
+    "audio_to_mel_kwargs": "item 15 (conditional training: mel)",
+    "duration_loss_weight": "item 15 (conditional training: losses)",
+    "pitch_loss_weight": "item 15 (conditional training: losses)",
+    "aligner_loss_weight": "item 15 (conditional training: losses)",
+    "aligner_bin_loss_weight": "item 15 (conditional training: losses)",
+    "mask_duration_pitch_loss": "item 15 (conditional training: losses)",
+}
 
 
 @contextlib.contextmanager
@@ -61,7 +75,10 @@ class NaturalSpeech2(nn.Module):
     override them: `PhonemeEncoder`, `SpeechPromptEncoder`,
     `DurationPitchPredictor`, the aligner's network and the pitch
     embedding. ``pitch_space="log"`` means the pitch trunk predicts
-    log1p(F0 Hz).
+    log1p(F0 Hz). ``schedule_kwargs`` go to the γ(t) schedule;
+    ``target_sample_hz`` is the audio rate when there is no codec. The JAX
+    module's fields of later slices (tokenizer, pitch, mel and conditional
+    training losses) raise NotImplementedError naming their ROADMAP item.
     """
 
     def __init__(
@@ -91,8 +108,18 @@ class NaturalSpeech2(nn.Module):
         phoneme_enc_kwargs: Optional[dict] = None,
         prompt_enc_kwargs: Optional[dict] = None,
         duration_pitch_kwargs: Optional[dict] = None,
+        schedule_kwargs: Optional[dict] = None,
+        target_sample_hz: Optional[int] = None,
+        **later_fields,
     ):
         super().__init__()
+        for field in later_fields:
+            if field not in _LATER_FIELDS:
+                raise TypeError(f"NaturalSpeech2() got an unexpected keyword argument {field!r}")
+            raise NotImplementedError(
+                f"NaturalSpeech2({field}=) is not ported yet (ROADMAP Queue 1, "
+                f"{_LATER_FIELDS[field]})"
+            )
         name = sampler or ("ddim" if use_ddim else "ddpm")
         if name not in {"ddim", "ddpm", "dpmpp"}:
             raise ValueError(f"unknown sampler {name!r}")
@@ -113,6 +140,8 @@ class NaturalSpeech2(nn.Module):
         self.codec = codec
         self.timesteps = timesteps
         self.noise_schedule = noise_schedule
+        self.schedule_kwargs = dict(schedule_kwargs or {})
+        self.target_sample_hz = target_sample_hz
         self.objective = objective
         self.time_difference = time_difference
         self.scale = scale
@@ -153,10 +182,11 @@ class NaturalSpeech2(nn.Module):
 
     @property
     def sample_hz(self) -> Optional[int]:
-        return self.codec.target_sample_hz if self.codec is not None else None
+        """The codec's rate, or ``target_sample_hz`` without a codec."""
+        return self.codec.target_sample_hz if self.codec is not None else self.target_sample_hz
 
     def gamma_schedule(self, times: torch.Tensor) -> torch.Tensor:
-        return get_schedule(self.noise_schedule)(times)
+        return get_schedule(self.noise_schedule)(times, **self.schedule_kwargs)
 
     def forward(
         self,

@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from naturalspeech2_tpu_torch.models.blocks import FeedForward, RMSNorm, ada_rmsnorm
 from naturalspeech2_tpu_torch.ops.attention import attend
@@ -109,15 +110,17 @@ class Attention(nn.Module):
 
 class Transformer(nn.Module):
     """Pre-norm encoder: depth × [RMSNorm → attention, RMSNorm → GEGLU
-    MLP], both residual."""
+    MLP], both residual; ``causal`` masks each query's later keys (flash
+    attention K4's causal mask with ``use_flash``), and ``final_norm`` ends
+    with an RMSNorm, as the JAX module."""
 
-    def __init__(self, dim: int, depth: int, *, dim_head: int = 64, heads: int = 8,
-                 use_flash: bool = False, dropout: float = 0.0, ff_mult: int = 4,
-                 gelu_approximate: bool = True):
+    def __init__(self, dim: int, depth: int, *, causal: bool = False, dim_head: int = 64,
+                 heads: int = 8, use_flash: bool = False, dropout: float = 0.0, ff_mult: int = 4,
+                 final_norm: bool = False, gelu_approximate: bool = True):
         super().__init__()
         self.attn_norm = nn.ModuleList(RMSNorm(dim) for _ in range(depth))
         self.attn = nn.ModuleList(
-            Attention(dim, dim_head, heads, dropout=dropout, use_flash=use_flash)
+            Attention(dim, dim_head, heads, causal=causal, dropout=dropout, use_flash=use_flash)
             for _ in range(depth)
         )
         self.ff_norm = nn.ModuleList(RMSNorm(dim) for _ in range(depth))
@@ -125,12 +128,13 @@ class Transformer(nn.Module):
             FeedForward(dim, mult=ff_mult, causal_conv=False, gelu_approximate=gelu_approximate)
             for _ in range(depth)
         )
+        self.final_norm = RMSNorm(dim) if final_norm else None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for attn_norm, attn, ff_norm, ff in zip(self.attn_norm, self.attn, self.ff_norm, self.ff):
             x = attn(attn_norm(x), mask=mask) + x
             x = ff(ff_norm(x)) + x
-        return x
+        return x if self.final_norm is None else self.final_norm(x)
 
 
 class ConditionableTransformer(nn.Module):
@@ -142,7 +146,10 @@ class ConditionableTransformer(nn.Module):
     ``scan_layers`` names the JAX parameter layout only (per-layer weights
     stacked under ``layers``, which `load_jax_params` unbinds into these
     modules): PyTorch has nothing to scan, and the forward is the unrolled
-    one, which the JAX package holds equal to its scanned one."""
+    one, which the JAX package holds equal to its scanned one. ``remat``
+    recomputes each layer in the backward instead of keeping its
+    activations (``torch.utils.checkpoint``, the JAX module's `nn.remat`):
+    the same values and gradients for less memory."""
 
     def __init__(
         self,
@@ -157,8 +164,10 @@ class ConditionableTransformer(nn.Module):
         use_flash: bool = True,
         scan_layers: bool = False,
         gelu_approximate: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         if dim_cond_mult is None:
             raise NotImplementedError(
                 "the unconditioned transformer (dim_cond_mult=None) is not ported yet "
@@ -203,10 +212,16 @@ class ConditionableTransformer(nn.Module):
         betas = ada[..., d:].transpose(0, 1).contiguous()
         x = x.contiguous()
         for i in range(self.depth):
-            base = i * self.norms_per_layer
-            x = self.attn[i](x, gammas[base], betas[base])
-            if context is not None:
-                x = self.cross_attn[i](x, gammas[base + 1], betas[base + 1], context=context)
-            last = base + self.norms_per_layer - 1
-            x = self.ff[i](x, gammas[last], betas[last])
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(self._layer, i, x, gammas, betas, context, use_reentrant=False)
+            else:
+                x = self._layer(i, x, gammas, betas, context)
         return self.to_pred(self.pred_norm(x))
+
+    def _layer(self, i: int, x, gammas, betas, context):
+        base = i * self.norms_per_layer
+        x = self.attn[i](x, gammas[base], betas[base])
+        if context is not None:
+            x = self.cross_attn[i](x, gammas[base + 1], betas[base + 1], context=context)
+        last = base + self.norms_per_layer - 1
+        return self.ff[i](x, gammas[last], betas[last])

@@ -10,6 +10,11 @@ a_{t-2}·Wc₀ + a_{t-1}·Wc₁ + a_t·Wc₂ + b_c. ``ff_block`` takes the
 ``ff_block_torch`` on CPU tensors. It is differentiable: as `_fused_bwd`
 in the JAX package, its backward is the vjp of the plain version.
 
+The kernel reads its weights packed for the split-TF32 GEMM core
+(``pack_ff_weights``), built once per parameter version
+(``gemm_cache.cached``); ``ff_block_packed_torch`` computes the block from
+that layout in plain PyTorch.
+
 ``fits_fused_ff_block`` is the JAX package's shape gate, which
 `FeedForward` consults before it takes the block.
 """
@@ -17,12 +22,22 @@ in the JAX package, its backward is the vjp of the plain version.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
+from naturalspeech2_tpu_torch.ops import gemm_cache
 from naturalspeech2_tpu_torch.utils.helpers import vjp
+
+
+def ada_norm(x, gamma, beta):
+    """The adaptive RMSNorm x / max(‖x‖, 1e-12) · √dm · γ_b + β_b of the
+    fused blocks, x [b, n, dm], γ/β [b, dm]."""
+    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    xn = x / norm.clamp(min=1e-12) * math.sqrt(x.shape[-1])
+    return xn * gamma[:, None, :] + beta[:, None, :]
 
 
 def ff_block_torch(x, gamma, beta, w_val, b_val, w_gate, b_gate, wc, bc, w2, b2):
@@ -31,10 +46,7 @@ def ff_block_torch(x, gamma, beta, w_val, b_val, w_gate, b_gate, wc, bc, w2, b2)
     x: [b, n, dm]; gamma/beta: [b, dm]; w_val/w_gate: [dm, inner];
     wc: [3, inner, inner]; w2: [inner, dm].
     """
-    dm = x.shape[-1]
-    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
-    xn = x / norm.clamp(min=1e-12) * math.sqrt(dm)
-    xn = xn * gamma[:, None, :] + beta[:, None, :]
+    xn = ada_norm(x, gamma, beta)
     val = xn @ w_val + b_val
     gate = xn @ w_gate + b_gate
     a = F.gelu(gate, approximate="tanh") * val
@@ -79,14 +91,6 @@ def fits_fused_ff_block(n: int, dm: int, inner: int) -> bool:
     return n % 8 == 0 and _vmem_bytes(n, dm, inner) <= VMEM_BUDGET_BYTES
 
 
-# The fused kernel's inner width, a multiple of its 16-column thread
-# grid, and the one shape it is built for: (dm, padded inner).
-_INNER_ALIGN = 16
-_FUSED_SHAPE = (128, 352)
-# The wide path's tile width: dm and the padded inner are multiples of it.
-_WIDE_ALIGN = 64
-
-
 def ff_block_plain(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     """``ff_block_torch`` on the `FeedForward` layouts (w1/b1 unsplit)."""
     inner = w1.shape[-1] // 2
@@ -94,57 +98,89 @@ def ff_block_plain(x, gamma, beta, w1, b1, wc, bc, w2, b2):
                           wc, bc, w2, b2)
 
 
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
+class FFWeights(NamedTuple):
+    """K3's weights as the kernel reads them (``pack_ff_weights``)."""
+    geglu: torch.Tensor   # packed: tile j = value columns 32j.., then the same gate columns
+    b_val: torch.Tensor   # [ip]
+    b_gate: torch.Tensor  # [ip]
+    conv: torch.Tensor    # packed Bᵀ [ip, 3·ip]: column tap·ip + k is Wc[tap][k]
+    bc: torch.Tensor      # [ip]
+    out: torch.Tensor     # packed W₂ᵀ [dm, ip]
+    ip: int               # the inner width padded to the GEMM core's chunk of 32
+
+
+def pack_ff_weights(w1, b1, wc, bc, w2) -> FFWeights:
+    """The `FeedForward` weights in the GEMM core's format (``gemm_cache.
+    pack_b``), inner padded with exact zeros to a multiple of 32 (341 →
+    352, 1365 → 1376): zero value, gate and bias columns give a = 0 there,
+    which meets zero conv and W₂ rows, so no sum changes."""
+    dm, inner = w1.shape[0], w1.shape[-1] // 2
+    ip = gemm_cache.round_up(inner, gemm_cache.CHUNK)
+    pad = ip - inner
+    w_val, w_gate = F.pad(w1[:, :inner], (0, pad)), F.pad(w1[:, inner:], (0, pad))
+    geglu = torch.stack([w.T.reshape(ip // 32, 32, dm) for w in (w_val, w_gate)], dim=1)
+    conv = F.pad(wc, (0, pad, 0, pad)).permute(2, 0, 1).reshape(ip, 3 * ip)
+    return FFWeights(gemm_cache.pack_b(geglu.reshape(2 * ip, dm)), F.pad(b1[:inner], (0, pad)),
+                     F.pad(b1[inner:], (0, pad)), gemm_cache.pack_b(conv), F.pad(bc, (0, pad)),
+                     gemm_cache.pack_b(F.pad(w2, (0, 0, 0, pad)).T), ip)
+
+
+def ff_block_packed_torch(x, gamma, beta, weights: FFWeights, b2):
+    """The kernel's three launches in plain PyTorch, from the packed
+    weights: the GEGLU over interleaved value / gate tiles, the conv as one
+    product over the three shifted row views, the out product with the
+    residual, at the padded inner width, the norm at the real dm. Equal to
+    ``ff_block_torch`` up to f32 reordering: the check of K3's padding and
+    weight layout on the CPU."""
+    n, dm = x.shape[1:]
+    ip = weights.ip
+
+    def dense(packed, rows, cols):
+        hi, lo = gemm_cache.unpack_b(packed)
+        return (hi + lo)[:rows, :cols]
+
+    xn = ada_norm(x, gamma, beta)
+    geglu = dense(weights.geglu, 2 * ip, dm).reshape(ip // 32, 2, 32, dm)
+    val = xn @ geglu[:, 0].reshape(ip, dm).T + weights.b_val
+    gate = xn @ geglu[:, 1].reshape(ip, dm).T + weights.b_gate
+    a = F.gelu(gate, approximate="tanh") * val
+    taps = torch.cat([F.pad(a, (0, 0, 2, 0))[:, :n], F.pad(a, (0, 0, 1, 0))[:, :n], a], dim=-1)
+    c = taps @ dense(weights.conv, ip, 3 * ip).T + weights.bc
+    return x + c @ dense(weights.out, dm, ip).T + b2
+
+
+def _pack_checked(w1, b1, wc, bc, w2) -> FFWeights:
+    """``pack_ff_weights`` after the wrapper's checks of the weights, which
+    a cache hit then need not repeat."""
+    _build.require_cuda_f32("ff_block", w1=w1, b1=b1, wc=wc, bc=bc, w2=w2)
+    dm, inner = w1.shape[0], w1.shape[-1] // 2
+    _build.require_shapes(
+        "ff_block", w1=(w1, (dm, 2 * inner)), b1=(b1, (2 * inner,)),
+        wc=(wc, (3, inner, inner)), bc=(bc, (inner,)), w2=(w2, (inner, dm)),
+    )
+    return pack_ff_weights(w1, b1, wc, bc, w2)
 
 
 def _forward(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     if x.device.type == "cpu":
         return ff_block_plain(x, gamma, beta, w1, b1, wc, bc, w2, b2)
-    inner = w1.shape[-1] // 2
-    w_val, w_gate = w1[:, :inner], w1[:, inner:]
-    b_val, b_gate = b1[:inner], b1[inner:]
-    _build.require_cuda_f32(
-        "ff_block", x=x, gamma=gamma, beta=beta, w1=w1, b1=b1, wc=wc, bc=bc, w2=w2, b2=b2
-    )
+    _build.require_cuda_f32("ff_block", x=x, gamma=gamma, beta=beta, b2=b2)
     b, n, dm = x.shape
-    _build.require_shapes(
-        "ff_block", gamma=(gamma, (b, dm)), beta=(beta, (b, dm)), w1=(w1, (dm, 2 * inner)),
-        b1=(b1, (2 * inner,)), wc=(wc, (3, inner, inner)), bc=(bc, (inner,)),
-        w2=(w2, (inner, dm)), b2=(b2, (dm,)),
-    )
-    fused = (dm, _round_up(inner, _INNER_ALIGN)) == _FUSED_SHAPE
-    if not fused and dm % _WIDE_ALIGN != 0:
-        raise ValueError(
-            f"ff_block: the CUDA kernel takes dim 128 with inner 337..352, or a dim that is a "
-            f"multiple of {_WIDE_ALIGN}, got {dm}, {inner}"
-        )
-    inner_p = _round_up(inner, _INNER_ALIGN if fused else _WIDE_ALIGN)
-    # exact zeros in the padded columns and rows change no sum
-    pad = inner_p - inner
-    w_val_p = F.pad(w_val, (0, pad)).contiguous()
-    w_gate_p = F.pad(w_gate, (0, pad)).contiguous()
-    b_val_p = F.pad(b_val, (0, pad))
-    b_gate_p = F.pad(b_gate, (0, pad))
-    wc_p = F.pad(wc, (0, pad, 0, pad))
-    bc_p = F.pad(bc, (0, pad))
-    w2_p = F.pad(w2, (0, 0, 0, pad))
+    _build.require_shapes("ff_block", gamma=(gamma, (b, dm)), beta=(beta, (b, dm)),
+                          b2=(b2, (dm,)))
+    wt = gemm_cache.cached("ff_block", _pack_checked, w1, b1, wc, bc, w2)
+    if w1.shape[0] != dm or w1.device != x.device:
+        raise ValueError(f"ff_block: w1 {tuple(w1.shape)} on {w1.device} does not take x "
+                         f"{tuple(x.shape)} on {x.device}")
+    scratch = torch.empty((2, b * n, wt.ip), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    weights = (w_val_p, b_val_p, w_gate_p, b_gate_p, wc_p, bc_p, w2_p, b2)
-    lib = _build.library()
-    if fused:
-        err = lib.ns2_ff_block(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *(w.data_ptr() for w in weights),
-            out.data_ptr(), b, n, dm, inner_p, _build.stream(x),
-        )
-    else:
-        scratch = torch.empty((2, b, n, inner_p), dtype=torch.float32, device=x.device)
-        err = lib.ns2_ff_block_wide(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *(w.data_ptr() for w in weights),
-            scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(), b, n, dm, inner_p,
-            _build.stream(x),
-        )
-    _build.check(err, "ns2_ff_block" if fused else "ns2_ff_block_wide")
+    err = _build.library().ns2_ff_block(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.geglu.data_ptr(), wt.b_val.data_ptr(),
+        wt.b_gate.data_ptr(), wt.conv.data_ptr(), wt.bc.data_ptr(), wt.out.data_ptr(),
+        b2.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(), b, n, dm,
+        wt.ip, _build.stream(x),
+    )
+    _build.check(err, "ns2_ff_block")
     ff_block.launches += 1
     return out
 
@@ -165,12 +201,14 @@ def ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2):
 
     w1/b1: the GEGLU Dense(2·inner), value half first and gate half
     second; wc/bc: the causal conv [3, inner, inner]; w2/b2: the out
-    Dense [inner, dm]. CUDA tensors run the kernel (one launch at dm 128,
-    inner 341; three at dims that are multiples of 64, such as the scaled
-    config's dm 512, inner 1365; counted as one launch of K3); CPU tensors
-    run the plain version.
+    Dense [inner, dm]. CUDA tensors run the kernel (three launches of the
+    split-TF32 GEMM core at every width, counted as one launch of K3); CPU
+    tensors run the plain version.
     """
-    return _FFBlock.apply(x, gamma, beta, w1, b1, wc, bc, w2, b2)
+    args = (x, gamma, beta, w1, b1, wc, bc, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FFBlock.apply(*args)
+    return _forward(*args)  # no graph to record: the autograd Function's overhead spared
 
 
 ff_block.launches = 0

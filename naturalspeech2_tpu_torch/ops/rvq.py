@@ -5,8 +5,9 @@ running residual (d² = −2·r·Cᵀ + ‖C‖², the first minimal index), the
 r −= C[idx]. Returns the quantized sum ``[m, d]`` and the codes ``[m, Q]``
 (int32).
 
-``rvq`` launches the kernel of ``csrc/rvq.cu`` on CUDA tensors and runs the
-plain version ``rvq_torch`` on CPU tensors. ``rvq_quantize`` adds the
+``rvq`` launches the kernel of ``csrc/rvq.cu`` on CUDA tensors (codebook
+dim 128; narrower codebooks are padded with zero columns, which change no
+distance) and runs the plain version ``rvq_torch`` on CPU tensors. ``rvq_quantize`` adds the
 straight-through gradient; ``rvq_reference`` is the twin of ``rvq_xla``
 (which keeps ‖r‖², so a near-tie may pick another code than the kernel).
 """
@@ -17,6 +18,11 @@ import torch
 import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
+from naturalspeech2_tpu_torch.ops import gemm_cache
+
+# The kernel's codebook dim, to which narrower codebooks are padded (wider
+# ones: ROADMAP Queue 3, F1).
+KERNEL_DIM = 128
 
 
 def rvq_torch(x, codebooks):
@@ -49,6 +55,13 @@ def rvq_reference(x, codebooks):
     return x - residual, torch.stack(codes, dim=-1).to(torch.int32)
 
 
+def pad_codebook_dim(x, codebooks):
+    """x [m, d] and codebooks [Q, K, d] with zero columns up to the kernel's
+    codebook dim, as ``rvq`` pads them."""
+    pad = KERNEL_DIM - x.shape[-1]
+    return F.pad(x, (0, pad)), F.pad(codebooks, (0, pad))
+
+
 def rvq(x, codebooks):
     """K6: ``(quantized [m, d], codes [m, Q] int32)``. CUDA tensors launch
     the kernel (the codebook norms are a plain reduction beside it, as XLA
@@ -60,8 +73,13 @@ def rvq(x, codebooks):
     m, d = x.shape
     num_q, size = codebooks.shape[:2]
     _build.require_shapes("rvq", codebooks=(codebooks, (num_q, size, d)))
-    if d != 128:
-        raise ValueError(f"rvq: the CUDA kernel takes codebook dim 128, got {d}")
+    if d > KERNEL_DIM:
+        raise ValueError(f"rvq: the CUDA kernel takes codebook dim up to {KERNEL_DIM}, got {d} "
+                         "(ROADMAP Queue 3, F1)")
+    if d < KERNEL_DIM:
+        padded = gemm_cache.cached("rvq", lambda cb: F.pad(cb, (0, KERNEL_DIM - d)), codebooks)
+        quantized, codes = rvq(F.pad(x, (0, KERNEL_DIM - d)), padded)
+        return quantized[:, :d].contiguous(), codes
     norms = (codebooks * codebooks).sum(dim=-1).contiguous()
     quantized = torch.empty_like(x)
     codes = torch.empty((m, num_q), dtype=torch.int32, device=x.device)

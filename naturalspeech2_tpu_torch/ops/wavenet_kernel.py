@@ -17,6 +17,12 @@ backward kernel here, so neither has the port).
 Shapes: x [b, n, d]; conv_w [S, L, 3d, d]; conv_b, res_b [S, L, d];
 res_w [S, L, d, d]; skip_w [L, d, d]; skip_b [L, d]; film [b, S, L, 2d]
 (γ first, β second). Returns the summed skips [b, n, d].
+
+The kernels take d % 64 == 0. Other widths are padded with exact zeros
+(``pad_wavenet_weights``, cached per parameter version, and
+``pad_wavenet_inputs``) and the result is cut back: a padded channel has
+zero weights, bias, γ and β, so it stays 0 through the FiLM, tanh·σ, the
+residual and the skips.
 """
 
 from __future__ import annotations
@@ -25,7 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
+from naturalspeech2_tpu_torch.ops import gemm_cache
 from naturalspeech2_tpu_torch.utils.helpers import vjp
+
+# The kernels' channel multiple, to which other widths are padded.
+KERNEL_ALIGN = 64
 
 
 def _block(xin, conv_w, conv_b, res_w, res_b, film, dil: int):
@@ -119,6 +129,32 @@ def wavenet_route(n: int, d: int, layers: int) -> str:
     return "plain"
 
 
+def pad_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b, d_p: int):
+    """The body's weights with zero channels up to ``d_p`` (conv_w per tap)."""
+    S, L, _, d = conv_w.shape
+    p = d_p - d
+    conv = F.pad(conv_w.reshape(S, L, 3, d, d), (0, p, 0, p)).reshape(S, L, 3 * d_p, d_p)
+    return (conv, F.pad(conv_b, (0, p)), F.pad(res_w, (0, p, 0, p)), F.pad(res_b, (0, p)),
+            F.pad(skip_w, (0, p, 0, p)), F.pad(skip_b, (0, p)))
+
+
+def pad_wavenet_inputs(x, film, d_p: int):
+    """x and the FiLM γ, β with zero channels up to ``d_p``."""
+    (b, S, L), d = film.shape[:3], x.shape[-1]
+    film = F.pad(film.reshape(b, S, L, 2, d), (0, d_p - d)).reshape(b, S, L, 2 * d_p)
+    return F.pad(x, (0, d_p - d)), film
+
+
+def wavenet_body_padded_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
+    """``wavenet_body_torch`` on the inputs padded as the kernels' wrapper
+    pads them, cut back: the check of that padding on the CPU."""
+    d = x.shape[-1]
+    d_p = _round_up(d, KERNEL_ALIGN)
+    x_p, film_p = pad_wavenet_inputs(x, film, d_p)
+    weights = pad_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b, d_p)
+    return wavenet_body_torch(x_p, *weights, film_p)[..., :d]
+
+
 def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     """One body through ``route`` ("stack": K1, "lanes": K1b, None: as
     ``wavenet_route`` picks), or its plain version on a CPU tensor."""
@@ -140,8 +176,13 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
         res_w=(res_w, (S, L, d, d)), res_b=(res_b, (S, L, d)), skip_w=(skip_w, (L, d, d)),
         skip_b=(skip_b, (L, d)), film=(film, (b, S, L, 2 * d)),
     )
-    if d % 64 != 0:
-        raise ValueError(f"wavenet_body: the CUDA kernel needs d % 64 == 0, got d={d}")
+    d_p = _round_up(d, KERNEL_ALIGN)
+    if d_p != d:
+        weights = gemm_cache.cached(
+            "wavenet_body", lambda *w: pad_wavenet_weights(*w, d_p),
+            conv_w, conv_b, res_w, res_b, skip_w, skip_b)
+        x_p, film_p = pad_wavenet_inputs(x, film, d_p)
+        return _forward(route, x_p, *weights, film_p)[..., :d].contiguous()
     out = torch.empty_like(x)
     if route == "lanes":
         state = torch.empty((2, b, n, d), dtype=torch.float32, device=x.device)

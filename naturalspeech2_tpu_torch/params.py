@@ -174,6 +174,8 @@ def _transformer(conv: _Converter, src: str, dst: str) -> None:
         conv.attention(f"{src}/attn_{i}", f"{dst}.attn.{i}")
         conv.raw(f"{src}/ff_norm_{i}/gamma", f"{dst}.ff_norm.{i}.gamma")
         conv.plain_ff(f"{src}/ff_{i}", f"{dst}.ff.{i}")
+    if conv.has(f"{src}/final_norm"):
+        conv.raw(f"{src}/final_norm/gamma", f"{dst}.final_norm.gamma")
 
 
 def _trunk(conv: _Converter, src: str, dst: str) -> None:

@@ -1,5 +1,6 @@
 """Split TF32, the arithmetic of the flash-attention kernels K4 and K5
-(`naturalspeech2_tpu_torch/csrc/flash.cuh`), emulated on the CPU.
+(`naturalspeech2_tpu_torch/csrc/flash.cuh`) and of the GEMM core of K2 and
+K3 (`csrc/gemm_tf32x3.cuh`), emulated on the CPU.
 
 An f32 operand x becomes hi = tf32(x) (rounded half away from zero at
 mantissa bit 13, as `cvt.rna.tf32.f32` does; the kernels do it with two
@@ -10,7 +11,18 @@ sums are f32 matrix products on the CPU. Unit-normal q, k, v at
 [1, 2, 150 | 1024, 64]: attention with three passes per product stays
 within `chip_smoke.FLASH_TOL` of f64 for o, lse and the gradients, and
 with one TF32 pass (hi·hi alone) it does not. This grounds the tolerance
-that `chip_smoke.py` holds the kernels to on the card."""
+that `chip_smoke.py` holds the kernels to on the card.
+
+The GEMM core's emulation adds what the tensor cores do where they add
+(the model of the card that reproduced the flash kernels' errors): each `wgmma`
+k-step's eight products are exact, the accumulator and the products are
+aligned to the largest of them and truncated to 24 bits, and the sum is
+truncated to f32. The core sums each chunk of 32 k in fresh accumulators,
+the large terms apart from the two small ones, and adds the chunk to the
+f32 result. At the K of K3's causal conv (3 x 352 at dim 128, 3 x 1376 at
+dim 512) three passes stay within `chip_smoke.BLOCK_TOL` (relative to the
+largest entry of the product, as chip_smoke holds K2 and K3 relative to
+the largest entry of y - x) with room, and one pass fails it."""
 
 import importlib.util
 from pathlib import Path
@@ -22,15 +34,16 @@ import torch
 SCALE = 64**-0.5
 
 
-def _flash_tol() -> float:
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.FLASH_TOL
+    return module
 
 
-FLASH_TOL = _flash_tol()
+FLASH_TOL = _chip_smoke().FLASH_TOL
+BLOCK_TOL = _chip_smoke().BLOCK_TOL
 
 
 def tf32_hi(x: torch.Tensor) -> torch.Tensor:
@@ -125,3 +138,68 @@ def test_flash_tol_sits_between_the_two():
     three, one = _errors(150, passes=3), _errors(150, passes=1)
     assert max(three.values()) * 5 < FLASH_TOL < one["o"] / 5, (three, one)
     assert np.isfinite(list(three.values())).all()
+
+
+# ---- the GEMM core of K2 and K3, with the tensor cores' truncating adds ----
+
+def _truncate(x: torch.Tensor, exp: torch.Tensor) -> torch.Tensor:
+    """x (f64) truncated toward zero to a multiple of 2^exp."""
+    step = torch.ldexp(torch.ones_like(x), exp)
+    return torch.trunc(x / step) * step
+
+
+def _exponent(x: torch.Tensor) -> torch.Tensor:
+    return torch.floor(torch.log2(x.abs().clamp(min=1e-300)))
+
+
+def _mma(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """acc + a·b over one k-step of 8 (a [M, 8], b [8, N], TF32 values in
+    f64), added as the tensor cores add: the 8 exact products and acc
+    aligned to the largest and truncated to 24 bits, the sum truncated to
+    f32."""
+    terms = torch.cat([acc[:, None, :], a[:, :, None] * b[None, :, :]], dim=1)
+    top = _exponent(terms.abs().amax(dim=1))[:, None, :]
+    total = _truncate(terms, top - 23).sum(dim=1)  # exact in f64
+    return torch.where(total == 0, total, _truncate(total, _exponent(total) - 23))
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.float().double()
+
+
+def gemm_core(a: torch.Tensor, b: torch.Tensor, passes: int, chunk: int = 32) -> torch.Tensor:
+    """a @ b as csrc/gemm_tf32x3.cuh computes it: per chunk of 32 k, fresh
+    accumulators, big = Σ hi·hi and (with three passes) small = Σ hi·lo +
+    lo·hi, then result += big + small in f32."""
+    a_hi, b_hi = tf32_hi(a).double(), tf32_hi(b).double()
+    a_lo = tf32_truncate(a - tf32_hi(a)).double()
+    b_lo = tf32_truncate(b - tf32_hi(b)).double()
+    result = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float64)
+    for c0 in range(0, a.shape[1], chunk):
+        big, small = torch.zeros_like(result), torch.zeros_like(result)
+        for k in range(c0, c0 + chunk, 8):
+            ks = slice(k, k + 8)
+            if passes == 3:
+                small = _mma(small, a_hi[:, ks], b_lo[ks])
+                small = _mma(small, a_lo[:, ks], b_hi[ks])
+            big = _mma(big, a_hi[:, ks], b_hi[ks])
+        result = _f32(result + _f32(big + small))
+    return result
+
+
+def _core_error(inner: int, passes: int) -> float:
+    """Error of the emulated core against f64 at K3's conv, K = 3·inner:
+    activations of the conv's scale against weights of its init scale,
+    relative to the product's largest entry."""
+    g = torch.Generator().manual_seed(inner)
+    k = 3 * inner
+    a = torch.randn(16, k, generator=g) * 0.3
+    b = torch.randn(k, 64, generator=g) / k**0.5
+    exact = a.double() @ b.double()
+    return ((gemm_core(a, b, passes) - exact).abs().max() / exact.abs().max()).item()
+
+
+@pytest.mark.parametrize("inner", [352, 1376], ids=["dim128", "dim512"])
+def test_gemm_core_three_passes_meet_block_tol_one_pass_fails(inner):
+    three, one = _core_error(inner, 3), _core_error(inner, 1)
+    assert three * 5 < BLOCK_TOL < one / 5, (three, one)

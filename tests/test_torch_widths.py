@@ -1,0 +1,222 @@
+"""The kernels' padded widths, held on the CPU.
+
+On the card every kernel takes a fixed width or a multiple of one: K1 and
+K1b d % 64, K2 and K4 / K5 heads of 64, K2b dm ∈ {128, 256, 384, 512} and
+dc % 16, K6 codebook dim 128, and the split-TF32 GEMM core of K2 and K3
+packed 64-row, 32-column weight tiles. Narrower widths are padded with
+exact zeros and the results cut back. Each wrapper's pad-and-cut is a
+plain function here (the packed-weight versions of K2 and K3 compute from
+the very layout the kernel reads), run at the JAX package's test widths
+(dim 16, dim_head 8, codebook dim 16, context 24) against the JAX function
+on the unpadded inputs, the Pallas kernels in interpret mode. On the CPU
+this is the only place the padding is seen: the wrappers run the plain
+versions on CPU tensors before they pad.
+
+Tolerance: the padded and unpadded functions differ only in the order of
+f32 sums (zero terms add exactly), so every comparison holds to ATOL =
+1e-5 on O(1) outputs, gradients relative to their largest entry."""
+
+import gc
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from naturalspeech2_tpu.ops import attn_block_kernel as jak
+from naturalspeech2_tpu.ops import ff_block_kernel as jff
+from naturalspeech2_tpu.ops import flash_attention as jfa
+from naturalspeech2_tpu.ops import rvq as jrvq
+from naturalspeech2_tpu.ops import wavenet_kernel as jwk
+from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
+from naturalspeech2_tpu_torch.ops import flash_attention as fa
+from naturalspeech2_tpu_torch.ops import gemm_cache
+from naturalspeech2_tpu_torch.ops import rvq as rq
+from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+from torch_parity import assert_close, assert_codes_match, normal, t
+
+ATOL = 1e-5
+DIM, DIM_HEAD, HEADS, CODEBOOK_DIM, CONTEXT = 16, 8, 2, 16, 24
+SCALE = DIM_HEAD**-0.5
+
+
+def _block_inputs(rng, b, n, dm):
+    return normal(rng, b, n, dm), 1 + normal(rng, b, dm, scale=0.1), normal(rng, b, dm, scale=0.1)
+
+
+def kmajor(r: int, k: int, rows: int = 64) -> int:
+    """`kmajor<rows>` of csrc/wgmma.cuh: where wgmma reads element (r, k)."""
+    return (k // 8) * 8 * rows + ((k % 8) // 4 * (rows // 8) + r // 8) * 32 + (r % 8) * 4 + k % 4
+
+
+def test_packed_tiles_are_the_wgmma_layout():
+    """Every element of a ragged Bᵀ [70, 45] lands where the kernel's
+    descriptors read it, split into hi and lo; the padding is zeros."""
+    bt = torch.from_numpy(normal(np.random.default_rng(0), 70, 45))
+    packed = gemm_cache.pack_b(bt)
+    assert packed.shape == (2, 2, 2, 2048)
+    hi, lo = gemm_cache.tf32_split(torch.nn.functional.pad(bt, (0, 64 - 45, 0, 128 - 70)))
+    for j in range(2):
+        for c in range(2):
+            for r in range(64):
+                at = torch.tensor([kmajor(r, k) for k in range(32)])
+                assert torch.equal(packed[j, c, 0, at], hi[64 * j + r, 32 * c:32 * c + 32])
+                assert torch.equal(packed[j, c, 1, at], lo[64 * j + r, 32 * c:32 * c + 32])
+    dense_hi, dense_lo = gemm_cache.unpack_b(packed)
+    assert torch.equal((dense_hi + dense_lo)[:70, :45], bt)
+    assert not (dense_hi + dense_lo)[70:].any() and not (dense_hi + dense_lo)[:, 45:].any()
+
+
+def test_cache_builds_once_per_version_and_dies_with_its_tensor():
+    calls = []
+
+    def build(w):
+        calls.append(1)
+        return w * 2
+
+    w = torch.ones(4, 3)
+    first = gemm_cache.cached("test", build, w)
+    assert gemm_cache.cached("test", build, w) is first and len(calls) == 1
+    assert gemm_cache.cached("test", build, w[1:]) is not first  # a view: another key
+    with torch.no_grad():
+        w.add_(1.0)  # an optimizer step bumps the version
+    assert torch.equal(gemm_cache.cached("test", build, w), w * 2) and len(calls) == 3
+    keys = [k for k in gemm_cache._entries if k[0] == "test"]
+    del w
+    gc.collect()
+    assert not any(k in gemm_cache._entries for k in keys)
+
+
+def test_k1_padded_body_matches_pallas():
+    rng = np.random.default_rng(1)
+    b, n, d, S, L = 2, 40, DIM, 2, 3
+    args = [normal(rng, b, n, d), normal(rng, S, L, 3 * d, d, scale=0.1),
+            normal(rng, S, L, d, scale=0.1), normal(rng, S, L, d, d, scale=0.1),
+            normal(rng, S, L, d, scale=0.1), normal(rng, L, d, d, scale=0.1),
+            normal(rng, L, d, scale=0.1), normal(rng, b, S, L, 2 * d, scale=0.5)]
+    expected = jwk.fused_wavenet_body(*(jnp.asarray(a) for a in args))
+    actual = wk.wavenet_body_padded_torch(*(t(a) for a in args))
+    assert actual.shape == (b, n, d)
+    assert_close(actual, expected, atol=ATOL)
+
+
+@pytest.mark.parametrize("dm, heads, dim_head", [(DIM, HEADS, DIM_HEAD), (24, 3, 8)],
+                         ids=["dim16_dh8", "dim24_dh8"])
+def test_k2_packed_block_matches_pallas(dm, heads, dim_head):
+    rng = np.random.default_rng(2)
+    hd = heads * dim_head
+    x, g, be = _block_inputs(rng, 2, 40, dm)
+    wq, wkv = normal(rng, dm, hd, scale=dm**-0.5), normal(rng, dm, 2 * hd, scale=dm**-0.5)
+    wo = normal(rng, hd, dm, scale=hd**-0.5)
+    scale = dim_head**-0.5
+    expected = jak.fused_attn_block(*(jnp.asarray(a) for a in (x, g, be, wq, wkv, wo)),
+                                    heads=heads, dim_head=dim_head, scale=scale)
+    packed = ak.pack_attn_weights(t(wq), t(wkv), t(wo), heads, dim_head)
+    actual = ak.attn_block_packed_torch(t(x), t(g), t(be), packed, heads=heads, scale=scale)
+    assert_close(actual, expected, atol=ATOL)
+
+
+def test_k2b_padded_block_matches_pallas():
+    rng = np.random.default_rng(3)
+    b, n, m, hd = 2, 24, 8, HEADS * DIM_HEAD
+    x, g, be = _block_inputs(rng, b, n, DIM)
+    ctx = normal(rng, b, m, CONTEXT)
+    wq, wkv = normal(rng, DIM, hd, scale=DIM**-0.5), normal(rng, CONTEXT, 2 * hd, scale=0.2)
+    wo = normal(rng, hd, DIM, scale=hd**-0.5)
+    args = (x, ctx, g, be, wq, wkv, wo)
+    expected = jak.fused_cross_attn_block(*(jnp.asarray(a) for a in args), heads=HEADS,
+                                          dim_head=DIM_HEAD, scale=SCALE)
+    actual = ak.cross_attn_block_padded_torch(*(t(a) for a in args), heads=HEADS,
+                                              dim_head=DIM_HEAD, scale=SCALE)
+    assert ak.cross_padded_widths(DIM, CONTEXT) == (128, 32)
+    assert_close(actual, expected, atol=ATOL)
+
+
+@pytest.mark.parametrize("dm", [DIM, 24], ids=["dim16", "dim24"])
+def test_k3_packed_block_matches_pallas(dm):
+    rng = np.random.default_rng(4)
+    inner = int(dm * 4 * 2 / 3)
+    x, g, be = _block_inputs(rng, 2, 40, dm)
+    w1, b1 = normal(rng, dm, 2 * inner, scale=dm**-0.5), normal(rng, 2 * inner, scale=0.1)
+    wc = normal(rng, 3, inner, inner, scale=(3 * inner) ** -0.5)
+    bc, w2 = normal(rng, inner, scale=0.1), normal(rng, inner, dm, scale=inner**-0.5)
+    b2 = normal(rng, dm, scale=0.1)
+    args = (x, g, be, w1, b1, wc, bc, w2, b2)
+    expected = jff.fused_ff_block(*(jnp.asarray(a) for a in args), approximate=True)
+    weights = fk.pack_ff_weights(t(w1), t(b1), t(wc), t(bc), t(w2))
+    assert weights.ip == 64 and weights.ip % gemm_cache.CHUNK == 0
+    actual = fk.ff_block_packed_torch(t(x), t(g), t(be), weights, t(b2))
+    assert_close(actual, expected, atol=ATOL)
+
+
+# (b, h, n_q, n_kv, causal, masked, dropout) at dim_head 8
+FLASH_CASES = {"plain": (2, 2, 40, 40, False, False, 0.0),
+               "masked_causal": (3, 2, 37, 37, True, True, 0.0),
+               "masked_dropout": (2, 2, 37, 50, False, True, 0.2)}
+SEED = (0x12345678, 0x9ABCDEF0)
+
+
+def _flash_inputs(b, h, n_q, n_kv, masked, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (normal(rng, b, h, n, DIM_HEAD) for n in (n_q, n_kv, n_kv))
+    do = normal(rng, b, h, n_q, DIM_HEAD)
+    mask = None
+    if masked:
+        mask = rng.random((b, n_kv)) > 0.2
+        mask[1, :3] = False
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_k4_k5_padded_head_dim_matches_pallas(case):
+    b, h, n_q, n_kv, causal, masked, dropout = FLASH_CASES[case]
+    q, k, v, do, mask = _flash_inputs(b, h, n_q, n_kv, masked, seed=5)
+    jmask = None if mask is None else jnp.asarray(mask)
+    jseed = jnp.asarray([SEED], dtype=jnp.uint32) if dropout > 0 else None
+    cfg = dict(causal=causal, scale=SCALE, dropout_rate=dropout)
+    o_j, lse_j = jfa._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jmask, jseed,
+                                    **cfg)
+    grads_j = jfa._flash_backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jmask, jseed,
+                                  lse_j, o_j, jnp.asarray(do), **cfg)
+
+    tmask = None if mask is None else torch.from_numpy(mask)
+    qp, kp, vp, dop = fa.pad_head_dim(t(q), t(k), t(v), t(do))
+    assert qp.shape[-1] == fa.KERNEL_HEAD_DIM
+    o_p, lse = fa.flash_forward_torch(qp, kp, vp, tmask, SEED, **cfg)
+    assert not o_p[..., DIM_HEAD:].any()  # zero v columns give zero output columns
+    assert_close(o_p[..., :DIM_HEAD], o_j, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, :, :n_q, 0], atol=ATOL)
+    grads = fa.flash_backward_torch(qp, kp, vp, tmask, SEED, lse, o_p, dop, **cfg)
+    for got, want in zip(grads, grads_j):
+        want = np.asarray(want)
+        scale = np.abs(want).max()
+        assert_close(got[..., :DIM_HEAD] / scale, want / scale, atol=ATOL)
+
+
+def test_k6_padded_codebook_dim_matches_pallas():
+    rng = np.random.default_rng(6)
+    x, cb = normal(rng, 200, CODEBOOK_DIM), normal(rng, 3, 40, CODEBOOK_DIM)
+    q_j, codes_j = jrvq.rvq_quantize(jnp.asarray(x), jnp.asarray(cb))
+    xp, cbp = rq.pad_codebook_dim(t(x), t(cb))
+    assert xp.shape[-1] == cbp.shape[-1] == rq.KERNEL_DIM
+    q_p, codes = rq.rvq_torch(xp, cbp)
+    assert not q_p[:, CODEBOOK_DIM:].any()
+    same = assert_codes_match(x, cb, codes.numpy(), np.asarray(codes_j), 1e-4)
+    assert same.mean() > 0.95
+    np.testing.assert_allclose(q_p[:, :CODEBOOK_DIM].numpy()[same], np.asarray(q_j)[same],
+                               atol=ATOL)
+
+
+def test_wider_than_the_kernels_is_a_named_error():
+    """Heads wider than 64 and codebooks wider than 128 stay refused on the
+    card (ROADMAP Queue 3, F1); the check runs before any launch."""
+    cfg = dict(heads=1, dim_head=96, scale=0.1)
+    with pytest.raises(ValueError, match="CUDA"):  # on a non-CUDA device: refused first
+        ak.attn_block(*(torch.zeros(s, device="meta") for s in
+                        ((1, 8, 16), (1, 16), (1, 16), (16, 96), (16, 192), (96, 16))), **cfg)
+    assert ak.MAX_DIM_HEAD == fa.KERNEL_HEAD_DIM == 64 and rq.KERNEL_DIM == 128
+    assert ak.cross_padded_widths(640, 16) is None
+    assert jax.default_backend() == "cpu"
