@@ -65,14 +65,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      at b1 x n4500 and n9000 and the scaled model at b2 x n1024;
  16. the widths of the JAX package's tests (dim 16, dim_head 8, codebook
      dim 16, a 24-wide context), which every wrapper pads to its kernel's:
-     each kernel against its plain version, then the port's two CPU test
-     configs (tests/test_torch_conditional.py, tests/test_torch_scan_layers.py)
+     each kernel against its plain version; the wide widths (heads of 96
+     and 128 through K4, K5, K2 and K2b, K2b at dim 640, RVQ at codebook
+     dim 192 and 256, K4 and K5 timed at [4, 8, 1024, 128]) and the named
+     error past heads of 128; then the port's two CPU test configs
+     (tests/test_torch_conditional.py, tests/test_torch_scan_layers.py)
      card against CPU, a guided forward and a 2-step conditional sample
      each with exact launch counts, and the scan-layers transformer.
 K2 and K3 are held to BLOCK_TOL (split TF32 on the tensor cores against
 f32 plain versions) at every shape they run: b4 x n1024 x dim 128, the
 conditional [8, 512, 128], the long-form n4500 and n9000 and the scaled
-b16 x n1024 x dim 512.
+b16 x n1024 x dim 512; K1 and K1b to WAVENET_TOL at every shape they run
+(b4 x n1024, n4500, n9000, n6733, dim 512 pinned, dim 16).
 The line before the last is the kernels' JSON summary (each kernel's
 time, plain time, bound and launches); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -133,6 +137,14 @@ FLASH_TOL = 1e-5
 # fails one; KERNEL_TOL's 1e-3 absolute would pass a kernel that quietly
 # ran one pass.
 BLOCK_TOL = 1e-5
+# The WaveNet body K1 / K1b vs plain on the card, relative to the largest
+# entry of the output: every block's product and the skips run split TF32
+# on the GEMM core, the plain versions f32. Emulated on the CPU with the
+# tensor cores' truncating adds, the 32-block chain (4 x 8, d 128) stays
+# within 4e-7 of f64 and one TF32 pass errs by 5e-4; the plain f32 chain is
+# within 5e-7 (tests/test_torch_tf32_split.py). 1e-5 passes three passes
+# with room and fails one, where KERNEL_TOL's 1e-3 absolute would not.
+WAVENET_TOL = 1e-5
 # RVQ near-ties: squared distances are ~256 at d 128; two candidates closer
 # than this may swap between the kernel and the plain version.
 RVQ_TIE_TOL = 1e-3
@@ -297,7 +309,7 @@ def kernel_cases(gen, b=BATCH, n=LENGTH, d=DIM, heads=HEADS, dim_head=DIM_HEAD,
     """(name, source, replaces, kernel call, plain call, bound, residual) of
     K1, K2 and K3 at one shape (the flagship's by default), inputs drawn
     from ``gen`` on the card; ``residual`` is the block's x (K2, K3), which
-    BLOCK_TOL's comparison takes off, or None (K1)."""
+    BLOCK_TOL's comparison takes off, or None (K1, held to WAVENET_TOL)."""
     from naturalspeech2_tpu_torch.ops import attn_block_kernel, ff_block_kernel, wavenet_kernel
 
     rn = _randn(gen)
@@ -339,21 +351,26 @@ def attn_work(b, n, d, attn, heads=HEADS, dim_head=DIM_HEAD) -> dict:
     return bound(flops, nbytes(*attn) + b * n * d * 4)
 
 
+def hold(phase: str, label: str, out, ref, residual=None) -> float:
+    """A fused block against its plain version: with the block's
+    ``residual`` x (K2, K3) y - x within BLOCK_TOL of the largest entry of
+    the plain y - x, else (K1, K1b) the body's output within WAVENET_TOL of
+    its largest entry. Returns the max abs error."""
+    if residual is None:
+        return compare(phase, label, out, ref, WAVENET_TOL, relative=True)
+    return compare(phase, f"{label} (y - x)", out - residual, ref - residual, BLOCK_TOL,
+                   relative=True)
+
+
 def timed_case(phase: str, label: str, kernel, plain, work: dict, reps: int = 20,
                residual=None) -> dict:
-    """A kernel against its plain version on the card: the max abs error
-    (raises above KERNEL_TOL; with the block's ``residual`` x, above
-    BLOCK_TOL relative to the largest entry of y - x), both times and the
-    bound."""
+    """A kernel against its plain version on the card (``hold``): the max
+    abs error, both times and the bound."""
     import torch
 
     out = kernel()
     torch.cuda.synchronize()
-    if residual is None:
-        err = compare(phase, label, out, plain(), KERNEL_TOL)
-    else:
-        err = compare(phase, f"{label} (y - x)", out - residual, plain() - residual, BLOCK_TOL,
-                      relative=True)
+    err = hold(phase, label, out, plain(), residual)
     del out
     ms, plain_ms = cuda_ms(kernel, reps=reps), cuda_ms(plain, reps=reps)
     log(phase, f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of {reps}), bound "
@@ -565,15 +582,16 @@ def _flash_timed_cases(gen) -> tuple[dict, dict]:
     return errs, times
 
 
-def _flash_masked_dropout_case(gen) -> dict:
-    """A masked, causal, dropout case with fully masked rows: outputs and
-    gradients within tolerance, masked keys' gradients exactly 0, and the
-    kernel's keep mask equal to the plain one element for element."""
+def _flash_masked_dropout_case(gen, d: int = DIM_HEAD, phase: str = "6") -> dict:
+    """A masked, causal, dropout case with fully masked rows at head dim
+    ``d``: outputs and gradients within tolerance, masked keys' gradients
+    exactly 0, and the kernel's keep mask equal to the plain one element
+    for element."""
     import torch
 
     from naturalspeech2_tpu_torch.ops import flash_attention as fa
 
-    b, h, n, d, rate, seed = 3, 2, 200, 64, 0.1, (0x0BADC0DE, 0x5EED)
+    b, h, n, rate, seed = 3, 2, 200, 0.1, (0x0BADC0DE, 0x5EED)
     mask = torch.ones(b, n, dtype=torch.bool, device="cuda")
     mask[1, :3] = False  # with causal masking, batch 1's rows 0..2 see no key
     mask[2] = False      # batch 2 sees none at all
@@ -581,15 +599,15 @@ def _flash_masked_dropout_case(gen) -> dict:
     q, k, v, do = (torch.randn(b, h, n, d, generator=gen, device="cuda") for _ in range(4))
     o, lse = fa.flash_forward(q, k, v, mask, seed, **cfg)
     o_ref, lse_ref = fa.flash_forward_torch(q, k, v, mask, seed, **cfg)
-    err = compare("6", "flash_forward masked causal dropout", (o, lse), (o_ref, lse_ref),
+    err = compare(phase, f"flash_forward masked causal dropout d {d}", (o, lse), (o_ref, lse_ref),
                   FLASH_TOL)
     if not (torch.all(o[2] == 0) and torch.all(lse[2] == fa.NEG_INF)
             and torch.all(o[1, :, :3] == 0)):
         raise AssertionError("flash_forward: fully masked rows are not o = 0, lse = NEG_INF")
     grads = fa.flash_backward(q, k, v, mask, seed, lse_ref, o_ref, do, **cfg)
     grads_ref = fa.flash_backward_torch(q, k, v, mask, seed, lse_ref, o_ref, do, **cfg)
-    err_b = compare("6", "flash_backward masked causal dropout", grads, grads_ref, FLASH_TOL,
-                    relative=True)
+    err_b = compare(phase, f"flash_backward masked causal dropout d {d}", grads, grads_ref,
+                    FLASH_TOL, relative=True)
     masked = ~mask
     for g in grads[1:]:
         if not torch.all(g.permute(0, 2, 1, 3)[masked] == 0):
@@ -612,8 +630,9 @@ def _flash_masked_dropout_case(gen) -> dict:
     visible = fa._valid(b, n, n, mask, True, "cuda").expand(b, h, n, n)
     if not (torch.equal(kept, kept_ref) and torch.equal(kept, keep & visible)):
         raise AssertionError("flash_forward: the kernel's dropout keep mask differs")
-    log("6", f"dropout keep masks identical: {int(kept.sum())} of {int(visible.sum())} visible "
-             f"probabilities kept at rate {rate} (kernel, plain and the Threefry mask)")
+    log(phase, f"dropout keep masks identical at d {d}: {int(kept.sum())} of "
+               f"{int(visible.sum())} visible probabilities kept at rate {rate} (kernel, plain "
+               "and the Threefry mask)")
     return {"flash_forward": err, "flash_backward": err_b}
 
 
@@ -653,8 +672,8 @@ def _rvq_case(gen, m=TRAIN_BATCH * int(TRAIN_SECONDS * 24000) // 320, num_q=8, s
         return err
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
     work = bound(2 * num_q * m * size * d, nbytes(x, cb, q, codes))
-    log("6", f"rvq [{m},{d}] Q{num_q} K{size}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-             f"(median of 20), bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
+    log(phase, f"rvq [{m},{d}] Q{num_q} K{size}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+               f"(median of 20), bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
     return err, ms, plain_ms, work
 
 
@@ -678,9 +697,10 @@ def phase6_training_kernels() -> list:
             "replaces_also": f"naturalspeech2_tpu/ops/flash_attention.py{also}",
             "max_abs_err": errs[name], **times[name][train_shape], "by_shape": times[name],
         })
+    rvq_timing = {"ms": rvq_ms, "plain_ms": rvq_plain_ms, **rvq_work}
     summary.append({"name": "rvq", "route": "cuda", "source": "naturalspeech2_tpu_torch/csrc/rvq.cu",
                     "replaces": "naturalspeech2_tpu/ops/rvq.py:60", "max_abs_err": rvq_err,
-                    "ms": rvq_ms, "plain_ms": rvq_plain_ms, **rvq_work, "library_ms": None})
+                    **rvq_timing, "library_ms": None, "by_shape": {"d 128": rvq_timing}})
     return summary
 
 
@@ -1020,8 +1040,8 @@ def phase12_longform_scaled_kernels(summary: list) -> dict:
         if n == LONG_LENGTHS[1]:
             lanes.update(timing)
             k1 = lambda: wk._forward("stack", *wn)  # noqa: E731
-            err = compare("12", f"wavenet_body (K1) against K1b {shape}", k1(),
-                          wk.wavenet_body_lanes(*wn), KERNEL_TOL)
+            err = hold("12", f"wavenet_body (K1) against K1b {shape}", k1(),
+                       wk.wavenet_body_lanes(*wn))
             k1_ms, k1_plain_ms = cuda_ms(k1), cuda_ms(lambda: wk.wavenet_body_torch(*wn))
             log("12", f"K1 {shape}: {k1_ms:.4f} ms against K1b {timing['ms']:.4f} ms, plain "
                       f"{k1_plain_ms:.4f} ms (median of 20); K1's lane scratch "
@@ -1188,19 +1208,25 @@ def check_counts(phase: str, label: str, counts: dict, expect: dict) -> None:
         raise AssertionError(f"{label}: launch counts {counts} != {expect}")
 
 
-def phase16_widths() -> None:
+def phase16_widths(summary: list) -> None:
     """The JAX package's test widths on the card: each kernel against its
     plain version at dim 16, dim_head 8, codebook dim 16 and a 24-wide
     context (narrower than the kernels' tiles, so padded by the wrappers);
-    then the port's two CPU test configs, card against CPU under PATH_TOL
-    with exact launch counts: a guided denoiser forward and a 2-step
-    conditional sample each, and the scan-layers transformer's forward."""
+    the wide widths of ROADMAP Queue 3 F1 (heads of 96 and 128 through K4,
+    K5, K2 and K2b, K2b at dim 640, RVQ at codebook dim 192 and 256; K4
+    and K5 at [4, 8, 1024, 128] and RVQ at dim 256 timed into the entries
+    of ``summary``) and the named error past heads of 128; then the port's
+    two CPU test configs, card against CPU under PATH_TOL with exact
+    launch counts: a guided denoiser forward and a 2-step conditional
+    sample each, and the scan-layers transformer's forward."""
     import torch
 
     import naturalspeech2_tpu_torch as ns2pkg
     from naturalspeech2_tpu_torch import ops
     from naturalspeech2_tpu_torch.models.denoiser import forward_with_cond_scale
     from naturalspeech2_tpu_torch.models.transformer import ConditionableTransformer
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+    from naturalspeech2_tpu_torch.ops import flash_attention as fa
     from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
@@ -1209,18 +1235,48 @@ def phase16_widths() -> None:
                                                                stacks=2, layers=2):
         out = kernel()
         torch.cuda.synchronize()
-        if residual is None:
-            compare("16", f"{name} [{b},{n},{d}]", out, plain(), KERNEL_TOL)
-        else:
-            compare("16", f"{name} [{b},{n},{d}] dh {W_DIM_HEAD} (y - x)", out - residual,
-                    plain() - residual, BLOCK_TOL, relative=True)
+        hold("16", f"{name} [{b},{n},{d}] dh {W_DIM_HEAD}", out, plain(), residual)
     wn, _ = wavenet_inputs(gen, b, n, d, 2, 2)
-    compare("16", f"wavenet_body_lanes [{b},{n},{d}]", wk.wavenet_body_lanes(*wn),
-            wk.wavenet_body_lanes_torch(*wn), KERNEL_TOL)
+    hold("16", f"wavenet_body_lanes [{b},{n},{d}]", wk.wavenet_body_lanes(*wn),
+         wk.wavenet_body_lanes_torch(*wn))
     cross_case("16", gen, b, n, 8, d, W_CONTEXT, W_HEADS, W_DIM_HEAD, timed=False)
     for shape in ((b, W_HEADS, n, n), (b, W_HEADS, 8, 12)):
         flash_case("16", gen, *shape, d=W_DIM_HEAD)
     _rvq_case(gen, m=200, num_q=2, size=16, d=16, phase="16", timed=False)
+
+    # F1: heads of 96 (padded to 128) and 128, K2b past dim 512, wide codebooks
+    entries = {e["name"]: e for e in summary}
+    for dh in (96, 128):
+        for name, (key, err, timing) in flash_case("16", gen, 2, 4, 150, 150, d=dh).items():
+            entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+        for name, err in _flash_masked_dropout_case(gen, d=dh, phase="16").items():
+            entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+        attn = attn_inputs(gen, b, 64, DIM, 4, dh)
+        split = ak.split_heads(*attn[3:], 4, dh)
+        hold("16", f"attn_block [{b},64,{DIM}] dh {dh}",
+             ak.attn_block(*attn, heads=4, dim_head=dh, scale=dh**-0.5),
+             ak.attn_block_torch(*attn[:3], *split, scale=dh**-0.5), attn[0])
+        cross_case("16", gen, b, 64, 32, DIM, DIM, 4, dh, timed=False)
+    cross_case("16", gen, b, 64, 32, 640, DIM, HEADS, DIM_HEAD, timed=False)
+    for name, (key, _, timing) in flash_case("16", gen, 4, HEADS, LENGTH, LENGTH, d=128).items():
+        entries[name]["by_shape"][key] = timing
+    _rvq_case(gen, m=200, num_q=2, size=64, d=192, phase="16", timed=False)
+    err, ms, plain_ms, work = _rvq_case(gen, d=256, phase="16")
+    entries["rvq"]["by_shape"]["d 256"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                           **work}
+    q = torch.zeros(1, 1, 8, 192, device="cuda")
+    for label, call in (("flash_forward", lambda: fa.flash_forward(q, q, q, scale=0.1)),
+                        ("attn_block", lambda: ak.attn_block(
+                            *attn_inputs(gen, 1, 8, DIM, 2, 192), heads=2, dim_head=192,
+                            scale=0.1))):
+        try:
+            call()
+        except ValueError as e:
+            if "F1" not in str(e):
+                raise
+            log("16", f"{label} at dh 192 raises as it should: {e}")
+        else:
+            raise AssertionError(f"{label} at dh 192 did not raise")
 
     g = torch.Generator().manual_seed(SEED + 61)
     prompt = torch.rand(b, 4 * 320, generator=g) * 2 - 1
@@ -1457,7 +1513,7 @@ def main() -> int:
     scaled_counts = phase14_scaled(scaled)
     phase15_card_vs_cpu(long_ns2, long_cpu, scaled, scaled_cpu)
     del long_ns2, long_cpu, scaled, scaled_cpu
-    phase16_widths()
+    phase16_widths(summary)
 
     for entry in summary:
         name = entry["name"]

@@ -34,8 +34,8 @@ from collections import Counter
 
 VARIANTS = {
     "base": [],
-    "k4_3blocks": [("flash_fwd.cu", "__launch_bounds__(kFlashThreads, 2)",
-                    "__launch_bounds__(kFlashThreads, 3)")],
+    "k4_3blocks": [("flash_fwd.cu", "__launch_bounds__(kFlashThreads, D == 64 ? 2 : 1)",
+                    "__launch_bounds__(kFlashThreads, D == 64 ? 3 : 1)")],
     "k5_walk64": [("flash_bwd.cu", "constexpr int kDqWalk = 32;", "constexpr int kDqWalk = 64;"),
                   ("flash_bwd.cu", "constexpr int kDkvWalk = 32;", "constexpr int kDkvWalk = 64;")],
     "dq64": [("flash_bwd.cu", "constexpr int kDqWalk = 32;", "constexpr int kDqWalk = 64;")],
@@ -46,13 +46,13 @@ VARIANTS = {
                                "        mma_tf32(small[j + i], a_lo, bh);\n", ""),
                  ("flash_fwd.cu", "      wgmma_ss_n32(small, qa_hi, kb_lo);\n"
                                   "      wgmma_ss_n32(small, qa_lo, kb_hi);\n", ""),
-                 ("flash_fwd.cu", "      wgmma_rs_n64(part, pa_hi[ks], vb_lo);\n"
-                                  "      wgmma_rs_n64(part, pa_lo[ks], vb_hi);\n", "")],
+                 ("flash_fwd.cu", "        wgmma_rs_n64(part, pa_hi[ks], vb_lo);\n"
+                                  "        wgmma_rs_n64(part, pa_lo[ks], vb_hi);\n", "")],
     "one_acc": [("flash.cuh", "        mma_tf32(small[j + i], a_hi, bl);\n"
                               "        mma_tf32(small[j + i], a_lo, bh);\n",
                  "        mma_tf32(d[j + i], a_hi, bl);\n        mma_tf32(d[j + i], a_lo, bh);\n"),
                 ("flash.cuh", "mma_split(part[j], a_hi, a_lo, b_hi, b_lo);",
-                 "mma_split(acc[j], a_hi, a_lo, b_hi, b_lo);"),
+                 "mma_split(acc[c0 + j], a_hi, a_lo, b_hi, b_lo);"),
                 ("flash_fwd.cu", "      wgmma_ss_n32(small, qa_hi, kb_lo);\n"
                                  "      wgmma_ss_n32(small, qa_lo, kb_hi);\n",
                  "      wgmma_ss_n32(s, qa_hi, kb_lo);\n      wgmma_ss_n32(s, qa_lo, kb_hi);\n")],

@@ -39,14 +39,14 @@ _FLASH_TAIL = [_F, _U, _U, _F, _I, _U, _F, _P]
 # C signature of every entry point: pointers and the stream as c_void_p
 # (ctypes would otherwise pass 32-bit ints and cut them), sizes as c_int.
 SIGNATURES = {
-    "ns2_wavenet_body": [_P] * 11 + [_I] * 5 + [_P],
-    "ns2_wavenet_lanes": [_P] * 11 + [_I] * 5 + [_P],
-    "ns2_attn_block": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "ns2_wavenet_body": [_P] * 10 + [_I] * 5 + [_P],
+    "ns2_wavenet_lanes": [_P] * 10 + [_I] * 5 + [_P],
+    "ns2_attn_block": [_P] * 8 + [_I] * 5 + [_F, _P],
     "ns2_cross_attn_block": [_P] * 9 + [_I] * 8 + [_F, _P],
     "ns2_ff_block": [_P] * 13 + [_I] * 4 + [_P],
     "ns2_flash_fwd": [_P] * 6 + [_I] * 6 + _FLASH_TAIL,
     "ns2_flash_bwd": [_P] * 10 + [_I] * 6 + _FLASH_TAIL,
-    "ns2_rvq": [_P] * 5 + [_I] * 4 + [_P],
+    "ns2_rvq": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

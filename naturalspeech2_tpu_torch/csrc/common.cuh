@@ -1,11 +1,12 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// K1, K1b, K2b and K6 run in f32 on the CUDA cores with tiles staged in
-// shared memory; K2, K3, K4 and K5 in split TF32 on the tensor cores
-// (flash.cuh, wgmma.cuh, gemm_tf32x3.cuh). Each host entry point is a plain C function
-// (bound with ctypes): it takes device pointers, sizes and the caller's
-// stream, launches without synchronising, and returns cudaGetLastError()
-// so the Python wrapper can raise on a launch that was refused.
+// K2b and K6 run in f32 on the CUDA cores with tiles staged in shared
+// memory; K1, K1b, K2, K3, K4 and K5 in split TF32 on the tensor cores
+// (flash.cuh, wgmma.cuh, gemm_tf32x3.cuh). Each host entry point is a
+// plain C function (bound with ctypes): it takes device pointers, sizes and
+// the caller's stream, launches without synchronising, and returns
+// cudaGetLastError() so the Python wrapper can raise on a launch that was
+// refused.
 #pragma once
 
 #include <cuda_runtime.h>

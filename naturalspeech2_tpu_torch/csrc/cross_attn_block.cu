@@ -20,13 +20,18 @@
 //  1. cross_kv_kernel: k and v = ctx · [W_k | W_v], once per batch row,
 //     into f32 scratch [2, b, H, m, dh]. Recomputing them in every query
 //     tile would add 38-76 % to the FLOPs at this shape.
-//  2. cross_core_kernel: one block per (batch, 32 queries). Its prologue
-//     normalises the x tile into shared memory. For each head it projects
-//     q through W_q,h (staged in shared memory), runs an online softmax
-//     over 32-key tiles of k/v, normalises the head output and multiplies
-//     it by W_o,h (staged in the same buffer as W_q,h), summing the heads
-//     in f32 registers; the epilogue adds the residual and writes the tile
-//     once. The per-head f32 sum is the TPU kernel's f32 head accumulation.
+//  2. cross_core_kernel: one block per (batch, 32 queries) and up to 512
+//     output columns. Its prologue takes the rows' norms. For each head it
+//     projects q through W_q,h, 128 model rows at a time (the normalised x
+//     chunk and W_q,h's rows staged in shared memory, so any dm), runs an
+//     online softmax over 32-key tiles of k/v, normalises the head output
+//     and multiplies it by W_o,h's columns of this block (staged in the
+//     buffer of W_q,h), summing the heads in f32 registers; the epilogue
+//     adds the residual and writes the tile once. The per-head f32 sum is
+//     the TPU kernel's f32 head accumulation. Past dm 512 the core is
+//     launched once per 512 output columns, each launch recomputing q and
+//     the attention for its columns. Heads are DH = 64 or 128 wide (the
+//     wrapper pads narrower heads with zeros).
 #include "common.cuh"
 
 namespace {
@@ -96,11 +101,12 @@ constexpr int TQ = 32;  // queries per block
 constexpr int TK = 32;  // keys per tile
 constexpr int NPART = ns2::kThreads / TQ;  // threads per row in the norm
 
-constexpr int WC = 128;  // model rows of W_q,h (columns of W_o,h) staged at a time
+constexpr int WC = 128;      // model rows of W_q,h (columns of W_o,h) staged at a time
+constexpr int kMaxOut = 512;  // output columns a launch of the core covers at most
 
-template <int DH, int DM>
+template <int DH>
 struct CrossSmem {
-  float xn[DM][TQ];   // normalised x tile, transposed
+  float xn[WC][TQ];   // 128 columns of the normalised x tile, transposed
   float w[WC * DH];   // 128 rows of W_q,h as [WC][DH], or 128 columns of W_o,h as [DH][WC]
   float q[DH][TQ];    // q tile, transposed
   float k[DH][TK];    // key tile, transposed
@@ -112,40 +118,42 @@ struct CrossSmem {
   float rnorm[TQ];
 };
 
-// grid (ceil(n/TQ), b); dynamic shared memory sizeof(CrossSmem<DH, DM>)
-template <int DH, int DM>
+// grid (ceil(n/TQ), b); dynamic shared memory sizeof(CrossSmem<DH>). Writes
+// output columns col0 .. col0 + DO - 1; dm % WC == 0.
+template <int DH, int DO>
 __global__ void __launch_bounds__(ns2::kThreads)
-cross_core_kernel(const float* __restrict__ x,      // [b, n, DM]
-                  const float* __restrict__ gamma,  // [b, DM]
-                  const float* __restrict__ beta,   // [b, DM]
-                  const float* __restrict__ wq,     // [DM, H·DH]
+cross_core_kernel(const float* __restrict__ x,      // [b, n, dm]
+                  const float* __restrict__ gamma,  // [b, dm]
+                  const float* __restrict__ beta,   // [b, dm]
+                  const float* __restrict__ wq,     // [dm, H·DH]
                   const float* __restrict__ kv,     // [2, b, H, m, DH]
-                  const float* __restrict__ wo,     // [H·DH, DM]
-                  float* __restrict__ out,          // [b, n, DM]
-                  int b, int n, int m, int heads, float sqrt_dm, float scale) {
-  static_assert(DH % ns2::kGrid == 0 && DM % WC == 0, "tile shape");
+                  const float* __restrict__ wo,     // [H·DH, dm]
+                  float* __restrict__ out,          // [b, n, dm]
+                  int b, int n, int m, int heads, int dm, int col0, float sqrt_dm,
+                  float scale) {
+  static_assert(DH % ns2::kGrid == 0 && DO % WC == 0, "tile shape");
   constexpr int JO = DH / ns2::kGrid;  // head columns per thread
-  constexpr int JY = DM / ns2::kGrid;  // model columns per thread
+  constexpr int JY = DO / ns2::kGrid;  // output columns per thread
   constexpr int JS = TK / ns2::kGrid;  // key columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  CrossSmem<DH, DM>& sm = *reinterpret_cast<CrossSmem<DH, DM>*>(smem_raw);
+  CrossSmem<DH>& sm = *reinterpret_cast<CrossSmem<DH>*>(smem_raw);
 
   const int tid = threadIdx.x;
   const int ty = tid / ns2::kGrid, tx = tid % ns2::kGrid;
   const int q0 = blockIdx.x * TQ, bi = blockIdx.y;
   const int hd = heads * DH;
-  const float* xb = x + (size_t)bi * n * DM;
-  const float* g = gamma + (size_t)bi * DM;
-  const float* be = beta + (size_t)bi * DM;
+  const float* xb = x + (size_t)bi * n * dm;
+  const float* g = gamma + (size_t)bi * dm;
+  const float* be = beta + (size_t)bi * dm;
   const size_t plane = (size_t)b * heads * m * DH;  // k, then v
 
-  // prologue: row norms (NPART threads per row), then the normalised tile
+  // prologue: row norms (NPART threads per row)
   {
     const int r = tid / NPART, part = tid % NPART, t = q0 + r;
     float ss = 0.0f;
     if (t < n)
-      for (int c = part; c < DM; c += NPART) {
-        const float val = xb[(size_t)t * DM + c];
+      for (int c = part; c < dm; c += NPART) {
+        const float val = xb[(size_t)t * dm + c];
         ss += val * val;
       }
     sm.part[r][part] = ss;
@@ -156,11 +164,6 @@ cross_core_kernel(const float* __restrict__ x,      // [b, n, DM]
     for (int u = 0; u < NPART; ++u) ss += sm.part[tid][u];
     sm.rnorm[tid] = fmaxf(sqrtf(ss), 1e-12f);
   }
-  __syncthreads();
-  for (int e = tid; e < TQ * DM; e += ns2::kThreads) {
-    const int r = e / DM, c = e % DM, t = q0 + r;
-    sm.xn[c][r] = (t < n) ? xb[(size_t)t * DM + c] / sm.rnorm[r] * sqrt_dm * g[c] + be[c] : 0.0f;
-  }
 
   float y[2][JY] = {};
   for (int h = 0; h < heads; ++h) {
@@ -169,8 +172,14 @@ cross_core_kernel(const float* __restrict__ x,      // [b, n, DM]
 
     {
       float qa[2][JO] = {};
-      for (int c0 = 0; c0 < DM; c0 += WC) {
-        __syncthreads();  // the previous head (or chunk) is done with sm.w and sm.o
+      for (int c0 = 0; c0 < dm; c0 += WC) {
+        __syncthreads();  // the previous head (or chunk) is done with sm.w, sm.xn and sm.o
+        for (int e = tid; e < TQ * WC; e += ns2::kThreads) {
+          const int r = e / WC, c = e % WC, t = q0 + r, col = c0 + c;
+          sm.xn[c][r] = (t < n) ? xb[(size_t)t * dm + col] / sm.rnorm[r] * sqrt_dm * g[col] +
+                                      be[col]
+                                : 0.0f;
+        }
         for (int e = tid; e < WC * DH; e += ns2::kThreads) {
           const int c = e / DH, j = e % DH;
           sm.w[e] = wq[(size_t)(c0 + c) * hd + h * DH + j];
@@ -178,7 +187,7 @@ cross_core_kernel(const float* __restrict__ x,      // [b, n, DM]
         __syncthreads();
 #pragma unroll 8
         for (int c = 0; c < WC; ++c) {
-          const float a0 = sm.xn[c0 + c][ty], a1 = sm.xn[c0 + c][ty + 16];
+          const float a0 = sm.xn[c][ty], a1 = sm.xn[c][ty + 16];
 #pragma unroll
           for (int j = 0; j < JO; ++j) {
             const float w = sm.w[c * DH + tx + 16 * j];
@@ -270,19 +279,19 @@ cross_core_kernel(const float* __restrict__ x,      // [b, n, DM]
       }
     }
 
-    // head output → shared, then y += o_h · W_o,h, 128 columns of W_o,h at
-    // a time in the buffer of W_q,h (whose last reader passed the first
-    // barrier of the key loop)
+    // head output → shared, then y += o_h · W_o,h, 128 of this block's
+    // columns of W_o,h at a time in the buffer of W_q,h (whose last reader
+    // passed the first barrier of the key loop)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < JO; ++j) sm.o[tx + 16 * j][ty + 16 * i] = o[i][j] / lsum[i];
 #pragma unroll
-    for (int cc = 0; cc < DM / WC; ++cc) {
+    for (int cc = 0; cc < DO / WC; ++cc) {
       if (cc > 0) __syncthreads();  // the previous columns are consumed
       for (int e = tid; e < DH * WC; e += ns2::kThreads) {
         const int r = e / WC, c = e % WC;
-        sm.w[e] = wo[((size_t)h * DH + r) * DM + cc * WC + c];
+        sm.w[e] = wo[((size_t)h * DH + r) * dm + col0 + cc * WC + c];
       }
       __syncthreads();
 #pragma unroll 8
@@ -302,41 +311,65 @@ cross_core_kernel(const float* __restrict__ x,      // [b, n, DM]
   for (int i = 0; i < 2; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= n) continue;
-    const size_t row = ((size_t)bi * n + t) * DM;
+    const size_t row = ((size_t)bi * n + t) * dm + col0;
 #pragma unroll
     for (int j = 0; j < JY; ++j) out[row + tx + 16 * j] = x[row + tx + 16 * j] + y[i][j];
   }
 }
 
-template <int DM>
-int launch_core(const float* x, const float* gamma, const float* beta, const float* wq,
-                const float* kv, const float* wo, float* out, int b, int n, int m, int heads,
-                float sqrt_dm, float scale, cudaStream_t st) {
-  const int bytes = (int)sizeof(CrossSmem<64, DM>);
-  cudaError_t err = cudaFuncSetAttribute(cross_core_kernel<64, DM>,
+template <int DH, int DO>
+cudaError_t launch_core(const float* x, const float* gamma, const float* beta, const float* wq,
+                        const float* kv, const float* wo, float* out, int b, int n, int m,
+                        int heads, int dm, int col0, float sqrt_dm, float scale,
+                        cudaStream_t st) {
+  const int bytes = (int)sizeof(CrossSmem<DH>);
+  cudaError_t err = cudaFuncSetAttribute(cross_core_kernel<DH, DO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + TQ - 1) / TQ, b);
-  cross_core_kernel<64, DM><<<grid, ns2::kThreads, bytes, st>>>(x, gamma, beta, wq, kv, wo, out,
-                                                               b, n, m, heads, sqrt_dm, scale);
+  cross_core_kernel<DH, DO><<<grid, ns2::kThreads, bytes, st>>>(
+      x, gamma, beta, wq, kv, wo, out, b, n, m, heads, dm, col0, sqrt_dm, scale);
   return cudaGetLastError();
+}
+
+// Output columns col0 .. col0 + width - 1 (width a multiple of WC up to
+// kMaxOut) through the core's template of that width.
+template <int DH>
+cudaError_t launch_columns(const float* x, const float* gamma, const float* beta,
+                           const float* wq, const float* kv, const float* wo, float* out, int b,
+                           int n, int m, int heads, int dm, int col0, int width, float sqrt_dm,
+                           float scale, cudaStream_t st) {
+  switch (width) {
+    case 128:
+      return launch_core<DH, 128>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, dm, col0,
+                                  sqrt_dm, scale, st);
+    case 256:
+      return launch_core<DH, 256>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, dm, col0,
+                                  sqrt_dm, scale, st);
+    case 384:
+      return launch_core<DH, 384>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, dm, col0,
+                                  sqrt_dm, scale, st);
+    default:
+      return launch_core<DH, kMaxOut>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, dm, col0,
+                                      sqrt_dm, scale, st);
+  }
 }
 
 }  // namespace
 
 // x [b,n,dm], ctx [b,m,dc] -> out [b,n,dm]. wq [dm, H·dh]; wkv [dc, 2·H·dh]
 // with k in the first H·dh columns and head h in columns h·dh..(h+1)·dh of
-// each half; wo [H·dh, dm]; kv is [2, b, H, m, dh] f32 scratch. Takes dh =
-// 64, dm ∈ {128, 256, 384, 512} and dc % 16 == 0 (the Python wrapper pads
+// each half; wo [H·dh, dm]; kv is [2, b, H, m, dh] f32 scratch. Takes dh ∈
+// {64, 128}, dm % 128 == 0 and dc % 16 == 0 (the Python wrapper pads
 // narrower widths with zeros; other widths return cudaErrorInvalidValue),
 // any n ≥ 1 and m ≥ 1. The norm takes √ from `norm_dim`, the width before
-// padding.
+// padding. 1 + ceil(dm / 512) launches.
 NS2_API int ns2_cross_attn_block(const float* x, const float* ctx, const float* gamma,
                                  const float* beta, const float* wq, const float* wkv,
                                  const float* wo, float* kv, float* out, int b, int n, int m,
                                  int dm, int dc, int heads, int dh, int norm_dim, float scale,
                                  void* stream) {
-  if (dh != 64 || dm % WC != 0 || dm > 4 * WC || dc % KC != 0 || m < 1 ||
+  if ((dh != 64 && dh != 128) || dm <= 0 || dm % WC != 0 || dc % KC != 0 || m < 1 ||
       (2 * heads * dh) % TN != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -345,18 +378,13 @@ NS2_API int ns2_cross_attn_block(const float* x, const float* ctx, const float* 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float sqrt_dm = sqrtf((float)norm_dim);
-  switch (dm) {
-    case 128:
-      return launch_core<128>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, sqrt_dm, scale,
-                              st);
-    case 256:
-      return launch_core<256>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, sqrt_dm, scale,
-                              st);
-    case 384:
-      return launch_core<384>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, sqrt_dm, scale,
-                              st);
-    default:
-      return launch_core<512>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, sqrt_dm, scale,
-                              st);
+  for (int col0 = 0; col0 < dm; col0 += kMaxOut) {
+    const int width = dm - col0 < kMaxOut ? dm - col0 : kMaxOut;
+    err = dh == 64 ? launch_columns<64>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, dm, col0,
+                                        width, sqrt_dm, scale, st)
+                   : launch_columns<128>(x, gamma, beta, wq, kv, wo, out, b, n, m, heads, dm,
+                                         col0, width, sqrt_dm, scale, st);
+    if (err != cudaSuccess) return err;
   }
+  return cudaSuccess;
 }

@@ -47,11 +47,11 @@ NS2_API int ns2_ff_block(const float* x, const float* gamma, const float* beta,
       gemm::NormRows{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_geglu, rows, dm_chunks,
       ip / gemm::kKC, gemm::Geglu{a_buf, b_val, b_gate, rows, ip}, st);
   if (err != cudaSuccess) return err;
-  err = gemm::launch(gemm::TapRows{a_buf, rows, n, ip, 3}, bt_conv, rows, 3 * ip / gemm::kKC,
+  err = gemm::launch(gemm::TapRows{a_buf, rows, n, ip, 3, 1}, bt_conv, rows, 3 * ip / gemm::kKC,
                      (ip + gemm::kBN - 1) / gemm::kBN,
                      gemm::Store{c_buf, bc, nullptr, rows, ip, ip}, st);
   if (err != cudaSuccess) return err;
-  return gemm::launch(gemm::TapRows{c_buf, rows, n, ip, 1}, bt_out, rows, ip / gemm::kKC,
+  return gemm::launch(gemm::TapRows{c_buf, rows, n, ip, 1, 0}, bt_out, rows, ip / gemm::kKC,
                       (dm + gemm::kBN - 1) / gemm::kBN, gemm::Store{out, b2, x, rows, dm, dm},
                       st);
 }

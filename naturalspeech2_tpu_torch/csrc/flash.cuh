@@ -16,16 +16,18 @@ namespace ns2 {
 // finite, so a fully masked row has a finite max and lse = NEG_INF.
 constexpr float kNegInf = (float)(-0.7 * 3.4028234663852886e+38);
 
-// Head width, and the tiles: 64 rows (queries, or keys) per block, four
-// warps of 32 lanes, each warp owning 16 rows of its block's 64; the walked
-// tiles hold kTile rows (K4 walks 32 keys at a time). Staged [rows][64]
-// tiles keep a row stride of 68 floats: the two fragment patterns below then
-// touch 32 distinct banks per load.
-constexpr int kD = 64;
+// The tiles: 64 rows (queries, or keys) per block, four warps of 32 lanes,
+// each warp owning 16 rows of its block's 64; the walked tiles hold kTile
+// rows (K4 walks 32 keys at a time). The head width D is a template
+// parameter of the kernels, 64 or 128 (the wrappers pad narrower heads with
+// zeros). Staged [rows][D] tiles keep a row stride of D + 4 floats (68 or
+// 132, both 4 mod 32): the two fragment patterns below then touch 32
+// distinct banks per load.
 constexpr int kTile = 64;
 constexpr int kWarps = 4;
 constexpr int kFlashThreads = 32 * kWarps;
-constexpr int kLd = kD + 4;
+template <int D>
+constexpr int kLdOf = D + 4;
 
 struct Dropout {
   uint32_t seed0, seed1;
@@ -127,7 +129,7 @@ __device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&a_hi)[
 
 // ---- fragments from staged tiles ----------------------------------------
 //
-// A tile is staged as float[rows][kLd]. Two ways to read a k-step of 8:
+// A tile is staged as float[rows][D + 4]. Two ways to read a k-step of 8:
 // "direct", the tile's rows along the fragment's rows (A) or columns (B)
 // and its columns along k, as S = Q·Kᵀ reads Q and K (by ldmatrix, four
 // 8 x 4 blocks a lane-wide instruction); and "paired", the tile's rows
@@ -156,7 +158,8 @@ __device__ __forceinline__ void split_bits(const uint32_t (&x)[4], uint32_t (&hi
 }
 
 // A[m][k] = tile[r0 + m][c0 + k], m < 16, k < 8, split; lane l = 4g + t.
-__device__ __forceinline__ void a_direct(const float (*tile)[kLd], int r0, int c0, int lane,
+template <int LD>
+__device__ __forceinline__ void a_direct(const float (*tile)[LD], int r0, int c0, int lane,
                                          uint32_t (&hi)[4], uint32_t (&lo)[4]) {
   const int b = lane / 8;
   uint32_t x[4];
@@ -166,7 +169,8 @@ __device__ __forceinline__ void a_direct(const float (*tile)[kLd], int r0, int c
 
 // B[k][n] = tile[r0 + 8i + n][c0 + k] for two adjacent 8-column tiles i = 0,
 // 1 (n < 8, k < 8), split: hi[2i], hi[2i + 1] are tile i's b[0], b[1].
-__device__ __forceinline__ void b_direct2(const float (*tile)[kLd], int r0, int c0, int lane,
+template <int LD>
+__device__ __forceinline__ void b_direct2(const float (*tile)[LD], int r0, int c0, int lane,
                                           uint32_t (&hi)[4], uint32_t (&lo)[4]) {
   const int b = lane / 8;
   uint32_t x[4];
@@ -175,7 +179,8 @@ __device__ __forceinline__ void b_direct2(const float (*tile)[kLd], int r0, int 
 }
 
 // B[k][n] = tile[r0 + pair(k)][c0 + n] with pair(t) = 2t, pair(t + 4) = 2t + 1.
-__device__ __forceinline__ void b_paired(const float (*tile)[kLd], int r0, int c0, int g, int t,
+template <int LD>
+__device__ __forceinline__ void b_paired(const float (*tile)[LD], int r0, int c0, int g, int t,
                                          uint32_t (&hi)[2], uint32_t (&lo)[2]) {
   split_tf32(tile[r0 + 2 * t][c0 + g], hi[0], lo[0]);
   split_tf32(tile[r0 + 2 * t + 1][c0 + g], hi[1], lo[1]);
@@ -195,12 +200,13 @@ __device__ __forceinline__ void a_from_acc(const float (&d)[4], uint32_t (&hi)[4
 // ---- warp products over staged tiles -------------------------------------
 
 // d = X·Yᵀ for one warp's 16 rows of X (rows r0 .. r0 + 15 of a staged
-// tile) against the 8·NJ rows of the staged tile Y, over kD: d[j] holds Y's
-// rows 8j .. 8j + 7 in the accumulator layout. The large terms and the small
-// ones run in separate accumulators, summed at the end.
-template <int NJ>
-__device__ __forceinline__ void product_xyt(const float (*x)[kLd], const float (*y)[kLd], int r0,
-                                            int lane, float (&d)[NJ][4]) {
+// tile) against the 8·NJ rows of the staged tile Y, over the head width D:
+// d[j] holds Y's rows 8j .. 8j + 7 in the accumulator layout. The large
+// terms and the small ones run in separate accumulators, summed at the end.
+template <int NJ, int D>
+__device__ __forceinline__ void product_xyt(const float (*x)[kLdOf<D>],
+                                            const float (*y)[kLdOf<D>], int r0, int lane,
+                                            float (&d)[NJ][4]) {
   static_assert(NJ % 2 == 0, "column tiles go in pairs");
   float small[NJ][4];
 #pragma unroll
@@ -208,7 +214,7 @@ __device__ __forceinline__ void product_xyt(const float (*x)[kLd], const float (
 #pragma unroll
     for (int i = 0; i < 4; ++i) d[j][i] = small[j][i] = 0.0f;
 #pragma unroll 2
-  for (int ks = 0; ks < kD / 8; ++ks) {
+  for (int ks = 0; ks < D / 8; ++ks) {
     uint32_t a_hi[4], a_lo[4];
     a_direct(x, r0, 8 * ks, lane, a_hi, a_lo);
 #pragma unroll
@@ -233,44 +239,49 @@ __device__ __forceinline__ void product_xyt(const float (*x)[kLd], const float (
 
 // acc += A·T for one warp, with A the 16 x 8·KS accumulator tiles a[ks]
 // (k-step ks covering T's rows 8ks .. 8ks + 7 in the paired order) and T a
-// staged tile read paired; the tile's product is summed in a fresh
-// accumulator and added in f32.
-template <int KS>
-__device__ __forceinline__ void add_product(float (&acc)[kD / 8][4], const float (&a)[KS][4],
-                                            const float (*tile)[kLd], int g, int t) {
-  float part[kD / 8][4];
+// staged tile [rows][D] read paired. Each 64-column group of the product is
+// summed in a fresh accumulator and added in f32: at D = 128 two groups in
+// turn, so that one 32-register partial sum serves both.
+template <int KS, int D>
+__device__ __forceinline__ void add_product(float (&acc)[D / 8][4], const float (&a)[KS][4],
+                                            const float (*tile)[kLdOf<D>], int g, int t) {
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
+  for (int c0 = 0; c0 < D / 8; c0 += 8) {
+    float part[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) part[j][i] = 0.0f;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t a_hi[4], a_lo[4];
-    a_from_acc(a[ks], a_hi, a_lo);
+      for (int i = 0; i < 4; ++i) part[j][i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      uint32_t b_hi[2], b_lo[2];
-      b_paired(tile, 8 * ks, 8 * j, g, t, b_hi, b_lo);
-      mma_split(part[j], a_hi, a_lo, b_hi, b_lo);
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a_hi[4], a_lo[4];
+      a_from_acc(a[ks], a_hi, a_lo);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t b_hi[2], b_lo[2];
+        b_paired(tile, 8 * ks, 8 * (c0 + j), g, t, b_hi, b_lo);
+        mma_split(part[j], a_hi, a_lo, b_hi, b_lo);
+      }
     }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[c0 + j][i] += part[j][i];
   }
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
 }
 
 // Rows ra and ra + 8 of a warp's accumulator, columns 8j + 2t + {0, 1}, to
-// a [n_rows, kD] matrix, each times its row's factor.
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kD / 8][4], int ra,
+// a [n_rows, D] matrix, each times its row's factor.
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8][4], int ra,
                                            int n_rows, int t, const float (&factor)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = ra + 8 * r;
     if (row >= n_rows) continue;
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
-      *reinterpret_cast<float2*>(dst + (size_t)row * kD + 8 * j + 2 * t) =
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + (size_t)row * D + 8 * j + 2 * t) =
           make_float2(acc[j][2 * r] * factor[r], acc[j][2 * r + 1] * factor[r]);
   }
 }
@@ -296,16 +307,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
-// Start copying rows row0 .. row0 + R - 1 of a [rows, kD] f32 matrix into a
+// Start copying rows row0 .. row0 + R - 1 of a [rows, D] f32 matrix into a
 // staged tile; rows at or past `rows` become zeros. Called by all
 // `nthreads` threads of the block; the caller commits the group.
-template <int R = kTile>
-__device__ __forceinline__ void load_tile_async(float (*tile)[kLd], const float* src, int row0,
-                                                int rows, int tid, int nthreads) {
-  for (int c = tid; c < R * (kD / 4); c += nthreads) {
-    const int r = c / (kD / 4), c4 = (c % (kD / 4)) * 4;
+template <int R, int D>
+__device__ __forceinline__ void load_tile_async(float (*tile)[kLdOf<D>], const float* src,
+                                                int row0, int rows, int tid, int nthreads) {
+  for (int c = tid; c < R * (D / 4); c += nthreads) {
+    const int r = c / (D / 4), c4 = (c % (D / 4)) * 4;
     const bool ok = row0 + r < rows;
-    cp_async16(&tile[r][c4], src + (size_t)(ok ? row0 + r : 0) * kD + c4, ok);
+    cp_async16(&tile[r][c4], src + (size_t)(ok ? row0 + r : 0) * D + c4, ok);
   }
 }
 

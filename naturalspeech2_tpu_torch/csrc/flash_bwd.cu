@@ -12,7 +12,7 @@
 //   dq = dS k,  dk = dSᵀ q,  dv = Aᵀ dO.
 //
 // What bounds it on the card: the matrix products. The bound counts five
-// n_q·n_kv·64 products (S, dP, dV, dQ, dK); this kernel executes seven,
+// n_q·n_kv·D products (S, dP, dV, dQ, dK); this kernel executes seven,
 // since each owner kernel recomputes S and dP for itself, and each product
 // takes three TF32 passes (split TF32, flash.cuh) on the tensor cores.
 //
@@ -39,14 +39,18 @@
 // test. Causal blocks skip the tiles past the diagonal. With 32-row walked
 // tiles three blocks share an SM; at the training shape [16,8,150,64] that
 // took 0.11 ms on the card against 0.18 with 64-row tiles (two blocks), at
-// [4,8,1024,64] 0.81 against 0.77.
+// [4,8,1024,64] 0.81 against 0.77. The head width D is 64 or 128 (a
+// template parameter; the wrapper pads narrower heads with zeros). At 128
+// the staged tiles take 135 KB, one block an SM, and each product's
+// 64-column groups are summed in turn in one partial accumulator
+// (flash.cuh add_product), which keeps the owner's two 64-register sums
+// within the thread's registers.
 #include "flash.cuh"
 
 namespace {
 
-using ns2::kD;
 using ns2::kFlashThreads;
-using ns2::kLd;
+using ns2::kLdOf;
 using ns2::kTile;
 
 // Rows per walked tile, and with them the blocks an SM holds: at 32 rows
@@ -56,51 +60,56 @@ using ns2::kTile;
 constexpr int kDqWalk = 32;
 constexpr int kDkvWalk = 32;
 
-template <int kWalk>
+template <int kWalk, int D>
 struct DqSmem {
-  float q[kTile][kLd];      // the block's query rows
-  float dout[kTile][kLd];   // and their dO
-  float k[2][kWalk][kLd];   // key tiles, a two-stage ring
-  float v[2][kWalk][kLd];   // value tiles
+  float q[kTile][kLdOf<D>];      // the block's query rows
+  float dout[kTile][kLdOf<D>];   // and their dO
+  float k[2][kWalk][kLdOf<D>];   // key tiles, a two-stage ring
+  float v[2][kWalk][kLdOf<D>];   // value tiles
 };
 
-template <int kWalk>
+template <int kWalk, int D>
 struct DkvSmem {
-  float k[kTile][kLd];       // the block's keys
-  float v[kTile][kLd];       // and their values
-  float q[2][kWalk][kLd];    // query tiles, a two-stage ring
-  float dout[2][kWalk][kLd]; // dO tiles
+  float k[kTile][kLdOf<D>];       // the block's keys
+  float v[kTile][kLdOf<D>];       // and their values
+  float q[2][kWalk][kLdOf<D>];    // query tiles, a two-stage ring
+  float dout[2][kWalk][kLdOf<D>]; // dO tiles
   float lse[2][kWalk];
   float delta[2][kWalk];
 };
 
+// Blocks an SM: at D = 64 three with 32-row walked tiles, two with 64; at
+// D = 128 one.
+template <int kWalk, int D>
+constexpr int kBwdBlocks = D == 128 ? 1 : (kWalk == 32 ? 3 : 2);
+
 // grid (ceil(n_q / 64), b·h), 128 threads; dynamic shared memory
-// sizeof(DqSmem<kWalk>)
-template <int kWalk>
-__global__ void __launch_bounds__(kFlashThreads, kWalk == 32 ? 3 : 2)
+// sizeof(DqSmem<kWalk, D>)
+template <int kWalk, int D>
+__global__ void __launch_bounds__(kFlashThreads, (kBwdBlocks<kWalk, D>))
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const unsigned char* __restrict__ mask,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const float* __restrict__ dout, float* __restrict__ dq, int heads, int n_q,
                     int n_kv, int causal, float scale, ns2::Dropout dr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DqSmem<kWalk>& sm = *reinterpret_cast<DqSmem<kWalk>*>(smem_raw);
+  DqSmem<kWalk, D>& sm = *reinterpret_cast<DqSmem<kWalk, D>*>(smem_raw);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int bi = bh / heads, hi = bh % heads;
   const size_t qbase = (size_t)bh * n_q, kbase = (size_t)bh * n_kv;
-  const float* kh = k + kbase * kD;
-  const float* vh = v + kbase * kD;
+  const float* kh = k + kbase * D;
+  const float* vh = v + kbase * D;
   const unsigned char* mask_b = mask ? mask + (size_t)bi * n_kv : nullptr;
 
   const int k_end = causal ? min(n_kv, q0 + kTile) : n_kv;
   const int n_tiles = (k_end + kWalk - 1) / kWalk;
-  ns2::load_tile_async(sm.q, q + qbase * kD, q0, n_q, tid, kFlashThreads);
-  ns2::load_tile_async(sm.dout, dout + qbase * kD, q0, n_q, tid, kFlashThreads);
-  ns2::load_tile_async<kWalk>(sm.k[0], kh, 0, n_kv, tid, kFlashThreads);
-  ns2::load_tile_async<kWalk>(sm.v[0], vh, 0, n_kv, tid, kFlashThreads);
+  ns2::load_tile_async<kTile, D>(sm.q, q + qbase * D, q0, n_q, tid, kFlashThreads);
+  ns2::load_tile_async<kTile, D>(sm.dout, dout + qbase * D, q0, n_q, tid, kFlashThreads);
+  ns2::load_tile_async<kWalk, D>(sm.k[0], kh, 0, n_kv, tid, kFlashThreads);
+  ns2::load_tile_async<kWalk, D>(sm.v[0], vh, 0, n_kv, tid, kFlashThreads);
   ns2::cp_async_commit();
 
   const int w0 = 16 * warp, ra = q0 + w0 + g;
@@ -112,17 +121,17 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     row_delta[r] = row < n_q ? delta[qbase + row] : 0.0f;
   }
 
-  float acc[kD / 8][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int st = kt & 1, k0 = kt * kWalk;
     if (kt + 1 < n_tiles) {
-      ns2::load_tile_async<kWalk>(sm.k[st ^ 1], kh, k0 + kWalk, n_kv, tid, kFlashThreads);
-      ns2::load_tile_async<kWalk>(sm.v[st ^ 1], vh, k0 + kWalk, n_kv, tid, kFlashThreads);
+      ns2::load_tile_async<kWalk, D>(sm.k[st ^ 1], kh, k0 + kWalk, n_kv, tid, kFlashThreads);
+      ns2::load_tile_async<kWalk, D>(sm.v[st ^ 1], vh, k0 + kWalk, n_kv, tid, kFlashThreads);
       ns2::cp_async_commit();
       ns2::cp_async_wait<1>();
     } else {
@@ -131,8 +140,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     float s[kWalk / 8][4], dp[kWalk / 8][4];
-    ns2::product_xyt(sm.q, sm.k[st], w0, lane, s);      // S = Q Kᵀ
-    ns2::product_xyt(sm.dout, sm.v[st], w0, lane, dp);  // dP = dO Vᵀ
+    ns2::product_xyt<kWalk / 8, D>(sm.q, sm.k[st], w0, lane, s);      // S = Q Kᵀ
+    ns2::product_xyt<kWalk / 8, D>(sm.dout, sm.v[st], w0, lane, dp);  // dP = dO Vᵀ
     // dS into s: element (j, i) is query ra + 8·(i / 2), key k0 + 8j + 2t + (i & 1);
     // a tile that no rule cuts skips the per-element test
     const bool whole = mask_b == nullptr && q0 + w0 + 16 <= n_q && k0 + kWalk <= n_kv &&
@@ -151,17 +160,17 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
         s[j][i] = ds;
       }
-    ns2::add_product(acc, s, sm.k[st], g, t);  // dQ += dS K
+    ns2::add_product<kWalk / 8, D>(acc, s, sm.k[st], g, t);  // dQ += dS K
     __syncthreads();
   }
   const float one[2] = {1.0f, 1.0f};
-  ns2::store_rows(dq + qbase * kD, acc, ra, n_q, t, one);
+  ns2::store_rows<D>(dq + qbase * D, acc, ra, n_q, t, one);
 }
 
 // grid (ceil(n_kv / 64), b·h), 128 threads; dynamic shared memory
-// sizeof(DkvSmem<kWalk>)
-template <int kWalk>
-__global__ void __launch_bounds__(kFlashThreads, kWalk == 32 ? 3 : 2)
+// sizeof(DkvSmem<kWalk, D>)
+template <int kWalk, int D>
+__global__ void __launch_bounds__(kFlashThreads, (kBwdBlocks<kWalk, D>))
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const unsigned char* __restrict__ mask,
                      const float* __restrict__ lse, const float* __restrict__ delta,
@@ -169,38 +178,38 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dv, int heads, int n_q, int n_kv, int causal,
                      float scale, ns2::Dropout dr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DkvSmem<kWalk>& sm = *reinterpret_cast<DkvSmem<kWalk>*>(smem_raw);
+  DkvSmem<kWalk, D>& sm = *reinterpret_cast<DkvSmem<kWalk, D>*>(smem_raw);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
   const int kv0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int bi = bh / heads, hi = bh % heads;
   const size_t qbase = (size_t)bh * n_q, kbase = (size_t)bh * n_kv;
-  const float* qh = q + qbase * kD;
-  const float* dh = dout + qbase * kD;
+  const float* qh = q + qbase * D;
+  const float* dh = dout + qbase * D;
   const unsigned char* mask_b = mask ? mask + (size_t)bi * n_kv : nullptr;
 
   // causal: query tiles that end before this key tile starts see none of it
   const int q_begin = causal ? kv0 : 0;
   const int n_tiles = q_begin < n_q ? (n_q - q_begin + kWalk - 1) / kWalk : 0;
   auto load_query_tile = [&](int stage, int qs) {
-    ns2::load_tile_async<kWalk>(sm.q[stage], qh, qs, n_q, tid, kFlashThreads);
-    ns2::load_tile_async<kWalk>(sm.dout[stage], dh, qs, n_q, tid, kFlashThreads);
+    ns2::load_tile_async<kWalk, D>(sm.q[stage], qh, qs, n_q, tid, kFlashThreads);
+    ns2::load_tile_async<kWalk, D>(sm.dout[stage], dh, qs, n_q, tid, kFlashThreads);
     if (tid < kWalk) {
       const bool ok = qs + tid < n_q;
       sm.lse[stage][tid] = ok ? lse[qbase + qs + tid] : 0.0f;
       sm.delta[stage][tid] = ok ? delta[qbase + qs + tid] : 0.0f;
     }
   };
-  ns2::load_tile_async(sm.k, k + kbase * kD, kv0, n_kv, tid, kFlashThreads);
-  ns2::load_tile_async(sm.v, v + kbase * kD, kv0, n_kv, tid, kFlashThreads);
+  ns2::load_tile_async<kTile, D>(sm.k, k + kbase * D, kv0, n_kv, tid, kFlashThreads);
+  ns2::load_tile_async<kTile, D>(sm.v, v + kbase * D, kv0, n_kv, tid, kFlashThreads);
   if (n_tiles > 0) load_query_tile(0, q_begin);
   ns2::cp_async_commit();
 
   const int w0 = 16 * warp, ka = kv0 + w0 + g;
-  float acc_k[kD / 8][4], acc_v[kD / 8][4];
+  float acc_k[D / 8][4], acc_v[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.0f;
 
@@ -218,8 +227,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // transposed: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, element (j, i) is key
     // ka + 8·(i / 2), query qs + 8j + 2t + (i & 1)
     float s[kWalk / 8][4], dp[kWalk / 8][4];
-    ns2::product_xyt(sm.k, sm.q[st], w0, lane, s);      // Sᵀ = K Qᵀ
-    ns2::product_xyt(sm.v, sm.dout[st], w0, lane, dp);  // dPᵀ = V dOᵀ
+    ns2::product_xyt<kWalk / 8, D>(sm.k, sm.q[st], w0, lane, s);      // Sᵀ = K Qᵀ
+    ns2::product_xyt<kWalk / 8, D>(sm.v, sm.dout[st], w0, lane, dp);  // dPᵀ = V dOᵀ
     const bool whole = mask_b == nullptr && qs + kWalk <= n_q && kv0 + w0 + 16 <= n_kv &&
                        (!causal || kv0 + w0 + 15 <= qs);
 #pragma unroll
@@ -242,46 +251,57 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         s[j][i] = a;
         dp[j][i] = ds;
       }
-    ns2::add_product(acc_v, s, sm.dout[st], g, t);  // dV += Aᵀ dO
-    ns2::add_product(acc_k, dp, sm.q[st], g, t);    // dK += dSᵀ Q
+    ns2::add_product<kWalk / 8, D>(acc_v, s, sm.dout[st], g, t);  // dV += Aᵀ dO
+    ns2::add_product<kWalk / 8, D>(acc_k, dp, sm.q[st], g, t);    // dK += dSᵀ Q
     __syncthreads();
   }
   ns2::cp_async_wait<0>();  // with no query tile (causal, n_kv > n_q) K, V may be in flight
   const float one[2] = {1.0f, 1.0f};
-  ns2::store_rows(dk + kbase * kD, acc_k, ka, n_kv, t, one);
-  ns2::store_rows(dv + kbase * kD, acc_v, ka, n_kv, t, one);
+  ns2::store_rows<D>(dk + kbase * D, acc_k, ka, n_kv, t, one);
+  ns2::store_rows<D>(dv + kbase * D, acc_v, ka, n_kv, t, one);
+}
+
+template <int D>
+cudaError_t launch_bwd(const float* q, const float* k, const float* v, const unsigned char* mask,
+                       const float* lse, const float* delta, const float* dout, float* dq,
+                       float* dk, float* dv, int b, int h, int n_q, int n_kv, int causal,
+                       float scale, const ns2::Dropout& dr, cudaStream_t st) {
+  const int dq_bytes = (int)sizeof(DqSmem<kDqWalk, D>);
+  const int dkv_bytes = (int)sizeof(DkvSmem<kDkvWalk, D>);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<kDqWalk, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<kDkvWalk, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((n_q + kTile - 1) / kTile, b * h);
+  flash_bwd_dq_kernel<kDqWalk, D><<<grid_q, kFlashThreads, dq_bytes, st>>>(
+      q, k, v, mask, lse, delta, dout, dq, h, n_q, n_kv, causal, scale, dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((n_kv + kTile - 1) / kTile, b * h);
+  flash_bwd_dkv_kernel<kDkvWalk, D><<<grid_kv, kFlashThreads, dkv_bytes, st>>>(
+      q, k, v, mask, lse, delta, dout, dk, dv, h, n_q, n_kv, causal, scale, dr);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q/dout [b,h,n_q,64], k/v [b,h,n_kv,64], 16-byte aligned, mask [b,n_kv]
-// uint8 or null, lse and delta [b,h,n_q] -> dq [b,h,n_q,64], dk/dv
-// [b,h,n_kv,64]. Dropout arguments as for ns2_flash_fwd; other head widths
-// return cudaErrorInvalidValue.
+// q/dout [b,h,n_q,d], k/v [b,h,n_kv,d], 16-byte aligned, mask [b,n_kv]
+// uint8 or null, lse and delta [b,h,n_q] -> dq [b,h,n_q,d], dk/dv
+// [b,h,n_kv,d], d 64 or 128. Dropout arguments as for ns2_flash_fwd; other
+// head widths return cudaErrorInvalidValue.
 NS2_API int ns2_flash_bwd(const float* q, const float* k, const float* v,
                           const unsigned char* mask, const float* lse, const float* delta,
                           const float* dout, float* dq, float* dk, float* dv, int b, int h,
                           int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                           unsigned seed1, float rate, int stride, unsigned threshold,
                           float keep_scale, void* stream) {
-  if (d != kD || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
+  if ((d != 64 && d != 128) || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
   const ns2::Dropout dr{seed0, seed1, rate, stride, threshold, keep_scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int dq_bytes = (int)sizeof(DqSmem<kDqWalk>);
-  const int dkv_bytes = (int)sizeof(DkvSmem<kDkvWalk>);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<kDqWalk>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<kDkvWalk>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((n_q + kTile - 1) / kTile, b * h);
-  flash_bwd_dq_kernel<kDqWalk><<<grid_q, kFlashThreads, dq_bytes, st>>>(
-      q, k, v, mask, lse, delta, dout, dq, h, n_q, n_kv, causal, scale, dr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid_kv((n_kv + kTile - 1) / kTile, b * h);
-  flash_bwd_dkv_kernel<kDkvWalk><<<grid_kv, kFlashThreads, dkv_bytes, st>>>(
-      q, k, v, mask, lse, delta, dout, dk, dv, h, n_q, n_kv, causal, scale, dr);
-  return cudaGetLastError();
+  return d == 64 ? launch_bwd<64>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv,
+                                  causal, scale, dr, st)
+                 : launch_bwd<128>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv,
+                                   causal, scale, dr, st);
 }

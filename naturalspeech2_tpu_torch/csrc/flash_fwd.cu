@@ -9,15 +9,17 @@
 // ones). Masked logits are NEG_INF (finite) and masked probabilities exactly
 // 0, so a fully masked row gives o = 0 and lse = NEG_INF.
 //
-// What bounds it on the card: the matrix products, 4·n_q·n_kv·64 FLOP per
-// (batch, head) against 16·(n_q + n_kv)·64 bytes of q, k, v and o, far past
+// What bounds it on the card: the matrix products, 4·n_q·n_kv·D FLOP per
+// (batch, head) against 16·(n_q + n_kv)·D bytes of q, k, v and o, far past
 // the ridge at the training shape (b16 h8 n150) and beyond. The fastest
 // f32-accurate way the H100 has is split TF32 on the tensor cores: three
 // TF32 products per f32 product, 495 / 3 = 165 TFLOP/s, where f32 FMAs on
 // the CUDA cores peak at 67.
 //
 // Design: one block, one warpgroup of four warps, owns (batch·head, 64
-// query rows), each warp 16 rows, and walks the keys in tiles of 32. Both
+// query rows), each warp 16 rows, and walks the keys in tiles of 32. The
+// head width D is 64 or 128 (a template parameter; the wrapper pads
+// narrower heads with zeros). Both
 // products run on `wgmma` TF32 tiles in split TF32 (flash.cuh: hi·hi +
 // hi·lo + lo·hi, f32 accumulation); one TF32 pass alone would change the
 // function at the 1e-4 level. Every operand is split into hi and lo once:
@@ -25,7 +27,9 @@
 // softmax. S = Q·Kᵀ is `wgmma.m64n32k8` with both operands K-major in
 // shared memory (Q and K are row-major in device memory, so their rows go
 // straight into 8-row core matrices). For O += P·V, `wgmma.m64n64k8` takes P
-// from registers and V transposed: V is staged as Vᵀ, each head dim a row
+// from registers and V transposed, one 64-column group of O at a time (two
+// at D = 128, each the 64-row half of Vᵀ, summed in turn in one partial
+// accumulator): V is staged as Vᵀ, each head dim a row
 // of keys, the keys of each 8 in the paired order (flash.cuh), so that the
 // accumulator of S is, element for element, P's register operand. The
 // tensor cores truncate where they add, so S keeps its large and small terms
@@ -41,16 +45,16 @@
 // anyway, so the next tile's K and V are loaded into registers right after
 // this tile is stored, and their loads are in flight while this tile's
 // products run; a `cp.async` or TMA ring would add a raw copy in shared
-// memory and a second pass over it. The block takes 64 KB of shared memory
-// and 210 registers a thread, two blocks an SM, so that one block's softmax
-// and staging run while the other's products do. Registers that wgmma reads
+// memory and a second pass over it. At D = 64 the block takes 64 KB of
+// shared memory and 210 registers a thread, two blocks an SM, so that one
+// block's softmax and staging run while the other's products do; at D = 128
+// 128 KB, one block an SM. Registers that wgmma reads
 // or writes are pinned around its fence and wait, or the compiler waits for
 // the products at every access.
 #include "wgmma.cuh"
 
 namespace {
 
-using ns2::kD;
 using ns2::kFlashThreads;
 using ns2::kTile;
 
@@ -70,10 +74,11 @@ using ns2::wg_fence;
 using ns2::wgmma_rs_n64;
 using ns2::wgmma_ss_n32;
 
+template <int D>
 struct FwdSmem {
-  float q_hi[kTile * kD], q_lo[kTile * kD];  // Q, K-major (64 rows, k = head dims)
-  float k_hi[kKeys * kD], k_lo[kKeys * kD];  // K, K-major (32 keys, k = head dims)
-  float v_hi[kD * kKeys], v_lo[kD * kKeys];  // Vᵀ, K-major (64 dims, k = keys paired)
+  float q_hi[kTile * D], q_lo[kTile * D];  // Q, K-major (64 rows, k = head dims)
+  float k_hi[kKeys * D], k_lo[kKeys * D];  // K, K-major (32 keys, k = head dims)
+  float v_hi[D * kKeys], v_lo[D * kKeys];  // Vᵀ, K-major (D dims, k = keys paired)
 };
 
 // A tile's K and V in registers, loaded ahead of their turn: K as float4s of
@@ -81,17 +86,19 @@ struct FwdSmem {
 // store one 128-byte run of a core matrix; V as keys 8·warp + 2·(lane / 8) +
 // p, head dims lane % 8 + 8q, so that the transposed stores, by head dim
 // % 8 and key position % 4, hit 32 distinct banks.
+template <int D>
 struct KvRegs {
-  float4 k[kKeys * kD / 4 / kFlashThreads];
-  float v[2][8];
+  float4 k[kKeys * D / 4 / kFlashThreads];
+  float v[2][D / 8];
 };
 
-__device__ __forceinline__ void load_kv(KvRegs& r, const float* kh, const float* vh, int k0,
+template <int D>
+__device__ __forceinline__ void load_kv(KvRegs<D>& r, const float* kh, const float* vh, int k0,
                                         int n_kv, int tid) {
 #pragma unroll
-  for (int i = 0; i < kKeys * kD / 4 / kFlashThreads; ++i) {
+  for (int i = 0; i < kKeys * D / 4 / kFlashThreads; ++i) {
     const int e = tid + kFlashThreads * i, row = k0 + e % kKeys, c4 = 4 * (e / kKeys);
-    r.k[i] = row < n_kv ? *reinterpret_cast<const float4*>(kh + (size_t)row * kD + c4)
+    r.k[i] = row < n_kv ? *reinterpret_cast<const float4*>(kh + (size_t)row * D + c4)
                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   const int lane = tid % 32;
@@ -99,17 +106,18 @@ __device__ __forceinline__ void load_kv(KvRegs& r, const float* kh, const float*
   for (int p = 0; p < 2; ++p) {
     const int row = k0 + 8 * (tid / 32) + 2 * (lane / 8) + p;
 #pragma unroll
-    for (int q = 0; q < 8; ++q)
-      r.v[p][q] = row < n_kv ? vh[(size_t)row * kD + lane % 8 + 8 * q] : 0.0f;
+    for (int q = 0; q < D / 8; ++q)
+      r.v[p][q] = row < n_kv ? vh[(size_t)row * D + lane % 8 + 8 * q] : 0.0f;
   }
 }
 
 // K stays in key order; Vᵀ takes its keys in the paired order (flash.cuh),
 // key 2t of each 8 at k position t and key 2t + 1 at t + 4, so that P's
 // accumulator is the A operand of P·V as it stands.
-__device__ __forceinline__ void store_kv(FwdSmem& sm, const KvRegs& r, int tid) {
+template <int D>
+__device__ __forceinline__ void store_kv(FwdSmem<D>& sm, const KvRegs<D>& r, int tid) {
 #pragma unroll
-  for (int i = 0; i < kKeys * kD / 4 / kFlashThreads; ++i) {
+  for (int i = 0; i < kKeys * D / 4 / kFlashThreads; ++i) {
     const int e = tid + kFlashThreads * i;
     store_split4(sm.k_hi, sm.k_lo, kmajor<kKeys>(e % kKeys, 4 * (e / kKeys)), r.k[i]);
   }
@@ -119,40 +127,40 @@ __device__ __forceinline__ void store_kv(FwdSmem& sm, const KvRegs& r, int tid) 
     const int key = 8 * (tid / 32) + 2 * (lane / 8) + p;
     const int pos = key / 8 * 8 + key % 8 / 2 + 4 * (key % 2);
 #pragma unroll
-    for (int q = 0; q < 8; ++q)
-      store_split1(sm.v_hi, sm.v_lo, kmajor<kD>(lane % 8 + 8 * q, pos), r.v[p][q]);
+    for (int q = 0; q < D / 8; ++q)
+      store_split1(sm.v_hi, sm.v_lo, kmajor<D>(lane % 8 + 8 * q, pos), r.v[p][q]);
   }
 }
 
 // grid (ceil(n_q / 64), b·h), 128 threads (one warpgroup); dynamic shared
-// memory sizeof(FwdSmem) = 65,536 bytes. kLse: store lse (K2's attention
-// core, which needs no backward state, skips it).
-template <bool kLse>
-__global__ void __launch_bounds__(kFlashThreads, 2)
+// memory sizeof(FwdSmem<D>) = 65,536 or 131,072 bytes. kLse: store lse (K2's
+// attention core, which needs no backward state, skips it).
+template <int D, bool kLse>
+__global__ void __launch_bounds__(kFlashThreads, D == 64 ? 2 : 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const unsigned char* __restrict__ mask,
                  float* __restrict__ o, float* __restrict__ lse, int heads, int n_q, int n_kv,
                  int causal, float scale, ns2::Dropout dr) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(smem_raw);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int t = lane % 4;
   const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int bi = bh / heads, hi = bh % heads;
-  const float* qh = q + (size_t)bh * n_q * kD;
-  const float* kh = k + (size_t)bh * n_kv * kD;
-  const float* vh = v + (size_t)bh * n_kv * kD;
+  const float* qh = q + (size_t)bh * n_q * D;
+  const float* kh = k + (size_t)bh * n_kv * D;
+  const float* vh = v + (size_t)bh * n_kv * D;
   const unsigned char* mask_b = mask ? mask + (size_t)bi * n_kv : nullptr;
 
   const int k_end = causal ? min(n_kv, q0 + kTile) : n_kv;
   const int n_tiles = (k_end + kKeys - 1) / kKeys;
-  KvRegs regs;
+  KvRegs<D> regs;
   load_kv(regs, kh, vh, 0, n_kv, tid);
 #pragma unroll
-  for (int i = 0; i < kTile * kD / 4 / kFlashThreads; ++i) {
+  for (int i = 0; i < kTile * D / 4 / kFlashThreads; ++i) {
     const int e = tid + kFlashThreads * i, row = q0 + e % kTile, c4 = 4 * (e / kTile);
-    const float4 x = row < n_q ? *reinterpret_cast<const float4*>(qh + (size_t)row * kD + c4)
+    const float4 x = row < n_q ? *reinterpret_cast<const float4*>(qh + (size_t)row * D + c4)
                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     store_split4(sm.q_hi, sm.q_lo, kmajor<kTile>(e % kTile, c4), x);
   }
@@ -161,9 +169,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // ra + 8 (index 1); acc[j] holds columns 8j + 2t, 8j + 2t + 1 of both
   const int w0 = 16 * warp, ra = q0 + w0 + lane / 4;
   float m[2] = {ns2::kNegInf, ns2::kNegInf}, l[2] = {0.0f, 0.0f};
-  float acc[kD / 8][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
 
@@ -187,7 +195,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     pin(small);
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < kD / 8; ++ks) {
+    for (int ks = 0; ks < D / 8; ++ks) {
       const uint64_t qa_hi = kmajor_desc<kTile>(sm.q_hi, ks);
       const uint64_t qa_lo = kmajor_desc<kTile>(sm.q_lo, ks);
       const uint64_t kb_hi = kmajor_desc<kKeys>(sm.k_hi, ks);
@@ -241,34 +249,41 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ns2::quad_sum(row_sum[r]);
 
-    // O += P V: P from the accumulator in registers, summed apart and added in f32
+    // O += P V: P from the accumulator in registers; each 64-column group
+    // of O (rows 64·h.. of Vᵀ, 256·h floats into each k-step) summed apart
+    // and added in f32
     uint32_t pa_hi[kKeys / 8][4], pa_lo[kKeys / 8][4];
-    float part[kD / 8][4];
 #pragma unroll
     for (int ks = 0; ks < kKeys / 8; ++ks) ns2::a_from_acc(s[ks], pa_hi[ks], pa_lo[ks]);
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
+    for (int h = 0; h < D / 64; ++h) {
+      float part[8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) part[j][i] = 0.0f;
-    pin(part);
-    pin(pa_hi);
-    pin(pa_lo);
-    wg_fence();
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int ks = 0; ks < kKeys / 8; ++ks) {
-      const uint64_t vb_hi = kmajor_desc<kD>(sm.v_hi, ks), vb_lo = kmajor_desc<kD>(sm.v_lo, ks);
-      wgmma_rs_n64(part, pa_hi[ks], vb_lo);
-      wgmma_rs_n64(part, pa_lo[ks], vb_hi);
-      wgmma_rs_n64(part, pa_hi[ks], vb_hi);
-    }
-    wg_commit_wait();
-    pin(part);
+        for (int i = 0; i < 4; ++i) part[j][i] = 0.0f;
+      pin(part);
+      pin(pa_hi);
+      pin(pa_lo);
+      wg_fence();
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      acc[j][0] = acc[j][0] * corr[0] + part[j][0];
-      acc[j][1] = acc[j][1] * corr[0] + part[j][1];
-      acc[j][2] = acc[j][2] * corr[1] + part[j][2];
-      acc[j][3] = acc[j][3] * corr[1] + part[j][3];
+      for (int ks = 0; ks < kKeys / 8; ++ks) {
+        const uint64_t vb_hi = kmajor_desc<D>(sm.v_hi + 256 * h, ks);
+        const uint64_t vb_lo = kmajor_desc<D>(sm.v_lo + 256 * h, ks);
+        wgmma_rs_n64(part, pa_hi[ks], vb_lo);
+        wgmma_rs_n64(part, pa_lo[ks], vb_hi);
+        wgmma_rs_n64(part, pa_hi[ks], vb_hi);
+      }
+      wg_commit_wait();
+      pin(part);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float* a = acc[8 * h + j];
+        a[0] = a[0] * corr[0] + part[j][0];
+        a[1] = a[1] * corr[0] + part[j][1];
+        a[2] = a[2] * corr[1] + part[j][2];
+        a[3] = a[3] * corr[1] + part[j][3];
+      }
     }
   }
 
@@ -280,30 +295,40 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = ra + 8 * r;
     if (kLse && t == 0 && row < n_q) lse[(size_t)bh * n_q + row] = m[r] + logf(safe_l);
   }
-  ns2::store_rows(o + (size_t)bh * n_q * kD, acc, ra, n_q, t, inv_l);
+  ns2::store_rows<D>(o + (size_t)bh * n_q * D, acc, ra, n_q, t, inv_l);
+}
+
+template <int D>
+cudaError_t launch_fwd(const float* q, const float* k, const float* v, const unsigned char* mask,
+                       float* o, float* lse, int b, int h, int n_q, int n_kv, int causal,
+                       float scale, const ns2::Dropout& dr, cudaStream_t stream) {
+  const int bytes = (int)sizeof(FwdSmem<D>);
+  auto kernel = lse ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_q + kTile - 1) / kTile, b * h);
+  kernel<<<grid, kFlashThreads, bytes, stream>>>(q, k, v, mask, o, lse, h, n_q, n_kv, causal,
+                                                 scale, dr);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [b,h,n_q,64], k/v [b,h,n_kv,64], 16-byte aligned, mask [b,n_kv] uint8
-// or null -> o [b,h,n_q,64], lse [b,h,n_q] (not written when lse is null).
+// q [b,h,n_q,d], k/v [b,h,n_kv,d], 16-byte aligned, mask [b,n_kv] uint8
+// or null -> o [b,h,n_q,d], lse [b,h,n_q] (not written when lse is null).
 // Dropout is on when rate > 0: seed, counter stride, keep threshold and keep
-// scale come from the Python wrapper, as the JAX package derives them. Other
-// head widths return cudaErrorInvalidValue (the wrapper pads d ≤ 64 to 64).
+// scale come from the Python wrapper, as the JAX package derives them. d is
+// 64 or 128; other head widths return cudaErrorInvalidValue (the wrapper
+// pads d ≤ 128 to the next of the two).
 NS2_API int ns2_flash_fwd(const float* q, const float* k, const float* v,
                           const unsigned char* mask, float* o, float* lse, int b, int h, int n_q,
                           int n_kv, int d, int causal, float scale, unsigned seed0,
                           unsigned seed1, float rate, int stride, unsigned threshold,
                           float keep_scale, void* stream) {
-  if (d != kD || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
+  if ((d != 64 && d != 128) || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
   const ns2::Dropout dr{seed0, seed1, rate, stride, threshold, keep_scale};
-  const int bytes = (int)sizeof(FwdSmem);
-  auto kernel = lse ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n_q + kTile - 1) / kTile, b * h);
-  kernel<<<grid, kFlashThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, mask, o, lse, h, n_q, n_kv, causal, scale, dr);
-  return cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return d == 64 ? launch_fwd<64>(q, k, v, mask, o, lse, b, h, n_q, n_kv, causal, scale, dr, st)
+                 : launch_fwd<128>(q, k, v, mask, o, lse, b, h, n_q, n_kv, causal, scale, dr, st);
 }

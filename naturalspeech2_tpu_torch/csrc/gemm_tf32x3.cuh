@@ -1,4 +1,5 @@
-// The split-TF32 GEMM core of K2 (attn_block.cu) and K3 (ff_block.cu):
+// The split-TF32 GEMM core of K1 (wavenet.cu), K1b (wavenet_lane.cu), K2
+// (attn_block.cu) and K3 (ff_block.cu):
 //
 //   C[M x N] = epilogue(prologue(A)[M x K] · B[K x N])   in f32,
 //
@@ -14,6 +15,7 @@
 // Design: a block is WN warpgroups of 128 threads that share one 64-row
 // tile of A, each owning a 64 x 64 tile of C (so a block covers 64 WN
 // columns), `wgmma.m64n64k8` with both operands K-major in shared memory.
+// (K2 and K3 take WN 1 or 3 by the grid's size, `launch`; K1 and K1b 2.)
 // The reduction walks K in chunks of 32 (four k-steps) through a
 // two-stage ring:
 //  - B is a weight. The Python wrapper's cache holds Bᵀ once per
@@ -26,7 +28,8 @@
 //    two of a larger block: two or four threads a row) load their float4s
 //    of the next chunk into registers while the products of this chunk
 //    run, and the loader applies the prologue on the way (the adaptive
-//    RMSNorm; a causal row shift; the head layout of K4's output). They
+//    RMSNorm; causal, dilated row shifts; the head layout of K4's output;
+//    the WaveNet's lanes side by side). They
 //    split them into hi and lo and store them K-major into the other stage
 //    of the ring, also while this chunk's products run: wgmma is
 //    asynchronous, and the block waits for it only after.
@@ -41,6 +44,9 @@
 // apart from the small cross terms (8 mmas), and added to the f32 result
 // afterwards, so no accumulator runs through more than 8 mmas, however long
 // K is (K3's conv has K = 3 · 1376 at dim 512).
+// Groups: grid z runs `groups` GEMMs of one shape in one launch (K1: the L
+// lanes of a stack); the loader and the epilogue take the group's operands
+// in `group(z)`, and group z's B lies z · b_group floats on.
 #pragma once
 
 #include <stdint.h>
@@ -99,6 +105,8 @@ struct NormRows {
   float scale;
   bool ok, vec;
 
+  __device__ void group(int) {}
+
   // Called by all threads of the block, with part[lanes][64] and the
   // thread's index: the `lanes` threads of a row (t, t + 64, ..) each sum
   // every lanes-th float4 of it; threads past lanes·64 sum nothing.
@@ -140,16 +148,25 @@ struct NormRows {
   }
 };
 
-// A[row, tap·w + c] = a[row - (taps - 1 - tap), c] within row's sequence
-// (row = b·n + t), zero before t = 0: with taps 3 the causal k=3 conv's
-// three shifted row views, with taps 1 the rows of a as they are. a is
-// [rows, w], w % 32 == 0, 16-byte aligned (the wrapper's scratch).
+// A[row, tap·w + c] = a_tap[row - (taps - 1 - tap)·dil, c] within row's
+// sequence (row = b·n + t), zero before t = 0, where a_tap = a + tap ·
+// tap_stride: with taps 3 and dil δ the causal k=3 conv's three shifted row
+// views at dilation δ; with taps 1 the rows of a as they are; with taps L,
+// dil 0 and tap_stride one lane, L lanes side by side. Group z reads a + z ·
+// group_stride at dilation dil · 2^z (K1: lane l at δ = 2^l). Each a_tap is
+// [rows, w], w % 32 == 0, 16-byte aligned.
 struct TapRows {
   const float* a;
-  int rows, n, w, taps;
+  int rows, n, w, taps, dil;
+  size_t tap_stride, group_stride;
   const float *p, *pc;  // the row, and the chunk's shifted row
   int t;
   bool ok, live;         // live: the chunk's source row exists
+
+  __device__ void group(int z) {
+    a += (size_t)z * group_stride;
+    dil <<= z;
+  }
 
   __device__ void init(int row, float*, int, int) {
     ok = row < rows;
@@ -158,9 +175,9 @@ struct TapRows {
   }
 
   __device__ void chunk(int c) {
-    const int k0 = c * kKC, tap = k0 / w, shift = taps - 1 - tap;
+    const int k0 = c * kKC, tap = k0 / w, shift = (taps - 1 - tap) * dil;
     live = ok && t >= shift;
-    pc = live ? p - (size_t)shift * w + (k0 - tap * w) : p;
+    pc = live ? p + tap * tap_stride - (size_t)shift * w + (k0 - tap * w) : p;
   }
 
   __device__ float4 get(int j) const {
@@ -168,26 +185,28 @@ struct TapRows {
   }
 };
 
-// A[row, h·64 + e] = o[b, h, t, e] (row = b·n + t): K4's output [b, H, n,
-// 64] as the rows of the heads' concatenation, each head one contiguous
-// [n, 64] tile.
+// A[row, h·dh + e] = o[b, h, t, e] (row = b·n + t): K4's output [b, H, n,
+// dh] as the rows of the heads' concatenation, each head one contiguous
+// [n, dh] tile; dh % 32 == 0.
 struct HeadRows {
   const float* o;
-  int rows, n, heads;
+  int rows, n, heads, dh;
   const float *p, *pc;  // the row of head 0, and the chunk's
   size_t head_stride;
   bool ok;
 
+  __device__ void group(int) {}
+
   __device__ void init(int row, float*, int, int) {
     ok = row < rows;
     const int r = ok ? row : 0, bi = r / n, t = r % n;
-    head_stride = (size_t)n * 64;
-    p = o + ((size_t)bi * heads * n + t) * 64;
+    head_stride = (size_t)n * dh;
+    p = o + ((size_t)bi * heads * n + t) * dh;
   }
 
   __device__ void chunk(int c) {
     const int k0 = c * kKC;
-    pc = p + (size_t)(k0 >> 6) * head_stride + (k0 & 63);
+    pc = p + (size_t)(k0 / dh) * head_stride + k0 % dh;
   }
 
   __device__ float4 get(int j) const {
@@ -207,6 +226,8 @@ struct Store {
   const float* bias;
   const float* res;
   int rows, ncols, ld;
+
+  __device__ void group(int) {}
 
   __device__ void operator()(const float (&acc)[8][4], int m0, int n0, int warp,
                              int lane) const {
@@ -237,6 +258,8 @@ struct Geglu {
   const float* b_gate;
   int rows, w;
 
+  __device__ void group(int) {}
+
   __device__ void operator()(const float (&acc)[8][4], int m0, int n0, int warp,
                              int lane) const {
 #pragma unroll
@@ -255,21 +278,24 @@ struct Geglu {
   }
 };
 
-// K2's q/k/v: tile j = which·H + h (which: q, k, v) is head h's 64 columns
-// of that projection, scattered into K4's layout qkv [3, b, H, n, 64].
+// K2's q/k/v: column which·H·dh + h·dh + e (which: q, k, v) is column e
+// of head h of that projection, scattered into K4's layout qkv [3, b, H, n,
+// dh]; dh % 64 == 0, so a 64-column tile lies within one head.
 struct QkvScatter {
   float* qkv;
-  int rows, n, heads, batch;
+  int rows, n, heads, batch, dh;
+
+  __device__ void group(int) {}
 
   __device__ void operator()(const float (&acc)[8][4], int m0, int n0, int warp,
                              int lane) const {
-    const int j = n0 / 64, which = j / heads, h = j % heads;
+    const int hd = heads * dh, which = n0 / hd, h = n0 % hd / dh, e0 = n0 % dh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = m0 + 16 * warp + lane / 4 + 8 * r;
       if (row >= rows) continue;
       const int bi = row / n, t = row % n;
-      float* dst = qkv + ((((size_t)which * batch + bi) * heads + h) * n + t) * 64;
+      float* dst = qkv + ((((size_t)which * batch + bi) * heads + h) * n + t) * dh + e0;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
         *reinterpret_cast<float2*>(dst + 8 * jj + 2 * (lane % 4)) =
@@ -278,15 +304,63 @@ struct QkvScatter {
   }
 };
 
+// K1's gated block: tile j holds the conv's columns 32j .. 32j + 31 in its
+// first 32 columns and the residual's same columns in its last 32 (the
+// weight cache interleaves them so), and writes lane l of the next stack:
+//   y = conv + cb[c],  y = y·γ + β,  out[row, c] = tanh(y)·σ(y) + res + rb[c]
+// with γ = film[b][c], β = film[b][w + c] (row = b·n + t; batch rows
+// film_b floats apart). Group z (lane z) writes out + z · out_group and
+// reads its biases and FiLM z·w and z·2w floats on. out is [rows, w].
+struct WaveGate {
+  float* out;
+  const float* cb;
+  const float* rb;
+  const float* film;
+  size_t out_group, film_b;
+  int rows, n, w;
+
+  __device__ void group(int z) {
+    out += (size_t)z * out_group;
+    cb += (size_t)z * w;
+    rb += (size_t)z * w;
+    film += (size_t)z * 2 * w;
+  }
+
+  __device__ void operator()(const float (&acc)[8][4], int m0, int n0, int warp,
+                             int lane) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 16 * warp + lane / 4 + 8 * r;
+      if (row >= rows) continue;
+      const float* f = film + (size_t)(row / n) * film_b;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n0 / 2 + 8 * j + 2 * (lane % 4) + e;
+          const float y = (acc[j][2 * r + e] + cb[c]) * f[c] + f[w + c];
+          out[(size_t)row * w + c] = tanhf(y) * sigmoid(y) + acc[j + 4][2 * r + e] + rb[c];
+        }
+    }
+  }
+};
+
 // ---- the kernel -----------------------------------------------------------
 
-// grid (ceil(M / 64), ceil(n_tiles / WN)), 128·WN threads, dynamic shared
-// memory sizeof(Smem<WN>). bt: the packed Bᵀ, tile (j, c) at (j·chunks +
-// c)·2·kTile, hi then lo. A warpgroup past the last column tile runs its
-// products on whatever its B stage holds and stores nothing.
+// grid (ceil(M / 64), ceil(n_tiles / WN), groups), 128·WN threads, dynamic
+// shared memory sizeof(Smem<WN>). bt: the packed Bᵀ of group 0, tile (j, c)
+// at (j·chunks + c)·2·kTile, hi then lo; group z's at bt + z·b_group. A
+// warpgroup past the last column tile runs its products on whatever its B
+// stage holds and stores nothing.
+// Blocks an SM: three of one warpgroup, two of two (at most 128 registers a
+// thread: K1's and K1b's blocks), one of three.
+template <int WN>
+constexpr int kBlocksPerSm = WN == 1 ? 3 : (WN == 2 ? 2 : 1);
+
 template <int WN, class Loader, class Epilogue>
-__global__ void __launch_bounds__(WN * kThreads, WN == 1 ? 3 : 1)
-gemm_kernel(Loader loader, const float* __restrict__ bt, int chunks, int n_tiles, Epilogue epi) {
+__global__ void __launch_bounds__(WN * kThreads, kBlocksPerSm<WN>)
+gemm_kernel(Loader loader, const float* __restrict__ bt, size_t b_group, int chunks,
+            int n_tiles, Epilogue epi) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<WN>& sm = *reinterpret_cast<Smem<WN>*>(smem_raw);
 
@@ -294,7 +368,7 @@ gemm_kernel(Loader loader, const float* __restrict__ bt, int chunks, int n_tiles
   const int warp = t / 32, lane = t % 32;
   const int m0 = blockIdx.x * kBM, tile = blockIdx.y * WN + wg, n0 = tile * kBN;
   const bool live = tile < n_tiles;  // the same for the whole warpgroup
-  const float* bj = bt + (size_t)tile * chunks * 2 * kTile;
+  const float* bj = bt + blockIdx.z * b_group + (size_t)tile * chunks * 2 * kTile;
   // a staging thread's row and its float4 columns 4·(cq + lanes·i) of a
   // chunk: a warp stores 32 rows' 16 bytes, one contiguous 512-byte run per
   // k-half
@@ -304,6 +378,7 @@ gemm_kernel(Loader loader, const float* __restrict__ bt, int chunks, int n_tiles
   const bool stager = tid < kStagers<WN>;         // the same for the whole warp
   const int sr = tid % kBM, cq = tid / kBM;
   Loader ld = loader;
+  ld.group(blockIdx.z);
   ld.init(m0 + sr, &sm.part[0][0], tid, kLanes);
 
   auto load_b = [&](int c, int s) {
@@ -382,7 +457,11 @@ gemm_kernel(Loader loader, const float* __restrict__ bt, int chunks, int n_tiles
     if (c + 2 < chunks) load_b(c + 2, s);
     cp_async_commit();  // possibly empty: one group per chunk keeps the count
   }
-  if (live) epi(acc, m0, n0, warp, lane);
+  if (live) {
+    Epilogue e = epi;
+    e.group(blockIdx.z);
+    e(acc, m0, n0, warp, lane);
+  }
 }
 
 // The number of SMs of the current device.
@@ -394,33 +473,42 @@ inline int sm_count() {
   return count;
 }
 
+// `groups` GEMMs in grid z, group z's B b_group floats after group 0's.
+struct Groups {
+  int groups = 1;
+  size_t b_group = 0;
+};
+
 template <int WN, class Loader, class Epilogue>
 cudaError_t launch_wn(const Loader& loader, const float* bt, int rows, int chunks, int n_tiles,
-                      const Epilogue& epi, cudaStream_t stream) {
+                      const Epilogue& epi, cudaStream_t stream, Groups g = Groups()) {
+  if (rows <= 0 || chunks <= 0 || n_tiles <= 0 || g.groups <= 0) return cudaErrorInvalidValue;
   const int bytes = (int)sizeof(Smem<WN>);
   cudaError_t err = cudaFuncSetAttribute(gemm_kernel<WN, Loader, Epilogue>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((rows + kBM - 1) / kBM, (n_tiles + WN - 1) / WN);
-  gemm_kernel<WN, Loader, Epilogue><<<grid, WN * kThreads, bytes, stream>>>(loader, bt, chunks,
-                                                                           n_tiles, epi);
+  const dim3 grid((rows + kBM - 1) / kBM, (n_tiles + WN - 1) / WN, g.groups);
+  gemm_kernel<WN, Loader, Epilogue><<<grid, WN * kThreads, bytes, stream>>>(
+      loader, bt, g.b_group, chunks, n_tiles, epi);
   return cudaGetLastError();
 }
 
 constexpr int kSharedWN = 3;  // warpgroups sharing an A tile where the grid is large
 
 // C = epilogue(A · B) over `rows` rows and n_tiles · 64 columns, K =
-// chunks · 32; launched on `stream` without synchronising. Three
-// warpgroups share each A tile where that still gives every SM a block
-// (one fits), else a block is one warpgroup (three an SM).
+// chunks · 32 (for each of g.groups groups); launched on `stream` without
+// synchronising. Three warpgroups share each A tile where that still gives
+// every SM such a block (one fits), else a block is one warpgroup (three an
+// SM).
 template <class Loader, class Epilogue>
 cudaError_t launch(const Loader& loader, const float* bt, int rows, int chunks, int n_tiles,
-                   const Epilogue& epi, cudaStream_t stream) {
+                   const Epilogue& epi, cudaStream_t stream, Groups g = Groups()) {
   if (rows <= 0 || chunks <= 0 || n_tiles <= 0) return cudaErrorInvalidValue;
-  const long shared = (long)((rows + kBM - 1) / kBM) * ((n_tiles + kSharedWN - 1) / kSharedWN);
+  const long shared = (long)((rows + kBM - 1) / kBM) * ((n_tiles + kSharedWN - 1) / kSharedWN) *
+                      g.groups;
   if (shared >= sm_count())
-    return launch_wn<kSharedWN>(loader, bt, rows, chunks, n_tiles, epi, stream);
-  return launch_wn<1>(loader, bt, rows, chunks, n_tiles, epi, stream);
+    return launch_wn<kSharedWN>(loader, bt, rows, chunks, n_tiles, epi, stream, g);
+  return launch_wn<1>(loader, bt, rows, chunks, n_tiles, epi, stream, g);
 }
 
 }  // namespace gemm

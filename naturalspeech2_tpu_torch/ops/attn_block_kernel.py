@@ -21,9 +21,11 @@ GEMM core (``pack_attn_weights``, once per parameter version);
 ``attn_block_packed_torch`` computes the block from that layout in plain
 PyTorch.
 
-Both kernels take heads up to 64 wide and pad them to 64 with exact
-zeros, K2b also dm and dc (``pad_cross_inputs``); the norm keeps √dm of
-the real width.
+Both kernels take heads up to 128 wide and pad them to 64 or 128 (K4's
+head dims) with exact zeros, K2b also dm to a multiple of 128 and dc to
+one of 16 (``pad_cross_inputs``); the norm keeps √dm of the real width.
+Wider heads raise (``flash_attention.kernel_head_dim``, ROADMAP Queue 3,
+F1).
 
 ``fits_fused_attn_block`` and ``fits_fused_cross_attn_block`` are the JAX
 package's shape gates, which `Attention` consults before it takes a block.
@@ -32,20 +34,18 @@ package's shape gates, which `Attention` consults before it takes a block.
 from __future__ import annotations
 
 import math
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
 from naturalspeech2_tpu_torch.ops.ff_block_kernel import ada_norm
-from naturalspeech2_tpu_torch.ops.flash_attention import FlashAttention, flash_forward_torch
+from naturalspeech2_tpu_torch.ops.flash_attention import (
+    FlashAttention,
+    flash_forward_torch,
+    kernel_head_dim,
+)
 from naturalspeech2_tpu_torch.utils.helpers import vjp
-
-# The widest head the kernels take: K4's head dim, to which narrower heads
-# are padded (ROADMAP Queue 3, F1, for wider ones).
-MAX_DIM_HEAD = 64
 
 # The JAX package's budget for its fused attention blocks
 # (`VMEM_BUDGET_BYTES` of `naturalspeech2_tpu/ops/attn_block_kernel.py`).
@@ -130,40 +130,37 @@ def attn_block_flash(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, 
     return x + o.transpose(1, 2).reshape(b, n, heads * dim_head) @ wo
 
 
-def _check_dim_head(name: str, dim_head: int) -> None:
-    if dim_head > MAX_DIM_HEAD:
-        raise ValueError(f"{name}: the CUDA kernel takes dim_head up to {MAX_DIM_HEAD}, got "
-                         f"{dim_head} (ROADMAP Queue 3, F1)")
-
-
 def pack_attn_weights(wq, wkv, wo, heads: int, dim_head: int):
     """(q/k/v, out): the Dense layouts in the GEMM core's format
-    (``gemm_cache.pack_b``), each head padded with zeros to 64 columns.
-    The q/k/v Bᵀ has 3·H tiles of 64 rows, tile which·H + h = head h of q,
-    k or v; the out Bᵀ is W_oᵀ [dm, H·64], head h in columns h·64 .. h·64 +
-    dh."""
-    dm, pad = wq.shape[0], MAX_DIM_HEAD - dim_head
+    (``gemm_cache.pack_b``), each head padded with zeros to dh = 64 or 128
+    columns (``kernel_head_dim``). The q/k/v Bᵀ has 3·H·dh rows, row
+    which·H·dh + h·dh + e = column e of head h of q, k or v; the out Bᵀ is
+    W_oᵀ [dm, H·dh], head h in columns h·dh .. h·dh + dim_head."""
+    dh = kernel_head_dim(dim_head, "attn_block")
+    dm, pad = wq.shape[0], dh - dim_head
     wk, wv = wkv.chunk(2, dim=-1)
     qkv = torch.stack([F.pad(w.reshape(dm, heads, dim_head), (0, pad)) for w in (wq, wk, wv)],
                       dim=1)
-    out = F.pad(wo.reshape(heads, dim_head, dm), (0, 0, 0, pad)).reshape(heads * 64, dm)
-    return (gemm_cache.pack_b(qkv.reshape(dm, 3 * heads * 64).T),
+    out = F.pad(wo.reshape(heads, dim_head, dm), (0, 0, 0, pad)).reshape(heads * dh, dm)
+    return (gemm_cache.pack_b(qkv.reshape(dm, 3 * heads * dh).T),
             gemm_cache.pack_b(out.T))
 
 
 def attn_block_packed_torch(x, gamma, beta, packed, *, heads: int, scale: float):
     """The kernel's three launches in plain PyTorch, from the packed weights:
-    q/k/v at the padded head width 64 in K4's layout, the attention core
+    q/k/v at the padded head width dh in K4's layout, the attention core
     (``flash_forward_torch``), the heads' concatenation times W_o with the
     residual; the norm at the real dm. Equal to ``attn_block_torch`` up to
     f32 reordering: the check of K2's padding and weight layout on the
     CPU."""
     b, n, dm = x.shape
     dense = [sum(gemm_cache.unpack_b(p)) for p in packed]
-    qkv = ada_norm(x, gamma, beta) @ dense[0][:3 * heads * 64, :dm].T
-    q, k, v = qkv.reshape(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4)
+    hd = dense[1].shape[1]  # H·dh: the out Bᵀ's K, a multiple of 64
+    dh = hd // heads
+    qkv = ada_norm(x, gamma, beta) @ dense[0][:3 * hd, :dm].T
+    q, k, v = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
     o, _ = flash_forward_torch(q, k, v, None, None, causal=False, scale=scale)
-    return x + o.transpose(1, 2).reshape(b, n, heads * 64) @ dense[1][:dm, :heads * 64].T
+    return x + o.transpose(1, 2).reshape(b, n, hd) @ dense[1][:dm, :hd].T
 
 
 def _pack_checked(wq, wkv, wo, heads: int, dim_head: int):
@@ -173,7 +170,6 @@ def _pack_checked(wq, wkv, wo, heads: int, dim_head: int):
     dm, hd = wq.shape[0], heads * dim_head
     _build.require_shapes("attn_block", wq=(wq, (dm, hd)), wkv=(wkv, (dm, 2 * hd)),
                           wo=(wo, (hd, dm)))
-    _check_dim_head("attn_block", dim_head)
     return pack_attn_weights(wq, wkv, wo, heads, dim_head)
 
 
@@ -190,12 +186,13 @@ def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: f
     if wq.shape[0] != dm or wq.device != x.device:
         raise ValueError(f"attn_block: wq {tuple(wq.shape)} on {wq.device} does not take x "
                          f"{tuple(x.shape)} on {x.device}")
-    qkv = torch.empty((3, b, heads, n, MAX_DIM_HEAD), dtype=torch.float32, device=x.device)
-    o = torch.empty((b, heads, n, MAX_DIM_HEAD), dtype=torch.float32, device=x.device)
+    dh = kernel_head_dim(dim_head)
+    qkv = torch.empty((3, b, heads, n, dh), dtype=torch.float32, device=x.device)
+    o = torch.empty((b, heads, n, dh), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     err = _build.library().ns2_attn_block(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), bt_qkv.data_ptr(), bt_out.data_ptr(),
-        qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, dm, heads, float(scale),
+        qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, dm, heads, dh, float(scale),
         _build.stream(x),
     )
     _build.check(err, "ns2_attn_block")
@@ -257,31 +254,32 @@ def _cross_plain(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int,
                                   scale=scale)
 
 
-# K2b's model widths (the kernel's templates) and its context chunk.
-_CROSS_DM = (128, 256, 384, 512)
+# K2b's model-width and context-width multiples: the core's staged chunk
+# of W_q,h rows, and its context chunk.
+_CROSS_DM_ALIGN = 128
 _CROSS_DC_ALIGN = 16
 
 
-def cross_padded_widths(dm: int, dc: int) -> Optional[tuple[int, int]]:
-    """(dm, dc) padded to what K2b takes, or None past dm 512."""
-    dm_p = next((w for w in _CROSS_DM if w >= dm), None)
-    return None if dm_p is None else (dm_p, gemm_cache.round_up(dc, _CROSS_DC_ALIGN))
+def cross_padded_widths(dm: int, dc: int) -> tuple[int, int]:
+    """(dm, dc) padded to what K2b takes."""
+    return (gemm_cache.round_up(dm, _CROSS_DM_ALIGN), gemm_cache.round_up(dc, _CROSS_DC_ALIGN))
 
 
 def pad_cross_weights(wq, wkv, wo, heads: int, dim_head: int, dm_p: int, dc_p: int):
-    """K2b's Dense layouts padded with zeros: heads to 64 columns, dm to
-    ``dm_p`` and dc to ``dc_p`` (wq [dm_p, H·64], wkv [dc_p, 2·H·64], wo
-    [H·64, dm_p])."""
-    dm, dc, pad = wq.shape[0], wkv.shape[0], MAX_DIM_HEAD - dim_head
+    """K2b's Dense layouts padded with zeros: heads to dh = 64 or 128
+    columns (``kernel_head_dim``), dm to ``dm_p`` and dc to ``dc_p`` (wq
+    [dm_p, H·dh], wkv [dc_p, 2·H·dh], wo [H·dh, dm_p])."""
+    dh = kernel_head_dim(dim_head, "cross_attn_block")
+    dm, dc, pad = wq.shape[0], wkv.shape[0], dh - dim_head
     wk, wv = wkv.chunk(2, dim=-1)
 
-    def heads64(w, rows):
+    def padded_heads(w, rows):
         return F.pad(w.reshape(w.shape[0], heads, dim_head), (0, pad, 0, 0, 0, rows - w.shape[0]))
 
-    wkv_p = torch.cat([heads64(wk, dc_p), heads64(wv, dc_p)], dim=1).reshape(dc_p, -1)
+    wkv_p = torch.cat([padded_heads(wk, dc_p), padded_heads(wv, dc_p)], dim=1).reshape(dc_p, -1)
     wo_p = F.pad(wo.reshape(heads, dim_head, dm), (0, dm_p - dm, 0, pad))
-    return (heads64(wq, dm_p).reshape(dm_p, -1).contiguous(), wkv_p.contiguous(),
-            wo_p.reshape(heads * MAX_DIM_HEAD, dm_p).contiguous())
+    return (padded_heads(wq, dm_p).reshape(dm_p, -1).contiguous(), wkv_p.contiguous(),
+            wo_p.reshape(heads * dh, dm_p).contiguous())
 
 
 def pad_cross_inputs(x, ctx, gamma, beta, dm_p: int, dc_p: int):
@@ -303,9 +301,10 @@ def cross_attn_block_padded_torch(x, ctx, gamma, beta, wq, wkv, wo, *, heads: in
     # the padded norm: ‖x‖ is unchanged by zero columns, √ takes the real dm
     norm = torch.sqrt(torch.sum(xp * xp, dim=-1, keepdim=True))
     xn = xp / norm.clamp(min=1e-12) * math.sqrt(dm) * gp[:, None, :] + bp[:, None, :]
+    dh = kernel_head_dim(dim_head)
 
     def to_heads(t):
-        return t.reshape(t.shape[0], t.shape[1], heads, MAX_DIM_HEAD).transpose(1, 2)
+        return t.reshape(t.shape[0], t.shape[1], heads, dh).transpose(1, 2)
 
     k, v = (ctxp @ wkv_p).chunk(2, dim=-1)
     o, _ = flash_forward_torch(to_heads(xn @ wq_p), to_heads(k), to_heads(v), None, None,
@@ -328,25 +327,21 @@ def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: in
         "cross_attn_block", ctx=(ctx, (b, m, dc)), gamma=(gamma, (b, dm)), beta=(beta, (b, dm)),
         wq=(wq, (dm, hd)), wkv=(wkv, (dc, 2 * hd)), wo=(wo, (hd, dm)),
     )
-    _check_dim_head("cross_attn_block", dim_head)
-    widths = cross_padded_widths(dm, dc)
-    if widths is None:
-        raise ValueError(f"cross_attn_block: the CUDA kernel takes dim up to {_CROSS_DM[-1]}, got "
-                         f"{dm} (ROADMAP Queue 3, F1)")
+    dh = kernel_head_dim(dim_head, "cross_attn_block")
     if m < 1:
         raise ValueError("cross_attn_block: the context is empty")
-    dm_p, dc_p = widths
+    dm_p, dc_p = cross_padded_widths(dm, dc)
     wq_p, wkv_p, wo_p = gemm_cache.cached(
         f"cross_attn_block {heads} {dim_head}",
         lambda *w: pad_cross_weights(*w, heads, dim_head, dm_p, dc_p), wq, wkv, wo)
     if (dm_p, dc_p) != (dm, dc):
         x, ctx, gamma, beta = pad_cross_inputs(x, ctx, gamma, beta, dm_p, dc_p)
-    kv = torch.empty((2, b, heads, m, MAX_DIM_HEAD), dtype=torch.float32, device=x.device)
+    kv = torch.empty((2, b, heads, m, dh), dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     err = _build.library().ns2_cross_attn_block(
         x.data_ptr(), ctx.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wq_p.data_ptr(),
         wkv_p.data_ptr(), wo_p.data_ptr(), kv.data_ptr(), out.data_ptr(), b, n, m, dm_p, dc_p,
-        heads, MAX_DIM_HEAD, dm, float(scale), _build.stream(x),
+        heads, dh, dm, float(scale), _build.stream(x),
     )
     _build.check(err, "ns2_cross_attn_block")
     cross_attn_block.launches += 1
@@ -374,9 +369,9 @@ def cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: 
 
     x: [b, n, dm]; ctx: [b, m, dc]; gamma/beta: [b, dm]; wq: [dm, H·dh];
     wkv: [dc, 2·H·dh] (k first); wo: [H·dh, dm]. CUDA tensors run the
-    kernel (two launches, counted as one launch of K2b; heads up to 64
-    wide, dm up to 512, padded with zeros); CPU tensors run the plain
-    version.
+    kernel (1 + ceil(dm / 512) launches, counted as one launch of K2b;
+    heads up to 128 wide, padded with zeros as dm and dc are); CPU tensors
+    run the plain version.
     """
     return _CrossAttnBlock.apply(x, ctx, gamma, beta, wq, wkv, wo, heads, dim_head, float(scale))
 

@@ -21,10 +21,11 @@ versions ``flash_forward_torch`` / ``flash_backward_torch`` on CPU tensors.
 The kernels run every product on the tensor cores in split TF32 (three
 TF32 products per f32 product), which keeps f32 accuracy.
 ``flash_attention`` is differentiable (forward K4, backward K5);
-``flash_attention_with_lse`` is forward only. The kernels take head dim 64;
-narrower heads are padded with zero columns (``pad_head_dim``) and the
-results cut back, as the JAX package pads d to 128: zero columns of q and k
-change no logit, zero columns of v and dO give output columns that are cut.
+``flash_attention_with_lse`` is forward only. The kernels take head dims
+64 and 128; narrower heads are padded with zero columns to the next of the
+two (``pad_head_dim``) and the results cut back, as the JAX package pads d
+to 128: zero columns of q and k change no logit, zero columns of v and dO
+give output columns that are cut. Wider heads raise (``kernel_head_dim``).
 """
 
 from __future__ import annotations
@@ -38,9 +39,8 @@ import torch.nn.functional as F
 from naturalspeech2_tpu_torch import _build
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
-# The kernels' head dim, to which narrower heads are padded (wider ones:
-# ROADMAP Queue 3, F1).
-KERNEL_HEAD_DIM = 64
+# The kernels' head dims, to the next of which narrower heads are padded.
+KERNEL_HEAD_DIMS = (64, 128)
 
 _MASK32 = 0xFFFFFFFF
 _ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
@@ -152,11 +152,27 @@ def flash_backward_torch(q, k, v, mask, seed, lse, o, do, *, causal: bool, scale
     return dq, dk, dv
 
 
+def kernel_head_dim(d: int, name: str = "flash attention") -> int:
+    """The kernels' head dim that a d-wide head is padded to: 64 or 128.
+
+    Wider heads raise: the kernels stage a 64-row tile each of Q, K and V
+    in shared memory, split into TF32 hi and lo, which at d 256 is 384 KB
+    against the 227 KB a block can have (ROADMAP Queue 3, F1)."""
+    for width in KERNEL_HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(
+        f"{name}: the CUDA kernels take head dims up to {KERNEL_HEAD_DIMS[-1]}, got {d} (ROADMAP "
+        f"Queue 3, F1: one 64-row tile each of Q, K and V at this width, split into TF32 hi and "
+        f"lo, is {6 * 64 * d * 4 // 1024} KB of shared memory, past the 227 KB a block has)")
+
+
 def pad_head_dim(*tensors):
     """Each ``[..., d]`` tensor with zero columns up to the kernels' head dim
-    (as it is when d is 64 already)."""
-    return tuple(t if t.shape[-1] == KERNEL_HEAD_DIM
-                 else F.pad(t, (0, KERNEL_HEAD_DIM - t.shape[-1])) for t in tensors)
+    (``kernel_head_dim``; as it is when d is 64 or 128 already)."""
+    width = kernel_head_dim(tensors[0].shape[-1])
+    return tuple(t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+                 for t in tensors)
 
 
 def _check(name: str, q, k, v, mask):
@@ -164,9 +180,8 @@ def _check(name: str, q, k, v, mask):
     b, h, n_q, d = q.shape
     n_kv = k.shape[2]
     _build.require_shapes(name, k=(k, (b, h, n_kv, d)), v=(v, (b, h, n_kv, d)))
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: the CUDA kernel takes head dim up to {KERNEL_HEAD_DIM}, got "
-                         f"{d} (ROADMAP Queue 3, F1)")
+    if kernel_head_dim(d, name) != d:
+        raise ValueError(f"{name}: the CUDA kernels take head dims {KERNEL_HEAD_DIMS}, got {d}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: the CUDA kernel copies rows in 16-byte pieces; q, k and v "
                          "must start on a 16-byte boundary")
@@ -191,13 +206,13 @@ def _dropout_args(seed, dropout_rate: float, n_kv: int) -> list:
 def flash_forward(q, k, v, mask=None, seed=None, *, causal: bool = False, scale: float,
                   dropout_rate: float = 0.0):
     """K4: ``(o, lse)``. CUDA tensors launch ``csrc/flash_fwd.cu`` (heads
-    narrower than 64 padded, o cut back); CPU tensors run
+    padded to 64 or 128, o cut back); CPU tensors run
     ``flash_forward_torch``."""
     if q.device.type == "cpu":
         return flash_forward_torch(q, k, v, mask, seed, causal=causal, scale=scale,
                                    dropout_rate=dropout_rate)
     d = q.shape[-1]
-    if d < KERNEL_HEAD_DIM and q.device.type == "cuda":
+    if d != kernel_head_dim(d, "flash_forward") and q.device.type == "cuda":
         o, lse = flash_forward(*pad_head_dim(q, k, v), mask, seed, causal=causal, scale=scale,
                                dropout_rate=dropout_rate)
         return o[..., :d].contiguous(), lse
@@ -219,15 +234,15 @@ def flash_forward(q, k, v, mask=None, seed=None, *, causal: bool = False, scale:
 def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, scale: float,
                    dropout_rate: float = 0.0):
     """K5: ``(dq, dk, dv)``. CUDA tensors launch the dq and dk/dv kernels of
-    ``csrc/flash_bwd.cu`` (counted as one launch of K5; heads narrower than
-    64 padded, the gradients cut back) after delta =
+    ``csrc/flash_bwd.cu`` (counted as one launch of K5; heads padded to 64
+    or 128, the gradients cut back) after delta =
     Σ dO·O as a plain reduction (XLA computes it outside the kernels too);
     CPU tensors run ``flash_backward_torch``."""
     if q.device.type == "cpu":
         return flash_backward_torch(q, k, v, mask, seed, lse, o, do, causal=causal, scale=scale,
                                     dropout_rate=dropout_rate)
     d = q.shape[-1]
-    if d < KERNEL_HEAD_DIM and q.device.type == "cuda":
+    if d != kernel_head_dim(d, "flash_backward") and q.device.type == "cuda":
         grads = flash_backward(*pad_head_dim(q, k, v), mask, seed, lse, *pad_head_dim(o, do),
                                causal=causal, scale=scale, dropout_rate=dropout_rate)
         return tuple(g[..., :d].contiguous() for g in grads)

@@ -1,7 +1,7 @@
 """Weights laid out once for the kernels, and the split-TF32 GEMM core's
 operand format.
 
-The GEMM core (``csrc/gemm_tf32x3.cuh``) of K2 and K3 reads its B operand,
+The GEMM core (``csrc/gemm_tf32x3.cuh``) of K1, K1b, K2 and K3 reads its B operand,
 a weight, from a packed tensor: Bᵀ padded with zeros to 64-row tiles and
 32-column chunks, each element split into TF32 hi and lo as the kernels
 split their operands (flash.cuh: hi = x rounded half away from zero at
@@ -46,30 +46,36 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def pack_b(bt: torch.Tensor) -> torch.Tensor:
-    """Bᵀ [N, K] → [N_tiles, K_chunks, 2 (hi, lo), 2048], Bᵀ padded with
-    zeros to 64-row tiles and 32-column chunks. Element (r, k) of tile j,
-    chunk c lies at ks·512 + half·256 + (r // 8)·32 + (r % 8)·4 + k4 with k =
-    8·ks + 4·half + k4: `kmajor<64>` of ``csrc/wgmma.cuh``."""
-    n, k = bt.shape
+    """Bᵀ [..., N, K] → [..., N_tiles, K_chunks, 2 (hi, lo), 2048], each Bᵀ
+    padded with zeros to 64-row tiles and 32-column chunks (leading dims:
+    one packed B each). Element (r, k) of tile j, chunk c lies at ks·512 +
+    half·256 + (r // 8)·32 + (r % 8)·4 + k4 with k = 8·ks + 4·half + k4:
+    `kmajor<64>` of ``csrc/wgmma.cuh``."""
+    *lead, n, k = bt.shape
     bt = torch.nn.functional.pad(bt.to(torch.float32),
                                  (0, round_up(k, CHUNK) - k, 0, round_up(n, TILE_ROWS) - n))
-    tiles, chunks = bt.shape[0] // TILE_ROWS, bt.shape[1] // CHUNK
+    tiles, chunks = bt.shape[-2] // TILE_ROWS, bt.shape[-1] // CHUNK
     # (j, rg, ri, c, ks, half, k4) -> (j, c, ks, half, rg, ri, k4)
-    t = bt.reshape(tiles, 8, 8, chunks, 4, 2, 4).permute(0, 3, 4, 5, 1, 2, 6)
+    nl = len(lead)
+    t = bt.reshape(*lead, tiles, 8, 8, chunks, 4, 2, 4).permute(
+        *range(nl), *(nl + i for i in (0, 3, 4, 5, 1, 2, 6)))
     hi, lo = tf32_split(t)
-    return torch.stack([hi.reshape(tiles, chunks, -1), lo.reshape(tiles, chunks, -1)], dim=2)
+    return torch.stack([hi.reshape(*lead, tiles, chunks, -1), lo.reshape(*lead, tiles, chunks, -1)],
+                       dim=-2)
 
 
 def unpack_b(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo), each the padded Bᵀ [N_tiles·64, K_chunks·32] back from
+    """(hi, lo), each the padded Bᵀ [..., N_tiles·64, K_chunks·32] back from
     ``pack_b``'s layout."""
-    tiles, chunks = packed.shape[:2]
+    *lead, tiles, chunks = packed.shape[:-2]
+    nl = len(lead)
 
     def dense(p):
-        t = p.reshape(tiles, chunks, 4, 2, 8, 8, 4).permute(0, 4, 5, 1, 2, 3, 6)
-        return t.reshape(tiles * TILE_ROWS, chunks * CHUNK)
+        t = p.reshape(*lead, tiles, chunks, 4, 2, 8, 8, 4).permute(
+            *range(nl), *(nl + i for i in (0, 4, 5, 1, 2, 3, 6)))
+        return t.reshape(*lead, tiles * TILE_ROWS, chunks * CHUNK)
 
-    return dense(packed[:, :, 0]), dense(packed[:, :, 1])
+    return dense(packed[..., 0, :]), dense(packed[..., 1, :])
 
 
 def cached(name: str, build: Callable, *tensors: torch.Tensor):

@@ -5,9 +5,11 @@ running residual (d² = −2·r·Cᵀ + ‖C‖², the first minimal index), the
 r −= C[idx]. Returns the quantized sum ``[m, d]`` and the codes ``[m, Q]``
 (int32).
 
-``rvq`` launches the kernel of ``csrc/rvq.cu`` on CUDA tensors (codebook
-dim 128; narrower codebooks are padded with zero columns, which change no
-distance) and runs the plain version ``rvq_torch`` on CPU tensors. ``rvq_quantize`` adds the
+``rvq`` launches the kernel of ``csrc/rvq.cu`` on CUDA tensors (any
+codebook dim: the kernel runs the distances over chunks of 128 dims, and
+other widths are padded with zero columns to a multiple of 128, which
+change no distance) and runs the plain version ``rvq_torch`` on CPU
+tensors. ``rvq_quantize`` adds the
 straight-through gradient; ``rvq_reference`` is the twin of ``rvq_xla``
 (which keeps ‖r‖², so a near-tie may pick another code than the kernel).
 """
@@ -20,8 +22,8 @@ import torch.nn.functional as F
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
 
-# The kernel's codebook dim, to which narrower codebooks are padded (wider
-# ones: ROADMAP Queue 3, F1).
+# The kernel's chunk of the codebook dim, to a multiple of which codebooks
+# are padded.
 KERNEL_DIM = 128
 
 
@@ -56,9 +58,9 @@ def rvq_reference(x, codebooks):
 
 
 def pad_codebook_dim(x, codebooks):
-    """x [m, d] and codebooks [Q, K, d] with zero columns up to the kernel's
-    codebook dim, as ``rvq`` pads them."""
-    pad = KERNEL_DIM - x.shape[-1]
+    """x [m, d] and codebooks [Q, K, d] with zero columns up to a multiple
+    of the kernel's chunk, as ``rvq`` pads them."""
+    pad = gemm_cache.round_up(x.shape[-1], KERNEL_DIM) - x.shape[-1]
     return F.pad(x, (0, pad)), F.pad(codebooks, (0, pad))
 
 
@@ -73,19 +75,17 @@ def rvq(x, codebooks):
     m, d = x.shape
     num_q, size = codebooks.shape[:2]
     _build.require_shapes("rvq", codebooks=(codebooks, (num_q, size, d)))
-    if d > KERNEL_DIM:
-        raise ValueError(f"rvq: the CUDA kernel takes codebook dim up to {KERNEL_DIM}, got {d} "
-                         "(ROADMAP Queue 3, F1)")
-    if d < KERNEL_DIM:
-        padded = gemm_cache.cached("rvq", lambda cb: F.pad(cb, (0, KERNEL_DIM - d)), codebooks)
-        quantized, codes = rvq(F.pad(x, (0, KERNEL_DIM - d)), padded)
+    d_p = gemm_cache.round_up(d, KERNEL_DIM)
+    if d_p != d:
+        padded = gemm_cache.cached("rvq", lambda cb: F.pad(cb, (0, d_p - d)), codebooks)
+        quantized, codes = rvq(F.pad(x, (0, d_p - d)), padded)
         return quantized[:, :d].contiguous(), codes
     norms = (codebooks * codebooks).sum(dim=-1).contiguous()
-    quantized = torch.empty_like(x)
+    residual, quantized = torch.empty_like(x), torch.empty_like(x)
     codes = torch.empty((m, num_q), dtype=torch.int32, device=x.device)
     err = _build.library().ns2_rvq(
-        x.data_ptr(), codebooks.data_ptr(), norms.data_ptr(), quantized.data_ptr(),
-        codes.data_ptr(), m, d, num_q, size, _build.stream(x),
+        x.data_ptr(), codebooks.data_ptr(), norms.data_ptr(), residual.data_ptr(),
+        quantized.data_ptr(), codes.data_ptr(), m, d, num_q, size, _build.stream(x),
     )
     _build.check(err, "ns2_rvq")
     rvq.launches += 1

@@ -18,14 +18,21 @@ Shapes: x [b, n, d]; conv_w [S, L, 3d, d]; conv_b, res_b [S, L, d];
 res_w [S, L, d, d]; skip_w [L, d, d]; skip_b [L, d]; film [b, S, L, 2d]
 (γ first, β second). Returns the summed skips [b, n, d].
 
-The kernels take d % 64 == 0. Other widths are padded with exact zeros
-(``pad_wavenet_weights``, cached per parameter version, and
-``pad_wavenet_inputs``) and the result is cut back: a padded channel has
-zero weights, bias, γ and β, so it stays 0 through the FiLM, tanh·σ, the
-residual and the skips.
+Both kernels run every product on the split-TF32 GEMM core
+(``csrc/gemm_tf32x3.cuh``) and read their weights packed for it once per
+parameter version (``pack_wavenet_weights``): each block's conv and
+residual as one B [3d, 2d] whose 64-column tiles interleave 32 conv and
+32 residual columns, and the skips. ``wavenet_body_packed_torch``
+computes the body from that layout in plain PyTorch. The kernels take d %
+32 == 0 (the core's chunk). Other widths are padded with exact zeros
+(``pad_wavenet_weights``, ``pad_wavenet_inputs``) and the result is cut
+back: a padded channel has zero weights, bias, γ and β, so it stays 0
+through the FiLM, tanh·σ, the residual and the skips.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -34,18 +41,22 @@ from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
 from naturalspeech2_tpu_torch.utils.helpers import vjp
 
-# The kernels' channel multiple, to which other widths are padded.
-KERNEL_ALIGN = 64
+# The kernels' channel multiple (the GEMM core's chunk), to which other
+# widths are padded.
+KERNEL_ALIGN = gemm_cache.CHUNK
+
+
+def _shift(a, rows: int):
+    """a [b, n, d] moved ``rows`` later in time, zeros before t = 0."""
+    return F.pad(a, (0, 0, rows, 0))[:, :a.shape[1]]
 
 
 def _block(xin, conv_w, conv_b, res_w, res_b, film, dil: int):
     """One WaveNet block on ``xin`` [b, n, d]: the gated, FiLM-conditioned
     causal k=3 conv with dilation ``dil`` plus the 1x1 residual; ``film``
     [b, 2d] holds γ then β."""
-    n, d = xin.shape[1:]
-    x1 = F.pad(xin, (0, 0, dil, 0))[:, :n]
-    x2 = F.pad(xin, (0, 0, 2 * dil, 0))[:, :n]
-    cat = torch.cat([x2, x1, xin], dim=-1)  # [b, n, 3d]
+    d = xin.shape[-1]
+    cat = torch.cat([_shift(xin, 2 * dil), _shift(xin, dil), xin], dim=-1)  # [b, n, 3d]
     y = cat @ conv_w + conv_b
     y = y * film[:, None, :d] + film[:, None, d:]
     y = torch.tanh(y) * torch.sigmoid(y)
@@ -145,14 +156,107 @@ def pad_wavenet_inputs(x, film, d_p: int):
     return F.pad(x, (0, d_p - d)), film
 
 
-def wavenet_body_padded_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
-    """``wavenet_body_torch`` on the inputs padded as the kernels' wrapper
-    pads them, cut back: the check of that padding on the CPU."""
-    d = x.shape[-1]
+class WavenetWeights(NamedTuple):
+    """The body's weights as K1 or K1b reads them (``pack_wavenet_weights``),
+    at the padded width ``d``."""
+    blocks: torch.Tensor  # [S, L] of Bᵀ [2d, 3d], packed: tile j = conv cols 32j.., then res
+    conv_b: torch.Tensor  # [S, L, d]
+    res_b: torch.Tensor   # [S, L, d]
+    skip: torch.Tensor    # "stack": Bᵀ [d, L·d] packed; "lanes": [L] of Bᵀ [d, d] packed
+    skip_b: torch.Tensor  # "stack": Σ_l skip_b[l] [d]; "lanes": skip_b [L, d]
+    d: int
+
+
+def block_weights(conv_w, res_w):
+    """B [S, L, 3d, 2d] of every block: column 64g + i (i < 32) is conv
+    column 32g + i, column 64g + 32 + i the residual's, whose rows are zero
+    on taps 0 and 1 (it reads x_t, the last third of K). d % 32 == 0."""
+    S, L, _, d = conv_w.shape
+    res = F.pad(res_w, (0, 0, 2 * d, 0))
+    b = torch.stack([w.reshape(S, L, 3 * d, d // KERNEL_ALIGN, KERNEL_ALIGN)
+                     for w in (conv_w, res)], dim=-2)
+    return b.reshape(S, L, 3 * d, 2 * d)
+
+
+def pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b,
+                         route: str) -> WavenetWeights:
+    """The body's weights padded to a multiple of 32 channels and packed
+    for the GEMM core (``gemm_cache.pack_b``): the blocks' B, and the skips
+    as K1 (``route`` "stack": one product over the lanes side by side, the
+    biases summed) or K1b ("lanes": one product per lane) reads them."""
+    d = conv_w.shape[-1]
     d_p = _round_up(d, KERNEL_ALIGN)
-    x_p, film_p = pad_wavenet_inputs(x, film, d_p)
-    weights = pad_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b, d_p)
-    return wavenet_body_torch(x_p, *weights, film_p)[..., :d]
+    if d_p != d:
+        conv_w, conv_b, res_w, res_b, skip_w, skip_b = pad_wavenet_weights(
+            conv_w, conv_b, res_w, res_b, skip_w, skip_b, d_p)
+    L = skip_w.shape[0]
+    blocks = gemm_cache.pack_b(block_weights(conv_w, res_w).transpose(-1, -2))
+    if route == "stack":
+        skip, skip_b = gemm_cache.pack_b(skip_w.reshape(L * d_p, d_p).T), skip_b.sum(0)
+    else:
+        skip = gemm_cache.pack_b(skip_w.transpose(-1, -2))
+    return WavenetWeights(blocks, conv_b.contiguous(), res_b.contiguous(), skip,
+                          skip_b.contiguous(), d_p)
+
+
+def _dense(packed, rows: int, cols: int):
+    hi, lo = gemm_cache.unpack_b(packed)
+    return (hi + lo)[..., :rows, :cols]
+
+
+def wavenet_body_packed_torch(x, film, weights: WavenetWeights, route: str):
+    """The kernels' launches in plain PyTorch, from the packed weights and
+    as the kernels read them: each block one product of the three dilated
+    row views [x_{t−2δ} | x_{t−δ} | x_t] with its interleaved B, the FiLM
+    gate on the conv half plus the residual half; the skips as one product
+    over the lanes side by side (``route`` "stack", K1) or lane by lane,
+    added in order ("lanes", K1b); at the padded width, cut back. Equal to
+    ``wavenet_body_torch`` up to f32 reordering: the check of the padding,
+    the packed layout and the dilated taps on the CPU."""
+    b, n, d = x.shape
+    d_p = weights.d
+    x, film = pad_wavenet_inputs(x, film, d_p)
+    S, L = weights.blocks.shape[:2]
+    bt = _dense(weights.blocks, 2 * d_p, 3 * d_p)
+
+    def block(a, s, l):
+        dil = 2**l
+        y = torch.cat([_shift(a, 2 * dil), _shift(a, dil), a], dim=-1) @ bt[s, l].T
+        y = y.reshape(b, n, d_p // KERNEL_ALIGN, 2, KERNEL_ALIGN)
+        conv, res = (y[..., i, :].reshape(b, n, d_p) for i in (0, 1))
+        f = film[:, s, l, None]
+        conv = (conv + weights.conv_b[s, l]) * f[..., :d_p] + f[..., d_p:]
+        return torch.tanh(conv) * torch.sigmoid(conv) + res + weights.res_b[s, l]
+
+    if route == "stack":
+        lanes = [x] * L
+        for s in range(S):
+            lanes = [block(lanes[l], s, l) for l in range(L)]
+        out = torch.cat(lanes, dim=-1) @ _dense(weights.skip, d_p, L * d_p).T + weights.skip_b
+    else:
+        skip = _dense(weights.skip, d_p, d_p)
+        out = None
+        for l in range(L):
+            lane = x
+            for s in range(S):
+                lane = block(lane, s, l)
+            term = lane @ skip[l].T + weights.skip_b[l]
+            out = term if out is None else out + term
+    return out[..., :d]
+
+
+def _pack_checked(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route: str):
+    """``pack_wavenet_weights`` after the wrapper's checks of the weights,
+    which a cache hit then need not repeat."""
+    _build.require_cuda_f32("wavenet_body", conv_w=conv_w, conv_b=conv_b, res_w=res_w,
+                            res_b=res_b, skip_w=skip_w, skip_b=skip_b)
+    S, L, _, d = conv_w.shape
+    _build.require_shapes(
+        "wavenet_body", conv_w=(conv_w, (S, L, 3 * d, d)), conv_b=(conv_b, (S, L, d)),
+        res_w=(res_w, (S, L, d, d)), res_b=(res_b, (S, L, d)), skip_w=(skip_w, (L, d, d)),
+        skip_b=(skip_b, (L, d)),
+    )
+    return pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route)
 
 
 def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
@@ -165,38 +269,33 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
         return wavenet_body_torch(*args)
     if x.device.type == "cpu":
         return (wavenet_body_lanes_torch if route == "lanes" else wavenet_body_torch)(*args)
-    _build.require_cuda_f32(
-        "wavenet_body", x=x, conv_w=conv_w, conv_b=conv_b, res_w=res_w, res_b=res_b,
-        skip_w=skip_w, skip_b=skip_b, film=film,
-    )
+    _build.require_cuda_f32("wavenet_body", x=x, film=film)
     b, n, d = x.shape
     S, L = conv_w.shape[:2]
-    _build.require_shapes(
-        "wavenet_body", conv_w=(conv_w, (S, L, 3 * d, d)), conv_b=(conv_b, (S, L, d)),
-        res_w=(res_w, (S, L, d, d)), res_b=(res_b, (S, L, d)), skip_w=(skip_w, (L, d, d)),
-        skip_b=(skip_b, (L, d)), film=(film, (b, S, L, 2 * d)),
-    )
-    d_p = _round_up(d, KERNEL_ALIGN)
+    _build.require_shapes("wavenet_body", conv_w=(conv_w, (S, L, 3 * d, d)),
+                          film=(film, (b, S, L, 2 * d)))
+    wt = gemm_cache.cached(f"wavenet_body {route}", lambda *w: _pack_checked(*w, route),
+                           conv_w, conv_b, res_w, res_b, skip_w, skip_b)
+    if conv_w.device != x.device:
+        raise ValueError(f"wavenet_body: the weights are on {conv_w.device}, x on {x.device}")
+    d_p = wt.d
     if d_p != d:
-        weights = gemm_cache.cached(
-            "wavenet_body", lambda *w: pad_wavenet_weights(*w, d_p),
-            conv_w, conv_b, res_w, res_b, skip_w, skip_b)
-        x_p, film_p = pad_wavenet_inputs(x, film, d_p)
-        return _forward(route, x_p, *weights, film_p)[..., :d].contiguous()
-    out = torch.empty_like(x)
+        x, film = pad_wavenet_inputs(x, film, d_p)
+    out = torch.empty((b, n, d_p), dtype=torch.float32, device=x.device)
     if route == "lanes":
-        state = torch.empty((2, b, n, d), dtype=torch.float32, device=x.device)
+        state = torch.empty((2, b, n, d_p), dtype=torch.float32, device=x.device)
         entry, counter = "ns2_wavenet_lanes", wavenet_body_lanes
     else:
-        state = torch.empty((2, L, b, n, d), dtype=torch.float32, device=x.device)
+        state = torch.empty((2, L, b, n, d_p), dtype=torch.float32, device=x.device)
         entry, counter = "ns2_wavenet_body", wavenet_body
     err = getattr(_build.library(), entry)(
-        *(a.data_ptr() for a in args),
-        state[0].data_ptr(), state[1].data_ptr(), out.data_ptr(), b, n, d, S, L, _build.stream(x),
+        x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
+        wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(), state[0].data_ptr(),
+        state[1].data_ptr(), out.data_ptr(), b, n, d_p, S, L, _build.stream(x),
     )
     _build.check(err, entry)
     counter.launches += 1
-    return out
+    return out if d_p == d else out[..., :d].contiguous()
 
 
 class _WavenetBody(torch.autograd.Function):
@@ -212,11 +311,14 @@ class _WavenetBody(torch.autograd.Function):
 
 def wavenet_body(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     """The WaveNet body, differentiable, by ``wavenet_route``: CUDA tensors
-    run K1 (S stack launches and one skip launch, counted in
-    ``wavenet_body.launches``), K1b (L·S block launches and L skip
-    launches, counted in ``wavenet_body_lanes.launches``) or the plain
-    body; CPU tensors run ``wavenet_body_torch``."""
-    return _WavenetBody.apply(None, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
+    run K1 (S stack launches and one skip launch of the GEMM core, counted
+    as one launch in ``wavenet_body.launches``), K1b (L·S block launches
+    and L skip launches, counted as one in ``wavenet_body_lanes.launches``)
+    or the plain body; CPU tensors run ``wavenet_body_torch``."""
+    args = (x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _WavenetBody.apply(None, *args)
+    return _forward(None, *args)  # no graph to record: the autograd Function's overhead spared
 
 
 def wavenet_body_lanes(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):

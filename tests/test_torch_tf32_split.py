@@ -22,7 +22,12 @@ the large terms apart from the two small ones, and adds the chunk to the
 f32 result. At the K of K3's causal conv (3 x 352 at dim 128, 3 x 1376 at
 dim 512) three passes stay within `chip_smoke.BLOCK_TOL` (relative to the
 largest entry of the product, as chip_smoke holds K2 and K3 relative to
-the largest entry of y - x) with room, and one pass fails it."""
+the largest entry of y - x) with room, and one pass fails it. The WaveNet
+body's 32-block chain (4 stacks x 8 layers, d 128), each block one product
+with its packed, interleaved [3d, 2d] weight and the skips one product with
+K = 8·d, as K1 runs it, stays within `chip_smoke.WAVENET_TOL` of f64
+(relative to the largest entry of the output) with room, and one pass
+fails it."""
 
 import importlib.util
 from pathlib import Path
@@ -30,6 +35,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
 
 SCALE = 64**-0.5
 
@@ -44,6 +51,7 @@ def _chip_smoke():
 
 FLASH_TOL = _chip_smoke().FLASH_TOL
 BLOCK_TOL = _chip_smoke().BLOCK_TOL
+WAVENET_TOL = _chip_smoke().WAVENET_TOL
 
 
 def tf32_hi(x: torch.Tensor) -> torch.Tensor:
@@ -203,3 +211,50 @@ def _core_error(inner: int, passes: int) -> float:
 def test_gemm_core_three_passes_meet_block_tol_one_pass_fails(inner):
     three, one = _core_error(inner, 3), _core_error(inner, 1)
     assert three * 5 < BLOCK_TOL < one / 5, (three, one)
+
+
+# ---- the WaveNet body on the GEMM core (K1, K1b) ----------------------------
+
+def _wavenet_chain(mm, dtype, n: int = 80, d: int = 128, S: int = 4, L: int = 8):
+    """The body at b1 x n, through ``mm`` for every product: each block's
+    [x_{t-2δ} | x_{t-δ} | x_t] times its interleaved B [3d, 2d]
+    (``wavenet_kernel.block_weights``), then the FiLM gate on the conv half
+    plus the residual half; the skips one product over the lanes side by
+    side. Activations kept in ``dtype`` between products, as the kernels
+    keep them in f32."""
+    g = torch.Generator().manual_seed(d)
+    rn = lambda *shape, scale=1.0: torch.randn(*shape, generator=g) * scale  # noqa: E731
+    x = rn(n, d)
+    conv_w, conv_b = rn(S, L, 3 * d, d, scale=(3 * d) ** -0.5), rn(S, L, d, scale=0.1)
+    res_w, res_b = rn(S, L, d, d, scale=d**-0.5), rn(S, L, d, scale=0.1)
+    skip_w, skip_b = rn(L, d, d, scale=d**-0.5), rn(L, d, scale=0.1)
+    film = 1 + rn(S, L, 2 * d, scale=0.1)
+    blocks = wk.block_weights(conv_w, res_w).to(dtype)
+
+    def shift(a, rows):
+        return torch.cat([torch.zeros(min(rows, n), d, dtype=dtype), a[:max(n - rows, 0)]])
+
+    lanes = [x.to(dtype)] * L
+    for s in range(S):
+        new = []
+        for l, a in enumerate(lanes):
+            dil = 2**l
+            y = mm(torch.cat([shift(a, 2 * dil), shift(a, dil), a], dim=-1), blocks[s, l])
+            y = y.reshape(n, d // 32, 2, 32)
+            conv, res = y[:, :, 0].reshape(n, d), y[:, :, 1].reshape(n, d)
+            f = film[s, l].to(dtype)
+            conv = (conv + conv_b[s, l].to(dtype)) * f[:d] + f[d:]
+            new.append((torch.tanh(conv) * torch.sigmoid(conv) + res + res_b[s, l]).to(dtype))
+        lanes = new
+    return mm(torch.cat(lanes, dim=-1), skip_w.reshape(L * d, d).to(dtype)) + skip_b.sum(0)
+
+
+def _wavenet_error(passes: int) -> float:
+    exact = _wavenet_chain(lambda a, b: a @ b, torch.float64)
+    core = _wavenet_chain(lambda a, b: gemm_core(a, b, passes).float(), torch.float32)
+    return ((core.double() - exact).abs().max() / exact.abs().max()).item()
+
+
+def test_wavenet_core_three_passes_meet_wavenet_tol_one_pass_fails():
+    three, one = _wavenet_error(3), _wavenet_error(1)
+    assert three * 5 < WAVENET_TOL < one / 5, (three, one)

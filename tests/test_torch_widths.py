@@ -1,16 +1,18 @@
 """The kernels' padded widths, held on the CPU.
 
 On the card every kernel takes a fixed width or a multiple of one: K1 and
-K1b d % 64, K2 and K4 / K5 heads of 64, K2b dm ∈ {128, 256, 384, 512} and
-dc % 16, K6 codebook dim 128, and the split-TF32 GEMM core of K2 and K3
-packed 64-row, 32-column weight tiles. Narrower widths are padded with
-exact zeros and the results cut back. Each wrapper's pad-and-cut is a
-plain function here (the packed-weight versions of K2 and K3 compute from
-the very layout the kernel reads), run at the JAX package's test widths
-(dim 16, dim_head 8, codebook dim 16, context 24) against the JAX function
-on the unpadded inputs, the Pallas kernels in interpret mode. On the CPU
-this is the only place the padding is seen: the wrappers run the plain
-versions on CPU tensors before they pad.
+K1b d % 32, K2, K2b and K4 / K5 heads of 64 or 128, K2b dm % 128 and dc %
+16, K6 codebook dim % 128, and the split-TF32 GEMM core of K1, K2 and K3
+packed 64-row, 32-column weight tiles. Other widths are padded with exact
+zeros and the results cut back; heads wider than 128 raise (ROADMAP Queue
+3, F1). Each wrapper's pad-and-cut is a plain function here (the
+packed-weight versions of K1, K2 and K3 compute from the very layout the
+kernel reads), run at the JAX package's test widths (dim 16, dim_head 8,
+codebook dim 16, context 24) and at the wide ones (heads of 96 and 128,
+K2b at dim 640, codebook dim 192, the WaveNet at d 128 with dilations to
+128) against the JAX function on the unpadded inputs, the Pallas kernels
+in interpret mode. On the CPU this is the only place the padding is
+seen: the wrappers run the plain versions on CPU tensors before they pad.
 
 Tolerance: the padded and unpadded functions differ only in the order of
 f32 sums (zero terms add exactly), so every comparison holds to ATOL =
@@ -90,6 +92,18 @@ def test_cache_builds_once_per_version_and_dies_with_its_tensor():
     assert not any(k in gemm_cache._entries for k in keys)
 
 
+def _wavenet_inputs(rng, b, n, d, S, L):
+    return [normal(rng, b, n, d), normal(rng, S, L, 3 * d, d, scale=(3 * d) ** -0.5),
+            normal(rng, S, L, d, scale=0.1), normal(rng, S, L, d, d, scale=d**-0.5),
+            normal(rng, S, L, d, scale=0.1), normal(rng, L, d, d, scale=d**-0.5),
+            normal(rng, L, d, scale=0.1), 1 + normal(rng, b, S, L, 2 * d, scale=0.1)]
+
+
+def _packed_body(args, route):
+    weights = wk.pack_wavenet_weights(*(t(a) for a in args[1:7]), route)
+    return wk.wavenet_body_packed_torch(t(args[0]), t(args[7]), weights, route), weights
+
+
 def test_k1_padded_body_matches_pallas():
     rng = np.random.default_rng(1)
     b, n, d, S, L = 2, 40, DIM, 2, 3
@@ -98,9 +112,44 @@ def test_k1_padded_body_matches_pallas():
             normal(rng, S, L, d, scale=0.1), normal(rng, L, d, d, scale=0.1),
             normal(rng, L, d, scale=0.1), normal(rng, b, S, L, 2 * d, scale=0.5)]
     expected = jwk.fused_wavenet_body(*(jnp.asarray(a) for a in args))
-    actual = wk.wavenet_body_padded_torch(*(t(a) for a in args))
+    actual, weights = _packed_body(args, "stack")
+    assert weights.d == wk.KERNEL_ALIGN == 32
     assert actual.shape == (b, n, d)
     assert_close(actual, expected, atol=ATOL)
+
+
+# (route, d, S, L, n): the JAX whole-stack kernel (K1) and per-lane kernel
+# (K1b) at d 16 (padded to 32) and 128, dilations up to 128, n off every
+# 64-row tile
+WAVENET_CASES = {"stack_d16": ("stack", 16, 2, 8, 150), "stack_d128": ("stack", 128, 2, 8, 150),
+                 "lanes_d16": ("lanes", 16, 2, 8, 150), "lanes_d128": ("lanes", 128, 2, 8, 150)}
+
+
+@pytest.mark.parametrize("case", list(WAVENET_CASES))
+def test_k1_k1b_packed_body_matches_pallas(case):
+    """The body from the packed, interleaved [3d, 2d] block weights and the
+    dilated tap views, as K1 and K1b read them, against the Pallas
+    kernels."""
+    route, d, S, L, n = WAVENET_CASES[case]
+    args = _wavenet_inputs(np.random.default_rng(d + L), 1, n, d, S, L)
+    jax_fn = jwk._fused_forward if route == "stack" else jwk._fused_forward_per_lane
+    expected = np.asarray(jax_fn(*(jnp.asarray(a) for a in args)))
+    actual, weights = _packed_body(args, route)
+    assert weights.blocks.shape[:4] == (S, L, weights.d // 32, 3 * weights.d // 32)
+    scale = np.abs(expected).max()
+    assert_close(actual / scale, expected / scale, atol=ATOL)
+
+
+def test_k1_block_weight_interleaves_conv_and_residual():
+    """Tile j of a block's B holds conv columns 32j .. 32j + 31, then the
+    residual's same columns, whose rows are zero on taps 0 and 1."""
+    d = 64
+    conv_w, res_w = torch.randn(1, 1, 3 * d, d), torch.randn(1, 1, d, d)
+    b = wk.block_weights(conv_w, res_w)[0, 0]
+    for j in range(d // 32):
+        assert torch.equal(b[:, 64 * j:64 * j + 32], conv_w[0, 0, :, 32 * j:32 * j + 32])
+        assert not b[:2 * d, 64 * j + 32:64 * j + 64].any()
+        assert torch.equal(b[2 * d:, 64 * j + 32:64 * j + 64], res_w[0, 0, :, 32 * j:32 * j + 32])
 
 
 @pytest.mark.parametrize("dm, heads, dim_head", [(DIM, HEADS, DIM_HEAD), (24, 3, 8)],
@@ -159,10 +208,10 @@ FLASH_CASES = {"plain": (2, 2, 40, 40, False, False, 0.0),
 SEED = (0x12345678, 0x9ABCDEF0)
 
 
-def _flash_inputs(b, h, n_q, n_kv, masked, seed):
+def _flash_inputs(b, h, n_q, n_kv, masked, seed, d=DIM_HEAD):
     rng = np.random.default_rng(seed)
-    q, k, v = (normal(rng, b, h, n, DIM_HEAD) for n in (n_q, n_kv, n_kv))
-    do = normal(rng, b, h, n_q, DIM_HEAD)
+    q, k, v = (normal(rng, b, h, n, d) for n in (n_q, n_kv, n_kv))
+    do = normal(rng, b, h, n_q, d)
     mask = None
     if masked:
         mask = rng.random((b, n_kv)) > 0.2
@@ -184,7 +233,7 @@ def test_k4_k5_padded_head_dim_matches_pallas(case):
 
     tmask = None if mask is None else torch.from_numpy(mask)
     qp, kp, vp, dop = fa.pad_head_dim(t(q), t(k), t(v), t(do))
-    assert qp.shape[-1] == fa.KERNEL_HEAD_DIM
+    assert qp.shape[-1] == fa.KERNEL_HEAD_DIMS[0]
     o_p, lse = fa.flash_forward_torch(qp, kp, vp, tmask, SEED, **cfg)
     assert not o_p[..., DIM_HEAD:].any()  # zero v columns give zero output columns
     assert_close(o_p[..., :DIM_HEAD], o_j, atol=ATOL)
@@ -210,13 +259,95 @@ def test_k6_padded_codebook_dim_matches_pallas():
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("dim_head", [96, 128])
+def test_k2_wide_heads_match_pallas(dim_head):
+    rng = np.random.default_rng(7)
+    dm, heads = 32, 2
+    hd = heads * dim_head
+    x, g, be = _block_inputs(rng, 2, 24, dm)
+    wq, wkv = normal(rng, dm, hd, scale=dm**-0.5), normal(rng, dm, 2 * hd, scale=dm**-0.5)
+    wo = normal(rng, hd, dm, scale=hd**-0.5)
+    scale = dim_head**-0.5
+    expected = jak.fused_attn_block(*(jnp.asarray(a) for a in (x, g, be, wq, wkv, wo)),
+                                    heads=heads, dim_head=dim_head, scale=scale)
+    packed = ak.pack_attn_weights(t(wq), t(wkv), t(wo), heads, dim_head)
+    assert gemm_cache.unpack_b(packed[1])[0].shape[1] == heads * 128
+    actual = ak.attn_block_packed_torch(t(x), t(g), t(be), packed, heads=heads, scale=scale)
+    assert_close(actual, expected, atol=ATOL)
+
+
+# (dm, dim_head): heads of 96 and 128, and K2b past dim 512
+@pytest.mark.parametrize("dm, dim_head", [(DIM, 96), (DIM, 128), (640, DIM_HEAD)],
+                         ids=["dh96", "dh128", "dim640"])
+def test_k2b_wide_widths_match_pallas(dm, dim_head):
+    rng = np.random.default_rng(8)
+    b, n, m, heads = 2, 16, 8, 2
+    hd = heads * dim_head
+    x, g, be = _block_inputs(rng, b, n, dm)
+    ctx = normal(rng, b, m, CONTEXT)
+    wq, wkv = normal(rng, dm, hd, scale=dm**-0.5), normal(rng, CONTEXT, 2 * hd, scale=0.2)
+    wo = normal(rng, hd, dm, scale=hd**-0.5)
+    args = (x, ctx, g, be, wq, wkv, wo)
+    scale = dim_head**-0.5
+    expected = jak.fused_cross_attn_block(*(jnp.asarray(a) for a in args), heads=heads,
+                                          dim_head=dim_head, scale=scale)
+    actual = ak.cross_attn_block_padded_torch(*(t(a) for a in args), heads=heads,
+                                              dim_head=dim_head, scale=scale)
+    assert ak.cross_padded_widths(dm, CONTEXT) == (gemm_cache.round_up(dm, 128), 32)
+    assert_close(actual, expected, atol=ATOL)
+
+
+@pytest.mark.parametrize("dim_head", [96, 128])
+@pytest.mark.parametrize("case", ["plain", "masked_causal"])
+def test_k4_k5_wide_heads_match_pallas(case, dim_head):
+    b, h, n_q, n_kv, causal, masked, dropout = FLASH_CASES[case]
+    q, k, v, do, mask = _flash_inputs(b, h, n_q, n_kv, masked, seed=9, d=dim_head)
+    jmask = None if mask is None else jnp.asarray(mask)
+    cfg = dict(causal=causal, scale=dim_head**-0.5, dropout_rate=dropout)
+    o_j, lse_j = jfa._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jmask, None,
+                                    **cfg)
+    grads_j = jfa._flash_backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jmask, None,
+                                  lse_j, o_j, jnp.asarray(do), **cfg)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    qp, kp, vp, dop = fa.pad_head_dim(t(q), t(k), t(v), t(do))
+    assert qp.shape[-1] == 128
+    o_p, lse = fa.flash_forward_torch(qp, kp, vp, tmask, None, **cfg)
+    assert not o_p[..., dim_head:].any()
+    assert_close(o_p[..., :dim_head], o_j, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, :, :n_q, 0], atol=ATOL)
+    grads = fa.flash_backward_torch(qp, kp, vp, tmask, None, lse, o_p, dop, **cfg)
+    for got, want in zip(grads, grads_j):
+        want = np.asarray(want)
+        scale = np.abs(want).max()
+        assert_close(got[..., :dim_head] / scale, want / scale, atol=ATOL)
+
+
+def test_k6_wide_codebook_dim_matches_pallas():
+    rng = np.random.default_rng(10)
+    d = 192
+    x, cb = normal(rng, 200, d), normal(rng, 3, 40, d)
+    q_j, codes_j = jrvq.rvq_quantize(jnp.asarray(x), jnp.asarray(cb))
+    xp, cbp = rq.pad_codebook_dim(t(x), t(cb))
+    assert xp.shape[-1] == cbp.shape[-1] == 256
+    q_p, codes = rq.rvq_torch(xp, cbp)
+    assert not q_p[:, d:].any()
+    same = assert_codes_match(x, cb, codes.numpy(), np.asarray(codes_j), 1e-3)
+    assert same.mean() > 0.95
+    np.testing.assert_allclose(q_p[:, :d].numpy()[same], np.asarray(q_j)[same], atol=ATOL)
+
+
 def test_wider_than_the_kernels_is_a_named_error():
-    """Heads wider than 64 and codebooks wider than 128 stay refused on the
-    card (ROADMAP Queue 3, F1); the check runs before any launch."""
-    cfg = dict(heads=1, dim_head=96, scale=0.1)
+    """Heads wider than 128 stay refused on the card (ROADMAP Queue 3, F1):
+    the check runs before any launch, and names why."""
+    cfg = dict(heads=1, dim_head=192, scale=0.1)
     with pytest.raises(ValueError, match="CUDA"):  # on a non-CUDA device: refused first
         ak.attn_block(*(torch.zeros(s, device="meta") for s in
-                        ((1, 8, 16), (1, 16), (1, 16), (16, 96), (16, 192), (96, 16))), **cfg)
-    assert ak.MAX_DIM_HEAD == fa.KERNEL_HEAD_DIM == 64 and rq.KERNEL_DIM == 128
-    assert ak.cross_padded_widths(640, 16) is None
+                        ((1, 8, 16), (1, 16), (1, 16), (16, 192), (16, 384), (192, 16))), **cfg)
+    with pytest.raises(ValueError, match="F1.*227 KB"):
+        fa.kernel_head_dim(192)
+    with pytest.raises(ValueError, match="F1"):
+        ak.pack_attn_weights(*(torch.zeros(s) for s in ((16, 192), (16, 384), (192, 16))), 1, 192)
+    assert [fa.kernel_head_dim(d) for d in (8, 64, 65, 96, 128)] == [64, 64, 128, 128, 128]
+    assert fa.KERNEL_HEAD_DIMS == (64, 128) and rq.KERNEL_DIM == 128
+    assert ak.cross_padded_widths(640, 16) == (640, 16)
     assert jax.default_backend() == "cpu"
