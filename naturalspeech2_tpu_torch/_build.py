@@ -42,11 +42,11 @@ SIGNATURES = {
     "ns2_wavenet_body": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_attn_block": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "ns2_cross_attn_block": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "ns2_cross_attn_block": [_P] * 11 + [_I] * 7 + [_F, _P],
     "ns2_ff_block": [_P] * 13 + [_I] * 4 + [_P],
     "ns2_flash_fwd": [_P] * 6 + [_I] * 6 + _FLASH_TAIL,
     "ns2_flash_bwd": [_P] * 10 + [_I] * 6 + _FLASH_TAIL,
-    "ns2_rvq": [_P] * 6 + [_I] * 4 + [_P],
+    "ns2_rvq": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

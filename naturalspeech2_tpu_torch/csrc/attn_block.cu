@@ -23,7 +23,8 @@
 //     contiguous chunks of K, so the head sum is the f32 sum of the core's chunks in
 //     one block, as the TPU kernel's scratch accumulation is, with no
 //     cross-block sum.
-// The wrapper pads each head to dh = 64 or 128 columns and dm to the chunk of 32 with
+// The wrapper pads each head to K4's width (64, or a multiple of 128: wider
+// heads run K4's chunked kernel) and dm to the chunk of 32 with
 // exact zeros in the packed weights (zero q and k columns change no logit,
 // zero v columns give zero output columns, which meet zero W_o rows); the
 // norm takes √dm from the real width, and the caller's scale is unchanged.
@@ -37,7 +38,8 @@ extern "C" int ns2_flash_fwd(const float* q, const float* k, const float* v,
                              unsigned seed1, float rate, int stride, unsigned threshold,
                              float keep_scale, void* stream);
 
-// x [b,n,dm] -> out [b,n,dm], heads of dh = 64 or 128. The packed weights
+// x [b,n,dm] -> out [b,n,dm], heads of dh = 64 or a multiple of 128 (K4's
+// head widths). The packed weights
 // (ops/gemm_cache.py): bt_qkv (N = 3·H·dh, column which·H·dh + h·dh + e;
 // K = dm padded to 32) and bt_out (N = dm, K = H·dh). qkv [3, b, H, n, dh]
 // and o [b, H, n, dh] are f32 scratch. Three launches.
@@ -45,7 +47,7 @@ NS2_API int ns2_attn_block(const float* x, const float* gamma, const float* beta
                            const float* bt_qkv, const float* bt_out, float* qkv, float* o,
                            float* out, int b, int n, int dm, int heads, int dh, float scale,
                            void* stream) {
-  if (dm <= 0 || n <= 0 || b <= 0 || heads <= 0 || (dh != 64 && dh != 128))
+  if (dm <= 0 || n <= 0 || b <= 0 || heads <= 0 || (dh != 64 && (dh <= 0 || dh % 128 != 0)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = b * n;

@@ -1,7 +1,6 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// K2b and K6 run in f32 on the CUDA cores with tiles staged in shared
-// memory; K1, K1b, K2, K3, K4 and K5 in split TF32 on the tensor cores
+// Every kernel runs its products in split TF32 on the tensor cores
 // (flash.cuh, wgmma.cuh, gemm_tf32x3.cuh). Each host entry point is a
 // plain C function (bound with ctypes): it takes device pointers, sizes and
 // the caller's stream, launches without synchronising, and returns
@@ -14,12 +13,8 @@
 
 namespace ns2 {
 
-// 256 threads as a 16 x 16 grid; a thread owns rows ty + 16*i and
-// columns tx + 16*j of its block's output tile, so neighbouring threads
-// touch neighbouring columns (coalesced global stores, conflict-free
-// shared-memory reads of the B operand, broadcast reads of the A operand).
+// Threads a block of the elementwise kernels (K6's update).
 constexpr int kThreads = 256;
-constexpr int kGrid = 16;
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 

@@ -271,17 +271,19 @@ __device__ __forceinline__ void add_product(float (&acc)[D / 8][4], const float 
 }
 
 // Rows ra and ra + 8 of a warp's accumulator, columns 8j + 2t + {0, 1}, to
-// a [n_rows, D] matrix, each times its row's factor.
+// D columns of a matrix of n_rows rows ld floats apart, each times its
+// row's factor.
 template <int D>
 __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8][4], int ra,
-                                           int n_rows, int t, const float (&factor)[2]) {
+                                           int n_rows, int t, const float (&factor)[2],
+                                           int ld = D) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = ra + 8 * r;
     if (row >= n_rows) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(dst + (size_t)row * D + 8 * j + 2 * t) =
+      *reinterpret_cast<float2*>(dst + (size_t)row * ld + 8 * j + 2 * t) =
           make_float2(acc[j][2 * r] * factor[r], acc[j][2 * r + 1] * factor[r]);
   }
 }
@@ -307,16 +309,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
-// Start copying rows row0 .. row0 + R - 1 of a [rows, D] f32 matrix into a
-// staged tile; rows at or past `rows` become zeros. Called by all
-// `nthreads` threads of the block; the caller commits the group.
+// Start copying rows row0 .. row0 + R - 1 of a [rows, D] f32 matrix (rows
+// ld floats apart) into a staged tile; rows at or past `rows` become zeros.
+// Called by all `nthreads` threads of the block; the caller commits the
+// group.
 template <int R, int D>
 __device__ __forceinline__ void load_tile_async(float (*tile)[kLdOf<D>], const float* src,
-                                                int row0, int rows, int tid, int nthreads) {
+                                                int row0, int rows, int tid, int nthreads,
+                                                int ld = D) {
   for (int c = tid; c < R * (D / 4); c += nthreads) {
     const int r = c / (D / 4), c4 = (c % (D / 4)) * 4;
     const bool ok = row0 + r < rows;
-    cp_async16(&tile[r][c4], src + (size_t)(ok ? row0 + r : 0) * D + c4, ok);
+    cp_async16(&tile[r][c4], src + (size_t)(ok ? row0 + r : 0) * ld + c4, ok);
   }
 }
 

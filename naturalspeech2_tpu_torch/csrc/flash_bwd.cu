@@ -40,7 +40,9 @@
 // tiles three blocks share an SM; at the training shape [16,8,150,64] that
 // took 0.11 ms on the card against 0.18 with 64-row tiles (two blocks), at
 // [4,8,1024,64] 0.81 against 0.77. The head width D is 64 or 128 (a
-// template parameter; the wrapper pads narrower heads with zeros). At 128
+// template parameter; the wrapper pads narrower heads with zeros, wider ones
+// to a multiple of 128, which the wide kernels below walk in 128-wide
+// chunks). At 128
 // the staged tiles take 135 KB, one block an SM, and each product's
 // 64-column groups are summed in turn in one partial accumulator
 // (flash.cuh add_product), which keeps the owner's two 64-register sums
@@ -82,6 +84,68 @@ struct DkvSmem {
 // D = 128 one.
 template <int kWalk, int D>
 constexpr int kBwdBlocks = D == 128 ? 1 : (kWalk == 32 ? 3 : 2);
+
+// dS in place of S for one warp's 16 query rows and a walked tile of keys
+// from k0 (dq's orientation): element (j, i) is query ra + 8·(i / 2), key k0
+// + 8j + 2t + (i & 1); w0 is the warp's first query. A tile that no rule
+// cuts skips the per-element test.
+template <int kWalk>
+__device__ __forceinline__ void dq_ds(float (&s)[kWalk / 8][4], const float (&dp)[kWalk / 8][4],
+                                      const unsigned char* mask_b, int bi, int hi, int w0, int ra,
+                                      int k0, int n_q, int n_kv, int causal, float scale,
+                                      const float (&row_lse)[2], const float (&row_delta)[2],
+                                      int t, const ns2::Dropout& dr) {
+  const bool whole = mask_b == nullptr && w0 + 16 <= n_q && k0 + kWalk <= n_kv &&
+                     (!causal || k0 + kWalk - 1 <= w0);
+#pragma unroll
+  for (int j = 0; j < kWalk / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = ra + 8 * (i / 2), col = k0 + 8 * j + 2 * t + (i & 1);
+      float ds = 0.0f;
+      if (whole || ns2::visible(mask_b, row, col, n_q, n_kv, causal)) {
+        const float p = ns2::exp_sfu(s[j][i] * scale - row_lse[i / 2]);
+        float d = dp[j][i];
+        if (dr.rate > 0.0f) d *= ns2::keep_mult(dr, bi, hi, row, col);
+        ds = p * (d - row_delta[i / 2]) * scale;
+      }
+      s[j][i] = ds;
+    }
+}
+
+// A = P ∘ keep in place of Sᵀ and dS in place of dPᵀ for one warp's 16 keys
+// and a walked tile of queries from qs (dk/dv's orientation): element (j, i)
+// is key ka + 8·(i / 2), query qs + 8j + 2t + (i & 1); w0 is the warp's first
+// key, lse and delta the tile's rows.
+template <int kWalk>
+__device__ __forceinline__ void dkv_ads(float (&s)[kWalk / 8][4], float (&dp)[kWalk / 8][4],
+                                        const unsigned char* mask_b, int bi, int hi, int w0,
+                                        int ka, int qs, int n_q, int n_kv, int causal,
+                                        float scale, const float* lse, const float* delta, int t,
+                                        const ns2::Dropout& dr) {
+  const bool whole = mask_b == nullptr && qs + kWalk <= n_q && w0 + 16 <= n_kv &&
+                     (!causal || w0 + 15 <= qs);
+#pragma unroll
+  for (int j = 0; j < kWalk / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qc = 8 * j + 2 * t + (i & 1), row = qs + qc, col = ka + 8 * (i / 2);
+      float a = 0.0f, ds = 0.0f;
+      if (whole || ns2::visible(mask_b, row, col, n_q, n_kv, causal)) {
+        const float p = ns2::exp_sfu(s[j][i] * scale - lse[qc]);
+        float d = dp[j][i];
+        a = p;
+        if (dr.rate > 0.0f) {
+          const float keep = ns2::keep_mult(dr, bi, hi, row, col);
+          a = p * keep;
+          d *= keep;
+        }
+        ds = p * (d - delta[qc]) * scale;
+      }
+      s[j][i] = a;
+      dp[j][i] = ds;
+    }
+}
 
 // grid (ceil(n_q / 64), b·h), 128 threads; dynamic shared memory
 // sizeof(DqSmem<kWalk, D>)
@@ -142,24 +206,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[kWalk / 8][4], dp[kWalk / 8][4];
     ns2::product_xyt<kWalk / 8, D>(sm.q, sm.k[st], w0, lane, s);      // S = Q Kᵀ
     ns2::product_xyt<kWalk / 8, D>(sm.dout, sm.v[st], w0, lane, dp);  // dP = dO Vᵀ
-    // dS into s: element (j, i) is query ra + 8·(i / 2), key k0 + 8j + 2t + (i & 1);
-    // a tile that no rule cuts skips the per-element test
-    const bool whole = mask_b == nullptr && q0 + w0 + 16 <= n_q && k0 + kWalk <= n_kv &&
-                       (!causal || k0 + kWalk - 1 <= q0 + w0);
-#pragma unroll
-    for (int j = 0; j < kWalk / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = ra + 8 * (i / 2), col = k0 + 8 * j + 2 * t + (i & 1);
-        float ds = 0.0f;
-        if (whole || ns2::visible(mask_b, row, col, n_q, n_kv, causal)) {
-          const float p = ns2::exp_sfu(s[j][i] * scale - row_lse[i / 2]);
-          float d = dp[j][i];
-          if (dr.rate > 0.0f) d *= ns2::keep_mult(dr, bi, hi, row, col);
-          ds = p * (d - row_delta[i / 2]) * scale;
-        }
-        s[j][i] = ds;
-      }
+    dq_ds<kWalk>(s, dp, mask_b, bi, hi, q0 + w0, ra, k0, n_q, n_kv, causal, scale, row_lse,
+                 row_delta, t, dr);
     ns2::add_product<kWalk / 8, D>(acc, s, sm.k[st], g, t);  // dQ += dS K
     __syncthreads();
   }
@@ -229,28 +277,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[kWalk / 8][4], dp[kWalk / 8][4];
     ns2::product_xyt<kWalk / 8, D>(sm.k, sm.q[st], w0, lane, s);      // Sᵀ = K Qᵀ
     ns2::product_xyt<kWalk / 8, D>(sm.v, sm.dout[st], w0, lane, dp);  // dPᵀ = V dOᵀ
-    const bool whole = mask_b == nullptr && qs + kWalk <= n_q && kv0 + w0 + 16 <= n_kv &&
-                       (!causal || kv0 + w0 + 15 <= qs);
-#pragma unroll
-    for (int j = 0; j < kWalk / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = 8 * j + 2 * t + (i & 1), row = qs + qc, col = ka + 8 * (i / 2);
-        float a = 0.0f, ds = 0.0f;
-        if (whole || ns2::visible(mask_b, row, col, n_q, n_kv, causal)) {
-          const float p = ns2::exp_sfu(s[j][i] * scale - sm.lse[st][qc]);
-          float d = dp[j][i];
-          a = p;
-          if (dr.rate > 0.0f) {
-            const float keep = ns2::keep_mult(dr, bi, hi, row, col);
-            a = p * keep;
-            d *= keep;
-          }
-          ds = p * (d - sm.delta[st][qc]) * scale;
-        }
-        s[j][i] = a;
-        dp[j][i] = ds;
-      }
+    dkv_ads<kWalk>(s, dp, mask_b, bi, hi, kv0 + w0, ka, qs, n_q, n_kv, causal, scale,
+                   sm.lse[st], sm.delta[st], t, dr);
     ns2::add_product<kWalk / 8, D>(acc_v, s, sm.dout[st], g, t);  // dV += Aᵀ dO
     ns2::add_product<kWalk / 8, D>(acc_k, dp, sm.q[st], g, t);    // dK += dSᵀ Q
     __syncthreads();
@@ -259,6 +287,193 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float one[2] = {1.0f, 1.0f};
   ns2::store_rows<D>(dk + kbase * D, acc_k, ka, n_kv, t, one);
   ns2::store_rows<D>(dv + kbase * D, acc_v, ka, n_kv, t, one);
+}
+
+// Heads wider than 128 (d a multiple of 128, as the JAX kernel pads d): the
+// owner kernels above at D = 128 with grid z over the d / 128 chunks of the
+// output, block z writing columns 128·z.. of dq (or dk and dv). For each
+// walked tile, S and dP are summed over the head dim chunk by chunk, each
+// chunk's owner and walked tiles staged through the same D = 128 buffers
+// (stage 0 of the ring) and its products summed in fresh accumulators added
+// in f32; the chunks run so that the block's own comes last, and its staged
+// tiles then serve dQ += dS K (or dV += Aᵀ dO, dK += dSᵀ Q). Each block
+// recomputes S and dP (d / 128 times in all) and restages its owner rows
+// per chunk, with no copy in flight during the products: a first kernel
+// for widths no config of the repo uses.
+constexpr int kWideD = 128;
+
+// grid (ceil(n_q / 64), b·h, d / 128), 128 threads; dynamic shared memory
+// sizeof(DqSmem<kDqWalk, 128>)
+__global__ void __launch_bounds__(kFlashThreads, 1)
+flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const unsigned char* __restrict__ mask,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const float* __restrict__ dout, float* __restrict__ dq, int heads,
+                         int n_q, int n_kv, int d, int causal, float scale, ns2::Dropout dr) {
+  constexpr int D = kWideD, kWalk = kDqWalk;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DqSmem<kWalk, D>& sm = *reinterpret_cast<DqSmem<kWalk, D>*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kTile, bh = blockIdx.y, oc = blockIdx.z, nc = d / D;
+  const int bi = bh / heads, hi = bh % heads;
+  const size_t qbase = (size_t)bh * n_q, kbase = (size_t)bh * n_kv;
+  const unsigned char* mask_b = mask ? mask + (size_t)bi * n_kv : nullptr;
+  const int k_end = causal ? min(n_kv, q0 + kTile) : n_kv;
+  const int n_tiles = (k_end + kWalk - 1) / kWalk;
+
+  const int w0 = 16 * warp, ra = q0 + w0 + g;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = ra + 8 * r;
+    row_lse[r] = row < n_q ? lse[qbase + row] : 0.0f;
+    row_delta[r] = row < n_q ? delta[qbase + row] : 0.0f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kWalk;
+    float s[kWalk / 8][4], dp[kWalk / 8][4];
+#pragma unroll
+    for (int j = 0; j < kWalk / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.0f;
+    for (int i = 1; i <= nc; ++i) {
+      const int c = (oc + i) % nc;  // the block's own chunk last
+      __syncthreads();  // the last products are done with the staged tiles
+      ns2::load_tile_async<kTile, D>(sm.q, q + qbase * d + c * D, q0, n_q, tid, kFlashThreads, d);
+      ns2::load_tile_async<kTile, D>(sm.dout, dout + qbase * d + c * D, q0, n_q, tid,
+                                     kFlashThreads, d);
+      ns2::load_tile_async<kWalk, D>(sm.k[0], k + kbase * d + c * D, k0, n_kv, tid,
+                                     kFlashThreads, d);
+      ns2::load_tile_async<kWalk, D>(sm.v[0], v + kbase * d + c * D, k0, n_kv, tid,
+                                     kFlashThreads, d);
+      ns2::cp_async_commit();
+      ns2::cp_async_wait<0>();
+      __syncthreads();
+      float sc[kWalk / 8][4], dpc[kWalk / 8][4];
+      ns2::product_xyt<kWalk / 8, D>(sm.q, sm.k[0], w0, lane, sc);      // S_c = Q_c K_cᵀ
+      ns2::product_xyt<kWalk / 8, D>(sm.dout, sm.v[0], w0, lane, dpc);  // dP_c = dO_c V_cᵀ
+#pragma unroll
+      for (int j = 0; j < kWalk / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] += sc[j][e];
+          dp[j][e] += dpc[j][e];
+        }
+    }
+    dq_ds<kWalk>(s, dp, mask_b, bi, hi, q0 + w0, ra, k0, n_q, n_kv, causal, scale, row_lse,
+                 row_delta, t, dr);
+    ns2::add_product<kWalk / 8, D>(acc, s, sm.k[0], g, t);  // dQ_oc += dS K_oc
+  }
+  const float one[2] = {1.0f, 1.0f};
+  ns2::store_rows<D>(dq + qbase * d + oc * D, acc, ra, n_q, t, one, d);
+}
+
+// grid (ceil(n_kv / 64), b·h, d / 128), 128 threads; dynamic shared memory
+// sizeof(DkvSmem<kDkvWalk, 128>)
+__global__ void __launch_bounds__(kFlashThreads, 1)
+flash_bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const unsigned char* __restrict__ mask,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const float* __restrict__ dout, float* __restrict__ dk,
+                          float* __restrict__ dv, int heads, int n_q, int n_kv, int d,
+                          int causal, float scale, ns2::Dropout dr) {
+  constexpr int D = kWideD, kWalk = kDkvWalk;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DkvSmem<kWalk, D>& sm = *reinterpret_cast<DkvSmem<kWalk, D>*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kv0 = blockIdx.x * kTile, bh = blockIdx.y, oc = blockIdx.z, nc = d / D;
+  const int bi = bh / heads, hi = bh % heads;
+  const size_t qbase = (size_t)bh * n_q, kbase = (size_t)bh * n_kv;
+  const unsigned char* mask_b = mask ? mask + (size_t)bi * n_kv : nullptr;
+  const int q_begin = causal ? kv0 : 0;
+  const int n_tiles = q_begin < n_q ? (n_q - q_begin + kWalk - 1) / kWalk : 0;
+
+  const int w0 = 16 * warp, ka = kv0 + w0 + g;
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.0f;
+
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    const int qs = q_begin + qt * kWalk;
+    float s[kWalk / 8][4], dp[kWalk / 8][4];
+#pragma unroll
+    for (int j = 0; j < kWalk / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.0f;
+    for (int i = 1; i <= nc; ++i) {
+      const int c = (oc + i) % nc;  // the block's own chunk last
+      __syncthreads();  // the last products are done with the staged tiles
+      ns2::load_tile_async<kTile, D>(sm.k, k + kbase * d + c * D, kv0, n_kv, tid, kFlashThreads,
+                                     d);
+      ns2::load_tile_async<kTile, D>(sm.v, v + kbase * d + c * D, kv0, n_kv, tid, kFlashThreads,
+                                     d);
+      ns2::load_tile_async<kWalk, D>(sm.q[0], q + qbase * d + c * D, qs, n_q, tid,
+                                     kFlashThreads, d);
+      ns2::load_tile_async<kWalk, D>(sm.dout[0], dout + qbase * d + c * D, qs, n_q, tid,
+                                     kFlashThreads, d);
+      if (i == 1 && tid < kWalk) {
+        const bool ok = qs + tid < n_q;
+        sm.lse[0][tid] = ok ? lse[qbase + qs + tid] : 0.0f;
+        sm.delta[0][tid] = ok ? delta[qbase + qs + tid] : 0.0f;
+      }
+      ns2::cp_async_commit();
+      ns2::cp_async_wait<0>();
+      __syncthreads();
+      float sc[kWalk / 8][4], dpc[kWalk / 8][4];
+      ns2::product_xyt<kWalk / 8, D>(sm.k, sm.q[0], w0, lane, sc);      // Sᵀ_c = K_c Q_cᵀ
+      ns2::product_xyt<kWalk / 8, D>(sm.v, sm.dout[0], w0, lane, dpc);  // dPᵀ_c = V_c dO_cᵀ
+#pragma unroll
+      for (int j = 0; j < kWalk / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] += sc[j][e];
+          dp[j][e] += dpc[j][e];
+        }
+    }
+    dkv_ads<kWalk>(s, dp, mask_b, bi, hi, kv0 + w0, ka, qs, n_q, n_kv, causal, scale, sm.lse[0],
+                   sm.delta[0], t, dr);
+    ns2::add_product<kWalk / 8, D>(acc_v, s, sm.dout[0], g, t);  // dV_oc += Aᵀ dO_oc
+    ns2::add_product<kWalk / 8, D>(acc_k, dp, sm.q[0], g, t);    // dK_oc += dSᵀ Q_oc
+  }
+  const float one[2] = {1.0f, 1.0f};
+  ns2::store_rows<D>(dk + kbase * d + oc * D, acc_k, ka, n_kv, t, one, d);
+  ns2::store_rows<D>(dv + kbase * d + oc * D, acc_v, ka, n_kv, t, one, d);
+}
+
+cudaError_t launch_bwd_wide(const float* q, const float* k, const float* v,
+                            const unsigned char* mask, const float* lse, const float* delta,
+                            const float* dout, float* dq, float* dk, float* dv, int b, int h,
+                            int n_q, int n_kv, int d, int causal, float scale,
+                            const ns2::Dropout& dr, cudaStream_t st) {
+  const int dq_bytes = (int)sizeof(DqSmem<kDqWalk, kWideD>);
+  const int dkv_bytes = (int)sizeof(DkvSmem<kDkvWalk, kWideD>);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((n_q + kTile - 1) / kTile, b * h, d / kWideD);
+  flash_bwd_dq_wide_kernel<<<grid_q, kFlashThreads, dq_bytes, st>>>(
+      q, k, v, mask, lse, delta, dout, dq, h, n_q, n_kv, d, causal, scale, dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((n_kv + kTile - 1) / kTile, b * h, d / kWideD);
+  flash_bwd_dkv_wide_kernel<<<grid_kv, kFlashThreads, dkv_bytes, st>>>(
+      q, k, v, mask, lse, delta, dout, dk, dv, h, n_q, n_kv, d, causal, scale, dr);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -289,19 +504,24 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v, const uns
 
 // q/dout [b,h,n_q,d], k/v [b,h,n_kv,d], 16-byte aligned, mask [b,n_kv]
 // uint8 or null, lse and delta [b,h,n_q] -> dq [b,h,n_q,d], dk/dv
-// [b,h,n_kv,d], d 64 or 128. Dropout arguments as for ns2_flash_fwd; other
-// head widths return cudaErrorInvalidValue.
+// [b,h,n_kv,d], d 64 or a multiple of 128. Dropout arguments as for
+// ns2_flash_fwd; other head widths return cudaErrorInvalidValue.
 NS2_API int ns2_flash_bwd(const float* q, const float* k, const float* v,
                           const unsigned char* mask, const float* lse, const float* delta,
                           const float* dout, float* dq, float* dk, float* dv, int b, int h,
                           int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                           unsigned seed1, float rate, int stride, unsigned threshold,
                           float keep_scale, void* stream) {
-  if ((d != 64 && d != 128) || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
+  if ((d != 64 && (d <= 0 || d % kWideD != 0)) || n_q <= 0 || n_kv <= 0)
+    return cudaErrorInvalidValue;
   const ns2::Dropout dr{seed0, seed1, rate, stride, threshold, keep_scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch_bwd<64>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv,
-                                  causal, scale, dr, st)
-                 : launch_bwd<128>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv,
-                                   causal, scale, dr, st);
+  if (d == 64)
+    return launch_bwd<64>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, causal,
+                          scale, dr, st);
+  if (d == 128)
+    return launch_bwd<128>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, causal,
+                           scale, dr, st);
+  return launch_bwd_wide(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, d, causal,
+                         scale, dr, st);
 }

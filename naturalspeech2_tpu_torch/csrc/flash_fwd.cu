@@ -19,7 +19,8 @@
 // Design: one block, one warpgroup of four warps, owns (batch·head, 64
 // query rows), each warp 16 rows, and walks the keys in tiles of 32. The
 // head width D is 64 or 128 (a template parameter; the wrapper pads
-// narrower heads with zeros). Both
+// narrower heads with zeros, wider ones to a multiple of 128, which
+// flash_fwd_wide_kernel walks in 128-wide chunks). Both
 // products run on `wgmma` TF32 tiles in split TF32 (flash.cuh: hi·hi +
 // hi·lo + lo·hi, f32 accumulation); one TF32 pass alone would change the
 // function at the 1e-4 level. Every operand is split into hi and lo once:
@@ -85,7 +86,8 @@ struct FwdSmem {
 // row e % 32, columns 4·(e / 32) (e = tid + 128·i), so that eight lanes
 // store one 128-byte run of a core matrix; V as keys 8·warp + 2·(lane / 8) +
 // p, head dims lane % 8 + 8q, so that the transposed stores, by head dim
-// % 8 and key position % 4, hit 32 distinct banks.
+// % 8 and key position % 4, hit 32 distinct banks. Rows are ld floats apart
+// (D, or the full head width when a wide head is walked in D-wide chunks).
 template <int D>
 struct KvRegs {
   float4 k[kKeys * D / 4 / kFlashThreads];
@@ -93,21 +95,26 @@ struct KvRegs {
 };
 
 template <int D>
-__device__ __forceinline__ void load_kv(KvRegs<D>& r, const float* kh, const float* vh, int k0,
-                                        int n_kv, int tid) {
+__device__ __forceinline__ void load_k(KvRegs<D>& r, const float* kh, int k0, int n_kv, int tid,
+                                       int ld) {
 #pragma unroll
   for (int i = 0; i < kKeys * D / 4 / kFlashThreads; ++i) {
     const int e = tid + kFlashThreads * i, row = k0 + e % kKeys, c4 = 4 * (e / kKeys);
-    r.k[i] = row < n_kv ? *reinterpret_cast<const float4*>(kh + (size_t)row * D + c4)
+    r.k[i] = row < n_kv ? *reinterpret_cast<const float4*>(kh + (size_t)row * ld + c4)
                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
+}
+
+template <int D>
+__device__ __forceinline__ void load_v(KvRegs<D>& r, const float* vh, int k0, int n_kv, int tid,
+                                       int ld) {
   const int lane = tid % 32;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const int row = k0 + 8 * (tid / 32) + 2 * (lane / 8) + p;
 #pragma unroll
     for (int q = 0; q < D / 8; ++q)
-      r.v[p][q] = row < n_kv ? vh[(size_t)row * D + lane % 8 + 8 * q] : 0.0f;
+      r.v[p][q] = row < n_kv ? vh[(size_t)row * ld + lane % 8 + 8 * q] : 0.0f;
   }
 }
 
@@ -115,12 +122,16 @@ __device__ __forceinline__ void load_kv(KvRegs<D>& r, const float* kh, const flo
 // key 2t of each 8 at k position t and key 2t + 1 at t + 4, so that P's
 // accumulator is the A operand of P·V as it stands.
 template <int D>
-__device__ __forceinline__ void store_kv(FwdSmem<D>& sm, const KvRegs<D>& r, int tid) {
+__device__ __forceinline__ void store_k(FwdSmem<D>& sm, const KvRegs<D>& r, int tid) {
 #pragma unroll
   for (int i = 0; i < kKeys * D / 4 / kFlashThreads; ++i) {
     const int e = tid + kFlashThreads * i;
     store_split4(sm.k_hi, sm.k_lo, kmajor<kKeys>(e % kKeys, 4 * (e / kKeys)), r.k[i]);
   }
+}
+
+template <int D>
+__device__ __forceinline__ void store_v(FwdSmem<D>& sm, const KvRegs<D>& r, int tid) {
   const int lane = tid % 32;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
@@ -130,6 +141,160 @@ __device__ __forceinline__ void store_kv(FwdSmem<D>& sm, const KvRegs<D>& r, int
     for (int q = 0; q < D / 8; ++q)
       store_split1(sm.v_hi, sm.v_lo, kmajor<D>(lane % 8 + 8 * q, pos), r.v[p][q]);
   }
+}
+
+// The block's 64 query rows (columns of Q ld floats apart), split K-major.
+template <int D>
+__device__ __forceinline__ void stage_q(FwdSmem<D>& sm, const float* qh, int q0, int n_q, int tid,
+                                        int ld) {
+#pragma unroll
+  for (int i = 0; i < kTile * D / 4 / kFlashThreads; ++i) {
+    const int e = tid + kFlashThreads * i, row = q0 + e % kTile, c4 = 4 * (e / kTile);
+    const float4 x = row < n_q ? *reinterpret_cast<const float4*>(qh + (size_t)row * ld + c4)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    store_split4(sm.q_hi, sm.q_lo, kmajor<kTile>(e % kTile, c4), x);
+  }
+}
+
+// s = Q Kᵀ over the D staged head dims: element (j, i) is row ra + 8·(i / 2),
+// key k0 + 8j + 2t + (i & 1); the large terms and the small ones summed in
+// separate accumulators and added at the end.
+template <int D>
+__device__ __forceinline__ void qk_product(const FwdSmem<D>& sm, float (&s)[kKeys / 8][4]) {
+  float small[kKeys / 8][4];
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = small[j][i] = 0.0f;
+  pin(s);
+  pin(small);
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    const uint64_t qa_hi = kmajor_desc<kTile>(sm.q_hi, ks);
+    const uint64_t qa_lo = kmajor_desc<kTile>(sm.q_lo, ks);
+    const uint64_t kb_hi = kmajor_desc<kKeys>(sm.k_hi, ks);
+    const uint64_t kb_lo = kmajor_desc<kKeys>(sm.k_lo, ks);
+    wgmma_ss_n32(small, qa_hi, kb_lo);
+    wgmma_ss_n32(small, qa_lo, kb_hi);
+    wgmma_ss_n32(s, qa_hi, kb_hi);
+  }
+  wg_commit_wait();
+  pin(s);
+  pin(small);
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] += small[j][i];
+}
+
+// Where a block's rows and keys are, and the rules that hide a key.
+struct TileRules {
+  const unsigned char* mask_b;
+  int bi, hi, ra, q0w0, n_q, n_kv, causal, t;
+  float scale;
+};
+
+// The online softmax of one key tile on S's accumulator, in place: s
+// becomes P (times the dropout keep multiplier), m and l advance, corr is
+// the factor that rescales what O held. A tile that no rule cuts (all keys
+// inside n_kv, no padding mask, causal only below the diagonal) skips the
+// per-element test.
+__device__ __forceinline__ void softmax_tile(float (&s)[kKeys / 8][4], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2], const TileRules& rw,
+                                             int k0, const ns2::Dropout& dr) {
+  const bool whole = rw.mask_b == nullptr && k0 + kKeys <= rw.n_kv &&
+                     (!rw.causal || k0 + kKeys - 1 <= rw.q0w0);
+  float row_max[2] = {ns2::kNegInf, ns2::kNegInf};
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool ok = whole || ns2::visible(rw.mask_b, rw.ra + 8 * (i / 2),
+                                            k0 + 8 * j + 2 * rw.t + (i & 1), rw.n_q, rw.n_kv,
+                                            rw.causal);
+      s[j][i] = ok ? s[j][i] * rw.scale : ns2::kNegInf;
+      row_max[i / 2] = fmaxf(row_max[i / 2], s[j][i]);
+    }
+  float row_sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], ns2::quad_max(row_max[r]));
+    corr[r] = expf(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // a masked logit is NEG_INF: exactly 0 once the row has a visible key
+      // (m finite), and tested for while every key so far was masked
+      float p = s[j][i] == ns2::kNegInf ? 0.0f : ns2::exp_sfu(s[j][i] - m[i / 2]);
+      row_sum[i / 2] += p;
+      if (dr.rate > 0.0f && p != 0.0f)
+        p *= ns2::keep_mult(dr, rw.bi, rw.hi, rw.ra + 8 * (i / 2),
+                            k0 + 8 * j + 2 * rw.t + (i & 1));
+      s[j][i] = p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ns2::quad_sum(row_sum[r]);
+}
+
+// acc = acc·corr + P V: P from the accumulator in registers; each 64-column
+// group of O (rows 64·h.. of Vᵀ, 256·h floats into each k-step) summed
+// apart and added in f32.
+template <int D>
+__device__ __forceinline__ void add_pv(float (&acc)[D / 8][4], const float (&s)[kKeys / 8][4],
+                                       const float (&corr)[2], const FwdSmem<D>& sm) {
+  uint32_t pa_hi[kKeys / 8][4], pa_lo[kKeys / 8][4];
+#pragma unroll
+  for (int ks = 0; ks < kKeys / 8; ++ks) ns2::a_from_acc(s[ks], pa_hi[ks], pa_lo[ks]);
+#pragma unroll
+  for (int h = 0; h < D / 64; ++h) {
+    float part[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[j][i] = 0.0f;
+    pin(part);
+    pin(pa_hi);
+    pin(pa_lo);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kKeys / 8; ++ks) {
+      const uint64_t vb_hi = kmajor_desc<D>(sm.v_hi + 256 * h, ks);
+      const uint64_t vb_lo = kmajor_desc<D>(sm.v_lo + 256 * h, ks);
+      wgmma_rs_n64(part, pa_hi[ks], vb_lo);
+      wgmma_rs_n64(part, pa_lo[ks], vb_hi);
+      wgmma_rs_n64(part, pa_hi[ks], vb_hi);
+    }
+    wg_commit_wait();
+    pin(part);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* a = acc[8 * h + j];
+      a[0] = a[0] * corr[0] + part[j][0];
+      a[1] = a[1] * corr[0] + part[j][1];
+      a[2] = a[2] * corr[1] + part[j][2];
+      a[3] = a[3] * corr[1] + part[j][3];
+    }
+  }
+}
+
+// o = acc / l for the block's rows (row stride ld) and, if lse, lse = m + log l.
+template <int D>
+__device__ __forceinline__ void finish(float* oh, float* lse_h, const float (&acc)[D / 8][4],
+                                       const float (&m)[2], const float (&l)[2], const TileRules& rw,
+                                       int ld) {
+  float inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float safe_l = l[r] == 0.0f ? 1.0f : l[r];
+    inv_l[r] = 1.0f / safe_l;
+    const int row = rw.ra + 8 * r;
+    if (lse_h && rw.t == 0 && row < rw.n_q) lse_h[row] = m[r] + logf(safe_l);
+  }
+  ns2::store_rows<D>(oh, acc, rw.ra, rw.n_q, rw.t, inv_l, ld);
 }
 
 // grid (ceil(n_q / 64), b·h), 128 threads (one warpgroup); dynamic shared
@@ -145,29 +310,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(smem_raw);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int t = lane % 4;
   const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
-  const int bi = bh / heads, hi = bh % heads;
-  const float* qh = q + (size_t)bh * n_q * D;
   const float* kh = k + (size_t)bh * n_kv * D;
   const float* vh = v + (size_t)bh * n_kv * D;
-  const unsigned char* mask_b = mask ? mask + (size_t)bi * n_kv : nullptr;
+  // this lane's rows of the warp's 16: ra = q0 + 16·warp + g (index 0) and
+  // ra + 8 (index 1); acc[j] holds columns 8j + 2t, 8j + 2t + 1 of both
+  const TileRules rw{mask ? mask + (size_t)(bh / heads) * n_kv : nullptr,
+                     bh / heads, bh % heads, q0 + 16 * warp + lane / 4, q0 + 16 * warp,
+                     n_q, n_kv, causal, lane % 4, scale};
 
   const int k_end = causal ? min(n_kv, q0 + kTile) : n_kv;
   const int n_tiles = (k_end + kKeys - 1) / kKeys;
   KvRegs<D> regs;
-  load_kv(regs, kh, vh, 0, n_kv, tid);
-#pragma unroll
-  for (int i = 0; i < kTile * D / 4 / kFlashThreads; ++i) {
-    const int e = tid + kFlashThreads * i, row = q0 + e % kTile, c4 = 4 * (e / kTile);
-    const float4 x = row < n_q ? *reinterpret_cast<const float4*>(qh + (size_t)row * D + c4)
-                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    store_split4(sm.q_hi, sm.q_lo, kmajor<kTile>(e % kTile, c4), x);
-  }
+  load_k(regs, kh, 0, n_kv, tid, D);
+  load_v(regs, vh, 0, n_kv, tid, D);
+  stage_q(sm, q + (size_t)bh * n_q * D, q0, n_q, tid, D);
 
-  // this lane's rows of the warp's 16: ra = q0 + w0 + g (index 0) and
-  // ra + 8 (index 1); acc[j] holds columns 8j + 2t, 8j + 2t + 1 of both
-  const int w0 = 16 * warp, ra = q0 + w0 + lane / 4;
   float m[2] = {ns2::kNegInf, ns2::kNegInf}, l[2] = {0.0f, 0.0f};
   float acc[D / 8][4];
 #pragma unroll
@@ -178,124 +336,92 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kKeys;
     __syncthreads();  // the last tile's products are done with sm.k / sm.v
-    store_kv(sm, regs, tid);
+    store_k(sm, regs, tid);
+    store_v(sm, regs, tid);
     fence_proxy_async();
     __syncthreads();  // tile kt is in shared memory, for wgmma too
-    if (kt + 1 < n_tiles)  // the next tile's loads overlap this tile's products
-      load_kv(regs, kh, vh, k0 + kKeys, n_kv, tid);
-
-    // S = Q Kᵀ: element (j, i) is row ra + 8·(i / 2), key k0 + 8j + 2t + (i & 1);
-    // the large terms and the small ones in separate accumulators
-    float s[kKeys / 8][4], small[kKeys / 8][4];
-#pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = small[j][i] = 0.0f;
-    pin(s);
-    pin(small);
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) {
-      const uint64_t qa_hi = kmajor_desc<kTile>(sm.q_hi, ks);
-      const uint64_t qa_lo = kmajor_desc<kTile>(sm.q_lo, ks);
-      const uint64_t kb_hi = kmajor_desc<kKeys>(sm.k_hi, ks);
-      const uint64_t kb_lo = kmajor_desc<kKeys>(sm.k_lo, ks);
-      wgmma_ss_n32(small, qa_hi, kb_lo);
-      wgmma_ss_n32(small, qa_lo, kb_hi);
-      wgmma_ss_n32(s, qa_hi, kb_hi);
+    if (kt + 1 < n_tiles) {  // the next tile's loads overlap this tile's products
+      load_k(regs, kh, k0 + kKeys, n_kv, tid, D);
+      load_v(regs, vh, k0 + kKeys, n_kv, tid, D);
     }
-    wg_commit_wait();
-    pin(s);
-    pin(small);
-#pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] += small[j][i];
-
-    // online softmax on the accumulator; a tile that no rule cuts (all keys
-    // inside n_kv, no padding mask, causal only below the diagonal) skips
-    // the per-element test
-    const bool whole = mask_b == nullptr && k0 + kKeys <= n_kv &&
-                       (!causal || k0 + kKeys - 1 <= q0 + w0);
-    float row_max[2] = {ns2::kNegInf, ns2::kNegInf};
-#pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool ok = whole || ns2::visible(mask_b, ra + 8 * (i / 2),
-                                              k0 + 8 * j + 2 * t + (i & 1), n_q, n_kv, causal);
-        s[j][i] = ok ? s[j][i] * scale : ns2::kNegInf;
-        row_max[i / 2] = fmaxf(row_max[i / 2], s[j][i]);
-      }
-    float corr[2], row_sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], ns2::quad_max(row_max[r]));
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // a masked logit is NEG_INF: exactly 0 once the row has a visible key
-        // (m finite), and tested for while every key so far was masked
-        float p = s[j][i] == ns2::kNegInf ? 0.0f : ns2::exp_sfu(s[j][i] - m[i / 2]);
-        row_sum[i / 2] += p;
-        if (dr.rate > 0.0f && p != 0.0f)
-          p *= ns2::keep_mult(dr, bi, hi, ra + 8 * (i / 2), k0 + 8 * j + 2 * t + (i & 1));
-        s[j][i] = p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ns2::quad_sum(row_sum[r]);
-
-    // O += P V: P from the accumulator in registers; each 64-column group
-    // of O (rows 64·h.. of Vᵀ, 256·h floats into each k-step) summed apart
-    // and added in f32
-    uint32_t pa_hi[kKeys / 8][4], pa_lo[kKeys / 8][4];
-#pragma unroll
-    for (int ks = 0; ks < kKeys / 8; ++ks) ns2::a_from_acc(s[ks], pa_hi[ks], pa_lo[ks]);
-#pragma unroll
-    for (int h = 0; h < D / 64; ++h) {
-      float part[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) part[j][i] = 0.0f;
-      pin(part);
-      pin(pa_hi);
-      pin(pa_lo);
-      wg_fence();
-#pragma unroll
-      for (int ks = 0; ks < kKeys / 8; ++ks) {
-        const uint64_t vb_hi = kmajor_desc<D>(sm.v_hi + 256 * h, ks);
-        const uint64_t vb_lo = kmajor_desc<D>(sm.v_lo + 256 * h, ks);
-        wgmma_rs_n64(part, pa_hi[ks], vb_lo);
-        wgmma_rs_n64(part, pa_lo[ks], vb_hi);
-        wgmma_rs_n64(part, pa_hi[ks], vb_hi);
-      }
-      wg_commit_wait();
-      pin(part);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float* a = acc[8 * h + j];
-        a[0] = a[0] * corr[0] + part[j][0];
-        a[1] = a[1] * corr[0] + part[j][1];
-        a[2] = a[2] * corr[1] + part[j][2];
-        a[3] = a[3] * corr[1] + part[j][3];
-      }
-    }
+    float s[kKeys / 8][4], corr[2];
+    qk_product(sm, s);
+    softmax_tile(s, m, l, corr, rw, k0, dr);
+    add_pv(acc, s, corr, sm);
   }
+  finish<D>(o + (size_t)bh * n_q * D, kLse ? lse + (size_t)bh * n_q : nullptr, acc, m, l, rw, D);
+}
 
-  float inv_l[2];
+// Heads wider than 128 (d a multiple of 128, as the JAX kernel pads d): grid
+// (ceil(n_q / 64), b·h, d / 128), block z owning the 128 columns of O from
+// 128·z. The logits run over the full width in 128-wide chunks through the
+// D = 128 buffers: for each key tile, each chunk c of Q and K is staged and
+// its product summed in fresh accumulators added in f32 (so no accumulator
+// runs through more products than at D = 128), then the
+// softmax as above and P times the block's own 128 columns of V. Each block
+// recomputes the logits (d / 128 times in all) and restages Q per chunk:
+// simple, and a first kernel for widths no config of the repo uses. lse
+// is written by block z = 0 alone. Loads are not overlapped with products.
+template <bool kLse>
+__global__ void __launch_bounds__(kFlashThreads, 1)
+flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const unsigned char* __restrict__ mask,
+                      float* __restrict__ o, float* __restrict__ lse, int heads, int n_q,
+                      int n_kv, int d, int causal, float scale, ns2::Dropout dr) {
+  constexpr int D = 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(smem_raw);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q0 = blockIdx.x * kTile, bh = blockIdx.y, oc = blockIdx.z, nc = d / D;
+  const float* qh = q + (size_t)bh * n_q * d;
+  const float* kh = k + (size_t)bh * n_kv * d;
+  const float* vh = v + (size_t)bh * n_kv * d;
+  const TileRules rw{mask ? mask + (size_t)(bh / heads) * n_kv : nullptr,
+                     bh / heads, bh % heads, q0 + 16 * warp + lane / 4, q0 + 16 * warp,
+                     n_q, n_kv, causal, lane % 4, scale};
+
+  const int k_end = causal ? min(n_kv, q0 + kTile) : n_kv;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+  float m[2] = {ns2::kNegInf, ns2::kNegInf}, l[2] = {0.0f, 0.0f};
+  float acc[D / 8][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float safe_l = l[r] == 0.0f ? 1.0f : l[r];
-    inv_l[r] = 1.0f / safe_l;
-    const int row = ra + 8 * r;
-    if (kLse && t == 0 && row < n_q) lse[(size_t)bh * n_q + row] = m[r] + logf(safe_l);
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+
+  KvRegs<D> regs;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kKeys;
+    float s[kKeys / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.0f;
+    for (int c = 0; c < nc; ++c) {
+      __syncthreads();  // the last products are done with sm.q, sm.k (and sm.v)
+      stage_q(sm, qh + c * D, q0, n_q, tid, d);
+      load_k(regs, kh + c * D, k0, n_kv, tid, d);
+      store_k(sm, regs, tid);
+      if (c == 0) {
+        load_v(regs, vh + oc * D, k0, n_kv, tid, d);
+        store_v(sm, regs, tid);
+      }
+      fence_proxy_async();
+      __syncthreads();  // chunk c of the tile is in shared memory, for wgmma too
+      float part[kKeys / 8][4];
+      qk_product(sm, part);
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] += part[j][i];
+    }
+    float corr[2];
+    softmax_tile(s, m, l, corr, rw, k0, dr);
+    add_pv(acc, s, corr, sm);
   }
-  ns2::store_rows<D>(o + (size_t)bh * n_q * D, acc, ra, n_q, t, inv_l);
+  finish<D>(o + (size_t)bh * n_q * d + oc * D,
+            kLse && oc == 0 ? lse + (size_t)bh * n_q : nullptr, acc, m, l, rw, d);
 }
 
 template <int D>
@@ -313,22 +439,41 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, const uns
   return cudaGetLastError();
 }
 
+cudaError_t launch_fwd_wide(const float* q, const float* k, const float* v,
+                            const unsigned char* mask, float* o, float* lse, int b, int h,
+                            int n_q, int n_kv, int d, int causal, float scale,
+                            const ns2::Dropout& dr, cudaStream_t stream) {
+  const int bytes = (int)sizeof(FwdSmem<128>);
+  auto kernel = lse ? flash_fwd_wide_kernel<true> : flash_fwd_wide_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_q + kTile - 1) / kTile, b * h, d / 128);
+  kernel<<<grid, kFlashThreads, bytes, stream>>>(q, k, v, mask, o, lse, h, n_q, n_kv, d, causal,
+                                                 scale, dr);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q [b,h,n_q,d], k/v [b,h,n_kv,d], 16-byte aligned, mask [b,n_kv] uint8
 // or null -> o [b,h,n_q,d], lse [b,h,n_q] (not written when lse is null).
 // Dropout is on when rate > 0: seed, counter stride, keep threshold and keep
 // scale come from the Python wrapper, as the JAX package derives them. d is
-// 64 or 128; other head widths return cudaErrorInvalidValue (the wrapper
-// pads d ≤ 128 to the next of the two).
+// 64 or a multiple of 128; other head widths return cudaErrorInvalidValue
+// (the wrapper pads every other width to the next of these).
 NS2_API int ns2_flash_fwd(const float* q, const float* k, const float* v,
                           const unsigned char* mask, float* o, float* lse, int b, int h, int n_q,
                           int n_kv, int d, int causal, float scale, unsigned seed0,
                           unsigned seed1, float rate, int stride, unsigned threshold,
                           float keep_scale, void* stream) {
-  if ((d != 64 && d != 128) || n_q <= 0 || n_kv <= 0) return cudaErrorInvalidValue;
+  if ((d != 64 && (d <= 0 || d % 128 != 0)) || n_q <= 0 || n_kv <= 0)
+    return cudaErrorInvalidValue;
   const ns2::Dropout dr{seed0, seed1, rate, stride, threshold, keep_scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch_fwd<64>(q, k, v, mask, o, lse, b, h, n_q, n_kv, causal, scale, dr, st)
-                 : launch_fwd<128>(q, k, v, mask, o, lse, b, h, n_q, n_kv, causal, scale, dr, st);
+  if (d == 64)
+    return launch_fwd<64>(q, k, v, mask, o, lse, b, h, n_q, n_kv, causal, scale, dr, st);
+  if (d == 128)
+    return launch_fwd<128>(q, k, v, mask, o, lse, b, h, n_q, n_kv, causal, scale, dr, st);
+  return launch_fwd_wide(q, k, v, mask, o, lse, b, h, n_q, n_kv, d, causal, scale, dr, st);
 }

@@ -1,5 +1,6 @@
 // The split-TF32 GEMM core of K1 (wavenet.cu), K1b (wavenet_lane.cu), K2
-// (attn_block.cu) and K3 (ff_block.cu):
+// (attn_block.cu), K2b (cross_attn_block.cu), K3 (ff_block.cu) and K6
+// (rvq.cu):
 //
 //   C[M x N] = epilogue(prologue(A)[M x K] · B[K x N])   in f32,
 //
@@ -15,7 +16,8 @@
 // Design: a block is WN warpgroups of 128 threads that share one 64-row
 // tile of A, each owning a 64 x 64 tile of C (so a block covers 64 WN
 // columns), `wgmma.m64n64k8` with both operands K-major in shared memory.
-// (K2 and K3 take WN 1 or 3 by the grid's size, `launch`; K1 and K1b 2.)
+// (K2, K2b, K3 and K6 take WN 1 or 3 by the grid's size, `launch`; K1 and
+// K1b 2.)
 // The reduction walks K in chunks of 32 (four k-steps) through a
 // two-stage ring:
 //  - B is a weight. The Python wrapper's cache holds Bᵀ once per
@@ -145,6 +147,33 @@ struct NormRows {
     const float4 bb = load4(bc, j, left, vec);
     return make_float4(v.x * scale * gg.x + bb.x, v.y * scale * gg.y + bb.y,
                        v.z * scale * gg.z + bb.z, v.w * scale * gg.w + bb.w);
+  }
+};
+
+// A = a [rows, w] as it stands, zero past w (any w): K2b's context and K6's
+// residual.
+struct Rows {
+  const float* a;
+  int rows, w;
+  const float *p, *pc;  // the row, and the chunk's
+  int left;             // w - the chunk's first k
+  bool ok, vec;
+
+  __device__ void group(int) {}
+
+  __device__ void init(int row, float*, int, int) {
+    ok = row < rows;
+    p = a + (size_t)(ok ? row : 0) * w;
+    vec = w % 4 == 0 && aligned16(a);
+  }
+
+  __device__ void chunk(int c) {
+    pc = p + c * kKC;
+    left = w - c * kKC;
+  }
+
+  __device__ float4 get(int j) const {
+    return ok ? load4(pc, j, left, vec) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 };
 
@@ -300,6 +329,57 @@ struct QkvScatter {
       for (int jj = 0; jj < 8; ++jj)
         *reinterpret_cast<float2*>(dst + 8 * jj + 2 * (lane % 4)) =
             make_float2(acc[jj][2 * r], acc[jj][2 * r + 1]);
+    }
+  }
+};
+
+// K6's nearest code: C = r·Cbᵀ, so code col is d² = −2·acc + norms[col]
+// from the row's residual r (‖r‖², the same for every code, dropped); each
+// row's first minimal (d², col) over the tile's columns < ncols goes into
+// best[row]
+// by a 64-bit atomicMin on (order-preserving bits of d², col): across tiles
+// the least d² wins and, on equal d², the lower col, the first minimal index
+// overall. best starts at all ones.
+struct ArgMin {
+  const float* norms;
+  unsigned long long* best;
+  int rows, ncols;
+
+  __device__ void group(int) {}
+
+  __device__ void operator()(const float (&acc)[8][4], int m0, int n0, int warp,
+                             int lane) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 16 * warp + lane / 4 + 8 * r;
+      float bd = INFINITY;
+      int bc = -1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // ascending columns: a strict < keeps the first
+          const int col = n0 + 8 * j + 2 * (lane % 4) + e;
+          if (col >= ncols) continue;
+          const float d2 = -2.0f * acc[j][2 * r + e] + norms[col];
+          if (bc < 0 || d2 < bd) {
+            bd = d2;
+            bc = col;
+          }
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the four lanes of the row
+        const float od = __shfl_xor_sync(0xffffffffu, bd, off);
+        const int oc = __shfl_xor_sync(0xffffffffu, bc, off);
+        if (oc >= 0 && (bc < 0 || od < bd || (od == bd && oc < bc))) {
+          bd = od;
+          bc = oc;
+        }
+      }
+      if (lane % 4 == 0 && row < rows && bc >= 0) {
+        uint32_t u = __float_as_uint(bd + 0.0f);  // -0 as +0
+        u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+        atomicMin(best + row, (unsigned long long)u << 32 | (uint32_t)bc);
+      }
     }
   }
 };

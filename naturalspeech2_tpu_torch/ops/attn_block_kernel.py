@@ -16,16 +16,16 @@ version ``attn_block_torch`` on CPU tensors. It is differentiable: its
 backward, as `_fused_bwd` in the JAX package, is the vjp of
 ``attn_block_flash``, which recomputes the norm and the projections with
 tensor ops and runs the attention core through flash attention (forward
-K4, backward K5). Its kernel reads the weights packed for the split-TF32
-GEMM core (``pack_attn_weights``, once per parameter version);
-``attn_block_packed_torch`` computes the block from that layout in plain
-PyTorch.
+K4, backward K5).
 
-Both kernels take heads up to 128 wide and pad them to 64 or 128 (K4's
-head dims) with exact zeros, K2b also dm to a multiple of 128 and dc to
-one of 16 (``pad_cross_inputs``); the norm keeps √dm of the real width.
-Wider heads raise (``flash_attention.kernel_head_dim``, ROADMAP Queue 3,
-F1).
+Both kernels are built the same way: the projections and W_o on the
+split-TF32 GEMM core, the attention core on K4. They read the weights
+packed for the core (``pack_attn_weights``, ``pack_cross_weights``, once
+per parameter version), each head padded with exact zeros to K4's width
+(64, or a multiple of 128: ``flash_attention.kernel_head_dim``) and dm and
+dc to the core's chunk; the norm keeps √dm of the real width.
+``attn_block_packed_torch`` and ``cross_attn_block_packed_torch`` compute
+the blocks from those layouts in plain PyTorch.
 
 ``fits_fused_attn_block`` and ``fits_fused_cross_attn_block`` are the JAX
 package's shape gates, which `Attention` consults before it takes a block.
@@ -33,7 +33,6 @@ package's shape gates, which `Attention` consults before it takes a block.
 
 from __future__ import annotations
 
-import math
 import torch
 import torch.nn.functional as F
 
@@ -130,20 +129,45 @@ def attn_block_flash(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, 
     return x + o.transpose(1, 2).reshape(b, n, heads * dim_head) @ wo
 
 
+def _padded_heads(w, heads: int, dim_head: int, dh: int):
+    """[rows, H·dim_head] → [rows, H, dh], each head padded with zero
+    columns."""
+    return F.pad(w.reshape(w.shape[0], heads, dim_head), (0, dh - dim_head))
+
+
+def _pack_out(wo, heads: int, dim_head: int, dh: int):
+    """W_o [H·dim_head, dm] as the core's packed Bᵀ [dm, H·dh], head h in
+    columns h·dh .. h·dh + dim_head."""
+    dm = wo.shape[1]
+    out = F.pad(wo.reshape(heads, dim_head, dm), (0, 0, 0, dh - dim_head))
+    return gemm_cache.pack_b(out.reshape(heads * dh, dm).T)
+
+
 def pack_attn_weights(wq, wkv, wo, heads: int, dim_head: int):
     """(q/k/v, out): the Dense layouts in the GEMM core's format
-    (``gemm_cache.pack_b``), each head padded with zeros to dh = 64 or 128
-    columns (``kernel_head_dim``). The q/k/v Bᵀ has 3·H·dh rows, row
-    which·H·dh + h·dh + e = column e of head h of q, k or v; the out Bᵀ is
-    W_oᵀ [dm, H·dh], head h in columns h·dh .. h·dh + dim_head."""
-    dh = kernel_head_dim(dim_head, "attn_block")
-    dm, pad = wq.shape[0], dh - dim_head
+    (``gemm_cache.pack_b``), each head padded with zeros to dh columns
+    (``kernel_head_dim``). The q/k/v Bᵀ has 3·H·dh rows, row which·H·dh +
+    h·dh + e = column e of head h of q, k or v; the out Bᵀ is W_oᵀ [dm,
+    H·dh], head h in columns h·dh .. h·dh + dim_head."""
+    dh = kernel_head_dim(dim_head)
+    dm = wq.shape[0]
     wk, wv = wkv.chunk(2, dim=-1)
-    qkv = torch.stack([F.pad(w.reshape(dm, heads, dim_head), (0, pad)) for w in (wq, wk, wv)],
-                      dim=1)
-    out = F.pad(wo.reshape(heads, dim_head, dm), (0, 0, 0, pad)).reshape(heads * dh, dm)
+    qkv = torch.stack([_padded_heads(w, heads, dim_head, dh) for w in (wq, wk, wv)], dim=1)
     return (gemm_cache.pack_b(qkv.reshape(dm, 3 * heads * dh).T),
-            gemm_cache.pack_b(out.T))
+            _pack_out(wo, heads, dim_head, dh))
+
+
+def pack_cross_weights(wq, wkv, wo, heads: int, dim_head: int):
+    """(q, k/v, out): K2b's Dense layouts in the GEMM core's format, each
+    head padded with zeros to dh columns (``kernel_head_dim``). The q Bᵀ
+    has H·dh rows (row h·dh + e = column e of head h), the k/v Bᵀ 2·H·dh
+    (k's heads, then v's), K = dc; the out Bᵀ as ``pack_attn_weights``'s."""
+    dh = kernel_head_dim(dim_head)
+    wk, wv = wkv.chunk(2, dim=-1)
+    kv = torch.stack([_padded_heads(w, heads, dim_head, dh) for w in (wk, wv)], dim=1)
+    return (gemm_cache.pack_b(_padded_heads(wq, heads, dim_head, dh).reshape(wq.shape[0], -1).T),
+            gemm_cache.pack_b(kv.reshape(wkv.shape[0], 2 * heads * dh).T),
+            _pack_out(wo, heads, dim_head, dh))
 
 
 def attn_block_packed_torch(x, gamma, beta, packed, *, heads: int, scale: float):
@@ -254,98 +278,66 @@ def _cross_plain(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int,
                                   scale=scale)
 
 
-# K2b's model-width and context-width multiples: the core's staged chunk
-# of W_q,h rows, and its context chunk.
-_CROSS_DM_ALIGN = 128
-_CROSS_DC_ALIGN = 16
+def cross_attn_block_packed_torch(x, ctx, gamma, beta, packed, *, heads: int, scale: float):
+    """K2b's four launches in plain PyTorch, from the packed weights
+    (``pack_cross_weights``): q at the padded head width dh in K4's layout,
+    k and v from the context's rows, the attention core
+    (``flash_forward_torch``), the heads' concatenation times W_o with the
+    residual; the norm at the real dm. Equal to ``cross_attn_block_torch``
+    up to f32 reordering: the check of K2b's padding and weight layout on
+    the CPU."""
+    b, n, dm = x.shape
+    m, dc = ctx.shape[1:]
+    wq, wkv, wo = [sum(gemm_cache.unpack_b(p)) for p in packed]
+    hd = wo.shape[1]  # H·dh: the out Bᵀ's K, a multiple of 64
+    dh = hd // heads
+    q = (ada_norm(x, gamma, beta) @ wq[:hd, :dm].T).reshape(b, n, heads, dh).transpose(1, 2)
+    k, v = (ctx @ wkv[:2 * hd, :dc].T).reshape(b, m, 2, heads, dh).permute(2, 0, 3, 1, 4)
+    o, _ = flash_forward_torch(q, k, v, None, None, causal=False, scale=scale)
+    return x + o.transpose(1, 2).reshape(b, n, hd) @ wo[:dm, :hd].T
 
 
-def cross_padded_widths(dm: int, dc: int) -> tuple[int, int]:
-    """(dm, dc) padded to what K2b takes."""
-    return (gemm_cache.round_up(dm, _CROSS_DM_ALIGN), gemm_cache.round_up(dc, _CROSS_DC_ALIGN))
-
-
-def pad_cross_weights(wq, wkv, wo, heads: int, dim_head: int, dm_p: int, dc_p: int):
-    """K2b's Dense layouts padded with zeros: heads to dh = 64 or 128
-    columns (``kernel_head_dim``), dm to ``dm_p`` and dc to ``dc_p`` (wq
-    [dm_p, H·dh], wkv [dc_p, 2·H·dh], wo [H·dh, dm_p])."""
-    dh = kernel_head_dim(dim_head, "cross_attn_block")
-    dm, dc, pad = wq.shape[0], wkv.shape[0], dh - dim_head
-    wk, wv = wkv.chunk(2, dim=-1)
-
-    def padded_heads(w, rows):
-        return F.pad(w.reshape(w.shape[0], heads, dim_head), (0, pad, 0, 0, 0, rows - w.shape[0]))
-
-    wkv_p = torch.cat([padded_heads(wk, dc_p), padded_heads(wv, dc_p)], dim=1).reshape(dc_p, -1)
-    wo_p = F.pad(wo.reshape(heads, dim_head, dm), (0, dm_p - dm, 0, pad))
-    return (padded_heads(wq, dm_p).reshape(dm_p, -1).contiguous(), wkv_p.contiguous(),
-            wo_p.reshape(heads * dh, dm_p).contiguous())
-
-
-def pad_cross_inputs(x, ctx, gamma, beta, dm_p: int, dc_p: int):
-    """x, γ, β padded with zero columns to ``dm_p``, ctx to ``dc_p``."""
-    dm, dc = x.shape[-1], ctx.shape[-1]
-    return (F.pad(x, (0, dm_p - dm)), F.pad(ctx, (0, dc_p - dc)), F.pad(gamma, (0, dm_p - dm)),
-            F.pad(beta, (0, dm_p - dm)))
-
-
-def cross_attn_block_padded_torch(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int,
-                                  dim_head: int, scale: float):
-    """``_cross_plain`` on the inputs padded as K2b's wrapper pads them,
-    the norm at the real dm, the result cut back: the check of K2b's
-    padding on the CPU."""
-    dm = x.shape[-1]
-    dm_p, dc_p = cross_padded_widths(dm, ctx.shape[-1])
-    xp, ctxp, gp, bp = pad_cross_inputs(x, ctx, gamma, beta, dm_p, dc_p)
-    wq_p, wkv_p, wo_p = pad_cross_weights(wq, wkv, wo, heads, dim_head, dm_p, dc_p)
-    # the padded norm: ‖x‖ is unchanged by zero columns, √ takes the real dm
-    norm = torch.sqrt(torch.sum(xp * xp, dim=-1, keepdim=True))
-    xn = xp / norm.clamp(min=1e-12) * math.sqrt(dm) * gp[:, None, :] + bp[:, None, :]
-    dh = kernel_head_dim(dim_head)
-
-    def to_heads(t):
-        return t.reshape(t.shape[0], t.shape[1], heads, dh).transpose(1, 2)
-
-    k, v = (ctxp @ wkv_p).chunk(2, dim=-1)
-    o, _ = flash_forward_torch(to_heads(xn @ wq_p), to_heads(k), to_heads(v), None, None,
-                               causal=False, scale=scale)
-    out = xp + o.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1) @ wo_p
-    return out[..., :dm]
+def _pack_cross_checked(wq, wkv, wo, heads: int, dim_head: int):
+    """``pack_cross_weights`` after the wrapper's checks of the weights,
+    which a cache hit then need not repeat."""
+    _build.require_cuda_f32("cross_attn_block", wq=wq, wkv=wkv, wo=wo)
+    dm, dc, hd = wq.shape[0], wkv.shape[0], heads * dim_head
+    _build.require_shapes("cross_attn_block", wq=(wq, (dm, hd)), wkv=(wkv, (dc, 2 * hd)),
+                          wo=(wo, (hd, dm)))
+    return pack_cross_weights(wq, wkv, wo, heads, dim_head)
 
 
 def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
     if x.device.type == "cpu":
         return _cross_plain(x, ctx, gamma, beta, wq, wkv, wo, heads=heads, dim_head=dim_head,
                             scale=scale)
-    _build.require_cuda_f32(
-        "cross_attn_block", x=x, ctx=ctx, gamma=gamma, beta=beta, wq=wq, wkv=wkv, wo=wo
-    )
+    _build.require_cuda_f32("cross_attn_block", x=x, ctx=ctx, gamma=gamma, beta=beta)
     b, n, dm = x.shape
     m, dc = ctx.shape[1:]
-    hd = heads * dim_head
-    _build.require_shapes(
-        "cross_attn_block", ctx=(ctx, (b, m, dc)), gamma=(gamma, (b, dm)), beta=(beta, (b, dm)),
-        wq=(wq, (dm, hd)), wkv=(wkv, (dc, 2 * hd)), wo=(wo, (hd, dm)),
-    )
-    dh = kernel_head_dim(dim_head, "cross_attn_block")
+    _build.require_shapes("cross_attn_block", ctx=(ctx, (b, m, dc)), gamma=(gamma, (b, dm)),
+                          beta=(beta, (b, dm)))
     if m < 1:
         raise ValueError("cross_attn_block: the context is empty")
-    dm_p, dc_p = cross_padded_widths(dm, dc)
-    wq_p, wkv_p, wo_p = gemm_cache.cached(
+    packed = gemm_cache.cached(
         f"cross_attn_block {heads} {dim_head}",
-        lambda *w: pad_cross_weights(*w, heads, dim_head, dm_p, dc_p), wq, wkv, wo)
-    if (dm_p, dc_p) != (dm, dc):
-        x, ctx, gamma, beta = pad_cross_inputs(x, ctx, gamma, beta, dm_p, dc_p)
+        lambda *w: _pack_cross_checked(*w, heads, dim_head), wq, wkv, wo)
+    if wq.shape[0] != dm or wkv.shape[0] != dc or wq.device != x.device:
+        raise ValueError(f"cross_attn_block: wq {tuple(wq.shape)}, wkv {tuple(wkv.shape)} on "
+                         f"{wq.device} do not take x {tuple(x.shape)}, ctx {tuple(ctx.shape)} "
+                         f"on {x.device}")
+    dh = kernel_head_dim(dim_head)
+    q = torch.empty((b, heads, n, dh), dtype=torch.float32, device=x.device)
     kv = torch.empty((2, b, heads, m, dh), dtype=torch.float32, device=x.device)
+    o = torch.empty_like(q)
     out = torch.empty_like(x)
     err = _build.library().ns2_cross_attn_block(
-        x.data_ptr(), ctx.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wq_p.data_ptr(),
-        wkv_p.data_ptr(), wo_p.data_ptr(), kv.data_ptr(), out.data_ptr(), b, n, m, dm_p, dc_p,
-        heads, dh, dm, float(scale), _build.stream(x),
+        x.data_ptr(), ctx.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        *(p.data_ptr() for p in packed), q.data_ptr(), kv.data_ptr(), o.data_ptr(),
+        out.data_ptr(), b, n, m, dm, dc, heads, dh, float(scale), _build.stream(x),
     )
     _build.check(err, "ns2_cross_attn_block")
     cross_attn_block.launches += 1
-    return out if dm_p == dm else out[..., :dm].contiguous()
+    return out
 
 
 class _CrossAttnBlock(torch.autograd.Function):
@@ -369,9 +361,9 @@ def cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: 
 
     x: [b, n, dm]; ctx: [b, m, dc]; gamma/beta: [b, dm]; wq: [dm, H·dh];
     wkv: [dc, 2·H·dh] (k first); wo: [H·dh, dm]. CUDA tensors run the
-    kernel (1 + ceil(dm / 512) launches, counted as one launch of K2b;
-    heads up to 128 wide, padded with zeros as dm and dc are); CPU tensors
-    run the plain version.
+    kernel (four launches: q and k/v on the GEMM core, K4's attention core,
+    W_o on the GEMM core; counted as one launch of K2b; any dm, dc and head
+    width); CPU tensors run the plain version.
     """
     return _CrossAttnBlock.apply(x, ctx, gamma, beta, wq, wkv, wo, heads, dim_head, float(scale))
 

@@ -22,10 +22,14 @@ The kernels run every product on the tensor cores in split TF32 (three
 TF32 products per f32 product), which keeps f32 accuracy.
 ``flash_attention`` is differentiable (forward K4, backward K5);
 ``flash_attention_with_lse`` is forward only. The kernels take head dims
-64 and 128; narrower heads are padded with zero columns to the next of the
-two (``pad_head_dim``) and the results cut back, as the JAX package pads d
-to 128: zero columns of q and k change no logit, zero columns of v and dO
-give output columns that are cut. Wider heads raise (``kernel_head_dim``).
+64 and multiples of 128; other heads are padded with zero columns to the
+next of these (``pad_head_dim``, ``kernel_head_dim``) and the results cut
+back, as the JAX package pads d to a multiple of 128: zero columns of q and
+k change no logit, zero columns of v and dO give output columns that are
+cut. Heads wider than 128 run the kernels' chunked variants, which sum the
+logits (and dP) over 128-wide chunks of the head dim and write each
+128-column chunk of the outputs from a block of its own; the plain
+versions' ``head_chunk`` argument computes in that order.
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ import torch.nn.functional as F
 from naturalspeech2_tpu_torch import _build
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
-# The kernels' head dims, to the next of which narrower heads are padded.
-KERNEL_HEAD_DIMS = (64, 128)
+# The chunk of the head dim that the kernels stage: heads are 64 wide or a
+# multiple of it.
+KERNEL_HEAD_CHUNK = 128
 
 _MASK32 = 0xFFFFFFFF
 _ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
@@ -110,14 +115,26 @@ def _valid(b: int, n_q: int, n_kv: int, mask, causal: bool, device) -> torch.Ten
     return valid
 
 
+def _xyt(x, y, head_chunk: Optional[int]):
+    """x·yᵀ over the last dim of ``[b, h, n, d]`` tensors; with
+    ``head_chunk`` the sum of the products of its chunks, each apart, as the
+    chunked kernels sum them."""
+    if head_chunk is None:
+        return torch.einsum("bhid,bhjd->bhij", x, y)
+    return sum(torch.einsum("bhid,bhjd->bhij", x[..., c:c + head_chunk], y[..., c:c + head_chunk])
+               for c in range(0, x.shape[-1], head_chunk))
+
+
 def flash_forward_torch(q, k, v, mask, seed, *, causal: bool, scale: float,
-                        dropout_rate: float = 0.0):
+                        dropout_rate: float = 0.0, head_chunk: Optional[int] = None):
     """Plain version of K4: ``(o [b,h,n_q,d], lse [b,h,n_q])``, the function
-    of `_flash_oneshot_kernel` / `_flash_kernel`."""
+    of `_flash_oneshot_kernel` / `_flash_kernel`. With ``head_chunk`` (d a
+    multiple of it) the logits are summed over chunks of the head dim, as
+    the kernel does for heads wider than 128."""
     b, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     valid = _valid(b, n_q, n_kv, mask, causal, q.device)
-    s = torch.where(valid, torch.einsum("bhid,bhjd->bhij", q, k) * scale, NEG_INF)
+    s = torch.where(valid, _xyt(q, k, head_chunk) * scale, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
@@ -130,16 +147,18 @@ def flash_forward_torch(q, k, v, mask, seed, *, causal: bool, scale: float,
 
 
 def flash_backward_torch(q, k, v, mask, seed, lse, o, do, *, causal: bool, scale: float,
-                         dropout_rate: float = 0.0):
+                         dropout_rate: float = 0.0, head_chunk: Optional[int] = None):
     """Plain version of K5: ``(dq, dk, dv)`` from the saved lse, with
-    delta = Σ_d dO·O and P recomputed as in `_flash_backward`."""
+    delta = Σ_d dO·O and P recomputed as in `_flash_backward`. With
+    ``head_chunk``, S and dP are summed over chunks of the head dim, as the
+    kernels do for heads wider than 128."""
     b, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     valid = _valid(b, n_q, n_kv, mask, causal, q.device)
     delta = (do * o).sum(dim=-1, keepdim=True)
-    s = torch.einsum("bhid,bhjd->bhij", q, k) * scale
+    s = _xyt(q, k, head_chunk) * scale
     p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
-    dp = torch.einsum("bhid,bhjd->bhij", do, v)
+    dp = _xyt(do, v, head_chunk)
     a = p
     if dropout_rate > 0.0:
         keep = dropout_keep_scaled(seed, b, h, n_q, n_kv, dropout_rate, q.device)
@@ -152,24 +171,17 @@ def flash_backward_torch(q, k, v, mask, seed, lse, o, do, *, causal: bool, scale
     return dq, dk, dv
 
 
-def kernel_head_dim(d: int, name: str = "flash attention") -> int:
-    """The kernels' head dim that a d-wide head is padded to: 64 or 128.
-
-    Wider heads raise: the kernels stage a 64-row tile each of Q, K and V
-    in shared memory, split into TF32 hi and lo, which at d 256 is 384 KB
-    against the 227 KB a block can have (ROADMAP Queue 3, F1)."""
-    for width in KERNEL_HEAD_DIMS:
-        if d <= width:
-            return width
-    raise ValueError(
-        f"{name}: the CUDA kernels take head dims up to {KERNEL_HEAD_DIMS[-1]}, got {d} (ROADMAP "
-        f"Queue 3, F1: one 64-row tile each of Q, K and V at this width, split into TF32 hi and "
-        f"lo, is {6 * 64 * d * 4 // 1024} KB of shared memory, past the 227 KB a block has)")
+def kernel_head_dim(d: int) -> int:
+    """The kernels' head dim that a d-wide head is padded to: 64, or the
+    next multiple of 128 (``KERNEL_HEAD_CHUNK``), as the JAX kernels pad d
+    to a multiple of 128. Heads wider than 128 run the kernels' chunked
+    variants."""
+    return 64 if d <= 64 else -(-d // KERNEL_HEAD_CHUNK) * KERNEL_HEAD_CHUNK
 
 
 def pad_head_dim(*tensors):
     """Each ``[..., d]`` tensor with zero columns up to the kernels' head dim
-    (``kernel_head_dim``; as it is when d is 64 or 128 already)."""
+    (``kernel_head_dim``; as it is when d is one already)."""
     width = kernel_head_dim(tensors[0].shape[-1])
     return tuple(t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
                  for t in tensors)
@@ -180,8 +192,9 @@ def _check(name: str, q, k, v, mask):
     b, h, n_q, d = q.shape
     n_kv = k.shape[2]
     _build.require_shapes(name, k=(k, (b, h, n_kv, d)), v=(v, (b, h, n_kv, d)))
-    if kernel_head_dim(d, name) != d:
-        raise ValueError(f"{name}: the CUDA kernels take head dims {KERNEL_HEAD_DIMS}, got {d}")
+    if kernel_head_dim(d) != d:
+        raise ValueError(f"{name}: the CUDA kernels take head dims 64 and multiples of "
+                         f"{KERNEL_HEAD_CHUNK}, got {d}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: the CUDA kernel copies rows in 16-byte pieces; q, k and v "
                          "must start on a 16-byte boundary")
@@ -206,13 +219,13 @@ def _dropout_args(seed, dropout_rate: float, n_kv: int) -> list:
 def flash_forward(q, k, v, mask=None, seed=None, *, causal: bool = False, scale: float,
                   dropout_rate: float = 0.0):
     """K4: ``(o, lse)``. CUDA tensors launch ``csrc/flash_fwd.cu`` (heads
-    padded to 64 or 128, o cut back); CPU tensors run
+    padded to 64 or a multiple of 128, o cut back); CPU tensors run
     ``flash_forward_torch``."""
     if q.device.type == "cpu":
         return flash_forward_torch(q, k, v, mask, seed, causal=causal, scale=scale,
                                    dropout_rate=dropout_rate)
     d = q.shape[-1]
-    if d != kernel_head_dim(d, "flash_forward") and q.device.type == "cuda":
+    if d != kernel_head_dim(d) and q.device.type == "cuda":
         o, lse = flash_forward(*pad_head_dim(q, k, v), mask, seed, causal=causal, scale=scale,
                                dropout_rate=dropout_rate)
         return o[..., :d].contiguous(), lse
@@ -235,14 +248,14 @@ def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, sca
                    dropout_rate: float = 0.0):
     """K5: ``(dq, dk, dv)``. CUDA tensors launch the dq and dk/dv kernels of
     ``csrc/flash_bwd.cu`` (counted as one launch of K5; heads padded to 64
-    or 128, the gradients cut back) after delta =
+    or a multiple of 128, the gradients cut back) after delta =
     Σ dO·O as a plain reduction (XLA computes it outside the kernels too);
     CPU tensors run ``flash_backward_torch``."""
     if q.device.type == "cpu":
         return flash_backward_torch(q, k, v, mask, seed, lse, o, do, causal=causal, scale=scale,
                                     dropout_rate=dropout_rate)
     d = q.shape[-1]
-    if d != kernel_head_dim(d, "flash_backward") and q.device.type == "cuda":
+    if d != kernel_head_dim(d) and q.device.type == "cuda":
         grads = flash_backward(*pad_head_dim(q, k, v), mask, seed, lse, *pad_head_dim(o, do),
                                causal=causal, scale=scale, dropout_rate=dropout_rate)
         return tuple(g[..., :d].contiguous() for g in grads)

@@ -1,9 +1,10 @@
 """Weights laid out once for the kernels, and the split-TF32 GEMM core's
 operand format.
 
-The GEMM core (``csrc/gemm_tf32x3.cuh``) of K1, K1b, K2 and K3 reads its B operand,
-a weight, from a packed tensor: Bᵀ padded with zeros to 64-row tiles and
-32-column chunks, each element split into TF32 hi and lo as the kernels
+The GEMM core (``csrc/gemm_tf32x3.cuh``) of K1, K1b, K2, K2b, K3 and K6
+reads its B operand, a weight (K6: a codebook), from a packed tensor: Bᵀ
+padded with zeros to 64-row tiles and 32-column chunks, each element
+split into TF32 hi and lo as the kernels
 split their operands (flash.cuh: hi = x rounded half away from zero at
 mantissa bit 13, lo = x - hi), and each (tile, chunk) laid out as the
 K-major core matrices that ``wgmma`` reads, hi then lo. A chunk is then

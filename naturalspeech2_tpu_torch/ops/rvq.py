@@ -5,13 +5,15 @@ running residual (d² = −2·r·Cᵀ + ‖C‖², the first minimal index), the
 r −= C[idx]. Returns the quantized sum ``[m, d]`` and the codes ``[m, Q]``
 (int32).
 
-``rvq`` launches the kernel of ``csrc/rvq.cu`` on CUDA tensors (any
-codebook dim: the kernel runs the distances over chunks of 128 dims, and
-other widths are padded with zero columns to a multiple of 128, which
-change no distance) and runs the plain version ``rvq_torch`` on CPU
-tensors. ``rvq_quantize`` adds the
-straight-through gradient; ``rvq_reference`` is the twin of ``rvq_xla``
-(which keeps ‖r‖², so a near-tie may pick another code than the kernel).
+``rvq`` launches the kernels of ``csrc/rvq.cu`` on CUDA tensors (per stage
+the distances on the split-TF32 GEMM core with a first-minimum epilogue,
+then the residual update; any codebook dim and size) and runs the plain
+version ``rvq_torch`` on CPU tensors. The kernels read the codebooks
+packed for the core with their squared norms (``pack_codebooks``, once per
+parameter version); ``rvq_packed_torch`` computes the function from that
+layout in plain PyTorch. ``rvq_quantize`` adds the straight-through
+gradient; ``rvq_reference`` is the twin of ``rvq_xla`` (which keeps ‖r‖²,
+so a near-tie may pick another code than the kernel).
 """
 
 from __future__ import annotations
@@ -22,17 +24,15 @@ import torch.nn.functional as F
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
 
-# The kernel's chunk of the codebook dim, to a multiple of which codebooks
-# are padded.
-KERNEL_DIM = 128
 
-
-def rvq_torch(x, codebooks):
+def rvq_torch(x, codebooks, norms=None):
     """Plain version of the kernel's function (`_rvq_kernel`): ‖r‖² dropped,
-    first minimal index, the quantized sum accumulated stage by stage."""
+    first minimal index, the quantized sum accumulated stage by stage.
+    ``norms`` [Q, K]: the codebooks' squared norms, if already at hand."""
     r = x.to(torch.float32)
     total = torch.zeros_like(r)
-    norms = (codebooks * codebooks).sum(dim=-1)  # [Q, K]
+    if norms is None:
+        norms = (codebooks * codebooks).sum(dim=-1)  # [Q, K]
     codes = []
     for qi in range(codebooks.shape[0]):
         d2 = -2.0 * (r @ codebooks[qi].T) + norms[qi]
@@ -57,35 +57,47 @@ def rvq_reference(x, codebooks):
     return x - residual, torch.stack(codes, dim=-1).to(torch.int32)
 
 
-def pad_codebook_dim(x, codebooks):
-    """x [m, d] and codebooks [Q, K, d] with zero columns up to a multiple
-    of the kernel's chunk, as ``rvq`` pads them."""
-    pad = gemm_cache.round_up(x.shape[-1], KERNEL_DIM) - x.shape[-1]
-    return F.pad(x, (0, pad)), F.pad(codebooks, (0, pad))
+def pack_codebooks(codebooks):
+    """(packed, norms): each stage's codebook C_q [K, d] as the GEMM core's
+    packed Bᵀ (``gemm_cache.pack_b``: codes in 64-row tiles, dims in
+    32-wide chunks, zero-padded, split into TF32 hi and lo) and the squared
+    norms [Q, K] (a plain reduction, as XLA computes them outside the
+    Pallas kernel)."""
+    return gemm_cache.pack_b(codebooks), (codebooks * codebooks).sum(dim=-1).contiguous()
+
+
+def rvq_packed_torch(x, packed, norms, size: int):
+    """``rvq_torch`` from the kernel's layout: the codebooks unpacked from
+    ``pack_codebooks``'s tiles (hi + lo, zero-padded dims), the first
+    ``size`` codes of each, x padded with zero dims to match; the quantized
+    sum cut back to d. The check of K6's packing on the CPU."""
+    d = x.shape[-1]
+    codebooks = sum(gemm_cache.unpack_b(packed))[:, :size]
+    total, codes = rvq_torch(F.pad(x, (0, codebooks.shape[-1] - d)), codebooks, norms)
+    return total[:, :d], codes
 
 
 def rvq(x, codebooks):
     """K6: ``(quantized [m, d], codes [m, Q] int32)``. CUDA tensors launch
-    the kernel (the codebook norms are a plain reduction beside it, as XLA
-    computes them outside the Pallas kernel); CPU tensors run
-    ``rvq_torch``."""
+    the kernels (2·Q launches, counted as one launch of K6); CPU tensors
+    run ``rvq_torch``."""
     if x.device.type == "cpu":
         return rvq_torch(x, codebooks)
     _build.require_cuda_f32("rvq", x=x, codebooks=codebooks)
     m, d = x.shape
     num_q, size = codebooks.shape[:2]
     _build.require_shapes("rvq", codebooks=(codebooks, (num_q, size, d)))
-    d_p = gemm_cache.round_up(d, KERNEL_DIM)
-    if d_p != d:
-        padded = gemm_cache.cached("rvq", lambda cb: F.pad(cb, (0, d_p - d)), codebooks)
-        quantized, codes = rvq(F.pad(x, (0, d_p - d)), padded)
-        return quantized[:, :d].contiguous(), codes
-    norms = (codebooks * codebooks).sum(dim=-1).contiguous()
+    if m < 1:
+        raise ValueError("rvq: no rows")
+    packed, norms = gemm_cache.cached("rvq", pack_codebooks, codebooks)
     residual, quantized = torch.empty_like(x), torch.empty_like(x)
     codes = torch.empty((m, num_q), dtype=torch.int32, device=x.device)
+    # per stage and row the packed (distance, code) minimum; all ones = none yet
+    best = torch.full((num_q, m), -1, dtype=torch.int64, device=x.device)
     err = _build.library().ns2_rvq(
-        x.data_ptr(), codebooks.data_ptr(), norms.data_ptr(), residual.data_ptr(),
-        quantized.data_ptr(), codes.data_ptr(), m, d, num_q, size, _build.stream(x),
+        x.data_ptr(), codebooks.data_ptr(), packed.data_ptr(), norms.data_ptr(), best.data_ptr(),
+        residual.data_ptr(), quantized.data_ptr(), codes.data_ptr(), m, d, num_q, size,
+        _build.stream(x),
     )
     _build.check(err, "ns2_rvq")
     rvq.launches += 1

@@ -1,6 +1,6 @@
 """Split TF32, the arithmetic of the flash-attention kernels K4 and K5
-(`naturalspeech2_tpu_torch/csrc/flash.cuh`) and of the GEMM core of K2 and
-K3 (`csrc/gemm_tf32x3.cuh`), emulated on the CPU.
+(`naturalspeech2_tpu_torch/csrc/flash.cuh`) and of the GEMM core of K1,
+K1b, K2, K2b, K3 and K6 (`csrc/gemm_tf32x3.cuh`), emulated on the CPU.
 
 An f32 operand x becomes hi = tf32(x) (rounded half away from zero at
 mantissa bit 13, as `cvt.rna.tf32.f32` does; the kernels do it with two
@@ -27,7 +27,13 @@ body's 32-block chain (4 stacks x 8 layers, d 128), each block one product
 with its packed, interleaved [3d, 2d] weight and the skips one product with
 K = 8·d, as K1 runs it, stays within `chip_smoke.WAVENET_TOL` of f64
 (relative to the largest entry of the output) with room, and one pass
-fails it."""
+fails it. K2b's four launches (q and k/v projections and W_o on the core,
+K4's logits and P·V) at the conditional widths (dm 128, 8 heads of 64, a
+32-latent context) stay within `chip_smoke.BLOCK_TOL` of f64 relative to
+the largest entry of y - x, and one pass fails it; K6's stages, each
+stage's distances on the core in three passes, keep `rvq_torch`'s codes at
+the training shape's codebooks but for near-ties within
+`chip_smoke.RVQ_TIE_TOL`."""
 
 import importlib.util
 from pathlib import Path
@@ -52,6 +58,7 @@ def _chip_smoke():
 FLASH_TOL = _chip_smoke().FLASH_TOL
 BLOCK_TOL = _chip_smoke().BLOCK_TOL
 WAVENET_TOL = _chip_smoke().WAVENET_TOL
+RVQ_TIE_TOL = _chip_smoke().RVQ_TIE_TOL
 
 
 def tf32_hi(x: torch.Tensor) -> torch.Tensor:
@@ -258,3 +265,86 @@ def _wavenet_error(passes: int) -> float:
 def test_wavenet_core_three_passes_meet_wavenet_tol_one_pass_fails():
     three, one = _wavenet_error(3), _wavenet_error(1)
     assert three * 5 < WAVENET_TOL < one / 5, (three, one)
+
+
+# ---- K2b's four launches and K6's distances on the same core ----------------
+
+def _cross_block(proj, core_s, core_pv, dtype, n: int = 64, m: int = 32, dm: int = 128,
+                 heads: int = 8, dh: int = 64):
+    """(y, x) of the cross-attention block at b1 as K2b runs it: q = n(x)·W_q
+    and k, v = ctx·W_{k,v} through ``proj``, each head's logits through
+    ``core_s`` and P·V (one 32-key tile, unnormalised, then / l) through
+    ``core_pv``, y = x + o·W_o through ``proj``; the norm and the softmax in
+    ``dtype``. Inputs at the conditional shape's widths, seeded."""
+    g = torch.Generator().manual_seed(dm + m)
+    rn = lambda *shape, scale=1.0: torch.randn(*shape, generator=g) * scale  # noqa: E731
+    hd = heads * dh
+    x, ctx = rn(n, dm), rn(m, dm)
+    gamma, beta = 1 + rn(dm, scale=0.1), rn(dm, scale=0.1)
+    wq, wkv = rn(dm, hd, scale=dm**-0.5), rn(dm, 2 * hd, scale=dm**-0.5)
+    wo = rn(hd, dm, scale=hd**-0.5)
+    xd = x.to(dtype)
+    xn = xd / xd.norm(dim=-1, keepdim=True).clamp(min=1e-12) * dm**0.5 * gamma.to(dtype)
+    xn = (xn + beta.to(dtype)).to(dtype)
+    q = proj(xn, wq.to(dtype)).to(dtype)
+    kv = proj(ctx.to(dtype), wkv.to(dtype)).to(dtype)
+    outs = []
+    for h in range(heads):
+        cols = slice(h * dh, (h + 1) * dh)
+        s = core_s(q[:, cols], kv[:, cols].T.contiguous()).to(dtype) * dh**-0.5
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        outs.append((core_pv(p, kv[:, hd:][:, cols]).to(dtype) / p.sum(-1, keepdim=True)))
+    return xd + proj(torch.cat(outs, dim=-1), wo.to(dtype)).to(dtype), xd
+
+
+def _cross_error(passes: int) -> float:
+    """The emulated K2b against f64, relative to the largest entry of y - x:
+    the projections on the GEMM core (fresh accumulators per chunk of 32),
+    K4's logits in one accumulator over the head dim and P·V over the one
+    32-key tile, all with the tensor cores' truncating adds."""
+    exact, x = _cross_block(lambda a, b: a @ b, lambda a, b: a @ b, lambda a, b: a @ b,
+                            torch.float64)
+    core, _ = _cross_block(lambda a, b: gemm_core(a, b, passes).float(),
+                           lambda a, b: gemm_core(a, b, passes, chunk=64).float(),
+                           lambda a, b: gemm_core(a, b, passes, chunk=32).float(), torch.float32)
+    return ((core.double() - exact).abs().max() / (exact - x).abs().max()).item()
+
+
+def test_cross_block_three_passes_meet_block_tol_one_pass_fails():
+    three, one = _cross_error(3), _cross_error(1)
+    assert three * 5 < BLOCK_TOL < one / 5, (three, one)
+
+
+def _rvq_stages(passes: int, rows: int = 160):
+    """K6's stages at the training shape's codebooks (Q 8, K 1024, d 128)
+    on ``rows`` rows, each stage's −2·r·Cᵀ on the emulated core (``passes``
+    1 or 3, truncating adds) and the first minimum: (x, codebooks, codes,
+    the largest error in d² against f64 on the same residuals)."""
+    g = torch.Generator().manual_seed(8)
+    x, cb = torch.randn(rows, 128, generator=g), torch.randn(8, 1024, 128, generator=g)
+    norms = (cb * cb).sum(-1)
+    r, codes, worst = x.clone(), [], 0.0
+    for qi in range(cb.shape[0]):
+        d2 = -2.0 * gemm_core(r, cb[qi].T, passes).float() + norms[qi]
+        exact = -2.0 * (r.double() @ cb[qi].double().T) + norms[qi].double()
+        worst = max(worst, (d2.double() - exact).abs().max().item())
+        idx = torch.argmin(d2, dim=-1)
+        r = r - cb[qi][idx]
+        codes.append(idx)
+    return x, cb, torch.stack(codes, dim=-1), worst
+
+
+def test_rvq_distances_in_three_passes_keep_the_plain_codes():
+    """Three passes err in d² far below chip_smoke's RVQ_TIE_TOL (a gap of
+    1e-3, where d² is ~256), so K6's codes equal ``rvq_torch``'s (f32) but
+    at near-ties; one pass errs above it."""
+    from naturalspeech2_tpu_torch.ops.rvq import rvq_torch
+
+    from torch_parity import assert_codes_match
+
+    x, cb, codes, three = _rvq_stages(3)
+    _, plain = rvq_torch(x, cb)
+    same = assert_codes_match(x.numpy(), cb.numpy(), codes.numpy(), plain.numpy(), RVQ_TIE_TOL)
+    assert same.mean() > 0.95, same.mean()
+    one = _rvq_stages(1)[3]
+    assert three * 5 < RVQ_TIE_TOL < one, (three, one)

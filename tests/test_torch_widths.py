@@ -1,18 +1,20 @@
 """The kernels' padded widths, held on the CPU.
 
 On the card every kernel takes a fixed width or a multiple of one: K1 and
-K1b d % 32, K2, K2b and K4 / K5 heads of 64 or 128, K2b dm % 128 and dc %
-16, K6 codebook dim % 128, and the split-TF32 GEMM core of K1, K2 and K3
-packed 64-row, 32-column weight tiles. Other widths are padded with exact
-zeros and the results cut back; heads wider than 128 raise (ROADMAP Queue
-3, F1). Each wrapper's pad-and-cut is a plain function here (the
-packed-weight versions of K1, K2 and K3 compute from the very layout the
-kernel reads), run at the JAX package's test widths (dim 16, dim_head 8,
-codebook dim 16, context 24) and at the wide ones (heads of 96 and 128,
-K2b at dim 640, codebook dim 192, the WaveNet at d 128 with dilations to
-128) against the JAX function on the unpadded inputs, the Pallas kernels
-in interpret mode. On the CPU this is the only place the padding is
-seen: the wrappers run the plain versions on CPU tensors before they pad.
+K1b d % 32, K2, K2b and K4 / K5 heads of 64 or a multiple of 128 (heads
+wider than 128 in K4's and K5's chunked kernels, which sum the logits over
+128-wide chunks of the head dim), and the split-TF32 GEMM core of K1, K2,
+K2b, K3 and K6 packed 64-row, 32-column weight tiles. Other widths are
+padded with exact zeros and the results cut back. Each wrapper's
+pad-and-cut is a plain function here (the packed-weight versions of K1,
+K2, K2b, K3 and K6 compute from the very layout the kernel reads; K4's and
+K5's chunked order through `head_chunk`), run at the JAX package's test
+widths (dim 16, dim_head 8, codebook dim 16, context 24) and at the wide
+ones (heads of 96 to 320, K2b at dim 640, codebook dim 192, the WaveNet at
+d 128 with dilations to 128) against the JAX function on the unpadded
+inputs, the Pallas kernels in interpret mode. On the CPU this is the only
+place the padding is seen: the wrappers run the plain versions on CPU
+tensors before they pad.
 
 Tolerance: the padded and unpadded functions differ only in the order of
 f32 sums (zero terms add exactly), so every comparison holds to ATOL =
@@ -168,20 +170,37 @@ def test_k2_packed_block_matches_pallas(dm, heads, dim_head):
     assert_close(actual, expected, atol=ATOL)
 
 
-def test_k2b_padded_block_matches_pallas():
-    rng = np.random.default_rng(3)
-    b, n, m, hd = 2, 24, 8, HEADS * DIM_HEAD
-    x, g, be = _block_inputs(rng, b, n, DIM)
-    ctx = normal(rng, b, m, CONTEXT)
-    wq, wkv = normal(rng, DIM, hd, scale=DIM**-0.5), normal(rng, CONTEXT, 2 * hd, scale=0.2)
-    wo = normal(rng, hd, DIM, scale=hd**-0.5)
+def _k2b_case(rng, b, n, m, dm, dc, heads, dim_head):
+    """K2b's packed twin against the Pallas kernel at one width."""
+    hd = heads * dim_head
+    x, g, be = _block_inputs(rng, b, n, dm)
+    ctx = normal(rng, b, m, dc)
+    wq, wkv = normal(rng, dm, hd, scale=dm**-0.5), normal(rng, dc, 2 * hd, scale=dc**-0.5)
+    wo = normal(rng, hd, dm, scale=hd**-0.5)
+    scale = dim_head**-0.5
     args = (x, ctx, g, be, wq, wkv, wo)
-    expected = jak.fused_cross_attn_block(*(jnp.asarray(a) for a in args), heads=HEADS,
-                                          dim_head=DIM_HEAD, scale=SCALE)
-    actual = ak.cross_attn_block_padded_torch(*(t(a) for a in args), heads=HEADS,
-                                              dim_head=DIM_HEAD, scale=SCALE)
-    assert ak.cross_padded_widths(DIM, CONTEXT) == (128, 32)
+    expected = jak.fused_cross_attn_block(*(jnp.asarray(a) for a in args), heads=heads,
+                                          dim_head=dim_head, scale=scale)
+    packed = ak.pack_cross_weights(t(wq), t(wkv), t(wo), heads, dim_head)
+    dh = fa.kernel_head_dim(dim_head)
+    assert [gemm_cache.unpack_b(p)[0].shape for p in packed] == [
+        (heads * dh, gemm_cache.round_up(dm, 32)), (2 * heads * dh, gemm_cache.round_up(dc, 32)),
+        (gemm_cache.round_up(dm, 64), heads * dh)]
+    actual = ak.cross_attn_block_packed_torch(t(x), t(ctx), t(g), t(be), packed, heads=heads,
+                                              scale=scale)
     assert_close(actual, expected, atol=ATOL)
+
+
+def test_k2b_padded_block_matches_pallas():
+    _k2b_case(np.random.default_rng(3), 2, 24, 8, DIM, CONTEXT, HEADS, DIM_HEAD)
+
+
+# (dm, dc, heads, dim_head): the conditional denoiser's widths, and dim 24
+# with a 24-wide context
+@pytest.mark.parametrize("dm, dc, heads, dim_head", [(128, 128, 8, 64), (24, CONTEXT, 3, 8)],
+                         ids=["flagship", "dim24_dh8"])
+def test_k2b_packed_block_matches_pallas(dm, dc, heads, dim_head):
+    _k2b_case(np.random.default_rng(11), 2, 16, 8, dm, dc, heads, dim_head)
 
 
 @pytest.mark.parametrize("dm", [DIM, 24], ids=["dim16", "dim24"])
@@ -233,7 +252,7 @@ def test_k4_k5_padded_head_dim_matches_pallas(case):
 
     tmask = None if mask is None else torch.from_numpy(mask)
     qp, kp, vp, dop = fa.pad_head_dim(t(q), t(k), t(v), t(do))
-    assert qp.shape[-1] == fa.KERNEL_HEAD_DIMS[0]
+    assert qp.shape[-1] == fa.kernel_head_dim(DIM_HEAD) == 64
     o_p, lse = fa.flash_forward_torch(qp, kp, vp, tmask, SEED, **cfg)
     assert not o_p[..., DIM_HEAD:].any()  # zero v columns give zero output columns
     assert_close(o_p[..., :DIM_HEAD], o_j, atol=ATOL)
@@ -245,21 +264,24 @@ def test_k4_k5_padded_head_dim_matches_pallas(case):
         assert_close(got[..., :DIM_HEAD] / scale, want / scale, atol=ATOL)
 
 
-def test_k6_padded_codebook_dim_matches_pallas():
-    rng = np.random.default_rng(6)
-    x, cb = normal(rng, 200, CODEBOOK_DIM), normal(rng, 3, 40, CODEBOOK_DIM)
+def _k6_case(seed, d, tie_tol):
+    """K6's packed twin against the Pallas kernel at codebook dim d."""
+    rng = np.random.default_rng(seed)
+    x, cb = normal(rng, 200, d), normal(rng, 3, 40, d)
     q_j, codes_j = jrvq.rvq_quantize(jnp.asarray(x), jnp.asarray(cb))
-    xp, cbp = rq.pad_codebook_dim(t(x), t(cb))
-    assert xp.shape[-1] == cbp.shape[-1] == rq.KERNEL_DIM
-    q_p, codes = rq.rvq_torch(xp, cbp)
-    assert not q_p[:, CODEBOOK_DIM:].any()
-    same = assert_codes_match(x, cb, codes.numpy(), np.asarray(codes_j), 1e-4)
+    packed, norms = rq.pack_codebooks(t(cb))
+    assert packed.shape == (3, 1, gemm_cache.round_up(d, 32) // 32, 2, 2048)
+    q_p, codes = rq.rvq_packed_torch(t(x), packed, norms, 40)
+    same = assert_codes_match(x, cb, codes.numpy(), np.asarray(codes_j), tie_tol)
     assert same.mean() > 0.95
-    np.testing.assert_allclose(q_p[:, :CODEBOOK_DIM].numpy()[same], np.asarray(q_j)[same],
-                               atol=ATOL)
+    np.testing.assert_allclose(q_p.numpy()[same], np.asarray(q_j)[same], atol=ATOL)
 
 
-@pytest.mark.parametrize("dim_head", [96, 128])
+def test_k6_padded_codebook_dim_matches_pallas():
+    _k6_case(6, CODEBOOK_DIM, 1e-4)
+
+
+@pytest.mark.parametrize("dim_head", [96, 128, 192])
 def test_k2_wide_heads_match_pallas(dim_head):
     rng = np.random.default_rng(7)
     dm, heads = 32, 2
@@ -271,30 +293,16 @@ def test_k2_wide_heads_match_pallas(dim_head):
     expected = jak.fused_attn_block(*(jnp.asarray(a) for a in (x, g, be, wq, wkv, wo)),
                                     heads=heads, dim_head=dim_head, scale=scale)
     packed = ak.pack_attn_weights(t(wq), t(wkv), t(wo), heads, dim_head)
-    assert gemm_cache.unpack_b(packed[1])[0].shape[1] == heads * 128
+    assert gemm_cache.unpack_b(packed[1])[0].shape[1] == heads * fa.kernel_head_dim(dim_head)
     actual = ak.attn_block_packed_torch(t(x), t(g), t(be), packed, heads=heads, scale=scale)
     assert_close(actual, expected, atol=ATOL)
 
 
-# (dm, dim_head): heads of 96 and 128, and K2b past dim 512
-@pytest.mark.parametrize("dm, dim_head", [(DIM, 96), (DIM, 128), (640, DIM_HEAD)],
-                         ids=["dh96", "dh128", "dim640"])
+# (dm, dim_head): heads of 96, 128 and 192, and K2b past dim 512
+@pytest.mark.parametrize("dm, dim_head", [(DIM, 96), (DIM, 128), (640, DIM_HEAD), (DIM, 192)],
+                         ids=["dh96", "dh128", "dim640", "dh192"])
 def test_k2b_wide_widths_match_pallas(dm, dim_head):
-    rng = np.random.default_rng(8)
-    b, n, m, heads = 2, 16, 8, 2
-    hd = heads * dim_head
-    x, g, be = _block_inputs(rng, b, n, dm)
-    ctx = normal(rng, b, m, CONTEXT)
-    wq, wkv = normal(rng, dm, hd, scale=dm**-0.5), normal(rng, CONTEXT, 2 * hd, scale=0.2)
-    wo = normal(rng, hd, dm, scale=hd**-0.5)
-    args = (x, ctx, g, be, wq, wkv, wo)
-    scale = dim_head**-0.5
-    expected = jak.fused_cross_attn_block(*(jnp.asarray(a) for a in args), heads=heads,
-                                          dim_head=dim_head, scale=scale)
-    actual = ak.cross_attn_block_padded_torch(*(t(a) for a in args), heads=heads,
-                                              dim_head=dim_head, scale=scale)
-    assert ak.cross_padded_widths(dm, CONTEXT) == (gemm_cache.round_up(dm, 128), 32)
-    assert_close(actual, expected, atol=ATOL)
+    _k2b_case(np.random.default_rng(8), 2, 16, 8, dm, CONTEXT, 2, dim_head)
 
 
 @pytest.mark.parametrize("dim_head", [96, 128])
@@ -322,32 +330,65 @@ def test_k4_k5_wide_heads_match_pallas(case, dim_head):
         assert_close(got[..., :dim_head] / scale, want / scale, atol=ATOL)
 
 
+# (d, causal, masked, dropout): heads past 128, in the kernels' chunked order
+CHUNKED_CASES = {"plain": (2, 2, 40, 40, False, False, 0.0),
+                 "masked_causal": (3, 2, 37, 37, True, True, 0.0),
+                 "masked_dropout": (2, 2, 37, 50, False, True, 0.2)}
+
+
+@pytest.mark.parametrize("dim_head", [192, 320])
+@pytest.mark.parametrize("case", list(CHUNKED_CASES))
+def test_k4_k5_chunked_head_dim_matches_pallas(case, dim_head):
+    """Heads of 192 and 320 padded to 256 and 384, as the wrappers pad them
+    for the chunked kernels, with the logits and dP summed over 128-wide
+    chunks of the head dim; dropout through the same Threefry keep mask."""
+    b, h, n_q, n_kv, causal, masked, dropout = CHUNKED_CASES[case]
+    q, k, v, do, mask = _flash_inputs(b, h, n_q, n_kv, masked, seed=12, d=dim_head)
+    jmask = None if mask is None else jnp.asarray(mask)
+    jseed = jnp.asarray([SEED], dtype=jnp.uint32) if dropout > 0 else None
+    cfg = dict(causal=causal, scale=dim_head**-0.5, dropout_rate=dropout)
+    o_j, lse_j = jfa._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jmask, jseed,
+                                    **cfg)
+    grads_j = jfa._flash_backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jmask, jseed,
+                                  lse_j, o_j, jnp.asarray(do), **cfg)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    seed = SEED if dropout > 0 else None
+    qp, kp, vp, dop = fa.pad_head_dim(t(q), t(k), t(v), t(do))
+    assert qp.shape[-1] == gemm_cache.round_up(dim_head, fa.KERNEL_HEAD_CHUNK)
+    chunk = dict(cfg, head_chunk=fa.KERNEL_HEAD_CHUNK)
+    o_p, lse = fa.flash_forward_torch(qp, kp, vp, tmask, seed, **chunk)
+    assert not o_p[..., dim_head:].any()
+    assert_close(o_p[..., :dim_head], o_j, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, :, :n_q, 0], atol=ATOL)
+    grads = fa.flash_backward_torch(qp, kp, vp, tmask, seed, lse, o_p, dop, **chunk)
+    for got, want in zip(grads, grads_j):
+        want = np.asarray(want)
+        scale = np.abs(want).max()
+        assert_close(got[..., :dim_head] / scale, want / scale, atol=ATOL)
+
+
 def test_k6_wide_codebook_dim_matches_pallas():
-    rng = np.random.default_rng(10)
-    d = 192
-    x, cb = normal(rng, 200, d), normal(rng, 3, 40, d)
-    q_j, codes_j = jrvq.rvq_quantize(jnp.asarray(x), jnp.asarray(cb))
-    xp, cbp = rq.pad_codebook_dim(t(x), t(cb))
-    assert xp.shape[-1] == cbp.shape[-1] == 256
-    q_p, codes = rq.rvq_torch(xp, cbp)
-    assert not q_p[:, d:].any()
-    same = assert_codes_match(x, cb, codes.numpy(), np.asarray(codes_j), 1e-3)
-    assert same.mean() > 0.95
-    np.testing.assert_allclose(q_p[:, :d].numpy()[same], np.asarray(q_j)[same], atol=ATOL)
+    _k6_case(10, 192, 1e-3)
 
 
 def test_wider_than_the_kernels_is_a_named_error():
-    """Heads wider than 128 stay refused on the card (ROADMAP Queue 3, F1):
-    the check runs before any launch, and names why."""
+    """Heads of any width reach the kernels, padded to 64 or a multiple of
+    128 (192 → 256, 320 → 384), as the JAX kernels pad them; off CUDA the
+    wrappers still refuse before any launch, and name why."""
     cfg = dict(heads=1, dim_head=192, scale=0.1)
     with pytest.raises(ValueError, match="CUDA"):  # on a non-CUDA device: refused first
         ak.attn_block(*(torch.zeros(s, device="meta") for s in
                         ((1, 8, 16), (1, 16), (1, 16), (16, 192), (16, 384), (192, 16))), **cfg)
-    with pytest.raises(ValueError, match="F1.*227 KB"):
-        fa.kernel_head_dim(192)
-    with pytest.raises(ValueError, match="F1"):
-        ak.pack_attn_weights(*(torch.zeros(s) for s in ((16, 192), (16, 384), (192, 16))), 1, 192)
-    assert [fa.kernel_head_dim(d) for d in (8, 64, 65, 96, 128)] == [64, 64, 128, 128, 128]
-    assert fa.KERNEL_HEAD_DIMS == (64, 128) and rq.KERNEL_DIM == 128
-    assert ak.cross_padded_widths(640, 16) == (640, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_forward(*(torch.zeros(1, 1, 8, 192, device="meta") for _ in range(3)),
+                         scale=0.1)
+    widths = (8, 64, 65, 96, 128, 129, 192, 256, 320, 384)
+    assert [fa.kernel_head_dim(d) for d in widths] == [64, 64, 128, 128, 128, 256, 256, 256, 384,
+                                                       384]
+    assert [p.shape[-1] for p in fa.pad_head_dim(torch.zeros(2, 192), torch.zeros(3, 192))] == [
+        256, 256]
+    packed = ak.pack_attn_weights(*(torch.zeros(s) for s in ((16, 320), (16, 640), (320, 16))),
+                                  1, 320)
+    assert gemm_cache.unpack_b(packed[1])[0].shape == (64, 384)
+    assert fa.KERNEL_HEAD_CHUNK == 128
     assert jax.default_backend() == "cpu"
