@@ -73,7 +73,26 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      SDPA, K2b at x [8, 512, 640]); then the port's two CPU test configs
      (tests/test_torch_conditional.py, tests/test_torch_scan_layers.py)
      card against CPU, a guided forward and a 2-step conditional sample
-     each with exact launch counts, and the scan-layers transformer.
+     each with exact launch counts, and the scan-layers transformer;
+ 17. the conditional training path's kernels at its shapes against their
+     plain versions: K4 and K5 at the prompt encoder's [16, 8, 102, 64]
+     with dropout 0.2 (keep masks bit for bit), the denoiser's unfused
+     [16, 8, 150, 64] and [16, 8, 150 | 32, 64] and the resampler's
+     [16, 8, 32 | 134, 64], timed beside SDPA; K1 at [16, 150, 128]; K6 on
+     the prompt (m 1632);
+ 18. conditional training: README config 2 with the default conditioning
+     stack (the JAX bench's leg `measure_conditional_train_throughput`,
+     bench.py:267-331) in `Trainer` on seeded dict batches (audio 16 x
+     48000, text 16 x 100, prompt 16 x 32768), 10 optimizer steps: finite
+     loss, diffusion, duration, pitch and align; the aligner's, encoders',
+     duration / pitch trunks' and denoiser's parameters all moved; ms per
+     step, peak memory, exact launch counts of the 10 steps and of one
+     more; the host time of the MAS, CTC and pitch loops;
+ 19. one conditional loss and its gradients at b2, full width, eval mode,
+     injected times, noise and drop masks, card against CPU: mel and pitch
+     first (frames picking another lag counted), then the MAS durations
+     (rows that differ counted), then the losses and every gradient with
+     the card's mel and pitch passed to both.
 K2, K2b and K3 are held to BLOCK_TOL (split TF32 on the tensor cores
 against f32 plain versions) at every shape they run: b4 x n1024 x dim 128,
 the conditional [8, 512, 128], the long-form n4500 and n9000 and the
@@ -89,7 +108,8 @@ and prints no result.
 instead profiles 10 flagship denoise steps, a 10-step conditional sample
 of README config 2, 10 guided steps and their 60 K2b calls alone, one RVQ
 call, one long-form denoise step at n4500 and at n9000, one scaled
-denoise step and one training step with torch.profiler and prints
+denoise step, one training step and one conditional training step (with
+its loops' host times) with torch.profiler and prints
 the device time by kernel, and the kernels that
 F.scaled_dot_product_attention (K4's and K5's yardstick) runs.
 """
@@ -232,10 +252,39 @@ W_PER_FORWARD = {"wavenet_body": 1, "wavenet_body_lanes": 0, "attn_block": 2,
                  "cross_attn_block": 2, "ff_block": 2, "flash_forward": 1, "flash_backward": 0,
                  "rvq": 0}
 W_PER_SAMPLE = {**{k: 2 * v for k, v in W_PER_FORWARD.items()}, "flash_forward": 1 + 2, "rvq": 1}
+# Conditional training, the JAX bench's leg `measure_conditional_train_throughput`
+# (bench.py:267-331): README config 2 (as phase 10, with scan_layers) and the
+# default conditioning stack (prompt encoder depth 6 with attention dropout
+# 0.2 on K4 / K5, phoneme encoder depth 6, duration / pitch trunks depth 10,
+# aligner 512 wide, 80 mel bins, ACF pitch) at b16, 2-s crops (48,000
+# samples: 150 latent frames, 301 mel frames at hop 160), 100 text tokens and
+# a 32,768-sample prompt (102 latent frames), cut to CT_STEPS optimizer steps.
+CT_BATCH, CT_SAMPLES, CT_TEXT, CT_STEPS, CT_DROPOUT = 16, 48000, 100, 10, 0.2
+CT_FRAMES, CT_PROMPT_FRAMES, CT_MEL_FRAMES = CT_SAMPLES // 320, PROMPT_SAMPLES // 320, 301
+# per conditional optimizer step: K6 on the audio and on the prompt; K1 once
+# (its backward is the vjp of the plain body, as in JAX); K4 for the prompt
+# encoder's 6 layers, the resampler's 2 and the denoiser's 6 self- and 6
+# cross-attention blocks (all unfused: 150 % 8 != 0), K5 for each of them;
+# the phoneme encoder and the duration / pitch trunks attend on the plain
+# route (their JAX defaults); K1b, K2, K2b and K3 never run
+CT_FLASH = PROMPT_DEPTH + RESAMPLER_DEPTH + 2 * DEPTH
+PER_COND_TRAIN_STEP = {"wavenet_body": 1, "wavenet_body_lanes": 0, "attn_block": 0,
+                       "cross_attn_block": 0, "ff_block": 0, "flash_forward": CT_FLASH,
+                       "flash_backward": CT_FLASH, "rvq": 2}
+# Phase 19, card against CPU: mel in dB (an STFT and a filterbank product by
+# cuFFT against pocketfft, ~1e-4 dB), pitch in Hz on frames picking the same
+# lag (a frame may pick another where two lags nearly tie: at most 1 in 50)
+MEL_TOL_DB, PITCH_TOL_HZ, PITCH_TIE_SHARE = 1e-2, 1e-2, 0.02
 # H100 SXM peaks at 700 W (NVIDIA's data sheet): dense TF32 on the tensor
 # cores, and HBM3. Split TF32, three TF32 products per f32 product, is the
 # fastest f32-accurate way the card has to run a matrix product.
 PEAK_TF32_FLOPS, TF32_PASSES, PEAK_BYTES_PER_S = 495e12, 3, 3.35e12
+# Work outside the tensor cores (dropout's Threefry-2x32-20 keep bits: 20
+# rounds of add, rotate and xor, 5 key injections of two adds, the counter
+# and the compare, ~75 integer operations a probability) is counted at the
+# float32 peak, 67 TFLOP/s, the fastest the card's ALUs run: a bound that
+# stays a lower bound.
+PEAK_F32_FLOPS, THREEFRY_OPS = 67e12, 75
 
 
 def log(phase: str, msg: str) -> None:
@@ -412,12 +461,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops: float, moved: int) -> dict:
+def bound(flops: float, moved: int, vector_ops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the matrix
-    operations in split TF32 (three TF32 passes each) over the TF32 peak and
-    the bytes (each input read once, each output written once) over the
-    memory rate."""
-    ops_ms = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
+    operations in split TF32 (three TF32 passes each) over the TF32 peak,
+    other operations over the float32 peak, and the bytes (each input read
+    once, each output written once) over the memory rate."""
+    ops_ms = max(TF32_PASSES * flops / PEAK_TF32_FLOPS, vector_ops / PEAK_F32_FLOPS) * 1e3
     bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -516,52 +565,65 @@ def phase4_5_card_vs_cpu(ns2, ns2_cpu) -> None:
             ns2pkg.sample(ns2_cpu, noise=noise, **short), PATH_TOL)
 
 
-def sdpa_calls(q, k, v, do, scale: float):
-    """One PyTorch call computing K4's function (F.scaled_dot_product_attention)
-    and one computing K5's (its autograd backward), a yardstick only."""
+def sdpa_calls(q, k, v, do, scale: float, dropout_p: float = 0.0):
+    """One PyTorch call computing K4's function (F.scaled_dot_product_attention,
+    with ``dropout_p`` its own random keep mask) and one computing K5's (its
+    autograd backward), a yardstick only."""
     import torch
     import torch.nn.functional as F
 
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-    fwd = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
+    o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale, dropout_p=dropout_p)
+    fwd = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale,  # noqa: E731
+                                                 dropout_p=dropout_p)
     bwd = lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
     return fwd, bwd
 
 
-def flash_work(b, h, n_q, n_kv, d, backward: bool = False) -> dict:
+def flash_work(b, h, n_q, n_kv, d, backward: bool = False, dropout: bool = False) -> dict:
     """Bound of K4 (QKᵀ and PV) or K5 (QKᵀ, dO·Vᵀ, dV, dQ, dK), unmasked: the
-    inputs q, k, v (and lse, o, dO) read once, the outputs written once."""
+    inputs q, k, v (and lse, o, dO) read once, the outputs written once;
+    with ``dropout`` the keep bits of every probability (K5 regenerates
+    them in its dq and its dk/dv kernel)."""
     q_bytes, kv_bytes, lse_bytes = 4 * b * h * n_q * d, 4 * b * h * n_kv * d, 4 * b * h * n_q
+    keep_ops = THREEFRY_OPS * b * h * n_q * n_kv if dropout else 0.0
     if backward:
         return bound(10 * b * h * n_q * n_kv * d,
-                     3 * q_bytes + 2 * kv_bytes + lse_bytes + q_bytes + 2 * kv_bytes)
-    return bound(4 * b * h * n_q * n_kv * d, q_bytes + 2 * kv_bytes + q_bytes + lse_bytes)
+                     3 * q_bytes + 2 * kv_bytes + lse_bytes + q_bytes + 2 * kv_bytes,
+                     2 * keep_ops)
+    return bound(4 * b * h * n_q * n_kv * d, q_bytes + 2 * kv_bytes + q_bytes + lse_bytes,
+                 keep_ops)
 
 
-def flash_case(phase: str, gen, b, h, n_q, n_kv, d=DIM_HEAD, backward: bool = True):
-    """K4 (and K5) at one shape against the plain versions within FLASH_TOL
-    (absolute for o and lse, relative to each gradient's largest entry):
-    errors, the kernels', plain versions' and SDPA's times, and the
-    bounds."""
+def flash_case(phase: str, gen, b, h, n_q, n_kv, d=DIM_HEAD, backward: bool = True,
+               dropout_rate: float = 0.0, seed=(0x5EED0017, 0xC0DE)):
+    """K4 (and K5) at one shape, with attention dropout at ``dropout_rate``
+    from ``seed``, against the plain versions within FLASH_TOL (absolute for
+    o and lse, relative to each gradient's largest entry): errors, the
+    kernels', plain versions' and SDPA's times, and the bounds."""
     import torch
 
     from naturalspeech2_tpu_torch.ops import flash_attention as fa
 
     q, do = (torch.randn(b, h, n_q, d, generator=gen, device="cuda") for _ in range(2))
     k, v = (torch.randn(b, h, n_kv, d, generator=gen, device="cuda") for _ in range(2))
-    cfg = dict(causal=False, scale=d**-0.5)
-    fwd = lambda: fa.flash_forward(q, k, v, None, None, **cfg)  # noqa: E731
-    fwd_plain = lambda: fa.flash_forward_torch(q, k, v, None, None, **cfg)  # noqa: E731
+    cfg = dict(causal=False, scale=d**-0.5, dropout_rate=dropout_rate)
+    seed = seed if dropout_rate > 0.0 else None
+    fwd = lambda: fa.flash_forward(q, k, v, None, seed, **cfg)  # noqa: E731
+    fwd_plain = lambda: fa.flash_forward_torch(q, k, v, None, seed, **cfg)  # noqa: E731
     o, lse = fwd_plain()
-    bwd = lambda: fa.flash_backward(q, k, v, None, None, lse, o, do, **cfg)  # noqa: E731
-    bwd_plain = lambda: fa.flash_backward_torch(q, k, v, None, None, lse, o, do, **cfg)  # noqa: E731
-    lib_fwd, lib_bwd = sdpa_calls(q, k, v, do, cfg["scale"])
+    bwd = lambda: fa.flash_backward(q, k, v, None, seed, lse, o, do, **cfg)  # noqa: E731
+    bwd_plain = lambda: fa.flash_backward_torch(q, k, v, None, seed, lse, o, do, **cfg)  # noqa: E731
+    lib_fwd, lib_bwd = sdpa_calls(q, k, v, do, cfg["scale"], dropout_rate)
     shape = f"[{b},{h},{n_q},{d}]" if n_q == n_kv else f"[{b},{h},{n_q}|{n_kv},{d}]"
-    cases = [("flash_forward", fwd, fwd_plain, lib_fwd, flash_work(b, h, n_q, n_kv, d))]
+    if dropout_rate > 0.0:
+        shape += f" dropout {dropout_rate:g}"
+    drops = dropout_rate > 0.0
+    cases = [("flash_forward", fwd, fwd_plain, lib_fwd,
+              flash_work(b, h, n_q, n_kv, d, dropout=drops))]
     if backward:
         cases.append(("flash_backward", bwd, bwd_plain, lib_bwd,
-                      flash_work(b, h, n_q, n_kv, d, backward=True)))
+                      flash_work(b, h, n_q, n_kv, d, backward=True, dropout=drops)))
     results = {}
     for name, kernel, plain, library, work in cases:
         out = kernel()
@@ -1346,6 +1408,308 @@ def phase16_widths(summary: list) -> None:
                 ct_cpu(h, t_cond, context), PATH_TOL)
 
 
+def _flash_keep_case(gen, b, h, n, d, rate, seed, phase: str) -> None:
+    """K4's keep mask at [b, h, n, n] unmasked, against the plain version's
+    and the Threefry mask, bit for bit: with q = k = 0 every probability is
+    1/n, so with v one-hot over a d-key window o[row, c] != 0 exactly where
+    key window + c is kept."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import flash_attention as fa
+
+    zeros = torch.zeros(b, h, n, d, device="cuda")
+    cfg = dict(causal=False, scale=d**-0.5, dropout_rate=rate)
+    kept, kept_ref = [], []
+    for w0 in range(0, n, d):
+        onehot = torch.zeros(b, h, n, d, device="cuda")
+        cols = torch.arange(w0, min(w0 + d, n), device="cuda")
+        onehot[:, :, cols, cols - w0] = 1.0
+        kept.append(fa.flash_forward(zeros, zeros, onehot, None, seed, **cfg)[0] != 0)
+        kept_ref.append(fa.flash_forward_torch(zeros, zeros, onehot, None, seed, **cfg)[0] != 0)
+    kept, kept_ref = torch.cat(kept, dim=-1)[..., :n], torch.cat(kept_ref, dim=-1)[..., :n]
+    keep = fa.dropout_keep_scaled(seed, b, h, n, n, rate, device="cuda") != 0
+    if not (torch.equal(kept, kept_ref) and torch.equal(kept, keep)):
+        raise AssertionError(f"flash_forward [{b},{h},{n},{d}]: the kernel's keep mask differs")
+    log(phase, f"dropout keep masks identical at [{b},{h},{n},{d}]: {int(kept.sum())} of "
+               f"{kept.numel()} probabilities kept at rate {rate} ({kept.float().mean().item():.4f}; "
+               "kernel, plain and the Threefry mask)")
+
+
+def phase17_cond_train_kernels(summary: list) -> None:
+    """The conditional training path's kernels at its own shapes, each
+    against its plain version (timings into the entries of ``summary``):
+    K4 and K5 at the prompt encoder's [16, 8, 102, 64] with dropout 0.2
+    (keep masks bit for bit), the denoiser's unfused self-attention [16,
+    8, 150, 64] and cross-attention [16, 8, 150 | 32, 64] and the
+    resampler's [16, 8, 32 | 134, 64]; K1 at [16, 150, 128], 4 x 8; K6 on
+    the prompt's m 1632 (the audio's m 2400 is phase 6's)."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    entries = {e["name"]: e for e in summary}
+    b, h, d = CT_BATCH, HEADS, DIM_HEAD
+    n, p, m, seed = CT_FRAMES, CT_PROMPT_FRAMES, NUM_LATENTS, (0x5EED0017, 0xC0DE)
+    for (n_q, n_kv), rate in (((p, p), CT_DROPOUT), ((n, n), 0.0), ((n, m), 0.0),
+                              ((m, m + p), 0.0)):
+        for name, (key, err, timing) in flash_case("17", gen, b, h, n_q, n_kv, d,
+                                                   dropout_rate=rate, seed=seed).items():
+            entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+            if key in entries[name]["by_shape"]:  # phase 6 timed it too: keep both
+                key += " (phase 17)"
+            entries[name]["by_shape"][key] = {"max_abs_err": err, **timing}
+    _flash_keep_case(gen, b, h, p, d, CT_DROPOUT, seed, "17")
+
+    route = wavenet_kernel.wavenet_route(n, DIM, WAVENET_LAYERS)
+    if route != "stack":
+        raise AssertionError(f"the WaveNet at n {n} routes {route!r}, not K1")
+    wn, work = wavenet_inputs(gen, b, n, DIM)
+    shape = f"[{b},{n},{DIM}]"
+    timing = timed_case("17", f"wavenet_body {shape}", lambda: wavenet_kernel._forward("stack", *wn),
+                        lambda: wavenet_kernel.wavenet_body_torch(*wn), work)
+    entries["wavenet_body"]["by_shape"][shape] = timing
+    entries["wavenet_body"]["max_abs_err"] = max(entries["wavenet_body"]["max_abs_err"],
+                                                 timing["max_abs_err"])
+    err, ms, plain_ms, work = _rvq_case(gen, m=b * p, phase="17")
+    entries["rvq"]["by_shape"][f"m {b * p}"] = {"max_abs_err": err, "ms": ms,
+                                                 "plain_ms": plain_ms, **work}
+    entries["rvq"]["max_abs_err"] = max(entries["rvq"]["max_abs_err"], err)
+
+
+def _cond_train_batches(seed: int):
+    """The JAX bench's batches (bench.py:299-309): uniform audio and prompt
+    in [-1, 1), phoneme ids in [0, 150), full text_lens."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    while True:
+        yield {"audio": rng.uniform(-1, 1, (CT_BATCH, CT_SAMPLES)).astype(np.float32),
+               "text": rng.randint(0, 150, (CT_BATCH, CT_TEXT)).astype(np.int32),
+               "text_lens": np.full((CT_BATCH,), CT_TEXT, np.int32),
+               "prompt": rng.uniform(-1, 1, (CT_BATCH, PROMPT_SAMPLES)).astype(np.float32)}
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of one call, synchronised before and after."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times)
+
+
+def loop_times(phase: str, audio) -> dict:
+    """Host time of the conditional path's loops on the card, at its
+    shapes: MAS over [16, 100, 301], the CTC forward-sum loss and its
+    backward over [16, 1, 301, 100], the NCCF pitch's Viterbi over 301
+    frames (the ACF pitch and the mel beside them, loop-free)."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops.ctc import forward_sum_loss
+    from naturalspeech2_tpu_torch.ops.mas import maximum_path
+    from naturalspeech2_tpu_torch.ops.mel import audio_to_mel
+    from naturalspeech2_tpu_torch.ops.pitch import compute_pitch, compute_pitch_nccf
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    b = audio.shape[0]
+    soft = torch.rand(b, CT_TEXT, CT_MEL_FRAMES, generator=g, device="cuda")
+    mask = torch.ones_like(soft)
+    logp = torch.randn(b, 1, CT_MEL_FRAMES, CT_TEXT, generator=g, device="cuda",
+                       requires_grad=True)
+    key_lens = torch.full((b,), CT_TEXT, device="cuda")
+    query_lens = torch.full((b,), CT_MEL_FRAMES, device="cuda")
+    pitch_kw = dict(sample_rate=24000, hop_length=160)
+    times = {
+        "mas": host_ms(lambda: maximum_path(soft, mask)),
+        "ctc_forward_backward": host_ms(
+            lambda: forward_sum_loss(logp, key_lens, query_lens).backward()),
+        "nccf_viterbi_pitch": host_ms(lambda: compute_pitch_nccf(audio, **pitch_kw)),
+        "acf_pitch": host_ms(lambda: compute_pitch(audio, **pitch_kw)),
+        "mel": host_ms(lambda: audio_to_mel(audio, n_mels=80, sample_rate=24000, hop_length=160)),
+    }
+    log(phase, "host time at b16 (median of 5, synchronised): "
+               + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    return times
+
+
+def phase18_cond_train(work: Path) -> dict:
+    """The conditional training path; returns its launch counts."""
+    import warnings
+
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+
+    ns2 = flagship(SEED + 80, conditional=True, scan_layers=True).cuda()
+    start_params = {n: p.detach().clone() for n, p in ns2.named_parameters()}
+    batches = _cond_train_batches(SEED + 81)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        trainer = ns2pkg.Trainer(ns2, batches=batches, train_batch_size=CT_BATCH,
+                                 train_num_steps=CT_STEPS, save_and_sample_every=10**9,
+                                 results_folder=str(work / "cond_results"))
+    log("18", f"Trainer warned: {[str(w.message)[:60] + '...' for w in caught]}")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    trainer.train(log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    rows = [json.loads(line) for line in (work / "cond_results" / "metrics.jsonl").read_text()
+            .splitlines()]
+    if [r["step"] for r in rows] != list(range(1, CT_STEPS + 1)):
+        raise AssertionError(f"metrics.jsonl steps {[r['step'] for r in rows]}")
+    for key in ("loss", "diffusion", "duration", "pitch", "align"):
+        values = [r[key] for r in rows]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"non-finite {key} in {values}")
+        log("18", f"{key}: {', '.join(f'{v:.4f}' for v in values)}")
+    step_ms = statistics.median(r["step_time_s"] for r in rows[2:]) * 1e3
+    log("18", f"conditional Trainer b{CT_BATCH} x {CT_SAMPLES / 24000:g} s ({CT_FRAMES} latent, "
+              f"{CT_MEL_FRAMES} mel frames), text {CT_TEXT}, prompt {PROMPT_SAMPLES} samples "
+              f"({CT_PROMPT_FRAMES} frames), {CT_STEPS} steps: {step_ms:.3f} ms per optimizer "
+              f"step (median of steps 3-{CT_STEPS}, host clock, synchronised), peak device "
+              f"memory {peak_gib:.3f} GiB, train() wall {wall:.2f} s")
+
+    params = dict(ns2.named_parameters())
+    groups = ("aligner", "phoneme_enc", "prompt_enc", "duration_pitch", "model")
+    still = [n for n in params if n.split(".")[0] in groups
+             and torch.equal(params[n], start_params[n])]
+    if still:
+        raise AssertionError(f"parameters did not move: {still}")
+    moved = {g: sum(1 for n in params if n.startswith(g + ".")) for g in groups}
+    log("18", f"every parameter tensor of {moved} moved; the frozen codec's did not: "
+              f"{all(torch.equal(params[n], start_params[n]) for n in params if n.startswith('codec.'))}")
+    expect = {k: CT_STEPS * v for k, v in PER_COND_TRAIN_STEP.items()}
+    check_counts("18", f"{CT_STEPS} conditional optimizer steps", counts, expect)
+    ops.reset_launch_counts()
+    trainer.train_step(next(batches))
+    check_counts("18", "one conditional optimizer step (K4 = K5 = prompt encoder "
+                       f"{PROMPT_DEPTH} + resampler {RESAMPLER_DEPTH} + denoiser 2 x {DEPTH}; "
+                       "K6 = audio + prompt; K1 = 1)", ops.launch_counts(), PER_COND_TRAIN_STEP)
+    audio = torch.as_tensor(next(batches)["audio"]).cuda()
+    loop_times("18", audio)
+    return counts
+
+
+def _cond_check_inputs():
+    """Phase 19's seeded inputs on the CPU: voiced audio (2, 48000), prompt
+    audio (2, 32768), phoneme ids (2, 100) with text_lens (100, 80), times,
+    noise and the CFG drop masks (prompt dropped in row 0, frames in row 1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 19)
+    t = np.arange(CT_SAMPLES) / 24000
+    rows = []
+    for _ in range(2):
+        phase = 2 * np.pi * rng.uniform(100, 300) * t + 3.0 * np.sin(2 * np.pi * 5 * t)
+        rows.append(0.4 * np.sin(phase) + 0.2 * np.sin(2 * phase) + 0.05 * rng.standard_normal(t.size))
+    audio = torch.from_numpy(np.stack(rows).astype(np.float32))
+    g = torch.Generator().manual_seed(SEED + 19)
+    return dict(audio=audio, prompt=torch.rand(2, PROMPT_SAMPLES, generator=g) * 2 - 1,
+                text=torch.randint(0, 150, (2, CT_TEXT), generator=g),
+                text_lens=torch.tensor([CT_TEXT, 80]), times=torch.rand(2, generator=g),
+                noise=torch.randn(2, CT_FRAMES, DIM, generator=g),
+                cond_drop_mask=(torch.tensor([True, False]), torch.tensor([False, True])))
+
+
+def phase19_cond_loss_card_vs_cpu(ns2_cpu) -> None:
+    """One conditional loss and its gradients at b2, full width, eval mode,
+    card against CPU: first the features (mel, pitch), then the MAS
+    durations from each side's own phoneme encodings, then the losses and
+    gradients with the card's mel and pitch passed to both."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops.mel import audio_to_mel
+    from naturalspeech2_tpu_torch.ops.pitch import compute_pitch
+    from naturalspeech2_tpu_torch.utils.helpers import create_mask
+
+    card = copy.deepcopy(ns2_cpu).cuda().eval()
+    ns2_cpu.eval()
+    inputs = _cond_check_inputs()
+    sides = ((card, "cuda"), (ns2_cpu, "cpu"))
+
+    def on(device):
+        return {k: tuple(x.to(device) for x in v) if isinstance(v, tuple) else v.to(device)
+                for k, v in inputs.items()}
+
+    feats = []
+    for _, device in sides:
+        audio = inputs["audio"].to(device)
+        feats.append((audio_to_mel(audio, n_mels=80, sample_rate=24000, hop_length=160),
+                      compute_pitch(audio, sample_rate=24000, hop_length=160)))
+    (mel_card, pitch_card), (mel_cpu, pitch_cpu) = feats
+    compare("19", f"mel {tuple(mel_cpu.shape)} in dB, card vs CPU", mel_card, mel_cpu, MEL_TOL_DB)
+    off = (pitch_card.cpu() - pitch_cpu).abs() > PITCH_TOL_HZ
+    voiced = (pitch_cpu > 0).float().mean().item()
+    log("19", f"pitch {tuple(pitch_cpu.shape)}, {voiced:.3f} of frames voiced: {int(off.sum())} "
+              f"frames differ by more than {PITCH_TOL_HZ:g} Hz (another argmax lag), at "
+              f"{torch.nonzero(off).tolist()[:10]}; max diff on the rest "
+              f"{(pitch_card.cpu() - pitch_cpu).abs()[~off].max().item():.3e} Hz")
+    if off.float().mean().item() > PITCH_TIE_SHARE:
+        raise AssertionError(f"pitch: {int(off.sum())} frames differ, over {PITCH_TIE_SHARE:g}")
+
+    durations = []
+    with torch.no_grad():
+        for model, device in sides:
+            x = on(device)
+            text_mask = create_mask(x["text_lens"], CT_TEXT)
+            mel = mel_card.to(device)
+            mel_mask = torch.ones(2, mel.shape[-1], dtype=torch.bool, device=device)
+            hard = model.aligner(model.phoneme_enc(x["text"]), text_mask, mel, mel_mask)[0]
+            durations.append(hard.cpu())
+    rows = (durations[0] != durations[1]).any(dim=1)
+    log("19", f"MAS durations [2, {CT_TEXT}] over {mel_card.shape[-1]} frames: {int(rows.sum())} of "
+              f"2 rows differ card vs CPU; row sums {durations[0].sum(dim=1).tolist()}")
+
+    results = []
+    for model, device in sides:
+        model.zero_grad(set_to_none=True)
+        x = on(device)
+        losses = model(x.pop("audio"), mel=mel_card.to(device), pitch=pitch_card[:, None].to(device),
+                       **x)
+        losses["loss"].backward()
+        results.append(({k: v.item() for k, v in losses.items()},
+                        {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}))
+    (loss_card, grads_card), (loss_cpu, grads_cpu) = results
+    for key, value in loss_cpu.items():
+        rel = abs(loss_card[key] - value) / max(abs(value), 1e-30)
+        log("19", f"{key}: card {loss_card[key]:.7f}, CPU {value:.7f}, rel err {rel:.3e} "
+                  f"(tolerance {GRAD_RTOL:g})")
+        if rel > GRAD_RTOL:
+            raise AssertionError(f"{key} card vs CPU rel err {rel:.3e}")
+    groups = {n.split(".")[0] for n in grads_cpu}
+    if set(grads_card) != set(grads_cpu) or groups != {"model", "phoneme_enc", "prompt_enc",
+                                                      "duration_pitch", "aligner", "pitch_emb"}:
+        raise AssertionError(f"gradients reach {sorted(groups)} (card: {len(grads_card)}, CPU: "
+                             f"{len(grads_cpu)} tensors)")
+    errs = {name: ((grads_card[name] - g_cpu).abs().max()
+                   / g_cpu.abs().max().clamp(min=1e-30)).item()
+            for name, g_cpu in grads_cpu.items()}
+    ranked = sorted(errs.items(), key=lambda kv: -kv[1] if math.isfinite(kv[1]) else -math.inf)
+    worst_name, worst = ranked[0]
+    log("19", f"{len(grads_cpu)} parameter gradients, card vs CPU: max err relative to each "
+              f"tensor's largest entry {worst:.3e} at {worst_name} (tolerance {GRAD_RTOL:g}); "
+              "next: " + ", ".join(f"{n} {e:.2e}" for n, e in ranked[1:5]))
+    if not all(e <= GRAD_RTOL for e in errs.values()):
+        bad = [n for n, e in errs.items() if not e <= GRAD_RTOL]
+        raise AssertionError(f"gradient card vs CPU above {GRAD_RTOL:g} at {bad[:5]}")
+    del card
+
+
 def _profile(label: str, fn) -> None:
     """torch.profiler around ``fn()`` (after one warm-up call): wall time,
     the device's busy share and the device time by kernel."""
@@ -1398,8 +1762,10 @@ def profile_runs() -> int:
     10-step conditional sample of README config 2, over 10 guided denoise
     steps alone and K2b's calls of those steps alone, over one RVQ call at
     the training shape, over one long-form denoise step at n 4500 and at n 9000,
-    over one scaled denoise step at b16 x n1024 x dim 512, and over one
-    training loss and backward at b16 x 2 s; then the kernels SDPA runs."""
+    over one scaled denoise step at b16 x n1024 x dim 512, over one
+    training loss and backward at b16 x 2 s and over one conditional one
+    (README config 2, phase 18's batch), with the host time of its MAS, CTC
+    and pitch loops; then the kernels SDPA runs."""
     import torch
 
     import naturalspeech2_tpu_torch as ns2pkg
@@ -1481,6 +1847,20 @@ def profile_runs() -> int:
         ns2(audio, generator=g)["loss"].backward()
 
     _profile(f"1 training loss and backward at b{TRAIN_BATCH} x {TRAIN_SECONDS:g} s", train_step)
+    del ns2
+    torch.cuda.empty_cache()
+
+    ns2 = flagship(SEED + 80, conditional=True, scan_layers=True).cuda()
+    batch = {k: torch.as_tensor(v).cuda() for k, v in next(_cond_train_batches(SEED + 81)).items()}
+    audio = batch.pop("audio")
+
+    def cond_train_step():
+        ns2.zero_grad(set_to_none=True)
+        ns2(audio, **batch, generator=g)["loss"].backward()
+
+    _profile(f"1 conditional training loss and backward at b{CT_BATCH} x "
+             f"{CT_SAMPLES / 24000:g} s", cond_train_step)
+    loop_times("profile", audio)
     sdpa_kernel_names()
     return 0
 
@@ -1541,12 +1921,20 @@ def main() -> int:
     del long_ns2, long_cpu, scaled, scaled_cpu
     phase16_widths(summary)
 
+    phase17_cond_train_kernels(summary)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        cond_train_counts = phase18_cond_train(Path(work))
+    torch.cuda.empty_cache()
+    phase19_cond_loss_card_vs_cpu(flagship(SEED + 90, conditional=True, scan_layers=True))
+
     for entry in summary:
         name = entry["name"]
         by_path = {"sample": sample_counts[name], "train": train_counts[name],
                    "conditional_sample": cond_counts[name],
                    **{f"longform_{n}": c[name] for n, c in long_counts.items()},
-                   "scaled_sample": scaled_counts[name]}
+                   "scaled_sample": scaled_counts[name],
+                   "conditional_train": cond_train_counts[name]}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,8 +1,9 @@
-"""The aligner's network (twin of `AlignerNet` in
-`naturalspeech2_tpu/models/aligner.py`): conv key and query projections
-and soft attention by negative euclidean distance. Monotonic alignment
-search, the forward-sum and binarization losses belong to conditional
-training (ROADMAP Queue 1, item 13)."""
+"""Phoneme-to-frame alignment (twins of `AlignerNet`, `Aligner`,
+`ForwardSumLoss` and `BinLoss` in `naturalspeech2_tpu/models/aligner.py`):
+conv key and query projections and soft attention by negative euclidean
+distance; the hard alignment by monotonic alignment search
+(`ops/mas.py`); the CTC forward-sum loss (`ops/ctc.py`) and the
+binarization loss, sign-corrected as in the JAX package."""
 
 from __future__ import annotations
 
@@ -11,6 +12,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from naturalspeech2_tpu_torch.ops.ctc import forward_sum_loss
+from naturalspeech2_tpu_torch.ops.mas import maximum_path
 
 NEG = -1e9
 
@@ -41,3 +45,45 @@ class AlignerNet(nn.Module):
         if mask is not None:
             attn_logp = torch.where(mask[:, None, None, :], attn_logp, NEG)
         return torch.softmax(attn_logp, dim=-1), attn_logp
+
+
+class Aligner(nn.Module):
+    """`AlignerNet` (as ``aligner``) plus monotonic alignment search."""
+
+    def __init__(self, dim_in: int, dim_hidden: int, attn_channels: int = 80):
+        super().__init__()
+        self.aligner = AlignerNet(dim_in, dim_hidden, attn_channels)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, y: torch.Tensor,
+                y_mask: torch.Tensor):
+        """Phoneme encodings ``x`` [b, t_x, dim_hidden] and mel ``y`` [b,
+        dim_in, t_y] with their masks → ``(durations [b, t_x] int32, soft
+        [b, t_x, t_y], log-scores [b, 1, t_y, t_x], hard path [b, t_x,
+        t_y])``; the path carries no gradient."""
+        attn_soft, attn_logp = self.aligner(y.transpose(1, 2), x, x_mask)
+        attn_mask = (x_mask[:, :, None] & y_mask[:, None, :]).to(attn_soft.dtype)
+        soft = attn_soft[:, 0].transpose(1, 2)
+        path = maximum_path(soft.detach(), attn_mask)
+        return path.sum(dim=-1).to(torch.int32), soft, attn_logp, path
+
+
+class ForwardSumLoss(nn.Module):
+    def __init__(self, blank_logprob: float = -1.0):
+        super().__init__()
+        self.blank_logprob = blank_logprob
+
+    def forward(self, attn_logprob, key_lens, query_lens):
+        return forward_sum_loss(attn_logprob, key_lens, query_lens, self.blank_logprob)
+
+
+class BinLoss(nn.Module):
+    def forward(self, attn_hard: torch.Tensor, attn_logprob: torch.Tensor,
+                key_lens: torch.Tensor) -> torch.Tensor:
+        """−Σ hard · log_softmax(log-scores) / b, with the hard path [b, t_x,
+        t_y], log-scores [b, 1, t_y, t_x] and keys past ``key_lens`` at
+        −1e9."""
+        logp = attn_logprob[:, 0]
+        key_idx = torch.arange(logp.shape[-1], device=logp.device)[None, None, :]
+        logp = torch.where(key_idx > key_lens[:, None, None], NEG, logp)
+        logp = torch.log_softmax(logp, dim=-1)
+        return -(attn_hard.transpose(1, 2) * logp).sum() / attn_logprob.shape[0]

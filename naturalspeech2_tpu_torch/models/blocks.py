@@ -121,8 +121,10 @@ class FeedForward(nn.Module):
     - ``causal_conv=True``, the denoiser's block: a causal k=3 conv between
       gate and out-projection, as one pre-norm residual block
       ``x + FF(adaRMSNorm(x))``, called as ``ff(x, gamma, beta)``: kernel K3
-      where the JAX package's gate `fits_fused_ff_block` passes, else the
-      same function as separate tensor ops, as the JAX module runs it;
+      where ``use_fused``, ``gelu_approximate`` and the JAX package's gate
+      `fits_fused_ff_block` all pass, else the same function as separate
+      tensor ops (exact GELU with ``gelu_approximate=False``), as the JAX
+      module runs it;
     - ``causal_conv=False``, the encoders' plain MLP
       ``W₂·(gelu(x·W_g + b_g) ∘ (x·W_v + b_v)) + b₂`` with no norm and no
       residual, called as ``ff(x)``.
@@ -132,14 +134,10 @@ class FeedForward(nn.Module):
     """
 
     def __init__(self, dim: int, mult: int = 4, causal_conv: bool = True,
-                 gelu_approximate: bool = True):
+                 gelu_approximate: bool = True, use_fused: bool = True):
         super().__init__()
-        if causal_conv and not gelu_approximate:
-            raise NotImplementedError(
-                "gelu_approximate=False in the causal-conv block is not ported yet "
-                "(ROADMAP Queue 1, option list)"
-            )
         self.dim, self.causal_conv = dim, causal_conv
+        self.fused = use_fused and gelu_approximate
         self.approximate = "tanh" if gelu_approximate else "none"
         inner = int(dim * mult * 2 / 3)
         self.w1 = nn.Parameter(torch.randn(dim, 2 * inner) / math.sqrt(dim))
@@ -154,7 +152,7 @@ class FeedForward(nn.Module):
                 beta: Optional[torch.Tensor] = None) -> torch.Tensor:
         residual = None
         if self.causal_conv:
-            if fits_fused_ff_block(x.shape[1], self.dim, self.w2.shape[0]):
+            if self.fused and fits_fused_ff_block(x.shape[1], self.dim, self.w2.shape[0]):
                 return ff_block(x, gamma, beta, self.w1, self.b1, self.wc, self.bc, self.w2,
                                 self.b2)
             residual, x = x, ada_rmsnorm(x, gamma, beta, self.dim)

@@ -25,7 +25,7 @@ from naturalspeech2_tpu_torch.models.blocks import LearnedSinusoidalPosEmb
 from naturalspeech2_tpu_torch.models.encoders import PerceiverResampler
 from naturalspeech2_tpu_torch.models.transformer import ConditionableTransformer
 from naturalspeech2_tpu_torch.models.wavenet import FusedWavenet
-from naturalspeech2_tpu_torch.utils.helpers import pad_or_curtail_to_length
+from naturalspeech2_tpu_torch.utils.helpers import pad_or_curtail_to_length, prob_mask_like
 
 
 def _not_ported(option: str, item: str) -> NotImplementedError:
@@ -57,13 +57,9 @@ class Model(nn.Module):
     ):
         super().__init__()
         if self_cond:
-            raise _not_ported("self_cond=True", "slice 3")
+            raise _not_ported("self_cond=True", "item 10, self-conditioning")
         if not use_fused_wavenet:
             raise _not_ported("use_fused_wavenet=False", "option list")
-        if not use_flash_attn:
-            raise _not_ported("use_flash_attn=False", "option list")
-        if not gelu_approximate:
-            raise _not_ported("gelu_approximate=False", "option list")
         self.dim = dim
         self.condition_on_prompt = condition_on_prompt
         self.cond_drop_prob = cond_drop_prob
@@ -91,21 +87,20 @@ class Model(nn.Module):
         self.transformer = ConditionableTransformer(
             dim, depth, dim_head=dim_head, heads=heads, ff_mult=ff_mult,
             ff_causal_conv=True, dim_cond_mult=cond_mult, cross_attn=condition_on_prompt,
-            scan_layers=scan_layers, remat=remat,
+            use_flash=use_flash_attn, scan_layers=scan_layers, gelu_approximate=gelu_approximate,
+            remat=remat,
         )
 
-    def _drop_masks(self, b: int, device, cond_drop_prob, cond_drop_mask):
+    def _drop_masks(self, b: int, device, cond_drop_prob, cond_drop_mask, generator):
         """(prompt_drop, cond_drop), each [b] bool."""
         if isinstance(cond_drop_mask, tuple):
             return cond_drop_mask
         if cond_drop_mask is not None:
             return cond_drop_mask, cond_drop_mask
         p = self.cond_drop_prob if cond_drop_prob is None else cond_drop_prob
-        if p > 0.0 and self.training:
-            raise NotImplementedError(
-                "the random CFG drop of training is not ported yet (ROADMAP Queue 1, item 15, "
-                "conditional training); pass cond_drop_mask= or use eval()"
-            )
+        if p > 0.0 and self.training:  # two independent draws, prompt first
+            return (prob_mask_like((b,), p, generator, device),
+                    prob_mask_like((b,), p, generator, device))
         full = torch.full((b,), p >= 1.0, dtype=torch.bool, device=device)
         return full, full
 
@@ -118,6 +113,7 @@ class Model(nn.Module):
         cond: Optional[torch.Tensor] = None,
         cond_drop_prob: Optional[float] = None,
         cond_drop_mask: Union[None, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """x [b, n, dim], times [b] (or a scalar) → prediction [b, n, dim].
 
@@ -125,9 +121,12 @@ class Model(nn.Module):
         dim_prompt] (``prompt_mask`` [b, n_p] optional) and the aligned
         frame condition ``cond`` [b, n_c, dim_prompt], cut or zero-padded to
         n. ``cond_drop_mask`` ([b] bool, or a (prompt, cond) pair) says
-        which rows take the null condition; without it, every row drops if
-        ``cond_drop_prob`` ≥ 1 and none otherwise, as the JAX package's
-        deterministic forward.
+        which rows take the null condition. Without it, a module in
+        training mode drops the prompt and the frame condition of each row
+        apart, each with probability ``cond_drop_prob``, drawn from
+        ``generator`` (torch's default one if None); in eval mode every
+        row drops if ``cond_drop_prob`` ≥ 1 and none otherwise, as the JAX
+        package's deterministic forward.
         """
         b = x.shape[0]
         if times.ndim == 0:
@@ -138,7 +137,7 @@ class Model(nn.Module):
             if prompt is None or cond is None:
                 raise ValueError("a conditional Model needs prompt= and cond=")
             prompt_drop, cond_drop = self._drop_masks(b, x.device, cond_drop_prob,
-                                                      cond_drop_mask)
+                                                      cond_drop_mask, generator)
             prompt_cond = F.silu(self.to_prompt_cond(prompt.mean(dim=-2)))
             prompt_cond = torch.where(prompt_drop[:, None], self.null_prompt_cond, prompt_cond)
             t = torch.cat([t, prompt_cond], dim=-1)

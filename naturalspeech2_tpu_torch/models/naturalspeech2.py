@@ -1,15 +1,18 @@
-"""NaturalSpeech 2: diffusion over codec latents. The unconditional
-training losses (`NaturalSpeech2.forward`, the twin of
-`NaturalSpeech2.__call__`); the conditioning stack of zero-shot TTS
+"""NaturalSpeech 2: diffusion over codec latents. The training losses
+(`NaturalSpeech2.forward`, the twin of `NaturalSpeech2.__call__`), for a
+conditional model with the duration, pitch and alignment losses of
+`_conditional_inputs_and_losses`; the conditioning stack of zero-shot TTS
 (prompt and phoneme encoders, duration / pitch prediction, the aligned
 frame condition: `conditioning_for_sample`); and sampling by DDIM with
 batch-doubled classifier-free guidance, then codec decode (twins of
 `get_sampling_time_pairs`, `_reconstruct_x0`, `ddim_sample` and `sample()`
 in `naturalspeech2_tpu/models/naturalspeech2.py`).
 
-Randomness is explicit: the diffusion times and noise, and the samplers'
-starting noise, are drawn from a ``torch.Generator`` or taken as
-``times=`` / ``noise=`` (how the tests inject JAX's draws).
+Randomness is explicit: the diffusion times and noise, the random CFG
+drop of training and the samplers' starting noise are drawn from a
+``torch.Generator`` or taken as ``times=`` / ``noise=`` /
+``cond_drop_mask=`` (how the tests inject JAX's draws). Dropout in the
+encoders draws from torch's default generator.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from naturalspeech2_tpu_torch.models.aligner import AlignerNet
+from naturalspeech2_tpu_torch.models.aligner import Aligner, BinLoss, ForwardSumLoss
 from naturalspeech2_tpu_torch.models.codec import SoundStream
 from naturalspeech2_tpu_torch.models.denoiser import Model, forward_with_cond_scale
 from naturalspeech2_tpu_torch.models.encoders import (
@@ -28,28 +31,21 @@ from naturalspeech2_tpu_torch.models.encoders import (
     PhonemeEncoder,
     SpeechPromptEncoder,
 )
-from naturalspeech2_tpu_torch.ops.pitch import f0_to_coarse
+from naturalspeech2_tpu_torch.ops.mel import audio_to_mel
+from naturalspeech2_tpu_torch.ops.pitch import compute_pitch, compute_pitch_nccf, f0_to_coarse
 from naturalspeech2_tpu_torch.ops.schedules import gamma_to_alpha_sigma, get_schedule
 from naturalspeech2_tpu_torch.utils.helpers import (
+    average_over_durations,
     create_mask,
     generate_mask_from_repeats,
     safe_div,
 )
 
-_CONDITIONAL_TRAINING = "ROADMAP Queue 1, item 15 (conditional training)"
 # Fields of the JAX module that belong to later slices, and their ROADMAP
 # Queue 1 items: passing any of them raises NotImplementedError.
 _LATER_FIELDS = {
     "tokenizer": "item 16 (text frontend)",
-    "calc_pitch_with_pyworld": "item 15 (conditional training: pitch)",
-    "train_prob_self_cond": "item 15 (conditional training: self-conditioning)",
-    "mel_hop_length": "item 15 (conditional training: mel)",
-    "audio_to_mel_kwargs": "item 15 (conditional training: mel)",
-    "duration_loss_weight": "item 15 (conditional training: losses)",
-    "pitch_loss_weight": "item 15 (conditional training: losses)",
-    "aligner_loss_weight": "item 15 (conditional training: losses)",
-    "aligner_bin_loss_weight": "item 15 (conditional training: losses)",
-    "mask_duration_pitch_loss": "item 15 (conditional training: losses)",
+    "train_prob_self_cond": "item 10 (self-conditioning)",
 }
 
 
@@ -73,12 +69,18 @@ class NaturalSpeech2(nn.Module):
     With ``model.condition_on_prompt`` it also holds the conditioning
     stack, sized as the JAX package's defaults unless the ``*_kwargs``
     override them: `PhonemeEncoder`, `SpeechPromptEncoder`,
-    `DurationPitchPredictor`, the aligner's network and the pitch
-    embedding. ``pitch_space="log"`` means the pitch trunk predicts
-    log1p(F0 Hz). ``schedule_kwargs`` go to the γ(t) schedule;
-    ``target_sample_hz`` is the audio rate when there is no codec. The JAX
-    module's fields of later slices (tokenizer, pitch, mel and conditional
-    training losses) raise NotImplementedError naming their ROADMAP item.
+    `DurationPitchPredictor`, the `Aligner` and the pitch embedding.
+    ``pitch_space="log"`` means the pitch trunk predicts log1p(F0 Hz).
+    Training estimates pitch by ACF (``calc_pitch_with_pyworld=True``, the
+    JAX package's stand-in for pyworld) or NCCF + Viterbi, and the mel at
+    ``mel_hop_length`` (``audio_to_mel_kwargs`` override its settings);
+    the conditional losses are weighted by the ``*_loss_weight`` fields,
+    the duration and pitch ones masked to real phonemes with
+    ``mask_duration_pitch_loss``. ``schedule_kwargs`` go to the γ(t)
+    schedule; ``target_sample_hz`` is the audio rate when there is no
+    codec. The JAX module's fields of later slices (tokenizer,
+    self-conditioning) raise NotImplementedError naming their ROADMAP
+    item.
     """
 
     def __init__(
@@ -110,6 +112,14 @@ class NaturalSpeech2(nn.Module):
         duration_pitch_kwargs: Optional[dict] = None,
         schedule_kwargs: Optional[dict] = None,
         target_sample_hz: Optional[int] = None,
+        calc_pitch_with_pyworld: bool = True,
+        mel_hop_length: int = 160,
+        audio_to_mel_kwargs: Optional[dict] = None,
+        duration_loss_weight: float = 1.0,
+        pitch_loss_weight: float = 1.0,
+        aligner_loss_weight: float = 1.0,
+        aligner_bin_loss_weight: float = 0.0,
+        mask_duration_pitch_loss: bool = True,
         **later_fields,
     ):
         super().__init__()
@@ -152,6 +162,15 @@ class NaturalSpeech2(nn.Module):
             raise ValueError(f"pitch_space must be 'log' or 'hz', got {pitch_space!r}")
         self.pitch_space = pitch_space
         self.mask_phoneme_encoder = mask_phoneme_encoder
+        self.calc_pitch_with_pyworld = calc_pitch_with_pyworld
+        self.mel_hop_length = mel_hop_length
+        self.audio_to_mel_kwargs = dict(audio_to_mel_kwargs or {})
+        self.aligner_dim_in = aligner_dim_in
+        self.duration_loss_weight = duration_loss_weight
+        self.pitch_loss_weight = pitch_loss_weight
+        self.aligner_loss_weight = aligner_loss_weight
+        self.aligner_bin_loss_weight = aligner_bin_loss_weight
+        self.mask_duration_pitch_loss = mask_duration_pitch_loss
         if self.conditional:
             self.phoneme_enc = PhonemeEncoder(num_tokens=num_phoneme_tokens,
                                               **(phoneme_enc_kwargs or {}))
@@ -161,8 +180,9 @@ class NaturalSpeech2(nn.Module):
             )
             self.duration_pitch = DurationPitchPredictor(dim=duration_pitch_dim,
                                                          **(duration_pitch_kwargs or {}))
-            self.aligner = AlignerNet(dim_in=aligner_dim_in, dim_hidden=aligner_dim_hidden,
-                                      attn_channels=aligner_attn_channels)
+            self.aligner = Aligner(aligner_dim_in, aligner_dim_hidden, aligner_attn_channels)
+            self.aligner_loss = ForwardSumLoss()
+            self.bin_loss = BinLoss()
             self.pitch_emb = nn.Embedding(pitch_emb_dim, pitch_emb_pp_hidden_dim)
             widths = {"prompt encoding": self.prompt_enc.dim_out,
                       "phoneme encoding": self.phoneme_enc.conv.conv.out_channels,
@@ -192,23 +212,39 @@ class NaturalSpeech2(nn.Module):
         self,
         audio: torch.Tensor,
         *,
+        text: Optional[torch.Tensor] = None,
+        text_lens: Optional[torch.Tensor] = None,
+        mel: Optional[torch.Tensor] = None,
+        mel_lens: Optional[torch.Tensor] = None,
+        codes: Optional[torch.Tensor] = None,
+        prompt: Optional[torch.Tensor] = None,
+        pitch: Optional[torch.Tensor] = None,
         times: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
+        cond_drop_mask=None,
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Training losses: ``{"loss", "diffusion"}`` and, with a positive
-        ``rvq_cross_entropy_loss_weight``, ``"rvq_ce"``.
+        """Training losses: ``{"loss", "diffusion"}``; a conditional model
+        adds ``"duration"``, ``"pitch"`` and ``"align"``, weighted into
+        ``"loss"``; a positive ``rvq_cross_entropy_loss_weight`` adds
+        ``"rvq_ce"``.
 
         ``audio`` is raw audio [b, T], encoded by the frozen codec without
         gradient (the RVQ cross-entropy needs its codes), or latents
-        [b, n, dim]. ``times`` [b] and ``noise`` [b, n, dim] are drawn from
-        ``generator`` unless given.
+        [b, n, dim] (with ``codes`` for the cross-entropy). A conditional
+        model takes phoneme ids ``text`` [b, t_x] (``text_lens`` [b]) and the
+        speech ``prompt`` (raw audio [b, T_p] or latents); the mel [b,
+        n_mels, t] (``mel_lens``) and frame pitch [b, 1, t] in Hz are
+        computed from raw audio unless given. ``times`` [b] and ``noise``
+        [b, n, dim] are drawn from ``generator`` unless given, and in
+        training mode the CFG drop masks too unless ``cond_drop_mask`` (as
+        `Model` takes it) is given. Dropout is on in training mode only.
         """
+        prompt_enc = cond = None
+        aux_loss, aux = 0.0, {}
         if self.conditional:
-            raise NotImplementedError(
-                f"the conditional training forward is not ported yet ({_CONDITIONAL_TRAINING})"
-            )
-        codes = None
+            prompt_enc, cond, aux_loss, aux = self._conditional_inputs_and_losses(
+                audio, text, text_lens, mel, mel_lens, prompt, pitch)
         if audio.ndim == 2:
             if self.codec is None:
                 raise ValueError("raw audio needs a codec")
@@ -225,7 +261,8 @@ class NaturalSpeech2(nn.Module):
         gamma = self.gamma_schedule(times)[:, None, None]
         alpha, sigma = gamma_to_alpha_sigma(gamma, self.scale)
         noised = alpha * audio + sigma * noise
-        pred = self.model(noised, times)
+        pred = self.model(noised, times, prompt=prompt_enc, cond=cond,
+                          cond_drop_mask=cond_drop_mask, generator=generator)
 
         if self.objective == "eps":
             target = noise
@@ -245,14 +282,76 @@ class NaturalSpeech2(nn.Module):
         else:
             loss_weight = clipped_snr / (snr + 1)
         diffusion = (loss * loss_weight).mean()
-        losses = {"loss": diffusion, "diffusion": diffusion}
+        total = diffusion + aux_loss
+        losses = {"loss": total, "diffusion": diffusion, **aux}
 
         if self.rvq_cross_entropy_loss_weight > 0 and codes is not None:
             x_start = _reconstruct_x0(self.objective, audio, pred, alpha, sigma)
             _, ce = self.codec.rq(x_start, codes)
             losses["rvq_ce"] = ce
-            losses["loss"] = diffusion + self.rvq_cross_entropy_loss_weight * ce
+            losses["loss"] = total + self.rvq_cross_entropy_loss_weight * ce
         return losses
+
+    def _conditional_inputs_and_losses(self, audio, text, text_lens, mel, mel_lens, prompt,
+                                       pitch):
+        """(prompt encoding, frame condition [b, t, dim_prompt], the weighted
+        sum of the conditional losses, {"duration", "pitch", "align"}). The
+        frame condition is at the mel's frames (hop ``mel_hop_length``),
+        which the denoiser cuts or pads to the latents' length."""
+        if prompt is None or text is None:
+            raise ValueError("a conditional model trains on prompt= and text=")
+        batch, text_max = prompt.shape[0], text.shape[-1]
+        if text_lens is None:
+            text_lens = torch.full((batch,), text_max, dtype=torch.int64, device=text.device)
+        text_lens = text_lens.clamp(max=text_max)
+        text_mask = create_mask(text_lens, text_max)
+
+        prompt_enc = self.prompt_enc(self.process_prompt(prompt))
+        phoneme_enc = self.phoneme_enc(text, mask=text_mask if self.mask_phoneme_encoder else None)
+        if (pitch is None or mel is None) and audio.ndim != 2:
+            raise ValueError("pitch and mel are computed from raw audio; pass pitch= and mel= "
+                             "with latents")
+        if pitch is None:
+            estimate = compute_pitch if self.calc_pitch_with_pyworld else compute_pitch_nccf
+            pitch = estimate(audio, sample_rate=self.sample_hz,
+                             hop_length=self.mel_hop_length)[:, None, :]
+        if mel is None:
+            mel = audio_to_mel(audio, **{"sample_rate": self.sample_hz,
+                                         "n_mels": self.aligner_dim_in,
+                                         "hop_length": self.mel_hop_length,
+                                         **self.audio_to_mel_kwargs})
+            mel = mel[..., : pitch.shape[-1]]
+        pitch = pitch[..., : mel.shape[-1]]
+        mel_max = mel.shape[-1]
+        if mel_lens is None:
+            mel_lens = torch.full((batch,), mel_max, dtype=torch.int64, device=mel.device)
+        mel_lens = mel_lens.clamp(max=mel_max)
+        mel_mask = create_mask(mel_lens, mel_max)
+
+        aln_hard, _, aln_log, aln_mask = self.aligner(phoneme_enc, text_mask, mel, mel_mask)
+        duration_pred, pitch_pred = self.duration_pitch(phoneme_enc, prompt_enc)
+        pitch_phon = average_over_durations(pitch, aln_hard)  # [b, 1, t_x] in Hz
+        cond = self.expand_encodings(phoneme_enc, aln_mask.to(phoneme_enc.dtype), pitch_phon)
+
+        pitch_target = torch.log1p(pitch_phon[:, 0]) if self.pitch_space == "log" else pitch_phon[:, 0]
+        duration_err = (aln_hard - duration_pred).abs()
+        pitch_err = (pitch_target - pitch_pred).abs()
+        if self.mask_duration_pitch_loss:  # real phonemes only (PARITY #12)
+            tmask = text_mask.to(duration_pred.dtype)
+            denom = tmask.sum().clamp(min=1.0)
+            duration_loss = (duration_err * tmask).sum() / denom
+            pitch_loss = (pitch_err * tmask).sum() / denom
+        else:  # the reference's mean over padding too
+            duration_loss, pitch_loss = duration_err.mean(), pitch_err.mean()
+        align_loss = self.aligner_loss(aln_log, text_lens, mel_lens)
+        if self.aligner_bin_loss_weight > 0.0:
+            align_loss = align_loss + (self.bin_loss(aln_mask, aln_log, text_lens)
+                                       * self.aligner_bin_loss_weight)
+        aux_loss = (duration_loss * self.duration_loss_weight
+                    + pitch_loss * self.pitch_loss_weight
+                    + align_loss * self.aligner_loss_weight)
+        return prompt_enc, cond, aux_loss, {"duration": duration_loss, "pitch": pitch_loss,
+                                            "align": align_loss}
 
     # ------------------------------------------------------------------ #
     # conditioning for sampling

@@ -141,7 +141,9 @@ class ConditionableTransformer(nn.Module):
     """Unrolled adaptive transformer: per layer adaRMSNorm(t)→self-attn,
     with ``cross_attn`` adaRMSNorm(t)→cross-attn(context), and
     adaRMSNorm(t)→FF(causal conv), then RMSNorm + Linear. The stacked
-    norms are ordered [self, cross, ff] per layer.
+    norms are ordered [self, cross, ff] per layer. ``use_flash=False``
+    turns K2, K2b, K3 and flash attention off, as in the JAX module: every
+    block runs unfused, its attention in plain PyTorch.
 
     ``scan_layers`` names the JAX parameter layout only (per-layer weights
     stacked under ``layers``, which `load_jax_params` unbinds into these
@@ -178,8 +180,6 @@ class ConditionableTransformer(nn.Module):
                 "ff_causal_conv=False in the adaptive transformer is not ported yet "
                 "(ROADMAP Queue 1, item 5)"
             )
-        if not use_flash:
-            raise NotImplementedError("use_flash=False is not ported yet (ROADMAP Queue 1, option list)")
         self.dim, self.depth, self.scan_layers = dim, depth, scan_layers
         self.norms_per_layer = 3 if cross_attn else 2
         n_norms = depth * self.norms_per_layer
@@ -189,14 +189,16 @@ class ConditionableTransformer(nn.Module):
             torch.cat([torch.ones(n_norms, dim), torch.zeros(n_norms, dim)], dim=-1)
         )
         self.attn = nn.ModuleList(
-            Attention(dim, dim_head=dim_head, heads=heads, use_flash=True) for _ in range(depth)
+            Attention(dim, dim_head=dim_head, heads=heads, use_flash=use_flash)
+            for _ in range(depth)
         )
         self.cross_attn = nn.ModuleList(
-            Attention(dim, dim_head=dim_head, heads=heads, use_flash=True)
+            Attention(dim, dim_head=dim_head, heads=heads, use_flash=use_flash)
             for _ in range(depth if cross_attn else 0)
         )
         self.ff = nn.ModuleList(
-            FeedForward(dim, mult=ff_mult, causal_conv=True, gelu_approximate=gelu_approximate)
+            FeedForward(dim, mult=ff_mult, causal_conv=True, gelu_approximate=gelu_approximate,
+                        use_fused=use_flash)
             for _ in range(depth)
         )
         self.pred_norm = RMSNorm(dim)

@@ -4,7 +4,9 @@ and `attend_xla` in `naturalspeech2_tpu/ops/attention.py`).
 ``backend="flash"`` runs flash attention (K4 forward, K5 backward,
 ``ops/flash_attention.py``); ``backend="xla"`` is plain PyTorch, as the
 JAX package leaves that route to XLA. Masked logits are the finite
-``NEG_INF`` on both routes.
+``NEG_INF`` on both routes. Dropout on the plain route keeps each
+probability with probability 1 − p and scales it by 1/(1 − p), after the
+softmax, as ``attend_xla`` does.
 """
 
 from __future__ import annotations
@@ -17,10 +19,15 @@ from naturalspeech2_tpu_torch.ops.flash_attention import NEG_INF, flash_attentio
 
 
 def attend_plain(q, k, v, *, mask: Optional[torch.Tensor] = None, causal: bool = False,
-                 scale: Optional[float] = None) -> torch.Tensor:
+                 scale: Optional[float] = None, dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None,
+                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dot-product attention over ``[b, h, n, d]``; ``mask`` ``[b, n_kv]``
     (True = attend). Causal masking keeps key j for query i where
-    j ≤ i + n_kv − n_q, as ``attend_xla`` does."""
+    j ≤ i + n_kv − n_q, as ``attend_xla`` does. With ``dropout`` p > 0 the
+    probabilities [b, h, n_q, n_kv] where ``keep`` is False become 0 and the
+    rest are scaled by 1/(1 − p); ``keep`` defaults to uniform draws from
+    ``generator`` (torch's default one if None) below 1 − p."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     sim = torch.einsum("bhid,bhjd->bhij", q, k) * scale
@@ -28,23 +35,26 @@ def attend_plain(q, k, v, *, mask: Optional[torch.Tensor] = None, causal: bool =
         sim = torch.where(mask[:, None, None, :], sim, NEG_INF)
     if causal:
         i, j = sim.shape[-2:]
-        keep = torch.ones((i, j), dtype=torch.bool, device=sim.device).tril(j - i)
-        sim = torch.where(keep, sim, NEG_INF)
-    return torch.einsum("bhij,bhjd->bhid", torch.softmax(sim, dim=-1), v)
+        visible = torch.ones((i, j), dtype=torch.bool, device=sim.device).tril(j - i)
+        sim = torch.where(visible, sim, NEG_INF)
+    attn = torch.softmax(sim, dim=-1)
+    if dropout > 0.0:
+        if keep is None:
+            keep = torch.rand(attn.shape, generator=generator, device=attn.device) < 1.0 - dropout
+        attn = torch.where(keep, attn / (1.0 - dropout), 0.0)
+    return torch.einsum("bhij,bhjd->bhid", attn, v)
 
 
 def attend(q, k, v, *, mask: Optional[torch.Tensor] = None, causal: bool = False,
            scale: Optional[float] = None, dropout: float = 0.0,
-           backend: str = "xla") -> torch.Tensor:
-    """``backend`` "flash" (K4/K5, with in-kernel dropout seeded from
-    torch's default generator) or "xla" (plain)."""
+           generator: Optional[torch.Generator] = None, backend: str = "xla") -> torch.Tensor:
+    """``backend`` "flash" (K4/K5, with in-kernel dropout whose seed is
+    drawn from ``generator``) or "xla" (plain, its keep mask drawn from
+    ``generator``); torch's default generator if None."""
     if backend == "flash":
-        return flash_attention(q, k, v, mask=mask, causal=causal, scale=scale, dropout=dropout)
+        return flash_attention(q, k, v, mask=mask, causal=causal, scale=scale, dropout=dropout,
+                               generator=generator)
     if backend != "xla":
         raise ValueError(f"unknown attention backend {backend!r}")
-    if dropout > 0.0:
-        raise NotImplementedError(
-            "dropout on the plain attention route is not ported yet (ROADMAP Queue 1, "
-            "conditional training): its keep mask comes from jax.random in the JAX package"
-        )
-    return attend_plain(q, k, v, mask=mask, causal=causal, scale=scale)
+    return attend_plain(q, k, v, mask=mask, causal=causal, scale=scale, dropout=dropout,
+                        generator=generator)

@@ -223,7 +223,7 @@ def _conditioning(conv: _Converter) -> None:
     _phoneme_enc(conv, "phoneme_enc", "phoneme_enc")
     _prompt_enc(conv, "prompt_enc", "prompt_enc")
     _duration_pitch(conv, "duration_pitch", "duration_pitch")
-    _aligner_net(conv, "aligner/aligner", "aligner")
+    _aligner_net(conv, "aligner/aligner", "aligner.aligner")
     conv.embed("pitch_emb", "pitch_emb")
 
 

@@ -1,5 +1,7 @@
-"""Training harness for the unconditional model (twin of `Trainer` in
-`naturalspeech2_tpu/trainer.py`).
+"""Training harness (twin of `Trainer` in `naturalspeech2_tpu/trainer.py`).
+A batch is raw audio (or latents), or for a conditional model a dict
+holding ``"audio"`` and the loss's other arguments (``"text"``,
+``"text_lens"``, ``"prompt"``, ``"mel"``, ``"pitch"``, ...).
 
 One optimizer step: grad accumulation over micro-batches (a Python loop;
 gradients summed, then divided by their count), global-norm clipping as
@@ -10,9 +12,11 @@ Checkpoints are ``torch.save`` files of {step, params, opt_state,
 ema_params, version}; ``train()`` resumes from the newest one in
 ``results_folder``.
 
-The diffusion times and noise of every micro-batch come from the
-trainer's own generator (seeded with ``seed + 1``) and are handed to the
-loss, so a rematerialised forward (``remat=True``) sees the same draws.
+The diffusion times and noise of every micro-batch, and a conditional
+model's CFG drop masks, come from the trainer's own generator (seeded
+with ``seed + 1``) and are handed to the loss, so a rematerialised forward
+(``remat=True``) sees the same draws; the encoders' dropout draws from
+torch's default generator, whose state the rematerialisation restores.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import copy
 import json
 import math
 import time
+import warnings
 from pathlib import Path
 from typing import Callable, Iterator, Optional, Tuple
 
@@ -30,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from naturalspeech2_tpu_torch.data import SoundDataset, data_loader, write_wav
 from naturalspeech2_tpu_torch.models.naturalspeech2 import NaturalSpeech2, sample
+from naturalspeech2_tpu_torch.utils.helpers import prob_mask_like
 from naturalspeech2_tpu_torch.version import __version__
 
 
@@ -133,6 +139,14 @@ class Trainer:
             raise _not_ported("steps_per_dispatch > 1", "item 11")
         self.ns2 = diffusion_model
         self.device = next(diffusion_model.parameters()).device
+        if self.ns2.conditional and self.ns2.duration_pitch.to_duration_pred.head_activation == "relu":
+            # PARITY #12: once the pre-activation is negative everywhere the
+            # masked L1's gradient is 0 and the predictor never recovers
+            warnings.warn(
+                "duration/pitch predictor head_activation='relu' (the reference default) can go "
+                "permanently dead under the L1 loss; pass duration_pitch_kwargs="
+                "dict(head_activation='softplus') for a trainable head (PARITY.md defect #12).",
+                UserWarning, stacklevel=2)
         self.train_batch_size = train_batch_size
         self.grad_accum_every = grad_accum_every
         self.max_grad_norm = max_grad_norm
@@ -178,24 +192,58 @@ class Trainer:
         self.step = 0
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
         self._resume_checked = False
+        # a held-back (prompt, text) pair for conditional milestone samples
+        self._holdback: Optional[dict] = None
 
     # ------------------------------------------------------------------ #
 
-    def draw(self, audio: torch.Tensor):
+    def draw(self, audio: torch.Tensor, generator: Optional[torch.Generator] = None):
         """(times [b], noise [b, n, dim]) for one micro-batch of raw audio
-        [b, T] or latents [b, n, dim], from the trainer's generator."""
+        [b, T] or latents [b, n, dim], from ``generator`` (the trainer's by
+        default)."""
+        generator = self.generator if generator is None else generator
         b = audio.shape[0]
         if audio.ndim == 2:
             n = audio.shape[-1] // self.ns2.codec.seq_len_multiple_of
         else:
             n = audio.shape[1]
-        times = torch.rand(b, generator=self.generator, device=self.device)
-        noise = torch.randn((b, n, self.ns2.dim), generator=self.generator, device=self.device)
+        times = torch.rand(b, generator=generator, device=self.device)
+        noise = torch.randn((b, n, self.ns2.dim), generator=generator, device=self.device)
         return times, noise
 
-    def _losses(self, audio, times, noise) -> dict:
+    def draw_cond_drop(self, b: int, generator: Optional[torch.Generator] = None):
+        """A conditional model's (prompt, cond) CFG drop masks [b] for one
+        micro-batch, drawn after ``draw``'s from the same generator; None
+        when no row can drop (an unconditional model, a ``cond_drop_prob``
+        of 0, or eval mode)."""
+        p = self.ns2.model.cond_drop_prob
+        if not (self.ns2.conditional and p > 0.0 and self.ns2.training):
+            return None
+        generator = self.generator if generator is None else generator
+        return tuple(prob_mask_like((b,), p, generator, self.device) for _ in range(2))
+
+    def _draws(self, audio, generator: Optional[torch.Generator] = None) -> dict:
+        times, noise = self.draw(audio) if generator is None else self.draw(audio, generator)
+        draws = {"times": times, "noise": noise}
+        drop = self.draw_cond_drop(audio.shape[0], generator)
+        if drop is not None:
+            draws["cond_drop_mask"] = drop
+        return draws
+
+    def _tensors(self, batch) -> dict:
+        """A batch (an array, or a dict of arrays) as a dict of tensors on
+        the device, floats in f32."""
+        if not isinstance(batch, dict):
+            batch = {"audio": batch}
+        out = {}
+        for k, v in batch.items():
+            v = torch.as_tensor(np.asarray(v))
+            out[k] = (v.to(torch.float32) if v.is_floating_point() else v).to(self.device)
+        return out
+
+    def _losses(self, audio, extra: dict, draws: dict) -> dict:
         def forward(a):
-            return self.ns2(a, times=times, noise=noise)
+            return self.ns2(a, **extra, **draws)
 
         if self.remat:  # recompute the forward in the backward pass
             return checkpoint(forward, audio, use_reentrant=False)
@@ -207,18 +255,19 @@ class Trainer:
         return int(state["step"]) if "step" in state else 0
 
     def train_step(self, batch) -> dict:
-        """One optimizer step over a batch of ``grad_accum_every ×
-        train_batch_size`` examples; returns the metrics as floats."""
-        if isinstance(batch, dict):
-            raise _not_ported("conditional (dict) batches", "item 15, slice 4")
-        audio = torch.as_tensor(np.asarray(batch), dtype=torch.float32).to(self.device)
-        micros = audio.reshape(self.grad_accum_every, self.train_batch_size, *audio.shape[1:])
+        """One optimizer step over a batch (an array, or a dict of arrays
+        with ``"audio"``) of ``grad_accum_every × train_batch_size``
+        examples; returns the metrics as floats."""
+        tensors = self._tensors(batch)
         params = list(self.params.values())
         for p in params:
             p.grad = None
         sums: dict = {}
-        for micro in micros:
-            losses = self._losses(micro, *self.draw(micro))
+        for i in range(self.grad_accum_every):
+            micro = {k: v[i * self.train_batch_size:(i + 1) * self.train_batch_size]
+                     for k, v in tensors.items()}
+            audio = micro.pop("audio")
+            losses = self._losses(audio, micro, self._draws(audio))
             losses["loss"].backward()
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
@@ -261,15 +310,20 @@ class Trainer:
         return out
 
     def evaluate(self) -> dict:
-        """Loss components on one ``val_batches`` batch, with fixed draws
-        (a generator seeded ``seed + 1234``) and the training weights."""
+        """Loss components on one ``val_batches`` batch (an array or a
+        dict), with the training weights and fixed draws: the loss's from
+        a generator seeded ``seed + 1234``, the dropout's from torch's
+        default generators seeded so for the call and restored after."""
         if self.val_batches is None:
             raise ValueError("pass val_batches= or val_fraction= to Trainer")
-        batch = np.asarray(next(self.val_batches))[: self.train_batch_size]
-        audio = torch.as_tensor(batch, dtype=torch.float32).to(self.device)
+        tensors = {k: v[: self.train_batch_size]
+                   for k, v in self._tensors(next(self.val_batches)).items()}
+        audio = tensors.pop("audio")
         generator = torch.Generator(self.device).manual_seed(self.seed + 1234)
-        with torch.no_grad():
-            losses = self.ns2(audio, generator=generator)
+        devices = [self.device] if self.device.type == "cuda" else []
+        with torch.no_grad(), torch.random.fork_rng(devices=devices):
+            torch.manual_seed(self.seed + 1234)
+            losses = self.ns2(audio, **tensors, **self._draws(audio, generator))
         return {f"val_{k}": float(v) for k, v in losses.items()}
 
     # ------------------------------------------------------------------ #
@@ -313,6 +367,10 @@ class Trainer:
         if profile_steps is not None:
             raise _not_ported("profile_steps", "item 11")
         batch = next(self.batches)
+        if (self.ns2.conditional and self._holdback is None and isinstance(batch, dict)
+                and "text" in batch and "prompt" in batch):
+            self._holdback = {k: np.asarray(batch[k][:1]) for k in ("text", "text_lens", "prompt")
+                              if k in batch}
         if not self._resume_checked:
             self._resume_checked = True
             latest = self.latest_checkpoint()
@@ -341,16 +399,23 @@ class Trainer:
         print("training complete")
 
     def sample_and_save(self, milestone) -> None:
-        """Write ``sample-{milestone}.wav`` (one unconditional sample of
-        ``sample_length`` frames from the EMA weights, seeded with the
-        milestone) and ``model-{milestone}.ckpt``."""
-        if self.ns2.codec is not None:
+        """Write ``sample-{milestone}.wav`` (one sample of ``sample_length``
+        frames from the EMA weights, seeded with the milestone: a
+        conditional model speaks the text of the (prompt, text) pair held
+        back from the first batch, and writes no sample without one) and
+        ``model-{milestone}.ckpt``."""
+        cond = {}
+        if self.ns2.conditional and self._holdback is not None:
+            cond = {k: torch.as_tensor(v).to(self.device) for k, v in self._holdback.items()}
+            cond["prompt"] = cond["prompt"].to(torch.float32)
+        if self.ns2.codec is not None and (cond or not self.ns2.conditional):
             ema_model = copy.deepcopy(self.ns2)
             with torch.no_grad():
                 for name, p in ema_model.named_parameters():
                     p.copy_(self.ema[name])
             generator = torch.Generator(self.device).manual_seed(int(milestone))
-            audio = sample(ema_model, length=self.sample_length, batch_size=1, generator=generator)
+            audio = sample(ema_model, length=self.sample_length, batch_size=1, generator=generator,
+                           **cond)
             write_wav(self.results_folder / f"sample-{milestone}.wav", audio[0].cpu().numpy(),
                       self.ns2.sample_hz)
         self.save(milestone)

@@ -1,6 +1,7 @@
-"""Mask and length helpers of the conditioning stack and math helpers of
-the samplers (twins of `naturalspeech2_tpu/utils/helpers.py:42-106,
-142-149`), and the recomputing vjp the kernels' backward passes share."""
+"""Mask and length helpers of the conditioning stack, the CFG drop mask
+and the duration average of training, and math helpers of the samplers
+(twins of `naturalspeech2_tpu/utils/helpers.py:42-149`), and the
+recomputing vjp the kernels' backward passes share."""
 
 from __future__ import annotations
 
@@ -59,3 +60,27 @@ def vjp(fn, primals, needs_grad, cotangent: torch.Tensor) -> tuple:
     wanted = [leaf for leaf in leaves if leaf.requires_grad]
     grads = iter(torch.autograd.grad(out, wanted, cotangent.contiguous()) if wanted else ())
     return tuple(next(grads) if leaf.requires_grad else None for leaf in leaves)
+
+
+def prob_mask_like(shape, prob: float, generator=None, device=None) -> torch.Tensor:
+    """Boolean mask, True with probability ``prob`` (uniform draws from
+    ``generator``, or torch's default one, below ``prob``): the
+    classifier-free-guidance drop of training."""
+    return torch.rand(tuple(shape), generator=generator, device=device) < prob
+
+
+def average_over_durations(values: torch.Tensor, durs: torch.Tensor) -> torch.Tensor:
+    """Frame values ``[b, 1, t]`` (pitch) averaged over each phoneme's
+    frames given integer durations ``durs`` ``[b, t_x]``: ``[b, 1, t_x]``.
+    Zero values count as missing; a segment without any (or of duration 0)
+    gives 0. Segments are read off cumulative sums with a leading zero."""
+    ends = torch.cumsum(durs, dim=1).to(torch.int64)
+    starts = torch.nn.functional.pad(ends[:, :-1], (1, 0))
+    t = values.shape[-1]
+    nonzero = torch.where(values != 0.0, 1.0, 0.0).to(values.dtype)
+    values_cums = torch.nn.functional.pad(torch.cumsum(values, dim=-1), (1, 0))
+    cnt_cums = torch.nn.functional.pad(torch.cumsum(nonzero, dim=-1), (1, 0))
+    idx_end, idx_start = ends.clamp(0, t)[:, None, :], starts.clamp(0, t)[:, None, :]
+    sums = values_cums.gather(-1, idx_end) - values_cums.gather(-1, idx_start)
+    cnts = cnt_cums.gather(-1, idx_end) - cnt_cums.gather(-1, idx_start)
+    return torch.where(cnts > 0, sums / cnts.clamp(min=1.0), 0.0)

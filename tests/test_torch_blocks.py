@@ -76,5 +76,24 @@ def test_causal_conv1d(kernel_size, dilation):
 
 @pytest.mark.parametrize("kwargs", [{"gelu_approximate": False}])
 def test_feedforward_options_outside_the_slice_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.FeedForward(16, **kwargs)
+    """Once refused, now ported: the causal-conv block with exact GELU
+    runs unfused (the JAX package fuses only the tanh GELU), and matches
+    the JAX block at a shape whose gate would take K3."""
+    rng = np.random.default_rng(11)
+    x, gamma, beta = normal(rng, 2, 16, 16), 1 + normal(rng, 2, 16, scale=0.1), normal(rng, 2, 16)
+    mod = jb.FeedForward(16, causal_conv=True, use_fused=True, **kwargs)
+    pre = (jnp.asarray(gamma), jnp.asarray(beta))
+    params = mod.init(jax.random.PRNGKey(0), jnp.asarray(x), pre_norm=pre, residual=True)
+    params = jitter(numpy_tree(params["params"]), 4)
+    expected = mod.apply({"params": params}, jnp.asarray(x), pre_norm=pre, residual=True)
+
+    port = tb.FeedForward(16, causal_conv=True, **kwargs)
+    port.load_state_dict({
+        "w1": t(params["Dense_0"]["kernel"]), "b1": t(params["Dense_0"]["bias"]),
+        "wc": t(params["CausalConv1d_0"]["Conv_0"]["kernel"]),
+        "bc": t(params["CausalConv1d_0"]["Conv_0"]["bias"]),
+        "w2": t(params["Dense_1"]["kernel"]), "b2": t(params["Dense_1"]["bias"]),
+    })
+    assert not port.fused
+    with torch.no_grad():
+        assert_close(port(t(x), t(gamma), t(beta)), expected, atol=ATOL)

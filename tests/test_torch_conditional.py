@@ -208,7 +208,7 @@ def test_outside_the_slice_raises(pair):
     ns2_t, inputs = pair[2], pair[3]
     with pytest.raises(NotImplementedError, match="item 16"):
         sample(ns2_t, length=8, prompt=t(inputs["prompt"]), text=["hello world"])
-    with pytest.raises(NotImplementedError, match="conditional training"):
+    with pytest.raises(ValueError, match="prompt= and text="):  # conditional training's inputs
         ns2_t(torch.zeros(B, 640))
     with pytest.raises(ValueError, match="prompt= and text="):
         sample(ns2_t, length=8, text=torch.zeros(B, 3, dtype=torch.long))

@@ -162,11 +162,20 @@ def test_attention_matches_jax(case):
 
 
 def test_plain_attention_dropout_in_training_raises():
+    """Once refused, now ported: in training mode the plain route drops
+    attention probabilities (drawn from torch's default generator, so a
+    seed repeats them); in eval mode it runs without dropout. The keep
+    rate and the JAX keep rule: tests/test_torch_aligner.py."""
     port = Attention(D, 8, 2, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port(torch.zeros(1, 4, D))
+    x = t(normal(np.random.default_rng(12), 1, 4, D))
+    torch.manual_seed(0)
+    a = port(x)
+    torch.manual_seed(0)
+    b = port(x)
     port.eval()
-    assert port(torch.zeros(1, 4, D)).shape == (1, 4, D)
+    c = port(x)
+    assert a.shape == c.shape == (1, 4, D) and torch.isfinite(a).all()
+    assert torch.equal(a, b) and not torch.equal(a, c)
 
 
 @pytest.fixture(scope="module")

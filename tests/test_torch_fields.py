@@ -2,8 +2,9 @@
 package: `NaturalSpeech2(schedule_kwargs=, target_sample_hz=)`,
 `SoundStream(use_pallas_rvq=, target_sample_hz=)`, `Model(remat=)` and
 `Transformer(causal=, final_norm=)` give the JAX module's results with the
-same field; the fields of later slices raise a NotImplementedError that
-names their ROADMAP item, not a TypeError."""
+same field; conditional training's fields are kept as given; the fields
+of later slices raise a NotImplementedError that names their ROADMAP item,
+not a TypeError."""
 
 import jax
 import jax.numpy as jnp
@@ -172,11 +173,33 @@ def test_transformer_causal_final_norm_as_in_jax(use_flash, masked):
     assert_close(out, expected, atol=TRANSFORMER_ATOL)
 
 
-@pytest.mark.parametrize("field", list(_LATER_FIELDS))
+# The JAX module's fields that the port once refused for later slices, with
+# a value other than the default: conditional training's are ported now
+# (pitch, mel, the loss weights and masking) and kept as given, with the JAX
+# module's defaults; the others still raise, naming their ROADMAP item.
+ONCE_LATER = {"tokenizer": None, "calc_pitch_with_pyworld": False, "train_prob_self_cond": None,
+              "mel_hop_length": 200, "audio_to_mel_kwargs": {"f_max": 7000.0},
+              "duration_loss_weight": 0.5, "pitch_loss_weight": 2.0, "aligner_loss_weight": 0.3,
+              "aligner_bin_loss_weight": 0.1, "mask_duration_pitch_loss": False}
+
+
+@pytest.mark.parametrize("field", list(ONCE_LATER))
 def test_later_slice_fields_raise_not_implemented(field):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 1[56]"):
-        NaturalSpeech2(Model(**MODEL_CFG), **{field: 1.0})
     assert field in jns2.NaturalSpeech2.__dataclass_fields__
+    if field in _LATER_FIELDS:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 1[06]"):
+            NaturalSpeech2(Model(**MODEL_CFG), **{field: 1.0})
+        return
+    ns2 = NaturalSpeech2(Model(**MODEL_CFG), **{field: ONCE_LATER[field]})
+    assert getattr(ns2, field) == ONCE_LATER[field]
+    default = jns2.NaturalSpeech2.__dataclass_fields__[field].default
+    assert getattr(NaturalSpeech2(Model(**MODEL_CFG)), field) == (
+        {} if default is None else default)
+
+
+def test_later_fields_name_their_items():
+    assert _LATER_FIELDS == {"tokenizer": "item 16 (text frontend)",
+                             "train_prob_self_cond": "item 10 (self-conditioning)"}
 
 
 def test_unknown_field_is_still_a_type_error():

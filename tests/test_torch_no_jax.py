@@ -32,6 +32,8 @@ def test_import_loads_no_jax():
         "import naturalspeech2_tpu_torch.ops.attention, naturalspeech2_tpu_torch.ops.pitch\n"
         "import naturalspeech2_tpu_torch.models.encoders, naturalspeech2_tpu_torch.models.aligner\n"
         "import naturalspeech2_tpu_torch.ops.wavenet_kernel, naturalspeech2_tpu_torch.ops.ff_block_kernel\n"
+        "import naturalspeech2_tpu_torch.ops.mel, naturalspeech2_tpu_torch.ops.mas\n"
+        "import naturalspeech2_tpu_torch.ops.ctc, naturalspeech2_tpu_torch.utils.helpers\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'naturalspeech2_tpu'))\n"
         "print(json.dumps(bad))\n"

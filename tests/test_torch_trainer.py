@@ -244,9 +244,15 @@ def test_options_outside_the_slice_raise(params, tmp_path, kwargs):
 
 
 def test_conditional_batches_and_profiling_raise(params, tmp_path):
-    trainer = Trainer(_port(params), batches=iter([np.zeros((2, 640), np.float32)]),
-                      train_batch_size=2, results_folder=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.train_step({"audio": np.zeros((2, 640), np.float32)})
+    """A dict batch holding only "audio" trains as the bare array does
+    (conditional dict batches: tests/test_torch_cond_train.py); profiling
+    still raises."""
+    audio = np.tanh(normal(np.random.default_rng(5), 2, 640))
+    metrics = []
+    for batch in (audio, {"audio": audio}):
+        trainer = Trainer(_port(params), batches=iter([]), train_batch_size=2,
+                          results_folder=str(tmp_path))
+        metrics.append(trainer.train_step(batch))
+    assert metrics[0] == metrics[1]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer.train(profile_steps=(0, 1))
