@@ -92,14 +92,40 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      injected times, noise and drop masks, card against CPU: mel and pitch
      first (frames picking another lag counted), then the MAS durations
      (rows that differ counted), then the losses and every gradient with
-     the card's mel and pitch passed to both.
+     the card's mel and pitch passed to both;
+ 20. the serving path's kernels against their plain versions at one
+     request's shapes: K1, K2 and K3 on the batch-doubled [2, 512, 128],
+     K2b at x [2, 512, 128], ctx [2, 32, 128], K4 at [2, 8, 32 | 134, 64]
+     and [1, 8, 102, 64], K6 at m 102; then the serving slice (the JAX
+     bench's leg `measure_serving`,
+     bench.py:383-431): README config 2 with Tokenizer() and seeded random
+     weights, saved as a port checkpoint and loaded by
+     `cli.build_engine` with the default buckets (text 32, 64, 128;
+     frames 256, 512, 1024), 32,768-sample prompts, 100 guided steps at
+     cond_scale 2.5; the (64, 512) bucket warmed, then 50 sequential
+     `engine.tts` of the bench's sentence at 6.8 s (p50 and p95 latency,
+     the real-time factor over all of them, the exact launch counts of
+     each request), one request whose length the duration predictor
+     picks, one untimed and ten timed rounds of four concurrent requests
+     through the micro-batcher, each round sharing exactly one device
+     call (round wall p50 / p95, audio-seconds per second over the ten),
+     and `TTSServer` on 127.0.0.1 over urllib: /healthz, /metrics, ten
+     POST /tts with a base64 WAV prompt (p50 / p95), a streamed reply, a
+     text past the largest bucket (long-formed) and a non-WAV prompt
+     (400); every waveform finite and of its length;
+ 21. the same engine at full width on the card against the CPU, 2 steps,
+     200 frames, the same injected noise: equal token ids, the waveform
+     within PATH_TOL, the duration predictor's frames per token within
+     PATH_TOL and its total frames equal (a token whose truncation flips
+     must lie within DURATION_TIE of an integer on the CPU).
 K2, K2b and K3 are held to BLOCK_TOL (split TF32 on the tensor cores
 against f32 plain versions) at every shape they run: b4 x n1024 x dim 128,
 the conditional [8, 512, 128], the long-form n4500 and n9000 and the
 scaled b16 x n1024 x dim 512; K1 and K1b to WAVENET_TOL at every shape
 they run (b4 x n1024, n4500, n9000, n6733, dim 512 pinned, dim 16).
 The line before the last is the kernels' JSON summary (each kernel's
-time, plain time, bound and launches); the last line is
+time, plain time, bound and launches, by path: "serve" counts phase 20's
+50 sequential requests); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -108,8 +134,9 @@ and prints no result.
 instead profiles 10 flagship denoise steps, a 10-step conditional sample
 of README config 2, 10 guided steps and their 60 K2b calls alone, one RVQ
 call, one long-form denoise step at n4500 and at n9000, one scaled
-denoise step, one training step and one conditional training step (with
-its loops' host times) with torch.profiler and prints
+denoise step, one training step, one conditional training step (with
+its loops' host times) and one served request with torch.profiler and
+prints
 the device time by kernel, and the kernels that
 F.scaled_dot_product_attention (K4's and K5's yardstick) runs.
 """
@@ -275,6 +302,27 @@ PER_COND_TRAIN_STEP = {"wavenet_body": 1, "wavenet_body_lanes": 0, "attn_block":
 # cuFFT against pocketfft, ~1e-4 dB), pitch in Hz on frames picking the same
 # lag (a frame may pick another where two lags nearly tie: at most 1 in 50)
 MEL_TOL_DB, PITCH_TOL_HZ, PITCH_TIE_SHARE = 1e-2, 1e-2, 0.02
+# Serving, the JAX bench's leg `measure_serving` (bench.py:383-431): README
+# config 2 with Tokenizer() (num_phoneme_tokens = its vocab_size) behind
+# `cli.build_engine` with the JAX engine's default buckets, 100 guided DDIM
+# steps at cond_scale 2.5, the bench's sentence (54 tokens: the 64 text
+# bucket) at 6.8 s (510 frames: the 512 frame bucket). The timed window:
+# SERVE_REQUESTS sequential requests, SERVE_ROUNDS rounds of SERVE_BATCH
+# concurrent ones (after one untimed round), SERVE_POSTS POSTs over HTTP
+SERVE_MODEL = dict(dim=DIM, depth=DEPTH, dim_prompt=DIM_PROMPT, cond_drop_prob=0.25,
+                   condition_on_prompt=True)
+SERVE_COND_SCALE, SERVE_SECONDS, SERVE_BUCKET = 2.5, 6.8, (64, 512)
+SERVE_REQUESTS, SERVE_BATCH, SERVE_ROUNDS, SERVE_POSTS = 50, 4, 10, 10
+SERVE_SENTENCE = "speech synthesis on tensor processing units runs fast."
+SERVE_STREAM_TEXT = "Hello there, this is a streamed reply. It comes in two sentences."
+# 190 tokens, past the largest text bucket (128): long-formed by sentence
+SERVE_LONG_TEXT = ("The quick brown fox jumps over the lazy dog near the river bank. It was a "
+                   "bright cold day in April, and the clocks were striking thirteen. Speech "
+                   "synthesis turns written words into sound.")
+# Phase 21, card against CPU: 200 frames (the 256 bucket, trimmed), 2 steps;
+# a token's truncated duration may flip where the CPU's lies this close to
+# an integer
+SERVE_CHECK_FRAMES, SERVE_CHECK_STEPS, DURATION_TIE = 200, 2, 1e-3
 # H100 SXM peaks at 700 W (NVIDIA's data sheet): dense TF32 on the tensor
 # cores, and HBM3. Split TF32, three TF32 products per f32 product, is the
 # fastest f32-accurate way the card has to run a matrix product.
@@ -448,13 +496,20 @@ def flagship(seed: int, conditional: bool = False, codec: bool = True, **model_k
     model_kw = {"dim": DIM, "depth": DEPTH, "heads": HEADS, "dim_head": DIM_HEAD,
                 **(cond if conditional else {}), **model_kw}
     torch.manual_seed(seed)
+    ns2 = ns2pkg.NaturalSpeech2(ns2pkg.Model(**model_kw), ns2pkg.SoundStream() if codec else None,
+                                timesteps=1000)
+    return jitter_params(ns2, seed + 1)
+
+
+def jitter_params(module, seed: int):
+    """Seeded noise (std 0.02) on every parameter of ``module``."""
+    import torch
+
     with torch.no_grad():
-        ns2 = ns2pkg.NaturalSpeech2(ns2pkg.Model(**model_kw),
-                                    ns2pkg.SoundStream() if codec else None, timesteps=1000)
-        jitter = torch.Generator().manual_seed(seed + 1)
-        for p in ns2.parameters():
+        jitter = torch.Generator().manual_seed(seed)
+        for p in module.parameters():
             p.add_(torch.randn(p.shape, generator=jitter) * 0.02)
-    return ns2
+    return module
 
 
 def nbytes(*tensors) -> int:
@@ -1710,6 +1765,315 @@ def phase19_cond_loss_card_vs_cpu(ns2_cpu) -> None:
     del card
 
 
+def _serving_checkpoint(work: Path) -> tuple[str, str]:
+    """README config 2 with Tokenizer() and seeded random weights, built by
+    the CLI from a config file and saved as a port checkpoint: (config
+    path, checkpoint path)."""
+    import torch
+
+    from naturalspeech2_tpu_torch import cli
+    from naturalspeech2_tpu_torch.utils.tokenizer import Tokenizer
+
+    config = work / "serve.json"
+    config.write_text(json.dumps({"model": SERVE_MODEL, "ns2": {
+        "timesteps": 1000, "num_phoneme_tokens": Tokenizer().vocab_size}}))
+    torch.manual_seed(SEED + 100)
+    ns2 = jitter_params(cli.build_ns2(cli.load_config(str(config))), SEED + 101)
+    checkpoint = work / "serve.ckpt"
+    torch.save({"params": ns2.state_dict()}, checkpoint)
+    log("20", f"README config 2 with Tokenizer(): {sum(p.numel() for p in ns2.parameters()):,} "
+              f"parameters, saved to a port checkpoint")
+    return str(config), str(checkpoint)
+
+
+def _serving_prompt():
+    import numpy as np
+
+    return np.random.default_rng(SEED + 102).uniform(-1, 1, PROMPT_SAMPLES).astype(np.float32)
+
+
+def _check_wave(label: str, wav, samples: int) -> None:
+    import numpy as np
+
+    if wav.shape != (samples,) or not np.isfinite(wav).all():
+        raise AssertionError(f"{label}: waveform {wav.shape}, expected ({samples},) finite")
+
+
+def _percentiles(walls: list) -> str:
+    import numpy as np
+
+    p50, p95 = np.percentile(np.asarray(walls) * 1e3, [50, 95])
+    return (f"p50 {p50:.1f} ms, p95 {p95:.1f} ms, min {min(walls) * 1e3:.1f}, "
+            f"max {max(walls) * 1e3:.1f}")
+
+
+def _concurrent_tts(engine, prompt) -> tuple[list, float]:
+    """SERVE_BATCH same-bucket requests from as many threads at once:
+    (waveforms, wall seconds)."""
+    import threading
+
+    results, errors = [None] * SERVE_BATCH, []
+
+    def worker(i):
+        try:
+            results[i] = engine.tts(SERVE_SENTENCE, prompt, seconds=SERVE_SECONDS, seed=10 + i)[0]
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(SERVE_BATCH)]
+    start = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - start
+    if errors:
+        raise errors[0]
+    return results, wall
+
+
+def _http(base: str, path: str, payload=None):
+    """(status, content type, body) of a GET, or of a POST of ``payload``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def phase20_serving_kernels(summary: list) -> None:
+    """Each kernel of the serving path against its plain version at the
+    shapes one request gives it (timings into the entries of ``summary``):
+    K1, K2 and K3 on the batch-doubled [2, 512, 128]; K2b at x [2, 512,
+    128], ctx [2, 32, 128]; K4 at the resampler's [2, 8, 32 | 134, 64] and
+    the prompt encoder's [1, 8, 102, 64]; K6 on the prompt's m 102."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 104)
+    entries = {e["name"]: e for e in summary}
+
+    def add(name: str, key: str, timing: dict) -> None:
+        entries[name]["by_shape"][key + " (serve)"] = timing
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], timing["max_abs_err"])
+
+    b, n, m, d = 2, SERVE_BUCKET[1], NUM_LATENTS, DIM
+    shape = f"[{b},{n},{d}]"
+    for name, _, _, kernel, plain, work, residual in kernel_cases(gen, b, n, d):
+        add(name, shape, timed_case("20", f"{name} {shape}", kernel, plain, work,
+                                    residual=residual))
+    add("cross_attn_block", f"x {shape}, ctx [{b},{m},{d}]", cross_case("20", gen, b, n, m, d, d))
+    p = PROMPT_SAMPLES // 320
+    for flash_shape in ((b, HEADS, m, m + p), (1, HEADS, p, p)):
+        for name, (key, err, timing) in flash_case("20", gen, *flash_shape,
+                                                   backward=False).items():
+            add(name, key, {"max_abs_err": err, **timing})
+    err, ms, plain_ms, work = _rvq_case(gen, m=p, phase="20")
+    add("rvq", f"m {p}", {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work})
+
+
+def phase20_serving(work: Path):
+    """The serving slice; returns (its launch counts, the engine, the
+    config and checkpoint paths)."""
+    import base64
+    import io
+    import threading
+    import wave
+
+    import numpy as np
+
+    from naturalspeech2_tpu_torch import cli, ops
+    from naturalspeech2_tpu_torch.serve import TTSServer, _wav_bytes
+
+    config, checkpoint = _serving_checkpoint(work)
+    start = time.perf_counter()
+    engine = cli.build_engine(config, checkpoint, timesteps=STEPS, cond_scale=SERVE_COND_SCALE,
+                              device="cuda", prompt_samples=PROMPT_SAMPLES)
+    log("20", f"cli.build_engine: {time.perf_counter() - start:.2f} s (config, checkpoint, "
+              f"to the card); buckets text {tuple(engine.text_buckets)} x frames "
+              f"{tuple(engine.frame_buckets)}, prompt {engine.prompt_samples} samples, "
+              f"{engine.timesteps} steps, cond_scale {engine.cond_scale:g}")
+    prompt = _serving_prompt()
+    req = engine._prepare(SERVE_SENTENCE, prompt, SERVE_SECONDS, 0)
+    if (req.t_bucket, req.f_bucket) != SERVE_BUCKET:
+        raise AssertionError(f"the bench request lands in {(req.t_bucket, req.f_bucket)}")
+    start = time.perf_counter()
+    warm = engine.warmup([SERVE_BUCKET])
+    log("20", f"warmup {warm}: {time.perf_counter() - start:.2f} s; the sentence is "
+              f"{req.n_tokens} tokens, {SERVE_SECONDS:g} s is {req.frames} frames")
+
+    # 1. sequential single requests: latency, real-time factor, launches
+    # (each request's counts are checked; the first is printed)
+    samples = req.frames * 320
+    requests_before = engine.stats()["requests"]
+    ops.reset_launch_counts()
+    walls, before = [], ops.launch_counts()
+    for i in range(SERVE_REQUESTS):
+        start = time.perf_counter()
+        wav, sr = engine.tts(SERVE_SENTENCE, prompt, seconds=SERVE_SECONDS, seed=i)
+        walls.append(time.perf_counter() - start)
+        _check_wave(f"request {i}", wav, samples)
+        after = ops.launch_counts()
+        counts = {k: after[k] - before[k] for k in after}
+        if i == 0 or counts != PER_COND_SAMPLE:
+            check_counts("20", f"request {i} (each of {SERVE_REQUESTS})", counts, PER_COND_SAMPLE)
+        before = after
+    serve_counts = ops.launch_counts()
+    audio_s = SERVE_REQUESTS * samples / sr
+    log("20", f"{SERVE_REQUESTS} sequential engine.tts at {SERVE_BUCKET}: latency "
+              f"{_percentiles(walls)}; real-time factor {audio_s / sum(walls):.2f} audio-s "
+              f"per wall-s ({audio_s:.2f} s of audio in {sum(walls):.3f} s)")
+
+    # 2. no seconds: the duration predictor picks the length
+    predicted = engine._prepare(SERVE_SENTENCE, prompt, None, 7)
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    wav, _ = engine.tts(SERVE_SENTENCE, prompt, seed=7)
+    wall = time.perf_counter() - start
+    _check_wave("predicted-length request", wav, predicted.frames * 320)
+    check_counts("20", f"predicted-length request ({predicted.frames} frames, bucket "
+                       f"{predicted.f_bucket}; the duration call adds the prompt encoder's K4 and "
+                       "the prompt's K6)", ops.launch_counts(),
+                 {**PER_COND_SAMPLE, "flash_forward": PER_COND_SAMPLE["flash_forward"] + PROMPT_DEPTH,
+                  "rvq": PER_COND_SAMPLE["rvq"] + 1})
+    log("20", f"predicted-length request: {predicted.frames} frames, wall {wall * 1e3:.1f} ms "
+              "(first call of its bucket)")
+
+    # 3. the micro-batcher: each round's concurrent same-bucket requests
+    # share one call (one untimed round, then SERVE_ROUNDS timed)
+    engine.batch_window_ms = 200.0
+    engine.start_batcher()
+    try:
+        rounds = []
+        for r in range(SERVE_ROUNDS + 1):
+            calls = engine._device_calls
+            ops.reset_launch_counts()
+            waves, wall = _concurrent_tts(engine, prompt)
+            if engine._device_calls - calls != 1:
+                raise AssertionError(f"round {r}: {engine._device_calls - calls} device calls "
+                                     f"for {SERVE_BATCH} concurrent requests")
+            for i, w in enumerate(waves):
+                _check_wave(f"batched request {i}", w, samples)
+            counts = ops.launch_counts()
+            if r == 0 or counts != PER_COND_SAMPLE:
+                check_counts("20", f"batched round {r} (one sample call at b{SERVE_BATCH})",
+                             counts, PER_COND_SAMPLE)
+            rounds.append(wall)
+        rounds = rounds[1:]
+        batch_audio_s = SERVE_ROUNDS * SERVE_BATCH * samples / sr
+        log("20", f"{SERVE_ROUNDS} rounds of {SERVE_BATCH} concurrent requests, one device call "
+                  f"each: round wall {_percentiles(rounds)}; {batch_audio_s / sum(rounds):.2f} "
+                  f"audio-s per wall-s ({batch_audio_s:.2f} s of audio in {sum(rounds):.3f} s)")
+        engine.batch_window_ms = 8.0
+
+        # 4. the HTTP server
+        server = TTSServer(engine, ("127.0.0.1", 0))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = f"http://127.0.0.1:{server.port}"
+            status, _, body = _http(base, "/healthz")
+            health = json.loads(body)
+            if status != 200 or health["status"] != "ok" or not health["batching"]:
+                raise AssertionError(f"/healthz {status} {health}")
+            status, _, body = _http(base, "/metrics")
+            metrics = json.loads(body)
+            served = requests_before + SERVE_REQUESTS + 1 + (SERVE_ROUNDS + 1) * SERVE_BATCH
+            if status != 200 or metrics["requests"] != served:
+                raise AssertionError(f"/metrics {status} {metrics}")
+            log("20", f"/healthz {health}; /metrics {metrics}")
+            prompt_b64 = base64.b64encode(_wav_bytes(prompt, 24000)).decode()
+            walls = []
+            for _ in range(SERVE_POSTS):
+                start = time.perf_counter()
+                status, kind, body = _http(base, "/tts", {"text": SERVE_SENTENCE,
+                                                          "seconds": SERVE_SECONDS,
+                                                          "prompt_wav_base64": prompt_b64})
+                walls.append(time.perf_counter() - start)
+                with wave.open(io.BytesIO(body)) as w:
+                    if (status, kind, w.getframerate(), w.getnframes()) != (
+                            200, "audio/wav", 24000, samples):
+                        raise AssertionError(f"POST /tts: {status} {kind} {w.getnframes()} "
+                                             "frames")
+            log("20", f"POST /tts x {SERVE_POSTS}: 200 audio/wav, {samples} samples at 24000 Hz; "
+                      f"first {walls[0] * 1e3:.1f} ms; {_percentiles(walls)}")
+            status, kind, body = _http(base, "/tts", {"text": SERVE_STREAM_TEXT, "stream": True,
+                                                      "prompt_wav_base64": prompt_b64})
+            pcm = np.frombuffer(body[44:], dtype="<i2")
+            if status != 200 or body[:4] != b"RIFF" or body[8:12] != b"WAVE" or pcm.size == 0:
+                raise AssertionError(f"streamed POST /tts: {status} {body[:12]!r}")
+            log("20", f"streamed POST /tts: 200, RIFF/WAVE, {pcm.size} samples")
+            chunks = engine._split_text(SERVE_LONG_TEXT)
+            status, kind, body = _http(base, "/tts", {"text": SERVE_LONG_TEXT,
+                                                      "prompt_wav_base64": prompt_b64})
+            with wave.open(io.BytesIO(body)) as w:
+                if status != 200 or len(chunks) < 2 or w.getnframes() == 0:
+                    raise AssertionError(f"long POST /tts: {status}, {len(chunks)} chunks")
+                log("20", f"long POST /tts ({len(chunks)} chunks past the "
+                          f"{max(engine.text_buckets)}-token bucket): 200, {w.getnframes()} "
+                          "samples")
+            status, _, body = _http(base, "/tts", {"text": SERVE_SENTENCE, "prompt_wav_base64":
+                                                   base64.b64encode(b"fLaC" + bytes(60)).decode()})
+            if status != 400:
+                raise AssertionError(f"non-WAV prompt: {status}, expected 400")
+            log("20", f"non-WAV prompt: 400 {json.loads(body)}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+    finally:
+        engine.stop_batcher()
+    log("20", f"engine stats {engine.stats()}")
+    return serve_counts, engine, config, checkpoint
+
+
+def phase21_serving_card_vs_cpu(engine, config: str, checkpoint: str) -> None:
+    """The same engine at full width on the card and on the CPU, with the
+    same injected noise: token ids, waveform, the duration predictor."""
+    import torch
+
+    from naturalspeech2_tpu_torch import cli
+
+    cpu = cli.build_engine(config, checkpoint, timesteps=SERVE_CHECK_STEPS,
+                           cond_scale=SERVE_COND_SCALE, device="cpu",
+                           prompt_samples=PROMPT_SAMPLES)
+    engine.timesteps = SERVE_CHECK_STEPS
+    seconds = SERVE_CHECK_FRAMES * 320 / 24000
+    card_req, cpu_req = (e._prepare(SERVE_SENTENCE, _serving_prompt(), seconds, 0)
+                         for e in (engine, cpu))
+    if not (card_req.ids == cpu_req.ids).all() or card_req.frames != cpu_req.frames:
+        raise AssertionError("token ids or frames differ card vs CPU")
+    noise = torch.randn(1, card_req.f_bucket, DIM,
+                        generator=torch.Generator().manual_seed(SEED + 103))
+    wave_card = engine._run_batch([card_req], noise=noise.cuda())[0]
+    wave_cpu = cpu._run_batch([cpu_req], noise=noise)[0]
+    compare("21", f"served waveform ({card_req.frames} of {card_req.f_bucket} frames, "
+                  f"{SERVE_CHECK_STEPS} guided steps), card vs CPU",
+            torch.from_numpy(wave_card), torch.from_numpy(wave_cpu), PATH_TOL)
+
+    ids, n = card_req.ids, card_req.n_tokens
+    d_card, d_cpu = (e._durations(card_req.prompt, ids)[0] for e in (engine, cpu))
+    compare("21", f"predicted durations [{ids.size}] (frames), card vs CPU", d_card, d_cpu,
+            PATH_TOL)
+    frames_card, frames_cpu = (e._predicted_frames(card_req.prompt, ids, n) for e in (engine, cpu))
+    log("21", f"duration predictor: {frames_card} frames on the card, {frames_cpu} on the CPU "
+              f"over {n} tokens")
+    if frames_card != frames_cpu:
+        flipped = [i for i in range(n) if int(d_card[i]) != int(d_cpu[i])]
+        for i in flipped:
+            v = d_cpu[i].item()
+            log("21", f"token {i}: card {d_card[i].item():.6f}, CPU {v:.6f} frames")
+            if abs(v - round(v)) > DURATION_TIE:
+                raise AssertionError(f"token {i}'s duration truncates differently card vs CPU, "
+                                     f"{abs(v - round(v)):.2e} from an integer")
+    engine.timesteps = STEPS
+
+
 def _profile(label: str, fn) -> None:
     """torch.profiler around ``fn()`` (after one warm-up call): wall time,
     the device's busy share and the device time by kernel."""
@@ -1765,7 +2129,8 @@ def profile_runs() -> int:
     over one scaled denoise step at b16 x n1024 x dim 512, over one
     training loss and backward at b16 x 2 s and over one conditional one
     (README config 2, phase 18's batch), with the host time of its MAS, CTC
-    and pitch loops; then the kernels SDPA runs."""
+    and pitch loops, and over one served request (phase 20's engine and
+    sentence); then the kernels SDPA runs."""
     import torch
 
     import naturalspeech2_tpu_torch as ns2pkg
@@ -1861,6 +2226,20 @@ def profile_runs() -> int:
     _profile(f"1 conditional training loss and backward at b{CT_BATCH} x "
              f"{CT_SAMPLES / 24000:g} s", cond_train_step)
     loop_times("profile", audio)
+    del ns2, audio, batch
+    torch.cuda.empty_cache()
+
+    from naturalspeech2_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as work:
+        engine = cli.build_engine(*_serving_checkpoint(Path(work)), timesteps=STEPS,
+                                  cond_scale=SERVE_COND_SCALE, device="cuda",
+                                  prompt_samples=PROMPT_SAMPLES)
+    engine.warmup([SERVE_BUCKET])
+    prompt = _serving_prompt()
+    _profile(f"1 served request, bucket {SERVE_BUCKET}, {STEPS} guided steps (engine.tts)",
+             lambda: engine.tts(SERVE_SENTENCE, prompt, seconds=SERVE_SECONDS))
+    del engine
     sdpa_kernel_names()
     return 0
 
@@ -1927,6 +2306,12 @@ def main() -> int:
         cond_train_counts = phase18_cond_train(Path(work))
     torch.cuda.empty_cache()
     phase19_cond_loss_card_vs_cpu(flagship(SEED + 90, conditional=True, scan_layers=True))
+    torch.cuda.empty_cache()
+    phase20_serving_kernels(summary)
+    with tempfile.TemporaryDirectory() as work:
+        serve_counts, engine, config, checkpoint = phase20_serving(Path(work))
+        phase21_serving_card_vs_cpu(engine, config, checkpoint)
+    del engine
 
     for entry in summary:
         name = entry["name"]
@@ -1934,7 +2319,7 @@ def main() -> int:
                    "conditional_sample": cond_counts[name],
                    **{f"longform_{n}": c[name] for n, c in long_counts.items()},
                    "scaled_sample": scaled_counts[name],
-                   "conditional_train": cond_train_counts[name]}
+                   "conditional_train": cond_train_counts[name], "serve": serve_counts[name]}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -6,12 +6,15 @@ to ``max_length`` → trim to a multiple of the hop → fixed-shape float32
 numpy batches. The crop and shuffle draws use the same
 ``random.Random(seed)`` streams as the JAX package, so both give the same
 batches for the same folder and seed. Decoding reads WAV (scipy, else the
-``wave`` module); the JAX package's native decoder for other containers
-is not ported (ROADMAP item 16).
+``wave`` module), from a file or from bytes (`decode_audio_bytes`); the
+JAX package's native decoder for other containers is not ported (ROADMAP
+item 16).
 """
 
 from __future__ import annotations
 
+import io
+import os
 import queue
 import random
 import threading
@@ -27,41 +30,46 @@ import numpy as np
 AUDIO_EXTS = (".wav", ".flac", ".mp3", ".ogg")
 
 
-def write_wav(path, audio: np.ndarray, sample_rate: int) -> None:
-    """Write mono float32 [-1, 1] audio as 16-bit WAV."""
-    audio = np.clip(np.asarray(audio, dtype=np.float32), -1.0, 1.0)
-    pcm = (audio * 32767.0).astype(np.int16)
-    with wave.open(str(path), "wb") as w:
+def pcm16(audio: np.ndarray) -> bytes:
+    """Float audio in [-1, 1] → little-endian 16-bit PCM, clipped, ×32767."""
+    return (np.clip(np.asarray(audio, dtype=np.float32), -1.0, 1.0) * 32767.0).astype("<i2").tobytes()
+
+
+def write_wav(target, audio: np.ndarray, sample_rate: int) -> None:
+    """Write mono float32 [-1, 1] audio as 16-bit WAV; ``target`` is a path
+    or a binary file."""
+    if isinstance(target, (str, os.PathLike)):
+        target = os.fspath(target)
+    with wave.open(target, "wb") as w:
         w.setnchannels(1)
         w.setsampwidth(2)
         w.setframerate(sample_rate)
-        w.writeframes(pcm.tobytes())
+        w.writeframes(pcm16(audio))
 
 
-def _read_wav(path: str):
+def _read_wav(source):
+    """A WAV file's samples and rate; ``source`` is a path or a binary file."""
     try:
         from scipy.io import wavfile
     except ImportError:
         wavfile = None
     if wavfile is not None:
-        sr, data = wavfile.read(path)
+        sr, data = wavfile.read(source)
         return np.asarray(data), sr
-    with wave.open(path, "rb") as w:
+    with wave.open(source, "rb") as w:
         sr = w.getframerate()
         raw = w.readframes(w.getnframes())
         dtype = {1: np.uint8, 2: np.int16, 4: np.int32}[w.getsampwidth()]
         return np.frombuffer(raw, dtype=dtype).reshape(-1, w.getnchannels()), sr
 
 
-def load_audio(path) -> tuple[np.ndarray, int]:
-    """A WAV file → (float32 mono in [-1, 1], sample rate)."""
-    path = str(path)
-    if not path.lower().endswith(".wav"):
-        raise ValueError(f"cannot decode {path}: the port reads WAV only (ROADMAP item 16)")
+def _decode_wav(source, name: str) -> tuple[np.ndarray, int]:
+    """WAV → (float32 mono in [-1, 1], sample rate); PCM16 is scaled by
+    32767, as the JAX package's fallback reader scales it."""
     try:
-        data, sr = _read_wav(path)
+        data, sr = _read_wav(source)
     except (ValueError, OSError, EOFError, wave.Error, KeyError) as e:
-        raise ValueError(f"cannot decode {path}: {e}") from e
+        raise ValueError(f"cannot decode {name}: {e}") from e
     if data.dtype == np.uint8:
         data = (data.astype(np.float32) - 128.0) / 128.0
     elif np.issubdtype(data.dtype, np.integer):
@@ -71,6 +79,26 @@ def load_audio(path) -> tuple[np.ndarray, int]:
     if data.ndim == 2:
         data = data.mean(axis=-1)
     return data, sr
+
+
+_NO_NATIVE = "the port reads WAV only; FLAC/MP3/Ogg need the native decoder (ROADMAP item 16)"
+
+
+def load_audio(path) -> tuple[np.ndarray, int]:
+    """A WAV file → (float32 mono in [-1, 1], sample rate)."""
+    path = str(path)
+    if not path.lower().endswith(".wav"):
+        raise ValueError(f"cannot decode {path}: {_NO_NATIVE}")
+    return _decode_wav(path, path)
+
+
+def decode_audio_bytes(raw: bytes, suffix: str = ".wav") -> tuple[np.ndarray, int]:
+    """An in-memory audio blob (e.g. an HTTP upload) → (float32 mono, sr).
+    ``suffix`` names the container; anything but a RIFF/WAVE blob raises
+    ValueError."""
+    if not suffix.lower().endswith(".wav") or raw[:4] != b"RIFF" or raw[8:12] != b"WAVE":
+        raise ValueError(f"cannot decode the {suffix} upload: {_NO_NATIVE}")
+    return _decode_wav(io.BytesIO(raw), "the upload")
 
 
 def resample(audio: np.ndarray, sr: int, target_sr: int) -> np.ndarray:

@@ -44,7 +44,6 @@ from naturalspeech2_tpu_torch.utils.helpers import (
 # Fields of the JAX module that belong to later slices, and their ROADMAP
 # Queue 1 items: passing any of them raises NotImplementedError.
 _LATER_FIELDS = {
-    "tokenizer": "item 16 (text frontend)",
     "train_prob_self_cond": "item 10 (self-conditioning)",
 }
 
@@ -78,8 +77,9 @@ class NaturalSpeech2(nn.Module):
     the duration and pitch ones masked to real phonemes with
     ``mask_duration_pitch_loss``. ``schedule_kwargs`` go to the γ(t)
     schedule; ``target_sample_hz`` is the audio rate when there is no
-    codec. The JAX module's fields of later slices (tokenizer,
-    self-conditioning) raise NotImplementedError naming their ROADMAP
+    codec. ``tokenizer`` (host-side, `utils.tokenizer.Tokenizer`) lets
+    `sample` take raw text. The JAX module's field of a later slice
+    (self-conditioning) raises NotImplementedError naming its ROADMAP
     item.
     """
 
@@ -120,6 +120,7 @@ class NaturalSpeech2(nn.Module):
         aligner_loss_weight: float = 1.0,
         aligner_bin_loss_weight: float = 0.0,
         mask_duration_pitch_loss: bool = True,
+        tokenizer=None,
         **later_fields,
     ):
         super().__init__()
@@ -148,6 +149,7 @@ class NaturalSpeech2(nn.Module):
         get_schedule(noise_schedule)  # validates the name
         self.model = model
         self.codec = codec
+        self.tokenizer = tokenizer
         self.timesteps = timesteps
         self.noise_schedule = noise_schedule
         self.schedule_kwargs = dict(schedule_kwargs or {})
@@ -504,22 +506,22 @@ def sample(
     ``timesteps`` overrides the configured step count.
 
     A conditional ``ns2`` takes the speech ``prompt`` (raw audio [b, T] or
-    latents) and phoneme ids ``text`` [b, t_x]; the batch is the prompt's.
+    latents) and phoneme ids ``text`` [b, t_x], or a list of strings that
+    ``ns2.tokenizer`` turns into ids on the host; the batch is the prompt's.
     ``cond_scale`` ≠ 1 guides every step with one batch-doubled forward,
     or only the steps whose time lies in ``cfg_interval=(lo, hi)``;
     ``cfg_rescale``, ``pitch`` and ``duration`` are as in
     `forward_with_cond_scale` and `NaturalSpeech2.conditioning_for_sample`.
     """
+    device = next(ns2.parameters()).device
     if isinstance(text, (list, tuple)) and text and isinstance(text[0], str):
-        raise NotImplementedError(
-            "text as strings needs the tokenizer, which is not ported yet (ROADMAP Queue 1, "
-            "item 16); pass phoneme ids"
-        )
+        assert ns2.tokenizer is not None, "pass tokenizer= to NaturalSpeech2"
+        ids = ns2.tokenizer.texts_to_tensor_ids(list(text))
+        text = torch.from_numpy(ids).to(device=device, dtype=torch.int64)
     if dtype not in (None, torch.float32):
         raise NotImplementedError(
             f"sampling in {dtype} is not ported yet (ROADMAP Queue 1, option list)"
         )
-    device = next(ns2.parameters()).device
     prompt_enc = cond = None
     with _eval_mode(ns2):
         if ns2.conditional:

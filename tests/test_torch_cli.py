@@ -1,0 +1,279 @@
+"""The port's CLI (`python -m naturalspeech2_tpu_torch`, `ns2-torch`) on
+the CPU with tiny configs: `train` → checkpoint → `sample`, conditional
+`sample` from text and a WAV prompt, `build_engine` from a checkpoint,
+`serve --demo` over HTTP, `info` against the JAX package's `info`, and the
+named refusals of what is not ported."""
+
+import base64
+import json
+import os
+import re
+import subprocess
+import sys
+import urllib.request
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from naturalspeech2_tpu import cli as jcli
+from naturalspeech2_tpu_torch import cli
+from naturalspeech2_tpu_torch.data import load_audio, write_wav
+from naturalspeech2_tpu_torch.serve import _wav_bytes
+from naturalspeech2_tpu_torch.trainer import Trainer
+
+ROOT = Path(__file__).resolve().parents[1]
+CPU = ["--device", "cpu"]
+
+TINY = {
+    "codec": {"type": "soundstream", "codebook_dim": 16, "channels": 4, "num_quantizers": 2,
+              "codebook_size": 16, "use_pallas_rvq": False},
+    "model": {"dim": 16, "depth": 1, "heads": 2, "dim_head": 8, "wavenet_layers": 2,
+              "wavenet_stacks": 2, "use_flash_attn": False},
+    "ns2": {"timesteps": 4},
+    "trainer": {"sample_length": 4},
+}
+# tests/test_cli.py's conditional config
+CONDITIONAL = {
+    "codec": TINY["codec"],
+    "model": {**TINY["model"], "wavenet_layers": 1, "wavenet_stacks": 1,
+              "condition_on_prompt": True, "dim_prompt": 24, "num_latents_m": 4,
+              "resampler_depth": 1},
+    "ns2": {
+        "timesteps": 4, "duration_pitch_dim": 24, "aligner_dim_in": 8, "aligner_dim_hidden": 24,
+        "aligner_attn_channels": 8, "pitch_emb_dim": 32, "pitch_emb_pp_hidden_dim": 24,
+        "phoneme_enc_kwargs": dict(dim=24, dim_hidden=24, kernel_size=3, depth=1, dim_head=8,
+                                   heads=2, use_flash=False),
+        "prompt_enc_kwargs": dict(dims=(24, 24), depth=1, heads=2, dim_head=8, kernel_size=3,
+                                  use_flash_attn=False),
+        "duration_pitch_kwargs": dict(dim_encoded_prompts=24, depth=1, kernel_size=3, heads=2,
+                                      dim_head=8, dim_hidden=24, use_flash_attn=False,
+                                      num_convolutions_per_block=1,
+                                      num_convs_per_resnet_block=1),
+    },
+    "trainer": {"sample_length": 4},
+}
+
+
+@pytest.fixture(scope="module")
+def work(tmp_path_factory):
+    """Configs, a folder of WAVs and a conditional checkpoint."""
+    root = tmp_path_factory.mktemp("cli")
+    folder = root / "wavs"
+    folder.mkdir()
+    rng = np.random.RandomState(0)
+    for i in range(4):
+        write_wav(folder / f"a{i}.wav", rng.uniform(-1, 1, 4000), 24000)
+    (root / "tiny.json").write_text(json.dumps(TINY))
+    (root / "cond.json").write_text(json.dumps(CONDITIONAL))
+    ns2 = cli.build_ns2(cli.load_config(str(root / "cond.json")))
+    trainer = Trainer(ns2, batches=iter(()), train_batch_size=1, save_and_sample_every=10**9,
+                      results_folder=str(root / "cond_results"))
+    with torch.no_grad():  # EMA apart from the raw weights
+        for e in trainer.ema.values():
+            e.add_(0.01)
+    return {"root": root, "folder": folder, "tiny": str(root / "tiny.json"),
+            "cond": str(root / "cond.json"), "cond_ckpt": trainer.save(0)}
+
+
+def test_train_then_sample(work, tmp_path):
+    results = tmp_path / "results"
+    rc = cli.main(["train", "--folder", str(work["folder"]), "--config", work["tiny"],
+                   "--steps", "2", "--batch-size", "2", "--save-every", "2",
+                   "--results", str(results), "--data-seconds", "0.04", "--log-every", "1", *CPU])
+    assert rc == 0
+    ckpt = results / "model-1.ckpt"
+    assert ckpt.exists() and (results / "sample-1.wav").exists()
+    assert [json.loads(line)["step"] for line in
+            (results / "metrics.jsonl").read_text().splitlines()] == [1, 2]
+
+    out = tmp_path / "out"
+    rc = cli.main(["sample", "--checkpoint", str(ckpt), "--config", work["tiny"],
+                   "--out", str(out), "--length", "4", "--batch", "2", "--timesteps", "2", *CPU])
+    assert rc == 0
+    wavs = sorted(out.glob("sample-*.wav"))
+    assert len(wavs) == 2
+    audio, sr = load_audio(wavs[0])
+    assert sr == 24000 and audio.shape == (4 * 320,)
+
+
+def test_conditional_sample_from_text_and_prompt(work, tmp_path):
+    """`sample --text --prompt` on a conditional checkpoint, from the EMA
+    weights unless ``--no-ema``."""
+    outs = {}
+    for flag in ([], ["--no-ema"]):
+        out = tmp_path / f"out{len(flag)}"
+        rc = cli.main(["sample", "--checkpoint", work["cond_ckpt"], "--config", work["cond"],
+                       "--out", str(out), "--length", "4", "--timesteps", "2",
+                       "--cfg-interval", "0.1", "0.8", "--text", "hello world",
+                       "--text", "good morning", "--prompt",
+                       str(sorted(work["folder"].glob("*.wav"))[0]), *flag, *CPU])
+        assert rc == 0
+        wavs = sorted(out.glob("sample-*.wav"))
+        assert len(wavs) == 2
+        outs[len(flag)] = [load_audio(w)[0] for w in wavs]
+        assert all(a.shape == (4 * 320,) and np.isfinite(a).all() for a in outs[len(flag)])
+    assert np.abs(outs[0][0] - outs[1][0]).max() > 1e-3  # the EMA copy is not the raw weights
+
+
+def test_build_engine_from_checkpoint(work):
+    engine = cli.build_engine(work["cond"], work["cond_ckpt"], timesteps=2, cond_scale=1.0,
+                              device="cpu", text_buckets=(16,), frame_buckets=(8,),
+                              prompt_samples=640)
+    assert engine.device.type == "cpu" and engine.timesteps == 2
+    payload = torch.load(work["cond_ckpt"], weights_only=True)
+    for name, p in engine.ns2.named_parameters():  # the EMA weights were loaded
+        torch.testing.assert_close(p, payload["ema_params"][name], rtol=0, atol=0)
+    wav, sr = engine.tts("hi", np.zeros(640, np.float32), seconds=8 * 320 / 24000)
+    assert sr == 24000 and wav.shape == (8 * 320,) and np.isfinite(wav).all()
+
+
+def test_serve_demo_over_http():
+    """`python -m naturalspeech2_tpu_torch serve --demo --device cpu`: warm
+    the demo's buckets, serve, answer /healthz and /tts."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "naturalspeech2_tpu_torch", "serve", "--demo", "--port", "0",
+         *CPU], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving on"):
+                break
+        match = re.search(r"http://127\.0\.0\.1:(\d+)", lines[-1]) if lines else None
+        assert match, "".join(lines)
+        base = f"http://127.0.0.1:{match.group(1)}"
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok" and health["batching"] is True
+        assert health["compiled_buckets"] == [[16, 8], [16, 16], [32, 8], [32, 16]]
+        body = json.dumps({"text": "hello world", "seconds": 8 * 320 / 24000,
+                           "prompt_wav_base64": base64.b64encode(
+                               _wav_bytes(np.zeros(640, np.float32), 24000)).decode()})
+        req = urllib.request.Request(f"{base}/tts", data=body.encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.read()[:4] == b"RIFF"
+    finally:
+        proc.kill()
+        proc.wait()
+        proc.stdout.close()
+
+
+def _info_lines(out: str) -> list:
+    return [line for line in out.splitlines() if line.startswith(("model:", "codec:", "  "))]
+
+
+def test_info_matches_jax(work, capsys):
+    """Unconditional: the JAX `info` output line for line."""
+    assert jcli.main(["info", "--config", work["tiny"]]) == 0
+    expected = _info_lines(capsys.readouterr().out)
+    assert cli.main(["info", "--config", work["tiny"]]) == 0
+    assert _info_lines(capsys.readouterr().out) == expected
+
+
+def test_info_conditional_counts_match_jax(work, capsys):
+    """Conditional: each module's parameter count against the JAX tree of
+    the same config (initialised under jit, as `info` initialises it)."""
+    cfg = jcli.load_config(work["cond"])
+    jns2 = jcli.build_ns2(cfg)
+    batch = {k: np.asarray(v) for k, v in next(jcli._dummy_batches(jns2, 640)).items()}
+    audio = batch.pop("audio")
+    key = jax.random.PRNGKey(0)
+    rngs = {n: key for n in ("params", "times", "noise", "cfg", "dropout")}
+    params = dict(jax.jit(lambda a, e: jns2.init(rngs, a, **e))(audio, batch)["params"])
+    params["codec"] = jax.jit(jns2.codec.init)(key, audio)["params"]
+    expected = {name: sum(int(np.prod(p.shape)) for p in jax.tree_util.tree_leaves(tree))
+                for name, tree in params.items()}
+    assert cli.main(["info", "--config", work["cond"]]) == 0
+    got = {}
+    for line in _info_lines(capsys.readouterr().out):
+        parts = line.split()
+        if line.startswith("  ") and parts[0] != "TOTAL":
+            got[parts[0]] = int(parts[1].replace(",", ""))
+    assert got == expected
+
+
+REFUSALS = {
+    "amp": (["train", "--amp"], "bf16 slice"),
+    "steps_per_dispatch": (["train", "--steps-per-dispatch", "4"], "item 11"),
+    "orbax": (["train", "--checkpoint-backend", "orbax"], "item 11"),
+    "param_sharding": (["train", "--param-sharding", "fsdp"], "item 21"),
+    "mesh_data": (["train", "--mesh-data", "2"], "item 21"),
+    "sampler": (["sample", "--sampler", "dpmpp"], "item 8"),
+    "sample_bf16": (["sample", "--bf16"], "option list"),
+    "serve_tp": (["serve", "--tp", "2"], "item 21"),
+    "serve_bf16": (["serve", "--bf16"], "item 24"),
+    "codec_train": (["codec-train"], "item 18"),
+    "import_torch": (["import-torch", "--input", "ref.pt", "--output", "x.ckpt"], "item 22"),
+    "encodec": (["info"], "item 17"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_named_refusals(work, case):
+    argv, item = REFUSALS[case]
+    command, extra = argv[0], argv[1:]
+    cfg = work["cond"] if command == "serve" else work["tiny"]
+    if case == "encodec":
+        (work["root"] / "encodec.json").write_text(json.dumps({"codec": {"type": "encodec"}}))
+        cfg = str(work["root"] / "encodec.json")
+    if command == "import-torch":
+        args = argv
+    else:
+        device = CPU if command in ("train", "sample", "serve") else []
+        args = [command, "--config", cfg, *device, *extra]
+        if command in ("train", "codec-train"):
+            args += ["--folder", str(work["folder"])]
+        if command in ("sample", "serve"):
+            args += ["--checkpoint", work["cond_ckpt"] if command == "serve" else
+                     str(_tiny_checkpoint(work))]
+    with pytest.raises(NotImplementedError, match=re.escape(item)):
+        cli.main(args)
+
+
+def _tiny_checkpoint(work) -> Path:
+    path = work["root"] / "tiny.ckpt"
+    if not path.exists():
+        ns2 = cli.build_ns2(cli.load_config(work["tiny"]))
+        torch.save({"params": ns2.state_dict()}, path)
+    return path
+
+
+@pytest.mark.parametrize("command", ["build_engine", "sample", "serve", "train"])
+def test_no_card_no_fallback(work, command):
+    """Without ``--device cpu`` every subcommand that runs on a device wants
+    the card and raises on a host without one, rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the commands would run on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if command == "build_engine":
+            cli.build_engine(work["cond"], work["cond_ckpt"])
+        else:
+            args = {"sample": ["sample", "--checkpoint", work["cond_ckpt"]],
+                    "serve": ["serve", "--demo"],
+                    "train": ["train", "--folder", str(work["folder"])]}
+            cli.main([*args[command], "--config", work["cond"]])
+
+
+def test_info_needs_no_device(work, capsys):
+    """`info` only counts parameters: it takes no ``--device`` and runs
+    without a card."""
+    assert cli.main(["info", "--config", work["cond"]]) == 0
+    assert "TOTAL" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        cli.main(["info", "--config", work["cond"], *CPU])
+
+
+def test_config_and_flagship(tmp_path):
+    cfg = cli.load_config(None)
+    assert cfg == jcli.load_config(None)
+    assert cfg["model"]["dim"] == 128 and cfg["ns2"]["timesteps"] == 1000
+    ns2 = cli.build_ns2(cfg)
+    assert ns2.tokenizer is not None and ns2.tokenizer.vocab_size == 125
+    bad = tmp_path / "bad.json"
+    bad.write_text(json.dumps({"modell": {"dim": 8}}))
+    with pytest.raises(AssertionError, match="unknown config section"):
+        cli.main(["info", "--config", str(bad)])

@@ -20,6 +20,7 @@ from naturalspeech2_tpu_torch import Model, NaturalSpeech2, SoundStream, load_ja
 from naturalspeech2_tpu_torch import params as tparams
 from naturalspeech2_tpu_torch.models.naturalspeech2 import _LATER_FIELDS
 from naturalspeech2_tpu_torch.models.transformer import Transformer
+from naturalspeech2_tpu_torch.utils.tokenizer import Tokenizer
 
 from torch_parity import assert_close, assert_codes_match, jitter, normal, numpy_tree, t
 
@@ -174,10 +175,12 @@ def test_transformer_causal_final_norm_as_in_jax(use_flash, masked):
 
 
 # The JAX module's fields that the port once refused for later slices, with
-# a value other than the default: conditional training's are ported now
-# (pitch, mel, the loss weights and masking) and kept as given, with the JAX
-# module's defaults; the others still raise, naming their ROADMAP item.
-ONCE_LATER = {"tokenizer": None, "calc_pitch_with_pyworld": False, "train_prob_self_cond": None,
+# a value other than the default: conditional training's (pitch, mel, the
+# loss weights and masking) and the text frontend's tokenizer are ported now
+# and kept as given, with the JAX module's defaults; the others still raise,
+# naming their ROADMAP item.
+ONCE_LATER = {"tokenizer": Tokenizer(), "calc_pitch_with_pyworld": False,
+              "train_prob_self_cond": None,
               "mel_hop_length": 200, "audio_to_mel_kwargs": {"f_max": 7000.0},
               "duration_loss_weight": 0.5, "pitch_loss_weight": 2.0, "aligner_loss_weight": 0.3,
               "aligner_bin_loss_weight": 0.1, "mask_duration_pitch_loss": False}
@@ -194,12 +197,11 @@ def test_later_slice_fields_raise_not_implemented(field):
     assert getattr(ns2, field) == ONCE_LATER[field]
     default = jns2.NaturalSpeech2.__dataclass_fields__[field].default
     assert getattr(NaturalSpeech2(Model(**MODEL_CFG)), field) == (
-        {} if default is None else default)
+        {} if default is None and field != "tokenizer" else default)
 
 
 def test_later_fields_name_their_items():
-    assert _LATER_FIELDS == {"tokenizer": "item 16 (text frontend)",
-                             "train_prob_self_cond": "item 10 (self-conditioning)"}
+    assert _LATER_FIELDS == {"train_prob_self_cond": "item 10 (self-conditioning)"}
 
 
 def test_unknown_field_is_still_a_type_error():

@@ -34,6 +34,12 @@ def test_import_loads_no_jax():
         "import naturalspeech2_tpu_torch.ops.wavenet_kernel, naturalspeech2_tpu_torch.ops.ff_block_kernel\n"
         "import naturalspeech2_tpu_torch.ops.mel, naturalspeech2_tpu_torch.ops.mas\n"
         "import naturalspeech2_tpu_torch.ops.ctc, naturalspeech2_tpu_torch.utils.helpers\n"
+        "import naturalspeech2_tpu_torch.serve, naturalspeech2_tpu_torch.cli\n"
+        "import naturalspeech2_tpu_torch.utils.tokenizer, naturalspeech2_tpu_torch.utils.cleaner\n"
+        "import naturalspeech2_tpu_torch.utils.phonemizers.fallback_multi\n"
+        "import naturalspeech2_tpu_torch.utils.phonemizers.espeak_wrapper\n"
+        "naturalspeech2_tpu_torch.utils.tokenizer.Tokenizer().texts_to_tensor_ids(['hi, 9:30 am'])\n"
+        "naturalspeech2_tpu_torch.cli.build_parser()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'naturalspeech2_tpu'))\n"
         "print(json.dumps(bad))\n"
