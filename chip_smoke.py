@@ -117,7 +117,36 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      200 frames, the same injected noise: equal token ids, the waveform
      within PATH_TOL, the duration predictor's frames per token within
      PATH_TOL and its total frames equal (a token whose truncation flips
-     must lie within DURATION_TIE of an integer on the CPU).
+     must lie within DURATION_TIE of an integer on the CPU);
+ 22. the bf16 kernels (the JAX kernels' bf16 path) against their
+     plain bf16 versions within BF16_TOL, each timed beside the f32 kernel
+     at the same shape and values: K1 at [4, 1024, 128], [2, 512, 128],
+     [8, 512, 128] and [1, 4500, 128], K1b at [1, 9000, 128], K2 and K3 at
+     [4, 1024, 128], [2, 512, 128] and [16, 1024, 512], K2b at x [2 | 8,
+     512, 128], ctx [·, 32, 128], K4 forward at [2 | 8, 8, 32 | 134, 64]
+     and [1, 8, 4500 | 9000, 64] beside SDPA in bf16, and at the unbucketed
+     guided step's [2, 8, 510, 64] and [2, 8, 510 | 32, 64]; bounds at the
+     dense bf16 peak (K1, K1b: three bf16 passes);
+ 23. the flagship `sample(dtype=torch.bfloat16)` (b4 x n1024, 100 steps):
+     a finite float32 waveform, launches equal to phase 3's, all on the
+     bf16 entry points, the module not cast in place, and the denoise step
+     in bf16 beside f32 (CUDA events, in turns), and README config 2's
+     guided step (8 x 512) likewise;
+ 24. long-form bf16 `sample()` at n4500 and n9000 (K1b in bf16) and the
+     scaled model's (dim 512, depth 12, b16 x n1024), launches equal to
+     phases 13's and 14's on the bf16 entry points, the scaled step in
+     bf16 beside f32;
+ 25. README config 2 served in bf16: `cli.build_engine(dtype="bfloat16")`
+     beside phase 20's f32 engine, each 20 sequential requests and 4
+     rounds of four in two turns, f32, bf16, bf16, f32 (p50 / p95,
+     audio-s per s; every request's launches:
+     the denoiser's on the bf16 entry points, the conditioning's prompt
+     encoder K4 and K6 on the f32 ones), then `cli.main(["sample",
+     "--bf16", ...])` in-process;
+ 26. bf16 card against bf16 CPU at README config 2's full width: a guided
+     denoiser forward and a 2-step served sample within BF16_PATH_TOL,
+     correlated ≥ BF16_CORR, and the card's bf16 sample's correlation
+     with its f32 one (≥ BF16_F32_CORR).
 K2, K2b and K3 are held to BLOCK_TOL (split TF32 on the tensor cores
 against f32 plain versions) at every shape they run: b4 x n1024 x dim 128,
 the conditional [8, 512, 128], the long-form n4500 and n9000 and the
@@ -125,7 +154,8 @@ scaled b16 x n1024 x dim 512; K1 and K1b to WAVENET_TOL at every shape
 they run (b4 x n1024, n4500, n9000, n6733, dim 512 pinned, dim 16).
 The line before the last is the kernels' JSON summary (each kernel's
 time, plain time, bound and launches, by path: "serve" counts phase 20's
-50 sequential requests); the last line is
+50 sequential requests; a row per dtype, the bf16 rows with their f32
+kernel's time at the same shape); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -327,6 +357,31 @@ SERVE_CHECK_FRAMES, SERVE_CHECK_STEPS, DURATION_TIE = 200, 2, 1e-3
 # cores, and HBM3. Split TF32, three TF32 products per f32 product, is the
 # fastest f32-accurate way the card has to run a matrix product.
 PEAK_TF32_FLOPS, TF32_PASSES, PEAK_BYTES_PER_S = 495e12, 3, 3.35e12
+# bf16 (phases 22-26). A bf16 kernel against its plain bf16 version, which
+# rounds at the same points (the JAX kernels' `.astype(mm)`), relative to
+# the plain output's largest entry (of y - x for K2, K2b and K3): the
+# products' f32 sums in another order, P rounded against K4's running row
+# max where the plain version uses the final one (one bf16 ulp on some
+# probabilities), and a bf16 output that may round to the other neighbour
+# (2^-8 of its magnitude). A dropped rounding point or a layout fault is
+# O(1e-1) or more. The blocks' residual x is drawn at BF16_RESIDUAL_SCALE:
+# the norm makes y - x independent of |x|, and at unit scale the output's
+# own ulp (2^-6 at |x| ≥ 2) would exceed 1e-2 of max |y - x| by itself.
+BF16_TOL, BF16_RESIDUAL_SCALE = 1e-2, 1 / 16
+# bf16 card against bf16 CPU through the network (phase 26): the same
+# rounding points, sums in another order, so a value near a rounding
+# boundary lands on the other neighbour and carries 2^-8 relative through
+# the following layers; JAX's own bound for bf16 against f32 is 5e-2
+# (tests/test_attn_block.py) and its bf16 sample's correlation with the f32
+# one > 0.98 (tests/test_naturalspeech2.py).
+BF16_PATH_TOL, BF16_CORR, BF16_F32_CORR = 5e-2, 0.99, 0.98
+# phase 25's window, each engine: sequential requests, timed rounds of four
+BF16_SERVE_REQUESTS, BF16_SERVE_ROUNDS = 20, 4
+# phase 25's `sample --bf16` at SERVE_SECONDS, unbucketed: 510 frames
+CLI_BF16_FRAMES = int(round(SERVE_SECONDS * 24000 / 320))
+SERVE_SAMPLES = CLI_BF16_FRAMES * 320
+# H100 SXM dense bf16 on the tensor cores at 700 W (NVIDIA's data sheet)
+PEAK_BF16_FLOPS = 989e12
 # Work outside the tensor cores (dropout's Threefry-2x32-20 keep bits: 20
 # rounds of add, rotate and xor, 5 key injections of two adds, the counter
 # and the compare, ~75 integer operations a probability) is counted at the
@@ -2074,9 +2129,562 @@ def phase21_serving_card_vs_cpu(engine, config: str, checkpoint: str) -> None:
     engine.timesteps = STEPS
 
 
+# ---- bf16 inference: phases 22-26 -----------------------------------------
+
+def bound_bf16(flops: float, moved: int, f32_lanes: bool = False) -> dict:
+    """The least time the card could take for a bf16 kernel's work: the
+    matrix operations at the dense bf16 peak (989 TFLOP/s) and the bytes
+    (each input read once, each output written once) over the memory rate.
+    With ``f32_lanes`` (K1, K1b: f32 lanes against bf16 weights) the
+    products are at the least-cost exact scheme the card offers: each f32
+    lane split into three bf16 parts (8 + 8 + 8 of f32's 24 significant
+    bits), each part's product with a bf16 weight exact, so three bf16
+    passes (989 / 3 TFLOP/s), faster than two TF32 passes (495 / 2)."""
+    rate = PEAK_BF16_FLOPS / 3 if f32_lanes else PEAK_BF16_FLOPS
+    ops_ms = flops / rate * 1e3
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def bf16_timed(phase: str, label: str, kernel, plain, f32_kernel, work: dict, residual=None,
+               library=None, reps: int = 20) -> dict:
+    """A bf16 kernel against its plain bf16 version on the card: the error
+    of its output (with ``residual`` x, of y - x) relative to the plain
+    version's largest entry within BF16_TOL; its time beside the f32
+    kernel's at the same shape (on the same values), the plain version's
+    and, where given, the ``library`` call's."""
+    import torch
+
+    out = kernel()
+    torch.cuda.synchronize()
+    if out.dtype != torch.bfloat16:
+        raise AssertionError(f"{label}: output {out.dtype}, expected bfloat16")
+    ref = plain()
+    if residual is not None:
+        out, ref = out.float() - residual.float(), ref.float() - residual.float()
+        label += " (y - x)"
+    err = compare(phase, label, out, ref, BF16_TOL, relative=True)
+    del out, ref
+    ms, f32_ms, plain_ms = (cuda_ms(f, reps=reps) for f in (kernel, f32_kernel, plain))
+    lib_ms = cuda_ms(library, reps=reps) if library is not None else None
+    lib = f", SDPA bf16 {lib_ms:.4f} ms" if lib_ms is not None else ""
+    log(phase, f"{label}: bf16 kernel {ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, plain bf16 "
+               f"{plain_ms:.4f} ms{lib} (median of {reps}), bound {work['bound_ms']:.4f} ms "
+               f"({work['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, **work}
+
+
+def _bf16(*tensors):
+    """The tensors rounded to bf16."""
+    import torch
+
+    return tuple(t.to(torch.bfloat16) for t in tensors)
+
+
+def bf16_block_cases(gen, b, n, d, names=("wavenet_body", "attn_block", "ff_block")):
+    """(name, bf16 kernel, plain bf16, f32 kernel on the same values, bound,
+    residual) of K1, K2 and K3 at one shape. The blocks' residual x is drawn
+    at BF16_RESIDUAL_SCALE (see BF16_TOL)."""
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+    from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    rn = _randn(gen)
+    cases = []
+    out_bytes = b * n * d * 2
+    if "wavenet_body" in names:
+        wn, _ = wavenet_inputs(gen, b, n, d, WAVENET_STACKS, WAVENET_LAYERS)
+        wn16 = _bf16(*wn)
+        wn32 = tuple(t.float() for t in wn16)
+        flops = 2 * b * n * d * d * (WAVENET_STACKS * WAVENET_LAYERS * 4 + WAVENET_LAYERS)
+        cases.append(("wavenet_body", lambda: wk._forward("stack", *wn16),
+                      lambda: wk.wavenet_body_bf16_torch(*wn16),
+                      lambda: wk._forward("stack", *wn32),
+                      bound_bf16(flops, nbytes(*wn16) + out_bytes, f32_lanes=True), None))
+    heads, dim_head = HEADS, DIM_HEAD
+    scale = dim_head**-0.5
+    if "attn_block" in names:
+        attn = list(attn_inputs(gen, b, n, d, heads, dim_head))
+        attn[0] = attn[0] * BF16_RESIDUAL_SCALE
+        a16 = _bf16(*attn)
+        a32 = tuple(t.float() for t in a16)
+        split = ak.split_heads(*a16[3:], heads, dim_head)
+        cfg = dict(heads=heads, dim_head=dim_head, scale=scale)
+        hd = heads * dim_head
+        flops = 2 * b * n * d * 4 * hd + 4 * b * heads * n * n * dim_head
+        cases.append(("attn_block", lambda: ak.attn_block(*a16, **cfg),
+                      lambda: ak.attn_block_bf16_torch(*a16[:3], *split, scale=scale),
+                      lambda: ak.attn_block(*a32, **cfg),
+                      bound_bf16(flops, nbytes(*a16) + out_bytes), a16[0]))
+    if "ff_block" in names:
+        inner = int(d * 4 * 2 / 3)
+        x = rn(b, n, d, scale=BF16_RESIDUAL_SCALE)
+        ff = _bf16(x, 1 + rn(b, d, scale=0.1), rn(b, d, scale=0.1),
+                   rn(d, 2 * inner, scale=d**-0.5), rn(2 * inner, scale=0.1),
+                   rn(3, inner, inner, scale=(3 * inner) ** -0.5), rn(inner, scale=0.1),
+                   rn(inner, d, scale=inner**-0.5), rn(d, scale=0.1))
+        ff32 = tuple(t.float() for t in ff)
+        flops = 2 * b * n * (d * 2 * inner + 3 * inner * inner + inner * d)
+        cases.append(("ff_block", lambda: fk.ff_block(*ff), lambda: fk.ff_block_plain(*ff),
+                      lambda: fk.ff_block(*ff32), bound_bf16(flops, nbytes(*ff) + out_bytes),
+                      ff[0]))
+    return cases
+
+
+def _bf16_entry(name: str) -> dict:
+    sources = {"wavenet_body": ("wavenet.cu", "wavenet_kernel.py:80"),
+               "wavenet_body_lanes": ("wavenet_lane.cu", "wavenet_kernel.py:167"),
+               "attn_block": ("attn_block.cu", "attn_block_kernel.py:92"),
+               "cross_attn_block": ("cross_attn_block.cu", "attn_block_kernel.py:237"),
+               "ff_block": ("ff_block.cu", "ff_block_kernel.py:97"),
+               "flash_forward": ("flash_fwd.cu", "flash_attention.py:98")}
+    source, replaces = sources[name]
+    return {"name": name, "dtype": "bfloat16", "route": "cuda",
+            "source": f"naturalspeech2_tpu_torch/csrc/{source}",
+            "replaces": f"naturalspeech2_tpu/ops/{replaces}", "by_shape": {}}
+
+
+def phase22_bf16_kernels() -> list:
+    """Each bf16 kernel against its plain bf16 version at the shapes the
+    bf16 paths give it: K1 at [4,1024,128], [2,512,128], [8,512,128],
+    [1,4500,128]; K1b at [1,9000,128]; K2 and K3 at [4,1024,128],
+    [2,512,128], [16,1024,512]; K2b at x [2|8,512,128], ctx [·,32,128]; K4
+    at the resampler's [2|8,8,32|134,64] and the long-form
+    [1,8,4500|9000,64] beside SDPA in bf16. Returns the bf16 rows of the
+    kernels' summary (the first shape's numbers at the top)."""
+    import torch
+    import torch.nn.functional as F
+
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+    from naturalspeech2_tpu_torch.ops import flash_attention as fa
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 200)
+    rows = {}
+
+    def add(name: str, shape: str, timing: dict) -> None:
+        row = rows.setdefault(name, _bf16_entry(name))
+        if not row["by_shape"]:
+            row.update({k: timing[k] for k in ("max_abs_err", "ms", "f32_ms", "plain_ms",
+                                               "library_ms", "bound_ms", "bound_by")})
+        row["by_shape"][shape] = timing
+        row["max_abs_err"] = max(row["max_abs_err"], timing["max_abs_err"])
+
+    shapes = {(BATCH, LENGTH, DIM): ("wavenet_body", "attn_block", "ff_block"),
+              (2, SERVE_BUCKET[1], DIM): ("wavenet_body", "attn_block", "ff_block"),
+              (2 * COND_BATCH, COND_LENGTH, DIM): ("wavenet_body",),
+              (1, LONG_LENGTHS[0], DIM): ("wavenet_body",),
+              (SCALED_BATCH, LENGTH, SCALED_DIM): ("attn_block", "ff_block")}
+    for (b, n, d), names in shapes.items():
+        shape = f"[{b},{n},{d}]"
+        for name, kernel, plain, f32_kernel, work, residual in bf16_block_cases(gen, b, n, d,
+                                                                                 names):
+            add(name, shape, bf16_timed("22", f"{name} bf16 {shape}", kernel, plain, f32_kernel,
+                                        work, residual, reps=5 if d == SCALED_DIM else 20))
+        torch.cuda.empty_cache()
+
+    # K1b at n 9000, past K1's budget
+    n = LONG_LENGTHS[1]
+    if wk.wavenet_route(n, DIM, WAVENET_LAYERS) != "lanes":
+        raise AssertionError(f"n {n} does not route K1b")
+    wn16 = _bf16(*wavenet_inputs(gen, 1, n, DIM, WAVENET_STACKS, WAVENET_LAYERS)[0])
+    wn32 = tuple(t.float() for t in wn16)
+    flops = 2 * n * DIM * DIM * (WAVENET_STACKS * WAVENET_LAYERS * 4 + WAVENET_LAYERS)
+    add("wavenet_body_lanes", f"[1,{n},{DIM}]", bf16_timed(
+        "22", f"wavenet_body_lanes bf16 [1,{n},{DIM}]", lambda: wk.wavenet_body_lanes(*wn16),
+        lambda: wk.wavenet_body_lanes_bf16_torch(*wn16), lambda: wk.wavenet_body_lanes(*wn32),
+        bound_bf16(flops, nbytes(*wn16) + n * DIM * 2, f32_lanes=True)))
+    del wn16, wn32
+
+    # K2b at the served and the conditional sample's guided batch
+    for b in (2, 2 * COND_BATCH):
+        args = list(cross_inputs(gen, b, COND_LENGTH, NUM_LATENTS, DIM, DIM, HEADS, DIM_HEAD))
+        args[0] = args[0] * BF16_RESIDUAL_SCALE
+        a16 = _bf16(*args)
+        a32 = tuple(t.float() for t in a16)
+        split = ak.split_heads(*a16[4:], HEADS, DIM_HEAD)
+        cfg = dict(heads=HEADS, dim_head=DIM_HEAD, scale=DIM_HEAD**-0.5)
+        hd = HEADS * DIM_HEAD
+        flops = (2 * b * COND_LENGTH * DIM * 2 * hd + 2 * b * NUM_LATENTS * DIM * 2 * hd
+                 + 4 * b * HEADS * COND_LENGTH * NUM_LATENTS * DIM_HEAD)
+        shape = f"x [{b},{COND_LENGTH},{DIM}], ctx [{b},{NUM_LATENTS},{DIM}]"
+        add("cross_attn_block", shape, bf16_timed(
+            "22", f"cross_attn_block bf16 {shape}", lambda: ak.cross_attn_block(*a16, **cfg),
+            lambda: ak.cross_attn_block_bf16_torch(*a16[:4], *split, scale=cfg["scale"]),
+            lambda: ak.cross_attn_block(*a32, **cfg),
+            bound_bf16(flops, nbytes(*a16) + b * COND_LENGTH * DIM * 2), a16[0]))
+
+    # K4 forward: the resampler's, the unbucketed guided step's unfused self-
+    # and cross-attention (phase 25's `sample --bf16` at 510 frames, off the
+    # block gates) and the long-form unfused attention
+    p = PROMPT_SAMPLES // 320
+    for b, h, n_q, n_kv in ((2, HEADS, NUM_LATENTS, NUM_LATENTS + p),
+                            (2 * COND_BATCH, HEADS, NUM_LATENTS, NUM_LATENTS + p),
+                            (2, HEADS, CLI_BF16_FRAMES, CLI_BF16_FRAMES),
+                            (2, HEADS, CLI_BF16_FRAMES, NUM_LATENTS),
+                            (1, HEADS, LONG_LENGTHS[0], LONG_LENGTHS[0]),
+                            (1, HEADS, LONG_LENGTHS[1], LONG_LENGTHS[1])):
+        d = DIM_HEAD
+        q = torch.randn(b, h, n_q, d, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(b, h, n_kv, d, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        scale = d**-0.5
+        shape = f"[{b},{h},{n_q},{d}]" if n_q == n_kv else f"[{b},{h},{n_q}|{n_kv},{d}]"
+        moved = 2 * (2 * b * h * n_q * d + 2 * b * h * n_kv * d) + 4 * b * h * n_q
+        add("flash_forward", shape, bf16_timed(
+            "22", f"flash_forward bf16 {shape}",
+            lambda: fa.flash_forward(q, k, v, scale=scale)[0],
+            lambda: fa.flash_forward_torch(q, k, v, None, None, causal=False, scale=scale)[0],
+            lambda: fa.flash_forward(q32, k32, v32, scale=scale)[0],
+            bound_bf16(4 * b * h * n_q * n_kv * d, moved),
+            library=lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)))
+        del q, k, v, q32, k32, v32
+        torch.cuda.empty_cache()
+    return list(rows.values())
+
+
+def _in_turns(phase: str, label: str, f32_call, bf16_call, reps: int) -> tuple[float, float]:
+    """Two calls timed in turns (f32, bf16, bf16, f32) under no_grad: the
+    medians of CUDA-event times, each the mean of its two turns."""
+    import torch
+
+    with torch.no_grad():
+        turns = [cuda_ms(fn, reps=reps, warmup=2)
+                 for fn in (f32_call, bf16_call, bf16_call, f32_call)]
+    f32_ms, bf16_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    log(phase, f"{label}: f32 {turns[0]:.3f} / {turns[3]:.3f} ms, bf16 {turns[1]:.3f} / "
+               f"{turns[2]:.3f} ms (median of {reps} each, in turns); bf16 / f32 "
+               f"{bf16_ms / f32_ms:.3f}")
+    return f32_ms, bf16_ms
+
+
+def _bf16_step_ms(phase: str, model, b: int, n: int, d: int, reps: int) -> tuple[float, float]:
+    """One denoiser forward at b x n in f32 and through ``model``'s bf16
+    copy (``cast_floating``), in turns."""
+    import torch
+
+    from naturalspeech2_tpu_torch.models.naturalspeech2 import cast_floating
+
+    bf16_model = cast_floating(model, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 201)
+    x = torch.randn(b, n, d, generator=gen, device="cuda")
+    x16 = x.bfloat16()
+    times = torch.full((b,), 0.5, device="cuda")
+    return _in_turns(phase, f"denoiser forward b{b} x n{n} x d{d}", lambda: model(x, times),
+                     lambda: bf16_model(x16, times), reps)
+
+
+def phase23_bf16_guided_step(cond) -> None:
+    """README config 2's guided denoise step (phase 10's: the batch-doubled
+    8 x 512 with K2b and the resampler) in bf16 beside f32, in turns."""
+    import torch
+
+    from naturalspeech2_tpu_torch.models.denoiser import forward_with_cond_scale
+    from naturalspeech2_tpu_torch.models.naturalspeech2 import cast_floating
+
+    prompt, text, text_lens = (t.cuda() for t in _conditional_inputs())
+    with torch.no_grad():
+        prompt_enc, frames, _ = cond.conditioning_for_sample(prompt, text, text_lens,
+                                                             COND_LENGTH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 204)
+    x = torch.randn(COND_BATCH, COND_LENGTH, DIM, generator=gen, device="cuda")
+    times = torch.full((COND_BATCH,), 0.5, device="cuda")
+    bf16_model = cast_floating(cond.model, torch.bfloat16)
+    x16, p16, c16 = x.bfloat16(), prompt_enc.bfloat16(), frames.bfloat16()
+    _in_turns("23", f"guided denoise step, batch {2 * COND_BATCH} x {COND_LENGTH}",
+              lambda: forward_with_cond_scale(cond.model, x, times, prompt=prompt_enc,
+                                              cond=frames, cond_scale=COND_SCALE),
+              lambda: forward_with_cond_scale(bf16_model, x16, times, prompt=p16, cond=c16,
+                                              cond_scale=COND_SCALE), 10)
+
+
+def _check_bf16_counts(phase: str, label: str, f32_counts: dict, bf16_counts: dict,
+                       expect_f32: dict, expect_bf16: dict) -> None:
+    """Launches of a bf16 run: its bf16 entry points' counts, and the f32
+    ones (the conditioning's, which stays f32), each exactly as expected."""
+    check_counts(phase, f"{label}, bf16 entry points", bf16_counts, expect_bf16)
+    check_counts(phase, f"{label}, f32 entry points", f32_counts, expect_f32)
+
+
+def phase23_bf16_flagship(ns2, f32_counts: dict) -> dict:
+    """The flagship `sample(dtype=torch.bfloat16)`, b4 x n1024, STEPS DDIM
+    steps: a finite f32 waveform and its wall (phase 3 prints the f32
+    one), the launches equal to the f32 run's, all on the bf16 entry
+    points, and ms per step in bf16 beside f32 (CUDA events, in turns).
+    Returns the bf16 launch counts."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    audio = ns2pkg.sample(ns2, batch_size=BATCH, length=LENGTH, timesteps=STEPS, generator=gen,
+                          dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    if tuple(audio.shape) != (BATCH, LENGTH * 320) or audio.dtype != torch.float32:
+        raise AssertionError(f"bf16 sample: {tuple(audio.shape)} {audio.dtype}")
+    if not torch.isfinite(audio).all():
+        raise AssertionError("bf16 sample: non-finite waveform")
+    bf16_counts = ops.launch_counts(torch.bfloat16)
+    _check_bf16_counts("23", f"sample(dtype=bfloat16, {STEPS} steps)", ops.launch_counts(),
+                       bf16_counts, {k: 0 for k in f32_counts}, f32_counts)
+    log("23", f"sample(batch_size={BATCH}, length={LENGTH}, timesteps={STEPS}, dtype=bfloat16): "
+              f"waveform {tuple(audio.shape)} float32 finite, |audio| max "
+              f"{audio.abs().max().item():.4f}; wall {wall:.3f} s incl. codec decode")
+    if next(ns2.model.parameters()).dtype != torch.float32:
+        raise AssertionError("sample(dtype=) cast the module in place")
+    _bf16_step_ms("23", ns2.model, BATCH, LENGTH, DIM, reps=10)
+    return bf16_counts
+
+
+def phase24_bf16_longform_scaled(long_ns2, long_counts: dict, scaled,
+                                 f32_counts: dict) -> tuple[dict, dict]:
+    """Long-form `sample(dtype=torch.bfloat16)` at b1, LONG_STEPS steps, n
+    4500 (K1, K4 unfused) and n 9000 (K1b, K4, K3), and the scaled model's
+    at b16 x n1024, STEPS_SCALED steps: finite outputs, launches equal to
+    the f32 runs' on the bf16 entry points, the scaled step in bf16 beside
+    f32. Returns (the long-form bf16 counts by length, the scaled ones)."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+
+    long_bf16 = {}
+    for n in LONG_LENGTHS:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        audio = ns2pkg.sample(long_ns2, batch_size=1, length=n, timesteps=LONG_STEPS,
+                              generator=gen, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        if tuple(audio.shape) != (1, n * 320) or not torch.isfinite(audio).all():
+            raise AssertionError(f"long-form bf16 sample: {tuple(audio.shape)}, or non-finite")
+        long_bf16[n] = ops.launch_counts(torch.bfloat16)
+        _check_bf16_counts("24", f"long-form sample(length={n}, dtype=bfloat16)",
+                           ops.launch_counts(), long_bf16[n], {k: 0 for k in long_counts[n]},
+                           long_counts[n])
+        log("24", f"long-form bf16 n {n}, {LONG_STEPS} steps: wall {wall:.3f} s incl. codec "
+                  f"decode for {n * 320 / 24000:g} s of audio")
+        del audio
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    latents = ns2pkg.sample(scaled, batch_size=SCALED_BATCH, length=LENGTH,
+                            timesteps=STEPS_SCALED, generator=gen, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    if tuple(latents.shape) != (SCALED_BATCH, LENGTH, SCALED_DIM) or not torch.isfinite(
+            latents).all():
+        raise AssertionError(f"scaled bf16 sample: {tuple(latents.shape)}, or non-finite")
+    bf16_counts = ops.launch_counts(torch.bfloat16)
+    _check_bf16_counts("24", f"scaled sample(dtype=bfloat16, {STEPS_SCALED} steps)",
+                       ops.launch_counts(), bf16_counts, {k: 0 for k in f32_counts}, f32_counts)
+    log("24", f"scaled sample(dtype=bfloat16): latents {tuple(latents.shape)} finite, wall "
+              f"{wall:.3f} s, {wall / STEPS_SCALED * 1e3:.3f} ms per step (host clock)")
+    del latents
+    _bf16_step_ms("24", scaled.model, SCALED_BATCH, LENGTH, SCALED_DIM, reps=5)
+    return long_bf16, bf16_counts
+
+
+# per served request in bf16: the denoiser's launches on the bf16 entry
+# points, the conditioning's (the prompt encoder's K4, the prompt's K6) on
+# the f32 ones
+SERVE_F32_PART = {k: 0 for k in PER_COND_SAMPLE} | {"flash_forward": PROMPT_DEPTH, "rvq": 1}
+SERVE_BF16_PART = {k: v - SERVE_F32_PART[k] for k, v in PER_COND_SAMPLE.items()}
+
+
+def _serve_window(phase: str, label: str, engine, prompt, bf16: bool):
+    """One turn of phase 25's window: BF16_SERVE_REQUESTS / 2 sequential
+    requests, then one untimed and BF16_SERVE_ROUNDS / 2 timed rounds of
+    SERVE_BATCH concurrent ones, each request's and round's launches
+    checked. Returns the walls, the rounds' walls and request 0's
+    launches, (f32 entry points, bf16 entry points)."""
+    import torch
+
+    from naturalspeech2_tpu_torch import ops
+
+    expect_f32, expect_bf16 = ((SERVE_F32_PART, SERVE_BF16_PART) if bf16 else
+                               (PER_COND_SAMPLE, {k: 0 for k in PER_COND_SAMPLE}))
+    walls = []
+    for i in range(BF16_SERVE_REQUESTS // 2):
+        ops.reset_launch_counts()
+        start = time.perf_counter()
+        wav, _ = engine.tts(SERVE_SENTENCE, prompt, seconds=SERVE_SECONDS, seed=i)
+        walls.append(time.perf_counter() - start)
+        _check_wave(f"{label} request {i}", wav, SERVE_SAMPLES)
+        got = (ops.launch_counts(), ops.launch_counts(torch.bfloat16))
+        if i == 0:
+            first = got
+        if i == 0 or got != (expect_f32, expect_bf16):
+            _check_bf16_counts(phase, f"{label} request {i}", *got, expect_f32, expect_bf16)
+    engine.batch_window_ms = 200.0
+    engine.start_batcher()
+    try:
+        rounds = []
+        for r in range(BF16_SERVE_ROUNDS // 2 + 1):
+            ops.reset_launch_counts()
+            waves, wall = _concurrent_tts(engine, prompt)
+            for w in waves:
+                _check_wave(f"{label} batched request", w, SERVE_SAMPLES)
+            got = (ops.launch_counts(), ops.launch_counts(torch.bfloat16))
+            if r == 0 or got != (expect_f32, expect_bf16):
+                _check_bf16_counts(phase, f"{label} round {r}", *got, expect_f32, expect_bf16)
+            rounds.append(wall)
+    finally:
+        engine.stop_batcher()
+        engine.batch_window_ms = 8.0
+    log(phase, f"{label}, one turn: {len(walls)} sequential requests {_percentiles(walls)}; "
+               f"{len(rounds) - 1} rounds of {SERVE_BATCH}: round {_percentiles(rounds[1:])}")
+    return walls, rounds[1:], first
+
+
+def phase25_bf16_serving(engine, config: str, checkpoint: str, work: Path) -> tuple:
+    """README config 2 served in bf16: `cli.build_engine(dtype="bfloat16")`
+    beside phase 20's f32 engine in this process (each BF16_SERVE_REQUESTS
+    sequential requests and BF16_SERVE_ROUNDS rounds of four, in two turns
+    of half each, f32, bf16, bf16, f32),
+    then `cli.main(["sample", "--bf16", ...])` in-process. Returns (the bf16
+    engine, its first request's launch counts by entry-point dtype)."""
+    import numpy as np
+    import torch
+
+    from naturalspeech2_tpu_torch import cli, ops
+    from naturalspeech2_tpu_torch.data import load_audio, write_wav
+
+    bf16_engine = cli.build_engine(config, checkpoint, timesteps=STEPS,
+                                   cond_scale=SERVE_COND_SCALE, device="cuda",
+                                   prompt_samples=PROMPT_SAMPLES, dtype="bfloat16")
+    dtypes = {p.dtype for p in bf16_engine.ns2.model.parameters()}
+    if dtypes != {torch.bfloat16} or next(engine.ns2.model.parameters()).dtype != torch.float32:
+        raise AssertionError(f"bf16 engine's denoiser holds {dtypes}")
+    start = time.perf_counter()
+    bf16_engine.warmup([SERVE_BUCKET])
+    log("25", f"TTSEngine(dtype='bfloat16') from cli.build_engine, warmup {SERVE_BUCKET}: "
+              f"{time.perf_counter() - start:.2f} s")
+    prompt = _serving_prompt()
+    # in turns, f32, bf16, bf16, f32: a drift of the host's speed over the
+    # phase falls on both engines alike
+    windows = {"f32": ([], []), "bf16": ([], [])}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        bf16 = name == "bf16"
+        walls, rounds, got = _serve_window("25", f"{name} engine", bf16_engine if bf16 else engine,
+                                           prompt, bf16=bf16)
+        windows[name][0].extend(walls)
+        windows[name][1].extend(rounds)
+        if bf16:
+            counts = got
+    for name, (walls, rounds) in windows.items():
+        log("25", f"{name} engine, both turns: {len(walls)} sequential requests "
+                  f"{_percentiles(walls)}, {len(walls) * SERVE_SAMPLES / 24000 / sum(walls):.2f} "
+                  f"audio-s per wall-s; {len(rounds)} rounds of {SERVE_BATCH}: round "
+                  f"{_percentiles(rounds)}, "
+                  f"{len(rounds) * SERVE_BATCH * SERVE_SAMPLES / 24000 / sum(rounds):.2f} "
+                  "audio-s per wall-s")
+
+    # the CLI's sample --bf16, in-process, 10 steps from a WAV prompt
+    wav_path, out_dir = work / "prompt.wav", work / "bf16_out"
+    write_wav(wav_path, prompt, 24000)
+    ops.reset_launch_counts()
+    argv = ["sample", "--bf16", "--config", config, "--checkpoint", checkpoint,
+            "--device", "cuda", "--text", SERVE_SENTENCE, "--prompt", str(wav_path),
+            "--seconds", str(SERVE_SECONDS), "--timesteps", "10", "--cond-scale",
+            str(SERVE_COND_SCALE), "--out", str(out_dir)]
+    if cli.main(argv) != 0:
+        raise AssertionError("cli sample --bf16 failed")
+    wav, sr = load_audio(str(out_dir / "sample-0.wav"))
+    if sr != 24000 or wav.size == 0 or not np.isfinite(wav).all():
+        raise AssertionError(f"cli sample --bf16 wrote {wav.size} samples at {sr} Hz")
+    # 6.8 s is 510 frames, unbucketed: off the JAX package's block gates
+    # (510 % 8 != 0), so the self- and cross-attention run unfused on K4 and
+    # the feed-forward as tensor ops, each step: K1, 2 x DEPTH + the
+    # resampler's K4
+    per_step = {k: 0 for k in SERVE_BF16_PART} | {
+        "wavenet_body": 1, "flash_forward": 2 * DEPTH + RESAMPLER_DEPTH}
+    _check_bf16_counts("25", "cli sample --bf16 (10 guided steps at 510 frames)",
+                       ops.launch_counts(), ops.launch_counts(torch.bfloat16), SERVE_F32_PART,
+                       {k: 10 * v for k, v in per_step.items()})
+    log("25", f"cli.main(['sample', '--bf16', ...]): {wav.size} samples at {sr} Hz, finite")
+    return bf16_engine, counts
+
+
+def _correlation(a, b) -> float:
+    import torch
+
+    return torch.corrcoef(torch.stack([a.flatten().double(), b.flatten().double()]))[0, 1].item()
+
+
+def phase26_bf16_card_vs_cpu(bf16_engine, engine, config: str, checkpoint: str) -> None:
+    """bf16 on the card (kernels) against bf16 on the CPU (plain versions),
+    README config 2 at full width: one guided denoiser forward (b1 x 200
+    frames, cond_scale 2.5) and a 2-step served sample with the same
+    injected noise, each within BF16_PATH_TOL of the CPU's largest entry
+    and correlated ≥ BF16_CORR; the card's bf16 sample's correlation with
+    its f32 one, at least BF16_F32_CORR."""
+    import torch
+
+    from naturalspeech2_tpu_torch import cli
+    from naturalspeech2_tpu_torch.models.denoiser import forward_with_cond_scale
+
+    cpu = cli.build_engine(config, checkpoint, timesteps=SERVE_CHECK_STEPS,
+                           cond_scale=SERVE_COND_SCALE, device="cpu",
+                           prompt_samples=PROMPT_SAMPLES, dtype="bfloat16")
+    g = torch.Generator().manual_seed(SEED + 202)
+    n, p = SERVE_CHECK_FRAMES, PROMPT_SAMPLES // 320
+    x = torch.randn(1, n, DIM, generator=g).bfloat16()
+    prompt_enc = torch.randn(1, p, DIM_PROMPT, generator=g).bfloat16()
+    cond = torch.randn(1, n, DIM_PROMPT, generator=g).bfloat16()
+    times = torch.full((1,), 0.5)
+    with torch.no_grad():
+        on_card = forward_with_cond_scale(bf16_engine.ns2.model, x.cuda(), times.cuda(),
+                                          prompt=prompt_enc.cuda(), cond=cond.cuda(),
+                                          cond_scale=SERVE_COND_SCALE)
+        on_cpu = forward_with_cond_scale(cpu.ns2.model, x, times, prompt=prompt_enc, cond=cond,
+                                         cond_scale=SERVE_COND_SCALE)
+    compare("26", f"guided denoiser forward in bf16 b1 x n{n}, card vs CPU", on_card, on_cpu,
+            BF16_PATH_TOL, relative=True)
+    corr = _correlation(on_card.float().cpu(), on_cpu.float())
+    log("26", f"guided forward card vs CPU correlation {corr:.6f} (at least {BF16_CORR})")
+    if corr < BF16_CORR:
+        raise AssertionError(f"guided forward correlation {corr:.6f} below {BF16_CORR}")
+
+    seconds = SERVE_CHECK_FRAMES * 320 / 24000
+    for e in (bf16_engine, engine):
+        e.timesteps = SERVE_CHECK_STEPS
+    try:
+        reqs = [e._prepare(SERVE_SENTENCE, _serving_prompt(), seconds, 0)
+                for e in (bf16_engine, cpu, engine)]
+        noise = torch.randn(1, reqs[0].f_bucket, DIM,
+                            generator=torch.Generator().manual_seed(SEED + 203))
+        card = torch.from_numpy(bf16_engine._run_batch([reqs[0]], noise=noise.cuda())[0])
+        host = torch.from_numpy(cpu._run_batch([reqs[1]], noise=noise)[0])
+        card_f32 = torch.from_numpy(engine._run_batch([reqs[2]], noise=noise.cuda())[0])
+    finally:
+        for e in (bf16_engine, engine):
+            e.timesteps = STEPS
+    label = f"served waveform in bf16 ({SERVE_CHECK_STEPS} guided steps)"
+    compare("26", f"{label}, card vs CPU", card, host, BF16_PATH_TOL, relative=True)
+    corr, corr_f32 = _correlation(card, host), _correlation(card, card_f32)
+    log("26", f"{label}: correlation card vs CPU {corr:.6f} (at least {BF16_CORR}); with the "
+              f"card's f32 sample {corr_f32:.6f} (at least {BF16_F32_CORR})")
+    if corr < BF16_CORR or corr_f32 < BF16_F32_CORR:
+        raise AssertionError(f"bf16 sample correlations {corr:.6f}, {corr_f32:.6f}")
+
+
 def _profile(label: str, fn) -> None:
     """torch.profiler around ``fn()`` (after one warm-up call): wall time,
-    the device's busy share and the device time by kernel."""
+    the device's busy share and launches, the device time by kernel, and
+    the host operators with the most self CPU time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2094,10 +2702,16 @@ def _profile(label: str, fn) -> None:
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log("profile", f"{label}: wall {wall_ms:.2f} ms (profiled), device busy {busy_ms:.2f} ms "
-                   f"({100 * busy_ms / wall_ms:.1f} %)")
+                   f"({100 * busy_ms / wall_ms:.1f} %), {sum(e.count for e in kernels)} device "
+                   "calls")
     for e in kernels[:20]:
         log("profile", f"{e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d} calls  "
                        f"{e.key[:100]}")
+    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    for e in host[:12]:
+        log("profile", f"host {e.self_cpu_time_total / 1e3:10.3f} ms  {e.count:6d} calls  "
+                       f"{e.key[:90]}")
 
 
 def sdpa_kernel_names() -> None:
@@ -2121,16 +2735,40 @@ def sdpa_kernel_names() -> None:
         log("profile", f"SDPA {label} f32 [4,{HEADS},1024,{DIM_HEAD}] runs: {names}")
 
 
+def profile_bf16_guided(ns2, x, times, prompt_enc, cond) -> None:
+    """torch.profiler over 10 guided denoise steps of README config 2 in
+    bf16 (a `cast_floating` copy of the denoiser, the inputs cast once, as
+    `sample(dtype=torch.bfloat16)` runs them), then the same 10 steps in
+    f32 again: the bf16 step's device time and busy share beside f32's."""
+    import torch
+
+    from naturalspeech2_tpu_torch.models.denoiser import forward_with_cond_scale
+    from naturalspeech2_tpu_torch.models.naturalspeech2 import cast_floating
+
+    bf16_model = cast_floating(ns2.model, torch.bfloat16)
+    x16, p16, c16 = x.bfloat16(), prompt_enc.bfloat16(), cond.bfloat16()
+    for label, model, args in (("bf16", bf16_model, (x16, p16, c16)),
+                               ("f32, again", ns2.model, (x, prompt_enc, cond))):
+        def steps(model=model, args=args):
+            for _ in range(10):
+                forward_with_cond_scale(model, args[0], times, prompt=args[1], cond=args[2],
+                                        cond_scale=COND_SCALE)
+
+        with torch.no_grad():
+            _profile(f"10 guided denoise steps, {label}", steps)
+
+
 def profile_runs() -> int:
     """torch.profiler over 10 flagship denoise steps at b4 x n1024, over a
     10-step conditional sample of README config 2, over 10 guided denoise
-    steps alone and K2b's calls of those steps alone, over one RVQ call at
+    steps alone (then in bf16 and f32 again) and K2b's calls of those steps
+    alone, over one RVQ call at
     the training shape, over one long-form denoise step at n 4500 and at n 9000,
     over one scaled denoise step at b16 x n1024 x dim 512, over one
     training loss and backward at b16 x 2 s and over one conditional one
     (README config 2, phase 18's batch), with the host time of its MAS, CTC
     and pitch loops, and over one served request (phase 20's engine and
-    sentence); then the kernels SDPA runs."""
+    sentence) in f32 and in bf16; then the kernels SDPA runs."""
     import torch
 
     import naturalspeech2_tpu_torch as ns2pkg
@@ -2167,6 +2805,7 @@ def profile_runs() -> int:
                                         cond_scale=COND_SCALE)
 
         _profile("10 guided denoise steps", steps)
+        profile_bf16_guided(ns2, x, times, prompt_enc, cond)
         # K2b's kernels share their names with K2's (the GEMM core's q and
         # W_o launches, K4's core): its own device time, apart
         args = cross_inputs(torch.Generator(device="cuda").manual_seed(SEED + 9),
@@ -2231,15 +2870,17 @@ def profile_runs() -> int:
 
     from naturalspeech2_tpu_torch import cli
 
-    with tempfile.TemporaryDirectory() as work:
-        engine = cli.build_engine(*_serving_checkpoint(Path(work)), timesteps=STEPS,
-                                  cond_scale=SERVE_COND_SCALE, device="cuda",
-                                  prompt_samples=PROMPT_SAMPLES)
-    engine.warmup([SERVE_BUCKET])
     prompt = _serving_prompt()
-    _profile(f"1 served request, bucket {SERVE_BUCKET}, {STEPS} guided steps (engine.tts)",
-             lambda: engine.tts(SERVE_SENTENCE, prompt, seconds=SERVE_SECONDS))
-    del engine
+    with tempfile.TemporaryDirectory() as work:
+        checkpoint = _serving_checkpoint(Path(work))
+        for dtype in (None, "bfloat16"):
+            engine = cli.build_engine(*checkpoint, timesteps=STEPS, cond_scale=SERVE_COND_SCALE,
+                                      device="cuda", prompt_samples=PROMPT_SAMPLES, dtype=dtype)
+            engine.warmup([SERVE_BUCKET])
+            _profile(f"1 served request, {dtype or 'float32'}, bucket {SERVE_BUCKET}, {STEPS} "
+                     "guided steps (engine.tts)",
+                     lambda: engine.tts(SERVE_SENTENCE, prompt, seconds=SERVE_SECONDS))
+            del engine
     sdpa_kernel_names()
     return 0
 
@@ -2265,10 +2906,12 @@ def main() -> int:
 
     phase1_card_and_build()
     summary = phase2_sampling_kernels()
+    bf16_summary = phase22_bf16_kernels()
     ns2_cpu = flagship(SEED)
     ns2 = copy.deepcopy(ns2_cpu).cuda()
     sample_counts = phase3_sample(ns2)
     phase4_5_card_vs_cpu(ns2, ns2_cpu)
+    bf16_sample_counts = phase23_bf16_flagship(ns2, sample_counts)
     summary += phase6_training_kernels()
     with tempfile.TemporaryDirectory() as work:
         train_counts = phase7_train(Path(work))
@@ -2285,6 +2928,7 @@ def main() -> int:
     cond_cpu = flagship(SEED + 30, conditional=True)
     cond = copy.deepcopy(cond_cpu).cuda()
     cond_counts = phase10_conditional_sample(cond)
+    phase23_bf16_guided_step(cond)
     phase11_conditional_card_vs_cpu(cond, cond_cpu)
     del cond, cond_cpu
 
@@ -2296,6 +2940,8 @@ def main() -> int:
                           scan_layers=True)
     scaled = copy.deepcopy(scaled_cpu).cuda()
     scaled_counts = phase14_scaled(scaled)
+    bf16_long_counts, bf16_scaled_counts = phase24_bf16_longform_scaled(
+        long_ns2, long_counts, scaled, scaled_counts)
     phase15_card_vs_cpu(long_ns2, long_cpu, scaled, scaled_cpu)
     del long_ns2, long_cpu, scaled, scaled_cpu
     phase16_widths(summary)
@@ -2311,15 +2957,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         serve_counts, engine, config, checkpoint = phase20_serving(Path(work))
         phase21_serving_card_vs_cpu(engine, config, checkpoint)
-    del engine
+        bf16_engine, (serve_bf16_f32, serve_bf16_bf16) = phase25_bf16_serving(
+            engine, config, checkpoint, Path(work))
+        phase26_bf16_card_vs_cpu(bf16_engine, engine, config, checkpoint)
+    del engine, bf16_engine
 
     for entry in summary:
         name = entry["name"]
+        entry["dtype"] = "float32"
         by_path = {"sample": sample_counts[name], "train": train_counts[name],
                    "conditional_sample": cond_counts[name],
                    **{f"longform_{n}": c[name] for n, c in long_counts.items()},
                    "scaled_sample": scaled_counts[name],
-                   "conditional_train": cond_train_counts[name], "serve": serve_counts[name]}
+                   "conditional_train": cond_train_counts[name], "serve": serve_counts[name],
+                   "serve_bf16": serve_bf16_f32[name]}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2327,6 +2978,22 @@ def main() -> int:
                    if k not in entry]
         if missing:
             raise AssertionError(f"{entry['name']}: summary lacks {missing}")
+    for entry in bf16_summary:
+        name = entry["name"]
+        by_path = {"sample_bf16": bf16_sample_counts[name],
+                   **{f"longform_{n}_bf16": c[name] for n, c in bf16_long_counts.items()},
+                   "scaled_sample_bf16": bf16_scaled_counts[name],
+                   "serve_bf16": serve_bf16_bf16[name]}
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
+        if entry["launches"] == 0:
+            raise AssertionError(f"bf16 {name}: no launch on the bf16 paths")
+        missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
+                               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+                   if k not in entry]
+        if missing:
+            raise AssertionError(f"bf16 {entry['name']}: summary lacks {missing}")
+    summary += bf16_summary
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -38,16 +38,26 @@ _F = ctypes.c_float
 _FLASH_TAIL = [_F, _U, _U, _F, _I, _U, _F, _P]
 # C signature of every entry point: pointers and the stream as c_void_p
 # (ctypes would otherwise pass 32-bit ints and cut them), sizes as c_int.
+# A bf16 entry point is a symbol of its own (``<name>_bf16``), so that a
+# bf16 call can never reach an f32 kernel.
 SIGNATURES = {
     "ns2_wavenet_body": [_P] * 10 + [_I] * 5 + [_P],
+    "ns2_wavenet_body_bf16": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes": [_P] * 10 + [_I] * 5 + [_P],
+    "ns2_wavenet_lanes_bf16": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_attn_block": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "ns2_attn_block_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
     "ns2_cross_attn_block": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "ns2_cross_attn_block_bf16": [_P] * 11 + [_I] * 7 + [_F, _P],
     "ns2_ff_block": [_P] * 13 + [_I] * 4 + [_P],
+    "ns2_ff_block_bf16": [_P] * 13 + [_I] * 4 + [_P],
     "ns2_flash_fwd": [_P] * 6 + [_I] * 6 + _FLASH_TAIL,
+    "ns2_flash_fwd_bf16": [_P] * 6 + [_I] * 6 + _FLASH_TAIL,
     "ns2_flash_bwd": [_P] * 10 + [_I] * 6 + _FLASH_TAIL,
     "ns2_rvq": [_P] * 8 + [_I] * 4 + [_P],
 }
+# The kernels' activation types, and the suffix of their entry points.
+KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -146,9 +156,13 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda_f32(name: str, **tensors: torch.Tensor) -> torch.device:
-    """Check that every tensor is a contiguous f32 tensor on one CUDA
-    device; return that device."""
+def require_cuda(name: str, dtype: torch.dtype = torch.float32,
+                 **tensors: torch.Tensor) -> torch.device:
+    """Check that every tensor is a contiguous ``dtype`` tensor on one CUDA
+    device; return that device. ``dtype`` is float32, or bfloat16 where the
+    kernel has a bf16 entry point."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernels take float32 or bfloat16, not {dtype}")
     device = None
     for arg, t in tensors.items():
         if t.device.type != "cuda":
@@ -157,11 +171,28 @@ def require_cuda_f32(name: str, **tensors: torch.Tensor) -> torch.device:
             device = t.device
         elif t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, other inputs on {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} has dtype {t.dtype}; the kernel takes float32")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}; the kernel takes {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
     return device
+
+
+def entry(name: str, dtype: torch.dtype):
+    """The entry point ``name`` for operands of ``dtype`` (``<name>_bf16``
+    for bfloat16)."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernels take float32 or bfloat16, not {dtype}")
+    return getattr(library(), name + KERNEL_DTYPES[dtype])
+
+
+def count(wrapper, dtype: torch.dtype) -> None:
+    """One launch of ``wrapper``'s kernel through its ``dtype`` entry point:
+    ``wrapper.launches_bf16`` for bfloat16, ``wrapper.launches`` else."""
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def require_shapes(name: str, **pairs: tuple[torch.Tensor, tuple[int, ...]]) -> None:

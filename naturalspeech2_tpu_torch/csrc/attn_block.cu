@@ -28,39 +28,91 @@
 // exact zeros in the packed weights (zero q and k columns change no logit,
 // zero v columns give zero output columns, which meet zero W_o rows); the
 // norm takes √dm from the real width, and the caller's scale is unchanged.
+//
+// bf16 (`ns2_attn_block_bf16`, the JAX kernel's `mm = bfloat16` path,
+// attn_block_kernel.py:100-154): the same three launches on bf16 operands,
+// the products bf16 `wgmma` with f32 accumulation. The norm runs in f32 on
+// the loader and rounds n(x) to bf16 as it stages it; q, k and v are
+// rounded to bf16 where the first epilogue stores them; K4's bf16 kernel
+// rounds P before P·V and writes o in bf16; the W_o GEMM sums the heads and
+// the residual in f32 and rounds y once. One difference from the TPU
+// kernel: K4 rescales its online softmax per key tile, so P is rounded
+// against the running row max, not the final one (one bf16 ulp on some
+// probabilities; chip_smoke.py holds the block to its plain version).
 #include "gemm_tf32x3.cuh"
 
 namespace gemm = ns2::gemm;
+using ns2::bf16;
 
 extern "C" int ns2_flash_fwd(const float* q, const float* k, const float* v,
                              const unsigned char* mask, float* o, float* lse, int b, int h,
                              int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                              unsigned seed1, float rate, int stride, unsigned threshold,
                              float keep_scale, void* stream);
+extern "C" int ns2_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                  const unsigned char* mask, bf16* o, float* lse, int b, int h,
+                                  int n_q, int n_kv, int d, int causal, float scale,
+                                  unsigned seed0, unsigned seed1, float rate, int stride,
+                                  unsigned threshold, float keep_scale, void* stream);
+
+namespace {
+
+// K4 without mask, causal masking, dropout or lse, at the block's type.
+int attention_core(const float* q, const float* k, const float* v, float* o, int b, int heads,
+                   int n_q, int n_kv, int dh, float scale, void* stream) {
+  return ns2_flash_fwd(q, k, v, nullptr, o, nullptr, b, heads, n_q, n_kv, dh, 0, scale, 0u, 0u,
+                       0.0f, 0, 0u, 1.0f, stream);
+}
+
+int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, int heads,
+                   int n_q, int n_kv, int dh, float scale, void* stream) {
+  return ns2_flash_fwd_bf16(q, k, v, nullptr, o, nullptr, b, heads, n_q, n_kv, dh, 0, scale, 0u,
+                            0u, 0.0f, 0, 0u, 1.0f, stream);
+}
+
+template <class T>
+int attn_block(const T* x, const T* gamma, const T* beta, const T* bt_qkv, const T* bt_out,
+               T* qkv, T* o, T* out, int b, int n, int dm, int heads, int dh, float scale,
+               void* stream) {
+  constexpr gemm::Mode M = gemm::kModeOf<T>;
+  if (dm <= 0 || n <= 0 || b <= 0 || heads <= 0 || (dh != 64 && (dh <= 0 || dh % 128 != 0)))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = b * n;
+  cudaError_t err = gemm::launch<M>(
+      gemm::NormRows<T>{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_qkv, rows,
+      (dm + gemm::kKC - 1) / gemm::kKC, 3 * heads * dh / gemm::kBN,
+      gemm::QkvScatter<T>{qkv, rows, n, heads, b, dh}, st);
+  if (err != cudaSuccess) return err;
+  const size_t plane = (size_t)rows * heads * dh;
+  err = (cudaError_t)attention_core(qkv, qkv + plane, qkv + 2 * plane, o, b, heads, n, n, dh,
+                                    scale, stream);
+  if (err != cudaSuccess) return err;
+  return gemm::launch<M>(gemm::HeadRows<T>{o, rows, n, heads, dh}, bt_out, rows,
+                         heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
+                         gemm::Store<T>{out, nullptr, x, rows, dm, dm}, st);
+}
+
+}  // namespace
 
 // x [b,n,dm] -> out [b,n,dm], heads of dh = 64 or a multiple of 128 (K4's
 // head widths). The packed weights
 // (ops/gemm_cache.py): bt_qkv (N = 3·H·dh, column which·H·dh + h·dh + e;
 // K = dm padded to 32) and bt_out (N = dm, K = H·dh). qkv [3, b, H, n, dh]
-// and o [b, H, n, dh] are f32 scratch. Three launches.
+// and o [b, H, n, dh] are scratch of the block's type. Three launches.
 NS2_API int ns2_attn_block(const float* x, const float* gamma, const float* beta,
                            const float* bt_qkv, const float* bt_out, float* qkv, float* o,
                            float* out, int b, int n, int dm, int heads, int dh, float scale,
                            void* stream) {
-  if (dm <= 0 || n <= 0 || b <= 0 || heads <= 0 || (dh != 64 && (dh <= 0 || dh % 128 != 0)))
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = b * n;
-  cudaError_t err = gemm::launch(
-      gemm::NormRows{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_qkv, rows,
-      (dm + gemm::kKC - 1) / gemm::kKC, 3 * heads * dh / gemm::kBN,
-      gemm::QkvScatter{qkv, rows, n, heads, b, dh}, st);
-  if (err != cudaSuccess) return err;
-  const size_t plane = (size_t)rows * heads * dh;
-  err = (cudaError_t)ns2_flash_fwd(qkv, qkv + plane, qkv + 2 * plane, nullptr, o, nullptr, b,
-                                   heads, n, n, dh, 0, scale, 0u, 0u, 0.0f, 0, 0u, 1.0f, stream);
-  if (err != cudaSuccess) return err;
-  return gemm::launch(gemm::HeadRows{o, rows, n, heads, dh}, bt_out, rows,
-                      heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
-                      gemm::Store{out, nullptr, x, rows, dm, dm}, st);
+  return attn_block(x, gamma, beta, bt_qkv, bt_out, qkv, o, out, b, n, dm, heads, dh, scale,
+                    stream);
+}
+
+// The same in bf16: every pointer bf16, the weights packed as bf16.
+NS2_API int ns2_attn_block_bf16(const bf16* x, const bf16* gamma, const bf16* beta,
+                                const bf16* bt_qkv, const bf16* bt_out, bf16* qkv, bf16* o,
+                                bf16* out, int b, int n, int dm, int heads, int dh, float scale,
+                                void* stream) {
+  return attn_block(x, gamma, beta, bt_qkv, bt_out, qkv, o, out, b, n, dm, heads, dh, scale,
+                    stream);
 }

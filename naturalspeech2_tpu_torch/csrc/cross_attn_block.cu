@@ -38,42 +38,82 @@
 #include "gemm_tf32x3.cuh"
 
 namespace gemm = ns2::gemm;
+using ns2::bf16;
 
 extern "C" int ns2_flash_fwd(const float* q, const float* k, const float* v,
                              const unsigned char* mask, float* o, float* lse, int b, int h,
                              int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                              unsigned seed1, float rate, int stride, unsigned threshold,
                              float keep_scale, void* stream);
+extern "C" int ns2_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                  const unsigned char* mask, bf16* o, float* lse, int b, int h,
+                                  int n_q, int n_kv, int d, int causal, float scale,
+                                  unsigned seed0, unsigned seed1, float rate, int stride,
+                                  unsigned threshold, float keep_scale, void* stream);
 
-// x [b,n,dm], ctx [b,m,dc] -> out [b,n,dm], heads of dh = 64 or a multiple of
-// 128 (K4's head widths). The packed weights: bt_q (N = H·dh, column h·dh +
-// e; K = dm), bt_kv (N = 2·H·dh, k's heads then v's; K = dc) and bt_out (N =
-// dm, K = H·dh). q [b, H, n, dh], kv [2, b, H, m, dh] and o [b, H, n, dh] are
-// f32 scratch. Four launches.
-NS2_API int ns2_cross_attn_block(const float* x, const float* ctx, const float* gamma,
-                                 const float* beta, const float* bt_q, const float* bt_kv,
-                                 const float* bt_out, float* q, float* kv, float* o, float* out,
-                                 int b, int n, int m, int dm, int dc, int heads, int dh,
-                                 float scale, void* stream) {
+namespace {
+
+int attention_core(const float* q, const float* k, const float* v, float* o, int b, int heads,
+                   int n_q, int n_kv, int dh, float scale, void* stream) {
+  return ns2_flash_fwd(q, k, v, nullptr, o, nullptr, b, heads, n_q, n_kv, dh, 0, scale, 0u, 0u,
+                       0.0f, 0, 0u, 1.0f, stream);
+}
+
+int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, int heads,
+                   int n_q, int n_kv, int dh, float scale, void* stream) {
+  return ns2_flash_fwd_bf16(q, k, v, nullptr, o, nullptr, b, heads, n_q, n_kv, dh, 0, scale, 0u,
+                            0u, 0.0f, 0, 0u, 1.0f, stream);
+}
+
+template <class T>
+int cross_attn_block(const T* x, const T* ctx, const T* gamma, const T* beta, const T* bt_q,
+                     const T* bt_kv, const T* bt_out, T* q, T* kv, T* o, T* out, int b, int n,
+                     int m, int dm, int dc, int heads, int dh, float scale, void* stream) {
+  constexpr gemm::Mode M = gemm::kModeOf<T>;
   if (dm <= 0 || dc <= 0 || n <= 0 || m <= 0 || b <= 0 || heads <= 0 ||
       (dh != 64 && (dh <= 0 || dh % 128 != 0)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = b * n, ctx_rows = b * m;
-  cudaError_t err = gemm::launch(
-      gemm::NormRows{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_q, rows,
+  cudaError_t err = gemm::launch<M>(
+      gemm::NormRows<T>{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_q, rows,
       (dm + gemm::kKC - 1) / gemm::kKC, heads * dh / gemm::kBN,
-      gemm::QkvScatter{q, rows, n, heads, b, dh}, st);
+      gemm::QkvScatter<T>{q, rows, n, heads, b, dh}, st);
   if (err != cudaSuccess) return err;
-  err = gemm::launch(gemm::Rows{ctx, ctx_rows, dc}, bt_kv, ctx_rows,
-                     (dc + gemm::kKC - 1) / gemm::kKC, 2 * heads * dh / gemm::kBN,
-                     gemm::QkvScatter{kv, ctx_rows, m, heads, b, dh}, st);
+  err = gemm::launch<M>(gemm::Rows<T>{ctx, ctx_rows, dc}, bt_kv, ctx_rows,
+                        (dc + gemm::kKC - 1) / gemm::kKC, 2 * heads * dh / gemm::kBN,
+                        gemm::QkvScatter<T>{kv, ctx_rows, m, heads, b, dh}, st);
   if (err != cudaSuccess) return err;
   const size_t plane = (size_t)ctx_rows * heads * dh;
-  err = (cudaError_t)ns2_flash_fwd(q, kv, kv + plane, nullptr, o, nullptr, b, heads, n, m, dh, 0,
-                                   scale, 0u, 0u, 0.0f, 0, 0u, 1.0f, stream);
+  err = (cudaError_t)attention_core(q, kv, kv + plane, o, b, heads, n, m, dh, scale, stream);
   if (err != cudaSuccess) return err;
-  return gemm::launch(gemm::HeadRows{o, rows, n, heads, dh}, bt_out, rows,
-                      heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
-                      gemm::Store{out, nullptr, x, rows, dm, dm}, st);
+  return gemm::launch<M>(gemm::HeadRows<T>{o, rows, n, heads, dh}, bt_out, rows,
+                         heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
+                         gemm::Store<T>{out, nullptr, x, rows, dm, dm}, st);
+}
+
+}  // namespace
+
+// x [b,n,dm], ctx [b,m,dc] -> out [b,n,dm], heads of dh = 64 or a multiple of
+// 128 (K4's head widths). The packed weights: bt_q (N = H·dh, column h·dh +
+// e; K = dm), bt_kv (N = 2·H·dh, k's heads then v's; K = dc) and bt_out (N =
+// dm, K = H·dh). q [b, H, n, dh], kv [2, b, H, m, dh] and o [b, H, n, dh] are
+// scratch of the block's type. Four launches.
+NS2_API int ns2_cross_attn_block(const float* x, const float* ctx, const float* gamma,
+                                 const float* beta, const float* bt_q, const float* bt_kv,
+                                 const float* bt_out, float* q, float* kv, float* o, float* out,
+                                 int b, int n, int m, int dm, int dc, int heads, int dh,
+                                 float scale, void* stream) {
+  return cross_attn_block(x, ctx, gamma, beta, bt_q, bt_kv, bt_out, q, kv, o, out, b, n, m, dm,
+                          dc, heads, dh, scale, stream);
+}
+
+// The same in bf16: every pointer bf16, the weights packed as bf16.
+NS2_API int ns2_cross_attn_block_bf16(const bf16* x, const bf16* ctx, const bf16* gamma,
+                                      const bf16* beta, const bf16* bt_q, const bf16* bt_kv,
+                                      const bf16* bt_out, bf16* q, bf16* kv, bf16* o, bf16* out,
+                                      int b, int n, int m, int dm, int dc, int heads, int dh,
+                                      float scale, void* stream) {
+  return cross_attn_block(x, ctx, gamma, beta, bt_q, bt_kv, bt_out, q, kv, o, out, b, n, m, dm,
+                          dc, heads, dh, scale, stream);
 }

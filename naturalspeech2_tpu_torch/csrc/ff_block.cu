@@ -25,33 +25,64 @@
 // The wrapper pads ip to a multiple of 32 and dm to the chunk of 32 with
 // exact zeros in the packed weights, which change no sum; the norm takes
 // √dm from the real width.
+//
+// bf16 (`ns2_ff_block_bf16`, ff_block_kernel.py:102-130): the same three
+// launches on bf16 operands, bf16 `wgmma` with f32 accumulation: n(x)
+// rounded to bf16 as it is staged; the GEGLU and its biases in f32 and `a`
+// rounded once where the epilogue stores it (the JAX kernel's one downcast
+// shared by the three conv taps), so the scratches are bf16; c = conv + b_c
+// rounded before W₂; y + b₂ + x in f32, rounded once.
 #include "gemm_tf32x3.cuh"
 
 namespace gemm = ns2::gemm;
+using ns2::bf16;
+
+namespace {
+
+template <class T>
+int ff_block(const T* x, const T* gamma, const T* beta, const T* bt_geglu, const T* b_val,
+             const T* b_gate, const T* bt_conv, const T* bc, const T* bt_out, const T* b2,
+             T* a_buf, T* c_buf, T* out, int b, int n, int dm, int ip, void* stream) {
+  constexpr gemm::Mode M = gemm::kModeOf<T>;
+  if (ip % gemm::kKC != 0 || dm <= 0 || n <= 0 || b <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = b * n;
+  const int dm_chunks = (dm + gemm::kKC - 1) / gemm::kKC;
+  cudaError_t err = gemm::launch<M>(
+      gemm::NormRows<T>{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_geglu, rows,
+      dm_chunks, ip / gemm::kKC, gemm::Geglu<T>{a_buf, b_val, b_gate, rows, ip}, st);
+  if (err != cudaSuccess) return err;
+  err = gemm::launch<M>(gemm::TapRows<T>{a_buf, rows, n, ip, 3, 1}, bt_conv, rows,
+                        3 * ip / gemm::kKC, (ip + gemm::kBN - 1) / gemm::kBN,
+                        gemm::Store<T>{c_buf, bc, nullptr, rows, ip, ip}, st);
+  if (err != cudaSuccess) return err;
+  return gemm::launch<M>(gemm::TapRows<T>{c_buf, rows, n, ip, 1, 0}, bt_out, rows,
+                         ip / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
+                         gemm::Store<T>{out, b2, x, rows, dm, dm}, st);
+}
+
+}  // namespace
 
 // x [b,n,dm] -> out [b,n,dm]. The packed weights (ops/gemm_cache.py):
 // bt_geglu (ip/32 tiles of 32 value and 32 gate columns over K = dm padded
 // to 32), bt_conv (N = ip, K = 3·ip), bt_out (N = dm, K = ip); biases b_val,
-// b_gate, bc [ip] and b2 [dm]. a_buf and c_buf are [b·n, ip] f32 scratch.
-// Three launches; ip % 32 != 0 returns cudaErrorInvalidValue.
+// b_gate, bc [ip] and b2 [dm]. a_buf and c_buf are [b·n, ip] scratch of the
+// block's type. Three launches; ip % 32 != 0 returns cudaErrorInvalidValue.
 NS2_API int ns2_ff_block(const float* x, const float* gamma, const float* beta,
                          const float* bt_geglu, const float* b_val, const float* b_gate,
                          const float* bt_conv, const float* bc, const float* bt_out,
                          const float* b2, float* a_buf, float* c_buf, float* out, int b, int n,
                          int dm, int ip, void* stream) {
-  if (ip % gemm::kKC != 0 || dm <= 0 || n <= 0 || b <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = b * n;
-  const int dm_chunks = (dm + gemm::kKC - 1) / gemm::kKC;
-  cudaError_t err = gemm::launch(
-      gemm::NormRows{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_geglu, rows, dm_chunks,
-      ip / gemm::kKC, gemm::Geglu{a_buf, b_val, b_gate, rows, ip}, st);
-  if (err != cudaSuccess) return err;
-  err = gemm::launch(gemm::TapRows{a_buf, rows, n, ip, 3, 1}, bt_conv, rows, 3 * ip / gemm::kKC,
-                     (ip + gemm::kBN - 1) / gemm::kBN,
-                     gemm::Store{c_buf, bc, nullptr, rows, ip, ip}, st);
-  if (err != cudaSuccess) return err;
-  return gemm::launch(gemm::TapRows{c_buf, rows, n, ip, 1, 0}, bt_out, rows, ip / gemm::kKC,
-                      (dm + gemm::kBN - 1) / gemm::kBN, gemm::Store{out, b2, x, rows, dm, dm},
-                      st);
+  return ff_block(x, gamma, beta, bt_geglu, b_val, b_gate, bt_conv, bc, bt_out, b2, a_buf,
+                  c_buf, out, b, n, dm, ip, stream);
+}
+
+// The same in bf16: every pointer bf16, the weights packed as bf16.
+NS2_API int ns2_ff_block_bf16(const bf16* x, const bf16* gamma, const bf16* beta,
+                              const bf16* bt_geglu, const bf16* b_val, const bf16* b_gate,
+                              const bf16* bt_conv, const bf16* bc, const bf16* bt_out,
+                              const bf16* b2, bf16* a_buf, bf16* c_buf, bf16* out, int b, int n,
+                              int dm, int ip, void* stream) {
+  return ff_block(x, gamma, beta, bt_geglu, b_val, b_gate, bt_conv, bc, bt_out, b2, a_buf,
+                  c_buf, out, b, n, dm, ip, stream);
 }

@@ -271,10 +271,10 @@ __device__ __forceinline__ void add_product(float (&acc)[D / 8][4], const float 
 }
 
 // Rows ra and ra + 8 of a warp's accumulator, columns 8j + 2t + {0, 1}, to
-// D columns of a matrix of n_rows rows ld floats apart, each times its
-// row's factor.
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8][4], int ra,
+// D columns of a matrix (f32 or bf16, rounded) of n_rows rows ld elements
+// apart, each times its row's factor.
+template <int D, class T>
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[D / 8][4], int ra,
                                            int n_rows, int t, const float (&factor)[2],
                                            int ld = D) {
 #pragma unroll
@@ -283,8 +283,8 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8]
     if (row >= n_rows) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(dst + (size_t)row * ld + 8 * j + 2 * t) =
-          make_float2(acc[j][2 * r] * factor[r], acc[j][2 * r + 1] * factor[r]);
+      store2(dst + (size_t)row * ld + 8 * j + 2 * t, acc[j][2 * r] * factor[r],
+             acc[j][2 * r + 1] * factor[r]);
   }
 }
 

@@ -64,8 +64,10 @@ using ns2::kTile;
 // other's products do.
 constexpr int kKeys = 32;
 
+using ns2::bf16;
 using ns2::fence_proxy_async;
 using ns2::kmajor;
+using ns2::kmajor_bf16;
 using ns2::kmajor_desc;
 using ns2::pin;
 using ns2::store_split1;
@@ -75,11 +77,21 @@ using ns2::wg_fence;
 using ns2::wgmma_rs_n64;
 using ns2::wgmma_ss_n32;
 
+template <class T, int D>
+struct FwdSmem;
+
 template <int D>
-struct FwdSmem {
+struct FwdSmem<float, D> {
   float q_hi[kTile * D], q_lo[kTile * D];  // Q, K-major (64 rows, k = head dims)
   float k_hi[kKeys * D], k_lo[kKeys * D];  // K, K-major (32 keys, k = head dims)
   float v_hi[D * kKeys], v_lo[D * kKeys];  // Vᵀ, K-major (D dims, k = keys paired)
+};
+
+template <int D>
+struct FwdSmem<bf16, D> {
+  bf16 q[kTile * D];  // Q, bf16 K-major (64 rows, k = head dims)
+  bf16 k[kKeys * D];  // K, bf16 K-major (32 keys, k = head dims)
+  bf16 v[D * kKeys];  // Vᵀ, bf16 K-major (D dims, k = keys in order)
 };
 
 // A tile's K and V in registers, loaded ahead of their turn: K as float4s of
@@ -88,15 +100,26 @@ struct FwdSmem {
 // p, head dims lane % 8 + 8q, so that the transposed stores, by head dim
 // % 8 and key position % 4, hit 32 distinct banks. Rows are ld floats apart
 // (D, or the full head width when a wide head is walked in D-wide chunks).
+// bf16: K and V alike as 16-byte runs of 8 head dims of key e % 32, columns
+// 8·(e / 32).
+template <class T, int D>
+struct KvRegs;
+
 template <int D>
-struct KvRegs {
+struct KvRegs<float, D> {
   float4 k[kKeys * D / 4 / kFlashThreads];
   float v[2][D / 8];
 };
 
 template <int D>
-__device__ __forceinline__ void load_k(KvRegs<D>& r, const float* kh, int k0, int n_kv, int tid,
-                                       int ld) {
+struct KvRegs<bf16, D> {
+  uint4 k[kKeys * D / 8 / kFlashThreads];
+  uint4 v[kKeys * D / 8 / kFlashThreads];
+};
+
+template <int D>
+__device__ __forceinline__ void load_k(KvRegs<float, D>& r, const float* kh, int k0, int n_kv,
+                                       int tid, int ld) {
 #pragma unroll
   for (int i = 0; i < kKeys * D / 4 / kFlashThreads; ++i) {
     const int e = tid + kFlashThreads * i, row = k0 + e % kKeys, c4 = 4 * (e / kKeys);
@@ -106,8 +129,8 @@ __device__ __forceinline__ void load_k(KvRegs<D>& r, const float* kh, int k0, in
 }
 
 template <int D>
-__device__ __forceinline__ void load_v(KvRegs<D>& r, const float* vh, int k0, int n_kv, int tid,
-                                       int ld) {
+__device__ __forceinline__ void load_v(KvRegs<float, D>& r, const float* vh, int k0, int n_kv,
+                                       int tid, int ld) {
   const int lane = tid % 32;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
@@ -122,7 +145,8 @@ __device__ __forceinline__ void load_v(KvRegs<D>& r, const float* vh, int k0, in
 // key 2t of each 8 at k position t and key 2t + 1 at t + 4, so that P's
 // accumulator is the A operand of P·V as it stands.
 template <int D>
-__device__ __forceinline__ void store_k(FwdSmem<D>& sm, const KvRegs<D>& r, int tid) {
+__device__ __forceinline__ void store_k(FwdSmem<float, D>& sm, const KvRegs<float, D>& r,
+                                        int tid) {
 #pragma unroll
   for (int i = 0; i < kKeys * D / 4 / kFlashThreads; ++i) {
     const int e = tid + kFlashThreads * i;
@@ -131,7 +155,8 @@ __device__ __forceinline__ void store_k(FwdSmem<D>& sm, const KvRegs<D>& r, int 
 }
 
 template <int D>
-__device__ __forceinline__ void store_v(FwdSmem<D>& sm, const KvRegs<D>& r, int tid) {
+__device__ __forceinline__ void store_v(FwdSmem<float, D>& sm, const KvRegs<float, D>& r,
+                                        int tid) {
   const int lane = tid % 32;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
@@ -143,10 +168,60 @@ __device__ __forceinline__ void store_v(FwdSmem<D>& sm, const KvRegs<D>& r, int 
   }
 }
 
-// The block's 64 query rows (columns of Q ld floats apart), split K-major.
+// 16-byte runs of a bf16 [rows, ld] matrix: run e of R rows is row e % R,
+// columns 8·(e / R); zeros past n_rows.
+template <int R, int D>
+__device__ __forceinline__ uint4 load_run(const bf16* src, int row0, int n_rows, int e, int ld) {
+  const int row = row0 + e % R;
+  return row < n_rows ? *reinterpret_cast<const uint4*>(src + (size_t)row * ld + 8 * (e / R))
+                      : make_uint4(0u, 0u, 0u, 0u);
+}
+
 template <int D>
-__device__ __forceinline__ void stage_q(FwdSmem<D>& sm, const float* qh, int q0, int n_q, int tid,
-                                        int ld) {
+__device__ __forceinline__ void load_k(KvRegs<bf16, D>& r, const bf16* kh, int k0, int n_kv,
+                                       int tid, int ld) {
+#pragma unroll
+  for (int i = 0; i < kKeys * D / 8 / kFlashThreads; ++i)
+    r.k[i] = load_run<kKeys, D>(kh, k0, n_kv, tid + kFlashThreads * i, ld);
+}
+
+template <int D>
+__device__ __forceinline__ void load_v(KvRegs<bf16, D>& r, const bf16* vh, int k0, int n_kv,
+                                       int tid, int ld) {
+#pragma unroll
+  for (int i = 0; i < kKeys * D / 8 / kFlashThreads; ++i)
+    r.v[i] = load_run<kKeys, D>(vh, k0, n_kv, tid + kFlashThreads * i, ld);
+}
+
+// K: each run is 16 contiguous bytes of its core matrix. Vᵀ: each run's 8
+// head dims go to 8 rows of Vᵀ at the key's position, in key order.
+template <int D>
+__device__ __forceinline__ void store_k(FwdSmem<bf16, D>& sm, const KvRegs<bf16, D>& r,
+                                        int tid) {
+#pragma unroll
+  for (int i = 0; i < kKeys * D / 8 / kFlashThreads; ++i) {
+    const int e = tid + kFlashThreads * i;
+    *reinterpret_cast<uint4*>(sm.k + kmajor_bf16<kKeys>(e % kKeys, 8 * (e / kKeys))) = r.k[i];
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_v(FwdSmem<bf16, D>& sm, const KvRegs<bf16, D>& r,
+                                        int tid) {
+#pragma unroll
+  for (int i = 0; i < kKeys * D / 8 / kFlashThreads; ++i) {
+    const int e = tid + kFlashThreads * i, key = e % kKeys, c8 = 8 * (e / kKeys);
+    const bf16* vals = reinterpret_cast<const bf16*>(&r.v[i]);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) sm.v[kmajor_bf16<D>(c8 + u, key)] = vals[u];
+  }
+}
+
+// The block's 64 query rows (columns of Q ld elements apart), K-major:
+// split into hi and lo (f32) or as they are (bf16).
+template <int D>
+__device__ __forceinline__ void stage_q(FwdSmem<float, D>& sm, const float* qh, int q0, int n_q,
+                                        int tid, int ld) {
 #pragma unroll
   for (int i = 0; i < kTile * D / 4 / kFlashThreads; ++i) {
     const int e = tid + kFlashThreads * i, row = q0 + e % kTile, c4 = 4 * (e / kTile);
@@ -156,11 +231,23 @@ __device__ __forceinline__ void stage_q(FwdSmem<D>& sm, const float* qh, int q0,
   }
 }
 
+template <int D>
+__device__ __forceinline__ void stage_q(FwdSmem<bf16, D>& sm, const bf16* qh, int q0, int n_q,
+                                        int tid, int ld) {
+#pragma unroll
+  for (int i = 0; i < kTile * D / 8 / kFlashThreads; ++i) {
+    const int e = tid + kFlashThreads * i;
+    *reinterpret_cast<uint4*>(sm.q + kmajor_bf16<kTile>(e % kTile, 8 * (e / kTile))) =
+        load_run<kTile, D>(qh, q0, n_q, e, ld);
+  }
+}
+
 // s = Q Kᵀ over the D staged head dims: element (j, i) is row ra + 8·(i / 2),
 // key k0 + 8j + 2t + (i & 1); the large terms and the small ones summed in
 // separate accumulators and added at the end.
 template <int D>
-__device__ __forceinline__ void qk_product(const FwdSmem<D>& sm, float (&s)[kKeys / 8][4]) {
+__device__ __forceinline__ void qk_product(const FwdSmem<float, D>& sm,
+                                           float (&s)[kKeys / 8][4]) {
   float small[kKeys / 8][4];
 #pragma unroll
   for (int j = 0; j < kKeys / 8; ++j)
@@ -186,6 +273,23 @@ __device__ __forceinline__ void qk_product(const FwdSmem<D>& sm, float (&s)[kKey
   for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[j][i] += small[j][i];
+}
+
+// bf16: one pass, exact products summed in f32.
+template <int D>
+__device__ __forceinline__ void qk_product(const FwdSmem<bf16, D>& sm,
+                                           float (&s)[kKeys / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.0f;
+  pin(s);
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    ns2::wgmma_bf16_ss_n32(s, kmajor_desc<kTile>(sm.q, ks), kmajor_desc<kKeys>(sm.k, ks));
+  wg_commit_wait();
+  pin(s);
 }
 
 // Where a block's rows and keys are, and the rules that hide a key.
@@ -245,7 +349,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kKeys / 8][4], float (&m
 // apart and added in f32.
 template <int D>
 __device__ __forceinline__ void add_pv(float (&acc)[D / 8][4], const float (&s)[kKeys / 8][4],
-                                       const float (&corr)[2], const FwdSmem<D>& sm) {
+                                       const float (&corr)[2], const FwdSmem<float, D>& sm) {
   uint32_t pa_hi[kKeys / 8][4], pa_lo[kKeys / 8][4];
 #pragma unroll
   for (int ks = 0; ks < kKeys / 8; ++ks) ns2::a_from_acc(s[ks], pa_hi[ks], pa_lo[ks]);
@@ -281,9 +385,50 @@ __device__ __forceinline__ void add_pv(float (&acc)[D / 8][4], const float (&s)[
   }
 }
 
-// o = acc / l for the block's rows (row stride ld) and, if lse, lse = m + log l.
+// bf16: P rounded to bf16 as the register operand (keys 16ks .. 16ks + 15
+// of the accumulator, pair for pair), Vᵀ's rows 64·h.. 512·h elements into
+// each k-step.
 template <int D>
-__device__ __forceinline__ void finish(float* oh, float* lse_h, const float (&acc)[D / 8][4],
+__device__ __forceinline__ void add_pv(float (&acc)[D / 8][4], const float (&s)[kKeys / 8][4],
+                                       const float (&corr)[2], const FwdSmem<bf16, D>& sm) {
+  uint32_t pa[kKeys / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < kKeys / 16; ++ks) {
+    pa[ks][0] = ns2::pack_bf16x2(s[2 * ks][0], s[2 * ks][1]);
+    pa[ks][1] = ns2::pack_bf16x2(s[2 * ks][2], s[2 * ks][3]);
+    pa[ks][2] = ns2::pack_bf16x2(s[2 * ks + 1][0], s[2 * ks + 1][1]);
+    pa[ks][3] = ns2::pack_bf16x2(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+  }
+#pragma unroll
+  for (int h = 0; h < D / 64; ++h) {
+    float part[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[j][i] = 0.0f;
+    pin(part);
+    pin(pa);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kKeys / 16; ++ks)
+      ns2::wgmma_bf16_rs_n64(part, pa[ks], kmajor_desc<D>(sm.v + 512 * h, ks));
+    wg_commit_wait();
+    pin(part);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* a = acc[8 * h + j];
+      a[0] = a[0] * corr[0] + part[j][0];
+      a[1] = a[1] * corr[0] + part[j][1];
+      a[2] = a[2] * corr[1] + part[j][2];
+      a[3] = a[3] * corr[1] + part[j][3];
+    }
+  }
+}
+
+// o = acc / l for the block's rows (row stride ld; rounded to T) and, if
+// lse, lse = m + log l in f32.
+template <int D, class T>
+__device__ __forceinline__ void finish(T* oh, float* lse_h, const float (&acc)[D / 8][4],
                                        const float (&m)[2], const float (&l)[2], const TileRules& rw,
                                        int ld) {
   float inv_l[2];
@@ -298,21 +443,22 @@ __device__ __forceinline__ void finish(float* oh, float* lse_h, const float (&ac
 }
 
 // grid (ceil(n_q / 64), b·h), 128 threads (one warpgroup); dynamic shared
-// memory sizeof(FwdSmem<D>) = 65,536 or 131,072 bytes. kLse: store lse (K2's
-// attention core, which needs no backward state, skips it).
-template <int D, bool kLse>
+// memory sizeof(FwdSmem<T, D>) = 65,536 or 131,072 bytes (f32), 16,384 or
+// 32,768 (bf16). kLse: store lse (K2's attention core, which needs no
+// backward state, skips it). T: the element type of q, k, v and o.
+template <class T, int D, bool kLse>
 __global__ void __launch_bounds__(kFlashThreads, D == 64 ? 2 : 1)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const unsigned char* __restrict__ mask,
-                 float* __restrict__ o, float* __restrict__ lse, int heads, int n_q, int n_kv,
-                 int causal, float scale, ns2::Dropout dr) {
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const unsigned char* __restrict__ mask, T* __restrict__ o,
+                 float* __restrict__ lse, int heads, int n_q, int n_kv, int causal, float scale,
+                 ns2::Dropout dr) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(smem_raw);
+  FwdSmem<T, D>& sm = *reinterpret_cast<FwdSmem<T, D>*>(smem_raw);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
-  const float* kh = k + (size_t)bh * n_kv * D;
-  const float* vh = v + (size_t)bh * n_kv * D;
+  const T* kh = k + (size_t)bh * n_kv * D;
+  const T* vh = v + (size_t)bh * n_kv * D;
   // this lane's rows of the warp's 16: ra = q0 + 16·warp + g (index 0) and
   // ra + 8 (index 1); acc[j] holds columns 8j + 2t, 8j + 2t + 1 of both
   const TileRules rw{mask ? mask + (size_t)(bh / heads) * n_kv : nullptr,
@@ -321,7 +467,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int k_end = causal ? min(n_kv, q0 + kTile) : n_kv;
   const int n_tiles = (k_end + kKeys - 1) / kKeys;
-  KvRegs<D> regs;
+  KvRegs<T, D> regs;
   load_k(regs, kh, 0, n_kv, tid, D);
   load_v(regs, vh, 0, n_kv, tid, D);
   stage_q(sm, q + (size_t)bh * n_q * D, q0, n_q, tid, D);
@@ -362,21 +508,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // recomputes the logits (d / 128 times in all) and restages Q per chunk:
 // simple, and a first kernel for widths no config of the repo uses. lse
 // is written by block z = 0 alone. Loads are not overlapped with products.
-template <bool kLse>
+template <class T, bool kLse>
 __global__ void __launch_bounds__(kFlashThreads, 1)
-flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const unsigned char* __restrict__ mask,
-                      float* __restrict__ o, float* __restrict__ lse, int heads, int n_q,
-                      int n_kv, int d, int causal, float scale, ns2::Dropout dr) {
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const unsigned char* __restrict__ mask, T* __restrict__ o,
+                      float* __restrict__ lse, int heads, int n_q, int n_kv, int d, int causal,
+                      float scale, ns2::Dropout dr) {
   constexpr int D = 128;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(smem_raw);
+  FwdSmem<T, D>& sm = *reinterpret_cast<FwdSmem<T, D>*>(smem_raw);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int q0 = blockIdx.x * kTile, bh = blockIdx.y, oc = blockIdx.z, nc = d / D;
-  const float* qh = q + (size_t)bh * n_q * d;
-  const float* kh = k + (size_t)bh * n_kv * d;
-  const float* vh = v + (size_t)bh * n_kv * d;
+  const T* qh = q + (size_t)bh * n_q * d;
+  const T* kh = k + (size_t)bh * n_kv * d;
+  const T* vh = v + (size_t)bh * n_kv * d;
   const TileRules rw{mask ? mask + (size_t)(bh / heads) * n_kv : nullptr,
                      bh / heads, bh % heads, q0 + 16 * warp + lane / 4, q0 + 16 * warp,
                      n_q, n_kv, causal, lane % 4, scale};
@@ -390,7 +536,7 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
 
-  KvRegs<D> regs;
+  KvRegs<T, D> regs;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kKeys;
     float s[kKeys / 8][4];
@@ -424,12 +570,12 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
             kLse && oc == 0 ? lse + (size_t)bh * n_q : nullptr, acc, m, l, rw, d);
 }
 
-template <int D>
-cudaError_t launch_fwd(const float* q, const float* k, const float* v, const unsigned char* mask,
-                       float* o, float* lse, int b, int h, int n_q, int n_kv, int causal,
-                       float scale, const ns2::Dropout& dr, cudaStream_t stream) {
-  const int bytes = (int)sizeof(FwdSmem<D>);
-  auto kernel = lse ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
+template <class T, int D>
+cudaError_t launch_fwd(const T* q, const T* k, const T* v, const unsigned char* mask, T* o,
+                       float* lse, int b, int h, int n_q, int n_kv, int causal, float scale,
+                       const ns2::Dropout& dr, cudaStream_t stream) {
+  const int bytes = (int)sizeof(FwdSmem<T, D>);
+  auto kernel = lse ? flash_fwd_kernel<T, D, true> : flash_fwd_kernel<T, D, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -439,12 +585,12 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, const uns
   return cudaGetLastError();
 }
 
-cudaError_t launch_fwd_wide(const float* q, const float* k, const float* v,
-                            const unsigned char* mask, float* o, float* lse, int b, int h,
-                            int n_q, int n_kv, int d, int causal, float scale,
-                            const ns2::Dropout& dr, cudaStream_t stream) {
-  const int bytes = (int)sizeof(FwdSmem<128>);
-  auto kernel = lse ? flash_fwd_wide_kernel<true> : flash_fwd_wide_kernel<false>;
+template <class T>
+cudaError_t launch_fwd_wide(const T* q, const T* k, const T* v, const unsigned char* mask, T* o,
+                            float* lse, int b, int h, int n_q, int n_kv, int d, int causal,
+                            float scale, const ns2::Dropout& dr, cudaStream_t stream) {
+  const int bytes = (int)sizeof(FwdSmem<T, 128>);
+  auto kernel = lse ? flash_fwd_wide_kernel<T, true> : flash_fwd_wide_kernel<T, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -452,6 +598,20 @@ cudaError_t launch_fwd_wide(const float* q, const float* k, const float* v,
   kernel<<<grid, kFlashThreads, bytes, stream>>>(q, k, v, mask, o, lse, h, n_q, n_kv, d, causal,
                                                  scale, dr);
   return cudaGetLastError();
+}
+
+template <class T>
+int flash_fwd(const T* q, const T* k, const T* v, const unsigned char* mask, T* o, float* lse,
+              int b, int h, int n_q, int n_kv, int d, int causal, float scale,
+              const ns2::Dropout& dr, void* stream) {
+  if ((d != 64 && (d <= 0 || d % 128 != 0)) || n_q <= 0 || n_kv <= 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_fwd<T, 64>(q, k, v, mask, o, lse, b, h, n_q, n_kv, causal, scale, dr, st);
+  if (d == 128)
+    return launch_fwd<T, 128>(q, k, v, mask, o, lse, b, h, n_q, n_kv, causal, scale, dr, st);
+  return launch_fwd_wide<T>(q, k, v, mask, o, lse, b, h, n_q, n_kv, d, causal, scale, dr, st);
 }
 
 }  // namespace
@@ -467,13 +627,18 @@ NS2_API int ns2_flash_fwd(const float* q, const float* k, const float* v,
                           int n_kv, int d, int causal, float scale, unsigned seed0,
                           unsigned seed1, float rate, int stride, unsigned threshold,
                           float keep_scale, void* stream) {
-  if ((d != 64 && (d <= 0 || d % 128 != 0)) || n_q <= 0 || n_kv <= 0)
-    return cudaErrorInvalidValue;
-  const ns2::Dropout dr{seed0, seed1, rate, stride, threshold, keep_scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_fwd<64>(q, k, v, mask, o, lse, b, h, n_q, n_kv, causal, scale, dr, st);
-  if (d == 128)
-    return launch_fwd<128>(q, k, v, mask, o, lse, b, h, n_q, n_kv, causal, scale, dr, st);
-  return launch_fwd_wide(q, k, v, mask, o, lse, b, h, n_q, n_kv, d, causal, scale, dr, st);
+  return flash_fwd(q, k, v, mask, o, lse, b, h, n_q, n_kv, d, causal, scale,
+                   ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale}, stream);
+}
+
+// The same with q, k, v and o in bf16 (lse f32); rate > 0 returns
+// cudaErrorInvalidValue: dropout in bf16 belongs to AMP training.
+NS2_API int ns2_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                               const unsigned char* mask, bf16* o, float* lse, int b, int h,
+                               int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
+                               unsigned seed1, float rate, int stride, unsigned threshold,
+                               float keep_scale, void* stream) {
+  if (rate > 0.0f) return cudaErrorInvalidValue;
+  return flash_fwd(q, k, v, mask, o, lse, b, h, n_q, n_kv, d, causal, scale,
+                   ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale}, stream);
 }

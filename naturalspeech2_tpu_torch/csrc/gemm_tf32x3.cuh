@@ -48,7 +48,25 @@
 // K is (K3's conv has K = 3 · 1376 at dim 512).
 // Groups: grid z runs `groups` GEMMs of one shape in one launch (K1: the L
 // lanes of a stack); the loader and the epilogue take the group's operands
-// in `group(z)`, and group z's B lies z · b_group floats on.
+// in `group(z)`, and group z's B lies z · b_group elements on.
+//
+// Operand modes (the template parameter `Mode`), for the bf16 path of the
+// JAX kernels:
+//  - kSplit3: the above, f32 A and B, three TF32 passes;
+//  - kSplit2: f32 A, B a bf16 weight held as TF32 (exact: bf16 has 8
+//    significant bits, TF32 11), packed with no lo part, so a_hi·b +
+//    a_lo·b is the whole f32-accurate product in two passes. K1 and K1b in
+//    bf16, whose JAX kernel keeps its lanes in f32 and multiplies them by
+//    bf16 weights (`wavenet_kernel.py:93`, `:189`);
+//  - kBf16: A rounded to bf16 where the loader hands it over (after the
+//    f32 prologue: the JAX kernels' `xn.astype(mm)`), B packed as bf16,
+//    one `wgmma.m64n64k16` bf16 pass with f32 accumulation, 989 TFLOP/s
+//    dense (H100 SXM, 700 W). K2, K2b and K3 in bf16.
+// A chunk of 32 k is four TF32 k-steps or two bf16 ones; each is summed in
+// fresh accumulators and added to the f32 result, as above. Loaders read
+// f32 or bf16 activations and hand f32 values to the staging; epilogues
+// take the types of their outputs, biases and residuals as template
+// parameters and round once, where they store.
 #pragma once
 
 #include <stdint.h>
@@ -60,32 +78,60 @@ namespace gemm {
 
 constexpr int kBM = 64;                 // rows of C per block: wgmma's m
 constexpr int kBN = 64;                 // columns of C per warpgroup
-constexpr int kKC = 32;                 // k per staged chunk: four k-steps of 8
+constexpr int kKC = 32;                 // k per staged chunk
 constexpr int kThreads = 128;           // one warpgroup
-constexpr int kTile = kBM * kKC;        // floats of one operand tile (kBN == kBM)
+constexpr int kTile = kBM * kKC;        // elements of one operand tile (kBN == kBM)
 static_assert(kBN == kBM, "A and B tiles share the K-major layout");
+
+enum class Mode { kSplit3, kSplit2, kBf16 };
+
+// A mode's staged element type and its parts of A and of B (hi, lo).
+template <Mode M>
+struct Fmt {
+  using T = float;
+  static constexpr int kA = 2, kB = M == Mode::kSplit3 ? 2 : 1;
+};
+template <>
+struct Fmt<Mode::kBf16> {
+  using T = bf16;
+  static constexpr int kA = 1, kB = 1;
+};
+
+// The mode of a block kernel's products for its activation type: split
+// TF32 for f32, bf16 for bf16.
+template <class T>
+constexpr Mode kModeOf = sizeof(T) == 4 ? Mode::kSplit3 : Mode::kBf16;
 
 // Threads that stage A: one warpgroup, or the first two of a larger block.
 template <int WN>
 constexpr int kStagers = (WN == 1 ? 1 : 2) * kThreads;
 
-template <int WN>
+template <int WN, Mode M>
 struct Smem {
-  float a[2][2][kTile];               // [stage][hi, lo], K-major, shared by the warpgroups
-  float b[2][WN][2][kTile];           // [stage][warpgroup][hi, lo], K-major, as cached
+  using T = typename Fmt<M>::T;
+  T a[2][Fmt<M>::kA][kTile];          // [stage][hi, lo], K-major, shared by the warpgroups
+  T b[2][WN][Fmt<M>::kB][kTile];      // [stage][warpgroup][hi, lo], K-major, as cached
   float part[kStagers<WN> / kBM][kBM];  // the norm prologue's partial sums of squares
 };
 
-// Four consecutive values p[k .. k+3], zero at and past n; a float4 load
-// where `vec` (n % 4 == 0 and p 16-byte aligned).
+// Four consecutive values p[k .. k+3] as f32, zero at and past n; one
+// vector load where `vec` (n % 4 == 0 and p aligned to four elements).
 __device__ __forceinline__ float4 load4(const float* __restrict__ p, int k, int n, bool vec) {
   if (vec && k + 4 <= n) return *reinterpret_cast<const float4*>(p + k);
   return make_float4(k < n ? p[k] : 0.0f, k + 1 < n ? p[k + 1] : 0.0f,
                      k + 2 < n ? p[k + 2] : 0.0f, k + 3 < n ? p[k + 3] : 0.0f);
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return ((uintptr_t)p & 15) == 0;
+__device__ __forceinline__ float4 load4(const bf16* __restrict__ p, int k, int n, bool vec) {
+  if (vec && k + 4 <= n) return load4v(p + k);
+  return make_float4(k < n ? to_f32(p[k]) : 0.0f, k + 1 < n ? to_f32(p[k + 1]) : 0.0f,
+                     k + 2 < n ? to_f32(p[k + 2]) : 0.0f, k + 3 < n ? to_f32(p[k + 3]) : 0.0f);
+}
+
+// p aligned to four elements of T (a float4, or four bf16).
+template <class T>
+__device__ __forceinline__ bool aligned4(const T* p) {
+  return ((uintptr_t)p & (4 * sizeof(T) - 1)) == 0;
 }
 
 // ---- A loaders: init(row, part, tid, lanes) once per thread, `lanes`
@@ -94,15 +140,17 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 
 // A = n(x), the adaptive RMSNorm x / max(‖x‖, 1e-12) · √dm · γ_b + β_b of
 // x [rows, dm] with γ, β [b, dm] and row = b·n + t; zero past dm. The norm
-// uses the real width dm, whatever K is padded to.
+// uses the real width dm, whatever K is padded to, and runs in f32 on
+// f32 or bf16 inputs (In).
+template <class In>
 struct NormRows {
-  const float* x;
-  const float* gamma;
-  const float* beta;
+  const In* x;
+  const In* gamma;
+  const In* beta;
   int rows, n, dm;
   float sqrt_dm;
-  const float *p, *g, *be;
-  const float *pc, *gc, *bc;  // the chunk's x, γ, β
+  const In *p, *g, *be;
+  const In *pc, *gc, *bc;  // the chunk's x, γ, β
   int left;                   // dm - the chunk's first k
   float scale;
   bool ok, vec;
@@ -118,7 +166,7 @@ struct NormRows {
     p = x + (size_t)r * dm;
     g = gamma + (size_t)bi * dm;
     be = beta + (size_t)bi * dm;
-    vec = dm % 4 == 0 && aligned16(x) && aligned16(gamma) && aligned16(beta);
+    vec = dm % 4 == 0 && aligned4(x) && aligned4(gamma) && aligned4(beta);
     if (tid < lanes * kBM) {
       float ss = 0.0f;
       for (int k = 4 * (tid / kBM); k < dm; k += 4 * lanes) {
@@ -152,10 +200,11 @@ struct NormRows {
 
 // A = a [rows, w] as it stands, zero past w (any w): K2b's context and K6's
 // residual.
+template <class In>
 struct Rows {
-  const float* a;
+  const In* a;
   int rows, w;
-  const float *p, *pc;  // the row, and the chunk's
+  const In *p, *pc;  // the row, and the chunk's
   int left;             // w - the chunk's first k
   bool ok, vec;
 
@@ -164,7 +213,7 @@ struct Rows {
   __device__ void init(int row, float*, int, int) {
     ok = row < rows;
     p = a + (size_t)(ok ? row : 0) * w;
-    vec = w % 4 == 0 && aligned16(a);
+    vec = w % 4 == 0 && aligned4(a);
   }
 
   __device__ void chunk(int c) {
@@ -183,12 +232,13 @@ struct Rows {
 // views at dilation δ; with taps 1 the rows of a as they are; with taps L,
 // dil 0 and tap_stride one lane, L lanes side by side. Group z reads a + z ·
 // group_stride at dilation dil · 2^z (K1: lane l at δ = 2^l). Each a_tap is
-// [rows, w], w % 32 == 0, 16-byte aligned.
+// [rows, w] of In (f32 or bf16), w % 32 == 0, aligned to four elements.
+template <class In>
 struct TapRows {
-  const float* a;
+  const In* a;
   int rows, n, w, taps, dil;
   size_t tap_stride, group_stride;
-  const float *p, *pc;  // the row, and the chunk's shifted row
+  const In *p, *pc;  // the row, and the chunk's shifted row
   int t;
   bool ok, live;         // live: the chunk's source row exists
 
@@ -210,17 +260,18 @@ struct TapRows {
   }
 
   __device__ float4 get(int j) const {
-    return live ? *reinterpret_cast<const float4*>(pc + j) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return live ? load4v(pc + j) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 };
 
 // A[row, h·dh + e] = o[b, h, t, e] (row = b·n + t): K4's output [b, H, n,
 // dh] as the rows of the heads' concatenation, each head one contiguous
-// [n, dh] tile; dh % 32 == 0.
+// [n, dh] tile of In; dh % 32 == 0.
+template <class In>
 struct HeadRows {
-  const float* o;
+  const In* o;
   int rows, n, heads, dh;
-  const float *p, *pc;  // the row of head 0, and the chunk's
+  const In *p, *pc;  // the row of head 0, and the chunk's
   size_t head_stride;
   bool ok;
 
@@ -239,7 +290,7 @@ struct HeadRows {
   }
 
   __device__ float4 get(int j) const {
-    return ok ? *reinterpret_cast<const float4*>(pc + j) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return ok ? load4v(pc + j) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 };
 
@@ -249,11 +300,12 @@ struct HeadRows {
 // 8j + 2t + e (e = 0, 1) as acc[j][2r + e].
 
 // out[row, col] = acc + bias[col] (+ res[row, col]) for col < ncols, both
-// [rows, ld]; bias and res may be null.
+// [rows, ld]; bias and res may be null. The sum is f32, rounded once to Out.
+template <class Out, class Bias = Out, class Res = Out>
 struct Store {
-  float* out;
-  const float* bias;
-  const float* res;
+  Out* out;
+  const Bias* bias;
+  const Res* res;
   int rows, ncols, ld;
 
   __device__ void group(int) {}
@@ -271,7 +323,8 @@ struct Store {
           const int col = n0 + 8 * j + 2 * (lane % 4) + e;
           if (col >= ncols) continue;
           const size_t at = (size_t)row * ld + col;
-          out[at] = acc[j][2 * r + e] + (bias ? bias[col] : 0.0f) + (res ? res[at] : 0.0f);
+          out[at] = from_f32<Out>(acc[j][2 * r + e] + (bias ? to_f32(bias[col]) : 0.0f) +
+                                  (res ? to_f32(res[at]) : 0.0f));
         }
     }
   }
@@ -280,11 +333,13 @@ struct Store {
 // K3's GEGLU: tile j holds value columns 32j .. 32j + 31 in its first 32
 // columns and the same gate columns in its last 32 (the weight cache
 // interleaves them so), and writes
-//   a[row, c] = gelu_tanh(gate + b_gate[c]) · (val + b_val[c]),  a [rows, w].
+//   a[row, c] = gelu_tanh(gate + b_gate[c]) · (val + b_val[c]),  a [rows, w],
+// in f32, rounded once to Out.
+template <class Out, class Bias = Out>
 struct Geglu {
-  float* a;
-  const float* b_val;
-  const float* b_gate;
+  Out* a;
+  const Bias* b_val;
+  const Bias* b_gate;
   int rows, w;
 
   __device__ void group(int) {}
@@ -300,8 +355,9 @@ struct Geglu {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = n0 / 2 + 8 * j + 2 * (lane % 4) + e;
-          a[(size_t)row * w + c] = gelu_tanh(acc[j + 4][2 * r + e] + b_gate[c]) *
-                                   (acc[j][2 * r + e] + b_val[c]);
+          a[(size_t)row * w + c] = from_f32<Out>(
+              gelu_tanh(acc[j + 4][2 * r + e] + to_f32(b_gate[c])) *
+              (acc[j][2 * r + e] + to_f32(b_val[c])));
         }
     }
   }
@@ -309,9 +365,10 @@ struct Geglu {
 
 // K2's q/k/v: column which·H·dh + h·dh + e (which: q, k, v) is column e
 // of head h of that projection, scattered into K4's layout qkv [3, b, H, n,
-// dh]; dh % 64 == 0, so a 64-column tile lies within one head.
+// dh] of Out; dh % 64 == 0, so a 64-column tile lies within one head.
+template <class Out>
 struct QkvScatter {
-  float* qkv;
+  Out* qkv;
   int rows, n, heads, batch, dh;
 
   __device__ void group(int) {}
@@ -324,11 +381,10 @@ struct QkvScatter {
       const int row = m0 + 16 * warp + lane / 4 + 8 * r;
       if (row >= rows) continue;
       const int bi = row / n, t = row % n;
-      float* dst = qkv + ((((size_t)which * batch + bi) * heads + h) * n + t) * dh + e0;
+      Out* dst = qkv + ((((size_t)which * batch + bi) * heads + h) * n + t) * dh + e0;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
-        *reinterpret_cast<float2*>(dst + 8 * jj + 2 * (lane % 4)) =
-            make_float2(acc[jj][2 * r], acc[jj][2 * r + 1]);
+        store2(dst + 8 * jj + 2 * (lane % 4), acc[jj][2 * r], acc[jj][2 * r + 1]);
     }
   }
 };
@@ -389,13 +445,16 @@ struct ArgMin {
 // weight cache interleaves them so), and writes lane l of the next stack:
 //   y = conv + cb[c],  y = y·γ + β,  out[row, c] = tanh(y)·σ(y) + res + rb[c]
 // with γ = film[b][c], β = film[b][w + c] (row = b·n + t; batch rows
-// film_b floats apart). Group z (lane z) writes out + z · out_group and
-// reads its biases and FiLM z·w and z·2w floats on. out is [rows, w].
+// film_b elements apart). Group z (lane z) writes out + z · out_group and
+// reads its biases and FiLM z·w and z·2w elements on. out is [rows, w] of
+// Out (the lanes: f32 in both modes, as the JAX kernel keeps them); the
+// biases and FiLM are P (the parameters' type); the gate runs in f32.
+template <class Out, class P>
 struct WaveGate {
-  float* out;
-  const float* cb;
-  const float* rb;
-  const float* film;
+  Out* out;
+  const P* cb;
+  const P* rb;
+  const P* film;
   size_t out_group, film_b;
   int rows, n, w;
 
@@ -412,14 +471,15 @@ struct WaveGate {
     for (int r = 0; r < 2; ++r) {
       const int row = m0 + 16 * warp + lane / 4 + 8 * r;
       if (row >= rows) continue;
-      const float* f = film + (size_t)(row / n) * film_b;
+      const P* f = film + (size_t)(row / n) * film_b;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = n0 / 2 + 8 * j + 2 * (lane % 4) + e;
-          const float y = (acc[j][2 * r + e] + cb[c]) * f[c] + f[w + c];
-          out[(size_t)row * w + c] = tanhf(y) * sigmoid(y) + acc[j + 4][2 * r + e] + rb[c];
+          const float y = (acc[j][2 * r + e] + to_f32(cb[c])) * to_f32(f[c]) + to_f32(f[w + c]);
+          out[(size_t)row * w + c] = from_f32<Out>(tanhf(y) * sigmoid(y) +
+                                                   acc[j + 4][2 * r + e] + to_f32(rb[c]));
         }
     }
   }
@@ -428,30 +488,32 @@ struct WaveGate {
 // ---- the kernel -----------------------------------------------------------
 
 // grid (ceil(M / 64), ceil(n_tiles / WN), groups), 128·WN threads, dynamic
-// shared memory sizeof(Smem<WN>). bt: the packed Bᵀ of group 0, tile (j, c)
-// at (j·chunks + c)·2·kTile, hi then lo; group z's at bt + z·b_group. A
-// warpgroup past the last column tile runs its products on whatever its B
-// stage holds and stores nothing.
+// shared memory sizeof(Smem<WN, M>). bt: the packed Bᵀ of group 0, tile
+// (j, c) at (j·chunks + c)·kB·kTile elements, hi then lo where there is a lo
+// (Fmt<M>); group z's at bt + z·b_group. A warpgroup past the last column
+// tile runs its products on whatever its B stage holds and stores nothing.
 // Blocks an SM: three of one warpgroup, two of two (at most 128 registers a
 // thread: K1's and K1b's blocks), one of three.
 template <int WN>
 constexpr int kBlocksPerSm = WN == 1 ? 3 : (WN == 2 ? 2 : 1);
 
-template <int WN, class Loader, class Epilogue>
+template <int WN, Mode M, class Loader, class Epilogue>
 __global__ void __launch_bounds__(WN * kThreads, kBlocksPerSm<WN>)
-gemm_kernel(Loader loader, const float* __restrict__ bt, size_t b_group, int chunks,
-            int n_tiles, Epilogue epi) {
+gemm_kernel(Loader loader, const typename Fmt<M>::T* __restrict__ bt, size_t b_group,
+            int chunks, int n_tiles, Epilogue epi) {
+  using T = typename Fmt<M>::T;
+  constexpr int kB = Fmt<M>::kB;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem<WN>& sm = *reinterpret_cast<Smem<WN>*>(smem_raw);
+  Smem<WN, M>& sm = *reinterpret_cast<Smem<WN, M>*>(smem_raw);
 
   const int tid = threadIdx.x, wg = tid / kThreads, t = tid % kThreads;
   const int warp = t / 32, lane = t % 32;
   const int m0 = blockIdx.x * kBM, tile = blockIdx.y * WN + wg, n0 = tile * kBN;
   const bool live = tile < n_tiles;  // the same for the whole warpgroup
-  const float* bj = bt + blockIdx.z * b_group + (size_t)tile * chunks * 2 * kTile;
+  const T* bj = bt + blockIdx.z * b_group + (size_t)tile * chunks * kB * kTile;
   // a staging thread's row and its float4 columns 4·(cq + lanes·i) of a
-  // chunk: a warp stores 32 rows' 16 bytes, one contiguous 512-byte run per
-  // k-half
+  // chunk: a warp stores 32 rows' 16 (TF32) or 8 (bf16) bytes, one
+  // contiguous run per k-half
   constexpr int kLanes = kStagers<WN> / kBM;      // staging threads per row of A
   constexpr int kA4 = kTile / 4 / kStagers<WN>;   // float4s per staging thread
   static_assert(kA4 * kStagers<WN> * 4 == kTile, "A's chunk divides over its stagers");
@@ -463,9 +525,10 @@ gemm_kernel(Loader loader, const float* __restrict__ bt, size_t b_group, int chu
 
   auto load_b = [&](int c, int s) {
     if (!live) return;
-    const float* src = bj + (size_t)c * 2 * kTile;
-    float* dst = &sm.b[s][wg][0][0];
-    for (int e = 4 * t; e < 2 * kTile; e += 4 * kThreads) cp_async16(dst + e, src + e, true);
+    const char* src = reinterpret_cast<const char*>(bj + (size_t)c * kB * kTile);
+    char* dst = reinterpret_cast<char*>(&sm.b[s][wg][0][0]);
+    constexpr int kBytes = kB * kTile * (int)sizeof(T);
+    for (int e = 16 * t; e < kBytes; e += 16 * kThreads) cp_async16(dst + e, src + e, true);
   };
   float4 areg[kA4];
   auto load_a = [&](int c) {
@@ -477,8 +540,13 @@ gemm_kernel(Loader loader, const float* __restrict__ bt, size_t b_group, int chu
   auto store_a = [&](int s) {
     if (!stager) return;
 #pragma unroll
-    for (int i = 0; i < kA4; ++i)
-      store_split4(sm.a[s][0], sm.a[s][1], kmajor<kBM>(sr, 4 * (cq + kLanes * i)), areg[i]);
+    for (int i = 0; i < kA4; ++i) {
+      const int k = 4 * (cq + kLanes * i);
+      if constexpr (M == Mode::kBf16)
+        store_bf16x4(sm.a[s][0], kmajor_bf16<kBM>(sr, k), areg[i]);
+      else
+        store_split4(sm.a[s][0], sm.a[s][1], kmajor<kBM>(sr, k), areg[i]);
+    }
   };
 
   load_b(0, 0);
@@ -501,23 +569,32 @@ gemm_kernel(Loader loader, const float* __restrict__ bt, size_t b_group, int chu
     fence_proxy_async();
     __syncthreads();     // chunk c of A and B is in shared memory, for wgmma too
 
+    // the chunk's large terms and small ones (split modes), each summed
+    // in fresh accumulators
     float big[8][4], small[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) big[j][i] = small[j][i] = 0.0f;
     pin(big);
-    pin(small);
+    if constexpr (M != Mode::kBf16) pin(small);
     wg_fence();
+    if constexpr (M == Mode::kBf16) {
 #pragma unroll
-    for (int ks = 0; ks < kKC / 8; ++ks) {
-      const uint64_t a_hi = kmajor_desc<kBM>(sm.a[s][0], ks);
-      const uint64_t a_lo = kmajor_desc<kBM>(sm.a[s][1], ks);
-      const uint64_t b_hi = kmajor_desc<kBN>(sm.b[s][wg][0], ks);
-      const uint64_t b_lo = kmajor_desc<kBN>(sm.b[s][wg][1], ks);
-      wgmma_ss_n64(small, a_hi, b_lo);
-      wgmma_ss_n64(small, a_lo, b_hi);
-      wgmma_ss_n64(big, a_hi, b_hi);
+      for (int ks = 0; ks < kKC / 16; ++ks)
+        wgmma_bf16_ss_n64(big, kmajor_desc<kBM>(sm.a[s][0], ks),
+                          kmajor_desc<kBN>(sm.b[s][wg][0], ks));
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < kKC / 8; ++ks) {
+        const uint64_t a_hi = kmajor_desc<kBM>(sm.a[s][0], ks);
+        const uint64_t a_lo = kmajor_desc<kBM>(sm.a[s][1], ks);
+        const uint64_t b_hi = kmajor_desc<kBN>(sm.b[s][wg][0], ks);
+        if constexpr (M == Mode::kSplit3)
+          wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));
+        wgmma_ss_n64(small, a_lo, b_hi);
+        wgmma_ss_n64(big, a_hi, b_hi);
+      }
     }
     wg_commit();
     // while the products run: split and stage chunk c + 1 of A (stage s ^ 1
@@ -528,7 +605,7 @@ gemm_kernel(Loader loader, const float* __restrict__ bt, size_t b_group, int chu
     }
     wg_wait0();
     pin(big);
-    pin(small);
+    if constexpr (M != Mode::kBf16) pin(small);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -553,22 +630,23 @@ inline int sm_count() {
   return count;
 }
 
-// `groups` GEMMs in grid z, group z's B b_group floats after group 0's.
+// `groups` GEMMs in grid z, group z's B b_group elements after group 0's.
 struct Groups {
   int groups = 1;
   size_t b_group = 0;
 };
 
-template <int WN, class Loader, class Epilogue>
-cudaError_t launch_wn(const Loader& loader, const float* bt, int rows, int chunks, int n_tiles,
-                      const Epilogue& epi, cudaStream_t stream, Groups g = Groups()) {
+template <int WN, Mode M = Mode::kSplit3, class Loader, class Epilogue>
+cudaError_t launch_wn(const Loader& loader, const typename Fmt<M>::T* bt, int rows, int chunks,
+                      int n_tiles, const Epilogue& epi, cudaStream_t stream,
+                      Groups g = Groups()) {
   if (rows <= 0 || chunks <= 0 || n_tiles <= 0 || g.groups <= 0) return cudaErrorInvalidValue;
-  const int bytes = (int)sizeof(Smem<WN>);
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<WN, Loader, Epilogue>,
+  const int bytes = (int)sizeof(Smem<WN, M>);
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<WN, M, Loader, Epilogue>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((rows + kBM - 1) / kBM, (n_tiles + WN - 1) / WN, g.groups);
-  gemm_kernel<WN, Loader, Epilogue><<<grid, WN * kThreads, bytes, stream>>>(
+  gemm_kernel<WN, M, Loader, Epilogue><<<grid, WN * kThreads, bytes, stream>>>(
       loader, bt, g.b_group, chunks, n_tiles, epi);
   return cudaGetLastError();
 }
@@ -576,19 +654,19 @@ cudaError_t launch_wn(const Loader& loader, const float* bt, int rows, int chunk
 constexpr int kSharedWN = 3;  // warpgroups sharing an A tile where the grid is large
 
 // C = epilogue(A · B) over `rows` rows and n_tiles · 64 columns, K =
-// chunks · 32 (for each of g.groups groups); launched on `stream` without
-// synchronising. Three warpgroups share each A tile where that still gives
-// every SM such a block (one fits), else a block is one warpgroup (three an
-// SM).
-template <class Loader, class Epilogue>
-cudaError_t launch(const Loader& loader, const float* bt, int rows, int chunks, int n_tiles,
-                   const Epilogue& epi, cudaStream_t stream, Groups g = Groups()) {
+// chunks · 32 (for each of g.groups groups), in operand mode M; launched on
+// `stream` without synchronising. Three warpgroups share each A tile where
+// that still gives every SM such a block (one fits), else a block is one
+// warpgroup (three an SM).
+template <Mode M = Mode::kSplit3, class Loader, class Epilogue>
+cudaError_t launch(const Loader& loader, const typename Fmt<M>::T* bt, int rows, int chunks,
+                   int n_tiles, const Epilogue& epi, cudaStream_t stream, Groups g = Groups()) {
   if (rows <= 0 || chunks <= 0 || n_tiles <= 0) return cudaErrorInvalidValue;
   const long shared = (long)((rows + kBM - 1) / kBM) * ((n_tiles + kSharedWN - 1) / kSharedWN) *
                       g.groups;
   if (shared >= sm_count())
-    return launch_wn<kSharedWN>(loader, bt, rows, chunks, n_tiles, epi, stream, g);
-  return launch_wn<1>(loader, bt, rows, chunks, n_tiles, epi, stream, g);
+    return launch_wn<kSharedWN, M>(loader, bt, rows, chunks, n_tiles, epi, stream, g);
+  return launch_wn<1, M>(loader, bt, rows, chunks, n_tiles, epi, stream, g);
 }
 
 }  // namespace gemm

@@ -71,7 +71,7 @@ NS2_API int ns2_rvq(const float* x, const float* cb, const float* cb_packed, con
   for (int qi = 0; qi < num_q; ++qi) {
     const float* r = qi == 0 ? x : residual;
     cudaError_t err = gemm::launch(
-        gemm::Rows{r, m, d}, cb_packed + qi * packed_stage, m, chunks, n_tiles,
+        gemm::Rows<float>{r, m, d}, cb_packed + qi * packed_stage, m, chunks, n_tiles,
         gemm::ArgMin{norms + (size_t)qi * size, best + (size_t)qi * m, m, size}, st);
     if (err != cudaSuccess) return err;
     rvq_update_kernel<<<update_blocks, ns2::kThreads, 0, st>>>(

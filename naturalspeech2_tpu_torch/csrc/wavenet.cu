@@ -39,9 +39,57 @@
 //    by side, B = skip_w as [L·d, d] and the bias Σ_l skip_b[l], so the sum
 //    is deterministic without atomics.
 // S + 1 launches in all.
+//
+// bf16 (`ns2_wavenet_body_bf16`, wavenet_kernel.py:80-129 with bf16 x,
+// weights and FiLM): the JAX kernel keeps its lanes in f32 scratch and
+// multiplies them by the bf16 weights with f32 accumulation, rounding only
+// its output to bf16. So do these launches: the lanes stay f32 (the first
+// stack reads x as bf16), the gate reads bf16 biases and FiLM, and the
+// products run in the core's kSplit2 mode, the lanes split into TF32 hi and
+// lo against the bf16 weights held as TF32 (exact), two passes where f32
+// weights need three; the skips' sum is rounded to bf16 once.
 #include "gemm_tf32x3.cuh"
 
 namespace gemm = ns2::gemm;
+using ns2::bf16;
+
+namespace {
+
+// T: the type of x, the biases, FiLM and the output (f32, or bf16 with the
+// weights as TF32 in the kSplit2 mode); the lanes are f32 either way.
+template <class T>
+int wavenet_body(const T* x, const float* blocks, const T* conv_b, const T* res_b,
+                 const float* skip, const float* skip_b, const T* film, float* lanes_a,
+                 float* lanes_b, T* out, int b, int n, int d, int S, int L, void* stream) {
+  constexpr gemm::Mode M = sizeof(T) == 4 ? gemm::Mode::kSplit3 : gemm::Mode::kSplit2;
+  constexpr int kB = gemm::Fmt<M>::kB;
+  if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = b * n, chunks = 3 * d / gemm::kKC, tiles = 2 * d / gemm::kBN;
+  const size_t lane = (size_t)rows * d, b_blk = (size_t)tiles * chunks * kB * gemm::kTile;
+  const float* in = lanes_a;
+  float* bufs[2] = {lanes_a, lanes_b};
+  for (int s = 0; s < S; ++s) {
+    float* dst = bufs[s % 2];
+    const size_t sl = (size_t)s * L;
+    const gemm::Groups g{L, b_blk};
+    const gemm::WaveGate<float, T> gate{dst, conv_b + sl * d, res_b + sl * d, film + sl * 2 * d,
+                                        lane, (size_t)S * L * 2 * d, rows, n, d};
+    // the first stack's lanes all read x
+    cudaError_t err =
+        s == 0 ? gemm::launch_wn<2, M>(gemm::TapRows<T>{x, rows, n, d, 3, 1, 0, 0},
+                                       blocks + sl * b_blk, rows, chunks, tiles, gate, st, g)
+               : gemm::launch_wn<2, M>(gemm::TapRows<float>{in, rows, n, d, 3, 1, 0, lane},
+                                       blocks + sl * b_blk, rows, chunks, tiles, gate, st, g);
+    if (err != cudaSuccess) return err;
+    in = dst;
+  }
+  return gemm::launch<M>(gemm::TapRows<float>{in, rows, n, d, L, 0, lane, 0}, skip, rows,
+                         L * d / gemm::kKC, (d + gemm::kBN - 1) / gemm::kBN,
+                         gemm::Store<T, float, float>{out, skip_b, nullptr, rows, d, d}, st);
+}
+
+}  // namespace
 
 // x [b,n,d] -> out [b,n,d], d % 32 == 0. The packed weights
 // (ops/wavenet_kernel.py: pack_wavenet_weights): blocks [S, L] of Bᵀ [2d,
@@ -52,27 +100,16 @@ NS2_API int ns2_wavenet_body(const float* x, const float* blocks, const float* c
                              const float* res_b, const float* skip, const float* skip_b,
                              const float* film, float* lanes_a, float* lanes_b, float* out, int b,
                              int n, int d, int S, int L, void* stream) {
-  if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = b * n, chunks = 3 * d / gemm::kKC, tiles = 2 * d / gemm::kBN;
-  const size_t lane = (size_t)rows * d, b_blk = (size_t)tiles * chunks * 2 * gemm::kTile;
-  const float* in = x;
-  size_t in_lane = 0;  // the first stack's lanes all read x
-  float* bufs[2] = {lanes_a, lanes_b};
-  for (int s = 0; s < S; ++s) {
-    float* dst = bufs[s % 2];
-    const size_t sl = (size_t)s * L;
-    const gemm::Groups g{L, b_blk};
-    cudaError_t err = gemm::launch_wn<2>(
-        gemm::TapRows{in, rows, n, d, 3, 1, 0, in_lane}, blocks + sl * b_blk, rows, chunks, tiles,
-        gemm::WaveGate{dst, conv_b + sl * d, res_b + sl * d, film + sl * 2 * d, lane,
-                       (size_t)S * L * 2 * d, rows, n, d},
-        st, g);
-    if (err != cudaSuccess) return err;
-    in = dst;
-    in_lane = lane;
-  }
-  return gemm::launch(gemm::TapRows{in, rows, n, d, L, 0, lane, 0}, skip, rows,
-                      L * d / gemm::kKC, (d + gemm::kBN - 1) / gemm::kBN,
-                      gemm::Store{out, skip_b, nullptr, rows, d, d}, st);
+  return wavenet_body(x, blocks, conv_b, res_b, skip, skip_b, film, lanes_a, lanes_b, out, b, n,
+                      d, S, L, stream);
+}
+
+// The same with x, conv_b, res_b, film and out in bf16, blocks and skip the
+// bf16 weights packed as TF32 with no lo part, skip_b their f32 sum.
+NS2_API int ns2_wavenet_body_bf16(const bf16* x, const float* blocks, const bf16* conv_b,
+                                  const bf16* res_b, const float* skip, const float* skip_b,
+                                  const bf16* film, float* lanes_a, float* lanes_b, bf16* out,
+                                  int b, int n, int d, int S, int L, void* stream) {
+  return wavenet_body(x, blocks, conv_b, res_b, skip, skip_b, film, lanes_a, lanes_b, out, b, n,
+                      d, S, L, stream);
 }

@@ -26,45 +26,92 @@
 // skip_b[l] into the output through the `Store` epilogue with the output as
 // its residual; lanes go in order, so the sum is deterministic without
 // atomics. L·S + L launches in all.
+//
+// bf16 (`ns2_wavenet_lanes_bf16`, wavenet_kernel.py:167-240 with bf16 x,
+// weights and FiLM and `bf16_matmul` off): as K1's bf16 path (wavenet.cu),
+// the lane state f32, the products in the core's kSplit2 mode against the
+// bf16 weights held as TF32; the skips accumulate in an f32 scratch, as the
+// JAX kernel's skip_scratch, and the last lane's launch rounds the sum to
+// bf16 as it writes the output.
 #include "gemm_tf32x3.cuh"
 
 namespace gemm = ns2::gemm;
+using ns2::bf16;
+
+namespace {
+
+// T: the type of x, the biases, FiLM and the output (f32, or bf16 with the
+// weights as TF32 in the kSplit2 mode); the lane state and the skips' sum
+// `acc` are f32 (for f32, acc may be the output itself).
+template <class T>
+int wavenet_lanes(const T* x, const float* blocks, const T* conv_b, const T* res_b,
+                  const float* skip, const T* skip_b, const T* film, float* lane_a,
+                  float* lane_b, float* acc, T* out, int b, int n, int d, int S, int L,
+                  void* stream) {
+  constexpr gemm::Mode M = sizeof(T) == 4 ? gemm::Mode::kSplit3 : gemm::Mode::kSplit2;
+  constexpr int kB = gemm::Fmt<M>::kB;
+  if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = b * n, chunks = 3 * d / gemm::kKC, tiles = 2 * d / gemm::kBN;
+  const int skip_tiles = (d + gemm::kBN - 1) / gemm::kBN;
+  const size_t b_blk = (size_t)tiles * chunks * kB * gemm::kTile;
+  const size_t b_skip = (size_t)skip_tiles * (d / gemm::kKC) * kB * gemm::kTile;
+  float* bufs[2] = {lane_a, lane_b};
+  for (int l = 0; l < L; ++l) {
+    const float* in = nullptr;
+    for (int s = 0; s < S; ++s) {
+      const size_t sl = (size_t)s * L + l;  // block (s, l)
+      float* dst = bufs[s % 2];
+      const gemm::WaveGate<float, T> gate{dst, conv_b + sl * d, res_b + sl * d,
+                                          film + sl * 2 * d, 0, (size_t)S * L * 2 * d, rows, n,
+                                          d};
+      cudaError_t err =
+          s == 0 ? gemm::launch_wn<2, M>(gemm::TapRows<T>{x, rows, n, d, 3, 1 << l, 0, 0},
+                                         blocks + sl * b_blk, rows, chunks, tiles, gate, st)
+                 : gemm::launch_wn<2, M>(gemm::TapRows<float>{in, rows, n, d, 3, 1 << l, 0, 0},
+                                         blocks + sl * b_blk, rows, chunks, tiles, gate, st);
+      if (err != cudaSuccess) return err;
+      in = dst;
+    }
+    const gemm::TapRows<float> lane{in, rows, n, d, 1, 0, 0, 0};
+    const float* prev = l > 0 ? acc : nullptr;
+    cudaError_t err =
+        l + 1 < L
+            ? gemm::launch_wn<1, M>(lane, skip + l * b_skip, rows, d / gemm::kKC, skip_tiles,
+                                    gemm::Store<float, T, float>{acc, skip_b + (size_t)l * d,
+                                                                 prev, rows, d, d},
+                                    st)
+            : gemm::launch_wn<1, M>(lane, skip + l * b_skip, rows, d / gemm::kKC, skip_tiles,
+                                    gemm::Store<T, T, float>{out, skip_b + (size_t)l * d, prev,
+                                                             rows, d, d},
+                                    st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
 
 // x [b,n,d] -> out [b,n,d], d % 32 == 0; lane_a / lane_b are [b,n,d] f32
 // scratch. The packed weights (ops/wavenet_kernel.py: pack_wavenet_weights):
 // blocks [S, L] of Bᵀ [2d, 3d] as for ns2_wavenet_body; conv_b, res_b [S,
 // L, d]; skip [L] of Bᵀ [d, d] (lane l's skip_wᵀ) in the core's format;
-// skip_b [L, d].
+// skip_b [L, d]. The output accumulates the skips.
 NS2_API int ns2_wavenet_lanes(const float* x, const float* blocks, const float* conv_b,
                               const float* res_b, const float* skip, const float* skip_b,
                               const float* film, float* lane_a, float* lane_b, float* out, int b,
                               int n, int d, int S, int L, void* stream) {
-  if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = b * n, chunks = 3 * d / gemm::kKC, tiles = 2 * d / gemm::kBN;
-  const int skip_tiles = (d + gemm::kBN - 1) / gemm::kBN;
-  const size_t b_blk = (size_t)tiles * chunks * 2 * gemm::kTile;
-  const size_t b_skip = (size_t)skip_tiles * (d / gemm::kKC) * 2 * gemm::kTile;
-  float* bufs[2] = {lane_a, lane_b};
-  for (int l = 0; l < L; ++l) {
-    const float* in = x;
-    for (int s = 0; s < S; ++s) {
-      const size_t sl = (size_t)s * L + l;  // block (s, l)
-      float* dst = bufs[s % 2];
-      cudaError_t err = gemm::launch_wn<2>(
-          gemm::TapRows{in, rows, n, d, 3, 1 << l, 0, 0}, blocks + sl * b_blk, rows, chunks,
-          tiles,
-          gemm::WaveGate{dst, conv_b + sl * d, res_b + sl * d, film + sl * 2 * d, 0,
-                         (size_t)S * L * 2 * d, rows, n, d},
-          st);
-      if (err != cudaSuccess) return err;
-      in = dst;
-    }
-    cudaError_t err = gemm::launch_wn<1>(
-        gemm::TapRows{in, rows, n, d, 1, 0, 0, 0}, skip + l * b_skip, rows, d / gemm::kKC,
-        skip_tiles, gemm::Store{out, skip_b + (size_t)l * d, l > 0 ? out : nullptr, rows, d, d},
-        st);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  return wavenet_lanes(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a, lane_b, out, out,
+                       b, n, d, S, L, stream);
+}
+
+// The same with x, conv_b, res_b, skip_b, film and out in bf16, blocks and
+// skip the bf16 weights packed as TF32 with no lo part; acc is [b,n,d] f32
+// scratch for the skips' sum.
+NS2_API int ns2_wavenet_lanes_bf16(const bf16* x, const float* blocks, const bf16* conv_b,
+                                   const bf16* res_b, const float* skip, const bf16* skip_b,
+                                   const bf16* film, float* lane_a, float* lane_b, float* acc,
+                                   bf16* out, int b, int n, int d, int S, int L, void* stream) {
+  return wavenet_lanes(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a, lane_b, acc, out, b,
+                       n, d, S, L, stream);
 }

@@ -20,8 +20,19 @@ def _normalize(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def ada_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, dim: int) -> torch.Tensor:
-    """Adaptive RMSNorm x/‖x‖·√d·γ + β with per-sample [b, d] γ and β."""
-    return _normalize(x, dim) * gamma[:, None, :] + beta[:, None, :]
+    """Adaptive RMSNorm x/‖x‖·√d·γ + β with per-sample [b, d] γ and β,
+    which follow x's dtype (as the JAX module casts them)."""
+    return (_normalize(x, dim) * gamma[:, None, :].to(x.dtype)
+            + beta[:, None, :].to(x.dtype))
+
+
+def promoted_linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` at the promoted dtype of x and the layer's weight, as
+    flax's Dense computes with mixed operands: f32 diffusion times through
+    bf16 weights run in f32."""
+    dtype = torch.promote_types(x.dtype, layer.weight.dtype)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 class RMSNorm(nn.Module):
@@ -160,4 +171,6 @@ class FeedForward(nn.Module):
         a = F.gelu(gate, approximate=self.approximate) * val
         if residual is None:
             return a @ self.w2 + self.b2
-        return residual + (causal_conv3(a, self.wc, self.bc) @ self.w2 + self.b2)
+        # the conv's weights follow the activations, as the JAX module casts them
+        return residual + (causal_conv3(a, self.wc.to(a.dtype), self.bc.to(a.dtype)) @ self.w2
+                           + self.b2)

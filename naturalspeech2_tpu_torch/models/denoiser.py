@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from naturalspeech2_tpu_torch.models.blocks import LearnedSinusoidalPosEmb
+from naturalspeech2_tpu_torch.models.blocks import LearnedSinusoidalPosEmb, promoted_linear
 from naturalspeech2_tpu_torch.models.encoders import PerceiverResampler
 from naturalspeech2_tpu_torch.models.transformer import ConditionableTransformer
 from naturalspeech2_tpu_torch.models.wavenet import FusedWavenet
@@ -131,7 +131,8 @@ class Model(nn.Module):
         b = x.shape[0]
         if times.ndim == 0:
             times = times.expand(b)
-        t = F.silu(self.to_time_hidden(self.time_pos_emb(times)))
+        # f32 times through the (possibly bf16) time MLP: f32, as flax promotes
+        t = F.silu(promoted_linear(self.to_time_hidden, self.time_pos_emb(times)))
         context = None
         if self.condition_on_prompt:
             if prompt is None or cond is None:
@@ -146,6 +147,10 @@ class Model(nn.Module):
             cond = self.cond_to_model_dim(cond)
             cond = torch.where(cond_drop[:, None, None], self.null_cond, cond)
             x = x + pad_or_curtail_to_length(cond, x.shape[1], axis=1)
+        # the conditioning in the compute dtype, as the JAX module casts it
+        t = t.to(x.dtype)
+        if context is not None:
+            context = context.to(x.dtype)
         x = self.wavenet(x, t)
         return self.transformer(x, times=t, context=context)
 

@@ -18,6 +18,7 @@ encoders draws from torch's default generator.
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -59,6 +60,36 @@ def _eval_mode(module: nn.Module):
     finally:
         for m, training in modes:
             m.training = training
+
+
+# The dtypes `sample(dtype=)` runs the denoiser in (None: the parameters' own).
+SAMPLE_DTYPES = (None, torch.float32, torch.bfloat16)
+
+
+def cast_floating(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``module`` with its float32 parameters and buffers at ``dtype``, as
+    the JAX package casts a parameter tree: ``module`` itself when none is
+    float32, else a copy holding the cast tensors (without gradients);
+    ``module`` is left as it is."""
+    f32 = [t for t in (*module.parameters(), *module.buffers()) if t.dtype == torch.float32]
+    if not f32 or dtype == torch.float32:
+        return module
+    memo = {}
+    for t in f32:
+        cast = t.detach().to(dtype)
+        memo[id(t)] = nn.Parameter(cast, requires_grad=False) if isinstance(t, nn.Parameter) else cast
+    return copy.deepcopy(module, memo)
+
+
+def with_denoiser_dtype(ns2: "NaturalSpeech2", dtype: torch.dtype) -> "NaturalSpeech2":
+    """A shallow copy of ``ns2`` whose denoiser (``model``) runs in
+    ``dtype`` (``cast_floating``); the codec and the conditioning stack are
+    shared with ``ns2`` and stay float32. What ``TTSEngine(dtype=)`` holds,
+    so that its weights are cast, and packed for the kernels, once."""
+    clone = copy.copy(ns2)
+    clone._modules = dict(ns2._modules)
+    clone._modules["model"] = cast_floating(ns2.model, dtype)
+    return clone
 
 
 class NaturalSpeech2(nn.Module):
@@ -512,24 +543,33 @@ def sample(
     or only the steps whose time lies in ``cfg_interval=(lo, hi)``;
     ``cfg_rescale``, ``pitch`` and ``duration`` are as in
     `forward_with_cond_scale` and `NaturalSpeech2.conditioning_for_sample`.
+
+    ``dtype=torch.bfloat16`` runs the denoiser, one network forward per
+    step, in bf16, as the JAX ``sample(dtype=jnp.bfloat16)``: a bf16 copy
+    of its float parameters for the call (none if they are bf16 already,
+    as a ``TTSEngine(dtype="bfloat16")`` holds them), the prompt encoding
+    and the frame condition cast once, the latent cast at every step and
+    the model output returned as f32; the schedule arithmetic, x̂₀, the
+    DDIM update, the conditioning stack and the codec decode stay f32.
     """
     device = next(ns2.parameters()).device
     if isinstance(text, (list, tuple)) and text and isinstance(text[0], str):
         assert ns2.tokenizer is not None, "pass tokenizer= to NaturalSpeech2"
         ids = ns2.tokenizer.texts_to_tensor_ids(list(text))
         text = torch.from_numpy(ids).to(device=device, dtype=torch.int64)
-    if dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"sampling in {dtype} is not ported yet (ROADMAP Queue 1, option list)"
-        )
+    if dtype not in SAMPLE_DTYPES:
+        raise ValueError(f"sample: dtype must be one of {SAMPLE_DTYPES}, got {dtype}")
     prompt_enc = cond = None
     with _eval_mode(ns2):
+        model = ns2.model if dtype is None else cast_floating(ns2.model, dtype)
         if ns2.conditional:
             if prompt is None or text is None:
                 raise ValueError("a conditional model samples from prompt= and text=")
             prompt_enc, cond, _ = ns2.conditioning_for_sample(
                 prompt, text, text_lens, length, pitch, duration)
             batch_size = prompt.shape[0]
+            if dtype is not None:
+                prompt_enc, cond = prompt_enc.to(dtype), cond.to(dtype)
 
         def denoise_fn(audio, times):
             scale = cond_scale
@@ -537,9 +577,11 @@ def sample(
                 lo, hi = cfg_interval
                 if not lo <= times[0].item() <= hi:
                     scale = 1.0  # one conditional forward, no null half
-            return forward_with_cond_scale(ns2.model, audio, times, prompt=prompt_enc,
-                                           cond=cond, cond_scale=scale,
-                                           cfg_rescale=cfg_rescale)
+            if dtype is not None:
+                audio = audio.to(dtype)
+            out = forward_with_cond_scale(model, audio, times, prompt=prompt_enc, cond=cond,
+                                          cond_scale=scale, cfg_rescale=cfg_rescale)
+            return out if dtype is None else out.to(torch.float32)
 
         latents = ddim_sample(
             denoise_fn,

@@ -1,6 +1,9 @@
 """The port's kernels: each wrapper launches its CUDA kernel on CUDA
 tensors and runs its plain PyTorch version on CPU tensors, and counts its
-kernel launches in ``<wrapper>.launches``."""
+kernel launches in ``<wrapper>.launches`` (f32 entry points) and
+``<wrapper>.launches_bf16`` (bf16 entry points; K5 and K6 have none)."""
+
+import torch
 
 from naturalspeech2_tpu_torch.ops.attn_block_kernel import attn_block, cross_attn_block
 from naturalspeech2_tpu_torch.ops.ff_block_kernel import ff_block
@@ -17,7 +20,12 @@ KERNEL_WRAPPERS = (wavenet_body, wavenet_body_lanes, attn_block, cross_attn_bloc
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
 
 
-def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+def launch_counts(dtype: torch.dtype = torch.float32) -> dict[str, int]:
+    """Launches of each wrapper's ``dtype`` entry points since the last
+    reset (0 for a wrapper with no such entry point)."""
+    attr = {torch.float32: "launches", torch.bfloat16: "launches_bf16"}[dtype]
+    return {fn.__name__: getattr(fn, attr, 0) for fn in KERNEL_WRAPPERS}

@@ -27,6 +27,15 @@ dc to the core's chunk; the norm keeps √dm of the real width.
 ``attn_block_packed_torch`` and ``cross_attn_block_packed_torch`` compute
 the blocks from those layouts in plain PyTorch.
 
+In bf16 (x bfloat16; the weights, γ, β and the context too) both run the
+JAX kernels' `mm = bfloat16` path through the kernels' bf16 entry points:
+the norm in f32, n(x), q, k, v, P and o rounded to bf16 before each
+product, products summed in f32, the heads and the residual summed in f32
+and y rounded once; ``attn_block_bf16_torch`` and
+``cross_attn_block_bf16_torch`` are the plain versions, rounding point for
+rounding point (the CPU route in bf16). The backward in bf16 belongs to
+AMP training (ROADMAP item 24).
+
 ``fits_fused_attn_block`` and ``fits_fused_cross_attn_block`` are the JAX
 package's shape gates, which `Attention` consults before it takes a block.
 """
@@ -44,7 +53,7 @@ from naturalspeech2_tpu_torch.ops.flash_attention import (
     flash_forward_torch,
     kernel_head_dim,
 )
-from naturalspeech2_tpu_torch.utils.helpers import vjp
+from naturalspeech2_tpu_torch.utils.helpers import refuse_bf16_backward, round_bf16 as _rd, vjp
 
 # The JAX package's budget for its fused attention blocks
 # (`VMEM_BUDGET_BYTES` of `naturalspeech2_tpu/ops/attn_block_kernel.py`).
@@ -103,6 +112,36 @@ def attn_block_torch(x, gamma, beta, wq, wk, wv, wo, *, scale: float):
     return x + torch.einsum("bhnk,hkd->bnd", o, wo)
 
 
+def _core_bf16(q, k, v, *, scale: float):
+    """softmax(q kᵀ · scale) v as the JAX block kernels run it on bf16
+    q, k, v (f32 values): logits and row statistics in f32, the globally
+    normalised exp(s − m) rounded to bf16 before P·V, o = P·V / l in f32."""
+    s = torch.einsum("bhik,bhjk->bhij", q, k) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return torch.einsum("bhij,bhjk->bhik", _rd(p), v) / p.sum(dim=-1, keepdim=True)
+
+
+def attn_block_bf16_torch(x, gamma, beta, wq, wk, wv, wo, *, scale: float):
+    """Plain version of K2 in bf16, the rounding points of
+    `_attn_block_kernel` at bf16 inputs (attn_block_kernel.py:100-154):
+    the norm in f32 and n(x) rounded, q, k and v summed in f32 and rounded,
+    the attention core as ``_core_bf16``, o rounded before W_o, the heads
+    and x summed in f32 and rounded once. Layouts as ``attn_block_torch``."""
+    return _block_bf16(x, None, gamma, beta, wq, wk, wv, wo, scale=scale)
+
+
+def _block_bf16(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float):
+    """K2's bf16 plain version (``ctx`` None: k and v from n(x)) or K2b's
+    (k and v from the raw ``ctx``)."""
+    xf = x.float()
+    xn = _rd(ada_norm(xf, gamma.float(), beta.float()))
+    kv_in = xn if ctx is None else ctx.float()
+    q = _rd(torch.einsum("bnd,hdk->bhnk", xn, wq.float()))
+    k, v = (_rd(torch.einsum("bmd,hdk->bhmk", kv_in, w.float())) for w in (wk, wv))
+    o = _core_bf16(q, k, v, scale=scale)
+    return (xf + torch.einsum("bhnk,hkd->bnd", _rd(o), wo.float())).to(x.dtype)
+
+
 def split_heads(wq, wkv, wo, heads: int, dim_head: int):
     """Dense layouts → per-head layouts, as ``fused_attn_block`` and
     ``fused_cross_attn_block`` do: wq [dm, H·dh] → [H, dm, dh]; wkv
@@ -135,17 +174,17 @@ def _padded_heads(w, heads: int, dim_head: int, dh: int):
     return F.pad(w.reshape(w.shape[0], heads, dim_head), (0, dh - dim_head))
 
 
-def _pack_out(wo, heads: int, dim_head: int, dh: int):
+def _pack_out(wo, heads: int, dim_head: int, dh: int, fmt: str = "split"):
     """W_o [H·dim_head, dm] as the core's packed Bᵀ [dm, H·dh], head h in
     columns h·dh .. h·dh + dim_head."""
     dm = wo.shape[1]
     out = F.pad(wo.reshape(heads, dim_head, dm), (0, 0, 0, dh - dim_head))
-    return gemm_cache.pack_b(out.reshape(heads * dh, dm).T)
+    return gemm_cache.pack_b(out.reshape(heads * dh, dm).T, fmt)
 
 
-def pack_attn_weights(wq, wkv, wo, heads: int, dim_head: int):
+def pack_attn_weights(wq, wkv, wo, heads: int, dim_head: int, fmt: str = "split"):
     """(q/k/v, out): the Dense layouts in the GEMM core's format
-    (``gemm_cache.pack_b``), each head padded with zeros to dh columns
+    (``gemm_cache.pack_b`` in ``fmt``), each head padded with zeros to dh columns
     (``kernel_head_dim``). The q/k/v Bᵀ has 3·H·dh rows, row which·H·dh +
     h·dh + e = column e of head h of q, k or v; the out Bᵀ is W_oᵀ [dm,
     H·dh], head h in columns h·dh .. h·dh + dim_head."""
@@ -153,11 +192,11 @@ def pack_attn_weights(wq, wkv, wo, heads: int, dim_head: int):
     dm = wq.shape[0]
     wk, wv = wkv.chunk(2, dim=-1)
     qkv = torch.stack([_padded_heads(w, heads, dim_head, dh) for w in (wq, wk, wv)], dim=1)
-    return (gemm_cache.pack_b(qkv.reshape(dm, 3 * heads * dh).T),
-            _pack_out(wo, heads, dim_head, dh))
+    return (gemm_cache.pack_b(qkv.reshape(dm, 3 * heads * dh).T, fmt),
+            _pack_out(wo, heads, dim_head, dh, fmt))
 
 
-def pack_cross_weights(wq, wkv, wo, heads: int, dim_head: int):
+def pack_cross_weights(wq, wkv, wo, heads: int, dim_head: int, fmt: str = "split"):
     """(q, k/v, out): K2b's Dense layouts in the GEMM core's format, each
     head padded with zeros to dh columns (``kernel_head_dim``). The q Bᵀ
     has H·dh rows (row h·dh + e = column e of head h), the k/v Bᵀ 2·H·dh
@@ -165,9 +204,10 @@ def pack_cross_weights(wq, wkv, wo, heads: int, dim_head: int):
     dh = kernel_head_dim(dim_head)
     wk, wv = wkv.chunk(2, dim=-1)
     kv = torch.stack([_padded_heads(w, heads, dim_head, dh) for w in (wk, wv)], dim=1)
-    return (gemm_cache.pack_b(_padded_heads(wq, heads, dim_head, dh).reshape(wq.shape[0], -1).T),
-            gemm_cache.pack_b(kv.reshape(wkv.shape[0], 2 * heads * dh).T),
-            _pack_out(wo, heads, dim_head, dh))
+    return (gemm_cache.pack_b(_padded_heads(wq, heads, dim_head, dh).reshape(wq.shape[0], -1).T,
+                              fmt),
+            gemm_cache.pack_b(kv.reshape(wkv.shape[0], 2 * heads * dh).T, fmt),
+            _pack_out(wo, heads, dim_head, dh, fmt))
 
 
 def attn_block_packed_torch(x, gamma, beta, packed, *, heads: int, scale: float):
@@ -187,40 +227,43 @@ def attn_block_packed_torch(x, gamma, beta, packed, *, heads: int, scale: float)
     return x + o.transpose(1, 2).reshape(b, n, hd) @ dense[1][:dm, :hd].T
 
 
-def _pack_checked(wq, wkv, wo, heads: int, dim_head: int):
+def _pack_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dtype):
     """``pack_attn_weights`` after the wrapper's checks of the weights,
     which a cache hit then need not repeat."""
-    _build.require_cuda_f32("attn_block", wq=wq, wkv=wkv, wo=wo)
+    _build.require_cuda("attn_block", dtype, wq=wq, wkv=wkv, wo=wo)
     dm, hd = wq.shape[0], heads * dim_head
     _build.require_shapes("attn_block", wq=(wq, (dm, hd)), wkv=(wkv, (dm, 2 * hd)),
                           wo=(wo, (hd, dm)))
-    return pack_attn_weights(wq, wkv, wo, heads, dim_head)
+    return pack_attn_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype))
 
 
 def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
     if x.device.type == "cpu":
         wq_h, wk_h, wv_h, wo_h = split_heads(wq, wkv, wo, heads, dim_head)
-        return attn_block_torch(x, gamma, beta, wq_h, wk_h, wv_h, wo_h, scale=scale)
-    _build.require_cuda_f32("attn_block", x=x, gamma=gamma, beta=beta)
+        plain = attn_block_bf16_torch if x.dtype == torch.bfloat16 else attn_block_torch
+        return plain(x, gamma, beta, wq_h, wk_h, wv_h, wo_h, scale=scale)
+    _build.require_cuda("attn_block", x.dtype, x=x, gamma=gamma, beta=beta)
     b, n, dm = x.shape
     _build.require_shapes("attn_block", gamma=(gamma, (b, dm)), beta=(beta, (b, dm)))
+    if wq.dtype != x.dtype:
+        raise TypeError(f"attn_block: the weights are {wq.dtype}, x is {x.dtype}")
     bt_qkv, bt_out = gemm_cache.cached(
         f"attn_block {heads} {dim_head}",
-        lambda *w: _pack_checked(*w, heads, dim_head), wq, wkv, wo)
+        lambda *w: _pack_checked(*w, heads, dim_head, x.dtype), wq, wkv, wo)
     if wq.shape[0] != dm or wq.device != x.device:
         raise ValueError(f"attn_block: wq {tuple(wq.shape)} on {wq.device} does not take x "
                          f"{tuple(x.shape)} on {x.device}")
     dh = kernel_head_dim(dim_head)
-    qkv = torch.empty((3, b, heads, n, dh), dtype=torch.float32, device=x.device)
-    o = torch.empty((b, heads, n, dh), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((3, b, heads, n, dh), dtype=x.dtype, device=x.device)
+    o = torch.empty((b, heads, n, dh), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    err = _build.library().ns2_attn_block(
+    err = _build.entry("ns2_attn_block", x.dtype)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), bt_qkv.data_ptr(), bt_out.data_ptr(),
         qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, dm, heads, dh, float(scale),
         _build.stream(x),
     )
     _build.check(err, "ns2_attn_block")
-    attn_block.launches += 1
+    _build.count(attn_block, x.dtype)
     return out
 
 
@@ -253,7 +296,7 @@ def attn_block(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale:
                     scale=float(scale))
 
 
-attn_block.launches = 0
+attn_block.launches = attn_block.launches_bf16 = 0
 
 
 def cross_attn_block_torch(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float):
@@ -272,10 +315,19 @@ def cross_attn_block_torch(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float)
     return x + torch.einsum("bhnk,hkd->bnd", o, wo)
 
 
+def cross_attn_block_bf16_torch(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float):
+    """Plain version of K2b in bf16, the rounding points of
+    `_cross_attn_block_kernel` at bf16 inputs (attn_block_kernel.py:244-292):
+    as ``attn_block_bf16_torch``, with k and v from the raw context (bf16).
+    Layouts as ``cross_attn_block_torch``."""
+    return _block_bf16(x, ctx, gamma, beta, wq, wk, wv, wo, scale=scale)
+
+
 def _cross_plain(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
-    """``cross_attn_block_torch`` on the Dense layouts."""
-    return cross_attn_block_torch(x, ctx, gamma, beta, *split_heads(wq, wkv, wo, heads, dim_head),
-                                  scale=scale)
+    """``cross_attn_block_torch`` (``cross_attn_block_bf16_torch`` in bf16)
+    on the Dense layouts."""
+    plain = cross_attn_block_bf16_torch if x.dtype == torch.bfloat16 else cross_attn_block_torch
+    return plain(x, ctx, gamma, beta, *split_heads(wq, wkv, wo, heads, dim_head), scale=scale)
 
 
 def cross_attn_block_packed_torch(x, ctx, gamma, beta, packed, *, heads: int, scale: float):
@@ -297,46 +349,48 @@ def cross_attn_block_packed_torch(x, ctx, gamma, beta, packed, *, heads: int, sc
     return x + o.transpose(1, 2).reshape(b, n, hd) @ wo[:dm, :hd].T
 
 
-def _pack_cross_checked(wq, wkv, wo, heads: int, dim_head: int):
+def _pack_cross_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dtype):
     """``pack_cross_weights`` after the wrapper's checks of the weights,
     which a cache hit then need not repeat."""
-    _build.require_cuda_f32("cross_attn_block", wq=wq, wkv=wkv, wo=wo)
+    _build.require_cuda("cross_attn_block", dtype, wq=wq, wkv=wkv, wo=wo)
     dm, dc, hd = wq.shape[0], wkv.shape[0], heads * dim_head
     _build.require_shapes("cross_attn_block", wq=(wq, (dm, hd)), wkv=(wkv, (dc, 2 * hd)),
                           wo=(wo, (hd, dm)))
-    return pack_cross_weights(wq, wkv, wo, heads, dim_head)
+    return pack_cross_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype))
 
 
 def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
     if x.device.type == "cpu":
         return _cross_plain(x, ctx, gamma, beta, wq, wkv, wo, heads=heads, dim_head=dim_head,
                             scale=scale)
-    _build.require_cuda_f32("cross_attn_block", x=x, ctx=ctx, gamma=gamma, beta=beta)
+    _build.require_cuda("cross_attn_block", x.dtype, x=x, ctx=ctx, gamma=gamma, beta=beta)
     b, n, dm = x.shape
     m, dc = ctx.shape[1:]
     _build.require_shapes("cross_attn_block", ctx=(ctx, (b, m, dc)), gamma=(gamma, (b, dm)),
                           beta=(beta, (b, dm)))
     if m < 1:
         raise ValueError("cross_attn_block: the context is empty")
+    if wq.dtype != x.dtype:
+        raise TypeError(f"cross_attn_block: the weights are {wq.dtype}, x is {x.dtype}")
     packed = gemm_cache.cached(
         f"cross_attn_block {heads} {dim_head}",
-        lambda *w: _pack_cross_checked(*w, heads, dim_head), wq, wkv, wo)
+        lambda *w: _pack_cross_checked(*w, heads, dim_head, x.dtype), wq, wkv, wo)
     if wq.shape[0] != dm or wkv.shape[0] != dc or wq.device != x.device:
         raise ValueError(f"cross_attn_block: wq {tuple(wq.shape)}, wkv {tuple(wkv.shape)} on "
                          f"{wq.device} do not take x {tuple(x.shape)}, ctx {tuple(ctx.shape)} "
                          f"on {x.device}")
     dh = kernel_head_dim(dim_head)
-    q = torch.empty((b, heads, n, dh), dtype=torch.float32, device=x.device)
-    kv = torch.empty((2, b, heads, m, dh), dtype=torch.float32, device=x.device)
+    q = torch.empty((b, heads, n, dh), dtype=x.dtype, device=x.device)
+    kv = torch.empty((2, b, heads, m, dh), dtype=x.dtype, device=x.device)
     o = torch.empty_like(q)
     out = torch.empty_like(x)
-    err = _build.library().ns2_cross_attn_block(
+    err = _build.entry("ns2_cross_attn_block", x.dtype)(
         x.data_ptr(), ctx.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         *(p.data_ptr() for p in packed), q.data_ptr(), kv.data_ptr(), o.data_ptr(),
         out.data_ptr(), b, n, m, dm, dc, heads, dh, float(scale), _build.stream(x),
     )
     _build.check(err, "ns2_cross_attn_block")
-    cross_attn_block.launches += 1
+    _build.count(cross_attn_block, x.dtype)
     return out
 
 
@@ -349,6 +403,7 @@ class _CrossAttnBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx_, g):
+        refuse_bf16_backward("cross_attn_block", g)
         grads = vjp(lambda *a: _cross_plain(*a, **ctx_.cfg), ctx_.saved_tensors,
                     ctx_.needs_input_grad[:7], g)
         return (*grads, None, None, None)
@@ -368,4 +423,4 @@ def cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: 
     return _CrossAttnBlock.apply(x, ctx, gamma, beta, wq, wkv, wo, heads, dim_head, float(scale))
 
 
-cross_attn_block.launches = 0
+cross_attn_block.launches = cross_attn_block.launches_bf16 = 0

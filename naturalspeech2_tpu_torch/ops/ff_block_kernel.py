@@ -15,6 +15,12 @@ The kernel reads its weights packed for the split-TF32 GEMM core
 (``gemm_cache.cached``); ``ff_block_packed_torch`` computes the block from
 that layout in plain PyTorch.
 
+In bf16 (x bfloat16, the weights, γ and β too) the block runs the JAX
+kernel's `mm = bfloat16` path through the kernel's bf16 entry point (the
+weights packed as bf16): ``ff_block_bf16_torch`` is its plain version, the
+CPU route in bf16. The backward in bf16 belongs to AMP training (ROADMAP
+item 24).
+
 ``fits_fused_ff_block`` is the JAX package's shape gate, which
 `FeedForward` consults before it takes the block.
 """
@@ -29,7 +35,7 @@ import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
-from naturalspeech2_tpu_torch.utils.helpers import vjp
+from naturalspeech2_tpu_torch.utils.helpers import refuse_bf16_backward, round_bf16 as _rd, vjp
 
 
 def ada_norm(x, gamma, beta):
@@ -51,6 +57,21 @@ def ff_block_torch(x, gamma, beta, w_val, b_val, w_gate, b_gate, wc, bc, w2, b2)
     gate = xn @ w_gate + b_gate
     a = F.gelu(gate, approximate="tanh") * val
     return x + (causal_conv3(a, wc, bc) @ w2 + b2)
+
+
+def ff_block_bf16_torch(x, gamma, beta, w_val, b_val, w_gate, b_gate, wc, bc, w2, b2):
+    """Plain version of K3 in bf16, the rounding points of `_ff_block_kernel`
+    at bf16 inputs (ff_block_kernel.py:102-130): the norm in f32 and n(x)
+    rounded; the GEGLU and its biases in f32 and ``a`` rounded once for the
+    three conv taps; c = conv + b_c in f32, rounded before W₂; x + y in
+    f32, rounded once. Layouts as ``ff_block_torch``."""
+    xf = x.float()
+    xn = _rd(ada_norm(xf, gamma.float(), beta.float()))
+    val = xn @ w_val.float() + b_val.float()
+    gate = xn @ w_gate.float() + b_gate.float()
+    a = _rd(F.gelu(gate, approximate="tanh") * val)
+    c = _rd(causal_conv3(a, wc.float(), bc.float()))
+    return (xf + (c @ w2.float() + b2.float())).to(x.dtype)
 
 
 def causal_conv3(a, wc, bc):
@@ -92,10 +113,12 @@ def fits_fused_ff_block(n: int, dm: int, inner: int) -> bool:
 
 
 def ff_block_plain(x, gamma, beta, w1, b1, wc, bc, w2, b2):
-    """``ff_block_torch`` on the `FeedForward` layouts (w1/b1 unsplit)."""
+    """``ff_block_torch`` (``ff_block_bf16_torch`` in bf16) on the
+    `FeedForward` layouts (w1/b1 unsplit)."""
     inner = w1.shape[-1] // 2
-    return ff_block_torch(x, gamma, beta, w1[:, :inner], b1[:inner], w1[:, inner:], b1[inner:],
-                          wc, bc, w2, b2)
+    plain = ff_block_bf16_torch if x.dtype == torch.bfloat16 else ff_block_torch
+    return plain(x, gamma, beta, w1[:, :inner], b1[:inner], w1[:, inner:], b1[inner:],
+                 wc, bc, w2, b2)
 
 
 class FFWeights(NamedTuple):
@@ -109,20 +132,22 @@ class FFWeights(NamedTuple):
     ip: int               # the inner width padded to the GEMM core's chunk of 32
 
 
-def pack_ff_weights(w1, b1, wc, bc, w2) -> FFWeights:
+def pack_ff_weights(w1, b1, wc, bc, w2, fmt: str = "split") -> FFWeights:
     """The `FeedForward` weights in the GEMM core's format (``gemm_cache.
-    pack_b``), inner padded with exact zeros to a multiple of 32 (341 →
-    352, 1365 → 1376): zero value, gate and bias columns give a = 0 there,
-    which meets zero conv and W₂ rows, so no sum changes."""
+    pack_b`` in ``fmt``; the biases keep their dtype), inner padded with
+    exact zeros to a multiple of 32 (341 → 352, 1365 → 1376): zero value,
+    gate and bias columns give a = 0 there, which meets zero conv and W₂
+    rows, so no sum changes."""
     dm, inner = w1.shape[0], w1.shape[-1] // 2
     ip = gemm_cache.round_up(inner, gemm_cache.CHUNK)
     pad = ip - inner
     w_val, w_gate = F.pad(w1[:, :inner], (0, pad)), F.pad(w1[:, inner:], (0, pad))
     geglu = torch.stack([w.T.reshape(ip // 32, 32, dm) for w in (w_val, w_gate)], dim=1)
     conv = F.pad(wc, (0, pad, 0, pad)).permute(2, 0, 1).reshape(ip, 3 * ip)
-    return FFWeights(gemm_cache.pack_b(geglu.reshape(2 * ip, dm)), F.pad(b1[:inner], (0, pad)),
-                     F.pad(b1[inner:], (0, pad)), gemm_cache.pack_b(conv), F.pad(bc, (0, pad)),
-                     gemm_cache.pack_b(F.pad(w2, (0, 0, 0, pad)).T), ip)
+    return FFWeights(gemm_cache.pack_b(geglu.reshape(2 * ip, dm), fmt),
+                     F.pad(b1[:inner], (0, pad)), F.pad(b1[inner:], (0, pad)),
+                     gemm_cache.pack_b(conv, fmt), F.pad(bc, (0, pad)),
+                     gemm_cache.pack_b(F.pad(w2, (0, 0, 0, pad)).T, fmt), ip)
 
 
 def ff_block_packed_torch(x, gamma, beta, weights: FFWeights, b2):
@@ -152,36 +177,36 @@ def ff_block_packed_torch(x, gamma, beta, weights: FFWeights, b2):
 def _pack_checked(w1, b1, wc, bc, w2) -> FFWeights:
     """``pack_ff_weights`` after the wrapper's checks of the weights, which
     a cache hit then need not repeat."""
-    _build.require_cuda_f32("ff_block", w1=w1, b1=b1, wc=wc, bc=bc, w2=w2)
+    _build.require_cuda("ff_block", w1.dtype, w1=w1, b1=b1, wc=wc, bc=bc, w2=w2)
     dm, inner = w1.shape[0], w1.shape[-1] // 2
     _build.require_shapes(
         "ff_block", w1=(w1, (dm, 2 * inner)), b1=(b1, (2 * inner,)),
         wc=(wc, (3, inner, inner)), bc=(bc, (inner,)), w2=(w2, (inner, dm)),
     )
-    return pack_ff_weights(w1, b1, wc, bc, w2)
+    return pack_ff_weights(w1, b1, wc, bc, w2, gemm_cache.fmt_of(w1.dtype))
 
 
 def _forward(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     if x.device.type == "cpu":
         return ff_block_plain(x, gamma, beta, w1, b1, wc, bc, w2, b2)
-    _build.require_cuda_f32("ff_block", x=x, gamma=gamma, beta=beta, b2=b2)
+    _build.require_cuda("ff_block", x.dtype, x=x, gamma=gamma, beta=beta, b2=b2)
     b, n, dm = x.shape
     _build.require_shapes("ff_block", gamma=(gamma, (b, dm)), beta=(beta, (b, dm)),
                           b2=(b2, (dm,)))
     wt = gemm_cache.cached("ff_block", _pack_checked, w1, b1, wc, bc, w2)
-    if w1.shape[0] != dm or w1.device != x.device:
-        raise ValueError(f"ff_block: w1 {tuple(w1.shape)} on {w1.device} does not take x "
-                         f"{tuple(x.shape)} on {x.device}")
-    scratch = torch.empty((2, b * n, wt.ip), dtype=torch.float32, device=x.device)
+    if w1.shape[0] != dm or w1.device != x.device or w1.dtype != x.dtype:
+        raise ValueError(f"ff_block: w1 {tuple(w1.shape)} {w1.dtype} on {w1.device} does not "
+                         f"take x {tuple(x.shape)} {x.dtype} on {x.device}")
+    scratch = torch.empty((2, b * n, wt.ip), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    err = _build.library().ns2_ff_block(
+    err = _build.entry("ns2_ff_block", x.dtype)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.geglu.data_ptr(), wt.b_val.data_ptr(),
         wt.b_gate.data_ptr(), wt.conv.data_ptr(), wt.bc.data_ptr(), wt.out.data_ptr(),
         b2.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(), b, n, dm,
         wt.ip, _build.stream(x),
     )
     _build.check(err, "ns2_ff_block")
-    ff_block.launches += 1
+    _build.count(ff_block, x.dtype)
     return out
 
 
@@ -193,6 +218,7 @@ class _FFBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        refuse_bf16_backward("ff_block", g)
         return vjp(ff_block_plain, ctx.saved_tensors, ctx.needs_input_grad, g)
 
 
@@ -211,4 +237,4 @@ def ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     return _forward(*args)  # no graph to record: the autograd Function's overhead spared
 
 
-ff_block.launches = 0
+ff_block.launches = ff_block.launches_bf16 = 0

@@ -15,6 +15,13 @@ padded as the JAX package pads it, so the port keeps exactly the JAX
 package's elements for the same seed and can regenerate them in the
 backward without storing them.
 
+In bf16 (q, k and v bfloat16: the JAX kernels at a bf16 input dtype) the
+forward runs the products on bf16 operands with f32 accumulation, keeps m,
+l and lse in f32, rounds P to bf16 before P·V and returns o in bf16
+(``flash_forward_bf16_torch`` is the plain version, K4's
+``ns2_flash_fwd_bf16`` the kernel); dropout and the backward in bf16
+belong to AMP training (ROADMAP item 24) and raise.
+
 ``flash_forward`` (K4, ``csrc/flash_fwd.cu``) and ``flash_backward`` (K5,
 ``csrc/flash_bwd.cu``) launch the kernels on CUDA tensors and run the plain
 versions ``flash_forward_torch`` / ``flash_backward_torch`` on CPU tensors.
@@ -125,12 +132,42 @@ def _xyt(x, y, head_chunk: Optional[int]):
                for c in range(0, x.shape[-1], head_chunk))
 
 
+def _refuse_bf16_dropout(q, dropout_rate: float) -> None:
+    if q.dtype == torch.bfloat16 and dropout_rate > 0.0:
+        raise NotImplementedError("flash attention dropout in bfloat16 is not ported yet "
+                                  "(ROADMAP Queue 1, item 24, AMP training)")
+
+
+def flash_forward_bf16_torch(q, k, v, mask, *, causal: bool, scale: float,
+                             head_chunk: Optional[int] = None):
+    """Plain version of K4 in bf16, the JAX kernels' rounding points at a
+    bf16 input dtype: the logits summed in f32 from the bf16 operands, m,
+    l and lse in f32 over the unrounded probabilities, P rounded to bf16
+    before P·V (``p.astype(v.dtype)``), o = P·V / l rounded to bf16."""
+    b, h, n_q, _ = q.shape
+    n_kv = k.shape[2]
+    valid = _valid(b, n_q, n_kv, mask, causal, q.device)
+    s = torch.where(valid, _xyt(q.float(), k.float(), head_chunk) * scale, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    lse = (m + torch.log(safe_l))[..., 0]
+    pv = torch.einsum("bhij,bhjd->bhid", p.to(torch.bfloat16).float(), v.float())
+    return (pv / safe_l).to(torch.bfloat16), lse
+
+
 def flash_forward_torch(q, k, v, mask, seed, *, causal: bool, scale: float,
                         dropout_rate: float = 0.0, head_chunk: Optional[int] = None):
     """Plain version of K4: ``(o [b,h,n_q,d], lse [b,h,n_q])``, the function
     of `_flash_oneshot_kernel` / `_flash_kernel`. With ``head_chunk`` (d a
     multiple of it) the logits are summed over chunks of the head dim, as
-    the kernel does for heads wider than 128."""
+    the kernel does for heads wider than 128. bf16 inputs run
+    ``flash_forward_bf16_torch``."""
+    if q.dtype == torch.bfloat16:
+        _refuse_bf16_dropout(q, dropout_rate)
+        return flash_forward_bf16_torch(q, k, v, mask, causal=causal, scale=scale,
+                                        head_chunk=head_chunk)
     b, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     valid = _valid(b, n_q, n_kv, mask, causal, q.device)
@@ -188,7 +225,7 @@ def pad_head_dim(*tensors):
 
 
 def _check(name: str, q, k, v, mask):
-    _build.require_cuda_f32(name, q=q, k=k, v=v)
+    _build.require_cuda(name, q.dtype, q=q, k=k, v=v)
     b, h, n_q, d = q.shape
     n_kv = k.shape[2]
     _build.require_shapes(name, k=(k, (b, h, n_kv, d)), v=(v, (b, h, n_kv, d)))
@@ -219,8 +256,10 @@ def _dropout_args(seed, dropout_rate: float, n_kv: int) -> list:
 def flash_forward(q, k, v, mask=None, seed=None, *, causal: bool = False, scale: float,
                   dropout_rate: float = 0.0):
     """K4: ``(o, lse)``. CUDA tensors launch ``csrc/flash_fwd.cu`` (heads
-    padded to 64 or a multiple of 128, o cut back); CPU tensors run
-    ``flash_forward_torch``."""
+    padded to 64 or a multiple of 128, o cut back; f32, or bf16 through its
+    own entry point, counted in ``flash_forward.launches_bf16``); CPU
+    tensors run ``flash_forward_torch``."""
+    _refuse_bf16_dropout(q, dropout_rate)
     if q.device.type == "cpu":
         return flash_forward_torch(q, k, v, mask, seed, causal=causal, scale=scale,
                                    dropout_rate=dropout_rate)
@@ -234,13 +273,13 @@ def flash_forward(q, k, v, mask=None, seed=None, *, causal: bool = False, scale:
     n_kv = k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
-    err = _build.library().ns2_flash_fwd(
+    err = _build.entry("ns2_flash_fwd", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask8 is None else mask8.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, h, n_q, n_kv, d, int(causal), float(scale),
         *_dropout_args(seed, dropout_rate, n_kv), _build.stream(q),
     )
     _build.check(err, "ns2_flash_fwd")
-    flash_forward.launches += 1
+    _build.count(flash_forward, q.dtype)
     return o, lse
 
 
@@ -250,7 +289,11 @@ def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, sca
     ``csrc/flash_bwd.cu`` (counted as one launch of K5; heads padded to 64
     or a multiple of 128, the gradients cut back) after delta =
     Σ dO·O as a plain reduction (XLA computes it outside the kernels too);
-    CPU tensors run ``flash_backward_torch``."""
+    CPU tensors run ``flash_backward_torch``. bf16 raises: the bf16
+    backward belongs to AMP training."""
+    if q.dtype == torch.bfloat16:
+        raise NotImplementedError("the flash attention backward in bfloat16 is not ported yet "
+                                  "(ROADMAP Queue 1, item 24, AMP training)")
     if q.device.type == "cpu":
         return flash_backward_torch(q, k, v, mask, seed, lse, o, do, causal=causal, scale=scale,
                                     dropout_rate=dropout_rate)
@@ -260,7 +303,7 @@ def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, sca
                                causal=causal, scale=scale, dropout_rate=dropout_rate)
         return tuple(g[..., :d].contiguous() for g in grads)
     mask8 = _check("flash_backward", q, k, v, mask)
-    _build.require_cuda_f32("flash_backward", lse=lse, o=o, do=do)
+    _build.require_cuda("flash_backward", lse=lse, o=o, do=do)
     if do.data_ptr() % 16:
         raise ValueError("flash_backward: do must start on a 16-byte boundary")
     b, h, n_q, d = q.shape
@@ -280,7 +323,7 @@ def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, sca
     return dq, dk, dv
 
 
-flash_forward.launches = 0
+flash_forward.launches = flash_forward.launches_bf16 = 0
 flash_backward.launches = 0
 
 

@@ -12,10 +12,17 @@ one contiguous 16 KB run that the kernel copies into shared memory as it
 stands. ``pack_b`` builds it and ``unpack_b`` inverts it (hi + lo gives
 the weight back exactly).
 
+Two more formats carry bf16 weights (``pack_b(bt, fmt)``): ``"bf16"``,
+the bf16 values in the bf16 K-major order (a core matrix is 8 rows of 8
+bf16, a k-step 16 deep), one part, for the core's bf16 mode (K2, K2b and
+K3 in bf16); and ``"tf32"``, the bf16 values as f32 (exact in TF32) in the
+TF32 order with no lo part, for its two-pass mode (K1 and K1b in bf16,
+whose lanes stay f32).
+
 ``cached(name, build, *tensors)`` keeps what ``build`` made from the
 tensors (packed, padded or concatenated weights) until one of them changes:
-the key is each tensor object and its data pointer (which a move between
-devices changes), checked against its version counter, which every
+the key is each tensor object, its data pointer (which a move between
+devices changes) and its dtype, checked against its version counter, which every
 in-place update (an optimizer step, ``copy_``, ``load_state_dict``)
 advances. An entry dies with its tensors. So a layer pays for its layout
 once, not on every call, and a hit costs a few microseconds of Python.
@@ -46,43 +53,73 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, x - hi
 
 
-def pack_b(bt: torch.Tensor) -> torch.Tensor:
-    """Bᵀ [..., N, K] → [..., N_tiles, K_chunks, 2 (hi, lo), 2048], each Bᵀ
+# The shape of a chunk's 32 k in each format's K-major order: (k-steps,
+# halves, values a core-matrix row), and the permutation that takes (tile,
+# row group, row, chunk, k-step, half, k) to the packed order (tile, chunk,
+# k-step, half, row group, row, k).
+_K_SPLIT = {torch.float32: (4, 2, 4), torch.bfloat16: (2, 2, 8)}
+_TO_PACKED = (0, 3, 4, 5, 1, 2, 6)
+FORMATS = ("split", "tf32", "bf16")
+
+
+def pack_b(bt: torch.Tensor, fmt: str = "split") -> torch.Tensor:
+    """Bᵀ [..., N, K] → [..., N_tiles, K_chunks, parts, 2048], each Bᵀ
     padded with zeros to 64-row tiles and 32-column chunks (leading dims:
-    one packed B each). Element (r, k) of tile j, chunk c lies at ks·512 +
-    half·256 + (r // 8)·32 + (r % 8)·4 + k4 with k = 8·ks + 4·half + k4:
-    `kmajor<64>` of ``csrc/wgmma.cuh``."""
+    one packed B each). ``fmt`` "split": f32, parts hi and lo; element (r,
+    k) of tile j, chunk c lies at ks·512 + half·256 + (r // 8)·32 + (r %
+    8)·4 + k4 with k = 8·ks + 4·half + k4: `kmajor<64>` of
+    ``csrc/wgmma.cuh``. "tf32": the same order, one part, for values exact
+    in TF32 (bf16 weights). "bf16": bf16, one part, at ks·1024 + half·512 +
+    (r // 8)·64 + (r % 8)·8 + k8 with k = 16·ks + 8·half + k8:
+    `kmajor_bf16<64>`."""
+    if fmt not in FORMATS:
+        raise ValueError(f"pack_b: fmt must be one of {FORMATS}, got {fmt!r}")
+    dtype = torch.bfloat16 if fmt == "bf16" else torch.float32
+    if fmt == "tf32" and bt.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"pack_b: tf32 packs bf16 values, got {bt.dtype}")
     *lead, n, k = bt.shape
-    bt = torch.nn.functional.pad(bt.to(torch.float32),
+    bt = torch.nn.functional.pad(bt.to(dtype),
                                  (0, round_up(k, CHUNK) - k, 0, round_up(n, TILE_ROWS) - n))
     tiles, chunks = bt.shape[-2] // TILE_ROWS, bt.shape[-1] // CHUNK
-    # (j, rg, ri, c, ks, half, k4) -> (j, c, ks, half, rg, ri, k4)
     nl = len(lead)
-    t = bt.reshape(*lead, tiles, 8, 8, chunks, 4, 2, 4).permute(
-        *range(nl), *(nl + i for i in (0, 3, 4, 5, 1, 2, 6)))
+    t = bt.reshape(*lead, tiles, 8, 8, chunks, *_K_SPLIT[dtype]).permute(
+        *range(nl), *(nl + i for i in _TO_PACKED))
+    if fmt != "split":
+        t = t.reshape(*lead, tiles, chunks, 1, -1)
+        if fmt == "tf32" and tf32_split(t)[1].any():
+            raise ValueError("pack_b: the tf32 format holds values exact in TF32 (bf16 weights)")
+        return t.contiguous()
     hi, lo = tf32_split(t)
     return torch.stack([hi.reshape(*lead, tiles, chunks, -1), lo.reshape(*lead, tiles, chunks, -1)],
                        dim=-2)
 
 
+def fmt_of(dtype: torch.dtype) -> str:
+    """The weight format of the core's mode for a block's activation dtype:
+    "split" for f32, "bf16" for bf16."""
+    return "bf16" if dtype == torch.bfloat16 else "split"
+
+
 def unpack_b(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo), each the padded Bᵀ [..., N_tiles·64, K_chunks·32] back from
-    ``pack_b``'s layout."""
-    *lead, tiles, chunks = packed.shape[:-2]
+    ``pack_b``'s layout (lo zeros for the one-part formats)."""
+    *lead, tiles, chunks, parts = packed.shape[:-1]
     nl = len(lead)
 
     def dense(p):
-        t = p.reshape(*lead, tiles, chunks, 4, 2, 8, 8, 4).permute(
+        ks, half, kk = _K_SPLIT[packed.dtype]
+        t = p.reshape(*lead, tiles, chunks, ks, half, 8, 8, kk).permute(
             *range(nl), *(nl + i for i in (0, 4, 5, 1, 2, 3, 6)))
         return t.reshape(*lead, tiles * TILE_ROWS, chunks * CHUNK)
 
-    return dense(packed[..., 0, :]), dense(packed[..., 1, :])
+    hi = dense(packed[..., 0, :])
+    return hi, dense(packed[..., 1, :]) if parts == 2 else torch.zeros_like(hi)
 
 
 def cached(name: str, build: Callable, *tensors: torch.Tensor):
     """``build(*tensors)`` under no_grad, made once per ``name`` and
     tensors, and again after any of them changes in place."""
-    key = (name, *[(id(t), t.data_ptr()) for t in tensors])
+    key = (name, *[(id(t), t.data_ptr(), t.dtype) for t in tensors])
     versions = tuple([t._version for t in tensors])
     entry = _entries.get(key)
     if entry is not None and entry[0] == versions:

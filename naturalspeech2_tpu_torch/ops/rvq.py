@@ -83,7 +83,7 @@ def rvq(x, codebooks):
     run ``rvq_torch``."""
     if x.device.type == "cpu":
         return rvq_torch(x, codebooks)
-    _build.require_cuda_f32("rvq", x=x, codebooks=codebooks)
+    _build.require_cuda("rvq", x=x, codebooks=codebooks)
     m, d = x.shape
     num_q, size = codebooks.shape[:2]
     _build.require_shapes("rvq", codebooks=(codebooks, (num_q, size, d)))

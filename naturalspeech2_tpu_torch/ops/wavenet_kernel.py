@@ -28,6 +28,17 @@ computes the body from that layout in plain PyTorch. The kernels take d %
 (``pad_wavenet_weights``, ``pad_wavenet_inputs``) and the result is cut
 back: a padded channel has zero weights, bias, γ and β, so it stays 0
 through the FiLM, tanh·σ, the residual and the skips.
+
+In bf16 (x, the weights and FiLM bfloat16) each route copies its own JAX
+counterpart. The kernels' routes run the JAX kernels' bf16 path: the lanes
+stay f32, the products multiply them by the bf16 weights with f32
+accumulation, and only the output is rounded to bf16
+(``wavenet_body_bf16_torch``, ``wavenet_body_lanes_bf16_torch``; on a card
+the kernels' bf16 entry points, their weights packed as TF32 with no lo
+part, two TF32 passes). The plain route is ``wavenet_body_torch`` on the
+bf16 tensors, every lane rounded to bf16 as `wavenet_body_xla` runs at
+x.dtype. ``wavenet_route`` decides as in f32: the JAX gates do not depend on
+the dtype. The backward in bf16 belongs to AMP training (ROADMAP item 24).
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
-from naturalspeech2_tpu_torch.utils.helpers import vjp
+from naturalspeech2_tpu_torch.utils.helpers import refuse_bf16_backward, vjp
 
 # The kernels' channel multiple (the GEMM core's chunk), to which other
 # widths are padded.
@@ -97,6 +108,23 @@ def wavenet_body_lanes_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, fi
         skip = lane @ skip_w[l] + skip_b[l]
         out = skip if out is None else out + skip
     return out
+
+
+def wavenet_body_bf16_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
+    """Plain version of K1 in bf16, the rounding points of `_wavenet_kernel`
+    at bf16 inputs: the lanes in f32 from the bf16 x, every product of a
+    lane and a bf16 weight summed in f32, the biases and FiLM applied in f32,
+    the skips summed in f32 and the output rounded once to bf16."""
+    return wavenet_body_torch(*(t.float() for t in (x, conv_w, conv_b, res_w, res_b, skip_w,
+                                                    skip_b, film))).to(x.dtype)
+
+
+def wavenet_body_lanes_bf16_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
+    """Plain version of K1b in bf16 (`_lane_kernel` at bf16 inputs without
+    ``bf16_matmul``): ``wavenet_body_lanes_torch`` on the f32 values, the
+    output rounded once to bf16."""
+    return wavenet_body_lanes_torch(*(t.float() for t in (x, conv_w, conv_b, res_w, res_b,
+                                                          skip_w, skip_b, film))).to(x.dtype)
 
 
 # The JAX package's budgets (`naturalspeech2_tpu/ops/wavenet_kernel.py`):
@@ -181,20 +209,24 @@ def block_weights(conv_w, res_w):
 def pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b,
                          route: str) -> WavenetWeights:
     """The body's weights padded to a multiple of 32 channels and packed
-    for the GEMM core (``gemm_cache.pack_b``): the blocks' B, and the skips
+    for the GEMM core (``gemm_cache.pack_b``; f32 weights split into hi
+    and lo, bf16 ones as TF32 with no lo part): the blocks' B, and the skips
     as K1 (``route`` "stack": one product over the lanes side by side, the
-    biases summed) or K1b ("lanes": one product per lane) reads them."""
+    biases summed in f32) or K1b ("lanes": one product per lane) reads
+    them. The biases keep their dtype but for that f32 sum."""
+    fmt = "tf32" if conv_w.dtype == torch.bfloat16 else "split"
     d = conv_w.shape[-1]
     d_p = _round_up(d, KERNEL_ALIGN)
     if d_p != d:
         conv_w, conv_b, res_w, res_b, skip_w, skip_b = pad_wavenet_weights(
             conv_w, conv_b, res_w, res_b, skip_w, skip_b, d_p)
     L = skip_w.shape[0]
-    blocks = gemm_cache.pack_b(block_weights(conv_w, res_w).transpose(-1, -2))
+    blocks = gemm_cache.pack_b(block_weights(conv_w, res_w).transpose(-1, -2), fmt)
     if route == "stack":
-        skip, skip_b = gemm_cache.pack_b(skip_w.reshape(L * d_p, d_p).T), skip_b.sum(0)
+        skip = gemm_cache.pack_b(skip_w.reshape(L * d_p, d_p).T, fmt)
+        skip_b = skip_b.to(torch.float32).sum(0)
     else:
-        skip = gemm_cache.pack_b(skip_w.transpose(-1, -2))
+        skip = gemm_cache.pack_b(skip_w.transpose(-1, -2), fmt)
     return WavenetWeights(blocks, conv_b.contiguous(), res_b.contiguous(), skip,
                           skip_b.contiguous(), d_p)
 
@@ -248,8 +280,8 @@ def wavenet_body_packed_torch(x, film, weights: WavenetWeights, route: str):
 def _pack_checked(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route: str):
     """``pack_wavenet_weights`` after the wrapper's checks of the weights,
     which a cache hit then need not repeat."""
-    _build.require_cuda_f32("wavenet_body", conv_w=conv_w, conv_b=conv_b, res_w=res_w,
-                            res_b=res_b, skip_w=skip_w, skip_b=skip_b)
+    _build.require_cuda("wavenet_body", conv_w.dtype, conv_w=conv_w, conv_b=conv_b, res_w=res_w,
+                        res_b=res_b, skip_w=skip_w, skip_b=skip_b)
     S, L, _, d = conv_w.shape
     _build.require_shapes(
         "wavenet_body", conv_w=(conv_w, (S, L, 3 * d, d)), conv_b=(conv_b, (S, L, d)),
@@ -267,9 +299,14 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
         route = wavenet_route(x.shape[1], x.shape[2], conv_w.shape[1])
     if route == "plain":
         return wavenet_body_torch(*args)
+    bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
-        return (wavenet_body_lanes_torch if route == "lanes" else wavenet_body_torch)(*args)
-    _build.require_cuda_f32("wavenet_body", x=x, film=film)
+        if route == "lanes":
+            return (wavenet_body_lanes_bf16_torch if bf16 else wavenet_body_lanes_torch)(*args)
+        return (wavenet_body_bf16_torch if bf16 else wavenet_body_torch)(*args)
+    _build.require_cuda("wavenet_body", x.dtype, x=x, film=film)
+    if conv_w.dtype != x.dtype:
+        raise TypeError(f"wavenet_body: the weights are {conv_w.dtype}, x is {x.dtype}")
     b, n, d = x.shape
     S, L = conv_w.shape[:2]
     _build.require_shapes("wavenet_body", conv_w=(conv_w, (S, L, 3 * d, d)),
@@ -281,20 +318,23 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     d_p = wt.d
     if d_p != d:
         x, film = pad_wavenet_inputs(x, film, d_p)
-    out = torch.empty((b, n, d_p), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, n, d_p), dtype=x.dtype, device=x.device)
+    # the lane state is f32 in both dtypes; K1b in bf16 sums its skips in
+    # an f32 scratch of its own (in f32, in the output)
     if route == "lanes":
-        state = torch.empty((2, b, n, d_p), dtype=torch.float32, device=x.device)
+        state = torch.empty((2 + bf16, b, n, d_p), dtype=torch.float32, device=x.device)
         entry, counter = "ns2_wavenet_lanes", wavenet_body_lanes
     else:
         state = torch.empty((2, L, b, n, d_p), dtype=torch.float32, device=x.device)
         entry, counter = "ns2_wavenet_body", wavenet_body
-    err = getattr(_build.library(), entry)(
+    scratch = [s.data_ptr() for s in state]
+    err = _build.entry(entry, x.dtype)(
         x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
-        wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(), state[0].data_ptr(),
-        state[1].data_ptr(), out.data_ptr(), b, n, d_p, S, L, _build.stream(x),
+        wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(), *scratch,
+        out.data_ptr(), b, n, d_p, S, L, _build.stream(x),
     )
     _build.check(err, entry)
-    counter.launches += 1
+    _build.count(counter, x.dtype)
     return out if d_p == d else out[..., :d].contiguous()
 
 
@@ -306,6 +346,7 @@ class _WavenetBody(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        refuse_bf16_backward("wavenet_body", g)
         return None, *vjp(wavenet_body_torch, ctx.saved_tensors, ctx.needs_input_grad[1:], g)
 
 
@@ -326,5 +367,5 @@ def wavenet_body_lanes(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     return _WavenetBody.apply("lanes", x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
 
 
-wavenet_body.launches = 0
-wavenet_body_lanes.launches = 0
+wavenet_body.launches = wavenet_body.launches_bf16 = 0
+wavenet_body_lanes.launches = wavenet_body_lanes.launches_bf16 = 0

@@ -85,7 +85,10 @@ class TTSEngine:
     ``text_buckets`` are token-length ceilings, ``frame_buckets`` latent
     frame counts; every (text_bucket, frame_bucket) pair is one shape the
     sampler runs at. ``prompt_samples`` fixes the conditioning prompt crop.
-    The module is moved to ``device`` (``None``: the card).
+    The module is moved to ``device`` (``None``: the card). ``dtype=
+    "bfloat16"`` runs the denoiser in bf16: the engine holds a bf16 copy of
+    its parameters, cast once here (the codec and the conditioning stack
+    stay f32), so the kernels' packed weights are built once too.
     """
 
     ns2: object
@@ -109,11 +112,15 @@ class TTSEngine:
 
     def __post_init__(self):
         from naturalspeech2_tpu_torch.models.naturalspeech2 import sample as _sample
+        from naturalspeech2_tpu_torch.models.naturalspeech2 import with_denoiser_dtype
 
+        self._dtype = None
         if self.dtype:
-            raise NotImplementedError(
-                f"TTSEngine(dtype={self.dtype!r}) is not ported yet (ROADMAP Queue 1, item 24, "
-                "bf16 sampling)")
+            self._dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
+                str(self.dtype).removeprefix("torch."))
+            if self._dtype is None:
+                raise ValueError(f"TTSEngine: dtype must be 'float32' or 'bfloat16', "
+                                 f"got {self.dtype!r}")
         if self.mesh is not None:
             raise NotImplementedError(
                 "TTSEngine(mesh=), tensor-parallel serving, is not ported yet (ROADMAP Queue 1, "
@@ -124,6 +131,10 @@ class TTSEngine:
             raise ValueError("NaturalSpeech2 needs tokenizer= for raw text")
         self.device = resolve_device(self.device)
         self.ns2 = self.ns2.to(self.device)
+        if self._dtype is not None:
+            # cast the denoiser ONCE: sample() then finds it in its dtype
+            # and casts nothing per call
+            self.ns2 = with_denoiser_dtype(self.ns2, self._dtype)
         self._sample = _sample
         # observability ring buffer: (wall_seconds, bucket) per request
         self._latencies: list = []
@@ -184,6 +195,7 @@ class TTSEngine:
             self.ns2, length=f_bucket, prompt=prompts, text=ids, text_lens=lens,
             cond_scale=self.cond_scale, cfg_rescale=self.cfg_rescale,
             cfg_interval=self.cfg_interval, timesteps=self.timesteps, noise=noise,
+            dtype=self._dtype,
         )
         self._warm.add((ids.shape[1], f_bucket))
         return wav.cpu().numpy()

@@ -128,7 +128,7 @@ class Trainer:
         ``skipped``); ``val_batches`` / ``val_fraction`` add a held-out
         loss every ``validate_every`` steps."""
         if amp:
-            raise _not_ported("amp=True", "the bf16 slice")
+            raise _not_ported("amp=True", "item 24, AMP training")
         if mesh is not None or param_sharding is not None:
             raise _not_ported("mesh / param_sharding", "item 21, parallel/")
         if checkpoint_backend == "orbax":

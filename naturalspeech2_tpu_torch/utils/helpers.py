@@ -49,6 +49,20 @@ def safe_div(numer: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
     return numer / denom.clamp(min=1e-10)
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and widened back to f32: a rounding point of
+    the JAX kernels' bf16 path (``.astype(mm)`` before a product)."""
+    return t.to(torch.bfloat16).float()
+
+
+def refuse_bf16_backward(name: str, cotangent: torch.Tensor) -> None:
+    """Raise for a kernel's backward in bf16: the bf16 backward belongs to
+    AMP training, which is not ported yet."""
+    if cotangent.dtype == torch.bfloat16:
+        raise NotImplementedError(f"the backward of {name} in bfloat16 is not ported yet "
+                                  "(ROADMAP Queue 1, item 24, AMP training)")
+
+
 def vjp(fn, primals, needs_grad, cotangent: torch.Tensor) -> tuple:
     """Gradients of ``fn(*primals)`` against ``cotangent`` for the primals
     flagged in ``needs_grad`` (None for the others), recomputing ``fn``

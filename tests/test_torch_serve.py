@@ -310,10 +310,33 @@ def test_sample_takes_raw_text(engine):
         ns2.tokenizer = tokenizer
 
 
+def test_engine_bf16(engine):
+    """`TTSEngine(dtype="bfloat16")` holds a bf16 copy of the denoiser, cast
+    once (the caller's module and the conditioning stay f32), and a batch
+    from it equals `sample(dtype=torch.bfloat16)` on the f32 module; it
+    tracks the f32 engine (correlation ≥ 0.98, JAX's bf16 bound)."""
+    ns2 = engine.ns2
+    bf16 = TTSEngine(ns2, dtype="bfloat16", device="cpu", **ENGINE_CFG)
+    assert {p.dtype for p in bf16.ns2.model.parameters()} == {torch.bfloat16}
+    assert {p.dtype for p in ns2.parameters()} == {torch.float32}
+    assert bf16.ns2.prompt_enc is ns2.prompt_enc and bf16.ns2.codec is ns2.codec
+    req = bf16._prepare(TEXTS[0], PROMPT, SECONDS, seed=3)
+    noise = torch.randn(1, req.f_bucket, 16, generator=torch.Generator().manual_seed(3))
+    wave = bf16._run_batch([req], noise=noise)[0]
+    assert wave.shape == (8 * HOP,) and np.isfinite(wave).all()
+    direct = sample(ns2, length=req.f_bucket, prompt=torch.from_numpy(req.prompt)[None],
+                    text=torch.from_numpy(req.ids)[None].long(),
+                    text_lens=torch.tensor([req.n_tokens]), cond_scale=ENGINE_CFG["cond_scale"],
+                    timesteps=ENGINE_CFG["timesteps"], noise=noise, dtype=torch.bfloat16)
+    np.testing.assert_array_equal(wave, direct[0, :wave.shape[0]].numpy())
+    f32 = engine._run_batch([req], noise=noise)[0]
+    assert np.corrcoef(wave, f32)[0, 1] >= 0.98
+
+
 def test_engine_refusals(engine):
     ns2 = engine.ns2
-    with pytest.raises(NotImplementedError, match="item 24"):
-        TTSEngine(ns2, dtype="bfloat16", device="cpu")
+    with pytest.raises(ValueError, match="dtype"):
+        TTSEngine(ns2, dtype="float16", device="cpu")
     with pytest.raises(NotImplementedError, match="item 21"):
         TTSEngine(ns2, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
