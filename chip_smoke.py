@@ -146,7 +146,30 @@ Phases (each prints its lines; any failure raises and exits non-zero):
  26. bf16 card against bf16 CPU at README config 2's full width: a guided
      denoiser forward and a 2-step served sample within BF16_PATH_TOL,
      correlated ≥ BF16_CORR, and the card's bf16 sample's correlation
-     with its f32 one (≥ BF16_F32_CORR).
+     with its f32 one (≥ BF16_F32_CORR);
+ 27. the AMP kernels against their plain versions: K4 in bf16 with
+     dropout 0.2 and K5 in bf16 at the prompt encoder's [16, 8, 102, 64]
+     (keep masks bit for bit against the f32 kernel's), K5 in bf16 at
+     [16, 8, 150, 64] and [4, 8, 1024, 64] causal and masked (within
+     BF16_TOL, beside SDPA in bf16 and its backward), K6 on bf16 x and
+     codebooks at m 2400 and 1632 (codes equal to the f32 kernel's on the
+     same values but for near-ties, the sum bit-equal), and the mixed
+     entry points (f32 activations against bf16 weights): K1 at [16, 150,
+     128], K2, K3 and K2b at [16, 160, 128], K1b at [1, 6733, 128], within
+     WAVENET_TOL / BLOCK_TOL of the f32 plain versions;
+ 28. flagship AMP training: `Trainer(amp=True)` on synthetic WAVs, b16 x
+     2 s, 10 steps with the EMA sample and checkpoint: finite losses,
+     moved parameters, f32 master state, EMA and checkpoint, a resume,
+     exact launch counts by kind of entry point (bf16 K6, mixed K1, f32 K4
+     and K5) and the f32 trainer's unchanged, the step beside the f32
+     one in turns, one AMP step at 160 frames (mixed K2 and K3) and
+     `cli.main(["train", "--amp", ...])` for two steps;
+ 29. conditional AMP training at README config 2 as phase 18, with exact
+     launch counts (bf16 K4 with dropout and K5, bf16 K6 x 2) and a step at
+     160 frames (mixed K2, K2b, K3);
+ 30. one AMP loss and its f32 master gradients card against CPU, the
+     flagship at b2 x 0.4 s and README config 2 at b2, held to
+     AMP_LOSS_RTOL / AMP_GRAD_RTOL or to the card's own bf16 noise floor.
 K2, K2b and K3 are held to BLOCK_TOL (split TF32 on the tensor cores
 against f32 plain versions) at every shape they run: b4 x n1024 x dim 128,
 the conditional [8, 512, 128], the long-form n4500 and n9000 and the
@@ -154,8 +177,10 @@ scaled b16 x n1024 x dim 512; K1 and K1b to WAVENET_TOL at every shape
 they run (b4 x n1024, n4500, n9000, n6733, dim 512 pinned, dim 16).
 The line before the last is the kernels' JSON summary (each kernel's
 time, plain time, bound and launches, by path: "serve" counts phase 20's
-50 sequential requests; a row per dtype, the bf16 rows with their f32
-kernel's time at the same shape); the last line is
+50 sequential requests, "train_amp" and "conditional_train_amp" phases 28
+and 29's ten AMP steps; a row per dtype, "mixed" for f32 activations
+against bf16 weights, the bf16 and mixed rows with their f32 kernel's
+time at the same shape); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -388,6 +413,27 @@ PEAK_BF16_FLOPS = 989e12
 # float32 peak, 67 TFLOP/s, the fastest the card's ALUs run: a bound that
 # stays a lower bound.
 PEAK_F32_FLOPS, THREEFRY_OPS = 67e12, 75
+# AMP training (phases 27-30). AMP_FUSED_FRAMES: 51,200 samples, where the
+# JAX package's block gates pass (160 % 8 == 0), so the mixed K2, K2b and
+# K3 and K2's backward run on a path. Card against CPU (phase 30): the
+# codec and the conditioning encoders run bf16 chains whose f32 sums round
+# to the other bf16 neighbour here and there on one side (one ulp in some
+# layers), and the gradients amplify that, as JAX's own do when the input
+# moves by one bf16 ulp (tests/test_torch_amp.py). At README config 2's
+# full depth that floor reaches past 1 for the prompt encoder's deepest
+# layers' q projections, whose gradients reach the loss through softmax
+# attention in bf16 and the duration and pitch trunks' L1 (a sign) on
+# bf16 predictions, and one draw of it can be several times another's
+# (NVIDIA H100 80GB HBM3). So each loss and each f32 master gradient is
+# held to AMP_LOSS_RTOL / AMP_GRAD_RTOL, or to AMP_FLOOR_FACTOR times its
+# floor (the largest of AMP_FLOOR_DRAWS draws of a one-ulp move of every
+# bf16 input, one of them on the CPU) where that is higher, and all
+# gradients together to a correlation of AMP_GRAD_CORR: across 818
+# tensors, one draw's change can be several times the largest of three
+# others'.
+AMP_FUSED_FRAMES = 160
+AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_GRAD_CORR = 2e-2, 5e-2, 0.99
+AMP_FLOOR_DRAWS, AMP_FLOOR_FACTOR = 5, 6.0
 
 
 def log(phase: str, msg: str) -> None:
@@ -2758,6 +2804,721 @@ def profile_bf16_guided(ns2, x, times, prompt_enc, cond) -> None:
             _profile(f"10 guided denoise steps, {label}", steps)
 
 
+# --------------------------------------------------------------------- #
+# AMP training (phases 27-30)
+# --------------------------------------------------------------------- #
+
+
+def bound_amp_backward(b, h, n_q, n_kv, d, dropout: bool) -> dict:
+    """Bound of K5 in bf16: S, dP, dQ and dK are products of bf16 values,
+    at the dense bf16 peak; dV = Aᵀ·dO multiplies the f32 A by bf16 dO, at
+    the least-cost exact scheme (A split into three bf16 parts, three bf16
+    passes: `bound_bf16`'s f32_lanes); the keep bits (twice: the dq and the
+    dk/dv kernel) at the f32 peak; bf16 q, k, v, o, dO and dq, dk, dv and
+    f32 lse and delta moved once."""
+    pair = 2 * b * h * n_q * n_kv * d  # one n_q × n_kv × d product, 2 FLOPs a multiply-add
+    ops_ms = max((4 * pair / PEAK_BF16_FLOPS + pair / (PEAK_BF16_FLOPS / 3)) * 1e3,
+                 (2 * THREEFRY_OPS * b * h * n_q * n_kv if dropout else 0.0)
+                 / PEAK_F32_FLOPS * 1e3)
+    moved = 2 * (3 * b * h * n_q * d + 4 * b * h * n_kv * d) + 2 * 4 * b * h * n_q
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _amp_entry(name: str, dtype: str, source: str, replaces: str) -> dict:
+    return {"name": name, "dtype": dtype, "route": "cuda",
+            "source": f"naturalspeech2_tpu_torch/csrc/{source}",
+            "replaces": f"naturalspeech2_tpu/ops/{replaces}", "by_shape": {}}
+
+
+def _add_shape(row: dict, shape: str, timing: dict) -> None:
+    """A shape's numbers into a summary row (the first shape's at the top)."""
+    if not row["by_shape"]:
+        row.update({k: timing[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")})
+    row["by_shape"][shape] = timing
+    row["max_abs_err"] = max(row["max_abs_err"], timing["max_abs_err"])
+
+
+def amp_flash_case(phase: str, gen, b, h, n_q, n_kv, d=DIM_HEAD, rate=0.0, causal=False,
+                   masked=False, seed=(0x5EED0027, 0xC0DE)) -> dict:
+    """K4 and K5 in bf16 at one shape against their plain bf16 versions
+    (o and each gradient within BF16_TOL of their largest entry, lse within
+    FLASH_TOL), timed beside the f32 kernels on the same values, the plain
+    versions and SDPA in bf16 (forward, and its autograd backward):
+    {name: (shape, timing)}."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import flash_attention as fa
+
+    q, do = (torch.randn(b, h, n_q, d, generator=gen, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, h, n_kv, d, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    mask = None
+    if masked:
+        mask = torch.rand(b, n_kv, generator=gen, device="cuda") > 0.2
+        mask[:, 0] = True
+    seed = seed if rate > 0.0 else None
+    cfg = dict(causal=causal, scale=d**-0.5, dropout_rate=rate)
+    fwd = lambda: fa.flash_forward(q, k, v, mask, seed, **cfg)  # noqa: E731
+    fwd_plain = lambda: fa.flash_forward_torch(q, k, v, mask, seed, **cfg)  # noqa: E731
+    (o, lse), (o_ref, lse_ref) = fwd(), fwd_plain()
+    torch.cuda.synchronize()
+    shape = f"[{b},{h},{n_q},{d}]" if n_q == n_kv else f"[{b},{h},{n_q}|{n_kv},{d}]"
+    shape += "".join([" causal" if causal else "", " masked" if masked else "",
+                      f" dropout {rate:g}" if rate else ""])
+    if o.dtype != torch.bfloat16 or lse.dtype != torch.float32:
+        raise AssertionError(f"flash_forward bf16: o {o.dtype}, lse {lse.dtype}")
+    err_f = compare(phase, f"flash_forward bf16 {shape}", o, o_ref, BF16_TOL, relative=True)
+    compare(phase, f"flash_forward bf16 {shape} lse", lse, lse_ref, FLASH_TOL)
+    bwd = lambda: fa.flash_backward(q, k, v, mask, seed, lse_ref, o_ref, do, **cfg)  # noqa: E731
+    bwd_plain = lambda: fa.flash_backward_torch(  # noqa: E731
+        q, k, v, mask, seed, lse_ref, o_ref, do, **cfg)
+    grads = bwd()
+    torch.cuda.synchronize()
+    if any(g.dtype != torch.bfloat16 for g in grads):
+        raise AssertionError(f"flash_backward bf16: {[g.dtype for g in grads]}")
+    err_b = compare(phase, f"flash_backward bf16 {shape}", grads, bwd_plain(), BF16_TOL,
+                    relative=True)
+    del o, lse, grads
+    lib_fwd, lib_bwd = sdpa_calls(q, k, v, do, cfg["scale"], rate)
+    if causal or masked:  # SDPA's own mask arguments: a yardstick of the same work
+        import torch.nn.functional as F
+
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        attn_mask = fa._valid(b, n_q, n_kv, mask, causal, "cuda")
+        lib_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=attn_mask, scale=cfg["scale"], dropout_p=rate)
+        o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask,
+                                               scale=cfg["scale"], dropout_p=rate)
+        lib_bwd = lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,  # noqa: E731
+                                              retain_graph=True)
+    moved_f = 2 * (2 * b * h * n_q * d + 2 * b * h * n_kv * d) + 4 * b * h * n_q
+    work_f = bound_bf16(4 * b * h * n_q * n_kv * d, moved_f)
+    if rate:
+        keep_ms = THREEFRY_OPS * b * h * n_q * n_kv / PEAK_F32_FLOPS * 1e3
+        if keep_ms > work_f["bound_ms"]:
+            work_f = {"bound_ms": keep_ms, "bound_by": "operations"}
+    q32, k32, v32, do32, o32 = (t.float() for t in (q, k, v, do, o_ref))
+    fwd32 = lambda: fa.flash_forward(q32, k32, v32, mask, seed, **cfg)  # noqa: E731
+    bwd32 = lambda: fa.flash_backward(q32, k32, v32, mask, seed, lse_ref, o32, do32,  # noqa: E731
+                                      **cfg)
+    results = {}
+    for name, kernel, f32_kernel, plain, library, work, err in (
+            ("flash_forward", fwd, fwd32, fwd_plain, lib_fwd, work_f, err_f),
+            ("flash_backward", bwd, bwd32, bwd_plain, lib_bwd,
+             bound_amp_backward(b, h, n_q, n_kv, d, bool(rate)), err_b)):
+        ms, f32_ms, plain_ms, lib_ms = (cuda_ms(f) for f in (kernel, f32_kernel, plain, library))
+        log(phase, f"{name} bf16 {shape}: kernel {ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, plain "
+                   f"bf16 {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms (median of 20), bound "
+                   f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
+        results[name] = (shape, {"max_abs_err": err, "ms": ms, "f32_ms": f32_ms,
+                                 "plain_ms": plain_ms, "library_ms": lib_ms, **work})
+    return results
+
+
+def _amp_keep_case(gen, b, h, n, d, rate, seed, phase: str) -> None:
+    """K4's keep mask in bf16 at [b, h, n, n], bit for bit against the f32
+    kernel's, the plain bf16 version's and the Threefry mask (as
+    `_flash_keep_case`: q = k = 0, v one-hot over a d-key window, so
+    o[row, c] != 0 exactly where key window + c is kept)."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import flash_attention as fa
+
+    zeros = torch.zeros(b, h, n, d, device="cuda")
+    cfg = dict(causal=False, scale=d**-0.5, dropout_rate=rate)
+    masks = {"bf16": [], "f32": [], "plain bf16": []}
+    for w0 in range(0, n, d):
+        onehot = torch.zeros(b, h, n, d, device="cuda")
+        cols = torch.arange(w0, min(w0 + d, n), device="cuda")
+        onehot[:, :, cols, cols - w0] = 1.0
+        z16, v16 = zeros.bfloat16(), onehot.bfloat16()
+        masks["bf16"].append(fa.flash_forward(z16, z16, v16, None, seed, **cfg)[0] != 0)
+        masks["f32"].append(fa.flash_forward(zeros, zeros, onehot, None, seed, **cfg)[0] != 0)
+        masks["plain bf16"].append(
+            fa.flash_forward_torch(z16, z16, v16, None, seed, **cfg)[0] != 0)
+    kept = {k: torch.cat(v, dim=-1)[..., :n] for k, v in masks.items()}
+    keep = fa.dropout_keep_scaled(seed, b, h, n, n, rate, device="cuda") != 0
+    if not all(torch.equal(m, keep) for m in kept.values()):
+        raise AssertionError(f"flash_forward bf16 [{b},{h},{n},{d}]: keep masks differ")
+    log(phase, f"bf16 dropout keep masks identical at [{b},{h},{n},{d}]: {int(keep.sum())} of "
+               f"{keep.numel()} kept at rate {rate} (bf16 kernel, f32 kernel, plain bf16 and "
+               "the Threefry mask)")
+
+
+def _amp_rvq_case(gen, m, phase: str, num_q=8, size=1024, d=128) -> dict:
+    """K6 on bf16 x and codebooks against the f32 kernel on their widened
+    values: codes equal but for near-ties (RVQ_TIE_TOL in d²), the bf16
+    quantized sum equal to the f32 one rounded once on the agreeing rows;
+    against the plain bf16 version likewise; timed beside both."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import rvq as rvq_ops
+
+    x = torch.randn(m, d, generator=gen, device="cuda").bfloat16()
+    cb = torch.randn(num_q, size, d, generator=gen, device="cuda").bfloat16()
+    x32, cb32 = x.float(), cb.float()
+    (q, codes), (q32, codes32) = rvq_ops.rvq(x, cb), rvq_ops.rvq(x32, cb32)
+    q_plain, codes_plain = rvq_ops.rvq_bf16_torch(x, cb)
+    torch.cuda.synchronize()
+    if q.dtype != torch.bfloat16:
+        raise AssertionError(f"rvq bf16: quantized is {q.dtype}")
+    xd, cbd = x32.double().cpu(), cb32.double().cpu()
+    for label, ref_codes, ref_q in (("the f32 kernel", codes32, q32.bfloat16()),
+                                    ("the plain bf16 version", codes_plain, q_plain)):
+        got, want = codes.long().cpu(), ref_codes.long().cpu()
+        same = (got == want).all(dim=1)
+        for row in torch.nonzero(~same).flatten().tolist():
+            stage = int(torch.nonzero(got[row] != want[row])[0])
+            r = xd[row] - sum(cbd[s][want[row, s]] for s in range(stage))
+            gap = abs(((r - cbd[stage][got[row, stage]]) ** 2).sum()
+                      - ((r - cbd[stage][want[row, stage]]) ** 2).sum())
+            if gap > RVQ_TIE_TOL:
+                raise AssertionError(f"rvq bf16 vs {label}: row {row} stage {stage} differs by "
+                                     f"{gap:.3e} in d²")
+        if (~same).sum() > m // 100:
+            raise AssertionError(f"rvq bf16 vs {label}: {int((~same).sum())} rows part")
+        rows = same.cuda()
+        if not torch.equal(q[rows], ref_q[rows]):
+            raise AssertionError(f"rvq bf16: quantized differs from {label} on agreeing rows")
+        log(phase, f"rvq bf16 [{m},{d}] Q{num_q} K{size} vs {label}: codes equal in "
+                   f"{int(same.sum())} of {m} rows (the rest near-ties within {RVQ_TIE_TOL:g}), "
+                   "quantized bit-equal there")
+    kernel = lambda: rvq_ops.rvq(x, cb)  # noqa: E731
+    ms, f32_ms, plain_ms = (cuda_ms(f) for f in (kernel, lambda: rvq_ops.rvq(x32, cb32),
+                                                 lambda: rvq_ops.rvq_bf16_torch(x, cb)))
+    work = bound_bf16(2 * num_q * m * size * d, nbytes(x, cb, q, codes), f32_lanes=True)
+    log(phase, f"rvq bf16 [{m},{d}]: kernel {ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, plain bf16 "
+               f"{plain_ms:.4f} ms (median of 20), bound {work['bound_ms']:.4f} ms "
+               f"({work['bound_by']})")
+    return {"max_abs_err": 0.0, "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms,
+            "library_ms": None, **work}
+
+
+def amp_mixed_cases(gen, b, n, d, names) -> list:
+    """(name, mixed kernel, plain f32 on the widened weights, f32 kernel on
+    the same values, bound, residual) of K1, K2, K3 and K2b at one shape:
+    f32 activations against bf16 weights, as AMP's denoiser runs them."""
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+    from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    rn = _randn(gen)
+    cases = []
+    out_bytes = b * n * d * 4
+    heads, dim_head = HEADS, DIM_HEAD
+    scale, hd = dim_head**-0.5, heads * dim_head
+
+    def split(args, n_act):
+        """(activations f32, weights bf16), and the weights widened."""
+        acts, weights = args[:n_act], _bf16(*args[n_act:])
+        return (*acts, *weights), (*acts, *(w.float() for w in weights))
+
+    cfg = dict(heads=heads, dim_head=dim_head, scale=scale)
+    if "wavenet_body" in names:
+        wn, _ = wavenet_inputs(gen, b, n, d)
+        w16, w32 = split((wn[0], wn[7], *wn[1:7]), 2)
+        w16, w32 = ((a[0], *a[2:], a[1]) for a in (w16, w32))  # (x, weights, film)
+        flops = 2 * b * n * d * d * (WAVENET_STACKS * WAVENET_LAYERS * 4 + WAVENET_LAYERS)
+        cases.append(("wavenet_body", lambda: wk._forward("stack", *w16),
+                      lambda: wk.wavenet_body_torch(*w32), lambda: wk._forward("stack", *w32),
+                      bound_bf16(flops, nbytes(*w16) + out_bytes, f32_lanes=True), None))
+    if "attn_block" in names:
+        a16, a32 = split(attn_inputs(gen, b, n, d, heads, dim_head), 3)
+        flops = 2 * b * n * d * 4 * hd + 4 * b * heads * n * n * dim_head
+        heads_32 = ak.split_heads(*a32[3:], heads, dim_head)
+        cases.append(("attn_block", lambda: ak.attn_block(*a16, **cfg),
+                      lambda: ak.attn_block_torch(*a32[:3], *heads_32, scale=scale),
+                      lambda: ak.attn_block(*a32, **cfg),
+                      bound_bf16(flops, nbytes(*a16) + out_bytes, f32_lanes=True), a16[0]))
+    if "ff_block" in names:
+        inner = int(d * 4 * 2 / 3)
+        f16, f32 = split((rn(b, n, d), 1 + rn(b, d, scale=0.1), rn(b, d, scale=0.1),
+                          rn(d, 2 * inner, scale=d**-0.5), rn(2 * inner, scale=0.1),
+                          rn(3, inner, inner, scale=(3 * inner) ** -0.5), rn(inner, scale=0.1),
+                          rn(inner, d, scale=inner**-0.5), rn(d, scale=0.1)), 3)
+        flops = 2 * b * n * (d * 2 * inner + 3 * inner * inner + inner * d)
+        cases.append(("ff_block", lambda: fk.ff_block(*f16), lambda: fk.ff_block_plain(*f32),
+                      lambda: fk.ff_block(*f32),
+                      bound_bf16(flops, nbytes(*f16) + out_bytes, f32_lanes=True), f16[0]))
+    if "cross_attn_block" in names:
+        m = NUM_LATENTS
+        c16, c32 = split(cross_inputs(gen, b, n, m, d, d, heads, dim_head), 4)
+        flops = (2 * b * n * d * hd + 2 * b * m * d * 2 * hd + 4 * b * heads * n * m * dim_head
+                 + 2 * b * n * hd * d)
+        cases.append(("cross_attn_block", lambda: ak.cross_attn_block(*c16, **cfg),
+                      lambda: ak._cross_plain(*c32, **cfg), lambda: ak.cross_attn_block(*c32, **cfg),
+                      bound_bf16(flops, nbytes(*c16) + out_bytes, f32_lanes=True), c16[0]))
+    return cases
+
+
+def phase27_amp_kernels(bf16_summary: list) -> list:
+    """The kernels AMP training adds, each against its plain version on the
+    card: K4 and K5 in bf16 at the prompt encoder's [16, 8, 102, 64] with
+    dropout 0.2 (keep masks bit for bit against the f32 kernel's), K5 in
+    bf16 at [16, 8, 150, 64] and [4, 8, 1024, 64] causal and masked, beside
+    SDPA in bf16; K6 on bf16 x and codebooks at m 2400 and 1632 (Q 8, K
+    1024, d 128) against the f32 kernel on the widened values; the mixed
+    K1 at [16, 150, 128] and K2, K3 and K2b at [16, 160, 128] (f32
+    activations against bf16 weights) against the f32 plain versions on
+    the widened weights (WAVENET_TOL, BLOCK_TOL), timed beside the f32
+    kernels on the same values. Adds the bf16 dropout shape to phase 22's
+    bf16 K4 row; returns the new rows (bf16 K5 and K6, the mixed entries)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 270)
+    fwd_row = next(r for r in bf16_summary if r["name"] == "flash_forward")
+    bwd_row = _amp_entry("flash_backward", "bfloat16", "flash_bwd.cu", "flash_attention.py:361")
+    bwd_row["replaces_also"] = "naturalspeech2_tpu/ops/flash_attention.py:430"
+    b, h, d, p = CT_BATCH, HEADS, DIM_HEAD, CT_PROMPT_FRAMES
+    seed = (0x5EED0027, 0xC0DE)
+    for n, rate, causal, masked in ((p, CT_DROPOUT, False, False), (CT_FRAMES, 0.0, False, False),
+                                    (1024, 0.0, True, True)):
+        bb = b if n != 1024 else 4
+        res = amp_flash_case("27", gen, bb, h, n, n, d, rate, causal, masked, seed)
+        shape, timing = res["flash_forward"]
+        fwd_row["by_shape"][shape] = timing
+        fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], timing["max_abs_err"])
+        _add_shape(bwd_row, *res["flash_backward"])
+    _amp_keep_case(gen, b, h, p, d, CT_DROPOUT, seed, "27")
+
+    rvq_row = _amp_entry("rvq", "bfloat16", "rvq.cu", "rvq.py:60")
+    for m in (TRAIN_BATCH * int(TRAIN_SECONDS * 24000) // 320, CT_BATCH * p):
+        _add_shape(rvq_row, f"m {m}", _amp_rvq_case(gen, m, "27"))
+
+    rows = {}
+    sources = {"wavenet_body": ("wavenet.cu", "wavenet_kernel.py:80"),
+               "attn_block": ("attn_block.cu", "attn_block_kernel.py:92"),
+               "ff_block": ("ff_block.cu", "ff_block_kernel.py:97"),
+               "cross_attn_block": ("cross_attn_block.cu", "attn_block_kernel.py:237")}
+    for (bb, n), names in (((CT_BATCH, CT_FRAMES), ("wavenet_body",)),
+                           ((CT_BATCH, AMP_FUSED_FRAMES), ("attn_block", "ff_block",
+                                                           "cross_attn_block"))):
+        shape = f"[{bb},{n},{DIM}]"
+        for name, kernel, plain, f32_kernel, work, residual in amp_mixed_cases(gen, bb, n, DIM,
+                                                                                names):
+            out = kernel()
+            torch.cuda.synchronize()
+            if out.dtype != torch.float32:
+                raise AssertionError(f"{name} mixed: output {out.dtype}")
+            err = hold("27", f"{name} mixed {shape}", out, plain(), residual)
+            del out
+            ms, f32_ms, plain_ms = cuda_ms(kernel), cuda_ms(f32_kernel), cuda_ms(plain)
+            log("27", f"{name} mixed {shape}: kernel {ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms (median of 20), bound {work['bound_ms']:.4f} ms "
+                      f"({work['bound_by']})")
+            row = rows.setdefault(name, _amp_entry(name, "mixed", *sources[name]))
+            _add_shape(row, shape, {"max_abs_err": err, "ms": ms, "f32_ms": f32_ms,
+                                    "plain_ms": plain_ms, "library_ms": None, **work})
+        torch.cuda.empty_cache()
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    wn, _ = wavenet_inputs(gen, 1, RAGGED_LANES, DIM)
+    wn = (wn[0], *_bf16(*wn[1:7]), wn[7])
+    wide = tuple(t.float() for t in wn)
+    out = wk.wavenet_body_lanes(*wn)
+    hold("27", f"wavenet_body_lanes mixed [1,{RAGGED_LANES},{DIM}] (no AMP path at the "
+               "slice's shapes: held, not timed)", out, wk.wavenet_body_lanes_torch(*wide))
+    del out, wn, wide
+    return [bwd_row, rvq_row, *rows.values()]
+
+
+def _amp_counts(ops) -> dict:
+    """Launch counts by kind of entry point since the last reset."""
+    import torch
+
+    return {"f32": ops.launch_counts(), "bf16": ops.launch_counts(torch.bfloat16),
+            "mixed": ops.launch_counts("mixed")}
+
+
+def _per_step(f32=None, bf16=None, mixed=None) -> dict:
+    zero = dict.fromkeys(PER_STEP, 0)
+    return {"f32": {**zero, **(f32 or {})}, "bf16": {**zero, **(bf16 or {})},
+            "mixed": {**zero, **(mixed or {})}}
+
+
+def _scaled_counts(per_step: dict, steps: int) -> dict:
+    return {kind: {k: v * steps for k, v in c.items()} for kind, c in per_step.items()}
+
+
+def _check_f32_state(phase: str, trainer, checkpoint: str) -> None:
+    """Master parameters, Adam's moments, the EMA and the checkpoint in f32."""
+    import torch
+
+    params = list(trainer.ns2.parameters())
+    bad = [p.dtype for p in params if p.dtype != torch.float32]
+    bad += [e.dtype for e in trainer.ema.values() if e.dtype != torch.float32]
+    for p in params:
+        state = trainer.optimizer.state.get(p, {})
+        bad += [state[k].dtype for k in ("exp_avg", "exp_avg_sq") if k in state
+                and state[k].dtype != torch.float32]
+    payload = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    bad += [v.dtype for part in ("params", "ema_params") for v in payload[part].values()
+            if v.is_floating_point() and v.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"AMP state is not all f32: {set(bad)}")
+    log(phase, f"master parameters ({len(params)} tensors), Adam's moments, the EMA and "
+               f"{Path(checkpoint).name} are f32")
+
+
+def _steps_in_turns(phase: str, label: str, calls: dict, batch, rounds: int = 2,
+                    steps: int = 5) -> dict:
+    """ms per optimizer step of each trainer, in turns (f32, AMP, AMP, f32
+    for two), host clock, synchronised: {name: [ms per step of each turn]}."""
+    import torch
+
+    order = list(calls)
+    turns = [order[i % 2] if (i // 2) % 2 == 0 else order[1 - i % 2] for i in range(2 * rounds)]
+    times = {k: [] for k in order}
+    for name in turns:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(steps):
+            calls[name](batch)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - start) / steps * 1e3)
+    log(phase, f"{label}, ms per optimizer step in turns ({' '.join(turns)}; {steps} steps a "
+               "turn, host clock, synchronised): "
+               + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in t)}" for k, t in times.items()))
+    return times
+
+
+def phase28_amp_train(work: Path) -> dict:
+    """Flagship AMP training: `Trainer(amp=True)` on phase 7's folder of
+    synthetic WAVs, b16 x 2 s, 10 steps with the step-10 EMA sample and
+    checkpoint; finite losses, moved parameters, f32 master state, a resume
+    at step 10 with equal state; exact launch counts of the 10 steps and of
+    one more on each kind of entry point (bf16 K6, mixed K1, f32 K4 / K5 on
+    the denoiser's unfused attention), the f32 trainer's unchanged; one AMP
+    step at 160 frames (the JAX gates pass: mixed K2 and K3, K2's backward
+    on K4 / K5); `cli.main(["train", "--amp", ...])` for two steps; ms per
+    step beside the f32 trainer's in turns. Returns the counts by path."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import cli, ops
+
+    folder, results = work / "wavs", work / "amp_results"
+    folder.mkdir(exist_ok=True)
+    _write_wavs(folder)
+    kwargs = dict(folder=str(folder), train_batch_size=TRAIN_BATCH,
+                  data_max_length_seconds=TRAIN_SECONDS, save_and_sample_every=TRAIN_STEPS,
+                  sample_length=SAMPLE_FRAMES, results_folder=str(results))
+    ns2 = flagship(SEED + 280).cuda()
+    start_params = {n: p.detach().clone() for n, p in ns2.named_parameters()}
+    trainer = ns2pkg.Trainer(ns2, train_num_steps=TRAIN_STEPS, amp=True, **kwargs)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train(log_every=1)
+    torch.cuda.synchronize()
+    counts = _amp_counts(ops)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = [json.loads(line) for line in (results / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rows]
+    if [r["step"] for r in rows] != list(range(1, TRAIN_STEPS + 1)) or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"AMP metrics: {rows}")
+    step_ms = statistics.median(r["step_time_s"] for r in rows[2:]) * 1e3
+    log("28", f"Trainer(amp=True) b{TRAIN_BATCH} x {TRAIN_SECONDS:g} s, {TRAIN_STEPS} steps: "
+              f"losses {', '.join(f'{v:.4f}' for v in losses)}; {step_ms:.3f} ms per optimizer "
+              f"step (median of steps 3-{TRAIN_STEPS}, host clock, synchronised), peak device "
+              f"memory {peak_gib:.3f} GiB")
+    params = dict(ns2.named_parameters())
+    still = [n for n in params if n.startswith("model.") and torch.equal(params[n], start_params[n])]
+    if still:
+        raise AssertionError(f"denoiser parameters did not move under AMP: {still}")
+    _check_f32_state("28", trainer, str(results / "model-1.ckpt"))
+    per_step = _per_step(f32={"flash_forward": DEPTH, "flash_backward": DEPTH},
+                         bf16={"rvq": 1}, mixed={"wavenet_body": 1})
+    expect = _scaled_counts(per_step, TRAIN_STEPS)
+    for k, v in PER_DENOISE.items():  # the step-10 EMA sample runs in f32
+        expect["f32"][k] += ns2.timesteps * v
+    check_counts("28", f"{TRAIN_STEPS} AMP steps and a {ns2.timesteps}-step f32 EMA sample",
+                 counts, expect)
+
+    resumed = ns2pkg.Trainer(flagship(SEED + 281).cuda(), train_num_steps=TRAIN_STEPS + 1,
+                             amp=True, **kwargs)
+    resumed.load(resumed.latest_checkpoint())
+    for (name, a), b in zip(ns2.named_parameters(), resumed.ns2.parameters()):
+        sa, sb = trainer.optimizer.state[a], resumed.optimizer.state[b]
+        if not (resumed.step == TRAIN_STEPS and torch.equal(a, b)
+                and torch.equal(trainer.ema[name], resumed.ema[name])
+                and all(torch.equal(sa[k].cpu(), sb[k].cpu())
+                        for k in ("step", "exp_avg", "exp_avg_sq"))):
+            raise AssertionError(f"AMP resume: state differs at {name}")
+    ops.reset_launch_counts()
+    resumed.train(log_every=1)
+    check_counts("28", f"one AMP optimizer step after the resume at step {TRAIN_STEPS} (f32: "
+                       f"the denoiser's {DEPTH} unfused attentions' K4 / K5; bf16: K6; mixed: "
+                       "K1)",
+                 _amp_counts(ops), per_step)
+
+    # the f32 trainer's step is unchanged, and the two in turns
+    batch = next(trainer.batches)
+    f32_trainer = ns2pkg.Trainer(flagship(SEED + 282).cuda(), batches=iter([]),
+                                 train_batch_size=TRAIN_BATCH, results_folder=str(work / "f32"))
+    ops.reset_launch_counts()
+    f32_trainer.train_step(batch)
+    check_counts("28", "one f32 optimizer step (as phase 7)", _amp_counts(ops),
+                 {"f32": PER_STEP, **{k: dict.fromkeys(PER_STEP, 0) for k in ("bf16", "mixed")}})
+    _steps_in_turns("28", f"flagship b{TRAIN_BATCH} x {TRAIN_SECONDS:g} s",
+                    {"f32": f32_trainer.train_step, "amp": trainer.train_step}, batch, steps=4)
+    del f32_trainer
+
+    # 160 frames: the fused blocks' gates pass
+    g = torch.Generator().manual_seed(SEED + 283)
+    audio = torch.tanh(torch.randn(TRAIN_BATCH, AMP_FUSED_FRAMES * 320, generator=g)).numpy()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = trainer.train_step(audio)
+    fused = _amp_counts(ops)
+    per_step_160 = _per_step(f32={"flash_forward": DEPTH, "flash_backward": DEPTH},
+                             bf16={"rvq": 1},
+                             mixed={"wavenet_body": 1, "attn_block": DEPTH, "ff_block": DEPTH})
+    check_counts("28", f"one AMP step at {AMP_FUSED_FRAMES} frames (mixed K1, K2, K3; K2's "
+                       "backward recomputes on f32 K4 and runs f32 K5)", fused, per_step_160)
+    if not math.isfinite(metrics["loss"]):
+        raise AssertionError(f"AMP step at {AMP_FUSED_FRAMES} frames: loss {metrics['loss']}")
+    log("28", f"AMP step at {AMP_FUSED_FRAMES} frames: loss {metrics['loss']:.4f}, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    cli_results = work / "cli_amp"
+    rc = cli.main(["train", "--amp", "--folder", str(folder), "--steps", "2", "--batch-size",
+                   str(TRAIN_BATCH), "--save-every", "2", "--results", str(cli_results),
+                   "--data-seconds", f"{TRAIN_SECONDS:g}", "--log-every", "1"])
+    cli_rows = [json.loads(line) for line in (cli_results / "metrics.jsonl").read_text()
+                .splitlines()]
+    if rc != 0 or [r["step"] for r in cli_rows] != [1, 2] or not all(
+            math.isfinite(r["loss"]) for r in cli_rows):
+        raise AssertionError(f"cli train --amp: rc {rc}, {cli_rows}")
+    log("28", f"cli.main(['train', '--amp', ...]): 2 steps, losses "
+              f"{[round(r['loss'], 4) for r in cli_rows]}, checkpoint written")
+    return {"train_amp": counts, "train_amp_160": fused}
+
+
+def phase29_cond_amp_train(work: Path) -> dict:
+    """Conditional AMP training at README config 2 as phase 18 (b16 x 2 s,
+    text 100, prompt 32,768 samples, 10 steps): finite losses, every
+    trained group moved, f32 master state; exact launch counts of the 10
+    steps and of one more (bf16: K6 on the audio and the prompt, K4 with
+    dropout and K5 for the prompt encoder's 6 layers and K4 / K5 for the
+    resampler's 2; f32: K4 / K5 for the denoiser's 6 self- and 6
+    cross-attentions; mixed: K1); one step at 160 frames (mixed K2, K2b,
+    K3); ms per step beside the f32 trainer's in turns. Returns the counts
+    by path."""
+    import warnings
+
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+
+    ns2 = flagship(SEED + 290, conditional=True, scan_layers=True).cuda()
+    start_params = {n: p.detach().clone() for n, p in ns2.named_parameters()}
+    batches = _cond_train_batches(SEED + 291)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        trainer = ns2pkg.Trainer(ns2, batches=batches, train_batch_size=CT_BATCH, amp=True,
+                                 train_num_steps=CT_STEPS, save_and_sample_every=10**9,
+                                 results_folder=str(work / "cond_amp"))
+        f32_trainer = ns2pkg.Trainer(flagship(SEED + 292, conditional=True,
+                                              scan_layers=True).cuda(),
+                                     batches=iter([]), train_batch_size=CT_BATCH,
+                                     results_folder=str(work / "cond_f32"))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train(log_every=1)
+    torch.cuda.synchronize()
+    counts = _amp_counts(ops)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = [json.loads(line) for line in (work / "cond_amp" / "metrics.jsonl").read_text()
+            .splitlines()]
+    for key in ("loss", "diffusion", "duration", "pitch", "align"):
+        values = [r[key] for r in rows]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"AMP: non-finite {key} in {values}")
+        log("29", f"{key}: {', '.join(f'{v:.4f}' for v in values)}")
+    step_ms = statistics.median(r["step_time_s"] for r in rows[2:]) * 1e3
+    log("29", f"conditional Trainer(amp=True) b{CT_BATCH} x {CT_SAMPLES / 24000:g} s, "
+              f"{CT_STEPS} steps: {step_ms:.3f} ms per optimizer step (median of steps "
+              f"3-{CT_STEPS}, host clock, synchronised), peak device memory {peak_gib:.3f} GiB")
+    params = dict(ns2.named_parameters())
+    groups = ("aligner", "phoneme_enc", "prompt_enc", "duration_pitch", "model")
+    still = [n for n in params if n.split(".")[0] in groups
+             and torch.equal(params[n], start_params[n])]
+    if still:
+        raise AssertionError(f"parameters did not move under AMP: {still}")
+    trainer.save("amp")
+    _check_f32_state("29", trainer, str(work / "cond_amp" / "model-amp.ckpt"))
+    cross = 2 * DEPTH
+    prompt = PROMPT_DEPTH + RESAMPLER_DEPTH
+    per_step = _per_step(f32={"flash_forward": cross, "flash_backward": cross},
+                         bf16={"flash_forward": prompt, "flash_backward": prompt, "rvq": 2},
+                         mixed={"wavenet_body": 1})
+    check_counts("29", f"{CT_STEPS} conditional AMP steps", counts,
+                 _scaled_counts(per_step, CT_STEPS))
+    batch = next(batches)
+    ops.reset_launch_counts()
+    trainer.train_step(batch)
+    check_counts("29", f"one conditional AMP step (bf16: K6 on audio and prompt, K4 with dropout "
+                       f"and K5 for the prompt encoder's {PROMPT_DEPTH} layers, K4 / K5 for the "
+                       f"resampler's {RESAMPLER_DEPTH}; f32: K4 / K5 for the denoiser's "
+                       f"{DEPTH} self- and {DEPTH} cross-attentions; mixed: K1)",
+                 _amp_counts(ops), per_step)
+    ops.reset_launch_counts()
+    f32_trainer.train_step(batch)
+    check_counts("29", "one conditional f32 step (as phase 18)", _amp_counts(ops),
+                 {"f32": PER_COND_TRAIN_STEP,
+                  **{k: dict.fromkeys(PER_STEP, 0) for k in ("bf16", "mixed")}})
+    _steps_in_turns("29", f"README config 2 b{CT_BATCH} x {CT_SAMPLES / 24000:g} s",
+                    {"f32": f32_trainer.train_step, "amp": trainer.train_step}, batch, steps=2)
+    del f32_trainer
+    torch.cuda.empty_cache()
+
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 293)
+    long_batch = dict(batch, audio=rng.uniform(-1, 1, (CT_BATCH, AMP_FUSED_FRAMES * 320))
+                      .astype(np.float32))
+    ops.reset_launch_counts()
+    metrics = trainer.train_step(long_batch)
+    fused = _amp_counts(ops)
+    check_counts("29", f"one conditional AMP step at {AMP_FUSED_FRAMES} frames (mixed K1, K2, "
+                       "K2b, K3)", fused,
+                 _per_step(f32={"flash_forward": DEPTH, "flash_backward": DEPTH},
+                           bf16={"flash_forward": prompt, "flash_backward": prompt, "rvq": 2},
+                           mixed={"wavenet_body": 1, "attn_block": DEPTH, "ff_block": DEPTH,
+                                  "cross_attn_block": DEPTH}))
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"conditional AMP step at {AMP_FUSED_FRAMES} frames: {metrics}")
+    return {"conditional_train_amp": counts, "conditional_train_amp_160": fused}
+
+
+def _amp_grads(phase: str, label: str, run) -> None:
+    """One AMP loss and its f32 master gradients on the card and on the CPU
+    (``run(device, moved)`` → (losses, grads)), held against bf16's own
+    noise floor: how far a result moves when the bf16 inputs move by one
+    ulp on about half their entries (AMP_FLOOR_DRAWS draws: all but one on
+    the card, one on the CPU; each side against its own unmoved result),
+    the largest of the draws. Each loss within
+    AMP_LOSS_RTOL relative, or AMP_FLOOR_FACTOR times its floor where that
+    is higher; each gradient within AMP_GRAD_RTOL of its largest entry, or
+    AMP_FLOOR_FACTOR times its floor; all gradients together (each tensor
+    scaled by its largest entry) correlated at least AMP_GRAD_CORR."""
+    import torch
+
+    (loss_card, grads_card), (loss_cpu, grads_cpu) = run("cuda", 0), run("cpu", 0)
+    floors = [(run("cuda", i), (loss_card, grads_card)) for i in range(1, AMP_FLOOR_DRAWS)]
+    floors.append((run("cpu", 1), (loss_cpu, grads_cpu)))
+    if set(grads_card) != set(grads_cpu):
+        raise AssertionError(f"{label}: card and CPU differ in which parameters have gradients")
+
+    def rel_err(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    for key, value in loss_cpu.items():
+        rel = rel_err(loss_card[key], value)
+        floor = max(rel_err(m[0][key], base[0][key]) for m, base in floors)
+        tol = max(AMP_LOSS_RTOL, AMP_FLOOR_FACTOR * floor)
+        log(phase, f"{label} {key}: card {loss_card[key]:.6f}, CPU {value:.6f}, rel err {rel:.3e} "
+                   f"(floor {floor:.3e}; tolerance {tol:.3e})")
+        if rel > tol:
+            raise AssertionError(f"{label} {key} card vs CPU rel err {rel:.3e}")
+
+    def grad_err(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+    bad, over, ratio = [], [], (0.0, "")
+    scaled = []
+    for name, g_cpu in grads_cpu.items():
+        g = grads_card[name]
+        err = grad_err(g, g_cpu)
+        floor = max(grad_err(m[1][name], base[1][name]) for m, base in floors)
+        tol = max(AMP_GRAD_RTOL, AMP_FLOOR_FACTOR * floor)
+        if err > AMP_GRAD_RTOL:
+            over.append(name)
+        if err / tol > ratio[0]:
+            ratio = (err / tol, f"{name} ({err:.3e}, floor {floor:.3e})")
+        if err > tol:
+            bad.append((name, err, floor))
+        peak = g_cpu.abs().max().clamp(min=1e-30)
+        scaled.append((g.flatten() / peak, g_cpu.flatten() / peak))
+    corr = _correlation(torch.cat([a for a, _ in scaled]), torch.cat([b for _, b in scaled]))
+    groups = sorted({n.split(".")[0] for n in over})
+    log(phase, f"{label}: {len(grads_cpu)} f32 master gradients, card vs CPU, each relative to its "
+               f"largest entry: {len(grads_cpu) - len(over)} within {AMP_GRAD_RTOL:g}, "
+               f"{len(over)} past it (groups {groups}) within {AMP_FLOOR_FACTOR:g} x their floor; "
+               f"the largest error against its tolerance {ratio[0]:.3f} at {ratio[1]}; all "
+               f"together correlated {corr:.6f} (>= {AMP_GRAD_CORR:g})")
+    if bad or corr < AMP_GRAD_CORR:
+        raise AssertionError(f"{label}: gradients card vs CPU: {bad[:5]}, correlation {corr:.6f}")
+
+
+def phase30_amp_card_vs_cpu() -> None:
+    """One AMP loss and its f32 master gradients, card against CPU: the
+    flagship at b2 x 0.4 s (as phase 8) and the conditional model at b2,
+    eval mode, with the card's mel and pitch passed to both (as phase 19)."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch.ops.mel import audio_to_mel
+    from naturalspeech2_tpu_torch.ops.pitch import compute_pitch
+
+    def amp_run(models, args, keys):
+        """run(device, moved): the AMP losses and f32 master gradients of
+        the model on ``device`` (`Trainer.losses`, the batch's floats in
+        bf16 but the times); ``moved`` (a draw's number, 0 for none) moves
+        each of ``args[keys]`` by one bf16 ulp on about half its entries
+        first (2^-9 relative, then rounded)."""
+        trainers = {device: ns2pkg.Trainer(model, batches=iter([]), amp=True,
+                                           results_folder=tempfile.mkdtemp())
+                    for device, model in models.items()}
+
+        def run(device, moved):
+            trainer = trainers[device]
+            trainer.ns2.zero_grad(set_to_none=True)
+            x = dict(args)
+            for i, key in enumerate(keys if moved else ()):
+                draw = torch.Generator().manual_seed(SEED + 30 + 10 * moved + i)
+                sign = torch.randint(0, 2, x[key].shape, generator=draw)
+                x[key] = x[key] * (1 + 2.0**-9 * (2 * sign - 1))
+            x = {k: tuple(t.to(device) for t in v) if isinstance(v, tuple)
+                 else (v.to(torch.bfloat16) if v.is_floating_point() and k != "times" else v)
+                 .to(device) for k, v in x.items()}
+            audio = x.pop("audio")
+            losses = trainer.losses(audio, x, {k: x.pop(k) for k in ("times", "noise")})
+            losses["loss"].backward()
+            return ({k: v.item() for k, v in losses.items()},
+                    {n: p.grad.cpu() for n, p in trainer.ns2.named_parameters()
+                     if p.grad is not None})
+
+        return run
+
+    ns2_cpu = flagship(SEED + 300)
+    models = {"cuda": copy.deepcopy(ns2_cpu).cuda(), "cpu": ns2_cpu}
+    g = torch.Generator().manual_seed(SEED + 8)
+    samples = int(0.4 * 24000)
+    args = {"audio": torch.tanh(torch.randn(2, samples, generator=g)),
+            "times": torch.rand(2, generator=g),
+            "noise": torch.randn(2, samples // 320, DIM, generator=g)}
+    _amp_grads("30", "flagship b2 x 0.4 s", amp_run(models, args, ("audio",)))
+    del models, ns2_cpu
+
+    cond_cpu = flagship(SEED + 301, conditional=True, scan_layers=True).eval()
+    models = {"cuda": copy.deepcopy(cond_cpu).cuda().eval(), "cpu": cond_cpu}
+    inputs = _cond_check_inputs()
+    audio = inputs["audio"].cuda()
+    inputs["mel"] = audio_to_mel(audio, n_mels=80, sample_rate=24000, hop_length=160).cpu()
+    inputs["pitch"] = compute_pitch(audio, sample_rate=24000, hop_length=160)[:, None].cpu()
+    _amp_grads("30", "README config 2 b2", amp_run(models, inputs,
+                                                   ("audio", "prompt", "mel", "pitch")))
+
+
 def profile_runs() -> int:
     """torch.profiler over 10 flagship denoise steps at b4 x n1024, over a
     10-step conditional sample of README config 2, over 10 guided denoise
@@ -2961,6 +3722,17 @@ def main() -> int:
             engine, config, checkpoint, Path(work))
         phase26_bf16_card_vs_cpu(bf16_engine, engine, config, checkpoint)
     del engine, bf16_engine
+    torch.cuda.empty_cache()
+
+    amp_rows = phase27_amp_kernels(bf16_summary)
+    bf16_summary += [e for e in amp_rows if e["dtype"] == "bfloat16"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        amp_counts = phase28_amp_train(Path(work))
+        torch.cuda.empty_cache()
+        amp_counts.update(phase29_cond_amp_train(Path(work)))
+    torch.cuda.empty_cache()
+    phase30_amp_card_vs_cpu()
 
     for entry in summary:
         name = entry["name"]
@@ -2970,7 +3742,8 @@ def main() -> int:
                    **{f"longform_{n}": c[name] for n, c in long_counts.items()},
                    "scaled_sample": scaled_counts[name],
                    "conditional_train": cond_train_counts[name], "serve": serve_counts[name],
-                   "serve_bf16": serve_bf16_f32[name]}
+                   "serve_bf16": serve_bf16_f32[name],
+                   **{path: c["f32"][name] for path, c in amp_counts.items()}}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2983,7 +3756,8 @@ def main() -> int:
         by_path = {"sample_bf16": bf16_sample_counts[name],
                    **{f"longform_{n}_bf16": c[name] for n, c in bf16_long_counts.items()},
                    "scaled_sample_bf16": bf16_scaled_counts[name],
-                   "serve_bf16": serve_bf16_bf16[name]}
+                   "serve_bf16": serve_bf16_bf16[name],
+                   **{path: c["bf16"][name] for path, c in amp_counts.items()}}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         if entry["launches"] == 0:
@@ -2994,6 +3768,19 @@ def main() -> int:
         if missing:
             raise AssertionError(f"bf16 {entry['name']}: summary lacks {missing}")
     summary += bf16_summary
+    for entry in amp_rows:
+        if entry["dtype"] == "mixed":
+            by_path = {path: c["mixed"][entry["name"]] for path, c in amp_counts.items()}
+            entry["launches"] = sum(by_path.values())
+            entry["launches_by_path"] = by_path
+        if entry["launches"] == 0:
+            raise AssertionError(f"{entry['dtype']} {entry['name']}: no launch on the AMP paths")
+        missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
+                               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+                   if k not in entry]
+        if missing:
+            raise AssertionError(f"{entry['dtype']} {entry['name']}: summary lacks {missing}")
+    summary += [e for e in amp_rows if e["dtype"] == "mixed"]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -38,26 +38,42 @@ _F = ctypes.c_float
 _FLASH_TAIL = [_F, _U, _U, _F, _I, _U, _F, _P]
 # C signature of every entry point: pointers and the stream as c_void_p
 # (ctypes would otherwise pass 32-bit ints and cut them), sizes as c_int.
-# A bf16 entry point is a symbol of its own (``<name>_bf16``), so that a
-# bf16 call can never reach an f32 kernel.
+# A bf16 entry point is a symbol of its own (``<name>_bf16``), and so is
+# a mixed one (``<name>_mixed``: f32 activations against bf16 weights), so
+# that a call can never reach a kernel of other operand types.
 SIGNATURES = {
     "ns2_wavenet_body": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_wavenet_body_bf16": [_P] * 10 + [_I] * 5 + [_P],
+    "ns2_wavenet_body_mixed": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes_bf16": [_P] * 11 + [_I] * 5 + [_P],
+    "ns2_wavenet_lanes_mixed": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_attn_block": [_P] * 8 + [_I] * 5 + [_F, _P],
     "ns2_attn_block_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "ns2_attn_block_mixed": [_P] * 8 + [_I] * 5 + [_F, _P],
     "ns2_cross_attn_block": [_P] * 11 + [_I] * 7 + [_F, _P],
     "ns2_cross_attn_block_bf16": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "ns2_cross_attn_block_mixed": [_P] * 11 + [_I] * 7 + [_F, _P],
     "ns2_ff_block": [_P] * 13 + [_I] * 4 + [_P],
     "ns2_ff_block_bf16": [_P] * 13 + [_I] * 4 + [_P],
+    "ns2_ff_block_mixed": [_P] * 13 + [_I] * 4 + [_P],
     "ns2_flash_fwd": [_P] * 6 + [_I] * 6 + _FLASH_TAIL,
     "ns2_flash_fwd_bf16": [_P] * 6 + [_I] * 6 + _FLASH_TAIL,
     "ns2_flash_bwd": [_P] * 10 + [_I] * 6 + _FLASH_TAIL,
+    "ns2_flash_bwd_bf16": [_P] * 10 + [_I] * 6 + _FLASH_TAIL,
     "ns2_rvq": [_P] * 8 + [_I] * 4 + [_P],
+    "ns2_rvq_bf16": [_P] * 9 + [_I] * 4 + [_P],
 }
-# The kernels' activation types, and the suffix of their entry points.
-KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+# The kernels' (activation, weight) types, and the suffix of their entry
+# points: f32, bf16, and f32 activations against bf16 weights (what AMP
+# training runs where JAX promotes f32 activations against bf16 weights).
+KERNEL_DTYPES = {
+    (torch.float32, torch.float32): "",
+    (torch.bfloat16, torch.bfloat16): "_bf16",
+    (torch.float32, torch.bfloat16): "_mixed",
+}
+# The launch counter of each kind of entry point on a wrapper.
+COUNTERS = {"": "launches", "_bf16": "launches_bf16", "_mixed": "launches_mixed"}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -159,9 +175,10 @@ def stream(t: torch.Tensor) -> int:
 def require_cuda(name: str, dtype: torch.dtype = torch.float32,
                  **tensors: torch.Tensor) -> torch.device:
     """Check that every tensor is a contiguous ``dtype`` tensor on one CUDA
-    device; return that device. ``dtype`` is float32, or bfloat16 where the
-    kernel has a bf16 entry point."""
-    if dtype not in KERNEL_DTYPES:
+    device; return that device. ``dtype`` is float32 or bfloat16. A kernel
+    with a mixed entry point checks its activations at their dtype and its
+    weights at theirs, in two calls."""
+    if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: the kernels take float32 or bfloat16, not {dtype}")
     device = None
     for arg, t in tensors.items():
@@ -178,21 +195,29 @@ def require_cuda(name: str, dtype: torch.dtype = torch.float32,
     return device
 
 
-def entry(name: str, dtype: torch.dtype):
-    """The entry point ``name`` for operands of ``dtype`` (``<name>_bf16``
-    for bfloat16)."""
-    if dtype not in KERNEL_DTYPES:
-        raise TypeError(f"{name}: the kernels take float32 or bfloat16, not {dtype}")
-    return getattr(library(), name + KERNEL_DTYPES[dtype])
+def suffix(name: str, dtype: torch.dtype, weight_dtype: torch.dtype | None = None) -> str:
+    """The entry-point suffix for activations of ``dtype`` against weights
+    of ``weight_dtype`` (default: ``dtype``); raises for a pair no kernel
+    takes."""
+    key = (dtype, dtype if weight_dtype is None else weight_dtype)
+    if key not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernels take float32 or bfloat16 activations against "
+                        f"weights of the same type, or float32 against bfloat16; got {key}")
+    return KERNEL_DTYPES[key]
 
 
-def count(wrapper, dtype: torch.dtype) -> None:
-    """One launch of ``wrapper``'s kernel through its ``dtype`` entry point:
-    ``wrapper.launches_bf16`` for bfloat16, ``wrapper.launches`` else."""
-    if dtype == torch.bfloat16:
-        wrapper.launches_bf16 += 1
-    else:
-        wrapper.launches += 1
+def entry(name: str, dtype: torch.dtype, weight_dtype: torch.dtype | None = None):
+    """The entry point ``name`` for activations of ``dtype`` against weights
+    of ``weight_dtype`` (``<name>_bf16`` for bf16, ``<name>_mixed`` for f32
+    against bf16)."""
+    return getattr(library(), name + suffix(name, dtype, weight_dtype))
+
+
+def count(wrapper, dtype: torch.dtype, weight_dtype: torch.dtype | None = None) -> None:
+    """One launch of ``wrapper``'s kernel through its entry point for those
+    types: ``wrapper.launches``, ``launches_bf16`` or ``launches_mixed``."""
+    attr = COUNTERS[suffix(wrapper.__name__, dtype, weight_dtype)]
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def require_shapes(name: str, **pairs: tuple[torch.Tensor, tuple[int, ...]]) -> None:

@@ -70,11 +70,12 @@ int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, 
                             0u, 0.0f, 0, 0u, 1.0f, stream);
 }
 
-template <class T>
+// T: the activations' type; M: the core's mode (kSplit2 for the mixed
+// entry point, f32 rows against TF32-exact bf16 weights).
+template <class T, gemm::Mode M = gemm::kModeOf<T>>
 int attn_block(const T* x, const T* gamma, const T* beta, const T* bt_qkv, const T* bt_out,
                T* qkv, T* o, T* out, int b, int n, int dm, int heads, int dh, float scale,
                void* stream) {
-  constexpr gemm::Mode M = gemm::kModeOf<T>;
   if (dm <= 0 || n <= 0 || b <= 0 || heads <= 0 || (dh != 64 && (dh <= 0 || dh % 128 != 0)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -109,6 +110,20 @@ NS2_API int ns2_attn_block(const float* x, const float* gamma, const float* beta
 }
 
 // The same in bf16: every pointer bf16, the weights packed as bf16.
+// Mixed (`ns2_attn_block_mixed`: f32 activations, γ, β and biases against bf16
+// weights packed as TF32 with no lo part, AMP training's denoiser): the f32
+// block, the GEMM core in its two-pass kSplit2 mode (the f32 rows split
+// into hi and lo against the weights' exact TF32 values), the attention
+// core on K4's f32 kernel. The JAX kernel computes the same, its products
+// promoting the bf16 weights to f32 (`mm = float32`).
+NS2_API int ns2_attn_block_mixed(const float* x, const float* gamma, const float* beta,
+                                 const float* bt_qkv, const float* bt_out, float* qkv, float* o,
+                                 float* out, int b, int n, int dm, int heads, int dh, float scale,
+                                 void* stream) {
+  return attn_block<float, gemm::Mode::kSplit2>(x, gamma, beta, bt_qkv, bt_out, qkv, o, out, b,
+                                                n, dm, heads, dh, scale, stream);
+}
+
 NS2_API int ns2_attn_block_bf16(const bf16* x, const bf16* gamma, const bf16* beta,
                                 const bf16* bt_qkv, const bf16* bt_out, bf16* qkv, bf16* o,
                                 bf16* out, int b, int n, int dm, int heads, int dh, float scale,

@@ -65,11 +65,12 @@ int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, 
                             0u, 0.0f, 0, 0u, 1.0f, stream);
 }
 
-template <class T>
+// T: the activations' type; M: the core's mode (kSplit2 for the mixed
+// entry point).
+template <class T, gemm::Mode M = gemm::kModeOf<T>>
 int cross_attn_block(const T* x, const T* ctx, const T* gamma, const T* beta, const T* bt_q,
                      const T* bt_kv, const T* bt_out, T* q, T* kv, T* o, T* out, int b, int n,
                      int m, int dm, int dc, int heads, int dh, float scale, void* stream) {
-  constexpr gemm::Mode M = gemm::kModeOf<T>;
   if (dm <= 0 || dc <= 0 || n <= 0 || m <= 0 || b <= 0 || heads <= 0 ||
       (dh != 64 && (dh <= 0 || dh % 128 != 0)))
     return cudaErrorInvalidValue;
@@ -106,6 +107,22 @@ NS2_API int ns2_cross_attn_block(const float* x, const float* ctx, const float* 
                                  float scale, void* stream) {
   return cross_attn_block(x, ctx, gamma, beta, bt_q, bt_kv, bt_out, q, kv, o, out, b, n, m, dm,
                           dc, heads, dh, scale, stream);
+}
+
+// Mixed (`ns2_cross_attn_block_mixed`: f32 activations, the context, γ and
+// β against bf16 weights packed as TF32 with no lo part, AMP training's
+// denoiser): the f32 block, the GEMM core in its two-pass kSplit2 mode (the
+// f32 rows split into hi and lo against the weights' exact TF32 values),
+// the attention core on K4's f32 kernel. The JAX kernel computes the same,
+// its products promoting the bf16 weights to f32 (`mm = float32`).
+NS2_API int ns2_cross_attn_block_mixed(const float* x, const float* ctx, const float* gamma,
+                                       const float* beta, const float* bt_q, const float* bt_kv,
+                                       const float* bt_out, float* q, float* kv, float* o,
+                                       float* out, int b, int n, int m, int dm, int dc, int heads,
+                                       int dh, float scale, void* stream) {
+  return cross_attn_block<float, gemm::Mode::kSplit2>(x, ctx, gamma, beta, bt_q, bt_kv, bt_out,
+                                                      q, kv, o, out, b, n, m, dm, dc, heads, dh,
+                                                      scale, stream);
 }
 
 // The same in bf16: every pointer bf16, the weights packed as bf16.

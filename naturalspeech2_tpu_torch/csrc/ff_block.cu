@@ -39,11 +39,12 @@ using ns2::bf16;
 
 namespace {
 
-template <class T>
+// T: the activations' and biases' type; M: the core's mode (kSplit2 for
+// the mixed entry point).
+template <class T, gemm::Mode M = gemm::kModeOf<T>>
 int ff_block(const T* x, const T* gamma, const T* beta, const T* bt_geglu, const T* b_val,
              const T* b_gate, const T* bt_conv, const T* bc, const T* bt_out, const T* b2,
              T* a_buf, T* c_buf, T* out, int b, int n, int dm, int ip, void* stream) {
-  constexpr gemm::Mode M = gemm::kModeOf<T>;
   if (ip % gemm::kKC != 0 || dm <= 0 || n <= 0 || b <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = b * n;
@@ -75,6 +76,22 @@ NS2_API int ns2_ff_block(const float* x, const float* gamma, const float* beta,
                          int dm, int ip, void* stream) {
   return ff_block(x, gamma, beta, bt_geglu, b_val, b_gate, bt_conv, bc, bt_out, b2, a_buf,
                   c_buf, out, b, n, dm, ip, stream);
+}
+
+// Mixed (`ns2_ff_block_mixed`: f32 activations, γ, β and biases against
+// bf16 weights packed as TF32 with no lo part, AMP training's denoiser):
+// the f32 block, the GEMM core in its two-pass kSplit2 mode (the f32 rows
+// split into hi and lo against the weights' exact TF32 values). The JAX
+// kernel computes the same, its products promoting the bf16 weights to f32
+// (`mm = float32`).
+NS2_API int ns2_ff_block_mixed(const float* x, const float* gamma, const float* beta,
+                               const float* bt_geglu, const float* b_val, const float* b_gate,
+                               const float* bt_conv, const float* bc, const float* bt_out,
+                               const float* b2, float* a_buf, float* c_buf, float* out, int b,
+                               int n, int dm, int ip, void* stream) {
+  return ff_block<float, gemm::Mode::kSplit2>(x, gamma, beta, bt_geglu, b_val, b_gate, bt_conv,
+                                              bc, bt_out, b2, a_buf, c_buf, out, b, n, dm, ip,
+                                              stream);
 }
 
 // The same in bf16: every pointer bf16, the weights packed as bf16.

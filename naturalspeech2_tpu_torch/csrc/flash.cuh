@@ -4,6 +4,9 @@
 // (`_threefry2x32`, `_dropout_keep_scaled`), bit for bit, the split of an
 // operand into TF32 hi and lo and the accumulator layout both kernels use,
 // and K5's `mma.sync` products over staged tiles and asynchronous copies.
+// K5's bf16 kernels stage their bf16 tiles widened to f32 (exact) and run
+// one TF32 pass where both operands are bf16 values, which TF32 holds
+// exactly (the `kSplit` flags below).
 #pragma once
 
 #include <stdint.h>
@@ -203,7 +206,9 @@ __device__ __forceinline__ void a_from_acc(const float (&d)[4], uint32_t (&hi)[4
 // tile) against the 8·NJ rows of the staged tile Y, over the head width D:
 // d[j] holds Y's rows 8j .. 8j + 7 in the accumulator layout. The large
 // terms and the small ones run in separate accumulators, summed at the end.
-template <int NJ, int D>
+// kSplit false: both tiles hold bf16 values (exact in TF32), and one TF32
+// pass, hi·hi, is the exact product.
+template <int NJ, int D, bool kSplit = true>
 __device__ __forceinline__ void product_xyt(const float (*x)[kLdOf<D>],
                                             const float (*y)[kLdOf<D>], int r0, int lane,
                                             float (&d)[NJ][4]) {
@@ -225,8 +230,10 @@ __device__ __forceinline__ void product_xyt(const float (*x)[kLdOf<D>],
       for (int i = 0; i < 2; ++i) {
         const uint32_t bh[2] = {b_hi[2 * i], b_hi[2 * i + 1]};
         const uint32_t bl[2] = {b_lo[2 * i], b_lo[2 * i + 1]};
-        mma_tf32(small[j + i], a_hi, bl);
-        mma_tf32(small[j + i], a_lo, bh);
+        if (kSplit) {
+          mma_tf32(small[j + i], a_hi, bl);
+          mma_tf32(small[j + i], a_lo, bh);
+        }
         mma_tf32(d[j + i], a_hi, bh);
       }
     }
@@ -241,8 +248,10 @@ __device__ __forceinline__ void product_xyt(const float (*x)[kLdOf<D>],
 // (k-step ks covering T's rows 8ks .. 8ks + 7 in the paired order) and T a
 // staged tile [rows][D] read paired. Each 64-column group of the product is
 // summed in a fresh accumulator and added in f32: at D = 128 two groups in
-// turn, so that one 32-register partial sum serves both.
-template <int KS, int D>
+// turn, so that one 32-register partial sum serves both. kSplitA / kSplitB
+// false: A / T holds bf16 values, exact in TF32, and its lo part is zero:
+// hi·hi + lo·hi is two passes (f32 A against bf16 T), hi·hi one.
+template <int KS, int D, bool kSplitA = true, bool kSplitB = true>
 __device__ __forceinline__ void add_product(float (&acc)[D / 8][4], const float (&a)[KS][4],
                                             const float (*tile)[kLdOf<D>], int g, int t) {
 #pragma unroll
@@ -260,7 +269,13 @@ __device__ __forceinline__ void add_product(float (&acc)[D / 8][4], const float 
       for (int j = 0; j < 8; ++j) {
         uint32_t b_hi[2], b_lo[2];
         b_paired(tile, 8 * ks, 8 * (c0 + j), g, t, b_hi, b_lo);
-        mma_split(part[j], a_hi, a_lo, b_hi, b_lo);
+        if (kSplitA && kSplitB) {
+          mma_split(part[j], a_hi, a_lo, b_hi, b_lo);
+        } else {
+          if (kSplitA) mma_tf32(part[j], a_lo, b_hi);
+          if (kSplitB) mma_tf32(part[j], a_hi, b_lo);
+          mma_tf32(part[j], a_hi, b_hi);
+        }
       }
     }
 #pragma unroll
@@ -321,6 +336,27 @@ __device__ __forceinline__ void load_tile_async(float (*tile)[kLdOf<D>], const f
     const int r = c / (D / 4), c4 = (c % (D / 4)) * 4;
     const bool ok = row0 + r < rows;
     cp_async16(&tile[r][c4], src + (size_t)(ok ? row0 + r : 0) * ld + c4, ok);
+  }
+}
+
+// The same from a [rows, D] bf16 matrix, widened to f32 as it is staged
+// (exact): 16-byte loads of 8 values through registers, stored as two
+// 16-byte runs of f32, so the copy is done when the call returns (the
+// caller's commit and wait then have nothing of it in flight).
+template <int R, int D>
+__device__ __forceinline__ void load_tile_async(float (*tile)[kLdOf<D>], const bf16* src,
+                                                int row0, int rows, int tid, int nthreads,
+                                                int ld = D) {
+  for (int c = tid; c < R * (D / 8); c += nthreads) {
+    const int r = c / (D / 8), c8 = (c % (D / 8)) * 8;
+    float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
+    if (row0 + r < rows) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + c8);
+      lo = unpack_bf16x4(make_uint2(raw.x, raw.y));
+      hi = unpack_bf16x4(make_uint2(raw.z, raw.w));
+    }
+    *reinterpret_cast<float4*>(&tile[r][c8]) = lo;
+    *reinterpret_cast<float4*>(&tile[r][c8 + 4]) = hi;
   }
 }
 

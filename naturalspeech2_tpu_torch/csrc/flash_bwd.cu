@@ -47,10 +47,33 @@
 // 64-column groups are summed in turn in one partial accumulator
 // (flash.cuh add_product), which keeps the owner's two 64-register sums
 // within the thread's registers.
+//
+// bf16 (`ns2_flash_bwd_bf16`: q, k, v, dO bf16, lse and delta f32, dq, dk,
+// dv bf16; AMP training's prompt encoder and resampler), the JAX kernels'
+// rounding points at a bf16 input dtype: dO widened to f32, S = Q·Kᵀ and
+// dP = dO·Vᵀ summed in f32 from the bf16 values, dS rounded to bf16 before
+// dQ = dS·K and dK = dSᵀ·Q, and dV = Aᵀ·dO with A = P∘keep NOT rounded
+// (`a.astype(do.dtype)` with dO already f32). The same kernels, templated
+// on the element type: the tiles are widened to f32 as they are staged
+// (bf16 is exact in f32 and in TF32), so every fragment pattern, ring and
+// rule above is unchanged. What changes is the products' passes: where both
+// operands are bf16 values (S, dP, dQ, dK) one TF32 pass is the exact
+// product, where f32 meets bf16 (dV: A against dO) the kSplit2 scheme of
+// the GEMM core holds, A split into TF32 hi and lo against dO as it is, two
+// passes, exact but for the lo part's truncation to TF32 (2^-22 of an
+// entry). That scheme was chosen over bf16 `mma.m16n8k16` with A split into
+// bf16 parts because it keeps one staged layout and one fragment path for
+// both dtypes, and two passes where bf16 parts of an f32 A need three for
+// the same accuracy. So a bf16 backward runs 1 + 1 + 1 + 1 + 2 TF32 passes
+// (plus the owners' recomputed S and dP) where f32 runs 3 each. The bf16
+// tiles are loaded through registers (a widening copy cannot be `cp.async`),
+// which the kernels issue where the f32 ring issues its copies, so they are
+// not overlapped with the products.
 #include "flash.cuh"
 
 namespace {
 
+using ns2::bf16;
 using ns2::kFlashThreads;
 using ns2::kLdOf;
 using ns2::kTile;
@@ -89,7 +112,14 @@ constexpr int kBwdBlocks = D == 128 ? 1 : (kWalk == 32 ? 3 : 2);
 // from k0 (dq's orientation): element (j, i) is query ra + 8·(i / 2), key k0
 // + 8j + 2t + (i & 1); w0 is the warp's first query. A tile that no rule
 // cuts skips the per-element test.
-template <int kWalk>
+// dS as the next products take it: rounded to bf16 where they run on bf16
+// operands (the JAX kernels' `ds.astype(k.dtype)`), else as it is.
+template <bool kRound>
+__device__ __forceinline__ float ds_operand(float ds) {
+  return kRound ? __bfloat162float(__float2bfloat16_rn(ds)) : ds;
+}
+
+template <int kWalk, bool kRound>
 __device__ __forceinline__ void dq_ds(float (&s)[kWalk / 8][4], const float (&dp)[kWalk / 8][4],
                                       const unsigned char* mask_b, int bi, int hi, int w0, int ra,
                                       int k0, int n_q, int n_kv, int causal, float scale,
@@ -107,7 +137,7 @@ __device__ __forceinline__ void dq_ds(float (&s)[kWalk / 8][4], const float (&dp
         const float p = ns2::exp_sfu(s[j][i] * scale - row_lse[i / 2]);
         float d = dp[j][i];
         if (dr.rate > 0.0f) d *= ns2::keep_mult(dr, bi, hi, row, col);
-        ds = p * (d - row_delta[i / 2]) * scale;
+        ds = ds_operand<kRound>(p * (d - row_delta[i / 2]) * scale);
       }
       s[j][i] = ds;
     }
@@ -117,7 +147,7 @@ __device__ __forceinline__ void dq_ds(float (&s)[kWalk / 8][4], const float (&dp
 // and a walked tile of queries from qs (dk/dv's orientation): element (j, i)
 // is key ka + 8·(i / 2), query qs + 8j + 2t + (i & 1); w0 is the warp's first
 // key, lse and delta the tile's rows.
-template <int kWalk>
+template <int kWalk, bool kRound>
 __device__ __forceinline__ void dkv_ads(float (&s)[kWalk / 8][4], float (&dp)[kWalk / 8][4],
                                         const unsigned char* mask_b, int bi, int hi, int w0,
                                         int ka, int qs, int n_q, int n_kv, int causal,
@@ -140,7 +170,7 @@ __device__ __forceinline__ void dkv_ads(float (&s)[kWalk / 8][4], float (&dp)[kW
           a = p * keep;
           d *= keep;
         }
-        ds = p * (d - delta[qc]) * scale;
+        ds = ds_operand<kRound>(p * (d - delta[qc]) * scale);
       }
       s[j][i] = a;
       dp[j][i] = ds;
@@ -148,14 +178,16 @@ __device__ __forceinline__ void dkv_ads(float (&s)[kWalk / 8][4], float (&dp)[kW
 }
 
 // grid (ceil(n_q / 64), b·h), 128 threads; dynamic shared memory
-// sizeof(DqSmem<kWalk, D>)
-template <int kWalk, int D>
+// sizeof(DqSmem<kWalk, D>). T: the element type of q, k, v, dO and dq (f32,
+// or bf16 with the rounding points in the header).
+template <class T, int kWalk, int D>
 __global__ void __launch_bounds__(kFlashThreads, (kBwdBlocks<kWalk, D>))
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const unsigned char* __restrict__ mask,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    const float* __restrict__ dout, float* __restrict__ dq, int heads, int n_q,
-                    int n_kv, int causal, float scale, ns2::Dropout dr) {
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const unsigned char* __restrict__ mask, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const T* __restrict__ dout,
+                    T* __restrict__ dq, int heads, int n_q, int n_kv, int causal, float scale,
+                    ns2::Dropout dr) {
+  constexpr bool kSplit = sizeof(T) == 4;  // f32 operands: split TF32
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DqSmem<kWalk, D>& sm = *reinterpret_cast<DqSmem<kWalk, D>*>(smem_raw);
 
@@ -164,8 +196,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int bi = bh / heads, hi = bh % heads;
   const size_t qbase = (size_t)bh * n_q, kbase = (size_t)bh * n_kv;
-  const float* kh = k + kbase * D;
-  const float* vh = v + kbase * D;
+  const T* kh = k + kbase * D;
+  const T* vh = v + kbase * D;
   const unsigned char* mask_b = mask ? mask + (size_t)bi * n_kv : nullptr;
 
   const int k_end = causal ? min(n_kv, q0 + kTile) : n_kv;
@@ -204,11 +236,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     float s[kWalk / 8][4], dp[kWalk / 8][4];
-    ns2::product_xyt<kWalk / 8, D>(sm.q, sm.k[st], w0, lane, s);      // S = Q Kᵀ
-    ns2::product_xyt<kWalk / 8, D>(sm.dout, sm.v[st], w0, lane, dp);  // dP = dO Vᵀ
-    dq_ds<kWalk>(s, dp, mask_b, bi, hi, q0 + w0, ra, k0, n_q, n_kv, causal, scale, row_lse,
-                 row_delta, t, dr);
-    ns2::add_product<kWalk / 8, D>(acc, s, sm.k[st], g, t);  // dQ += dS K
+    ns2::product_xyt<kWalk / 8, D, kSplit>(sm.q, sm.k[st], w0, lane, s);      // S = Q Kᵀ
+    ns2::product_xyt<kWalk / 8, D, kSplit>(sm.dout, sm.v[st], w0, lane, dp);  // dP = dO Vᵀ
+    dq_ds<kWalk, !kSplit>(s, dp, mask_b, bi, hi, q0 + w0, ra, k0, n_q, n_kv, causal, scale,
+                          row_lse, row_delta, t, dr);
+    ns2::add_product<kWalk / 8, D, kSplit, kSplit>(acc, s, sm.k[st], g, t);  // dQ += dS K
     __syncthreads();
   }
   const float one[2] = {1.0f, 1.0f};
@@ -216,15 +248,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // grid (ceil(n_kv / 64), b·h), 128 threads; dynamic shared memory
-// sizeof(DkvSmem<kWalk, D>)
-template <int kWalk, int D>
+// sizeof(DkvSmem<kWalk, D>). T as for the dq kernel.
+template <class T, int kWalk, int D>
 __global__ void __launch_bounds__(kFlashThreads, (kBwdBlocks<kWalk, D>))
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const unsigned char* __restrict__ mask,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const float* __restrict__ dout, float* __restrict__ dk,
-                     float* __restrict__ dv, int heads, int n_q, int n_kv, int causal,
-                     float scale, ns2::Dropout dr) {
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const unsigned char* __restrict__ mask, const float* __restrict__ lse,
+                     const float* __restrict__ delta, const T* __restrict__ dout,
+                     T* __restrict__ dk, T* __restrict__ dv, int heads, int n_q, int n_kv,
+                     int causal, float scale, ns2::Dropout dr) {
+  constexpr bool kSplit = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DkvSmem<kWalk, D>& sm = *reinterpret_cast<DkvSmem<kWalk, D>*>(smem_raw);
 
@@ -233,8 +265,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int bi = bh / heads, hi = bh % heads;
   const size_t qbase = (size_t)bh * n_q, kbase = (size_t)bh * n_kv;
-  const float* qh = q + qbase * D;
-  const float* dh = dout + qbase * D;
+  const T* qh = q + qbase * D;
+  const T* dh = dout + qbase * D;
   const unsigned char* mask_b = mask ? mask + (size_t)bi * n_kv : nullptr;
 
   // causal: query tiles that end before this key tile starts see none of it
@@ -275,12 +307,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // transposed: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, element (j, i) is key
     // ka + 8·(i / 2), query qs + 8j + 2t + (i & 1)
     float s[kWalk / 8][4], dp[kWalk / 8][4];
-    ns2::product_xyt<kWalk / 8, D>(sm.k, sm.q[st], w0, lane, s);      // Sᵀ = K Qᵀ
-    ns2::product_xyt<kWalk / 8, D>(sm.v, sm.dout[st], w0, lane, dp);  // dPᵀ = V dOᵀ
-    dkv_ads<kWalk>(s, dp, mask_b, bi, hi, kv0 + w0, ka, qs, n_q, n_kv, causal, scale,
-                   sm.lse[st], sm.delta[st], t, dr);
-    ns2::add_product<kWalk / 8, D>(acc_v, s, sm.dout[st], g, t);  // dV += Aᵀ dO
-    ns2::add_product<kWalk / 8, D>(acc_k, dp, sm.q[st], g, t);    // dK += dSᵀ Q
+    ns2::product_xyt<kWalk / 8, D, kSplit>(sm.k, sm.q[st], w0, lane, s);      // Sᵀ = K Qᵀ
+    ns2::product_xyt<kWalk / 8, D, kSplit>(sm.v, sm.dout[st], w0, lane, dp);  // dPᵀ = V dOᵀ
+    dkv_ads<kWalk, !kSplit>(s, dp, mask_b, bi, hi, kv0 + w0, ka, qs, n_q, n_kv, causal, scale,
+                            sm.lse[st], sm.delta[st], t, dr);
+    // dV += Aᵀ dO: A = P∘keep stays f32 (split) in both dtypes
+    ns2::add_product<kWalk / 8, D, true, kSplit>(acc_v, s, sm.dout[st], g, t);
+    ns2::add_product<kWalk / 8, D, kSplit, kSplit>(acc_k, dp, sm.q[st], g, t);  // dK += dSᵀ Q
     __syncthreads();
   }
   ns2::cp_async_wait<0>();  // with no query tile (causal, n_kv > n_q) K, V may be in flight
@@ -304,13 +337,15 @@ constexpr int kWideD = 128;
 
 // grid (ceil(n_q / 64), b·h, d / 128), 128 threads; dynamic shared memory
 // sizeof(DqSmem<kDqWalk, 128>)
+template <class T>
 __global__ void __launch_bounds__(kFlashThreads, 1)
-flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const unsigned char* __restrict__ mask,
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const unsigned char* __restrict__ mask,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         const float* __restrict__ dout, float* __restrict__ dq, int heads,
-                         int n_q, int n_kv, int d, int causal, float scale, ns2::Dropout dr) {
+                         const T* __restrict__ dout, T* __restrict__ dq, int heads, int n_q,
+                         int n_kv, int d, int causal, float scale, ns2::Dropout dr) {
   constexpr int D = kWideD, kWalk = kDqWalk;
+  constexpr bool kSplit = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DqSmem<kWalk, D>& sm = *reinterpret_cast<DqSmem<kWalk, D>*>(smem_raw);
 
@@ -358,8 +393,8 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ 
       ns2::cp_async_wait<0>();
       __syncthreads();
       float sc[kWalk / 8][4], dpc[kWalk / 8][4];
-      ns2::product_xyt<kWalk / 8, D>(sm.q, sm.k[0], w0, lane, sc);      // S_c = Q_c K_cᵀ
-      ns2::product_xyt<kWalk / 8, D>(sm.dout, sm.v[0], w0, lane, dpc);  // dP_c = dO_c V_cᵀ
+      ns2::product_xyt<kWalk / 8, D, kSplit>(sm.q, sm.k[0], w0, lane, sc);  // S_c = Q_c K_cᵀ
+      ns2::product_xyt<kWalk / 8, D, kSplit>(sm.dout, sm.v[0], w0, lane, dpc);  // dP_c
 #pragma unroll
       for (int j = 0; j < kWalk / 8; ++j)
 #pragma unroll
@@ -368,9 +403,9 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ 
           dp[j][e] += dpc[j][e];
         }
     }
-    dq_ds<kWalk>(s, dp, mask_b, bi, hi, q0 + w0, ra, k0, n_q, n_kv, causal, scale, row_lse,
-                 row_delta, t, dr);
-    ns2::add_product<kWalk / 8, D>(acc, s, sm.k[0], g, t);  // dQ_oc += dS K_oc
+    dq_ds<kWalk, !kSplit>(s, dp, mask_b, bi, hi, q0 + w0, ra, k0, n_q, n_kv, causal, scale,
+                          row_lse, row_delta, t, dr);
+    ns2::add_product<kWalk / 8, D, kSplit, kSplit>(acc, s, sm.k[0], g, t);  // dQ_oc += dS K_oc
   }
   const float one[2] = {1.0f, 1.0f};
   ns2::store_rows<D>(dq + qbase * d + oc * D, acc, ra, n_q, t, one, d);
@@ -378,14 +413,16 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ 
 
 // grid (ceil(n_kv / 64), b·h, d / 128), 128 threads; dynamic shared memory
 // sizeof(DkvSmem<kDkvWalk, 128>)
+template <class T>
 __global__ void __launch_bounds__(kFlashThreads, 1)
-flash_bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const unsigned char* __restrict__ mask,
+flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const unsigned char* __restrict__ mask,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          const float* __restrict__ dout, float* __restrict__ dk,
-                          float* __restrict__ dv, int heads, int n_q, int n_kv, int d,
-                          int causal, float scale, ns2::Dropout dr) {
+                          const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
+                          int heads, int n_q, int n_kv, int d, int causal, float scale,
+                          ns2::Dropout dr) {
   constexpr int D = kWideD, kWalk = kDkvWalk;
+  constexpr bool kSplit = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DkvSmem<kWalk, D>& sm = *reinterpret_cast<DkvSmem<kWalk, D>*>(smem_raw);
 
@@ -432,8 +469,8 @@ flash_bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__
       ns2::cp_async_wait<0>();
       __syncthreads();
       float sc[kWalk / 8][4], dpc[kWalk / 8][4];
-      ns2::product_xyt<kWalk / 8, D>(sm.k, sm.q[0], w0, lane, sc);      // Sᵀ_c = K_c Q_cᵀ
-      ns2::product_xyt<kWalk / 8, D>(sm.v, sm.dout[0], w0, lane, dpc);  // dPᵀ_c = V_c dO_cᵀ
+      ns2::product_xyt<kWalk / 8, D, kSplit>(sm.k, sm.q[0], w0, lane, sc);  // Sᵀ_c = K_c Q_cᵀ
+      ns2::product_xyt<kWalk / 8, D, kSplit>(sm.v, sm.dout[0], w0, lane, dpc);  // dPᵀ_c
 #pragma unroll
       for (int j = 0; j < kWalk / 8; ++j)
 #pragma unroll
@@ -442,62 +479,79 @@ flash_bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__
           dp[j][e] += dpc[j][e];
         }
     }
-    dkv_ads<kWalk>(s, dp, mask_b, bi, hi, kv0 + w0, ka, qs, n_q, n_kv, causal, scale, sm.lse[0],
-                   sm.delta[0], t, dr);
-    ns2::add_product<kWalk / 8, D>(acc_v, s, sm.dout[0], g, t);  // dV_oc += Aᵀ dO_oc
-    ns2::add_product<kWalk / 8, D>(acc_k, dp, sm.q[0], g, t);    // dK_oc += dSᵀ Q_oc
+    dkv_ads<kWalk, !kSplit>(s, dp, mask_b, bi, hi, kv0 + w0, ka, qs, n_q, n_kv, causal, scale,
+                            sm.lse[0], sm.delta[0], t, dr);
+    ns2::add_product<kWalk / 8, D, true, kSplit>(acc_v, s, sm.dout[0], g, t);  // dV_oc += Aᵀ dO_oc
+    ns2::add_product<kWalk / 8, D, kSplit, kSplit>(acc_k, dp, sm.q[0], g, t);  // dK_oc += dSᵀ Q_oc
   }
   const float one[2] = {1.0f, 1.0f};
   ns2::store_rows<D>(dk + kbase * d + oc * D, acc_k, ka, n_kv, t, one, d);
   ns2::store_rows<D>(dv + kbase * d + oc * D, acc_v, ka, n_kv, t, one, d);
 }
 
-cudaError_t launch_bwd_wide(const float* q, const float* k, const float* v,
-                            const unsigned char* mask, const float* lse, const float* delta,
-                            const float* dout, float* dq, float* dk, float* dv, int b, int h,
-                            int n_q, int n_kv, int d, int causal, float scale,
-                            const ns2::Dropout& dr, cudaStream_t st) {
+template <class T>
+cudaError_t launch_bwd_wide(const T* q, const T* k, const T* v, const unsigned char* mask,
+                            const float* lse, const float* delta, const T* dout, T* dq, T* dk,
+                            T* dv, int b, int h, int n_q, int n_kv, int d, int causal,
+                            float scale, const ns2::Dropout& dr, cudaStream_t st) {
   const int dq_bytes = (int)sizeof(DqSmem<kDqWalk, kWideD>);
   const int dkv_bytes = (int)sizeof(DkvSmem<kDkvWalk, kWideD>);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_wide_kernel,
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wide_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((n_q + kTile - 1) / kTile, b * h, d / kWideD);
-  flash_bwd_dq_wide_kernel<<<grid_q, kFlashThreads, dq_bytes, st>>>(
+  flash_bwd_dq_wide_kernel<T><<<grid_q, kFlashThreads, dq_bytes, st>>>(
       q, k, v, mask, lse, delta, dout, dq, h, n_q, n_kv, d, causal, scale, dr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((n_kv + kTile - 1) / kTile, b * h, d / kWideD);
-  flash_bwd_dkv_wide_kernel<<<grid_kv, kFlashThreads, dkv_bytes, st>>>(
+  flash_bwd_dkv_wide_kernel<T><<<grid_kv, kFlashThreads, dkv_bytes, st>>>(
       q, k, v, mask, lse, delta, dout, dk, dv, h, n_q, n_kv, d, causal, scale, dr);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bwd(const float* q, const float* k, const float* v, const unsigned char* mask,
-                       const float* lse, const float* delta, const float* dout, float* dq,
-                       float* dk, float* dv, int b, int h, int n_q, int n_kv, int causal,
-                       float scale, const ns2::Dropout& dr, cudaStream_t st) {
+template <class T, int D>
+cudaError_t launch_bwd(const T* q, const T* k, const T* v, const unsigned char* mask,
+                       const float* lse, const float* delta, const T* dout, T* dq, T* dk, T* dv,
+                       int b, int h, int n_q, int n_kv, int causal, float scale,
+                       const ns2::Dropout& dr, cudaStream_t st) {
   const int dq_bytes = (int)sizeof(DqSmem<kDqWalk, D>);
   const int dkv_bytes = (int)sizeof(DkvSmem<kDkvWalk, D>);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<kDqWalk, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, kDqWalk, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<kDkvWalk, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, kDkvWalk, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((n_q + kTile - 1) / kTile, b * h);
-  flash_bwd_dq_kernel<kDqWalk, D><<<grid_q, kFlashThreads, dq_bytes, st>>>(
+  flash_bwd_dq_kernel<T, kDqWalk, D><<<grid_q, kFlashThreads, dq_bytes, st>>>(
       q, k, v, mask, lse, delta, dout, dq, h, n_q, n_kv, causal, scale, dr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((n_kv + kTile - 1) / kTile, b * h);
-  flash_bwd_dkv_kernel<kDkvWalk, D><<<grid_kv, kFlashThreads, dkv_bytes, st>>>(
+  flash_bwd_dkv_kernel<T, kDkvWalk, D><<<grid_kv, kFlashThreads, dkv_bytes, st>>>(
       q, k, v, mask, lse, delta, dout, dk, dv, h, n_q, n_kv, causal, scale, dr);
   return cudaGetLastError();
+}
+
+template <class T>
+int flash_bwd(const T* q, const T* k, const T* v, const unsigned char* mask, const float* lse,
+              const float* delta, const T* dout, T* dq, T* dk, T* dv, int b, int h, int n_q,
+              int n_kv, int d, int causal, float scale, const ns2::Dropout& dr, void* stream) {
+  if ((d != 64 && (d <= 0 || d % kWideD != 0)) || n_q <= 0 || n_kv <= 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_bwd<T, 64>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv,
+                             causal, scale, dr, st);
+  if (d == 128)
+    return launch_bwd<T, 128>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv,
+                              causal, scale, dr, st);
+  return launch_bwd_wide<T>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, d,
+                            causal, scale, dr, st);
 }
 
 }  // namespace
@@ -512,16 +566,20 @@ NS2_API int ns2_flash_bwd(const float* q, const float* k, const float* v,
                           int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                           unsigned seed1, float rate, int stride, unsigned threshold,
                           float keep_scale, void* stream) {
-  if ((d != 64 && (d <= 0 || d % kWideD != 0)) || n_q <= 0 || n_kv <= 0)
-    return cudaErrorInvalidValue;
-  const ns2::Dropout dr{seed0, seed1, rate, stride, threshold, keep_scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_bwd<64>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, causal,
-                          scale, dr, st);
-  if (d == 128)
-    return launch_bwd<128>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, causal,
-                           scale, dr, st);
-  return launch_bwd_wide(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, d, causal,
-                         scale, dr, st);
+  return flash_bwd(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, d, causal,
+                   scale, ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale},
+                   stream);
+}
+
+// The same with q, k, v, dout, dq, dk and dv in bf16 (lse and delta f32):
+// the JAX kernels' rounding points at a bf16 input dtype (see the header).
+NS2_API int ns2_flash_bwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                               const unsigned char* mask, const float* lse, const float* delta,
+                               const bf16* dout, bf16* dq, bf16* dk, bf16* dv, int b, int h,
+                               int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
+                               unsigned seed1, float rate, int stride, unsigned threshold,
+                               float keep_scale, void* stream) {
+  return flash_bwd(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, d, causal,
+                   scale, ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale},
+                   stream);
 }

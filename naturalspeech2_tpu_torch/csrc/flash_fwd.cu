@@ -631,14 +631,15 @@ NS2_API int ns2_flash_fwd(const float* q, const float* k, const float* v,
                    ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale}, stream);
 }
 
-// The same with q, k, v and o in bf16 (lse f32); rate > 0 returns
-// cudaErrorInvalidValue: dropout in bf16 belongs to AMP training.
+// The same with q, k, v and o in bf16 (lse f32). With dropout (AMP
+// training's prompt encoder), the keep multiplier is applied to P in f32,
+// m, l and lse stay over the undropped P, and P·keep is rounded to bf16 as
+// P·V's register operand (the JAX kernels' `(p * keep).astype(v.dtype)`).
 NS2_API int ns2_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                                const unsigned char* mask, bf16* o, float* lse, int b, int h,
                                int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                                unsigned seed1, float rate, int stride, unsigned threshold,
                                float keep_scale, void* stream) {
-  if (rate > 0.0f) return cudaErrorInvalidValue;
   return flash_fwd(q, k, v, mask, o, lse, b, h, n_q, n_kv, d, causal, scale,
                    ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale}, stream);
 }

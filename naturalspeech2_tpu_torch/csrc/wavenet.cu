@@ -56,12 +56,14 @@ using ns2::bf16;
 namespace {
 
 // T: the type of x, the biases, FiLM and the output (f32, or bf16 with the
-// weights as TF32 in the kSplit2 mode); the lanes are f32 either way.
-template <class T>
+// weights as TF32 in the kSplit2 mode); the lanes are f32 either way. M:
+// the core's mode, kSplit2 also for the mixed entry point (f32 x against
+// bf16 weights).
+template <class T,
+          gemm::Mode M = (sizeof(T) == 4 ? gemm::Mode::kSplit3 : gemm::Mode::kSplit2)>
 int wavenet_body(const T* x, const float* blocks, const T* conv_b, const T* res_b,
                  const float* skip, const float* skip_b, const T* film, float* lanes_a,
                  float* lanes_b, T* out, int b, int n, int d, int S, int L, void* stream) {
-  constexpr gemm::Mode M = sizeof(T) == 4 ? gemm::Mode::kSplit3 : gemm::Mode::kSplit2;
   constexpr int kB = gemm::Fmt<M>::kB;
   if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -102,6 +104,18 @@ NS2_API int ns2_wavenet_body(const float* x, const float* blocks, const float* c
                              int n, int d, int S, int L, void* stream) {
   return wavenet_body(x, blocks, conv_b, res_b, skip, skip_b, film, lanes_a, lanes_b, out, b, n,
                       d, S, L, stream);
+}
+
+// Mixed (AMP training's denoiser, wavenet_kernel.py:80-129 with f32 x and
+// FiLM against bf16 weights): every pointer f32, the biases widened, blocks
+// and skip the bf16 weights packed as TF32 with no lo part, the products in
+// the kSplit2 mode; the JAX kernel's products promote the weights to f32.
+NS2_API int ns2_wavenet_body_mixed(const float* x, const float* blocks, const float* conv_b,
+                                   const float* res_b, const float* skip, const float* skip_b,
+                                   const float* film, float* lanes_a, float* lanes_b, float* out,
+                                   int b, int n, int d, int S, int L, void* stream) {
+  return wavenet_body<float, gemm::Mode::kSplit2>(x, blocks, conv_b, res_b, skip, skip_b, film,
+                                                  lanes_a, lanes_b, out, b, n, d, S, L, stream);
 }
 
 // The same with x, conv_b, res_b, film and out in bf16, blocks and skip the

@@ -43,12 +43,12 @@ namespace {
 // T: the type of x, the biases, FiLM and the output (f32, or bf16 with the
 // weights as TF32 in the kSplit2 mode); the lane state and the skips' sum
 // `acc` are f32 (for f32, acc may be the output itself).
-template <class T>
+template <class T,
+          gemm::Mode M = (sizeof(T) == 4 ? gemm::Mode::kSplit3 : gemm::Mode::kSplit2)>
 int wavenet_lanes(const T* x, const float* blocks, const T* conv_b, const T* res_b,
                   const float* skip, const T* skip_b, const T* film, float* lane_a,
                   float* lane_b, float* acc, T* out, int b, int n, int d, int S, int L,
                   void* stream) {
-  constexpr gemm::Mode M = sizeof(T) == 4 ? gemm::Mode::kSplit3 : gemm::Mode::kSplit2;
   constexpr int kB = gemm::Fmt<M>::kB;
   if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -103,6 +103,18 @@ NS2_API int ns2_wavenet_lanes(const float* x, const float* blocks, const float* 
                               int n, int d, int S, int L, void* stream) {
   return wavenet_lanes(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a, lane_b, out, out,
                        b, n, d, S, L, stream);
+}
+
+// Mixed (f32 x and FiLM against bf16 weights): as ns2_wavenet_lanes with
+// the biases widened and blocks and skip the bf16 weights packed as TF32
+// with no lo part, the products in the kSplit2 mode.
+NS2_API int ns2_wavenet_lanes_mixed(const float* x, const float* blocks, const float* conv_b,
+                                    const float* res_b, const float* skip, const float* skip_b,
+                                    const float* film, float* lane_a, float* lane_b, float* out,
+                                    int b, int n, int d, int S, int L, void* stream) {
+  return wavenet_lanes<float, gemm::Mode::kSplit2>(x, blocks, conv_b, res_b, skip, skip_b, film,
+                                                   lane_a, lane_b, out, out, b, n, d, S, L,
+                                                   stream);
 }
 
 // The same with x, conv_b, res_b, skip_b, film and out in bf16, blocks and

@@ -13,8 +13,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from naturalspeech2_tpu_torch.models.blocks import promoted_conv1d
 from naturalspeech2_tpu_torch.ops.ctc import forward_sum_loss
 from naturalspeech2_tpu_torch.ops.mas import maximum_path
+from naturalspeech2_tpu_torch.utils.helpers import promoted
 
 NEG = -1e9
 
@@ -36,11 +38,13 @@ class AlignerNet(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(attn, attn_logp)``, both ``[b, 1, t_y, t_x]``; ``mask``
         ``[b, t_x]`` sets masked keys' log-probabilities to −1e9."""
-        k = self.key_conv2(F.relu(self.key_conv1(keys.transpose(1, 2)))).transpose(1, 2)
-        q = F.relu(self.query_conv2(F.relu(self.query_conv1(queries.transpose(1, 2)))))
-        q = self.query_conv3(q).transpose(1, 2)
-        d2 = ((q**2).sum(-1, keepdim=True) - 2.0 * torch.einsum("byc,bxc->byx", q, k)
-              + (k**2).sum(-1)[:, None, :])
+        k = F.relu(promoted_conv1d(self.key_conv1, keys.transpose(1, 2)))
+        k = promoted_conv1d(self.key_conv2, k).transpose(1, 2)
+        q = F.relu(promoted_conv1d(self.query_conv1, queries.transpose(1, 2)))
+        q = F.relu(promoted_conv1d(self.query_conv2, q))
+        q = promoted_conv1d(self.query_conv3, q).transpose(1, 2)
+        qk = torch.einsum("byc,bxc->byx", *promoted(q, k))
+        d2 = (q**2).sum(-1, keepdim=True) - 2.0 * qk + (k**2).sum(-1)[:, None, :]
         attn_logp = -torch.sqrt(d2.clamp(min=1e-12))[:, None]
         if mask is not None:
             attn_logp = torch.where(mask[:, None, None, :], attn_logp, NEG)

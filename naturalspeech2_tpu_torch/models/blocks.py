@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from naturalspeech2_tpu_torch.ops.ff_block_kernel import causal_conv3, ff_block, fits_fused_ff_block
+from naturalspeech2_tpu_torch.utils.helpers import promoted
 
 
 def _normalize(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -30,9 +31,23 @@ def promoted_linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``layer(x)`` at the promoted dtype of x and the layer's weight, as
     flax's Dense computes with mixed operands: f32 diffusion times through
     bf16 weights run in f32."""
-    dtype = torch.promote_types(x.dtype, layer.weight.dtype)
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return F.linear(*promoted(x, layer.weight, layer.bias))
+
+
+def promoted_conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` (channels-first x) at the promoted dtype of x and the
+    conv's weight, as flax's Conv computes with mixed operands.
+
+    A bf16 convolution on the CPU is computed in f32 on the bf16 values and
+    rounded once, which is its function (f32 sums of exact products):
+    torch's oneDNN bf16 convolution returns wrong values on some CPUs at
+    some strided shapes (kernel 16 at stride 8, the codec's last encoder
+    block, is off by more than the output's size)."""
+    x, weight, bias = promoted(x, conv.weight, conv.bias)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        wide = (t if t is None else t.float() for t in (x, weight, bias))
+        return conv._conv_forward(*wide).to(torch.bfloat16)
+    return conv._conv_forward(x, weight, bias)
 
 
 class RMSNorm(nn.Module):
@@ -73,7 +88,7 @@ class CausalConv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.pad(x.transpose(1, 2), (self.pad, 0))
-        return self.conv(x).transpose(1, 2)
+        return promoted_conv1d(self.conv, x).transpose(1, 2)
 
 
 class ConvUnit(nn.Module):
@@ -88,7 +103,7 @@ class ConvUnit(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.silu(self.norm(self.conv(x.transpose(1, 2)))).transpose(1, 2)
+        x = F.silu(self.norm(promoted_conv1d(self.conv, x.transpose(1, 2)))).transpose(1, 2)
         return self.dropout(x)
 
 
@@ -110,7 +125,7 @@ class ResnetBlock(nn.Module):
         for unit in self.units:
             h = unit(h)
         if self.res_conv is not None:
-            x = self.res_conv(x.transpose(1, 2)).transpose(1, 2)
+            x = promoted_conv1d(self.res_conv, x.transpose(1, 2)).transpose(1, 2)
         return h + x
 
 
@@ -123,7 +138,7 @@ class ConvBlock(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dropout(F.silu(self.conv(x.transpose(1, 2)).transpose(1, 2)))
+        return self.dropout(F.silu(promoted_conv1d(self.conv, x.transpose(1, 2)).transpose(1, 2)))
 
 
 class FeedForward(nn.Module):
@@ -167,10 +182,13 @@ class FeedForward(nn.Module):
                 return ff_block(x, gamma, beta, self.w1, self.b1, self.wc, self.bc, self.w2,
                                 self.b2)
             residual, x = x, ada_rmsnorm(x, gamma, beta, self.dim)
-        val, gate = (x @ self.w1 + self.b1).chunk(2, dim=-1)
+        x, w1, b1 = promoted(x, self.w1, self.b1)
+        val, gate = (x @ w1 + b1).chunk(2, dim=-1)
         a = F.gelu(gate, approximate=self.approximate) * val
         if residual is None:
-            return a @ self.w2 + self.b2
+            a, w2, b2 = promoted(a, self.w2, self.b2)
+            return a @ w2 + b2
         # the conv's weights follow the activations, as the JAX module casts them
-        return residual + (causal_conv3(a, self.wc.to(a.dtype), self.bc.to(a.dtype)) @ self.w2
-                           + self.b2)
+        c = causal_conv3(a, self.wc.to(a.dtype), self.bc.to(a.dtype))
+        c, w2, b2 = promoted(c, self.w2, self.b2)
+        return residual + (c @ w2 + b2)

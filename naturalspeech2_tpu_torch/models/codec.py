@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from naturalspeech2_tpu_torch.models.blocks import promoted_conv1d
 from naturalspeech2_tpu_torch.ops.rvq import rvq_cross_entropy, rvq_quantize, rvq_reference
 
 
@@ -33,6 +34,9 @@ class SameConv1d(nn.Conv1d):
         super().__init__(dim_in, dim_out, kernel_size, dilation=dilation,
                          padding=dilation * (kernel_size - 1) // 2)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return promoted_conv1d(self, x)
+
 
 class StridedSameConv1d(nn.Conv1d):
     """flax ``Conv(kernel 2s, stride s, padding="SAME")``: output length
@@ -44,7 +48,7 @@ class StridedSameConv1d(nn.Conv1d):
         self.pads = (stride // 2, stride - stride // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(F.pad(x, self.pads))
+        return promoted_conv1d(self, F.pad(x, self.pads))
 
 
 class SameConvTranspose1d(nn.ConvTranspose1d):

@@ -139,12 +139,12 @@ class Model(nn.Module):
                 raise ValueError("a conditional Model needs prompt= and cond=")
             prompt_drop, cond_drop = self._drop_masks(b, x.device, cond_drop_prob,
                                                       cond_drop_mask, generator)
-            prompt_cond = F.silu(self.to_prompt_cond(prompt.mean(dim=-2)))
+            prompt_cond = F.silu(promoted_linear(self.to_prompt_cond, prompt.mean(dim=-2)))
             prompt_cond = torch.where(prompt_drop[:, None], self.null_prompt_cond, prompt_cond)
             t = torch.cat([t, prompt_cond], dim=-1)
             resampled = self.perceiver_resampler(prompt, mask=prompt_mask)
             context = torch.where(prompt_drop[:, None, None], self.null_prompt_tokens, resampled)
-            cond = self.cond_to_model_dim(cond)
+            cond = promoted_linear(self.cond_to_model_dim, cond)
             cond = torch.where(cond_drop[:, None, None], self.null_cond, cond)
             x = x + pad_or_curtail_to_length(cond, x.shape[1], axis=1)
         # the conditioning in the compute dtype, as the JAX module casts it

@@ -17,6 +17,8 @@ from naturalspeech2_tpu_torch.models.blocks import (
     FeedForward,
     ResnetBlock,
     RMSNorm,
+    promoted_conv1d,
+    promoted_linear,
 )
 from naturalspeech2_tpu_torch.models.transformer import Attention, Transformer
 
@@ -46,7 +48,7 @@ class PerceiverResampler(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.proj_context is not None:
-            x = self.proj_context(x)
+            x = promoted_linear(self.proj_context, x)
         latents = self.latents.expand(x.shape[0], *self.latents.shape)
         for attn, ff in zip(self.attn, self.ff):
             latents = attn(latents, context=x, mask=mask) + latents
@@ -107,7 +109,7 @@ class SpeechPromptEncoder(nn.Module):
             raise ValueError(f"prompt latents have width {x.shape[-1]}, expected {self.dim_codebook}")
         x = x.transpose(1, 2)
         for conv in self.convs:
-            x = F.silu(conv(x))
+            x = F.silu(promoted_conv1d(conv, x))
         return self.transformer(x.transpose(1, 2))
 
 
@@ -148,7 +150,7 @@ class DurationPitchPredictorTrunk(nn.Module):
             for conv in block:
                 x = conv(x)
             x = attn(norm(x), context=encoded_prompts, mask=prompt_mask) + x
-        x = self.to_pred(x)[..., 0]
+        x = promoted_linear(self.to_pred, x)[..., 0]
         return F.softplus(x) if self.head_activation == "softplus" else F.relu(x)
 
 

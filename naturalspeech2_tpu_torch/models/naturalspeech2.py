@@ -288,11 +288,14 @@ class NaturalSpeech2(nn.Module):
             raise ValueError(f"latents have width {d}, the model takes {self.dim}")
         if times is None:
             times = torch.rand(b, generator=generator, device=audio.device)
-        if noise is None:
-            noise = torch.randn(audio.shape, generator=generator, device=audio.device)
+        if noise is None:  # at the latents' dtype, as JAX draws it
+            noise = torch.randn(audio.shape, generator=generator, device=audio.device,
+                                dtype=audio.dtype)
 
         gamma = self.gamma_schedule(times)[:, None, None]
         alpha, sigma = gamma_to_alpha_sigma(gamma, self.scale)
+        # f32 times promote bf16 latents and noise (AMP training): the
+        # denoiser's activations stay f32, as in JAX
         noised = alpha * audio + sigma * noise
         pred = self.model(noised, times, prompt=prompt_enc, cond=cond,
                           cond_drop_mask=cond_drop_mask, generator=generator)

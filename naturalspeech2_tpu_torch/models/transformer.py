@@ -23,8 +23,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from naturalspeech2_tpu_torch.models.blocks import FeedForward, RMSNorm, ada_rmsnorm
+from naturalspeech2_tpu_torch.models.blocks import (
+    FeedForward,
+    RMSNorm,
+    ada_rmsnorm,
+    promoted_linear,
+)
 from naturalspeech2_tpu_torch.ops.attention import attend
+from naturalspeech2_tpu_torch.utils.helpers import promoted
 from naturalspeech2_tpu_torch.ops.attn_block_kernel import (
     attn_block,
     cross_attn_block,
@@ -92,20 +98,21 @@ class Attention(nn.Module):
             ctx = torch.cat([x, ctx], dim=-2)
             if mask is not None:
                 mask = nn.functional.pad(mask, (x.shape[-2], 0), value=True)
-        k, v = (ctx @ self.to_kv).chunk(2, dim=-1)
+        x, ctx, to_q, to_kv, to_out = promoted(x, ctx, self.to_q, self.to_kv, self.to_out)
+        k, v = (ctx @ to_kv).chunk(2, dim=-1)
 
         def split_heads(t):
             b, n, _ = t.shape
             return t.reshape(b, n, h, dh).transpose(1, 2).contiguous()
 
         out = attend(
-            split_heads(x @ self.to_q), split_heads(k), split_heads(v), mask=mask,
+            split_heads(x @ to_q), split_heads(k), split_heads(v), mask=mask,
             causal=self.causal, scale=dh**-0.5,
             dropout=self.dropout if self.training else 0.0,
             backend="flash" if self.use_flash else "xla",
         )
         b, _, n, _ = out.shape
-        return out.transpose(1, 2).reshape(b, n, h * dh) @ self.to_out
+        return out.transpose(1, 2).reshape(b, n, h * dh) @ to_out
 
 
 class Transformer(nn.Module):
@@ -209,7 +216,8 @@ class ConditionableTransformer(nn.Module):
         if (context is not None) != bool(self.cross_attn):
             raise ValueError("a context is needed exactly when cross_attn=True")
         d = self.dim
-        ada = torch.einsum("bt,ntc->bnc", times, self.ada_norm_w) + self.ada_norm_b
+        times, ada_w, ada_b = promoted(times, self.ada_norm_w, self.ada_norm_b)
+        ada = torch.einsum("bt,ntc->bnc", times, ada_w) + ada_b
         gammas = ada[..., :d].transpose(0, 1).contiguous()  # [n_norms, b, d]
         betas = ada[..., d:].transpose(0, 1).contiguous()
         x = x.contiguous()
@@ -218,7 +226,7 @@ class ConditionableTransformer(nn.Module):
                 x = checkpoint(self._layer, i, x, gammas, betas, context, use_reentrant=False)
             else:
                 x = self._layer(i, x, gammas, betas, context)
-        return self.to_pred(self.pred_norm(x))
+        return promoted_linear(self.to_pred, self.pred_norm(x))
 
     def _layer(self, i: int, x, gammas, betas, context):
         base = i * self.norms_per_layer

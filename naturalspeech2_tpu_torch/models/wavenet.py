@@ -16,6 +16,7 @@ from torch import nn
 
 from naturalspeech2_tpu_torch.models.blocks import CausalConv1d
 from naturalspeech2_tpu_torch.ops.wavenet_kernel import wavenet_body
+from naturalspeech2_tpu_torch.utils.helpers import promoted
 
 
 class FusedWavenet(nn.Module):
@@ -41,7 +42,8 @@ class FusedWavenet(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """x [b, n, d] and the time condition t [b, dim_time] → [b, n, d]."""
         x = self.init_conv(x)
-        film = torch.einsum("bt,sltc->bslc", t, self.film_w) + self.film_b
+        t, film_w, film_b = promoted(t, self.film_w, self.film_b)
+        film = torch.einsum("bt,sltc->bslc", t, film_w) + film_b
         skip = wavenet_body(
             x.contiguous(), self.conv_w, self.conv_b, self.res_w, self.res_b,
             self.skip_w, self.skip_b, film.contiguous(),

@@ -1,7 +1,9 @@
 """The port's kernels: each wrapper launches its CUDA kernel on CUDA
 tensors and runs its plain PyTorch version on CPU tensors, and counts its
-kernel launches in ``<wrapper>.launches`` (f32 entry points) and
-``<wrapper>.launches_bf16`` (bf16 entry points; K5 and K6 have none)."""
+kernel launches in ``<wrapper>.launches`` (f32 entry points),
+``<wrapper>.launches_bf16`` (bf16 entry points) and, where it has them,
+``<wrapper>.launches_mixed`` (f32 activations against bf16 weights: K1,
+K1b, K2, K2b and K3 under AMP training)."""
 
 import torch
 
@@ -15,17 +17,20 @@ from naturalspeech2_tpu_torch.ops import rvq as _rvq  # noqa: E402
 
 KERNEL_WRAPPERS = (wavenet_body, wavenet_body_lanes, attn_block, cross_attn_block, ff_block,
                    flash_forward, flash_backward, _rvq.rvq)
+# The counter of each kind of entry point: f32, bf16, f32 against bf16 weights.
+COUNTERS = {torch.float32: "launches", torch.bfloat16: "launches_bf16", "mixed": "launches_mixed"}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
-        if hasattr(fn, "launches_bf16"):
-            fn.launches_bf16 = 0
+        for attr in COUNTERS.values():
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
-def launch_counts(dtype: torch.dtype = torch.float32) -> dict[str, int]:
-    """Launches of each wrapper's ``dtype`` entry points since the last
-    reset (0 for a wrapper with no such entry point)."""
-    attr = {torch.float32: "launches", torch.bfloat16: "launches_bf16"}[dtype]
+def launch_counts(kind=torch.float32) -> dict[str, int]:
+    """Launches of each wrapper's entry points of ``kind`` (torch.float32,
+    torch.bfloat16 or "mixed") since the last reset (0 for a wrapper with no
+    such entry point)."""
+    attr = COUNTERS[kind]
     return {fn.__name__: getattr(fn, attr, 0) for fn in KERNEL_WRAPPERS}

@@ -6,7 +6,8 @@ and `attend_xla` in `naturalspeech2_tpu/ops/attention.py`).
 JAX package leaves that route to XLA. Masked logits are the finite
 ``NEG_INF`` on both routes. Dropout on the plain route keeps each
 probability with probability 1 − p and scales it by 1/(1 − p), after the
-softmax, as ``attend_xla`` does.
+softmax, as ``attend_xla`` does; in bf16 the logits and the softmax run in
+f32 and the probabilities are rounded to v's dtype before P·V.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ def attend_plain(q, k, v, *, mask: Optional[torch.Tensor] = None, causal: bool =
     ``generator`` (torch's default one if None) below 1 − p."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    sim = torch.einsum("bhid,bhjd->bhij", q, k) * scale
+    # the logits in f32 whatever the inputs' dtype, as `attend_xla` asks
+    # for f32 results of its bf16 products (exact in f32)
+    sim = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * scale
     if mask is not None:
         sim = torch.where(mask[:, None, None, :], sim, NEG_INF)
     if causal:
@@ -42,7 +45,7 @@ def attend_plain(q, k, v, *, mask: Optional[torch.Tensor] = None, causal: bool =
         if keep is None:
             keep = torch.rand(attn.shape, generator=generator, device=attn.device) < 1.0 - dropout
         attn = torch.where(keep, attn / (1.0 - dropout), 0.0)
-    return torch.einsum("bhij,bhjd->bhid", attn, v)
+    return torch.einsum("bhij,bhjd->bhid", attn.to(v.dtype), v)
 
 
 def attend(q, k, v, *, mask: Optional[torch.Tensor] = None, causal: bool = False,

@@ -33,8 +33,17 @@ the norm in f32, n(x), q, k, v, P and o rounded to bf16 before each
 product, products summed in f32, the heads and the residual summed in f32
 and y rounded once; ``attn_block_bf16_torch`` and
 ``cross_attn_block_bf16_torch`` are the plain versions, rounding point for
-rounding point (the CPU route in bf16). The backward in bf16 belongs to
-AMP training (ROADMAP item 24).
+rounding point (the CPU route in bf16).
+
+Mixed (x, γ, β and the context float32, the weights bfloat16: AMP
+training's denoiser) both compute the f32 block on the weights' values,
+exact in f32, as the JAX kernels do with `mm = float32`: on a card through
+their mixed entry points (the weights packed as TF32 with no lo part, the
+GEMM core's two-pass kSplit2 mode, counted in ``launches_mixed``), on the
+CPU the plain f32 versions on the widened weights. The backward in every
+dtype is the vjp of a function that widens its inputs to f32 and returns
+y at x's dtype, as the JAX package's twins do (`_attn_core_flash`,
+`cross_attn_block_xla`), so each gradient comes back at its input's dtype.
 
 ``fits_fused_attn_block`` and ``fits_fused_cross_attn_block`` are the JAX
 package's shape gates, which `Attention` consults before it takes a block.
@@ -53,7 +62,7 @@ from naturalspeech2_tpu_torch.ops.flash_attention import (
     flash_forward_torch,
     kernel_head_dim,
 )
-from naturalspeech2_tpu_torch.utils.helpers import refuse_bf16_backward, round_bf16 as _rd, vjp
+from naturalspeech2_tpu_torch.utils.helpers import round_bf16 as _rd, vjp
 
 # The JAX package's budget for its fused attention blocks
 # (`VMEM_BUDGET_BYTES` of `naturalspeech2_tpu/ops/attn_block_kernel.py`).
@@ -155,9 +164,12 @@ def split_heads(wq, wkv, wo, heads: int, dim_head: int):
 def attn_block_flash(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
     """The block with its attention core through flash attention (K4
     forward, K5 backward on a card), the twin of `_attn_core_flash` (Dense
-    layouts, as ``attn_block`` takes them): K2's backward."""
+    layouts, as ``attn_block`` takes them): every input widened to f32, y
+    returned at x's dtype. K2's backward."""
     b, n, _ = x.shape
-    xn = ada_norm(x, gamma, beta)
+    xf = x.float()
+    wq, wkv, wo = wq.float(), wkv.float(), wo.float()
+    xn = ada_norm(xf, gamma.float(), beta.float())
 
     def to_heads(t):
         return t.reshape(b, n, heads, dim_head).transpose(1, 2).contiguous()
@@ -165,7 +177,7 @@ def attn_block_flash(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, 
     k, v = (xn @ wkv).chunk(2, dim=-1)
     o = FlashAttention.apply(to_heads(xn @ wq), to_heads(k), to_heads(v), None, None, False,
                              float(scale), 0.0)
-    return x + o.transpose(1, 2).reshape(b, n, heads * dim_head) @ wo
+    return (xf + o.transpose(1, 2).reshape(b, n, heads * dim_head) @ wo).to(x.dtype)
 
 
 def _padded_heads(w, heads: int, dim_head: int, dh: int):
@@ -229,26 +241,27 @@ def attn_block_packed_torch(x, gamma, beta, packed, *, heads: int, scale: float)
 
 def _pack_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dtype):
     """``pack_attn_weights`` after the wrapper's checks of the weights,
-    which a cache hit then need not repeat."""
-    _build.require_cuda("attn_block", dtype, wq=wq, wkv=wkv, wo=wo)
+    which a cache hit then need not repeat; ``dtype`` is x's."""
+    _build.require_cuda("attn_block", wq.dtype, wq=wq, wkv=wkv, wo=wo)
     dm, hd = wq.shape[0], heads * dim_head
     _build.require_shapes("attn_block", wq=(wq, (dm, hd)), wkv=(wkv, (dm, 2 * hd)),
                           wo=(wo, (hd, dm)))
-    return pack_attn_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype))
+    return pack_attn_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype, wq.dtype))
 
 
 def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
     if x.device.type == "cpu":
         wq_h, wk_h, wv_h, wo_h = split_heads(wq, wkv, wo, heads, dim_head)
-        plain = attn_block_bf16_torch if x.dtype == torch.bfloat16 else attn_block_torch
-        return plain(x, gamma, beta, wq_h, wk_h, wv_h, wo_h, scale=scale)
+        if x.dtype == torch.bfloat16:
+            return attn_block_bf16_torch(x, gamma, beta, wq_h, wk_h, wv_h, wo_h, scale=scale)
+        return attn_block_torch(x, gamma, beta, *(w.to(x.dtype) for w in (wq_h, wk_h, wv_h, wo_h)),
+                                scale=scale)
     _build.require_cuda("attn_block", x.dtype, x=x, gamma=gamma, beta=beta)
+    _build.suffix("attn_block", x.dtype, wq.dtype)
     b, n, dm = x.shape
     _build.require_shapes("attn_block", gamma=(gamma, (b, dm)), beta=(beta, (b, dm)))
-    if wq.dtype != x.dtype:
-        raise TypeError(f"attn_block: the weights are {wq.dtype}, x is {x.dtype}")
     bt_qkv, bt_out = gemm_cache.cached(
-        f"attn_block {heads} {dim_head}",
+        f"attn_block {heads} {dim_head} {x.dtype}",
         lambda *w: _pack_checked(*w, heads, dim_head, x.dtype), wq, wkv, wo)
     if wq.shape[0] != dm or wq.device != x.device:
         raise ValueError(f"attn_block: wq {tuple(wq.shape)} on {wq.device} does not take x "
@@ -257,13 +270,13 @@ def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: f
     qkv = torch.empty((3, b, heads, n, dh), dtype=x.dtype, device=x.device)
     o = torch.empty((b, heads, n, dh), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    err = _build.entry("ns2_attn_block", x.dtype)(
+    err = _build.entry("ns2_attn_block", x.dtype, wq.dtype)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), bt_qkv.data_ptr(), bt_out.data_ptr(),
         qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, dm, heads, dh, float(scale),
         _build.stream(x),
     )
     _build.check(err, "ns2_attn_block")
-    _build.count(attn_block, x.dtype)
+    _build.count(attn_block, x.dtype, wq.dtype)
     return out
 
 
@@ -296,7 +309,7 @@ def attn_block(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale:
                     scale=float(scale))
 
 
-attn_block.launches = attn_block.launches_bf16 = 0
+attn_block.launches = attn_block.launches_bf16 = attn_block.launches_mixed = 0
 
 
 def cross_attn_block_torch(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float):
@@ -325,9 +338,19 @@ def cross_attn_block_bf16_torch(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: f
 
 def _cross_plain(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
     """``cross_attn_block_torch`` (``cross_attn_block_bf16_torch`` in bf16)
-    on the Dense layouts."""
-    plain = cross_attn_block_bf16_torch if x.dtype == torch.bfloat16 else cross_attn_block_torch
-    return plain(x, ctx, gamma, beta, *split_heads(wq, wkv, wo, heads, dim_head), scale=scale)
+    on the Dense layouts; mixed, on the weights widened to f32."""
+    heads_w = split_heads(wq, wkv, wo, heads, dim_head)
+    if x.dtype == torch.bfloat16:
+        return cross_attn_block_bf16_torch(x, ctx, gamma, beta, *heads_w, scale=scale)
+    return cross_attn_block_torch(x, ctx, gamma, beta, *(w.to(x.dtype) for w in heads_w),
+                                  scale=scale)
+
+
+def _cross_xla(x, *args, heads: int, dim_head: int, scale: float):
+    """The twin of ``cross_attn_block_xla`` on the Dense layouts: every
+    input widened to f32, y returned at x's dtype. K2b's backward."""
+    return _cross_plain(x.float(), *(t.float() for t in args), heads=heads, dim_head=dim_head,
+                        scale=scale).to(x.dtype)
 
 
 def cross_attn_block_packed_torch(x, ctx, gamma, beta, packed, *, heads: int, scale: float):
@@ -351,12 +374,12 @@ def cross_attn_block_packed_torch(x, ctx, gamma, beta, packed, *, heads: int, sc
 
 def _pack_cross_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dtype):
     """``pack_cross_weights`` after the wrapper's checks of the weights,
-    which a cache hit then need not repeat."""
-    _build.require_cuda("cross_attn_block", dtype, wq=wq, wkv=wkv, wo=wo)
+    which a cache hit then need not repeat; ``dtype`` is x's."""
+    _build.require_cuda("cross_attn_block", wq.dtype, wq=wq, wkv=wkv, wo=wo)
     dm, dc, hd = wq.shape[0], wkv.shape[0], heads * dim_head
     _build.require_shapes("cross_attn_block", wq=(wq, (dm, hd)), wkv=(wkv, (dc, 2 * hd)),
                           wo=(wo, (hd, dm)))
-    return pack_cross_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype))
+    return pack_cross_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype, wq.dtype))
 
 
 def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
@@ -364,16 +387,15 @@ def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: in
         return _cross_plain(x, ctx, gamma, beta, wq, wkv, wo, heads=heads, dim_head=dim_head,
                             scale=scale)
     _build.require_cuda("cross_attn_block", x.dtype, x=x, ctx=ctx, gamma=gamma, beta=beta)
+    _build.suffix("cross_attn_block", x.dtype, wq.dtype)
     b, n, dm = x.shape
     m, dc = ctx.shape[1:]
     _build.require_shapes("cross_attn_block", ctx=(ctx, (b, m, dc)), gamma=(gamma, (b, dm)),
                           beta=(beta, (b, dm)))
     if m < 1:
         raise ValueError("cross_attn_block: the context is empty")
-    if wq.dtype != x.dtype:
-        raise TypeError(f"cross_attn_block: the weights are {wq.dtype}, x is {x.dtype}")
     packed = gemm_cache.cached(
-        f"cross_attn_block {heads} {dim_head}",
+        f"cross_attn_block {heads} {dim_head} {x.dtype}",
         lambda *w: _pack_cross_checked(*w, heads, dim_head, x.dtype), wq, wkv, wo)
     if wq.shape[0] != dm or wkv.shape[0] != dc or wq.device != x.device:
         raise ValueError(f"cross_attn_block: wq {tuple(wq.shape)}, wkv {tuple(wkv.shape)} on "
@@ -384,13 +406,13 @@ def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: in
     kv = torch.empty((2, b, heads, m, dh), dtype=x.dtype, device=x.device)
     o = torch.empty_like(q)
     out = torch.empty_like(x)
-    err = _build.entry("ns2_cross_attn_block", x.dtype)(
+    err = _build.entry("ns2_cross_attn_block", x.dtype, wq.dtype)(
         x.data_ptr(), ctx.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         *(p.data_ptr() for p in packed), q.data_ptr(), kv.data_ptr(), o.data_ptr(),
         out.data_ptr(), b, n, m, dm, dc, heads, dh, float(scale), _build.stream(x),
     )
     _build.check(err, "ns2_cross_attn_block")
-    _build.count(cross_attn_block, x.dtype)
+    _build.count(cross_attn_block, x.dtype, wq.dtype)
     return out
 
 
@@ -403,8 +425,7 @@ class _CrossAttnBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx_, g):
-        refuse_bf16_backward("cross_attn_block", g)
-        grads = vjp(lambda *a: _cross_plain(*a, **ctx_.cfg), ctx_.saved_tensors,
+        grads = vjp(lambda *a: _cross_xla(*a, **ctx_.cfg), ctx_.saved_tensors,
                     ctx_.needs_input_grad[:7], g)
         return (*grads, None, None, None)
 
@@ -424,3 +445,4 @@ def cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: 
 
 
 cross_attn_block.launches = cross_attn_block.launches_bf16 = 0
+cross_attn_block.launches_mixed = 0

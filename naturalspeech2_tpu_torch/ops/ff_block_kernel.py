@@ -18,8 +18,17 @@ that layout in plain PyTorch.
 In bf16 (x bfloat16, the weights, γ and β too) the block runs the JAX
 kernel's `mm = bfloat16` path through the kernel's bf16 entry point (the
 weights packed as bf16): ``ff_block_bf16_torch`` is its plain version, the
-CPU route in bf16. The backward in bf16 belongs to AMP training (ROADMAP
-item 24).
+CPU route in bf16.
+
+Mixed (x, γ and β float32, the weights and biases bfloat16: AMP
+training's denoiser) the block is the f32 one on the weights' values,
+exact in f32, as the JAX kernel computes it with `mm = float32`: on a card
+the kernel's mixed entry point (the weights packed as TF32 with no lo
+part, the core's two-pass kSplit2 mode, the biases widened; counted in
+``ff_block.launches_mixed``), on the CPU ``ff_block_torch`` on the widened
+weights. The backward in every dtype is the vjp of the twin of
+``ff_block_xla``, which widens its inputs to f32 and returns y at x's
+dtype, so each gradient comes back at its input's dtype.
 
 ``fits_fused_ff_block`` is the JAX package's shape gate, which
 `FeedForward` consults before it takes the block.
@@ -35,7 +44,7 @@ import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
-from naturalspeech2_tpu_torch.utils.helpers import refuse_bf16_backward, round_bf16 as _rd, vjp
+from naturalspeech2_tpu_torch.utils.helpers import round_bf16 as _rd, vjp
 
 
 def ada_norm(x, gamma, beta):
@@ -113,12 +122,23 @@ def fits_fused_ff_block(n: int, dm: int, inner: int) -> bool:
 
 
 def ff_block_plain(x, gamma, beta, w1, b1, wc, bc, w2, b2):
-    """``ff_block_torch`` (``ff_block_bf16_torch`` in bf16) on the
-    `FeedForward` layouts (w1/b1 unsplit)."""
+    """``ff_block_torch`` (``ff_block_bf16_torch`` in bf16; mixed, on the
+    weights widened to f32) on the `FeedForward` layouts (w1/b1
+    unsplit)."""
     inner = w1.shape[-1] // 2
-    plain = ff_block_bf16_torch if x.dtype == torch.bfloat16 else ff_block_torch
+    if x.dtype == torch.bfloat16:
+        plain = ff_block_bf16_torch
+    else:
+        plain = ff_block_torch
+        w1, b1, wc, bc, w2, b2 = (w.to(x.dtype) for w in (w1, b1, wc, bc, w2, b2))
     return plain(x, gamma, beta, w1[:, :inner], b1[:inner], w1[:, inner:], b1[inner:],
                  wc, bc, w2, b2)
+
+
+def _ff_xla(x, *args):
+    """The twin of ``ff_block_xla`` on the `FeedForward` layouts: every
+    input widened to f32, y returned at x's dtype. K3's backward."""
+    return ff_block_plain(x.float(), *(t.float() for t in args)).to(x.dtype)
 
 
 class FFWeights(NamedTuple):
@@ -174,39 +194,45 @@ def ff_block_packed_torch(x, gamma, beta, weights: FFWeights, b2):
     return x + c @ dense(weights.out, dm, ip).T + b2
 
 
-def _pack_checked(w1, b1, wc, bc, w2) -> FFWeights:
+def _pack_checked(w1, b1, wc, bc, w2, dtype: torch.dtype) -> FFWeights:
     """``pack_ff_weights`` after the wrapper's checks of the weights, which
-    a cache hit then need not repeat."""
+    a cache hit then need not repeat; ``dtype`` is x's, which the biases
+    take."""
     _build.require_cuda("ff_block", w1.dtype, w1=w1, b1=b1, wc=wc, bc=bc, w2=w2)
     dm, inner = w1.shape[0], w1.shape[-1] // 2
     _build.require_shapes(
         "ff_block", w1=(w1, (dm, 2 * inner)), b1=(b1, (2 * inner,)),
         wc=(wc, (3, inner, inner)), bc=(bc, (inner,)), w2=(w2, (inner, dm)),
     )
-    return pack_ff_weights(w1, b1, wc, bc, w2, gemm_cache.fmt_of(w1.dtype))
+    wt = pack_ff_weights(w1, b1, wc, bc, w2, gemm_cache.fmt_of(dtype, w1.dtype))
+    return wt._replace(b_val=wt.b_val.to(dtype), b_gate=wt.b_gate.to(dtype), bc=wt.bc.to(dtype))
 
 
 def _forward(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     if x.device.type == "cpu":
         return ff_block_plain(x, gamma, beta, w1, b1, wc, bc, w2, b2)
-    _build.require_cuda("ff_block", x.dtype, x=x, gamma=gamma, beta=beta, b2=b2)
+    _build.require_cuda("ff_block", x.dtype, x=x, gamma=gamma, beta=beta)
+    _build.suffix("ff_block", x.dtype, w1.dtype)
     b, n, dm = x.shape
     _build.require_shapes("ff_block", gamma=(gamma, (b, dm)), beta=(beta, (b, dm)),
                           b2=(b2, (dm,)))
-    wt = gemm_cache.cached("ff_block", _pack_checked, w1, b1, wc, bc, w2)
-    if w1.shape[0] != dm or w1.device != x.device or w1.dtype != x.dtype:
-        raise ValueError(f"ff_block: w1 {tuple(w1.shape)} {w1.dtype} on {w1.device} does not "
-                         f"take x {tuple(x.shape)} {x.dtype} on {x.device}")
+    wt = gemm_cache.cached(f"ff_block {x.dtype}", lambda *w: _pack_checked(*w, x.dtype),
+                           w1, b1, wc, bc, w2)
+    if w1.shape[0] != dm or w1.device != x.device or b2.dtype != w1.dtype:
+        raise ValueError(f"ff_block: w1 {tuple(w1.shape)} {w1.dtype} on {w1.device}, b2 "
+                         f"{b2.dtype} do not take x {tuple(x.shape)} {x.dtype} on {x.device}")
+    b2 = b2.to(x.dtype)
+    _build.require_cuda("ff_block", x.dtype, b2=b2)
     scratch = torch.empty((2, b * n, wt.ip), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    err = _build.entry("ns2_ff_block", x.dtype)(
+    err = _build.entry("ns2_ff_block", x.dtype, w1.dtype)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.geglu.data_ptr(), wt.b_val.data_ptr(),
         wt.b_gate.data_ptr(), wt.conv.data_ptr(), wt.bc.data_ptr(), wt.out.data_ptr(),
         b2.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(), b, n, dm,
         wt.ip, _build.stream(x),
     )
     _build.check(err, "ns2_ff_block")
-    _build.count(ff_block, x.dtype)
+    _build.count(ff_block, x.dtype, w1.dtype)
     return out
 
 
@@ -218,8 +244,7 @@ class _FFBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        refuse_bf16_backward("ff_block", g)
-        return vjp(ff_block_plain, ctx.saved_tensors, ctx.needs_input_grad, g)
+        return vjp(_ff_xla, ctx.saved_tensors, ctx.needs_input_grad, g)
 
 
 def ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2):
@@ -237,4 +262,4 @@ def ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     return _forward(*args)  # no graph to record: the autograd Function's overhead spared
 
 
-ff_block.launches = ff_block.launches_bf16 = 0
+ff_block.launches = ff_block.launches_bf16 = ff_block.launches_mixed = 0

@@ -15,12 +15,17 @@ padded as the JAX package pads it, so the port keeps exactly the JAX
 package's elements for the same seed and can regenerate them in the
 backward without storing them.
 
-In bf16 (q, k and v bfloat16: the JAX kernels at a bf16 input dtype) the
+In bf16 (q, k and v bfloat16: the JAX kernels at a bf16 input dtype,
+what AMP training runs in the prompt encoder and the resampler) the
 forward runs the products on bf16 operands with f32 accumulation, keeps m,
-l and lse in f32, rounds P to bf16 before P·V and returns o in bf16
+l and lse in f32 over the undropped probabilities, applies the keep mask
+in f32 and rounds P·keep to bf16 before P·V, and returns o in bf16
 (``flash_forward_bf16_torch`` is the plain version, K4's
-``ns2_flash_fwd_bf16`` the kernel); dropout and the backward in bf16
-belong to AMP training (ROADMAP item 24) and raise.
+``ns2_flash_fwd_bf16`` the kernel). The backward in bf16 follows the JAX
+kernels' rounding points (``flash_backward_bf16_torch``, K5's
+``ns2_flash_bwd_bf16``): dO widened to f32, S and dP = dO·Vᵀ in f32, dS
+rounded to bf16 before dS·K and dSᵀ·Q, dV = Aᵀ·dO with the dropped
+probabilities A unrounded, delta in f32, and dq, dk, dv rounded to bf16.
 
 ``flash_forward`` (K4, ``csrc/flash_fwd.cu``) and ``flash_backward`` (K5,
 ``csrc/flash_bwd.cu``) launch the kernels on CUDA tensors and run the plain
@@ -48,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
+from naturalspeech2_tpu_torch.utils.helpers import round_bf16
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 # The chunk of the head dim that the kernels stage: heads are 64 wide or a
@@ -132,18 +138,13 @@ def _xyt(x, y, head_chunk: Optional[int]):
                for c in range(0, x.shape[-1], head_chunk))
 
 
-def _refuse_bf16_dropout(q, dropout_rate: float) -> None:
-    if q.dtype == torch.bfloat16 and dropout_rate > 0.0:
-        raise NotImplementedError("flash attention dropout in bfloat16 is not ported yet "
-                                  "(ROADMAP Queue 1, item 24, AMP training)")
-
-
-def flash_forward_bf16_torch(q, k, v, mask, *, causal: bool, scale: float,
-                             head_chunk: Optional[int] = None):
+def flash_forward_bf16_torch(q, k, v, mask, seed=None, *, causal: bool, scale: float,
+                             dropout_rate: float = 0.0, head_chunk: Optional[int] = None):
     """Plain version of K4 in bf16, the JAX kernels' rounding points at a
     bf16 input dtype: the logits summed in f32 from the bf16 operands, m,
-    l and lse in f32 over the unrounded probabilities, P rounded to bf16
-    before P·V (``p.astype(v.dtype)``), o = P·V / l rounded to bf16."""
+    l and lse in f32 over the unrounded, undropped probabilities, P times
+    the dropout keep multiplier in f32, rounded to bf16 before P·V
+    (``(p * keep).astype(v.dtype)``), o = P·V / l rounded to bf16."""
     b, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     valid = _valid(b, n_q, n_kv, mask, causal, q.device)
@@ -153,7 +154,9 @@ def flash_forward_bf16_torch(q, k, v, mask, *, causal: bool, scale: float,
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l == 0.0, 1.0, l)
     lse = (m + torch.log(safe_l))[..., 0]
-    pv = torch.einsum("bhij,bhjd->bhid", p.to(torch.bfloat16).float(), v.float())
+    if dropout_rate > 0.0:
+        p = p * dropout_keep_scaled(seed, b, h, n_q, n_kv, dropout_rate, q.device)
+    pv = torch.einsum("bhij,bhjd->bhid", round_bf16(p), v.float())
     return (pv / safe_l).to(torch.bfloat16), lse
 
 
@@ -165,9 +168,8 @@ def flash_forward_torch(q, k, v, mask, seed, *, causal: bool, scale: float,
     the kernel does for heads wider than 128. bf16 inputs run
     ``flash_forward_bf16_torch``."""
     if q.dtype == torch.bfloat16:
-        _refuse_bf16_dropout(q, dropout_rate)
-        return flash_forward_bf16_torch(q, k, v, mask, causal=causal, scale=scale,
-                                        head_chunk=head_chunk)
+        return flash_forward_bf16_torch(q, k, v, mask, seed, causal=causal, scale=scale,
+                                        dropout_rate=dropout_rate, head_chunk=head_chunk)
     b, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     valid = _valid(b, n_q, n_kv, mask, causal, q.device)
@@ -188,7 +190,20 @@ def flash_backward_torch(q, k, v, mask, seed, lse, o, do, *, causal: bool, scale
     """Plain version of K5: ``(dq, dk, dv)`` from the saved lse, with
     delta = Σ_d dO·O and P recomputed as in `_flash_backward`. With
     ``head_chunk``, S and dP are summed over chunks of the head dim, as the
-    kernels do for heads wider than 128."""
+    kernels do for heads wider than 128. bf16 inputs run
+    ``flash_backward_bf16_torch``."""
+    if q.dtype == torch.bfloat16:
+        return flash_backward_bf16_torch(q, k, v, mask, seed, lse, o, do, causal=causal,
+                                         scale=scale, dropout_rate=dropout_rate,
+                                         head_chunk=head_chunk)
+    return _backward(q, k, v, mask, seed, lse, o, do, causal=causal, scale=scale,
+                     dropout_rate=dropout_rate, head_chunk=head_chunk)
+
+
+def _backward(q, k, v, mask, seed, lse, o, do, *, causal, scale, dropout_rate, head_chunk,
+              round_ds=lambda ds: ds):
+    """The backward's function on f32 tensors; ``round_ds`` is applied to
+    dS before dS·K and dSᵀ·Q (never to A before Aᵀ·dO)."""
     b, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     valid = _valid(b, n_q, n_kv, mask, causal, q.device)
@@ -202,10 +217,25 @@ def flash_backward_torch(q, k, v, mask, seed, lse, o, do, *, causal: bool, scale
         a = p * keep
         dp = dp * keep
     dv = torch.einsum("bhij,bhid->bhjd", a, do)
-    ds = p * (dp - delta) * scale
+    ds = round_ds(p * (dp - delta) * scale)
     dq = torch.einsum("bhij,bhjd->bhid", ds, k)
     dk = torch.einsum("bhij,bhid->bhjd", ds, q)
     return dq, dk, dv
+
+
+def flash_backward_bf16_torch(q, k, v, mask, seed, lse, o, do, *, causal: bool, scale: float,
+                              dropout_rate: float = 0.0, head_chunk: Optional[int] = None):
+    """Plain version of K5 in bf16, the rounding points of
+    `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel` at bf16 inputs: dO
+    widened to f32; S = Q·Kᵀ and dP = dO·Vᵀ summed in f32 from the bf16
+    values; delta = Σ dO·O in f32; dS = P∘(dP∘keep − delta)·scale in f32,
+    rounded to bf16 before dS·K and dSᵀ·Q (``ds.astype(k.dtype)``); dV =
+    Aᵀ·dO with A = P∘keep unrounded (``a.astype(do.dtype)``, dO being f32
+    already); dq, dk and dv rounded to bf16."""
+    grads = _backward(*(t.float() for t in (q, k, v)), mask, seed, lse,
+                      *(t.float() for t in (o, do)), causal=causal, scale=scale,
+                      dropout_rate=dropout_rate, head_chunk=head_chunk, round_ds=round_bf16)
+    return tuple(g.to(torch.bfloat16) for g in grads)
 
 
 def kernel_head_dim(d: int) -> int:
@@ -259,7 +289,6 @@ def flash_forward(q, k, v, mask=None, seed=None, *, causal: bool = False, scale:
     padded to 64 or a multiple of 128, o cut back; f32, or bf16 through its
     own entry point, counted in ``flash_forward.launches_bf16``); CPU
     tensors run ``flash_forward_torch``."""
-    _refuse_bf16_dropout(q, dropout_rate)
     if q.device.type == "cpu":
         return flash_forward_torch(q, k, v, mask, seed, causal=causal, scale=scale,
                                    dropout_rate=dropout_rate)
@@ -287,13 +316,10 @@ def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, sca
                    dropout_rate: float = 0.0):
     """K5: ``(dq, dk, dv)``. CUDA tensors launch the dq and dk/dv kernels of
     ``csrc/flash_bwd.cu`` (counted as one launch of K5; heads padded to 64
-    or a multiple of 128, the gradients cut back) after delta =
-    Σ dO·O as a plain reduction (XLA computes it outside the kernels too);
-    CPU tensors run ``flash_backward_torch``. bf16 raises: the bf16
-    backward belongs to AMP training."""
-    if q.dtype == torch.bfloat16:
-        raise NotImplementedError("the flash attention backward in bfloat16 is not ported yet "
-                                  "(ROADMAP Queue 1, item 24, AMP training)")
+    or a multiple of 128, the gradients cut back; f32, or bf16 through its
+    own entry point, counted in ``flash_backward.launches_bf16``) after
+    delta = Σ dO·O as a plain f32 reduction (XLA computes it outside the
+    kernels too); CPU tensors run ``flash_backward_torch``."""
     if q.device.type == "cpu":
         return flash_backward_torch(q, k, v, mask, seed, lse, o, do, causal=causal, scale=scale,
                                     dropout_rate=dropout_rate)
@@ -303,28 +329,29 @@ def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, sca
                                causal=causal, scale=scale, dropout_rate=dropout_rate)
         return tuple(g[..., :d].contiguous() for g in grads)
     mask8 = _check("flash_backward", q, k, v, mask)
-    _build.require_cuda("flash_backward", lse=lse, o=o, do=do)
+    _build.require_cuda("flash_backward", q.dtype, o=o, do=do)
+    _build.require_cuda("flash_backward", lse=lse)
     if do.data_ptr() % 16:
         raise ValueError("flash_backward: do must start on a 16-byte boundary")
     b, h, n_q, d = q.shape
     n_kv = k.shape[2]
     _build.require_shapes("flash_backward", lse=(lse, (b, h, n_q)), o=(o, q.shape),
                           do=(do, q.shape))
-    delta = (do * o).sum(dim=-1)
+    delta = (do.float() * o.float()).sum(dim=-1)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = _build.library().ns2_flash_bwd(
+    err = _build.entry("ns2_flash_bwd", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask8 is None else mask8.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, h, n_q, n_kv, d, int(causal), float(scale),
         *_dropout_args(seed, dropout_rate, n_kv), _build.stream(q),
     )
     _build.check(err, "ns2_flash_bwd")
-    flash_backward.launches += 1
+    _build.count(flash_backward, q.dtype)
     return dq, dk, dv
 
 
 flash_forward.launches = flash_forward.launches_bf16 = 0
-flash_backward.launches = 0
+flash_backward.launches = flash_backward.launches_bf16 = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -17,15 +17,20 @@ the bf16 values in the bf16 K-major order (a core matrix is 8 rows of 8
 bf16, a k-step 16 deep), one part, for the core's bf16 mode (K2, K2b and
 K3 in bf16); and ``"tf32"``, the bf16 values as f32 (exact in TF32) in the
 TF32 order with no lo part, for its two-pass mode (K1 and K1b in bf16,
-whose lanes stay f32).
+whose lanes stay f32, and the mixed entry points of K1, K1b, K2, K2b, K3
+and the bf16 K6, whose activations are f32).
 
 ``cached(name, build, *tensors)`` keeps what ``build`` made from the
 tensors (packed, padded or concatenated weights) until one of them changes:
 the key is each tensor object, its data pointer (which a move between
 devices changes) and its dtype, checked against its version counter, which every
 in-place update (an optimizer step, ``copy_``, ``load_state_dict``)
-advances. An entry dies with its tensors. So a layer pays for its layout
-once, not on every call, and a hit costs a few microseconds of Python.
+advances. An entry dies with its tensors: a weak reference's callback
+drops it while the tensor is freed, before its id or its memory can be
+handed to a new tensor, so the per-step bf16 copies of AMP training pack
+once a step and never hit an entry of an earlier step's copy. So a layer
+pays for its layout once, not on every call, and a hit costs a few
+microseconds of Python.
 """
 
 from __future__ import annotations
@@ -94,10 +99,13 @@ def pack_b(bt: torch.Tensor, fmt: str = "split") -> torch.Tensor:
                        dim=-2)
 
 
-def fmt_of(dtype: torch.dtype) -> str:
-    """The weight format of the core's mode for a block's activation dtype:
-    "split" for f32, "bf16" for bf16."""
-    return "bf16" if dtype == torch.bfloat16 else "split"
+def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None) -> str:
+    """The weight format of the core's mode for a block's activation dtype
+    and its weights' (default: the same): "split" for f32, "bf16" for bf16,
+    "tf32" for f32 activations against bf16 weights (the two-pass mode)."""
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "tf32" if weight_dtype == torch.bfloat16 else "split"
 
 
 def unpack_b(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -8,7 +8,12 @@ r −= C[idx]. Returns the quantized sum ``[m, d]`` and the codes ``[m, Q]``
 ``rvq`` launches the kernels of ``csrc/rvq.cu`` on CUDA tensors (per stage
 the distances on the split-TF32 GEMM core with a first-minimum epilogue,
 then the residual update; any codebook dim and size) and runs the plain
-version ``rvq_torch`` on CPU tensors. The kernels read the codebooks
+version ``rvq_torch`` on CPU tensors. bf16 ``x`` and codebooks (AMP
+training's codec) run the f32 function on their values, as the JAX kernel
+upcasts x and promotes the codebooks in its dots, and return ``quantized``
+in bf16 (``rvq_bf16_torch``; on a card ``ns2_rvq_bf16``, the codebooks
+packed as TF32 with no lo part, two passes, the residual and the sum in
+f32). The kernels read the codebooks
 packed for the core with their squared norms (``pack_codebooks``, once per
 parameter version); ``rvq_packed_torch`` computes the function from that
 layout in plain PyTorch. ``rvq_quantize`` adds the straight-through
@@ -27,9 +32,11 @@ from naturalspeech2_tpu_torch.ops import gemm_cache
 
 def rvq_torch(x, codebooks, norms=None):
     """Plain version of the kernel's function (`_rvq_kernel`): ‖r‖² dropped,
-    first minimal index, the quantized sum accumulated stage by stage.
-    ``norms`` [Q, K]: the codebooks' squared norms, if already at hand."""
+    first minimal index, the quantized sum accumulated stage by stage in
+    f32 and returned at x's dtype. ``norms`` [Q, K]: the codebooks' squared
+    norms, if already at hand."""
     r = x.to(torch.float32)
+    codebooks = codebooks.to(torch.float32)
     total = torch.zeros_like(r)
     if norms is None:
         norms = (codebooks * codebooks).sum(dim=-1)  # [Q, K]
@@ -41,7 +48,13 @@ def rvq_torch(x, codebooks, norms=None):
         r = r - q
         total = total + q
         codes.append(idx)
-    return total, torch.stack(codes, dim=-1).to(torch.int32)
+    return total.to(x.dtype), torch.stack(codes, dim=-1).to(torch.int32)
+
+
+def rvq_bf16_torch(x, codebooks):
+    """Plain version of K6 on bf16 x and codebooks: ``rvq_torch`` on their
+    values (exact in f32), ``quantized`` rounded to bf16 once."""
+    return rvq_torch(x.to(torch.bfloat16), codebooks.to(torch.bfloat16))
 
 
 def rvq_reference(x, codebooks):
@@ -60,10 +73,12 @@ def rvq_reference(x, codebooks):
 def pack_codebooks(codebooks):
     """(packed, norms): each stage's codebook C_q [K, d] as the GEMM core's
     packed Bᵀ (``gemm_cache.pack_b``: codes in 64-row tiles, dims in
-    32-wide chunks, zero-padded, split into TF32 hi and lo) and the squared
-    norms [Q, K] (a plain reduction, as XLA computes them outside the
-    Pallas kernel)."""
-    return gemm_cache.pack_b(codebooks), (codebooks * codebooks).sum(dim=-1).contiguous()
+    32-wide chunks, zero-padded; f32 codebooks split into TF32 hi and lo,
+    bf16 ones as TF32 with no lo part) and the squared norms [Q, K] in f32
+    (a plain reduction, as XLA computes them outside the Pallas kernel)."""
+    fmt = "tf32" if codebooks.dtype == torch.bfloat16 else "split"
+    wide = codebooks.to(torch.float32)
+    return gemm_cache.pack_b(codebooks, fmt), (wide * wide).sum(dim=-1).contiguous()
 
 
 def rvq_packed_torch(x, packed, norms, size: int):
@@ -79,32 +94,36 @@ def rvq_packed_torch(x, packed, norms, size: int):
 
 def rvq(x, codebooks):
     """K6: ``(quantized [m, d], codes [m, Q] int32)``. CUDA tensors launch
-    the kernels (2·Q launches, counted as one launch of K6); CPU tensors
-    run ``rvq_torch``."""
+    the kernels (2·Q launches, counted as one launch of K6; f32, or bf16
+    through its own entry point, counted in ``rvq.launches_bf16``); CPU
+    tensors run ``rvq_torch``."""
     if x.device.type == "cpu":
         return rvq_torch(x, codebooks)
-    _build.require_cuda("rvq", x=x, codebooks=codebooks)
+    _build.require_cuda("rvq", x.dtype, x=x, codebooks=codebooks)
     m, d = x.shape
     num_q, size = codebooks.shape[:2]
     _build.require_shapes("rvq", codebooks=(codebooks, (num_q, size, d)))
     if m < 1:
         raise ValueError("rvq: no rows")
     packed, norms = gemm_cache.cached("rvq", pack_codebooks, codebooks)
-    residual, quantized = torch.empty_like(x), torch.empty_like(x)
+    residual = torch.empty((m, d), dtype=torch.float32, device=x.device)
+    quantized = torch.empty_like(x)
     codes = torch.empty((m, num_q), dtype=torch.int32, device=x.device)
     # per stage and row the packed (distance, code) minimum; all ones = none yet
     best = torch.full((num_q, m), -1, dtype=torch.int64, device=x.device)
-    err = _build.library().ns2_rvq(
+    # in bf16 the sum runs in an f32 scratch and is rounded once
+    total = [torch.empty_like(residual).data_ptr()] if x.dtype == torch.bfloat16 else []
+    err = _build.entry("ns2_rvq", x.dtype)(
         x.data_ptr(), codebooks.data_ptr(), packed.data_ptr(), norms.data_ptr(), best.data_ptr(),
-        residual.data_ptr(), quantized.data_ptr(), codes.data_ptr(), m, d, num_q, size,
+        residual.data_ptr(), *total, quantized.data_ptr(), codes.data_ptr(), m, d, num_q, size,
         _build.stream(x),
     )
     _build.check(err, "ns2_rvq")
-    rvq.launches += 1
+    _build.count(rvq, x.dtype)
     return quantized, codes
 
 
-rvq.launches = 0
+rvq.launches = rvq.launches_bf16 = 0
 
 
 class _RVQ(torch.autograd.Function):
@@ -132,7 +151,8 @@ def rvq_cross_entropy(x, codebooks, codes):
     """Cross-entropy of −distance logits against the given codes, averaged
     over stages, the residual advanced along the given codes (the twin of
     `rvq_cross_entropy`). x ``[m, d]``, codes ``[m, Q]``."""
-    residual = x
+    dtype = torch.promote_types(x.dtype, codebooks.dtype)
+    residual, codebooks = x.to(dtype), codebooks.to(dtype)
     total = 0.0
     codes = codes.long()
     for qi in range(codebooks.shape[0]):

@@ -11,8 +11,9 @@ CPU tensor the kernels' routes run their plain versions.
 ``wavenet_body_lanes`` runs K1b whatever the shape, and
 ``wavenet_body_lanes_torch`` on a CPU tensor. Both are
 differentiable: as `_bwd` in the JAX package, the backward is the vjp of
-the plain version on the saved inputs, in f32 (the JAX package has no
-backward kernel here, so neither has the port).
+the plain version on the saved inputs widened to f32, each gradient
+cast back to its input's dtype (the JAX package has no backward kernel
+here, so neither has the port).
 
 Shapes: x [b, n, d]; conv_w [S, L, 3d, d]; conv_b, res_b [S, L, d];
 res_w [S, L, d, d]; skip_w [L, d, d]; skip_b [L, d]; film [b, S, L, 2d]
@@ -38,7 +39,16 @@ the kernels' bf16 entry points, their weights packed as TF32 with no lo
 part, two TF32 passes). The plain route is ``wavenet_body_torch`` on the
 bf16 tensors, every lane rounded to bf16 as `wavenet_body_xla` runs at
 x.dtype. ``wavenet_route`` decides as in f32: the JAX gates do not depend on
-the dtype. The backward in bf16 belongs to AMP training (ROADMAP item 24).
+the dtype.
+
+Mixed (x and FiLM float32, the weights and biases bfloat16: AMP training,
+whose denoiser promotes its f32 activations against the bf16 copies of
+the weights) each route computes the f32 body on the weights' values,
+exact in f32, as the JAX kernels' products and `wavenet_body_xla` (which
+casts every operand to x.dtype) do: the kernels' mixed entry points run
+the core's kSplit2 mode (the f32 lanes split in two against the bf16
+weights held as TF32, exact) with the biases widened, counted in
+``launches_mixed``; the plain versions run on the widened weights.
 """
 
 from __future__ import annotations
@@ -50,7 +60,7 @@ import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
-from naturalspeech2_tpu_torch.utils.helpers import refuse_bf16_backward, vjp
+from naturalspeech2_tpu_torch.utils.helpers import vjp
 
 # The kernels' channel multiple (the GEMM core's chunk), to which other
 # widths are padded.
@@ -207,19 +217,22 @@ def block_weights(conv_w, res_w):
 
 
 def pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b,
-                         route: str) -> WavenetWeights:
+                         route: str, bias_dtype=None) -> WavenetWeights:
     """The body's weights padded to a multiple of 32 channels and packed
     for the GEMM core (``gemm_cache.pack_b``; f32 weights split into hi
     and lo, bf16 ones as TF32 with no lo part): the blocks' B, and the skips
     as K1 (``route`` "stack": one product over the lanes side by side, the
     biases summed in f32) or K1b ("lanes": one product per lane) reads
-    them. The biases keep their dtype but for that f32 sum."""
+    them. The biases take ``bias_dtype`` (default: their own; float32 for
+    the mixed entry points) but for that f32 sum."""
     fmt = "tf32" if conv_w.dtype == torch.bfloat16 else "split"
     d = conv_w.shape[-1]
     d_p = _round_up(d, KERNEL_ALIGN)
     if d_p != d:
         conv_w, conv_b, res_w, res_b, skip_w, skip_b = pad_wavenet_weights(
             conv_w, conv_b, res_w, res_b, skip_w, skip_b, d_p)
+    if bias_dtype is not None:
+        conv_b, res_b, skip_b = (t.to(bias_dtype) for t in (conv_b, res_b, skip_b))
     L = skip_w.shape[0]
     blocks = gemm_cache.pack_b(block_weights(conv_w, res_w).transpose(-1, -2), fmt)
     if route == "stack":
@@ -277,7 +290,7 @@ def wavenet_body_packed_torch(x, film, weights: WavenetWeights, route: str):
     return out[..., :d]
 
 
-def _pack_checked(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route: str):
+def _pack_checked(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route: str, bias_dtype):
     """``pack_wavenet_weights`` after the wrapper's checks of the weights,
     which a cache hit then need not repeat."""
     _build.require_cuda("wavenet_body", conv_w.dtype, conv_w=conv_w, conv_b=conv_b, res_w=res_w,
@@ -288,7 +301,13 @@ def _pack_checked(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route: str):
         res_w=(res_w, (S, L, d, d)), res_b=(res_b, (S, L, d)), skip_w=(skip_w, (L, d, d)),
         skip_b=(skip_b, (L, d)),
     )
-    return pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route)
+    return pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route, bias_dtype)
+
+
+def _widened(x, *weights):
+    """The weights (and FiLM) at x's dtype: exact for bf16 weights against
+    f32 x, as the JAX package promotes them."""
+    return (x, *(w.to(x.dtype) for w in weights))
 
 
 def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
@@ -297,21 +316,25 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     args = (x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
     if route is None:
         route = wavenet_route(x.shape[1], x.shape[2], conv_w.shape[1])
-    if route == "plain":
-        return wavenet_body_torch(*args)
+    if route == "plain":  # `wavenet_body_xla` runs every operand at x.dtype
+        return wavenet_body_torch(*_widened(*args))
     bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
-        if route == "lanes":
-            return (wavenet_body_lanes_bf16_torch if bf16 else wavenet_body_lanes_torch)(*args)
-        return (wavenet_body_bf16_torch if bf16 else wavenet_body_torch)(*args)
+        if bf16:
+            plain = wavenet_body_lanes_bf16_torch if route == "lanes" else wavenet_body_bf16_torch
+            return plain(*args)
+        plain = wavenet_body_lanes_torch if route == "lanes" else wavenet_body_torch
+        return plain(*_widened(*args))
     _build.require_cuda("wavenet_body", x.dtype, x=x, film=film)
-    if conv_w.dtype != x.dtype:
-        raise TypeError(f"wavenet_body: the weights are {conv_w.dtype}, x is {x.dtype}")
+    _build.suffix("wavenet_body", x.dtype, conv_w.dtype)
+    mixed = x.dtype != conv_w.dtype
     b, n, d = x.shape
     S, L = conv_w.shape[:2]
     _build.require_shapes("wavenet_body", conv_w=(conv_w, (S, L, 3 * d, d)),
                           film=(film, (b, S, L, 2 * d)))
-    wt = gemm_cache.cached(f"wavenet_body {route}", lambda *w: _pack_checked(*w, route),
+    bias_dtype = torch.float32 if mixed else None
+    wt = gemm_cache.cached(f"wavenet_body {route} {mixed}",
+                           lambda *w: _pack_checked(*w, route, bias_dtype),
                            conv_w, conv_b, res_w, res_b, skip_w, skip_b)
     if conv_w.device != x.device:
         raise ValueError(f"wavenet_body: the weights are on {conv_w.device}, x on {x.device}")
@@ -319,7 +342,7 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     if d_p != d:
         x, film = pad_wavenet_inputs(x, film, d_p)
     out = torch.empty((b, n, d_p), dtype=x.dtype, device=x.device)
-    # the lane state is f32 in both dtypes; K1b in bf16 sums its skips in
+    # the lane state is f32 in every mode; K1b in bf16 sums its skips in
     # an f32 scratch of its own (in f32, in the output)
     if route == "lanes":
         state = torch.empty((2 + bf16, b, n, d_p), dtype=torch.float32, device=x.device)
@@ -328,14 +351,20 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
         state = torch.empty((2, L, b, n, d_p), dtype=torch.float32, device=x.device)
         entry, counter = "ns2_wavenet_body", wavenet_body
     scratch = [s.data_ptr() for s in state]
-    err = _build.entry(entry, x.dtype)(
+    err = _build.entry(entry, x.dtype, conv_w.dtype)(
         x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
         wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(), *scratch,
         out.data_ptr(), b, n, d_p, S, L, _build.stream(x),
     )
     _build.check(err, entry)
-    _build.count(counter, x.dtype)
+    _build.count(counter, x.dtype, conv_w.dtype)
     return out if d_p == d else out[..., :d].contiguous()
+
+
+def _body_f32(*args):
+    """``wavenet_body_torch`` on the inputs widened to f32 (each gradient
+    comes back at its input's dtype)."""
+    return wavenet_body_torch(*(t.float() for t in args))
 
 
 class _WavenetBody(torch.autograd.Function):
@@ -346,8 +375,7 @@ class _WavenetBody(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        refuse_bf16_backward("wavenet_body", g)
-        return None, *vjp(wavenet_body_torch, ctx.saved_tensors, ctx.needs_input_grad[1:], g)
+        return None, *vjp(_body_f32, ctx.saved_tensors, ctx.needs_input_grad[1:], g.float())
 
 
 def wavenet_body(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
@@ -355,7 +383,8 @@ def wavenet_body(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     run K1 (S stack launches and one skip launch of the GEMM core, counted
     as one launch in ``wavenet_body.launches``), K1b (L·S block launches
     and L skip launches, counted as one in ``wavenet_body_lanes.launches``)
-    or the plain body; CPU tensors run ``wavenet_body_torch``."""
+    or the plain body; CPU tensors run ``wavenet_body_torch``. bf16 and
+    mixed operands count in ``launches_bf16`` and ``launches_mixed``."""
     args = (x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _WavenetBody.apply(None, *args)
@@ -367,5 +396,6 @@ def wavenet_body_lanes(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     return _WavenetBody.apply("lanes", x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
 
 
-wavenet_body.launches = wavenet_body.launches_bf16 = 0
+wavenet_body.launches = wavenet_body.launches_bf16 = wavenet_body.launches_mixed = 0
 wavenet_body_lanes.launches = wavenet_body_lanes.launches_bf16 = 0
+wavenet_body_lanes.launches_mixed = 0

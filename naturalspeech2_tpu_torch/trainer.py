@@ -17,6 +17,17 @@ model's CFG drop masks, come from the trainer's own generator (seeded
 with ``seed + 1``) and are handed to the loss, so a rematerialised forward
 (``remat=True``) sees the same draws; the encoders' dropout draws from
 torch's default generator, whose state the rematerialisation restores.
+
+``amp=True`` trains in bf16 as the JAX trainer does (`_loss_fn`): every
+forward runs on bf16 copies of the f32 parameters, made per forward with
+autograd through the cast (``torch.func.functional_call``), so each f32
+``.grad`` is the bf16 cotangent widened, as ``jax.grad`` through
+``astype`` gives; every float of the batch is cast to bf16, the noise is
+drawn at the latents' bf16 dtype and the times stay f32, so the
+denoiser's activations are promoted to f32 against its bf16 weights while
+the codec and the conditioning encoders run in bf16. The master
+parameters, Adam's state, the EMA and the checkpoints stay f32; the loss
+and every metric are returned in f32.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from naturalspeech2_tpu_torch.data import SoundDataset, data_loader, write_wav
@@ -127,8 +139,6 @@ class Trainer:
         were after a step whose gradients are not finite (reported as
         ``skipped``); ``val_batches`` / ``val_fraction`` add a held-out
         loss every ``validate_every`` steps."""
-        if amp:
-            raise _not_ported("amp=True", "item 24, AMP training")
         if mesh is not None or param_sharding is not None:
             raise _not_ported("mesh / param_sharding", "item 21, parallel/")
         if checkpoint_backend == "orbax":
@@ -157,6 +167,7 @@ class Trainer:
         self.results_folder = Path(results_folder)
         self.results_folder.mkdir(parents=True, exist_ok=True)
         self.remat = remat
+        self.amp = amp
         self.sample_length = sample_length
         self.seed = seed
         self.skip_nonfinite_updates = skip_nonfinite_updates
@@ -209,6 +220,8 @@ class Trainer:
             n = audio.shape[1]
         times = torch.rand(b, generator=generator, device=self.device)
         noise = torch.randn((b, n, self.ns2.dim), generator=generator, device=self.device)
+        if self.amp:  # JAX draws the noise at the latents' dtype
+            noise = noise.to(torch.bfloat16)
         return times, noise
 
     def draw_cond_drop(self, b: int, generator: Optional[torch.Generator] = None):
@@ -232,22 +245,37 @@ class Trainer:
 
     def _tensors(self, batch) -> dict:
         """A batch (an array, or a dict of arrays) as a dict of tensors on
-        the device, floats in f32."""
+        the device, floats in f32 (bf16 under ``amp``)."""
         if not isinstance(batch, dict):
             batch = {"audio": batch}
+        float_dtype = torch.bfloat16 if self.amp else torch.float32
         out = {}
         for k, v in batch.items():
             v = torch.as_tensor(np.asarray(v))
-            out[k] = (v.to(torch.float32) if v.is_floating_point() else v).to(self.device)
+            if v.is_floating_point():
+                v = v.to(torch.float32).to(float_dtype)
+            out[k] = v.to(self.device)
         return out
 
-    def _losses(self, audio, extra: dict, draws: dict) -> dict:
+    def losses(self, audio, extra: dict, draws: dict) -> dict:
+        """The loss's components on one micro-batch (``audio`` and the loss's
+        other arguments on the device, ``draws`` as ``_draws`` makes them),
+        differentiable towards the f32 parameters; under ``amp`` computed
+        on their bf16 copies, as the JAX trainer's `_loss_fn`. Every value
+        is f32."""
+        cast = {}
+        if self.amp:
+            cast = {name: p.to(torch.bfloat16) for name, p in self.params.items()
+                    if p.dtype == torch.float32}
+
         def forward(a):
-            return self.ns2(a, **extra, **draws)
+            return functional_call(self.ns2, cast, (a,), {**extra, **draws})
 
         if self.remat:  # recompute the forward in the backward pass
-            return checkpoint(forward, audio, use_reentrant=False)
-        return forward(audio)
+            losses = checkpoint(forward, audio, use_reentrant=False)
+        else:
+            losses = forward(audio)
+        return {k: v.float() for k, v in losses.items()}
 
     def _update_count(self) -> int:
         """Optimizer updates applied so far (the optax schedule's count)."""
@@ -267,7 +295,7 @@ class Trainer:
             micro = {k: v[i * self.train_batch_size:(i + 1) * self.train_batch_size]
                      for k, v in tensors.items()}
             audio = micro.pop("audio")
-            losses = self._losses(audio, micro, self._draws(audio))
+            losses = self.losses(audio, micro, self._draws(audio))
             losses["loss"].backward()
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
@@ -323,7 +351,7 @@ class Trainer:
         devices = [self.device] if self.device.type == "cuda" else []
         with torch.no_grad(), torch.random.fork_rng(devices=devices):
             torch.manual_seed(self.seed + 1234)
-            losses = self.ns2(audio, **tensors, **self._draws(audio, generator))
+            losses = self.losses(audio, tensors, self._draws(audio, generator))
         return {f"val_{k}": float(v) for k, v in losses.items()}
 
     # ------------------------------------------------------------------ #

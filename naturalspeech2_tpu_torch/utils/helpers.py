@@ -1,7 +1,8 @@
 """Mask and length helpers of the conditioning stack, the CFG drop mask
 and the duration average of training, and math helpers of the samplers
-(twins of `naturalspeech2_tpu/utils/helpers.py:42-149`), and the
-recomputing vjp the kernels' backward passes share."""
+(twins of `naturalspeech2_tpu/utils/helpers.py:42-149`), the recomputing
+vjp the kernels' backward passes share, and the promotion of mixed
+operands that AMP training meets."""
 
 from __future__ import annotations
 
@@ -55,12 +56,15 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def refuse_bf16_backward(name: str, cotangent: torch.Tensor) -> None:
-    """Raise for a kernel's backward in bf16: the bf16 backward belongs to
-    AMP training, which is not ported yet."""
-    if cotangent.dtype == torch.bfloat16:
-        raise NotImplementedError(f"the backward of {name} in bfloat16 is not ported yet "
-                                  "(ROADMAP Queue 1, item 24, AMP training)")
+def promoted(*tensors):
+    """The tensors (None passes through) at their promoted float dtype, as
+    JAX promotes mixed operands of a product: f32 activations against the
+    bf16 weight copies of AMP training run in f32 on the weights' values."""
+    dtypes = [t.dtype for t in tensors if t is not None]
+    dtype = dtypes[0]
+    for other in dtypes[1:]:
+        dtype = torch.promote_types(dtype, other)
+    return tuple(None if t is None else t.to(dtype) for t in tensors)
 
 
 def vjp(fn, primals, needs_grad, cotangent: torch.Tensor) -> tuple:

@@ -153,10 +153,20 @@ def test_flash_forward_bf16_matches_jax(n_q, n_kv, causal, masked):
     np.testing.assert_allclose(actual_lse.numpy(), np.asarray(lse)[:, :, :n_q, 0], atol=1e-5)
 
 
-def test_bf16_refusals():
-    """Dropout and the backward in bf16 belong to AMP training."""
-    q = torch.zeros(1, 1, 8, 8, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 24"):
-        flash_attention.flash_forward(q, q, q, scale=1.0, dropout_rate=0.1, seed=(1, 2))
-    with pytest.raises(NotImplementedError, match="item 24"):
-        flash_attention.flash_backward(q, q, q, None, None, q[..., 0].float(), q, q, scale=1.0)
+def test_bf16_dropout_and_backward_run():
+    """Dropout and the backward in bf16 (AMP training): the forward keeps
+    the f32 kernel's elements (its keep mask), the backward returns bf16
+    gradients. tests/test_torch_amp.py holds both against JAX."""
+    q = torch.from_numpy(normal(np.random.default_rng(6), 1, 2, 8, 8)).to(torch.bfloat16)
+    seed = (1, 2)
+    o, lse = flash_attention.flash_forward(q, q, q, scale=1.0, dropout_rate=0.5, seed=seed)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _, lse_plain = flash_attention.flash_forward(q, q, q, scale=1.0)
+    assert torch.equal(lse, lse_plain)  # the normaliser ignores dropout
+    keep = flash_attention.dropout_keep_scaled(seed, 1, 2, 8, 8, 0.5)
+    p = torch.exp(torch.einsum("bhid,bhjd->bhij", q.float(), q.float()) - lse[..., None])
+    want = torch.einsum("bhij,bhjd->bhid", (p * keep).to(torch.bfloat16).float(), q.float())
+    _hold(o, want.numpy())
+    grads = flash_attention.flash_backward(q, q, q, None, seed, lse, o, q, scale=1.0,
+                                           dropout_rate=0.5)
+    assert all(g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all() for g in grads)

@@ -235,12 +235,31 @@ def test_evaluate_uses_fixed_draws(params, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(amp=True), dict(mesh=object()), dict(param_sharding="fsdp"),
+    dict(mesh=object()), dict(param_sharding="fsdp"),
     dict(checkpoint_backend="orbax"), dict(steps_per_dispatch=2),
 ])
 def test_options_outside_the_slice_raise(params, tmp_path, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(_port(params), batches=iter([]), results_folder=str(tmp_path), **kwargs)
+
+
+def test_amp_trainer_builds_and_keeps_f32_state(params, tmp_path):
+    """`Trainer(amp=True)` builds and steps: the master parameters, Adam's
+    moments, the EMA and the checkpoint stay f32 (tests/test_torch_amp.py
+    holds its losses and gradients against JAX)."""
+    trainer = Trainer(_port(params), batches=iter([]), train_batch_size=2, amp=True,
+                      ema_update_every=1, results_folder=str(tmp_path))
+    assert trainer.amp
+    metrics = trainer.train_step(np.tanh(normal(np.random.default_rng(7), 2, 640)))
+    assert np.isfinite(metrics["loss"])
+    named = dict(trainer.ns2.named_parameters())
+    assert all(p.dtype == torch.float32 for p in named.values())
+    assert all(e.dtype == torch.float32 for e in trainer.ema.values())
+    state = trainer.optimizer.state[named["model.to_time_hidden.weight"]]
+    assert state["exp_avg"].dtype == torch.float32
+    payload = torch.load(trainer.save(1), weights_only=True)
+    assert all(v.dtype == torch.float32 for v in payload["params"].values()
+               if v.is_floating_point())
 
 
 def test_conditional_batches_and_profiling_raise(params, tmp_path):
