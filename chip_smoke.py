@@ -170,6 +170,36 @@ Phases (each prints its lines; any failure raises and exits non-zero):
  30. one AMP loss and its f32 master gradients card against CPU, the
      flagship at b2 x 0.4 s and README config 2 at b2, held to
      AMP_LOSS_RTOL / AMP_GRAD_RTOL or to the card's own bf16 noise floor.
+ 31. K1b's `bf16_matmul` option (every product on bf16 operands, f32
+     accumulation; `ns2_wavenet_lanes_bf16mm`) against its plain version
+     at [16, 1024, 512] and [1, 9000, 128], 4 x 8: within BF16_TOL of the
+     largest entry, correlated at least BF16MM_CORR, the f32 K1b's
+     difference from it printed, exact launches, its time beside the f32
+     K1b's and the plain version's with the bound at the bf16 peak; then
+     the d-512 probe's 20-body chains
+     (naturalspeech2_tpu_torch/examples/wavenet_d512_probe.py) with exact
+     launch counts;
+ 32. few-step sampling of the flagship at b4 x n1024 from one starting
+     noise: DDIM at 1000 steps as the reference trajectory, DDIM and
+     DPM++ at 8, 16, 25 and 50 steps (latent MSE against it, ms per
+     step, exact launches; DPM++ below DDIM at 8 and 16 steps);
+     `sample()` with DDPM at 50 steps from step noise and DPM++ at 25,
+     each with codec decode; a self-conditioned flagship with DPM++ at
+     25; DPM++, DDPM and the self-conditioned DPM++ at 3 steps x 50
+     frames card against CPU within PATH_TOL (run after phase 5);
+ 33. README config 2 served by DPM++ at 25 steps (a config with
+     `ns2.sampler = "dpmpp"` through `cli.build_engine`) beside phase
+     20's DDIM engine at 100, 20 sequential requests each in turns:
+     p50 / p95, the ratio of the p50s, every request's launches exact
+     (run after phase 26);
+ 34. the self-conditioned flagship `Trainer` at b16 x 2 s for 3 steps
+     (finite losses, `to_self_cond` moved, exact launches per step),
+     then `ProgressiveDistiller.distill_round` at b4 x n1024, 8 student
+     steps, 3 updates (exact launches, ms per update);
+ 35. card against CPU within GRAD_RTOL: the self-conditioned loss and its
+     gradients (injected times, noise and bootstrap rows, one row
+     bootstrapped and one not) and the distillation loss and the
+     student's gradients (injected grid index and noise).
 K2, K2b and K3 are held to BLOCK_TOL (split TF32 on the tensor cores
 against f32 plain versions) at every shape they run: b4 x n1024 x dim 128,
 the conditional [8, 512, 128], the long-form n4500 and n9000 and the
@@ -180,7 +210,8 @@ time, plain time, bound and launches, by path: "serve" counts phase 20's
 50 sequential requests, "train_amp" and "conditional_train_amp" phases 28
 and 29's ten AMP steps; a row per dtype, "mixed" for f32 activations
 against bf16 weights, the bf16 and mixed rows with their f32 kernel's
-time at the same shape); the last line is
+time at the same shape, and a "bf16_matmul" row for K1b's option, whose
+launches are the probe's); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
 
@@ -434,6 +465,31 @@ PEAK_F32_FLOPS, THREEFRY_OPS = 67e12, 75
 AMP_FUSED_FRAMES = 160
 AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_GRAD_CORR = 2e-2, 5e-2, 0.99
 AMP_FLOOR_DRAWS, AMP_FLOOR_FACTOR = 5, 6.0
+
+# Few-step sampling (phases 31-35). Phase 31: K1b's `bf16_matmul` option at
+# the JAX probe's shape (b16 x n1024 x d512, 4 x 8; examples/
+# wavenet_d512_probe.py) and the long-form lanes shape, held to BF16_TOL of
+# the plain version's largest entry (bf16 operands, f32 sums in another
+# order, so a product may round its operand to the other bf16 neighbour)
+# and a correlation of at least BF16MM_CORR.
+BF16MM_SHAPES, BF16MM_CORR = ((16, 1024, 512), (1, 9000, 128)), 0.999
+# Phase 32: the flagship's latents from one starting noise by DDIM and
+# DPM++ at FEW_STEPS against DDIM at FEW_REF_STEPS (the reference
+# trajectory); `sample()` with DDPM at DDPM_STEPS and DPM++ at DPMPP_STEPS;
+# DPM++ and DDPM at FEW_CHECK_STEPS x FEW_CHECK_FRAMES card against CPU
+# within PATH_TOL.
+FEW_STEPS, FEW_REF_STEPS, DDPM_STEPS, DPMPP_STEPS = (8, 16, 25, 50), 1000, 50, 25
+FEW_CHECK_STEPS, FEW_CHECK_FRAMES = 3, 50
+# Phase 33: README config 2 served by DPM++ at FEW_SERVE_STEPS beside DDIM at
+# STEPS, FEW_SERVE_REQUESTS sequential requests each, in turns.
+FEW_SERVE_STEPS, FEW_SERVE_REQUESTS = 25, 20
+# Phase 34: the self-conditioned flagship Trainer for SC_TRAIN_STEPS steps
+# at b16 x 2 s; progressive distillation at b DISTILL_BATCH x n LENGTH,
+# DISTILL_STUDENT_STEPS student steps, DISTILL_UPDATES updates. Phase 35
+# holds the distillation loss card against CPU at DISTILL_CHECK_FRAMES
+# frames (on every block's gate).
+SC_TRAIN_STEPS = 3
+DISTILL_BATCH, DISTILL_STUDENT_STEPS, DISTILL_UPDATES, DISTILL_CHECK_FRAMES = 4, 8, 3, 64
 
 
 def log(phase: str, msg: str) -> None:
@@ -1043,25 +1099,11 @@ def phase8_loss_card_vs_cpu(ns2, ns2_cpu) -> None:
         model.zero_grad(set_to_none=True)
         losses = model(audio.to(device), times=times.to(device), noise=noise.to(device))
         losses["loss"].backward()
-        results.append((losses["loss"].detach().cpu(),
+        results.append((losses["loss"].item(),
                         {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}))
-    (loss_card, grads_card), (loss_cpu, grads_cpu) = results
-    rel = abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item())
-    log("8", f"loss b2 x 0.4 s: card {loss_card.item():.7f}, CPU {loss_cpu.item():.7f}, "
-             f"rel err {rel:.3e} (tolerance {GRAD_RTOL:g})")
-    if rel > GRAD_RTOL:
-        raise AssertionError(f"loss card vs CPU rel err {rel:.3e}")
-    if set(grads_card) != set(grads_cpu) or not any(n.startswith("model.") for n in grads_cpu):
-        raise AssertionError("card and CPU differ in which parameters have gradients")
-    worst, worst_name = 0.0, ""
-    for name, g_cpu in grads_cpu.items():
-        err = ((grads_card[name] - g_cpu).abs().max() / g_cpu.abs().max().clamp(min=1e-30)).item()
-        if not math.isfinite(err) or err > worst:
-            worst, worst_name = err, name
-    log("8", f"{len(grads_cpu)} parameter gradients, card vs CPU: max err relative to each "
-             f"tensor's largest entry {worst:.3e} at {worst_name} (tolerance {GRAD_RTOL:g})")
-    if not worst <= GRAD_RTOL:
-        raise AssertionError(f"gradient card vs CPU: {worst:.3e} at {worst_name}")
+    if not any(n.startswith("model.") for n in results[1][1]):
+        raise AssertionError("the denoiser has no gradients")
+    _grads_card_vs_cpu("8", "loss b2 x 0.4 s", results)
 
 
 def cross_inputs(gen, b, n, m, d, dc, heads=HEADS, dim_head=DIM_HEAD) -> tuple:
@@ -3519,6 +3561,423 @@ def phase30_amp_card_vs_cpu() -> None:
                                                    ("audio", "prompt", "mel", "pitch")))
 
 
+# ---------------------------------------------------------------------------
+# Few-step sampling, self-conditioning, distillation and K1b's bf16_matmul
+# (phases 31-35)
+# ---------------------------------------------------------------------------
+
+
+def phase31_bf16_matmul() -> dict:
+    """K1b with ``bf16_matmul`` against its plain version at
+    BF16MM_SHAPES: within BF16_TOL of the plain output's largest entry and
+    correlated at least BF16MM_CORR, the f32 K1b's difference from it
+    printed (the rounding is real), each call's launches exact, its time
+    beside the f32 K1b's and the plain version's with its bound at the
+    dense bf16 peak; then the probe's 20-body chain at b16 x n1024 x d512
+    with exact launch counts. Returns the kernels line's entry."""
+    import torch
+
+    from naturalspeech2_tpu_torch import ops
+    from naturalspeech2_tpu_torch.examples import wavenet_d512_probe as probe
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 310)
+    entry = {"name": "wavenet_body_lanes", "dtype": "bf16_matmul", "route": "cuda",
+             "source": "naturalspeech2_tpu_torch/csrc/wavenet_lane.cu",
+             "replaces": "naturalspeech2_tpu/ops/wavenet_kernel.py:167",
+             "option": "bf16_matmul (wavenet_kernel.py:172, :208-217)", "library_ms": None,
+             "max_abs_err": 0.0, "by_shape": {}}
+    only_bf16mm = dict.fromkeys(PER_DENOISE, 0)
+    for b, n, d in BF16MM_SHAPES:
+        label = f"[{b},{n},{d}]"
+        wn, _ = wavenet_inputs(gen, b, n, d)
+        flops = 2 * b * n * (4 * d * d * WAVENET_STACKS * WAVENET_LAYERS + d * d * WAVENET_LAYERS)
+        work = bound_bf16(flops, nbytes(*wn) + b * n * d * 4)
+        kernel = lambda: wk.wavenet_body_lanes(*wn, bf16_matmul=True)  # noqa: E731
+        plain = lambda: wk.wavenet_body_lanes_bf16mm_torch(*wn)  # noqa: E731
+        f32_kernel = lambda: wk.wavenet_body_lanes(*wn)  # noqa: E731
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            out = kernel()
+            torch.cuda.synchronize()
+            check_counts("31", f"one bf16_matmul call at {label} (K1b's bf16mm entry point)",
+                         {"f32": ops.launch_counts(), "bf16_matmul":
+                          ops.launch_counts("bf16_matmul")},
+                         {"f32": only_bf16mm, "bf16_matmul": {**only_bf16mm,
+                                                              "wavenet_body_lanes": 1}})
+            if out.dtype != torch.float32:
+                raise AssertionError(f"bf16_matmul {label}: output {out.dtype}, expected float32")
+            ref = plain()
+            err = compare("31", f"wavenet_body_lanes bf16_matmul {label}", out, ref, BF16_TOL,
+                          relative=True)
+            corr = _correlation(out, ref)
+            f32_diff = ((f32_kernel() - ref).abs().max() / ref.abs().max()).item()
+            log("31", f"{label}: correlation with the plain version {corr:.7f} (at least "
+                      f"{BF16MM_CORR}); the f32 K1b differs from the plain bf16_matmul version by "
+                      f"{f32_diff:.3e} of its largest entry (the bf16 rounding), the kernel by "
+                      f"{err / ref.abs().max().item():.3e}")
+            if corr < BF16MM_CORR:
+                raise AssertionError(f"bf16_matmul {label}: correlation {corr:.7f}")
+            del out, ref
+            reps = 10 if b * n * d > 2**24 else 20
+            ms, f32_ms, plain_ms = (cuda_ms(f, reps=reps) for f in (kernel, f32_kernel, plain))
+        log("31", f"wavenet_body_lanes bf16_matmul {label}: kernel {ms:.4f} ms, f32 K1b "
+                  f"{f32_ms:.4f} ms, plain {plain_ms:.4f} ms (median of {reps}), bound "
+                  f"{work['bound_ms']:.4f} ms ({work['bound_by']})")
+        timing = {"max_abs_err": err, "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms,
+                  "correlation": corr, "f32_rel_diff": f32_diff, **work}
+        entry["by_shape"][label] = timing
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if (b, n, d) == BF16MM_SHAPES[0]:
+            entry.update({k: timing[k] for k in ("ms", "f32_ms", "plain_ms", "bound_ms",
+                                                 "bound_by")})
+        del wn
+
+    ops.reset_launch_counts()
+    result = probe.run("cuda")
+    counts = ops.launch_counts("bf16_matmul")["wavenet_body_lanes"]
+    f32_counts = ops.launch_counts()["wavenet_body_lanes"]
+    # each bench: one untimed chain and three timed ones of ITERS bodies;
+    # then one bf16_matmul body for the difference
+    expect = (4 * probe.ITERS + 1, 4 * probe.ITERS)
+    log("31", f"probe (b{probe.B} x n{probe.N} x d{probe.D}, {probe.S} x {probe.L}, "
+              f"{probe.ITERS}-body chains): plain {result['plain_ms']:.3f} ms, bf16_matmul "
+              f"{result['bf16_matmul_ms']:.3f} ms, f32 K1b {result['f32_ms']:.3f} ms per body; "
+              f"bf16_matmul vs plain body max rel diff {result['max_rel_diff']:.3e}; launches "
+              f"bf16_matmul {counts}, f32 K1b {f32_counts}, expected {expect}")
+    if (counts, f32_counts) != expect:
+        raise AssertionError(f"probe launches {(counts, f32_counts)} != {expect}")
+    if not result["max_rel_diff"] <= BF16_TOL:
+        raise AssertionError(f"probe: bf16_matmul vs plain {result['max_rel_diff']:.3e}")
+    entry["by_shape"]["probe chain [16,1024,512]"] = {
+        k: result[k] for k in ("plain_ms", "bf16_matmul_ms", "f32_ms", "max_rel_diff")}
+    entry["launches"] = counts
+    entry["launches_by_path"] = {"wavenet_d512_probe": counts}
+    return entry
+
+
+def few_step_counts(steps: int) -> dict:
+    """Launches of ``steps`` flagship denoise steps (K1, 6 x K2, 6 x K3)."""
+    return denoise_counts(PER_DENOISE, steps)
+
+
+def phase32_few_step(ns2, ns2_cpu) -> dict:
+    """Few-step sampling of the flagship at b4 x n1024 from one starting
+    noise: DDIM at FEW_REF_STEPS is the reference trajectory; DDIM and DPM++
+    at FEW_STEPS, each with its latent MSE against it, ms per step and
+    exact launch counts (DPM++ below DDIM at 8 and 16 steps); `sample()`
+    with DDPM at DDPM_STEPS from step noise and with DPM++ at DPMPP_STEPS,
+    each with codec decode; a self-conditioned flagship (`to_self_cond`
+    jittered off zero) with DPM++ at DPMPP_STEPS; DPM++ and DDPM (and the
+    self-conditioned DPM++) at FEW_CHECK_STEPS x FEW_CHECK_FRAMES card
+    against CPU within PATH_TOL. Returns the launches of its runs."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+    from naturalspeech2_tpu_torch.models.naturalspeech2 import _eval_mode
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 320)
+    shape = (BATCH, LENGTH, DIM)
+    noise = torch.randn(shape, generator=gen, device="cuda")
+    cfg = dict(gamma_schedule=ns2.gamma_schedule, objective=ns2.objective, noise=noise)
+    total = dict.fromkeys(PER_DENOISE, 0)
+
+    def run(fn, steps):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with _eval_mode(ns2):
+            out = fn(ns2.model, shape, timesteps=steps, **cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = ops.launch_counts()
+        check_counts("32", f"{fn.__name__} {steps} steps", counts, few_step_counts(steps))
+        for k, v in counts.items():
+            total[k] += v
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{fn.__name__} {steps} steps: non-finite latents")
+        return out, wall
+
+    ref, wall = run(ns2pkg.ddim_sample, FEW_REF_STEPS)
+    log("32", f"reference: DDIM {FEW_REF_STEPS} steps at b{BATCH} x n{LENGTH}, wall {wall:.3f} s "
+              f"({wall / FEW_REF_STEPS * 1e3:.3f} ms per step, host clock, synchronised)")
+    mse = {}
+    for steps in FEW_STEPS:
+        for fn in (ns2pkg.ddim_sample, ns2pkg.dpmpp_sample):
+            out, wall = run(fn, steps)
+            mse[(fn.__name__, steps)] = ((out - ref) ** 2).mean().item()
+            log("32", f"{fn.__name__} {steps} steps: latent MSE against DDIM at {FEW_REF_STEPS} "
+                      f"{mse[(fn.__name__, steps)]:.4e}, {wall / steps * 1e3:.3f} ms per step "
+                      f"(wall {wall:.3f} s)")
+    for steps in (8, 16):
+        if not mse[("dpmpp_sample", steps)] < mse[("ddim_sample", steps)]:
+            raise AssertionError(f"DPM++ at {steps} steps is not closer to the reference than "
+                                 f"DDIM: {mse[('dpmpp_sample', steps)]:.4e} vs "
+                                 f"{mse[('ddim_sample', steps)]:.4e}")
+
+    def sampler_copy(model, name):
+        clone = copy.copy(model)
+        clone.sampler = name
+        return clone
+
+    step_noise = torch.randn((DDPM_STEPS, *shape), generator=gen, device="cuda")
+    sc_cpu = flagship(SEED + 321, self_cond=True)
+    if not sc_cpu.model.to_self_cond.weight.any():
+        raise AssertionError("to_self_cond is still zero")
+    sc = copy.deepcopy(sc_cpu).cuda()
+    runs = (("DDPM", sampler_copy(ns2, "ddpm"), DDPM_STEPS, {"step_noise": step_noise}),
+            ("DPM++", sampler_copy(ns2, "dpmpp"), DPMPP_STEPS, {}),
+            ("self-conditioned DPM++", sampler_copy(sc, "dpmpp"), DPMPP_STEPS, {}))
+    for label, model, steps, extra in runs:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        audio = ns2pkg.sample(model, batch_size=BATCH, length=LENGTH, timesteps=steps,
+                              noise=noise, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = ops.launch_counts()
+        check_counts("32", f"sample() {label} {steps} steps", counts, few_step_counts(steps))
+        for k, v in counts.items():
+            total[k] += v
+        if tuple(audio.shape) != (BATCH, LENGTH * 320) or not torch.isfinite(audio).all():
+            raise AssertionError(f"sample() {label}: waveform {tuple(audio.shape)}")
+        log("32", f"sample() {label} {steps} steps: waveform {tuple(audio.shape)} finite, |audio| "
+                  f"max {audio.abs().max().item():.4f}, wall {wall:.3f} s incl. codec decode")
+        del audio
+
+    g = torch.Generator().manual_seed(SEED + 322)
+    small = (2, FEW_CHECK_FRAMES, DIM)
+    start_noise = torch.randn(small, generator=g)
+    small_steps = torch.randn((FEW_CHECK_STEPS, *small), generator=g)
+    for label, card, host, name in (("DPM++", ns2, ns2_cpu, "dpmpp"),
+                                    ("DDPM", ns2, ns2_cpu, "ddpm"),
+                                    ("self-conditioned DPM++", sc, sc_cpu, "dpmpp")):
+        outs = []
+        for model, device in ((card, "cuda"), (host, "cpu")):
+            extra = {"step_noise": small_steps.to(device)} if name == "ddpm" else {}
+            outs.append(ns2pkg.sample(sampler_copy(model, name), batch_size=2,
+                                      length=FEW_CHECK_FRAMES, timesteps=FEW_CHECK_STEPS,
+                                      noise=start_noise.to(device), **extra))
+        compare("32", f"{label} {FEW_CHECK_STEPS} steps x {FEW_CHECK_FRAMES} frames, card vs CPU",
+                *outs, PATH_TOL)
+    del sc, sc_cpu
+    return total
+
+
+def cond_sample_counts(steps: int) -> dict:
+    """Launches of one conditional sample of ``steps`` guided steps (as
+    PER_COND_SAMPLE for STEPS)."""
+    return {**{k: steps * v // STEPS for k, v in PER_COND_SAMPLE.items()},
+            "flash_forward": PROMPT_DEPTH + RESAMPLER_DEPTH * steps, "rvq": 1}
+
+
+def phase33_few_step_serving(engine, config: str, checkpoint: str, work: Path) -> dict:
+    """README config 2 served by DPM++ at FEW_SERVE_STEPS (a config with
+    ``ns2.sampler = "dpmpp"`` through `cli.build_engine`) beside phase 20's
+    DDIM engine at STEPS, in turns (DDIM, DPM++, DPM++, DDIM), each
+    FEW_SERVE_REQUESTS sequential requests in all, every request's launches
+    exact; p50 / p95 and the ratio of the p50s. Returns the DPM++
+    requests' launch counts."""
+    import numpy as np
+
+    from naturalspeech2_tpu_torch import cli, ops
+
+    cfg = json.loads(Path(config).read_text())
+    cfg["ns2"]["sampler"] = "dpmpp"
+    dpm_config = work / "serve_dpmpp.json"
+    dpm_config.write_text(json.dumps(cfg))
+    dpm = cli.build_engine(str(dpm_config), checkpoint, timesteps=FEW_SERVE_STEPS,
+                           cond_scale=SERVE_COND_SCALE, device="cuda",
+                           prompt_samples=PROMPT_SAMPLES)
+    if dpm.ns2.sampler_name != "dpmpp" or engine.ns2.sampler_name != "ddim":
+        raise AssertionError(f"samplers {dpm.ns2.sampler_name}, {engine.ns2.sampler_name}")
+    dpm.warmup([SERVE_BUCKET])
+    prompt = _serving_prompt()
+    samples = engine._prepare(SERVE_SENTENCE, prompt, SERVE_SECONDS, 0).frames * 320
+    engines = {"ddim": (engine, STEPS), "dpmpp": (dpm, FEW_SERVE_STEPS)}
+    walls = {k: [] for k in engines}
+    totals = {k: dict.fromkeys(PER_COND_SAMPLE, 0) for k in engines}
+    for name in ("ddim", "dpmpp", "dpmpp", "ddim"):
+        eng, steps = engines[name]
+        expect = cond_sample_counts(steps)
+        for i in range(FEW_SERVE_REQUESTS // 2):
+            ops.reset_launch_counts()
+            start = time.perf_counter()
+            wav, _ = eng.tts(SERVE_SENTENCE, prompt, seconds=SERVE_SECONDS, seed=i)
+            walls[name].append(time.perf_counter() - start)
+            _check_wave(f"{name} request {i}", wav, samples)
+            counts = ops.launch_counts()
+            if i == 0 or counts != expect:
+                check_counts("33", f"{name} request at {steps} steps", counts, expect)
+            for k, v in counts.items():
+                totals[name][k] += v
+    p50 = {k: float(np.percentile(np.asarray(w) * 1e3, 50)) for k, w in walls.items()}
+    for name, (_, steps) in engines.items():
+        log("33", f"{name} at {steps} steps, {len(walls[name])} sequential requests in two turns: "
+                  f"{_percentiles(walls[name])}")
+    log("33", f"served p50 DPM++ at {FEW_SERVE_STEPS} steps / DDIM at {STEPS} steps: "
+              f"{p50['dpmpp'] / p50['ddim']:.3f} ({p50['dpmpp']:.1f} / {p50['ddim']:.1f} ms)")
+    del dpm
+    return totals["dpmpp"]
+
+
+def phase34_self_cond_train_and_distill(work: Path) -> dict:
+    """The self-conditioned flagship `Trainer` (b16 x 2 s, synthetic WAVs)
+    for SC_TRAIN_STEPS steps: finite losses, `to_self_cond` moved, exact
+    launches per step (the bootstrap forward adds K1 and the unfused
+    attentions' K4); then `ProgressiveDistiller.distill_round` at
+    b DISTILL_BATCH x n LENGTH, DISTILL_STUDENT_STEPS student steps,
+    DISTILL_UPDATES updates, with exact launch counts, and ms per update.
+    Returns the launch counts by path."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+
+    folder = work / "sc_wavs"
+    folder.mkdir(exist_ok=True)
+    _write_wavs(folder)
+    ns2 = flagship(SEED + 340, self_cond=True).cuda()
+    trainer = ns2pkg.Trainer(ns2, folder=str(folder), train_batch_size=TRAIN_BATCH,
+                             data_max_length_seconds=TRAIN_SECONDS, train_num_steps=SC_TRAIN_STEPS,
+                             save_and_sample_every=10**9, results_folder=str(work / "sc_results"))
+    before = ns2.model.to_self_cond.weight.detach().clone()
+    per_step = {**dict.fromkeys(PER_STEP, 0), "wavenet_body": 2, "flash_forward": 2 * DEPTH,
+                "flash_backward": DEPTH, "rvq": 1}
+    sc_counts = dict.fromkeys(PER_STEP, 0)
+    for step in range(SC_TRAIN_STEPS):
+        batch = next(trainer.batches)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        wall = time.perf_counter() - start
+        counts = ops.launch_counts()
+        check_counts("34", f"self-conditioned step {step + 1}", counts, per_step)
+        for k, v in counts.items():
+            sc_counts[k] += v
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"self-conditioned step {step + 1}: {metrics}")
+        log("34", f"self-conditioned Trainer step {step + 1} (b{TRAIN_BATCH} x "
+                  f"{TRAIN_SECONDS:g} s): loss {metrics['loss']:.4f}, {wall * 1e3:.1f} ms")
+    moved = (ns2.model.to_self_cond.weight - before).abs().max().item()
+    if moved == 0.0:
+        raise AssertionError("to_self_cond did not move")
+    log("34", f"to_self_cond moved by up to {moved:.3e}")
+    del trainer, ns2
+    torch.cuda.empty_cache()
+
+    teacher = flagship(SEED + 341, codec=False).cuda()
+    distiller = ns2pkg.ProgressiveDistiller(teacher, lr=1e-4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 342)
+    batches = iter([torch.randn(DISTILL_BATCH, LENGTH, DIM, generator=gen, device="cuda")
+                    for _ in range(2 * DISTILL_UPDATES)])
+    per_update = {**dict.fromkeys(PER_STEP, 0), "wavenet_body": 3, "attn_block": 3 * DEPTH,
+                  "ff_block": 3 * DEPTH, "flash_forward": DEPTH, "flash_backward": DEPTH}
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    student = distiller.distill_round(batches, num_student_steps=DISTILL_STUDENT_STEPS,
+                                      n_updates=DISTILL_UPDATES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    check_counts("34", f"distill_round, {DISTILL_UPDATES} updates (per update: the teacher's two "
+                       "forwards and the student's, K2's backward on K4 and K5)",
+                 ops.launch_counts(), {k: DISTILL_UPDATES * v for k, v in per_update.items()})
+    if not math.isfinite(distiller.last_loss):
+        raise AssertionError(f"distillation loss {distiller.last_loss}")
+    distiller.teacher = teacher.model  # the timed updates go on against the first teacher
+    optimizer = torch.optim.Adam(student.parameters(), lr=1e-4)
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    for _ in range(DISTILL_UPDATES):
+        distiller.update(student, optimizer, next(batches),
+                         num_student_steps=DISTILL_STUDENT_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - begin) / DISTILL_UPDATES * 1e3
+    log("34", f"distill_round b{DISTILL_BATCH} x n{LENGTH}, {DISTILL_STUDENT_STEPS} student steps, "
+              f"{DISTILL_UPDATES} updates: last loss {distiller.last_loss:.5f}, wall {wall:.3f} s "
+              f"with the student's copy; then {update_ms:.3f} ms per update (mean of "
+              f"{DISTILL_UPDATES}, host clock, synchronised)")
+    return {"self_cond_train": sc_counts, "distill": ops.launch_counts()}
+
+
+def _grads_card_vs_cpu(phase: str, label: str, results) -> None:
+    """A loss and its gradients [(loss, {name: grad}) on the card, on the
+    CPU]: the loss within GRAD_RTOL relative, each gradient within
+    GRAD_RTOL of its largest entry."""
+    (loss_card, grads_card), (loss_cpu, grads_cpu) = results
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    log(phase, f"{label}: card {loss_card:.7f}, CPU {loss_cpu:.7f}, rel err {rel:.3e} "
+               f"(tolerance {GRAD_RTOL:g})")
+    if rel > GRAD_RTOL:
+        raise AssertionError(f"{label}: loss card vs CPU rel err {rel:.3e}")
+    if set(grads_card) != set(grads_cpu) or not grads_cpu:
+        raise AssertionError(f"{label}: card and CPU differ in which parameters have gradients")
+    worst, worst_name = 0.0, ""
+    for name, g_cpu in grads_cpu.items():
+        err = ((grads_card[name] - g_cpu).abs().max() / g_cpu.abs().max().clamp(min=1e-30)).item()
+        if not math.isfinite(err) or err > worst:
+            worst, worst_name = err, name
+    log(phase, f"{label}: {len(grads_cpu)} parameter gradients, card vs CPU: max err relative to "
+               f"each tensor's largest entry {worst:.3e} at {worst_name} (tolerance {GRAD_RTOL:g})")
+    if not worst <= GRAD_RTOL:
+        raise AssertionError(f"{label}: gradient card vs CPU {worst:.3e} at {worst_name}")
+
+
+def phase35_card_vs_cpu() -> None:
+    """Card against CPU within GRAD_RTOL: the self-conditioned flagship's loss
+    and gradients at b2 x 0.4 s with injected times, noise and bootstrap
+    rows (one row bootstrapped, one not); the distillation loss and the
+    student's gradients at b2 x n DISTILL_CHECK_FRAMES with injected grid
+    index and noise."""
+    import torch
+
+    from naturalspeech2_tpu_torch.distill import distillation_loss
+
+    g = torch.Generator().manual_seed(SEED + 350)
+    samples = int(0.4 * 24000)
+    audio = torch.tanh(torch.randn(2, samples, generator=g))
+    times = torch.rand(2, generator=g)
+    noise = torch.randn(2, samples // 320, DIM, generator=g)
+    mask = torch.tensor([True, False])
+    sc_cpu = flagship(SEED + 351, self_cond=True)
+    results = []
+    for model, device in ((copy.deepcopy(sc_cpu).cuda(), "cuda"), (sc_cpu, "cpu")):
+        losses = model(audio.to(device), times=times.to(device), noise=noise.to(device),
+                       self_cond_mask=mask.to(device))
+        losses["loss"].backward()
+        results.append((losses["loss"].item(), {n: p.grad.cpu() for n, p in
+                                                model.named_parameters() if p.grad is not None}))
+    if "model.to_self_cond.weight" not in results[1][1]:
+        raise AssertionError("to_self_cond has no gradient")
+    _grads_card_vs_cpu("35", "self-conditioned loss b2 x 0.4 s, rows [bootstrapped, not]",
+                       results)
+
+    student_ns2 = flagship(SEED + 352, codec=False)
+    student_cpu = student_ns2.model
+    teacher_cpu = flagship(SEED + 353, codec=False).model
+    x = torch.randn(2, DISTILL_CHECK_FRAMES, DIM, generator=g)
+    i = torch.tensor([1, DISTILL_STUDENT_STEPS])
+    dnoise = torch.randn(x.shape, generator=g)
+    results = []
+    for device in ("cuda", "cpu"):
+        student = copy.deepcopy(student_cpu).to(device)
+        teacher = copy.deepcopy(teacher_cpu).to(device)
+        loss = distillation_loss(student, teacher, x.to(device),
+                                 num_student_steps=DISTILL_STUDENT_STEPS,
+                                 gamma_schedule=student_ns2.gamma_schedule, i=i.to(device),
+                                 noise=dnoise.to(device))
+        loss.backward()
+        results.append((loss.item(), {n: p.grad.cpu() for n, p in student.named_parameters()
+                                      if p.grad is not None}))
+    _grads_card_vs_cpu("35", f"distillation loss b2 x n{DISTILL_CHECK_FRAMES}, i = "
+                             f"{i.tolist()} of {DISTILL_STUDENT_STEPS}", results)
+
+
+
 def profile_runs() -> int:
     """torch.profiler over 10 flagship denoise steps at b4 x n1024, over a
     10-step conditional sample of README config 2, over 10 guided denoise
@@ -3672,6 +4131,7 @@ def main() -> int:
     ns2 = copy.deepcopy(ns2_cpu).cuda()
     sample_counts = phase3_sample(ns2)
     phase4_5_card_vs_cpu(ns2, ns2_cpu)
+    few_counts = phase32_few_step(ns2, ns2_cpu)
     bf16_sample_counts = phase23_bf16_flagship(ns2, sample_counts)
     summary += phase6_training_kernels()
     with tempfile.TemporaryDirectory() as work:
@@ -3721,6 +4181,7 @@ def main() -> int:
         bf16_engine, (serve_bf16_f32, serve_bf16_bf16) = phase25_bf16_serving(
             engine, config, checkpoint, Path(work))
         phase26_bf16_card_vs_cpu(bf16_engine, engine, config, checkpoint)
+        serve_dpmpp_counts = phase33_few_step_serving(engine, config, checkpoint, Path(work))
     del engine, bf16_engine
     torch.cuda.empty_cache()
 
@@ -3733,6 +4194,12 @@ def main() -> int:
         amp_counts.update(phase29_cond_amp_train(Path(work)))
     torch.cuda.empty_cache()
     phase30_amp_card_vs_cpu()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        few_train_counts = phase34_self_cond_train_and_distill(Path(work))
+    torch.cuda.empty_cache()
+    phase35_card_vs_cpu()
+    bf16mm_entry = phase31_bf16_matmul()
 
     for entry in summary:
         name = entry["name"]
@@ -3743,7 +4210,9 @@ def main() -> int:
                    "scaled_sample": scaled_counts[name],
                    "conditional_train": cond_train_counts[name], "serve": serve_counts[name],
                    "serve_bf16": serve_bf16_f32[name],
-                   **{path: c["f32"][name] for path, c in amp_counts.items()}}
+                   **{path: c["f32"][name] for path, c in amp_counts.items()},
+                   "few_step_sample": few_counts[name], "serve_dpmpp": serve_dpmpp_counts[name],
+                   **{path: c[name] for path, c in few_train_counts.items()}}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3781,6 +4250,11 @@ def main() -> int:
         if missing:
             raise AssertionError(f"{entry['dtype']} {entry['name']}: summary lacks {missing}")
     summary += [e for e in amp_rows if e["dtype"] == "mixed"]
+    missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                           "plain_ms", "bound_ms", "bound_by", "library_ms") if k not in bf16mm_entry]
+    if missing or bf16mm_entry["launches"] == 0:
+        raise AssertionError(f"bf16_matmul entry: lacks {missing} or never launched")
+    summary.append(bf16mm_entry)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,17 @@ on CPU tensors each runs its plain PyTorch version.
 
 from naturalspeech2_tpu_torch.models.codec import SoundStream
 from naturalspeech2_tpu_torch.models.denoiser import Model
-from naturalspeech2_tpu_torch.models.naturalspeech2 import NaturalSpeech2, ddim_sample, sample
+from naturalspeech2_tpu_torch.distill import ProgressiveDistiller, distillation_loss
+from naturalspeech2_tpu_torch.models.naturalspeech2 import (
+    NaturalSpeech2,
+    ddim_sample,
+    ddpm_sample,
+    dpmpp_sample,
+    sample,
+)
 from naturalspeech2_tpu_torch.params import load_jax_params
 from naturalspeech2_tpu_torch.trainer import Trainer
 
-__all__ = ["Model", "NaturalSpeech2", "SoundStream", "Trainer", "sample", "ddim_sample",
+__all__ = ["Model", "NaturalSpeech2", "SoundStream", "Trainer", "ProgressiveDistiller",
+           "distillation_loss", "sample", "ddim_sample", "ddpm_sample", "dpmpp_sample",
            "load_jax_params"]

@@ -292,10 +292,8 @@ def cmd_info(args) -> int:
               for name, child in ns2.named_children()}
     counts = {name: n for name, n in counts.items() if n}
     total = sum(counts.values())
-    sampler = cfg["ns2"].get("sampler") or (
-        "ddim" if cfg["ns2"].get("use_ddim", True) else "ddpm")
     print(f"model: {type(ns2.model).__name__} dim={ns2.dim} "
-          f"conditional={ns2.conditional} sampler={sampler} "
+          f"conditional={ns2.conditional} sampler={ns2.sampler_name} "
           f"timesteps={ns2.timesteps}")
     print(f"codec: hop={hop} sample_hz={ns2.sample_hz} "
           f"({ns2.sample_hz / hop:.1f} latent frames/sec)")

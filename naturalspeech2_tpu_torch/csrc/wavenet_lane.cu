@@ -33,6 +33,20 @@
 // bf16 weights held as TF32; the skips accumulate in an f32 scratch, as the
 // JAX kernel's skip_scratch, and the last lane's launch rounds the sum to
 // bf16 as it writes the output.
+//
+// `bf16_matmul` (`ns2_wavenet_lanes_bf16mm`, wavenet_kernel.py:172 and
+// :208-217: the option `_fused_forward_per_lane(..., bf16_matmul=True)`
+// threads through, which examples/wavenet_d512_probe.py runs at d 512): f32
+// x, biases, FiLM and output, every product on bf16 operands with f32
+// accumulation. The same launches run the core's kBf16 mode: its A loader
+// reads the f32 lane (or x) through `TapRows` and rounds each value to bf16
+// (nearest even) as it stages the chunk, so the lane is rounded at every
+// product, the three conv taps and the residual alike, and the stack's
+// output before the skip product, where the JAX kernel casts `a` in `dot`;
+// B is the weights packed as bf16 (`pack_b(..., "bf16")`), one
+// `wgmma.m64n64k16` pass a k-step. The lane state, the gate and the skips'
+// sum stay f32. Bound: the products at the dense bf16 rate, 989 TFLOP/s
+// (H100 SXM, 700 W), where kSplit3's three TF32 passes run at 165.
 #include "gemm_tf32x3.cuh"
 
 namespace gemm = ns2::gemm;
@@ -43,10 +57,13 @@ namespace {
 // T: the type of x, the biases, FiLM and the output (f32, or bf16 with the
 // weights as TF32 in the kSplit2 mode); the lane state and the skips' sum
 // `acc` are f32 (for f32, acc may be the output itself).
+// M: the core's mode (kSplit3 for f32, kSplit2 for bf16 and mixed, kBf16 for
+// `bf16_matmul`); blocks and skip are packed in its B format (Fmt<M>::T).
 template <class T,
           gemm::Mode M = (sizeof(T) == 4 ? gemm::Mode::kSplit3 : gemm::Mode::kSplit2)>
-int wavenet_lanes(const T* x, const float* blocks, const T* conv_b, const T* res_b,
-                  const float* skip, const T* skip_b, const T* film, float* lane_a,
+int wavenet_lanes(const T* x, const typename gemm::Fmt<M>::T* blocks, const T* conv_b,
+                  const T* res_b, const typename gemm::Fmt<M>::T* skip, const T* skip_b,
+                  const T* film, float* lane_a,
                   float* lane_b, float* acc, T* out, int b, int n, int d, int S, int L,
                   void* stream) {
   constexpr int kB = gemm::Fmt<M>::kB;
@@ -126,4 +143,16 @@ NS2_API int ns2_wavenet_lanes_bf16(const bf16* x, const float* blocks, const bf1
                                    bf16* out, int b, int n, int d, int S, int L, void* stream) {
   return wavenet_lanes(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a, lane_b, acc, out, b,
                        n, d, S, L, stream);
+}
+
+// `bf16_matmul`: as ns2_wavenet_lanes with blocks and skip the weights
+// packed as bf16, every product on bf16 operands (the lanes rounded as the
+// core stages them) with f32 accumulation.
+NS2_API int ns2_wavenet_lanes_bf16mm(const float* x, const bf16* blocks, const float* conv_b,
+                                     const float* res_b, const bf16* skip, const float* skip_b,
+                                     const float* film, float* lane_a, float* lane_b, float* out,
+                                     int b, int n, int d, int S, int L, void* stream) {
+  return wavenet_lanes<float, gemm::Mode::kBf16>(x, blocks, conv_b, res_b, skip, skip_b, film,
+                                                 lane_a, lane_b, out, out, b, n, d, S, L,
+                                                 stream);
 }

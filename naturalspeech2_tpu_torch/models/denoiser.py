@@ -11,6 +11,11 @@ cross-attends to (kernel K2b). The frame-aligned text condition is
 projected to ``dim`` and added to the input. Classifier-free guidance
 replaces prompt and text by learned null parameters where the drop masks
 say so.
+
+With ``self_cond`` the previous x̂₀ estimate ``x_self_cond`` (zeros when
+None) enters through ``to_self_cond``, a Linear(dim, dim) initialised to
+zero (an exact no-op at init), added to the input before the time
+embedding.
 """
 
 from __future__ import annotations
@@ -56,13 +61,16 @@ class Model(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        if self_cond:
-            raise _not_ported("self_cond=True", "item 10, self-conditioning")
         if not use_fused_wavenet:
             raise _not_ported("use_fused_wavenet=False", "option list")
         self.dim = dim
         self.condition_on_prompt = condition_on_prompt
         self.cond_drop_prob = cond_drop_prob
+        self.self_cond = self_cond
+        if self_cond:
+            self.to_self_cond = nn.Linear(dim, dim)
+            nn.init.zeros_(self.to_self_cond.weight)
+            nn.init.zeros_(self.to_self_cond.bias)
         dim_time = dim * dim_cond_mult
         # the prompt condition is concatenated onto the time condition
         cond_mult = dim_cond_mult * (2 if condition_on_prompt else 1)
@@ -114,6 +122,7 @@ class Model(nn.Module):
         cond_drop_prob: Optional[float] = None,
         cond_drop_mask: Union[None, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
+        x_self_cond: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """x [b, n, dim], times [b] (or a scalar) → prediction [b, n, dim].
 
@@ -126,9 +135,14 @@ class Model(nn.Module):
         apart, each with probability ``cond_drop_prob``, drawn from
         ``generator`` (torch's default one if None); in eval mode every
         row drops if ``cond_drop_prob`` ≥ 1 and none otherwise, as the JAX
-        package's deterministic forward.
+        package's deterministic forward. A ``self_cond`` model adds
+        ``to_self_cond(x_self_cond)`` [b, n, dim] (zeros when None) to x.
         """
         b = x.shape[0]
+        if self.self_cond:
+            if x_self_cond is None:
+                x_self_cond = torch.zeros_like(x)
+            x = x + promoted_linear(self.to_self_cond, x_self_cond)
         if times.ndim == 0:
             times = times.expand(b)
         # f32 times through the (possibly bf16) time MLP: f32, as flax promotes
@@ -165,9 +179,11 @@ def forward_with_cond_scale(
     cond: Optional[torch.Tensor] = None,
     cond_scale: float = 1.0,
     cfg_rescale: float = 0.0,
+    x_self_cond: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Classifier-free-guided forward, ``null + (cond − null)·scale``, from
-    one batch-doubled forward (the conditioned half, then the null half).
+    one batch-doubled forward (the conditioned half, then the null half);
+    ``x_self_cond`` is doubled with the batch.
 
     ``cfg_rescale`` φ ∈ [0, 1] blends in the guided output rescaled to the
     conditioned half's per-sample std (population std, as ``jnp.std``). An
@@ -176,7 +192,7 @@ def forward_with_cond_scale(
     b = x.shape[0]
     if times.ndim == 0:
         times = times.expand(b)
-    cfg = dict(prompt=prompt, prompt_mask=prompt_mask, cond=cond)
+    cfg = dict(prompt=prompt, prompt_mask=prompt_mask, cond=cond, x_self_cond=x_self_cond)
     if not model.condition_on_prompt or cond_scale == 1.0:
         if model.condition_on_prompt:
             cfg["cond_drop_mask"] = torch.zeros(b, dtype=torch.bool, device=x.device)

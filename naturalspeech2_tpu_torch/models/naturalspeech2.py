@@ -1,18 +1,22 @@
 """NaturalSpeech 2: diffusion over codec latents. The training losses
 (`NaturalSpeech2.forward`, the twin of `NaturalSpeech2.__call__`), for a
 conditional model with the duration, pitch and alignment losses of
-`_conditional_inputs_and_losses`; the conditioning stack of zero-shot TTS
-(prompt and phoneme encoders, duration / pitch prediction, the aligned
-frame condition: `conditioning_for_sample`); and sampling by DDIM with
-batch-doubled classifier-free guidance, then codec decode (twins of
-`get_sampling_time_pairs`, `_reconstruct_x0`, `ddim_sample` and `sample()`
-in `naturalspeech2_tpu/models/naturalspeech2.py`).
+`_conditional_inputs_and_losses`, and for a self-conditioned denoiser with
+its bootstrap forward; the conditioning stack of zero-shot TTS (prompt and
+phoneme encoders, duration / pitch prediction, the aligned frame
+condition: `conditioning_for_sample`); and sampling by DDIM, DDPM or
+DPM-Solver++(2M) with batch-doubled classifier-free guidance, then codec
+decode (twins of `get_sampling_time_pairs`, `_reconstruct_x0`,
+`ddim_sample`, `ddpm_sample`, `dpmpp_sample` and `sample()` in
+`naturalspeech2_tpu/models/naturalspeech2.py`).
 
 Randomness is explicit: the diffusion times and noise, the random CFG
-drop of training and the samplers' starting noise are drawn from a
+drop of training, the self-conditioning draw and the samplers' starting
+noise (and DDPM's noise at every step) are drawn from a
 ``torch.Generator`` or taken as ``times=`` / ``noise=`` /
-``cond_drop_mask=`` (how the tests inject JAX's draws). Dropout in the
-encoders draws from torch's default generator.
+``cond_drop_mask=`` / ``self_cond_mask=`` / ``step_noise=`` (how the tests
+inject JAX's draws). Dropout in the encoders draws from torch's default
+generator.
 """
 
 from __future__ import annotations
@@ -34,19 +38,21 @@ from naturalspeech2_tpu_torch.models.encoders import (
 )
 from naturalspeech2_tpu_torch.ops.mel import audio_to_mel
 from naturalspeech2_tpu_torch.ops.pitch import compute_pitch, compute_pitch_nccf, f0_to_coarse
-from naturalspeech2_tpu_torch.ops.schedules import gamma_to_alpha_sigma, get_schedule
+from naturalspeech2_tpu_torch.ops.schedules import (
+    gamma_to_alpha_sigma,
+    gamma_to_log_snr,
+    get_schedule,
+)
 from naturalspeech2_tpu_torch.utils.helpers import (
     average_over_durations,
     create_mask,
     generate_mask_from_repeats,
+    prob_mask_like,
     safe_div,
+    safe_log,
 )
 
-# Fields of the JAX module that belong to later slices, and their ROADMAP
-# Queue 1 items: passing any of them raises NotImplementedError.
-_LATER_FIELDS = {
-    "train_prob_self_cond": "item 10 (self-conditioning)",
-}
+SAMPLERS = ("ddim", "ddpm", "dpmpp")
 
 
 @contextlib.contextmanager
@@ -109,9 +115,10 @@ class NaturalSpeech2(nn.Module):
     ``mask_duration_pitch_loss``. ``schedule_kwargs`` go to the γ(t)
     schedule; ``target_sample_hz`` is the audio rate when there is no
     codec. ``tokenizer`` (host-side, `utils.tokenizer.Tokenizer`) lets
-    `sample` take raw text. The JAX module's field of a later slice
-    (self-conditioning) raises NotImplementedError naming its ROADMAP
-    item.
+    `sample` take raw text. ``sampler`` ("ddim", "ddpm" or "dpmpp"; None:
+    DDIM, or DDPM with ``use_ddim=False``) picks `sample`'s sampler. A
+    self-conditioned denoiser (``Model(self_cond=True)``) trains on its own
+    x̂₀ estimate for a ``train_prob_self_cond`` share of the rows.
     """
 
     def __init__(
@@ -152,23 +159,13 @@ class NaturalSpeech2(nn.Module):
         aligner_bin_loss_weight: float = 0.0,
         mask_duration_pitch_loss: bool = True,
         tokenizer=None,
-        **later_fields,
+        train_prob_self_cond: float = 0.9,
     ):
         super().__init__()
-        for field in later_fields:
-            if field not in _LATER_FIELDS:
-                raise TypeError(f"NaturalSpeech2() got an unexpected keyword argument {field!r}")
-            raise NotImplementedError(
-                f"NaturalSpeech2({field}=) is not ported yet (ROADMAP Queue 1, "
-                f"{_LATER_FIELDS[field]})"
-            )
-        name = sampler or ("ddim" if use_ddim else "ddpm")
-        if name not in {"ddim", "ddpm", "dpmpp"}:
-            raise ValueError(f"unknown sampler {name!r}")
-        if name != "ddim":
-            raise NotImplementedError(
-                f"sampler {name!r} is not ported yet (ROADMAP Queue 1, slice 2 item 8)"
-            )
+        self.use_ddim = use_ddim
+        self.sampler = sampler
+        if self.sampler_name not in SAMPLERS:
+            raise ValueError(f"unknown sampler {self.sampler_name!r}")
         if objective not in {"x0", "eps", "v"}:
             raise ValueError(f"unknown objective {objective!r}")
         if scale > 1.0:
@@ -182,6 +179,7 @@ class NaturalSpeech2(nn.Module):
         self.codec = codec
         self.tokenizer = tokenizer
         self.timesteps = timesteps
+        self.train_prob_self_cond = train_prob_self_cond
         self.noise_schedule = noise_schedule
         self.schedule_kwargs = dict(schedule_kwargs or {})
         self.target_sample_hz = target_sample_hz
@@ -234,6 +232,12 @@ class NaturalSpeech2(nn.Module):
         return self.codec.codebook_dim if self.codec is not None else self.model.dim
 
     @property
+    def sampler_name(self) -> str:
+        """The sampler `sample` runs: ``sampler``, else DDIM (DDPM with
+        ``use_ddim=False``)."""
+        return self.sampler or ("ddim" if self.use_ddim else "ddpm")
+
+    @property
     def sample_hz(self) -> Optional[int]:
         """The codec's rate, or ``target_sample_hz`` without a codec."""
         return self.codec.target_sample_hz if self.codec is not None else self.target_sample_hz
@@ -255,6 +259,7 @@ class NaturalSpeech2(nn.Module):
         times: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
         cond_drop_mask=None,
+        self_cond_mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """Training losses: ``{"loss", "diffusion"}``; a conditional model
@@ -272,6 +277,13 @@ class NaturalSpeech2(nn.Module):
         [b, n, dim] are drawn from ``generator`` unless given, and in
         training mode the CFG drop masks too unless ``cond_drop_mask`` (as
         `Model` takes it) is given. Dropout is on in training mode only.
+
+        A self-conditioned denoiser first runs a bootstrap forward without
+        gradient and conditions the real one on its x̂₀ estimate in the rows
+        of ``self_cond_mask`` [b] bool (zeros elsewhere): in training mode
+        a Bernoulli(``train_prob_self_cond``) draw from ``generator`` unless
+        given, in eval mode every row. Both forwards share one pair of CFG
+        drop masks, drawn once before the bootstrap.
         """
         prompt_enc = cond = None
         aux_loss, aux = 0.0, {}
@@ -297,8 +309,24 @@ class NaturalSpeech2(nn.Module):
         # f32 times promote bf16 latents and noise (AMP training): the
         # denoiser's activations stay f32, as in JAX
         noised = alpha * audio + sigma * noise
+        x_self_cond = None
+        if self.model.self_cond:
+            p = self.model.cond_drop_prob
+            if cond_drop_mask is None and self.conditional and p > 0.0 and self.training:
+                cond_drop_mask = tuple(prob_mask_like((b,), p, generator, audio.device)
+                                       for _ in range(2))
+            if self_cond_mask is None:
+                self_cond_mask = (prob_mask_like((b,), self.train_prob_self_cond, generator,
+                                                 audio.device) if self.training else
+                                  torch.ones(b, dtype=torch.bool, device=audio.device))
+            with torch.no_grad():
+                est = self.model(noised, times, prompt=prompt_enc, cond=cond,
+                                 cond_drop_mask=cond_drop_mask, generator=generator)
+                x0_est = _reconstruct_x0(self.objective, noised, est, alpha, sigma)
+                x_self_cond = torch.where(self_cond_mask[:, None, None], x0_est, 0.0)
         pred = self.model(noised, times, prompt=prompt_enc, cond=cond,
-                          cond_drop_mask=cond_drop_mask, generator=generator)
+                          cond_drop_mask=cond_drop_mask, generator=generator,
+                          x_self_cond=x_self_cond)
 
         if self.objective == "eps":
             target = noise
@@ -474,6 +502,30 @@ def _starting_noise(shape, device, generator, noise):
     return torch.randn(shape, generator=generator, device=device)
 
 
+def _sampler_device(device, noise) -> torch.device:
+    """``device``, else the device of ``noise`` when given, else the current
+    CUDA device: the samplers run on the card unless asked for the CPU."""
+    if device is None:
+        device = noise.device if noise is not None else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _schedule(pairs, gamma_schedule, scale, time_difference):
+    """α, σ at each step's t and α, σ at its t_next − ``time_difference``
+    (clipped at 0), each [T]; and the two γ."""
+    gamma = gamma_schedule(pairs[:, 0])
+    gamma_next = gamma_schedule((pairs[:, 1] - time_difference).clamp(min=0.0))
+    return (*gamma_to_alpha_sigma(gamma, scale), *gamma_to_alpha_sigma(gamma_next, scale),
+            gamma, gamma_next)
+
+
+def _denoise(denoise_fn, audio, times, self_cond: bool, x_prev):
+    return denoise_fn(audio, times, x_prev) if self_cond else denoise_fn(audio, times)
+
+
 @torch.no_grad()
 def ddim_sample(
     denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
@@ -484,35 +536,146 @@ def ddim_sample(
     objective: str = "v",
     scale: float = 1.0,
     time_difference: float = 0.0,
+    self_cond: bool = False,
     device: Optional[torch.device | str] = None,
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """DDIM from pure noise to latents ``shape`` in ``timesteps`` steps.
 
-    ``denoise_fn(audio, times)`` is the model forward. The starting noise
-    is ``noise`` if given, else drawn from ``generator``. It runs on
+    ``denoise_fn(audio, times)`` is the model forward; with ``self_cond``
+    it is called as ``denoise_fn(audio, times, x_self_cond)`` with the
+    previous step's x̂₀ (zeros at the first step). The starting noise is
+    ``noise`` if given, else drawn from ``generator``. It runs on
     ``device``: by default the device of ``noise`` when given, else the
     current CUDA device; a caller asks for the CPU with ``device="cpu"``.
     """
-    if device is None:
-        device = noise.device if noise is not None else "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = _sampler_device(device, noise)
     audio = _starting_noise(shape, device, generator, noise)
     pairs = get_sampling_time_pairs(timesteps, device=device)
-    gamma = gamma_schedule(pairs[:, 0])
-    gamma_next = gamma_schedule((pairs[:, 1] - time_difference).clamp(min=0.0))
-    alpha, sigma = gamma_to_alpha_sigma(gamma, scale)
-    alpha_next, sigma_next = gamma_to_alpha_sigma(gamma_next, scale)
+    alpha, sigma, alpha_next, sigma_next, _, _ = _schedule(pairs, gamma_schedule, scale,
+                                                           time_difference)
+    x_start = torch.zeros_like(audio)
     for i in range(timesteps):
         times = pairs[i, 0].expand(shape[0])
-        model_output = denoise_fn(audio, times)
+        model_output = _denoise(denoise_fn, audio, times, self_cond, x_start)
         x_start = _reconstruct_x0(objective, audio, model_output, alpha[i], sigma[i])
         pred_noise = safe_div(audio - alpha[i] * x_start, sigma[i])
         audio = x_start * alpha_next[i] + pred_noise * sigma_next[i]
     return audio
+
+
+@torch.no_grad()
+def dpmpp_sample(
+    denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    shape: Tuple[int, ...],
+    *,
+    timesteps: int,
+    gamma_schedule: Callable[[torch.Tensor], torch.Tensor],
+    objective: str = "v",
+    scale: float = 1.0,
+    time_difference: float = 0.0,
+    self_cond: bool = False,
+    device: Optional[torch.device | str] = None,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """DPM-Solver++(2M) (Lu et al. 2022): the second-order multistep ODE
+    solver in the x̂₀ parameterisation, one model call a step, with
+    `ddim_sample`'s arguments.
+
+    With λ = ½·log-SNR and h = λ_next − λ, a step is
+    x ← (σ_next/σ)·x − α_next·(e^{−h} − 1)·D, where
+    D = x̂₀ + (h / h_prev)·(x̂₀ − x̂₀_prev)/2 extrapolates from the previous
+    step's x̂₀ (h_prev = λ − λ_prev, λ_prev starting at λ(1)). It falls
+    back to first order, D = x̂₀ (a DDIM step), at the first step, where
+    h_prev ≤ 1e-8 (the clipped log-SNR region near t = 1) and where h is
+    not finite (the last step of a schedule with γ(0) = 1). The schedule's
+    arithmetic, the gate included, is computed for all steps at once on the
+    device, so no step waits for the host.
+    """
+    device = _sampler_device(device, noise)
+    audio = _starting_noise(shape, device, generator, noise)
+    pairs = get_sampling_time_pairs(timesteps, device=device)
+    alpha, sigma, alpha_next, sigma_next, gamma, gamma_next = _schedule(
+        pairs, gamma_schedule, scale, time_difference)
+    lam = 0.5 * gamma_to_log_snr(gamma, scale)
+    lam_next = 0.5 * gamma_to_log_snr(gamma_next, scale)
+    lam_one = 0.5 * gamma_to_log_snr(gamma_schedule(torch.ones(1, device=device)), scale)
+    h = lam_next - lam
+    h_prev = lam - torch.cat([lam_one, lam[:-1]])
+    first = torch.arange(timesteps, device=device) == 0
+    use_2nd = ~first & torch.isfinite(h) & (h_prev > 1e-8)
+    ratio = torch.where(use_2nd, h / h_prev.clamp(min=1e-8), 0.0)
+    keep = safe_div(sigma_next, sigma)
+    step = alpha_next * torch.expm1(-h)
+    x0_prev = torch.zeros_like(audio)
+    for i in range(timesteps):
+        times = pairs[i, 0].expand(shape[0])
+        model_output = _denoise(denoise_fn, audio, times, self_cond, x0_prev)
+        x0 = _reconstruct_x0(objective, audio, model_output, alpha[i], sigma[i])
+        data = x0 + ratio[i] * (x0 - x0_prev) / 2.0
+        audio = keep[i] * audio - step[i] * data
+        x0_prev = x0
+    return audio
+
+
+@torch.no_grad()
+def ddpm_sample(
+    denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    shape: Tuple[int, ...],
+    *,
+    timesteps: int,
+    gamma_schedule: Callable[[torch.Tensor], torch.Tensor],
+    objective: str = "v",
+    scale: float = 1.0,
+    time_difference: float = 0.0,
+    self_cond: bool = False,
+    device: Optional[torch.device | str] = None,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
+    step_noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The DDPM ancestral sampler, with `ddim_sample`'s arguments.
+
+    Each step's t_next is ``clip(t_next − time_difference, 0)``; with
+    c = −expm1(logSNR − logSNR_next) the step is
+    x ← α_next·(x·(1 − c)/max(α, 1e-10) + c·x̂₀) + σ_next·√c·z, the variance
+    through ``safe_log``, and z = 0 where t_next is 0. The fresh noise z of
+    step i is ``step_noise[i]`` (``step_noise`` [timesteps, *shape]) if
+    given, else drawn from ``generator`` at that step.
+    """
+    device = _sampler_device(device, noise)
+    audio = _starting_noise(shape, device, generator, noise)
+    if step_noise is not None:
+        if tuple(step_noise.shape) != (timesteps, *shape):
+            raise ValueError(f"step_noise has shape {tuple(step_noise.shape)}, expected "
+                             f"{(timesteps, *shape)}")
+        if step_noise.device != device:
+            raise ValueError(f"step_noise is on {step_noise.device}, the sampler runs on {device}")
+        step_noise = step_noise.to(torch.float32)
+    pairs = get_sampling_time_pairs(timesteps, device=device)
+    t_next = (pairs[:, 1] - time_difference).clamp(min=0.0)
+    gamma, gamma_next = gamma_schedule(pairs[:, 0]), gamma_schedule(t_next)
+    alpha, sigma = gamma_to_alpha_sigma(gamma, scale)
+    alpha_next, sigma_next = gamma_to_alpha_sigma(gamma_next, scale)
+    c = -torch.expm1(gamma_to_log_snr(gamma, scale) - gamma_to_log_snr(gamma_next, scale))
+    alpha_floor = alpha.clamp(min=1e-10)
+    std = torch.exp(0.5 * safe_log(sigma_next**2 * c))
+    std = torch.where(t_next > 0, std, 0.0)
+    x_start = torch.zeros_like(audio)
+    for i in range(timesteps):
+        times = pairs[i, 0].expand(shape[0])
+        model_output = _denoise(denoise_fn, audio, times, self_cond, x_start)
+        x_start = _reconstruct_x0(objective, audio, model_output, alpha[i], sigma[i])
+        mean = alpha_next[i] * (audio * (1 - c[i]) / alpha_floor[i] + c[i] * x_start)
+        z = (step_noise[i] if step_noise is not None
+             else torch.randn(shape, generator=generator, device=device))
+        audio = mean + std[i] * z
+    return audio
+
+
+SAMPLER_FNS = {"ddim": ddim_sample, "ddpm": ddpm_sample, "dpmpp": dpmpp_sample}
 
 
 @torch.no_grad()
@@ -524,6 +687,7 @@ def sample(
     timesteps: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
+    step_noise: Optional[torch.Tensor] = None,
     prompt: Optional[torch.Tensor] = None,
     text=None,
     text_lens: Optional[torch.Tensor] = None,
@@ -534,10 +698,15 @@ def sample(
     duration: Optional[torch.Tensor] = None,
     dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """DDIM over ``[batch_size, length, dim]`` latents, then codec decode
-    to ``[batch_size, length·hop]`` audio (the latents if ``ns2`` has no
+    """``ns2``'s sampler (``ns2.sampler_name``: DDIM, DDPM or DPM++) over
+    ``[batch_size, length, dim]`` latents, then codec decode to
+    ``[batch_size, length·hop]`` audio (the latents if ``ns2`` has no
     codec). Runs on the device of ``ns2``'s parameters, without dropout;
-    ``timesteps`` overrides the configured step count.
+    ``timesteps`` overrides the configured step count. The starting noise
+    is ``noise`` or drawn from ``generator``; DDPM's fresh noise at every
+    step is ``step_noise`` [timesteps, batch, length, dim] or drawn from
+    ``generator``. A self-conditioned denoiser gets the previous step's
+    x̂₀ (zeros at the first step) at every step, guided or not.
 
     A conditional ``ns2`` takes the speech ``prompt`` (raw audio [b, T] or
     latents) and phoneme ids ``text`` [b, t_x], or a list of strings that
@@ -551,9 +720,10 @@ def sample(
     step, in bf16, as the JAX ``sample(dtype=jnp.bfloat16)``: a bf16 copy
     of its float parameters for the call (none if they are bf16 already,
     as a ``TTSEngine(dtype="bfloat16")`` holds them), the prompt encoding
-    and the frame condition cast once, the latent cast at every step and
-    the model output returned as f32; the schedule arithmetic, x̂₀, the
-    DDIM update, the conditioning stack and the codec decode stay f32.
+    and the frame condition cast once, the latent and x_self_cond cast at
+    every step and the model output returned as f32; the schedule
+    arithmetic, x̂₀, the sampler's update, the conditioning stack and the
+    codec decode stay f32.
     """
     device = next(ns2.parameters()).device
     if isinstance(text, (list, tuple)) and text and isinstance(text[0], str):
@@ -562,6 +732,9 @@ def sample(
         text = torch.from_numpy(ids).to(device=device, dtype=torch.int64)
     if dtype not in SAMPLE_DTYPES:
         raise ValueError(f"sample: dtype must be one of {SAMPLE_DTYPES}, got {dtype}")
+    name = ns2.sampler_name
+    if step_noise is not None and name != "ddpm":
+        raise ValueError(f"sample: step_noise is DDPM's, the sampler is {name!r}")
     prompt_enc = cond = None
     with _eval_mode(ns2):
         model = ns2.model if dtype is None else cast_floating(ns2.model, dtype)
@@ -574,7 +747,7 @@ def sample(
             if dtype is not None:
                 prompt_enc, cond = prompt_enc.to(dtype), cond.to(dtype)
 
-        def denoise_fn(audio, times):
+        def denoise_fn(audio, times, x_self_cond=None):
             scale = cond_scale
             if cfg_interval is not None and ns2.conditional and cond_scale != 1.0:
                 lo, hi = cfg_interval
@@ -582,11 +755,15 @@ def sample(
                     scale = 1.0  # one conditional forward, no null half
             if dtype is not None:
                 audio = audio.to(dtype)
+                if x_self_cond is not None:
+                    x_self_cond = x_self_cond.to(dtype)
             out = forward_with_cond_scale(model, audio, times, prompt=prompt_enc, cond=cond,
-                                          cond_scale=scale, cfg_rescale=cfg_rescale)
+                                          cond_scale=scale, cfg_rescale=cfg_rescale,
+                                          x_self_cond=x_self_cond)
             return out if dtype is None else out.to(torch.float32)
 
-        latents = ddim_sample(
+        extra = {"step_noise": step_noise} if name == "ddpm" else {}
+        latents = SAMPLER_FNS[name](
             denoise_fn,
             (batch_size, length, ns2.dim),
             timesteps=timesteps if timesteps is not None else ns2.timesteps,
@@ -594,9 +771,11 @@ def sample(
             objective=ns2.objective,
             scale=ns2.scale,
             time_difference=ns2.time_difference,
+            self_cond=ns2.model.self_cond,
             device=device,
             generator=generator,
             noise=noise,
+            **extra,
         )
         if ns2.codec is None:
             return latents

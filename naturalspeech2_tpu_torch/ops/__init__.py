@@ -3,7 +3,8 @@ tensors and runs its plain PyTorch version on CPU tensors, and counts its
 kernel launches in ``<wrapper>.launches`` (f32 entry points),
 ``<wrapper>.launches_bf16`` (bf16 entry points) and, where it has them,
 ``<wrapper>.launches_mixed`` (f32 activations against bf16 weights: K1,
-K1b, K2, K2b and K3 under AMP training)."""
+K1b, K2, K2b and K3 under AMP training) and, for K1b's ``bf16_matmul``
+option, ``wavenet_body_lanes.launches_bf16mm``."""
 
 import torch
 
@@ -17,8 +18,10 @@ from naturalspeech2_tpu_torch.ops import rvq as _rvq  # noqa: E402
 
 KERNEL_WRAPPERS = (wavenet_body, wavenet_body_lanes, attn_block, cross_attn_block, ff_block,
                    flash_forward, flash_backward, _rvq.rvq)
-# The counter of each kind of entry point: f32, bf16, f32 against bf16 weights.
-COUNTERS = {torch.float32: "launches", torch.bfloat16: "launches_bf16", "mixed": "launches_mixed"}
+# The counter of each kind of entry point: f32, bf16, f32 against bf16
+# weights, K1b's bf16_matmul.
+COUNTERS = {torch.float32: "launches", torch.bfloat16: "launches_bf16", "mixed": "launches_mixed",
+            "bf16_matmul": "launches_bf16mm"}
 
 
 def reset_launch_counts() -> None:
@@ -30,7 +33,7 @@ def reset_launch_counts() -> None:
 
 def launch_counts(kind=torch.float32) -> dict[str, int]:
     """Launches of each wrapper's entry points of ``kind`` (torch.float32,
-    torch.bfloat16 or "mixed") since the last reset (0 for a wrapper with no
-    such entry point)."""
+    torch.bfloat16, "mixed" or "bf16_matmul") since the last reset (0 for a
+    wrapper with no such entry point)."""
     attr = COUNTERS[kind]
     return {fn.__name__: getattr(fn, attr, 0) for fn in KERNEL_WRAPPERS}

@@ -9,7 +9,10 @@ budgets, the plain body ``wavenet_body_torch``, the twin of the
 `wavenet_body_xla` that the JAX dispatch calls there, on any device. On a
 CPU tensor the kernels' routes run their plain versions.
 ``wavenet_body_lanes`` runs K1b whatever the shape, and
-``wavenet_body_lanes_torch`` on a CPU tensor. Both are
+``wavenet_body_lanes_torch`` on a CPU tensor; with ``bf16_matmul=True``
+(the JAX kernel's option, which only its d-512 probe sets, never the
+dispatch) K1b's entry point ``ns2_wavenet_lanes_bf16mm`` and, on a CPU
+tensor, ``wavenet_body_lanes_bf16mm_torch``. Both are
 differentiable: as `_bwd` in the JAX package, the backward is the vjp of
 the plain version on the saved inputs widened to f32, each gradient
 cast back to its input's dtype (the JAX package has no backward kernel
@@ -49,6 +52,15 @@ casts every operand to x.dtype) do: the kernels' mixed entry points run
 the core's kSplit2 mode (the f32 lanes split in two against the bf16
 weights held as TF32, exact) with the biases widened, counted in
 ``launches_mixed``; the plain versions run on the widened weights.
+
+``bf16_matmul`` (f32 x, weights and FiLM; `_lane_kernel`'s option,
+`naturalspeech2_tpu/ops/wavenet_kernel.py:172`, `:208-217`): every product
+reads bf16 operands with f32 accumulation, the lane rounded at each of its
+products and the stack's output before the skip product, the lane state,
+biases, FiLM, gate and the skips' sum f32, the output f32. On a card the
+core's kBf16 mode, whose A loader rounds the f32 lane as it stages it,
+against the weights packed as bf16 under a cache key of their own, counted
+in ``wavenet_body_lanes.launches_bf16mm``.
 """
 
 from __future__ import annotations
@@ -60,7 +72,7 @@ import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
-from naturalspeech2_tpu_torch.utils.helpers import vjp
+from naturalspeech2_tpu_torch.utils.helpers import round_bf16, vjp
 
 # The kernels' channel multiple (the GEMM core's chunk), to which other
 # widths are padded.
@@ -72,11 +84,14 @@ def _shift(a, rows: int):
     return F.pad(a, (0, 0, rows, 0))[:, :a.shape[1]]
 
 
-def _block(xin, conv_w, conv_b, res_w, res_b, film, dil: int):
+def _block(xin, conv_w, conv_b, res_w, res_b, film, dil: int, operand=None):
     """One WaveNet block on ``xin`` [b, n, d]: the gated, FiLM-conditioned
     causal k=3 conv with dilation ``dil`` plus the 1x1 residual; ``film``
-    [b, 2d] holds γ then β."""
+    [b, 2d] holds γ then β. ``operand`` (e.g. ``round_bf16``) is applied
+    to both operands of each product."""
     d = xin.shape[-1]
+    if operand is not None:
+        xin, conv_w, res_w = operand(xin), operand(conv_w), operand(res_w)
     cat = torch.cat([_shift(xin, 2 * dil), _shift(xin, dil), xin], dim=-1)  # [b, n, 3d]
     y = cat @ conv_w + conv_b
     y = y * film[:, None, :d] + film[:, None, d:]
@@ -103,21 +118,34 @@ def wavenet_body_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     return sum(lane @ w + bias for lane, w, bias in zip(lanes, skip_w.unbind(0), skip_b.unbind(0)))
 
 
-def wavenet_body_lanes_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
+def wavenet_body_lanes_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film,
+                             operand=None):
     """Plain PyTorch version of K1b, the twin of `_fused_forward_per_lane`:
     lane by lane, each lane through all S stacks (lane l of stack s reads
     only lane l of stack s − 1), its skip added in lane order. Equal to
-    ``wavenet_body_torch`` up to f32 reordering."""
+    ``wavenet_body_torch`` up to f32 reordering. ``operand`` is applied to
+    both operands of every product (``wavenet_body_lanes_bf16mm_torch``)."""
     S, L = conv_w.shape[:2]
+    rnd = operand if operand is not None else (lambda t: t)
     out = None
     for l in range(L):
         lane = x
         for s in range(S):
             lane = _block(lane, conv_w[s, l], conv_b[s, l], res_w[s, l], res_b[s, l],
-                          film[:, s, l], 2**l)
-        skip = lane @ skip_w[l] + skip_b[l]
+                          film[:, s, l], 2**l, operand)
+        skip = rnd(lane) @ rnd(skip_w[l]) + skip_b[l]
         out = skip if out is None else out + skip
     return out
+
+
+def wavenet_body_lanes_bf16mm_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
+    """Plain version of K1b with ``bf16_matmul`` (`_lane_kernel`'s
+    ``dot``): ``wavenet_body_lanes_torch`` with both operands of every
+    product rounded to bf16 and the product summed in f32 (exact products
+    of bf16 values), the lane state, biases, FiLM, the gate and the skips'
+    sum in f32; f32 in, f32 out."""
+    return wavenet_body_lanes_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film,
+                                    operand=round_bf16)
 
 
 def wavenet_body_bf16_torch(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
@@ -217,15 +245,18 @@ def block_weights(conv_w, res_w):
 
 
 def pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b,
-                         route: str, bias_dtype=None) -> WavenetWeights:
+                         route: str, bias_dtype=None, fmt=None) -> WavenetWeights:
     """The body's weights padded to a multiple of 32 channels and packed
     for the GEMM core (``gemm_cache.pack_b``; f32 weights split into hi
     and lo, bf16 ones as TF32 with no lo part): the blocks' B, and the skips
     as K1 (``route`` "stack": one product over the lanes side by side, the
     biases summed in f32) or K1b ("lanes": one product per lane) reads
     them. The biases take ``bias_dtype`` (default: their own; float32 for
-    the mixed entry points) but for that f32 sum."""
-    fmt = "tf32" if conv_w.dtype == torch.bfloat16 else "split"
+    the mixed entry points) but for that f32 sum. ``fmt`` overrides the
+    weights' format ("bf16": K1b's ``bf16_matmul``, f32 weights rounded to
+    bf16)."""
+    if fmt is None:
+        fmt = "tf32" if conv_w.dtype == torch.bfloat16 else "split"
     d = conv_w.shape[-1]
     d_p = _round_up(d, KERNEL_ALIGN)
     if d_p != d:
@@ -290,7 +321,8 @@ def wavenet_body_packed_torch(x, film, weights: WavenetWeights, route: str):
     return out[..., :d]
 
 
-def _pack_checked(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route: str, bias_dtype):
+def _pack_checked(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route: str, bias_dtype,
+                  fmt=None):
     """``pack_wavenet_weights`` after the wrapper's checks of the weights,
     which a cache hit then need not repeat."""
     _build.require_cuda("wavenet_body", conv_w.dtype, conv_w=conv_w, conv_b=conv_b, res_w=res_w,
@@ -301,7 +333,8 @@ def _pack_checked(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route: str, bias
         res_w=(res_w, (S, L, d, d)), res_b=(res_b, (S, L, d)), skip_w=(skip_w, (L, d, d)),
         skip_b=(skip_b, (L, d)),
     )
-    return pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route, bias_dtype)
+    return pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route, bias_dtype,
+                                fmt)
 
 
 def _widened(x, *weights):
@@ -311,9 +344,12 @@ def _widened(x, *weights):
 
 
 def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
-    """One body through ``route`` ("stack": K1, "lanes": K1b, None: as
-    ``wavenet_route`` picks), or its plain version on a CPU tensor."""
+    """One body through ``route`` ("stack": K1, "lanes": K1b, "bf16mm": K1b
+    with ``bf16_matmul``, None: as ``wavenet_route`` picks), or its plain
+    version on a CPU tensor."""
     args = (x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
+    if route == "bf16mm":
+        return _forward_bf16mm(*args)
     if route is None:
         route = wavenet_route(x.shape[1], x.shape[2], conv_w.shape[1])
     if route == "plain":  # `wavenet_body_xla` runs every operand at x.dtype
@@ -361,6 +397,42 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     return out if d_p == d else out[..., :d].contiguous()
 
 
+def _forward_bf16mm(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
+    """K1b with ``bf16_matmul`` on f32 tensors: ``ns2_wavenet_lanes_bf16mm``
+    on a card, ``wavenet_body_lanes_bf16mm_torch`` on the CPU."""
+    args = (x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
+    bad = {t.dtype for t in args} - {torch.float32}
+    if bad:
+        raise TypeError(f"wavenet_body_lanes(bf16_matmul=True) takes float32 x, weights and "
+                        f"FiLM (it rounds the operands of each product itself), got {bad}")
+    if x.device.type == "cpu":
+        return wavenet_body_lanes_bf16mm_torch(*args)
+    _build.require_cuda("wavenet_body_lanes", x.dtype, x=x, film=film)
+    b, n, d = x.shape
+    S, L = conv_w.shape[:2]
+    _build.require_shapes("wavenet_body_lanes", conv_w=(conv_w, (S, L, 3 * d, d)),
+                          film=(film, (b, S, L, 2 * d)))
+    wt = gemm_cache.cached("wavenet_body lanes bf16mm",
+                           lambda *w: _pack_checked(*w, "lanes", None, "bf16"),
+                           conv_w, conv_b, res_w, res_b, skip_w, skip_b)
+    if conv_w.device != x.device:
+        raise ValueError(f"wavenet_body_lanes: the weights are on {conv_w.device}, x on {x.device}")
+    d_p = wt.d
+    if d_p != d:
+        x, film = pad_wavenet_inputs(x, film, d_p)
+    out = torch.empty((b, n, d_p), dtype=torch.float32, device=x.device)
+    lanes = torch.empty((2, b, n, d_p), dtype=torch.float32, device=x.device)
+    entry = "ns2_wavenet_lanes_bf16mm"
+    err = getattr(_build.library(), entry)(
+        x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
+        wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(), lanes[0].data_ptr(),
+        lanes[1].data_ptr(), out.data_ptr(), b, n, d_p, S, L, _build.stream(x),
+    )
+    _build.check(err, entry)
+    wavenet_body_lanes.launches_bf16mm += 1
+    return out if d_p == d else out[..., :d].contiguous()
+
+
 def _body_f32(*args):
     """``wavenet_body_torch`` on the inputs widened to f32 (each gradient
     comes back at its input's dtype)."""
@@ -371,11 +443,13 @@ class _WavenetBody(torch.autograd.Function):
     @staticmethod
     def forward(ctx, route, *args):
         ctx.save_for_backward(*args)
+        ctx.route = route
         return _forward(route, *args)
 
     @staticmethod
     def backward(ctx, g):
-        return None, *vjp(_body_f32, ctx.saved_tensors, ctx.needs_input_grad[1:], g.float())
+        plain = wavenet_body_lanes_bf16mm_torch if ctx.route == "bf16mm" else _body_f32
+        return None, *vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[1:], g.float())
 
 
 def wavenet_body(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
@@ -391,11 +465,16 @@ def wavenet_body(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     return _forward(None, *args)  # no graph to record: the autograd Function's overhead spared
 
 
-def wavenet_body_lanes(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
-    """``wavenet_body`` through K1b whatever the shape."""
-    return _WavenetBody.apply("lanes", x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
+def wavenet_body_lanes(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film,
+                       bf16_matmul: bool = False):
+    """``wavenet_body`` through K1b whatever the shape. ``bf16_matmul``:
+    every product on bf16 operands with f32 accumulation (f32 tensors
+    only), counted in ``wavenet_body_lanes.launches_bf16mm``; its backward
+    is the vjp of ``wavenet_body_lanes_bf16mm_torch``."""
+    route = "bf16mm" if bf16_matmul else "lanes"
+    return _WavenetBody.apply(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
 
 
 wavenet_body.launches = wavenet_body.launches_bf16 = wavenet_body.launches_mixed = 0
 wavenet_body_lanes.launches = wavenet_body_lanes.launches_bf16 = 0
-wavenet_body_lanes.launches_mixed = 0
+wavenet_body_lanes.launches_mixed = wavenet_body_lanes.launches_bf16mm = 0

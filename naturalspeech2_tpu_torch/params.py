@@ -122,6 +122,8 @@ class _Converter:
 
 
 def _model(conv: _Converter) -> None:
+    if conv.has("to_self_cond"):  # self_cond=True
+        conv.dense("to_self_cond", "to_self_cond")
     conv.raw("time_pos_emb/weights", "time_pos_emb.weights")
     conv.dense("to_time_hidden", "to_time_hidden")
     conv.conv("wavenet/init_conv/Conv_0", "wavenet.init_conv.conv")

@@ -12,11 +12,12 @@ Checkpoints are ``torch.save`` files of {step, params, opt_state,
 ema_params, version}; ``train()`` resumes from the newest one in
 ``results_folder``.
 
-The diffusion times and noise of every micro-batch, and a conditional
-model's CFG drop masks, come from the trainer's own generator (seeded
-with ``seed + 1``) and are handed to the loss, so a rematerialised forward
-(``remat=True``) sees the same draws; the encoders' dropout draws from
-torch's default generator, whose state the rematerialisation restores.
+The diffusion times and noise of every micro-batch, a conditional
+model's CFG drop masks and a self-conditioned denoiser's bootstrap rows
+come from the trainer's own generator (seeded with ``seed + 1``) and are
+handed to the loss, so a rematerialised forward (``remat=True``) sees the
+same draws; the encoders' dropout draws from torch's default generator,
+whose state the rematerialisation restores.
 
 ``amp=True`` trains in bf16 as the JAX trainer does (`_loss_fn`): every
 forward runs on bf16 copies of the f32 parameters, made per forward with
@@ -77,6 +78,16 @@ def _cosine(init: float, decay_steps: int, alpha: float) -> Callable[[int], floa
 def _join(first: Callable, second: Callable, boundary: int) -> Callable[[int], float]:
     """optax.join_schedules with one boundary."""
     return lambda count: first(count) if count < boundary else second(count - boundary)
+
+
+def clip_by_global_norm_(grads: list, max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: g / ‖g‖ · max when ‖g‖ ≥ max,
+    no ε (where ``clip_grad_norm_`` divides by ‖g‖ + 1e-6); as device
+    scalars (1 and 1 when not clipping), so the host never waits."""
+    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    clip = g_norm >= max_norm
+    torch._foreach_div_(grads, torch.where(clip, g_norm, 1.0))
+    torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
 
 
 def make_lr_schedule(lr: float, lr_schedule: Optional[str], warmup_steps: int,
@@ -235,12 +246,25 @@ class Trainer:
         generator = self.generator if generator is None else generator
         return tuple(prob_mask_like((b,), p, generator, self.device) for _ in range(2))
 
+    def draw_self_cond(self, b: int, generator: Optional[torch.Generator] = None):
+        """A self-conditioned denoiser's bootstrap rows [b] for one
+        micro-batch, a Bernoulli(``train_prob_self_cond``) draw after
+        ``draw_cond_drop``'s (the JAX trainer's ``self_cond`` stream); None
+        without self-conditioning or in eval mode (every row then)."""
+        if not (self.ns2.model.self_cond and self.ns2.training):
+            return None
+        generator = self.generator if generator is None else generator
+        return prob_mask_like((b,), self.ns2.train_prob_self_cond, generator, self.device)
+
     def _draws(self, audio, generator: Optional[torch.Generator] = None) -> dict:
         times, noise = self.draw(audio) if generator is None else self.draw(audio, generator)
         draws = {"times": times, "noise": noise}
         drop = self.draw_cond_drop(audio.shape[0], generator)
         if drop is not None:
             draws["cond_drop_mask"] = drop
+        self_cond = self.draw_self_cond(audio.shape[0], generator)
+        if self_cond is not None:
+            draws["self_cond_mask"] = self_cond
         return draws
 
     def _tensors(self, batch) -> dict:
@@ -309,12 +333,7 @@ class Trainer:
         skipped = False
         if self.skip_nonfinite_updates:
             skipped = not bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
-        # optax.clip_by_global_norm: g / ‖g‖ · max when ‖g‖ ≥ max, no ε; as
-        # device scalars (1 and 1 when not clipping), so the host never waits
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        clip = g_norm >= self.max_grad_norm
-        torch._foreach_div_(grads, torch.where(clip, g_norm, 1.0))
-        torch._foreach_mul_(grads, torch.where(clip, self.max_grad_norm, 1.0))
+        clip_by_global_norm_(grads, self.max_grad_norm)
         for p, g in zip(params, grads):
             p.grad = g
         if not skipped:

@@ -2,9 +2,9 @@
 package: `NaturalSpeech2(schedule_kwargs=, target_sample_hz=)`,
 `SoundStream(use_pallas_rvq=, target_sample_hz=)`, `Model(remat=)` and
 `Transformer(causal=, final_norm=)` give the JAX module's results with the
-same field; conditional training's fields are kept as given; the fields
-of later slices raise a NotImplementedError that names their ROADMAP item,
-not a TypeError."""
+same field; conditional training's and self-conditioning's fields are
+kept as given, with the JAX module's defaults; no field of the JAX module
+is refused any longer, and an unknown one is a TypeError."""
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +18,7 @@ from naturalspeech2_tpu.models.denoiser import Model as JModel
 from naturalspeech2_tpu.models.transformer import Transformer as JTransformer
 from naturalspeech2_tpu_torch import Model, NaturalSpeech2, SoundStream, load_jax_params
 from naturalspeech2_tpu_torch import params as tparams
-from naturalspeech2_tpu_torch.models.naturalspeech2 import _LATER_FIELDS
+from naturalspeech2_tpu_torch.models import naturalspeech2 as tns2
 from naturalspeech2_tpu_torch.models.transformer import Transformer
 from naturalspeech2_tpu_torch.utils.tokenizer import Tokenizer
 
@@ -176,11 +176,11 @@ def test_transformer_causal_final_norm_as_in_jax(use_flash, masked):
 
 # The JAX module's fields that the port once refused for later slices, with
 # a value other than the default: conditional training's (pitch, mel, the
-# loss weights and masking) and the text frontend's tokenizer are ported now
-# and kept as given, with the JAX module's defaults; the others still raise,
-# naming their ROADMAP item.
+# loss weights and masking), the text frontend's tokenizer and
+# self-conditioning's share of bootstrapped rows are ported now and kept as
+# given, with the JAX module's defaults.
 ONCE_LATER = {"tokenizer": Tokenizer(), "calc_pitch_with_pyworld": False,
-              "train_prob_self_cond": None,
+              "train_prob_self_cond": 0.5,
               "mel_hop_length": 200, "audio_to_mel_kwargs": {"f_max": 7000.0},
               "duration_loss_weight": 0.5, "pitch_loss_weight": 2.0, "aligner_loss_weight": 0.3,
               "aligner_bin_loss_weight": 0.1, "mask_duration_pitch_loss": False}
@@ -189,10 +189,6 @@ ONCE_LATER = {"tokenizer": Tokenizer(), "calc_pitch_with_pyworld": False,
 @pytest.mark.parametrize("field", list(ONCE_LATER))
 def test_later_slice_fields_raise_not_implemented(field):
     assert field in jns2.NaturalSpeech2.__dataclass_fields__
-    if field in _LATER_FIELDS:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 1[06]"):
-            NaturalSpeech2(Model(**MODEL_CFG), **{field: 1.0})
-        return
     ns2 = NaturalSpeech2(Model(**MODEL_CFG), **{field: ONCE_LATER[field]})
     assert getattr(ns2, field) == ONCE_LATER[field]
     default = jns2.NaturalSpeech2.__dataclass_fields__[field].default
@@ -201,7 +197,16 @@ def test_later_slice_fields_raise_not_implemented(field):
 
 
 def test_later_fields_name_their_items():
-    assert _LATER_FIELDS == {"train_prob_self_cond": "item 10 (self-conditioning)"}
+    """No field of the JAX module is left for a later slice: the table of
+    refused fields is gone, and every field the JAX module has is a
+    constructor argument of the port's."""
+    import inspect
+
+    assert not hasattr(tns2, "_LATER_FIELDS")
+    params = inspect.signature(NaturalSpeech2).parameters
+    assert not any(p.kind is p.VAR_KEYWORD for p in params.values())
+    jax_fields = set(jns2.NaturalSpeech2.__dataclass_fields__) - {"parent", "name"}
+    assert jax_fields <= set(params)
 
 
 def test_unknown_field_is_still_a_type_error():

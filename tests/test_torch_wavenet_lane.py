@@ -12,6 +12,7 @@ from naturalspeech2_tpu.ops import wavenet_kernel as jwk
 from naturalspeech2_tpu_torch.ops.wavenet_kernel import (
     wavenet_body,
     wavenet_body_lanes,
+    wavenet_body_lanes_bf16mm_torch,
     wavenet_body_lanes_torch,
     wavenet_body_torch,
     wavenet_route,
@@ -136,3 +137,44 @@ def test_plain_route_runs_the_plain_body_on_any_device():
     assert wavenet_body.launches == 0
     with pytest.raises(ValueError, match="CUDA"):
         wavenet_body_lanes(*args)
+
+
+# K1b's `bf16_matmul` option: XLA on the CPU may keep excess precision in
+# bf16, so the plain version is held to the JAX kernel's algorithm within
+# 1e-2 of the output's largest entry and a correlation (the card holds the
+# rounding points, chip_smoke.py phase 31); the rounding itself shows as a
+# difference from the f32 body far above f32 noise (ATOL's 1e-4 at O(1)).
+BF16MM_TOL, BF16MM_CORR = 1e-2, 0.9999
+
+
+@pytest.mark.parametrize("S, L", [(4, 8), (3, 5)])
+def test_bf16_matmul_plain_matches_pallas_option(S, L):
+    args = _inputs(S, L, seed=S * 10 + L + 1)
+    expected = np.asarray(jwk._fused_forward_per_lane(*(jnp.asarray(a) for a in args),
+                                                      bf16_matmul=True))
+    actual = wavenet_body_lanes_bf16mm_torch(*(t(a) for a in args))
+    assert actual.dtype == torch.float32 and actual.shape == (B, N, D)
+    peak = np.abs(expected).max()
+    assert np.abs(actual.numpy() - expected).max() <= BF16MM_TOL * peak
+    assert np.corrcoef(actual.numpy().ravel(), expected.ravel())[0, 1] >= BF16MM_CORR
+    f32 = wavenet_body_lanes_torch(*(t(a) for a in args)).numpy()
+    assert np.abs(actual.numpy() - f32).max() > 10 * ATOL
+
+
+def test_bf16_matmul_wrapper_runs_plain_version_on_cpu():
+    args = [t(a) for a in _inputs(2, 3, seed=8)]
+    wavenet_body_lanes.launches_bf16mm = 0
+    out = wavenet_body_lanes(*args, bf16_matmul=True)
+    assert torch.equal(out, wavenet_body_lanes_bf16mm_torch(*args))
+    assert wavenet_body_lanes.launches_bf16mm == 0
+    grads = torch.autograd.grad(
+        wavenet_body_lanes(*[a.requires_grad_() for a in args], bf16_matmul=True).sum(), args)
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+def test_bf16_matmul_takes_f32_only_and_never_falls_back():
+    args = [t(a) for a in _inputs(2, 3, seed=9)]
+    with pytest.raises(TypeError, match="bf16_matmul"):
+        wavenet_body_lanes(*[a.bfloat16() for a in args], bf16_matmul=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        wavenet_body_lanes(*[a.to("meta") for a in args], bf16_matmul=True)
