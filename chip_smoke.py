@@ -199,7 +199,31 @@ Phases (each prints its lines; any failure raises and exits non-zero):
  35. card against CPU within GRAD_RTOL: the self-conditioned loss and its
      gradients (injected times, noise and bootstrap rows, one row
      bootstrapped and one not) and the distillation loss and the
-     student's gradients (injected grid index and noise).
+     student's gradients (injected grid index and noise);
+ 36. K6 at Encodec's shapes against its plain version: the latents of the
+     24-kHz Encodec (facebook/encodec_24khz's architecture, seeded random
+     weights) at b16 x 2 s (m 2400) and of a 6.8-s prompt (m 510), Q 8, K
+     1024, d 128, against its own codebooks;
+ 37. NaturalSpeech2(Model(dim=128, depth=6), Encodec()): the codec's encode
+     at b16 x 2 s (ms, one K6 launch), `Trainer` at b16 x 2 s for
+     ENC_TRAIN_STEPS steps (ms per step, exact launches), a 100-step DDIM
+     `sample()` of 512 frames with Encodec decode (exact launches), the
+     decode of a 6.8-s sample (ms); card against CPU: latents and codes
+     (tie-tolerantly), the loss and every gradient at b2 x 0.4 s, a 2-step
+     sample's audio;
+ 38. `CodecTrainer` on the card for SoundStream() and Encodec(), adversarial
+     from step 0, b8 x 1 s, CODEC_TRAIN_STEPS steps: finite losses, moved
+     codec, codebooks and discriminator, ms per step, one K6 launch a
+     step; a save / load round trip (the state equal bit for bit, the
+     next step's metrics within GRAD_RTOL of the unbroken run's); card
+     against CPU at b2 x 0.4 s: the generator
+     loss and its gradients (the STFT term off, see CODEC_CHECK) and one
+     step's losses;
+ 39. the 48-kHz knobs (time_group_norm, split padding, stereo, loudness
+     normalisation, 1-s chunks at 1 % overlap) at facebook/encodec_48khz's
+     widths: chunked encode and overlap-add decode of 2.5 s of stereo
+     (three chunks, the last partial; one K6 launch each), card against
+     CPU: codes tie-tolerantly, scales, the decoded audio.
 K2, K2b and K3 are held to BLOCK_TOL (split TF32 on the tensor cores
 against f32 plain versions) at every shape they run: b4 x n1024 x dim 128,
 the conditional [8, 512, 128], the long-form n4500 and n9000 and the
@@ -208,7 +232,8 @@ they run (b4 x n1024, n4500, n9000, n6733, dim 512 pinned, dim 16).
 The line before the last is the kernels' JSON summary (each kernel's
 time, plain time, bound and launches, by path: "serve" counts phase 20's
 50 sequential requests, "train_amp" and "conditional_train_amp" phases 28
-and 29's ten AMP steps; a row per dtype, "mixed" for f32 activations
+and 29's ten AMP steps, "encodec_*" and "codec_train_*" phases 37-39's
+paths; a row per dtype, "mixed" for f32 activations
 against bf16 weights, the bf16 and mixed rows with their f32 kernel's
 time at the same shape, and a "bf16_matmul" row for K1b's option, whose
 launches are the probe's); the last line is
@@ -231,6 +256,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import json
 import math
 import statistics
@@ -490,6 +516,28 @@ FEW_SERVE_STEPS, FEW_SERVE_REQUESTS = 25, 20
 # frames (on every block's gate).
 SC_TRAIN_STEPS = 3
 DISTILL_BATCH, DISTILL_STUDENT_STEPS, DISTILL_UPDATES, DISTILL_CHECK_FRAMES = 4, 8, 3, 64
+
+# The codec slice (phases 36-39): Encodec() at facebook/encodec_24khz's
+# architecture (32 filters, ratios 8/5/4/2: hop 320, 75 frames/s; hidden
+# 128; a 2-layer LSTM; 8 codebooks of 1024, 6 kbps), seeded random weights
+# (no pretrained weights are in the repository). Phase 37: NaturalSpeech2
+# on it, trained at b16 x 2 s for ENC_TRAIN_STEPS steps, sampled at
+# ENC_SAMPLE_FRAMES frames (6.8 s, on every block's gate), its decode timed
+# on a 6.8-s prompt's ENC_PROMPT_FRAMES. Phase 38: CodecTrainer at
+# CODEC_TRAIN_BATCH x CODEC_TRAIN_SECONDS for CODEC_TRAIN_STEPS steps,
+# adversarial from step 0; card against CPU at CODEC_CHECK_BATCH x
+# CODEC_CHECK_SECONDS with the STFT term weighted 0: its log-magnitude term
+# has a gradient of 1/|S| along a direction that the FFT's rounding decides
+# at bins near zero (cuFFT and pocketfft round differently), which moves
+# gradients by ~7 % of their largest entries even between two CPU FFT
+# libraries (tests/test_torch_codec_trainer.py). Phase 39: the 48-kHz knobs
+# at facebook/encodec_48khz's widths on ENC48_SECONDS of stereo.
+ENC_TRAIN_STEPS, ENC_SAMPLE_FRAMES, ENC_PROMPT_FRAMES = 5, 512, 510
+CODEC_TRAIN_BATCH, CODEC_TRAIN_SECONDS, CODEC_TRAIN_STEPS = 8, 1.0, 5
+CODEC_CHECK_BATCH, CODEC_CHECK_SECONDS = 2, 0.4
+ENC48 = dict(target_sample_hz=48000, causal=False, norm_type="time_group_norm",
+             audio_channels=2, normalize=True, chunk_length_s=1.0, overlap=0.01)
+ENC48_SECONDS = 2.5
 
 
 def log(phase: str, msg: str) -> None:
@@ -917,24 +965,17 @@ def _flash_masked_dropout_case(gen, d: int = DIM_HEAD, phase: str = "6") -> dict
     return {"flash_forward": err, "flash_backward": err_b}
 
 
-def _rvq_case(gen, m=TRAIN_BATCH * int(TRAIN_SECONDS * 24000) // 320, num_q=8, size=1024,
-              d=128, phase="6", timed=True):
-    """K6 against its plain version, codes tie-tolerantly: the error of the
-    agreeing rows and, if ``timed``, both times and the bound."""
+def codes_tie_tolerant(phase: str, label: str, x, codebooks, codes, ref):
+    """RVQ codes [m, Q] against reference codes of the rows x [m, d]: a row
+    may part from the reference only at a stage whose two candidates are
+    within RVQ_TIE_TOL of the residual (advanced along the reference
+    codes), and at most 1 % of rows may; returns the mask of agreeing
+    rows."""
     import torch
 
-    from naturalspeech2_tpu_torch.ops import rvq as rvq_ops
-
-    x = torch.randn(m, d, generator=gen, device="cuda")
-    cb = torch.randn(num_q, size, d, generator=gen, device="cuda")
-    kernel = lambda: rvq_ops.rvq(x, cb)  # noqa: E731
-    plain = lambda: rvq_ops.rvq_torch(x, cb)  # noqa: E731
-    (q, codes), (q_ref, codes_ref) = kernel(), plain()
-    torch.cuda.synchronize()
-    # tie-tolerant codes: a row may part from the plain codes only at a
-    # stage whose two candidates are within RVQ_TIE_TOL of the residual
-    xd, cbd = x.double().cpu(), cb.double().cpu()
-    codes_c, ref_c = codes.long().cpu(), codes_ref.long().cpu()
+    xd, cbd = x.detach().double().cpu(), codebooks.detach().double().cpu()
+    codes_c, ref_c = codes.long().cpu(), ref.long().cpu()
+    m, num_q = codes_c.shape
     same = (codes_c == ref_c).all(dim=1)
     for row in torch.nonzero(~same).flatten().tolist():
         stage = int(torch.nonzero(codes_c[row] != ref_c[row])[0])
@@ -942,11 +983,32 @@ def _rvq_case(gen, m=TRAIN_BATCH * int(TRAIN_SECONDS * 24000) // 320, num_q=8, s
         gap = abs(((r - cbd[stage][codes_c[row, stage]]) ** 2).sum()
                   - ((r - cbd[stage][ref_c[row, stage]]) ** 2).sum())
         if gap > RVQ_TIE_TOL:
-            raise AssertionError(f"rvq: row {row} stage {stage} code differs by {gap:.3e} in d²")
+            raise AssertionError(f"{label}: row {row} stage {stage} code differs by {gap:.3e} in d²")
     if (~same).sum() > m // 100:
-        raise AssertionError(f"rvq: {int((~same).sum())} rows part at near-ties, over 1 %")
-    log(phase, f"rvq: codes [{m},{num_q}] at d {d} equal in {int(same.sum())} of {m} rows, the "
-               f"rest near-ties within {RVQ_TIE_TOL:g}")
+        raise AssertionError(f"{label}: {int((~same).sum())} rows part at near-ties, over 1 %")
+    log(phase, f"{label}: codes [{m},{num_q}] equal in {int(same.sum())} of {m} rows, the rest "
+               f"near-ties within {RVQ_TIE_TOL:g}")
+    return same
+
+
+def _rvq_case(gen, m=TRAIN_BATCH * int(TRAIN_SECONDS * 24000) // 320, num_q=8, size=1024,
+              d=128, phase="6", timed=True, x=None, cb=None):
+    """K6 against its plain version, codes tie-tolerantly: the error of the
+    agreeing rows and, if ``timed``, both times and the bound. Rows ``x``
+    [m, d] and codebooks ``cb`` [Q, K, d] are drawn from ``gen`` unless
+    given."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import rvq as rvq_ops
+
+    if x is None:
+        x = torch.randn(m, d, generator=gen, device="cuda")
+        cb = torch.randn(num_q, size, d, generator=gen, device="cuda")
+    kernel = lambda: rvq_ops.rvq(x, cb)  # noqa: E731
+    plain = lambda: rvq_ops.rvq_torch(x, cb)  # noqa: E731
+    (q, codes), (q_ref, codes_ref) = kernel(), plain()
+    torch.cuda.synchronize()
+    same = codes_tie_tolerant(phase, f"rvq d {d}", x, cb, codes, codes_ref)
     err = compare(phase, f"rvq quantized d {d} (agreeing rows)", q[same.cuda()],
                   q_ref[same.cuda()], KERNEL_TOL)
     if not timed:
@@ -3977,6 +4039,309 @@ def phase35_card_vs_cpu() -> None:
                              f"{i.tolist()} of {DISTILL_STUDENT_STEPS}", results)
 
 
+def encodec_flagship(seed: int, **codec_kw):
+    """The flagship denoiser on the 24-kHz Encodec() (or ``codec_kw``'s), on
+    the CPU, seeded noise on every parameter (`flagship`'s)."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch.models.encodec import Encodec
+
+    torch.manual_seed(seed)
+    model = ns2pkg.Model(dim=DIM, depth=DEPTH, heads=HEADS, dim_head=DIM_HEAD)
+    ns2 = ns2pkg.NaturalSpeech2(model, Encodec(**codec_kw), timesteps=1000)
+    return jitter_params(ns2, seed + 1)
+
+
+def _seeded_audio(seed: int, *shape):
+    import torch
+
+    return torch.tanh(torch.randn(shape, generator=torch.Generator().manual_seed(seed))) * 0.5
+
+
+def phase36_encodec_kernels(summary: list, codec) -> None:
+    """K6 on the 24-kHz Encodec's latents (``codec`` on the card) against its
+    plain version: b16 x 2 s (m 2400) and a 6.8-s prompt (m 510), against
+    the codec's own codebooks (timings into the rvq entry of ``summary``)."""
+    import torch
+
+    entries = {e["name"]: e for e in summary}
+    hop = codec.seq_len_multiple_of
+    for b, frames, label in ((TRAIN_BATCH, int(TRAIN_SECONDS * 24000) // hop,
+                              f"b{TRAIN_BATCH} x {TRAIN_SECONDS:g} s"),
+                             (1, ENC_PROMPT_FRAMES, "6.8-s prompt")):
+        audio = _seeded_audio(SEED + 360 + b, b, frames * hop).cuda()
+        with torch.no_grad():
+            x = codec.encode_latents(audio).reshape(-1, codec.codebook_dim).contiguous()
+            err, ms, plain_ms, work = _rvq_case(None, m=x.shape[0], phase="36", x=x,
+                                                cb=codec.codebooks.detach())
+        entries["rvq"]["by_shape"][f"m {x.shape[0]} (Encodec latents, {label})"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work}
+        entries["rvq"]["max_abs_err"] = max(entries["rvq"]["max_abs_err"], err)
+
+
+def phase37_encodec_ns2(ns2, ns2_cpu, work: Path) -> dict:
+    """NaturalSpeech2 on the 24-kHz Encodec: encode, train, sample, decode,
+    then card against CPU. Returns the launch counts of its paths."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+
+    codec, hop = ns2.codec, ns2.codec.seq_len_multiple_of
+    samples = int(TRAIN_SECONDS * 24000)
+    audio = _seeded_audio(SEED + 370, TRAIN_BATCH, samples).cuda()
+    counts = {}
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        latents, codes, _ = codec(audio, return_encoded=True)
+        torch.cuda.synchronize()
+        counts["encodec_encode"] = ops.launch_counts()
+        encode_ms = cuda_ms(lambda: codec(audio, return_encoded=True), reps=10)
+    expect = {k: int(k == "rvq") for k in PER_STEP}
+    log("37", f"Encodec encode b{TRAIN_BATCH} x {TRAIN_SECONDS:g} s: latents "
+              f"{tuple(latents.shape)}, codes {tuple(codes.shape)}, {encode_ms:.3f} ms (median "
+              f"of 10, CUDA events; encoder, LSTM on cuDNN, K6)")
+    check_counts("37", "Encodec encode", counts["encodec_encode"], expect)
+
+    batch = audio.cpu().numpy()
+    trainer = ns2pkg.Trainer(ns2, batches=itertools.repeat(batch), train_batch_size=TRAIN_BATCH,
+                             train_num_steps=ENC_TRAIN_STEPS, save_and_sample_every=10**9,
+                             results_folder=str(work / "encodec_train"))
+    ops.reset_launch_counts()
+    trainer.train(log_every=1)
+    torch.cuda.synchronize()
+    counts["encodec_train"] = ops.launch_counts()
+    rows = [json.loads(line) for line in
+            (work / "encodec_train" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rows]
+    if len(rows) != ENC_TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"Encodec training: losses {losses}")
+    step_ms = statistics.median(r["step_time_s"] for r in rows[2:]) * 1e3
+    expect = {k: ENC_TRAIN_STEPS * v for k, v in PER_STEP.items()}
+    log("37", f"Trainer on Encodec b{TRAIN_BATCH} x {TRAIN_SECONDS:g} s, {ENC_TRAIN_STEPS} "
+              f"steps: losses {', '.join(f'{v:.4f}' for v in losses)}; {step_ms:.3f} ms per "
+              f"optimizer step (median of steps 3-{ENC_TRAIN_STEPS}, host clock, synchronised)")
+    check_counts("37", "Encodec training", counts["encodec_train"], expect)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 371)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    wave = ns2pkg.sample(ns2, batch_size=1, length=ENC_SAMPLE_FRAMES, timesteps=STEPS,
+                         generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts["encodec_sample"] = ops.launch_counts()
+    if tuple(wave.shape) != (1, ENC_SAMPLE_FRAMES * hop) or not torch.isfinite(wave).all():
+        raise AssertionError(f"Encodec sample: shape {tuple(wave.shape)} or non-finite")
+    expect = {k: STEPS * v for k, v in PER_DENOISE.items()}
+    log("37", f"sample(length={ENC_SAMPLE_FRAMES}, timesteps={STEPS}) through Encodec decode: "
+              f"waveform {tuple(wave.shape)} finite, wall {wall:.3f} s")
+    check_counts("37", "Encodec sample", counts["encodec_sample"], expect)
+    with torch.no_grad():
+        x = torch.randn(1, ENC_PROMPT_FRAMES, DIM, generator=gen, device="cuda")
+        decode_ms = cuda_ms(lambda: codec.decode(x), reps=10)
+    log("37", f"Encodec decode of {ENC_PROMPT_FRAMES} frames ({ENC_PROMPT_FRAMES * hop / 24000:.2f}"
+              f" s): {decode_ms:.3f} ms (median of 10, CUDA events)")
+
+    # card against CPU, on a copy of the untrained weights
+    card = copy.deepcopy(ns2_cpu).cuda()
+    g = torch.Generator().manual_seed(SEED + 372)
+    samples = int(0.4 * 24000)
+    check = torch.tanh(torch.randn(2, samples, generator=g))
+    with torch.no_grad():
+        lat_card, codes_card, _ = card.codec(check.cuda(), return_encoded=True)
+        lat_cpu, codes_cpu, _ = ns2_cpu.codec(check, return_encoded=True)
+    compare("37", "Encodec latents b2 x 0.4 s, card vs CPU", lat_card, lat_cpu, PATH_TOL)
+    codes_tie_tolerant("37", "Encodec codes, card vs CPU", lat_cpu.reshape(-1, DIM),
+                       ns2_cpu.codec.codebooks, codes_card.reshape(-1, 8),
+                       codes_cpu.reshape(-1, 8))
+    times = torch.rand(2, generator=g)
+    noise = torch.randn(2, samples // hop, DIM, generator=g)
+    results = []
+    for model, device in ((card, "cuda"), (ns2_cpu, "cpu")):
+        losses = model(check.to(device), times=times.to(device), noise=noise.to(device))
+        losses["loss"].backward()
+        results.append((losses["loss"].item(), {n: p.grad.cpu() for n, p in
+                                                model.named_parameters() if p.grad is not None}))
+    _grads_card_vs_cpu("37", "loss on Encodec b2 x 0.4 s", results)
+    short = dict(batch_size=1, length=50, timesteps=2)
+    noise = torch.randn(1, 50, DIM, generator=g)
+    compare("37", "sample 2 steps x 50 frames through Encodec decode, card vs CPU",
+            ns2pkg.sample(card, noise=noise.cuda(), **short),
+            ns2pkg.sample(ns2_cpu, noise=noise, **short), PATH_TOL)
+    return counts
+
+
+def _codec_trainer(codec, work: Path, **kw):
+    from naturalspeech2_tpu_torch.codec_trainer import CodecTrainer
+
+    return CodecTrainer(codec, batches=iter(()), adversarial_weight=1.0, results_folder=str(work),
+                        **kw)
+
+
+def _new_codec(kind: str, seed: int):
+    """SoundStream() or Encodec() at their defaults, seeded, on the CPU."""
+    import torch
+
+    from naturalspeech2_tpu_torch.models.codec import SoundStream
+    from naturalspeech2_tpu_torch.models.encodec import Encodec
+
+    torch.manual_seed(seed)
+    return jitter_params(SoundStream() if kind == "soundstream" else Encodec(), seed + 1)
+
+
+def phase38_codec_train(work: Path) -> dict:
+    """CodecTrainer on the card for both codecs; returns the launch counts
+    of each codec's steps."""
+    import torch
+
+    from naturalspeech2_tpu_torch import ops
+
+    counts = {}
+    samples = int(CODEC_TRAIN_SECONDS * 24000)
+    batches = [_seeded_audio(SEED + 380 + i, CODEC_TRAIN_BATCH, samples).numpy()
+               for i in range(CODEC_TRAIN_STEPS + 1)]
+    for kind in ("soundstream", "encodec"):
+        codec = _new_codec(kind, SEED + 381).cuda()
+        trainer = _codec_trainer(codec, work / kind)
+        trainer.init_state()
+        start = {n: p.detach().clone() for n, p in
+                 [*codec.named_parameters(), *trainer.discriminator.named_parameters()]}
+        walls, metrics = [], []
+        ops.reset_launch_counts()
+        for batch in batches[:CODEC_TRAIN_STEPS]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(trainer.train_step(batch))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts[f"codec_train_{kind}"] = ops.launch_counts()
+        if not all(math.isfinite(v) for m in metrics for v in m.values()):
+            raise AssertionError(f"{kind} codec training: non-finite metrics {metrics}")
+        # the logits convs' biases may not: their hinge gradient −P(real within
+        # the margin) + P(fake within it) is 0 while every logit lies within ±1
+        moved = dict([*codec.named_parameters(), *trainer.discriminator.named_parameters()])
+        still = [n for n, p in moved.items()
+                 if torch.equal(p, start[n]) and not n.endswith("convs.5.bias")]
+        if still:
+            raise AssertionError(f"{kind} codec training: parameters did not move: {still}")
+        step_ms = statistics.median(walls[1:]) * 1e3
+        expect = {k: CODEC_TRAIN_STEPS * int(k == "rvq") for k in PER_STEP}
+        log("38", f"CodecTrainer({kind}) b{CODEC_TRAIN_BATCH} x {CODEC_TRAIN_SECONDS:g} s, "
+                  f"adversarial: losses {', '.join(f'{m_['loss']:.4f}' for m_ in metrics)}, "
+                  f"adv_d {metrics[-1]['adv_d']:.4f}, perplexity {metrics[-1]['perplexity']:.1f}; "
+                  f"{step_ms:.3f} ms per step (median of steps 2-{CODEC_TRAIN_STEPS}, host clock, "
+                  f"synchronised; first {walls[0] * 1e3:.1f})")
+        check_counts("38", f"{kind} codec training", counts[f"codec_train_{kind}"], expect)
+
+        path = trainer.save("smoke")
+        fresh = _codec_trainer(_new_codec(kind, SEED + 382).cuda(), work / f"{kind}_fresh")
+        fresh.load(path)
+        pairs = [*zip(codec.state_dict().values(), fresh.codec.state_dict().values()),
+                 *zip(trainer.discriminator.state_dict().values(),
+                      fresh.discriminator.state_dict().values()),
+                 (trainer.state.codebook_ema, fresh.state.codebook_ema),
+                 (trainer.state.codebook_count, fresh.state.codebook_count)]
+        for opt_a, opt_b in ((trainer.optimizer, fresh.optimizer),
+                             (trainer.disc_optimizer, fresh.disc_optimizer)):
+            for sa, sb in zip(opt_a.state.values(), opt_b.state.values()):
+                pairs += [(sa[k].cpu(), sb[k].cpu()) for k in ("step", "exp_avg", "exp_avg_sq")]
+        if (fresh.state.step, fresh.state.disc_updates) != (trainer.state.step,
+                                                            trainer.state.disc_updates) \
+                or not all(torch.equal(x, y) for x, y in pairs):
+            raise AssertionError(f"{kind}: the loaded state differs from the saved one")
+        # the next step of each: equal but for the card's atomics (index_add_
+        # in the codebook statistics, cuDNN's weight gradients), which sum in
+        # no fixed order
+        nxt = batches[CODEC_TRAIN_STEPS]
+        a, b = trainer.train_step(nxt), fresh.train_step(nxt)
+        worst = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-6) for k in a)
+        if set(a) != set(b) or worst > GRAD_RTOL:
+            raise AssertionError(f"{kind}: the step after load: {b} against {a}")
+        log("38", f"{kind}: save / load round trip: every tensor of the state equal bit for bit "
+                  f"(codec, discriminator, both optimizers, codebook statistics); the next "
+                  f"step's metrics within {worst:.2e} relative of the unbroken run's")
+        del trainer, fresh, codec
+        torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(SEED + 383)
+    audio = torch.tanh(torch.randn(CODEC_CHECK_BATCH, int(CODEC_CHECK_SECONDS * 24000),
+                                   generator=g)) * 0.5
+    for kind in ("soundstream", "encodec"):
+        cpu = _codec_trainer(_new_codec(kind, SEED + 384), work / f"{kind}_cpu", stft_weight=0.0)
+        card = _codec_trainer(copy.deepcopy(cpu.codec).cuda(), work / f"{kind}_card",
+                              stft_weight=0.0)
+        card.discriminator.load_state_dict(cpu.discriminator.state_dict(), strict=True)
+        pair, step_metrics = [], []
+        for trainer in (card, cpu):
+            trainer.init_state()
+            device = trainer.device
+            loss, metrics, _, _, _ = trainer._losses(audio.to(device), adv_on=True)
+            params = dict(trainer.codec.named_parameters())
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            pair.append((loss.item(), {n: gr.cpu() for n, gr in zip(params, grads)
+                                       if gr is not None}))
+            step_metrics.append(trainer.train_step(audio.numpy()))
+        _grads_card_vs_cpu("38", f"{kind} codec loss b{CODEC_CHECK_BATCH} x "
+                                 f"{CODEC_CHECK_SECONDS:g} s (STFT term off)", pair)
+        for k in ("loss", "wav_l1", "stft", "commit", "adv_g", "feat", "adv_d"):
+            (a, b) = (m[k] for m in step_metrics)
+            if abs(a - b) > GRAD_RTOL * max(abs(b), 1e-6):
+                raise AssertionError(f"{kind} codec step {k}: card {a} vs CPU {b}")
+        log("38", f"{kind}: one train_step card vs CPU, losses within {GRAD_RTOL:g} relative: "
+                  + ", ".join(f"{k} {m:.6f}" for k, m in step_metrics[1].items()))
+    return counts
+
+
+def phase39_encodec_48k() -> dict:
+    """The 48-kHz knobs, chunked: card against CPU; returns the launch counts
+    of the card's chunked encode and decode."""
+    import torch
+
+    from naturalspeech2_tpu_torch import ops
+    from naturalspeech2_tpu_torch.models.encodec import Encodec
+
+    torch.manual_seed(SEED + 390)
+    cpu = jitter_params(Encodec(**ENC48), SEED + 391)
+    card = copy.deepcopy(cpu).cuda()
+    audio = _seeded_audio(SEED + 392, 1, 2, int(ENC48_SECONDS * 48000))
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes, scales, pad = card.encode_chunked(audio.cuda())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wave = card.decode_chunked(codes, scales, pad)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = ops.launch_counts()
+        frames = codes.shape[0]
+        expect = {k: frames * int(k == "rvq") for k in PER_STEP}
+        log("39", f"48-kHz stereo {ENC48_SECONDS:g} s in {frames} chunks of "
+                  f"{card.chunk_length} at stride {card.chunk_stride} (last padded by {pad} "
+                  f"frames): codes {tuple(codes.shape)}, audio {tuple(wave.shape)}; encode "
+                  f"{(t1 - t0) * 1e3:.1f} ms, decode {(t2 - t1) * 1e3:.1f} ms (host clock, "
+                  f"first call)")
+        check_counts("39", "48-kHz chunked encode and decode", counts, expect)
+        codes_cpu, scales_cpu, pad_cpu = cpu.encode_chunked(audio)
+        if pad_cpu != pad or codes_cpu.shape != codes.shape:
+            raise AssertionError(f"48 kHz: CPU frames {tuple(codes_cpu.shape)}, pad {pad_cpu}")
+        for f in range(frames):
+            compare("39", f"48-kHz chunk {f} scale, card vs CPU", scales[f], scales_cpu[f],
+                    1e-5, relative=True)
+            chunk = audio[..., f * card.chunk_stride: f * card.chunk_stride + card.chunk_length]
+            lat = cpu.encode_latents(chunk / scales_cpu[f][:, :, None]).reshape(-1, cpu.codebook_dim)
+            n = lat.shape[0]
+            codes_tie_tolerant("39", f"48-kHz chunk {f} codes, card vs CPU", lat, cpu.codebooks,
+                               codes[f, :, :n].reshape(-1, 8), codes_cpu[f, :, :n].reshape(-1, 8))
+        compare("39", "48-kHz overlap-add decode of the card's codes, card vs CPU", wave,
+                cpu.decode_chunked(codes.cpu(), [s.cpu() for s in scales], pad), PATH_TOL)
+    return {"encodec_chunked_48k": counts}
+
+
 
 def profile_runs() -> int:
     """torch.profiler over 10 flagship denoise steps at b4 x n1024, over a
@@ -4199,6 +4564,18 @@ def main() -> int:
         few_train_counts = phase34_self_cond_train_and_distill(Path(work))
     torch.cuda.empty_cache()
     phase35_card_vs_cpu()
+    torch.cuda.empty_cache()
+    enc_cpu = encodec_flagship(SEED + 373)
+    enc = copy.deepcopy(enc_cpu).cuda()
+    phase36_encodec_kernels(summary, enc.codec)
+    with tempfile.TemporaryDirectory() as work:
+        codec_counts = phase37_encodec_ns2(enc, enc_cpu, Path(work))
+    del enc, enc_cpu
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        codec_counts.update(phase38_codec_train(Path(work)))
+    codec_counts.update(phase39_encodec_48k())
+    torch.cuda.empty_cache()
     bf16mm_entry = phase31_bf16_matmul()
 
     for entry in summary:
@@ -4212,7 +4589,8 @@ def main() -> int:
                    "serve_bf16": serve_bf16_f32[name],
                    **{path: c["f32"][name] for path, c in amp_counts.items()},
                    "few_step_sample": few_counts[name], "serve_dpmpp": serve_dpmpp_counts[name],
-                   **{path: c[name] for path, c in few_train_counts.items()}}
+                   **{path: c[name] for path, c in few_train_counts.items()},
+                   **{path: c[name] for path, c in codec_counts.items()}}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,22 +1,23 @@
 """Command-line interface of the port (`naturalspeech2_tpu/cli.py`'s
-counterpart): train / sample / serve / info.
+counterpart): train / sample / codec-train / serve / import-torch / info.
 
     ns2-torch train        --folder wavs/ --steps 100000 --results results/
     ns2-torch sample       --checkpoint results/model-7.ckpt --out out/
+    ns2-torch codec-train  --folder wavs/ --steps 50000 --adversarial-weight 1
     ns2-torch serve        --checkpoint results/model-7.ckpt --config cfg.json
+    ns2-torch import-torch --input ref.pt --output ns2.ckpt [--encodec]
     ns2-torch info         --config cfg.json
 
-``train``, ``sample`` and ``serve`` take ``--device`` (``cuda`` by default;
-without a card they raise rather than fall back to the CPU; ``--device cpu``
-runs the plain PyTorch versions of the kernels); ``info`` does no device
-work. ``codec-train`` and ``import-torch`` are
-not ported yet and raise, naming their ROADMAP items.
+``train``, ``sample``, ``codec-train`` and ``serve`` take ``--device``
+(``cuda`` by default; without a card they raise rather than fall back to
+the CPU; ``--device cpu`` runs the plain PyTorch versions of the kernels);
+``info`` and ``import-torch`` do no device work.
 
 Model architecture comes from a JSON config file (``--config``) with
 sections mapping 1:1 onto the constructors — the same kwargs the Python API
 and the JAX package's CLI take:
 
-    {"codec":   {"type": "soundstream"},
+    {"codec":   {"type": "soundstream"},            # or {"type": "encodec"}
      "model":   {"dim": 128, "depth": 6},
      "ns2":     {"timesteps": 1000},
      "trainer": {"train_batch_size": 16}}
@@ -75,7 +76,9 @@ def build_codec(codec_cfg: Dict[str, Any]):
 
         return SoundStream(**cfg)
     if kind == "encodec":
-        raise _not_ported("the Encodec codec ({'codec': {'type': 'encodec'}})", "item 17")
+        from naturalspeech2_tpu_torch.models.encodec import Encodec
+
+        return Encodec(**cfg)
     raise ValueError(f"codec type must be soundstream|encodec, got {kind!r}")
 
 
@@ -98,18 +101,29 @@ def build_ns2(cfg: Dict[str, Any]):
 # --------------------------------------------------------------------- #
 
 
-def load_for_inference(ns2, checkpoint: str, *, use_ema: bool = True):
-    """Load a port checkpoint into ``ns2`` and return it.
-
-    Accepts the `Trainer`'s ``torch.save`` files ({step, params, opt_state,
-    ema_params, version}) and bare state dicts. Prefers the EMA weights (the
-    reference samples from its EMA copy)."""
+def _state(checkpoint: str) -> tuple[dict, dict]:
+    """(the checkpoint's payload, its parameters as a state dict)."""
     import torch
 
     payload = torch.load(checkpoint, map_location="cpu", weights_only=True)
-    state = dict(payload["params"]) if "params" in payload else dict(payload)
+    return payload, dict(payload["params"]) if "params" in payload else dict(payload)
+
+
+def load_for_inference(ns2, checkpoint: str, *, use_ema: bool = True,
+                       codec_checkpoint: Optional[str] = None):
+    """Load a port checkpoint into ``ns2`` and return it.
+
+    Accepts the `Trainer`'s ``torch.save`` files ({step, params, opt_state,
+    ema_params, version}), ``import-torch``'s ({params, version}) and bare
+    state dicts. Prefers the EMA weights (the reference samples from its EMA
+    copy). ``codec_checkpoint`` (a `CodecTrainer` checkpoint or ``import-torch
+    --encodec``'s) supplies the codec's weights, which an imported reference
+    checkpoint lacks; every parameter must then be covered (``strict``)."""
+    payload, state = _state(checkpoint)
     if use_ema and "ema_params" in payload:
         state.update(payload["ema_params"])
+    if codec_checkpoint is not None:
+        state.update({f"codec.{k}": v for k, v in _state(codec_checkpoint)[1].items()})
     ns2.load_state_dict(state, strict=True)
     return ns2
 
@@ -155,7 +169,41 @@ def cmd_train(args) -> int:
 
 
 def cmd_codec_train(args) -> int:
-    raise _not_ported("codec-train (CodecTrainer)", "item 18")
+    import torch
+
+    from naturalspeech2_tpu_torch.codec_trainer import CodecTrainer
+    from naturalspeech2_tpu_torch.data import SoundDataset, data_loader
+
+    if args.mesh_data is not None:
+        raise _not_ported(f"data-parallel codec training (--mesh-data {args.mesh_data})",
+                          "item 21, parallel/")
+    if args.steps_per_dispatch not in (None, 1):
+        raise _not_ported("--steps-per-dispatch > 1", "item 11")
+    device = resolve_device(args.device)
+    torch.manual_seed(args.seed)
+    codec = build_codec(load_config(args.config)["codec"]).to(device)
+    dataset = SoundDataset(args.folder, max_length=int(args.data_seconds * codec.target_sample_hz),
+                           target_sample_hz=codec.target_sample_hz,
+                           seq_len_multiple_of=codec.seq_len_multiple_of)
+    trainer = CodecTrainer(
+        codec,
+        batches=data_loader(dataset, args.batch_size, seed=args.seed),
+        lr=args.lr if args.lr is not None else 3e-4,
+        adversarial_weight=args.adversarial_weight,
+        adversarial_warmup=args.warmup,
+        amp=bool(args.amp),
+        results_folder=args.results,
+        seed=args.seed,
+    )
+    if args.resume is not None:
+        trainer.load(args.resume)
+    # in save_every-sized segments: a resumable checkpoint after each
+    start = 0 if trainer.state is None else trainer.state.step
+    while start < args.steps:
+        trainer.train(min(start + args.save_every, args.steps), log_every=args.log_every)
+        start = trainer.state.step
+        print(trainer.save(start))
+    return 0
 
 
 def cmd_sample(args) -> int:
@@ -169,7 +217,8 @@ def cmd_sample(args) -> int:
     if args.sampler is not None:
         cfg["ns2"]["sampler"] = args.sampler
     ns2 = build_ns2(cfg)
-    load_for_inference(ns2, args.checkpoint, use_ema=not args.no_ema)
+    load_for_inference(ns2, args.checkpoint, use_ema=not args.no_ema,
+                       codec_checkpoint=args.codec_checkpoint)
     ns2.to(device)
 
     kwargs: Dict[str, Any] = {}
@@ -222,6 +271,7 @@ def build_engine(
     cond_scale: float = 3.0,
     tp: int = 1,
     device: Optional[str] = None,
+    codec_checkpoint: Optional[str] = None,
     **engine_kwargs,
 ):
     """checkpoint + config → a ready `TTSEngine` on ``device`` (``None``:
@@ -238,7 +288,7 @@ def build_engine(
         "serving is text→speech: the config must enable prompt "
         "conditioning (model.condition_on_prompt)"
     )
-    load_for_inference(ns2, checkpoint)
+    load_for_inference(ns2, checkpoint, codec_checkpoint=codec_checkpoint)
     return serve_mod.TTSEngine(
         ns2,
         timesteps=timesteps or 100,
@@ -262,6 +312,7 @@ def cmd_serve(args) -> int:
             cond_scale=args.cond_scale,
             tp=args.tp,
             device=args.device,
+            codec_checkpoint=args.codec_checkpoint,
             dtype="bfloat16" if args.bf16 else None,
             cfg_interval=tuple(args.cfg_interval)
             if args.cfg_interval is not None else None,
@@ -305,7 +356,25 @@ def cmd_info(args) -> int:
 
 
 def cmd_import_torch(args) -> int:
-    raise _not_ported("import-torch (the reference checkpoint's key mapping)", "item 22")
+    """A reference `NaturalSpeech2` checkpoint (or, with ``--encodec``, a
+    HuggingFace `EncodecModel` state dict) → a port checkpoint ``{params,
+    version}`` that `load_for_inference` (for an Encodec, via
+    ``--codec-checkpoint``) and ``load_state_dict`` read."""
+    import torch
+
+    from naturalspeech2_tpu_torch.params import load_jax_params
+    from naturalspeech2_tpu_torch.utils import torch_import as ti
+    from naturalspeech2_tpu_torch.version import __version__
+
+    sd = ti.load_torch_checkpoint(args.input)
+    if args.encodec:
+        tree = ti.encodec_params_from_hf(sd)
+    else:
+        tree = ti.naturalspeech2_params_from_torch(sd)
+    state = load_jax_params(tree)
+    torch.save({"params": state, "version": __version__}, args.output)
+    print(f"wrote {args.output} ({len(state)} tensors)")
+    return 0
 
 
 # --------------------------------------------------------------------- #
@@ -357,14 +426,31 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--log-every", type=int, default=50)
     t.set_defaults(fn=cmd_train)
 
-    c = sub.add_parser("codec-train", help="train the neural codec (not ported)")
-    common(c)
+    c = sub.add_parser("codec-train", help="train the neural codec")
+    on_device(c)
     c.add_argument("--folder", required=True)
+    c.add_argument("--steps", type=int, default=50_000)
+    c.add_argument("--batch-size", type=int, default=16)
+    c.add_argument("--lr", type=float, default=None)
+    c.add_argument("--data-seconds", type=float, default=0.4)
+    c.add_argument("--adversarial-weight", type=float, default=0.0)
+    c.add_argument("--warmup", type=int, default=0,
+                   help="steps before the adversarial terms switch on")
+    c.add_argument("--amp", action="store_true", help="bfloat16 codec compute")
+    c.add_argument("--results", default="./results_codec")
+    c.add_argument("--resume", default=None, help="checkpoint to resume from")
+    c.add_argument("--save-every", type=int, default=5000)
+    c.add_argument("--steps-per-dispatch", type=int, default=None)
+    c.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel mesh size")
+    c.add_argument("--log-every", type=int, default=50)
     c.set_defaults(fn=cmd_codec_train)
 
     s = sub.add_parser("sample", help="generate audio from a checkpoint")
     on_device(s)
     s.add_argument("--checkpoint", required=True)
+    s.add_argument("--codec-checkpoint", default=None,
+                   help="codec weights for a checkpoint that lacks them (import-torch)")
     s.add_argument("--out", default="./samples")
     s.add_argument("--length", type=int, default=1024,
                    help="latent frames (320 samples each at 24 kHz)")
@@ -393,6 +479,8 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--demo", action="store_true",
                    help="tiny random model (plumbing demo)")
     v.add_argument("--checkpoint", default=None)
+    v.add_argument("--codec-checkpoint", default=None,
+                   help="codec weights for a checkpoint that lacks them (import-torch)")
     v.add_argument("--host", default="127.0.0.1")
     v.add_argument("--port", type=int, default=8080)
     v.add_argument("--timesteps", type=int, default=None)
@@ -412,10 +500,11 @@ def build_parser() -> argparse.ArgumentParser:
     common(n)
     n.set_defaults(fn=cmd_info)
 
-    i = sub.add_parser("import-torch", help="convert a reference checkpoint (not ported)")
+    i = sub.add_parser("import-torch", help="convert a reference torch checkpoint")
     i.add_argument("--input", required=True)
     i.add_argument("--output", required=True)
-    i.add_argument("--encodec", action="store_true")
+    i.add_argument("--encodec", action="store_true",
+                   help="input is a HuggingFace EncodecModel state dict")
     i.set_defaults(fn=cmd_import_torch)
 
     return p

@@ -35,8 +35,9 @@ def promoted_linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 def promoted_conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """``conv(x)`` (channels-first x) at the promoted dtype of x and the
-    conv's weight, as flax's Conv computes with mixed operands.
+    """``conv(x)`` (channels-first x; any ``nn.Conv1d`` or ``nn.Conv2d``) at
+    the promoted dtype of x and the conv's weight, as flax's Conv computes
+    with mixed operands.
 
     A bf16 convolution on the CPU is computed in f32 on the bf16 values and
     rounded once, which is its function (f32 sums of exact products):

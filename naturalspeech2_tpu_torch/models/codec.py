@@ -204,7 +204,12 @@ class SoundStream(nn.Module):
             return latents, codes, None
         return self.decode(quantized)
 
-    def codec_loss(self, audio: torch.Tensor):
-        raise NotImplementedError(
-            "codec training losses are not ported yet (ROADMAP Queue 1, item 18)"
-        )
+    def codec_loss(self, audio: torch.Tensor) -> dict:
+        """The codec's own training losses: waveform L1 of the decoded
+        straight-through quantized latents, and the commitment
+        ‖latents − sg(quantized)‖² (`CodecTrainer` trains with more)."""
+        latents = self.encode_latents(audio)
+        quantized, _ = self.quantize(latents)
+        recon = self.decode(latents + (quantized - latents).detach())
+        return {"recon": (recon - audio).abs().mean(),
+                "commitment": ((latents - quantized.detach()) ** 2).mean()}

@@ -2,10 +2,11 @@
 centred Hann STFT → power → HTK mel filterbank → dB, always in f32.
 
 `torch.stft` computes the JAX package's `stft` when it is given the same
-frames and window: ``center=True`` with reflect padding of n_fft // 2, and
-the periodic Hann of ``win_length`` (``np.hanning(w + 1)[:-1]``) zero-padded
-to ``n_fft`` on both sides, built here in numpy as the JAX package builds
-it.
+frames and window: the audio reflect-padded by n_fft // 2 on each side (as
+``jnp.pad(mode="reflect")``, which reflects again where the pad is longer
+than the audio, and ``F.pad`` refuses), and the periodic Hann of
+``win_length`` (``np.hanning(w + 1)[:-1]``) zero-padded to ``n_fft`` on
+both sides, built here in numpy as the JAX package builds it.
 """
 
 from __future__ import annotations
@@ -48,13 +49,24 @@ def _window(n_fft: int, win_length: int) -> np.ndarray:
     return np.pad(window, (pad, n_fft - win_length - pad))
 
 
+def reflect_pad(audio: torch.Tensor, pad: int) -> torch.Tensor:
+    """``jnp.pad(audio, ((0, 0), (pad, pad)), mode="reflect")`` for any pad:
+    the signal's reflection repeats with period 2·(T − 1)."""
+    t = audio.shape[-1]
+    if pad < t:
+        return torch.nn.functional.pad(audio[:, None], (pad, pad), mode="reflect")[:, 0]
+    period = 2 * (t - 1)
+    idx = torch.arange(-pad, t + pad, device=audio.device).remainder(period)
+    return audio[:, torch.where(idx >= t, period - idx, idx)]
+
+
 def stft(audio: torch.Tensor, n_fft: int = 1024, hop_length: int = 160,
          win_length: int = 640) -> torch.Tensor:
     """Complex STFT ``[b, n_fft // 2 + 1, 1 + T // hop]`` of audio [b, T]."""
-    audio = audio.to(torch.float32)
+    audio = reflect_pad(audio.to(torch.float32), n_fft // 2)
     window = torch.from_numpy(_window(n_fft, win_length)).to(audio.device)
     return torch.stft(audio, n_fft, hop_length=hop_length, win_length=n_fft, window=window,
-                      center=True, pad_mode="reflect", onesided=True, return_complex=True)
+                      center=False, onesided=True, return_complex=True)
 
 
 def audio_to_mel(audio: torch.Tensor, *, n_mels: int = 100, sample_rate: int = 24000,

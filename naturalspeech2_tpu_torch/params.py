@@ -8,6 +8,10 @@ module never sees JAX. Layout rules:
 - a Conv kernel [k, in, out] becomes a Conv1d weight [out, in, k];
 - a ConvTranspose kernel [k, in, out] becomes a ConvTranspose1d weight
   [in, out, k] with k reversed (see `models/codec.py`);
+- a 2-D Conv kernel [kh, kw, in, out] becomes a Conv2d weight
+  [out, in, kh, kw];
+- an LSTM's ``w_ih_{l}`` / ``w_hh_{l}`` [d, 4d] become ``weight_ih_l{l}`` /
+  ``weight_hh_l{l}`` [4d, d], its biases as they are;
 - an Embed table [num, dim] is an Embedding weight as it is, and a
   GroupNorm's scale/bias are its weight/bias;
 - the weights a kernel consumes keep their JAX layouts: the stacked
@@ -15,7 +19,11 @@ module never sees JAX. Layout rules:
   projections and the feed-forward tree;
 - a ``scan_layers=True`` tree's ``transformer/layers/{attn,cross_attn,ff}``
   leaves, stacked on a leading depth axis, are unbound along that axis
-  into the same per-layer modules as the unrolled ``attn_{i}`` / ``ff_{i}``.
+  into the same per-layer modules as the unrolled ``attn_{i}`` / ``ff_{i}``;
+- an unfused WaveNet tree (``use_fused_wavenet=False``, and what
+  `utils/torch_import.py` maps a reference checkpoint to:
+  ``wavenet/stack_{s}/block_{l}/...``) is stacked into the fused layout
+  the port's WaveNet takes.
 
 Every leaf must be consumed and every expected leaf present; otherwise
 ``load_jax_params`` raises.
@@ -23,10 +31,12 @@ Every leaf must be consumed and every expected leaf present; otherwise
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
 import torch
+
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     out = {}
@@ -68,6 +78,13 @@ class _Converter:
         kernel = self._take(f"{src}/kernel")
         self.state[f"{dst}.weight"] = kernel.flip(0).permute(1, 2, 0).contiguous()
         self.raw(f"{src}/bias", f"{dst}.bias")
+
+    def conv2d(self, src: str, dst: str) -> None:
+        self.state[f"{dst}.weight"] = self._take(f"{src}/kernel").permute(3, 2, 0, 1).contiguous()
+        self.raw(f"{src}/bias", f"{dst}.bias")
+
+    def transposed(self, src: str, dst: str) -> None:
+        self.state[dst] = self._take(src).T.contiguous()
 
     def embed(self, src: str, dst: str) -> None:
         self.raw(f"{src}/embedding", f"{dst}.weight")
@@ -121,7 +138,39 @@ class _Converter:
         return self.state
 
 
+def _fuse_wavenet(conv: _Converter) -> None:
+    """Rewrites an unfused WaveNet's per-block leaves as the fused layout:
+    conv_w[s, l] [3d, d] the causal conv's taps stacked (x_{t−2δ} ‖ x_{t−δ}
+    ‖ x_t), res_w / skip_w the 1×1 kernels, film_w / film_b the blocks'
+    time-conditioning Dense (skips from the last stack only)."""
+    stacks = conv.count("wavenet/stack_{}")
+    layers = conv.count("wavenet/stack_0/block_{}")
+    fused = {name: [] for name in ("conv_w", "conv_b", "res_w", "res_b", "film_w", "film_b")}
+    for s in range(stacks):
+        rows = {name: [] for name in fused}
+        for layer in range(layers):
+            base = f"wavenet/stack_{s}/block_{layer}"
+            kernel = conv.leaves.pop(f"{base}/conv/Conv_0/kernel")  # [3, d, d]
+            rows["conv_w"].append(kernel.reshape(-1, kernel.shape[-1]))
+            rows["conv_b"].append(conv.leaves.pop(f"{base}/conv/Conv_0/bias"))
+            rows["res_w"].append(conv.leaves.pop(f"{base}/res_conv/Conv_0/kernel")[0])
+            rows["res_b"].append(conv.leaves.pop(f"{base}/res_conv/Conv_0/bias"))
+            rows["film_w"].append(conv.leaves.pop(f"{base}/to_time_cond/kernel"))
+            rows["film_b"].append(conv.leaves.pop(f"{base}/to_time_cond/bias"))
+        for name in fused:
+            fused[name].append(np.stack(rows[name]))
+    last = f"wavenet/stack_{stacks - 1}"
+    for name in fused:
+        conv.leaves[f"wavenet/{name}"] = np.stack(fused[name])
+    conv.leaves["wavenet/skip_w"] = np.stack([conv.leaves.pop(f"{last}/block_{layer}/skip_conv/Conv_0/kernel")[0]
+                                              for layer in range(layers)])
+    conv.leaves["wavenet/skip_b"] = np.stack([conv.leaves.pop(f"{last}/block_{layer}/skip_conv/Conv_0/bias")
+                                              for layer in range(layers)])
+
+
 def _model(conv: _Converter) -> None:
+    if conv.has("wavenet/stack_0"):  # an unfused WaveNet
+        _fuse_wavenet(conv)
     if conv.has("to_self_cond"):  # self_cond=True
         conv.dense("to_self_cond", "to_self_cond")
     conv.raw("time_pos_emb/weights", "time_pos_emb.weights")
@@ -251,14 +300,57 @@ def _codec(conv: _Converter) -> None:
     conv.raw("codebooks", "codebooks")
 
 
+def _encodec_conv(conv: _Converter, src: str, dst: str, transposed: bool = False) -> None:
+    (conv.conv_transpose if transposed else conv.conv)(f"{src}/conv", f"{dst}.conv")
+    if conv.has(f"{src}/norm"):  # norm_type="time_group_norm"
+        conv.group_norm(f"{src}/norm", f"{dst}.norm")
+
+
+def _encodec(conv: _Converter) -> None:
+    """`Encodec`: ``encoder`` / ``decoder`` ``layer_{i}`` at the torch
+    ModuleList's indices (an LSTM holds ``w_ih_0``, a residual unit
+    ``block_1``). A decoder conv right after an ELU slot (an index with no
+    layer) is transposed, but for the first and the last layer."""
+    for mod in ("encoder", "decoder"):
+        rx = re.compile(rf"{mod}/layer_(\d+)/")
+        indices = sorted({int(m.group(1)) for p in conv.leaves if (m := rx.match(p))})
+        for i in indices:
+            src, dst = f"{mod}/layer_{i}", f"{mod}.layer_{i}"
+            if f"{src}/w_ih_0" in conv.leaves:
+                layer = 0
+                while f"{src}/w_ih_{layer}" in conv.leaves:
+                    for w in ("ih", "hh"):
+                        conv.transposed(f"{src}/w_{w}_{layer}", f"{dst}.lstm.weight_{w}_l{layer}")
+                        conv.raw(f"{src}/b_{w}_{layer}", f"{dst}.lstm.bias_{w}_l{layer}")
+                    layer += 1
+            elif conv.has(f"{src}/block_1"):
+                for name in ("block_1", "block_3", "shortcut"):
+                    if conv.has(f"{src}/{name}"):
+                        _encodec_conv(conv, f"{src}/{name}", f"{dst}.{name}")
+            else:
+                transposed = (mod == "decoder" and 0 < i != indices[-1]
+                              and i - 1 not in indices)
+                _encodec_conv(conv, src, dst, transposed)
+    conv.raw("codebooks", "codebooks")
+
+
+def _discriminator(conv: _Converter) -> None:
+    """`MultiScaleSTFTDiscriminator`: ``disc_{n_fft}/Conv_{j}``."""
+    for disc in sorted({p.split("/")[0] for p in conv.leaves}):
+        for j in range(conv.count(f"{disc}/Conv_{{}}")):
+            conv.conv2d(f"{disc}/Conv_{j}", f"{disc}.convs.{j}")
+
+
 def load_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
     """JAX param tree → state dict of the matching port module.
 
     ``tree`` is one of: a `NaturalSpeech2` tree ``{"model": ..., "codec":
     ...}`` (codec optional; a conditional one also holds ``phoneme_enc``,
     ``prompt_enc``, ``duration_pitch``, ``aligner`` and ``pitch_emb``), a
-    `Model` tree (it has ``"wavenet"``), a `SoundStream` tree (it has
-    ``"codebooks"``) or a `ConditionableTransformer` tree (it has
+    `Model` tree (it has ``"wavenet"``), an `Encodec` tree (``"encoder"``,
+    ``"decoder"`` and ``"codebooks"``), a `SoundStream` tree (other
+    ``"codebooks"``), a `MultiScaleSTFTDiscriminator` tree (only
+    ``"disc_{n_fft}"``) or a `ConditionableTransformer` tree (it has
     ``"ada_norm_w"``); `Model` and `ConditionableTransformer` trees may
     come from ``scan_layers=True``. Load the result with
     ``module.load_state_dict(state, strict=True)``.
@@ -277,11 +369,15 @@ def load_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
     conv = _Converter(tree)
     if "wavenet" in keys:
         _model(conv)
+    elif {"encoder", "decoder", "codebooks"} <= keys:
+        _encodec(conv)
     elif "codebooks" in keys:
         _codec(conv)
+    elif keys and all(k.startswith("disc_") for k in keys):
+        _discriminator(conv)
     elif "ada_norm_w" in keys:
         _adaptive_transformer(conv, "", "")
     else:
-        raise ValueError(f"not a Model, SoundStream, ConditionableTransformer or NaturalSpeech2 "
-                         f"tree: keys {sorted(keys)}")
+        raise ValueError(f"not a Model, Encodec, SoundStream, discriminator, "
+                         f"ConditionableTransformer or NaturalSpeech2 tree: keys {sorted(keys)}")
     return conv.finish()

@@ -1,8 +1,9 @@
 """The port's CLI (`python -m naturalspeech2_tpu_torch`, `ns2-torch`) on
 the CPU with tiny configs: `train` → checkpoint → `sample`, conditional
 `sample` from text and a WAV prompt, `build_engine` from a checkpoint,
-`serve --demo` over HTTP, `info` against the JAX package's `info`, and the
-named refusals of what is not ported."""
+`serve --demo` over HTTP, `info` against the JAX package's `info`,
+`codec-train` with a resume, `import-torch --encodec`, `train` → `sample`
+with the Encodec codec, and the named refusals of what is not ported."""
 
 import base64
 import json
@@ -261,9 +262,8 @@ REFUSALS = {
     "param_sharding": (["train", "--param-sharding", "fsdp"], "item 21"),
     "mesh_data": (["train", "--mesh-data", "2"], "item 21"),
     "serve_tp": (["serve", "--tp", "2"], "item 21"),
-    "codec_train": (["codec-train"], "item 18"),
-    "import_torch": (["import-torch", "--input", "ref.pt", "--output", "x.ckpt"], "item 22"),
-    "encodec": (["info"], "item 17"),
+    "codec_train_mesh": (["codec-train", "--mesh-data", "2"], "item 21"),
+    "codec_train_dispatch": (["codec-train", "--steps-per-dispatch", "4"], "item 11"),
 }
 
 
@@ -272,19 +272,12 @@ def test_named_refusals(work, case):
     argv, item = REFUSALS[case]
     command, extra = argv[0], argv[1:]
     cfg = work["cond"] if command == "serve" else work["tiny"]
-    if case == "encodec":
-        (work["root"] / "encodec.json").write_text(json.dumps({"codec": {"type": "encodec"}}))
-        cfg = str(work["root"] / "encodec.json")
-    if command == "import-torch":
-        args = argv
-    else:
-        device = CPU if command in ("train", "sample", "serve") else []
-        args = [command, "--config", cfg, *device, *extra]
-        if command in ("train", "codec-train"):
-            args += ["--folder", str(work["folder"])]
-        if command in ("sample", "serve"):
-            args += ["--checkpoint", work["cond_ckpt"] if command == "serve" else
-                     str(_tiny_checkpoint(work))]
+    args = [command, "--config", cfg, *CPU, *extra]
+    if command in ("train", "codec-train"):
+        args += ["--folder", str(work["folder"])]
+    if command in ("sample", "serve"):
+        args += ["--checkpoint", work["cond_ckpt"] if command == "serve" else
+                 str(_tiny_checkpoint(work))]
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         cli.main(args)
 
@@ -363,3 +356,92 @@ def test_config_and_flagship(tmp_path):
     bad.write_text(json.dumps({"modell": {"dim": 8}}))
     with pytest.raises(AssertionError, match="unknown config section"):
         cli.main(["info", "--config", str(bad)])
+
+
+# the Encodec codec at the widths of tests/test_torch_encodec.py (hop 8)
+ENCODEC = {"type": "encodec", "codebook_dim": 16, "num_filters": 4, "upsampling_ratios": [4, 2],
+           "num_quantizers": 2, "codebook_size": 32, "num_lstm_layers": 1,
+           "use_pallas_rvq": False}
+
+
+def test_codec_train_and_resume(work, tmp_path):
+    """`codec-train` of the Encodec (adversarial from step 1) writes a
+    checkpoint every ``--save-every`` steps and at the end; ``--resume``
+    continues from the checkpoint's step to ``--steps`` (either codec's
+    steps against JAX: tests/test_torch_codec_trainer.py)."""
+    cfg = tmp_path / "codec.json"
+    cfg.write_text(json.dumps({"codec": ENCODEC}))
+    results = tmp_path / "results"
+    base = ["codec-train", "--folder", str(work["folder"]), "--config", str(cfg),
+            "--batch-size", "2", "--data-seconds", "0.04", "--adversarial-weight", "1",
+            "--warmup", "1", "--save-every", "2", "--results", str(results), "--log-every", "1",
+            *CPU]
+    assert cli.main([*base, "--steps", "3"]) == 0
+    assert sorted(p.name for p in results.glob("codec-*.ckpt")) == ["codec-2.ckpt", "codec-3.ckpt"]
+    payload = torch.load(results / "codec-3.ckpt", weights_only=True)
+    assert payload["step"] == 3 and "disc_params" in payload
+    assert cli.main([*base, "--steps", "4", "--resume", str(results / "codec-3.ckpt")]) == 0
+    payload = torch.load(results / "codec-4.ckpt", weights_only=True)
+    assert payload["step"] == 4 and payload["disc_updates"] == 3
+
+
+def test_import_torch_encodec(tmp_path):
+    """`import-torch --encodec` on a HuggingFace-layout state dict (the
+    port's own Encodec's, renamed: ``layers.{i}``, ``block.{j}``, one
+    ``codebook.embed`` per quantizer) gives back the same tensors, loadable
+    with ``strict=True``."""
+    from naturalspeech2_tpu_torch.models.encodec import Encodec
+
+    torch.manual_seed(0)
+    codec = Encodec(codebook_dim=16, num_filters=4, codebook_size=32, num_lstm_layers=1)
+    hf = {}
+    for k, v in codec.state_dict().items():
+        if k == "codebooks":
+            hf.update({f"quantizer.layers.{q}.codebook.embed": v[q] for q in range(8)})
+        else:
+            hf[re.sub(r"block_(\d)", r"block.\1", re.sub(r"layer_(\d+)", r"layers.\1", k))] = v
+    path, out = tmp_path / "hf.pt", tmp_path / "encodec.ckpt"
+    torch.save(hf, path)
+    assert cli.main(["import-torch", "--encodec", "--input", str(path), "--output", str(out)]) == 0
+    fresh = Encodec(codebook_dim=16, num_filters=4, codebook_size=32, num_lstm_layers=1)
+    fresh.load_state_dict(torch.load(out, weights_only=True)["params"], strict=True)
+    for k, v in codec.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k
+
+
+def test_train_sample_and_info_with_encodec(work, tmp_path, capsys):
+    """``{"codec": {"type": "encodec"}}``: `train` → checkpoint → `sample`
+    on the CPU (waveforms of length × hop), and `info` (Encodec's hop and
+    rate) against the JAX package's `info`."""
+    cfg = tmp_path / "encodec.json"
+    cfg.write_text(json.dumps({**TINY, "codec": ENCODEC}))
+    results = tmp_path / "results"
+    assert cli.main(["train", "--folder", str(work["folder"]), "--config", str(cfg),
+                     "--steps", "2", "--batch-size", "2", "--save-every", "2",
+                     "--results", str(results), "--data-seconds", "0.04", "--log-every", "1",
+                     *CPU]) == 0
+    out = tmp_path / "out"
+    assert cli.main(["sample", "--checkpoint", str(results / "model-1.ckpt"), "--config", str(cfg),
+                     "--out", str(out), "--length", "6", "--timesteps", "2", *CPU]) == 0
+    audio, sr = load_audio(out / "sample-0.wav")
+    assert sr == 24000 and audio.shape == (6 * 8,) and np.isfinite(audio).all()
+    capsys.readouterr()
+    assert jcli.main(["info", "--config", str(cfg)]) == 0
+    expected = _info_lines(capsys.readouterr().out)
+    assert cli.main(["info", "--config", str(cfg)]) == 0
+    got = _info_lines(capsys.readouterr().out)
+    assert got == expected and "codec: hop=8 sample_hz=24000" in got[1]
+
+
+def test_engine_serves_with_encodec(work, tmp_path):
+    """A conditional config on the Encodec codec: `cli.build_engine` from a
+    checkpoint and `TTSEngine.tts` on the CPU (the prompt encoded with
+    curtail_from_left, the sample decoded by Encodec)."""
+    cfg = {**CONDITIONAL, "codec": ENCODEC}
+    path, ckpt = tmp_path / "cond_encodec.json", tmp_path / "cond_encodec.ckpt"
+    path.write_text(json.dumps(cfg))
+    torch.save({"params": cli.build_ns2(cli.load_config(str(path))).state_dict()}, ckpt)
+    engine = cli.build_engine(str(path), str(ckpt), timesteps=2, cond_scale=2.0, device="cpu",
+                              text_buckets=(16,), frame_buckets=(8,), prompt_samples=640)
+    wav, sr = engine.tts("hi", np.zeros(643, np.float32), seconds=8 * 8 / 24000)
+    assert sr == 24000 and wav.shape == (8 * 8,) and np.isfinite(wav).all()

@@ -57,12 +57,32 @@ def test_decode_matches_jax():
 
 
 def test_encode_is_outside_the_slice():
-    """Encode and quantize are ported now (tests/test_torch_codec_encode.py
-    holds them against flax); the codec's own training losses are not."""
-    port = SoundStream(**CFG)
-    with torch.no_grad():
-        latents = port.encode_latents(torch.zeros(1, 640))
-        quantized, codes = port.quantize(latents)
-    assert latents.shape == quantized.shape == (1, 2, 16) and codes.shape == (1, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.codec_loss(torch.zeros(1, 640))
+    """Encode and quantize are ported (tests/test_torch_codec_encode.py
+    holds them against flax), and so is the codec's own training loss now:
+    `codec_loss` (waveform L1 of the straight-through decode, commitment)
+    against the JAX module's, values and gradients (codec training itself:
+    tests/test_torch_codec_trainer.py)."""
+    codec = JSoundStream(**CFG, use_pallas_rvq=False)
+    audio = np.tanh(normal(np.random.default_rng(4), 2, 2 * 320))
+    params = jitter(numpy_tree(codec.init(jax.random.PRNGKey(0), jnp.asarray(audio))["params"]), 3)
+
+    def loss_j(p):
+        losses = codec.apply({"params": p}, jnp.asarray(audio), method=codec.codec_loss)
+        return losses["recon"] + losses["commitment"], losses
+
+    (_, expected), grads = jax.value_and_grad(loss_j, has_aux=True)(params)
+    port = SoundStream(**CFG, use_pallas_rvq=False)
+    port.load_state_dict(load_jax_params(params), strict=True)
+    losses = port.codec_loss(t(audio))
+    assert set(losses) == set(expected)
+    for k in losses:
+        assert_close(losses[k], expected[k], atol=0, rtol=1e-5)
+    (losses["recon"] + losses["commitment"]).backward()
+    named = dict(port.named_parameters())
+    for name, want in load_jax_params(numpy_tree(grads)).items():
+        got = named[name].grad
+        if got is None:  # the codebooks: no gradient through the straight-through
+            assert name == "codebooks" and not np.any(want.numpy())
+            continue
+        scale = float(want.abs().max())
+        assert_close(got, want, atol=1e-5 * scale)

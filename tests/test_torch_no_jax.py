@@ -36,6 +36,9 @@ def test_import_loads_no_jax():
         "import naturalspeech2_tpu_torch.ops.ctc, naturalspeech2_tpu_torch.utils.helpers\n"
         "import naturalspeech2_tpu_torch.serve, naturalspeech2_tpu_torch.cli\n"
         "import naturalspeech2_tpu_torch.distill\n"
+        "import naturalspeech2_tpu_torch.models.encodec, naturalspeech2_tpu_torch.codec_trainer\n"
+        "import naturalspeech2_tpu_torch.models.discriminator, naturalspeech2_tpu_torch.ops.stft_loss\n"
+        "import naturalspeech2_tpu_torch.utils.torch_import\n"
         "import naturalspeech2_tpu_torch.examples.wavenet_d512_probe\n"
         "import naturalspeech2_tpu_torch.utils.tokenizer, naturalspeech2_tpu_torch.utils.cleaner\n"
         "import naturalspeech2_tpu_torch.utils.phonemizers.fallback_multi\n"
