@@ -111,7 +111,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      call (round wall p50 / p95, audio-seconds per second over the ten),
      and `TTSServer` on 127.0.0.1 over urllib: /healthz, /metrics, ten
      POST /tts with a base64 WAV prompt (p50 / p95), a streamed reply, a
-     text past the largest bucket (long-formed) and a non-WAV prompt
+     text past the largest bucket (long-formed) and a FLAC header
      (400); every waveform finite and of its length;
  21. the same engine at full width on the card against the CPU, 2 steps,
      200 frames, the same injected noise: equal token ids, the waveform
@@ -223,7 +223,31 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      normalisation, 1-s chunks at 1 % overlap) at facebook/encodec_48khz's
      widths: chunked encode and overlap-add decode of 2.5 s of stereo
      (three chunks, the last partial; one K6 launch each), card against
-     CPU: codes tie-tolerantly, scales, the decoded audio.
+     CPU: codes tie-tolerantly, scales, the decoded audio;
+ 40. Model(use_fused_wavenet=False) at the flagship's widths (its WaveNet
+     block by block on cuDNN convs): a 100-step DDIM `sample()` at b4 x
+     n1024 with exact launches (no K1; K2 and K3 600 each), its denoise step
+     beside the fused flagship's in turns (CUDA events), one forward card
+     against CPU within PATH_TOL;
+ 41. ConditionableTransformer(dim_cond_mult=None, ff_causal_conv=False) at
+     the flagship's widths, b4 x n1024: the forward (K4 once a layer) and
+     the backward (K5 once a layer) with exact launches, the output within
+     PATH_TOL and every gradient within GRAD_RTOL card against CPU, times;
+ 42. the native decoder and the trainers' options: FLAC_FILES seeded FLACs
+     (2.5 s, 24 kHz) decoded to their PCM16 / 32768 exactly and timed; the
+     flagship `Trainer` on them at b16 x 2 s for 8 steps at
+     steps_per_dispatch 4 and at 1 from one seed (states within
+     GRAD_RTOL, launches exact, the dispatch's logged loss the mean of its
+     steps'), `profile_steps=(2, 4)` leaving a trace that names the port's
+     kernels, one dispatch against four single steps in turns (ms per
+     step, exact launches); `CodecTrainer.train(6, steps_per_jit=4)` ending
+     at step 6 with the JAX log rule; `CodecTrainer(amp=True)` for
+     SoundStream and Encodec card against CPU to phase 30's AMP floor (the
+     STFT term off, as phase 38), then two AMP steps on the card;
+ 43. (run after phase 33, on phase 20's engine) POST /tts of phase 20's
+     sentence at 6.8 s with phase 20's prompt as a PCM16 FLAC, three
+     times: 200, a PCM16 WAV of 163,200 samples, the wall time of each,
+     exact launches.
 K2, K2b and K3 are held to BLOCK_TOL (split TF32 on the tensor cores
 against f32 plain versions) at every shape they run: b4 x n1024 x dim 128,
 the conditional [8, 512, 128], the long-form n4500 and n9000 and the
@@ -233,7 +257,9 @@ The line before the last is the kernels' JSON summary (each kernel's
 time, plain time, bound and launches, by path: "serve" counts phase 20's
 50 sequential requests, "train_amp" and "conditional_train_amp" phases 28
 and 29's ten AMP steps, "encodec_*" and "codec_train_*" phases 37-39's
-paths; a row per dtype, "mixed" for f32 activations
+paths, "unfused_wavenet_sample", "plain_transformer", "flac_train_k4" /
+"flac_train_k1", "dispatch", "codec_train_jit", "codec_train_amp_*" and
+"serve_flac" phases 40-43's; a row per dtype, "mixed" for f32 activations
 against bf16 weights, the bf16 and mixed rows with their f32 kernel's
 time at the same shape, and a "bf16_matmul" row for K1b's option, whose
 launches are the probe's); the last line is
@@ -538,6 +564,30 @@ CODEC_CHECK_BATCH, CODEC_CHECK_SECONDS = 2, 0.4
 ENC48 = dict(target_sample_hz=48000, causal=False, norm_type="time_group_norm",
              audio_channels=2, normalize=True, chunk_length_s=1.0, overlap=0.01)
 ENC48_SECONDS = 2.5
+
+# The missing modules (phases 40-43). Phase 40: Model(use_fused_wavenet=False)
+# at the flagship's widths (its WaveNet block by block on cuDNN convs, K2 and
+# K3 in its transformer). Phase 41: ConditionableTransformer(dim_cond_mult=
+# None, ff_causal_conv=False) at the flagship's widths, b4 x n1024 (its
+# attention unfused on K4 forward and K5 backward). Phase 42: FLAC_FILES
+# seeded FLACs of FLAC_SECONDS (one verbatim frame holds at most 65,535
+# samples) feeding the flagship Trainer at b16 x 2 s for DISPATCH_STEPS
+# steps, at steps_per_dispatch DISPATCH_K and at 1 (traced over
+# PROFILE_STEPS), CodecTrainer.train(CODEC_JIT_STEPS,
+# steps_per_jit=CODEC_JIT_K), and CodecTrainer(amp=True) for both codecs,
+# card against CPU at phase 38's check size to phase 30's AMP floor. Phase
+# 43: phase 20's sentence POSTed with a FLAC prompt, FLAC_POSTS times.
+FLAC_FILES, FLAC_SECONDS = 32, 2.5
+DISPATCH_K, DISPATCH_STEPS, PROFILE_STEPS = 4, 8, (2, 4)
+CODEC_JIT_STEPS, CODEC_JIT_K = 6, 4
+FLAC_POSTS = 3
+# the port's kernels as torch.profiler names them (the GEMM core of K1,
+# K2, K2b, K3 and K6; K4; K5; K6's update): every string of an entry must
+# appear in one kernel's name. K4's and K5's take an ns2::Dropout, which
+# tells them from PyTorch's own pytorch_flash::flash_fwd_kernel.
+PORT_KERNELS = (("ns2::gemm::gemm_kernel",), ("flash_fwd_kernel", "ns2::Dropout"),
+                ("flash_bwd_dq_kernel", "ns2::Dropout"), ("flash_bwd_dkv_kernel", "ns2::Dropout"),
+                ("rvq_update_kernel",))
 
 
 def log(phase: str, msg: str) -> None:
@@ -2225,8 +2275,8 @@ def phase20_serving(work: Path):
             status, _, body = _http(base, "/tts", {"text": SERVE_SENTENCE, "prompt_wav_base64":
                                                    base64.b64encode(b"fLaC" + bytes(60)).decode()})
             if status != 400:
-                raise AssertionError(f"non-WAV prompt: {status}, expected 400")
-            log("20", f"non-WAV prompt: 400 {json.loads(body)}")
+                raise AssertionError(f"a FLAC header with no stream: {status}, expected 400")
+            log("20", f"a FLAC header with no stream as the prompt: 400 {json.loads(body)}")
         finally:
             server.shutdown()
             server.server_close()
@@ -4343,6 +4393,400 @@ def phase39_encodec_48k() -> dict:
 
 
 
+# --------------------------------------------------------------------------- #
+# The missing modules: the unfused WaveNet, the plain transformer, the native
+# decoder and the trainers' dispatch options (phases 40-43)
+# --------------------------------------------------------------------------- #
+
+
+def phase40_unfused_wavenet() -> dict:
+    """Model(use_fused_wavenet=False) at the flagship's widths: a 100-step
+    DDIM sample at b4 x n1024 with exact launches (no K1; K2 and K3 in the
+    transformer), its denoise step beside the fused flagship's in turns,
+    and one forward card against CPU. Returns the sample's launch counts."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+
+    ns2_cpu = flagship(SEED + 400, use_fused_wavenet=False)
+    ns2 = copy.deepcopy(ns2_cpu).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 401)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    audio = ns2pkg.sample(ns2, batch_size=BATCH, length=LENGTH, timesteps=STEPS, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = ops.launch_counts()
+    if tuple(audio.shape) != (BATCH, LENGTH * 320) or not torch.isfinite(audio).all():
+        raise AssertionError(f"unfused sample: {tuple(audio.shape)}, finite "
+                             f"{bool(torch.isfinite(audio).all())}")
+    log("40", f"Model(use_fused_wavenet=False) sample(batch_size={BATCH}, length={LENGTH}, "
+              f"timesteps={STEPS}): finite {tuple(audio.shape)}, wall {wall:.3f} s incl. codec "
+              "decode")
+    check_counts("40", f"{STEPS}-step unfused-WaveNet sample", counts,
+                 {**{k: STEPS * v for k, v in PER_DENOISE.items()}, "wavenet_body": 0})
+
+    fused = flagship(SEED + 400).cuda()
+    with torch.no_grad():
+        x = torch.randn(BATCH, LENGTH, DIM, generator=gen, device="cuda")
+        times = torch.full((BATCH,), 0.5, device="cuda")
+        turns = [("fused", fused), ("unfused", ns2), ("unfused", ns2), ("fused", fused)]
+        step_ms = {"fused": [], "unfused": []}
+        for label, model in turns:
+            step_ms[label].append(cuda_ms(lambda: model.model(x, times), reps=10))
+    log("40", f"denoise step at b{BATCH} x n{LENGTH}, CUDA events, median of 10, in turns "
+              "fused, unfused, "
+              f"unfused, fused: unfused {', '.join(f'{v:.3f}' for v in step_ms['unfused'])} ms; "
+              f"fused (K1) {', '.join(f'{v:.3f}' for v in step_ms['fused'])} ms")
+    del fused
+
+    with torch.no_grad():
+        x = torch.randn(BATCH, LENGTH, DIM, generator=torch.Generator().manual_seed(SEED + 402))
+        times = torch.rand(BATCH, generator=torch.Generator().manual_seed(SEED + 403))
+        compare("40", f"unfused-WaveNet denoiser b{BATCH} x n{LENGTH}, card vs CPU",
+                ns2.model(x.cuda(), times.cuda()), ns2_cpu.model(x, times), PATH_TOL)
+    return {"unfused_wavenet_sample": counts}
+
+
+def phase41_plain_transformer() -> dict:
+    """ConditionableTransformer(dim_cond_mult=None, ff_causal_conv=False) at
+    the flagship's widths, b4 x n1024: the forward (K4 once a layer) and
+    the backward (K5 once a layer) with exact launches, times, and the
+    output and every gradient card against CPU. Returns the launch counts
+    of one forward and backward."""
+    import torch
+
+    from naturalspeech2_tpu_torch import ops
+    from naturalspeech2_tpu_torch.models.transformer import ConditionableTransformer
+
+    torch.manual_seed(SEED + 410)
+    ct_cpu = jitter_params(ConditionableTransformer(DIM, DEPTH, dim_head=DIM_HEAD, heads=HEADS,
+                                                    dim_cond_mult=None, ff_causal_conv=False,
+                                                    use_flash=True), SEED + 411)
+    ct = copy.deepcopy(ct_cpu).cuda()
+    x = torch.randn(BATCH, LENGTH, DIM, generator=torch.Generator().manual_seed(SEED + 412))
+    zero = {k: 0 for k in ops.launch_counts()}
+    results, outputs = [], []
+    for module, device in ((ct, "cuda"), (ct_cpu, "cpu")):
+        ops.reset_launch_counts()
+        out = module(x.to(device))
+        forward = ops.launch_counts()
+        ops.reset_launch_counts()
+        loss = out.square().mean()
+        loss.backward()
+        backward = ops.launch_counts()
+        if device == "cuda":
+            check_counts("41", "plain transformer forward", forward,
+                         {**zero, "flash_forward": DEPTH})
+            check_counts("41", "plain transformer backward", backward,
+                         {**zero, "flash_backward": DEPTH})
+            counts = {k: forward[k] + backward[k] for k in forward}
+        outputs.append(out.detach())
+        results.append((loss.item(), {n: p.grad.cpu() for n, p in module.named_parameters()}))
+    compare("41", f"plain transformer b{BATCH} x n{LENGTH}, card vs CPU", outputs[0], outputs[1], PATH_TOL)
+    _grads_card_vs_cpu("41", f"plain transformer mean(y²) b{BATCH} x n{LENGTH}", results)
+
+    xc = x.cuda().requires_grad_()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: ct(xc), reps=10)
+
+    def fwd_bwd():
+        ct(xc).square().mean().backward()
+
+    both_ms = cuda_ms(fwd_bwd, reps=5)
+    log("41", f"plain transformer (depth {DEPTH}, heads {HEADS} x {DIM_HEAD}) b{BATCH} x n{LENGTH}: "
+              f"forward {fwd_ms:.3f} ms, forward + backward {both_ms:.3f} ms (CUDA events, "
+              "medians of 10 and 5)")
+    return {"plain_transformer": counts}
+
+
+def flac_bytes(pcm, sr: int) -> bytes:
+    """A one-frame FLAC stream holding ``pcm`` (16-bit mono, at most 65,535
+    samples) in one verbatim subframe: the bytes tests/test_native_audioio.py's
+    `encode_flac_verbatim` writes (STREAMINFO, a frame header with the
+    24-kHz table rate and a 16-bit block size, the subframe header byte,
+    the samples big-endian, a zero CRC-16), built with numpy."""
+    import struct
+
+    import numpy as np
+
+    n = len(pcm)
+    if not 0 < n <= 65535 or sr != 24000:
+        raise ValueError(f"one verbatim frame at 24 kHz holds 1-65535 samples, got {n} at {sr}")
+    info = bytearray(34)
+    info[0:2] = struct.pack(">H", 16)
+    info[2:4] = struct.pack(">H", max(n, 16))
+    info[10:18] = ((sr << 44) | (15 << 36) | n).to_bytes(8, "big")
+    header = bytes([0xFF, 0xF8, 0x77, 0x08, 0x00]) + struct.pack(">H", n - 1)
+    crc = 0
+    for byte in header:  # CRC-8, polynomial 0x07
+        crc ^= byte
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x07) & 0xFF if crc & 0x80 else (crc << 1) & 0xFF
+    return (b"fLaC" + bytes([0x80, 0, 0, 34]) + bytes(info) + header + bytes([crc]) + b"\x02"
+            + np.asarray(pcm, ">i2").tobytes() + b"\x00\x00")
+
+
+def _write_flacs(folder: Path) -> list:
+    """FLAC_FILES seeded tones (as `_write_wavs`) of FLAC_SECONDS as PCM16
+    FLAC files; returns their PCM."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 420)
+    t = np.arange(int(FLAC_SECONDS * 24000)) / 24000
+    pcms = []
+    for i in range(FLAC_FILES):
+        f0 = rng.uniform(100.0, 400.0)
+        phase = 2 * np.pi * f0 * t + 3.0 * np.sin(2 * np.pi * rng.uniform(2, 6) * t)
+        audio = 0.4 * np.sin(phase) + 0.2 * np.sin(2 * phase) + 0.05 * rng.standard_normal(t.size)
+        pcm = (np.clip(audio, -1, 1) * 32767).astype(np.int16)
+        (folder / f"clip{i:02d}.flac").write_bytes(flac_bytes(pcm, 24000))
+        pcms.append(pcm)
+    return pcms
+
+
+def _rel_state_diff(a: dict, b: dict) -> tuple[float, str]:
+    """The largest of max|a - b| / max|b| over the tensors of two states."""
+    worst = (0.0, "")
+    for name, y in b.items():
+        err = ((a[name] - y).abs().max() / y.abs().max().clamp(min=1e-30)).item()
+        if not math.isfinite(err) or err > worst[0]:
+            worst = (err, name)
+    return worst
+
+
+def phase42_flac_and_dispatch(work: Path) -> dict:
+    """The native decoder and the trainers' options on the card: FLAC_FILES
+    FLACs decoded exactly (PCM16 / 32768) and timed; the flagship Trainer on
+    them at b16 x 2 s, DISPATCH_STEPS steps at steps_per_dispatch
+    DISPATCH_K, then at 1 from the same seed with ``profile_steps``; the two
+    states within GRAD_RTOL; one dispatch of DISPATCH_K steps against as
+    many single steps in turns, with exact launches; a trace naming the
+    port's kernels; CodecTrainer.train(CODEC_JIT_STEPS,
+    steps_per_jit=CODEC_JIT_K); CodecTrainer(amp=True) card against CPU
+    for both codecs. Returns launch counts by path."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+    from naturalspeech2_tpu_torch.data import load_audio
+    from naturalspeech2_tpu_torch.native import audioio
+
+    folder = work / "flacs"
+    folder.mkdir()
+    pcms = _write_flacs(folder)
+    start = time.perf_counter()
+    audioio.library()
+    log("42", f"native decoder built or loaded in {time.perf_counter() - start:.2f} s (g++)")
+    start = time.perf_counter()
+    decoded = [load_audio(p) for p in sorted(folder.glob("*.flac"))]
+    decode_s = time.perf_counter() - start
+    for (audio, sr), pcm in zip(decoded, pcms):
+        if sr != 24000 or not np.array_equal(audio, pcm.astype(np.float32) / 32768.0):
+            raise AssertionError("a FLAC did not decode to its PCM16 / 32768")
+    log("42", f"{FLAC_FILES} FLACs of {FLAC_SECONDS:g} s decoded exactly (PCM16 / 32768) in "
+              f"{decode_s * 1e3:.1f} ms: {decode_s * 1e3 / (FLAC_FILES * FLAC_SECONDS):.3f} ms per "
+              "second of audio (host clock, the card's host)")
+
+    counts = {}
+    kwargs = dict(folder=str(folder), train_batch_size=TRAIN_BATCH,
+                  data_max_length_seconds=TRAIN_SECONDS, train_num_steps=DISPATCH_STEPS,
+                  save_and_sample_every=10**9)
+    trainers = {}
+    for k in (DISPATCH_K, 1):
+        trainer = ns2pkg.Trainer(flagship(SEED + 421).cuda(), steps_per_dispatch=k,
+                                 results_folder=str(work / f"k{k}"), **kwargs)
+        ops.reset_launch_counts()
+        trainer.train(log_every=k, profile_steps=PROFILE_STEPS if k == 1 else None)
+        torch.cuda.synchronize()
+        counts[f"flac_train_k{k}"] = ops.launch_counts()
+        check_counts("42", f"Trainer(steps_per_dispatch={k}) {DISPATCH_STEPS} steps on FLACs",
+                     counts[f"flac_train_k{k}"], {n: DISPATCH_STEPS * v for n, v in PER_STEP.items()})
+        trainers[k] = trainer
+    rows = {k: [json.loads(line) for line in
+                (t.results_folder / "metrics.jsonl").read_text().splitlines()]
+            for k, t in trainers.items()}
+    if [r["step"] for r in rows[DISPATCH_K]] != list(range(DISPATCH_K, DISPATCH_STEPS + 1,
+                                                          DISPATCH_K)):
+        raise AssertionError(f"dispatch metrics steps {[r['step'] for r in rows[DISPATCH_K]]}")
+    for r in rows[DISPATCH_K]:
+        mean = statistics.fmean(q["loss"] for q in rows[1]
+                                if r["step"] - DISPATCH_K < q["step"] <= r["step"])
+        if not abs(r["loss"] - mean) <= GRAD_RTOL * abs(mean):
+            raise AssertionError(f"dispatch loss {r['loss']} at step {r['step']} vs mean {mean}")
+    a, b = trainers[DISPATCH_K], trainers[1]
+    params = _rel_state_diff(dict(a.ns2.named_parameters()), dict(b.ns2.named_parameters()))
+    ema = _rel_state_diff(a.ema, b.ema)
+    dispatch_losses = ", ".join(f"{r['loss']:.5f}" for r in rows[DISPATCH_K])
+    log("42", f"K={DISPATCH_K} logs steps {[r['step'] for r in rows[DISPATCH_K]]} with the "
+              f"dispatch's mean loss ({dispatch_losses}); "
+              f"after {DISPATCH_STEPS} steps K={DISPATCH_K} against K=1: parameters within "
+              f"{params[0]:.3e} ({params[1]}), EMA within {ema[0]:.3e} of each tensor's largest "
+              f"entry (tolerance {GRAD_RTOL:g}: cuDNN and index_add_ sum in no fixed order)")
+    if max(params[0], ema[0]) > GRAD_RTOL:
+        raise AssertionError(f"K={DISPATCH_K} and K=1 states differ: {params}, {ema}")
+
+    traces = sorted((b.results_folder / "profile").glob("*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profile_steps={PROFILE_STEPS} left {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    missing = [k for k in PORT_KERNELS
+               if not any(all(part in name for part in k) for name in kernels)]
+    log("42", f"profile_steps={PROFILE_STEPS}: {traces[0].name}, {len(events)} events, "
+              f"{len(kernels)} kernel launches; the port's kernels named: "
+              f"{[k[0] for k in PORT_KERNELS if k not in missing]}")
+    if missing:
+        raise AssertionError(f"the trace does not name {missing}")
+
+    batches = [next(a.batches) for _ in range(DISPATCH_K)]
+    turns = {"dispatch": [], "single": []}
+    for label in ("dispatch", "single", "single", "dispatch"):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        if label == "dispatch":
+            a.train_chunk(batches)
+        else:
+            for batch in batches:
+                b.train_step(batch)
+        torch.cuda.synchronize()
+        turns[label].append((time.perf_counter() - start) / DISPATCH_K * 1e3)
+        if label == "dispatch" and "dispatch" not in counts:
+            counts["dispatch"] = ops.launch_counts()
+            check_counts("42", f"one dispatch of {DISPATCH_K} steps", counts["dispatch"],
+                         {n: DISPATCH_K * v for n, v in PER_STEP.items()})
+    log("42", f"ms per optimizer step at b{TRAIN_BATCH} x {TRAIN_SECONDS:g} s (host clock, "
+              f"synchronised), in turns dispatch, single, single, dispatch: steps_per_dispatch="
+              f"{DISPATCH_K} {', '.join(f'{v:.2f}' for v in turns['dispatch'])}; one step a call "
+              f"{', '.join(f'{v:.2f}' for v in turns['single'])}")
+    del trainers, a, b
+    torch.cuda.empty_cache()
+
+    samples = int(CODEC_TRAIN_SECONDS * 24000)
+    codec_batches = [_seeded_audio(SEED + 422 + i, CODEC_TRAIN_BATCH, samples).numpy()
+                     for i in range(3)]
+    trainer = _codec_trainer(_new_codec("soundstream", SEED + 425).cuda(), work / "codec_jit")
+    trainer.batches = itertools.cycle(codec_batches)
+    ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        state = trainer.train(CODEC_JIT_STEPS, log_every=CODEC_JIT_K, steps_per_jit=CODEC_JIT_K)
+    counts["codec_train_jit"] = ops.launch_counts()
+    logged = [line for line in out.getvalue().splitlines() if line.startswith("codec step")]
+    log("42", f"CodecTrainer.train({CODEC_JIT_STEPS}, steps_per_jit={CODEC_JIT_K}): step "
+              f"{state.step}; {logged}")
+    # the JAX rule (step // k) % max(1, log_every // k) == 0 after the
+    # chunks ending at 4 and 6
+    if state.step != CODEC_JIT_STEPS or [int(x.split()[2].rstrip(":")) for x in logged] \
+            != [CODEC_JIT_K, CODEC_JIT_STEPS]:
+        raise AssertionError(f"codec chunks: step {state.step}, logged {logged}")
+    check_counts("42", "codec chunks", counts["codec_train_jit"],
+                 {n: CODEC_JIT_STEPS * int(n == "rvq") for n in PER_STEP})
+    del trainer
+
+    g = torch.Generator().manual_seed(SEED + 426)
+    audio = torch.tanh(torch.randn(CODEC_CHECK_BATCH, int(CODEC_CHECK_SECONDS * 24000),
+                                   generator=g)) * 0.5
+    for kind in ("soundstream", "encodec"):
+        cpu = _codec_trainer(_new_codec(kind, SEED + 427), work / f"{kind}_amp_cpu", amp=True,
+                             stft_weight=0.0)
+        card = _codec_trainer(copy.deepcopy(cpu.codec).cuda(), work / f"{kind}_amp_card",
+                              amp=True, stft_weight=0.0)
+        card.discriminator.load_state_dict(cpu.discriminator.state_dict(), strict=True)
+        on = {"cuda": card, "cpu": cpu}
+        for trainer in on.values():
+            trainer.init_state()
+
+        def run(device, moved, on=on):
+            trainer = on[device]
+            x = audio
+            if moved:
+                draw = torch.Generator().manual_seed(SEED + 428 + moved)
+                sign = torch.randint(0, 2, x.shape, generator=draw)
+                x = x * (1 + 2.0**-9 * (2 * sign - 1))
+            loss, metrics, _, _, _ = trainer._losses(x.to(device), adv_on=True)
+            params = dict(trainer.codec.named_parameters())
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            return ({k: v.item() for k, v in metrics.items()},
+                    {n: gr.float().cpu() for n, gr in zip(params, grads) if gr is not None})
+
+        _amp_grads("42", f"CodecTrainer(amp=True) {kind} b{CODEC_CHECK_BATCH} x "
+                         f"{CODEC_CHECK_SECONDS:g} s (STFT term off)", run)
+        ops.reset_launch_counts()
+        steps = [card.train_step(audio.numpy()) for _ in range(2)]
+        counts[f"codec_train_amp_{kind}"] = ops.launch_counts()
+        masters = [*card.codec.parameters(), *card.discriminator.parameters()]
+        if not all(math.isfinite(v) for m in steps for v in m.values()) or \
+                any(p.dtype != torch.float32 for p in masters):
+            raise AssertionError(f"{kind} AMP codec steps: {steps}")
+        losses = ", ".join(f"{m['loss']:.4f}" for m in steps)
+        log("42", f"{kind} CodecTrainer(amp=True): two steps on the card, losses {losses}, "
+                  "f32 master parameters")
+        del cpu, card, on
+    return counts
+
+
+def phase43_flac_prompt(engine) -> dict:
+    """Phase 20's sentence at SERVE_SECONDS POSTed to /tts with a FLAC
+    prompt (phase 20's prompt as PCM16 FLAC), FLAC_POSTS times: 200, a
+    PCM16 WAV of the request's length, the wall time of each, and the
+    launches of each request. Returns the launch counts."""
+    import base64
+    import io
+    import threading
+    import wave
+
+    import numpy as np
+
+    from naturalspeech2_tpu_torch import ops
+    from naturalspeech2_tpu_torch.data import decode_audio_bytes
+    from naturalspeech2_tpu_torch.serve import TTSServer
+
+    pcm = (np.clip(_serving_prompt(), -1, 1) * 32767).astype(np.int16)
+    flac = flac_bytes(pcm, 24000)
+    decoded, sr = decode_audio_bytes(flac)
+    if sr != 24000 or not np.array_equal(decoded, pcm.astype(np.float32) / 32768.0):
+        raise AssertionError("the FLAC prompt did not decode to its PCM16 / 32768")
+    samples = engine._prepare(SERVE_SENTENCE, decoded, SERVE_SECONDS, 0).frames * 320
+    server = TTSServer(engine, ("127.0.0.1", 0))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    walls = []
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        payload = {"text": SERVE_SENTENCE, "seconds": SERVE_SECONDS,
+                   "prompt_wav_base64": base64.b64encode(flac).decode()}
+        ops.reset_launch_counts()
+        for _ in range(FLAC_POSTS):
+            start = time.perf_counter()
+            status, kind, body = _http(base, "/tts", payload)
+            walls.append(time.perf_counter() - start)
+            if status != 200:
+                raise AssertionError(f"FLAC POST /tts: {status} {body[:200]!r}")
+            with wave.open(io.BytesIO(body)) as w:
+                if (kind, w.getframerate(), w.getsampwidth(), w.getnframes()) != (
+                        "audio/wav", 24000, 2, samples):
+                    raise AssertionError(f"FLAC POST /tts: {kind} {w.getnframes()} frames")
+        counts = ops.launch_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    check_counts("43", f"{FLAC_POSTS} FLAC POST /tts", counts,
+                 {k: FLAC_POSTS * v for k, v in PER_COND_SAMPLE.items()})
+    log("43", f"POST /tts with a {len(flac)}-byte FLAC prompt ({len(pcm)} samples) x "
+              f"{FLAC_POSTS}: 200 audio/wav, PCM16, {samples} samples at 24000 Hz; wall "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms")
+    return {"serve_flac": counts}
+
+
 def profile_runs() -> int:
     """torch.profiler over 10 flagship denoise steps at b4 x n1024, over a
     10-step conditional sample of README config 2, over 10 guided denoise
@@ -4547,6 +4991,7 @@ def main() -> int:
             engine, config, checkpoint, Path(work))
         phase26_bf16_card_vs_cpu(bf16_engine, engine, config, checkpoint)
         serve_dpmpp_counts = phase33_few_step_serving(engine, config, checkpoint, Path(work))
+        new_counts = phase43_flac_prompt(engine)
     del engine, bf16_engine
     torch.cuda.empty_cache()
 
@@ -4577,6 +5022,13 @@ def main() -> int:
     codec_counts.update(phase39_encodec_48k())
     torch.cuda.empty_cache()
     bf16mm_entry = phase31_bf16_matmul()
+    torch.cuda.empty_cache()
+    new_counts.update(phase40_unfused_wavenet())
+    torch.cuda.empty_cache()
+    new_counts.update(phase41_plain_transformer())
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        new_counts.update(phase42_flac_and_dispatch(Path(work)))
 
     for entry in summary:
         name = entry["name"]
@@ -4590,7 +5042,8 @@ def main() -> int:
                    **{path: c["f32"][name] for path, c in amp_counts.items()},
                    "few_step_sample": few_counts[name], "serve_dpmpp": serve_dpmpp_counts[name],
                    **{path: c[name] for path, c in few_train_counts.items()},
-                   **{path: c[name] for path, c in codec_counts.items()}}
+                   **{path: c[name] for path, c in codec_counts.items()},
+                   **{path: c[name] for path, c in new_counts.items()}}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         missing = [k for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",

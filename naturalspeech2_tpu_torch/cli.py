@@ -177,8 +177,6 @@ def cmd_codec_train(args) -> int:
     if args.mesh_data is not None:
         raise _not_ported(f"data-parallel codec training (--mesh-data {args.mesh_data})",
                           "item 21, parallel/")
-    if args.steps_per_dispatch not in (None, 1):
-        raise _not_ported("--steps-per-dispatch > 1", "item 11")
     device = resolve_device(args.device)
     torch.manual_seed(args.seed)
     codec = build_codec(load_config(args.config)["codec"]).to(device)
@@ -200,7 +198,8 @@ def cmd_codec_train(args) -> int:
     # in save_every-sized segments: a resumable checkpoint after each
     start = 0 if trainer.state is None else trainer.state.step
     while start < args.steps:
-        trainer.train(min(start + args.save_every, args.steps), log_every=args.log_every)
+        trainer.train(min(start + args.save_every, args.steps), log_every=args.log_every,
+                      steps_per_jit=args.steps_per_dispatch or 8)
         start = trainer.state.step
         print(trainer.save(start))
     return 0

@@ -248,6 +248,10 @@ class CodecTrainer:
         codebooks' EMA update with dead-code restarts from ``restart_idx``
         [Q, K] (rows of the flattened latents; drawn by ``restart_rows``
         when None). Returns the metrics as floats."""
+        return {k: float(v) for k, v in self._step(audio, restart_idx).items()}
+
+    def _step(self, audio, restart_idx: Optional[torch.Tensor] = None) -> dict:
+        """One step; the metrics as device scalars."""
         if self.state is None:
             self.init_state()
         state = self.state
@@ -275,7 +279,7 @@ class CodecTrainer:
 
         metrics.update(self._codebook_update(codebooks, flat, codes, restart_idx))
         state.step += 1
-        return {k: float(v.detach()) for k, v in metrics.items()}
+        return {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
     def _codebook_update(self, codebooks, flat, codes, restart_idx) -> dict:
@@ -316,20 +320,35 @@ class CodecTrainer:
             out["restarts"] = torch.stack(restarts).sum()
         return out
 
-    def train(self, num_steps: int, log_every: int = 50) -> CodecTrainState:
-        """Steps until ``num_steps`` (from the current step), a line of
-        metrics every ``log_every`` steps."""
+    def train(self, num_steps: int, log_every: int = 50, steps_per_jit: int = 8) -> CodecTrainState:
+        """Steps until ``num_steps`` (from the current step) in chunks of
+        ``steps_per_jit`` steps, the host waiting for the card once a chunk;
+        after a chunk that ends at step s, a line of its last step's metrics
+        when ``(s // k) % max(1, log_every // k) == 0``, as the JAX trainer
+        logs. Divergence from the JAX trainer: the last chunk is cut at
+        ``num_steps``, where JAX pads it with repeats of its last batch to
+        keep its compiled scan's length and so may pass ``num_steps`` by
+        up to k − 1 steps."""
         batch = next(self.batches)
         if self.state is None:
             self.init_state()
+        k = max(1, steps_per_jit)
         while self.state.step < num_steps:
-            metrics = self.train_step(batch)
-            if self.state.step % log_every == 0:
-                print(f"codec step {self.state.step}: loss {metrics['loss']:.4f} "
+            m = min(k, num_steps - self.state.step)
+            for i in range(m):
+                metrics = self._step(batch)
+                if i < m - 1:
+                    batch = next(self.batches)
+            step = self.state.step
+            if (step // k) % max(1, log_every // k) == 0:
+                metrics = {name: float(v) for name, v in metrics.items()}
+                print(f"codec step {step}: loss {metrics['loss']:.4f} "
                       f"(wav {metrics['wav_l1']:.4f}, stft {metrics['stft']:.4f}, "
                       f"perp {metrics['perplexity']:.1f}, usage {metrics['usage']:.2f}, "
                       f"restarts {int(metrics.get('restarts', 0))})", flush=True)
             batch = next(self.batches)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         return self.state
 
     # ------------------------------------------------------------------ #

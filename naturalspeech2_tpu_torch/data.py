@@ -5,10 +5,13 @@ A folder of audio files → load → resample to the codec rate → random crop
 to ``max_length`` → trim to a multiple of the hop → fixed-shape float32
 numpy batches. The crop and shuffle draws use the same
 ``random.Random(seed)`` streams as the JAX package, so both give the same
-batches for the same folder and seed. Decoding reads WAV (scipy, else the
-``wave`` module), from a file or from bytes (`decode_audio_bytes`); the
-JAX package's native decoder for other containers is not ported (ROADMAP
-item 16).
+batches for the same folder and seed. WAV is read in Python (scipy, else
+the ``wave`` module) from a file or from bytes (`decode_audio_bytes`);
+FLAC, MP3 and Ogg/Vorbis go to the native decoder (`native/audioio.py`,
+built with g++ at first use). Divergence from the JAX loader, which
+decodes WAV natively too: PCM16 WAV is scaled by 32767 here (its Python
+fallback's scale) and by 32768 there, so that one WAV file gives one
+scale in the port; FLAC keeps the native 32768.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import io
 import os
 import queue
 import random
+import tempfile
 import threading
 import wave
 import zlib
@@ -81,24 +85,34 @@ def _decode_wav(source, name: str) -> tuple[np.ndarray, int]:
     return data, sr
 
 
-_NO_NATIVE = "the port reads WAV only; FLAC/MP3/Ogg need the native decoder (ROADMAP item 16)"
-
-
 def load_audio(path) -> tuple[np.ndarray, int]:
-    """A WAV file → (float32 mono in [-1, 1], sample rate)."""
+    """An audio file → (float32 mono in [-1, 1], sample rate): WAV through
+    the Python reader, anything else through the native decoder, which
+    sniffs FLAC, MP3 and Ogg from the first bytes."""
     path = str(path)
-    if not path.lower().endswith(".wav"):
-        raise ValueError(f"cannot decode {path}: {_NO_NATIVE}")
-    return _decode_wav(path, path)
+    if path.lower().endswith(".wav"):
+        return _decode_wav(path, path)
+    from naturalspeech2_tpu_torch.native import audioio
+
+    return audioio.load(path)
 
 
 def decode_audio_bytes(raw: bytes, suffix: str = ".wav") -> tuple[np.ndarray, int]:
-    """An in-memory audio blob (e.g. an HTTP upload) → (float32 mono, sr).
-    ``suffix`` names the container; anything but a RIFF/WAVE blob raises
-    ValueError."""
-    if not suffix.lower().endswith(".wav") or raw[:4] != b"RIFF" or raw[8:12] != b"WAVE":
-        raise ValueError(f"cannot decode the {suffix} upload: {_NO_NATIVE}")
-    return _decode_wav(io.BytesIO(raw), "the upload")
+    """An in-memory audio blob (e.g. an HTTP upload) → (float32 mono, sr). A
+    RIFF/WAVE blob goes to the Python reader; any other goes through a
+    temporary file to the native decoder (``suffix`` names that file), which
+    raises ValueError for a blob that is no container it knows."""
+    if raw[:4] == b"RIFF" and raw[8:12] == b"WAVE":
+        return _decode_wav(io.BytesIO(raw), "the upload")
+    from naturalspeech2_tpu_torch.native import audioio
+
+    with tempfile.NamedTemporaryFile(suffix=suffix) as f:
+        f.write(raw)
+        f.flush()
+        try:
+            return audioio.load(f.name)
+        except ValueError as e:
+            raise ValueError(f"cannot decode the {suffix} upload: {e}") from e
 
 
 def resample(audio: np.ndarray, sr: int, target_sr: int) -> np.ndarray:

@@ -52,15 +52,32 @@ def promoted_conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
 
 
 class RMSNorm(nn.Module):
-    """x/‖x‖·√dim·γ with a learned γ (initialised to 1)."""
+    """x/‖x‖·√dim·γ with a learned γ (initialised to 1; none with
+    ``scale=False``). With ``dim_cond`` the output is FiLM-modulated per
+    sample by ``to_gamma_beta(cond)`` [b, 2·dim], a Linear initialised to
+    weight 0 and bias [1…, 0…] (identity at init): ``norm(x, cond)``."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, scale: bool = True, dim_cond: Optional[int] = None):
         super().__init__()
         self.dim = dim
-        self.gamma = nn.Parameter(torch.ones(dim))
+        self.gamma = nn.Parameter(torch.ones(dim)) if scale else None
+        self.to_gamma_beta = None
+        if dim_cond is not None:
+            self.to_gamma_beta = nn.Linear(dim_cond, 2 * dim)
+            nn.init.zeros_(self.to_gamma_beta.weight)
+            with torch.no_grad():
+                self.to_gamma_beta.bias.copy_(torch.cat([torch.ones(dim), torch.zeros(dim)]))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _normalize(x, self.dim) * self.gamma
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = _normalize(x, self.dim)
+        if self.gamma is not None:
+            out = out * self.gamma
+        if self.to_gamma_beta is None:
+            return out
+        if cond is None:
+            raise ValueError("a conditional RMSNorm needs cond")
+        gamma, beta = promoted_linear(self.to_gamma_beta, cond).chunk(2, dim=-1)
+        return out * gamma[:, None, :] + beta[:, None, :]
 
 
 class LearnedSinusoidalPosEmb(nn.Module):
@@ -143,18 +160,18 @@ class ConvBlock(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU MLP, ``inner = int(dim·mult·2/3)``, in one of two routes:
+    """GEGLU MLP, ``inner = int(dim·mult·2/3)``, with a causal k=3 conv
+    between gate and out-projection where ``causal_conv``:
 
-    - ``causal_conv=True``, the denoiser's block: a causal k=3 conv between
-      gate and out-projection, as one pre-norm residual block
-      ``x + FF(adaRMSNorm(x))``, called as ``ff(x, gamma, beta)``: kernel K3
-      where ``use_fused``, ``gelu_approximate`` and the JAX package's gate
-      `fits_fused_ff_block` all pass, else the same function as separate
-      tensor ops (exact GELU with ``gelu_approximate=False``), as the JAX
-      module runs it;
-    - ``causal_conv=False``, the encoders' plain MLP
-      ``W₂·(gelu(x·W_g + b_g) ∘ (x·W_v + b_v)) + b₂`` with no norm and no
-      residual, called as ``ff(x)``.
+    - ``ff(x, gamma, beta)`` is the pre-norm residual block
+      ``x + FF(adaRMSNorm(x))`` of the adaptive transformer: kernel K3
+      where ``causal_conv``, ``use_fused``, ``gelu_approximate`` and the
+      JAX package's gate `fits_fused_ff_block` all pass, else the same
+      function as separate tensor ops (exact GELU with
+      ``gelu_approximate=False``), as the JAX module runs it;
+    - ``ff(x)`` is the MLP alone, ``W₂·([conv₃](gelu(x·W_g + b_g) ∘ (x·W_v +
+      b_v))) + b₂``, with no norm and no residual (the encoders' MLP, and
+      the plain transformer layer's).
 
     The weights keep the JAX layouts: ``w1`` [dim, 2·inner] (value half
     first), ``wc`` [3, inner, inner], ``w2`` [inner, dim].
@@ -178,18 +195,18 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
                 beta: Optional[torch.Tensor] = None) -> torch.Tensor:
         residual = None
-        if self.causal_conv:
-            if self.fused and fits_fused_ff_block(x.shape[1], self.dim, self.w2.shape[0]):
+        if gamma is not None:
+            if (self.causal_conv and self.fused
+                    and fits_fused_ff_block(x.shape[1], self.dim, self.w2.shape[0])):
                 return ff_block(x, gamma, beta, self.w1, self.b1, self.wc, self.bc, self.w2,
                                 self.b2)
             residual, x = x, ada_rmsnorm(x, gamma, beta, self.dim)
         x, w1, b1 = promoted(x, self.w1, self.b1)
         val, gate = (x @ w1 + b1).chunk(2, dim=-1)
         a = F.gelu(gate, approximate=self.approximate) * val
-        if residual is None:
-            a, w2, b2 = promoted(a, self.w2, self.b2)
-            return a @ w2 + b2
-        # the conv's weights follow the activations, as the JAX module casts them
-        c = causal_conv3(a, self.wc.to(a.dtype), self.bc.to(a.dtype))
-        c, w2, b2 = promoted(c, self.w2, self.b2)
-        return residual + (c @ w2 + b2)
+        if self.causal_conv:
+            # the conv's weights follow the activations, as the JAX module casts them
+            a = causal_conv3(a, self.wc.to(a.dtype), self.bc.to(a.dtype))
+        a, w2, b2 = promoted(a, self.w2, self.b2)
+        out = a @ w2 + b2
+        return out if residual is None else residual + out

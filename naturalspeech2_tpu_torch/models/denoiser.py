@@ -1,6 +1,7 @@
 """The diffusion denoiser (twin of `Model` and `forward_with_cond_scale` in
 `naturalspeech2_tpu/models/denoiser.py`): learned-Fourier time embedding →
-Linear(dim·4) → SiLU, then the fused WaveNet and the adaptive transformer,
+Linear(dim·4) → SiLU, then the WaveNet (fused, kernel K1, or with
+``use_fused_wavenet=False`` block by block) and the adaptive transformer,
 both conditioned on that time embedding.
 
 With ``condition_on_prompt`` the encoded speech prompt conditions it
@@ -29,12 +30,8 @@ from torch import nn
 from naturalspeech2_tpu_torch.models.blocks import LearnedSinusoidalPosEmb, promoted_linear
 from naturalspeech2_tpu_torch.models.encoders import PerceiverResampler
 from naturalspeech2_tpu_torch.models.transformer import ConditionableTransformer
-from naturalspeech2_tpu_torch.models.wavenet import FusedWavenet
+from naturalspeech2_tpu_torch.models.wavenet import FusedWavenet, Wavenet
 from naturalspeech2_tpu_torch.utils.helpers import pad_or_curtail_to_length, prob_mask_like
-
-
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 class Model(nn.Module):
@@ -61,8 +58,6 @@ class Model(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        if not use_fused_wavenet:
-            raise _not_ported("use_fused_wavenet=False", "option list")
         self.dim = dim
         self.condition_on_prompt = condition_on_prompt
         self.cond_drop_prob = cond_drop_prob
@@ -91,7 +86,10 @@ class Model(nn.Module):
             # phoneme encoder's and pitch embedding's width)
             self.cond_to_model_dim = nn.Linear(dim_prompt, dim)
             self.null_cond = nn.Parameter(torch.zeros(dim))
-        self.wavenet = FusedWavenet(dim, wavenet_stacks, wavenet_layers, cond_mult)
+        if use_fused_wavenet:
+            self.wavenet = FusedWavenet(dim, wavenet_stacks, wavenet_layers, cond_mult)
+        else:
+            self.wavenet = Wavenet(dim, wavenet_stacks, wavenet_layers, dim_cond_mult=cond_mult)
         self.transformer = ConditionableTransformer(
             dim, depth, dim_head=dim_head, heads=heads, ff_mult=ff_mult,
             ff_causal_conv=True, dim_cond_mult=cond_mult, cross_attn=condition_on_prompt,

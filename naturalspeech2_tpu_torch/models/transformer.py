@@ -10,7 +10,9 @@ condition by one stacked einsum; the head is RMSNorm + a bias-free Linear.
 Each block runs fused (K2, K2b, K3) where the JAX package's shape gate
 takes its fused kernel, and unfused where it does not: the attention
 blocks through flash attention (K4, K5 backward), the feed-forward
-through tensor ops. The encoders' `Transformer` is
+through tensor ops. Without a time condition (``dim_cond_mult=None``) the
+layer is the plain pre-RMSNorm one, its attention on K4 / K5. The
+encoders' `Transformer` is
 pre-RMSNorm attention (masked, flash K4 or plain) and a plain GEGLU MLP.
 """
 
@@ -145,12 +147,24 @@ class Transformer(nn.Module):
 
 
 class ConditionableTransformer(nn.Module):
-    """Unrolled adaptive transformer: per layer adaRMSNorm(t)→self-attn,
-    with ``cross_attn`` adaRMSNorm(t)→cross-attn(context), and
-    adaRMSNorm(t)→FF(causal conv), then RMSNorm + Linear. The stacked
-    norms are ordered [self, cross, ff] per layer. ``use_flash=False``
-    turns K2, K2b, K3 and flash attention off, as in the JAX module: every
-    block runs unfused, its attention in plain PyTorch.
+    """Unrolled transformer in one of two layers, as the JAX module:
+
+    - adaptive (``dim_cond_mult`` set, the denoiser's): per layer
+      adaRMSNorm(t)→self-attn, with ``cross_attn`` adaRMSNorm(t)→cross-attn
+      (context), and adaRMSNorm(t)→FF, every norm's γ/β computed from the
+      time condition by one stacked einsum ordered [self, cross, ff] per
+      layer; the blocks run fused (K2, K2b, K3) where the JAX gates pass;
+    - plain (``dim_cond_mult=None``): per layer RMSNorm→self-attn, with
+      ``cross_attn`` RMSNorm→cross-attn(context), and RMSNorm→FF, each norm
+      a module of its own (``attn_norm``, ``cross_attn_norm``, ``ff_norm``);
+      the attention runs unfused, on flash attention (K4 forward, K5
+      backward) with ``use_flash``; ``times`` is not read.
+
+    Every sub-block is residual; the FF has its causal conv with
+    ``ff_causal_conv``; the head is RMSNorm + a bias-free Linear.
+    ``use_flash=False`` turns K2, K2b, K3 and flash attention off, as in
+    the JAX module: every block runs unfused, its attention in plain
+    PyTorch.
 
     ``scan_layers`` names the JAX parameter layout only (per-layer weights
     stacked under ``layers``, which `load_jax_params` unbinds into these
@@ -177,24 +191,22 @@ class ConditionableTransformer(nn.Module):
     ):
         super().__init__()
         self.remat = remat
-        if dim_cond_mult is None:
-            raise NotImplementedError(
-                "the unconditioned transformer (dim_cond_mult=None) is not ported yet "
-                "(ROADMAP Queue 1, item 5)"
-            )
-        if not ff_causal_conv:
-            raise NotImplementedError(
-                "ff_causal_conv=False in the adaptive transformer is not ported yet "
-                "(ROADMAP Queue 1, item 5)"
-            )
         self.dim, self.depth, self.scan_layers = dim, depth, scan_layers
+        self.has_cross_attn = cross_attn
+        self.cond = dim_cond_mult is not None
         self.norms_per_layer = 3 if cross_attn else 2
-        n_norms = depth * self.norms_per_layer
-        dim_cond = dim * dim_cond_mult
-        self.ada_norm_w = nn.Parameter(torch.zeros(n_norms, dim_cond, 2 * dim))
-        self.ada_norm_b = nn.Parameter(
-            torch.cat([torch.ones(n_norms, dim), torch.zeros(n_norms, dim)], dim=-1)
-        )
+        if self.cond:
+            n_norms = depth * self.norms_per_layer
+            dim_cond = dim * dim_cond_mult
+            self.ada_norm_w = nn.Parameter(torch.zeros(n_norms, dim_cond, 2 * dim))
+            self.ada_norm_b = nn.Parameter(
+                torch.cat([torch.ones(n_norms, dim), torch.zeros(n_norms, dim)], dim=-1)
+            )
+        else:
+            self.attn_norm = nn.ModuleList(RMSNorm(dim) for _ in range(depth))
+            self.cross_attn_norm = nn.ModuleList(
+                RMSNorm(dim) for _ in range(depth if cross_attn else 0))
+            self.ff_norm = nn.ModuleList(RMSNorm(dim) for _ in range(depth))
         self.attn = nn.ModuleList(
             Attention(dim, dim_head=dim_head, heads=heads, use_flash=use_flash)
             for _ in range(depth)
@@ -204,22 +216,26 @@ class ConditionableTransformer(nn.Module):
             for _ in range(depth if cross_attn else 0)
         )
         self.ff = nn.ModuleList(
-            FeedForward(dim, mult=ff_mult, causal_conv=True, gelu_approximate=gelu_approximate,
-                        use_fused=use_flash)
+            FeedForward(dim, mult=ff_mult, causal_conv=ff_causal_conv,
+                        gelu_approximate=gelu_approximate, use_fused=use_flash)
             for _ in range(depth)
         )
         self.pred_norm = RMSNorm(dim)
         self.to_pred = nn.Linear(dim, dim, bias=False)
 
-    def forward(self, x: torch.Tensor, times: torch.Tensor,
+    def forward(self, x: torch.Tensor, times: Optional[torch.Tensor] = None,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if (context is not None) != bool(self.cross_attn):
+        if (context is not None) != self.has_cross_attn:
             raise ValueError("a context is needed exactly when cross_attn=True")
-        d = self.dim
-        times, ada_w, ada_b = promoted(times, self.ada_norm_w, self.ada_norm_b)
-        ada = torch.einsum("bt,ntc->bnc", times, ada_w) + ada_b
-        gammas = ada[..., :d].transpose(0, 1).contiguous()  # [n_norms, b, d]
-        betas = ada[..., d:].transpose(0, 1).contiguous()
+        gammas = betas = None
+        if self.cond:
+            if times is None:
+                raise ValueError("the adaptive transformer needs times")
+            d = self.dim
+            times, ada_w, ada_b = promoted(times, self.ada_norm_w, self.ada_norm_b)
+            ada = torch.einsum("bt,ntc->bnc", times, ada_w) + ada_b
+            gammas = ada[..., :d].transpose(0, 1).contiguous()  # [n_norms, b, d]
+            betas = ada[..., d:].transpose(0, 1).contiguous()
         x = x.contiguous()
         for i in range(self.depth):
             if self.remat and torch.is_grad_enabled():
@@ -229,6 +245,11 @@ class ConditionableTransformer(nn.Module):
         return promoted_linear(self.to_pred, self.pred_norm(x))
 
     def _layer(self, i: int, x, gammas, betas, context):
+        if not self.cond:
+            x = self.attn[i](self.attn_norm[i](x)) + x
+            if context is not None:
+                x = self.cross_attn[i](self.cross_attn_norm[i](x), context=context) + x
+            return self.ff[i](self.ff_norm[i](x)) + x
         base = i * self.norms_per_layer
         x = self.attn[i](x, gammas[base], betas[base])
         if context is not None:

@@ -4,12 +4,21 @@ kernel launches in ``<wrapper>.launches`` (f32 entry points),
 ``<wrapper>.launches_bf16`` (bf16 entry points) and, where it has them,
 ``<wrapper>.launches_mixed`` (f32 activations against bf16 weights: K1,
 K1b, K2, K2b and K3 under AMP training) and, for K1b's ``bf16_matmul``
-option, ``wavenet_body_lanes.launches_bf16mm``."""
+option, ``wavenet_body_lanes.launches_bf16mm``. The six noise-schedule
+functions are exported here too, as the JAX package's `ops` does."""
 
 import torch
 
 from naturalspeech2_tpu_torch.ops.attn_block_kernel import attn_block, cross_attn_block
 from naturalspeech2_tpu_torch.ops.ff_block_kernel import ff_block
+from naturalspeech2_tpu_torch.ops.schedules import (  # noqa: F401  (the JAX `ops` exports)
+    cosine_schedule,
+    gamma_to_alpha_sigma,
+    gamma_to_log_snr,
+    get_schedule,
+    sigmoid_schedule,
+    simple_linear_schedule,
+)
 from naturalspeech2_tpu_torch.ops.flash_attention import flash_backward, flash_forward
 from naturalspeech2_tpu_torch.ops.wavenet_kernel import wavenet_body, wavenet_body_lanes
 

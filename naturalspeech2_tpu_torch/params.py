@@ -23,7 +23,8 @@ module never sees JAX. Layout rules:
 - an unfused WaveNet tree (``use_fused_wavenet=False``, and what
   `utils/torch_import.py` maps a reference checkpoint to:
   ``wavenet/stack_{s}/block_{l}/...``) is stacked into the fused layout
-  the port's WaveNet takes.
+  of `FusedWavenet`, or with ``fused_wavenet=False`` mapped one to one
+  onto the port's unfused `Wavenet` (a fused tree cannot be unstacked).
 
 Every leaf must be consumed and every expected leaf present; otherwise
 ``load_jax_params`` raises.
@@ -168,18 +169,39 @@ def _fuse_wavenet(conv: _Converter) -> None:
                                               for layer in range(layers)])
 
 
-def _model(conv: _Converter) -> None:
-    if conv.has("wavenet/stack_0"):  # an unfused WaveNet
+def _unfused_wavenet(conv: _Converter) -> None:
+    """An unfused WaveNet's per-block leaves onto the port's `Wavenet`, one
+    to one (skip convs in the last stack only)."""
+    for s in range(conv.count("wavenet/stack_{}")):
+        for layer in range(conv.count(f"wavenet/stack_{s}/block_{{}}")):
+            src, dst = f"wavenet/stack_{s}/block_{layer}", f"wavenet.stack_{s}.block_{layer}"
+            for name in ("res_conv", "conv", "skip_conv"):
+                if conv.has(f"{src}/{name}"):
+                    conv.conv(f"{src}/{name}/Conv_0", f"{dst}.{name}.conv")
+            if conv.has(f"{src}/to_time_cond"):
+                conv.dense(f"{src}/to_time_cond", f"{dst}.to_time_cond")
+
+
+def _model(conv: _Converter, fused_wavenet: bool) -> None:
+    unfused_tree = conv.has("wavenet/stack_0")
+    if unfused_tree and fused_wavenet:
         _fuse_wavenet(conv)
     if conv.has("to_self_cond"):  # self_cond=True
         conv.dense("to_self_cond", "to_self_cond")
     conv.raw("time_pos_emb/weights", "time_pos_emb.weights")
     conv.dense("to_time_hidden", "to_time_hidden")
     conv.conv("wavenet/init_conv/Conv_0", "wavenet.init_conv.conv")
-    for name in ("conv_w", "conv_b", "res_w", "res_b", "skip_w", "skip_b", "film_w", "film_b"):
-        conv.raw(f"wavenet/{name}", f"wavenet.{name}")
+    if fused_wavenet:
+        for name in ("conv_w", "conv_b", "res_w", "res_b", "skip_w", "skip_b", "film_w",
+                     "film_b"):
+            conv.raw(f"wavenet/{name}", f"wavenet.{name}")
+    elif unfused_tree:
+        _unfused_wavenet(conv)
+    else:
+        raise ValueError("fused_wavenet=False needs an unfused WaveNet tree "
+                         "(wavenet/stack_{s}/block_{l}); a fused one is not unstacked")
     conv.conv("wavenet/final_conv/Conv_0", "wavenet.final_conv.conv")
-    _adaptive_transformer(conv, "transformer/", "transformer.")
+    _conditionable_transformer(conv, "transformer/", "transformer.")
     if conv.has("perceiver_resampler"):  # condition_on_prompt=True
         for name in ("null_prompt_cond", "null_prompt_tokens", "null_cond"):
             conv.raw(name, name)
@@ -188,22 +210,27 @@ def _model(conv: _Converter) -> None:
         _resampler(conv, "perceiver_resampler", "perceiver_resampler")
 
 
-def _adaptive_transformer(conv: _Converter, src: str, dst: str) -> None:
-    """The denoiser's `ConditionableTransformer`, unrolled or with
-    ``scan_layers=True``; ``src`` and ``dst`` are path prefixes ("" for a
-    bare tree)."""
-    conv.raw(f"{src}ada_norm_w", f"{dst}ada_norm_w")
-    conv.raw(f"{src}ada_norm_b", f"{dst}ada_norm_b")
+def _conditionable_transformer(conv: _Converter, src: str, dst: str) -> None:
+    """A `ConditionableTransformer`, adaptive (the denoiser's) or plain,
+    unrolled or with ``scan_layers=True``; ``src`` and ``dst`` are path
+    prefixes ("" for a bare tree)."""
+    if f"{src}ada_norm_w" in conv.leaves:  # the adaptive layer
+        conv.raw(f"{src}ada_norm_w", f"{dst}ada_norm_w")
+        conv.raw(f"{src}ada_norm_b", f"{dst}ada_norm_b")
     if conv.has(f"{src}layers"):  # scan_layers=True
         conv.unstack(f"{src}layers", src.rstrip("/"))
     for i in range(conv.count(f"{src}attn_{{}}")):
+        for block in ("attn", "cross_attn", "ff"):
+            if conv.has(f"{src}{block}_norm_{i}"):  # the plain layer's norms
+                conv.raw(f"{src}{block}_norm_{i}/gamma", f"{dst}{block}_norm.{i}.gamma")
         conv.attention(f"{src}attn_{i}", f"{dst}attn.{i}")
         if conv.has(f"{src}cross_attn_{i}"):
             conv.attention(f"{src}cross_attn_{i}", f"{dst}cross_attn.{i}")
         ff = f"{src}ff_{i}"
         conv.plain_ff(ff, f"{dst}ff.{i}")
-        conv.raw(f"{ff}/CausalConv1d_0/Conv_0/kernel", f"{dst}ff.{i}.wc")
-        conv.raw(f"{ff}/CausalConv1d_0/Conv_0/bias", f"{dst}ff.{i}.bc")
+        if conv.has(f"{ff}/CausalConv1d_0"):  # ff_causal_conv=True
+            conv.raw(f"{ff}/CausalConv1d_0/Conv_0/kernel", f"{dst}ff.{i}.wc")
+            conv.raw(f"{ff}/CausalConv1d_0/Conv_0/bias", f"{dst}ff.{i}.bc")
     conv.raw(f"{src}pred_norm/gamma", f"{dst}pred_norm.gamma")
     conv.dense(f"{src}to_pred", f"{dst}to_pred", bias=False)
 
@@ -341,7 +368,7 @@ def _discriminator(conv: _Converter) -> None:
             conv.conv2d(f"{disc}/Conv_{j}", f"{disc}.convs.{j}")
 
 
-def load_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
+def load_jax_params(tree: Mapping, fused_wavenet: bool = True) -> dict[str, torch.Tensor]:
     """JAX param tree → state dict of the matching port module.
 
     ``tree`` is one of: a `NaturalSpeech2` tree ``{"model": ..., "codec":
@@ -352,12 +379,16 @@ def load_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
     ``"codebooks"``), a `MultiScaleSTFTDiscriminator` tree (only
     ``"disc_{n_fft}"``) or a `ConditionableTransformer` tree (it has
     ``"ada_norm_w"``); `Model` and `ConditionableTransformer` trees may
-    come from ``scan_layers=True``. Load the result with
-    ``module.load_state_dict(state, strict=True)``.
+    come from ``scan_layers=True``, and a `ConditionableTransformer` may be
+    the plain one (``dim_cond_mult=None``: ``attn_norm_{i}`` and its kin in
+    place of ``ada_norm_w``). ``fused_wavenet=False`` targets a
+    ``Model(use_fused_wavenet=False)``, whose tree must then be unfused.
+    Load the result with ``module.load_state_dict(state, strict=True)``.
     """
     keys = set(tree)
     if "model" in keys and not keys & {"wavenet", "codebooks"}:
-        out = {f"model.{k}": v for k, v in load_jax_params(tree["model"]).items()}
+        out = {f"model.{k}": v
+               for k, v in load_jax_params(tree["model"], fused_wavenet).items()}
         if "codec" in tree:
             out.update({f"codec.{k}": v for k, v in load_jax_params(tree["codec"]).items()})
         rest = {k: v for k, v in tree.items() if k not in ("model", "codec")}
@@ -368,15 +399,15 @@ def load_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
         return out
     conv = _Converter(tree)
     if "wavenet" in keys:
-        _model(conv)
+        _model(conv, fused_wavenet)
     elif {"encoder", "decoder", "codebooks"} <= keys:
         _encodec(conv)
     elif "codebooks" in keys:
         _codec(conv)
     elif keys and all(k.startswith("disc_") for k in keys):
         _discriminator(conv)
-    elif "ada_norm_w" in keys:
-        _adaptive_transformer(conv, "", "")
+    elif "ada_norm_w" in keys or "to_pred" in keys:
+        _conditionable_transformer(conv, "", "")
     else:
         raise ValueError(f"not a Model, Encodec, SoundStream, discriminator, "
                          f"ConditionableTransformer or NaturalSpeech2 tree: keys {sorted(keys)}")

@@ -15,7 +15,9 @@ port of `naturalspeech2_tpu/serve.py`, with the same structure and names).
 3. **A transport.** `TTSServer` is a dependency-free `http.server`
    endpoint: `POST /tts {"text": "...", "seconds": 2.0,
    "prompt_wav_base64": "<base64 wav>"}` (or ``"prompt_path"``) →
-   `audio/wav` bytes, ``"stream": true`` for chunked audio; `GET /healthz`
+   `audio/wav` bytes, ``"stream": true`` for chunked audio (a WAV, FLAC,
+   MP3 or Ogg prompt; 415 for a non-WAV one where the native decoder, built
+   when the server starts, is unavailable); `GET /healthz`
    → build/bucket info; `GET /metrics` → latency percentiles. Run:
    ``python -m naturalspeech2_tpu_torch.serve --demo`` (tiny random model)
    or construct `TTSServer(TTSEngine(ns2))` around a trained one.
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from naturalspeech2_tpu_torch.data import decode_audio_bytes, load_audio, pcm16, write_wav
+from naturalspeech2_tpu_torch.native import audioio
 
 __all__ = ["TTSEngine", "TTSServer"]
 
@@ -546,6 +549,10 @@ class TTSServer(ThreadingHTTPServer):
 
     def __init__(self, engine: TTSEngine, address: Tuple[str, int] = ("127.0.0.1", 0)):
         self.engine = engine
+        try:  # build the FLAC/MP3/Ogg decoder now, not inside the first such request
+            audioio.library()
+        except audioio.DecoderUnavailable as e:
+            print(f"non-WAV prompts will be refused (415): {e}", flush=True)
         super().__init__(address, _Handler)
 
     @property
@@ -651,6 +658,8 @@ class _Handler(BaseHTTPRequestHandler):
                 )
         except (KeyError, ValueError) as e:
             return self._json(400, {"error": str(e)})
+        except audioio.DecoderUnavailable as e:  # a non-WAV prompt on a host without the decoder
+            return self._json(415, {"error": str(e)})
         body = _wav_bytes(wav, sr)
         self.send_response(200)
         self.send_header("Content-Type", "audio/wav")

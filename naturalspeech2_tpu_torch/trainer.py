@@ -153,11 +153,15 @@ class Trainer:
         if mesh is not None or param_sharding is not None:
             raise _not_ported("mesh / param_sharding", "item 21, parallel/")
         if checkpoint_backend == "orbax":
-            raise _not_ported("checkpoint_backend='orbax'", "item 11")
+            raise NotImplementedError(
+                "checkpoint_backend='orbax' is not ported (ROADMAP item 22, do not port: the "
+                "card's host has no orbax or tensorstore); use 'torch'")
         if checkpoint_backend != "torch":
             raise ValueError(f"checkpoint_backend must be 'torch', got {checkpoint_backend!r}")
-        if steps_per_dispatch != 1:
-            raise _not_ported("steps_per_dispatch > 1", "item 11")
+        if steps_per_dispatch < 1 or train_num_steps % steps_per_dispatch != 0:
+            raise ValueError(f"steps_per_dispatch must be ≥ 1 and divide train_num_steps "
+                             f"({train_num_steps}) into whole dispatches, got {steps_per_dispatch}")
+        self.steps_per_dispatch = steps_per_dispatch
         self.ns2 = diffusion_model
         self.device = next(diffusion_model.parameters()).device
         if self.ns2.conditional and self.ns2.duration_pitch.to_duration_pred.head_activation == "relu":
@@ -310,6 +314,20 @@ class Trainer:
         """One optimizer step over a batch (an array, or a dict of arrays
         with ``"audio"``) of ``grad_accum_every × train_batch_size``
         examples; returns the metrics as floats."""
+        return self.train_chunk([batch])
+
+    def train_chunk(self, batches: list) -> dict:
+        """One dispatch: ``len(batches)`` optimizer steps, one per batch, in
+        order, with the host waiting for the card once, at the end (the JAX
+        trainer's `_train_chunk`, one `lax.scan` program); returns the
+        chunk's mean metrics as floats, averaged on the host."""
+        steps = [self._step(batch) for batch in batches]
+        keys = list(steps[0])
+        values = torch.stack([m[k] for m in steps for k in keys]).tolist()  # waits for the chunk
+        return {k: sum(values[i::len(keys)]) / len(steps) for i, k in enumerate(keys)}
+
+    def _step(self, batch) -> dict:
+        """One optimizer step; the metrics as device scalars."""
         tensors = self._tensors(batch)
         params = list(self.params.values())
         for p in params:
@@ -351,10 +369,9 @@ class Trainer:
                 ema = list(self.ema.values())
                 torch._foreach_mul_(ema, d)
                 torch._foreach_add_(ema, torch._foreach_mul(params, 1 - d))
-        out = {k: float(v) for k, v in metrics.items()}  # waits for the step
         if self.skip_nonfinite_updates:
-            out["skipped"] = float(skipped)
-        return out
+            metrics["skipped"] = torch.tensor(float(skipped), device=self.device)
+        return metrics
 
     def evaluate(self) -> dict:
         """Loss components on one ``val_batches`` batch (an array or a
@@ -407,12 +424,17 @@ class Trainer:
 
     def train(self, log_every: int = 50, profile_steps: Optional[Tuple[int, int]] = None):
         """Steps until ``train_num_steps``, resuming first from the newest
-        checkpoint in ``results_folder``. Every ``log_every`` steps a line of
-        metrics (and the step's wall time, host clock, synchronised) goes to
-        ``metrics.jsonl``; every ``save_and_sample_every`` steps an EMA
-        sample and a checkpoint are written."""
-        if profile_steps is not None:
-            raise _not_ported("profile_steps", "item 11")
+        checkpoint in ``results_folder``, ``steps_per_dispatch`` steps a
+        dispatch (`train_chunk`). Each periodic action fires when its
+        boundary falls anywhere inside a dispatch: a line of metrics (the
+        dispatch's means, and ``step_time_s``, its wall time on the host
+        clock, synchronised, over its steps) to ``metrics.jsonl`` every
+        ``log_every`` steps, a validation every ``validate_every``, an EMA
+        sample and a checkpoint every ``save_and_sample_every``.
+        ``profile_steps=(start, stop)`` traces the dispatches from the
+        first at step ≥ ``start`` to the first reaching ≥ ``stop`` with
+        torch.profiler (host and CUDA activity) into ``results_folder /
+        "profile"``, as a Chrome trace."""
         batch = next(self.batches)
         if (self.ns2.conditional and self._holdback is None and isinstance(batch, dict)
                 and "text" in batch and "prompt" in batch):
@@ -425,12 +447,20 @@ class Trainer:
                 print(f"resuming from {latest}")
                 self.load(latest)
         metrics_path = self.results_folder / "metrics.jsonl"
+        k = self.steps_per_dispatch
+        profiler = None
         while self.step < self.train_num_steps:
             prev = self.step
+            if profile_steps and profiler is None and prev >= profile_steps[0]:
+                profiler = self._start_profile()
+            chunk = [batch] + [next(self.batches) for _ in range(k - 1)]
             start = time.perf_counter()
-            metrics = self.train_step(batch)
-            step_time = time.perf_counter() - start
+            metrics = self.train_chunk(chunk)
+            step_time = (time.perf_counter() - start) / k
             step = self.step
+            if profiler is not None and step >= profile_steps[1]:
+                self._stop_profile(profiler)
+                profiler, profile_steps = None, None
             if step // log_every > prev // log_every:
                 print(f"step {step}: loss {metrics['loss']:.4f} ({step_time * 1e3:.0f} ms)")
                 with open(metrics_path, "a") as f:
@@ -443,7 +473,27 @@ class Trainer:
             if step // self.save_and_sample_every > prev // self.save_and_sample_every:
                 self.sample_and_save(step // self.save_and_sample_every)
             batch = next(self.batches)
+        if profiler is not None:
+            self._stop_profile(profiler)
         print("training complete")
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        folder = self.results_folder / "profile"
+        folder.mkdir(parents=True, exist_ok=True)
+        path = folder / f"trace-step{self.step}.json"
+        profiler.export_chrome_trace(str(path))
+        print(f"profile written to {path}")
 
     def sample_and_save(self, milestone) -> None:
         """Write ``sample-{milestone}.wav`` (one sample of ``sample_length``

@@ -1,18 +1,44 @@
 """Mask and length helpers of the conditioning stack, the CFG drop mask
 and the duration average of training, and math helpers of the samplers
-(twins of `naturalspeech2_tpu/utils/helpers.py:42-149`), the recomputing
+(twins of `naturalspeech2_tpu/utils/helpers.py:19-158`), the recomputing
 vjp the kernels' backward passes share, and the promotion of mixed
 operands that AMP training meets."""
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
+
+
+def exists(x: Any) -> bool:
+    return x is not None
+
+
+def default(val, d):
+    """``val``, or ``d`` (called, if callable) when ``val`` is None."""
+    if exists(val):
+        return val
+    return d() if callable(d) else d
+
+
+def divisible_by(num: int, den: int) -> bool:
+    return (num % den) == 0
+
+
+def identity(t, *args, **kwargs):
+    return t
 
 
 def create_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """Boolean key-padding mask ``[b, max_len]``: True where position < length."""
     seq = torch.arange(max_len, dtype=lengths.dtype, device=lengths.device)
     return seq[None, :] < lengths[:, None]
+
+
+def lengths_from_mask(mask: torch.Tensor) -> torch.Tensor:
+    """The number of True entries of each row of a ``[b, n]`` mask."""
+    return mask.sum(dim=-1)
 
 
 def pad_or_curtail_to_length(t: torch.Tensor, length: int, axis: int = 1) -> torch.Tensor:
@@ -48,6 +74,14 @@ def safe_log(t: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
 def safe_div(numer: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
     """Division with the denominator clamped to 1e-10."""
     return numer / denom.clamp(min=1e-10)
+
+
+def right_pad_dims_to(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t`` with singleton axes appended until it has ``x.ndim`` axes."""
+    padding_dims = x.ndim - t.ndim
+    if padding_dims <= 0:
+        return t
+    return t.reshape(t.shape + (1,) * padding_dims)
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:

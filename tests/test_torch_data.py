@@ -45,11 +45,19 @@ def test_load_audio_reads_what_write_wav_wrote(tmp_path):
 
 
 def test_load_audio_refuses_what_it_cannot_read(tmp_path):
+    """A broken WAV, a missing file and a blob that is neither WAV nor a
+    container the native decoder knows raise ValueError (FLAC, MP3 and Ogg
+    decode: tests/test_torch_native_audioio.py)."""
     (tmp_path / "bad.wav").write_bytes(b"RIFF....not a wave file")
     with pytest.raises(ValueError, match="cannot decode"):
         data.load_audio(tmp_path / "bad.wav")
-    with pytest.raises(ValueError, match="WAV only"):
+    with pytest.raises(ValueError, match="cannot decode"):
         data.load_audio(tmp_path / "clip.mp3")
+    (tmp_path / "noise.ogg").write_bytes(b"neither a WAV nor a known container" * 4)
+    with pytest.raises(ValueError, match="not a decodable"):
+        data.load_audio(tmp_path / "noise.ogg")
+    with pytest.raises(ValueError, match="cannot decode the .bin upload"):
+        data.decode_audio_bytes((tmp_path / "noise.ogg").read_bytes(), suffix=".bin")
 
 
 @pytest.mark.parametrize("split", [None, "train", "val"])

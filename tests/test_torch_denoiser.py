@@ -66,23 +66,20 @@ def test_scalar_time_broadcasts(jax_model):
     ],
 )
 def test_options_outside_the_slice_raise(jax_model, option):
-    """The options still outside the port raise; the options ported since
-    give the JAX module's output with the same option: ``use_flash_attn=
-    False`` (K2, K2b, K3 off, plain attention) and ``gelu_approximate=
-    False`` (exact GELU, unfused feed-forward) on the same weights, and
-    ``self_cond=True`` on the JAX tree with its `to_self_cond` (jittered
-    off its zero init; x_self_cond None, so zeros)."""
-    if "use_fused_wavenet" in option:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(**CFG, **option)
-        return
+    """Each option gives the JAX module's output with the same option: ``use_flash_attn=False`` (K2, K2b, K3 off, plain
+    attention) and ``gelu_approximate=False`` (exact GELU, unfused
+    feed-forward) on the same weights, ``self_cond=True`` on the JAX tree
+    with its `to_self_cond` (jittered off its zero init; x_self_cond None,
+    so zeros), and ``use_fused_wavenet=False`` on the JAX unfused tree,
+    mapped one to one onto the port's `Wavenet`."""
     _, params, x, times = jax_model
-    if "self_cond" in option:
+    if "self_cond" in option or "use_fused_wavenet" in option:
         params = jitter(numpy_tree(JModel(**CFG, **option).init(
             jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(times))["params"]), 2, scale=0.1)
     expected = JModel(**CFG, **option).apply({"params": params}, jnp.asarray(x),
                                              jnp.asarray(times))
     port = Model(**CFG, **option)
-    port.load_state_dict(load_jax_params(params), strict=True)
+    port.load_state_dict(load_jax_params(params, fused_wavenet=option.get("use_fused_wavenet",
+                                                                          True)), strict=True)
     with torch.no_grad():
         assert_close(port(t(x), t(times)), expected, atol=ATOL)

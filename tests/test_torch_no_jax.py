@@ -40,6 +40,9 @@ def test_import_loads_no_jax():
         "import naturalspeech2_tpu_torch.models.discriminator, naturalspeech2_tpu_torch.ops.stft_loss\n"
         "import naturalspeech2_tpu_torch.utils.torch_import\n"
         "import naturalspeech2_tpu_torch.examples.wavenet_d512_probe\n"
+        "import naturalspeech2_tpu_torch.native.audioio, naturalspeech2_tpu_torch.models.wavenet\n"
+        "import naturalspeech2_tpu_torch.utils, naturalspeech2_tpu_torch.ops.schedules\n"
+        "naturalspeech2_tpu_torch.native.audioio.library()  # builds the decoder\n"
         "import naturalspeech2_tpu_torch.utils.tokenizer, naturalspeech2_tpu_torch.utils.cleaner\n"
         "import naturalspeech2_tpu_torch.utils.phonemizers.fallback_multi\n"
         "import naturalspeech2_tpu_torch.utils.phonemizers.espeak_wrapper\n"

@@ -5,8 +5,8 @@ with cond_scale 2.5: `_prepare` (ids, buckets, prompt crop, frames from
 ``seconds`` and from the duration predictor) and `_run_batch` on three
 requests padded to four, from JAX's starting noise. Then the port's own
 serving behaviour as `tests/test_serve.py` drives the JAX one: seeds, the
-micro-batcher, long-form chunking and streaming, the HTTP server and its
-400s, and the named refusals."""
+micro-batcher, long-form chunking and streaming, the HTTP server, a FLAC
+prompt and its 400s, and the named refusals."""
 
 import base64
 import io
@@ -29,10 +29,12 @@ from naturalspeech2_tpu.models.naturalspeech2 import NaturalSpeech2 as JNaturalS
 from naturalspeech2_tpu.serve import TTSEngine as JTTSEngine
 from naturalspeech2_tpu.utils.tokenizer import Tokenizer as JTokenizer
 from naturalspeech2_tpu_torch import Model, NaturalSpeech2, SoundStream, load_jax_params, sample
+from naturalspeech2_tpu_torch.data import decode_audio_bytes
 from naturalspeech2_tpu_torch.models.naturalspeech2 import _eval_mode
 from naturalspeech2_tpu_torch.serve import TTSEngine, TTSServer, _demo_engine, _wav_bytes
 from naturalspeech2_tpu_torch.utils.tokenizer import Tokenizer
 
+from test_native_audioio import encode_flac_verbatim
 from torch_parity import jitter, numpy_tree
 
 # the JAX serving demo's widths (serve.py:_demo_engine)
@@ -278,7 +280,7 @@ def test_http_server_roundtrip(engine):
 
         for bad in ({"text": "x"},  # no prompt
                     {"text": "x", "prompt_wav_base64": base64.b64encode(b"fLaC" + bytes(60))
-                     .decode()},  # not a WAV container
+                     .decode()},  # a FLAC header with no stream
                     {"text": "x", "prompt_path": "voice.mp3"}):
             with pytest.raises(urllib.error.HTTPError) as err:
                 urllib.request.urlopen(_post(base, bad))
@@ -289,6 +291,70 @@ def test_http_server_roundtrip(engine):
     finally:
         server.shutdown()
         server.server_close()
+
+
+def test_http_flac_prompt(engine):
+    """POST /tts with a FLAC prompt (the verbatim encoder of
+    tests/test_native_audioio.py) answers 200 with a PCM16 WAV: the reply
+    to the prompt the native decoder gives (PCM16 / 32768)."""
+    pcm = (np.clip(PROMPT, -1, 1) * 32767).astype(np.int16)
+    flac = encode_flac_verbatim(pcm, sr=SR)
+    decoded, sr = decode_audio_bytes(flac)
+    assert sr == SR and np.array_equal(decoded, pcm.astype(np.float32) / 32768.0)
+    server = TTSServer(engine)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        payload = {"text": "hello world", "seconds": SECONDS, "seed": 3,
+                   "prompt_wav_base64": base64.b64encode(flac).decode()}
+        with urllib.request.urlopen(_post(f"http://127.0.0.1:{server.port}", payload)) as r:
+            assert r.status == 200 and r.headers["Content-Type"] == "audio/wav"
+            body = r.read()
+    finally:
+        server.shutdown()
+        server.server_close()
+    with wave.open(io.BytesIO(body)) as w:
+        assert w.getframerate() == SR and w.getsampwidth() == 2
+        assert w.getnframes() == 8 * HOP
+    assert body == _wav_bytes(*engine.tts("hello world", decoded, seconds=SECONDS, seed=3))
+
+
+def test_http_non_wav_prompt_without_the_decoder(engine, monkeypatch):
+    """A host where the native decoder cannot be built still starts the
+    server (the build is tried at start, not inside a request) and serves
+    WAV prompts; a FLAC prompt then gets a 415 naming the cause, not an
+    unhandled exception."""
+    from naturalspeech2_tpu_torch.native import audioio
+
+    monkeypatch.setattr(audioio, "_lib", None)
+    monkeypatch.setattr(audioio, "SOURCE", audioio.SOURCE.with_name("missing.cpp"))
+    server = TTSServer(engine)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        flac = encode_flac_verbatim((PROMPT * 32767).astype(np.int16), sr=SR)
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(_post(base, {"text": "hi", "seconds": SECONDS,
+                                                "prompt_wav_base64": base64.b64encode(flac)
+                                                .decode()}))
+        assert err.value.code == 415 and "missing.cpp" in json.loads(err.value.read())["error"]
+        wav = base64.b64encode(_wav_bytes(PROMPT, SR)).decode()
+        with urllib.request.urlopen(_post(base, {"text": "hi", "seconds": SECONDS,
+                                                 "prompt_wav_base64": wav})) as r:
+            assert r.status == 200
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_server_start_builds_the_decoder(engine, monkeypatch):
+    """`TTSServer` loads the native decoder when it starts, so the first
+    FLAC upload pays no g++ build."""
+    from naturalspeech2_tpu_torch.native import audioio
+
+    monkeypatch.setattr(audioio, "_lib", None)
+    server = TTSServer(engine)
+    server.server_close()
+    assert audioio._lib is not None
 
 
 def test_sample_takes_raw_text(engine):

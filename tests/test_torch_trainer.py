@@ -235,12 +235,21 @@ def test_evaluate_uses_fixed_draws(params, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(param_sharding="fsdp"),
-    dict(checkpoint_backend="orbax"), dict(steps_per_dispatch=2),
+    dict(mesh=object()), dict(param_sharding="fsdp"), dict(checkpoint_backend="orbax"),
 ])
 def test_options_outside_the_slice_raise(params, tmp_path, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``parallel/`` (#21) and orbax (#22, no orbax on the card's host) are
+    refused by name; ``steps_per_dispatch`` runs
+    (tests/test_torch_dispatch.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 2[12]"):
         Trainer(_port(params), batches=iter([]), results_folder=str(tmp_path), **kwargs)
+
+
+def test_steps_per_dispatch_must_divide_the_steps(params, tmp_path):
+    for k in (0, 3):
+        with pytest.raises(ValueError, match="steps_per_dispatch"):
+            Trainer(_port(params), batches=iter([]), results_folder=str(tmp_path),
+                    train_num_steps=4, steps_per_dispatch=k)
 
 
 def test_amp_trainer_builds_and_keeps_f32_state(params, tmp_path):
@@ -264,8 +273,9 @@ def test_amp_trainer_builds_and_keeps_f32_state(params, tmp_path):
 
 def test_conditional_batches_and_profiling_raise(params, tmp_path):
     """A dict batch holding only "audio" trains as the bare array does
-    (conditional dict batches: tests/test_torch_cond_train.py); profiling
-    still raises."""
+    (conditional dict batches: tests/test_torch_cond_train.py);
+    ``profile_steps`` traces steps 2-3 of train() into
+    results_folder/profile as a Chrome trace naming the step's ops."""
     audio = np.tanh(normal(np.random.default_rng(5), 2, 640))
     metrics = []
     for batch in (audio, {"audio": audio}):
@@ -273,5 +283,11 @@ def test_conditional_batches_and_profiling_raise(params, tmp_path):
                           results_folder=str(tmp_path))
         metrics.append(trainer.train_step(batch))
     assert metrics[0] == metrics[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.train(profile_steps=(0, 1))
+    trainer = Trainer(_port(params), batches=iter([audio] * 8), train_batch_size=2,
+                      train_num_steps=4, save_and_sample_every=100,
+                      results_folder=str(tmp_path / "profiled"))
+    trainer.train(log_every=1, profile_steps=(1, 3))
+    traces = list((tmp_path / "profiled" / "profile").glob("*.json"))
+    assert trainer.step == 4 and [p.name for p in traces] == ["trace-step3.json"]
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)
