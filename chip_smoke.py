@@ -247,7 +247,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
  43. (run after phase 33, on phase 20's engine) POST /tts of phase 20's
      sentence at 6.8 s with phase 20's prompt as a PCM16 FLAC, three
      times: 200, a PCM16 WAV of 163,200 samples, the wall time of each,
-     exact launches.
+     exact launches;
+ 44. data-parallel and FSDP training (`parallel/`): the flagship `Trainer`
+     at b16 x 2 s for DP_STEPS steps (EMA every step), README config 2 for
+     one step with its conditioning stack's dropout off and text lengths
+     that differ between the batch's halves (DP_TEXT_LENS), and
+     `CodecTrainer(SoundStream())` at b8 x 1 s for DP_CODEC_STEPS
+     adversarial steps (the STFT term off), each run plain first; (a)
+     world size 1 over NCCL in this process, `param_sharding`
+     "replicated" and "fsdp", held to the plain runs within DP_STATE_RTOL
+     of each tensor's largest entry (states, each step's reduced gradient,
+     metrics; the codec within GRAD_RTOL by every step's reduced codec and
+     discriminator gradients, its codebook EMA and counts and its metrics,
+     each step after the first from the plain run's checkpoint, not by its
+     weights), launches exact; (b) the same on two gloo ranks
+     sharing this card (two processes, collectives through host memory),
+     held to the plain runs within GRAD_RTOL, each rank's launches exact and printed,
+     killed past DP_LIMIT_S; two NCCL ranks, one per card, only where the
+     host has two cards (else a line says that leg did not run); ms per
+     step of each, (b)'s labelled as two ranks on one card.
 K2, K2b and K3 are held to BLOCK_TOL (split TF32 on the tensor cores
 against f32 plain versions) at every shape they run: b4 x n1024 x dim 128,
 the conditional [8, 512, 128], the long-form n4500 and n9000 and the
@@ -259,7 +277,8 @@ time, plain time, bound and launches, by path: "serve" counts phase 20's
 and 29's ten AMP steps, "encodec_*" and "codec_train_*" phases 37-39's
 paths, "unfused_wavenet_sample", "plain_transformer", "flac_train_k4" /
 "flac_train_k1", "dispatch", "codec_train_jit", "codec_train_amp_*" and
-"serve_flac" phases 40-43's; a row per dtype, "mixed" for f32 activations
+"serve_flac" phases 40-43's, "dp_nccl1_*" and "dp_gloo2_rank0_*" phase
+44's (a) and (b) runs; a row per dtype, "mixed" for f32 activations
 against bf16 weights, the bf16 and mixed rows with their f32 kernel's
 time at the same shape, and a "bf16_matmul" row for K1b's option, whose
 launches are the probe's); the last line is
@@ -588,6 +607,34 @@ FLAC_POSTS = 3
 PORT_KERNELS = (("ns2::gemm::gemm_kernel",), ("flash_fwd_kernel", "ns2::Dropout"),
                 ("flash_bwd_dq_kernel", "ns2::Dropout"), ("flash_bwd_dkv_kernel", "ns2::Dropout"),
                 ("rvq_update_kernel",))
+
+
+# Phase 44, data-parallel and FSDP training (parallel/): phase 7's flagship
+# at b16 x 2 s for DP_STEPS steps (EMA every step), README config 2 at b16
+# x 2 s for one step with the conditioning stack's dropout off (each rank
+# draws dropout from its own generator) and text lengths that differ
+# between the halves (DP_TEXT_LENS), and CodecTrainer(SoundStream()) at
+# phase 38's b8 x 1 s for two adversarial steps, the STFT term off as in
+# phase 38's check (its value is a logged metric).
+# (a) world size 1 over NCCL in this process, held to the plain Trainer
+# within DP_STATE_RTOL of each tensor's largest entry; (b) two ranks on
+# this one card over gloo (collectives through host memory), held to (a)'s
+# single process within GRAD_RTOL, within DP_LIMIT_S.
+DP_STEPS, DP_CODEC_STEPS, DP_STATE_RTOL, DP_LIMIT_S = 3, 2, 1e-6, 600
+# The codec's runs are held within GRAD_RTOL by what its data-parallel
+# code computes: every step's reduced codec and discriminator gradients,
+# the codebook EMA and counts after the steps, and every step's metrics;
+# each step after the first starts from the plain run's state. Its
+# weights are not held: the codebook update sums with index_add_, whose
+# CUDA atomics add in no fixed order, and Adam turns the sign of a
+# near-zero gradient into a step of lr either way, so two plain runs on
+# the same inputs already differ by 1.1e-4 in a weight
+DP_CODEC_LR = 3e-4
+DP_TEXT_LENS = (100,) * 8 + (40, 55, 70, 85, 30, 45, 60, 75)
+# the conditional step's tensors held card-rank against single process: the
+# denoiser's and the duration / pitch predictor's (whose loss is the masked
+# mean)
+DP_COND_GROUPS = ("model.", "duration_pitch.")
 
 
 def log(phase: str, msg: str) -> None:
@@ -4787,6 +4834,314 @@ def phase43_flac_prompt(engine) -> dict:
     return {"serve_flac": counts}
 
 
+def _dp_cond_model(seed: int):
+    """README config 2 (as phase 18, scan_layers) with the conditioning
+    stack's dropout off, seeded and jittered, on the CPU."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+
+    torch.manual_seed(seed)
+    model = ns2pkg.Model(dim=DIM, depth=DEPTH, heads=HEADS, dim_head=DIM_HEAD,
+                         dim_prompt=DIM_PROMPT, cond_drop_prob=0.25, condition_on_prompt=True,
+                         scan_layers=True)
+    ns2 = ns2pkg.NaturalSpeech2(model, ns2pkg.SoundStream(), timesteps=1000,
+                                phoneme_enc_kwargs=dict(conv_dropout=0.0),
+                                prompt_enc_kwargs=dict(dropout=0.0),
+                                duration_pitch_kwargs=dict(dropout=0.0,
+                                                           head_activation="softplus"))
+    return jitter_params(ns2, seed + 1)
+
+
+def _dp_cond_batch() -> dict:
+    import numpy as np
+
+    batch = next(_cond_train_batches(SEED + 442))
+    batch["text_lens"] = np.asarray(DP_TEXT_LENS, np.int32)
+    return batch
+
+
+def _dp_snapshots(trainer, groups=None) -> list:
+    """The (reduced) gradient of each parameter as the optimizer steps, on
+    the CPU, gathered under FSDP (names starting with one of ``groups``)."""
+    grads, step = [], trainer.optimizer.step
+
+    def recording_step(*args, **kwargs):
+        held = {n: p.grad.detach() for n, p in trainer.master.items()}
+        grads.append({n: g.cpu().clone() for n, g in trainer.gather(held).items()
+                      if groups is None or n.startswith(groups)})
+        return step(*args, **kwargs)
+
+    trainer.optimizer.step = recording_step
+    return grads
+
+
+def _dp_state(trainer, groups=None) -> dict:
+    """Parameters, Adam's moments and the EMA, whole (gathered), on the CPU."""
+    full = trainer.full_state()
+    names = list(trainer.master)
+    keep = lambda n: groups is None or n.startswith(groups)  # noqa: E731
+    return {"params": {n: v.cpu() for n, v in full["params"].items() if keep(n)},
+            "moments": {f"{names[i]}.{k}": v.cpu() for i, s in full["opt_state"]["state"].items()
+                        for k, v in s.items() if k != "step" and keep(names[i])},
+            "ema": {n: v.cpu() for n, v in full["ema_params"].items() if keep(n)}}
+
+
+def _dp_timed_steps(trainer, batches: list) -> tuple:
+    """(the metrics, the wall ms of each step, synchronised)."""
+    import torch
+
+    metrics, walls = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return metrics, walls
+
+
+def _dp_runs(phase: str, mesh, device, work: Path, label: str) -> dict:
+    """Every phase-44 run on ``device`` (``mesh`` None: the plain trainers),
+    each with exact launch counts; the states, gradients and metrics."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import ops
+    from naturalspeech2_tpu_torch.codec_trainer import CodecTrainer
+
+    samples = int(TRAIN_SECONDS * 24000)
+    batches = [_seeded_audio(SEED + 443 + i, TRAIN_BATCH, samples).numpy()
+               for i in range(DP_STEPS)]
+    out = {"counts": {}, "ms": {}}
+    shardings = ("plain",) if mesh is None else ("replicated", "fsdp")
+    for sharding in shardings:
+        ns2 = flagship(SEED + 440).to(device)
+        kw = {} if mesh is None else dict(mesh=mesh, param_sharding=sharding)
+        trainer = ns2pkg.Trainer(ns2, batches=iter(()), train_batch_size=TRAIN_BATCH,
+                                 ema_update_every=1, save_and_sample_every=10**9,
+                                 results_folder=str(work / f"{label}_{sharding}"), **kw)
+        grads = _dp_snapshots(trainer)
+        ops.reset_launch_counts()
+        metrics, walls = _dp_timed_steps(trainer, batches)
+        counts = ops.launch_counts()
+        check_counts(phase, f"{label} {sharding}: {DP_STEPS} optimizer steps", counts,
+                     {k: DP_STEPS * v for k, v in PER_STEP.items()})
+        out[sharding] = {"state": _dp_state(trainer), "grads": grads, "metrics": metrics}
+        out["counts"][sharding], out["ms"][sharding] = counts, walls
+        del trainer, ns2
+        torch.cuda.empty_cache()
+
+    cond = _dp_cond_model(SEED + 441).to(device)
+    kw = {} if mesh is None else dict(mesh=mesh)
+    trainer = ns2pkg.Trainer(cond, batches=iter(()), train_batch_size=CT_BATCH,
+                             save_and_sample_every=10**9, results_folder=str(work / f"{label}_c"),
+                             **kw)
+    grads = _dp_snapshots(trainer, DP_COND_GROUPS)
+    ops.reset_launch_counts()
+    metrics, walls = _dp_timed_steps(trainer, [_dp_cond_batch()])
+    counts = ops.launch_counts()
+    check_counts(phase, f"{label} conditional: one optimizer step", counts, PER_COND_TRAIN_STEP)
+    params = {n: p.detach().cpu().clone() for n, p in trainer.full_state()["params"].items()
+              if n.startswith(DP_COND_GROUPS)}
+    out["conditional"] = {"grads": grads, "metrics": metrics, "params": params}
+    out["counts"]["conditional"], out["ms"]["conditional"] = counts, walls
+    del trainer, cond
+    torch.cuda.empty_cache()
+
+    codec = _new_codec("soundstream", SEED + 444).to(device)
+    trainer = CodecTrainer(codec, batches=iter(()), adversarial_weight=1.0, stft_weight=0.0,
+                           lr=DP_CODEC_LR, results_folder=str(work / f"{label}_codec"), **kw)
+    grads, apply = [], trainer._apply
+
+    def recording_apply(optimizer, params, step_grads, lr):
+        # every step's (reduced) codec, then discriminator, gradients
+        grads.append([g.detach().cpu().clone() for g in step_grads])
+        return apply(optimizer, params, step_grads, lr)
+
+    trainer._apply = recording_apply
+    codec_batches = [_seeded_audio(SEED + 445 + i, CODEC_TRAIN_BATCH,
+                                   int(CODEC_TRAIN_SECONDS * 24000)).numpy()
+                     for i in range(DP_CODEC_STEPS)]
+    # every step after the first starts from the plain run's state (its
+    # checkpoint, which every rank loads), so Adam's sign flips from a
+    # step's rounding do not carry into the next step's gradients
+    ops.reset_launch_counts()
+    metrics, walls = [], []
+    for batch in codec_batches:
+        if metrics:
+            handoff = work.parent / f"codec_step{len(metrics)}.ckpt"
+            if mesh is None:
+                Path(trainer.save(len(metrics))).replace(handoff)
+            trainer.load(handoff)
+        step_metrics, step_walls = _dp_timed_steps(trainer, [batch])
+        metrics += step_metrics
+        walls += step_walls
+    counts = ops.launch_counts()
+    check_counts(phase, f"{label} CodecTrainer: {DP_CODEC_STEPS} steps", counts,
+                 {k: DP_CODEC_STEPS * int(k == "rvq") for k in PER_STEP})
+    if len(grads) != 2 * DP_CODEC_STEPS:
+        raise AssertionError(f"{label} CodecTrainer: {len(grads)} updates in {DP_CODEC_STEPS} "
+                             "adversarial steps")
+    state = {"codebook_ema": trainer.state.codebook_ema.cpu(),
+             "codebook_count": trainer.state.codebook_count.cpu()}
+    by_step = [{f"{model}.{i}": g
+                for model, update in zip(("codec", "disc"), grads[2 * k:2 * k + 2])
+                for i, g in enumerate(update)} for k in range(DP_CODEC_STEPS)]
+    out["codec"] = {"state": state, "metrics": metrics, "grads": by_step}
+    out["counts"]["codec"], out["ms"]["codec"] = counts, walls
+    return out
+
+
+def _dp_hold(phase: str, label: str, got: dict, ref: dict, rtol: float) -> None:
+    """One run of `_dp_runs` against another: each state part, gradient and
+    parameter within ``rtol`` of each tensor's largest entry, each metric
+    within ``rtol`` of itself."""
+    checks = []  # (error / allowed, error, allowed, what)
+
+    def hold(actual: dict, expected: dict, what: str) -> None:
+        for name, e in expected.items():
+            scale = e.abs().max().item() if e.numel() else 0.0
+            err = (actual[name] - e).abs().max().item() if e.numel() else 0.0
+            allowed = rtol * scale
+            ratio = err / allowed if allowed > 0 else (0.0 if err == 0 else math.inf)
+            checks.append((ratio, err, allowed, f"{what} {name}"))
+
+    state = ref.get("state", {})
+    for part, tensors in state.items():
+        if isinstance(tensors, dict):
+            hold(got["state"][part], tensors, part)
+    flat = {k: v for k, v in state.items() if not isinstance(v, dict)}
+    if flat:
+        hold(got["state"], flat, "state")
+    if "params" in ref:
+        hold(got["params"], ref["params"], "params")
+    for i, grads in enumerate(ref.get("grads", [])):
+        hold(got["grads"][i], grads, f"step {i + 1} gradient")
+    for i, metrics in enumerate(ref["metrics"]):
+        for k, v in metrics.items():
+            err, allowed = abs(got["metrics"][i][k] - v), rtol * abs(v)
+            ratio = err / allowed if allowed > 0 else (0.0 if err == 0 else math.inf)
+            checks.append((ratio, err, allowed, f"step {i + 1} metric {k}"))
+    ratio, err, allowed, what = max(checks)
+    log(phase, f"{label}: the closest to its bound is {what}, {err:.3e} against {allowed:.3e} "
+               f"(rtol {rtol:g} of each tensor's largest entry, of each metric)")
+    if not ratio <= 1.0:
+        raise AssertionError(f"{label}: {what} differs by {err:.3e} > {allowed:.3e}")
+
+
+def _dp_rank(rank: int, world: int, backend: str, init_method: str, work: str,
+             per_card: bool) -> None:
+    """One rank of phase 44's multi-process legs: every run over the group,
+    rank 0's results to ``work``."""
+    import torch
+    import torch.distributed as dist
+
+    from naturalspeech2_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", rank if per_card else 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(n_data=world, device=device)
+        label = f"{backend} rank {rank}/{world} on {device}"
+        out = _dp_runs("44", mesh, device, Path(work) / f"rank{rank}", label)
+        log("44", f"{label}: launch counts {out['counts']}")
+        if rank == 0:
+            torch.save(out, Path(work) / f"{backend}{world}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_spawn(world: int, backend: str, work: Path, per_card: bool) -> dict:
+    """``world`` ranks of `_dp_rank`, each failure raising, killed past
+    DP_LIMIT_S; rank 0's results."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ranks = mp.start_processes(
+        _dp_rank, args=(world, backend, f"tcp://127.0.0.1:{port}", str(work), per_card),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_LIMIT_S
+    while not ranks.join(timeout=max(deadline - time.monotonic(), 0.0)):
+        if time.monotonic() >= deadline:
+            for proc in ranks.processes:
+                if proc.is_alive():
+                    proc.kill()
+            raise AssertionError(f"the {world} {backend} ranks exceeded {DP_LIMIT_S} s")
+    return torch.load(work / f"{backend}{world}.pt", weights_only=False)
+
+
+def phase44_data_parallel(work: Path) -> dict:
+    """Data-parallel and FSDP training; returns the launch counts by path."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from naturalspeech2_tpu_torch.parallel import make_mesh
+
+    # cuDNN picks its algorithms deterministically here, so (a) can be held
+    # to the plain trainer at f32 rounding
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = _dp_runs("44", None, torch.device("cuda"), work / "plain", "single process")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                                rank=0)
+        try:
+            mesh = make_mesh(n_data=1, device="cuda:0")
+            log("44", f"(a) mesh {mesh.shape} over {mesh.backend}, rank {mesh.rank}")
+            one = _dp_runs("44", mesh, torch.device("cuda:0"), work / "nccl1", "(a) nccl 1")
+        finally:
+            dist.destroy_process_group()
+        runs = {"replicated": "plain", "fsdp": "plain", "conditional": "conditional",
+                "codec": "codec"}
+        for run, ref in runs.items():  # the codec's index_add_ is not exact even at one rank
+            rtol = GRAD_RTOL if run == "codec" else DP_STATE_RTOL
+            _dp_hold("44", f"(a) NCCL world size 1, {run}", one[run], plain[ref], rtol)
+        two = _dp_spawn(2, "gloo", work, per_card=False)
+        for run, ref in runs.items():
+            _dp_hold("44", f"(b) two gloo ranks on one card, {run}", two[run], plain[ref],
+                     GRAD_RTOL)
+        log("44", "(b) the two ranks share this one card and reduce through host memory "
+                  "(gloo): its times are not a multi-card figure")
+        counts = {"dp_nccl1_replicated": one["counts"]["replicated"],
+                  "dp_nccl1_fsdp": one["counts"]["fsdp"],
+                  **{f"dp_gloo2_rank0_{k}": v for k, v in two["counts"].items()}}
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            multi = _dp_spawn(2, "nccl", work, per_card=True)
+            for run, ref in runs.items():
+                _dp_hold("44", f"two NCCL ranks, one card each, {run}", multi[run], plain[ref],
+                         GRAD_RTOL)
+            counts.update({f"dp_nccl2_rank0_{k}": v for k, v in multi["counts"].items()})
+            log("44", f"two ranks over NCCL, one card each: ran ({cards} cards); ms per step "
+                      + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}"
+                                  for k, v in multi["ms"].items()))
+        else:
+            log("44", f"two ranks over NCCL, one card each: not run (this host has {cards} "
+                      "card); beyond world size 1, NCCL is held only by the CPU tests over gloo")
+        for label, run in (("single process", plain), ("(a) NCCL world size 1", one),
+                           ("(b) two gloo ranks on one card, rank 0", two)):
+            log("44", f"{label}: ms per step (host clock, synchronised; the first includes "
+                      "first-use costs): " + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}"
+                                                     for k, v in run["ms"].items()))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return counts
+
+
 def profile_runs() -> int:
     """torch.profiler over 10 flagship denoise steps at b4 x n1024, over a
     10-step conditional sample of README config 2, over 10 guided denoise
@@ -5029,6 +5384,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         new_counts.update(phase42_flac_and_dispatch(Path(work)))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        new_counts.update(phase44_data_parallel(Path(work)))
 
     for entry in summary:
         name = entry["name"]

@@ -13,6 +13,15 @@ counterpart): train / sample / codec-train / serve / import-torch / info.
 the CPU; ``--device cpu`` runs the plain PyTorch versions of the kernels);
 ``info`` and ``import-torch`` do no device work.
 
+``train --mesh-data N [--param-sharding fsdp]`` and ``codec-train
+--mesh-data N`` train data-parallel over N ranks: under ``torchrun``
+(``WORLD_SIZE`` must be N) each process joins its group; started alone,
+the command starts N workers, one per card (NCCL), or on the CPU over
+gloo with ``--device cpu``:
+
+    torchrun --nproc-per-node 2 -m naturalspeech2_tpu_torch train --mesh-data 2 ...
+    ns2-torch train --mesh-data 2 --param-sharding fsdp --folder wavs/ ...
+
 Model architecture comes from a JSON config file (``--config``) with
 sections mapping 1:1 onto the constructors — the same kwargs the Python API
 and the JAX package's CLI take:
@@ -30,6 +39,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import socket
 import sys
 from pathlib import Path
 from typing import Any, Dict, Optional
@@ -133,16 +144,72 @@ def load_for_inference(ns2, checkpoint: str, *, use_ema: bool = True,
 # --------------------------------------------------------------------- #
 
 
-def cmd_train(args) -> int:
-    from naturalspeech2_tpu_torch.trainer import Trainer
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
-    device = resolve_device(args.device)
-    cfg = load_config(args.config)
-    ns2 = build_ns2(cfg).to(device)
 
-    tr_kwargs: Dict[str, Any] = dict(cfg["trainer"])
+def _rank(args, body, rank: int, world: int, local: int, init_method: str) -> int:
+    """One rank: join the group (NCCL on card ``local``, gloo on the CPU),
+    run ``body(args, mesh)``, leave the group."""
+    import torch
+    import torch.distributed as dist
+
+    from naturalspeech2_tpu_torch.parallel import make_mesh
+
+    if torch.device(args.device).type == "cuda":
+        device, backend = torch.device("cuda", local), "nccl"
+        torch.cuda.set_device(device)
+    else:
+        device, backend = torch.device("cpu"), "gloo"
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
+    try:
+        return body(args, make_mesh(n_data=world, device=device))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawned_rank(rank: int, args, body, world: int, init_method: str) -> None:
+    _rank(args, body, rank, world, rank, init_method)
+
+
+def _data_parallel(args, body) -> int:
+    """``body(args, mesh)`` on each rank of a data mesh of ``--mesh-data``
+    ranks, or ``body(args, None)`` without the flag. Under torchrun the
+    process joins its group; otherwise the ranks are started here, and a
+    rank's failure ends the others and raises."""
+    import torch
+
+    n = args.mesh_data
+    if n is None:
+        return body(args, None)
+    if n < 1:
+        raise ValueError(f"--mesh-data must be at least 1, got {n}")
+    world = os.environ.get("WORLD_SIZE")
+    if world is not None:  # started by torchrun: join its group
+        if int(world) != n:
+            raise ValueError(f"--mesh-data {n} does not match WORLD_SIZE={world} (the "
+                             "launcher's process count)")
+        rank = int(os.environ["RANK"])
+        return _rank(args, body, rank, n, int(os.environ.get("LOCAL_RANK", rank)), "env://")
+    if torch.device(args.device).type == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(f"--mesh-data {n} asks for {n} cards; this host has "
+                           f"{torch.cuda.device_count()}")
+    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    if n == 1:
+        return _rank(args, body, 0, 1, 0, init_method)
+    workers = torch.multiprocessing.start_processes(
+        _spawned_rank, args=(args, body, n, init_method), nprocs=n, join=False,
+        start_method="spawn")
+    while not workers.join():
+        pass
+    return 0
+
+
+def _train_kwargs(args) -> Dict[str, Any]:
+    tr_kwargs: Dict[str, Any] = dict(load_config(args.config)["trainer"])
     for name, value in [
-        ("mesh", args.mesh_data),
         ("train_batch_size", args.batch_size),
         ("grad_accum_every", args.grad_accum),
         ("lr", args.lr),
@@ -162,22 +229,46 @@ def cmd_train(args) -> int:
     ]:
         if value is not None:
             tr_kwargs[name] = value
+    return tr_kwargs
 
-    trainer = Trainer(ns2, folder=args.folder, **tr_kwargs)
+
+def cmd_train(args) -> int:
+    from naturalspeech2_tpu_torch.parallel import check_batch_split
+
+    batch = _train_kwargs(args).get("train_batch_size")
+    if args.mesh_data is not None and batch is not None:  # refuse before any rank starts
+        check_batch_split(batch, args.mesh_data)
+    return _data_parallel(args, _train)
+
+
+def _train(args, mesh) -> int:
+    import torch
+
+    from naturalspeech2_tpu_torch.trainer import Trainer
+
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    torch.manual_seed(args.seed)
+    ns2 = build_ns2(load_config(args.config)).to(device)
+    trainer = Trainer(ns2, folder=args.folder, mesh=mesh, **_train_kwargs(args))
     trainer.train(log_every=args.log_every)
     return 0
 
 
 def cmd_codec_train(args) -> int:
+    from naturalspeech2_tpu_torch.parallel import check_batch_split
+
+    if args.mesh_data is not None:  # refuse before any rank starts
+        check_batch_split(args.batch_size, args.mesh_data)
+    return _data_parallel(args, _codec_train)
+
+
+def _codec_train(args, mesh) -> int:
     import torch
 
     from naturalspeech2_tpu_torch.codec_trainer import CodecTrainer
     from naturalspeech2_tpu_torch.data import SoundDataset, data_loader
 
-    if args.mesh_data is not None:
-        raise _not_ported(f"data-parallel codec training (--mesh-data {args.mesh_data})",
-                          "item 21, parallel/")
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     torch.manual_seed(args.seed)
     codec = build_codec(load_config(args.config)["codec"]).to(device)
     dataset = SoundDataset(args.folder, max_length=int(args.data_seconds * codec.target_sample_hz),
@@ -190,6 +281,7 @@ def cmd_codec_train(args) -> int:
         adversarial_weight=args.adversarial_weight,
         adversarial_warmup=args.warmup,
         amp=bool(args.amp),
+        mesh=mesh,
         results_folder=args.results,
         seed=args.seed,
     )
@@ -201,7 +293,9 @@ def cmd_codec_train(args) -> int:
         trainer.train(min(start + args.save_every, args.steps), log_every=args.log_every,
                       steps_per_jit=args.steps_per_dispatch or 8)
         start = trainer.state.step
-        print(trainer.save(start))
+        path = trainer.save(start)
+        if path:
+            print(path)
     return 0
 
 
@@ -279,7 +373,8 @@ def build_engine(
     from naturalspeech2_tpu_torch import serve as serve_mod
 
     if tp > 1:
-        raise _not_ported(f"tensor-parallel serving (--tp {tp})", "item 21, parallel/")
+        raise _not_ported(f"tensor-parallel serving (--tp {tp})",
+                          "item 21's second half, parallel/tp.py")
     device = resolve_device(device)
     cfg = load_config(config)
     ns2 = build_ns2(cfg)
@@ -413,7 +508,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--param-sharding", choices=("tp", "fsdp", "replicated"),
                    default=None)
     t.add_argument("--mesh-data", type=int, default=None,
-                   help="data-parallel mesh size")
+                   help="data-parallel ranks (one per card, or CPU processes with --device cpu)")
     t.add_argument("--skip-nonfinite", action="store_true",
                    help="skip (don't apply) updates with non-finite grads")
     t.add_argument("--lr-schedule", choices=("cosine", "linear"),
@@ -441,7 +536,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--save-every", type=int, default=5000)
     c.add_argument("--steps-per-dispatch", type=int, default=None)
     c.add_argument("--mesh-data", type=int, default=None,
-                   help="data-parallel mesh size")
+                   help="data-parallel ranks (one per card, or CPU processes with --device cpu)")
     c.add_argument("--log-every", type=int, default=50)
     c.set_defaults(fn=cmd_codec_train)
 

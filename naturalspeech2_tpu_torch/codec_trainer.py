@@ -23,10 +23,20 @@ f32 parameters (autograd through the cast), the audio in bf16, with the
 codebooks, the quantizer, the losses and the codebook statistics in f32.
 Checkpoints are ``torch.save`` files of the whole state; ``load`` resumes
 bit for bit.
+
+Over a data mesh (``mesh=``, `parallel.make_mesh`) every rank reads the
+same global batch and keeps its rows; the losses are the global batch's
+(the STFT loss's norms and the feature-matching means from sums over the
+ranks, `parallel.comm.global_sum`), both models' gradients are summed
+over the ranks before the clip, and the codebooks' counts, sums and
+dead-code restart rows are the global batch's (each rank contributes
+the rows it holds), so every rank takes the same step. Rank 0 logs and
+writes checkpoints.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator, Optional
@@ -46,7 +56,9 @@ from naturalspeech2_tpu_torch.models.discriminator import (
 from naturalspeech2_tpu_torch.ops.mel import audio_to_mel
 from naturalspeech2_tpu_torch.ops.rvq import rvq
 from naturalspeech2_tpu_torch.ops.stft_loss import multi_resolution_stft_loss
-from naturalspeech2_tpu_torch.trainer import _cosine, _not_ported, clip_by_global_norm_
+from naturalspeech2_tpu_torch.parallel import comm
+from naturalspeech2_tpu_torch.parallel.mesh import Mesh, check_batch_split, make_mesh, shard_batch
+from naturalspeech2_tpu_torch.trainer import _cosine, clip_by_global_norm_
 from naturalspeech2_tpu_torch.version import __version__
 
 
@@ -111,15 +123,21 @@ class CodecTrainer:
         """Trains ``codec`` on the device of its parameters; the
         discriminator (with ``adversarial_weight > 0``) is built there.
         ``lr_schedule="cosine"`` decays both learning rates to 10 % over
-        ``decay_steps``."""
-        if mesh is not None:
-            raise _not_ported("CodecTrainer(mesh=)", "item 21, parallel/")
+        ``decay_steps``. ``mesh`` (default: every rank of the initialised
+        process group, else this process alone) splits each batch over its
+        data axis."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a naturalspeech2_tpu_torch.parallel.Mesh "
+                            f"(parallel.make_mesh), got {type(mesh).__name__}")
         if lr_schedule not in (None, "cosine"):
             raise ValueError(f"lr_schedule must be None or 'cosine', got {lr_schedule!r}")
         if lr_schedule == "cosine" and not decay_steps:
             raise ValueError("lr_schedule='cosine' needs decay_steps")
         self.codec = codec
         self.device = codec.codebooks.device
+        self.mesh = mesh if mesh is not None else make_mesh(device=self.device)
+        if self.mesh.backend == "nccl" and self.device.type != "cuda":
+            raise ValueError(f"an NCCL mesh trains on the card; the codec is on {self.device}")
         self.batches = batches
         self.commitment_weight = commitment_weight
         self.stft_weight = stft_weight
@@ -146,6 +164,9 @@ class CodecTrainer:
                 scales=disc_scales or DEFAULT_SCALES, channels=disc_channels).to(self.device)
             self.disc_optimizer = torch.optim.Adam(self.discriminator.parameters(), lr=disc_lr,
                                                    eps=1e-8)
+        models = [codec] + ([self.discriminator] if self.discriminator is not None else [])
+        with torch.no_grad():  # every rank starts from rank 0's weights
+            comm.broadcast_many_(self.mesh, [t for m in models for t in m.state_dict().values()])
         self.results_folder = Path(results_folder)
         self.results_folder.mkdir(parents=True, exist_ok=True)
         self.seed = seed
@@ -181,7 +202,9 @@ class CodecTrainer:
 
     def _losses(self, audio: torch.Tensor, adv_on: bool):
         """(loss, metrics, flat latents [m, d] f32, codes [m, Q],
-        reconstruction [b, T] f32) for the f32 batch ``audio``."""
+        reconstruction [b, T] f32) for the f32 batch ``audio``; over a mesh
+        the STFT and feature-matching terms are the global batch's."""
+        batch_sum = functools.partial(comm.global_sum, self.mesh)
         codec = self.codec
         cast = _bf16_copies(codec, skip=("codebooks",)) if self.amp else None
         run_audio = audio.to(torch.bfloat16) if self.amp else audio
@@ -193,7 +216,7 @@ class CodecTrainer:
         recon = self._call(codec, "decode", quantized_st.reshape(b, n, d).to(latents.dtype),
                            cast).float()
         wav_l1 = (recon - audio).abs().mean()
-        stft_l = multi_resolution_stft_loss(recon, audio)
+        stft_l = multi_resolution_stft_loss(recon, audio, batch_sum=batch_sum)
         commit = ((flat - quantized.detach()) ** 2).mean()
         loss = self.wav_weight * wav_l1 + self.stft_weight * stft_l + self.commitment_weight * commit
         metrics = {"wav_l1": wav_l1, "stft": stft_l, "commit": commit}
@@ -216,11 +239,18 @@ class CodecTrainer:
                 _, real_feats = self._discriminate(audio, frozen)
                 adv = generator_hinge_loss(fake_logits)
                 feat = feature_matching_loss([[x.detach() for x in fs] for fs in real_feats],
-                                             fake_feats)
+                                             fake_feats, batch_sum=batch_sum)
                 loss = loss + (self.adversarial_weight * adv + self.feature_weight * feat)
             metrics.update({"adv_g": adv, "feat": feat})
         metrics["loss"] = loss
         return loss, metrics, flat.detach(), codes, recon.detach()
+
+    def _grads(self, objective, params: list) -> list:
+        """Gradients of ``objective`` (zeros where it does not reach), summed
+        over the ranks."""
+        grads = torch.autograd.grad(objective, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        return comm.all_reduce_many_(self.mesh, grads)
 
     def _apply(self, optimizer, params: list, grads: list, lr: float) -> None:
         """optax's chain of clip_by_global_norm and adam on ``params``."""
@@ -255,11 +285,17 @@ class CodecTrainer:
         if self.state is None:
             self.init_state()
         state = self.state
-        audio = torch.as_tensor(audio).to(self.device, torch.float32)
+        n = self.mesh.n_data
+        check_batch_split(len(audio), n)
+        audio = torch.as_tensor(shard_batch(self.mesh, audio)).to(self.device, torch.float32)
         adv_on = state.step >= self.adversarial_warmup
         loss, metrics, flat, codes, recon = self._losses(audio, adv_on)
         params = list(self.codec.parameters())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        # this rank's share: its plain means over n, the global terms whole
+        whole = self.stft_weight * metrics["stft"]
+        if "feat" in metrics:
+            whole = whole + self.feature_weight * metrics["feat"]
+        grads = self._grads(loss / n + (1.0 - 1.0 / n) * whole, params)
         codebooks = self.codec.codebooks.detach().clone()  # the statistics' codebooks
         self._apply(self.optimizer, params, grads, self.lr_at(state.step))
 
@@ -271,7 +307,7 @@ class CodecTrainer:
                 real_logits, _ = self._discriminate(audio, run)
                 fake_logits, _ = self._discriminate(recon, run)
                 d_val = discriminator_hinge_loss(real_logits, fake_logits)
-                d_grads = torch.autograd.grad(d_val, d_params, allow_unused=True)
+                d_grads = self._grads(d_val / n, d_params)
                 self._apply(self.disc_optimizer, d_params, d_grads,
                             self.disc_lr_at(state.disc_updates))
                 state.disc_updates += 1
@@ -279,42 +315,59 @@ class CodecTrainer:
 
         metrics.update(self._codebook_update(codebooks, flat, codes, restart_idx))
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        keys = list(metrics)  # each metric's mean over the ranks
+        means = comm.all_reduce_(self.mesh, torch.stack([metrics[k].detach().float() for k in keys]))
+        return dict(zip(keys, (means / n).unbind(0)))
 
     @torch.no_grad()
     def _codebook_update(self, codebooks, flat, codes, restart_idx) -> dict:
         """Per stage, on the residual before it: the EMA of the assigned sums
         and counts; live codes move to the EMA mean, dead ones (count below
         the threshold) to a batch residual with their statistics reset.
+        Over a mesh the sums, counts and restart rows are the global
+        batch's: ``restart_idx`` indexes the flattened latents of the
+        global batch, of which this rank holds rows [rank·m, (rank+1)·m).
         Writes the codebooks; returns the codebook-health metrics."""
         state = self.state
         num_q, size, _ = codebooks.shape
         decay = self.decay
+        m = flat.shape[0]
+        offset = self.mesh.rank * m
         if self.dead_code_threshold > 0 and restart_idx is None:
-            restart_idx = self.restart_rows(flat.shape[0])
+            restart_idx = self.restart_rows(m * self.mesh.n_data)
+        # this rank's statistics of every stage, then one sum over the ranks
         residual = flat
-        perps, usages, restarts = [], [], []
+        sums, cnts, seeds = [], [], []
         for qi in range(num_q):
             idx = codes[:, qi].long()
-            sums = torch.zeros_like(codebooks[qi]).index_add_(0, idx, residual)
-            cnts = torch.bincount(idx, minlength=size).to(flat.dtype)
-            e = state.codebook_ema[qi] * decay + sums * (1 - decay)
-            c = state.codebook_count[qi] * decay + cnts * (1 - decay)
+            sums.append(torch.zeros_like(codebooks[qi]).index_add_(0, idx, residual))
+            cnts.append(torch.bincount(idx, minlength=size).to(flat.dtype))
+            if self.dead_code_threshold > 0:
+                rows = restart_idx[qi].long().to(residual.device) - offset
+                held = (rows >= 0) & (rows < m)
+                seeds.append(torch.where(held[:, None], residual[rows.clamp(0, m - 1)], 0.0))
+            residual = residual - codebooks[qi][idx]
+        stats = [torch.stack(sums), torch.stack(cnts)] + ([torch.stack(seeds)] if seeds else [])
+        comm.all_reduce_many_(self.mesh, stats)
+        sums, cnts = stats[0].unbind(0), stats[1].unbind(0)
+        seeds = stats[2].unbind(0) if seeds else seeds
+        perps, usages, restarts = [], [], []
+        for qi in range(num_q):
+            e = state.codebook_ema[qi] * decay + sums[qi] * (1 - decay)
+            c = state.codebook_count[qi] * decay + cnts[qi] * (1 - decay)
             cb_q = torch.where((c > 1e-3)[:, None], e / c.clamp(min=1e-3)[:, None], codebooks[qi])
             if self.dead_code_threshold > 0:
                 dead = c < self.dead_code_threshold
-                seeds = residual[restart_idx[qi].long().to(residual.device)]
-                cb_q = torch.where(dead[:, None], seeds, cb_q)
-                e = torch.where(dead[:, None], seeds, e)
+                cb_q = torch.where(dead[:, None], seeds[qi], cb_q)
+                e = torch.where(dead[:, None], seeds[qi], e)
                 c = torch.where(dead, torch.ones_like(c), c)
                 restarts.append(dead.sum())
             state.codebook_ema[qi] = e
             state.codebook_count[qi] = c
             self.codec.codebooks[qi] = cb_q
-            p = cnts / cnts.sum().clamp(min=1.0)
+            p = cnts[qi] / cnts[qi].sum().clamp(min=1.0)
             perps.append(torch.exp(-(p * torch.log(p.clamp(min=1e-10))).sum()))
-            usages.append((cnts > 0).float().mean())
-            residual = residual - codebooks[qi][idx]
+            usages.append((cnts[qi] > 0).float().mean())
         out = {"perplexity": torch.stack(perps).mean(), "usage": torch.stack(usages).mean()}
         if restarts:
             out["restarts"] = torch.stack(restarts).sum()
@@ -340,7 +393,7 @@ class CodecTrainer:
                 if i < m - 1:
                     batch = next(self.batches)
             step = self.state.step
-            if (step // k) % max(1, log_every // k) == 0:
+            if (step // k) % max(1, log_every // k) == 0 and self.mesh.is_main:
                 metrics = {name: float(v) for name, v in metrics.items()}
                 print(f"codec step {step}: loss {metrics['loss']:.4f} "
                       f"(wav {metrics['wav_l1']:.4f}, stft {metrics['stft']:.4f}, "
@@ -355,7 +408,10 @@ class CodecTrainer:
 
     def save(self, milestone) -> str:
         """The whole training state: codec and discriminator parameters, both
-        optimizers' states, the codebook statistics and the step."""
+        optimizers' states, the codebook statistics and the step; written
+        by rank 0 (the others return "")."""
+        if not self.mesh.is_main:
+            return ""
         s = self.state
         payload = {"step": s.step, "params": self.codec.state_dict(),
                    "opt_state": self.optimizer.state_dict(), "codebook_ema": s.codebook_ema,

@@ -12,7 +12,7 @@ asymmetric, computed from each input's size.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -102,12 +102,13 @@ def generator_hinge_loss(fake_logits) -> torch.Tensor:
     return total / len(fake_logits)
 
 
-def feature_matching_loss(real_features, fake_features) -> torch.Tensor:
-    """Mean over scales and layers of mean|D(x) − D(x̂)| / max(mean|D(x)|, 1e-6)."""
-    total = 0.0
-    count = 0
-    for rs, fs in zip(real_features, fake_features):
-        for r, f in zip(rs, fs):
-            total = total + (r - f).abs().mean() / r.abs().mean().clamp(min=1e-6)
-            count += 1
-    return total / max(count, 1)
+def feature_matching_loss(real_features, fake_features,
+                          batch_sum: Callable = lambda x: x) -> torch.Tensor:
+    """Mean over scales and layers of mean|D(x) − D(x̂)| / max(mean|D(x)|, 1e-6),
+    each mean from sums over the batch that ``batch_sum`` completes (data
+    parallel: `parallel.comm.global_sum` adds the other ranks' rows)."""
+    parts = [torch.stack([(r - f).abs().sum(), r.abs().sum(), r.new_tensor(float(r.numel()))])
+             for rs, fs in zip(real_features, fake_features) for r, f in zip(rs, fs)]
+    sums = batch_sum(torch.stack(parts))  # [layers, 3]
+    ratios = (sums[:, 0] / sums[:, 2]) / (sums[:, 1] / sums[:, 2]).clamp(min=1e-6)
+    return ratios.sum() / len(parts)

@@ -5,7 +5,7 @@ log-magnitude L1 over several FFT sizes, on the port's `ops/mel.py:stft`
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -25,15 +25,22 @@ def stft_magnitude(audio: torch.Tensor, n_fft: int, hop: int, win: int) -> torch
 
 def multi_resolution_stft_loss(pred: torch.Tensor, target: torch.Tensor,
                                resolutions: Sequence[Tuple[int, int, int]] = DEFAULT_RESOLUTIONS,
-                               eps: float = 1e-7) -> torch.Tensor:
+                               eps: float = 1e-7,
+                               batch_sum: Callable = lambda x: x) -> torch.Tensor:
     """Mean over resolutions of ‖|S_t| − |S_p|‖ / max(‖|S_t|‖, eps) plus
-    mean |log(|S_p| + eps) − log(|S_t| + eps)|, for audio [b, T]."""
-    total = 0.0
+    mean |log(|S_p| + eps) − log(|S_t| + eps)|, for audio [b, T], from
+    sums over the batch that ``batch_sum`` completes (data parallel:
+    `parallel.comm.global_sum` adds the other ranks' rows)."""
+    parts = []
     for n_fft, hop, win in resolutions:
         m_pred = stft_magnitude(pred, n_fft, hop, win)
         m_tgt = stft_magnitude(target, n_fft, hop, win)
-        sc = torch.linalg.vector_norm(m_tgt - m_pred) / torch.linalg.vector_norm(m_tgt).clamp(
-            min=eps)
-        log_mag = (torch.log(m_pred + eps) - torch.log(m_tgt + eps)).abs().mean()
-        total = total + sc + log_mag
-    return total / len(resolutions)
+        log_diff = (torch.log(m_pred + eps) - torch.log(m_tgt + eps)).abs()
+        # squared norms, not sums of squares: √(‖x‖²) is ‖x‖ exactly, so one
+        # process keeps the values and gradients the JAX parity tests hold
+        parts.append(torch.stack([torch.linalg.vector_norm(m_tgt - m_pred).square(),
+                                  torch.linalg.vector_norm(m_tgt).square(),
+                                  log_diff.sum(), log_diff.new_tensor(float(log_diff.numel()))]))
+    sums = batch_sum(torch.stack(parts))  # [resolutions, 4]
+    sc = sums[:, 0].sqrt() / sums[:, 1].sqrt().clamp(min=eps)
+    return (sc + sums[:, 2] / sums[:, 3]).sum() / len(resolutions)

@@ -127,7 +127,7 @@ class TTSEngine:
         if self.mesh is not None:
             raise NotImplementedError(
                 "TTSEngine(mesh=), tensor-parallel serving, is not ported yet (ROADMAP Queue 1, "
-                "item 21, parallel/)")
+                "item 21's second half, parallel/tp.py)")
         if not self.ns2.conditional:
             raise ValueError("TTSEngine serves conditional (text+prompt) models")
         if self.ns2.tokenizer is None:

@@ -12,6 +12,22 @@ Checkpoints are ``torch.save`` files of {step, params, opt_state,
 ema_params, version}; ``train()`` resumes from the newest one in
 ``results_folder``.
 
+Over a data mesh (``mesh=``, `parallel.make_mesh`) every rank reads the
+same global batch and keeps its rows of each micro-batch; the draws are
+made for the global micro-batch and sliced, each rank's loss is weighted
+so that the gradients summed over the ranks are the global batch's (the
+masked duration / pitch means by their share of the global phoneme
+count), and the clip, the skip and the logged metrics act on the reduced
+values, so every rank takes the same step. Ranks seeded alike get torch
+default generators offset by their rank (`parallel.seed_ranks_apart`),
+so their rows draw different dropout masks. ``param_sharding="fsdp"``
+keeps each rank's part of the large parameters, of Adam's moments and of
+the EMA at rest (`parallel.fsdp`), gathering the whole weights for each
+step's forward and backward only. Rank 0 logs, samples and writes the
+whole (gathered) state; every rank loads a checkpoint and re-shards it.
+Without a process group every collective is the identity, and the same
+code trains one process.
+
 The diffusion times and noise of every micro-batch, a conditional
 model's CFG drop masks and a self-conditioned denoiser's bootstrap rows
 come from the trainer's own generator (seeded with ``seed + 1``) and are
@@ -43,17 +59,22 @@ from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.graph import increment_version
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from naturalspeech2_tpu_torch.data import SoundDataset, data_loader, write_wav
 from naturalspeech2_tpu_torch.models.naturalspeech2 import NaturalSpeech2, sample
+from naturalspeech2_tpu_torch.parallel import comm, fsdp
+from naturalspeech2_tpu_torch.parallel.mesh import (
+    Mesh,
+    check_batch_split,
+    make_mesh,
+    replicated,
+    seed_ranks_apart,
+)
 from naturalspeech2_tpu_torch.utils.helpers import prob_mask_like
 from naturalspeech2_tpu_torch.version import __version__
-
-
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -80,11 +101,14 @@ def _join(first: Callable, second: Callable, boundary: int) -> Callable[[int], f
     return lambda count: first(count) if count < boundary else second(count - boundary)
 
 
-def clip_by_global_norm_(grads: list, max_norm: float) -> None:
+def clip_by_global_norm_(grads: list, max_norm: float,
+                         g_norm: Optional[torch.Tensor] = None) -> None:
     """optax.clip_by_global_norm in place: g / ‖g‖ · max when ‖g‖ ≥ max,
     no ε (where ``clip_grad_norm_`` divides by ‖g‖ + 1e-6); as device
-    scalars (1 and 1 when not clipping), so the host never waits."""
-    g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scalars (1 and 1 when not clipping), so the host never waits. ``g_norm``
+    is the norm when ``grads`` hold only a part of the tree (FSDP)."""
+    if g_norm is None:
+        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     clip = g_norm >= max_norm
     torch._foreach_div_(grads, torch.where(clip, g_norm, 1.0))
     torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
@@ -136,7 +160,7 @@ class Trainer:
         mesh=None,
         seed: int = 0,
         checkpoint_backend: str = "torch",
-        param_sharding: Optional[str] = None,
+        param_sharding: str = "tp",
         steps_per_dispatch: int = 1,
         skip_nonfinite_updates: bool = False,
         lr_schedule: Optional[str] = None,
@@ -149,9 +173,17 @@ class Trainer:
         ``skip_nonfinite_updates`` leaves params and optimizer state as they
         were after a step whose gradients are not finite (reported as
         ``skipped``); ``val_batches`` / ``val_fraction`` add a held-out
-        loss every ``validate_every`` steps."""
-        if mesh is not None or param_sharding is not None:
-            raise _not_ported("mesh / param_sharding", "item 21, parallel/")
+        loss every ``validate_every`` steps. ``mesh`` (default: every rank
+        of the initialised process group, else this process alone) splits
+        each micro-batch over its data axis; ``param_sharding`` lays out
+        the state over it: "replicated", "fsdp", or "tp" (replicated on a
+        model axis of 1, as in JAX)."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a naturalspeech2_tpu_torch.parallel.Mesh "
+                            f"(parallel.make_mesh), got {type(mesh).__name__}")
+        if param_sharding not in ("tp", "fsdp", "replicated"):
+            raise ValueError("param_sharding must be 'tp', 'fsdp' or 'replicated', "
+                             f"got {param_sharding!r}")
         if checkpoint_backend == "orbax":
             raise NotImplementedError(
                 "checkpoint_backend='orbax' is not ported (ROADMAP item 22, do not port: the "
@@ -164,6 +196,10 @@ class Trainer:
         self.steps_per_dispatch = steps_per_dispatch
         self.ns2 = diffusion_model
         self.device = next(diffusion_model.parameters()).device
+        self.mesh = mesh if mesh is not None else make_mesh(device=self.device)
+        check_batch_split(train_batch_size, self.mesh.n_data)
+        if self.mesh.backend == "nccl" and self.device.type != "cuda":
+            raise ValueError(f"an NCCL mesh trains on the card; the model is on {self.device}")
         if self.ns2.conditional and self.ns2.duration_pitch.to_duration_pred.head_activation == "relu":
             # PARITY #12: once the pre-activation is negative everywhere the
             # masked L1's gradient is 0 and the predictor never recovers
@@ -213,8 +249,23 @@ class Trainer:
 
         self.lr_at = make_lr_schedule(lr, lr_schedule, warmup_steps, train_num_steps)
         self.params = dict(self.ns2.named_parameters())
-        self.optimizer = torch.optim.Adam(self.params.values(), lr=lr, betas=betas, eps=1e-8)
-        self.ema = {name: p.detach().clone() for name, p in self.params.items()}
+        with torch.no_grad():  # every rank starts from rank 0's weights
+            comm.broadcast_many_(self.mesh, list(self.ns2.state_dict().values()))
+        seed_ranks_apart(self.mesh)
+        if param_sharding == "fsdp":
+            self.shardings = fsdp.state_shardings(self.mesh, self.params)
+        else:
+            self.shardings = {name: replicated(self.mesh) for name in self.params}
+        # the names of the parameters each rank holds a part of at rest
+        self._split = [n for n, sh in self.shardings.items() if sh.dim is not None]
+        self._full_shapes = {n: self.params[n].shape for n in self._split}
+        # what the optimizer and the EMA update: each rank's part of a split
+        # parameter, the parameter itself otherwise
+        self.master = {**self.params, **fsdp.shard_state(
+            self.mesh, {n: self.params[n].detach() for n in self._split})}
+        self.optimizer = torch.optim.Adam(self.master.values(), lr=lr, betas=betas, eps=1e-8)
+        self.ema = {name: p.detach().clone() for name, p in self.master.items()}
+        self._release()
         self.step = 0
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
         self._resume_checked = False
@@ -261,15 +312,23 @@ class Trainer:
         return prob_mask_like((b,), self.ns2.train_prob_self_cond, generator, self.device)
 
     def _draws(self, audio, generator: Optional[torch.Generator] = None) -> dict:
-        times, noise = self.draw(audio) if generator is None else self.draw(audio, generator)
+        """The loss's draws for ``audio``, this rank's rows of a micro-batch:
+        made for the whole micro-batch (as JAX draws over the global
+        array) and sliced."""
+        b = audio.shape[0]
+        rows = b * self.mesh.n_data
+        whole = audio[:1].expand(rows, *audio.shape[1:])  # the micro-batch's shape, no copy
+        times, noise = self.draw(whole) if generator is None else self.draw(whole, generator)
         draws = {"times": times, "noise": noise}
-        drop = self.draw_cond_drop(audio.shape[0], generator)
+        drop = self.draw_cond_drop(rows, generator)
         if drop is not None:
             draws["cond_drop_mask"] = drop
-        self_cond = self.draw_self_cond(audio.shape[0], generator)
+        self_cond = self.draw_self_cond(rows, generator)
         if self_cond is not None:
             draws["self_cond_mask"] = self_cond
-        return draws
+        keep = slice(self.mesh.rank * b, (self.mesh.rank + 1) * b)
+        return {k: tuple(m[keep] for m in v) if isinstance(v, tuple) else v[keep]
+                for k, v in draws.items()}
 
     def _tensors(self, batch) -> dict:
         """A batch (an array, or a dict of arrays) as a dict of tensors on
@@ -307,8 +366,27 @@ class Trainer:
 
     def _update_count(self) -> int:
         """Optimizer updates applied so far (the optax schedule's count)."""
-        state = self.optimizer.state.get(next(iter(self.params.values())), {})
+        state = self.optimizer.state.get(next(iter(self.master.values())), {})
         return int(state["step"]) if "step" in state else 0
+
+    def _materialize(self) -> None:
+        """The whole weights of the split parameters, gathered into fresh
+        tensors; their versions advance, so no layout built from an
+        earlier step's weights (`ops/gemm_cache.py`) is reused."""
+        if not self._split:
+            return
+        whole = fsdp.gather_params(self.mesh, {n: self.master[n] for n in self._split},
+                                   self.shardings)
+        for name in self._split:
+            self.params[name].data = whole[name]
+            increment_version(self.params[name])
+
+    def _release(self) -> None:
+        """Drop the whole weights of the split parameters (FSDP at rest)."""
+        for name in self._split:
+            p = self.params[name]
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+            increment_version(p)
 
     def train_step(self, batch) -> dict:
         """One optimizer step over a batch (an array, or a dict of arrays
@@ -326,40 +404,102 @@ class Trainer:
         values = torch.stack([m[k] for m in steps for k in keys]).tolist()  # waits for the chunk
         return {k: sum(values[i::len(keys)]) / len(steps) for i, k in enumerate(keys)}
 
+    def _rank_rows(self, batch, whole: int, count: int):
+        """(this rank's rows of each of the first ``count`` micro-batches of
+        ``whole`` rows of a global batch, and each micro-batch's phoneme
+        counts (this rank's, the whole micro-batch's) when the duration /
+        pitch losses are masked means)."""
+        per = whole // self.mesh.n_data
+        spans = [(i * whole + self.mesh.rank * per, i * whole + (self.mesh.rank + 1) * per)
+                 for i in range(count)]
+
+        def rows(v):
+            return np.concatenate([np.asarray(v)[a:b] for a, b in spans])
+
+        if not isinstance(batch, dict):
+            return rows(batch), None
+        tokens = None
+        if "text" in batch and self.ns2.conditional and self.ns2.mask_duration_pitch_loss:
+            text_max = np.asarray(batch["text"]).shape[-1]
+            lens = (np.asarray(batch["text_lens"]) if "text_lens" in batch
+                    else np.full(len(batch["text"]), text_max))
+            lens = np.clip(lens, 0, text_max).astype(np.float64)
+            tokens = [(float(lens[a:b].sum()), float(lens[i * whole:(i + 1) * whole].sum()))
+                      for i, (a, b) in enumerate(spans)]
+        return {k: rows(v) for k, v in batch.items()}, tokens
+
+    def _shares(self, losses: dict, tokens) -> dict:
+        """This rank's share of each loss component's global value; that of
+        ``"loss"`` is what the backward takes. A plain mean over equal
+        micro-batches is the mean of the ranks' means; a masked mean is
+        theirs weighted by each rank's share of the phonemes."""
+        n = self.mesh.n_data
+        shares = {k: v / n for k, v in losses.items()}
+        if tokens is not None:
+            weight = max(tokens[0], 1.0) / max(tokens[1], 1.0)
+            masked = (losses["duration"] * self.ns2.duration_loss_weight
+                      + losses["pitch"] * self.ns2.pitch_loss_weight)
+            shares["loss"] = shares["loss"] + (weight - 1.0 / n) * masked
+            shares["duration"] = losses["duration"] * weight
+            shares["pitch"] = losses["pitch"] * weight
+        return shares
+
+    def _global(self, shares: dict) -> dict:
+        """Each metric's shares summed over the ranks, in one all-reduce."""
+        keys = list(shares)
+        summed = comm.all_reduce_(self.mesh, torch.stack([shares[k].detach() for k in keys]))
+        return dict(zip(keys, summed.unbind(0)))
+
     def _step(self, batch) -> dict:
         """One optimizer step; the metrics as device scalars."""
+        batch, tokens = self._rank_rows(batch, self.train_batch_size, self.grad_accum_every)
+        per = self.train_batch_size // self.mesh.n_data
         tensors = self._tensors(batch)
+        self._materialize()
         params = list(self.params.values())
         for p in params:
             p.grad = None
         sums: dict = {}
         for i in range(self.grad_accum_every):
-            micro = {k: v[i * self.train_batch_size:(i + 1) * self.train_batch_size]
-                     for k, v in tensors.items()}
+            micro = {k: v[i * per:(i + 1) * per] for k, v in tensors.items()}
             audio = micro.pop("audio")
-            losses = self.losses(audio, micro, self._draws(audio))
+            losses = self._shares(self.losses(audio, micro, self._draws(audio)),
+                                  tokens and tokens[i])
             losses["loss"].backward()
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
+        sums = self._global(sums)
         metrics = {k: v / self.grad_accum_every for k, v in sums.items()}
 
         # parameters the loss does not reach (the frozen codec) get zero
         # gradients, as jax.grad gives them, so Adam's state covers them too
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in self.params.items()}
+        # summed over the ranks; FSDP keeps each rank's part
+        grads = fsdp.reduce_scatter_grads(self.mesh, grads, self.shardings)
+        for p in params:
+            p.grad = None
+        self._release()
+        master = list(self.master.values())
+        grads = [grads[n] for n in self.master]
         if self.grad_accum_every > 1:
             torch._foreach_div_(grads, self.grad_accum_every)
         skipped = False
         if self.skip_nonfinite_updates:
-            skipped = not bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
-        clip_by_global_norm_(grads, self.max_grad_norm)
-        for p, g in zip(params, grads):
+            bad = torch.stack([(~torch.isfinite(g)).any() for g in grads]).any().float()
+            skipped = bool(comm.all_reduce_(self.mesh, bad) > 0)  # each rank checked its parts
+        g_norm = None
+        if self._split:
+            g_norm = fsdp.global_norm(self.mesh, dict(zip(self.master, grads)), self.shardings)
+        clip_by_global_norm_(grads, self.max_grad_norm, g_norm)
+        for p, g in zip(master, grads):
             p.grad = g
         if not skipped:
             lr = self.lr_at(self._update_count())
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
             self.optimizer.step()
-        for p in params:
+        for p in master:
             p.grad = None
 
         self.step += 1
@@ -368,7 +508,7 @@ class Trainer:
             with torch.no_grad():
                 ema = list(self.ema.values())
                 torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, torch._foreach_mul(params, 1 - d))
+                torch._foreach_add_(ema, torch._foreach_mul(master, 1 - d))
         if self.skip_nonfinite_updates:
             metrics["skipped"] = torch.tensor(float(skipped), device=self.device)
         return metrics
@@ -377,30 +517,61 @@ class Trainer:
         """Loss components on one ``val_batches`` batch (an array or a
         dict), with the training weights and fixed draws: the loss's from
         a generator seeded ``seed + 1234``, the dropout's from torch's
-        default generators seeded so for the call and restored after."""
+        default generators seeded so (plus the rank) for the call and
+        restored after. Over a mesh each rank computes its rows of the
+        batch's first ``train_batch_size``."""
         if self.val_batches is None:
             raise ValueError("pass val_batches= or val_fraction= to Trainer")
-        tensors = {k: v[: self.train_batch_size]
-                   for k, v in self._tensors(next(self.val_batches)).items()}
+        batch = next(self.val_batches)
+        whole = min(len(batch["audio"] if isinstance(batch, dict) else batch),
+                    self.train_batch_size)
+        check_batch_split(whole, self.mesh.n_data)
+        batch, tokens = self._rank_rows(batch, whole, 1)
+        tensors = self._tensors(batch)
         audio = tensors.pop("audio")
         generator = torch.Generator(self.device).manual_seed(self.seed + 1234)
         devices = [self.device] if self.device.type == "cuda" else []
+        self._materialize()
         with torch.no_grad(), torch.random.fork_rng(devices=devices):
-            torch.manual_seed(self.seed + 1234)
+            torch.manual_seed(self.seed + 1234 + self.mesh.rank)
             losses = self.losses(audio, tensors, self._draws(audio, generator))
+        self._release()
+        losses = self._global(self._shares(losses, tokens and tokens[0]))
         return {f"val_{k}": float(v) for k, v in losses.items()}
 
     # ------------------------------------------------------------------ #
 
-    def save(self, milestone) -> str:
+    def gather(self, tree: dict) -> dict:
+        """The whole leaves of a state tree (by parameter name) held as the
+        parameters are: under FSDP gathered, a collective every rank calls."""
+        return fsdp.gather_params(self.mesh, tree, self.shardings) if self._split else tree
+
+    def full_state(self) -> dict:
+        """{step, params, opt_state, ema_params, version}: the whole state
+        as a checkpoint holds it (under FSDP gathered, a collective every
+        rank calls)."""
+        params = self.ns2.state_dict()
+        opt_state = self.optimizer.state_dict()
+        if self._split:
+            params.update(self.gather({n: self.master[n].detach() for n in self._split}))
+            names = list(self.master)
+            moments = opt_state["state"]
+            for key in ("exp_avg", "exp_avg_sq"):
+                held = {names[i]: s[key] for i, s in moments.items()}
+                whole = self.gather(held)
+                for i in moments:
+                    moments[i] = {**moments[i], key: whole[names[i]]}
+        return {"step": self.step, "params": params, "opt_state": opt_state,
+                "ema_params": self.gather(self.ema), "version": __version__}
+
+    def save(self, milestone, state: Optional[dict] = None) -> str:
+        """Rank 0 writes ``model-{milestone}.ckpt``; the other ranks take
+        part in the gather and return ""."""
+        state = self.full_state() if state is None else state
+        if not self.mesh.is_main:
+            return ""
         path = self.results_folder / f"model-{milestone}.ckpt"
-        torch.save({
-            "step": self.step,
-            "params": self.ns2.state_dict(),
-            "opt_state": self.optimizer.state_dict(),
-            "ema_params": self.ema,
-            "version": __version__,
-        }, path)
+        torch.save(state, path)
         return str(path)
 
     def latest_checkpoint(self) -> Optional[str]:
@@ -408,17 +579,46 @@ class Trainer:
         return str(ckpts[-1]) if ckpts else None
 
     def load(self, path) -> None:
+        """Restore a checkpoint (any mesh's: they hold the whole state) and
+        lay it out as this trainer's."""
         payload = torch.load(path, map_location="cpu", weights_only=True)
+        for name in self._split:
+            p = self.params[name]
+            p.data = torch.empty(self._full_shapes[name], dtype=p.dtype, device=p.device)
         self.ns2.load_state_dict(payload["params"], strict=True)
-        self.optimizer.load_state_dict(payload["opt_state"])  # moves the moments to the params
+        opt_state = payload["opt_state"]
+        if self._split:  # each rank keeps its parts
+            with torch.no_grad():
+                for name in self._split:
+                    self.master[name].copy_(self.shardings[name].shard(self.params[name]))
+            self._release()
+            names = list(self.master)
+            for i, s in opt_state["state"].items():
+                sharding = self.shardings[names[i]]
+                opt_state["state"][i] = {k: v if k == "step" else sharding.shard(v)
+                                         for k, v in s.items()}
+        self.optimizer.load_state_dict(opt_state)  # moves the moments to the params
         with torch.no_grad():
             for name, e in self.ema.items():
-                e.copy_(payload["ema_params"][name])
+                e.copy_(self.shardings[name].shard(payload["ema_params"][name]))
         self.step = int(payload["step"])
         self._resume_checked = True
         if payload.get("version") != __version__:
             print(f"checkpoint saved with version {payload.get('version')}, "
                   f"loading into {__version__}")
+
+    def _agreed_checkpoint(self) -> Optional[str]:
+        """The newest checkpoint, if rank 0 has one: the ranks agree by a
+        broadcast, and a rank that lacks rank 0's raises."""
+        latest = self.latest_checkpoint()
+        found = comm.broadcast_(self.mesh, torch.tensor([float(latest is not None)],
+                                                        device=self.device))
+        if bool(found[0]) and latest is None:
+            raise FileNotFoundError(
+                "the main process has a checkpoint but this rank's results_folder "
+                f"({self.results_folder}) does not — results_folder must be shared storage "
+                "for a multi-process restart")
+        return latest if bool(found[0]) else None
 
     # ------------------------------------------------------------------ #
 
@@ -442,7 +642,7 @@ class Trainer:
                               if k in batch}
         if not self._resume_checked:
             self._resume_checked = True
-            latest = self.latest_checkpoint()
+            latest = self._agreed_checkpoint()
             if latest is not None:
                 print(f"resuming from {latest}")
                 self.load(latest)
@@ -461,21 +661,24 @@ class Trainer:
             if profiler is not None and step >= profile_steps[1]:
                 self._stop_profile(profiler)
                 profiler, profile_steps = None, None
-            if step // log_every > prev // log_every:
+            main = self.mesh.is_main
+            if step // log_every > prev // log_every and main:
                 print(f"step {step}: loss {metrics['loss']:.4f} ({step_time * 1e3:.0f} ms)")
                 with open(metrics_path, "a") as f:
                     f.write(json.dumps({"step": step, "step_time_s": step_time, **metrics}) + "\n")
             if self.val_batches is not None and step // self.validate_every > prev // self.validate_every:
                 val = self.evaluate()
-                print(f"step {step}: val_loss {val['val_loss']:.4f}")
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps({"step": step, **val}) + "\n")
+                if main:
+                    print(f"step {step}: val_loss {val['val_loss']:.4f}")
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps({"step": step, **val}) + "\n")
             if step // self.save_and_sample_every > prev // self.save_and_sample_every:
                 self.sample_and_save(step // self.save_and_sample_every)
             batch = next(self.batches)
         if profiler is not None:
             self._stop_profile(profiler)
-        print("training complete")
+        if self.mesh.is_main:
+            print("training complete")
 
     def _start_profile(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -491,7 +694,8 @@ class Trainer:
         profiler.stop()
         folder = self.results_folder / "profile"
         folder.mkdir(parents=True, exist_ok=True)
-        path = folder / f"trace-step{self.step}.json"
+        rank = f"-rank{self.mesh.rank}" if self.mesh.world_size > 1 else ""
+        path = folder / f"trace-step{self.step}{rank}.json"
         profiler.export_chrome_trace(str(path))
         print(f"profile written to {path}")
 
@@ -500,7 +704,11 @@ class Trainer:
         frames from the EMA weights, seeded with the milestone: a
         conditional model speaks the text of the (prompt, text) pair held
         back from the first batch, and writes no sample without one) and
-        ``model-{milestone}.ckpt``."""
+        ``model-{milestone}.ckpt``; on rank 0 only, after every rank took
+        part in gathering the state."""
+        state = self.full_state()
+        if not self.mesh.is_main:
+            return
         cond = {}
         if self.ns2.conditional and self._holdback is not None:
             cond = {k: torch.as_tensor(v).to(self.device) for k, v in self._holdback.items()}
@@ -509,10 +717,10 @@ class Trainer:
             ema_model = copy.deepcopy(self.ns2)
             with torch.no_grad():
                 for name, p in ema_model.named_parameters():
-                    p.copy_(self.ema[name])
+                    p.data = state["ema_params"][name].clone()
             generator = torch.Generator(self.device).manual_seed(int(milestone))
             audio = sample(ema_model, length=self.sample_length, batch_size=1, generator=generator,
                            **cond)
             write_wav(self.results_folder / f"sample-{milestone}.wav", audio[0].cpu().numpy(),
                       self.ns2.sample_hz)
-        self.save(milestone)
+        self.save(milestone, state)

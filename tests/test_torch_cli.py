@@ -4,14 +4,18 @@ the CPU with tiny configs: `train` → checkpoint → `sample`, conditional
 `serve --demo` over HTTP, `info` against the JAX package's `info`,
 `codec-train` with a resume, `import-torch --encodec`, `train` → `sample`
 with the Encodec codec, `--steps-per-dispatch` in `train` and
-`codec-train`, and the named refusals of what is not ported."""
+`codec-train`, and the named refusals of what is not ported or cannot
+run."""
 
 import base64
 import json
 import os
+import queue
 import re
 import subprocess
 import sys
+import threading
+import time
 import urllib.request
 from pathlib import Path
 
@@ -28,6 +32,7 @@ from naturalspeech2_tpu_torch.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = ["--device", "cpu"]
+SERVE_START_S = 300  # the demo's bucket warm-up takes seconds on the CPU
 
 TINY = {
     "codec": {"type": "soundstream", "codebook_dim": 16, "channels": 4, "num_quantizers": 2,
@@ -193,17 +198,31 @@ def test_build_engine_from_checkpoint(work):
 
 def test_serve_demo_over_http():
     """`python -m naturalspeech2_tpu_torch serve --demo --device cpu`: warm
-    the demo's buckets, serve, answer /healthz and /tts."""
+    the demo's buckets, serve, answer /healthz and /tts; the server must
+    say it serves within SERVE_START_S, else it is killed and the test
+    fails."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.Popen(
         [sys.executable, "-m", "naturalspeech2_tpu_torch", "serve", "--demo", "--port", "0",
          *CPU], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
-        lines = []
-        for line in proc.stdout:
-            lines.append(line)
-            if line.startswith("serving on"):
+        pending: queue.Queue = queue.Queue()
+
+        def read():
+            for out_line in proc.stdout:
+                pending.put(out_line)
+            pending.put("")  # the server exited
+
+        threading.Thread(target=read, daemon=True).start()
+        deadline, lines = time.monotonic() + SERVE_START_S, []
+        while not (lines and lines[-1].startswith("serving on")):
+            try:
+                line = pending.get(timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                pytest.fail(f"no 'serving on' in {SERVE_START_S} s:\n{''.join(lines)}")
+            if not line:
                 break
+            lines.append(line)
         match = re.search(r"http://127\.0\.0\.1:(\d+)", lines[-1]) if lines else None
         assert match, "".join(lines)
         base = f"http://127.0.0.1:{match.group(1)}"
@@ -258,17 +277,27 @@ def test_info_conditional_counts_match_jax(work, capsys):
 
 
 REFUSALS = {
-    "orbax": (["train", "--checkpoint-backend", "orbax"], "item 22"),
-    "param_sharding": (["train", "--param-sharding", "fsdp"], "item 21"),
-    "mesh_data": (["train", "--mesh-data", "2"], "item 21"),
-    "serve_tp": (["serve", "--tp", "2"], "item 21"),
-    "codec_train_mesh": (["codec-train", "--mesh-data", "2"], "item 21"),
+    "orbax": (["train", "--checkpoint-backend", "orbax"], NotImplementedError, "item 22"),
+    # a batch the data axis does not divide, refused before any rank starts
+    "param_sharding": (["train", "--param-sharding", "fsdp", "--mesh-data", "3",
+                        "--batch-size", "2"], ValueError,
+                       "train_batch_size (2) must be divisible by the mesh's data axis (3"),
+    # under a launcher whose process count is not --mesh-data
+    "mesh_data": (["train", "--mesh-data", "2"], ValueError, "does not match WORLD_SIZE=3"),
+    "serve_tp": (["serve", "--tp", "2"], NotImplementedError, "item 21"),
+    # more cards than the host has (the tests run without a card)
+    "codec_train_mesh": (["codec-train", "--mesh-data", "2", "--device", "cuda"], RuntimeError,
+                         "--mesh-data 2 asks for 2 cards; this host has 0"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
-def test_named_refusals(work, case):
-    argv, item = REFUSALS[case]
+def test_named_refusals(work, case, monkeypatch):
+    """Each refusal names what it refuses: orbax (#22), tensor-parallel
+    serving (#21's second half), and the data-parallel commands' bad
+    requests; the data-parallel runs themselves are in
+    tests/test_torch_parallel.py."""
+    argv, error, match = REFUSALS[case]
     command, extra = argv[0], argv[1:]
     cfg = work["cond"] if command == "serve" else work["tiny"]
     args = [command, "--config", cfg, *CPU, *extra]
@@ -277,7 +306,10 @@ def test_named_refusals(work, case):
     if command in ("sample", "serve"):
         args += ["--checkpoint", work["cond_ckpt"] if command == "serve" else
                  str(_tiny_checkpoint(work))]
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
+    if case == "mesh_data":
+        monkeypatch.setenv("WORLD_SIZE", "3")
+        monkeypatch.setenv("RANK", "0")
+    with pytest.raises(error, match=re.escape(match)):
         cli.main(args)
 
 

@@ -374,7 +374,8 @@ def test_resume_is_bit_for_bit(tmp_path):
 def test_train_loop_restarts_and_refusals(tmp_path, capsys):
     """train() steps to its count and logs; codes with collapsed counts are
     re-seeded from the batch and their counts reset; no restarts with a 0
-    threshold; ``mesh=`` names its ROADMAP item."""
+    threshold; a ``mesh=`` that is not the port's `parallel.Mesh` is refused
+    by name (data-parallel codec training: tests/test_torch_parallel.py)."""
     torch.manual_seed(1)
     trainer = _port_trainer(tmp_path / "loop")
     state = trainer.train(3, log_every=1)
@@ -388,5 +389,5 @@ def test_train_loop_restarts_and_refusals(tmp_path, capsys):
     quiet = _port_trainer(tmp_path / "quiet", dead_code_threshold=0.0, adversarial_weight=0.0)
     metrics = quiet.train_step(_audio())
     assert "restarts" not in metrics and "adv_d" not in metrics and "perplexity" in metrics
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         _port_trainer(tmp_path / "mesh", mesh=object())

@@ -42,6 +42,8 @@ def test_import_loads_no_jax():
         "import naturalspeech2_tpu_torch.examples.wavenet_d512_probe\n"
         "import naturalspeech2_tpu_torch.native.audioio, naturalspeech2_tpu_torch.models.wavenet\n"
         "import naturalspeech2_tpu_torch.utils, naturalspeech2_tpu_torch.ops.schedules\n"
+        "import naturalspeech2_tpu_torch.parallel, naturalspeech2_tpu_torch.parallel.comm\n"
+        "import naturalspeech2_tpu_torch.parallel.fsdp, naturalspeech2_tpu_torch.parallel.mesh\n"
         "naturalspeech2_tpu_torch.native.audioio.library()  # builds the decoder\n"
         "import naturalspeech2_tpu_torch.utils.tokenizer, naturalspeech2_tpu_torch.utils.cleaner\n"
         "import naturalspeech2_tpu_torch.utils.phonemizers.fallback_multi\n"

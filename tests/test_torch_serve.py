@@ -177,7 +177,8 @@ def test_dynamic_batching_shares_device_calls(engine):
         for t in threads:
             t.start()
         for t in threads:
-            t.join()
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads), "a request was not answered in 120 s"
         assert engine._device_calls - calls_before == 1
         for wav in results:
             assert wav.shape == (8 * HOP,) and np.isfinite(wav).all()

@@ -47,6 +47,20 @@ from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
 SCALE = 64**-0.5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The emulations below are thousands of small tensor ops. Alone they
+    take about as long on one thread as on eight, but in a full test run,
+    where every worker's threads share the cores, each op's threads wait on
+    one another: the WaveNet chain took 715 s there on the default threads
+    (20 s alone), the run's longest test by far. They run on one thread,
+    restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")

@@ -6,6 +6,7 @@ schedules; a save / load / resume round trip from a folder of WAVs; and
 the guards and options."""
 
 import json
+import re
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,8 @@ from naturalspeech2_tpu.parallel.mesh import make_mesh
 from naturalspeech2_tpu.trainer import Trainer as JTrainer
 from naturalspeech2_tpu_torch import Model, NaturalSpeech2, SoundStream, Trainer, load_jax_params
 from naturalspeech2_tpu_torch.data import write_wav
+from naturalspeech2_tpu_torch.parallel import Mesh
+from naturalspeech2_tpu_torch.parallel import make_mesh as make_torch_mesh
 from naturalspeech2_tpu_torch.trainer import make_lr_schedule
 
 from torch_parity import assert_close, jitter, normal, numpy_tree, t
@@ -234,15 +237,30 @@ def test_evaluate_uses_fixed_draws(params, tmp_path):
     assert set(a) == {"val_loss", "val_diffusion"} and a == b
 
 
+def _trainer(**kwargs):
+    return lambda ns2, folder: Trainer(ns2, batches=iter([]), results_folder=folder, **kwargs)
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(param_sharding="fsdp"), dict(checkpoint_backend="orbax"),
+    (_trainer(mesh=object()), TypeError, "parallel.Mesh"),
+    # the model axis is refused where the mesh is made, before any trainer
+    (lambda ns2, folder: make_torch_mesh(n_model=2), NotImplementedError,
+     "ROADMAP.*item 21's second half"),
+    (_trainer(checkpoint_backend="orbax"), NotImplementedError, "ROADMAP.*item 22"),
+    (_trainer(mesh=Mesh(n_data=2, n_model=1, rank=0, group=None, device=torch.device("cpu")),
+              train_batch_size=3), ValueError,
+     re.escape("train_batch_size (3) must be divisible by the mesh's data axis (2 devices)")),
 ])
 def test_options_outside_the_slice_raise(params, tmp_path, kwargs):
-    """``parallel/`` (#21) and orbax (#22, no orbax on the card's host) are
-    refused by name; ``steps_per_dispatch`` runs
+    """What is refused, by name: a mesh that is not the port's, a model axis
+    (tensor parallelism, #21's second half), orbax (#22, no orbax on the
+    card's host) and a batch the data axis does not split (JAX's
+    message); data-parallel and FSDP training run
+    (tests/test_torch_parallel.py), as does ``steps_per_dispatch``
     (tests/test_torch_dispatch.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 2[12]"):
-        Trainer(_port(params), batches=iter([]), results_folder=str(tmp_path), **kwargs)
+    build, error, match = kwargs
+    with pytest.raises(error, match=match):
+        build(_port(params), str(tmp_path))
 
 
 def test_steps_per_dispatch_must_divide_the_steps(params, tmp_path):
