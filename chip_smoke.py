@@ -266,6 +266,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      killed past DP_LIMIT_S; two NCCL ranks, one per card, only where the
      host has two cards (else a line says that leg did not run); ms per
      step of each, (b)'s labelled as two ranks on one card.
+ 45. tensor and sequence parallelism (`parallel/tp.py`, `sp.py`) on two
+     gloo ranks sharing this card at (data 1, model 2): (a) the flagship
+     `Trainer(param_sharding="tp")` at b16 x 2 s for TP_STEPS steps and
+     README config 2 for one step with its dropout on, against the single
+     process within GRAD_RTOL; (b) the scaled Model(dim 512, depth 12)
+     denoise step at b16 x n1024 within TP_SCALED_RTOL; (c) README config 2
+     served by `cli.build_engine(tp=2)`, a batch of four requests and a
+     predicted-length one, within TP_SERVE_ATOL of the single-process
+     engine; (d) `sp_attend` with its K5 gradient and flash `ring_attend`
+     at SP_SHAPE against K4 / K5 on the whole within FLASH_TOL; (e) K2 /
+     K2b with the residual off and K4 / K5 with dropout offsets against
+     their plain versions, K4's keep mask bit for bit. Each rank's
+     launches are exact and printed; killed past TP_LIMIT_S.
 K2, K2b and K3 are held to BLOCK_TOL (split TF32 on the tensor cores
 against f32 plain versions) at every shape they run: b4 x n1024 x dim 128,
 the conditional [8, 512, 128], the long-form n4500 and n9000 and the
@@ -278,7 +291,7 @@ and 29's ten AMP steps, "encodec_*" and "codec_train_*" phases 37-39's
 paths, "unfused_wavenet_sample", "plain_transformer", "flac_train_k4" /
 "flac_train_k1", "dispatch", "codec_train_jit", "codec_train_amp_*" and
 "serve_flac" phases 40-43's, "dp_nccl1_*" and "dp_gloo2_rank0_*" phase
-44's (a) and (b) runs; a row per dtype, "mixed" for f32 activations
+44's (a) and (b) runs, "tp_gloo2_rank0_*" phase 45's rank 0; a row per dtype, "mixed" for f32 activations
 against bf16 weights, the bf16 and mixed rows with their f32 kernel's
 time at the same shape, and a "bf16_matmul" row for K1b's option, whose
 launches are the probe's); the last line is
@@ -635,6 +648,27 @@ DP_TEXT_LENS = (100,) * 8 + (40, 55, 70, 85, 30, 45, 60, 75)
 # denoiser's and the duration / pitch predictor's (whose loss is the masked
 # mean)
 DP_COND_GROUPS = ("model.", "duration_pitch.")
+
+# Phase 45, tensor and sequence parallelism (parallel/tp.py, sp.py): two
+# gloo ranks share this one card at (data 1, model 2), collectives through
+# host memory, so no figure of it is a multi-card one. (a) phase 44's
+# flagship at b16 x 2 s for TP_STEPS steps (its attention unfused, on K4 /
+# K5 over each rank's 4 heads) and README config 2, unrolled, for one step
+# at phase 18's shapes with its dropout on (the draws seeded alike before
+# the step), each against the single process within GRAD_RTOL; (b) the
+# scaled Model(dim 512, depth 12), unrolled (JAX keeps a scan_layers tree
+# replicated), one denoise step at b16 x n1024 on K2 over 4 heads a rank,
+# within TP_SCALED_RTOL of the largest entry; (c) README config 2 with
+# Tokenizer() served by cli.build_engine(tp=2) at TP_SERVE_STEPS steps: a
+# batch of four requests and one whose length the duration predictor
+# chooses, against the single-process engine within TP_SERVE_ATOL;
+# (d) sp_attend (K4, and K5 for its gradient) and flash ring_attend at
+# SP_SHAPE, 4500 positions a rank, against one K4 / K5 call on the whole;
+# (e) in this process, K2 / K2b without the residual and K4 / K5 with
+# dropout offsets against their plain versions.
+TP_STEPS, TP_SCALED_RTOL, TP_SERVE_STEPS, TP_SERVE_ATOL, TP_LIMIT_S = 3, 1e-5, 10, 2e-4, 600
+SP_SHAPE = (1, 8, 9000, 64)
+TP_COND_GROUPS = ("model.", "duration_pitch.", "phoneme_enc.")
 
 
 def log(phase: str, msg: str) -> None:
@@ -5142,6 +5176,316 @@ def phase44_data_parallel(work: Path) -> dict:
     return counts
 
 
+def _tp_cond_model(seed: int):
+    """README config 2, unrolled, with its dropout on (the defaults), seeded
+    and jittered, on the CPU."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+
+    torch.manual_seed(seed)
+    model = ns2pkg.Model(dim=DIM, depth=DEPTH, heads=HEADS, dim_head=DIM_HEAD,
+                         dim_prompt=DIM_PROMPT, cond_drop_prob=0.25, condition_on_prompt=True)
+    ns2 = ns2pkg.NaturalSpeech2(model, ns2pkg.SoundStream(), timesteps=1000,
+                                duration_pitch_kwargs=dict(head_activation="softplus"))
+    return jitter_params(ns2, seed + 1)
+
+
+def _sp_inputs():
+    """q, k, v and dO at SP_SHAPE from a seeded generator, on the CPU."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 455)
+    return [torch.randn(SP_SHAPE, generator=gen) for _ in range(4)]
+
+
+def _tp_serve(phase: str, engine, lead: bool) -> dict:
+    """Phase 45(c) on one engine: a batch of four requests from seeded
+    noise (its launches exact), then one request whose length the duration
+    predictor chooses; the waves and the launch counts of both. A follower
+    runs rank 0's calls."""
+    import torch
+
+    from naturalspeech2_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    if not lead:
+        engine.follow()
+        return {"counts": ops.launch_counts()}
+    prompt = _serving_prompt()
+    try:
+        reqs = [engine._prepare(SERVE_SENTENCE, prompt, SERVE_SECONDS, i) for i in range(4)]
+        noise = torch.randn((4, reqs[0].f_bucket, engine.ns2.dim),
+                            generator=torch.Generator().manual_seed(SEED + 456))
+        waves = engine._run_batch(reqs, noise=noise)
+        check_counts(phase, f"a batch of four requests at {TP_SERVE_STEPS} steps",
+                     ops.launch_counts(), cond_sample_counts(TP_SERVE_STEPS))
+        predicted = engine._prepare("a shorter reply.", prompt, None, 9)
+        waves += engine._run_batch([predicted], noise=torch.randn(
+            (1, predicted.f_bucket, engine.ns2.dim),
+            generator=torch.Generator().manual_seed(SEED + 457)))
+    finally:
+        if engine.mesh is not None:
+            engine.stop_followers()
+    return {"waves": waves, "counts": ops.launch_counts(), "frames": predicted.frames}
+
+
+def _tp_runs(phase: str, mesh, device, work: Path, config: str, checkpoint: str,
+             label: str) -> dict:
+    """Every phase-45 run on ``device`` (``mesh`` None: the single process),
+    each with exact launch counts: the states, gradients, metrics and
+    outputs."""
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+    from naturalspeech2_tpu_torch import cli, ops
+    from naturalspeech2_tpu_torch.ops.flash_attention import FlashAttention
+    from naturalspeech2_tpu_torch.parallel import comm, ring_attend, sp_attend, tp
+
+    samples = int(TRAIN_SECONDS * 24000)
+    out = {"counts": {}, "ms": {}}
+    kw = {} if mesh is None else dict(mesh=mesh, param_sharding="tp")
+    # (a) the flagship
+    ns2 = flagship(SEED + 450).to(device)
+    trainer = ns2pkg.Trainer(ns2, batches=iter(()), train_batch_size=TRAIN_BATCH,
+                             ema_update_every=1, save_and_sample_every=10**9,
+                             results_folder=str(work / "flagship"), **kw)
+    grads = _dp_snapshots(trainer)
+    batches = [_seeded_audio(SEED + 451 + i, TRAIN_BATCH, samples).numpy()
+               for i in range(TP_STEPS)]
+    ops.reset_launch_counts()
+    metrics, walls = _dp_timed_steps(trainer, batches)
+    counts = ops.launch_counts()
+    check_counts(phase, f"{label} flagship: {TP_STEPS} optimizer steps", counts,
+                 {k: TP_STEPS * v for k, v in PER_STEP.items()})
+    out["flagship"] = {"state": _dp_state(trainer), "grads": grads, "metrics": metrics}
+    out["counts"]["tp_train"], out["ms"]["flagship"] = counts, walls
+    del trainer, ns2
+    torch.cuda.empty_cache()
+    # (a) README config 2 with its dropout on
+    cond = _tp_cond_model(SEED + 452).to(device)
+    trainer = ns2pkg.Trainer(cond, batches=iter(()), train_batch_size=CT_BATCH,
+                             save_and_sample_every=10**9, results_folder=str(work / "cond"), **kw)
+    grads = _dp_snapshots(trainer, TP_COND_GROUPS)
+    batch = next(_cond_train_batches(SEED + 453))
+    torch.manual_seed(SEED + 454)  # the dropout's draws, alike in every process
+    ops.reset_launch_counts()
+    metrics, walls = _dp_timed_steps(trainer, [batch])
+    counts = ops.launch_counts()
+    check_counts(phase, f"{label} config 2 with dropout: one optimizer step", counts,
+                 PER_COND_TRAIN_STEP)
+    params = {n: p.detach().cpu().clone() for n, p in trainer.full_state()["params"].items()
+              if n.startswith(TP_COND_GROUPS)}
+    out["conditional"] = {"grads": grads, "metrics": metrics, "params": params}
+    out["counts"]["tp_cond_train"], out["ms"]["conditional"] = counts, walls
+    del trainer, cond
+    torch.cuda.empty_cache()
+    # (b) the scaled denoise step
+    scaled = flagship(SEED + 458, codec=False, dim=SCALED_DIM, depth=SCALED_DEPTH).model
+    scaled = scaled.to(device)
+    if mesh is not None:
+        tp.shard_model(scaled, mesh)
+    gen = torch.Generator().manual_seed(SEED + 459)
+    x = torch.randn(SCALED_BATCH, LENGTH, SCALED_DIM, generator=gen).to(device)
+    times = torch.rand(SCALED_BATCH, generator=gen).to(device)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        pred = scaled(x, times)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check_counts(phase, f"{label} scaled denoise step", counts,
+                     denoise_counts(PER_SCALED_DENOISE, 1))
+        out["scaled_ms"] = cuda_ms(lambda: scaled(x, times), reps=5, warmup=1)
+    out["scaled"], out["counts"]["tp_scaled_denoise"] = pred.cpu(), counts
+    del scaled, x, pred
+    torch.cuda.empty_cache()
+    # (c) serving
+    engine = cli.build_engine(config, checkpoint, timesteps=TP_SERVE_STEPS,
+                              cond_scale=SERVE_COND_SCALE, device=str(device),
+                              prompt_samples=PROMPT_SAMPLES, tp=1 if mesh is None else 2)
+    out["serve"] = _tp_serve(phase, engine, mesh is None or mesh.is_main)
+    out["counts"]["tp_serve"] = out["serve"]["counts"]
+    del engine
+    torch.cuda.empty_cache()
+    # (d) sequence parallelism
+    q, k, v, do = (t.to(device) for t in _sp_inputs())
+    ops.reset_launch_counts()
+    if mesh is None:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = FlashAttention.apply(*leaves, None, None, False, DIM_HEAD**-0.5, 0.0)
+        (o * do).sum().backward()
+        out["sp"] = {"o": o.detach().cpu(), "grads": [t.grad.cpu() for t in leaves]}
+    else:
+        n = SP_SHAPE[2] // mesh.n_model
+        rows = slice(mesh.model_index * n, (mesh.model_index + 1) * n)
+        leaves = [t[:, :, rows].contiguous().requires_grad_(True) for t in (q, k, v)]
+        o = sp_attend(*leaves, mesh=mesh, axis="model", backend="flash")
+        (o * do[:, :, rows]).sum().backward()
+        ring = ring_attend(*(t.detach() for t in leaves), mesh=mesh, axis="model",
+                           backend="flash")
+
+        def whole(t):
+            return torch.cat(comm.all_gather(mesh, t.detach().contiguous(), "model"), 2).cpu()
+
+        out["sp"] = {"o": whole(o), "grads": [whole(t.grad) for t in leaves],
+                     "ring": whole(ring)}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check_counts(phase, f"{label} sequence parallelism", counts,
+                 {**dict.fromkeys(counts, 0), "flash_forward": 1 if mesh is None else 1 + 2,
+                  "flash_backward": 1})
+    out["counts"]["sp"] = counts
+    return out
+
+
+def _tp_rank(rank: int, world: int, backend: str, init_method: str, work: str, config: str,
+             checkpoint: str) -> None:
+    """One rank of phase 45's (data 1, model 2) mesh on card 0, rank 0's
+    results to ``work``."""
+    import torch
+    import torch.distributed as dist
+
+    from naturalspeech2_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(n_data=1, n_model=world, device=device)
+        label = f"{backend} rank {rank}/{world} (model {mesh.model_index}) on {device}"
+        out = _tp_runs("45", mesh, device, Path(work) / f"rank{rank}", config, checkpoint, label)
+        log("45", f"{label}: launch counts {out['counts']}")
+        if rank == 0:
+            torch.save(out, Path(work) / f"tp{world}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _partial_cases(phase: str) -> None:
+    """(e): K2 and K2b with the residual off, on the 4 heads a rank holds at
+    the flagship's and the conditional sampling shapes, and K4 / K5 with
+    dropout keyed on rows 2.. and heads 4.. of a larger array, against
+    their plain versions; K4's keep mask bit for bit."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+    from naturalspeech2_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 460)
+    heads = HEADS // 2
+    x, gamma, beta, wq, wkv, wo = attn_inputs(gen, BATCH, LENGTH, DIM, heads=heads)[:6]
+    split = ak.split_heads(wq, wkv, wo, heads, DIM_HEAD)
+    cfg = dict(heads=heads, dim_head=DIM_HEAD, scale=DIM_HEAD**-0.5)
+    part = ak.attn_block(x, gamma, beta, wq, wkv, wo, residual=False, **cfg)
+    plain = ak.attn_block_torch(x, gamma, beta, *split, scale=cfg["scale"], residual=False)
+    compare(phase, f"attn_block residual off, {heads} heads, x [{BATCH},{LENGTH},{DIM}]", part,
+            plain, BLOCK_TOL, relative=True)
+    ms = cuda_ms(lambda: ak.attn_block(x, gamma, beta, wq, wkv, wo, residual=False, **cfg))
+    log(phase, f"attn_block residual off, {heads} heads: {ms:.4f} ms (median of 20)")
+    x, ctx, gamma, beta, wq, wkv, wo = cross_inputs(gen, 8, COND_LENGTH, DIM, NUM_LATENTS, DIM,
+                                                    heads=heads)
+    split = ak.split_heads(wq, wkv, wo, heads, DIM_HEAD)
+    part = ak.cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, residual=False, **cfg)
+    plain = ak.cross_attn_block_torch(x, ctx, gamma, beta, *split, scale=cfg["scale"],
+                                      residual=False)
+    compare(phase, f"cross_attn_block residual off, {heads} heads, x [8,{COND_LENGTH},{DIM}] "
+                   f"ctx [8,{NUM_LATENTS},{DIM}]", part, plain, BLOCK_TOL, relative=True)
+    rn = _randn(gen)
+    b, h, n, d, rate, seed = 2, 4, 512, DIM_HEAD, 0.2, (SEED + 461, SEED + 462)
+    q, k, v, do = (rn(b, h, n, d) for _ in range(4))
+    offsets = dict(b_offset=2, h_offset=4)
+    cfg = dict(causal=False, scale=d**-0.5, dropout_rate=rate, **offsets)
+    o, lse = fa.flash_forward(q, k, v, None, seed, **cfg)
+    o_ref, lse_ref = fa.flash_forward_torch(q, k, v, None, seed, **cfg)
+    compare(phase, f"flash_forward with offsets {offsets} [{b},{h},{n},{d}] o", o, o_ref,
+            FLASH_TOL)
+    compare(phase, "flash_forward with offsets lse", lse, lse_ref, FLASH_TOL)
+    grads = fa.flash_backward(q, k, v, None, seed, lse_ref, o_ref, do, **cfg)
+    refs = fa.flash_backward_torch(q, k, v, None, seed, lse_ref, o_ref, do, **cfg)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        compare(phase, f"flash_backward with offsets {name}", g, r, FLASH_TOL, relative=True)
+    zeros = torch.zeros(b, h, n, d, device="cuda")
+    kept = []
+    for w0 in range(0, n, d):
+        onehot = torch.zeros(b, h, n, d, device="cuda")
+        cols = torch.arange(w0, w0 + d, device="cuda")
+        onehot[:, :, cols, cols - w0] = 1.0
+        kept.append(fa.flash_forward(zeros, zeros, onehot, None, seed, **cfg)[0] != 0)
+    kept = torch.cat(kept, dim=-1)
+    keep = fa.dropout_keep_scaled(seed, 4, 8, n, n, rate, device="cuda")[2:, 4:] != 0
+    if not torch.equal(kept, keep):
+        raise AssertionError("flash_forward with offsets: the kernel's keep mask is not rows 2.. "
+                             "and heads 4.. of the whole array's")
+    log(phase, f"K4 keep mask with offsets {offsets}: equal bit for bit to rows 2-3, heads 4-7 "
+               f"of the [4,8,{n},{n}] mask ({int(kept.sum())} of {kept.numel()} kept)")
+
+
+def phase45_tensor_parallel(work: Path) -> dict:
+    """Tensor and sequence parallelism; returns rank 0's launch counts by
+    path."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    _partial_cases("45")
+    config, checkpoint = _serving_checkpoint(work)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = _tp_runs("45", None, torch.device("cuda"), work / "single", config, checkpoint,
+                       "single process")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    start = time.perf_counter()
+    ranks = mp.start_processes(
+        _tp_rank, args=(2, "gloo", f"tcp://127.0.0.1:{port}", str(work), config, checkpoint),
+        nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_LIMIT_S
+    while not ranks.join(timeout=max(deadline - time.monotonic(), 0.0)):
+        if time.monotonic() >= deadline:
+            for proc in ranks.processes:
+                if proc.is_alive():
+                    proc.kill()
+            raise AssertionError(f"the two gloo ranks exceeded {TP_LIMIT_S} s")
+    two = torch.load(work / "tp2.pt", weights_only=False)
+    log("45", f"two gloo ranks on one card: {time.perf_counter() - start:.1f} s wall, start-up "
+              "included; every figure of them is two processes sharing this card, reducing "
+              "through host memory, not a multi-card one")
+    _dp_hold("45", "(a) flagship, tensor-parallel over two ranks", two["flagship"],
+             one["flagship"], GRAD_RTOL)
+    _dp_hold("45", "(a) README config 2 with dropout, tensor-parallel", two["conditional"],
+             one["conditional"], GRAD_RTOL)
+    compare("45", f"(b) scaled denoise step, b{SCALED_BATCH} x n{LENGTH}", two["scaled"],
+            one["scaled"], TP_SCALED_RTOL, relative=True)
+    if two["serve"]["frames"] != one["serve"]["frames"]:
+        raise AssertionError(f"(c) predicted frames {two['serve']['frames']} vs "
+                             f"{one['serve']['frames']}")
+    for i, (a, b) in enumerate(zip(two["serve"]["waves"], one["serve"]["waves"])):
+        compare("45", f"(c) served request {i} ({len(b)} samples)", torch.from_numpy(a),
+                torch.from_numpy(b), TP_SERVE_ATOL)
+    compare("45", f"(d) sp_attend {list(SP_SHAPE)} o", two["sp"]["o"], one["sp"]["o"], FLASH_TOL)
+    for name, g, r in zip(("dq", "dk", "dv"), two["sp"]["grads"], one["sp"]["grads"]):
+        compare("45", f"(d) sp_attend {name}", g, r, FLASH_TOL, relative=True)
+    compare("45", f"(d) flash ring_attend {list(SP_SHAPE)} o", two["sp"]["ring"], one["sp"]["o"],
+            FLASH_TOL)
+    for label, run in (("single process", one), ("two gloo ranks on one card, rank 0", two)):
+        log("45", f"{label}: ms per step (host clock, synchronised; the first includes "
+                  "first-use costs): " + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}"
+                                                 for k, v in run["ms"].items())
+                  + f"; scaled denoise step {run['scaled_ms']:.3f} ms (CUDA events, median of 5)")
+    log("45", f"(c) served waves: |wave| max {max(np.abs(w).max() for w in one['serve']['waves']):.4f}")
+    return {f"tp_gloo2_rank0_{k}": v for k, v in two["counts"].items()}
+
+
 def profile_runs() -> int:
     """torch.profiler over 10 flagship denoise steps at b4 x n1024, over a
     10-step conditional sample of README config 2, over 10 guided denoise
@@ -5387,6 +5731,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         new_counts.update(phase44_data_parallel(Path(work)))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        new_counts.update(phase45_tensor_parallel(Path(work)))
 
     for entry in summary:
         name = entry["name"]

@@ -34,8 +34,8 @@ _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
 # the flash kernels' scale and dropout arguments: scale, seed words, rate,
-# counter stride, keep threshold, keep scale
-_FLASH_TAIL = [_F, _U, _U, _F, _I, _U, _F, _P]
+# counter stride, keep threshold, keep scale, batch and head offsets
+_FLASH_TAIL = [_F, _U, _U, _F, _I, _U, _F, _I, _I, _P]
 # C signature of every entry point: pointers and the stream as c_void_p
 # (ctypes would otherwise pass 32-bit ints and cut them), sizes as c_int.
 # A bf16 entry point is a symbol of its own (``<name>_bf16``), and so is
@@ -49,12 +49,12 @@ SIGNATURES = {
     "ns2_wavenet_lanes_bf16": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes_mixed": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes_bf16mm": [_P] * 10 + [_I] * 5 + [_P],
-    "ns2_attn_block": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "ns2_attn_block_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "ns2_attn_block_mixed": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "ns2_cross_attn_block": [_P] * 11 + [_I] * 7 + [_F, _P],
-    "ns2_cross_attn_block_bf16": [_P] * 11 + [_I] * 7 + [_F, _P],
-    "ns2_cross_attn_block_mixed": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "ns2_attn_block": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    "ns2_attn_block_bf16": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    "ns2_attn_block_mixed": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    "ns2_cross_attn_block": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    "ns2_cross_attn_block_bf16": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    "ns2_cross_attn_block_mixed": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
     "ns2_ff_block": [_P] * 13 + [_I] * 4 + [_P],
     "ns2_ff_block_bf16": [_P] * 13 + [_I] * 4 + [_P],
     "ns2_ff_block_mixed": [_P] * 13 + [_I] * 4 + [_P],

@@ -22,6 +22,11 @@ gloo with ``--device cpu``:
     torchrun --nproc-per-node 2 -m naturalspeech2_tpu_torch train --mesh-data 2 ...
     ns2-torch train --mesh-data 2 --param-sharding fsdp --folder wavs/ ...
 
+``serve --tp N`` serves tensor-parallel over N ranks in the same way
+(under ``torchrun``, or N workers it starts): rank 0 runs the HTTP server
+and the batcher, the other ranks follow its device calls
+(`serve.TTSEngine.follow`).
+
 Model architecture comes from a JSON config file (``--config``) with
 sections mapping 1:1 onto the constructors — the same kwargs the Python API
 and the JAX package's CLI take:
@@ -40,6 +45,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import socket
 import sys
 from pathlib import Path
@@ -48,10 +54,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from naturalspeech2_tpu_torch.serve import resolve_device
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 # --------------------------------------------------------------------- #
@@ -150,9 +152,11 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _rank(args, body, rank: int, world: int, local: int, init_method: str) -> int:
+def _rank(args, body, rank: int, world: int, local: int, init_method: str,
+          n_model: int = 1) -> int:
     """One rank: join the group (NCCL on card ``local``, gloo on the CPU),
-    run ``body(args, mesh)``, leave the group."""
+    run ``body(args, mesh)`` on a mesh of ``n_model`` model ranks, leave
+    the group."""
     import torch
     import torch.distributed as dist
 
@@ -165,46 +169,55 @@ def _rank(args, body, rank: int, world: int, local: int, init_method: str) -> in
         device, backend = torch.device("cpu"), "gloo"
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
     try:
-        return body(args, make_mesh(n_data=world, device=device))
+        return body(args, make_mesh(n_data=world // n_model, n_model=n_model, device=device))
     finally:
         dist.destroy_process_group()
 
 
-def _spawned_rank(rank: int, args, body, world: int, init_method: str) -> None:
-    _rank(args, body, rank, world, rank, init_method)
+def _spawned_rank(rank: int, args, body, world: int, init_method: str, n_model: int) -> None:
+    _rank(args, body, rank, world, rank, init_method, n_model)
+
+
+def _ranks(args, body, n: int, flag: str, n_model: int = 1) -> int:
+    """``body(args, mesh)`` on each of ``n`` ranks (``flag`` is the option
+    that asked for them), ``n_model`` of them on the model axis. Under
+    torchrun the process joins its group; otherwise the ranks are started
+    here, and a rank's failure ends the others and raises."""
+    import torch
+
+    if n < 1:
+        raise ValueError(f"{flag} must be at least 1, got {n}")
+    world = os.environ.get("WORLD_SIZE")
+    if world is not None:  # started by torchrun: join its group
+        if int(world) != n:
+            raise ValueError(f"{flag} {n} does not match WORLD_SIZE={world} (the "
+                             "launcher's process count)")
+        rank = int(os.environ["RANK"])
+        return _rank(args, body, rank, n, int(os.environ.get("LOCAL_RANK", rank)), "env://",
+                     n_model)
+    if torch.device(args.device).type == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(f"{flag} {n} asks for {n} cards; this host has "
+                           f"{torch.cuda.device_count()}")
+    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    if n == 1:
+        return _rank(args, body, 0, 1, 0, init_method, n_model)
+    workers = torch.multiprocessing.start_processes(
+        _spawned_rank, args=(args, body, n, init_method, n_model), nprocs=n, join=False,
+        start_method="spawn")
+    while True:
+        try:
+            if workers.join():
+                return 0
+        except KeyboardInterrupt:  # the ranks got it too, and stop by themselves
+            continue
 
 
 def _data_parallel(args, body) -> int:
     """``body(args, mesh)`` on each rank of a data mesh of ``--mesh-data``
-    ranks, or ``body(args, None)`` without the flag. Under torchrun the
-    process joins its group; otherwise the ranks are started here, and a
-    rank's failure ends the others and raises."""
-    import torch
-
-    n = args.mesh_data
-    if n is None:
+    ranks, or ``body(args, None)`` without the flag."""
+    if args.mesh_data is None:
         return body(args, None)
-    if n < 1:
-        raise ValueError(f"--mesh-data must be at least 1, got {n}")
-    world = os.environ.get("WORLD_SIZE")
-    if world is not None:  # started by torchrun: join its group
-        if int(world) != n:
-            raise ValueError(f"--mesh-data {n} does not match WORLD_SIZE={world} (the "
-                             "launcher's process count)")
-        rank = int(os.environ["RANK"])
-        return _rank(args, body, rank, n, int(os.environ.get("LOCAL_RANK", rank)), "env://")
-    if torch.device(args.device).type == "cuda" and torch.cuda.device_count() < n:
-        raise RuntimeError(f"--mesh-data {n} asks for {n} cards; this host has "
-                           f"{torch.cuda.device_count()}")
-    init_method = f"tcp://127.0.0.1:{_free_port()}"
-    if n == 1:
-        return _rank(args, body, 0, 1, 0, init_method)
-    workers = torch.multiprocessing.start_processes(
-        _spawned_rank, args=(args, body, n, init_method), nprocs=n, join=False,
-        start_method="spawn")
-    while not workers.join():
-        pass
-    return 0
+    return _ranks(args, body, args.mesh_data, "--mesh-data")
 
 
 def _train_kwargs(args) -> Dict[str, Any]:
@@ -369,13 +382,21 @@ def build_engine(
 ):
     """checkpoint + config → a ready `TTSEngine` on ``device`` (``None``:
     the card) — the `serve` glue, separated so it is testable without a
-    blocking HTTP server."""
+    blocking HTTP server. ``tp`` > 1 serves tensor-parallel: call it on
+    each of ``tp`` ranks of an initialised process group (``serve --tp``
+    starts them)."""
     from naturalspeech2_tpu_torch import serve as serve_mod
+    from naturalspeech2_tpu_torch.parallel import make_mesh
 
-    if tp > 1:
-        raise _not_ported(f"tensor-parallel serving (--tp {tp})",
-                          "item 21's second half, parallel/tp.py")
     device = resolve_device(device)
+    mesh = None
+    if tp > 1:
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            raise ValueError(f"build_engine(tp={tp}) runs on each of {tp} ranks of an "
+                             "initialised process group (serve --tp starts them)")
+        mesh = make_mesh(n_data=1, n_model=tp, device=device)
     cfg = load_config(config)
     ns2 = build_ns2(cfg)
     assert ns2.conditional, (
@@ -388,11 +409,20 @@ def build_engine(
         timesteps=timesteps or 100,
         cond_scale=cond_scale,
         device=str(device),
+        mesh=mesh,
         **engine_kwargs,
     )
 
 
 def cmd_serve(args) -> int:
+    if args.tp > 1:
+        if args.demo:
+            raise ValueError("--tp serves a --checkpoint, not the --demo model")
+        return _ranks(args, _serve, args.tp, "--tp", n_model=args.tp)
+    return _serve(args, None)
+
+
+def _serve(args, mesh) -> int:
     from naturalspeech2_tpu_torch import serve as serve_mod
 
     if args.demo:
@@ -405,25 +435,34 @@ def cmd_serve(args) -> int:
             timesteps=args.timesteps,
             cond_scale=args.cond_scale,
             tp=args.tp,
-            device=args.device,
+            device=str(mesh.device) if mesh is not None else args.device,
             codec_checkpoint=args.codec_checkpoint,
             dtype="bfloat16" if args.bf16 else None,
             cfg_interval=tuple(args.cfg_interval)
             if args.cfg_interval is not None else None,
         )
-    if not args.no_warmup:
-        print("warming serving buckets...", flush=True)
-        print("warm:", engine.warmup(), flush=True)
-    server = serve_mod.TTSServer(engine, (args.host, args.port))
-    engine.start_batcher()
-    print(f"serving on http://{args.host}:{server.port}", flush=True)
+    if mesh is not None and not mesh.is_main:
+        # rank 0's device calls, until it stops: an interrupt is rank 0's to
+        # handle, and ends this rank through its stop
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        engine.follow()
+        return 0
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        if not args.no_warmup:
+            print("warming serving buckets...", flush=True)
+            print("warm:", engine.warmup(), flush=True)
+        server = serve_mod.TTSServer(engine, (args.host, args.port))
+        engine.start_batcher()
+        print(f"serving on http://{args.host}:{server.port}", flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            engine.stop_batcher()
+            server.server_close()
     finally:
-        engine.stop_batcher()
-        server.server_close()
+        engine.stop_followers()
     return 0
 
 
@@ -582,7 +621,8 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--no-warmup", action="store_true",
                    help="build kernels and layouts on the first request")
     v.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel serving over N cards")
+                   help="tensor-parallel serving over N ranks, one card each (gloo ranks "
+                        "on the CPU with --device cpu)")
     v.add_argument("--bf16", action="store_true", help="run the denoiser in bfloat16")
     v.add_argument("--cfg-interval", type=float, nargs=2, default=None,
                    metavar=("T_LO", "T_HI"),

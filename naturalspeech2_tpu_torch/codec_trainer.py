@@ -30,8 +30,9 @@ same global batch and keeps its rows; the losses are the global batch's
 ranks, `parallel.comm.global_sum`), both models' gradients are summed
 over the ranks before the clip, and the codebooks' counts, sums and
 dead-code restart rows are the global batch's (each rank contributes
-the rows it holds), so every rank takes the same step. Rank 0 logs and
-writes checkpoints.
+the rows it holds), so every rank takes the same step; on a model axis
+wider than 1 the ranks of a model group hold the same rows and compute
+alike. Rank 0 logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -326,13 +327,14 @@ class CodecTrainer:
         the threshold) to a batch residual with their statistics reset.
         Over a mesh the sums, counts and restart rows are the global
         batch's: ``restart_idx`` indexes the flattened latents of the
-        global batch, of which this rank holds rows [rank·m, (rank+1)·m).
+        global batch, of which this rank holds rows [i·m, (i+1)·m), i its
+        data index.
         Writes the codebooks; returns the codebook-health metrics."""
         state = self.state
         num_q, size, _ = codebooks.shape
         decay = self.decay
         m = flat.shape[0]
-        offset = self.mesh.rank * m
+        offset = self.mesh.data_index * m
         if self.dead_code_threshold > 0 and restart_idx is None:
             restart_idx = self.restart_rows(m * self.mesh.n_data)
         # this rank's statistics of every stage, then one sum over the ranks

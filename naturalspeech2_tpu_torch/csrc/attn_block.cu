@@ -18,7 +18,8 @@
 //     one projection, scattered into K4's layout [3, b, H, n, dh];
 //  2. the attention core: K4's `wgmma` kernel (flash_fwd.cu), unmasked,
 //     without dropout and without its lse store;
-//  3. y = x + Σ_h o_h · W_o,h on the GEMM core: the reduction runs over the
+//  3. y = x + Σ_h o_h · W_o,h on the GEMM core (without x when the
+//     residual is off): the reduction runs over the
 //     heads' concatenation, each head's [n, dh] output tile dh / 32
 //     contiguous chunks of K, so the head sum is the f32 sum of the core's chunks in
 //     one block, as the TPU kernel's scratch accumulation is, with no
@@ -48,12 +49,14 @@ extern "C" int ns2_flash_fwd(const float* q, const float* k, const float* v,
                              const unsigned char* mask, float* o, float* lse, int b, int h,
                              int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                              unsigned seed1, float rate, int stride, unsigned threshold,
-                             float keep_scale, void* stream);
+                             float keep_scale, int b_offset, int h_offset,
+                             void* stream);
 extern "C" int ns2_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                                   const unsigned char* mask, bf16* o, float* lse, int b, int h,
                                   int n_q, int n_kv, int d, int causal, float scale,
                                   unsigned seed0, unsigned seed1, float rate, int stride,
-                                  unsigned threshold, float keep_scale, void* stream);
+                                  unsigned threshold, float keep_scale, int b_offset,
+                                  int h_offset, void* stream);
 
 namespace {
 
@@ -61,13 +64,13 @@ namespace {
 int attention_core(const float* q, const float* k, const float* v, float* o, int b, int heads,
                    int n_q, int n_kv, int dh, float scale, void* stream) {
   return ns2_flash_fwd(q, k, v, nullptr, o, nullptr, b, heads, n_q, n_kv, dh, 0, scale, 0u, 0u,
-                       0.0f, 0, 0u, 1.0f, stream);
+                       0.0f, 0, 0u, 1.0f, 0, 0, stream);
 }
 
 int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, int heads,
                    int n_q, int n_kv, int dh, float scale, void* stream) {
   return ns2_flash_fwd_bf16(q, k, v, nullptr, o, nullptr, b, heads, n_q, n_kv, dh, 0, scale, 0u,
-                            0u, 0.0f, 0, 0u, 1.0f, stream);
+                            0u, 0.0f, 0, 0u, 1.0f, 0, 0, stream);
 }
 
 // T: the activations' type; M: the core's mode (kSplit2 for the mixed
@@ -75,7 +78,7 @@ int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, 
 template <class T, gemm::Mode M = gemm::kModeOf<T>>
 int attn_block(const T* x, const T* gamma, const T* beta, const T* bt_qkv, const T* bt_out,
                T* qkv, T* o, T* out, int b, int n, int dm, int heads, int dh, float scale,
-               void* stream) {
+               int residual, void* stream) {
   if (dm <= 0 || n <= 0 || b <= 0 || heads <= 0 || (dh != 64 && (dh <= 0 || dh % 128 != 0)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -91,7 +94,7 @@ int attn_block(const T* x, const T* gamma, const T* beta, const T* bt_qkv, const
   if (err != cudaSuccess) return err;
   return gemm::launch<M>(gemm::HeadRows<T>{o, rows, n, heads, dh}, bt_out, rows,
                          heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store<T>{out, nullptr, x, rows, dm, dm}, st);
+                         gemm::Store<T>{out, nullptr, residual ? x : nullptr, rows, dm, dm}, st);
 }
 
 }  // namespace
@@ -101,12 +104,14 @@ int attn_block(const T* x, const T* gamma, const T* beta, const T* bt_qkv, const
 // (ops/gemm_cache.py): bt_qkv (N = 3·H·dh, column which·H·dh + h·dh + e;
 // K = dm padded to 32) and bt_out (N = dm, K = H·dh). qkv [3, b, H, n, dh]
 // and o [b, H, n, dh] are scratch of the block's type. Three launches.
+// residual 0 leaves x out of y: y = Σ_h o_h · W_o,h, the partial sum of a
+// rank that holds some of the heads (tensor parallelism).
 NS2_API int ns2_attn_block(const float* x, const float* gamma, const float* beta,
                            const float* bt_qkv, const float* bt_out, float* qkv, float* o,
                            float* out, int b, int n, int dm, int heads, int dh, float scale,
-                           void* stream) {
+                           int residual, void* stream) {
   return attn_block(x, gamma, beta, bt_qkv, bt_out, qkv, o, out, b, n, dm, heads, dh, scale,
-                    stream);
+                    residual, stream);
 }
 
 // The same in bf16: every pointer bf16, the weights packed as bf16.
@@ -119,15 +124,15 @@ NS2_API int ns2_attn_block(const float* x, const float* gamma, const float* beta
 NS2_API int ns2_attn_block_mixed(const float* x, const float* gamma, const float* beta,
                                  const float* bt_qkv, const float* bt_out, float* qkv, float* o,
                                  float* out, int b, int n, int dm, int heads, int dh, float scale,
-                                 void* stream) {
+                                 int residual, void* stream) {
   return attn_block<float, gemm::Mode::kSplit2>(x, gamma, beta, bt_qkv, bt_out, qkv, o, out, b,
-                                                n, dm, heads, dh, scale, stream);
+                                                n, dm, heads, dh, scale, residual, stream);
 }
 
 NS2_API int ns2_attn_block_bf16(const bf16* x, const bf16* gamma, const bf16* beta,
                                 const bf16* bt_qkv, const bf16* bt_out, bf16* qkv, bf16* o,
                                 bf16* out, int b, int n, int dm, int heads, int dh, float scale,
-                                void* stream) {
+                                int residual, void* stream) {
   return attn_block(x, gamma, beta, bt_qkv, bt_out, qkv, o, out, b, n, dm, heads, dh, scale,
-                    stream);
+                    residual, stream);
 }

@@ -28,7 +28,7 @@
 //  4. y = x + Σ_h o_h · W_o,h on the GEMM core: the reduction runs over the
 //     heads' concatenation, so the head sum is the f32 sum of the core's
 //     chunks in one block, as the TPU kernel's scratch accumulation is,
-//     and the epilogue adds the residual.
+//     and the epilogue adds the residual (unless it is off).
 // The packed weights (ops/attn_block_kernel.py `pack_cross_weights`, once
 // per parameter version) pad each head to K4's width with exact zeros
 // (zero q and k columns change no logit, zero v columns give zero output
@@ -44,25 +44,27 @@ extern "C" int ns2_flash_fwd(const float* q, const float* k, const float* v,
                              const unsigned char* mask, float* o, float* lse, int b, int h,
                              int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                              unsigned seed1, float rate, int stride, unsigned threshold,
-                             float keep_scale, void* stream);
+                             float keep_scale, int b_offset, int h_offset,
+                             void* stream);
 extern "C" int ns2_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                                   const unsigned char* mask, bf16* o, float* lse, int b, int h,
                                   int n_q, int n_kv, int d, int causal, float scale,
                                   unsigned seed0, unsigned seed1, float rate, int stride,
-                                  unsigned threshold, float keep_scale, void* stream);
+                                  unsigned threshold, float keep_scale, int b_offset,
+                                  int h_offset, void* stream);
 
 namespace {
 
 int attention_core(const float* q, const float* k, const float* v, float* o, int b, int heads,
                    int n_q, int n_kv, int dh, float scale, void* stream) {
   return ns2_flash_fwd(q, k, v, nullptr, o, nullptr, b, heads, n_q, n_kv, dh, 0, scale, 0u, 0u,
-                       0.0f, 0, 0u, 1.0f, stream);
+                       0.0f, 0, 0u, 1.0f, 0, 0, stream);
 }
 
 int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, int heads,
                    int n_q, int n_kv, int dh, float scale, void* stream) {
   return ns2_flash_fwd_bf16(q, k, v, nullptr, o, nullptr, b, heads, n_q, n_kv, dh, 0, scale, 0u,
-                            0u, 0.0f, 0, 0u, 1.0f, stream);
+                            0u, 0.0f, 0, 0u, 1.0f, 0, 0, stream);
 }
 
 // T: the activations' type; M: the core's mode (kSplit2 for the mixed
@@ -70,7 +72,8 @@ int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, 
 template <class T, gemm::Mode M = gemm::kModeOf<T>>
 int cross_attn_block(const T* x, const T* ctx, const T* gamma, const T* beta, const T* bt_q,
                      const T* bt_kv, const T* bt_out, T* q, T* kv, T* o, T* out, int b, int n,
-                     int m, int dm, int dc, int heads, int dh, float scale, void* stream) {
+                     int m, int dm, int dc, int heads, int dh, float scale, int residual,
+                     void* stream) {
   if (dm <= 0 || dc <= 0 || n <= 0 || m <= 0 || b <= 0 || heads <= 0 ||
       (dh != 64 && (dh <= 0 || dh % 128 != 0)))
     return cudaErrorInvalidValue;
@@ -90,7 +93,7 @@ int cross_attn_block(const T* x, const T* ctx, const T* gamma, const T* beta, co
   if (err != cudaSuccess) return err;
   return gemm::launch<M>(gemm::HeadRows<T>{o, rows, n, heads, dh}, bt_out, rows,
                          heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store<T>{out, nullptr, x, rows, dm, dm}, st);
+                         gemm::Store<T>{out, nullptr, residual ? x : nullptr, rows, dm, dm}, st);
 }
 
 }  // namespace
@@ -99,14 +102,15 @@ int cross_attn_block(const T* x, const T* ctx, const T* gamma, const T* beta, co
 // 128 (K4's head widths). The packed weights: bt_q (N = H·dh, column h·dh +
 // e; K = dm), bt_kv (N = 2·H·dh, k's heads then v's; K = dc) and bt_out (N =
 // dm, K = H·dh). q [b, H, n, dh], kv [2, b, H, m, dh] and o [b, H, n, dh] are
-// scratch of the block's type. Four launches.
+// scratch of the block's type. Four launches. residual 0 leaves x out of y
+// (a rank's partial sum over its heads, as for ns2_attn_block).
 NS2_API int ns2_cross_attn_block(const float* x, const float* ctx, const float* gamma,
                                  const float* beta, const float* bt_q, const float* bt_kv,
                                  const float* bt_out, float* q, float* kv, float* o, float* out,
                                  int b, int n, int m, int dm, int dc, int heads, int dh,
-                                 float scale, void* stream) {
+                                 float scale, int residual, void* stream) {
   return cross_attn_block(x, ctx, gamma, beta, bt_q, bt_kv, bt_out, q, kv, o, out, b, n, m, dm,
-                          dc, heads, dh, scale, stream);
+                          dc, heads, dh, scale, residual, stream);
 }
 
 // Mixed (`ns2_cross_attn_block_mixed`: f32 activations, the context, γ and
@@ -119,10 +123,10 @@ NS2_API int ns2_cross_attn_block_mixed(const float* x, const float* ctx, const f
                                        const float* beta, const float* bt_q, const float* bt_kv,
                                        const float* bt_out, float* q, float* kv, float* o,
                                        float* out, int b, int n, int m, int dm, int dc, int heads,
-                                       int dh, float scale, void* stream) {
+                                       int dh, float scale, int residual, void* stream) {
   return cross_attn_block<float, gemm::Mode::kSplit2>(x, ctx, gamma, beta, bt_q, bt_kv, bt_out,
                                                       q, kv, o, out, b, n, m, dm, dc, heads, dh,
-                                                      scale, stream);
+                                                      scale, residual, stream);
 }
 
 // The same in bf16: every pointer bf16, the weights packed as bf16.
@@ -130,7 +134,7 @@ NS2_API int ns2_cross_attn_block_bf16(const bf16* x, const bf16* ctx, const bf16
                                       const bf16* beta, const bf16* bt_q, const bf16* bt_kv,
                                       const bf16* bt_out, bf16* q, bf16* kv, bf16* o, bf16* out,
                                       int b, int n, int m, int dm, int dc, int heads, int dh,
-                                      float scale, void* stream) {
+                                      float scale, int residual, void* stream) {
   return cross_attn_block(x, ctx, gamma, beta, bt_q, bt_kv, bt_out, q, kv, o, out, b, n, m, dm,
-                          dc, heads, dh, scale, stream);
+                          dc, heads, dh, scale, residual, stream);
 }

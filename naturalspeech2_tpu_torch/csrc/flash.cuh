@@ -38,6 +38,9 @@ struct Dropout {
   int stride;          // the key length the counter uses (JAX's padded n_kv)
   uint32_t threshold;  // keep when bits >= threshold
   float scale;         // 1 / (1 - rate) in f32
+  // the global batch row and head of this launch's row 0 and head 0: a
+  // rank that holds rows or heads of a larger array draws their masks
+  int b_offset, h_offset;
 };
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -67,10 +70,11 @@ __device__ __forceinline__ uint32_t threefry2x32(uint32_t k0, uint32_t k1, uint3
   return x0;
 }
 
-// The multiplier of probability (row, col) of batch bi, head hi: keep·scale.
+// The multiplier of probability (row, col) of batch bi, head hi: keep·scale,
+// keyed on the global batch row and head (the offsets added).
 __device__ __forceinline__ float keep_mult(const Dropout& dr, int bi, int hi, int row, int col) {
   const uint32_t x0 = (uint32_t)row * (uint32_t)dr.stride + (uint32_t)col;
-  const uint32_t x1 = (uint32_t)bi * 65536u + (uint32_t)hi;
+  const uint32_t x1 = (uint32_t)(bi + dr.b_offset) * 65536u + (uint32_t)(hi + dr.h_offset);
   return threefry2x32(dr.seed0, dr.seed1, x0, x1) >= dr.threshold ? dr.scale : 0.0f;
 }
 

@@ -565,9 +565,11 @@ NS2_API int ns2_flash_bwd(const float* q, const float* k, const float* v,
                           const float* dout, float* dq, float* dk, float* dv, int b, int h,
                           int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                           unsigned seed1, float rate, int stride, unsigned threshold,
-                          float keep_scale, void* stream) {
+                          float keep_scale, int b_offset, int h_offset,
+                          void* stream) {
   return flash_bwd(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, d, causal,
-                   scale, ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale},
+                   scale, ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale, b_offset,
+                                h_offset},
                    stream);
 }
 
@@ -578,8 +580,10 @@ NS2_API int ns2_flash_bwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                                const bf16* dout, bf16* dq, bf16* dk, bf16* dv, int b, int h,
                                int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                                unsigned seed1, float rate, int stride, unsigned threshold,
-                               float keep_scale, void* stream) {
+                               float keep_scale, int b_offset, int h_offset,
+                               void* stream) {
   return flash_bwd(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, d, causal,
-                   scale, ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale},
+                   scale, ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale, b_offset,
+                                h_offset},
                    stream);
 }

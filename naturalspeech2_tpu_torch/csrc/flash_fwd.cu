@@ -619,16 +619,20 @@ int flash_fwd(const T* q, const T* k, const T* v, const unsigned char* mask, T* 
 // q [b,h,n_q,d], k/v [b,h,n_kv,d], 16-byte aligned, mask [b,n_kv] uint8
 // or null -> o [b,h,n_q,d], lse [b,h,n_q] (not written when lse is null).
 // Dropout is on when rate > 0: seed, counter stride, keep threshold and keep
-// scale come from the Python wrapper, as the JAX package derives them. d is
+// scale come from the Python wrapper, as the JAX package derives them;
+// b_offset and h_offset are the global batch row and head of this call's
+// row 0 and head 0 (0 for a whole array), which the mask is keyed on. d is
 // 64 or a multiple of 128; other head widths return cudaErrorInvalidValue
 // (the wrapper pads every other width to the next of these).
 NS2_API int ns2_flash_fwd(const float* q, const float* k, const float* v,
                           const unsigned char* mask, float* o, float* lse, int b, int h, int n_q,
                           int n_kv, int d, int causal, float scale, unsigned seed0,
                           unsigned seed1, float rate, int stride, unsigned threshold,
-                          float keep_scale, void* stream) {
+                          float keep_scale, int b_offset, int h_offset,
+                          void* stream) {
   return flash_fwd(q, k, v, mask, o, lse, b, h, n_q, n_kv, d, causal, scale,
-                   ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale}, stream);
+                   ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale, b_offset,
+                                h_offset}, stream);
 }
 
 // The same with q, k, v and o in bf16 (lse f32). With dropout (AMP
@@ -639,7 +643,9 @@ NS2_API int ns2_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                                const unsigned char* mask, bf16* o, float* lse, int b, int h,
                                int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
                                unsigned seed1, float rate, int stride, unsigned threshold,
-                               float keep_scale, void* stream) {
+                               float keep_scale, int b_offset, int h_offset,
+                               void* stream) {
   return flash_fwd(q, k, v, mask, o, lse, b, h, n_q, n_kv, d, causal, scale,
-                   ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale}, stream);
+                   ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale, b_offset,
+                                h_offset}, stream);
 }

@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from naturalspeech2_tpu_torch.ops.dropout import Dropout
 from naturalspeech2_tpu_torch.ops.ff_block_kernel import causal_conv3, ff_block, fits_fused_ff_block
 from naturalspeech2_tpu_torch.utils.helpers import promoted
 
@@ -110,15 +111,15 @@ class CausalConv1d(nn.Module):
 
 
 class ConvUnit(nn.Module):
-    """Conv(k, same) → GroupNorm(groups, eps 1e-5) → SiLU → dropout;
-    input and output ``[b, n, d]``."""
+    """Conv(k, same) → GroupNorm(groups, eps 1e-5) → SiLU → dropout (drawn
+    for the global batch, `ops.dropout`); input and output ``[b, n, d]``."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel: int = 3, groups: int = 8,
                  dropout: float = 0.0):
         super().__init__()
         self.conv = nn.Conv1d(dim_in, dim_out, kernel, padding=kernel // 2)
         self.norm = nn.GroupNorm(groups, dim_out, eps=1e-5)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.silu(self.norm(promoted_conv1d(self.conv, x.transpose(1, 2)))).transpose(1, 2)
@@ -153,7 +154,7 @@ class ConvBlock(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, kernel: int, dropout: float = 0.0):
         super().__init__()
         self.conv = nn.Conv1d(dim_in, dim_out, kernel, padding=kernel // 2)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dropout(F.silu(promoted_conv1d(self.conv, x.transpose(1, 2)).transpose(1, 2)))

@@ -21,6 +21,7 @@ from naturalspeech2_tpu_torch.models.blocks import (
     promoted_linear,
 )
 from naturalspeech2_tpu_torch.models.transformer import Attention, Transformer
+from naturalspeech2_tpu_torch.ops.dropout import Dropout
 
 
 class PerceiverResampler(nn.Module):
@@ -68,7 +69,7 @@ class PhonemeEncoder(nn.Module):
         self.pad_id = num_tokens
         self.token_emb = nn.Embedding(num_tokens + 1, dim)
         self.conv = CausalConv1d(dim, dim_hidden, kernel_size)
-        self.dropout = nn.Dropout(conv_dropout)
+        self.dropout = Dropout(conv_dropout)
         self.transformer = Transformer(
             dim_hidden, depth, dim_head=dim_head, heads=heads, dropout=attn_dropout,
             use_flash=use_flash, gelu_approximate=gelu_approximate,

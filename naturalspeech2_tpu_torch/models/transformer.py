@@ -32,6 +32,7 @@ from naturalspeech2_tpu_torch.models.blocks import (
     promoted_linear,
 )
 from naturalspeech2_tpu_torch.ops.attention import attend
+from naturalspeech2_tpu_torch.parallel.comm import tp_copy, tp_reduce
 from naturalspeech2_tpu_torch.utils.helpers import promoted
 from naturalspeech2_tpu_torch.ops.attn_block_kernel import (
     attn_block,
@@ -57,6 +58,16 @@ class Attention(nn.Module):
     (no norm, no residual).
     ``cross_attn_include_queries`` prepends x to the context and left-pads
     the key mask with True, as the JAX package does.
+
+    Under tensor parallelism (`parallel.tp.shard_model` sets ``tp``, a
+    mesh) the module holds ``heads`` of its ``all_heads`` heads, from
+    ``head_offset`` on: its columns of to_q, the k and v columns of its
+    heads in to_kv and its rows of to_out. It runs the route the whole
+    module would (the gates read no head count), on its heads, and sums
+    their output over the model group (*g*, `comm.tp_reduce`); every input
+    of the heads passes *f* (`comm.tp_copy`), which sums its gradient over
+    the group, and the residual is added once, after *g*. Dropout draws
+    the mask of its heads out of the whole module's (`ops/dropout.py`).
     """
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, *,
@@ -64,6 +75,7 @@ class Attention(nn.Module):
                  use_flash: bool = False, cross_attn_include_queries: bool = False):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.all_heads, self.head_offset, self.tp = heads, 0, None
         self.causal, self.dropout, self.use_flash = causal, dropout, use_flash
         self.include_queries = cross_attn_include_queries
         inner = dim_head * heads
@@ -76,21 +88,34 @@ class Attention(nn.Module):
                 beta: Optional[torch.Tensor] = None, *, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h, dh = self.heads, self.dim_head
+        f, g = self._region()
         if gamma is None:
-            return self._attend(x, context, mask)
+            return g(self._attend(f(x), f(context), mask))
         if mask is not None or self.causal or self.include_queries:
             raise ValueError("the pre-norm attention block takes no mask, causal masking "
                              "or queries in its context")
         # the JAX module's gates: a fused block where it would take one
         n, dim = x.shape[1:]
-        cfg = dict(heads=h, dim_head=dh, scale=dh**-0.5)
+        # under tensor parallelism the kernel returns this rank's heads'
+        # sum without x, added once after the sum over the model group
+        cfg = dict(heads=h, dim_head=dh, scale=dh**-0.5, residual=self.tp is None)
+        part = None
         if self.use_flash and context is None and fits_fused_attn_block(n, dim, dh):
-            return attn_block(x, gamma, beta, self.to_q, self.to_kv, self.to_out, **cfg)
-        if self.use_flash and context is not None and fits_fused_cross_attn_block(
+            part = attn_block(f(x), f(gamma), f(beta), self.to_q, self.to_kv, self.to_out, **cfg)
+        elif self.use_flash and context is not None and fits_fused_cross_attn_block(
                 n, context.shape[1], dim, context.shape[2], dh):
-            return cross_attn_block(x, context.contiguous(), gamma, beta, self.to_q, self.to_kv,
-                                    self.to_out, **cfg)
-        return x + self._attend(ada_rmsnorm(x, gamma, beta, dim), context, None)
+            part = cross_attn_block(f(x), f(context.contiguous()), f(gamma), f(beta), self.to_q,
+                                    self.to_kv, self.to_out, **cfg)
+        if part is not None:
+            return part if self.tp is None else x + g(part)
+        return x + g(self._attend(ada_rmsnorm(f(x), f(gamma), f(beta), dim), f(context), None))
+
+    def _region(self):
+        """(*f*, *g*) of the tensor-parallel region over the model group;
+        identities without tensor parallelism."""
+        if self.tp is None:
+            return (lambda t: t), (lambda t: t)
+        return (lambda t: tp_copy(self.tp, t)), (lambda t: tp_reduce(self.tp, t))
 
     def _attend(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -112,6 +137,7 @@ class Attention(nn.Module):
             causal=self.causal, scale=dh**-0.5,
             dropout=self.dropout if self.training else 0.0,
             backend="flash" if self.use_flash else "xla",
+            h_offset=self.head_offset, h_total=self.all_heads,
         )
         b, _, n, _ = out.shape
         return out.transpose(1, 2).reshape(b, n, h * dh) @ to_out

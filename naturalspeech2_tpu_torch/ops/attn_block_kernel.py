@@ -45,6 +45,12 @@ dtype is the vjp of a function that widens its inputs to f32 and returns
 y at x's dtype, as the JAX package's twins do (`_attn_core_flash`,
 `cross_attn_block_xla`), so each gradient comes back at its input's dtype.
 
+``residual=False`` leaves x out of y in every version, kernel and plain
+alike: y = Σ_h o_h · W_o,h, the partial sum of a rank that holds some of
+the heads under tensor parallelism (`parallel/tp.py`), whose sum over the
+model group gets x added once; recovering it as y − x would cancel
+digits. The default keeps every entry point as it was.
+
 ``fits_fused_attn_block`` and ``fits_fused_cross_attn_block`` are the JAX
 package's shape gates, which `Attention` consults before it takes a block.
 """
@@ -106,7 +112,7 @@ def fits_fused_cross_attn_block(n: int, m: int, dm: int, dc: int, dh: int) -> bo
     return n % 8 == 0 and m % 8 == 0 and _cross_vmem_bytes(n, m, dm, dc, dh) <= VMEM_BUDGET_BYTES
 
 
-def attn_block_torch(x, gamma, beta, wq, wk, wv, wo, *, scale: float):
+def attn_block_torch(x, gamma, beta, wq, wk, wv, wo, *, scale: float, residual: bool = True):
     """Plain PyTorch version, the twin of ``attn_block_xla``.
 
     x: [b, n, dm]; gamma/beta: [b, dm]; wq/wk/wv: [H, dm, dh]; wo: [H, dh, dm].
@@ -118,7 +124,8 @@ def attn_block_torch(x, gamma, beta, wq, wk, wv, wo, *, scale: float):
     s = torch.einsum("bhik,bhjk->bhij", q, k) * scale
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhij,bhjk->bhik", p, v)
-    return x + torch.einsum("bhnk,hkd->bnd", o, wo)
+    out = torch.einsum("bhnk,hkd->bnd", o, wo)
+    return x + out if residual else out
 
 
 def _core_bf16(q, k, v, *, scale: float):
@@ -130,16 +137,17 @@ def _core_bf16(q, k, v, *, scale: float):
     return torch.einsum("bhij,bhjk->bhik", _rd(p), v) / p.sum(dim=-1, keepdim=True)
 
 
-def attn_block_bf16_torch(x, gamma, beta, wq, wk, wv, wo, *, scale: float):
+def attn_block_bf16_torch(x, gamma, beta, wq, wk, wv, wo, *, scale: float,
+                          residual: bool = True):
     """Plain version of K2 in bf16, the rounding points of
     `_attn_block_kernel` at bf16 inputs (attn_block_kernel.py:100-154):
     the norm in f32 and n(x) rounded, q, k and v summed in f32 and rounded,
     the attention core as ``_core_bf16``, o rounded before W_o, the heads
     and x summed in f32 and rounded once. Layouts as ``attn_block_torch``."""
-    return _block_bf16(x, None, gamma, beta, wq, wk, wv, wo, scale=scale)
+    return _block_bf16(x, None, gamma, beta, wq, wk, wv, wo, scale=scale, residual=residual)
 
 
-def _block_bf16(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float):
+def _block_bf16(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float, residual: bool = True):
     """K2's bf16 plain version (``ctx`` None: k and v from n(x)) or K2b's
     (k and v from the raw ``ctx``)."""
     xf = x.float()
@@ -148,7 +156,8 @@ def _block_bf16(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float):
     q = _rd(torch.einsum("bnd,hdk->bhnk", xn, wq.float()))
     k, v = (_rd(torch.einsum("bmd,hdk->bhmk", kv_in, w.float())) for w in (wk, wv))
     o = _core_bf16(q, k, v, scale=scale)
-    return (xf + torch.einsum("bhnk,hkd->bnd", _rd(o), wo.float())).to(x.dtype)
+    out = torch.einsum("bhnk,hkd->bnd", _rd(o), wo.float())
+    return (xf + out if residual else out).to(x.dtype)
 
 
 def split_heads(wq, wkv, wo, heads: int, dim_head: int):
@@ -161,7 +170,8 @@ def split_heads(wq, wkv, wo, heads: int, dim_head: int):
     return to_heads(wq), to_heads(wk), to_heads(wv), wo.reshape(heads, dim_head, wq.shape[0])
 
 
-def attn_block_flash(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
+def attn_block_flash(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float,
+                     residual: bool = True):
     """The block with its attention core through flash attention (K4
     forward, K5 backward on a card), the twin of `_attn_core_flash` (Dense
     layouts, as ``attn_block`` takes them): every input widened to f32, y
@@ -177,7 +187,8 @@ def attn_block_flash(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, 
     k, v = (xn @ wkv).chunk(2, dim=-1)
     o = FlashAttention.apply(to_heads(xn @ wq), to_heads(k), to_heads(v), None, None, False,
                              float(scale), 0.0)
-    return (xf + o.transpose(1, 2).reshape(b, n, heads * dim_head) @ wo).to(x.dtype)
+    out = o.transpose(1, 2).reshape(b, n, heads * dim_head) @ wo
+    return (xf + out if residual else out).to(x.dtype)
 
 
 def _padded_heads(w, heads: int, dim_head: int, dh: int):
@@ -249,13 +260,15 @@ def _pack_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dtype):
     return pack_attn_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype, wq.dtype))
 
 
-def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
+def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float,
+             residual: bool = True):
     if x.device.type == "cpu":
         wq_h, wk_h, wv_h, wo_h = split_heads(wq, wkv, wo, heads, dim_head)
         if x.dtype == torch.bfloat16:
-            return attn_block_bf16_torch(x, gamma, beta, wq_h, wk_h, wv_h, wo_h, scale=scale)
+            return attn_block_bf16_torch(x, gamma, beta, wq_h, wk_h, wv_h, wo_h, scale=scale,
+                                         residual=residual)
         return attn_block_torch(x, gamma, beta, *(w.to(x.dtype) for w in (wq_h, wk_h, wv_h, wo_h)),
-                                scale=scale)
+                                scale=scale, residual=residual)
     _build.require_cuda("attn_block", x.dtype, x=x, gamma=gamma, beta=beta)
     _build.suffix("attn_block", x.dtype, wq.dtype)
     b, n, dm = x.shape
@@ -273,7 +286,7 @@ def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: f
     err = _build.entry("ns2_attn_block", x.dtype, wq.dtype)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), bt_qkv.data_ptr(), bt_out.data_ptr(),
         qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, dm, heads, dh, float(scale),
-        _build.stream(x),
+        int(residual), _build.stream(x),
     )
     _build.check(err, "ns2_attn_block")
     _build.count(attn_block, x.dtype, wq.dtype)
@@ -282,37 +295,41 @@ def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: f
 
 class _AttnBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, wq, wkv, wo, heads, dim_head, scale):
+    def forward(ctx, x, gamma, beta, wq, wkv, wo, heads, dim_head, scale, residual=True):
         ctx.save_for_backward(x, gamma, beta, wq, wkv, wo)
-        ctx.cfg = dict(heads=heads, dim_head=dim_head, scale=scale)
+        ctx.cfg = dict(heads=heads, dim_head=dim_head, scale=scale, residual=residual)
         return _forward(x, gamma, beta, wq, wkv, wo, **ctx.cfg)
 
     @staticmethod
     def backward(ctx, g):
         grads = vjp(lambda *a: attn_block_flash(*a, **ctx.cfg), ctx.saved_tensors,
                     ctx.needs_input_grad[:6], g)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
-def attn_block(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
+def attn_block(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float,
+               residual: bool = True):
     """``x + W_o·attn(adaRMSNorm(x)·W_{q,k,v})``, differentiable.
 
     x: [b, n, dm]; gamma/beta: [b, dm]; wq: [dm, H·dh]; wkv: [dm, 2·H·dh];
     wo: [H·dh, dm]. CUDA tensors run the kernel (three launches: q/k/v on
     the GEMM core, K4's attention core, W_o on the GEMM core; counted as one
-    launch of K2); CPU tensors run the plain version.
+    launch of K2); CPU tensors run the plain version. ``residual=False``
+    returns the heads' sum alone, without x.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta, wq, wkv, wo)):
-        return _AttnBlock.apply(x, gamma, beta, wq, wkv, wo, heads, dim_head, float(scale))
+        return _AttnBlock.apply(x, gamma, beta, wq, wkv, wo, heads, dim_head, float(scale),
+                                bool(residual))
     # no graph to record: the autograd Function's overhead spared
     return _forward(x, gamma, beta, wq, wkv, wo, heads=heads, dim_head=dim_head,
-                    scale=float(scale))
+                    scale=float(scale), residual=bool(residual))
 
 
 attn_block.launches = attn_block.launches_bf16 = attn_block.launches_mixed = 0
 
 
-def cross_attn_block_torch(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float):
+def cross_attn_block_torch(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float,
+                           residual: bool = True):
     """Plain PyTorch version of K2b, the twin of ``cross_attn_block_xla``.
 
     x: [b, n, dm]; ctx: [b, m, dc] (not normalised); gamma/beta: [b, dm];
@@ -325,32 +342,36 @@ def cross_attn_block_torch(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float)
     s = torch.einsum("bhik,bhjk->bhij", q, k) * scale
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhij,bhjk->bhik", p, v)
-    return x + torch.einsum("bhnk,hkd->bnd", o, wo)
+    out = torch.einsum("bhnk,hkd->bnd", o, wo)
+    return x + out if residual else out
 
 
-def cross_attn_block_bf16_torch(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float):
+def cross_attn_block_bf16_torch(x, ctx, gamma, beta, wq, wk, wv, wo, *, scale: float,
+                                residual: bool = True):
     """Plain version of K2b in bf16, the rounding points of
     `_cross_attn_block_kernel` at bf16 inputs (attn_block_kernel.py:244-292):
     as ``attn_block_bf16_torch``, with k and v from the raw context (bf16).
     Layouts as ``cross_attn_block_torch``."""
-    return _block_bf16(x, ctx, gamma, beta, wq, wk, wv, wo, scale=scale)
+    return _block_bf16(x, ctx, gamma, beta, wq, wk, wv, wo, scale=scale, residual=residual)
 
 
-def _cross_plain(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
+def _cross_plain(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float,
+                 residual: bool = True):
     """``cross_attn_block_torch`` (``cross_attn_block_bf16_torch`` in bf16)
     on the Dense layouts; mixed, on the weights widened to f32."""
     heads_w = split_heads(wq, wkv, wo, heads, dim_head)
     if x.dtype == torch.bfloat16:
-        return cross_attn_block_bf16_torch(x, ctx, gamma, beta, *heads_w, scale=scale)
+        return cross_attn_block_bf16_torch(x, ctx, gamma, beta, *heads_w, scale=scale,
+                                           residual=residual)
     return cross_attn_block_torch(x, ctx, gamma, beta, *(w.to(x.dtype) for w in heads_w),
-                                  scale=scale)
+                                  scale=scale, residual=residual)
 
 
-def _cross_xla(x, *args, heads: int, dim_head: int, scale: float):
+def _cross_xla(x, *args, heads: int, dim_head: int, scale: float, residual: bool = True):
     """The twin of ``cross_attn_block_xla`` on the Dense layouts: every
     input widened to f32, y returned at x's dtype. K2b's backward."""
     return _cross_plain(x.float(), *(t.float() for t in args), heads=heads, dim_head=dim_head,
-                        scale=scale).to(x.dtype)
+                        scale=scale, residual=residual).to(x.dtype)
 
 
 def cross_attn_block_packed_torch(x, ctx, gamma, beta, packed, *, heads: int, scale: float):
@@ -382,10 +403,11 @@ def _pack_cross_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dty
     return pack_cross_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype, wq.dtype))
 
 
-def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float):
+def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float,
+                   residual: bool = True):
     if x.device.type == "cpu":
         return _cross_plain(x, ctx, gamma, beta, wq, wkv, wo, heads=heads, dim_head=dim_head,
-                            scale=scale)
+                            scale=scale, residual=residual)
     _build.require_cuda("cross_attn_block", x.dtype, x=x, ctx=ctx, gamma=gamma, beta=beta)
     _build.suffix("cross_attn_block", x.dtype, wq.dtype)
     b, n, dm = x.shape
@@ -409,7 +431,8 @@ def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: in
     err = _build.entry("ns2_cross_attn_block", x.dtype, wq.dtype)(
         x.data_ptr(), ctx.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         *(p.data_ptr() for p in packed), q.data_ptr(), kv.data_ptr(), o.data_ptr(),
-        out.data_ptr(), b, n, m, dm, dc, heads, dh, float(scale), _build.stream(x),
+        out.data_ptr(), b, n, m, dm, dc, heads, dh, float(scale), int(residual),
+        _build.stream(x),
     )
     _build.check(err, "ns2_cross_attn_block")
     _build.count(cross_attn_block, x.dtype, wq.dtype)
@@ -418,20 +441,20 @@ def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: in
 
 class _CrossAttnBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx_, x, ctx, gamma, beta, wq, wkv, wo, heads, dim_head, scale):
+    def forward(ctx_, x, ctx, gamma, beta, wq, wkv, wo, heads, dim_head, scale, residual=True):
         ctx_.save_for_backward(x, ctx, gamma, beta, wq, wkv, wo)
-        ctx_.cfg = dict(heads=heads, dim_head=dim_head, scale=scale)
+        ctx_.cfg = dict(heads=heads, dim_head=dim_head, scale=scale, residual=residual)
         return _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, **ctx_.cfg)
 
     @staticmethod
     def backward(ctx_, g):
         grads = vjp(lambda *a: _cross_xla(*a, **ctx_.cfg), ctx_.saved_tensors,
                     ctx_.needs_input_grad[:7], g)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int,
-                     scale: float):
+                     scale: float, residual: bool = True):
     """K2b: ``x + W_o·attn(adaRMSNorm(x)·W_q, ctx·W_k, ctx·W_v)``,
     differentiable.
 
@@ -439,9 +462,11 @@ def cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: 
     wkv: [dc, 2·H·dh] (k first); wo: [H·dh, dm]. CUDA tensors run the
     kernel (four launches: q and k/v on the GEMM core, K4's attention core,
     W_o on the GEMM core; counted as one launch of K2b; any dm, dc and head
-    width); CPU tensors run the plain version.
+    width); CPU tensors run the plain version. ``residual=False`` returns
+    the heads' sum alone, without x.
     """
-    return _CrossAttnBlock.apply(x, ctx, gamma, beta, wq, wkv, wo, heads, dim_head, float(scale))
+    return _CrossAttnBlock.apply(x, ctx, gamma, beta, wq, wkv, wo, heads, dim_head, float(scale),
+                                 bool(residual))
 
 
 cross_attn_block.launches = cross_attn_block.launches_bf16 = 0

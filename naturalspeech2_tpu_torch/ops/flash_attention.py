@@ -13,7 +13,10 @@ Dropout draws its keep mask from Threefry-2x32-20, counter (row·n_kvp +
 col, b·65536 + h) and key (seed[0], seed[1]), with n_kvp the key length
 padded as the JAX package pads it, so the port keeps exactly the JAX
 package's elements for the same seed and can regenerate them in the
-backward without storing them.
+backward without storing them. ``b_offset`` and ``h_offset`` (0 by
+default) are added to b and h: a rank that holds batch rows
+``b_offset ...`` or heads ``h_offset ...`` of a larger array draws exactly
+that array's masks for them.
 
 In bf16 (q, k and v bfloat16: the JAX kernels at a bf16 input dtype,
 what AMP training runs in the prompt encoder and the resampler) the
@@ -101,14 +104,16 @@ def keep_scale(rate: float) -> float:
 
 
 def dropout_keep_scaled(seed: Sequence[int], b: int, h: int, n_q: int, n_kv: int,
-                        rate: float, device=None) -> torch.Tensor:
+                        rate: float, device=None, b_offset: int = 0,
+                        h_offset: int = 0) -> torch.Tensor:
     """[b, h, n_q, n_kv] multiplier keep/(1−rate) (twin of
-    `_dropout_keep_scaled` over the whole grid)."""
+    `_dropout_keep_scaled` over the whole grid), for batch rows and heads
+    counted from ``b_offset`` and ``h_offset``."""
     rows = torch.arange(n_q, dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(n_kv, dtype=torch.int64, device=device)[None, :]
     x0 = ((rows * dropout_stride(n_kv) + cols) & _MASK32).expand(b, h, n_q, n_kv)
-    bh = torch.arange(b, dtype=torch.int64, device=device)[:, None] * 65536 + torch.arange(
-        h, dtype=torch.int64, device=device)[None, :]
+    bh = (torch.arange(b, dtype=torch.int64, device=device)[:, None] + b_offset) * 65536 + (
+        torch.arange(h, dtype=torch.int64, device=device)[None, :] + h_offset)
     x1 = (bh & _MASK32)[:, :, None, None].expand(b, h, n_q, n_kv)
     bits = threefry2x32(int(seed[0]), int(seed[1]), x0, x1)
     keep = (bits >= keep_threshold(rate)).to(torch.float32)
@@ -139,7 +144,8 @@ def _xyt(x, y, head_chunk: Optional[int]):
 
 
 def flash_forward_bf16_torch(q, k, v, mask, seed=None, *, causal: bool, scale: float,
-                             dropout_rate: float = 0.0, head_chunk: Optional[int] = None):
+                             dropout_rate: float = 0.0, head_chunk: Optional[int] = None,
+                             b_offset: int = 0, h_offset: int = 0):
     """Plain version of K4 in bf16, the JAX kernels' rounding points at a
     bf16 input dtype: the logits summed in f32 from the bf16 operands, m,
     l and lse in f32 over the unrounded, undropped probabilities, P times
@@ -155,13 +161,15 @@ def flash_forward_bf16_torch(q, k, v, mask, seed=None, *, causal: bool, scale: f
     safe_l = torch.where(l == 0.0, 1.0, l)
     lse = (m + torch.log(safe_l))[..., 0]
     if dropout_rate > 0.0:
-        p = p * dropout_keep_scaled(seed, b, h, n_q, n_kv, dropout_rate, q.device)
+        p = p * dropout_keep_scaled(seed, b, h, n_q, n_kv, dropout_rate, q.device, b_offset,
+                                    h_offset)
     pv = torch.einsum("bhij,bhjd->bhid", round_bf16(p), v.float())
     return (pv / safe_l).to(torch.bfloat16), lse
 
 
 def flash_forward_torch(q, k, v, mask, seed, *, causal: bool, scale: float,
-                        dropout_rate: float = 0.0, head_chunk: Optional[int] = None):
+                        dropout_rate: float = 0.0, head_chunk: Optional[int] = None,
+                        b_offset: int = 0, h_offset: int = 0):
     """Plain version of K4: ``(o [b,h,n_q,d], lse [b,h,n_q])``, the function
     of `_flash_oneshot_kernel` / `_flash_kernel`. With ``head_chunk`` (d a
     multiple of it) the logits are summed over chunks of the head dim, as
@@ -169,7 +177,8 @@ def flash_forward_torch(q, k, v, mask, seed, *, causal: bool, scale: float,
     ``flash_forward_bf16_torch``."""
     if q.dtype == torch.bfloat16:
         return flash_forward_bf16_torch(q, k, v, mask, seed, causal=causal, scale=scale,
-                                        dropout_rate=dropout_rate, head_chunk=head_chunk)
+                                        dropout_rate=dropout_rate, head_chunk=head_chunk,
+                                        b_offset=b_offset, h_offset=h_offset)
     b, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     valid = _valid(b, n_q, n_kv, mask, causal, q.device)
@@ -180,13 +189,15 @@ def flash_forward_torch(q, k, v, mask, seed, *, causal: bool, scale: float,
     safe_l = torch.where(l == 0.0, 1.0, l)
     lse = (m + torch.log(safe_l))[..., 0]
     if dropout_rate > 0.0:
-        p = p * dropout_keep_scaled(seed, b, h, n_q, n_kv, dropout_rate, q.device)
+        p = p * dropout_keep_scaled(seed, b, h, n_q, n_kv, dropout_rate, q.device, b_offset,
+                                    h_offset)
     o = torch.einsum("bhij,bhjd->bhid", p, v) / safe_l
     return o, lse
 
 
 def flash_backward_torch(q, k, v, mask, seed, lse, o, do, *, causal: bool, scale: float,
-                         dropout_rate: float = 0.0, head_chunk: Optional[int] = None):
+                         dropout_rate: float = 0.0, head_chunk: Optional[int] = None,
+                         b_offset: int = 0, h_offset: int = 0):
     """Plain version of K5: ``(dq, dk, dv)`` from the saved lse, with
     delta = Σ_d dO·O and P recomputed as in `_flash_backward`. With
     ``head_chunk``, S and dP are summed over chunks of the head dim, as the
@@ -195,13 +206,15 @@ def flash_backward_torch(q, k, v, mask, seed, lse, o, do, *, causal: bool, scale
     if q.dtype == torch.bfloat16:
         return flash_backward_bf16_torch(q, k, v, mask, seed, lse, o, do, causal=causal,
                                          scale=scale, dropout_rate=dropout_rate,
-                                         head_chunk=head_chunk)
+                                         head_chunk=head_chunk, b_offset=b_offset,
+                                         h_offset=h_offset)
     return _backward(q, k, v, mask, seed, lse, o, do, causal=causal, scale=scale,
-                     dropout_rate=dropout_rate, head_chunk=head_chunk)
+                     dropout_rate=dropout_rate, head_chunk=head_chunk, b_offset=b_offset,
+                     h_offset=h_offset)
 
 
 def _backward(q, k, v, mask, seed, lse, o, do, *, causal, scale, dropout_rate, head_chunk,
-              round_ds=lambda ds: ds):
+              round_ds=lambda ds: ds, b_offset: int = 0, h_offset: int = 0):
     """The backward's function on f32 tensors; ``round_ds`` is applied to
     dS before dS·K and dSᵀ·Q (never to A before Aᵀ·dO)."""
     b, h, n_q, _ = q.shape
@@ -213,7 +226,8 @@ def _backward(q, k, v, mask, seed, lse, o, do, *, causal, scale, dropout_rate, h
     dp = _xyt(do, v, head_chunk)
     a = p
     if dropout_rate > 0.0:
-        keep = dropout_keep_scaled(seed, b, h, n_q, n_kv, dropout_rate, q.device)
+        keep = dropout_keep_scaled(seed, b, h, n_q, n_kv, dropout_rate, q.device, b_offset,
+                                   h_offset)
         a = p * keep
         dp = dp * keep
     dv = torch.einsum("bhij,bhid->bhjd", a, do)
@@ -224,7 +238,8 @@ def _backward(q, k, v, mask, seed, lse, o, do, *, causal, scale, dropout_rate, h
 
 
 def flash_backward_bf16_torch(q, k, v, mask, seed, lse, o, do, *, causal: bool, scale: float,
-                              dropout_rate: float = 0.0, head_chunk: Optional[int] = None):
+                              dropout_rate: float = 0.0, head_chunk: Optional[int] = None,
+                              b_offset: int = 0, h_offset: int = 0):
     """Plain version of K5 in bf16, the rounding points of
     `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel` at bf16 inputs: dO
     widened to f32; S = Q·Kᵀ and dP = dO·Vᵀ summed in f32 from the bf16
@@ -234,7 +249,8 @@ def flash_backward_bf16_torch(q, k, v, mask, seed, lse, o, do, *, causal: bool, 
     already); dq, dk and dv rounded to bf16."""
     grads = _backward(*(t.float() for t in (q, k, v)), mask, seed, lse,
                       *(t.float() for t in (o, do)), causal=causal, scale=scale,
-                      dropout_rate=dropout_rate, head_chunk=head_chunk, round_ds=round_bf16)
+                      dropout_rate=dropout_rate, head_chunk=head_chunk, round_ds=round_bf16,
+                      b_offset=b_offset, h_offset=h_offset)
     return tuple(g.to(torch.bfloat16) for g in grads)
 
 
@@ -272,30 +288,34 @@ def _check(name: str, q, k, v, mask):
     return mask.to(torch.uint8).contiguous()
 
 
-def _dropout_args(seed, dropout_rate: float, n_kv: int) -> list:
-    """(seed0, seed1, rate, stride, threshold, keep scale) as the kernels
-    take them; a rate of 0 turns dropout off."""
+def _dropout_args(seed, dropout_rate: float, n_kv: int, b_offset: int = 0,
+                  h_offset: int = 0) -> list:
+    """(seed0, seed1, rate, stride, threshold, keep scale, batch offset,
+    head offset) as the kernels take them; a rate of 0 turns dropout off."""
     if dropout_rate <= 0.0:
-        return [0, 0, 0.0, 0, 0, 1.0]
+        return [0, 0, 0.0, 0, 0, 1.0, 0, 0]
     if seed is None:
         raise ValueError("dropout needs a seed")
     return [int(seed[0]) & _MASK32, int(seed[1]) & _MASK32, float(dropout_rate),
-            dropout_stride(n_kv), keep_threshold(dropout_rate), keep_scale(dropout_rate)]
+            dropout_stride(n_kv), keep_threshold(dropout_rate), keep_scale(dropout_rate),
+            int(b_offset), int(h_offset)]
 
 
 def flash_forward(q, k, v, mask=None, seed=None, *, causal: bool = False, scale: float,
-                  dropout_rate: float = 0.0):
+                  dropout_rate: float = 0.0, b_offset: int = 0, h_offset: int = 0):
     """K4: ``(o, lse)``. CUDA tensors launch ``csrc/flash_fwd.cu`` (heads
     padded to 64 or a multiple of 128, o cut back; f32, or bf16 through its
     own entry point, counted in ``flash_forward.launches_bf16``); CPU
-    tensors run ``flash_forward_torch``."""
+    tensors run ``flash_forward_torch``. ``b_offset`` and ``h_offset`` key
+    the dropout mask on the global batch row and head."""
+    offsets = dict(b_offset=b_offset, h_offset=h_offset)
     if q.device.type == "cpu":
         return flash_forward_torch(q, k, v, mask, seed, causal=causal, scale=scale,
-                                   dropout_rate=dropout_rate)
+                                   dropout_rate=dropout_rate, **offsets)
     d = q.shape[-1]
     if d != kernel_head_dim(d) and q.device.type == "cuda":
         o, lse = flash_forward(*pad_head_dim(q, k, v), mask, seed, causal=causal, scale=scale,
-                               dropout_rate=dropout_rate)
+                               dropout_rate=dropout_rate, **offsets)
         return o[..., :d].contiguous(), lse
     mask8 = _check("flash_forward", q, k, v, mask)
     b, h, n_q, d = q.shape
@@ -305,7 +325,7 @@ def flash_forward(q, k, v, mask=None, seed=None, *, causal: bool = False, scale:
     err = _build.entry("ns2_flash_fwd", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask8 is None else mask8.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, h, n_q, n_kv, d, int(causal), float(scale),
-        *_dropout_args(seed, dropout_rate, n_kv), _build.stream(q),
+        *_dropout_args(seed, dropout_rate, n_kv, b_offset, h_offset), _build.stream(q),
     )
     _build.check(err, "ns2_flash_fwd")
     _build.count(flash_forward, q.dtype)
@@ -313,20 +333,23 @@ def flash_forward(q, k, v, mask=None, seed=None, *, causal: bool = False, scale:
 
 
 def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, scale: float,
-                   dropout_rate: float = 0.0):
+                   dropout_rate: float = 0.0, b_offset: int = 0, h_offset: int = 0):
     """K5: ``(dq, dk, dv)``. CUDA tensors launch the dq and dk/dv kernels of
     ``csrc/flash_bwd.cu`` (counted as one launch of K5; heads padded to 64
     or a multiple of 128, the gradients cut back; f32, or bf16 through its
     own entry point, counted in ``flash_backward.launches_bf16``) after
     delta = Σ dO·O as a plain f32 reduction (XLA computes it outside the
-    kernels too); CPU tensors run ``flash_backward_torch``."""
+    kernels too); CPU tensors run ``flash_backward_torch``. The offsets as
+    ``flash_forward``'s."""
+    offsets = dict(b_offset=b_offset, h_offset=h_offset)
     if q.device.type == "cpu":
         return flash_backward_torch(q, k, v, mask, seed, lse, o, do, causal=causal, scale=scale,
-                                    dropout_rate=dropout_rate)
+                                    dropout_rate=dropout_rate, **offsets)
     d = q.shape[-1]
     if d != kernel_head_dim(d) and q.device.type == "cuda":
         grads = flash_backward(*pad_head_dim(q, k, v), mask, seed, lse, *pad_head_dim(o, do),
-                               causal=causal, scale=scale, dropout_rate=dropout_rate)
+                               causal=causal, scale=scale, dropout_rate=dropout_rate,
+                               **offsets)
         return tuple(g[..., :d].contiguous() for g in grads)
     mask8 = _check("flash_backward", q, k, v, mask)
     _build.require_cuda("flash_backward", q.dtype, o=o, do=do)
@@ -343,7 +366,7 @@ def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, sca
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask8 is None else mask8.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, h, n_q, n_kv, d, int(causal), float(scale),
-        *_dropout_args(seed, dropout_rate, n_kv), _build.stream(q),
+        *_dropout_args(seed, dropout_rate, n_kv, b_offset, h_offset), _build.stream(q),
     )
     _build.check(err, "ns2_flash_bwd")
     _build.count(flash_backward, q.dtype)
@@ -356,16 +379,16 @@ flash_backward.launches = flash_backward.launches_bf16 = 0
 
 class FlashAttention(torch.autograd.Function):
     """``FlashAttention.apply(q, k, v, mask, seed, causal, scale,
-    dropout_rate)`` → o; forward K4, backward K5 (the twin of `_flash`'s
-    custom_vjp). ``seed`` is two ints or None."""
+    dropout_rate, b_offset=0, h_offset=0)`` → o; forward K4, backward K5
+    (the twin of `_flash`'s custom_vjp). ``seed`` is two ints or None."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, causal, scale, dropout_rate):
-        o, lse = flash_forward(q, k, v, mask, seed, causal=causal, scale=scale,
-                               dropout_rate=dropout_rate)
+    def forward(ctx, q, k, v, mask, seed, causal, scale, dropout_rate, b_offset=0, h_offset=0):
+        ctx.cfg = dict(causal=causal, scale=scale, dropout_rate=dropout_rate,
+                       b_offset=b_offset, h_offset=h_offset)
+        o, lse = flash_forward(q, k, v, mask, seed, **ctx.cfg)
         ctx.save_for_backward(q, k, v, lse, o)
         ctx.mask, ctx.seed = mask, seed
-        ctx.cfg = dict(causal=causal, scale=scale, dropout_rate=dropout_rate)
         return o
 
     @staticmethod
@@ -373,22 +396,26 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, lse, o = ctx.saved_tensors
         dq, dk, dv = flash_backward(q, k, v, ctx.mask, ctx.seed, lse, o, do.contiguous(),
                                     **ctx.cfg)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, mask: Optional[torch.Tensor] = None, causal: bool = False,
                     scale: Optional[float] = None, dropout: float = 0.0,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None, b_offset: int = 0,
+                    h_offset: int = 0) -> torch.Tensor:
     """Differentiable flash attention over ``[b, h, n, d]`` with an optional
     ``[b, n_kv]`` key-padding mask, causal masking and attention dropout,
-    whose two seed words are drawn from ``generator``."""
+    whose two seed words are drawn from ``generator``; the mask of batch
+    row b and head h is that of row ``b_offset + b`` and head
+    ``h_offset + h`` of a larger array."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     seed = None
     if dropout > 0.0:
         device = generator.device if generator is not None else "cpu"
         seed = tuple(torch.randint(0, 2**32, (2,), generator=generator, device=device).tolist())
-    return FlashAttention.apply(q, k, v, mask, seed, causal, float(scale), float(dropout))
+    return FlashAttention.apply(q, k, v, mask, seed, causal, float(scale), float(dropout),
+                                int(b_offset), int(h_offset))
 
 
 def flash_attention_with_lse(q, k, v, *, mask: Optional[torch.Tensor] = None,

@@ -19,7 +19,7 @@ from typing import Dict
 import torch
 
 from naturalspeech2_tpu_torch.parallel import comm
-from naturalspeech2_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, Sharding
+from naturalspeech2_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, Sharding
 
 # leaves smaller than this stay replicated: sharding tiny vectors buys
 # nothing and costs a collective per use
@@ -67,63 +67,73 @@ def shard_state(mesh: Mesh, tree: Dict[str, torch.Tensor],
     return out
 
 
-def _split_groups(names: list, tensors: Dict[str, torch.Tensor]) -> list:
-    """``names`` grouped by dtype, in order."""
+def _split_groups(names: list, tensors: Dict[str, torch.Tensor], key=lambda n: None) -> list:
+    """``names`` grouped by dtype (and ``key``), in order."""
     groups: dict = {}
     for name in names:
-        groups.setdefault(tensors[name].dtype, []).append(name)
+        groups.setdefault((tensors[name].dtype, key(name)), []).append(name)
     return list(groups.values())
 
 
 def gather_params(mesh: Mesh, shards: Dict[str, torch.Tensor],
                   shardings: Dict[str, Sharding]) -> Dict[str, torch.Tensor]:
     """The whole leaves from every rank's parts: split leaves as new
-    tensors (one all-gather a dtype), replicated ones as they are."""
+    tensors (one all-gather a dtype and axis), replicated ones as they
+    are."""
     out = dict(shards)
     split = [n for n in shards if shardings[n].dim is not None]
-    for names in _split_groups(split, shards):
-        moved = [shards[n].movedim(shardings[n].dim, 0) for n in names]
-        parts = comm.all_gather(mesh, torch.cat([m.reshape(-1) for m in moved]))
-        pieces = [p.split([m.numel() for m in moved]) for p in parts]
-        for j, (name, m) in enumerate(zip(names, moved)):
-            whole = torch.cat([pieces[r][j].view(m.shape) for r in range(mesh.n_data)])
-            out[name] = whole.movedim(0, shardings[name].dim).contiguous()
+    for names in _split_groups(split, shards, lambda n: shardings[n].axis):
+        axis = shardings[names[0]].axis
+        parts = comm.all_gather(mesh, torch.cat([shards[n].reshape(-1) for n in names]), axis)
+        pieces = [p.split([shards[n].numel() for n in names]) for p in parts]
+        for j, name in enumerate(names):
+            held = [piece[j].view(shards[name].shape) for piece in pieces]
+            out[name] = shardings[name].unshard(held).contiguous()
     return out
 
 
 def reduce_scatter_grads(mesh: Mesh, grads: Dict[str, torch.Tensor],
                          shardings: Dict[str, Sharding]) -> Dict[str, torch.Tensor]:
-    """Each rank's part of the sum over ranks of every whole gradient: one
-    reduce-scatter a dtype for the split leaves, one all-reduce (in place)
-    for the replicated ones."""
+    """Each rank's part of the sum over the data axis of every whole
+    gradient: one reduce-scatter a dtype for the leaves split over ``data``,
+    one all-reduce (in place) for the others. A leaf split over ``model``
+    is used whole on every rank of a model group, on the same inputs, so
+    each of them holds its whole gradient: a rank keeps its part of it,
+    which is then summed over ``data``."""
     out = dict(grads)
-    split = [n for n in grads if shardings[n].dim is not None]
+    split = [n for n in grads if shardings[n].axis == DATA_AXIS]
     for names in _split_groups(split, grads):
         moved = [grads[n].movedim(shardings[n].dim, 0) for n in names]
         rows = torch.cat([m.reshape(mesh.n_data, -1) for m in moved], dim=1)
-        mine = comm.reduce_scatter(mesh, rows)
+        mine = comm.reduce_scatter(mesh, rows, DATA_AXIS)
         for name, m, part in zip(names, moved, mine.split([m.numel() // mesh.n_data
                                                             for m in moved])):
             local = part.view(m.shape[0] // mesh.n_data, *m.shape[1:])
             out[name] = local.movedim(0, shardings[name].dim).contiguous()
-    whole = [n for n in grads if shardings[n].dim is None]
-    for names in _split_groups(whole, grads):
-        comm.all_reduce_many_(mesh, [grads[n] for n in names])
+    for n in grads:
+        if shardings[n].axis == MODEL_AXIS:
+            out[n] = shardings[n].shard(grads[n]).contiguous()
+    rest = [n for n in grads if shardings[n].axis != DATA_AXIS]
+    for names in _split_groups(rest, out):
+        comm.all_reduce_many_(mesh, [out[n] for n in names], DATA_AXIS)
     return out
 
 
 def global_norm(mesh: Mesh, grads: Dict[str, torch.Tensor],
                 shardings: Dict[str, Sharding]) -> torch.Tensor:
-    """The global L2 norm of a tree held as `reduce_scatter_grads` leaves
-    it: the split leaves' squares summed over the ranks, each replicated
-    leaf counted once."""
+    """The global L2 norm of a tree of which each rank holds its parts (as
+    `reduce_scatter_grads` leaves it, or tensor parallelism): each split
+    leaf's squares summed over the ranks of its axis, each replicated leaf
+    counted once."""
     device = next(iter(grads.values())).device
 
     def squares(names):
         if not names:
             return torch.zeros((), device=device)
-        return torch.stack(torch._foreach_norm([grads[n] for n in names])).square().sum()
+        return torch.stack(torch._foreach_norm([grads[n] for n in names])).square().sum().float()
 
-    split = squares([n for n in grads if shardings[n].dim is not None])
-    whole = squares([n for n in grads if shardings[n].dim is None])
-    return torch.sqrt(comm.all_reduce_(mesh, split.float()) + whole.float())
+    total = squares([n for n in grads if shardings[n].axis is None])
+    for axis in (DATA_AXIS, MODEL_AXIS):
+        split = squares([n for n in grads if shardings[n].axis == axis])
+        total = total + comm.all_reduce_(mesh, split, axis)
+    return torch.sqrt(total)

@@ -1,11 +1,15 @@
-"""The data mesh (twin of `naturalspeech2_tpu/parallel/mesh.py`).
+"""The ``(data, model)`` mesh (twin of `naturalspeech2_tpu/parallel/mesh.py`).
 
 A `Mesh` is this process's place in a ``(data, model)`` grid of ranks:
-its rank, the axis sizes, the process group and the rank's device. JAX
-lays a global array over its devices; here each rank holds its own rows
-of every global batch (`shard_batch`) and the trainers reduce what the
-rows give (`comm`). The main process (rank 0) alone writes logs,
-samples and checkpoints.
+its rank, the axis sizes, the process groups and the rank's device. Ranks
+are laid out as JAX lays out its devices (``np.array(devices).reshape(
+n_data, n_model)``): rank = data_index · n_model + model_index. JAX lays a
+global array over its devices; here each rank holds its own rows of every
+global batch (`shard_batch`), the ranks of one model group holding the
+same rows, and the trainers reduce what the rows give over the ``data``
+axis (`comm`); tensor parallelism (`tp`) sums each attention's heads over
+the ``model`` axis. The main process (rank 0) alone writes logs, samples
+and checkpoints.
 """
 
 from __future__ import annotations
@@ -21,22 +25,24 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
 
-def _second_half(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, item 21's second half: tensor and "
-        "sequence parallelism over the model axis)")
-
-
 @dataclass(frozen=True)
 class Mesh:
-    """This rank's view of the mesh. ``group`` is None for a one-rank mesh
-    made without ``torch.distributed``."""
+    """This rank's view of the mesh. ``group`` is every rank's (None for a
+    one-rank mesh made without ``torch.distributed``); ``data_group`` and
+    ``model_group`` are this rank's groups along each axis where both axes
+    exceed 1 (otherwise an axis of one rank has no group and the other is
+    ``group``). A deep copy of a module that holds a mesh shares it."""
 
     n_data: int
     n_model: int
     rank: int
     group: Optional[Any]
     device: torch.device
+    data_group: Optional[Any] = None
+    model_group: Optional[Any] = None
+
+    def __deepcopy__(self, memo):
+        return self
 
     @property
     def shape(self) -> dict:
@@ -46,6 +52,33 @@ class Mesh:
     @property
     def world_size(self) -> int:
         return self.n_data * self.n_model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
+
+    def size(self, axis: Optional[str]) -> int:
+        """The ranks along ``axis`` (None: every rank)."""
+        return self.world_size if axis is None else self.shape[axis]
+
+    def index(self, axis: Optional[str]) -> int:
+        """This rank's place along ``axis`` (None: its rank)."""
+        if axis is None:
+            return self.rank
+        return self.data_index if axis == DATA_AXIS else self.model_index
+
+    def group_of(self, axis: Optional[str]):
+        """The process group along ``axis`` (None: every rank's), or None
+        when the axis has one rank."""
+        if self.group is None or self.size(axis) == 1:
+            return None
+        if axis is None or self.size(axis) == self.world_size:
+            return self.group
+        return self.data_group if axis == DATA_AXIS else self.model_group
 
     @property
     def backend(self) -> Optional[str]:
@@ -68,52 +101,96 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Me
     group when one is initialised, else this one process; ``n_data``
     defaults to the world size over ``n_model``. ``device`` is the rank's
     device (default: the current CUDA device under NCCL, the CPU under
-    gloo)."""
-    if n_model != 1:
-        raise _second_half(f"a model axis of {n_model}")
+    gloo). Where both axes exceed one rank, every rank makes every group
+    of each axis, in the same order (``dist.new_group`` asks for it): the
+    data groups (one per model index), then the model groups."""
     group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
     world = dist.get_world_size(group) if group is not None else 1
     rank = dist.get_rank(group) if group is not None else 0
+    if n_model < 1:
+        raise ValueError(f"the model axis needs at least one rank, got {n_model}")
     if n_data is None:
-        n_data = world // n_model
+        n_data = max(world // n_model, 1)
     if n_data * n_model != world:
         raise ValueError(f"{n_data}×{n_model} mesh does not cover {world} ranks "
                          f"({'the process group' if group is not None else 'no process group'})")
     backend = None if group is None else str(dist.get_backend(group))
     device = torch.device(device) if device is not None else _default_device(backend)
-    return Mesh(n_data=n_data, n_model=n_model, rank=rank, group=group, device=device)
+    data_group = model_group = None
+    if n_data > 1 and n_model > 1:
+        grid = np.arange(world).reshape(n_data, n_model)
+        for m in range(n_model):
+            g = dist.new_group(grid[:, m].tolist())
+            if rank % n_model == m:
+                data_group = g
+        for d in range(n_data):
+            g = dist.new_group(grid[d].tolist())
+            if rank // n_model == d:
+                model_group = g
+    return Mesh(n_data=n_data, n_model=n_model, rank=rank, group=group, device=device,
+                data_group=data_group, model_group=model_group)
 
 
 @dataclass(frozen=True)
 class Sharding:
     """A tensor's layout over the mesh: ``spec`` names, per dimension, the
     mesh axis it is split over or None, as a JAX ``PartitionSpec`` (``()``
-    replicated). A split dimension is cut into ``n_data`` equal, contiguous
-    parts, rank r holding part r."""
+    replicated). A split dimension is cut into as many equal, contiguous
+    parts as its axis has ranks, the rank at index r along the axis holding
+    part r; with ``blocks`` > 1 the dimension is that many equal blocks,
+    each cut so, and a rank holds its part of every block (a ``to_kv``
+    projection split by heads: its heads' k columns and their v columns)."""
 
     mesh: Mesh
     spec: tuple = ()
+    blocks: int = 1
+
+    @property
+    def axis(self) -> Optional[str]:
+        """The mesh axis the tensor is split over, or None when every rank
+        holds the whole."""
+        for ax in self.spec:
+            if ax is not None and self.mesh.size(ax) > 1:
+                return ax
+        return None
 
     @property
     def dim(self) -> Optional[int]:
         """The split dimension, or None when every rank holds the whole."""
-        if DATA_AXIS not in self.spec or self.mesh.n_data == 1:
-            return None
-        return self.spec.index(DATA_AXIS)
+        axis = self.axis
+        return None if axis is None else self.spec.index(axis)
+
+    def _blocked(self, x, parts: int):
+        """``x`` with its split dimension first, as [blocks, parts, size, ...]."""
+        dim = self.dim
+        n = x.shape[dim]
+        if n % (parts * self.blocks):
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over "
+                             f"{parts} ranks" + (f" in {self.blocks} blocks" if self.blocks > 1
+                                                 else ""))
+        moved = x.movedim(dim, 0) if isinstance(x, torch.Tensor) else np.moveaxis(x, dim, 0)
+        return moved.reshape(self.blocks, parts, n // (parts * self.blocks), *moved.shape[1:])
 
     def shard(self, x):
         """This rank's part of the whole ``x`` (a tensor or an array)."""
-        dim = self.dim
-        if dim is None:
+        if self.dim is None:
             return x
-        n = x.shape[dim]
-        if n % self.mesh.n_data:
-            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over "
-                             f"{self.mesh.n_data} ranks")
-        size = n // self.mesh.n_data
-        index = [slice(None)] * x.ndim
-        index[dim] = slice(self.mesh.rank * size, (self.mesh.rank + 1) * size)
-        return x[tuple(index)]
+        parts = self.mesh.size(self.axis)
+        mine = self._blocked(x, parts)[:, self.mesh.index(self.axis)]
+        mine = mine.reshape(-1, *mine.shape[2:])
+        if isinstance(x, torch.Tensor):
+            return mine.movedim(0, self.dim)
+        return np.moveaxis(mine, 0, self.dim)
+
+    def unshard(self, parts: list) -> torch.Tensor:
+        """The whole tensor from every rank's part, in axis order."""
+        if self.dim is None:
+            return parts[0]
+        moved = [p.movedim(self.dim, 0) for p in parts]
+        size = moved[0].shape[0] // self.blocks
+        whole = torch.cat([m[i * size:(i + 1) * size] for i in range(self.blocks)
+                           for m in moved])
+        return whole.movedim(0, self.dim)
 
 
 def batch_sharding(mesh: Mesh) -> Sharding:
@@ -143,14 +220,6 @@ def check_batch_split(train_batch_size: int, n_data: int) -> None:
             f"train_batch_size ({train_batch_size}) must be divisible by the mesh's data axis "
             f"({n_data} devices) — pass a smaller mesh (make_mesh(n_data=...)) or a larger "
             "batch")
-
-
-def seed_ranks_apart(mesh: Mesh) -> None:
-    """Offset torch's default generators (CPU and CUDA) by the rank, rank 0
-    keeping its own: ranks seeded alike then draw different dropout masks
-    for their rows, as JAX draws them over the global array."""
-    if mesh.rank:
-        torch.manual_seed((torch.initial_seed() + mesh.rank) % 2**63)
 
 
 def is_main_process() -> bool:

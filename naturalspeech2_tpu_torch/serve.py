@@ -25,6 +25,15 @@ port of `naturalspeech2_tpu/serve.py`, with the same structure and names).
 The engine runs on the card: ``device=None`` means CUDA, and without a
 card it raises. ``device="cpu"`` runs the plain PyTorch versions of the
 kernels (the tests' route).
+
+Tensor-parallel serving (``mesh=``, a ``(1, P)`` mesh, or ``serve --tp
+P``) is SPMD: every rank builds the engine from the same checkpoint, cut
+for its heads (`parallel.tp.shard_model`, after the bf16 cast), and runs
+every device call with the same inputs. Rank 0 alone takes requests,
+forms batches and draws the noise; it broadcasts each device call to the
+other ranks (tokens, prompts, lengths, buckets, the noise, the steps and
+the dtype) before it runs it, and they run it too (`follow`) until rank 0
+broadcasts a stop (`stop_followers`). No rank draws a number of its own.
 """
 
 from __future__ import annotations
@@ -43,6 +52,10 @@ import torch
 
 from naturalspeech2_tpu_torch.data import decode_audio_bytes, load_audio, pcm16, write_wav
 from naturalspeech2_tpu_torch.native import audioio
+
+# what rank 0 of a tensor-parallel engine announces to the other ranks
+_STOP, _SAMPLE, _DURATIONS = 0, 1, 2
+_DTYPES = (None, torch.float32, torch.bfloat16)
 
 __all__ = ["TTSEngine", "TTSServer"]
 
@@ -92,6 +105,8 @@ class TTSEngine:
     "bfloat16"`` runs the denoiser in bf16: the engine holds a bf16 copy of
     its parameters, cast once here (the codec and the conditioning stack
     stay f32), so the kernels' packed weights are built once too.
+    ``mesh`` (a `parallel.Mesh` of one data rank) serves tensor-parallel
+    over its model axis (see the module's docstring).
     """
 
     ns2: object
@@ -124,10 +139,9 @@ class TTSEngine:
             if self._dtype is None:
                 raise ValueError(f"TTSEngine: dtype must be 'float32' or 'bfloat16', "
                                  f"got {self.dtype!r}")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "TTSEngine(mesh=), tensor-parallel serving, is not ported yet (ROADMAP Queue 1, "
-                "item 21's second half, parallel/tp.py)")
+        if self.mesh is not None and self.mesh.n_data != 1:
+            raise ValueError(f"TTSEngine serves tensor-parallel over a mesh of one data rank, "
+                             f"got {self.mesh.shape}")
         if not self.ns2.conditional:
             raise ValueError("TTSEngine serves conditional (text+prompt) models")
         if self.ns2.tokenizer is None:
@@ -138,6 +152,10 @@ class TTSEngine:
             # cast the denoiser ONCE: sample() then finds it in its dtype
             # and casts nothing per call
             self.ns2 = with_denoiser_dtype(self.ns2, self._dtype)
+        if self.mesh is not None and self.mesh.n_model > 1:
+            from naturalspeech2_tpu_torch.parallel import tp
+
+            tp.shard_model(self.ns2, self.mesh)  # cast first, then cut, as JAX does
         self._sample = _sample
         # observability ring buffer: (wall_seconds, bucket) per request
         self._latencies: list = []
@@ -177,6 +195,8 @@ class TTSEngine:
         with self._lock, torch.inference_mode(), _eval_mode(ns2):
             p = torch.from_numpy(prompt)[None].to(self.device)
             text = torch.from_numpy(ids)[None].to(self.device, torch.int64)
+            if self._leads():
+                self._announce([_DURATIONS, text.shape[1], p.shape[1]], [p, text])
             prompt_enc = ns2.prompt_enc(ns2.process_prompt(p))
             phoneme_enc = ns2.phoneme_enc(text)
             d, _ = ns2.duration_pitch(phoneme_enc, prompt_enc)
@@ -192,12 +212,19 @@ class TTSEngine:
         return int(torch.where(keep, d.to(torch.int32), 0).sum(dim=-1)[0].item())
 
     def _sample_device(self, ids: torch.Tensor, prompts: torch.Tensor, lens: torch.Tensor,
-                       f_bucket: int, noise: torch.Tensor) -> np.ndarray:
-        """One sampling call on the device (the caller holds the lock)."""
+                       f_bucket: int, noise: torch.Tensor,
+                       timesteps: Optional[int] = None) -> np.ndarray:
+        """One sampling call on the device (the caller holds the lock);
+        rank 0 of a tensor-parallel engine announces it first."""
+        timesteps = self.timesteps if timesteps is None else timesteps
+        if self._leads():
+            self._announce([_SAMPLE, ids.shape[0], ids.shape[1], f_bucket, prompts.shape[1],
+                            timesteps or 0, _DTYPES.index(self._dtype)],
+                           [ids, prompts, lens, noise])
         wav = self._sample(
             self.ns2, length=f_bucket, prompt=prompts, text=ids, text_lens=lens,
             cond_scale=self.cond_scale, cfg_rescale=self.cfg_rescale,
-            cfg_interval=self.cfg_interval, timesteps=self.timesteps, noise=noise,
+            cfg_interval=self.cfg_interval, timesteps=timesteps, noise=noise,
             dtype=self._dtype,
         )
         self._warm.add((ids.shape[1], f_bucket))
@@ -276,6 +303,60 @@ class TTSEngine:
                 noise = torch.randn((b, f_bucket, self.ns2.dim), generator=gen, device=dev)
             wav = self._sample_device(ids, prompts, lens, f_bucket, noise.to(dev))
         return [wav[i, : r.frames * self._hop] for i, r in enumerate(reqs)]
+
+    # ------------------------------------------------------------------ #
+    # tensor parallelism: rank 0 leads, the other ranks follow
+    # ------------------------------------------------------------------ #
+
+    def _leads(self) -> bool:
+        return self.mesh is not None and self.mesh.world_size > 1 and self.mesh.is_main
+
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        from naturalspeech2_tpu_torch.parallel import comm
+
+        return comm.broadcast_(self.mesh, t.contiguous(), None)
+
+    def _announce(self, header: list, tensors: list) -> None:
+        """Rank 0: the next device call's header (kind and sizes, eight
+        ints), then its inputs, to every rank."""
+        self._broadcast(torch.tensor(header + [0] * (8 - len(header)), dtype=torch.int64,
+                                     device=self.device))
+        for t in tensors:
+            self._broadcast(t)
+
+    def follow(self) -> None:
+        """A rank > 0 of a tensor-parallel engine: run each device call that
+        rank 0 announces, with its inputs, until rank 0 announces a stop."""
+        if self.mesh is None or self.mesh.is_main:
+            raise RuntimeError("follow() is for the ranks > 0 of a tensor-parallel engine")
+        dev, dim = self.device, self.ns2.dim
+        while True:
+            head = self._broadcast(torch.zeros(8, dtype=torch.int64, device=dev)).tolist()
+            kind = head[0]
+            if kind == _STOP:
+                return
+            if kind == _DURATIONS:
+                t, samples = head[1:3]
+                prompt = self._broadcast(torch.empty((1, samples), device=dev))
+                ids = self._broadcast(torch.empty((1, t), dtype=torch.int64, device=dev))
+                self._durations(prompt[0].cpu().numpy(), ids[0].cpu().numpy())
+                continue
+            b, t, f_bucket, samples, steps, dtype = head[1:7]
+            if _DTYPES[dtype] != self._dtype:
+                raise RuntimeError(f"rank 0 samples in {_DTYPES[dtype]}, this rank's engine "
+                                   f"in {self._dtype}")
+            ids = self._broadcast(torch.empty((b, t), dtype=torch.int64, device=dev))
+            prompts = self._broadcast(torch.empty((b, samples), device=dev))
+            lens = self._broadcast(torch.empty((b,), dtype=torch.int64, device=dev))
+            noise = self._broadcast(torch.empty((b, f_bucket, dim), device=dev))
+            with self._lock:
+                self._sample_device(ids, prompts, lens, f_bucket, noise, steps or None)
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the other ranks' `follow`."""
+        if self._leads():
+            with self._lock:
+                self._announce([_STOP], [])
 
     def tts(
         self,

@@ -12,21 +12,31 @@ Checkpoints are ``torch.save`` files of {step, params, opt_state,
 ema_params, version}; ``train()`` resumes from the newest one in
 ``results_folder``.
 
-Over a data mesh (``mesh=``, `parallel.make_mesh`) every rank reads the
-same global batch and keeps its rows of each micro-batch; the draws are
-made for the global micro-batch and sliced, each rank's loss is weighted
-so that the gradients summed over the ranks are the global batch's (the
-masked duration / pitch means by their share of the global phoneme
-count), and the clip, the skip and the logged metrics act on the reduced
-values, so every rank takes the same step. Ranks seeded alike get torch
-default generators offset by their rank (`parallel.seed_ranks_apart`),
-so their rows draw different dropout masks. ``param_sharding="fsdp"``
-keeps each rank's part of the large parameters, of Adam's moments and of
-the EMA at rest (`parallel.fsdp`), gathering the whole weights for each
-step's forward and backward only. Rank 0 logs, samples and writes the
-whole (gathered) state; every rank loads a checkpoint and re-shards it.
-Without a process group every collective is the identity, and the same
-code trains one process.
+Over a mesh (``mesh=``, `parallel.make_mesh`) every rank reads the same
+global batch and keeps the rows of its data index of each micro-batch;
+the draws are made for the global micro-batch and sliced: the loss's
+(times, noise, CFG and self-conditioning rows) and every dropout mask
+(`ops/dropout.py`, from torch's default generators, the same on every
+rank), so a mesh step draws exactly the one-process step's masks. Each
+rank's loss is weighted so that the gradients summed over the data axis
+are the global batch's (the masked duration / pitch means by their share
+of the global phoneme count), and the clip, the skip and the logged
+metrics act on the reduced values, so every rank takes the same step.
+``param_sharding="fsdp"`` keeps each rank's part of the large
+parameters, of Adam's moments and of the EMA at rest (`parallel.fsdp`),
+gathering the whole weights for each step's forward and backward only.
+``param_sharding="tp"`` on a model axis > 1 runs tensor parallelism
+(`parallel.tp`): each attention whose heads divide over the model axis
+computes this rank's heads and sums them over the model group, its
+projections held cut; the other leaves JAX's rule shards (the
+feed-forward's) are held cut, gathered for each step and used whole;
+everything else is computed alike on every rank of a model group.
+"replicated" and "fsdp" on a model axis > 1 keep JAX's meaning: each
+model group holds whole copies (FSDP split over ``data``) and computes
+the same rows. Rank 0 logs, samples and writes the whole (gathered)
+state, in JAX's layout; every rank loads a checkpoint of any layout and
+cuts it for its own. Without a process group every collective is the
+identity, and the same code trains one process.
 
 The diffusion times and noise of every micro-batch, a conditional
 model's CFG drop masks and a self-conditioned denoiser's bootstrap rows
@@ -65,13 +75,13 @@ from torch.utils.checkpoint import checkpoint
 
 from naturalspeech2_tpu_torch.data import SoundDataset, data_loader, write_wav
 from naturalspeech2_tpu_torch.models.naturalspeech2 import NaturalSpeech2, sample
-from naturalspeech2_tpu_torch.parallel import comm, fsdp
+from naturalspeech2_tpu_torch.ops.dropout import batch_rows
+from naturalspeech2_tpu_torch.parallel import comm, fsdp, tp
 from naturalspeech2_tpu_torch.parallel.mesh import (
     Mesh,
     check_batch_split,
     make_mesh,
     replicated,
-    seed_ranks_apart,
 )
 from naturalspeech2_tpu_torch.utils.helpers import prob_mask_like
 from naturalspeech2_tpu_torch.version import __version__
@@ -176,8 +186,9 @@ class Trainer:
         loss every ``validate_every`` steps. ``mesh`` (default: every rank
         of the initialised process group, else this process alone) splits
         each micro-batch over its data axis; ``param_sharding`` lays out
-        the state over it: "replicated", "fsdp", or "tp" (replicated on a
-        model axis of 1, as in JAX)."""
+        the state over it: "replicated", "fsdp", or "tp" (tensor
+        parallelism over the model axis; replicated on a model axis of 1,
+        as in JAX)."""
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError("mesh must be a naturalspeech2_tpu_torch.parallel.Mesh "
                             f"(parallel.make_mesh), got {type(mesh).__name__}")
@@ -251,18 +262,28 @@ class Trainer:
         self.params = dict(self.ns2.named_parameters())
         with torch.no_grad():  # every rank starts from rank 0's weights
             comm.broadcast_many_(self.mesh, list(self.ns2.state_dict().values()))
-        seed_ranks_apart(self.mesh)
+        self._full_shapes = {n: p.shape for n, p in self.params.items()}
+        # the names of the parameters the modules themselves hold cut (an
+        # attention's projections under tensor parallelism)
+        self._held: set = set()
         if param_sharding == "fsdp":
             self.shardings = fsdp.state_shardings(self.mesh, self.params)
+        elif param_sharding == "tp" and self.mesh.n_model > 1:
+            self.shardings, self._held = tp.shard_model(self.ns2, self.mesh)
         else:
             self.shardings = {name: replicated(self.mesh) for name in self.params}
-        # the names of the parameters each rank holds a part of at rest
-        self._split = [n for n, sh in self.shardings.items() if sh.dim is not None]
-        self._full_shapes = {n: self.params[n].shape for n in self._split}
+        # the names of the parameters each rank holds a part of at rest and
+        # uses whole: gathered for each step
+        self._split = [n for n, sh in self.shardings.items()
+                       if sh.dim is not None and n not in self._held]
+        # how each gradient is reduced: a held part is this rank's already
+        self._grad_shardings = {n: replicated(self.mesh) if n in self._held else sh
+                                for n, sh in self.shardings.items()}
         # what the optimizer and the EMA update: each rank's part of a split
         # parameter, the parameter itself otherwise
-        self.master = {**self.params, **fsdp.shard_state(
-            self.mesh, {n: self.params[n].detach() for n in self._split})}
+        self.master = {**self.params, **{
+            n: self.shardings[n].shard(self.params[n].detach()).contiguous().clone()
+            for n in self._split}}
         self.optimizer = torch.optim.Adam(self.master.values(), lr=lr, betas=betas, eps=1e-8)
         self.ema = {name: p.detach().clone() for name, p in self.master.items()}
         self._release()
@@ -326,7 +347,8 @@ class Trainer:
         self_cond = self.draw_self_cond(rows, generator)
         if self_cond is not None:
             draws["self_cond_mask"] = self_cond
-        keep = slice(self.mesh.rank * b, (self.mesh.rank + 1) * b)
+        index = self.mesh.data_index
+        keep = slice(index * b, (index + 1) * b)
         return {k: tuple(m[keep] for m in v) if isinstance(v, tuple) else v[keep]
                 for k, v in draws.items()}
 
@@ -409,8 +431,8 @@ class Trainer:
         ``whole`` rows of a global batch, and each micro-batch's phoneme
         counts (this rank's, the whole micro-batch's) when the duration /
         pitch losses are masked means)."""
-        per = whole // self.mesh.n_data
-        spans = [(i * whole + self.mesh.rank * per, i * whole + (self.mesh.rank + 1) * per)
+        per, index = whole // self.mesh.n_data, self.mesh.data_index
+        spans = [(i * whole + index * per, i * whole + (index + 1) * per)
                  for i in range(count)]
 
         def rows(v):
@@ -460,14 +482,15 @@ class Trainer:
         for p in params:
             p.grad = None
         sums: dict = {}
-        for i in range(self.grad_accum_every):
-            micro = {k: v[i * per:(i + 1) * per] for k, v in tensors.items()}
-            audio = micro.pop("audio")
-            losses = self._shares(self.losses(audio, micro, self._draws(audio)),
-                                  tokens and tokens[i])
-            losses["loss"].backward()
-            for k, v in losses.items():
-                sums[k] = sums.get(k, 0.0) + v.detach()
+        with batch_rows(self.mesh.data_index, self.mesh.n_data):  # the backward's remat too
+            for i in range(self.grad_accum_every):
+                micro = {k: v[i * per:(i + 1) * per] for k, v in tensors.items()}
+                audio = micro.pop("audio")
+                losses = self._shares(self.losses(audio, micro, self._draws(audio)),
+                                      tokens and tokens[i])
+                losses["loss"].backward()
+                for k, v in losses.items():
+                    sums[k] = sums.get(k, 0.0) + v.detach()
         sums = self._global(sums)
         metrics = {k: v / self.grad_accum_every for k, v in sums.items()}
 
@@ -475,8 +498,9 @@ class Trainer:
         # gradients, as jax.grad gives them, so Adam's state covers them too
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
                  for n, p in self.params.items()}
-        # summed over the ranks; FSDP keeps each rank's part
-        grads = fsdp.reduce_scatter_grads(self.mesh, grads, self.shardings)
+        # summed over the data axis; FSDP and tensor parallelism keep each
+        # rank's part
+        grads = fsdp.reduce_scatter_grads(self.mesh, grads, self._grad_shardings)
         for p in params:
             p.grad = None
         self._release()
@@ -487,9 +511,9 @@ class Trainer:
         skipped = False
         if self.skip_nonfinite_updates:
             bad = torch.stack([(~torch.isfinite(g)).any() for g in grads]).any().float()
-            skipped = bool(comm.all_reduce_(self.mesh, bad) > 0)  # each rank checked its parts
+            skipped = bool(comm.all_reduce_(self.mesh, bad, None) > 0)  # each checked its parts
         g_norm = None
-        if self._split:
+        if self._split or self._held:
             g_norm = fsdp.global_norm(self.mesh, dict(zip(self.master, grads)), self.shardings)
         clip_by_global_norm_(grads, self.max_grad_norm, g_norm)
         for p, g in zip(master, grads):
@@ -517,9 +541,9 @@ class Trainer:
         """Loss components on one ``val_batches`` batch (an array or a
         dict), with the training weights and fixed draws: the loss's from
         a generator seeded ``seed + 1234``, the dropout's from torch's
-        default generators seeded so (plus the rank) for the call and
-        restored after. Over a mesh each rank computes its rows of the
-        batch's first ``train_batch_size``."""
+        default generators seeded so for the call and restored after. Over
+        a mesh each rank computes its rows of the batch's first
+        ``train_batch_size``, with the global batch's draws."""
         if self.val_batches is None:
             raise ValueError("pass val_batches= or val_fraction= to Trainer")
         batch = next(self.val_batches)
@@ -532,8 +556,9 @@ class Trainer:
         generator = torch.Generator(self.device).manual_seed(self.seed + 1234)
         devices = [self.device] if self.device.type == "cuda" else []
         self._materialize()
-        with torch.no_grad(), torch.random.fork_rng(devices=devices):
-            torch.manual_seed(self.seed + 1234 + self.mesh.rank)
+        with torch.no_grad(), torch.random.fork_rng(devices=devices), \
+                batch_rows(self.mesh.data_index, self.mesh.n_data):
+            torch.manual_seed(self.seed + 1234)
             losses = self.losses(audio, tensors, self._draws(audio, generator))
         self._release()
         losses = self._global(self._shares(losses, tokens and tokens[0]))
@@ -543,17 +568,21 @@ class Trainer:
 
     def gather(self, tree: dict) -> dict:
         """The whole leaves of a state tree (by parameter name) held as the
-        parameters are: under FSDP gathered, a collective every rank calls."""
-        return fsdp.gather_params(self.mesh, tree, self.shardings) if self._split else tree
+        parameters are: under FSDP or tensor parallelism gathered, a
+        collective every rank calls."""
+        if not (self._split or self._held):
+            return tree
+        return fsdp.gather_params(self.mesh, tree, self.shardings)
 
     def full_state(self) -> dict:
         """{step, params, opt_state, ema_params, version}: the whole state
-        as a checkpoint holds it (under FSDP gathered, a collective every
-        rank calls)."""
+        as a checkpoint holds it (under FSDP or tensor parallelism
+        gathered, a collective every rank calls)."""
         params = self.ns2.state_dict()
         opt_state = self.optimizer.state_dict()
-        if self._split:
-            params.update(self.gather({n: self.master[n].detach() for n in self._split}))
+        cut = self._split + sorted(self._held)
+        if cut:
+            params.update(self.gather({n: self.master[n].detach() for n in cut}))
             names = list(self.master)
             moments = opt_state["state"]
             for key in ("exp_avg", "exp_avg_sq"):
@@ -582,15 +611,20 @@ class Trainer:
         """Restore a checkpoint (any mesh's: they hold the whole state) and
         lay it out as this trainer's."""
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        for name in self._split:
+        cut = self._split + sorted(self._held)
+        for name in cut:
             p = self.params[name]
             p.data = torch.empty(self._full_shapes[name], dtype=p.dtype, device=p.device)
         self.ns2.load_state_dict(payload["params"], strict=True)
         opt_state = payload["opt_state"]
-        if self._split:  # each rank keeps its parts
+        if cut:  # each rank keeps its parts
             with torch.no_grad():
                 for name in self._split:
                     self.master[name].copy_(self.shardings[name].shard(self.params[name]))
+                for name in self._held:
+                    p = self.params[name]
+                    p.data = self.shardings[name].shard(p.data).contiguous().clone()
+                    increment_version(p)
             self._release()
             names = list(self.master)
             for i, s in opt_state["state"].items():
@@ -714,10 +748,8 @@ class Trainer:
             cond = {k: torch.as_tensor(v).to(self.device) for k, v in self._holdback.items()}
             cond["prompt"] = cond["prompt"].to(torch.float32)
         if self.ns2.codec is not None and (cond or not self.ns2.conditional):
-            ema_model = copy.deepcopy(self.ns2)
-            with torch.no_grad():
-                for name, p in ema_model.named_parameters():
-                    p.data = state["ema_params"][name].clone()
+            # one process samples: the copy runs every head
+            ema_model = tp.unshard_model(copy.deepcopy(self.ns2), state["ema_params"])
             generator = torch.Generator(self.device).manual_seed(int(milestone))
             audio = sample(ema_model, length=self.sample_length, batch_size=1, generator=generator,
                            **cond)

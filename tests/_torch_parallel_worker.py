@@ -36,9 +36,10 @@ CODEC_CFG = dict(channels=4, codebook_dim=16, codebook_size=32, num_quantizers=2
 FSDP_MODEL = dict(dim=64, depth=2, heads=4, dim_head=8, wavenet_layers=2, wavenet_stacks=2,
                   use_flash_attn=False)
 FSDP_CODEC = dict(codebook_dim=64, channels=4, num_quantizers=2, codebook_size=16)
-# tests/test_torch_cond_train.py's widths with every dropout off: each
-# rank draws dropout from its own offset generator (`run_dropout`), so a
-# step with dropout on equals the one-process step only in distribution
+# tests/test_torch_cond_train.py's widths with every dropout off
+# (COND_NS2) and on (COND_NS2_DROPOUT: the phoneme encoder's conv, the
+# prompt encoder's flash attention, the duration / pitch trunks' plain
+# attention; each rank draws its rows of the global batch's masks)
 COND_MODEL = dict(dim=16, depth=1, heads=2, dim_head=8, wavenet_layers=2, wavenet_stacks=2,
                   condition_on_prompt=True, dim_prompt=24, num_latents_m=4, resampler_depth=1,
                   cond_drop_prob=0.25)
@@ -52,6 +53,12 @@ COND_NS2 = dict(
                                dim_encoded_prompts=24, dropout=0.0,
                                head_activation="softplus"),
 )
+COND_NS2_DROPOUT = {
+    **COND_NS2,
+    "phoneme_enc_kwargs": {**COND_NS2["phoneme_enc_kwargs"], "conv_dropout": 0.2},
+    "prompt_enc_kwargs": {**COND_NS2["prompt_enc_kwargs"], "dropout": 0.2},
+    "duration_pitch_kwargs": {**COND_NS2["duration_pitch_kwargs"], "dropout": 0.2},
+}
 # the global micro-batch: two rows a rank on two ranks
 BATCH, FRAMES, T_X = 4, 5, 5
 # phoneme counts 10 and 3 in the two halves: local masked means weigh them
@@ -118,10 +125,9 @@ def ns2_model(seed: int, model=MODEL_CFG, codec=CODEC_CFG, **kw) -> NaturalSpeec
     return jittered(NaturalSpeech2(Model(**model), SoundStream(**codec), **kw), seed)
 
 
-def cond_model(seed: int) -> NaturalSpeech2:
+def cond_model(seed: int, ns2=COND_NS2) -> NaturalSpeech2:
     torch.manual_seed(seed)
-    return jittered(NaturalSpeech2(Model(**COND_MODEL), SoundStream(**COND_CODEC), **COND_NS2),
-                    seed)
+    return jittered(NaturalSpeech2(Model(**COND_MODEL), SoundStream(**COND_CODEC), **ns2), seed)
 
 
 def state_of(trainer: Trainer) -> dict:
@@ -190,10 +196,10 @@ def run_fsdp(mesh, folder: Path, sharding: str, move=None) -> tuple:
     return {"state": state_of(trainer), "metrics": metrics, "grads": grads}, layout_of(trainer)
 
 
-def run_conditional(mesh, folder: Path, move=None) -> tuple:
+def run_conditional(mesh, folder: Path, move=None, ns2=COND_NS2) -> tuple:
     """One conditional step whose halves hold 10 and 3 phonemes: the
     reduced gradient, the metrics and the state."""
-    trainer = Trainer(cond_model(4), batches=iter(()), mesh=mesh, train_batch_size=BATCH,
+    trainer = Trainer(cond_model(4, ns2), batches=iter(()), mesh=mesh, train_batch_size=BATCH,
                       lr=1e-3, max_grad_norm=1e9, ema_update_every=1,
                       results_folder=str(folder))
     grads = with_grad_snapshots(trainer)
@@ -286,14 +292,20 @@ def run_losses(mesh, move=None) -> dict:
 
 
 def run_dropout(mesh, folder: Path) -> dict:
-    """The dropout masks the ranks draw once their `Trainer` is made, the
-    ranks seeded alike (as the CLI seeds them), in rank order."""
+    """The dropout masks of a global batch of two rows, drawn once a
+    `Trainer` is made, the ranks seeded alike (as the CLI seeds them): each
+    rank draws its row of the global mask, and the masks come back in row
+    order (one process: both rows)."""
+    from naturalspeech2_tpu_torch.ops.dropout import Dropout, batch_rows
     from naturalspeech2_tpu_torch.parallel import comm
 
     Trainer(ns2_model(0, timesteps=4), batches=iter(()), mesh=mesh, train_batch_size=BATCH,
             results_folder=str(folder))
-    mask = torch.nn.functional.dropout(torch.ones(256), 0.5)
-    return {"masks": [mask] if mesh is None else comm.all_gather(mesh, mask)}
+    if mesh is None:
+        return {"masks": list(Dropout(0.5)(torch.ones(2, 256)))}
+    with batch_rows(mesh.data_index, mesh.n_data):
+        mask = Dropout(0.5)(torch.ones(1, 256))
+    return {"masks": [m[0] for m in comm.all_gather(mesh, mask)]}
 
 
 def main() -> None:
@@ -311,6 +323,7 @@ def main() -> None:
         "fsdp64_replicated": lambda f: run_fsdp(mesh, f, "replicated"),
         "fsdp64_fsdp": lambda f: run_fsdp(mesh, f, "fsdp"),
         "conditional": lambda f: run_conditional(mesh, f),
+        "conditional_dropout": lambda f: run_conditional(mesh, f, ns2=COND_NS2_DROPOUT),
         "accum_dispatch": lambda f: run_accum_dispatch(mesh, f),
         "resume": lambda f: run_resume(mesh, f),
         "codec": lambda f: run_codec(mesh, f),

@@ -284,7 +284,8 @@ REFUSALS = {
                        "train_batch_size (2) must be divisible by the mesh's data axis (3"),
     # under a launcher whose process count is not --mesh-data
     "mesh_data": (["train", "--mesh-data", "2"], ValueError, "does not match WORLD_SIZE=3"),
-    "serve_tp": (["serve", "--tp", "2"], NotImplementedError, "item 21"),
+    "serve_tp": (["serve", "--tp", "2", "--device", "cuda"], RuntimeError,
+                 "--tp 2 asks for 2 cards; this host has 0"),
     # more cards than the host has (the tests run without a card)
     "codec_train_mesh": (["codec-train", "--mesh-data", "2", "--device", "cuda"], RuntimeError,
                          "--mesh-data 2 asks for 2 cards; this host has 0"),
@@ -293,10 +294,10 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_named_refusals(work, case, monkeypatch):
-    """Each refusal names what it refuses: orbax (#22), tensor-parallel
-    serving (#21's second half), and the data-parallel commands' bad
-    requests; the data-parallel runs themselves are in
-    tests/test_torch_parallel.py."""
+    """Each refusal names what it refuses: orbax (#22), and the parallel
+    commands' bad requests (tensor-parallel serving on more cards than the
+    host has among them); the parallel runs themselves are in
+    tests/test_torch_parallel.py and tests/test_torch_tp.py."""
     argv, error, match = REFUSALS[case]
     command, extra = argv[0], argv[1:]
     cfg = work["cond"] if command == "serve" else work["tiny"]

@@ -44,6 +44,8 @@ def test_import_loads_no_jax():
         "import naturalspeech2_tpu_torch.utils, naturalspeech2_tpu_torch.ops.schedules\n"
         "import naturalspeech2_tpu_torch.parallel, naturalspeech2_tpu_torch.parallel.comm\n"
         "import naturalspeech2_tpu_torch.parallel.fsdp, naturalspeech2_tpu_torch.parallel.mesh\n"
+        "import naturalspeech2_tpu_torch.parallel.tp, naturalspeech2_tpu_torch.parallel.sp\n"
+        "import naturalspeech2_tpu_torch.ops.dropout\n"
         "naturalspeech2_tpu_torch.native.audioio.library()  # builds the decoder\n"
         "import naturalspeech2_tpu_torch.utils.tokenizer, naturalspeech2_tpu_torch.utils.cleaner\n"
         "import naturalspeech2_tpu_torch.utils.phonemizers.fallback_multi\n"

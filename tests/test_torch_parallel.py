@@ -197,6 +197,8 @@ def reference(tmp_path_factory):
         "replicated": Held(lambda m: worker.run_replicated(None, folder("rep", m), m)[0]),
         "fsdp64": Held(lambda m: worker.run_fsdp(None, folder("fsdp", m), "replicated", m)[0]),
         "conditional": Held(lambda m: worker.run_conditional(None, folder("cond", m), m)[0]),
+        "conditional_dropout": Held(lambda m: worker.run_conditional(
+            None, folder("cond_dropout", m), m, ns2=worker.COND_NS2_DROPOUT)[0]),
         "accum_dispatch": Held(lambda m: worker.run_accum_dispatch(None, folder("acc", m), m)[0]),
         "codec": Held(lambda m: worker.run_codec(None, folder("codec", m), m)[0]),
         "losses": Held(lambda m: worker.run_losses(None, m)),
@@ -287,7 +289,7 @@ def test_state_shardings_choose_jax_leaves(jax_fsdp_tree, axis):
 
 def test_one_rank_mesh_without_a_group():
     """No process group: a one-rank mesh, its rows the whole batch, and a
-    wider data axis or a model axis refused by name."""
+    wider data axis or a model axis refused by name (they need the ranks)."""
     mesh = make_mesh(device="cpu")
     assert (mesh.n_data, mesh.n_model, mesh.rank, mesh.group) == (1, 1, 0, None)
     assert mesh.shape == {"data": 1, "model": 1} and mesh.backend is None and is_main_process()
@@ -296,7 +298,7 @@ def test_one_rank_mesh_without_a_group():
     assert batch_sharding(mesh).dim is None and replicated(mesh).dim is None
     with pytest.raises(ValueError, match="2×1 mesh does not cover 1 ranks"):
         make_mesh(n_data=2)
-    with pytest.raises(NotImplementedError, match="item 21's second half"):
+    with pytest.raises(ValueError, match="1×2 mesh does not cover 1 ranks"):
         make_mesh(n_model=2)
 
 
@@ -459,9 +461,19 @@ def test_global_stft_and_feature_matching_losses(ranks, reference):
 
 
 def test_ranks_draw_their_own_dropout_masks(ranks, tmp_path):
-    """Ranks seeded alike draw different dropout masks once their `Trainer`
-    is made (each rank's default generators offset by its rank), and rank
-    0 the one-process mask."""
+    """Ranks seeded alike draw different dropout masks for their rows once
+    their `Trainer` is made: each its rows of one global mask, which is the
+    one-process mask of the global batch."""
     masks = ranks.result("dropout")["masks"]
     assert len(masks) == WORLD and not torch.equal(masks[0], masks[1])
-    assert torch.equal(masks[0], worker.run_dropout(None, tmp_path)["masks"][0])
+    want = worker.run_dropout(None, tmp_path)["masks"]
+    assert all(torch.equal(m, w) for m, w in zip(masks, want))
+
+
+def test_data_parallel_step_with_dropout_equals_one_process(ranks, reference):
+    """A conditional step with every dropout on (the phoneme encoder's conv,
+    the prompt encoder's flash attention, the duration / pitch trunks'
+    plain attention): each rank draws its rows of the global batch's masks,
+    so the reduced gradient, the metrics and the state equal the
+    one-process step at the same global batch."""
+    reference["conditional_dropout"].check(ranks.result("conditional_dropout"))

@@ -30,6 +30,7 @@ from naturalspeech2_tpu.serve import TTSEngine as JTTSEngine
 from naturalspeech2_tpu.utils.tokenizer import Tokenizer as JTokenizer
 from naturalspeech2_tpu_torch import Model, NaturalSpeech2, SoundStream, load_jax_params, sample
 from naturalspeech2_tpu_torch.data import decode_audio_bytes
+from naturalspeech2_tpu_torch.parallel import Mesh
 from naturalspeech2_tpu_torch.models.naturalspeech2 import _eval_mode
 from naturalspeech2_tpu_torch.serve import TTSEngine, TTSServer, _demo_engine, _wav_bytes
 from naturalspeech2_tpu_torch.utils.tokenizer import Tokenizer
@@ -404,8 +405,11 @@ def test_engine_refusals(engine):
     ns2 = engine.ns2
     with pytest.raises(ValueError, match="dtype"):
         TTSEngine(ns2, dtype="float16", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        TTSEngine(ns2, mesh=object(), device="cpu")
+    # tensor-parallel serving runs on a mesh of one data rank
+    # (tests/test_torch_tp.py); a data axis is refused by name
+    with pytest.raises(ValueError, match="one data rank"):
+        TTSEngine(ns2, mesh=Mesh(n_data=2, n_model=1, rank=0, group=None,
+                                 device=torch.device("cpu")), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TTSEngine(ns2)

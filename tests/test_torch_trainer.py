@@ -243,9 +243,9 @@ def _trainer(**kwargs):
 
 @pytest.mark.parametrize("kwargs", [
     (_trainer(mesh=object()), TypeError, "parallel.Mesh"),
-    # the model axis is refused where the mesh is made, before any trainer
-    (lambda ns2, folder: make_torch_mesh(n_model=2), NotImplementedError,
-     "ROADMAP.*item 21's second half"),
+    # a model axis needs as many ranks (tests/test_torch_tp.py)
+    (lambda ns2, folder: make_torch_mesh(n_model=2), ValueError,
+     "1×2 mesh does not cover 1 ranks"),
     (_trainer(checkpoint_backend="orbax"), NotImplementedError, "ROADMAP.*item 22"),
     (_trainer(mesh=Mesh(n_data=2, n_model=1, rank=0, group=None, device=torch.device("cpu")),
               train_batch_size=3), ValueError,
@@ -253,10 +253,10 @@ def _trainer(**kwargs):
 ])
 def test_options_outside_the_slice_raise(params, tmp_path, kwargs):
     """What is refused, by name: a mesh that is not the port's, a model axis
-    (tensor parallelism, #21's second half), orbax (#22, no orbax on the
-    card's host) and a batch the data axis does not split (JAX's
-    message); data-parallel and FSDP training run
-    (tests/test_torch_parallel.py), as does ``steps_per_dispatch``
+    without the ranks for it, orbax (#22, no orbax on the card's host) and
+    a batch the data axis does not split (JAX's message); data-parallel,
+    FSDP and tensor-parallel training run (tests/test_torch_parallel.py,
+    tests/test_torch_tp.py), as does ``steps_per_dispatch``
     (tests/test_torch_dispatch.py)."""
     build, error, match = kwargs
     with pytest.raises(error, match=match):
