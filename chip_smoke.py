@@ -2520,7 +2520,7 @@ def _bf16_entry(name: str) -> dict:
                "attn_block": ("attn_block.cu", "attn_block_kernel.py:92"),
                "cross_attn_block": ("cross_attn_block.cu", "attn_block_kernel.py:237"),
                "ff_block": ("ff_block.cu", "ff_block_kernel.py:97"),
-               "flash_forward": ("flash_fwd.cu", "flash_attention.py:98")}
+               "flash_forward": ("flash_fwd_bf16.cu", "flash_attention.py:98")}
     source, replaces = sources[name]
     return {"name": name, "dtype": "bfloat16", "route": "cuda",
             "source": f"naturalspeech2_tpu_torch/csrc/{source}",
@@ -2730,8 +2730,9 @@ def phase24_bf16_longform_scaled(long_ns2, long_counts: dict, scaled,
     """Long-form `sample(dtype=torch.bfloat16)` at b1, LONG_STEPS steps, n
     4500 (K1, K4 unfused) and n 9000 (K1b, K4, K3), and the scaled model's
     at b16 x n1024, STEPS_SCALED steps: finite outputs, launches equal to
-    the f32 runs' on the bf16 entry points, the scaled step in bf16 beside
-    f32. Returns (the long-form bf16 counts by length, the scaled ones)."""
+    the f32 runs' on the bf16 entry points, the long-form denoise step at
+    each length and the scaled step in bf16 beside f32 (CUDA events, in
+    turns). Returns (the long-form bf16 counts by length, the scaled ones)."""
     import torch
 
     import naturalspeech2_tpu_torch as ns2pkg
@@ -2756,6 +2757,7 @@ def phase24_bf16_longform_scaled(long_ns2, long_counts: dict, scaled,
         log("24", f"long-form bf16 n {n}, {LONG_STEPS} steps: wall {wall:.3f} s incl. codec "
                   f"decode for {n * 320 / 24000:g} s of audio")
         del audio
+        _bf16_step_ms("24", long_ns2.model, 1, n, DIM, reps=10)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
     ops.reset_launch_counts()
@@ -3044,17 +3046,33 @@ def profile_bf16_guided(ns2, x, times, prompt_enc, cond) -> None:
 # --------------------------------------------------------------------- #
 
 
-def bound_amp_backward(b, h, n_q, n_kv, d, dropout: bool) -> dict:
+def attended_pairs(b, h, n_q, n_kv, causal: bool, mask=None) -> int:
+    """The (row, key) pairs whose product a flash kernel's function needs,
+    over every batch and head: none for a key that the [b, n_kv] ``mask``
+    drops, nor, with ``causal``, for a key past its row (key > row). A
+    bound counts these, not the full n_q × n_kv square."""
+    import torch
+
+    seen = (torch.ones(b, n_kv, dtype=torch.bool) if mask is None else mask.bool()).long()
+    if not causal:
+        return h * n_q * int(seen.sum())
+    upto = seen.cumsum(-1)  # row i sees the visible keys 0 .. min(i, n_kv - 1)
+    m = min(n_q, n_kv)
+    return h * int(upto[:, :m].sum() + (n_q - m) * upto[:, -1].sum())
+
+
+def bound_amp_backward(b, h, n_q, n_kv, d, dropout: bool, pairs: int | None = None) -> dict:
     """Bound of K5 in bf16: S, dP, dQ and dK are products of bf16 values,
     at the dense bf16 peak; dV = Aᵀ·dO multiplies the f32 A by bf16 dO, at
     the least-cost exact scheme (A split into three bf16 parts, three bf16
     passes: `bound_bf16`'s f32_lanes); the keep bits (twice: the dq and the
     dk/dv kernel) at the f32 peak; bf16 q, k, v, o, dO and dq, dk, dv and
-    f32 lse and delta moved once."""
-    pair = 2 * b * h * n_q * n_kv * d  # one n_q × n_kv × d product, 2 FLOPs a multiply-add
+    f32 lse and delta moved once. ``pairs`` (`attended_pairs`) counts the
+    products a masked or causal case needs; b·h·n_q·n_kv by default."""
+    pairs = b * h * n_q * n_kv if pairs is None else pairs
+    pair = 2 * pairs * d  # one product over the attended pairs, 2 FLOPs a multiply-add
     ops_ms = max((4 * pair / PEAK_BF16_FLOPS + pair / (PEAK_BF16_FLOPS / 3)) * 1e3,
-                 (2 * THREEFRY_OPS * b * h * n_q * n_kv if dropout else 0.0)
-                 / PEAK_F32_FLOPS * 1e3)
+                 (2 * THREEFRY_OPS * pairs if dropout else 0.0) / PEAK_F32_FLOPS * 1e3)
     moved = 2 * (3 * b * h * n_q * d + 4 * b * h * n_kv * d) + 2 * 4 * b * h * n_q
     bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
@@ -3131,9 +3149,10 @@ def amp_flash_case(phase: str, gen, b, h, n_q, n_kv, d=DIM_HEAD, rate=0.0, causa
         lib_bwd = lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,  # noqa: E731
                                               retain_graph=True)
     moved_f = 2 * (2 * b * h * n_q * d + 2 * b * h * n_kv * d) + 4 * b * h * n_q
-    work_f = bound_bf16(4 * b * h * n_q * n_kv * d, moved_f)
+    pairs = attended_pairs(b, h, n_q, n_kv, causal, mask)
+    work_f = bound_bf16(4 * pairs * d, moved_f)
     if rate:
-        keep_ms = THREEFRY_OPS * b * h * n_q * n_kv / PEAK_F32_FLOPS * 1e3
+        keep_ms = THREEFRY_OPS * pairs / PEAK_F32_FLOPS * 1e3
         if keep_ms > work_f["bound_ms"]:
             work_f = {"bound_ms": keep_ms, "bound_by": "operations"}
     q32, k32, v32, do32, o32 = (t.float() for t in (q, k, v, do, o_ref))
@@ -3144,7 +3163,7 @@ def amp_flash_case(phase: str, gen, b, h, n_q, n_kv, d=DIM_HEAD, rate=0.0, causa
     for name, kernel, f32_kernel, plain, library, work, err in (
             ("flash_forward", fwd, fwd32, fwd_plain, lib_fwd, work_f, err_f),
             ("flash_backward", bwd, bwd32, bwd_plain, lib_bwd,
-             bound_amp_backward(b, h, n_q, n_kv, d, bool(rate)), err_b)):
+             bound_amp_backward(b, h, n_q, n_kv, d, bool(rate), pairs), err_b)):
         ms, f32_ms, plain_ms, lib_ms = (cuda_ms(f) for f in (kernel, f32_kernel, plain, library))
         log(phase, f"{name} bf16 {shape}: kernel {ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, plain "
                    f"bf16 {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms (median of 20), bound "
@@ -3306,7 +3325,8 @@ def phase27_amp_kernels(bf16_summary: list) -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 270)
     fwd_row = next(r for r in bf16_summary if r["name"] == "flash_forward")
-    bwd_row = _amp_entry("flash_backward", "bfloat16", "flash_bwd.cu", "flash_attention.py:361")
+    bwd_row = _amp_entry("flash_backward", "bfloat16", "flash_bwd_bf16.cu",
+                         "flash_attention.py:361")
     bwd_row["replaces_also"] = "naturalspeech2_tpu/ops/flash_attention.py:430"
     b, h, d, p = CT_BATCH, HEADS, DIM_HEAD, CT_PROMPT_FRAMES
     seed = (0x5EED0027, 0xC0DE)
@@ -5486,6 +5506,221 @@ def phase45_tensor_parallel(work: Path) -> dict:
     return {f"tp_gloo2_rank0_{k}": v for k, v in two["counts"].items()}
 
 
+# Phase 46, K4 and K5 in bf16 redesigned for Hopper's bf16 tensor cores
+# (csrc/flash_fwd_bf16.cu, flash_bwd_bf16.cu): (b, h, n_q, n_kv, d, causal,
+# masked, dropout rate, dropout offsets, with the backward). The shapes of
+# their PERF rows: the served resampler's and guided step's, the long-form
+# n 4500 and n 9000, AMP's prompt encoder (dropout), denoiser and causal
+# masked probe (K5's rows too); then the edges: ragged keys, causal with
+# n_q != n_kv, dropout keyed on batch and head offsets, heads 128 and 256
+# wide (256: the chunked kernels). A masked case's last batch row has every
+# key masked.
+FLASH_BF16_CASES = (
+    (2, HEADS, 32, 134, 64, False, False, 0.0, (0, 0), False),
+    (8, HEADS, 32, 134, 64, False, False, 0.0, (0, 0), False),
+    (2, HEADS, 510, 510, 64, False, False, 0.0, (0, 0), False),
+    (2, HEADS, 510, 32, 64, False, False, 0.0, (0, 0), False),
+    (1, HEADS, 4500, 4500, 64, False, False, 0.0, (0, 0), False),
+    (1, HEADS, 9000, 9000, 64, False, False, 0.0, (0, 0), False),
+    (16, HEADS, 102, 102, 64, False, False, 0.2, (0, 0), True),
+    (16, HEADS, 150, 150, 64, False, False, 0.0, (0, 0), True),
+    (4, HEADS, 1024, 1024, 64, True, True, 0.0, (0, 0), True),
+    (2, HEADS, 1000, 1100, 64, False, True, 0.0, (0, 0), True),
+    (2, HEADS, 300, 1100, 64, True, True, 0.0, (0, 0), True),
+    (2, HEADS, 1100, 300, 64, True, False, 0.0, (0, 0), True),
+    (4, HEADS, 150, 150, 64, False, True, 0.2, (1, 3), True),
+    (2, HEADS, 520, 700, 128, False, True, 0.1, (0, 0), True),
+    (2, 4, 300, 333, 256, True, False, 0.0, (0, 0), True),
+)
+FLASH_BF16_SEED = (0x5EED0046, 0xC0DE)
+
+
+def _flash_bf16_entries(q, k, v, mask8, seed, lse, o, do, *, causal: bool, scale: float,
+                        rate: float, offsets) -> tuple:
+    """K4's and K5's C entry points at q's dtype called directly on buffers
+    made here (no wrapper, no checks, no allocation per call): (forward
+    call, backward call, the buffers)."""
+    import torch
+
+    from naturalspeech2_tpu_torch import _build
+    from naturalspeech2_tpu_torch.ops import flash_attention as fa
+
+    b, h, n_q, d = q.shape
+    n_kv = k.shape[2]
+    o_out, lse_out = torch.empty_like(q), torch.empty(b, h, n_q, device="cuda")
+    delta = (do.float() * o.float()).sum(-1)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    tail = (*fa._dropout_args(seed, rate, n_kv, *offsets), _build.stream(q))
+    m = None if mask8 is None else mask8.data_ptr()
+    fwd, bwd = (_build.entry(n, q.dtype) for n in ("ns2_flash_fwd", "ns2_flash_bwd"))
+    fwd_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), m, o_out.data_ptr(), lse_out.data_ptr(),
+                b, h, n_q, n_kv, d, int(causal), float(scale), *tail)
+    bwd_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), m, lse.data_ptr(), delta.data_ptr(),
+                do.data_ptr(), *(g.data_ptr() for g in grads), b, h, n_q, n_kv, d, int(causal),
+                float(scale), *tail)
+    return (lambda: fwd(*fwd_args)), (lambda: bwd(*bwd_args)), (o_out, lse_out, delta, grads)
+
+
+def _flash_bf16_case(gen, b, h, n_q, n_kv, d, causal, masked, rate, offsets,
+                     backward) -> dict:
+    """One phase-46 case: K4 bf16 against its plain version (o within
+    BF16_TOL of its largest entry, lse within FLASH_TOL where a key is
+    visible, NEG_INF and o = 0 where none is), and with ``backward`` K5
+    bf16 run twice on one input (bit for bit) against its plain version
+    (each gradient within BF16_TOL); each timed through the wrapper and
+    through its C entry point beside the plain version, SDPA in bf16 (its
+    backward) and, for K5, the f32 kernel on the same values, with its
+    bound and share of the bound. Returns {"flash_forward": (shape,
+    timing), "flash_backward": ...}."""
+    import torch
+    import torch.nn.functional as F
+
+    from naturalspeech2_tpu_torch.ops import flash_attention as fa
+
+    q, do = (torch.randn(b, h, n_q, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, h, n_kv, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    mask = mask8 = None
+    if masked:
+        mask = torch.rand(b, n_kv, generator=gen, device="cuda") > 0.2
+        mask[:, 0] = True
+        mask[-1] = False
+        mask8 = mask.to(torch.uint8)
+    seed = FLASH_BF16_SEED if rate else None
+    cfg = dict(causal=causal, scale=d**-0.5, dropout_rate=rate, b_offset=offsets[0],
+               h_offset=offsets[1])
+    shape = f"[{b},{h},{n_q},{d}]" if n_q == n_kv else f"[{b},{h},{n_q}|{n_kv},{d}]"
+    shape += "".join([" causal" if causal else "", " masked" if masked else "",
+                      f" dropout {rate:g}" if rate else "",
+                      f" offsets {offsets[0]},{offsets[1]}" if any(offsets) else ""])
+    o, lse = fa.flash_forward(q, k, v, mask, seed, **cfg)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_forward_torch(q, k, v, mask, seed, **cfg)
+    err_f = compare("46", f"flash_forward bf16 {shape}", o, o_ref, BF16_TOL, relative=True)
+    seen = lse_ref > fa.NEG_INF / 2
+    compare("46", f"flash_forward bf16 {shape} lse", lse[seen], lse_ref[seen], FLASH_TOL)
+    if not (torch.equal(lse[~seen], lse_ref[~seen]) and not o[~seen].float().any()):
+        raise AssertionError(f"flash_forward bf16 {shape}: rows with every key masked")
+    lib_mask = fa._valid(b, n_q, n_kv, mask, causal, "cuda") if causal or masked else None
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=lib_mask, scale=cfg["scale"],
+                                           dropout_p=rate)
+    fwd_entry, bwd_entry, buffers = _flash_bf16_entries(
+        q, k, v, mask8, seed, lse_ref, o_ref, do, causal=causal, scale=cfg["scale"], rate=rate,
+        offsets=offsets)
+    reps = 10 if n_q * n_kv > 10**7 else 20
+    moved = 2 * (2 * b * h * n_q * d + 2 * b * h * n_kv * d) + 4 * b * h * n_q
+    pairs = attended_pairs(b, h, n_q, n_kv, causal, mask)
+    work = bound_bf16(4 * pairs * d, moved)
+    if rate:
+        keep_ms = THREEFRY_OPS * pairs / PEAK_F32_FLOPS * 1e3
+        if keep_ms > work["bound_ms"]:
+            work = {"bound_ms": keep_ms, "bound_by": "operations"}
+    times = {name: cuda_ms(fn, reps=reps) for name, fn in (
+        ("ms", lambda: fa.flash_forward(q, k, v, mask, seed, **cfg)),
+        ("c_entry_ms", fwd_entry),
+        ("plain_ms", lambda: fa.flash_forward_torch(q, k, v, mask, seed, **cfg)),
+        ("library_ms", lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=lib_mask, scale=cfg["scale"], dropout_p=rate)))}
+    share = work["bound_ms"] / times["c_entry_ms"]
+    log("46", f"flash_forward bf16 {shape}: kernel {times['ms']:.4f} ms, C entry "
+              f"{times['c_entry_ms']:.4f} ms, plain bf16 {times['plain_ms']:.4f} ms, SDPA bf16 "
+              f"{times['library_ms']:.4f} ms (median of {reps}), bound {work['bound_ms']:.4f} ms "
+              f"({work['bound_by']}), {100 * share:.1f} % of the bound")
+    results = {"flash_forward": (shape, {"max_abs_err": err_f, **times, **work,
+                                         "share_of_bound": share})}
+    if backward:
+        grads = fa.flash_backward(q, k, v, mask, seed, lse_ref, o_ref, do, **cfg)
+        again = fa.flash_backward(q, k, v, mask, seed, lse_ref, o_ref, do, **cfg)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"flash_backward bf16 {shape}: two runs on one input differ")
+        err_b = compare("46", f"flash_backward bf16 {shape}", grads,
+                        fa.flash_backward_torch(q, k, v, mask, seed, lse_ref, o_ref, do, **cfg),
+                        BF16_TOL, relative=True)
+        del grads, again
+        f32 = [t.float() for t in (q, k, v, o_ref, do)]
+        _, bwd32_entry, buffers32 = _flash_bf16_entries(
+            f32[0], f32[1], f32[2], mask8, seed, lse_ref, f32[3], f32[4], causal=causal,
+            scale=cfg["scale"], rate=rate, offsets=offsets)
+        work = bound_amp_backward(b, h, n_q, n_kv, d, bool(rate), pairs)
+        times = {name: cuda_ms(fn, reps=reps) for name, fn in (
+            ("ms", lambda: fa.flash_backward(q, k, v, mask, seed, lse_ref, o_ref, do, **cfg)),
+            ("c_entry_ms", bwd_entry),
+            ("f32_ms", lambda: fa.flash_backward(f32[0], f32[1], f32[2], mask, seed, lse_ref,
+                                                 f32[3], f32[4], **cfg)),
+            ("f32_c_entry_ms", bwd32_entry),
+            ("plain_ms", lambda: fa.flash_backward_torch(q, k, v, mask, seed, lse_ref, o_ref, do,
+                                                         **cfg)),
+            ("library_ms", lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
+                                                       retain_graph=True)))}
+        share = work["bound_ms"] / times["c_entry_ms"]
+        log("46", f"flash_backward bf16 {shape}: bit for bit over two runs; kernel "
+                  f"{times['ms']:.4f} ms, C entry {times['c_entry_ms']:.4f} ms, f32 kernel "
+                  f"{times['f32_ms']:.4f} ms (C entry {times['f32_c_entry_ms']:.4f}), plain bf16 {times['plain_ms']:.4f} ms, SDPA bf16 "
+                  f"backward {times['library_ms']:.4f} ms (median of {reps}), bound "
+                  f"{work['bound_ms']:.4f} ms ({work['bound_by']}), {100 * share:.1f} % of the "
+                  "bound")
+        results["flash_backward"] = (shape, {"max_abs_err": err_b, **times, **work,
+                                             "share_of_bound": share})
+        del buffers32
+    del buffers
+    return results
+
+
+def _bf16_keep_offsets_case(b, h, n, d, rate, offsets) -> None:
+    """K4 bf16's keep mask with batch and head offsets, bit for bit against
+    the plain version's and the Threefry mask of rows ``offsets[0] ..`` and
+    heads ``offsets[1] ..`` (as `_flash_keep_case`: q = k = 0, v one-hot
+    over a d-key window, so o[row, c] != 0 exactly where key window + c is
+    kept)."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import flash_attention as fa
+
+    zeros = torch.zeros(b, h, n, d, device="cuda").bfloat16()
+    cfg = dict(causal=False, scale=d**-0.5, dropout_rate=rate, b_offset=offsets[0],
+               h_offset=offsets[1])
+    kept, kept_ref = [], []
+    for w0 in range(0, n, d):
+        onehot = torch.zeros(b, h, n, d, device="cuda")
+        cols = torch.arange(w0, min(w0 + d, n), device="cuda")
+        onehot[:, :, cols, cols - w0] = 1.0
+        onehot = onehot.bfloat16()
+        kept.append(fa.flash_forward(zeros, zeros, onehot, None, FLASH_BF16_SEED, **cfg)[0] != 0)
+        kept_ref.append(fa.flash_forward_torch(zeros, zeros, onehot, None, FLASH_BF16_SEED,
+                                               **cfg)[0] != 0)
+    kept, kept_ref = torch.cat(kept, dim=-1)[..., :n], torch.cat(kept_ref, dim=-1)[..., :n]
+    keep = fa.dropout_keep_scaled(FLASH_BF16_SEED, b, h, n, n, rate, "cuda", *offsets) != 0
+    if not (torch.equal(kept, kept_ref) and torch.equal(kept, keep)):
+        raise AssertionError(f"flash_forward bf16 [{b},{h},{n},{d}] offsets {offsets}: the "
+                             "kernel's keep mask differs")
+    log("46", f"bf16 dropout keep mask with offsets {offsets} identical at [{b},{h},{n},{d}]: "
+              f"{int(keep.sum())} of {keep.numel()} kept at rate {rate} (kernel, plain bf16 and "
+              "the Threefry mask)")
+
+
+def phase46_flash_bf16(bf16_summary: list) -> None:
+    """K4 and K5 in bf16 at every FLASH_BF16_CASES shape against their plain
+    versions, K5 bit for bit over two runs, each timed beside SDPA in bf16
+    and its bound (`_flash_bf16_case`); the keep mask with offsets bit for
+    bit. Adds each shape to the bf16 K4 and K5 rows of the summary."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 460)
+    start = time.perf_counter()
+    rows = {r["name"]: r for r in bf16_summary
+            if r["name"] in ("flash_forward", "flash_backward") and r["dtype"] == "bfloat16"}
+    for case in FLASH_BF16_CASES:
+        for name, (shape, timing) in _flash_bf16_case(gen, *case).items():
+            row = rows[name]
+            row["by_shape"][f"46 {shape}"] = timing
+            row["max_abs_err"] = max(row["max_abs_err"], timing["max_abs_err"])
+        torch.cuda.empty_cache()
+    _bf16_keep_offsets_case(2, 3, 200, 64, 0.3, (1, 5))
+    log("46", f"bf16 flash kernels: {len(FLASH_BF16_CASES)} shapes in "
+              f"{time.perf_counter() - start:.1f} s")
+
+
 def profile_runs() -> int:
     """torch.profiler over 10 flagship denoise steps at b4 x n1024, over a
     10-step conditional sample of README config 2, over 10 guided denoise
@@ -5696,6 +5931,8 @@ def main() -> int:
 
     amp_rows = phase27_amp_kernels(bf16_summary)
     bf16_summary += [e for e in amp_rows if e["dtype"] == "bfloat16"]
+    torch.cuda.empty_cache()
+    phase46_flash_bf16(bf16_summary)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         amp_counts = phase28_amp_train(Path(work))

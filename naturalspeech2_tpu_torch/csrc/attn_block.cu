@@ -35,7 +35,7 @@
 // the products bf16 `wgmma` with f32 accumulation. The norm runs in f32 on
 // the loader and rounds n(x) to bf16 as it stages it; q, k and v are
 // rounded to bf16 where the first epilogue stores them; K4's bf16 kernel
-// rounds P before P·V and writes o in bf16; the W_o GEMM sums the heads and
+// (flash_fwd_bf16.cu) rounds P before P·V and writes o in bf16; the W_o GEMM sums the heads and
 // the residual in f32 and rounds y once. One difference from the TPU
 // kernel: K4 rescales its online softmax per key tile, so P is rounded
 // against the running row max, not the final one (one bf16 ulp on some

@@ -1,7 +1,7 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
 // Every kernel runs its products on the tensor cores (flash.cuh, wgmma.cuh,
-// gemm_tf32x3.cuh): f32 operands in split TF32, bf16 operands in bf16 with
+// flash_bf16.cuh, gemm_tf32x3.cuh): f32 operands in split TF32, bf16 operands in bf16 with
 // f32 accumulation. Each host entry point is a
 // plain C function (bound with ctypes): it takes device pointers, sizes and
 // the caller's stream, launches without synchronising, and returns

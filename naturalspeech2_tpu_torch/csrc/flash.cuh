@@ -4,9 +4,11 @@
 // (`_threefry2x32`, `_dropout_keep_scaled`), bit for bit, the split of an
 // operand into TF32 hi and lo and the accumulator layout both kernels use,
 // and K5's `mma.sync` products over staged tiles and asynchronous copies.
-// K5's bf16 kernels stage their bf16 tiles widened to f32 (exact) and run
-// one TF32 pass where both operands are bf16 values, which TF32 holds
-// exactly (the `kSplit` flags below).
+// K5's chunked bf16 kernels (heads wider than 128) stage their bf16 tiles
+// widened to f32 (exact) and run one TF32 pass where both operands are bf16
+// values, which TF32 holds exactly (the `kSplit` flags below). The bf16
+// kernels at heads 64 and 128 wide are flash_fwd_bf16.cu's and
+// flash_bwd_bf16.cu's (flash_bf16.cuh).
 #pragma once
 
 #include <stdint.h>
@@ -90,6 +92,16 @@ __device__ __forceinline__ bool visible(const unsigned char* mask_b, int row, in
   return row < n_q && col < n_kv && (mask_b == nullptr || mask_b[col] != 0) &&
          (!causal || row >= col);
 }
+
+// The chunked kernels for heads wider than 128 at bf16 (flash_fwd.cu,
+// flash_bwd.cu), where the bf16 entry points send such heads.
+int flash_fwd_wide_bf16(const bf16* q, const bf16* k, const bf16* v, const unsigned char* mask,
+                        bf16* o, float* lse, int b, int h, int n_q, int n_kv, int d, int causal,
+                        float scale, const Dropout& dr, cudaStream_t stream);
+int flash_bwd_wide_bf16(const bf16* q, const bf16* k, const bf16* v, const unsigned char* mask,
+                        const float* lse, const float* delta, const bf16* dout, bf16* dq,
+                        bf16* dk, bf16* dv, int b, int h, int n_q, int n_kv, int d, int causal,
+                        float scale, const Dropout& dr, cudaStream_t stream);
 
 // ---- split TF32 --------------------------------------------------------
 //

@@ -48,27 +48,18 @@
 // (flash.cuh add_product), which keeps the owner's two 64-register sums
 // within the thread's registers.
 //
-// bf16 (`ns2_flash_bwd_bf16`: q, k, v, dO bf16, lse and delta f32, dq, dk,
-// dv bf16; AMP training's prompt encoder and resampler), the JAX kernels'
-// rounding points at a bf16 input dtype: dO widened to f32, S = Q·Kᵀ and
-// dP = dO·Vᵀ summed in f32 from the bf16 values, dS rounded to bf16 before
-// dQ = dS·K and dK = dSᵀ·Q, and dV = Aᵀ·dO with A = P∘keep NOT rounded
-// (`a.astype(do.dtype)` with dO already f32). The same kernels, templated
-// on the element type: the tiles are widened to f32 as they are staged
-// (bf16 is exact in f32 and in TF32), so every fragment pattern, ring and
-// rule above is unchanged. What changes is the products' passes: where both
-// operands are bf16 values (S, dP, dQ, dK) one TF32 pass is the exact
-// product, where f32 meets bf16 (dV: A against dO) the kSplit2 scheme of
-// the GEMM core holds, A split into TF32 hi and lo against dO as it is, two
-// passes, exact but for the lo part's truncation to TF32 (2^-22 of an
-// entry). That scheme was chosen over bf16 `mma.m16n8k16` with A split into
-// bf16 parts because it keeps one staged layout and one fragment path for
-// both dtypes, and two passes where bf16 parts of an f32 A need three for
-// the same accuracy. So a bf16 backward runs 1 + 1 + 1 + 1 + 2 TF32 passes
-// (plus the owners' recomputed S and dP) where f32 runs 3 each. The bf16
-// tiles are loaded through registers (a widening copy cannot be `cp.async`),
-// which the kernels issue where the f32 ring issues its copies, so they are
-// not overlapped with the products.
+// bf16 at heads 64 and 128 wide is flash_bwd_bf16.cu's pair of kernels.
+// Wider bf16 heads (`ns2::flash_bwd_wide_bf16`) run the chunked kernels
+// below at the JAX kernels' rounding points at a bf16 input dtype: dO
+// widened to f32, S = Q·Kᵀ and dP = dO·Vᵀ summed in f32 from the bf16
+// values, dS rounded to bf16 before dQ = dS·K and dK = dSᵀ·Q, and dV = Aᵀ·dO
+// with A = P∘keep NOT rounded (`a.astype(do.dtype)` with dO already f32).
+// Their tiles are widened to f32 as they are staged (bf16 is exact in f32
+// and in TF32), so every fragment pattern and rule above is unchanged; where
+// both operands are bf16 values (S, dP, dQ, dK) one TF32 pass is the exact
+// product, and dV runs A split into TF32 hi and lo against dO as it is, two
+// passes. The widening loads go through registers, not overlapped with the
+// products.
 #include "flash.cuh"
 
 namespace {
@@ -556,6 +547,17 @@ int flash_bwd(const T* q, const T* k, const T* v, const unsigned char* mask, con
 
 }  // namespace
 
+// Heads wider than 128 at bf16 (flash_bwd_bf16.cu's entry point sends them
+// here): the chunked kernels at bf16's rounding points (see the header).
+int ns2::flash_bwd_wide_bf16(const bf16* q, const bf16* k, const bf16* v,
+                             const unsigned char* mask, const float* lse, const float* delta,
+                             const bf16* dout, bf16* dq, bf16* dk, bf16* dv, int b, int h,
+                             int n_q, int n_kv, int d, int causal, float scale, const Dropout& dr,
+                             cudaStream_t stream) {
+  return launch_bwd_wide<bf16>(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, d,
+                               causal, scale, dr, stream);
+}
+
 // q/dout [b,h,n_q,d], k/v [b,h,n_kv,d], 16-byte aligned, mask [b,n_kv]
 // uint8 or null, lse and delta [b,h,n_q] -> dq [b,h,n_q,d], dk/dv
 // [b,h,n_kv,d], d 64 or a multiple of 128. Dropout arguments as for
@@ -567,21 +569,6 @@ NS2_API int ns2_flash_bwd(const float* q, const float* k, const float* v,
                           unsigned seed1, float rate, int stride, unsigned threshold,
                           float keep_scale, int b_offset, int h_offset,
                           void* stream) {
-  return flash_bwd(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, d, causal,
-                   scale, ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale, b_offset,
-                                h_offset},
-                   stream);
-}
-
-// The same with q, k, v, dout, dq, dk and dv in bf16 (lse and delta f32):
-// the JAX kernels' rounding points at a bf16 input dtype (see the header).
-NS2_API int ns2_flash_bwd_bf16(const bf16* q, const bf16* k, const bf16* v,
-                               const unsigned char* mask, const float* lse, const float* delta,
-                               const bf16* dout, bf16* dq, bf16* dk, bf16* dv, int b, int h,
-                               int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
-                               unsigned seed1, float rate, int stride, unsigned threshold,
-                               float keep_scale, int b_offset, int h_offset,
-                               void* stream) {
   return flash_bwd(q, k, v, mask, lse, delta, dout, dq, dk, dv, b, h, n_q, n_kv, d, causal,
                    scale, ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale, b_offset,
                                 h_offset},

@@ -1,5 +1,8 @@
 // K4: flash attention forward, on the tensor cores in split TF32.
 //
+// (bf16 at heads 64 and 128 wide is flash_fwd_bf16.cu's kernel; this file
+// keeps the chunked kernel for wider heads at both types.)
+//
 // Replaces the Pallas kernels `_flash_kernel` (online softmax over kv
 // blocks) and `_flash_oneshot_kernel` (one kv block) in
 // naturalspeech2_tpu/ops/flash_attention.py, which compute one function:
@@ -616,6 +619,19 @@ int flash_fwd(const T* q, const T* k, const T* v, const unsigned char* mask, T* 
 
 }  // namespace
 
+// Heads wider than 128 at bf16 (flash_fwd_bf16.cu's entry point sends them
+// here): the chunked kernel, q, k, v and o in bf16, lse f32. With dropout
+// the keep multiplier is applied to P in f32, m, l and lse stay over the
+// undropped P, and P·keep is rounded to bf16 as P·V's register operand (the
+// JAX kernels' `(p * keep).astype(v.dtype)`).
+int ns2::flash_fwd_wide_bf16(const bf16* q, const bf16* k, const bf16* v,
+                             const unsigned char* mask, bf16* o, float* lse, int b, int h,
+                             int n_q, int n_kv, int d, int causal, float scale, const Dropout& dr,
+                             cudaStream_t stream) {
+  return launch_fwd_wide<bf16>(q, k, v, mask, o, lse, b, h, n_q, n_kv, d, causal, scale, dr,
+                               stream);
+}
+
 // q [b,h,n_q,d], k/v [b,h,n_kv,d], 16-byte aligned, mask [b,n_kv] uint8
 // or null -> o [b,h,n_q,d], lse [b,h,n_q] (not written when lse is null).
 // Dropout is on when rate > 0: seed, counter stride, keep threshold and keep
@@ -630,21 +646,6 @@ NS2_API int ns2_flash_fwd(const float* q, const float* k, const float* v,
                           unsigned seed1, float rate, int stride, unsigned threshold,
                           float keep_scale, int b_offset, int h_offset,
                           void* stream) {
-  return flash_fwd(q, k, v, mask, o, lse, b, h, n_q, n_kv, d, causal, scale,
-                   ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale, b_offset,
-                                h_offset}, stream);
-}
-
-// The same with q, k, v and o in bf16 (lse f32). With dropout (AMP
-// training's prompt encoder), the keep multiplier is applied to P in f32,
-// m, l and lse stay over the undropped P, and P·keep is rounded to bf16 as
-// P·V's register operand (the JAX kernels' `(p * keep).astype(v.dtype)`).
-NS2_API int ns2_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
-                               const unsigned char* mask, bf16* o, float* lse, int b, int h,
-                               int n_q, int n_kv, int d, int causal, float scale, unsigned seed0,
-                               unsigned seed1, float rate, int stride, unsigned threshold,
-                               float keep_scale, int b_offset, int h_offset,
-                               void* stream) {
   return flash_fwd(q, k, v, mask, o, lse, b, h, n_q, n_kv, d, causal, scale,
                    ns2::Dropout{seed0, seed1, rate, stride, threshold, keep_scale, b_offset,
                                 h_offset}, stream);

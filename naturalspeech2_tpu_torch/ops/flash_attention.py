@@ -33,8 +33,11 @@ probabilities A unrounded, delta in f32, and dq, dk, dv rounded to bf16.
 ``flash_forward`` (K4, ``csrc/flash_fwd.cu``) and ``flash_backward`` (K5,
 ``csrc/flash_bwd.cu``) launch the kernels on CUDA tensors and run the plain
 versions ``flash_forward_torch`` / ``flash_backward_torch`` on CPU tensors.
-The kernels run every product on the tensor cores in split TF32 (three
-TF32 products per f32 product), which keeps f32 accuracy.
+The f32 kernels run every product on the tensor cores in split TF32 (three
+TF32 products per f32 product), which keeps f32 accuracy; the bf16 ones
+(``csrc/flash_fwd_bf16.cu``, ``csrc/flash_bwd_bf16.cu``) run on the bf16
+tensor cores, K4's P rounded against the running row max of its 128-key
+tile, K5's f32 A as two bf16 parts.
 ``flash_attention`` is differentiable (forward K4, backward K5);
 ``flash_attention_with_lse`` is forward only. The kernels take head dims
 64 and multiples of 128; other heads are padded with zero columns to the
@@ -305,7 +308,8 @@ def flash_forward(q, k, v, mask=None, seed=None, *, causal: bool = False, scale:
                   dropout_rate: float = 0.0, b_offset: int = 0, h_offset: int = 0):
     """K4: ``(o, lse)``. CUDA tensors launch ``csrc/flash_fwd.cu`` (heads
     padded to 64 or a multiple of 128, o cut back; f32, or bf16 through its
-    own entry point, counted in ``flash_forward.launches_bf16``); CPU
+    own entry point in ``csrc/flash_fwd_bf16.cu``, counted in
+    ``flash_forward.launches_bf16``); CPU
     tensors run ``flash_forward_torch``. ``b_offset`` and ``h_offset`` key
     the dropout mask on the global batch row and head."""
     offsets = dict(b_offset=b_offset, h_offset=h_offset)
@@ -337,7 +341,8 @@ def flash_backward(q, k, v, mask, seed, lse, o, do, *, causal: bool = False, sca
     """K5: ``(dq, dk, dv)``. CUDA tensors launch the dq and dk/dv kernels of
     ``csrc/flash_bwd.cu`` (counted as one launch of K5; heads padded to 64
     or a multiple of 128, the gradients cut back; f32, or bf16 through its
-    own entry point, counted in ``flash_backward.launches_bf16``) after
+    own entry point in ``csrc/flash_bwd_bf16.cu``, counted in
+    ``flash_backward.launches_bf16``) after
     delta = Σ dO·O as a plain f32 reduction (XLA computes it outside the
     kernels too); CPU tensors run ``flash_backward_torch``. The offsets as
     ``flash_forward``'s."""

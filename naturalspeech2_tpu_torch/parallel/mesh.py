@@ -90,18 +90,21 @@ class Mesh:
         return self.rank == 0
 
 
-def _default_device(backend: Optional[str]) -> torch.device:
-    if backend == "nccl" or (backend is None and torch.cuda.is_available()):
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+def _default_device() -> torch.device:
+    """The current CUDA device, whatever the backend; raises where there is
+    none, as `serve.resolve_device` does: the CPU is only ever asked for."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: no CUDA device: the port's ranks run on the card (pass "
+                           "device='cpu' to run the plain PyTorch versions on the CPU)")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Mesh:
     """The ``(data, model)`` mesh over the ranks of the default process
     group when one is initialised, else this one process; ``n_data``
     defaults to the world size over ``n_model``. ``device`` is the rank's
-    device (default: the current CUDA device under NCCL, the CPU under
-    gloo). Where both axes exceed one rank, every rank makes every group
+    device (default: the current CUDA device under either backend; without
+    a card that raises, and the CPU needs ``device="cpu"``). Where both axes exceed one rank, every rank makes every group
     of each axis, in the same order (``dist.new_group`` asks for it): the
     data groups (one per model index), then the model groups."""
     group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
@@ -114,8 +117,7 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Me
     if n_data * n_model != world:
         raise ValueError(f"{n_data}×{n_model} mesh does not cover {world} ranks "
                          f"({'the process group' if group is not None else 'no process group'})")
-    backend = None if group is None else str(dist.get_backend(group))
-    device = torch.device(device) if device is not None else _default_device(backend)
+    device = torch.device(device) if device is not None else _default_device()
     data_group = model_group = None
     if n_data > 1 and n_model > 1:
         grid = np.arange(world).reshape(n_data, n_model)
