@@ -122,11 +122,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      plain bf16 versions within BF16_TOL, each timed beside the f32 kernel
      at the same shape and values: K1 at [4, 1024, 128], [2, 512, 128],
      [8, 512, 128] and [1, 4500, 128], K1b at [1, 9000, 128], K2 and K3 at
-     [4, 1024, 128], [2, 512, 128] and [16, 1024, 512], K2b at x [2 | 8,
-     512, 128], ctx [·, 32, 128], K4 forward at [2 | 8, 8, 32 | 134, 64]
-     and [1, 8, 4500 | 9000, 64] beside SDPA in bf16, and at the unbucketed
-     guided step's [2, 8, 510, 64] and [2, 8, 510 | 32, 64]; bounds at the
-     dense bf16 peak (K1, K1b: three bf16 passes);
+     [4, 1024, 128], [2, 512, 128] and [16, 1024, 512] and the ragged [16,
+     150, 128], [3, 1000, 128] and dm 96 (K3's inner 200), K3 at [1, 9000,
+     128] (both on the bf16 GEMM core, timed through the wrapper and the C
+     entry point; K2 also without the residual on 4 heads at dm 512, and a
+     profile proving their launches ran the bf16 core's kernels, not the
+     split-TF32 core's), K2b at x [2 | 8, 512, 128], ctx [·, 32, 128], K4
+     forward at [2 | 8, 8, 32 | 134, 64] and [1, 8, 4500 | 9000, 64] beside
+     SDPA in bf16, and at the unbucketed guided step's [2, 8, 510, 64] and
+     [2, 8, 510 | 32, 64]; bounds at the dense bf16 peak (K1, K1b: three
+     bf16 passes);
  23. the flagship `sample(dtype=torch.bfloat16)` (b4 x n1024, 100 steps):
      a finite float32 waveform, launches equal to phase 3's, all on the
      bf16 entry points, the module not cast in place, and the denoise step
@@ -508,6 +513,13 @@ PEAK_TF32_FLOPS, TF32_PASSES, PEAK_BYTES_PER_S = 495e12, 3, 3.35e12
 # the norm makes y - x independent of |x|, and at unit scale the output's
 # own ulp (2^-6 at |x| ≥ 2) would exceed 1e-2 of max |y - x| by itself.
 BF16_TOL, BF16_RESIDUAL_SCALE = 1e-2, 1 / 16
+# phase 22's ragged K2 / K3 bf16 shapes (b, n, dm, K3's inner or None): n off
+# the bf16 core's 128-row tiles (150, 1000: a sequence's last tile runs past
+# its end, the conv's taps past its start), dm and inner off its 64 (dm 96,
+# inner 200), and ff_mult 1 (dm 512, inner 341: n(x) padded to 512 columns
+# is wider than ip 384, in K3's c scratch)
+BF16_RAGGED = ((16, 150, 128, None), (3, 1000, 128, None), (4, 256, 96, 200),
+               (2, 200, 512, 341))
 # bf16 card against bf16 CPU through the network (phase 26): the same
 # rounding points, sums in another order, so a value near a rounding
 # boundary lands on the other neighbour and carries 2^-8 relative through
@@ -613,13 +625,16 @@ FLAC_FILES, FLAC_SECONDS = 32, 2.5
 DISPATCH_K, DISPATCH_STEPS, PROFILE_STEPS = 4, 8, (2, 4)
 CODEC_JIT_STEPS, CODEC_JIT_K = 6, 4
 FLAC_POSTS = 3
-# the port's kernels as torch.profiler names them (the GEMM core of K1,
-# K2, K2b, K3 and K6; K4; K5; K6's update): every string of an entry must
+# the port's kernels as torch.profiler names them (the split-TF32 GEMM core
+# of K1, K2, K2b, K3 and K6; K4; K5; K6's update; the bf16 GEMM core of K2
+# and K3 in bf16 and its norm pre-pass): every string of an entry must
 # appear in one kernel's name. K4's and K5's take an ns2::Dropout, which
-# tells them from PyTorch's own pytorch_flash::flash_fwd_kernel.
+# tells them from PyTorch's own pytorch_flash::flash_fwd_kernel. Phase 42's
+# f32 training trace runs all but BF16_CORE_KERNELS; phase 22 profiles those.
+BF16_CORE_KERNELS = (("ns2::bgemm::bf16_gemm_kernel",), ("ns2::bgemm::norm_rows_kernel",))
 PORT_KERNELS = (("ns2::gemm::gemm_kernel",), ("flash_fwd_kernel", "ns2::Dropout"),
                 ("flash_bwd_dq_kernel", "ns2::Dropout"), ("flash_bwd_dkv_kernel", "ns2::Dropout"),
-                ("rvq_update_kernel",))
+                ("rvq_update_kernel",), *BF16_CORE_KERNELS)
 
 
 # Phase 44, data-parallel and FSDP training (parallel/): phase 7's flagship
@@ -2429,12 +2444,14 @@ def bound_bf16(flops: float, moved: int, f32_lanes: bool = False) -> dict:
 
 
 def bf16_timed(phase: str, label: str, kernel, plain, f32_kernel, work: dict, residual=None,
-               library=None, reps: int = 20) -> dict:
+               library=None, reps: int = 20, c_entry=None) -> dict:
     """A bf16 kernel against its plain bf16 version on the card: the error
     of its output (with ``residual`` x, of y - x) relative to the plain
     version's largest entry within BF16_TOL; its time beside the f32
     kernel's at the same shape (on the same values), the plain version's
-    and, where given, the ``library`` call's."""
+    and, where given, the ``library`` call's and the kernel's C entry point
+    alone (``c_entry``: the launches without the wrapper's checks,
+    allocations and weight-cache lookup)."""
     import torch
 
     out = kernel()
@@ -2450,11 +2467,14 @@ def bf16_timed(phase: str, label: str, kernel, plain, f32_kernel, work: dict, re
     ms, f32_ms, plain_ms = (cuda_ms(f, reps=reps) for f in (kernel, f32_kernel, plain))
     lib_ms = cuda_ms(library, reps=reps) if library is not None else None
     lib = f", SDPA bf16 {lib_ms:.4f} ms" if lib_ms is not None else ""
-    log(phase, f"{label}: bf16 kernel {ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, plain bf16 "
-               f"{plain_ms:.4f} ms{lib} (median of {reps}), bound {work['bound_ms']:.4f} ms "
-               f"({work['bound_by']})")
+    entry_ms = cuda_ms(c_entry, reps=reps) if c_entry is not None else None
+    entry = f", C entry {entry_ms:.4f} ms" if entry_ms is not None else ""
+    log(phase, f"{label}: bf16 kernel {ms:.4f} ms{entry}, f32 kernel {f32_ms:.4f} ms, plain "
+               f"bf16 {plain_ms:.4f} ms{lib} (median of {reps}), bound {work['bound_ms']:.4f} "
+               f"ms ({work['bound_by']})")
+    extra = {"c_entry_ms": entry_ms} if c_entry is not None else {}
     return {"max_abs_err": err, "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, **work}
+            "library_ms": lib_ms, **extra, **work}
 
 
 def _bf16(*tensors):
@@ -2464,10 +2484,75 @@ def _bf16(*tensors):
     return tuple(t.to(torch.bfloat16) for t in tensors)
 
 
-def bf16_block_cases(gen, b, n, d, names=("wavenet_body", "attn_block", "ff_block")):
+def ff_c_entry(x, gamma, beta, w1, b1, wc, bc, w2, b2):
+    """K3's C entry point alone on bf16 (or f32) inputs: the weights packed
+    and the scratch allocated once, as the wrapper does, then a call that
+    launches and returns (the wrapper's checks, allocations and cache
+    lookup left out). Returns the call, which returns the output; its
+    ``args`` are the C arguments (to call another build's entry point on),
+    its ``keep`` the tensors they point into, alive as long as the call."""
+    import torch
+
+    from naturalspeech2_tpu_torch import _build
+    from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
+
+    b, n, dm = x.shape
+    wt = fk._pack_checked(w1, b1, wc, bc, w2, x.dtype)
+    b2 = b2.to(x.dtype)
+    scratch = fk.scratch(b, n, dm, wt.ip, x.dtype, x.device)
+    out = torch.empty_like(x)
+    fn = _build.entry("ns2_ff_block", x.dtype, w1.dtype)
+    args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.geglu.data_ptr(),
+            wt.b_val.data_ptr(), wt.b_gate.data_ptr(), wt.conv.data_ptr(), wt.bc.data_ptr(),
+            wt.out.data_ptr(), b2.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
+            out.data_ptr(), b, n, dm, wt.ip, torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        _build.check(fn(*args), "ns2_ff_block")
+        return out
+
+    call.args, call.keep = args, (wt, scratch, b2, out)
+    return call
+
+
+def attn_c_entry(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float,
+                 residual: bool = True):
+    """K2's C entry point alone, as ``ff_c_entry``: the o scratch sized as
+    the wrapper sizes it (in bf16 it first holds n(x) at dm padded to 64)."""
+    import torch
+
+    from naturalspeech2_tpu_torch import _build
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+    from naturalspeech2_tpu_torch.ops import gemm_cache
+    from naturalspeech2_tpu_torch.ops.flash_attention import kernel_head_dim
+
+    b, n, dm = x.shape
+    dh = kernel_head_dim(dim_head)
+    bt_qkv, bt_out = ak._pack_checked(wq, wkv, wo, heads, dim_head, x.dtype)
+    qkv = torch.empty((3, b, heads, n, dh), dtype=x.dtype, device=x.device)
+    o = torch.empty(b * n * max(heads * dh, gemm_cache.round_up(dm, 64)), dtype=x.dtype,
+                    device=x.device)
+    out = torch.empty_like(x)
+    fn = _build.entry("ns2_attn_block", x.dtype, wq.dtype)
+    args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), bt_qkv.data_ptr(),
+            bt_out.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, dm, heads, dh,
+            float(scale), int(residual), torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        _build.check(fn(*args), "ns2_attn_block")
+        return out
+
+    call.args, call.keep = args, (bt_qkv, bt_out, qkv, o, out)
+    return call
+
+
+def bf16_block_cases(gen, b, n, d, names=("wavenet_body", "attn_block", "ff_block"),
+                     inner=None):
     """(name, bf16 kernel, plain bf16, f32 kernel on the same values, bound,
-    residual) of K1, K2 and K3 at one shape. The blocks' residual x is drawn
-    at BF16_RESIDUAL_SCALE (see BF16_TOL)."""
+    residual, C entry or None) of K1, K2 and K3 at one shape (K3's inner
+    width int(8d/3) unless given). The blocks' residual x is drawn at
+    BF16_RESIDUAL_SCALE (see BF16_TOL). K2's and K3's C entry points are
+    timed alone beside their wrappers."""
     from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
     from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
     from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
@@ -2483,7 +2568,7 @@ def bf16_block_cases(gen, b, n, d, names=("wavenet_body", "attn_block", "ff_bloc
         cases.append(("wavenet_body", lambda: wk._forward("stack", *wn16),
                       lambda: wk.wavenet_body_bf16_torch(*wn16),
                       lambda: wk._forward("stack", *wn32),
-                      bound_bf16(flops, nbytes(*wn16) + out_bytes, f32_lanes=True), None))
+                      bound_bf16(flops, nbytes(*wn16) + out_bytes, f32_lanes=True), None, None))
     heads, dim_head = HEADS, DIM_HEAD
     scale = dim_head**-0.5
     if "attn_block" in names:
@@ -2498,9 +2583,10 @@ def bf16_block_cases(gen, b, n, d, names=("wavenet_body", "attn_block", "ff_bloc
         cases.append(("attn_block", lambda: ak.attn_block(*a16, **cfg),
                       lambda: ak.attn_block_bf16_torch(*a16[:3], *split, scale=scale),
                       lambda: ak.attn_block(*a32, **cfg),
-                      bound_bf16(flops, nbytes(*a16) + out_bytes), a16[0]))
+                      bound_bf16(flops, nbytes(*a16) + out_bytes), a16[0],
+                      attn_c_entry(*a16, **cfg)))
     if "ff_block" in names:
-        inner = int(d * 4 * 2 / 3)
+        inner = inner or int(d * 4 * 2 / 3)
         x = rn(b, n, d, scale=BF16_RESIDUAL_SCALE)
         ff = _bf16(x, 1 + rn(b, d, scale=0.1), rn(b, d, scale=0.1),
                    rn(d, 2 * inner, scale=d**-0.5), rn(2 * inner, scale=0.1),
@@ -2510,8 +2596,41 @@ def bf16_block_cases(gen, b, n, d, names=("wavenet_body", "attn_block", "ff_bloc
         flops = 2 * b * n * (d * 2 * inner + 3 * inner * inner + inner * d)
         cases.append(("ff_block", lambda: fk.ff_block(*ff), lambda: fk.ff_block_plain(*ff),
                       lambda: fk.ff_block(*ff32), bound_bf16(flops, nbytes(*ff) + out_bytes),
-                      ff[0]))
+                      ff[0], ff_c_entry(*ff)))
     return cases
+
+
+def profile_names(fn) -> list:
+    """The names of the device kernels ``fn()`` launches (torch.profiler,
+    after one warm-up call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def check_bf16_core(phase: str) -> None:
+    """A profile of one K3 and one K2 bf16 call at the flagship's shape:
+    their launches are the bf16 core's kernels (BF16_CORE_KERNELS) and K4
+    bf16's, none of the split-TF32 core's."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 205)
+    for name, kernel, *_ in bf16_block_cases(gen, BATCH, LENGTH, DIM, ("attn_block", "ff_block")):
+        names = profile_names(kernel)
+        log(phase, f"{name} bf16 profile, kernels: {[k[:90] for k in names]}")
+        missing = [k for k in BF16_CORE_KERNELS
+                   if not any(all(part in n for part in k) for n in names)]
+        old = [n for n in names if "ns2::gemm::gemm_kernel" in n]
+        if missing or old:
+            raise AssertionError(f"{name} bf16: the bf16 core's {missing} not launched, or the "
+                                 f"split-TF32 core's {old} launched")
 
 
 def _bf16_entry(name: str) -> dict:
@@ -2531,10 +2650,12 @@ def phase22_bf16_kernels() -> list:
     """Each bf16 kernel against its plain bf16 version at the shapes the
     bf16 paths give it: K1 at [4,1024,128], [2,512,128], [8,512,128],
     [1,4500,128]; K1b at [1,9000,128]; K2 and K3 at [4,1024,128],
-    [2,512,128], [16,1024,512]; K2b at x [2|8,512,128], ctx [·,32,128]; K4
-    at the resampler's [2|8,8,32|134,64] and the long-form
-    [1,8,4500|9000,64] beside SDPA in bf16. Returns the bf16 rows of the
-    kernels' summary (the first shape's numbers at the top)."""
+    [2,512,128], [16,1024,512] and BF16_RAGGED, K3 at [1,9000,128], with
+    their C entry points timed alone and a profile of their kernels; K2b at
+    x [2|8,512,128], ctx [·,32,128]; K4 at the resampler's
+    [2|8,8,32|134,64] and the long-form [1,8,4500|9000,64] beside SDPA in
+    bf16. Returns the bf16 rows of the kernels' summary (the first shape's
+    numbers at the top)."""
     import torch
     import torch.nn.functional as F
 
@@ -2553,18 +2674,39 @@ def phase22_bf16_kernels() -> list:
         row["by_shape"][shape] = timing
         row["max_abs_err"] = max(row["max_abs_err"], timing["max_abs_err"])
 
-    shapes = {(BATCH, LENGTH, DIM): ("wavenet_body", "attn_block", "ff_block"),
-              (2, SERVE_BUCKET[1], DIM): ("wavenet_body", "attn_block", "ff_block"),
-              (2 * COND_BATCH, COND_LENGTH, DIM): ("wavenet_body",),
-              (1, LONG_LENGTHS[0], DIM): ("wavenet_body",),
-              (SCALED_BATCH, LENGTH, SCALED_DIM): ("attn_block", "ff_block")}
-    for (b, n, d), names in shapes.items():
-        shape = f"[{b},{n},{d}]"
-        for name, kernel, plain, f32_kernel, work, residual in bf16_block_cases(gen, b, n, d,
-                                                                                 names):
+    blocks = ("attn_block", "ff_block")
+    # (b, n, d, K3's inner or None, kernels): the bf16 paths' shapes, then
+    # ragged ones (128-row tiles straddling sequences, n % 64 != 0, dm and
+    # inner off the core's 64)
+    shapes = ((BATCH, LENGTH, DIM, None, ("wavenet_body", *blocks)),
+              (2, SERVE_BUCKET[1], DIM, None, ("wavenet_body", *blocks)),
+              (2 * COND_BATCH, COND_LENGTH, DIM, None, ("wavenet_body",)),
+              (1, LONG_LENGTHS[0], DIM, None, ("wavenet_body",)),
+              (SCALED_BATCH, LENGTH, SCALED_DIM, None, blocks),
+              (1, LONG_LENGTHS[1], DIM, None, ("ff_block",)),
+              *((b, n, d, inner, blocks) for b, n, d, inner in BF16_RAGGED))
+    for b, n, d, inner, names in shapes:
+        shape = f"[{b},{n},{d}]" + (f" inner {inner}" if inner else "")
+        for name, kernel, plain, f32_kernel, work, residual, c_entry in bf16_block_cases(
+                gen, b, n, d, names, inner):
             add(name, shape, bf16_timed("22", f"{name} bf16 {shape}", kernel, plain, f32_kernel,
-                                        work, residual, reps=5 if d == SCALED_DIM else 20))
+                                        work, residual, reps=5 if d == SCALED_DIM else 20,
+                                        c_entry=c_entry))
         torch.cuda.empty_cache()
+    check_bf16_core("22")
+
+    # K2 bf16 without the residual on 4 heads at dm 512 (a tensor-parallel
+    # rank's share of the scaled model: H·dh 256 < dm, so o holds n(x) at
+    # dm's width)
+    heads = HEADS // 2
+    attn = _bf16(*attn_inputs(gen, 2, SERVE_BUCKET[1], SCALED_DIM, heads, DIM_HEAD))
+    cfg = dict(heads=heads, dim_head=DIM_HEAD, scale=DIM_HEAD**-0.5)
+    compare("22", f"attn_block bf16 residual off, {heads} heads, [2,{SERVE_BUCKET[1]},"
+                  f"{SCALED_DIM}]", ak.attn_block(*attn, residual=False, **cfg),
+            ak.attn_block_bf16_torch(*attn[:3], *ak.split_heads(*attn[3:], heads, DIM_HEAD),
+                                     scale=cfg["scale"], residual=False), BF16_TOL,
+            relative=True)
+    del attn
 
     # K1b at n 9000, past K1's budget
     n = LONG_LENGTHS[1]
@@ -4738,11 +4880,12 @@ def phase42_flac_and_dispatch(work: Path) -> dict:
         raise AssertionError(f"profile_steps={PROFILE_STEPS} left {traces}")
     events = json.loads(traces[0].read_text())["traceEvents"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    missing = [k for k in PORT_KERNELS
+    f32_kernels = [k for k in PORT_KERNELS if k not in BF16_CORE_KERNELS]
+    missing = [k for k in f32_kernels
                if not any(all(part in name for part in k) for name in kernels)]
     log("42", f"profile_steps={PROFILE_STEPS}: {traces[0].name}, {len(events)} events, "
               f"{len(kernels)} kernel launches; the port's kernels named: "
-              f"{[k[0] for k in PORT_KERNELS if k not in missing]}")
+              f"{[k[0] for k in f32_kernels if k not in missing]}")
     if missing:
         raise AssertionError(f"the trace does not name {missing}")
 

@@ -11,11 +11,15 @@ denoise step at b4 x n1024 (CUDA events, median of 20), the flagship
 training step at b16 x 2 s (host clock, synchronised, median of steps
 3-8) and the served p50 of 12 sequential README config 2 requests at the
 (64, 512) bucket and 100 steps (host clock). With ``--kernels`` instead:
-K4 and K5 in bf16 at the shapes of their PERF rows (CUDA events, median of
-20; through the wrapper and through the C entry point alone, which both
-trees export with one signature) and the long-form bf16 denoise step at
-n 4500 and n 9000 (CUDA events, median of 10). Run the two trees in turns
-in one command (A, B, B, A): the host-bound figures move between machines.
+K3 and K2 in bf16 at BF16_BLOCK_SHAPES, K2b in bf16 at the served shape
+and K4 in bf16 at the scaled K2's attention core [16, 8, 1024, 64], K4 and
+K5 in bf16 at the shapes of their PERF rows (CUDA events, median of 20;
+through the wrapper and through the C entry point alone, which both trees
+export with one signature), the bf16 flagship (b4 x n1024) and scaled
+(b16 x n1024, dim 512, depth 12) denoise steps, the f32 flagship step and
+the long-form bf16 denoise step at n 4500 and n 9000 (CUDA events, median
+of 10). Run the two trees in turns in one command (A, B, B, A): the
+host-bound figures move between machines.
 
 Exits non-zero without a CUDA device. Not part of the smoke run.
 """
@@ -41,6 +45,114 @@ BF16_FLASH_SHAPES = ((2, 8, 32, 134, False, False, 0.0, False),
                      (16, 8, 102, 102, False, False, 0.2, True),
                      (16, 8, 150, 150, False, False, 0.0, True),
                      (4, 8, 1024, 1024, True, True, 0.0, True))
+
+
+# K3 and K2 in bf16 (b, n, dm, blocks): the scaled model's, the bf16
+# flagship's, the served request's, and K3 on the n-9000 long form
+BF16_BLOCK_SHAPES = ((16, 1024, 512, ("ff_block", "attn_block")),
+                     (4, 1024, 128, ("ff_block", "attn_block")),
+                     (2, 512, 128, ("ff_block", "attn_block")),
+                     (1, 9000, 128, ("ff_block",)))
+
+
+def block_kernels(cs, out: dict) -> None:
+    """K3, K2 and K2b bf16 through their wrappers and K3's and K2's C entry
+    points alone (the weights packed and the scratch allocated once, by the
+    tree's own wrapper code, the o scratch large enough for either tree),
+    K4 bf16's C entry at [16, 8, 1024, 64], and the bf16 flagship and
+    scaled denoise steps and the f32 flagship step, into ``out``."""
+    import torch
+
+    from naturalspeech2_tpu_torch import _build
+    from naturalspeech2_tpu_torch.models.naturalspeech2 import cast_floating
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+    from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    stream = torch.cuda.current_stream().cuda_stream
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
+
+    heads, dh = cs.HEADS, cs.DIM_HEAD
+    for b, n, dm, blocks in BF16_BLOCK_SHAPES:
+        shape = f"[{b},{n},{dm}]"
+        x, g, be = rn(b, n, dm, scale=1 / 16), 1 + rn(b, dm, scale=0.1), rn(b, dm, scale=0.1)
+        if "ff_block" in blocks:
+            inner = int(dm * 8 / 3)
+            w = (rn(dm, 2 * inner, scale=dm**-0.5), rn(2 * inner, scale=0.1),
+                 rn(3, inner, inner, scale=(3 * inner) ** -0.5), rn(inner, scale=0.1),
+                 rn(inner, dm, scale=inner**-0.5))
+            b2 = rn(dm, scale=0.1)
+            wt = fk._pack_checked(*w, bf)
+            # a, then c: in bf16 c first holds n(x) at dm padded to 64
+            c_row = max(wt.ip, -(-dm // 64) * 64)
+            scratch = torch.empty(b * n * (wt.ip + c_row), dtype=bf, device="cuda")
+            y = torch.empty_like(x)
+            fn = _build.entry("ns2_ff_block", bf)
+            args = (x.data_ptr(), g.data_ptr(), be.data_ptr(), wt.geglu.data_ptr(),
+                    wt.b_val.data_ptr(), wt.b_gate.data_ptr(), wt.conv.data_ptr(),
+                    wt.bc.data_ptr(), wt.out.data_ptr(), b2.data_ptr(), scratch.data_ptr(),
+                    scratch[b * n * wt.ip:].data_ptr(), y.data_ptr(), b, n, dm, wt.ip, stream)
+            out.setdefault("k3_bf16", {})[shape] = {
+                "wrapper_ms": cs.cuda_ms(lambda: fk.ff_block(x, g, be, *w, b2)),
+                "c_entry_ms": cs.cuda_ms(lambda: fn(*args))}
+            del w, wt, scratch
+        if "attn_block" in blocks:
+            hd = heads * dh
+            wq, wkv = rn(dm, hd, scale=dm**-0.5), rn(dm, 2 * hd, scale=dm**-0.5)
+            wo = rn(hd, dm, scale=hd**-0.5)
+            bt_qkv, bt_out = ak._pack_checked(wq, wkv, wo, heads, dh, bf)
+            qkv = torch.empty((3, b, heads, n, dh), dtype=bf, device="cuda")
+            o = torch.empty(b * n * max(hd, -(-dm // 64) * 64), dtype=bf, device="cuda")
+            y = torch.empty_like(x)
+            fn = _build.entry("ns2_attn_block", bf)
+            args = (x.data_ptr(), g.data_ptr(), be.data_ptr(), bt_qkv.data_ptr(),
+                    bt_out.data_ptr(), qkv.data_ptr(), o.data_ptr(), y.data_ptr(), b, n, dm,
+                    heads, dh, dh**-0.5, 1, stream)
+            cfg = dict(heads=heads, dim_head=dh, scale=dh**-0.5)
+            out.setdefault("k2_bf16", {})[shape] = {
+                "wrapper_ms": cs.cuda_ms(lambda: ak.attn_block(x, g, be, wq, wkv, wo, **cfg)),
+                "c_entry_ms": cs.cuda_ms(lambda: fn(*args))}
+            del wq, wkv, wo, qkv, o
+        torch.cuda.empty_cache()
+
+    # K2b bf16 at the served shape, through its wrapper
+    x, g, be = rn(2, 512, cs.DIM, scale=1 / 16), 1 + rn(2, cs.DIM, scale=0.1), rn(2, cs.DIM)
+    ctx = rn(2, 32, cs.DIM)
+    hd = heads * dh
+    wq, wkv = rn(cs.DIM, hd, scale=cs.DIM**-0.5), rn(cs.DIM, 2 * hd, scale=cs.DIM**-0.5)
+    wo = rn(hd, cs.DIM, scale=hd**-0.5)
+    out["k2b_bf16_ms"] = {"x [2,512,128], ctx [2,32,128]": cs.cuda_ms(
+        lambda: ak.cross_attn_block(x, ctx, g, be, wq, wkv, wo, heads=heads, dim_head=dh,
+                                    scale=dh**-0.5))}
+    # K4 bf16 alone at the scaled K2's attention core
+    q, k, v = (rn(16, heads, 1024, dh) for _ in range(3))
+    o = torch.empty_like(q)
+    fwd = _build.entry("ns2_flash_fwd", bf)
+    fwd_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), None, 16, heads,
+                1024, 1024, dh, 0, dh**-0.5, 0, 0, 0.0, 0, 0, 1.0, 0, 0, stream)
+    out["k4_bf16_in_k2_scaled_c_entry_ms"] = cs.cuda_ms(lambda: fwd(*fwd_args))
+    del q, k, v, o
+
+    with torch.no_grad():
+        for label, kw, b in (("flagship", {}, cs.BATCH),
+                             ("scaled", dict(codec=False, dim=cs.SCALED_DIM,
+                                             depth=cs.SCALED_DEPTH, scan_layers=True),
+                              cs.SCALED_BATCH)):
+            ns2 = cs.flagship(cs.SEED + 40, **kw).cuda()
+            model16 = cast_floating(ns2.model, bf)
+            d = kw.get("dim", cs.DIM)
+            x = torch.randn(b, cs.LENGTH, d, generator=gen, device="cuda")
+            x16, times = x.to(bf), torch.full((b,), 0.5, device="cuda")
+            out[f"{label}_bf16_step_ms"] = cs.cuda_ms(lambda: model16(x16, times), reps=10,
+                                                       warmup=2)
+            if label == "flagship":
+                out["flagship_f32_step_ms"] = cs.cuda_ms(lambda: ns2.model(x, times), reps=10,
+                                                          warmup=2)
+            del ns2, model16, x, x16
+            torch.cuda.empty_cache()
 
 
 def bf16_kernels(cs, out: dict) -> None:
@@ -116,6 +228,7 @@ def main() -> int:
     cs.phase1_card_and_build()
     out = {"label": label}
     if "--kernels" in sys.argv[3:]:
+        block_kernels(cs, out)
         bf16_kernels(cs, out)
         print("RESULT", json.dumps(out), flush=True)
         return 0

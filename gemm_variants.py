@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of the kernels on the GEMM core goes, on one NVIDIA GPU.
+"""Where the time of the kernels on the GEMM cores goes, on one NVIDIA GPU.
 
-    python3 gemm_variants.py
+    python3 gemm_variants.py [variant ...]
 
 Builds the port's kernel library (as `chip_smoke.py` does), then builds
-variants of the split-TF32 GEMM core `csrc/gemm_tf32x3.cuh` that K1
-(`csrc/wavenet.cu`), K1b (`csrc/wavenet_lane.cu`), K2
-(`csrc/attn_block.cu`) and K3 (`csrc/ff_block.cu`) run on, each with one
-design choice changed or one part of the work taken out, and times the
-kernels' C entry points side by side (CUDA events, without the Python
-wrappers; the weights packed once), with each variant's error against the
-plain versions relative to the largest entry of y - x (K2, K3) or of the
-output (K1, K1b):
+variants of the two GEMM cores, each with one design choice changed or one
+part of the work taken out, and times the kernels' C entry points side by
+side (CUDA events, without the Python wrappers; the weights packed once),
+with each variant's error against the plain versions relative to the
+largest entry of y - x (K2, K3) or of the output (K1, K1b).
 
-  base         the core as committed
+The split-TF32 core `csrc/gemm_tf32x3.cuh` of K1 (`csrc/wavenet.cu`), K1b
+(`csrc/wavenet_lane.cu`), K2 (`csrc/attn_block.cu`) and K3
+(`csrc/ff_block.cu`) in f32, timed at SHAPES and WAVENET_SHAPES:
+
+  base         the cores as committed
   one_wg       blocks of one warpgroup everywhere, none sharing A
   no_a_loads   A's global loads replaced by constants (wrong)
   no_a_stores  A's split and shared-memory stores taken out (wrong)
@@ -31,7 +32,25 @@ output (K1, K1b):
                three warpgroups to a block sharing A (at d 128 two of the
                six column tiles of a block's pair are past the last)
 
-Exits non-zero without a CUDA device. Not part of the smoke run.
+The bf16 core `csrc/gemm_bf16.cuh` of K2 and K3 in bf16, timed at
+BF16_SHAPES (each K3 and K2 GEMM launch of base beside `torch.matmul` in
+bf16 at the same M x N x K, a cuBLAS yardstick the port never calls, and
+their other launches' device times):
+
+  bf16_stages3, bf16_stages2
+               the ring 3 or 2 chunks deep (4)
+  bf16_no_loop_pins
+               the accumulator not pinned around each chunk's products
+  bf16_wait0   each chunk's products waited for before the next is issued
+  bf16_norm_loader
+               n(x) staged by the producer warpgroup through registers
+               (a loader this script inserts, _NORM_ROWS) in the first
+               GEMM of K2 and K3, no norm pre-pass
+  bf16_tile_128x256, bf16_tile_128x128, bf16_tile_64x64
+               every GEMM at that tile shape, where base chooses by waves
+
+With variant names, builds and times only those beside base. Exits
+non-zero without a CUDA device. Not part of the smoke run.
 """
 
 from __future__ import annotations
@@ -42,20 +61,22 @@ import subprocess
 import sys
 
 CORE = "gemm_tf32x3.cuh"
+BF16_CORE = "gemm_bf16.cuh"
 VARIANTS = {
     "base": [],
     "one_wg": [(CORE, "  if (shared >= sm_count())\n", "  if (false)\n")],
     "no_a_loads": [(CORE, "areg[i] = ld.get(4 * (cq + kLanes * i));",
                     "areg[i] = make_float4(c, i, 1.0f, 2.0f);")],
-    "no_a_stores": [(CORE, "store_split4(sm.a[s][0], sm.a[s][1], kmajor<kBM>(sr, 4 * (cq + kLanes * i)), "
-                           "areg[i]);",
+    "no_a_stores": [(CORE, "store_split4(sm.a[s][0], sm.a[s][1], kmajor<kBM>(sr, k), areg[i]);",
                      "if (areg[i].x == 12345.0f) sm.a[s][0][i] = areg[i].y;")],
     "no_b_copies": [(CORE, "cp_async16(dst + e, src + e, true);", "(void)dst; (void)src;")],
-    "one_pass": [(CORE, "      wgmma_ss_n64(small, a_hi, b_lo);\n"
-                        "      wgmma_ss_n64(small, a_lo, b_hi);\n", "")],
-    "no_products": [(CORE, "      wgmma_ss_n64(small, a_hi, b_lo);\n"
-                           "      wgmma_ss_n64(small, a_lo, b_hi);\n"
-                           "      wgmma_ss_n64(big, a_hi, b_hi);\n", "")],
+    "one_pass": [(CORE, "        if constexpr (M == Mode::kSplit3)\n"
+                        "          wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));\n"
+                        "        wgmma_ss_n64(small, a_lo, b_hi);\n", "")],
+    "no_products": [(CORE, "        if constexpr (M == Mode::kSplit3)\n"
+                           "          wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));\n"
+                           "        wgmma_ss_n64(small, a_lo, b_hi);\n"
+                           "        wgmma_ss_n64(big, a_hi, b_hi);\n", "")],
     "late_b": [(CORE, "    cp_async_wait<1>();  // chunk c of B has landed (c + 1 may be in flight)\n",
                 "    if (c == 0) cp_async_wait<1>(); else cp_async_wait<0>();\n"),
                (CORE, "    __syncthreads();     // chunk c of A and B is in shared memory, for wgmma too\n",
@@ -66,14 +87,134 @@ VARIANTS = {
                       "    if (c + 2 < chunks) load_b(c + 2, s);\n"
                       "    cp_async_commit();  // possibly empty: one group per chunk keeps the count\n",
                 "")],
-    "k1_wn1": [("wavenet.cu", "cudaError_t err = gemm::launch_wn<2>(",
-                "cudaError_t err = gemm::launch_wn<1>("),
-               ("wavenet_lane.cu", "cudaError_t err = gemm::launch_wn<2>(",
-                "cudaError_t err = gemm::launch_wn<1>(")],
+    "k1_wn1": [("wavenet.cu", "gemm::launch_wn<2, M>(", "gemm::launch_wn<1, M>("),
+               ("wavenet_lane.cu", "gemm::launch_wn<2, M>(", "gemm::launch_wn<1, M>(")],
     "k1_wn2_x1": [(CORE, "WN == 1 ? 3 : (WN == 2 ? 2 : 1)", "WN == 1 ? 3 : 1")],
-    "k1_wn3": [("wavenet.cu", "cudaError_t err = gemm::launch_wn<2>(",
-                "cudaError_t err = gemm::launch(")],
+    "k1_wn3": [("wavenet.cu", "gemm::launch_wn<2, M>(", "gemm::launch<M>(")],
 }
+# bf16_norm_loader's loader: A = n(x), the adaptive RMSNorm x / max(‖x‖,
+# 1e-12) · √dm · γ_b + β_b of x [b, n, dm] (γ, β [b, dm]) in f32, rounded to
+# bf16, zero past dm, staged by the producer warpgroup through registers
+# into the swizzled A panel (dm a multiple of 8; x, γ and β 16-byte
+# aligned): `scales` computes the tile's row scales once (one warp a row)
+# into shared memory past the barriers, `stage` writes one chunk's panel.
+# Every producer thread arrives on the stage's full barrier after its
+# stores; B still comes by TMA.
+_NORM_ROWS = r"""struct NormRows {
+  const bf16* x;
+  const bf16* gamma;
+  const bf16* beta;
+  int batch, n, dm;
+
+  cudaError_t map(CUtensorMap*, int) const { return cudaSuccess; }  // no copies of A
+
+  __device__ void scales(float* s, int bi, int t0, int bm, int ptid) const {
+    const int warp = ptid / 32, lane = ptid % 32;
+    for (int r = warp; r < bm; r += kProducers / 32) {
+      const int t = t0 + r;
+      float ss = 0.0f;
+      if (t < n) {
+        const bf16* p = x + ((size_t)bi * n + t) * dm;
+        for (int k = 8 * lane; k < dm; k += 256) {
+          const uint4 u = *reinterpret_cast<const uint4*>(p + k);
+          const float4 a = unpack_bf16x4(make_uint2(u.x, u.y));
+          const float4 b = unpack_bf16x4(make_uint2(u.z, u.w));
+          ss += a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w + b.x * b.x + b.y * b.y +
+                b.z * b.z + b.w * b.w;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      if (lane == 0) s[r] = sqrtf((float)dm) / fmaxf(sqrtf(ss), 1e-12f);
+    }
+    sm90::bar_sync(1, kProducers);  // the producer warpgroup's own barrier
+  }
+
+  __device__ static uint32_t norm2(uint32_t xw, uint32_t gw, uint32_t bw, float sc) {
+    const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xw));
+    const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gw));
+    const float2 bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bw));
+    return pack_bf16x2(xv.x * sc * gv.x + bv.x, xv.y * sc * gv.y + bv.y);
+  }
+
+  __device__ void stage(uint32_t panel, const float* s, int bi, int t0, int bm, int kc,
+                        int ptid) const {
+    const bf16* g = gamma + (size_t)bi * dm;
+    const bf16* be = beta + (size_t)bi * dm;
+#pragma unroll 1
+    for (int e = ptid; e < bm * 8; e += kProducers) {
+      const int r = e / 8, k = kc * kKC + 8 * (e % 8), t = t0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (t < n && k < dm) {
+        const uint4 xv = *reinterpret_cast<const uint4*>(x + ((size_t)bi * n + t) * dm + k);
+        const uint4 gv = *reinterpret_cast<const uint4*>(g + k);
+        const uint4 bv = *reinterpret_cast<const uint4*>(be + k);
+        const float sc = s[r];
+        v = make_uint4(norm2(xv.x, gv.x, bv.x, sc), norm2(xv.y, gv.y, bv.y, sc),
+                       norm2(xv.z, gv.z, bv.z, sc), norm2(xv.w, gv.w, bv.w, sc));
+      }
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       panel + sm90::swizzled(r, e % 8)),
+                   "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+                   : "memory");
+    }
+  }
+};
+template <class L>
+constexpr bool kStagedA = false;
+template <>
+constexpr bool kStagedA<NormRows> = true;
+
+"""
+_STAGED_PRODUCER = r"""    if constexpr (kStagedA<Loader>) {
+      const int ptid = tid - T::kConsumers;
+      float* scales =
+          reinterpret_cast<float*>(bgemm_smem + (base - raw) + T::kBars + 16 * kStages);
+      ld.scales(scales, bi, t0, BM, ptid);
+      for (int kc = 0; kc < chunks; ++kc) {
+        const int st = kc % kStages;
+        sm90::mbar_wait(&empty[st], ((kc / kStages) & 1) ^ 1);
+        const uint32_t a_at = base + st * T::kStage;
+        if (ptid == 0) {
+          mbar_expect_tx(&full[st], T::kPanelB);
+          tma_load_3d(a_at + T::kPanelA, &map_b, &full[st], 0, n0, kc);
+        }
+        ld.stage(a_at, scales, bi, t0, BM, kc, ptid);
+        fence_proxy_async();  // the stores, made visible to wgmma
+        sm90::mbar_arrive(&full[st]);
+      }
+    } else if (tid == T::kConsumers) {
+"""
+_TILE = "  const Shape s = choose(ld.batch, ld.n, b_rows);\n"
+_STAGES = "constexpr int kStages = 4; "
+BF16_VARIANTS = {
+    "bf16_stages3": [(BF16_CORE, _STAGES, "constexpr int kStages = 3; ")],
+    "bf16_stages2": [(BF16_CORE, _STAGES, "constexpr int kStages = 2; ")],
+    "bf16_no_loop_pins": [(BF16_CORE, "    sm90::pin(acc);\n    wg_fence();\n", "    wg_fence();\n"),
+                          (BF16_CORE, "    sm90::wg_wait<1>();  // chunk kc - 1's products are done, "
+                                      "kc's may run\n    sm90::pin(acc);\n",
+                           "    sm90::wg_wait<1>();\n")],
+    "bf16_wait0": [(BF16_CORE, "    sm90::wg_wait<1>();  // chunk kc - 1's products are done, "
+                               "kc's may run\n", "    sm90::wg_wait<0>();\n")],
+    "bf16_norm_loader": [
+        (BF16_CORE, "// B: the packed Bᵀ [chunks, b_rows, 64] as a 3-dim map",
+         _NORM_ROWS + "// B: the packed Bᵀ [chunks, b_rows, 64] as a 3-dim map"),
+        (BF16_CORE, "(int)kBars + 16 * kStages + 1024;", "(int)kBars + 16 * kStages + 4 * BM + 1024;"),
+        (BF16_CORE, "sm90::mbar_init(&full[st], 1);",
+         "sm90::mbar_init(&full[st], kStagedA<Loader> ? 1 + kProducers : 1);"),
+        (BF16_CORE, "    if (tid == T::kConsumers) {\n", _STAGED_PRODUCER),
+        (BF16_CORE, "  const cudaError_t err = norm_rows(x, gamma, beta, scratch, b * n, n, dm, "
+                    "dm_pad, stream);\n  if (err != cudaSuccess) return err;\n"
+                    "  return launch(Rows{scratch, b, n, dm_pad, dm_pad}, bt, b_rows, chunks, "
+                    "epi, stream);\n",
+         "  return launch(NormRows{x, gamma, beta, b, n, dm}, bt, b_rows, chunks, epi, stream);\n")],
+    "bf16_tile_128x256": [(BF16_CORE, _TILE, "  const Shape s = kShapes[0];\n")],
+    "bf16_tile_128x128": [(BF16_CORE, _TILE, "  const Shape s = kShapes[1];\n")],
+    "bf16_tile_64x64": [(BF16_CORE, _TILE, "  const Shape s = kShapes[2];\n")],
+}
+# the sources each set of variants builds (K2's attention core is K4)
+BF16_SOURCES = ("ff_block.cu", "attn_block.cu", "flash_fwd.cu", "flash_fwd_bf16.cu", "runtime.cu")
+SOURCES = (*BF16_SOURCES, "wavenet.cu", "wavenet_lane.cu")
 # (name, b, n, dm)
 SHAPES = (("flagship", 4, 1024, 128), ("conditional", 8, 512, 128), ("long", 1, 9000, 128),
           ("scaled", 16, 1024, 512))
@@ -83,11 +224,24 @@ WAVENET_SHAPES = (("flagship", 4, 1024, "stack"), ("long", 1, 4500, "stack"),
                   ("long", 1, 9000, "lanes"))
 
 
-def build_variants(_build) -> dict:
+# (name, b, n, dm, blocks) of K2 and K3 in bf16: the bf16 flagship's, the
+# served request's, the scaled model's, and K3 on the n-9000 long form
+BF16_SHAPES = (("flagship", 4, 1024, 128, ("ff_block", "attn_block")),
+               ("served", 2, 512, 128, ("ff_block", "attn_block")),
+               ("scaled", 16, 1024, 512, ("ff_block", "attn_block")),
+               ("long", 1, 9000, 128, ("ff_block",)))
+ENTRIES = ("ns2_ff_block", "ns2_attn_block", "ns2_ff_block_bf16", "ns2_attn_block_bf16")
+WAVENET_ENTRIES = ("ns2_wavenet_body", "ns2_wavenet_lanes")
+
+
+def build_variants(_build, variants: dict, sources: tuple) -> dict:
+    """Each variant's copy of csrc/ with its edits, ``sources`` built into
+    one library (all variants at once); its ptxas registers (and spills) of
+    the cores' kernels."""
     work = _build.BUILD_DIR / "gemm_variants"
     shutil.rmtree(work, ignore_errors=True)
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         d = work / name
         shutil.copytree(_build.CSRC, d)
         for f, old, new in edits:
@@ -97,8 +251,7 @@ def build_variants(_build) -> dict:
             (d / f).write_text(text.replace(old, new))
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "ff_block.cu"), str(d / "attn_block.cu"), str(d / "flash_fwd.cu"),
-             str(d / "wavenet.cu"), str(d / "wavenet_lane.cu"), str(d / "runtime.cu")],
+             *(str(d / f) for f in sources)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, p in procs.items():
@@ -107,6 +260,8 @@ def build_variants(_build) -> dict:
             raise RuntimeError(f"variant {name} failed to build:\n{out[-3000:]}")
         regs, in_core, spill = [], False, ""
         for line in out.splitlines():
+            if "warning" in line or "C75" in line:
+                print(f"variant {name}: {line.strip()[:300]}", flush=True)
             if "Compiling entry" in line:
                 in_core, spill = "gemm_kernel" in line, ""
             elif in_core and "spill stores" in line and not line.strip().endswith(
@@ -117,7 +272,7 @@ def build_variants(_build) -> dict:
                 in_core = False
         print(f"variant {name}: {' | '.join(regs)}", flush=True)
         lib = ctypes.CDLL(str(work / name / "lib.so"))
-        for fn in ("ns2_ff_block", "ns2_attn_block", "ns2_wavenet_body", "ns2_wavenet_lanes"):
+        for fn in ENTRIES + (WAVENET_ENTRIES if "wavenet.cu" in sources else ()):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -137,7 +292,8 @@ def time_variants(cs, libs, label: str, entry: str, args, out, ref, base) -> Non
         if code:
             print(f"{label}: variant {name} returned CUDA error {code}", flush=True)
             continue
-        errs[name] = ((out - ref).abs().max() / (ref - base).abs().max()).item()
+        diff = (out.float() - ref.float()).abs().max()
+        errs[name] = (diff / (ref.float() - base).abs().max()).item()
     for _ in range(2):  # two rounds, variants in turn
         for name, lib in libs.items():
             if name not in errs:
@@ -149,21 +305,15 @@ def time_variants(cs, libs, label: str, entry: str, args, out, ref, base) -> Non
                       for name, t in times.items()), flush=True)
 
 
-def main() -> int:
+def f32_cores(cs, libs) -> None:
+    """The split-TF32 core's variants: K3 and K2 at SHAPES, K1 and K1b at
+    WAVENET_SHAPES, f32."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("gemm_variants: no CUDA device", file=sys.stderr)
-        return 1
-    import chip_smoke as cs
-    from naturalspeech2_tpu_torch import _build
     from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
     from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
     from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cs.phase1_card_and_build()
-    libs = build_variants(_build)
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     for label, b, n, dm in SHAPES:
@@ -188,7 +338,7 @@ def main() -> int:
                    scratch[1].data_ptr(), out.data_ptr(), b, n, dm, wt.ip, stream)
         attn_args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), bt_qkv.data_ptr(),
                      bt_out.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, dm,
-                     cs.HEADS, cs.DIM_HEAD, cs.DIM_HEAD**-0.5, stream)
+                     cs.HEADS, 64, cs.DIM_HEAD**-0.5, 1, stream)
         for block, entry, args, ref in (("K3", "ns2_ff_block", ff_args, ff_ref),
                                         ("K2", "ns2_attn_block", attn_args, attn_ref)):
             time_variants(cs, libs, f"{block} {label} [{b},{n},{dm}]", entry, args, out, ref, x)
@@ -211,6 +361,106 @@ def main() -> int:
         time_variants(cs, libs, f"{name} {label} [{b},{n},{cs.DIM}]", entry, args, out, ref, 0.0)
         del x, weights, film, ref, wt, state, out
         torch.cuda.empty_cache()
+
+
+def _device_ms_by_kernel(fn, calls: int = 10) -> dict:
+    """torch.profiler's device time a call, by kernel name, over ``calls``
+    calls of ``fn`` (after one warm-up)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def bf16_cores(cs, libs) -> None:
+    """The bf16 core's variants: K3 and K2 bf16 at BF16_SHAPES; base's K3
+    launches by kernel beside torch.matmul in bf16 at their M x N x K."""
+    import torch
+
+    from naturalspeech2_tpu_torch import _build
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 200)
+    for label, b, n, dm, blocks in BF16_SHAPES:
+        for name, _, plain, _, work, residual, c_entry in cs.bf16_block_cases(gen, b, n, dm,
+                                                                                blocks):
+            ref = plain()
+            out = c_entry()
+            block = "K3" if name == "ff_block" else "K2"
+            time_variants(cs, libs, f"{block} bf16 {label} [{b},{n},{dm}] (bound "
+                                    f"{work['bound_ms']:.4f} ms)", f"ns2_{name}_bf16",
+                          c_entry.args, out, ref, residual.float())
+            if name == "ff_block":
+                ip = c_entry.keep[0].ip
+                gemms = (("::Rows, ns2::bgemm::Geglu", 2 * ip, dm),
+                         ("::TapRows, ns2::bgemm::Store", ip, 3 * ip),
+                         ("::Rows, ns2::bgemm::Store", dm, ip))
+            else:
+                hd = cs.HEADS * cs.DIM_HEAD
+                gemms = (("::Rows, ns2::bgemm::QkvScatter", 3 * hd, dm),
+                         ("::HeadRows, ns2::bgemm::Store", dm, hd))
+            yardstick(cs, c_entry, b * n, gemms, f"{block} bf16 {label} [{b},{n},{dm}]")
+            del ref, out, c_entry
+        torch.cuda.empty_cache()
+
+
+def yardstick(cs, call, m: int, gemms, label: str) -> None:
+    """The device time of each launch of ``call`` (torch.profiler): each
+    GEMM (named by its loader and epilogue) beside torch.matmul in bf16 at
+    its M x N x K (CUDA events, median of 20) and both rates; the other
+    kernels (the norm pre-pass, K2's attention core) by name."""
+    import torch
+
+    by_kernel = _device_ms_by_kernel(call)
+    parts = [f"{name[:48]} {ms:.4f} ms" for name, ms in by_kernel.items()
+             if "bf16_gemm_kernel" not in name]
+    for key, n, k in gemms:
+        ms = sum(t for name, t in by_kernel.items()
+                 if "bf16_gemm_kernel" in name and key in name)
+        a = torch.randn(m, k, device="cuda").bfloat16()
+        w = torch.randn(k, n, device="cuda").bfloat16()
+        lib_ms = cs.cuda_ms(lambda: torch.matmul(a, w))
+        flop = 2 * m * n * k
+        parts.append(f"{key.strip(':').replace(', ns2::bgemm::', '+')} M {m} N {n} K {k}: core "
+                     f"{ms:.4f} ms ({flop / ms / 1e9:.0f} TFLOP/s), torch.matmul bf16 "
+                     f"{lib_ms:.4f} ms ({flop / lib_ms / 1e9:.0f} TFLOP/s)")
+        del a, w
+    print(f"{label} launches: " + "; ".join(parts), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("gemm_variants: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from naturalspeech2_tpu_torch import _build
+
+    names = sys.argv[1:]
+    every = {**VARIANTS, **BF16_VARIANTS}
+    unknown = [v for v in names if v not in every]
+    if unknown:
+        print(f"gemm_variants: no variant {unknown}; variants: {list(every)}", file=sys.stderr)
+        return 2
+    chosen = {"base": [], **{v: every[v] for v in (names or every) if v != "base"}}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs.phase1_card_and_build()
+    run_f32 = not names or any(v in VARIANTS and v != "base" for v in names)
+    libs = build_variants(_build, chosen, SOURCES if run_f32 else BF16_SOURCES)
+    f32 = {v: lib for v, lib in libs.items() if v in VARIANTS}
+    bf16 = {v: lib for v, lib in libs.items() if v == "base" or v in BF16_VARIANTS}
+    if run_f32:
+        f32_cores(cs, f32)
+    if not names or len(bf16) > 1:
+        bf16_cores(cs, bf16)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0

@@ -31,18 +31,23 @@
 // norm takes √dm from the real width, and the caller's scale is unchanged.
 //
 // bf16 (`ns2_attn_block_bf16`, the JAX kernel's `mm = bfloat16` path,
-// attn_block_kernel.py:100-154): the same three launches on bf16 operands,
-// the products bf16 `wgmma` with f32 accumulation. The norm runs in f32 on
-// the loader and rounds n(x) to bf16 as it stages it; q, k and v are
-// rounded to bf16 where the first epilogue stores them; K4's bf16 kernel
-// (flash_fwd_bf16.cu) rounds P before P·V and writes o in bf16; the W_o GEMM sums the heads and
-// the residual in f32 and rounds y once. One difference from the TPU
-// kernel: K4 rescales its online softmax per key tile, so P is rounded
-// against the running row max, not the final one (one bf16 ulp on some
-// probabilities; chip_smoke.py holds the block to its plain version).
+// attn_block_kernel.py:100-154): the projections on the bf16 GEMM core
+// (gemm_bf16.cuh), bf16 `wgmma` with f32 accumulation, in four launches.
+// The norm pre-pass writes n(x) in f32, rounded to bf16, into the o scratch
+// (dm padded with zeros to 64 columns: o holds max(H·dh, dm_pad) a row);
+// the q/k/v GEMM reads it as plain rows and rounds q, k and v to bf16 where
+// its epilogue stores them; K4's bf16 kernel (flash_fwd_bf16.cu) rounds P
+// before P·V and writes o in bf16 over n(x); the W_o GEMM reads o in K4's
+// layout, sums the heads and the residual in f32 and rounds y once. One
+// difference from the TPU kernel: K4 rescales its online softmax per key
+// tile, so P is rounded against the running row max, not the final one (one
+// bf16 ulp on some probabilities; chip_smoke.py holds the block to its
+// plain version).
+#include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 
 namespace gemm = ns2::gemm;
+namespace bgemm = ns2::bgemm;
 using ns2::bf16;
 
 extern "C" int ns2_flash_fwd(const float* q, const float* k, const float* v,
@@ -73,28 +78,49 @@ int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, 
                             0u, 0.0f, 0, 0u, 1.0f, 0, 0, stream);
 }
 
-// T: the activations' type; M: the core's mode (kSplit2 for the mixed
-// entry point, f32 rows against TF32-exact bf16 weights).
-template <class T, gemm::Mode M = gemm::kModeOf<T>>
-int attn_block(const T* x, const T* gamma, const T* beta, const T* bt_qkv, const T* bt_out,
-               T* qkv, T* o, T* out, int b, int n, int dm, int heads, int dh, float scale,
-               int residual, void* stream) {
+// The block on the split-TF32 core: f32 (kSplit3) or, M = kSplit2, the
+// mixed entry point (f32 rows against TF32-exact bf16 weights).
+template <gemm::Mode M = gemm::Mode::kSplit3>
+int attn_block(const float* x, const float* gamma, const float* beta, const float* bt_qkv,
+               const float* bt_out, float* qkv, float* o, float* out, int b, int n, int dm,
+               int heads, int dh, float scale, int residual, void* stream) {
   if (dm <= 0 || n <= 0 || b <= 0 || heads <= 0 || (dh != 64 && (dh <= 0 || dh % 128 != 0)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = b * n;
   cudaError_t err = gemm::launch<M>(
-      gemm::NormRows<T>{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_qkv, rows,
+      gemm::NormRows<float>{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_qkv, rows,
       (dm + gemm::kKC - 1) / gemm::kKC, 3 * heads * dh / gemm::kBN,
-      gemm::QkvScatter<T>{qkv, rows, n, heads, b, dh}, st);
+      gemm::QkvScatter<float>{qkv, rows, n, heads, b, dh}, st);
   if (err != cudaSuccess) return err;
   const size_t plane = (size_t)rows * heads * dh;
   err = (cudaError_t)attention_core(qkv, qkv + plane, qkv + 2 * plane, o, b, heads, n, n, dh,
                                     scale, stream);
   if (err != cudaSuccess) return err;
-  return gemm::launch<M>(gemm::HeadRows<T>{o, rows, n, heads, dh}, bt_out, rows,
+  return gemm::launch<M>(gemm::HeadRows<float>{o, rows, n, heads, dh}, bt_out, rows,
                          heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store<T>{out, nullptr, residual ? x : nullptr, rows, dm, dm}, st);
+                         gemm::Store<float>{out, nullptr, residual ? x : nullptr, rows, dm, dm},
+                         st);
+}
+
+// The block on the bf16 core (gemm_bf16.cuh); o holds max(H·dh, dm_pad)
+// values a row.
+int attn_block_bf16(const bf16* x, const bf16* gamma, const bf16* beta, const bf16* bt_qkv,
+                    const bf16* bt_out, bf16* qkv, bf16* o, bf16* out, int b, int n, int dm,
+                    int heads, int dh, float scale, int residual, void* stream) {
+  if (dm <= 0 || n <= 0 || b <= 0 || heads <= 0 || (dh != 64 && (dh <= 0 || dh % 128 != 0)))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = b * n, hd = heads * dh, dm_pad = bgemm::round_up(dm, bgemm::kPad);
+  cudaError_t err = bgemm::launch_normed(x, gamma, beta, o, b, n, dm, bt_qkv, 3 * hd,
+                                         bgemm::QkvScatter{qkv, n, heads, b, dh}, st);
+  if (err != cudaSuccess) return err;
+  const size_t plane = (size_t)rows * hd;
+  err = (cudaError_t)attention_core(qkv, qkv + plane, qkv + 2 * plane, o, b, heads, n, n, dh,
+                                    scale, stream);
+  if (err != cudaSuccess) return err;
+  return bgemm::launch(bgemm::HeadRows{o, b, heads, n, dh}, bt_out, dm_pad, hd / bgemm::kKC,
+                       bgemm::Store{out, nullptr, residual ? x : nullptr, dm, dm}, st);
 }
 
 }  // namespace
@@ -114,7 +140,6 @@ NS2_API int ns2_attn_block(const float* x, const float* gamma, const float* beta
                     residual, stream);
 }
 
-// The same in bf16: every pointer bf16, the weights packed as bf16.
 // Mixed (`ns2_attn_block_mixed`: f32 activations, γ, β and biases against bf16
 // weights packed as TF32 with no lo part, AMP training's denoiser): the f32
 // block, the GEMM core in its two-pass kSplit2 mode (the f32 rows split
@@ -125,14 +150,19 @@ NS2_API int ns2_attn_block_mixed(const float* x, const float* gamma, const float
                                  const float* bt_qkv, const float* bt_out, float* qkv, float* o,
                                  float* out, int b, int n, int dm, int heads, int dh, float scale,
                                  int residual, void* stream) {
-  return attn_block<float, gemm::Mode::kSplit2>(x, gamma, beta, bt_qkv, bt_out, qkv, o, out, b,
+  return attn_block<gemm::Mode::kSplit2>(x, gamma, beta, bt_qkv, bt_out, qkv, o, out, b,
                                                 n, dm, heads, dh, scale, residual, stream);
 }
 
+// The same in bf16 on the bf16 core: every pointer bf16, the weights packed
+// "bf16_sw128" (bt_qkv: N = 3·H·dh, K = dm padded to 64; bt_out: N = dm
+// padded to 64, K = H·dh); o holds max(H·dh, dm padded to 64) values for
+// each of the b·n rows. Four launches: the norm pre-pass, the q/k/v GEMM,
+// K4 bf16 and the W_o GEMM.
 NS2_API int ns2_attn_block_bf16(const bf16* x, const bf16* gamma, const bf16* beta,
                                 const bf16* bt_qkv, const bf16* bt_out, bf16* qkv, bf16* o,
                                 bf16* out, int b, int n, int dm, int heads, int dh, float scale,
                                 int residual, void* stream) {
-  return attn_block(x, gamma, beta, bt_qkv, bt_out, qkv, o, out, b, n, dm, heads, dh, scale,
-                    residual, stream);
+  return attn_block_bf16(x, gamma, beta, bt_qkv, bt_out, qkv, o, out, b, n, dm, heads, dh, scale,
+                         residual, stream);
 }

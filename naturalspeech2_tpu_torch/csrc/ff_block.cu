@@ -26,41 +26,67 @@
 // exact zeros in the packed weights, which change no sum; the norm takes
 // √dm from the real width.
 //
-// bf16 (`ns2_ff_block_bf16`, ff_block_kernel.py:102-130): the same three
-// launches on bf16 operands, bf16 `wgmma` with f32 accumulation: n(x)
-// rounded to bf16 as it is staged; the GEGLU and its biases in f32 and `a`
-// rounded once where the epilogue stores it (the JAX kernel's one downcast
-// shared by the three conv taps), so the scratches are bf16; c = conv + b_c
-// rounded before W₂; y + b₂ + x in f32, rounded once.
+// bf16 (`ns2_ff_block_bf16`, ff_block_kernel.py:102-130): the bf16 GEMM
+// core (gemm_bf16.cuh), bf16 `wgmma` with f32 accumulation, in four
+// launches: the norm pre-pass writes n(x), rounded to bf16, into the c
+// scratch (dm padded with zeros to 64 columns, so c holds max(ip, dm_pad)
+// a row: dm_pad passes ip where ff_mult is small, 512 against 384); the
+// GEGLU reads it as plain rows, its biases and gate in f32 and `a` rounded
+// once where the epilogue stores it (the JAX kernel's one downcast shared
+// by the three conv taps); the conv reads the three taps as row-shifted
+// views of `a`; c = conv + b_c rounded before W₂; y + b₂ + x in f32, rounded
+// once. The weights are packed "bf16_sw128" and ip is a multiple of 64.
+#include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 
 namespace gemm = ns2::gemm;
+namespace bgemm = ns2::bgemm;
 using ns2::bf16;
 
 namespace {
 
-// T: the activations' and biases' type; M: the core's mode (kSplit2 for
-// the mixed entry point).
-template <class T, gemm::Mode M = gemm::kModeOf<T>>
-int ff_block(const T* x, const T* gamma, const T* beta, const T* bt_geglu, const T* b_val,
-             const T* b_gate, const T* bt_conv, const T* bc, const T* bt_out, const T* b2,
-             T* a_buf, T* c_buf, T* out, int b, int n, int dm, int ip, void* stream) {
+// The split-TF32 core's block: f32 (kSplit3) or, M = kSplit2, the mixed
+// entry point.
+template <gemm::Mode M = gemm::Mode::kSplit3>
+int ff_block(const float* x, const float* gamma, const float* beta, const float* bt_geglu,
+             const float* b_val, const float* b_gate, const float* bt_conv, const float* bc,
+             const float* bt_out, const float* b2, float* a_buf, float* c_buf, float* out, int b,
+             int n, int dm, int ip, void* stream) {
   if (ip % gemm::kKC != 0 || dm <= 0 || n <= 0 || b <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = b * n;
   const int dm_chunks = (dm + gemm::kKC - 1) / gemm::kKC;
   cudaError_t err = gemm::launch<M>(
-      gemm::NormRows<T>{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_geglu, rows,
-      dm_chunks, ip / gemm::kKC, gemm::Geglu<T>{a_buf, b_val, b_gate, rows, ip}, st);
+      gemm::NormRows<float>{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_geglu, rows,
+      dm_chunks, ip / gemm::kKC, gemm::Geglu<float>{a_buf, b_val, b_gate, rows, ip}, st);
   if (err != cudaSuccess) return err;
-  err = gemm::launch<M>(gemm::TapRows<T>{a_buf, rows, n, ip, 3, 1}, bt_conv, rows,
+  err = gemm::launch<M>(gemm::TapRows<float>{a_buf, rows, n, ip, 3, 1}, bt_conv, rows,
                         3 * ip / gemm::kKC, (ip + gemm::kBN - 1) / gemm::kBN,
-                        gemm::Store<T>{c_buf, bc, nullptr, rows, ip, ip}, st);
+                        gemm::Store<float>{c_buf, bc, nullptr, rows, ip, ip}, st);
   if (err != cudaSuccess) return err;
-  return gemm::launch<M>(gemm::TapRows<T>{c_buf, rows, n, ip, 1, 0}, bt_out, rows,
+  return gemm::launch<M>(gemm::TapRows<float>{c_buf, rows, n, ip, 1, 0}, bt_out, rows,
                          ip / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store<T>{out, b2, x, rows, dm, dm}, st);
+                         gemm::Store<float>{out, b2, x, rows, dm, dm}, st);
 }
+
+// The block on the bf16 core (gemm_bf16.cuh).
+int ff_block_bf16(const bf16* x, const bf16* gamma, const bf16* beta, const bf16* bt_geglu,
+                  const bf16* b_val, const bf16* b_gate, const bf16* bt_conv, const bf16* bc,
+                  const bf16* bt_out, const bf16* b2, bf16* a_buf, bf16* c_buf, bf16* out, int b,
+                  int n, int dm, int ip, void* stream) {
+  const int dm_pad = bgemm::round_up(dm, bgemm::kPad);
+  if (ip % bgemm::kKC != 0 || dm <= 0 || n <= 0 || b <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = bgemm::launch_normed(x, gamma, beta, c_buf, b, n, dm, bt_geglu, 2 * ip,
+                                         bgemm::Geglu{a_buf, b_val, b_gate, ip}, st);
+  if (err != cudaSuccess) return err;
+  err = bgemm::launch(bgemm::TapRows{a_buf, b, n, ip}, bt_conv, ip, 3 * ip / bgemm::kKC,
+                      bgemm::Store{c_buf, bc, nullptr, ip, ip}, st);
+  if (err != cudaSuccess) return err;
+  return bgemm::launch(bgemm::Rows{c_buf, b, n, ip, ip}, bt_out, dm_pad, ip / bgemm::kKC,
+                       bgemm::Store{out, b2, x, dm, dm}, st);
+}
+
 
 }  // namespace
 
@@ -89,17 +115,21 @@ NS2_API int ns2_ff_block_mixed(const float* x, const float* gamma, const float* 
                                const float* bt_conv, const float* bc, const float* bt_out,
                                const float* b2, float* a_buf, float* c_buf, float* out, int b,
                                int n, int dm, int ip, void* stream) {
-  return ff_block<float, gemm::Mode::kSplit2>(x, gamma, beta, bt_geglu, b_val, b_gate, bt_conv,
+  return ff_block<gemm::Mode::kSplit2>(x, gamma, beta, bt_geglu, b_val, b_gate, bt_conv,
                                               bc, bt_out, b2, a_buf, c_buf, out, b, n, dm, ip,
                                               stream);
 }
 
-// The same in bf16: every pointer bf16, the weights packed as bf16.
+// The same in bf16 on the bf16 core: every pointer bf16, the weights
+// packed "bf16_sw128" (bt_geglu: N = 2·ip, K = dm padded to 64; bt_conv: N
+// = ip, K = 3·ip; bt_out: N = dm padded to 64, K = ip), ip a multiple of 64;
+// c_buf holds b·n rows of max(ip, dm padded to 64). Four launches: the norm
+// pre-pass and the three GEMMs.
 NS2_API int ns2_ff_block_bf16(const bf16* x, const bf16* gamma, const bf16* beta,
                               const bf16* bt_geglu, const bf16* b_val, const bf16* b_gate,
                               const bf16* bt_conv, const bf16* bc, const bf16* bt_out,
                               const bf16* b2, bf16* a_buf, bf16* c_buf, bf16* out, int b, int n,
                               int dm, int ip, void* stream) {
-  return ff_block(x, gamma, beta, bt_geglu, b_val, b_gate, bt_conv, bc, bt_out, b2, a_buf,
-                  c_buf, out, b, n, dm, ip, stream);
+  return ff_block_bf16(x, gamma, beta, bt_geglu, b_val, b_gate, bt_conv, bc, bt_out, b2, a_buf,
+                       c_buf, out, b, n, dm, ip, stream);
 }

@@ -1,0 +1,624 @@
+// The bf16 GEMM core of K2 (attn_block.cu) and K3 (ff_block.cu) in bf16:
+//
+//   C[M x N] = epilogue(A[M x K] · B[K x N]),   A and B bf16, summed in f32,
+//
+// on Hopper's bf16 tensor cores (989 TFLOP/s dense, H100 SXM at 700 W).
+//
+// What bounds it on the card: the products. K3's three GEMMs at the scaled
+// model's b16 × n1024 × d512 are 266 GFLOP against some 120 MB of operands
+// and outputs, far past the ridge (≈ 295 FLOP a byte); the served b2 ×
+// n512 × d128 ones fill less than one wave of the 132 SMs.
+//
+// Design (the shape of K4's and K5's bf16 kernels, flash_bf16.cuh, with
+// the copies on the Tensor Memory Accelerator): a block owns a BM × BN tile
+// of C, BM = 64·G rows for G consumer warpgroups of 64 rows each, and one
+// producer warpgroup.
+//  - K runs in chunks of 64, one 128-byte row of bf16 per row of an
+//    operand: a chunk of A is one [BM, 64] panel and of B one [BN, 64]
+//    panel, both in the 128-byte swizzled layout that `wgmma` reads
+//    K-major (flash_bf16.cuh), so a chunk's four k-steps are
+//    `wgmma.m64nBNk16` on descriptors 32 bytes apart.
+//  - One producer thread keeps a ring of 4 chunks in flight: per chunk one
+//    TMA box of A (the hardware writes the 128-byte swizzle) and one of B,
+//    both completing on the stage's `full` mbarrier with their byte count.
+//    The producer warpgroup hands its registers to the consumers
+//    (`setmaxnreg`, two consumer warpgroups). No thread stages an operand
+//    through registers: copies by `cp.async` from a producer warpgroup
+//    reached some 14 GB/s an SM, a sixth of what the products need at 128 ×
+//    256, whatever the ring's depth (gemm_variants.py).
+//  - The f32 accumulator stays in registers across the whole of K. Each
+//    consumer warp releases a stage on its `empty` mbarrier as soon as its
+//    warpgroup's products on it are done (`wgmma.wait_group 1` after the
+//    next chunk's products are issued), with no block-wide barrier.
+//  - A is plain bf16 rows, [b, H, n, w] as a 4-dim tensor map, and a tile's
+//    rows lie in one sequence (batch · ceil(n / BM) row tiles), so a box
+//    that runs past the sequence's ends reads TMA's out-of-bounds zeros:
+//    `Rows` (rows of a buffer: n(x) written by the pre-pass `norm_rows`,
+//    K3's c), `TapRows` (K3's conv: the three taps are boxes of one [b, n,
+//    w] buffer shifted back by 2, 1 and 0 rows, the rows before t = 0 of
+//    the sequence zeros) and `HeadRows` (K4's output [b, H, n, dh] as the
+//    heads' concatenation; a chunk of 64 lies in one head).
+//  - B is a weight, packed once by the Python wrapper (`pack_b(bt,
+//    "bf16_sw128")` in ops/gemm_cache.py): Bᵀ [N, K] padded with zeros to
+//    64-row and 64-column multiples and laid out chunk by chunk, [K / 64,
+//    N, 64], each 128-byte row already swizzled. The rows n0 .. n0 + BN - 1
+//    of a chunk are then one contiguous run, a TMA box copied as it lies,
+//    whatever BN is (rows past N read as zeros).
+//  - The tile shape is chosen by waves of the SMs (`choose`): 128 × 256
+//    where the grid is large, 128 × 128, or 64 × 64 (two blocks an SM)
+//    where a grid of larger tiles would leave most SMs idle (the served
+//    shapes).
+// Epilogues: `Geglu` (each 64 columns of B hold 32 value and the same 32
+// gate columns, so both products share A), `Store` (bias and an optional
+// residual, summed in f32, rounded once) and `QkvScatter` (into K4's [3, b,
+// H, n, dh]). Every rounding point of the JAX kernels stays where the
+// callers put it: the core only sums A·B in f32 and hands the sum to the
+// epilogue.
+#pragma once
+
+#include <cuda.h>
+#include <stdint.h>
+
+#include "flash_bf16.cuh"
+#include "gemm_tf32x3.cuh"
+
+namespace ns2 {
+namespace bgemm {
+
+constexpr int kKC = 64;          // k per chunk: one 128-byte panel row of bf16
+constexpr int kStages = 4;       // chunks in the ring (4 to 7 fit; deeper gained nothing)
+constexpr int kProducers = 128;  // the warpgroup that copies
+constexpr int kPad = 64;         // what pack_b pads N and K to
+
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// A block of BM rows (BM / 64 consumer warpgroups) by BN columns, and its
+// shared memory from a 1024-byte aligned base: kStages stages of an A panel
+// and a B panel, then each stage's full and empty barriers (at 128 x 256,
+// 193 KB of the SM's 227). Blocks of 128 rows run one an SM (168 registers
+// a thread at launch, then 40 for the producer and 232 for the consumers);
+// blocks of 64 rows two (128 each).
+template <int BM, int BN>
+struct Tile {
+  static constexpr int kGroups = BM / 64;
+  static constexpr int kConsumers = 128 * kGroups;
+  static constexpr int kThreads = kConsumers + kProducers;
+  static constexpr int kBlocksPerSm = BM == 128 ? 1 : 2;
+  static constexpr uint32_t kPanelA = BM * sm90::kPanelRowBytes;
+  static constexpr uint32_t kPanelB = BN * sm90::kPanelRowBytes;
+  static constexpr uint32_t kStage = kPanelA + kPanelB;
+  static constexpr uint32_t kBars = kStages * kStage;
+  static constexpr int kBytes = (int)kBars + 16 * kStages + 1024;  // + alignment
+};
+
+// d[64 x 256] += A·Bᵀ over one k-step of 16: bf16 A and B in shared memory,
+// both K-major and 128-byte swizzled (descriptors a, b), f32 accumulation;
+// scale_d 0 overwrites d. The accumulator layout as sm90::wgmma_ss_n64's, j < 32.
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[32][4], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// One k-step of 16 for a warpgroup's 64 x BN accumulator.
+template <int BN>
+__device__ __forceinline__ void mma(float (&d)[BN / 8][4], uint64_t a, uint64_t b) {
+  if constexpr (BN == 256)
+    wgmma_ss_n256(d, a, b, 1);
+  else if constexpr (BN == 128)
+    sm90::wgmma_ss_n128(d, a, b, 1);
+  else
+    sm90::wgmma_ss_n64(d, a, b, 1);
+}
+
+// ---- TMA ----------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, the driver's, through the runtime's entry point
+// (no link to the driver library); null where the driver lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map of a bf16 tensor of `rank` dims (dims[0] innermost, strides
+// in bytes of dims 1 .. rank - 1), read in boxes of box[] elements; reads out
+// of bounds (negative coordinates too) give zeros. swizzle: the 128-byte
+// swizzle `wgmma` reads (A), or none (B, packed already swizzled).
+inline cudaError_t make_map(CUtensorMap* map, const bf16* base, int rank, const uint64_t* dims,
+                            const uint64_t* strides, const uint32_t* box, bool swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t d[4], st[3];
+  cuuint32_t bx[4], one[4] = {1, 1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    if (i + 1 < rank) st[i] = strides[i];
+  }
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                            const_cast<bf16*>(base), d, st, bx, one,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Arrive on `bar` expecting `bytes` more from the copies that complete on it.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   sm90::smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One box of a 4-dim (A) or 3-dim (B) map at coordinates c.. into shared
+// memory at dst, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(sm90::smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(sm90::smem_u32(bar))
+      : "memory");
+}
+
+// ---- A: a 4-dim map [b, H, n, w] of the operand (w innermost) and the
+// coordinates (c, t, h, b) of chunk kc's box for the tile of rows t0 ..
+// t0 + BM - 1 of sequence bi: A[bi·n + t, 64·kc + j] is element (c + j, t,
+// h, bi) of the map. A tile's rows lie in one sequence, so a box past the
+// sequence's ends (t < 0, t >= n) reads zeros. -------------------------------
+
+inline cudaError_t rows_map(CUtensorMap* map, const bf16* a, int batch, int heads, int n, int w,
+                            int ld, int bm) {
+  const uint64_t dims[4] = {(uint64_t)w, (uint64_t)n, (uint64_t)heads, (uint64_t)batch};
+  const uint64_t row = 2ull * ld, strides[3] = {row, row * n, row * n * heads};
+  const uint32_t box[4] = {(uint32_t)kKC, (uint32_t)bm, 1, 1};
+  return make_map(map, a, 4, dims, strides, box, true);
+}
+
+// A[b·n + t, k] = a[(b·n + t)·ld + k] for k < w; ld a multiple of 8.
+struct Rows {
+  const bf16* a;
+  int batch, n, ld, w;
+
+  cudaError_t map(CUtensorMap* m, int bm) const { return rows_map(m, a, batch, 1, n, w, ld, bm); }
+  __device__ void at(int kc, int t0, int bi, int (&c)[4]) const {
+    c[0] = kc * kKC;
+    c[1] = t0;
+    c[2] = 0;
+    c[3] = bi;
+  }
+};
+
+// K3's causal conv: A[b·n + t, tap·w + c] = a[b·n + t - (2 - tap), c], zero
+// where t < 2 - tap (the box starts before its sequence); a [b, n, w], w a
+// multiple of 64, so each chunk lies in one tap.
+struct TapRows {
+  const bf16* a;
+  int batch, n, w;
+
+  cudaError_t map(CUtensorMap* m, int bm) const { return rows_map(m, a, batch, 1, n, w, w, bm); }
+  __device__ void at(int kc, int t0, int bi, int (&c)[4]) const {
+    const int k = kc * kKC, tap = k / w;
+    c[0] = k - tap * w;
+    c[1] = t0 - (2 - tap);
+    c[2] = 0;
+    c[3] = bi;
+  }
+};
+
+// A[b·n + t, h·dh + e] = o[b, h, t, e]: K4's output [b, H, n, dh] as the rows
+// of the heads' concatenation; dh a multiple of 64, so each chunk lies in
+// one head.
+struct HeadRows {
+  const bf16* o;
+  int batch, heads, n, dh;
+
+  cudaError_t map(CUtensorMap* m, int bm) const {
+    return rows_map(m, o, batch, heads, n, dh, dh, bm);
+  }
+  __device__ void at(int kc, int t0, int bi, int (&c)[4]) const {
+    const int k = kc * kKC, h = k / dh;
+    c[0] = k - h * dh;
+    c[1] = t0;
+    c[2] = h;
+    c[3] = bi;
+  }
+};
+
+// B: the packed Bᵀ [chunks, b_rows, 64] as a 3-dim map, boxes of BN rows of
+// one chunk, copied as they lie (already swizzled); rows past b_rows read
+// as zeros.
+inline cudaError_t b_map(CUtensorMap* map, const bf16* bt, int b_rows, int chunks, int bn) {
+  const uint64_t dims[3] = {(uint64_t)kKC, (uint64_t)b_rows, (uint64_t)chunks};
+  const uint64_t strides[2] = {2ull * kKC, 2ull * kKC * b_rows};
+  const uint32_t box[3] = {(uint32_t)kKC, (uint32_t)bn, 1};
+  return make_map(map, bt, 3, dims, strides, box, false);
+}
+
+// ---- epilogues, on a warpgroup's 64 x BN accumulator ----------------------
+//
+// Lane l = 4g + t of warp w holds rows m0 + 16w + g + 8r (r = 0, 1) and
+// columns n0 + 8j + 2t + e (e = 0, 1) as acc[j][2r + e], j < BN / 8; rows at
+// or past row_end (the end of the tile's sequence) are not stored.
+
+// out[row, col] = acc + bias[col] (+ res[row, col]) for col < ncols, out
+// and res [rows, ld]; bias and res may be null. Summed in f32, rounded once.
+struct Store {
+  bf16* out;
+  const bf16* bias;
+  const bf16* res;
+  int ncols, ld;
+
+  template <int NJ>
+  __device__ void operator()(const float (&acc)[NJ][4], int m0, int row_end, int n0, int warp,
+                             int lane) const {
+    const bool pairs = ld % 2 == 0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 16 * warp + lane / 4 + 8 * r;
+      if (row >= row_end) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane % 4);
+        if (col >= ncols) continue;
+        const size_t at = (size_t)row * ld + col;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          v[e] = acc[j][2 * r + e] + (bias && col + e < ncols ? to_f32(bias[col + e]) : 0.0f) +
+                 (res && col + e < ncols ? to_f32(res[at + e]) : 0.0f);
+        if (pairs && col + 1 < ncols) {
+          store2(out + at, v[0], v[1]);
+        } else {
+          out[at] = from_f32<bf16>(v[0]);
+          if (col + 1 < ncols) out[at + 1] = from_f32<bf16>(v[1]);
+        }
+      }
+    }
+  }
+};
+
+// K3's GEGLU: each 64 columns of B hold 32 value columns in their first half
+// and the same 32 gate columns in their second (ops/ff_block_kernel.py
+// interleaves them so), and write
+//   a[row, c] = gelu_tanh(gate + b_gate[c]) · (val + b_val[c])
+// for c < w, a [rows, w] (w even), in f32, rounded once.
+struct Geglu {
+  bf16* a;
+  const bf16* b_val;
+  const bf16* b_gate;
+  int w;
+
+  template <int NJ>
+  __device__ void operator()(const float (&acc)[NJ][4], int m0, int row_end, int n0, int warp,
+                             int lane) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 16 * warp + lane / 4 + 8 * r;
+      if (row >= row_end) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (j % 8 >= 4) continue;  // a gate tile: read with its value tile
+        const int c = n0 / 2 + 32 * (j / 8) + 8 * (j % 8) + 2 * (lane % 4);
+        if (c >= w) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          v[e] = gelu_tanh(acc[j + 4][2 * r + e] + to_f32(b_gate[c + e])) *
+                 (acc[j][2 * r + e] + to_f32(b_val[c + e]));
+        store2(a + (size_t)row * w + c, v[0], v[1]);
+      }
+    }
+  }
+};
+
+// K2's q/k/v: column which·H·dh + h·dh + e (which: q, k, v) is column e of
+// head h of that projection, scattered into K4's layout qkv [3, b, H, n, dh];
+// dh % 64 == 0, so each 64 columns lie within one head.
+struct QkvScatter {
+  bf16* qkv;
+  int n, heads, batch, dh;
+
+  template <int NJ>
+  __device__ void operator()(const float (&acc)[NJ][4], int m0, int row_end, int n0, int warp,
+                             int lane) const {
+    const int hd = heads * dh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 16 * warp + lane / 4 + 8 * r;
+      if (row >= row_end) continue;
+      const int bi = row / n, t = row % n;
+#pragma unroll
+      for (int p = 0; p < NJ / 8; ++p) {
+        const int col = n0 + 64 * p, which = col / hd;
+        if (which >= 3) continue;
+        const int h = col % hd / dh, e0 = col % dh;
+        bf16* dst = qkv + ((((size_t)which * batch + bi) * heads + h) * n + t) * dh + e0;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          store2(dst + 8 * jj + 2 * (lane % 4), acc[8 * p + jj][2 * r],
+                 acc[8 * p + jj][2 * r + 1]);
+      }
+    }
+  }
+};
+
+// ---- the kernel -----------------------------------------------------------
+
+// grid (ceil(b_rows / BN), batch · ceil(n / BM)), Tile<BM, BN>::kThreads
+// threads, Tile<BM, BN>::kBytes of dynamic shared memory: block (x, y) owns
+// columns x·BN .. x·BN + BN - 1 and rows t0 .. t0 + BM - 1 (t0 = (y %
+// tiles)·BM, tiles = ceil(n / BM)) of sequence y / tiles. map_a: the
+// Loader's map of A; map_b: the packed Bᵀ's (b_map), chunks · 64 = K.
+template <int BM, int BN, class Loader, class Epilogue>
+__global__ void __launch_bounds__(Tile<BM, BN>::kThreads, Tile<BM, BN>::kBlocksPerSm)
+bf16_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b, Loader ld, int chunks, Epilogue epi) {
+  using T = Tile<BM, BN>;
+  extern __shared__ __align__(1024) unsigned char bgemm_smem[];
+  const uint32_t raw = sm90::smem_u32(bgemm_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bgemm_smem + (base - raw) + T::kBars);
+  uint64_t* full = bars;
+  uint64_t* empty = bars + kStages;
+
+  const int tid = threadIdx.x;
+  const int seq_tiles = (ld.n + BM - 1) / BM;
+  const int bi = blockIdx.y / seq_tiles, t0 = blockIdx.y % seq_tiles * BM;
+  const int n0 = blockIdx.x * BN;
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      sm90::mbar_init(&full[st], 1);  // the producer's arrival and its bytes
+      sm90::mbar_init(&empty[st], T::kConsumers / 32);  // every consumer warp done with it
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= T::kConsumers) {  // the producer warpgroup: one thread issues the copies
+    if constexpr (T::kGroups == 2) sm90::producer_regs<2>();
+    if (tid == T::kConsumers) {
+      for (int kc = 0; kc < chunks; ++kc) {
+        const int st = kc % kStages;
+        sm90::mbar_wait(&empty[st], ((kc / kStages) & 1) ^ 1);  // the first round passes
+        const uint32_t a_at = base + st * T::kStage;
+        int c[4];
+        ld.at(kc, t0, bi, c);
+        mbar_expect_tx(&full[st], T::kStage);
+        tma_load_4d(a_at, &map_a, &full[st], c[0], c[1], c[2], c[3]);
+        tma_load_3d(a_at + T::kPanelA, &map_b, &full[st], 0, n0, kc);
+      }
+    }
+    return;
+  }
+  if constexpr (T::kGroups == 2) sm90::consumer_regs<2>();
+
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  float acc[BN / 8][4];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+
+  for (int kc = 0; kc < chunks; ++kc) {
+    const int st = kc % kStages;
+    sm90::mbar_wait(&full[st], (kc / kStages) & 1);  // the chunk's bytes have landed
+    const uint32_t a_at = base + st * T::kStage + wg * 64 * sm90::kPanelRowBytes;
+    const uint32_t b_at = base + st * T::kStage + T::kPanelA;
+    sm90::pin(acc);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kKC / 16; ++ks)
+      mma<BN>(acc, sm90::desc(a_at + 32 * ks), sm90::desc(b_at + 32 * ks));
+    wg_commit();
+    sm90::wg_wait<1>();  // chunk kc - 1's products are done, kc's may run
+    sm90::pin(acc);
+    if (kc > 0 && lane == 0) sm90::mbar_arrive(&empty[(kc - 1) % kStages]);
+  }
+  sm90::wg_wait<0>();
+  sm90::pin(acc);
+  const int seq0 = bi * ld.n;
+  Epilogue e = epi;
+  e(acc, seq0 + t0 + 64 * wg, seq0 + ld.n, n0, warp, lane);
+}
+
+// The tile shapes, with the blocks an SM and a relative rate of products
+// each sustains an SM (a smaller tile reads more bytes a product).
+struct Shape {
+  int bm, bn, per_sm;
+  float rate;
+};
+constexpr Shape kShapes[] = {{128, 256, 1, 1.0f}, {128, 128, 1, 0.85f}, {64, 64, 2, 0.6f}};
+
+// The shape that finishes a GEMM of `cols` columns over batch sequences of
+// n rows soonest by waves of the SMs: tiles = batch · ceil(n / bm) ·
+// ceil(cols / bn), ceil(tiles / (SMs · blocks an SM)) waves, each as long
+// as one SM's share of products, blocks an SM · bm · bn / rate.
+inline Shape choose(int batch, int n, int cols) {
+  const int sms = gemm::sm_count();
+  Shape best = kShapes[0];
+  float best_cost = 0.0f;
+  for (const Shape& s : kShapes) {
+    const long tiles = (long)batch * ((n + s.bm - 1) / s.bm) * ((cols + s.bn - 1) / s.bn);
+    const long waves = (tiles + (long)sms * s.per_sm - 1) / ((long)sms * s.per_sm);
+    const float cost = (float)waves * s.per_sm * s.bm * s.bn / s.rate;
+    if (&s == kShapes || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int BM, int BN, class Loader, class Epilogue>
+cudaError_t launch_tile(const Loader& ld, const bf16* bt, int b_rows, int chunks,
+                        const Epilogue& epi, cudaStream_t stream) {
+  using T = Tile<BM, BN>;
+  CUtensorMap map_a, map_b;
+  cudaError_t err = ld.map(&map_a, BM);
+  if (err != cudaSuccess) return err;
+  err = b_map(&map_b, bt, b_rows, chunks, BN);
+  if (err != cudaSuccess) return err;
+  auto kernel = bf16_gemm_kernel<BM, BN, Loader, Epilogue>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((b_rows + BN - 1) / BN, ld.batch * ((ld.n + BM - 1) / BM));
+  kernel<<<grid, T::kThreads, T::kBytes, stream>>>(map_a, map_b, ld, chunks, epi);
+  return cudaGetLastError();
+}
+
+// C = epilogue(A · B) over the loader's batch · n rows and the b_rows
+// columns of the packed Bᵀ (a multiple of 64; pack_b's padding of N), K =
+// chunks · 64, launched on `stream` without synchronising.
+template <class Loader, class Epilogue>
+cudaError_t launch(const Loader& ld, const bf16* bt, int b_rows, int chunks, const Epilogue& epi,
+                   cudaStream_t stream) {
+  if (ld.batch <= 0 || ld.n <= 0 || chunks <= 0 || b_rows <= 0 || b_rows % kPad != 0)
+    return cudaErrorInvalidValue;
+  const Shape s = choose(ld.batch, ld.n, b_rows);
+  if (s.bm == 128 && s.bn == 256) return launch_tile<128, 256>(ld, bt, b_rows, chunks, epi, stream);
+  if (s.bm == 128) return launch_tile<128, 128>(ld, bt, b_rows, chunks, epi, stream);
+  return launch_tile<64, 64>(ld, bt, b_rows, chunks, epi, stream);
+}
+
+// ---- the norm pre-pass ----------------------------------------------------
+
+constexpr int kNormRowsPerBlock = 8;  // one warp a row
+
+// out[row, k] = n(x)[row, k] rounded to bf16 for k < dm, 0 for dm <= k < ld:
+// the adaptive RMSNorm x / max(‖x‖, 1e-12) · √dm · γ_b + β_b of x [rows,
+// dm] (row = b·n + t, γ, β [b, dm]) in f32, as the split-TF32 core's
+// NormRows loader computes it; ld even.
+template <class In>
+__global__ void __launch_bounds__(32 * kNormRowsPerBlock)
+norm_rows_kernel(const In* __restrict__ x, const In* __restrict__ gamma,
+                 const In* __restrict__ beta, bf16* __restrict__ out, int rows, int n, int dm,
+                 int ld, float sqrt_dm) {
+  const int row = blockIdx.x * kNormRowsPerBlock + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const In* p = x + (size_t)row * dm;
+  const size_t bd = (size_t)(row / n) * dm;
+  float ss = 0.0f;
+  for (int k = lane; k < dm; k += 32) {
+    const float v = to_f32(p[k]);
+    ss += v * v;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  const float scale = sqrt_dm / fmaxf(sqrtf(ss), 1e-12f);
+  bf16* o = out + (size_t)row * ld;
+  for (int k = 2 * lane; k < ld; k += 64) {
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      v[e] = k + e < dm
+                 ? to_f32(p[k + e]) * scale * to_f32(gamma[bd + k + e]) + to_f32(beta[bd + k + e])
+                 : 0.0f;
+    store2(o + k, v[0], v[1]);
+  }
+}
+
+// n(x) of x [b·n, dm] into out [b·n, ld] (ld >= dm, even), launched on
+// `stream` without synchronising.
+inline cudaError_t norm_rows(const bf16* x, const bf16* gamma, const bf16* beta, bf16* out,
+                             int rows, int n, int dm, int ld, cudaStream_t stream) {
+  if (rows <= 0 || n <= 0 || dm <= 0 || ld < dm || ld % 2 != 0) return cudaErrorInvalidValue;
+  norm_rows_kernel<bf16><<<(rows + kNormRowsPerBlock - 1) / kNormRowsPerBlock,
+                           32 * kNormRowsPerBlock, 0, stream>>>(x, gamma, beta, out, rows, n, dm,
+                                                                ld, sqrtf((float)dm));
+  return cudaGetLastError();
+}
+
+// C = epilogue(n(x) · B), n(x) the adaptive RMSNorm of x [b, n, dm]: the
+// pre-pass into `scratch` (b·n rows of dm padded to 64), then a GEMM on its
+// rows; K = dm padded to 64. (n(x) staged through registers by the GEMM's
+// producer warpgroup instead, the pre-pass saved, was slower at every shape
+// of the bf16 paths but the served K3's, where it was level:
+// gemm_variants.py's bf16_norm_loader.)
+template <class Epilogue>
+cudaError_t launch_normed(const bf16* x, const bf16* gamma, const bf16* beta, bf16* scratch,
+                          int b, int n, int dm, const bf16* bt, int b_rows, const Epilogue& epi,
+                          cudaStream_t stream) {
+  const int dm_pad = round_up(dm, kPad), chunks = dm_pad / kKC;
+  const cudaError_t err = norm_rows(x, gamma, beta, scratch, b * n, n, dm, dm_pad, stream);
+  if (err != cudaSuccess) return err;
+  return launch(Rows{scratch, b, n, dm_pad, dm_pad}, bt, b_rows, chunks, epi, stream);
+}
+
+}  // namespace bgemm
+}  // namespace ns2

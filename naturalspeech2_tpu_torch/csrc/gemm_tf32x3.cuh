@@ -61,7 +61,10 @@
 //  - kBf16: A rounded to bf16 where the loader hands it over (after the
 //    f32 prologue: the JAX kernels' `xn.astype(mm)`), B packed as bf16,
 //    one `wgmma.m64n64k16` bf16 pass with f32 accumulation, 989 TFLOP/s
-//    dense (H100 SXM, 700 W). K2, K2b and K3 in bf16.
+//    dense (H100 SXM, 700 W). K2b in bf16 and K1b's `bf16_matmul`; K2 and
+//    K3 in bf16 run the bf16 core instead (gemm_bf16.cuh: 64-deep chunks
+//    copied by a producer warpgroup into a 4-stage ring, the accumulator
+//    kept across K), which this mode's users are to move to.
 // A chunk of 32 k is four TF32 k-steps or two bf16 ones; each is summed in
 // fresh accumulators and added to the f32 result, as above. Loaders read
 // f32 or bf16 activations and hand f32 values to the staging; epilogues

@@ -33,7 +33,9 @@ the norm in f32, n(x), q, k, v, P and o rounded to bf16 before each
 product, products summed in f32, the heads and the residual summed in f32
 and y rounded once; ``attn_block_bf16_torch`` and
 ``cross_attn_block_bf16_torch`` are the plain versions, rounding point for
-rounding point (the CPU route in bf16).
+rounding point (the CPU route in bf16). K2's bf16 projections run the bf16
+GEMM core (``csrc/gemm_bf16.cuh``, weights packed "bf16_sw128", dm padded
+to 64) after a norm pre-pass; K2b's the split-TF32 core's bf16 mode.
 
 Mixed (x, γ, β and the context float32, the weights bfloat16: AMP
 training's denoiser) both compute the f32 block on the weights' values,
@@ -237,10 +239,13 @@ def attn_block_packed_torch(x, gamma, beta, packed, *, heads: int, scale: float)
     """The kernel's three launches in plain PyTorch, from the packed weights:
     q/k/v at the padded head width dh in K4's layout, the attention core
     (``flash_forward_torch``), the heads' concatenation times W_o with the
-    residual; the norm at the real dm. Equal to ``attn_block_torch`` up to
-    f32 reordering: the check of K2's padding and weight layout on the
-    CPU."""
+    residual; the norm at the real dm. In f32 equal to ``attn_block_torch``
+    up to f32 reordering, in bf16 (x, γ, β and the weights bf16, packed
+    "bf16_sw128") to ``attn_block_bf16_torch``'s rounding points: the
+    check of K2's padding and weight layout on the CPU."""
     b, n, dm = x.shape
+    if x.dtype == torch.bfloat16:
+        return _packed_bf16(x, gamma, beta, packed, heads=heads, scale=scale)
     dense = [sum(gemm_cache.unpack_b(p)) for p in packed]
     hd = dense[1].shape[1]  # H·dh: the out Bᵀ's K, a multiple of 64
     dh = hd // heads
@@ -250,6 +255,22 @@ def attn_block_packed_torch(x, gamma, beta, packed, *, heads: int, scale: float)
     return x + o.transpose(1, 2).reshape(b, n, hd) @ dense[1][:dm, :hd].T
 
 
+def _packed_bf16(x, gamma, beta, packed, *, heads: int, scale: float):
+    """``attn_block_packed_torch`` in bf16: ``attn_block_bf16_torch``'s
+    rounding points (n(x), q, k, v, P and o rounded, y once) on the packed
+    weights (bf16 values)."""
+    b, n, dm = x.shape
+    xf = x.float()
+    dense = [sum(gemm_cache.unpack_b(p, "bf16_sw128")).float() for p in packed]
+    hd = dense[1].shape[1]
+    dh = hd // heads
+    xn = _rd(ada_norm(xf, gamma.float(), beta.float()))
+    qkv = _rd(xn @ dense[0][:3 * hd, :dm].T)
+    q, k, v = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    o = _rd(_core_bf16(q, k, v, scale=scale))
+    return (xf + o.transpose(1, 2).reshape(b, n, hd) @ dense[1][:dm, :hd].T).to(x.dtype)
+
+
 def _pack_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dtype):
     """``pack_attn_weights`` after the wrapper's checks of the weights,
     which a cache hit then need not repeat; ``dtype`` is x's."""
@@ -257,7 +278,8 @@ def _pack_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dtype):
     dm, hd = wq.shape[0], heads * dim_head
     _build.require_shapes("attn_block", wq=(wq, (dm, hd)), wkv=(wkv, (dm, 2 * hd)),
                           wo=(wo, (hd, dm)))
-    return pack_attn_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype, wq.dtype))
+    return pack_attn_weights(wq, wkv, wo, heads, dim_head,
+                             gemm_cache.fmt_of(dtype, wq.dtype, bf16_core=True))
 
 
 def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float,
@@ -281,7 +303,11 @@ def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: f
                          f"{tuple(x.shape)} on {x.device}")
     dh = kernel_head_dim(dim_head)
     qkv = torch.empty((3, b, heads, n, dh), dtype=x.dtype, device=x.device)
-    o = torch.empty((b, heads, n, dh), dtype=x.dtype, device=x.device)
+    # o [b, H, n, dh]; in bf16 it first holds n(x) at dm padded to 64
+    o_row = heads * dh
+    if x.dtype == torch.bfloat16:
+        o_row = max(o_row, gemm_cache.round_up(dm, gemm_cache.SW128_CHUNK))
+    o = torch.empty(b * n * o_row, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     err = _build.entry("ns2_attn_block", x.dtype, wq.dtype)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), bt_qkv.data_ptr(), bt_out.data_ptr(),
@@ -313,8 +339,9 @@ def attn_block(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale:
 
     x: [b, n, dm]; gamma/beta: [b, dm]; wq: [dm, H·dh]; wkv: [dm, 2·H·dh];
     wo: [H·dh, dm]. CUDA tensors run the kernel (three launches: q/k/v on
-    the GEMM core, K4's attention core, W_o on the GEMM core; counted as one
-    launch of K2); CPU tensors run the plain version. ``residual=False``
+    the GEMM core, K4's attention core, W_o on the GEMM core; in bf16 a norm
+    pre-pass first and the bf16 GEMM core; counted as one launch of K2); CPU
+    tensors run the plain version. ``residual=False``
     returns the heads' sum alone, without x.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta, wq, wkv, wo)):

@@ -16,9 +16,11 @@ The kernel reads its weights packed for the split-TF32 GEMM core
 that layout in plain PyTorch.
 
 In bf16 (x bfloat16, the weights, γ and β too) the block runs the JAX
-kernel's `mm = bfloat16` path through the kernel's bf16 entry point (the
-weights packed as bf16): ``ff_block_bf16_torch`` is its plain version, the
-CPU route in bf16.
+kernel's `mm = bfloat16` path through the kernel's bf16 entry point, on the
+bf16 GEMM core (``csrc/gemm_bf16.cuh``; the weights packed "bf16_sw128",
+the inner width padded to 64): ``ff_block_bf16_torch`` is its plain
+version, the CPU route in bf16, and ``ff_block_packed_torch`` computes it
+from the packed weights at the same rounding points.
 
 Mixed (x, γ and β float32, the weights and biases bfloat16: AMP
 training's denoiser) the block is the f32 one on the weights' values,
@@ -149,17 +151,19 @@ class FFWeights(NamedTuple):
     conv: torch.Tensor    # packed Bᵀ [ip, 3·ip]: column tap·ip + k is Wc[tap][k]
     bc: torch.Tensor      # [ip]
     out: torch.Tensor     # packed W₂ᵀ [dm, ip]
-    ip: int               # the inner width padded to the GEMM core's chunk of 32
+    ip: int               # the inner width padded to the format's chunk (32, or 64)
 
 
 def pack_ff_weights(w1, b1, wc, bc, w2, fmt: str = "split") -> FFWeights:
     """The `FeedForward` weights in the GEMM core's format (``gemm_cache.
     pack_b`` in ``fmt``; the biases keep their dtype), inner padded with
-    exact zeros to a multiple of 32 (341 → 352, 1365 → 1376): zero value,
+    exact zeros to a multiple of the format's chunk, 32 (341 → 352, 1365 →
+    1376) or 64 for "bf16_sw128" (341 → 384, 1365 → 1408): zero value,
     gate and bias columns give a = 0 there, which meets zero conv and W₂
-    rows, so no sum changes."""
+    rows, so no sum changes. The GEGLU's Bᵀ interleaves 32 value and the
+    same 32 gate rows in every format."""
     dm, inner = w1.shape[0], w1.shape[-1] // 2
-    ip = gemm_cache.round_up(inner, gemm_cache.CHUNK)
+    ip = gemm_cache.round_up(inner, gemm_cache.chunk_of(fmt))
     pad = ip - inner
     w_val, w_gate = F.pad(w1[:, :inner], (0, pad)), F.pad(w1[:, inner:], (0, pad))
     geglu = torch.stack([w.T.reshape(ip // 32, 32, dm) for w in (w_val, w_gate)], dim=1)
@@ -171,27 +175,34 @@ def pack_ff_weights(w1, b1, wc, bc, w2, fmt: str = "split") -> FFWeights:
 
 
 def ff_block_packed_torch(x, gamma, beta, weights: FFWeights, b2):
-    """The kernel's three launches in plain PyTorch, from the packed
-    weights: the GEGLU over interleaved value / gate tiles, the conv as one
-    product over the three shifted row views, the out product with the
-    residual, at the padded inner width, the norm at the real dm. Equal to
-    ``ff_block_torch`` up to f32 reordering: the check of K3's padding and
-    weight layout on the CPU."""
+    """The kernel's launches in plain PyTorch, from the packed weights: the
+    GEGLU over interleaved value / gate tiles, the conv as one product over
+    the three shifted row views, the out product with the residual, at the
+    padded inner width, the norm at the real dm. In f32 equal to
+    ``ff_block_torch`` up to f32 reordering; in bf16 (x, γ, β and the
+    weights bf16) at ``ff_block_bf16_torch``'s rounding points: the check
+    of K3's padding and weight layout on the CPU."""
     n, dm = x.shape[1:]
     ip = weights.ip
+    low = x.dtype == torch.bfloat16
+    rd = _rd if low else (lambda t: t)
+    xf = x.float() if low else x
+
+    fmt = "bf16_sw128" if low else None  # bf16: the bf16 core's format
 
     def dense(packed, rows, cols):
-        hi, lo = gemm_cache.unpack_b(packed)
-        return (hi + lo)[:rows, :cols]
+        hi, lo = gemm_cache.unpack_b(packed, fmt)
+        return (hi + lo)[:rows, :cols].to(xf.dtype)
 
-    xn = ada_norm(x, gamma, beta)
+    xn = rd(ada_norm(xf, gamma.to(xf.dtype), beta.to(xf.dtype)))
     geglu = dense(weights.geglu, 2 * ip, dm).reshape(ip // 32, 2, 32, dm)
-    val = xn @ geglu[:, 0].reshape(ip, dm).T + weights.b_val
-    gate = xn @ geglu[:, 1].reshape(ip, dm).T + weights.b_gate
-    a = F.gelu(gate, approximate="tanh") * val
+    val = xn @ geglu[:, 0].reshape(ip, dm).T + weights.b_val.to(xf.dtype)
+    gate = xn @ geglu[:, 1].reshape(ip, dm).T + weights.b_gate.to(xf.dtype)
+    a = rd(F.gelu(gate, approximate="tanh") * val)
     taps = torch.cat([F.pad(a, (0, 0, 2, 0))[:, :n], F.pad(a, (0, 0, 1, 0))[:, :n], a], dim=-1)
-    c = taps @ dense(weights.conv, ip, 3 * ip).T + weights.bc
-    return x + c @ dense(weights.out, dm, ip).T + b2
+    c = rd(taps @ dense(weights.conv, ip, 3 * ip).T + weights.bc.to(xf.dtype))
+    y = c @ dense(weights.out, dm, ip).T
+    return (xf + (y + b2.float())).to(x.dtype) if low else x + y + b2
 
 
 def _pack_checked(w1, b1, wc, bc, w2, dtype: torch.dtype) -> FFWeights:
@@ -204,8 +215,20 @@ def _pack_checked(w1, b1, wc, bc, w2, dtype: torch.dtype) -> FFWeights:
         "ff_block", w1=(w1, (dm, 2 * inner)), b1=(b1, (2 * inner,)),
         wc=(wc, (3, inner, inner)), bc=(bc, (inner,)), w2=(w2, (inner, dm)),
     )
-    wt = pack_ff_weights(w1, b1, wc, bc, w2, gemm_cache.fmt_of(dtype, w1.dtype))
+    wt = pack_ff_weights(w1, b1, wc, bc, w2, gemm_cache.fmt_of(dtype, w1.dtype, bf16_core=True))
     return wt._replace(b_val=wt.b_val.to(dtype), b_gate=wt.b_gate.to(dtype), bc=wt.bc.to(dtype))
+
+
+def scratch(b: int, n: int, dm: int, ip: int, dtype: torch.dtype,
+            device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's a and c scratch, in one allocation: b·n rows of ip
+    each, but in bf16 c first holds n(x) at dm padded to 64, so its rows
+    are the wider of the two (dm 512 at ff_mult 1 pads past ip 384)."""
+    c_row = ip
+    if dtype == torch.bfloat16:
+        c_row = max(ip, gemm_cache.round_up(dm, gemm_cache.SW128_CHUNK))
+    buf = torch.empty(b * n * (ip + c_row), dtype=dtype, device=device)
+    return buf[:b * n * ip], buf[b * n * ip:]
 
 
 def _forward(x, gamma, beta, w1, b1, wc, bc, w2, b2):
@@ -223,12 +246,12 @@ def _forward(x, gamma, beta, w1, b1, wc, bc, w2, b2):
                          f"{b2.dtype} do not take x {tuple(x.shape)} {x.dtype} on {x.device}")
     b2 = b2.to(x.dtype)
     _build.require_cuda("ff_block", x.dtype, b2=b2)
-    scratch = torch.empty((2, b * n, wt.ip), dtype=x.dtype, device=x.device)
+    a_buf, c_buf = scratch(b, n, dm, wt.ip, x.dtype, x.device)
     out = torch.empty_like(x)
     err = _build.entry("ns2_ff_block", x.dtype, w1.dtype)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.geglu.data_ptr(), wt.b_val.data_ptr(),
         wt.b_gate.data_ptr(), wt.conv.data_ptr(), wt.bc.data_ptr(), wt.out.data_ptr(),
-        b2.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(), b, n, dm,
+        b2.data_ptr(), a_buf.data_ptr(), c_buf.data_ptr(), out.data_ptr(), b, n, dm,
         wt.ip, _build.stream(x),
     )
     _build.check(err, "ns2_ff_block")
@@ -253,8 +276,9 @@ def ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     w1/b1: the GEGLU Dense(2·inner), value half first and gate half
     second; wc/bc: the causal conv [3, inner, inner]; w2/b2: the out
     Dense [inner, dm]. CUDA tensors run the kernel (three launches of the
-    split-TF32 GEMM core at every width, counted as one launch of K3); CPU
-    tensors run the plain version.
+    split-TF32 GEMM core at every width in f32 and mixed; in bf16 the norm
+    pre-pass and three launches of the bf16 GEMM core; counted as one launch
+    of K3); CPU tensors run the plain version.
     """
     args = (x, gamma, beta, w1, b1, wc, bc, w2, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):

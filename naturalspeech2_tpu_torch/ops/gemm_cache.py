@@ -14,11 +14,19 @@ the weight back exactly).
 
 Two more formats carry bf16 weights (``pack_b(bt, fmt)``): ``"bf16"``,
 the bf16 values in the bf16 K-major order (a core matrix is 8 rows of 8
-bf16, a k-step 16 deep), one part, for the core's bf16 mode (K2, K2b and
-K3 in bf16); and ``"tf32"``, the bf16 values as f32 (exact in TF32) in the
-TF32 order with no lo part, for its two-pass mode (K1 and K1b in bf16,
-whose lanes stay f32, and the mixed entry points of K1, K1b, K2, K2b, K3
-and the bf16 K6, whose activations are f32).
+bf16, a k-step 16 deep), one part, for the core's bf16 mode (K2b in bf16,
+K1b's ``bf16_matmul``); and ``"tf32"``, the bf16 values as f32 (exact in
+TF32) in the TF32 order with no lo part, for its two-pass mode (K1 and K1b
+in bf16, whose lanes stay f32, and the mixed entry points of K1, K1b, K2,
+K2b, K3 and the bf16 K6, whose activations are f32).
+
+``"bf16_sw128"`` is the operand format of the bf16 GEMM core
+(``csrc/gemm_bf16.cuh``, K2 and K3 in bf16): Bᵀ [N, K] padded with zeros
+to multiples of 64 in both, laid out chunk by chunk as [K / 64, N, 64], each
+row of a chunk (64 bf16, 128 bytes) in the 128-byte swizzle that ``wgmma``
+reads: its 16-byte piece p holds the eight values of piece p ^ (n % 8).
+Rows n0 .. n0 + R of a chunk are then one contiguous run, whatever the
+kernel's tile width R, that it copies into shared memory as it stands.
 
 ``cached(name, build, *tensors)`` keeps what ``build`` made from the
 tensors (packed, padded or concatenated weights) until one of them changes:
@@ -64,7 +72,39 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 # k-step, half, row group, row, k).
 _K_SPLIT = {torch.float32: (4, 2, 4), torch.bfloat16: (2, 2, 8)}
 _TO_PACKED = (0, 3, 4, 5, 1, 2, 6)
-FORMATS = ("split", "tf32", "bf16")
+FORMATS = ("split", "tf32", "bf16", "bf16_sw128")
+SW128_CHUNK = 64  # k per chunk of the bf16 core, and what it pads N to
+
+
+def chunk_of(fmt: str) -> int:
+    """The k of one chunk of ``fmt``: what K (and a block's inner width)
+    is padded to."""
+    return SW128_CHUNK if fmt == "bf16_sw128" else CHUNK
+
+
+def _sw128_index(n: int, device) -> torch.Tensor:
+    """[n, 8]: the 16-byte piece of row r that piece p of its packed row
+    holds, p ^ (r % 8) (the swizzle is its own inverse)."""
+    return torch.arange(8, device=device)[None, :] ^ (torch.arange(n, device=device)[:, None] % 8)
+
+
+def _pack_sw128(bt: torch.Tensor) -> torch.Tensor:
+    *lead, n, k = bt.shape
+    bt = torch.nn.functional.pad(bt.to(torch.bfloat16), (0, round_up(k, SW128_CHUNK) - k,
+                                                         0, round_up(n, SW128_CHUNK) - n))
+    n, k = bt.shape[-2:]
+    t = bt.reshape(*lead, n, k // SW128_CHUNK, 8, 8).movedim(-3, -4)  # [..., chunks, n, 8, 8]
+    rows = torch.arange(n, device=bt.device)[:, None]
+    return t[..., rows, _sw128_index(n, bt.device), :].reshape(*lead, k // SW128_CHUNK, n,
+                                                                SW128_CHUNK).contiguous()
+
+
+def _unpack_sw128(packed: torch.Tensor) -> torch.Tensor:
+    *lead, chunks, n, _ = packed.shape
+    t = packed.reshape(*lead, chunks, n, 8, 8)
+    rows = torch.arange(n, device=packed.device)[:, None]
+    t = t[..., rows, _sw128_index(n, packed.device), :]  # [..., chunks, n, 8, 8]
+    return t.movedim(-4, -3).reshape(*lead, n, chunks * SW128_CHUNK)
 
 
 def pack_b(bt: torch.Tensor, fmt: str = "split") -> torch.Tensor:
@@ -76,9 +116,12 @@ def pack_b(bt: torch.Tensor, fmt: str = "split") -> torch.Tensor:
     ``csrc/wgmma.cuh``. "tf32": the same order, one part, for values exact
     in TF32 (bf16 weights). "bf16": bf16, one part, at ks·1024 + half·512 +
     (r // 8)·64 + (r % 8)·8 + k8 with k = 16·ks + 8·half + k8:
-    `kmajor_bf16<64>`."""
+    `kmajor_bf16<64>`. "bf16_sw128": bf16, [..., K_chunks, N_rows, 64], N
+    and K padded to 64 (see the module's docstring)."""
     if fmt not in FORMATS:
         raise ValueError(f"pack_b: fmt must be one of {FORMATS}, got {fmt!r}")
+    if fmt == "bf16_sw128":
+        return _pack_sw128(bt)
     dtype = torch.bfloat16 if fmt == "bf16" else torch.float32
     if fmt == "tf32" and bt.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"pack_b: tf32 packs bf16 values, got {bt.dtype}")
@@ -99,18 +142,29 @@ def pack_b(bt: torch.Tensor, fmt: str = "split") -> torch.Tensor:
                        dim=-2)
 
 
-def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None) -> str:
+def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None, *,
+           bf16_core: bool = False) -> str:
     """The weight format of the core's mode for a block's activation dtype
-    and its weights' (default: the same): "split" for f32, "bf16" for bf16,
-    "tf32" for f32 activations against bf16 weights (the two-pass mode)."""
+    and its weights' (default: the same): "split" for f32, "bf16" for bf16
+    ("bf16_sw128" with ``bf16_core``: the blocks on the bf16 GEMM core, K2
+    and K3), "tf32" for f32 activations against bf16 weights (the two-pass
+    mode)."""
     if dtype == torch.bfloat16:
-        return "bf16"
+        return "bf16_sw128" if bf16_core else "bf16"
     return "tf32" if weight_dtype == torch.bfloat16 else "split"
 
 
-def unpack_b(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def unpack_b(packed: torch.Tensor, fmt: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo), each the padded Bᵀ [..., N_tiles·64, K_chunks·32] back from
-    ``pack_b``'s layout (lo zeros for the one-part formats)."""
+    ``pack_b``'s layout in ``fmt`` (lo zeros for the one-part formats). The
+    split-TF32 core's formats tell themselves apart by their parts and
+    dtype, so ``fmt`` may be left out for them; "bf16_sw128" must be named,
+    and gives [..., N_rows, K_chunks·64]."""
+    if fmt is not None and fmt not in FORMATS:
+        raise ValueError(f"unpack_b: fmt must be one of {FORMATS}, got {fmt!r}")
+    if fmt == "bf16_sw128":
+        hi = _unpack_sw128(packed)
+        return hi, torch.zeros_like(hi)
     *lead, tiles, chunks, parts = packed.shape[:-1]
     nl = len(lead)
 
