@@ -2633,6 +2633,74 @@ def check_bf16_core(phase: str) -> None:
                                  f"split-TF32 core's {old} launched")
 
 
+def profile_counts(fn) -> dict:
+    """{device kernel name: launches} of one call of ``fn`` (torch.profiler,
+    after one warm-up call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def check_wavenet_bf16_core(phase: str, label: str, fn, launches: int) -> None:
+    """A profile of one K1 or K1b bf16 call: ``launches`` launches of the bf16
+    core's kernel, each stack's writing the three planes (`WaveGateSplit`),
+    and none of the split-TF32 core's."""
+    counts = profile_counts(fn)
+    core = {k: c for k, c in counts.items() if "ns2::bgemm::bf16_gemm_kernel" in k}
+    log(phase, f"{label} profile: {sum(core.values())} bf16 core launches "
+               f"{[(k[:110], c) for k, c in core.items()]}; all kernels {len(counts)}")
+    old = [k for k in counts if "ns2::gemm::gemm_kernel" in k]
+    gates = [k for k in core if "WaveGateSplit" in k]
+    if old or not gates or sum(core.values()) != launches or len(counts) != len(core):
+        raise AssertionError(f"{label}: {sum(core.values())} bf16 core launches (expected "
+                             f"{launches}), planes written by {gates}, split-TF32 {old}, "
+                             f"other kernels {[k for k in counts if k not in core]}")
+
+
+def wavenet_bf16_cases(phase: str) -> None:
+    """K1 and K1b bf16 at the widths and lengths the bf16 core's WaveNet
+    loaders must take, each against its plain bf16 version within BF16_TOL:
+    K1 at d 64, at d 96 (padded to 128) and at b3 n200, where the last
+    layers' taps 2δ = 256 reach past the whole sequence; K1b at n 6733
+    (K1's budget's first length past it) and at d 256; and the profiles of
+    K1 at the flagship's shape and K1b at n 9000 (S + 1 and S·L / LANE_GROUP
+    + L launches of the bf16 core)."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 206)
+    S, L = WAVENET_STACKS, WAVENET_LAYERS
+    for route, b, n, d in (("stack", 2, 512, 64), ("stack", 2, 512, 96), ("stack", 3, 200, DIM),
+                           ("lanes", 1, 6733, DIM), ("lanes", 1, 2048, 256)):
+        wn16 = _bf16(*wavenet_inputs(gen, b, n, d, S, L)[0])
+        if route == "stack":
+            out, ref = wk._forward("stack", *wn16), wk.wavenet_body_bf16_torch(*wn16)
+        else:
+            out, ref = wk.wavenet_body_lanes(*wn16), wk.wavenet_body_lanes_bf16_torch(*wn16)
+        torch.cuda.synchronize()
+        name = "wavenet_body" if route == "stack" else "wavenet_body_lanes"
+        compare(phase, f"{name} bf16 [{b},{n},{d}]", out, ref, BF16_TOL, relative=True)
+        del wn16, out, ref
+    # K1b's blocks run LANE_GROUP lanes a launch, its skips one lane a launch
+    lanes_launches = S * -(-L // wk.LANE_GROUP) + L
+    for route, b, n in (("stack", BATCH, LENGTH), ("lanes", 1, LONG_LENGTHS[1])):
+        wn16 = _bf16(*wavenet_inputs(gen, b, n, DIM, S, L)[0])
+        fn = ((lambda: wk._forward("stack", *wn16)) if route == "stack"
+              else (lambda: wk.wavenet_body_lanes(*wn16)))
+        check_wavenet_bf16_core(phase, f"{'K1' if route == 'stack' else 'K1b'} bf16 [{b},{n},"
+                                       f"{DIM}]", fn, S + 1 if route == "stack" else lanes_launches)
+        del wn16
+    torch.cuda.empty_cache()
+
+
 def _bf16_entry(name: str) -> dict:
     sources = {"wavenet_body": ("wavenet.cu", "wavenet_kernel.py:80"),
                "wavenet_body_lanes": ("wavenet_lane.cu", "wavenet_kernel.py:167"),
@@ -2649,7 +2717,8 @@ def _bf16_entry(name: str) -> dict:
 def phase22_bf16_kernels() -> list:
     """Each bf16 kernel against its plain bf16 version at the shapes the
     bf16 paths give it: K1 at [4,1024,128], [2,512,128], [8,512,128],
-    [1,4500,128]; K1b at [1,9000,128]; K2 and K3 at [4,1024,128],
+    [1,4500,128]; K1b at [1,9000,128]; K1 and K1b at the widths and
+    lengths of ``wavenet_bf16_cases``, with their profiles; K2 and K3 at [4,1024,128],
     [2,512,128], [16,1024,512] and BF16_RAGGED, K3 at [1,9000,128], with
     their C entry points timed alone and a profile of their kernels; K2b at
     x [2|8,512,128], ctx [·,32,128]; K4 at the resampler's
@@ -2720,6 +2789,7 @@ def phase22_bf16_kernels() -> list:
         lambda: wk.wavenet_body_lanes_bf16_torch(*wn16), lambda: wk.wavenet_body_lanes(*wn32),
         bound_bf16(flops, nbytes(*wn16) + n * DIM * 2, f32_lanes=True)))
     del wn16, wn32
+    wavenet_bf16_cases("22")
 
     # K2b at the served and the conditional sample's guided batch
     for b in (2, 2 * COND_BATCH):

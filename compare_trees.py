@@ -11,7 +11,8 @@ denoise step at b4 x n1024 (CUDA events, median of 20), the flagship
 training step at b16 x 2 s (host clock, synchronised, median of steps
 3-8) and the served p50 of 12 sequential README config 2 requests at the
 (64, 512) bucket and 100 steps (host clock). With ``--kernels`` instead:
-K3 and K2 in bf16 at BF16_BLOCK_SHAPES, K2b in bf16 at the served shape
+K1 and K1b in bf16 at BF16_WAVENET_SHAPES, K3 and K2 in bf16 at
+BF16_BLOCK_SHAPES (each also with its C entry's host time), K2b in bf16 at the served shape
 and K4 in bf16 at the scaled K2's attention core [16, 8, 1024, 64], K4 and
 K5 in bf16 at the shapes of their PERF rows (CUDA events, median of 20;
 through the wrapper and through the C entry point alone, which both trees
@@ -53,6 +54,68 @@ BF16_BLOCK_SHAPES = ((16, 1024, 512, ("ff_block", "attn_block")),
                      (4, 1024, 128, ("ff_block", "attn_block")),
                      (2, 512, 128, ("ff_block", "attn_block")),
                      (1, 9000, 128, ("ff_block",)))
+
+
+def host_ms(fn, args, calls: int = 50) -> float:
+    """The host time of one call of a C entry point (the median of
+    ``calls``, each after the card is idle): the call returns once its
+    launches are queued."""
+    import torch
+
+    walls = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn(*args)
+        walls.append((time.perf_counter() - start) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(walls)
+
+
+# K1 and K1b in bf16 (route, b, n, d), 4 stacks x 8 layers: the bf16
+# flagship's, the served request's and the n-4500 long form's K1, the n-9000
+# long form's K1b
+BF16_WAVENET_SHAPES = (("stack", 4, 1024, 128), ("stack", 2, 512, 128), ("stack", 1, 4500, 128),
+                       ("lanes", 1, 9000, 128))
+
+
+def wavenet_kernels(cs, out: dict) -> None:
+    """K1 and K1b bf16 at BF16_WAVENET_SHAPES through the wrapper and through
+    the C entry point alone (the weights packed once by the tree's own
+    wrapper code). Each tree's entry gets the scratch of its own layout: the
+    tree's ``wavenet_kernel.scratch`` where it has one (the bf16 planes),
+    else the f32 lanes the older entry points take ([2, L, b, n, d] for K1,
+    [3, b, n, d] for K1b)."""
+    import torch
+
+    from naturalspeech2_tpu_torch import _build
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    stream = torch.cuda.current_stream().cuda_stream
+    S, L = cs.WAVENET_STACKS, cs.WAVENET_LAYERS
+    for route, b, n, d in BF16_WAVENET_SHAPES:
+        x, *weights, film = cs._bf16(*cs.wavenet_inputs(gen, b, n, d, S, L)[0])
+        wt = wk._pack_checked(*weights, route, None)
+        if hasattr(wk, "scratch"):
+            state = wk.scratch(b, n, wt.d, L, route, torch.bfloat16, x.device)
+        else:
+            lead = (3, b) if route == "lanes" else (2, L, b)
+            state = list(torch.empty((*lead, n, wt.d), device="cuda"))
+        y = torch.empty_like(x)
+        name = "ns2_wavenet_lanes" if route == "lanes" else "ns2_wavenet_body"
+        fn = _build.entry(name, torch.bfloat16)
+        args = (x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
+                wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(),
+                *(t.data_ptr() for t in state), y.data_ptr(), b, n, wt.d, S, L, stream)
+        call = ((lambda: wk.wavenet_body_lanes(x, *weights, film)) if route == "lanes"
+                else (lambda: wk._forward("stack", x, *weights, film)))
+        key = "k1b_bf16" if route == "lanes" else "k1_bf16"
+        out.setdefault(key, {})[f"[{b},{n},{d}]"] = {
+            "wrapper_ms": cs.cuda_ms(call), "c_entry_ms": cs.cuda_ms(lambda: fn(*args)),
+            "c_entry_host_ms": host_ms(fn, args)}
+        del x, weights, film, wt, state, y
+        torch.cuda.empty_cache()
 
 
 def block_kernels(cs, out: dict) -> None:
@@ -97,7 +160,7 @@ def block_kernels(cs, out: dict) -> None:
                     scratch[b * n * wt.ip:].data_ptr(), y.data_ptr(), b, n, dm, wt.ip, stream)
             out.setdefault("k3_bf16", {})[shape] = {
                 "wrapper_ms": cs.cuda_ms(lambda: fk.ff_block(x, g, be, *w, b2)),
-                "c_entry_ms": cs.cuda_ms(lambda: fn(*args))}
+                "c_entry_ms": cs.cuda_ms(lambda: fn(*args)), "c_entry_host_ms": host_ms(fn, args)}
             del w, wt, scratch
         if "attn_block" in blocks:
             hd = heads * dh
@@ -114,7 +177,7 @@ def block_kernels(cs, out: dict) -> None:
             cfg = dict(heads=heads, dim_head=dh, scale=dh**-0.5)
             out.setdefault("k2_bf16", {})[shape] = {
                 "wrapper_ms": cs.cuda_ms(lambda: ak.attn_block(x, g, be, wq, wkv, wo, **cfg)),
-                "c_entry_ms": cs.cuda_ms(lambda: fn(*args))}
+                "c_entry_ms": cs.cuda_ms(lambda: fn(*args)), "c_entry_host_ms": host_ms(fn, args)}
             del wq, wkv, wo, qkv, o
         torch.cuda.empty_cache()
 
@@ -228,6 +291,7 @@ def main() -> int:
     cs.phase1_card_and_build()
     out = {"label": label}
     if "--kernels" in sys.argv[3:]:
+        wavenet_kernels(cs, out)
         block_kernels(cs, out)
         bf16_kernels(cs, out)
         print("RESULT", json.dumps(out), flush=True)

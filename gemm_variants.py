@@ -48,6 +48,33 @@ their other launches' device times):
                GEMM of K2 and K3, no norm pre-pass
   bf16_tile_128x256, bf16_tile_128x128, bf16_tile_64x64
                every GEMM at that tile shape, where base chooses by waves
+  bf16_no_pdl  every launch after the stream's previous kernel has ended,
+               where base launches each as a programmatic dependent
+
+The bf16 core's WaveNet (K1 and K1b in bf16: the f32 lanes as three bf16
+planes), timed at WAVENET_SHAPES with base's launches by kernel:
+
+  k1_bf16_res_tap2
+               the residual columns' products on tap 2 alone: the chunks
+               of taps 0 and 1 run `wgmma.m64n32k16` on each 64-column
+               group's 32 conv columns (4d² products a row where base runs
+               6d², the residual rows of taps 0 and 1 being zeros)
+  k1b_bf16_one_lane, k1b_bf16_two_lanes
+               K1b's blocks one or two lanes a launch (csrc/wavenet_lane.cu's
+               kLaneGroup, 4 in base)
+  k1_bf16_no_pdl
+               as bf16_no_pdl, for K1 and K1b
+  k1_bf16_no_gate, k1_bf16_no_stores
+               the gate's bias, FiLM, tanh and sigmoid taken out of
+               `WaveGateSplit` (the planes of conv + res), or its TMA stores
+               of the staged planes (wrong)
+  k1_bf16_no_shift
+               every tap's box at the tile's own rows, no dilation (wrong)
+  k1_bf16_tile_64x128
+               the WaveNet blocks on 64 x 128 tiles, two blocks an SM (one
+               block's mainloop beside the other's epilogue), where base
+               chooses them by waves as K2's and K3's (128 x 256 / 128 x 128,
+               one block an SM, at these shapes)
 
 With variant names, builds and times only those beside base. Exits
 non-zero without a CUDA device. Not part of the smoke run.
@@ -186,6 +213,8 @@ _STAGED_PRODUCER = r"""    if constexpr (kStagedA<Loader>) {
     } else if (tid == T::kConsumers) {
 """
 _TILE = "  const Shape s = choose(ld.batch, ld.n, b_rows);\n"
+_PDL = "attr[0].val.programmaticStreamSerializationAllowed = 1;"
+_NO_PDL = "attr[0].val.programmaticStreamSerializationAllowed = 0;"
 _STAGES = "constexpr int kStages = 4; "
 BF16_VARIANTS = {
     "bf16_stages3": [(BF16_CORE, _STAGES, "constexpr int kStages = 3; ")],
@@ -211,6 +240,53 @@ BF16_VARIANTS = {
     "bf16_tile_128x256": [(BF16_CORE, _TILE, "  const Shape s = kShapes[0];\n")],
     "bf16_tile_128x128": [(BF16_CORE, _TILE, "  const Shape s = kShapes[1];\n")],
     "bf16_tile_64x64": [(BF16_CORE, _TILE, "  const Shape s = kShapes[2];\n")],
+    "bf16_no_pdl": [(BF16_CORE, _PDL, _NO_PDL)],
+}
+# k1_bf16_res_tap2's products: a chunk of taps 0 and 1 of a WaveNet block
+# (`SplitTaps`) runs on the conv columns of each 64-column group alone
+_CONV_ONLY = r"""template <class L>
+__device__ __forceinline__ bool conv_only(const L&, int) { return false; }
+__device__ __forceinline__ bool conv_only(const SplitTaps& ld, int kc) {
+  return kc % (3 * ld.w / kKC) * kKC < 2 * ld.w;
+}
+
+// ---- the kernel -----------------------------------------------------------
+"""
+_LANE_GROUP = "constexpr int kLaneGroup = 4;"
+_GATE = ("        split3(tanhf(y0) * sigmoid(y0) + acc[j + 4][2 * r] + rbc.x, p[0]);\n"
+         "        split3(tanhf(y1) * sigmoid(y1) + acc[j + 4][2 * r + 1] + rbc.y, p[1]);\n")
+_NO_GATE = ("        split3(acc[j][2 * r] + acc[j + 4][2 * r], p[0]);\n"
+            "        split3(acc[j][2 * r + 1] + acc[j + 4][2 * r + 1], p[1]);\n")
+_PLANE_STORES = "      for (int b = 0; b < 8 * NJ / 128 && n0 / 2 + 64 * b < w; ++b)\n"
+_WAVE_SHAPE = "  const bgemm::Shape sh = bgemm::choose("
+_MMA = ("#pragma unroll\n    for (int ks = 0; ks < kKC / 16; ++ks)\n"
+        "      mma<BN>(acc, sm90::desc(a_at + 32 * ks), sm90::desc(b_at + 32 * ks));\n")
+WAVENET_BF16_VARIANTS = {
+    "k1_bf16_res_tap2": [
+        (BF16_CORE, "// ---- the kernel -----------------------------------------------------------\n",
+         _CONV_ONLY),
+        (BF16_CORE, _MMA,
+         "    if (conv_only(ld, kc)) {\n#pragma unroll\n      for (int ks = 0; ks < kKC / 16; ++ks)\n"
+         "#pragma unroll\n        for (int g = 0; g < BN / 64; ++g)\n"
+         "          sm90::wgmma_ss_n32(*reinterpret_cast<float(*)[4][4]>(&acc[8 * g]),\n"
+         "                             sm90::desc(a_at + 32 * ks),\n"
+         "                             sm90::desc(b_at + g * 64 * sm90::kPanelRowBytes + 32 * ks), 1);\n"
+         "    } else {\n" + _MMA + "    }\n")],
+    "k1b_bf16_one_lane": [("wavenet_lane.cu", _LANE_GROUP, "constexpr int kLaneGroup = 1;")],
+    "k1b_bf16_two_lanes": [("wavenet_lane.cu", _LANE_GROUP, "constexpr int kLaneGroup = 2;")],
+    "k1_bf16_no_pdl": [(BF16_CORE, _PDL, _NO_PDL)],
+    "k1_bf16_no_gate": [(BF16_CORE, _GATE, _NO_GATE)],
+    "k1_bf16_no_stores": [(BF16_CORE, _PLANE_STORES,
+                           "      for (int b = 0; b < 0; ++b)\n")],
+    "k1_bf16_tile_64x128": [
+        (BF16_CORE, "  if (s.bm == 128) return go(Int<128>{}, Int<128>{});\n",
+         "  if (s.bm == 128) return go(Int<128>{}, Int<128>{});\n"
+         "  if (s.bn == 128) return go(Int<64>{}, Int<128>{});\n"),
+        ("wavenet.cu", _WAVE_SHAPE, "  const bgemm::Shape sh = bgemm::Shape{64, 128, 2, 1.0f};  // "),
+        ("wavenet_lane.cu", _WAVE_SHAPE,
+         "  const bgemm::Shape sh = bgemm::Shape{64, 128, 2, 1.0f};  // ")],
+    "k1_bf16_no_shift": [(BF16_CORE, "    c[1] = t0 - ((2 - tap) << (lane0 + lane));\n",
+                          "    c[1] = t0;\n")],
 }
 # the sources each set of variants builds (K2's attention core is K4)
 BF16_SOURCES = ("ff_block.cu", "attn_block.cu", "flash_fwd.cu", "flash_fwd_bf16.cu", "runtime.cu")
@@ -231,14 +307,17 @@ BF16_SHAPES = (("flagship", 4, 1024, 128, ("ff_block", "attn_block")),
                ("scaled", 16, 1024, 512, ("ff_block", "attn_block")),
                ("long", 1, 9000, 128, ("ff_block",)))
 ENTRIES = ("ns2_ff_block", "ns2_attn_block", "ns2_ff_block_bf16", "ns2_attn_block_bf16")
-WAVENET_ENTRIES = ("ns2_wavenet_body", "ns2_wavenet_lanes")
+WAVENET_ENTRIES = ("ns2_wavenet_body", "ns2_wavenet_lanes", "ns2_wavenet_body_bf16",
+                   "ns2_wavenet_lanes_bf16")
+WAVENET_SOURCES = ("wavenet.cu", "wavenet_lane.cu", "runtime.cu")
 
 
 def build_variants(_build, variants: dict, sources: tuple) -> dict:
     """Each variant's copy of csrc/ with its edits, ``sources`` built into
     one library (all variants at once); its ptxas registers (and spills) of
     the cores' kernels."""
-    work = _build.BUILD_DIR / "gemm_variants"
+    work_name = "gemm_variants_wavenet" if sources == WAVENET_SOURCES else "gemm_variants"
+    work = _build.BUILD_DIR / work_name
     shutil.rmtree(work, ignore_errors=True)
     procs = {}
     for name, edits in variants.items():
@@ -263,7 +342,8 @@ def build_variants(_build, variants: dict, sources: tuple) -> dict:
             if "warning" in line or "C75" in line:
                 print(f"variant {name}: {line.strip()[:300]}", flush=True)
             if "Compiling entry" in line:
-                in_core, spill = "gemm_kernel" in line, ""
+                in_core, spill = "gemm_kernel" in line and (
+                    sources != WAVENET_SOURCES or "SplitTaps" in line), ""
             elif in_core and "spill stores" in line and not line.strip().endswith(
                     "0 bytes spill stores, 0 bytes spill loads"):
                 spill = " (" + line.split("info    :")[-1].strip() + ")"
@@ -272,7 +352,9 @@ def build_variants(_build, variants: dict, sources: tuple) -> dict:
                 in_core = False
         print(f"variant {name}: {' | '.join(regs)}", flush=True)
         lib = ctypes.CDLL(str(work / name / "lib.so"))
-        for fn in ENTRIES + (WAVENET_ENTRIES if "wavenet.cu" in sources else ()):
+        entries = (ENTRIES if "ff_block.cu" in sources else ()) + (
+            WAVENET_ENTRIES if "wavenet.cu" in sources else ())
+        for fn in entries:
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -435,6 +517,45 @@ def yardstick(cs, call, m: int, gemms, label: str) -> None:
     print(f"{label} launches: " + "; ".join(parts), flush=True)
 
 
+def wavenet_bf16(cs, libs) -> None:
+    """The bf16 WaveNet variants: K1 and K1b bf16 at WAVENET_SHAPES against
+    their plain bf16 versions, their C entry points in turns; base's
+    launches by kernel (device time a call)."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 207)
+    S, L = cs.WAVENET_STACKS, cs.WAVENET_LAYERS
+    for label, b, n, route in WAVENET_SHAPES:
+        x, *weights, film = cs._bf16(*cs.wavenet_inputs(gen, b, n, cs.DIM, S, L)[0])
+        plain = wk.wavenet_body_lanes_bf16_torch if route == "lanes" else wk.wavenet_body_bf16_torch
+        ref = plain(x, *weights, film)
+        wt = wk.pack_wavenet_weights(*weights, route)
+        state = wk.scratch(b, n, wt.d, L, route, torch.bfloat16, x.device)
+        out = torch.empty_like(x)
+        args = (x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
+                wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(),
+                *(t.data_ptr() for t in state), out.data_ptr(), b, n, cs.DIM, S, L, stream)
+        entry = "ns2_wavenet_lanes_bf16" if route == "lanes" else "ns2_wavenet_body_bf16"
+        name = "K1b" if route == "lanes" else "K1"
+        time_variants(cs, libs, f"{name} bf16 {label} [{b},{n},{cs.DIM}]", entry, args, out, ref,
+                      0.0)
+        # launches by kernel; with programmatic dependent launches a kernel's
+        # device time includes its wait for the one before (k1_bf16_no_pdl's
+        # are each kernel's own)
+        for variant in ("base", "k1_bf16_no_pdl"):
+            if variant in libs:
+                fn = getattr(libs[variant], entry)
+                by_kernel = _device_ms_by_kernel(lambda: fn(*args))
+                print(f"{name} bf16 {label} [{b},{n},{cs.DIM}] {variant} launches: " + "; ".join(
+                    f"{k.split('<')[-1][:70]} {ms:.4f} ms" for k, ms in by_kernel.items()),
+                    flush=True)
+        del x, weights, film, ref, wt, state, out
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -445,7 +566,7 @@ def main() -> int:
     from naturalspeech2_tpu_torch import _build
 
     names = sys.argv[1:]
-    every = {**VARIANTS, **BF16_VARIANTS}
+    every = {**VARIANTS, **BF16_VARIANTS, **WAVENET_BF16_VARIANTS}
     unknown = [v for v in names if v not in every]
     if unknown:
         print(f"gemm_variants: no variant {unknown}; variants: {list(every)}", file=sys.stderr)
@@ -454,13 +575,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.phase1_card_and_build()
     run_f32 = not names or any(v in VARIANTS and v != "base" for v in names)
-    libs = build_variants(_build, chosen, SOURCES if run_f32 else BF16_SOURCES)
-    f32 = {v: lib for v, lib in libs.items() if v in VARIANTS}
-    bf16 = {v: lib for v, lib in libs.items() if v == "base" or v in BF16_VARIANTS}
-    if run_f32:
-        f32_cores(cs, f32)
-    if not names or len(bf16) > 1:
-        bf16_cores(cs, bf16)
+    run_bf16 = not names or any(v in BF16_VARIANTS for v in names)
+    run_wavenet = not names or any(v in WAVENET_BF16_VARIANTS for v in names)
+    cores = {v: e for v, e in chosen.items() if v not in WAVENET_BF16_VARIANTS}
+    if run_f32 or run_bf16:
+        libs = build_variants(_build, cores, SOURCES if run_f32 else BF16_SOURCES)
+        if run_f32:
+            f32_cores(cs, {v: lib for v, lib in libs.items() if v in VARIANTS})
+        if run_bf16:
+            bf16_cores(cs, {v: lib for v, lib in libs.items()
+                            if v == "base" or v in BF16_VARIANTS})
+    if run_wavenet:
+        wavenet = {v: e for v, e in chosen.items() if v == "base" or v in WAVENET_BF16_VARIANTS}
+        wavenet_bf16(cs, build_variants(_build, wavenet, WAVENET_SOURCES))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0

@@ -120,7 +120,7 @@ int attn_block_bf16(const bf16* x, const bf16* gamma, const bf16* beta, const bf
                                     scale, stream);
   if (err != cudaSuccess) return err;
   return bgemm::launch(bgemm::HeadRows{o, b, heads, n, dh}, bt_out, dm_pad, hd / bgemm::kKC,
-                       bgemm::Store{out, nullptr, residual ? x : nullptr, dm, dm}, st);
+                       bgemm::Store<>{out, nullptr, residual ? x : nullptr, dm, dm}, st);
 }
 
 }  // namespace

@@ -21,7 +21,9 @@ using bf16 = __nv_bfloat16;
 // Threads a block of the elementwise kernels (K6's update).
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+// 1 / (1 + e^-x), the reciprocal correctly rounded (as 1.0f / (...) is, in
+// one instruction where the division takes several).
+__device__ __forceinline__ float sigmoid(float x) { return __frcp_rn(1.0f + expf(-x)); }
 
 // tanh-approximate GELU, the formula of jax.nn.gelu(approximate=True)
 // and torch's F.gelu(approximate="tanh").

@@ -81,10 +81,10 @@ int ff_block_bf16(const bf16* x, const bf16* gamma, const bf16* beta, const bf16
                                          bgemm::Geglu{a_buf, b_val, b_gate, ip}, st);
   if (err != cudaSuccess) return err;
   err = bgemm::launch(bgemm::TapRows{a_buf, b, n, ip}, bt_conv, ip, 3 * ip / bgemm::kKC,
-                      bgemm::Store{c_buf, bc, nullptr, ip, ip}, st);
+                      bgemm::Store<>{c_buf, bc, nullptr, ip, ip}, st);
   if (err != cudaSuccess) return err;
   return bgemm::launch(bgemm::Rows{c_buf, b, n, ip, ip}, bt_out, dm_pad, ip / bgemm::kKC,
-                       bgemm::Store{out, b2, x, dm, dm}, st);
+                       bgemm::Store<>{out, b2, x, dm, dm}, st);
 }
 
 

@@ -1,4 +1,5 @@
-// The bf16 GEMM core of K2 (attn_block.cu) and K3 (ff_block.cu) in bf16:
+// The bf16 GEMM core of K1 (wavenet.cu), K1b (wavenet_lane.cu), K2
+// (attn_block.cu) and K3 (ff_block.cu) in bf16:
 //
 //   C[M x N] = epilogue(A[M x K] · B[K x N]),   A and B bf16, summed in f32,
 //
@@ -36,8 +37,11 @@
 //    `Rows` (rows of a buffer: n(x) written by the pre-pass `norm_rows`,
 //    K3's c), `TapRows` (K3's conv: the three taps are boxes of one [b, n,
 //    w] buffer shifted back by 2, 1 and 0 rows, the rows before t = 0 of
-//    the sequence zeros) and `HeadRows` (K4's output [b, H, n, dh] as the
-//    heads' concatenation; a chunk of 64 lies in one head).
+//    the sequence zeros), `HeadRows` (K4's output [b, H, n, dh] as the
+//    heads' concatenation; a chunk of 64 lies in one head), and the
+//    WaveNet's `SplitTaps` and `SplitLanes` (below). A loader also names
+//    each chunk's B chunk (`at` returns it), so that chunks of A may share
+//    one chunk of B.
 //  - B is a weight, packed once by the Python wrapper (`pack_b(bt,
 //    "bf16_sw128")` in ops/gemm_cache.py): Bᵀ [N, K] padded with zeros to
 //    64-row and 64-column multiples and laid out chunk by chunk, [K / 64,
@@ -50,14 +54,29 @@
 //    shapes).
 // Epilogues: `Geglu` (each 64 columns of B hold 32 value and the same 32
 // gate columns, so both products share A), `Store` (bias and an optional
-// residual, summed in f32, rounded once) and `QkvScatter` (into K4's [3, b,
-// H, n, dh]). Every rounding point of the JAX kernels stays where the
-// callers put it: the core only sums A·B in f32 and hands the sum to the
-// epilogue.
+// residual, summed in f32, rounded once), `QkvScatter` (into K4's [3, b,
+// H, n, dh]) and `WaveGateSplit` (K1's gate, into three bf16 planes). Every
+// rounding point of the JAX kernels stays where the callers put it: the
+// core only sums A·B in f32 and hands the sum to the epilogue.
+//
+// f32 activations against bf16 weights (K1 and K1b in bf16, whose JAX
+// kernels keep their lanes in f32 and multiply them by the bf16 weights
+// with f32 products): a lane v is carried as three bf16 planes, hi =
+// bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), which sum to v
+// exactly (8 + 8 + 8 of f32's 24 significant bits), and each part times a
+// bf16 weight is exact in f32. So the product is three bf16 passes over the
+// same B chunks, issued lo first: the tensor cores truncate where they add
+// (gemm_tf32x3.cuh), so the small terms go in before the accumulator holds
+// the large ones.
 #pragma once
 
 #include <cuda.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <type_traits>
+#include <utility>
+#include <vector>
 
 #include "flash_bf16.cuh"
 #include "gemm_tf32x3.cuh"
@@ -240,7 +259,8 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 // coordinates (c, t, h, b) of chunk kc's box for the tile of rows t0 ..
 // t0 + BM - 1 of sequence bi: A[bi·n + t, 64·kc + j] is element (c + j, t,
 // h, bi) of the map. A tile's rows lie in one sequence, so a box past the
-// sequence's ends (t < 0, t >= n) reads zeros. -------------------------------
+// sequence's ends (t < 0, t >= n) reads zeros. `at` returns the chunk of
+// the packed B that chunk kc of A multiplies (kc but for the WaveNet's). --
 
 inline cudaError_t rows_map(CUtensorMap* map, const bf16* a, int batch, int heads, int n, int w,
                             int ld, int bm) {
@@ -256,11 +276,12 @@ struct Rows {
   int batch, n, ld, w;
 
   cudaError_t map(CUtensorMap* m, int bm) const { return rows_map(m, a, batch, 1, n, w, ld, bm); }
-  __device__ void at(int kc, int t0, int bi, int (&c)[4]) const {
+  __device__ int at(int kc, int t0, int bi, int (&c)[4]) const {
     c[0] = kc * kKC;
     c[1] = t0;
     c[2] = 0;
     c[3] = bi;
+    return kc;
   }
 };
 
@@ -272,12 +293,13 @@ struct TapRows {
   int batch, n, w;
 
   cudaError_t map(CUtensorMap* m, int bm) const { return rows_map(m, a, batch, 1, n, w, w, bm); }
-  __device__ void at(int kc, int t0, int bi, int (&c)[4]) const {
+  __device__ int at(int kc, int t0, int bi, int (&c)[4]) const {
     const int k = kc * kKC, tap = k / w;
     c[0] = k - tap * w;
     c[1] = t0 - (2 - tap);
     c[2] = 0;
     c[3] = bi;
+    return kc;
   }
 };
 
@@ -291,18 +313,72 @@ struct HeadRows {
   cudaError_t map(CUtensorMap* m, int bm) const {
     return rows_map(m, o, batch, heads, n, dh, dh, bm);
   }
-  __device__ void at(int kc, int t0, int bi, int (&c)[4]) const {
+  __device__ int at(int kc, int t0, int bi, int (&c)[4]) const {
     const int k = kc * kKC, h = k / dh;
     c[0] = k - h * dh;
     c[1] = t0;
     c[2] = h;
     c[3] = bi;
+    return kc;
+  }
+};
+
+// K1's and K1b's block products on the bf16 core. The lanes of a stack are
+// bf16 planes [G·b, 3, n, w] (lane g of the launch, sequence bi of the
+// batch at g·b + bi; plane 0 hi, 1 mid, 2 lo: see the top of this file), w
+// = d padded to 64, written by the previous stack's `WaveGateSplit`; the
+// first stack reads x [b, n, w] as one part. The grid's sequences are the
+// G·b of the launch (`batch`: K1 folds a stack's L lanes into the rows of
+// one launch), so the lane of sequence bi is lane0 + bi / per_lane, with
+// dilation δ = 2^lane. Chunk kc of K = parts · 3w is (part, tap, c): the
+// box of rows t0 - (2 - tap)·δ onward of plane part, the rows before t = 0
+// TMA's zeros (δ up to 128: up to 256 rows before the tile). The parts run
+// lo, mid, hi, and each multiplies the same chunks of the lane's block: the
+// packed blocks are one run of [S·L, 3w / 64] chunks of Bᵀ [2w, 3w], and
+// the lane's block starts at chunk b_block0 + lane·3w/64.
+struct SplitTaps {
+  int batch, n, w;
+  int per_lane;  // sequences a lane: b
+  int lane0;     // the launch's first lane
+  int parts;     // 3 (planes), 1 (x)
+  int b_block0;  // the chunk of lane lane0's block in the packed blocks
+
+  __device__ int at(int kc, int t0, int bi, int (&c)[4]) const {
+    const int per_part = 3 * w / kKC, p = kc / per_part, kb = kc - p * per_part;
+    const int k = kb * kKC, tap = k / w, lane = bi / per_lane;
+    c[0] = k - tap * w;
+    c[1] = t0 - ((2 - tap) << (lane0 + lane));
+    c[2] = parts - 1 - p;  // lo first
+    c[3] = parts == 1 ? bi - lane * per_lane : bi;
+    return b_block0 + lane * per_part + kb;
+  }
+};
+
+// The skips' product: A[bi·n + t, (part, lane, c)] = plane part of lane
+// slot0 + lane of planes [·, 3, n, w] (sequence (slot0 + lane)·batch + bi),
+// K = 3 parts · lanes · w, the parts lo first; chunk kc multiplies chunk
+// b_chunk0 + (kc mod lanes·w/64) of the packed skips (K1: the L lanes side
+// by side against skip_w [L·w, w]; K1b: one lane a launch).
+struct SplitLanes {
+  int batch, n, w, lanes;
+  int slot0;     // the first lane's place in the planes
+  int b_chunk0;
+
+  __device__ int at(int kc, int t0, int bi, int (&c)[4]) const {
+    const int per_part = lanes * w / kKC, p = kc / per_part, kb = kc - p * per_part;
+    const int k = kb * kKC, lane = k / w;
+    c[0] = k - lane * w;
+    c[1] = t0;
+    c[2] = 2 - p;
+    c[3] = (slot0 + lane) * batch + bi;
+    return b_chunk0 + kb;
   }
 };
 
 // B: the packed Bᵀ [chunks, b_rows, 64] as a 3-dim map, boxes of BN rows of
 // one chunk, copied as they lie (already swizzled); rows past b_rows read
-// as zeros.
+// as zeros. `chunks` may cover several packed B's one after another (K1's
+// blocks: every block of the body).
 inline cudaError_t b_map(CUtensorMap* map, const bf16* bt, int b_rows, int chunks, int bn) {
   const uint64_t dims[3] = {(uint64_t)kKC, (uint64_t)b_rows, (uint64_t)chunks};
   const uint64_t strides[2] = {2ull * kKC, 2ull * kKC * b_rows};
@@ -317,11 +393,13 @@ inline cudaError_t b_map(CUtensorMap* map, const bf16* bt, int b_rows, int chunk
 // or past row_end (the end of the tile's sequence) are not stored.
 
 // out[row, col] = acc + bias[col] (+ res[row, col]) for col < ncols, out
-// and res [rows, ld]; bias and res may be null. Summed in f32, rounded once.
+// and res [rows, ld]; bias and res may be null. Summed in f32, rounded once
+// to Out (bf16, or f32: K1b's sum of the skips).
+template <class Out = bf16, class Bias = Out, class Res = Out>
 struct Store {
-  bf16* out;
-  const bf16* bias;
-  const bf16* res;
+  Out* out;
+  const Bias* bias;
+  const Res* res;
   int ncols, ld;
 
   template <int NJ>
@@ -345,8 +423,8 @@ struct Store {
         if (pairs && col + 1 < ncols) {
           store2(out + at, v[0], v[1]);
         } else {
-          out[at] = from_f32<bf16>(v[0]);
-          if (col + 1 < ncols) out[at + 1] = from_f32<bf16>(v[1]);
+          out[at] = from_f32<Out>(v[0]);
+          if (col + 1 < ncols) out[at + 1] = from_f32<Out>(v[1]);
         }
       }
     }
@@ -418,17 +496,129 @@ struct QkvScatter {
   }
 };
 
+// The parts of an f32 value: hi = bf16(v), mid = bf16(v - hi), lo = bf16(v
+// - hi - mid), each rounded to nearest even; lo + mid + hi == v exactly
+// (the differences are exact in f32, and what hi and mid leave is at most
+// 8 significant bits).
+__device__ __forceinline__ void split3(float v, float (&p)[3]) {
+  p[0] = __bfloat162float(__float2bfloat16_rn(v));
+  p[1] = __bfloat162float(__float2bfloat16_rn(v - p[0]));
+  p[2] = v - p[0] - p[1];
+}
+
+// The planes [seqs, 3, n, w] as a 4-dim map that `WaveGateSplit` stores
+// through: boxes of 64 columns, 64 rows and the 3 planes of one sequence,
+// 128-byte swizzled in shared memory; rows past n are not written.
+inline cudaError_t planes_map(CUtensorMap* map, const bf16* planes, int seqs, int n, int w) {
+  const uint64_t dims[4] = {(uint64_t)w, (uint64_t)n, 3, (uint64_t)seqs};
+  const uint64_t row = 2ull * w, strides[3] = {row, row * n, row * n * 3};
+  const uint32_t box[4] = {(uint32_t)kKC, 64, 3, 1};
+  return make_map(map, planes, 4, dims, strides, box, true);
+}
+
+// K1's gated block on the bf16 core: each 64 columns of B hold 32 conv
+// columns and the same 32 residual columns (ops/wavenet_kernel.py's
+// `block_weights`), so conv column c sits at j in [8g, 8g + 4) of group g
+// and its residual at j + 4, and writes lane v of the next stack:
+//   y = (conv + cb[c])·γ + β,  v = tanh(y)·σ(y) + res + rb[c]
+// in f32 (γ = film[c], β = film[w + c] of the row's batch and lane), as
+// three bf16 planes (`split3`) of the planes at the row's sequence: the
+// grid's sequence s is lane s / per_lane of the launch and batch s %
+// per_lane. cb, rb: [lanes, w] from the launch's first lane; film: [b, ·,
+// 2w] from it, batch rows film_b apart, lanes 2w apart. A warpgroup stages
+// its 64 rows' planes in shared memory (the ring, free once both
+// warpgroups' products are done; `kStaging` bytes each), in the layout
+// `planes_map`'s boxes take, and one thread stores them by TMA: stored by
+// each thread in 4-byte pieces, three planes to a value, they took about a
+// fifth of K1's time at b4 n1024 d128 (PERF.md).
+struct WaveGateSplit {
+  CUtensorMap out;  // planes_map of the planes written
+  const bf16* cb;
+  const bf16* rb;
+  const bf16* film;
+  size_t film_b;
+  int per_lane, n, w;
+
+  // shared memory a warpgroup stages in: BN / 128 boxes of [3][64][64]
+  template <int BN>
+  static constexpr uint32_t kStaging = BN / 128 * 3 * 64 * sm90::kPanelRowBytes;
+
+  template <int NJ>
+  __device__ void operator()(const float (&acc)[NJ][4], int m0, int row_end, int n0, int warp,
+                             int lane, uint32_t stage, int wg) const {
+    static_assert(NJ >= 16, "a tile of 128 columns or more: 64 conv columns a box");
+    constexpr uint32_t kBox = 3 * 64 * sm90::kPanelRowBytes;
+    if (m0 >= row_end) return;  // the warpgroup's rows all past its sequence
+    // a tile's rows lie in one sequence: one lane, one batch row
+    const int seq = m0 / n, ln = seq / per_lane, bi = seq - ln * per_lane;
+    const bf16* f = film + (size_t)bi * film_b + (size_t)ln * 2 * w;
+    const bf16* cbl = cb + (size_t)ln * w;
+    const bf16* rbl = rb + (size_t)ln * w;
+    const int r0 = 16 * warp + lane / 4;  // this thread's first row of the 64
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j % 8 >= 4) continue;  // a residual tile: read with its conv tile
+      const int cc = 32 * (j / 8) + 8 * (j % 8) + 2 * (lane % 4);  // conv column in the tile
+      const int c = n0 / 2 + cc;
+      if (c >= w) continue;
+      const float2 cbc = load2(cbl + c), rbc = load2(rbl + c), gamma = load2(f + c),
+                   beta = load2(f + w + c);
+      const uint32_t box = stage + cc / 64 * kBox;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        const float y0 = (acc[j][2 * r] + cbc.x) * gamma.x + beta.x;
+        const float y1 = (acc[j][2 * r + 1] + cbc.y) * gamma.y + beta.y;
+        float p[2][3];
+        split3(tanhf(y0) * sigmoid(y0) + acc[j + 4][2 * r] + rbc.x, p[0]);
+        split3(tanhf(y1) * sigmoid(y1) + acc[j + 4][2 * r + 1] + rbc.y, p[1]);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const uint32_t at = box + sm90::swizzled(64 * q + row, cc % 64 / 8) + 4 * (lane % 4);
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(pack_bf16x2(p[0][q], p[1][q]))
+                       : "memory");
+        }
+      }
+    }
+    fence_proxy_async();                   // the stores, made visible to the TMA unit
+    sm90::bar_sync(3 + wg, 128);           // the warpgroup's planes are staged
+    if (warp == 0 && lane == 0) {
+      for (int b = 0; b < 8 * NJ / 128 && n0 / 2 + 64 * b < w; ++b)
+        asm volatile(
+            "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], "
+            "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(&out)),
+            "r"(stage + b * kBox), "r"(n0 / 2 + 64 * b), "r"(m0 - seq * n), "r"(0), "r"(seq)
+            : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // before the block exits
+    }
+  }
+
+  // two adjacent bf16 (p 4-byte aligned) as f32
+  __device__ static float2 load2(const bf16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+};
+
+// Epilogues that stage their output in the ring (called with its address).
+template <class E>
+constexpr bool kStagesOut = false;
+template <>
+constexpr bool kStagesOut<WaveGateSplit> = true;
+
 // ---- the kernel -----------------------------------------------------------
 
 // grid (ceil(b_rows / BN), batch · ceil(n / BM)), Tile<BM, BN>::kThreads
 // threads, Tile<BM, BN>::kBytes of dynamic shared memory: block (x, y) owns
 // columns x·BN .. x·BN + BN - 1 and rows t0 .. t0 + BM - 1 (t0 = (y %
 // tiles)·BM, tiles = ceil(n / BM)) of sequence y / tiles. map_a: the
-// Loader's map of A; map_b: the packed Bᵀ's (b_map), chunks · 64 = K.
+// Loader's map of A; map_b: the packed Bᵀ's (b_map); chunks · 64 = K,
+// chunk kc of A against chunk ld.at(kc, ...) of B.
 template <int BM, int BN, class Loader, class Epilogue>
 __global__ void __launch_bounds__(Tile<BM, BN>::kThreads, Tile<BM, BN>::kBlocksPerSm)
 bf16_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
-                 const __grid_constant__ CUtensorMap map_b, Loader ld, int chunks, Epilogue epi) {
+                 const __grid_constant__ CUtensorMap map_b, Loader ld, int chunks,
+                 const __grid_constant__ Epilogue epi) {
   using T = Tile<BM, BN>;
   extern __shared__ __align__(1024) unsigned char bgemm_smem[];
   const uint32_t raw = sm90::smem_u32(bgemm_smem);
@@ -449,19 +639,25 @@ bf16_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     sm90::mbar_init_fence();
   }
   __syncthreads();
+  // the next kernel on the stream may start its blocks now (they wait below)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
   if (tid >= T::kConsumers) {  // the producer warpgroup: one thread issues the copies
     if constexpr (T::kGroups == 2) sm90::producer_regs<2>();
+    // The previous kernel's writes are visible past this point. Every read
+    // of A and every store of the epilogue comes after a copy issued here,
+    // so none can race that kernel's reads or writes.
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
     if (tid == T::kConsumers) {
       for (int kc = 0; kc < chunks; ++kc) {
         const int st = kc % kStages;
         sm90::mbar_wait(&empty[st], ((kc / kStages) & 1) ^ 1);  // the first round passes
         const uint32_t a_at = base + st * T::kStage;
         int c[4];
-        ld.at(kc, t0, bi, c);
+        const int kb = ld.at(kc, t0, bi, c);
         mbar_expect_tx(&full[st], T::kStage);
         tma_load_4d(a_at, &map_a, &full[st], c[0], c[1], c[2], c[3]);
-        tma_load_3d(a_at + T::kPanelA, &map_b, &full[st], 0, n0, kc);
+        tma_load_3d(a_at + T::kPanelA, &map_b, &full[st], 0, n0, kb);
       }
     }
     return;
@@ -493,8 +689,13 @@ bf16_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   sm90::wg_wait<0>();
   sm90::pin(acc);
   const int seq0 = bi * ld.n;
-  Epilogue e = epi;
-  e(acc, seq0 + t0 + 64 * wg, seq0 + ld.n, n0, warp, lane);
+  if constexpr (kStagesOut<Epilogue>) {
+    sm90::bar_sync(2, T::kConsumers);  // every warpgroup is done with the ring
+    epi(acc, seq0 + t0 + 64 * wg, seq0 + ld.n, n0, warp, lane,
+        base + wg * Epilogue::template kStaging<BN>, wg);
+  } else {
+    epi(acc, seq0 + t0 + 64 * wg, seq0 + ld.n, n0, warp, lane);
+  }
 }
 
 // The tile shapes, with the blocks an SM and a relative rate of products
@@ -506,14 +707,16 @@ struct Shape {
 constexpr Shape kShapes[] = {{128, 256, 1, 1.0f}, {128, 128, 1, 0.85f}, {64, 64, 2, 0.6f}};
 
 // The shape that finishes a GEMM of `cols` columns over batch sequences of
-// n rows soonest by waves of the SMs: tiles = batch · ceil(n / bm) ·
+// n rows soonest by waves of the SMs (`wide`: of 128 columns or more, as
+// `WaveGateSplit` stages them): tiles = batch · ceil(n / bm) ·
 // ceil(cols / bn), ceil(tiles / (SMs · blocks an SM)) waves, each as long
 // as one SM's share of products, blocks an SM · bm · bn / rate.
-inline Shape choose(int batch, int n, int cols) {
+inline Shape choose(int batch, int n, int cols, bool wide = false) {
   const int sms = gemm::sm_count();
   Shape best = kShapes[0];
   float best_cost = 0.0f;
   for (const Shape& s : kShapes) {
+    if (wide && s.bn < 128) continue;
     const long tiles = (long)batch * ((n + s.bm - 1) / s.bm) * ((cols + s.bn - 1) / s.bn);
     const long waves = (tiles + (long)sms * s.per_sm - 1) / ((long)sms * s.per_sm);
     const float cost = (float)waves * s.per_sm * s.bm * s.bn / s.rate;
@@ -525,35 +728,87 @@ inline Shape choose(int batch, int n, int cols) {
   return best;
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory on the current device,
+// once per kernel and device, not once a launch. Keyed by the kernel's
+// address: a process may load several builds of these sources (the
+// variants of gemm_variants.py), whose template statics it would share.
+inline cudaError_t allow_smem(const void* kernel, int bytes) {
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> done;  // (kernel, device)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& e : done)
+    if (e.first == kernel && e.second == dev) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.emplace_back(kernel, dev);
+  return err;
+}
+
+// One launch on maps encoded by the caller: map_a the loader's at box rows
+// BM, map_b the packed Bᵀ's at box rows BN (b_map); grid (ceil(b_rows / BN),
+// ld.batch · ceil(ld.n / BM)), K = chunks · 64. Launched as a programmatic
+// dependent of the stream's previous kernel: its blocks may start, set up
+// their barriers and wait (`griddepcontrol.wait` in the producer) while
+// that kernel's last blocks run.
 template <int BM, int BN, class Loader, class Epilogue>
-cudaError_t launch_tile(const Loader& ld, const bf16* bt, int b_rows, int chunks,
-                        const Epilogue& epi, cudaStream_t stream) {
+cudaError_t launch_mapped(const CUtensorMap& map_a, const CUtensorMap& map_b, const Loader& ld,
+                          int b_rows, int chunks, const Epilogue& epi, cudaStream_t stream) {
   using T = Tile<BM, BN>;
-  CUtensorMap map_a, map_b;
-  cudaError_t err = ld.map(&map_a, BM);
-  if (err != cudaSuccess) return err;
-  err = b_map(&map_b, bt, b_rows, chunks, BN);
-  if (err != cudaSuccess) return err;
   auto kernel = bf16_gemm_kernel<BM, BN, Loader, Epilogue>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), T::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((b_rows + BN - 1) / BN, ld.batch * ((ld.n + BM - 1) / BM));
-  kernel<<<grid, T::kThreads, T::kBytes, stream>>>(map_a, map_b, ld, chunks, epi);
-  return cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((b_rows + BN - 1) / BN, ld.batch * ((ld.n + BM - 1) / BM));
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = T::kBytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, ld, chunks, epi);
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// launch_mapped at the tile shape s, chosen at run time; the maps encoded
+// at s's box rows (s.bm for A, s.bn for B).
+template <class Loader, class Epilogue>
+cudaError_t launch_at(const Shape& s, const CUtensorMap& map_a, const CUtensorMap& map_b,
+                      const Loader& ld, int b_rows, int chunks, const Epilogue& epi,
+                      cudaStream_t stream) {
+  auto go = [&](auto bm, auto bn) {
+    return launch_mapped<decltype(bm)::value, decltype(bn)::value>(map_a, map_b, ld, b_rows,
+                                                                   chunks, epi, stream);
+  };
+  if (s.bm == 128 && s.bn == 256) return go(Int<128>{}, Int<256>{});
+  if (s.bm == 128) return go(Int<128>{}, Int<128>{});
+  if constexpr (kStagesOut<Epilogue>)
+    return cudaErrorInvalidValue;  // stages 128 columns or more: choose(..., wide)
+  else
+    return go(Int<64>{}, Int<64>{});
 }
 
 // C = epilogue(A · B) over the loader's batch · n rows and the b_rows
 // columns of the packed Bᵀ (a multiple of 64; pack_b's padding of N), K =
-// chunks · 64, launched on `stream` without synchronising.
+// chunks · 64, launched on `stream` without synchronising; both maps
+// encoded for this launch.
 template <class Loader, class Epilogue>
 cudaError_t launch(const Loader& ld, const bf16* bt, int b_rows, int chunks, const Epilogue& epi,
                    cudaStream_t stream) {
   if (ld.batch <= 0 || ld.n <= 0 || chunks <= 0 || b_rows <= 0 || b_rows % kPad != 0)
     return cudaErrorInvalidValue;
   const Shape s = choose(ld.batch, ld.n, b_rows);
-  if (s.bm == 128 && s.bn == 256) return launch_tile<128, 256>(ld, bt, b_rows, chunks, epi, stream);
-  if (s.bm == 128) return launch_tile<128, 128>(ld, bt, b_rows, chunks, epi, stream);
-  return launch_tile<64, 64>(ld, bt, b_rows, chunks, epi, stream);
+  CUtensorMap map_a, map_b;
+  cudaError_t err = ld.map(&map_a, s.bm);
+  if (err != cudaSuccess) return err;
+  err = b_map(&map_b, bt, b_rows, chunks, s.bn);
+  if (err != cudaSuccess) return err;
+  return launch_at(s, map_a, map_b, ld, b_rows, chunks, epi, stream);
 }
 
 // ---- the norm pre-pass ----------------------------------------------------

@@ -42,28 +42,43 @@
 //
 // bf16 (`ns2_wavenet_body_bf16`, wavenet_kernel.py:80-129 with bf16 x,
 // weights and FiLM): the JAX kernel keeps its lanes in f32 scratch and
-// multiplies them by the bf16 weights with f32 accumulation, rounding only
-// its output to bf16. So do these launches: the lanes stay f32 (the first
-// stack reads x as bf16), the gate reads bf16 biases and FiLM, and the
-// products run in the core's kSplit2 mode, the lanes split into TF32 hi and
-// lo against the bf16 weights held as TF32 (exact), two passes where f32
-// weights need three; the skips' sum is rounded to bf16 once.
+// multiplies them by the bf16 weights with f32 products, rounding only its
+// output to bf16. Here the same S + 1 launches run on the bf16 GEMM core
+// (gemm_bf16.cuh: TMA copies of A and B, a 4-stage ring, bf16 `wgmma` with
+// f32 accumulation) with each f32 lane carried as three bf16 planes, hi,
+// mid and lo, which sum to it exactly (lanes [L·b, 3, n, d], d padded to
+// 64, ping-ponged): each part times a bf16 weight is exact in f32, so a
+// block is three bf16 passes over one B (K = 3 parts · 3 taps · d, the
+// parts lo first; the first stack reads x as one part). A stack's L lanes
+// are one launch, folded into the grid's rows (`SplitTaps`: the lane of a
+// row tile sets its dilation and its block); `WaveGateSplit` computes the
+// gate in f32 and writes the three planes. The skips are one launch with K
+// = 3 parts · L · d against skip_w [L·d, d] (`SplitLanes`), the bias Σ_l
+// skip_b[l] in f32, the output rounded to bf16 once. Each distinct tensor
+// map (x, the two plane buffers, every block's B, the skips' A and B) is
+// encoded once a call. What bounds these blocks on the card is their
+// epilogue, one block an SM: a gate of two transcendentals a value and
+// three planes to store (staged in shared memory, stored by TMA). Taken
+// out, the gate's math alone cut K1 at b4 n1024 d128 by about a quarter
+// (gemm_variants.py's k1_bf16_no_gate); 64 x 128 tiles two an SM, to run
+// one block's epilogue beside the other's products, were slower
+// (k1_bf16_tile_64x128; PERF.md).
+#include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 
 namespace gemm = ns2::gemm;
+namespace bgemm = ns2::bgemm;
 using ns2::bf16;
 
 namespace {
 
-// T: the type of x, the biases, FiLM and the output (f32, or bf16 with the
-// weights as TF32 in the kSplit2 mode); the lanes are f32 either way. M:
-// the core's mode, kSplit2 also for the mixed entry point (f32 x against
-// bf16 weights).
-template <class T,
-          gemm::Mode M = (sizeof(T) == 4 ? gemm::Mode::kSplit3 : gemm::Mode::kSplit2)>
-int wavenet_body(const T* x, const float* blocks, const T* conv_b, const T* res_b,
-                 const float* skip, const float* skip_b, const T* film, float* lanes_a,
-                 float* lanes_b, T* out, int b, int n, int d, int S, int L, void* stream) {
+// The split-TF32 core's body: f32 (kSplit3) or the mixed entry point
+// (kSplit2: f32 x, biases and FiLM against bf16 weights held as TF32); the
+// lanes f32 [L, b, n, d].
+template <gemm::Mode M>
+int wavenet_body(const float* x, const float* blocks, const float* conv_b, const float* res_b,
+                 const float* skip, const float* skip_b, const float* film, float* lanes_a,
+                 float* lanes_b, float* out, int b, int n, int d, int S, int L, void* stream) {
   constexpr int kB = gemm::Fmt<M>::kB;
   if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -75,20 +90,58 @@ int wavenet_body(const T* x, const float* blocks, const T* conv_b, const T* res_
     float* dst = bufs[s % 2];
     const size_t sl = (size_t)s * L;
     const gemm::Groups g{L, b_blk};
-    const gemm::WaveGate<float, T> gate{dst, conv_b + sl * d, res_b + sl * d, film + sl * 2 * d,
-                                        lane, (size_t)S * L * 2 * d, rows, n, d};
+    const gemm::WaveGate<float, float> gate{dst, conv_b + sl * d, res_b + sl * d,
+                                            film + sl * 2 * d, lane, (size_t)S * L * 2 * d,
+                                            rows, n, d};
     // the first stack's lanes all read x
-    cudaError_t err =
-        s == 0 ? gemm::launch_wn<2, M>(gemm::TapRows<T>{x, rows, n, d, 3, 1, 0, 0},
-                                       blocks + sl * b_blk, rows, chunks, tiles, gate, st, g)
-               : gemm::launch_wn<2, M>(gemm::TapRows<float>{in, rows, n, d, 3, 1, 0, lane},
-                                       blocks + sl * b_blk, rows, chunks, tiles, gate, st, g);
+    const gemm::TapRows<float> taps =
+        s == 0 ? gemm::TapRows<float>{x, rows, n, d, 3, 1, 0, 0}
+               : gemm::TapRows<float>{in, rows, n, d, 3, 1, 0, lane};
+    cudaError_t err = gemm::launch_wn<2, M>(taps, blocks + sl * b_blk, rows, chunks, tiles, gate,
+                                            st, g);
     if (err != cudaSuccess) return err;
     in = dst;
   }
   return gemm::launch<M>(gemm::TapRows<float>{in, rows, n, d, L, 0, lane, 0}, skip, rows,
                          L * d / gemm::kKC, (d + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store<T, float, float>{out, skip_b, nullptr, rows, d, d}, st);
+                         gemm::Store<float>{out, skip_b, nullptr, rows, d, d}, st);
+}
+
+// The bf16 body on the bf16 core.
+int wavenet_body_bf16(const bf16* x, const bf16* blocks, const bf16* conv_b, const bf16* res_b,
+                      const bf16* skip, const float* skip_b, const bf16* film, bf16* planes_a,
+                      bf16* planes_b, bf16* out, int b, int n, int d, int S, int L,
+                      void* stream) {
+  if (d % bgemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int per_part = 3 * d / bgemm::kKC;  // chunks of one part of a block
+  const bgemm::Shape sh = bgemm::choose(L * b, n, 2 * d, true);
+  CUtensorMap map_x, map_planes[2], map_out[2], map_blocks;
+  bf16* planes[2] = {planes_a, planes_b};
+  cudaError_t err = bgemm::rows_map(&map_x, x, b, 1, n, d, d, sh.bm);
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+    err = bgemm::rows_map(&map_planes[i], planes[i], L * b, 3, n, d, d, sh.bm);
+    if (err == cudaSuccess) err = bgemm::planes_map(&map_out[i], planes[i], L * b, n, d);
+  }
+  if (err == cudaSuccess) err = bgemm::b_map(&map_blocks, blocks, 2 * d, S * L * per_part, sh.bn);
+  for (int s = 0; s < S && err == cudaSuccess; ++s) {
+    const size_t sl = (size_t)s * L;
+    const bgemm::WaveGateSplit gate{map_out[s % 2], conv_b + sl * d, res_b + sl * d,
+                                    film + sl * 2 * d, (size_t)S * L * 2 * d, b, n, d};
+    const bgemm::SplitTaps taps{L * b, n, d, b, 0, s == 0 ? 1 : 3, (int)sl * per_part};
+    err = bgemm::launch_at(sh, s == 0 ? map_x : map_planes[(s - 1) % 2], map_blocks, taps,
+                           2 * d, taps.parts * per_part, gate, st);
+  }
+  if (err != cudaSuccess) return err;
+  // the skips: the last stack's planes, every lane side by side
+  const bgemm::Shape sk = bgemm::choose(b, n, d);
+  CUtensorMap map_lanes, map_skip;
+  err = bgemm::rows_map(&map_lanes, planes[(S - 1) % 2], L * b, 3, n, d, d, sk.bm);
+  if (err == cudaSuccess) err = bgemm::b_map(&map_skip, skip, d, L * d / bgemm::kKC, sk.bn);
+  if (err != cudaSuccess) return err;
+  return bgemm::launch_at(sk, map_lanes, map_skip, bgemm::SplitLanes{b, n, d, L, 0, 0}, d,
+                          3 * L * d / bgemm::kKC,
+                          bgemm::Store<bf16, float>{out, skip_b, nullptr, d, d}, st);
 }
 
 }  // namespace
@@ -102,8 +155,8 @@ NS2_API int ns2_wavenet_body(const float* x, const float* blocks, const float* c
                              const float* res_b, const float* skip, const float* skip_b,
                              const float* film, float* lanes_a, float* lanes_b, float* out, int b,
                              int n, int d, int S, int L, void* stream) {
-  return wavenet_body(x, blocks, conv_b, res_b, skip, skip_b, film, lanes_a, lanes_b, out, b, n,
-                      d, S, L, stream);
+  return wavenet_body<gemm::Mode::kSplit3>(x, blocks, conv_b, res_b, skip, skip_b, film, lanes_a,
+                                           lanes_b, out, b, n, d, S, L, stream);
 }
 
 // Mixed (AMP training's denoiser, wavenet_kernel.py:80-129 with f32 x and
@@ -114,16 +167,18 @@ NS2_API int ns2_wavenet_body_mixed(const float* x, const float* blocks, const fl
                                    const float* res_b, const float* skip, const float* skip_b,
                                    const float* film, float* lanes_a, float* lanes_b, float* out,
                                    int b, int n, int d, int S, int L, void* stream) {
-  return wavenet_body<float, gemm::Mode::kSplit2>(x, blocks, conv_b, res_b, skip, skip_b, film,
-                                                  lanes_a, lanes_b, out, b, n, d, S, L, stream);
+  return wavenet_body<gemm::Mode::kSplit2>(x, blocks, conv_b, res_b, skip, skip_b, film,
+                                           lanes_a, lanes_b, out, b, n, d, S, L, stream);
 }
 
-// The same with x, conv_b, res_b, film and out in bf16, blocks and skip the
-// bf16 weights packed as TF32 with no lo part, skip_b their f32 sum.
-NS2_API int ns2_wavenet_body_bf16(const bf16* x, const float* blocks, const bf16* conv_b,
-                                  const bf16* res_b, const float* skip, const float* skip_b,
-                                  const bf16* film, float* lanes_a, float* lanes_b, bf16* out,
+// bf16 on the bf16 core: x [b,n,d], conv_b, res_b, film and out bf16, d %
+// 64 == 0; blocks the [S, L] Bᵀ [2d, 3d] packed "bf16_sw128" (one run of
+// S·L·3d/64 chunks), skip Bᵀ [d, L·d] packed so, skip_b the f32 sum of the
+// lanes' biases [d]; planes_a / planes_b [L·b, 3, n, d] bf16 scratch.
+NS2_API int ns2_wavenet_body_bf16(const bf16* x, const bf16* blocks, const bf16* conv_b,
+                                  const bf16* res_b, const bf16* skip, const float* skip_b,
+                                  const bf16* film, bf16* planes_a, bf16* planes_b, bf16* out,
                                   int b, int n, int d, int S, int L, void* stream) {
-  return wavenet_body(x, blocks, conv_b, res_b, skip, skip_b, film, lanes_a, lanes_b, out, b, n,
-                      d, S, L, stream);
+  return wavenet_body_bf16(x, blocks, conv_b, res_b, skip, skip_b, film, planes_a, planes_b, out,
+                           b, n, d, S, L, stream);
 }

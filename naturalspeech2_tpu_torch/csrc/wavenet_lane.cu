@@ -28,11 +28,20 @@
 // atomics. L·S + L launches in all.
 //
 // bf16 (`ns2_wavenet_lanes_bf16`, wavenet_kernel.py:167-240 with bf16 x,
-// weights and FiLM and `bf16_matmul` off): as K1's bf16 path (wavenet.cu),
-// the lane state f32, the products in the core's kSplit2 mode against the
-// bf16 weights held as TF32; the skips accumulate in an f32 scratch, as the
-// JAX kernel's skip_scratch, and the last lane's launch rounds the sum to
-// bf16 as it writes the output.
+// weights and FiLM and `bf16_matmul` off): the JAX kernel's lane state is
+// f32, its products f32 against the bf16 weights, its skips summed in f32
+// and the output rounded once. As K1's bf16 path (wavenet.cu), the
+// launches run on the bf16 GEMM core (gemm_bf16.cuh) with the lane carried
+// as three bf16 planes [b, 3, n, d] (d padded to 64), ping-ponged, each
+// block three bf16 passes over its B (`SplitTaps`, `WaveGateSplit`). A
+// launch takes kLaneGroup lanes (their planes [kLaneGroup·b, 3, n, d], the
+// lanes folded into the grid's rows as K1 folds a stack's); the skips stay
+// one launch a lane, in lane order, each adding lane · skip_w[l] +
+// skip_b[l] into the f32 scratch `acc` (`Store` with acc as its residual),
+// the last lane's rounding the sum to bf16 as it writes the output. Every
+// tensor map (x, the two plane buffers, all S·L blocks' B as one run, the
+// skips' A and B) is encoded once a call, for its L·S / kLaneGroup + L
+// launches.
 //
 // `bf16_matmul` (`ns2_wavenet_lanes_bf16mm`, wavenet_kernel.py:172 and
 // :208-217: the option `_fused_forward_per_lane(..., bf16_matmul=True)`
@@ -47,25 +56,30 @@
 // `wgmma.m64n64k16` pass a k-step. The lane state, the gate and the skips'
 // sum stay f32. Bound: the products at the dense bf16 rate, 989 TFLOP/s
 // (H100 SXM, 700 W), where kSplit3's three TF32 passes run at 165.
+#include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 
 namespace gemm = ns2::gemm;
+namespace bgemm = ns2::bgemm;
 using ns2::bf16;
 
 namespace {
 
-// T: the type of x, the biases, FiLM and the output (f32, or bf16 with the
-// weights as TF32 in the kSplit2 mode); the lane state and the skips' sum
-// `acc` are f32 (for f32, acc may be the output itself).
-// M: the core's mode (kSplit3 for f32, kSplit2 for bf16 and mixed, kBf16 for
-// `bf16_matmul`); blocks and skip are packed in its B format (Fmt<M>::T).
-template <class T,
-          gemm::Mode M = (sizeof(T) == 4 ? gemm::Mode::kSplit3 : gemm::Mode::kSplit2)>
-int wavenet_lanes(const T* x, const typename gemm::Fmt<M>::T* blocks, const T* conv_b,
-                  const T* res_b, const typename gemm::Fmt<M>::T* skip, const T* skip_b,
-                  const T* film, float* lane_a,
-                  float* lane_b, float* acc, T* out, int b, int n, int d, int S, int L,
-                  void* stream) {
+// Lanes a launch of the bf16 path's blocks: one lane at b1 n9000 d128 is
+// 71 row tiles of 128, a wave at half the 132 SMs; four fill the card
+// better, at four lanes' planes (55 MB at n9000): gemm_variants.py's
+// k1b_bf16_one_lane and k1b_bf16_two_lanes were slower (PERF.md).
+constexpr int kLaneGroup = 4;
+
+// The split-TF32 core's lanes, f32 in and out: M the core's mode (kSplit3
+// for f32, kSplit2 for the mixed entry point, kBf16 for `bf16_matmul`);
+// blocks and skip are packed in its B format (Fmt<M>::T). The lane state
+// and the skips' sum are f32, the sum in the output.
+template <gemm::Mode M>
+int wavenet_lanes(const float* x, const typename gemm::Fmt<M>::T* blocks, const float* conv_b,
+                  const float* res_b, const typename gemm::Fmt<M>::T* skip, const float* skip_b,
+                  const float* film, float* lane_a, float* lane_b, float* out, int b, int n,
+                  int d, int S, int L, void* stream) {
   constexpr int kB = gemm::Fmt<M>::kB;
   if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -79,32 +93,73 @@ int wavenet_lanes(const T* x, const typename gemm::Fmt<M>::T* blocks, const T* c
     for (int s = 0; s < S; ++s) {
       const size_t sl = (size_t)s * L + l;  // block (s, l)
       float* dst = bufs[s % 2];
-      const gemm::WaveGate<float, T> gate{dst, conv_b + sl * d, res_b + sl * d,
-                                          film + sl * 2 * d, 0, (size_t)S * L * 2 * d, rows, n,
-                                          d};
+      const gemm::WaveGate<float, float> gate{dst, conv_b + sl * d, res_b + sl * d,
+                                              film + sl * 2 * d, 0, (size_t)S * L * 2 * d, rows,
+                                              n, d};
+      const gemm::TapRows<float> taps{s == 0 ? x : in, rows, n, d, 3, 1 << l, 0, 0};
       cudaError_t err =
-          s == 0 ? gemm::launch_wn<2, M>(gemm::TapRows<T>{x, rows, n, d, 3, 1 << l, 0, 0},
-                                         blocks + sl * b_blk, rows, chunks, tiles, gate, st)
-                 : gemm::launch_wn<2, M>(gemm::TapRows<float>{in, rows, n, d, 3, 1 << l, 0, 0},
-                                         blocks + sl * b_blk, rows, chunks, tiles, gate, st);
+          gemm::launch_wn<2, M>(taps, blocks + sl * b_blk, rows, chunks, tiles, gate, st);
       if (err != cudaSuccess) return err;
       in = dst;
     }
     const gemm::TapRows<float> lane{in, rows, n, d, 1, 0, 0, 0};
-    const float* prev = l > 0 ? acc : nullptr;
-    cudaError_t err =
-        l + 1 < L
-            ? gemm::launch_wn<1, M>(lane, skip + l * b_skip, rows, d / gemm::kKC, skip_tiles,
-                                    gemm::Store<float, T, float>{acc, skip_b + (size_t)l * d,
-                                                                 prev, rows, d, d},
-                                    st)
-            : gemm::launch_wn<1, M>(lane, skip + l * b_skip, rows, d / gemm::kKC, skip_tiles,
-                                    gemm::Store<T, T, float>{out, skip_b + (size_t)l * d, prev,
-                                                             rows, d, d},
-                                    st);
+    const cudaError_t err = gemm::launch_wn<1, M>(
+        lane, skip + l * b_skip, rows, d / gemm::kKC, skip_tiles,
+        gemm::Store<float>{out, skip_b + (size_t)l * d, l > 0 ? out : nullptr, rows, d, d}, st);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// The bf16 lanes on the bf16 core; planes_a / planes_b [kLaneGroup·b, 3, n,
+// d] bf16, acc [b, n, d] f32.
+int wavenet_lanes_bf16(const bf16* x, const bf16* blocks, const bf16* conv_b, const bf16* res_b,
+                       const bf16* skip, const bf16* skip_b, const bf16* film, bf16* planes_a,
+                       bf16* planes_b, float* acc, bf16* out, int b, int n, int d, int S, int L,
+                       void* stream) {
+  if (d % bgemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int per_part = 3 * d / bgemm::kKC, skip_chunks = d / bgemm::kKC;
+  const bgemm::Shape sh = bgemm::choose(kLaneGroup * b, n, 2 * d, true);
+  const bgemm::Shape sk = bgemm::choose(b, n, d);
+  bf16* planes[2] = {planes_a, planes_b};
+  CUtensorMap map_x, map_planes[2], map_out[2], map_blocks, map_lane, map_skip;
+  cudaError_t err = bgemm::rows_map(&map_x, x, b, 1, n, d, d, sh.bm);
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+    err = bgemm::rows_map(&map_planes[i], planes[i], kLaneGroup * b, 3, n, d, d, sh.bm);
+    if (err == cudaSuccess) err = bgemm::planes_map(&map_out[i], planes[i], kLaneGroup * b, n, d);
+  }
+  if (err == cudaSuccess) err = bgemm::b_map(&map_blocks, blocks, 2 * d, S * L * per_part, sh.bn);
+  // the skips read the last stack's planes
+  if (err == cudaSuccess)
+    err = bgemm::rows_map(&map_lane, planes[(S - 1) % 2], kLaneGroup * b, 3, n, d, d, sk.bm);
+  if (err == cudaSuccess) err = bgemm::b_map(&map_skip, skip, d, L * skip_chunks, sk.bn);
+  for (int l0 = 0; l0 < L && err == cudaSuccess; l0 += kLaneGroup) {
+    const int lanes = L - l0 < kLaneGroup ? L - l0 : kLaneGroup;
+    for (int s = 0; s < S && err == cudaSuccess; ++s) {
+      const size_t sl = (size_t)s * L + l0;  // block (s, l0)
+      const bgemm::WaveGateSplit gate{map_out[s % 2], conv_b + sl * d, res_b + sl * d,
+                                      film + sl * 2 * d, (size_t)S * L * 2 * d, b, n, d};
+      const bgemm::SplitTaps taps{lanes * b, n, d, b, l0, s == 0 ? 1 : 3, (int)sl * per_part};
+      err = bgemm::launch_at(sh, s == 0 ? map_x : map_planes[(s - 1) % 2], map_blocks, taps,
+                             2 * d, taps.parts * per_part, gate, st);
+    }
+    for (int g = 0; g < lanes && err == cudaSuccess; ++g) {
+      const int l = l0 + g;
+      const bgemm::SplitLanes lane{b, n, d, 1, g, l * skip_chunks};
+      const float* prev = l > 0 ? acc : nullptr;
+      err = l + 1 < L
+                ? bgemm::launch_at(sk, map_lane, map_skip, lane, d, 3 * skip_chunks,
+                                   bgemm::Store<float, bf16, float>{acc, skip_b + (size_t)l * d,
+                                                                    prev, d, d},
+                                   st)
+                : bgemm::launch_at(sk, map_lane, map_skip, lane, d, 3 * skip_chunks,
+                                   bgemm::Store<bf16, bf16, float>{out, skip_b + (size_t)l * d,
+                                                                   prev, d, d},
+                                   st);
+    }
+  }
+  return err;
 }
 
 }  // namespace
@@ -118,8 +173,8 @@ NS2_API int ns2_wavenet_lanes(const float* x, const float* blocks, const float* 
                               const float* res_b, const float* skip, const float* skip_b,
                               const float* film, float* lane_a, float* lane_b, float* out, int b,
                               int n, int d, int S, int L, void* stream) {
-  return wavenet_lanes(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a, lane_b, out, out,
-                       b, n, d, S, L, stream);
+  return wavenet_lanes<gemm::Mode::kSplit3>(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a,
+                                            lane_b, out, b, n, d, S, L, stream);
 }
 
 // Mixed (f32 x and FiLM against bf16 weights): as ns2_wavenet_lanes with
@@ -129,20 +184,21 @@ NS2_API int ns2_wavenet_lanes_mixed(const float* x, const float* blocks, const f
                                     const float* res_b, const float* skip, const float* skip_b,
                                     const float* film, float* lane_a, float* lane_b, float* out,
                                     int b, int n, int d, int S, int L, void* stream) {
-  return wavenet_lanes<float, gemm::Mode::kSplit2>(x, blocks, conv_b, res_b, skip, skip_b, film,
-                                                   lane_a, lane_b, out, out, b, n, d, S, L,
-                                                   stream);
+  return wavenet_lanes<gemm::Mode::kSplit2>(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a,
+                                            lane_b, out, b, n, d, S, L, stream);
 }
 
-// The same with x, conv_b, res_b, skip_b, film and out in bf16, blocks and
-// skip the bf16 weights packed as TF32 with no lo part; acc is [b,n,d] f32
-// scratch for the skips' sum.
-NS2_API int ns2_wavenet_lanes_bf16(const bf16* x, const float* blocks, const bf16* conv_b,
-                                   const bf16* res_b, const float* skip, const bf16* skip_b,
-                                   const bf16* film, float* lane_a, float* lane_b, float* acc,
+// bf16 on the bf16 core: x, conv_b, res_b, skip_b, film and out bf16, d %
+// 64 == 0; blocks the [S, L] Bᵀ [2d, 3d] packed "bf16_sw128" (one run of
+// S·L·3d/64 chunks), skip the [L] Bᵀ [d, d] packed so; planes_a / planes_b
+// [kLaneGroup·b, 3, n, d] bf16 scratch, acc [b,n,d] f32 scratch for the
+// skips' sum.
+NS2_API int ns2_wavenet_lanes_bf16(const bf16* x, const bf16* blocks, const bf16* conv_b,
+                                   const bf16* res_b, const bf16* skip, const bf16* skip_b,
+                                   const bf16* film, bf16* planes_a, bf16* planes_b, float* acc,
                                    bf16* out, int b, int n, int d, int S, int L, void* stream) {
-  return wavenet_lanes(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a, lane_b, acc, out, b,
-                       n, d, S, L, stream);
+  return wavenet_lanes_bf16(x, blocks, conv_b, res_b, skip, skip_b, film, planes_a, planes_b,
+                            acc, out, b, n, d, S, L, stream);
 }
 
 // `bf16_matmul`: as ns2_wavenet_lanes with blocks and skip the weights
@@ -152,7 +208,6 @@ NS2_API int ns2_wavenet_lanes_bf16mm(const float* x, const bf16* blocks, const f
                                      const float* res_b, const bf16* skip, const float* skip_b,
                                      const float* film, float* lane_a, float* lane_b, float* out,
                                      int b, int n, int d, int S, int L, void* stream) {
-  return wavenet_lanes<float, gemm::Mode::kBf16>(x, blocks, conv_b, res_b, skip, skip_b, film,
-                                                 lane_a, lane_b, out, out, b, n, d, S, L,
-                                                 stream);
+  return wavenet_lanes<gemm::Mode::kBf16>(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a,
+                                          lane_b, out, b, n, d, S, L, stream);
 }

@@ -16,12 +16,12 @@ Two more formats carry bf16 weights (``pack_b(bt, fmt)``): ``"bf16"``,
 the bf16 values in the bf16 K-major order (a core matrix is 8 rows of 8
 bf16, a k-step 16 deep), one part, for the core's bf16 mode (K2b in bf16,
 K1b's ``bf16_matmul``); and ``"tf32"``, the bf16 values as f32 (exact in
-TF32) in the TF32 order with no lo part, for its two-pass mode (K1 and K1b
-in bf16, whose lanes stay f32, and the mixed entry points of K1, K1b, K2,
-K2b, K3 and the bf16 K6, whose activations are f32).
+TF32) in the TF32 order with no lo part, for its two-pass mode (the mixed
+entry points of K1, K1b, K2, K2b, K3 and the bf16 K6, whose activations
+are f32).
 
 ``"bf16_sw128"`` is the operand format of the bf16 GEMM core
-(``csrc/gemm_bf16.cuh``, K2 and K3 in bf16): Bᵀ [N, K] padded with zeros
+(``csrc/gemm_bf16.cuh``, K1, K1b, K2 and K3 in bf16): Bᵀ [N, K] padded with zeros
 to multiples of 64 in both, laid out chunk by chunk as [K / 64, N, 64], each
 row of a chunk (64 bf16, 128 bytes) in the 128-byte swizzle that ``wgmma``
 reads: its 16-byte piece p holds the eight values of piece p ^ (n % 8).
@@ -146,8 +146,8 @@ def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None, *,
            bf16_core: bool = False) -> str:
     """The weight format of the core's mode for a block's activation dtype
     and its weights' (default: the same): "split" for f32, "bf16" for bf16
-    ("bf16_sw128" with ``bf16_core``: the blocks on the bf16 GEMM core, K2
-    and K3), "tf32" for f32 activations against bf16 weights (the two-pass
+    ("bf16_sw128" with ``bf16_core``: the blocks on the bf16 GEMM core, K1,
+    K1b, K2 and K3), "tf32" for f32 activations against bf16 weights (the two-pass
     mode)."""
     if dtype == torch.bfloat16:
         return "bf16_sw128" if bf16_core else "bf16"

@@ -22,24 +22,29 @@ Shapes: x [b, n, d]; conv_w [S, L, 3d, d]; conv_b, res_b [S, L, d];
 res_w [S, L, d, d]; skip_w [L, d, d]; skip_b [L, d]; film [b, S, L, 2d]
 (γ first, β second). Returns the summed skips [b, n, d].
 
-Both kernels run every product on the split-TF32 GEMM core
-(``csrc/gemm_tf32x3.cuh``) and read their weights packed for it once per
+In f32 and mixed both kernels run every product on the split-TF32 GEMM
+core (``csrc/gemm_tf32x3.cuh``); in bf16 on the bf16 GEMM core
+(``csrc/gemm_bf16.cuh``). They read their weights packed once per
 parameter version (``pack_wavenet_weights``): each block's conv and
-residual as one B [3d, 2d] whose 64-column tiles interleave 32 conv and
+residual as one B [3d, 2d] whose 64-column groups interleave 32 conv and
 32 residual columns, and the skips. ``wavenet_body_packed_torch``
 computes the body from that layout in plain PyTorch. The kernels take d %
-32 == 0 (the core's chunk). Other widths are padded with exact zeros
-(``pad_wavenet_weights``, ``pad_wavenet_inputs``) and the result is cut
-back: a padded channel has zero weights, bias, γ and β, so it stays 0
-through the FiLM, tanh·σ, the residual and the skips.
+32 == 0 (the split-TF32 core's chunk; 64 in bf16, the bf16 core's). Other
+widths are padded with exact zeros (``pad_wavenet_weights``,
+``pad_wavenet_inputs``) and the result is cut back: a padded channel has
+zero weights, bias, γ and β, so it stays 0 through the FiLM, tanh·σ, the
+residual and the skips.
 
 In bf16 (x, the weights and FiLM bfloat16) each route copies its own JAX
 counterpart. The kernels' routes run the JAX kernels' bf16 path: the lanes
 stay f32, the products multiply them by the bf16 weights with f32
-accumulation, and only the output is rounded to bf16
-(``wavenet_body_bf16_torch``, ``wavenet_body_lanes_bf16_torch``; on a card
-the kernels' bf16 entry points, their weights packed as TF32 with no lo
-part, two TF32 passes). The plain route is ``wavenet_body_torch`` on the
+products, and only the output is rounded to bf16
+(``wavenet_body_bf16_torch``, ``wavenet_body_lanes_bf16_torch``). On a card
+the kernels' bf16 entry points carry each f32 lane as three bf16 planes,
+hi + mid + lo = the lane exactly (``split3``), each part's product with a
+bf16 weight exact in f32, three bf16 passes summed in one f32 accumulator
+(the weights packed "bf16_sw128"); ``wavenet_body_planes_torch`` is that
+scheme in plain PyTorch. The plain route is ``wavenet_body_torch`` on the
 bf16 tensors, every lane rounded to bf16 as `wavenet_body_xla` runs at
 x.dtype. ``wavenet_route`` decides as in f32: the JAX gates do not depend on
 the dtype.
@@ -224,13 +229,14 @@ def pad_wavenet_inputs(x, film, d_p: int):
 
 class WavenetWeights(NamedTuple):
     """The body's weights as K1 or K1b reads them (``pack_wavenet_weights``),
-    at the padded width ``d``."""
+    at the padded width ``d``, packed in ``fmt`` (``gemm_cache.pack_b``)."""
     blocks: torch.Tensor  # [S, L] of Bᵀ [2d, 3d], packed: tile j = conv cols 32j.., then res
     conv_b: torch.Tensor  # [S, L, d]
     res_b: torch.Tensor   # [S, L, d]
     skip: torch.Tensor    # "stack": Bᵀ [d, L·d] packed; "lanes": [L] of Bᵀ [d, d] packed
     skip_b: torch.Tensor  # "stack": Σ_l skip_b[l] [d]; "lanes": skip_b [L, d]
     d: int
+    fmt: str = "split"
 
 
 def block_weights(conv_w, res_w):
@@ -246,19 +252,20 @@ def block_weights(conv_w, res_w):
 
 def pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b,
                          route: str, bias_dtype=None, fmt=None) -> WavenetWeights:
-    """The body's weights padded to a multiple of 32 channels and packed
-    for the GEMM core (``gemm_cache.pack_b``; f32 weights split into hi
-    and lo, bf16 ones as TF32 with no lo part): the blocks' B, and the skips
-    as K1 (``route`` "stack": one product over the lanes side by side, the
-    biases summed in f32) or K1b ("lanes": one product per lane) reads
-    them. The biases take ``bias_dtype`` (default: their own; float32 for
-    the mixed entry points) but for that f32 sum. ``fmt`` overrides the
-    weights' format ("bf16": K1b's ``bf16_matmul``, f32 weights rounded to
-    bf16)."""
+    """The body's weights padded to a multiple of ``fmt``'s chunk (32
+    channels, 64 for "bf16_sw128") and packed for the GEMM cores
+    (``gemm_cache.pack_b``): the blocks' B, and the skips as K1 (``route``
+    "stack": one product over the lanes side by side, the biases summed in
+    f32) or K1b ("lanes": one product per lane) reads them. ``fmt``
+    (default: "split" for f32 weights, "bf16_sw128" for bf16 ones, the bf16
+    core's) is "tf32" for the mixed entry points (bf16 weights as TF32 with
+    no lo part) and "bf16" for K1b's ``bf16_matmul`` (f32 weights rounded to
+    bf16). The biases take ``bias_dtype`` (default: their own; float32 for
+    the mixed entry points) but for that f32 sum."""
     if fmt is None:
-        fmt = "tf32" if conv_w.dtype == torch.bfloat16 else "split"
+        fmt = gemm_cache.fmt_of(conv_w.dtype, bf16_core=True)
     d = conv_w.shape[-1]
-    d_p = _round_up(d, KERNEL_ALIGN)
+    d_p = _round_up(d, gemm_cache.chunk_of(fmt))
     if d_p != d:
         conv_w, conv_b, res_w, res_b, skip_w, skip_b = pad_wavenet_weights(
             conv_w, conv_b, res_w, res_b, skip_w, skip_b, d_p)
@@ -272,11 +279,11 @@ def pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b,
     else:
         skip = gemm_cache.pack_b(skip_w.transpose(-1, -2), fmt)
     return WavenetWeights(blocks, conv_b.contiguous(), res_b.contiguous(), skip,
-                          skip_b.contiguous(), d_p)
+                          skip_b.contiguous(), d_p, fmt)
 
 
-def _dense(packed, rows: int, cols: int):
-    hi, lo = gemm_cache.unpack_b(packed)
+def _dense(packed, rows: int, cols: int, fmt: str):
+    hi, lo = gemm_cache.unpack_b(packed, fmt)
     return (hi + lo)[..., :rows, :cols]
 
 
@@ -288,12 +295,15 @@ def wavenet_body_packed_torch(x, film, weights: WavenetWeights, route: str):
     over the lanes side by side (``route`` "stack", K1) or lane by lane,
     added in order ("lanes", K1b); at the padded width, cut back. Equal to
     ``wavenet_body_torch`` up to f32 reordering: the check of the padding,
-    the packed layout and the dilated taps on the CPU."""
+    the packed layout and the dilated taps on the CPU. Weights packed
+    "bf16_sw128" (bf16) run ``wavenet_body_planes_torch``."""
+    if weights.fmt == "bf16_sw128":
+        return wavenet_body_planes_torch(x, film, weights, route)[0]
     b, n, d = x.shape
     d_p = weights.d
     x, film = pad_wavenet_inputs(x, film, d_p)
     S, L = weights.blocks.shape[:2]
-    bt = _dense(weights.blocks, 2 * d_p, 3 * d_p)
+    bt = _dense(weights.blocks, 2 * d_p, 3 * d_p, weights.fmt)
 
     def block(a, s, l):
         dil = 2**l
@@ -308,9 +318,10 @@ def wavenet_body_packed_torch(x, film, weights: WavenetWeights, route: str):
         lanes = [x] * L
         for s in range(S):
             lanes = [block(lanes[l], s, l) for l in range(L)]
-        out = torch.cat(lanes, dim=-1) @ _dense(weights.skip, d_p, L * d_p).T + weights.skip_b
+        out = (torch.cat(lanes, dim=-1) @ _dense(weights.skip, d_p, L * d_p, weights.fmt).T
+               + weights.skip_b)
     else:
-        skip = _dense(weights.skip, d_p, d_p)
+        skip = _dense(weights.skip, d_p, d_p, weights.fmt)
         out = None
         for l in range(L):
             lane = x
@@ -319,6 +330,129 @@ def wavenet_body_packed_torch(x, film, weights: WavenetWeights, route: str):
             term = lane @ skip[l].T + weights.skip_b[l]
             out = term if out is None else out + term
     return out[..., :d]
+
+
+def split3(v):
+    """(hi, mid, lo), bf16 parts of the f32 ``v`` as the bf16 kernels carry
+    a lane (``csrc/gemm_bf16.cuh``: ``split3``): hi = bf16(v), mid = bf16(v −
+    hi), lo = bf16(v − hi − mid), each rounded to nearest even; lo + mid +
+    hi == v exactly (the differences are exact in f32, and what hi and mid
+    leave has at most 8 significant bits)."""
+    hi = v.to(torch.bfloat16)
+    rest = v - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
+def wavenet_body_planes_torch(x, film, weights: WavenetWeights, route: str):
+    """The bf16 kernels' launches in plain PyTorch (weights packed
+    "bf16_sw128"; x and FiLM bf16): every lane carried as its three bf16
+    planes (``split3``), each block the three parts' products with its
+    interleaved B, lo first, summed in f32 (each product exact: a part and a
+    bf16 weight), the gate in f32 on the bf16 biases and FiLM, the skips
+    over the last stack's planes (``route`` "stack": the lanes side by side,
+    the biases' f32 sum; "lanes": lane by lane into an f32 sum), the output
+    rounded once to bf16. Returns (out [b, n, d] bf16, the last stack's f32
+    lanes hi + mid + lo [L, b, n, d_p])."""
+    b, n, d = x.shape
+    d_p = weights.d
+    x, film = pad_wavenet_inputs(x, film, d_p)
+    film = film.float()
+    S, L = weights.blocks.shape[:2]
+    bt = _dense(weights.blocks, 2 * d_p, 3 * d_p, weights.fmt).float()
+    conv_b, res_b = weights.conv_b.float(), weights.res_b.float()
+
+    def block(parts, s, l):
+        dil = 2**l
+        y = 0
+        for part in reversed(parts):  # lo first
+            a = part.float()
+            y = y + torch.cat([_shift(a, 2 * dil), _shift(a, dil), a], dim=-1) @ bt[s, l].T
+        y = y.reshape(b, n, d_p // KERNEL_ALIGN, 2, KERNEL_ALIGN)
+        conv, res = (y[..., i, :].reshape(b, n, d_p) for i in (0, 1))
+        f = film[:, s, l, None]
+        conv = (conv + conv_b[s, l]) * f[..., :d_p] + f[..., d_p:]
+        return split3(torch.tanh(conv) * torch.sigmoid(conv) + res + res_b[s, l])
+
+    def lanes_of(planes):
+        return torch.stack([sum(p.float() for p in reversed(parts)) for parts in planes])
+
+    if route == "stack":
+        planes = [(x,)] * L
+        for s in range(S):
+            planes = [block(planes[l], s, l) for l in range(L)]
+        skip = _dense(weights.skip, d_p, L * d_p, weights.fmt).float()
+        acc = 0
+        for q in (2, 1, 0):  # lo first
+            acc = acc + torch.cat([p[q].float() for p in planes], dim=-1) @ skip.T
+        out = acc + weights.skip_b
+    else:
+        skip = _dense(weights.skip, d_p, d_p, weights.fmt).float()
+        planes, out = [], None
+        for l in range(L):
+            parts = (x,)
+            for s in range(S):
+                parts = block(parts, s, l)
+            planes.append(parts)
+            term = 0
+            for q in (2, 1, 0):
+                term = term + parts[q].float() @ skip[l].T
+            term = term + weights.skip_b[l].float()
+            out = term if out is None else term + out
+    return out[..., :d].to(torch.bfloat16), lanes_of(planes)
+
+
+# Lanes a launch of K1b's bf16 blocks (``csrc/wavenet_lane.cu``:
+# ``kLaneGroup``): the planes' scratch holds that many lanes.
+LANE_GROUP = 4
+# The bf16 core's chunk: k of one TMA box of A
+BF16_CHUNK = gemm_cache.SW128_CHUNK
+
+
+def split_taps_at(kc: int, t0: int, bi: int, *, w: int, per_lane: int, lane0: int, parts: int,
+                  b_block0: int):
+    """The twin of the bf16 core's ``SplitTaps::at`` (``csrc/gemm_bf16.cuh``):
+    chunk ``kc`` of a block's A for the row tile from t0 of the grid's
+    sequence bi is the box of BF16_CHUNK channels from c, rows t onward, of
+    plane ``part`` of the planes' sequence ``seq`` ([G·b, 3, n, w]; for x,
+    ``parts`` 1, its batch row), the parts lo first. Returns ((c, t, part,
+    seq), the chunk of the packed blocks it multiplies)."""
+    per_part = 3 * w // BF16_CHUNK
+    p, kb = divmod(kc, per_part)
+    k = kb * BF16_CHUNK
+    tap, lane = k // w, bi // per_lane
+    seq = bi - lane * per_lane if parts == 1 else bi
+    return (k - tap * w, t0 - ((2 - tap) << (lane0 + lane)), parts - 1 - p, seq), \
+        b_block0 + lane * per_part + kb
+
+
+def split_lanes_at(kc: int, t0: int, bi: int, *, batch: int, w: int, lanes: int, slot0: int,
+                   b_chunk0: int):
+    """The twin of ``SplitLanes::at``: chunk ``kc`` of the skips' A
+    (K = 3 parts · lanes · w, lo first) as ``split_taps_at`` returns it."""
+    per_part = lanes * w // BF16_CHUNK
+    p, kb = divmod(kc, per_part)
+    k = kb * BF16_CHUNK
+    lane = k // w
+    return (k - lane * w, t0, 2 - p, (slot0 + lane) * batch + bi), b_chunk0 + kb
+
+
+def scratch(b: int, n: int, d_p: int, L: int, route: str, dtype: torch.dtype, device):
+    """The scratch of a kernel's entry point, in its argument order: in
+    f32 and mixed the f32 lanes' ping-pong pair ([L, b, n, d_p] each for K1,
+    [b, n, d_p] for K1b); in bf16 the planes' pair ([L·b, 3, n, d_p] bf16
+    for K1, [LANE_GROUP·b, 3, n, d_p] for K1b) and, for K1b, the skips' f32
+    sum [b, n, d_p]."""
+    if dtype == torch.bfloat16:
+        lanes = LANE_GROUP if route == "lanes" else L
+        planes = torch.empty((2, lanes * b, 3, n, d_p), dtype=dtype, device=device)
+        if route == "lanes":
+            return [planes[0], planes[1],
+                    torch.empty((b, n, d_p), dtype=torch.float32, device=device)]
+        return [planes[0], planes[1]]
+    lead = (b,) if route == "lanes" else (L, b)
+    state = torch.empty((2, *lead, n, d_p), dtype=torch.float32, device=device)
+    return [state[0], state[1]]
 
 
 def _pack_checked(conv_w, conv_b, res_w, res_b, skip_w, skip_b, route: str, bias_dtype,
@@ -369,8 +503,9 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     _build.require_shapes("wavenet_body", conv_w=(conv_w, (S, L, 3 * d, d)),
                           film=(film, (b, S, L, 2 * d)))
     bias_dtype = torch.float32 if mixed else None
+    fmt = gemm_cache.fmt_of(x.dtype, conv_w.dtype, bf16_core=True)
     wt = gemm_cache.cached(f"wavenet_body {route} {mixed}",
-                           lambda *w: _pack_checked(*w, route, bias_dtype),
+                           lambda *w: _pack_checked(*w, route, bias_dtype, fmt),
                            conv_w, conv_b, res_w, res_b, skip_w, skip_b)
     if conv_w.device != x.device:
         raise ValueError(f"wavenet_body: the weights are on {conv_w.device}, x on {x.device}")
@@ -378,18 +513,12 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     if d_p != d:
         x, film = pad_wavenet_inputs(x, film, d_p)
     out = torch.empty((b, n, d_p), dtype=x.dtype, device=x.device)
-    # the lane state is f32 in every mode; K1b in bf16 sums its skips in
-    # an f32 scratch of its own (in f32, in the output)
-    if route == "lanes":
-        state = torch.empty((2 + bf16, b, n, d_p), dtype=torch.float32, device=x.device)
-        entry, counter = "ns2_wavenet_lanes", wavenet_body_lanes
-    else:
-        state = torch.empty((2, L, b, n, d_p), dtype=torch.float32, device=x.device)
-        entry, counter = "ns2_wavenet_body", wavenet_body
-    scratch = [s.data_ptr() for s in state]
+    entry, counter = (("ns2_wavenet_lanes", wavenet_body_lanes) if route == "lanes"
+                      else ("ns2_wavenet_body", wavenet_body))
+    state = scratch(b, n, d_p, L, route, x.dtype, x.device)
     err = _build.entry(entry, x.dtype, conv_w.dtype)(
         x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
-        wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(), *scratch,
+        wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(), *(t.data_ptr() for t in state),
         out.data_ptr(), b, n, d_p, S, L, _build.stream(x),
     )
     _build.check(err, entry)
@@ -455,8 +584,9 @@ class _WavenetBody(torch.autograd.Function):
 def wavenet_body(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     """The WaveNet body, differentiable, by ``wavenet_route``: CUDA tensors
     run K1 (S stack launches and one skip launch of the GEMM core, counted
-    as one launch in ``wavenet_body.launches``), K1b (L·S block launches
-    and L skip launches, counted as one in ``wavenet_body_lanes.launches``)
+    as one launch in ``wavenet_body.launches``), K1b (L·S block launches,
+    S·L / LANE_GROUP in bf16, and L skip launches, counted as one in
+    ``wavenet_body_lanes.launches``)
     or the plain body; CPU tensors run ``wavenet_body_torch``. bf16 and
     mixed operands count in ``launches_bf16`` and ``launches_mixed``."""
     args = (x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
