@@ -12,8 +12,11 @@ training step at b16 x 2 s (host clock, synchronised, median of steps
 3-8) and the served p50 of 12 sequential README config 2 requests at the
 (64, 512) bucket and 100 steps (host clock). With ``--kernels`` instead:
 K1 and K1b in bf16 at BF16_WAVENET_SHAPES, K3 and K2 in bf16 at
-BF16_BLOCK_SHAPES (each also with its C entry's host time), K2b in bf16 at the served shape
-and K4 in bf16 at the scaled K2's attention core [16, 8, 1024, 64], K4 and
+BF16_BLOCK_SHAPES (each also with its C entry's host time), K2b in bf16 at
+BF16_CROSS_SHAPES (wrapper, C entry and its host time), K1b's
+`bf16_matmul` at BF16MM_SHAPES (wrapper: the trees' C signatures differ)
+and in the d-512 probe's 20-body chain (ms per body, best of three), K4 in
+bf16 at the scaled K2's attention core [16, 8, 1024, 64], K4 and
 K5 in bf16 at the shapes of their PERF rows (CUDA events, median of 20;
 through the wrapper and through the C entry point alone, which both trees
 export with one signature), the bf16 flagship (b4 x n1024) and scaled
@@ -54,6 +57,14 @@ BF16_BLOCK_SHAPES = ((16, 1024, 512, ("ff_block", "attn_block")),
                      (4, 1024, 128, ("ff_block", "attn_block")),
                      (2, 512, 128, ("ff_block", "attn_block")),
                      (1, 9000, 128, ("ff_block",)))
+
+
+# K2b in bf16 (b, n, m): the served request's and the guided step's, dm =
+# dc = 128, 8 heads of 64
+BF16_CROSS_SHAPES = ((2, 512, 32), (8, 512, 32))
+# K1b's `bf16_matmul` (b, n, d), 4 stacks x 8 layers: the d-512 probe's, the
+# long form's lanes, a d off 64 (chip_smoke.BF16MM_SHAPES)
+BF16MM_SHAPES = ((16, 1024, 512), (1, 9000, 128), (2, 1000, 96))
 
 
 def host_ms(fn, args, calls: int = 50) -> float:
@@ -119,9 +130,9 @@ def wavenet_kernels(cs, out: dict) -> None:
 
 
 def block_kernels(cs, out: dict) -> None:
-    """K3, K2 and K2b bf16 through their wrappers and K3's and K2's C entry
-    points alone (the weights packed and the scratch allocated once, by the
-    tree's own wrapper code, the o scratch large enough for either tree),
+    """K3, K2 and K2b bf16 through their wrappers and their C entry points
+    alone (the weights packed and the scratch allocated once, by the tree's
+    own wrapper code, the o scratch large enough for either tree),
     K4 bf16's C entry at [16, 8, 1024, 64], and the bf16 flagship and
     scaled denoise steps and the f32 flagship step, into ``out``."""
     import torch
@@ -181,15 +192,30 @@ def block_kernels(cs, out: dict) -> None:
             del wq, wkv, wo, qkv, o
         torch.cuda.empty_cache()
 
-    # K2b bf16 at the served shape, through its wrapper
-    x, g, be = rn(2, 512, cs.DIM, scale=1 / 16), 1 + rn(2, cs.DIM, scale=0.1), rn(2, cs.DIM)
-    ctx = rn(2, 32, cs.DIM)
-    hd = heads * dh
-    wq, wkv = rn(cs.DIM, hd, scale=cs.DIM**-0.5), rn(cs.DIM, 2 * hd, scale=cs.DIM**-0.5)
-    wo = rn(hd, cs.DIM, scale=hd**-0.5)
-    out["k2b_bf16_ms"] = {"x [2,512,128], ctx [2,32,128]": cs.cuda_ms(
-        lambda: ak.cross_attn_block(x, ctx, g, be, wq, wkv, wo, heads=heads, dim_head=dh,
-                                    scale=dh**-0.5))}
+    # K2b bf16 through its wrapper and its C entry alone (the weights packed
+    # by the tree's own code, the scratch the tree's, else K4's layouts)
+    hd, dm = heads * dh, cs.DIM
+    for b, n, m in BF16_CROSS_SHAPES:
+        x, g, be = rn(b, n, dm, scale=1 / 16), 1 + rn(b, dm, scale=0.1), rn(b, dm, scale=0.1)
+        ctx = rn(b, m, dm)
+        wq, wkv = rn(dm, hd, scale=dm**-0.5), rn(dm, 2 * hd, scale=dm**-0.5)
+        wo = rn(hd, dm, scale=hd**-0.5)
+        packed = ak._pack_cross_checked(wq, wkv, wo, heads, dh, bf)
+        if hasattr(ak, "cross_scratch"):
+            q, kv, o = ak.cross_scratch(b, n, m, dm, dm, heads, dh, bf, x.device)
+        else:
+            q = torch.empty((b, heads, n, dh), dtype=bf, device="cuda")
+            kv, o = torch.empty((2, b, heads, m, dh), dtype=bf, device="cuda"), torch.empty_like(q)
+        y = torch.empty_like(x)
+        fn = _build.entry("ns2_cross_attn_block", bf)
+        args = (x.data_ptr(), ctx.data_ptr(), g.data_ptr(), be.data_ptr(),
+                *(p.data_ptr() for p in packed), q.data_ptr(), kv.data_ptr(), o.data_ptr(),
+                y.data_ptr(), b, n, m, dm, dm, heads, dh, dh**-0.5, 1, stream)
+        out.setdefault("k2b_bf16", {})[f"x [{b},{n},{dm}], ctx [{b},{m},{dm}]"] = {
+            "wrapper_ms": cs.cuda_ms(lambda: ak.cross_attn_block(
+                x, ctx, g, be, wq, wkv, wo, heads=heads, dim_head=dh, scale=dh**-0.5)),
+            "c_entry_ms": cs.cuda_ms(lambda: fn(*args)), "c_entry_host_ms": host_ms(fn, args)}
+        del packed, q, kv, o
     # K4 bf16 alone at the scaled K2's attention core
     q, k, v = (rn(16, heads, 1024, dh) for _ in range(3))
     o = torch.empty_like(q)
@@ -216,6 +242,31 @@ def block_kernels(cs, out: dict) -> None:
                                                           warmup=2)
             del ns2, model16, x, x16
             torch.cuda.empty_cache()
+
+
+def bf16mm_kernels(cs, out: dict) -> None:
+    """K1b's `bf16_matmul` through its wrapper at BF16MM_SHAPES (CUDA
+    events, median of 10 at b16 x n1024 x d512, else 20) and the d-512
+    probe's chain of 20 bodies (ms per body, the best of three chains)."""
+    import torch
+
+    from naturalspeech2_tpu_torch.examples import wavenet_d512_probe as probe
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    with torch.no_grad():
+        for b, n, d in BF16MM_SHAPES:
+            wn, _ = cs.wavenet_inputs(gen, b, n, d)
+            reps = 10 if b * n * d > 2**24 else 20
+            out.setdefault("bf16mm_ms", {})[f"[{b},{n},{d}]"] = cs.cuda_ms(
+                lambda: wk.wavenet_body_lanes(*wn, bf16_matmul=True), reps=reps)
+            del wn
+            torch.cuda.empty_cache()
+    args = probe.make_args("cuda")
+    out["bf16mm_probe_ms_per_body"] = probe.bench(
+        "K1b bf16_matmul", lambda *a: wk.wavenet_body_lanes(*a, bf16_matmul=True), args)
+    del args
+    torch.cuda.empty_cache()
 
 
 def bf16_kernels(cs, out: dict) -> None:
@@ -293,6 +344,7 @@ def main() -> int:
     if "--kernels" in sys.argv[3:]:
         wavenet_kernels(cs, out)
         block_kernels(cs, out)
+        bf16mm_kernels(cs, out)
         bf16_kernels(cs, out)
         print("RESULT", json.dumps(out), flush=True)
         return 0

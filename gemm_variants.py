@@ -75,6 +75,21 @@ planes), timed at WAVENET_SHAPES with base's launches by kernel:
                block's mainloop beside the other's epilogue), where base
                chooses them by waves as K2's and K3's (128 x 256 / 128 x 128,
                one block an SM, at these shapes)
+  k1b_bf16_tile_128x256, k1b_bf16_tile_128x128
+               K1b's blocks (bf16 and `bf16_matmul`) at that tile shape
+  bf16_gate_no_clobber
+               the gate's stores into the staging panels without the
+               "memory" clobber, so that the compiler may hoist the next
+               columns' bias and FiLM loads above them
+  bf16_gate_no_loads
+               the gate's bias and FiLM as constants, no loads (wrong)
+  bf16mm_gate_loads
+               `bf16_matmul`'s gate reading its f32 bias and FiLM from
+               device memory in its loop, as the three parts do, where base
+               stages the tile's columns in shared memory first
+
+K1b's `bf16_matmul` (one bf16 plane a lane) runs beside K1b bf16 at
+BF16MM_SHAPES under every WaveNet variant.
 
 With variant names, builds and times only those beside base. Exits
 non-zero without a CUDA device. Not part of the smoke run.
@@ -97,13 +112,13 @@ VARIANTS = {
     "no_a_stores": [(CORE, "store_split4(sm.a[s][0], sm.a[s][1], kmajor<kBM>(sr, k), areg[i]);",
                      "if (areg[i].x == 12345.0f) sm.a[s][0][i] = areg[i].y;")],
     "no_b_copies": [(CORE, "cp_async16(dst + e, src + e, true);", "(void)dst; (void)src;")],
-    "one_pass": [(CORE, "        if constexpr (M == Mode::kSplit3)\n"
-                        "          wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));\n"
-                        "        wgmma_ss_n64(small, a_lo, b_hi);\n", "")],
-    "no_products": [(CORE, "        if constexpr (M == Mode::kSplit3)\n"
-                           "          wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));\n"
-                           "        wgmma_ss_n64(small, a_lo, b_hi);\n"
-                           "        wgmma_ss_n64(big, a_hi, b_hi);\n", "")],
+    "one_pass": [(CORE, "      if constexpr (M == Mode::kSplit3)\n"
+                        "        wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));\n"
+                        "      wgmma_ss_n64(small, a_lo, b_hi);\n", "")],
+    "no_products": [(CORE, "      if constexpr (M == Mode::kSplit3)\n"
+                           "        wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));\n"
+                           "      wgmma_ss_n64(small, a_lo, b_hi);\n"
+                           "      wgmma_ss_n64(big, a_hi, b_hi);\n", "")],
     "late_b": [(CORE, "    cp_async_wait<1>();  // chunk c of B has landed (c + 1 may be in flight)\n",
                 "    if (c == 0) cp_async_wait<1>(); else cp_async_wait<0>();\n"),
                (CORE, "    __syncthreads();     // chunk c of A and B is in shared memory, for wgmma too\n",
@@ -253,10 +268,24 @@ __device__ __forceinline__ bool conv_only(const SplitTaps& ld, int kc) {
 // ---- the kernel -----------------------------------------------------------
 """
 _LANE_GROUP = "constexpr int kLaneGroup = 4;"
-_GATE = ("        split3(tanhf(y0) * sigmoid(y0) + acc[j + 4][2 * r] + rbc.x, p[0]);\n"
-         "        split3(tanhf(y1) * sigmoid(y1) + acc[j + 4][2 * r + 1] + rbc.y, p[1]);\n")
-_NO_GATE = ("        split3(acc[j][2 * r] + acc[j + 4][2 * r], p[0]);\n"
-            "        split3(acc[j][2 * r + 1] + acc[j + 4][2 * r + 1], p[1]);\n")
+_GATE = ("        const float v0 = tanhf(y0) * sigmoid(y0) + acc[j + 4][2 * r] + rbc.x;\n"
+         "        const float v1 = tanhf(y1) * sigmoid(y1) + acc[j + 4][2 * r + 1] + rbc.y;\n")
+_NO_GATE = ("        const float v0 = acc[j][2 * r] + acc[j + 4][2 * r];\n"
+            "        const float v1 = acc[j][2 * r + 1] + acc[j + 4][2 * r + 1];\n")
+# the gate's bias and FiLM: staged in shared memory with one part, read
+# from device memory with three
+_GATE_LOADS = ("      float2 cbc, rbc, gamma, beta;\n"
+               "      if constexpr (Parts == 1) {\n"
+               "        cbc = ld_shared2(params + 4 * cc);\n"
+               "        rbc = ld_shared2(params + 4 * (kCols + cc));\n"
+               "        gamma = ld_shared2(params + 4 * (2 * kCols + cc));\n"
+               "        beta = ld_shared2(params + 4 * (3 * kCols + cc));\n"
+               "      } else {\n"
+               "        cbc = load2(cbl + c);\n"
+               "        rbc = load2(rbl + c);\n"
+               "        gamma = load2(f + c);\n"
+               "        beta = load2(f + w + c);\n"
+               "      }\n")
 _PLANE_STORES = "      for (int b = 0; b < 8 * NJ / 128 && n0 / 2 + 64 * b < w; ++b)\n"
 _WAVE_SHAPE = "  const bgemm::Shape sh = bgemm::choose("
 _MMA = ("#pragma unroll\n    for (int ks = 0; ks < kKC / 16; ++ks)\n"
@@ -287,6 +316,28 @@ WAVENET_BF16_VARIANTS = {
          "  const bgemm::Shape sh = bgemm::Shape{64, 128, 2, 1.0f};  // ")],
     "k1_bf16_no_shift": [(BF16_CORE, "    c[1] = t0 - ((2 - tap) << (lane0 + lane));\n",
                           "    c[1] = t0;\n")],
+    "bf16_gate_no_clobber": [(BF16_CORE, "\"r\"(pack_bf16x2(p[0][q], p[1][q]))\n"
+                                         "                       : \"memory\");",
+                              "\"r\"(pack_bf16x2(p[0][q], p[1][q])));")],
+    "bf16_gate_no_loads": [(BF16_CORE, _GATE_LOADS,
+                            "      const float2 cbc = make_float2(0.1f, 0.2f), rbc = cbc, "
+                            "gamma = make_float2(1.0f, 1.1f), beta = cbc;\n")],
+    "bf16mm_gate_loads": [(BF16_CORE, "    if constexpr (Parts == 1) {\n"
+                                      "      for (int t = 32 * warp + lane;",
+                           "    if constexpr (false) {\n"
+                           "      for (int t = 32 * warp + lane;"),
+                          (BF16_CORE, _GATE_LOADS,
+                           "      const float2 cbc = load2(cbl + c), rbc = load2(rbl + c), "
+                           "gamma = load2(f + c),\n"
+                           "                   beta = load2(f + w + c);\n"),
+                          (BF16_CORE, "  __device__ static void st_shared(",
+                           "  __device__ static float2 load2(const float* p) {\n"
+                           "    return *reinterpret_cast<const float2*>(p);\n  }\n"
+                           "  __device__ static void st_shared(")],
+    "k1b_bf16_tile_128x256": [("wavenet_lane.cu", _WAVE_SHAPE,
+                               "  const bgemm::Shape sh = bgemm::kShapes[0];  // ")],
+    "k1b_bf16_tile_128x128": [("wavenet_lane.cu", _WAVE_SHAPE,
+                               "  const bgemm::Shape sh = bgemm::kShapes[1];  // ")],
 }
 # the sources each set of variants builds (K2's attention core is K4)
 BF16_SOURCES = ("ff_block.cu", "attn_block.cu", "flash_fwd.cu", "flash_fwd_bf16.cu", "runtime.cu")
@@ -298,6 +349,9 @@ SHAPES = (("flagship", 4, 1024, 128), ("conditional", 8, 512, 128), ("long", 1, 
 # flagship and n4500, K1b at n9000
 WAVENET_SHAPES = (("flagship", 4, 1024, "stack"), ("long", 1, 4500, "stack"),
                   ("long", 1, 9000, "lanes"))
+# (name, b, n, d) of K1b's `bf16_matmul`, 4 x 8: the d-512 probe's and the
+# long form's lanes
+BF16MM_SHAPES = (("probe", 16, 1024, 512), ("long", 1, 9000, 128))
 
 
 # (name, b, n, dm, blocks) of K2 and K3 in bf16: the bf16 flagship's, the
@@ -308,7 +362,7 @@ BF16_SHAPES = (("flagship", 4, 1024, 128, ("ff_block", "attn_block")),
                ("long", 1, 9000, 128, ("ff_block",)))
 ENTRIES = ("ns2_ff_block", "ns2_attn_block", "ns2_ff_block_bf16", "ns2_attn_block_bf16")
 WAVENET_ENTRIES = ("ns2_wavenet_body", "ns2_wavenet_lanes", "ns2_wavenet_body_bf16",
-                   "ns2_wavenet_lanes_bf16")
+                   "ns2_wavenet_lanes_bf16", "ns2_wavenet_lanes_bf16mm")
 WAVENET_SOURCES = ("wavenet.cu", "wavenet_lane.cu", "runtime.cu")
 
 
@@ -518,9 +572,10 @@ def yardstick(cs, call, m: int, gemms, label: str) -> None:
 
 
 def wavenet_bf16(cs, libs) -> None:
-    """The bf16 WaveNet variants: K1 and K1b bf16 at WAVENET_SHAPES against
-    their plain bf16 versions, their C entry points in turns; base's
-    launches by kernel (device time a call)."""
+    """The bf16 WaveNet variants: K1 and K1b bf16 at WAVENET_SHAPES and K1b's
+    `bf16_matmul` at BF16MM_SHAPES against their plain versions, their C
+    entry points in turns; base's launches by kernel (device time a
+    call)."""
     import torch
 
     from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
@@ -552,6 +607,24 @@ def wavenet_bf16(cs, libs) -> None:
                 print(f"{name} bf16 {label} [{b},{n},{cs.DIM}] {variant} launches: " + "; ".join(
                     f"{k.split('<')[-1][:70]} {ms:.4f} ms" for k, ms in by_kernel.items()),
                     flush=True)
+        del x, weights, film, ref, wt, state, out
+        torch.cuda.empty_cache()
+    for label, b, n, d in BF16MM_SHAPES:
+        x, *weights, film = cs.wavenet_inputs(gen, b, n, d, S, L)[0]
+        ref = wk.wavenet_body_lanes_bf16mm_torch(x, *weights, film)
+        wt = wk.pack_wavenet_weights(*weights, "lanes", fmt="bf16_sw128")
+        state = wk.scratch(b, n, wt.d, L, "bf16mm", torch.float32, x.device)
+        out = torch.empty_like(x)
+        args = (x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
+                wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(),
+                *(t.data_ptr() for t in state), out.data_ptr(), b, n, d, S, L, stream)
+        entry = "ns2_wavenet_lanes_bf16mm"
+        time_variants(cs, libs, f"K1b bf16_matmul {label} [{b},{n},{d}]", entry, args, out, ref,
+                      0.0)
+        fn = getattr(libs["base"], entry)
+        by_kernel = _device_ms_by_kernel(lambda: fn(*args))
+        print(f"K1b bf16_matmul {label} [{b},{n},{d}] base launches: " + "; ".join(
+            f"{k[k.find('<'):][:90]} {ms:.4f} ms" for k, ms in by_kernel.items()), flush=True)
         del x, weights, film, ref, wt, state, out
         torch.cuda.empty_cache()
 

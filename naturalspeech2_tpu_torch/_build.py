@@ -48,7 +48,7 @@ SIGNATURES = {
     "ns2_wavenet_lanes": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes_bf16": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes_mixed": [_P] * 10 + [_I] * 5 + [_P],
-    "ns2_wavenet_lanes_bf16mm": [_P] * 10 + [_I] * 5 + [_P],
+    "ns2_wavenet_lanes_bf16mm": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_attn_block": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     "ns2_attn_block_bf16": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     "ns2_attn_block_mixed": [_P] * 8 + [_I] * 5 + [_F, _I, _P],

@@ -89,18 +89,17 @@ int attn_block(const float* x, const float* gamma, const float* beta, const floa
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = b * n;
   cudaError_t err = gemm::launch<M>(
-      gemm::NormRows<float>{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_qkv, rows,
+      gemm::NormRows{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_qkv, rows,
       (dm + gemm::kKC - 1) / gemm::kKC, 3 * heads * dh / gemm::kBN,
-      gemm::QkvScatter<float>{qkv, rows, n, heads, b, dh}, st);
+      gemm::QkvScatter{qkv, rows, n, heads, b, dh}, st);
   if (err != cudaSuccess) return err;
   const size_t plane = (size_t)rows * heads * dh;
   err = (cudaError_t)attention_core(qkv, qkv + plane, qkv + 2 * plane, o, b, heads, n, n, dh,
                                     scale, stream);
   if (err != cudaSuccess) return err;
-  return gemm::launch<M>(gemm::HeadRows<float>{o, rows, n, heads, dh}, bt_out, rows,
+  return gemm::launch<M>(gemm::HeadRows{o, rows, n, heads, dh}, bt_out, rows,
                          heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store<float>{out, nullptr, residual ? x : nullptr, rows, dm, dm},
-                         st);
+                         gemm::Store{out, nullptr, residual ? x : nullptr, rows, dm, dm}, st);
 }
 
 // The block on the bf16 core (gemm_bf16.cuh); o holds max(H·dh, dm_pad)

@@ -35,9 +35,36 @@
 // columns, which meet zero W_o rows) and dm and dc to the core's chunk of
 // 32; x and ctx are read as they are (the loaders give zeros past dm and
 // dc), and the norm takes √dm from the real width.
+//
+// bf16 (`ns2_cross_attn_block_bf16`, the JAX kernel's `mm = bfloat16`
+// path, attn_block_kernel.py:237-292): the projections on the bf16 GEMM
+// core (gemm_bf16.cuh: TMA copies into a 4-stage ring, bf16 `wgmma` with
+// f32 accumulation, tiles by waves of the SMs), as K2's bf16 block
+// (attn_block.cu), in five launches, the three GEMMs each a programmatic
+// dependent of the kernel before it:
+//  1. the norm pre-pass writes n(x) in f32, rounded to bf16, into the o
+//     scratch at dm padded to 64 (o holds max(H·dh, dm_pad) a row);
+//  2. q = n(x) · W_q, rounded to bf16 where `QkvScatter` stores it in K4's
+//     layout [b, H, n, dh];
+//  3. k, v = ctx · [W_k | W_v], A the context's rows by TMA (`Rows`; m = 32
+//     rows fill half a 64-row box, the rest TMA's zeros, so each batch row
+//     is one row tile), scattered into [2, b, H, m, dh]. TMA takes rows 16
+//     bytes apart: where dc % 8 != 0 (the JAX gate admits any dc) or ctx is
+//     not 16-byte aligned, a copy kernel first writes ctx at a row of dc
+//     rounded up to 8 into the kv scratch's tail (one launch more);
+//  4. K4's bf16 kernel (flash_fwd_bf16.cu) over q and kv, n_kv = m,
+//     rounding P before P·V, o in bf16 over n(x);
+//  5. y = x + Σ_h o_h · W_o,h: the heads' concatenation (`HeadRows`) times
+//     W_o, the heads and the residual (unless it is off) summed in f32,
+//     rounded once.
+// What bounds it at the served shapes (x [2|8, 512, 128], ctx [·, 32, 128])
+// is latency: 0.4–1.4 µs of work at the card's rates against five launches,
+// so the GEMMs start their blocks during their predecessors' tails.
+#include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 
 namespace gemm = ns2::gemm;
+namespace bgemm = ns2::bgemm;
 using ns2::bf16;
 
 extern "C" int ns2_flash_fwd(const float* q, const float* k, const float* v,
@@ -67,33 +94,66 @@ int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, 
                             0u, 0.0f, 0, 0u, 1.0f, 0, 0, stream);
 }
 
-// T: the activations' type; M: the core's mode (kSplit2 for the mixed
-// entry point).
-template <class T, gemm::Mode M = gemm::kModeOf<T>>
-int cross_attn_block(const T* x, const T* ctx, const T* gamma, const T* beta, const T* bt_q,
-                     const T* bt_kv, const T* bt_out, T* q, T* kv, T* o, T* out, int b, int n,
-                     int m, int dm, int dc, int heads, int dh, float scale, int residual,
-                     void* stream) {
+// The block on the split-TF32 core: f32 (kSplit3) or, M = kSplit2, the
+// mixed entry point (f32 rows against TF32-exact bf16 weights).
+template <gemm::Mode M = gemm::Mode::kSplit3>
+int cross_attn_block(const float* x, const float* ctx, const float* gamma, const float* beta,
+                     const float* bt_q, const float* bt_kv, const float* bt_out, float* q,
+                     float* kv, float* o, float* out, int b, int n, int m, int dm, int dc,
+                     int heads, int dh, float scale, int residual, void* stream) {
   if (dm <= 0 || dc <= 0 || n <= 0 || m <= 0 || b <= 0 || heads <= 0 ||
       (dh != 64 && (dh <= 0 || dh % 128 != 0)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = b * n, ctx_rows = b * m;
   cudaError_t err = gemm::launch<M>(
-      gemm::NormRows<T>{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_q, rows,
+      gemm::NormRows{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_q, rows,
       (dm + gemm::kKC - 1) / gemm::kKC, heads * dh / gemm::kBN,
-      gemm::QkvScatter<T>{q, rows, n, heads, b, dh}, st);
+      gemm::QkvScatter{q, rows, n, heads, b, dh}, st);
   if (err != cudaSuccess) return err;
-  err = gemm::launch<M>(gemm::Rows<T>{ctx, ctx_rows, dc}, bt_kv, ctx_rows,
+  err = gemm::launch<M>(gemm::Rows<float>{ctx, ctx_rows, dc}, bt_kv, ctx_rows,
                         (dc + gemm::kKC - 1) / gemm::kKC, 2 * heads * dh / gemm::kBN,
-                        gemm::QkvScatter<T>{kv, ctx_rows, m, heads, b, dh}, st);
+                        gemm::QkvScatter{kv, ctx_rows, m, heads, b, dh}, st);
   if (err != cudaSuccess) return err;
   const size_t plane = (size_t)ctx_rows * heads * dh;
   err = (cudaError_t)attention_core(q, kv, kv + plane, o, b, heads, n, m, dh, scale, stream);
   if (err != cudaSuccess) return err;
-  return gemm::launch<M>(gemm::HeadRows<T>{o, rows, n, heads, dh}, bt_out, rows,
+  return gemm::launch<M>(gemm::HeadRows{o, rows, n, heads, dh}, bt_out, rows,
                          heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store<T>{out, nullptr, residual ? x : nullptr, rows, dm, dm}, st);
+                         gemm::Store{out, nullptr, residual ? x : nullptr, rows, dm, dm}, st);
+}
+
+// The block on the bf16 core (gemm_bf16.cuh); o holds max(H·dh, dm_pad)
+// values a row, kv [2, b, H, m, dh] and then b·m rows of dc rounded up to 8.
+int cross_attn_block_bf16(const bf16* x, const bf16* ctx, const bf16* gamma, const bf16* beta,
+                          const bf16* bt_q, const bf16* bt_kv, const bf16* bt_out, bf16* q,
+                          bf16* kv, bf16* o, bf16* out, int b, int n, int m, int dm, int dc,
+                          int heads, int dh, float scale, int residual, void* stream) {
+  if (dm <= 0 || dc <= 0 || n <= 0 || m <= 0 || b <= 0 || heads <= 0 ||
+      (dh != 64 && (dh <= 0 || dh % 128 != 0)))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hd = heads * dh, dm_pad = bgemm::round_up(dm, bgemm::kPad);
+  cudaError_t err = bgemm::launch_normed(x, gamma, beta, o, b, n, dm, bt_q, hd,
+                                         bgemm::QkvScatter{q, n, heads, b, dh}, st);
+  if (err != cudaSuccess) return err;
+  const size_t plane = (size_t)b * m * hd;
+  const bf16* rows = ctx;
+  int ld = dc;
+  if (dc % 8 != 0 || reinterpret_cast<uintptr_t>(ctx) % 16 != 0) {  // rows TMA cannot read
+    ld = bgemm::round_up(dc, 8);
+    err = bgemm::copy_rows(ctx, kv + 2 * plane, b * m, dc, ld, st);
+    if (err != cudaSuccess) return err;
+    rows = kv + 2 * plane;
+  }
+  err = bgemm::launch(bgemm::Rows{rows, b, m, ld, dc}, bt_kv, 2 * hd,
+                      bgemm::round_up(dc, bgemm::kPad) / bgemm::kKC,
+                      bgemm::QkvScatter{kv, m, heads, b, dh}, st);
+  if (err != cudaSuccess) return err;
+  err = (cudaError_t)attention_core(q, kv, kv + plane, o, b, heads, n, m, dh, scale, stream);
+  if (err != cudaSuccess) return err;
+  return bgemm::launch(bgemm::HeadRows{o, b, heads, n, dh}, bt_out, dm_pad, hd / bgemm::kKC,
+                       bgemm::Store<>{out, nullptr, residual ? x : nullptr, dm, dm}, st);
 }
 
 }  // namespace
@@ -102,8 +162,8 @@ int cross_attn_block(const T* x, const T* ctx, const T* gamma, const T* beta, co
 // 128 (K4's head widths). The packed weights: bt_q (N = H·dh, column h·dh +
 // e; K = dm), bt_kv (N = 2·H·dh, k's heads then v's; K = dc) and bt_out (N =
 // dm, K = H·dh). q [b, H, n, dh], kv [2, b, H, m, dh] and o [b, H, n, dh] are
-// scratch of the block's type. Four launches. residual 0 leaves x out of y
-// (a rank's partial sum over its heads, as for ns2_attn_block).
+// f32 scratch. Four launches. residual 0 leaves x out of y (a rank's partial
+// sum over its heads, as for ns2_attn_block).
 NS2_API int ns2_cross_attn_block(const float* x, const float* ctx, const float* gamma,
                                  const float* beta, const float* bt_q, const float* bt_kv,
                                  const float* bt_out, float* q, float* kv, float* o, float* out,
@@ -124,17 +184,23 @@ NS2_API int ns2_cross_attn_block_mixed(const float* x, const float* ctx, const f
                                        const float* bt_out, float* q, float* kv, float* o,
                                        float* out, int b, int n, int m, int dm, int dc, int heads,
                                        int dh, float scale, int residual, void* stream) {
-  return cross_attn_block<float, gemm::Mode::kSplit2>(x, ctx, gamma, beta, bt_q, bt_kv, bt_out,
-                                                      q, kv, o, out, b, n, m, dm, dc, heads, dh,
-                                                      scale, residual, stream);
+  return cross_attn_block<gemm::Mode::kSplit2>(x, ctx, gamma, beta, bt_q, bt_kv, bt_out, q, kv,
+                                               o, out, b, n, m, dm, dc, heads, dh, scale,
+                                               residual, stream);
 }
 
-// The same in bf16: every pointer bf16, the weights packed as bf16.
+// The same in bf16 on the bf16 core: every pointer bf16, the weights
+// packed "bf16_sw128" (bt_q: N = H·dh, K = dm padded to 64; bt_kv: N =
+// 2·H·dh, K = dc padded to 64; bt_out: N = dm padded to 64, K = H·dh); o
+// holds max(H·dh, dm padded to 64) values for each of the b·n rows, kv [2,
+// b, H, m, dh] and then b·m rows of dc rounded up to 8 (the context's copy
+// where TMA cannot read it as it is). Five launches (six with that copy):
+// the norm pre-pass, the q GEMM, the k/v GEMM, K4 bf16 and the W_o GEMM.
 NS2_API int ns2_cross_attn_block_bf16(const bf16* x, const bf16* ctx, const bf16* gamma,
                                       const bf16* beta, const bf16* bt_q, const bf16* bt_kv,
                                       const bf16* bt_out, bf16* q, bf16* kv, bf16* o, bf16* out,
                                       int b, int n, int m, int dm, int dc, int heads, int dh,
                                       float scale, int residual, void* stream) {
-  return cross_attn_block(x, ctx, gamma, beta, bt_q, bt_kv, bt_out, q, kv, o, out, b, n, m, dm,
-                          dc, heads, dh, scale, residual, stream);
+  return cross_attn_block_bf16(x, ctx, gamma, beta, bt_q, bt_kv, bt_out, q, kv, o, out, b, n, m,
+                               dm, dc, heads, dh, scale, residual, stream);
 }

@@ -57,16 +57,16 @@ int ff_block(const float* x, const float* gamma, const float* beta, const float*
   const int rows = b * n;
   const int dm_chunks = (dm + gemm::kKC - 1) / gemm::kKC;
   cudaError_t err = gemm::launch<M>(
-      gemm::NormRows<float>{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_geglu, rows,
-      dm_chunks, ip / gemm::kKC, gemm::Geglu<float>{a_buf, b_val, b_gate, rows, ip}, st);
+      gemm::NormRows{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_geglu, rows,
+      dm_chunks, ip / gemm::kKC, gemm::Geglu{a_buf, b_val, b_gate, rows, ip}, st);
   if (err != cudaSuccess) return err;
-  err = gemm::launch<M>(gemm::TapRows<float>{a_buf, rows, n, ip, 3, 1}, bt_conv, rows,
+  err = gemm::launch<M>(gemm::TapRows{a_buf, rows, n, ip, 3, 1}, bt_conv, rows,
                         3 * ip / gemm::kKC, (ip + gemm::kBN - 1) / gemm::kBN,
-                        gemm::Store<float>{c_buf, bc, nullptr, rows, ip, ip}, st);
+                        gemm::Store{c_buf, bc, nullptr, rows, ip, ip}, st);
   if (err != cudaSuccess) return err;
-  return gemm::launch<M>(gemm::TapRows<float>{c_buf, rows, n, ip, 1, 0}, bt_out, rows,
+  return gemm::launch<M>(gemm::TapRows{c_buf, rows, n, ip, 1, 0}, bt_out, rows,
                          ip / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store<float>{out, b2, x, rows, dm, dm}, st);
+                         gemm::Store{out, b2, x, rows, dm, dm}, st);
 }
 
 // The block on the bf16 core (gemm_bf16.cuh).

@@ -1,5 +1,6 @@
-// The bf16 GEMM core of K1 (wavenet.cu), K1b (wavenet_lane.cu), K2
-// (attn_block.cu) and K3 (ff_block.cu) in bf16:
+// The bf16 GEMM core of K1 (wavenet.cu), K1b (wavenet_lane.cu, its
+// `bf16_matmul` option too), K2 (attn_block.cu), K2b (cross_attn_block.cu)
+// and K3 (ff_block.cu) in bf16:
 //
 //   C[M x N] = epilogue(A[M x K] · B[K x N]),   A and B bf16, summed in f32,
 //
@@ -39,9 +40,10 @@
 //    w] buffer shifted back by 2, 1 and 0 rows, the rows before t = 0 of
 //    the sequence zeros), `HeadRows` (K4's output [b, H, n, dh] as the
 //    heads' concatenation; a chunk of 64 lies in one head), and the
-//    WaveNet's `SplitTaps` and `SplitLanes` (below). A loader also names
-//    each chunk's B chunk (`at` returns it), so that chunks of A may share
-//    one chunk of B.
+//    WaveNet's `SplitTaps` and `SplitLanes` (below). K2b's context is
+//    `Rows` of ctx [b, m, dc] itself: m = 32 rows fill half a 64-row box,
+//    the rest TMA's zeros. A loader also names each chunk's B chunk (`at`
+//    returns it), so that chunks of A may share one chunk of B.
 //  - B is a weight, packed once by the Python wrapper (`pack_b(bt,
 //    "bf16_sw128")` in ops/gemm_cache.py): Bᵀ [N, K] padded with zeros to
 //    64-row and 64-column multiples and laid out chunk by chunk, [K / 64,
@@ -55,9 +57,10 @@
 // Epilogues: `Geglu` (each 64 columns of B hold 32 value and the same 32
 // gate columns, so both products share A), `Store` (bias and an optional
 // residual, summed in f32, rounded once), `QkvScatter` (into K4's [3, b,
-// H, n, dh]) and `WaveGateSplit` (K1's gate, into three bf16 planes). Every
-// rounding point of the JAX kernels stays where the callers put it: the
-// core only sums A·B in f32 and hands the sum to the epilogue.
+// H, n, dh]) and `WaveGateSplit` (K1's gate, into three bf16 planes, or
+// one for `bf16_matmul`). Every rounding point of the JAX kernels stays
+// where the callers put it: the core only sums A·B in f32 and hands the sum
+// to the epilogue.
 //
 // f32 activations against bf16 weights (K1 and K1b in bf16, whose JAX
 // kernels keep their lanes in f32 and multiply them by the bf16 weights
@@ -67,7 +70,9 @@
 // bf16 weight is exact in f32. So the product is three bf16 passes over the
 // same B chunks, issued lo first: the tensor cores truncate where they add
 // (gemm_tf32x3.cuh), so the small terms go in before the accumulator holds
-// the large ones.
+// the large ones. K1b's `bf16_matmul` rounds both operands of every product
+// to bf16, so there a lane is one plane, bf16(v): the same loaders and
+// epilogue with one part.
 #pragma once
 
 #include <cuda.h>
@@ -324,23 +329,25 @@ struct HeadRows {
 };
 
 // K1's and K1b's block products on the bf16 core. The lanes of a stack are
-// bf16 planes [G·b, 3, n, w] (lane g of the launch, sequence bi of the
-// batch at g·b + bi; plane 0 hi, 1 mid, 2 lo: see the top of this file), w
-// = d padded to 64, written by the previous stack's `WaveGateSplit`; the
-// first stack reads x [b, n, w] as one part. The grid's sequences are the
-// G·b of the launch (`batch`: K1 folds a stack's L lanes into the rows of
-// one launch), so the lane of sequence bi is lane0 + bi / per_lane, with
-// dilation δ = 2^lane. Chunk kc of K = parts · 3w is (part, tap, c): the
-// box of rows t0 - (2 - tap)·δ onward of plane part, the rows before t = 0
-// TMA's zeros (δ up to 128: up to 256 rows before the tile). The parts run
-// lo, mid, hi, and each multiplies the same chunks of the lane's block: the
-// packed blocks are one run of [S·L, 3w / 64] chunks of Bᵀ [2w, 3w], and
-// the lane's block starts at chunk b_block0 + lane·3w/64.
+// bf16 planes [G·b, P, n, w] (lane g of the launch, sequence bi of the
+// batch at g·b + bi; P = 3: plane 0 hi, 1 mid, 2 lo, see the top of this
+// file; P = 1: `bf16_matmul`'s bf16(v)), w = d padded to 64, written by the
+// previous stack's `WaveGateSplit`; the first stack reads x [b, n, w] as
+// one part, the same b sequences for every lane (`shared`). The grid's
+// sequences are the G·b of the launch (`batch`: K1 folds a stack's L lanes
+// into the rows of one launch), so the lane of sequence bi is lane0 + bi /
+// per_lane, with dilation δ = 2^lane. Chunk kc of K = parts · 3w is (part,
+// tap, c): the box of rows t0 - (2 - tap)·δ onward of plane part, the rows
+// before t = 0 TMA's zeros (δ up to 128: up to 256 rows before the tile).
+// The parts run lo, mid, hi, and each multiplies the same chunks of the
+// lane's block: the packed blocks are one run of [S·L, 3w / 64] chunks of
+// Bᵀ [2w, 3w], and the lane's block starts at chunk b_block0 + lane·3w/64.
 struct SplitTaps {
   int batch, n, w;
   int per_lane;  // sequences a lane: b
   int lane0;     // the launch's first lane
-  int parts;     // 3 (planes), 1 (x)
+  int parts;     // planes of A: 3, or 1 (x, `bf16_matmul`'s lanes)
+  bool shared;   // A is x [b, n, w], read by every lane
   int b_block0;  // the chunk of lane lane0's block in the packed blocks
 
   __device__ int at(int kc, int t0, int bi, int (&c)[4]) const {
@@ -349,18 +356,18 @@ struct SplitTaps {
     c[0] = k - tap * w;
     c[1] = t0 - ((2 - tap) << (lane0 + lane));
     c[2] = parts - 1 - p;  // lo first
-    c[3] = parts == 1 ? bi - lane * per_lane : bi;
+    c[3] = shared ? bi - lane * per_lane : bi;
     return b_block0 + lane * per_part + kb;
   }
 };
 
 // The skips' product: A[bi·n + t, (part, lane, c)] = plane part of lane
-// slot0 + lane of planes [·, 3, n, w] (sequence (slot0 + lane)·batch + bi),
-// K = 3 parts · lanes · w, the parts lo first; chunk kc multiplies chunk
+// slot0 + lane of planes [·, parts, n, w] (sequence (slot0 + lane)·batch +
+// bi), K = parts · lanes · w, the parts lo first; chunk kc multiplies chunk
 // b_chunk0 + (kc mod lanes·w/64) of the packed skips (K1: the L lanes side
 // by side against skip_w [L·w, w]; K1b: one lane a launch).
 struct SplitLanes {
-  int batch, n, w, lanes;
+  int batch, n, w, lanes, parts;
   int slot0;     // the first lane's place in the planes
   int b_chunk0;
 
@@ -369,7 +376,7 @@ struct SplitLanes {
     const int k = kb * kKC, lane = k / w;
     c[0] = k - lane * w;
     c[1] = t0;
-    c[2] = 2 - p;
+    c[2] = parts - 1 - p;
     c[3] = (slot0 + lane) * batch + bi;
     return b_chunk0 + kb;
   }
@@ -506,13 +513,14 @@ __device__ __forceinline__ void split3(float v, float (&p)[3]) {
   p[2] = v - p[0] - p[1];
 }
 
-// The planes [seqs, 3, n, w] as a 4-dim map that `WaveGateSplit` stores
-// through: boxes of 64 columns, 64 rows and the 3 planes of one sequence,
-// 128-byte swizzled in shared memory; rows past n are not written.
-inline cudaError_t planes_map(CUtensorMap* map, const bf16* planes, int seqs, int n, int w) {
-  const uint64_t dims[4] = {(uint64_t)w, (uint64_t)n, 3, (uint64_t)seqs};
-  const uint64_t row = 2ull * w, strides[3] = {row, row * n, row * n * 3};
-  const uint32_t box[4] = {(uint32_t)kKC, 64, 3, 1};
+// The planes [seqs, parts, n, w] as a 4-dim map that `WaveGateSplit` stores
+// through: boxes of 64 columns, 64 rows and the parts' planes of one
+// sequence, 128-byte swizzled in shared memory; rows past n are not written.
+inline cudaError_t planes_map(CUtensorMap* map, const bf16* planes, int seqs, int parts, int n,
+                              int w) {
+  const uint64_t dims[4] = {(uint64_t)w, (uint64_t)n, (uint64_t)parts, (uint64_t)seqs};
+  const uint64_t row = 2ull * w, strides[3] = {row, row * n, row * n * parts};
+  const uint32_t box[4] = {(uint32_t)kKC, 64, (uint32_t)parts, 1};
   return make_map(map, planes, 4, dims, strides, box, true);
 }
 
@@ -522,58 +530,103 @@ inline cudaError_t planes_map(CUtensorMap* map, const bf16* planes, int seqs, in
 // and its residual at j + 4, and writes lane v of the next stack:
 //   y = (conv + cb[c])·γ + β,  v = tanh(y)·σ(y) + res + rb[c]
 // in f32 (γ = film[c], β = film[w + c] of the row's batch and lane), as
-// three bf16 planes (`split3`) of the planes at the row's sequence: the
-// grid's sequence s is lane s / per_lane of the launch and batch s %
-// per_lane. cb, rb: [lanes, w] from the launch's first lane; film: [b, ·,
-// 2w] from it, batch rows film_b apart, lanes 2w apart. A warpgroup stages
-// its 64 rows' planes in shared memory (the ring, free once both
-// warpgroups' products are done; `kStaging` bytes each), in the layout
-// `planes_map`'s boxes take, and one thread stores them by TMA: stored by
-// each thread in 4-byte pieces, three planes to a value, they took about a
-// fifth of K1's time at b4 n1024 d128 (PERF.md).
+// Parts bf16 planes of the planes at the row's sequence: three (`split3`,
+// K1 and K1b in bf16) or one, bf16(v) rounded to nearest even (K1b's
+// `bf16_matmul`, whose products read the lane so). The grid's sequence s
+// is lane s / per_lane of the launch and batch s % per_lane. cb, rb:
+// [lanes, w] of P (bf16, or f32 for `bf16_matmul`) from the launch's first
+// lane; film: [b, ·, 2w] of P from it, batch rows film_b apart, lanes 2w
+// apart. A warpgroup stages its 64 rows' planes in shared memory (the ring,
+// free once both warpgroups' products are done; `kStaging` bytes each), in
+// the layout `planes_map`'s boxes take, and one thread stores them by TMA:
+// stored by each thread in 4-byte pieces, three planes to a value, they
+// took about a fifth of K1's time at b4 n1024 d128 (PERF.md). With one
+// part the warpgroup first copies the tile's cb, rb, γ and β (f32, one
+// column a thread) into shared memory past its planes, and the gate reads
+// them there: read from device memory in the gate's loop, as the three
+// parts do, they took 10–16 % of `bf16_matmul`'s time (gemm_variants.py's
+// bf16_gate_no_loads).
+template <int Parts = 3, class P = bf16>
 struct WaveGateSplit {
+  static_assert(Parts == 3 || Parts == 1, "three parts of an f32 lane, or its bf16 value");
   CUtensorMap out;  // planes_map of the planes written
-  const bf16* cb;
-  const bf16* rb;
-  const bf16* film;
+  const P* cb;
+  const P* rb;
+  const P* film;
   size_t film_b;
   int per_lane, n, w;
 
-  // shared memory a warpgroup stages in: BN / 128 boxes of [3][64][64]
+  // shared memory of a warpgroup's planes: BN / 128 boxes of [Parts][64][64]
   template <int BN>
-  static constexpr uint32_t kStaging = BN / 128 * 3 * 64 * sm90::kPanelRowBytes;
+  static constexpr uint32_t kPlanes = BN / 128 * Parts * 64 * sm90::kPanelRowBytes;
+  // and of what it stages in all: with one part, then the tile's cb, rb, γ,
+  // β [4][BN / 2] f32, the next warpgroup's planes 1024-byte aligned
+  template <int BN>
+  static constexpr uint32_t kStaging =
+      kPlanes<BN> + (Parts == 1 ? (uint32_t)round_up(4 * BN / 2 * 4, 1024) : 0u);
 
   template <int NJ>
   __device__ void operator()(const float (&acc)[NJ][4], int m0, int row_end, int n0, int warp,
                              int lane, uint32_t stage, int wg) const {
     static_assert(NJ >= 16, "a tile of 128 columns or more: 64 conv columns a box");
-    constexpr uint32_t kBox = 3 * 64 * sm90::kPanelRowBytes;
+    constexpr uint32_t kBox = Parts * 64 * sm90::kPanelRowBytes;
+    constexpr int kCols = 4 * NJ;  // the tile's conv columns: BN / 2
     if (m0 >= row_end) return;  // the warpgroup's rows all past its sequence
     // a tile's rows lie in one sequence: one lane, one batch row
     const int seq = m0 / n, ln = seq / per_lane, bi = seq - ln * per_lane;
-    const bf16* f = film + (size_t)bi * film_b + (size_t)ln * 2 * w;
-    const bf16* cbl = cb + (size_t)ln * w;
-    const bf16* rbl = rb + (size_t)ln * w;
+    const P* f = film + (size_t)bi * film_b + (size_t)ln * 2 * w;
+    const P* cbl = cb + (size_t)ln * w;
+    const P* rbl = rb + (size_t)ln * w;
     const int r0 = 16 * warp + lane / 4;  // this thread's first row of the 64
+    // with one part: [4][kCols] f32, the tile's cb, rb, γ, β
+    [[maybe_unused]] const uint32_t params = stage + kPlanes<8 * NJ>;
+    if constexpr (Parts == 1) {
+      for (int t = 32 * warp + lane; t < kCols; t += 128) {
+        const int c = n0 / 2 + t;
+        const bool in = c < w;
+        st_shared(params + 4 * t, in ? to_f32(cbl[c]) : 0.0f);
+        st_shared(params + 4 * (kCols + t), in ? to_f32(rbl[c]) : 0.0f);
+        st_shared(params + 4 * (2 * kCols + t), in ? to_f32(f[c]) : 0.0f);
+        st_shared(params + 4 * (3 * kCols + t), in ? to_f32(f[w + c]) : 0.0f);
+      }
+      sm90::bar_sync(3 + wg, 128);  // the tile's parameters are staged
+    }
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       if (j % 8 >= 4) continue;  // a residual tile: read with its conv tile
       const int cc = 32 * (j / 8) + 8 * (j % 8) + 2 * (lane % 4);  // conv column in the tile
       const int c = n0 / 2 + cc;
       if (c >= w) continue;
-      const float2 cbc = load2(cbl + c), rbc = load2(rbl + c), gamma = load2(f + c),
-                   beta = load2(f + w + c);
+      float2 cbc, rbc, gamma, beta;
+      if constexpr (Parts == 1) {
+        cbc = ld_shared2(params + 4 * cc);
+        rbc = ld_shared2(params + 4 * (kCols + cc));
+        gamma = ld_shared2(params + 4 * (2 * kCols + cc));
+        beta = ld_shared2(params + 4 * (3 * kCols + cc));
+      } else {
+        cbc = load2(cbl + c);
+        rbc = load2(rbl + c);
+        gamma = load2(f + c);
+        beta = load2(f + w + c);
+      }
       const uint32_t box = stage + cc / 64 * kBox;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
         const float y0 = (acc[j][2 * r] + cbc.x) * gamma.x + beta.x;
         const float y1 = (acc[j][2 * r + 1] + cbc.y) * gamma.y + beta.y;
-        float p[2][3];
-        split3(tanhf(y0) * sigmoid(y0) + acc[j + 4][2 * r] + rbc.x, p[0]);
-        split3(tanhf(y1) * sigmoid(y1) + acc[j + 4][2 * r + 1] + rbc.y, p[1]);
+        const float v0 = tanhf(y0) * sigmoid(y0) + acc[j + 4][2 * r] + rbc.x;
+        const float v1 = tanhf(y1) * sigmoid(y1) + acc[j + 4][2 * r + 1] + rbc.y;
+        float p[2][Parts];
+        if constexpr (Parts == 3) {
+          split3(v0, p[0]);
+          split3(v1, p[1]);
+        } else {  // pack_bf16x2 rounds them to nearest even
+          p[0][0] = v0;
+          p[1][0] = v1;
+        }
 #pragma unroll
-        for (int q = 0; q < 3; ++q) {
+        for (int q = 0; q < Parts; ++q) {
           const uint32_t at = box + sm90::swizzled(64 * q + row, cc % 64 / 8) + 4 * (lane % 4);
           asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(pack_bf16x2(p[0][q], p[1][q]))
                        : "memory");
@@ -598,13 +651,21 @@ struct WaveGateSplit {
   __device__ static float2 load2(const bf16* p) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   }
+  __device__ static void st_shared(uint32_t at, float v) {
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(at), "f"(v) : "memory");
+  }
+  __device__ static float2 ld_shared2(uint32_t at) {  // at 8-byte aligned
+    float2 v;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(at) : "memory");
+    return v;
+  }
 };
 
 // Epilogues that stage their output in the ring (called with its address).
 template <class E>
 constexpr bool kStagesOut = false;
-template <>
-constexpr bool kStagesOut<WaveGateSplit> = true;
+template <int Parts, class P>
+constexpr bool kStagesOut<WaveGateSplit<Parts, P>> = true;
 
 // ---- the kernel -----------------------------------------------------------
 
@@ -856,6 +917,50 @@ inline cudaError_t norm_rows(const bf16* x, const bf16* gamma, const bf16* beta,
   norm_rows_kernel<bf16><<<(rows + kNormRowsPerBlock - 1) / kNormRowsPerBlock,
                            32 * kNormRowsPerBlock, 0, stream>>>(x, gamma, beta, out, rows, n, dm,
                                                                 ld, sqrtf((float)dm));
+  return cudaGetLastError();
+}
+
+// ---- the copies of A that TMA cannot read as they are --------------------
+
+constexpr int kCopyThreads = 256;
+
+// out[i] = bf16(x[i]), rounded to nearest even, for i < count (even): two a
+// thread. (Templates, as every kernel of this header: the sources that
+// include it are linked into one library.)
+template <class In>
+__global__ void __launch_bounds__(kCopyThreads)
+round_bf16_kernel(const In* __restrict__ x, bf16* __restrict__ out, size_t count) {
+  const size_t i = 2 * ((size_t)blockIdx.x * kCopyThreads + threadIdx.x);
+  if (i < count) store2(out + i, x[i], x[i + 1]);
+}
+
+// x (f32, count values, count even) rounded to bf16 into out, launched on
+// `stream` without synchronising: K1b's `bf16_matmul` reads x so.
+inline cudaError_t round_bf16(const float* x, bf16* out, size_t count, cudaStream_t stream) {
+  if (count == 0 || count % 2 != 0) return cudaErrorInvalidValue;
+  const size_t blocks = (count / 2 + kCopyThreads - 1) / kCopyThreads;
+  round_bf16_kernel<float><<<(unsigned)blocks, kCopyThreads, 0, stream>>>(x, out, count);
+  return cudaGetLastError();
+}
+
+// out[r, c] = a[r, c] for c < w, out [rows, ld]: rows of a at a row stride
+// that TMA takes (16-byte aligned, ld a multiple of 8), columns w .. ld - 1
+// left as they are (a map of width w never reads them).
+template <class T>
+__global__ void __launch_bounds__(kCopyThreads)
+copy_rows_kernel(const T* __restrict__ a, T* __restrict__ out, int rows, int w, int ld) {
+  const size_t i = (size_t)blockIdx.x * kCopyThreads + threadIdx.x;
+  if (i >= (size_t)rows * w) return;
+  const size_t r = i / w;
+  out[r * ld + (i - r * w)] = a[i];
+}
+
+inline cudaError_t copy_rows(const bf16* a, bf16* out, int rows, int w, int ld,
+                             cudaStream_t stream) {
+  if (rows <= 0 || w <= 0 || ld < w) return cudaErrorInvalidValue;
+  const size_t count = (size_t)rows * w;
+  copy_rows_kernel<bf16><<<(unsigned)((count + kCopyThreads - 1) / kCopyThreads), kCopyThreads,
+                           0, stream>>>(a, out, rows, w, ld);
   return cudaGetLastError();
 }
 

@@ -50,26 +50,18 @@
 // lanes of a stack); the loader and the epilogue take the group's operands
 // in `group(z)`, and group z's B lies z · b_group elements on.
 //
-// Operand modes (the template parameter `Mode`), for the bf16 path of the
-// JAX kernels:
+// Operand modes (the template parameter `Mode`):
 //  - kSplit3: the above, f32 A and B, three TF32 passes;
 //  - kSplit2: f32 A, B a bf16 weight held as TF32 (exact: bf16 has 8
 //    significant bits, TF32 11), packed with no lo part, so a_hi·b +
-//    a_lo·b is the whole f32-accurate product in two passes. K1 and K1b in
-//    bf16, whose JAX kernel keeps its lanes in f32 and multiplies them by
-//    bf16 weights (`wavenet_kernel.py:93`, `:189`);
-//  - kBf16: A rounded to bf16 where the loader hands it over (after the
-//    f32 prologue: the JAX kernels' `xn.astype(mm)`), B packed as bf16,
-//    one `wgmma.m64n64k16` bf16 pass with f32 accumulation, 989 TFLOP/s
-//    dense (H100 SXM, 700 W). K2b in bf16 and K1b's `bf16_matmul`; K2 and
-//    K3 in bf16 run the bf16 core instead (gemm_bf16.cuh: 64-deep chunks
-//    copied by a producer warpgroup into a 4-stage ring, the accumulator
-//    kept across K), which this mode's users are to move to.
-// A chunk of 32 k is four TF32 k-steps or two bf16 ones; each is summed in
-// fresh accumulators and added to the f32 result, as above. Loaders read
-// f32 or bf16 activations and hand f32 values to the staging; epilogues
-// take the types of their outputs, biases and residuals as template
-// parameters and round once, where they store.
+//    a_lo·b is the whole f32-accurate product in two passes: the mixed
+//    entry points of K1, K1b, K2, K2b and K3 (AMP training's f32
+//    activations against bf16 weights) and K6 in bf16.
+// Every bf16 block (K1, K1b and its `bf16_matmul`, K2, K2b, K3) runs the
+// bf16 core instead (gemm_bf16.cuh). Loaders read f32 activations (K6's
+// `Rows` bf16 ones too) and hand f32 values to the staging; epilogues take
+// the types of their outputs, biases and residuals as template parameters
+// and round once, where they store.
 #pragma once
 
 #include <stdint.h>
@@ -86,24 +78,13 @@ constexpr int kThreads = 128;           // one warpgroup
 constexpr int kTile = kBM * kKC;        // elements of one operand tile (kBN == kBM)
 static_assert(kBN == kBM, "A and B tiles share the K-major layout");
 
-enum class Mode { kSplit3, kSplit2, kBf16 };
+enum class Mode { kSplit3, kSplit2 };
 
-// A mode's staged element type and its parts of A and of B (hi, lo).
+// A mode's parts of A and of B (hi, lo).
 template <Mode M>
 struct Fmt {
-  using T = float;
   static constexpr int kA = 2, kB = M == Mode::kSplit3 ? 2 : 1;
 };
-template <>
-struct Fmt<Mode::kBf16> {
-  using T = bf16;
-  static constexpr int kA = 1, kB = 1;
-};
-
-// The mode of a block kernel's products for its activation type: split
-// TF32 for f32, bf16 for bf16.
-template <class T>
-constexpr Mode kModeOf = sizeof(T) == 4 ? Mode::kSplit3 : Mode::kBf16;
 
 // Threads that stage A: one warpgroup, or the first two of a larger block.
 template <int WN>
@@ -111,9 +92,8 @@ constexpr int kStagers = (WN == 1 ? 1 : 2) * kThreads;
 
 template <int WN, Mode M>
 struct Smem {
-  using T = typename Fmt<M>::T;
-  T a[2][Fmt<M>::kA][kTile];          // [stage][hi, lo], K-major, shared by the warpgroups
-  T b[2][WN][Fmt<M>::kB][kTile];      // [stage][warpgroup][hi, lo], K-major, as cached
+  float a[2][Fmt<M>::kA][kTile];      // [stage][hi, lo], K-major, shared by the warpgroups
+  float b[2][WN][Fmt<M>::kB][kTile];  // [stage][warpgroup][hi, lo], K-major, as cached
   float part[kStagers<WN> / kBM][kBM];  // the norm prologue's partial sums of squares
 };
 
@@ -143,17 +123,15 @@ __device__ __forceinline__ bool aligned4(const T* p) {
 
 // A = n(x), the adaptive RMSNorm x / max(‖x‖, 1e-12) · √dm · γ_b + β_b of
 // x [rows, dm] with γ, β [b, dm] and row = b·n + t; zero past dm. The norm
-// uses the real width dm, whatever K is padded to, and runs in f32 on
-// f32 or bf16 inputs (In).
-template <class In>
+// uses the real width dm, whatever K is padded to.
 struct NormRows {
-  const In* x;
-  const In* gamma;
-  const In* beta;
+  const float* x;
+  const float* gamma;
+  const float* beta;
   int rows, n, dm;
   float sqrt_dm;
-  const In *p, *g, *be;
-  const In *pc, *gc, *bc;  // the chunk's x, γ, β
+  const float *p, *g, *be;
+  const float *pc, *gc, *bc;  // the chunk's x, γ, β
   int left;                   // dm - the chunk's first k
   float scale;
   bool ok, vec;
@@ -201,8 +179,8 @@ struct NormRows {
   }
 };
 
-// A = a [rows, w] as it stands, zero past w (any w): K2b's context and K6's
-// residual.
+// A = a [rows, w] of In (f32, or K6's bf16 x) as it stands, zero past w
+// (any w): K2b's context and K6's input and residual.
 template <class In>
 struct Rows {
   const In* a;
@@ -235,13 +213,12 @@ struct Rows {
 // views at dilation δ; with taps 1 the rows of a as they are; with taps L,
 // dil 0 and tap_stride one lane, L lanes side by side. Group z reads a + z ·
 // group_stride at dilation dil · 2^z (K1: lane l at δ = 2^l). Each a_tap is
-// [rows, w] of In (f32 or bf16), w % 32 == 0, aligned to four elements.
-template <class In>
+// [rows, w] of f32, w % 32 == 0, aligned to four elements.
 struct TapRows {
-  const In* a;
+  const float* a;
   int rows, n, w, taps, dil;
   size_t tap_stride, group_stride;
-  const In *p, *pc;  // the row, and the chunk's shifted row
+  const float *p, *pc;  // the row, and the chunk's shifted row
   int t;
   bool ok, live;         // live: the chunk's source row exists
 
@@ -269,12 +246,11 @@ struct TapRows {
 
 // A[row, h·dh + e] = o[b, h, t, e] (row = b·n + t): K4's output [b, H, n,
 // dh] as the rows of the heads' concatenation, each head one contiguous
-// [n, dh] tile of In; dh % 32 == 0.
-template <class In>
+// [n, dh] tile; dh % 32 == 0.
 struct HeadRows {
-  const In* o;
+  const float* o;
   int rows, n, heads, dh;
-  const In *p, *pc;  // the row of head 0, and the chunk's
+  const float *p, *pc;  // the row of head 0, and the chunk's
   size_t head_stride;
   bool ok;
 
@@ -303,12 +279,11 @@ struct HeadRows {
 // 8j + 2t + e (e = 0, 1) as acc[j][2r + e].
 
 // out[row, col] = acc + bias[col] (+ res[row, col]) for col < ncols, both
-// [rows, ld]; bias and res may be null. The sum is f32, rounded once to Out.
-template <class Out, class Bias = Out, class Res = Out>
+// [rows, ld]; bias and res may be null.
 struct Store {
-  Out* out;
-  const Bias* bias;
-  const Res* res;
+  float* out;
+  const float* bias;
+  const float* res;
   int rows, ncols, ld;
 
   __device__ void group(int) {}
@@ -326,8 +301,7 @@ struct Store {
           const int col = n0 + 8 * j + 2 * (lane % 4) + e;
           if (col >= ncols) continue;
           const size_t at = (size_t)row * ld + col;
-          out[at] = from_f32<Out>(acc[j][2 * r + e] + (bias ? to_f32(bias[col]) : 0.0f) +
-                                  (res ? to_f32(res[at]) : 0.0f));
+          out[at] = acc[j][2 * r + e] + (bias ? bias[col] : 0.0f) + (res ? res[at] : 0.0f);
         }
     }
   }
@@ -336,13 +310,11 @@ struct Store {
 // K3's GEGLU: tile j holds value columns 32j .. 32j + 31 in its first 32
 // columns and the same gate columns in its last 32 (the weight cache
 // interleaves them so), and writes
-//   a[row, c] = gelu_tanh(gate + b_gate[c]) · (val + b_val[c]),  a [rows, w],
-// in f32, rounded once to Out.
-template <class Out, class Bias = Out>
+//   a[row, c] = gelu_tanh(gate + b_gate[c]) · (val + b_val[c]),  a [rows, w].
 struct Geglu {
-  Out* a;
-  const Bias* b_val;
-  const Bias* b_gate;
+  float* a;
+  const float* b_val;
+  const float* b_gate;
   int rows, w;
 
   __device__ void group(int) {}
@@ -358,9 +330,8 @@ struct Geglu {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = n0 / 2 + 8 * j + 2 * (lane % 4) + e;
-          a[(size_t)row * w + c] = from_f32<Out>(
-              gelu_tanh(acc[j + 4][2 * r + e] + to_f32(b_gate[c])) *
-              (acc[j][2 * r + e] + to_f32(b_val[c])));
+          a[(size_t)row * w + c] =
+              gelu_tanh(acc[j + 4][2 * r + e] + b_gate[c]) * (acc[j][2 * r + e] + b_val[c]);
         }
     }
   }
@@ -368,10 +339,9 @@ struct Geglu {
 
 // K2's q/k/v: column which·H·dh + h·dh + e (which: q, k, v) is column e
 // of head h of that projection, scattered into K4's layout qkv [3, b, H, n,
-// dh] of Out; dh % 64 == 0, so a 64-column tile lies within one head.
-template <class Out>
+// dh]; dh % 64 == 0, so a 64-column tile lies within one head.
 struct QkvScatter {
-  Out* qkv;
+  float* qkv;
   int rows, n, heads, batch, dh;
 
   __device__ void group(int) {}
@@ -384,7 +354,7 @@ struct QkvScatter {
       const int row = m0 + 16 * warp + lane / 4 + 8 * r;
       if (row >= rows) continue;
       const int bi = row / n, t = row % n;
-      Out* dst = qkv + ((((size_t)which * batch + bi) * heads + h) * n + t) * dh + e0;
+      float* dst = qkv + ((((size_t)which * batch + bi) * heads + h) * n + t) * dh + e0;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
         store2(dst + 8 * jj + 2 * (lane % 4), acc[jj][2 * r], acc[jj][2 * r + 1]);
@@ -449,15 +419,14 @@ struct ArgMin {
 //   y = conv + cb[c],  y = y·γ + β,  out[row, c] = tanh(y)·σ(y) + res + rb[c]
 // with γ = film[b][c], β = film[b][w + c] (row = b·n + t; batch rows
 // film_b elements apart). Group z (lane z) writes out + z · out_group and
-// reads its biases and FiLM z·w and z·2w elements on. out is [rows, w] of
-// Out (the lanes: f32 in both modes, as the JAX kernel keeps them); the
-// biases and FiLM are P (the parameters' type); the gate runs in f32.
-template <class Out, class P>
+// reads its biases and FiLM z·w and z·2w elements on. out is [rows, w] (the
+// lanes, f32 as the JAX kernel keeps them), the biases and FiLM f32 (the
+// mixed entry points widen theirs).
 struct WaveGate {
-  Out* out;
-  const P* cb;
-  const P* rb;
-  const P* film;
+  float* out;
+  const float* cb;
+  const float* rb;
+  const float* film;
   size_t out_group, film_b;
   int rows, n, w;
 
@@ -474,15 +443,14 @@ struct WaveGate {
     for (int r = 0; r < 2; ++r) {
       const int row = m0 + 16 * warp + lane / 4 + 8 * r;
       if (row >= rows) continue;
-      const P* f = film + (size_t)(row / n) * film_b;
+      const float* f = film + (size_t)(row / n) * film_b;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = n0 / 2 + 8 * j + 2 * (lane % 4) + e;
-          const float y = (acc[j][2 * r + e] + to_f32(cb[c])) * to_f32(f[c]) + to_f32(f[w + c]);
-          out[(size_t)row * w + c] = from_f32<Out>(tanhf(y) * sigmoid(y) +
-                                                   acc[j + 4][2 * r + e] + to_f32(rb[c]));
+          const float y = (acc[j][2 * r + e] + cb[c]) * f[c] + f[w + c];
+          out[(size_t)row * w + c] = tanhf(y) * sigmoid(y) + acc[j + 4][2 * r + e] + rb[c];
         }
     }
   }
@@ -502,9 +470,8 @@ constexpr int kBlocksPerSm = WN == 1 ? 3 : (WN == 2 ? 2 : 1);
 
 template <int WN, Mode M, class Loader, class Epilogue>
 __global__ void __launch_bounds__(WN * kThreads, kBlocksPerSm<WN>)
-gemm_kernel(Loader loader, const typename Fmt<M>::T* __restrict__ bt, size_t b_group,
+gemm_kernel(Loader loader, const float* __restrict__ bt, size_t b_group,
             int chunks, int n_tiles, Epilogue epi) {
-  using T = typename Fmt<M>::T;
   constexpr int kB = Fmt<M>::kB;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<WN, M>& sm = *reinterpret_cast<Smem<WN, M>*>(smem_raw);
@@ -513,7 +480,7 @@ gemm_kernel(Loader loader, const typename Fmt<M>::T* __restrict__ bt, size_t b_g
   const int warp = t / 32, lane = t % 32;
   const int m0 = blockIdx.x * kBM, tile = blockIdx.y * WN + wg, n0 = tile * kBN;
   const bool live = tile < n_tiles;  // the same for the whole warpgroup
-  const T* bj = bt + blockIdx.z * b_group + (size_t)tile * chunks * kB * kTile;
+  const float* bj = bt + blockIdx.z * b_group + (size_t)tile * chunks * kB * kTile;
   // a staging thread's row and its float4 columns 4·(cq + lanes·i) of a
   // chunk: a warp stores 32 rows' 16 (TF32) or 8 (bf16) bytes, one
   // contiguous run per k-half
@@ -530,7 +497,7 @@ gemm_kernel(Loader loader, const typename Fmt<M>::T* __restrict__ bt, size_t b_g
     if (!live) return;
     const char* src = reinterpret_cast<const char*>(bj + (size_t)c * kB * kTile);
     char* dst = reinterpret_cast<char*>(&sm.b[s][wg][0][0]);
-    constexpr int kBytes = kB * kTile * (int)sizeof(T);
+    constexpr int kBytes = kB * kTile * (int)sizeof(float);
     for (int e = 16 * t; e < kBytes; e += 16 * kThreads) cp_async16(dst + e, src + e, true);
   };
   float4 areg[kA4];
@@ -545,10 +512,7 @@ gemm_kernel(Loader loader, const typename Fmt<M>::T* __restrict__ bt, size_t b_g
 #pragma unroll
     for (int i = 0; i < kA4; ++i) {
       const int k = 4 * (cq + kLanes * i);
-      if constexpr (M == Mode::kBf16)
-        store_bf16x4(sm.a[s][0], kmajor_bf16<kBM>(sr, k), areg[i]);
-      else
-        store_split4(sm.a[s][0], sm.a[s][1], kmajor<kBM>(sr, k), areg[i]);
+      store_split4(sm.a[s][0], sm.a[s][1], kmajor<kBM>(sr, k), areg[i]);
     }
   };
 
@@ -572,32 +536,25 @@ gemm_kernel(Loader loader, const typename Fmt<M>::T* __restrict__ bt, size_t b_g
     fence_proxy_async();
     __syncthreads();     // chunk c of A and B is in shared memory, for wgmma too
 
-    // the chunk's large terms and small ones (split modes), each summed
-    // in fresh accumulators
+    // the chunk's large terms and small ones, each summed in fresh
+    // accumulators
     float big[8][4], small[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) big[j][i] = small[j][i] = 0.0f;
     pin(big);
-    if constexpr (M != Mode::kBf16) pin(small);
+    pin(small);
     wg_fence();
-    if constexpr (M == Mode::kBf16) {
 #pragma unroll
-      for (int ks = 0; ks < kKC / 16; ++ks)
-        wgmma_bf16_ss_n64(big, kmajor_desc<kBM>(sm.a[s][0], ks),
-                          kmajor_desc<kBN>(sm.b[s][wg][0], ks));
-    } else {
-#pragma unroll
-      for (int ks = 0; ks < kKC / 8; ++ks) {
-        const uint64_t a_hi = kmajor_desc<kBM>(sm.a[s][0], ks);
-        const uint64_t a_lo = kmajor_desc<kBM>(sm.a[s][1], ks);
-        const uint64_t b_hi = kmajor_desc<kBN>(sm.b[s][wg][0], ks);
-        if constexpr (M == Mode::kSplit3)
-          wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));
-        wgmma_ss_n64(small, a_lo, b_hi);
-        wgmma_ss_n64(big, a_hi, b_hi);
-      }
+    for (int ks = 0; ks < kKC / 8; ++ks) {
+      const uint64_t a_hi = kmajor_desc<kBM>(sm.a[s][0], ks);
+      const uint64_t a_lo = kmajor_desc<kBM>(sm.a[s][1], ks);
+      const uint64_t b_hi = kmajor_desc<kBN>(sm.b[s][wg][0], ks);
+      if constexpr (M == Mode::kSplit3)
+        wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));
+      wgmma_ss_n64(small, a_lo, b_hi);
+      wgmma_ss_n64(big, a_hi, b_hi);
     }
     wg_commit();
     // while the products run: split and stage chunk c + 1 of A (stage s ^ 1
@@ -608,7 +565,7 @@ gemm_kernel(Loader loader, const typename Fmt<M>::T* __restrict__ bt, size_t b_g
     }
     wg_wait0();
     pin(big);
-    if constexpr (M != Mode::kBf16) pin(small);
+    pin(small);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -640,7 +597,7 @@ struct Groups {
 };
 
 template <int WN, Mode M = Mode::kSplit3, class Loader, class Epilogue>
-cudaError_t launch_wn(const Loader& loader, const typename Fmt<M>::T* bt, int rows, int chunks,
+cudaError_t launch_wn(const Loader& loader, const float* bt, int rows, int chunks,
                       int n_tiles, const Epilogue& epi, cudaStream_t stream,
                       Groups g = Groups()) {
   if (rows <= 0 || chunks <= 0 || n_tiles <= 0 || g.groups <= 0) return cudaErrorInvalidValue;
@@ -662,7 +619,7 @@ constexpr int kSharedWN = 3;  // warpgroups sharing an A tile where the grid is 
 // that still gives every SM such a block (one fits), else a block is one
 // warpgroup (three an SM).
 template <Mode M = Mode::kSplit3, class Loader, class Epilogue>
-cudaError_t launch(const Loader& loader, const typename Fmt<M>::T* bt, int rows, int chunks,
+cudaError_t launch(const Loader& loader, const float* bt, int rows, int chunks,
                    int n_tiles, const Epilogue& epi, cudaStream_t stream, Groups g = Groups()) {
   if (rows <= 0 || chunks <= 0 || n_tiles <= 0) return cudaErrorInvalidValue;
   const long shared = (long)((rows + kBM - 1) / kBM) * ((n_tiles + kSharedWN - 1) / kSharedWN) *

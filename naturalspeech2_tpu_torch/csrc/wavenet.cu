@@ -90,21 +90,19 @@ int wavenet_body(const float* x, const float* blocks, const float* conv_b, const
     float* dst = bufs[s % 2];
     const size_t sl = (size_t)s * L;
     const gemm::Groups g{L, b_blk};
-    const gemm::WaveGate<float, float> gate{dst, conv_b + sl * d, res_b + sl * d,
-                                            film + sl * 2 * d, lane, (size_t)S * L * 2 * d,
-                                            rows, n, d};
+    const gemm::WaveGate gate{dst, conv_b + sl * d, res_b + sl * d, film + sl * 2 * d,
+                              lane, (size_t)S * L * 2 * d, rows, n, d};
     // the first stack's lanes all read x
-    const gemm::TapRows<float> taps =
-        s == 0 ? gemm::TapRows<float>{x, rows, n, d, 3, 1, 0, 0}
-               : gemm::TapRows<float>{in, rows, n, d, 3, 1, 0, lane};
+    const gemm::TapRows taps = s == 0 ? gemm::TapRows{x, rows, n, d, 3, 1, 0, 0}
+                                      : gemm::TapRows{in, rows, n, d, 3, 1, 0, lane};
     cudaError_t err = gemm::launch_wn<2, M>(taps, blocks + sl * b_blk, rows, chunks, tiles, gate,
                                             st, g);
     if (err != cudaSuccess) return err;
     in = dst;
   }
-  return gemm::launch<M>(gemm::TapRows<float>{in, rows, n, d, L, 0, lane, 0}, skip, rows,
+  return gemm::launch<M>(gemm::TapRows{in, rows, n, d, L, 0, lane, 0}, skip, rows,
                          L * d / gemm::kKC, (d + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store<float>{out, skip_b, nullptr, rows, d, d}, st);
+                         gemm::Store{out, skip_b, nullptr, rows, d, d}, st);
 }
 
 // The bf16 body on the bf16 core.
@@ -121,14 +119,14 @@ int wavenet_body_bf16(const bf16* x, const bf16* blocks, const bf16* conv_b, con
   cudaError_t err = bgemm::rows_map(&map_x, x, b, 1, n, d, d, sh.bm);
   for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
     err = bgemm::rows_map(&map_planes[i], planes[i], L * b, 3, n, d, d, sh.bm);
-    if (err == cudaSuccess) err = bgemm::planes_map(&map_out[i], planes[i], L * b, n, d);
+    if (err == cudaSuccess) err = bgemm::planes_map(&map_out[i], planes[i], L * b, 3, n, d);
   }
   if (err == cudaSuccess) err = bgemm::b_map(&map_blocks, blocks, 2 * d, S * L * per_part, sh.bn);
   for (int s = 0; s < S && err == cudaSuccess; ++s) {
     const size_t sl = (size_t)s * L;
-    const bgemm::WaveGateSplit gate{map_out[s % 2], conv_b + sl * d, res_b + sl * d,
-                                    film + sl * 2 * d, (size_t)S * L * 2 * d, b, n, d};
-    const bgemm::SplitTaps taps{L * b, n, d, b, 0, s == 0 ? 1 : 3, (int)sl * per_part};
+    const bgemm::WaveGateSplit<> gate{map_out[s % 2], conv_b + sl * d, res_b + sl * d,
+                                      film + sl * 2 * d, (size_t)S * L * 2 * d, b, n, d};
+    const bgemm::SplitTaps taps{L * b, n, d, b, 0, s == 0 ? 1 : 3, s == 0, (int)sl * per_part};
     err = bgemm::launch_at(sh, s == 0 ? map_x : map_planes[(s - 1) % 2], map_blocks, taps,
                            2 * d, taps.parts * per_part, gate, st);
   }
@@ -139,7 +137,7 @@ int wavenet_body_bf16(const bf16* x, const bf16* blocks, const bf16* conv_b, con
   err = bgemm::rows_map(&map_lanes, planes[(S - 1) % 2], L * b, 3, n, d, d, sk.bm);
   if (err == cudaSuccess) err = bgemm::b_map(&map_skip, skip, d, L * d / bgemm::kKC, sk.bn);
   if (err != cudaSuccess) return err;
-  return bgemm::launch_at(sk, map_lanes, map_skip, bgemm::SplitLanes{b, n, d, L, 0, 0}, d,
+  return bgemm::launch_at(sk, map_lanes, map_skip, bgemm::SplitLanes{b, n, d, L, 3, 0, 0}, d,
                           3 * L * d / bgemm::kKC,
                           bgemm::Store<bf16, float>{out, skip_b, nullptr, d, d}, st);
 }

@@ -46,16 +46,22 @@
 // `bf16_matmul` (`ns2_wavenet_lanes_bf16mm`, wavenet_kernel.py:172 and
 // :208-217: the option `_fused_forward_per_lane(..., bf16_matmul=True)`
 // threads through, which examples/wavenet_d512_probe.py runs at d 512): f32
-// x, biases, FiLM and output, every product on bf16 operands with f32
-// accumulation. The same launches run the core's kBf16 mode: its A loader
-// reads the f32 lane (or x) through `TapRows` and rounds each value to bf16
-// (nearest even) as it stages the chunk, so the lane is rounded at every
-// product, the three conv taps and the residual alike, and the stack's
-// output before the skip product, where the JAX kernel casts `a` in `dot`;
-// B is the weights packed as bf16 (`pack_b(..., "bf16")`), one
-// `wgmma.m64n64k16` pass a k-step. The lane state, the gate and the skips'
-// sum stay f32. Bound: the products at the dense bf16 rate, 989 TFLOP/s
-// (H100 SXM, 700 W), where kSplit3's three TF32 passes run at 165.
+// x, biases, FiLM and output, both operands of every product cast to bf16
+// (nearest even), f32 accumulation. The lane (or x) enters a stack only
+// through its products (the three conv taps, the residual, the skip), so
+// one bf16 plane a lane, bf16(v), is every operand the JAX kernel
+// multiplies, bit for bit. So the bf16 path's launches with one part: a
+// rounding pre-pass writes x as bf16 [b, n, d], the blocks run one bf16
+// pass each (`SplitTaps` with parts 1) against the f32 weights rounded to
+// bf16 as they are packed ("bf16_sw128"), kLaneGroup lanes a launch,
+// `WaveGateSplit<1, float>` computing the gate in f32 on the f32 biases and
+// FiLM (the tile's columns staged in shared memory first) and storing
+// bf16(v) into planes [kLaneGroup·b, 1, n, d] by TMA; the skips one
+// launch a lane, in lane order, adding lane · skip_w[l] + skip_b[l] into the
+// f32 output, its own residual from the second lane on. S·L / kLaneGroup +
+// L + 1 launches. Bound: the products at the dense bf16 rate, 989 TFLOP/s
+// (H100 SXM, 700 W), a third of the bf16 path's, whose lanes take three
+// passes.
 #include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 
@@ -72,14 +78,13 @@ namespace {
 constexpr int kLaneGroup = 4;
 
 // The split-TF32 core's lanes, f32 in and out: M the core's mode (kSplit3
-// for f32, kSplit2 for the mixed entry point, kBf16 for `bf16_matmul`);
-// blocks and skip are packed in its B format (Fmt<M>::T). The lane state
-// and the skips' sum are f32, the sum in the output.
+// for f32, kSplit2 for the mixed entry point); blocks and skip are packed
+// in its B format. The lane state and the skips' sum are f32, the sum in
+// the output.
 template <gemm::Mode M>
-int wavenet_lanes(const float* x, const typename gemm::Fmt<M>::T* blocks, const float* conv_b,
-                  const float* res_b, const typename gemm::Fmt<M>::T* skip, const float* skip_b,
-                  const float* film, float* lane_a, float* lane_b, float* out, int b, int n,
-                  int d, int S, int L, void* stream) {
+int wavenet_lanes(const float* x, const float* blocks, const float* conv_b, const float* res_b,
+                  const float* skip, const float* skip_b, const float* film, float* lane_a,
+                  float* lane_b, float* out, int b, int n, int d, int S, int L, void* stream) {
   constexpr int kB = gemm::Fmt<M>::kB;
   if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -93,73 +98,81 @@ int wavenet_lanes(const float* x, const typename gemm::Fmt<M>::T* blocks, const 
     for (int s = 0; s < S; ++s) {
       const size_t sl = (size_t)s * L + l;  // block (s, l)
       float* dst = bufs[s % 2];
-      const gemm::WaveGate<float, float> gate{dst, conv_b + sl * d, res_b + sl * d,
-                                              film + sl * 2 * d, 0, (size_t)S * L * 2 * d, rows,
-                                              n, d};
-      const gemm::TapRows<float> taps{s == 0 ? x : in, rows, n, d, 3, 1 << l, 0, 0};
+      const gemm::WaveGate gate{dst, conv_b + sl * d, res_b + sl * d, film + sl * 2 * d, 0,
+                                (size_t)S * L * 2 * d, rows, n, d};
+      const gemm::TapRows taps{s == 0 ? x : in, rows, n, d, 3, 1 << l, 0, 0};
       cudaError_t err =
           gemm::launch_wn<2, M>(taps, blocks + sl * b_blk, rows, chunks, tiles, gate, st);
       if (err != cudaSuccess) return err;
       in = dst;
     }
-    const gemm::TapRows<float> lane{in, rows, n, d, 1, 0, 0, 0};
+    const gemm::TapRows lane{in, rows, n, d, 1, 0, 0, 0};
     const cudaError_t err = gemm::launch_wn<1, M>(
         lane, skip + l * b_skip, rows, d / gemm::kKC, skip_tiles,
-        gemm::Store<float>{out, skip_b + (size_t)l * d, l > 0 ? out : nullptr, rows, d, d}, st);
+        gemm::Store{out, skip_b + (size_t)l * d, l > 0 ? out : nullptr, rows, d, d}, st);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-// The bf16 lanes on the bf16 core; planes_a / planes_b [kLaneGroup·b, 3, n,
-// d] bf16, acc [b, n, d] f32.
-int wavenet_lanes_bf16(const bf16* x, const bf16* blocks, const bf16* conv_b, const bf16* res_b,
-                       const bf16* skip, const bf16* skip_b, const bf16* film, bf16* planes_a,
-                       bf16* planes_b, float* acc, bf16* out, int b, int n, int d, int S, int L,
-                       void* stream) {
-  if (d % bgemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The lanes on the bf16 core, Parts planes a lane (3: K1b in bf16, hi, mid
+// and lo of the f32 lane; 1: `bf16_matmul`, bf16(v)): x16 the bf16 x [b, n,
+// d] the first stack reads; planes_a / planes_b [kLaneGroup·b, Parts, n, d]
+// bf16; the biases, FiLM and skip_b of P (bf16, or f32 for `bf16_matmul`);
+// the skips summed in f32 into acc [b, n, d], the last lane's sum stored to
+// out (bf16, or the f32 acc itself).
+template <int Parts, class P, class Out>
+int lanes_on_bf16_core(const bf16* x16, const bf16* blocks, const P* conv_b, const P* res_b,
+                       const bf16* skip, const P* skip_b, const P* film, bf16* planes_a,
+                       bf16* planes_b, float* acc, Out* out, int b, int n, int d, int S, int L,
+                       cudaStream_t st) {
   const int per_part = 3 * d / bgemm::kKC, skip_chunks = d / bgemm::kKC;
   const bgemm::Shape sh = bgemm::choose(kLaneGroup * b, n, 2 * d, true);
   const bgemm::Shape sk = bgemm::choose(b, n, d);
   bf16* planes[2] = {planes_a, planes_b};
   CUtensorMap map_x, map_planes[2], map_out[2], map_blocks, map_lane, map_skip;
-  cudaError_t err = bgemm::rows_map(&map_x, x, b, 1, n, d, d, sh.bm);
+  cudaError_t err = bgemm::rows_map(&map_x, x16, b, 1, n, d, d, sh.bm);
   for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
-    err = bgemm::rows_map(&map_planes[i], planes[i], kLaneGroup * b, 3, n, d, d, sh.bm);
-    if (err == cudaSuccess) err = bgemm::planes_map(&map_out[i], planes[i], kLaneGroup * b, n, d);
+    err = bgemm::rows_map(&map_planes[i], planes[i], kLaneGroup * b, Parts, n, d, d, sh.bm);
+    if (err == cudaSuccess)
+      err = bgemm::planes_map(&map_out[i], planes[i], kLaneGroup * b, Parts, n, d);
   }
   if (err == cudaSuccess) err = bgemm::b_map(&map_blocks, blocks, 2 * d, S * L * per_part, sh.bn);
   // the skips read the last stack's planes
   if (err == cudaSuccess)
-    err = bgemm::rows_map(&map_lane, planes[(S - 1) % 2], kLaneGroup * b, 3, n, d, d, sk.bm);
+    err = bgemm::rows_map(&map_lane, planes[(S - 1) % 2], kLaneGroup * b, Parts, n, d, d, sk.bm);
   if (err == cudaSuccess) err = bgemm::b_map(&map_skip, skip, d, L * skip_chunks, sk.bn);
   for (int l0 = 0; l0 < L && err == cudaSuccess; l0 += kLaneGroup) {
     const int lanes = L - l0 < kLaneGroup ? L - l0 : kLaneGroup;
     for (int s = 0; s < S && err == cudaSuccess; ++s) {
       const size_t sl = (size_t)s * L + l0;  // block (s, l0)
-      const bgemm::WaveGateSplit gate{map_out[s % 2], conv_b + sl * d, res_b + sl * d,
-                                      film + sl * 2 * d, (size_t)S * L * 2 * d, b, n, d};
-      const bgemm::SplitTaps taps{lanes * b, n, d, b, l0, s == 0 ? 1 : 3, (int)sl * per_part};
+      const bgemm::WaveGateSplit<Parts, P> gate{map_out[s % 2], conv_b + sl * d, res_b + sl * d,
+                                                film + sl * 2 * d, (size_t)S * L * 2 * d, b, n, d};
+      const bgemm::SplitTaps taps{lanes * b, n, d, b, l0, s == 0 ? 1 : Parts, s == 0,
+                                  (int)sl * per_part};
       err = bgemm::launch_at(sh, s == 0 ? map_x : map_planes[(s - 1) % 2], map_blocks, taps,
                              2 * d, taps.parts * per_part, gate, st);
     }
     for (int g = 0; g < lanes && err == cudaSuccess; ++g) {
       const int l = l0 + g;
-      const bgemm::SplitLanes lane{b, n, d, 1, g, l * skip_chunks};
+      const bgemm::SplitLanes lane{b, n, d, 1, Parts, g, l * skip_chunks};
       const float* prev = l > 0 ? acc : nullptr;
       err = l + 1 < L
-                ? bgemm::launch_at(sk, map_lane, map_skip, lane, d, 3 * skip_chunks,
-                                   bgemm::Store<float, bf16, float>{acc, skip_b + (size_t)l * d,
-                                                                    prev, d, d},
+                ? bgemm::launch_at(sk, map_lane, map_skip, lane, d, Parts * skip_chunks,
+                                   bgemm::Store<float, P, float>{acc, skip_b + (size_t)l * d,
+                                                                 prev, d, d},
                                    st)
-                : bgemm::launch_at(sk, map_lane, map_skip, lane, d, 3 * skip_chunks,
-                                   bgemm::Store<bf16, bf16, float>{out, skip_b + (size_t)l * d,
-                                                                   prev, d, d},
+                : bgemm::launch_at(sk, map_lane, map_skip, lane, d, Parts * skip_chunks,
+                                   bgemm::Store<Out, P, float>{out, skip_b + (size_t)l * d, prev,
+                                                               d, d},
                                    st);
     }
   }
   return err;
+}
+
+bool lanes_ok(int b, int n, int d, int S, int L) {
+  return d % bgemm::kKC == 0 && b > 0 && n > 0 && S > 0 && L > 0;
 }
 
 }  // namespace
@@ -197,17 +210,25 @@ NS2_API int ns2_wavenet_lanes_bf16(const bf16* x, const bf16* blocks, const bf16
                                    const bf16* res_b, const bf16* skip, const bf16* skip_b,
                                    const bf16* film, bf16* planes_a, bf16* planes_b, float* acc,
                                    bf16* out, int b, int n, int d, int S, int L, void* stream) {
-  return wavenet_lanes_bf16(x, blocks, conv_b, res_b, skip, skip_b, film, planes_a, planes_b,
-                            acc, out, b, n, d, S, L, stream);
+  if (!lanes_ok(b, n, d, S, L)) return cudaErrorInvalidValue;
+  return lanes_on_bf16_core<3>(x, blocks, conv_b, res_b, skip, skip_b, film, planes_a, planes_b,
+                               acc, out, b, n, d, S, L, static_cast<cudaStream_t>(stream));
 }
 
-// `bf16_matmul`: as ns2_wavenet_lanes with blocks and skip the weights
-// packed as bf16, every product on bf16 operands (the lanes rounded as the
-// core stages them) with f32 accumulation.
+// `bf16_matmul` on the bf16 core: x, conv_b, res_b, skip_b, film and out
+// f32, d % 64 == 0; blocks and skip the f32 weights rounded to bf16 and
+// packed "bf16_sw128" as for ns2_wavenet_lanes_bf16; x16 [b, n, d] bf16
+// scratch for the rounded x, planes_a / planes_b [kLaneGroup·b, 1, n, d]
+// bf16 scratch. S·L / kLaneGroup + L + 1 launches.
 NS2_API int ns2_wavenet_lanes_bf16mm(const float* x, const bf16* blocks, const float* conv_b,
                                      const float* res_b, const bf16* skip, const float* skip_b,
-                                     const float* film, float* lane_a, float* lane_b, float* out,
-                                     int b, int n, int d, int S, int L, void* stream) {
-  return wavenet_lanes<gemm::Mode::kBf16>(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a,
-                                          lane_b, out, b, n, d, S, L, stream);
+                                     const float* film, bf16* x16, bf16* planes_a,
+                                     bf16* planes_b, float* out, int b, int n, int d, int S,
+                                     int L, void* stream) {
+  if (!lanes_ok(b, n, d, S, L)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = bgemm::round_bf16(x, x16, (size_t)b * n * d, st);
+  if (err != cudaSuccess) return err;
+  return lanes_on_bf16_core<1>(x16, blocks, conv_b, res_b, skip, skip_b, film, planes_a,
+                               planes_b, out, out, b, n, d, S, L, st);
 }

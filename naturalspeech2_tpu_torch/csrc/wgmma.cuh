@@ -1,13 +1,13 @@
 // Hopper warpgroup matrix products (`wgmma`) on TF32 and bf16 operands, as
 // K4 (flash_fwd.cu) and the GEMM core (gemm_tf32x3.cuh) use them: the
 // K-major no-swizzle shared-memory layout and its descriptors, the fences,
-// and the products m64n32k8 / m64n64k8 (TF32) and m64n32k16 / m64n64k16
-// (bf16, f32 accumulation) with both operands in shared memory or A in
-// registers. The TF32 semantics were pinned down on the card by a
-// one-kernel probe (descriptors, register A, the accumulator layout) before
-// K4 used them; the bf16 layout is the same in bytes (a core matrix is 8
-// rows of 16 bytes, 8 bf16 where it was 4 floats), and its k-step twice as
-// deep.
+// and the products m64n32k8 / m64n64k8 (TF32) with both operands in shared
+// memory or A in registers, and K4's bf16 ones (f32 accumulation):
+// m64n32k16 from shared memory, m64n64k16 with A in registers. The TF32
+// semantics were pinned down on the card by a one-kernel probe
+// (descriptors, register A, the accumulator layout) before K4 used them;
+// the bf16 layout is the same in bytes (a core matrix is 8 rows of 16
+// bytes, 8 bf16 where it was 4 floats), and its k-step twice as deep.
 #pragma once
 
 #include <stdint.h>
@@ -159,25 +159,6 @@ __device__ __forceinline__ void wgmma_bf16_ss_n32(float (&d)[4][4], uint64_t a, 
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d[64 x 64] += A·Bᵀ over one k-step of 16, bf16 operands K-major in shared
-// memory, f32 accumulation.
-__device__ __forceinline__ void wgmma_bf16_ss_n64(float (&d)[8][4], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(a), "l"(b), "r"(1));
-}
-
 // d[64 x 64] += A·B over one k-step of 16, bf16 A in registers (mma.m16n8k16's
 // A layout on each warp's 16 rows: a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t,
 // 2t+1], a[2] = A[g][2t+8, 2t+9], a[3] = A[g+8][2t+8, 2t+9], the lower k in
@@ -200,12 +181,6 @@ __device__ __forceinline__ void wgmma_bf16_rs_n64(float (&d)[8][4], const uint32
         "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
         "+f"(d[7][2]), "+f"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// Four f32 values rounded to bf16 at a K-major position (k % 4 == 0).
-__device__ __forceinline__ void store_bf16x4(bf16* tile, int at, float4 x) {
-  *reinterpret_cast<uint2*>(tile + at) =
-      make_uint2(pack_bf16x2(x.x, x.y), pack_bf16x2(x.z, x.w));
 }
 
 // Split f32 values into K-major hi and lo tiles.

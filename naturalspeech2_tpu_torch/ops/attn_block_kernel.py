@@ -18,12 +18,12 @@ backward, as `_fused_bwd` in the JAX package, is the vjp of
 tensor ops and runs the attention core through flash attention (forward
 K4, backward K5).
 
-Both kernels are built the same way: the projections and W_o on the
-split-TF32 GEMM core, the attention core on K4. They read the weights
-packed for the core (``pack_attn_weights``, ``pack_cross_weights``, once
-per parameter version), each head padded with exact zeros to K4's width
-(64, or a multiple of 128: ``flash_attention.kernel_head_dim``) and dm and
-dc to the core's chunk; the norm keeps √dm of the real width.
+Both kernels are built the same way: the projections and W_o on a GEMM
+core (in f32 the split-TF32 one), the attention core on K4. They read the
+weights packed for the core (``pack_attn_weights``, ``pack_cross_weights``,
+once per parameter version), each head padded with exact zeros to K4's
+width (64, or a multiple of 128: ``flash_attention.kernel_head_dim``) and
+dm and dc to the core's chunk; the norm keeps √dm of the real width.
 ``attn_block_packed_torch`` and ``cross_attn_block_packed_torch`` compute
 the blocks from those layouts in plain PyTorch.
 
@@ -33,9 +33,11 @@ the norm in f32, n(x), q, k, v, P and o rounded to bf16 before each
 product, products summed in f32, the heads and the residual summed in f32
 and y rounded once; ``attn_block_bf16_torch`` and
 ``cross_attn_block_bf16_torch`` are the plain versions, rounding point for
-rounding point (the CPU route in bf16). K2's bf16 projections run the bf16
-GEMM core (``csrc/gemm_bf16.cuh``, weights packed "bf16_sw128", dm padded
-to 64) after a norm pre-pass; K2b's the split-TF32 core's bf16 mode.
+rounding point (the CPU route in bf16). Both blocks' bf16 projections run
+the bf16 GEMM core (``csrc/gemm_bf16.cuh``, weights packed "bf16_sw128",
+dm and dc padded to 64) after a norm pre-pass into the o scratch, which
+holds max(H·dh, dm padded to 64) values a row (``cross_scratch`` sizes
+K2b's).
 
 Mixed (x, γ, β and the context float32, the weights bfloat16: AMP
 training's denoiser) both compute the f32 block on the weights' values,
@@ -278,8 +280,7 @@ def _pack_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dtype):
     dm, hd = wq.shape[0], heads * dim_head
     _build.require_shapes("attn_block", wq=(wq, (dm, hd)), wkv=(wkv, (dm, 2 * hd)),
                           wo=(wo, (hd, dm)))
-    return pack_attn_weights(wq, wkv, wo, heads, dim_head,
-                             gemm_cache.fmt_of(dtype, wq.dtype, bf16_core=True))
+    return pack_attn_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype, wq.dtype))
 
 
 def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float,
@@ -402,15 +403,19 @@ def _cross_xla(x, *args, heads: int, dim_head: int, scale: float, residual: bool
 
 
 def cross_attn_block_packed_torch(x, ctx, gamma, beta, packed, *, heads: int, scale: float):
-    """K2b's four launches in plain PyTorch, from the packed weights
+    """K2b's launches in plain PyTorch, from the packed weights
     (``pack_cross_weights``): q at the padded head width dh in K4's layout,
     k and v from the context's rows, the attention core
     (``flash_forward_torch``), the heads' concatenation times W_o with the
-    residual; the norm at the real dm. Equal to ``cross_attn_block_torch``
-    up to f32 reordering: the check of K2b's padding and weight layout on
-    the CPU."""
+    residual; the norm at the real dm. In f32 equal to
+    ``cross_attn_block_torch`` up to f32 reordering, in bf16 (x, ctx, γ, β
+    and the weights bf16, packed "bf16_sw128") to
+    ``cross_attn_block_bf16_torch``'s rounding points: the check of K2b's
+    padding and weight layout on the CPU."""
     b, n, dm = x.shape
     m, dc = ctx.shape[1:]
+    if x.dtype == torch.bfloat16:
+        return _cross_packed_bf16(x, ctx, gamma, beta, packed, heads=heads, scale=scale)
     wq, wkv, wo = [sum(gemm_cache.unpack_b(p)) for p in packed]
     hd = wo.shape[1]  # H·dh: the out Bᵀ's K, a multiple of 64
     dh = hd // heads
@@ -418,6 +423,41 @@ def cross_attn_block_packed_torch(x, ctx, gamma, beta, packed, *, heads: int, sc
     k, v = (ctx @ wkv[:2 * hd, :dc].T).reshape(b, m, 2, heads, dh).permute(2, 0, 3, 1, 4)
     o, _ = flash_forward_torch(q, k, v, None, None, causal=False, scale=scale)
     return x + o.transpose(1, 2).reshape(b, n, hd) @ wo[:dm, :hd].T
+
+
+def _cross_packed_bf16(x, ctx, gamma, beta, packed, *, heads: int, scale: float):
+    """``cross_attn_block_packed_torch`` in bf16: ``cross_attn_block_bf16_torch``'s
+    rounding points (n(x), q, k, v, P and o rounded, y once) on the packed
+    weights (bf16 values)."""
+    b, n, dm = x.shape
+    m, dc = ctx.shape[1:]
+    xf = x.float()
+    wq, wkv, wo = [sum(gemm_cache.unpack_b(p, "bf16_sw128")).float() for p in packed]
+    hd = wo.shape[1]
+    dh = hd // heads
+    xn = _rd(ada_norm(xf, gamma.float(), beta.float()))
+    q = _rd(xn @ wq[:hd, :dm].T).reshape(b, n, heads, dh).transpose(1, 2)
+    k, v = _rd(ctx.float() @ wkv[:2 * hd, :dc].T).reshape(b, m, 2, heads, dh).permute(
+        2, 0, 3, 1, 4)
+    o = _rd(_core_bf16(q, k, v, scale=scale))
+    return (xf + o.transpose(1, 2).reshape(b, n, hd) @ wo[:dm, :hd].T).to(x.dtype)
+
+
+def cross_scratch(b: int, n: int, m: int, dm: int, dc: int, heads: int, dh: int,
+                  dtype: torch.dtype, device):
+    """(q, kv, o): the scratch of K2b's entry point at head width dh (K4's):
+    q [b, H, n, dh], kv [2, b, H, m, dh] and o [b, H, n, dh] of the block's
+    type. In bf16 o first holds n(x) at dm padded to 64, so it holds
+    max(H·dh, dm padded to 64) values a row, and kv is flat with room after
+    its two planes for b·m rows of dc rounded up to 8 (the kernel's copy of
+    the context where TMA cannot read it as it is)."""
+    q = torch.empty((b, heads, n, dh), dtype=dtype, device=device)
+    if dtype != torch.bfloat16:
+        return q, torch.empty((2, b, heads, m, dh), dtype=dtype, device=device), torch.empty_like(q)
+    kv = torch.empty(2 * b * heads * m * dh + b * m * gemm_cache.round_up(dc, 8), dtype=dtype,
+                     device=device)
+    o_row = max(heads * dh, gemm_cache.round_up(dm, gemm_cache.SW128_CHUNK))
+    return q, kv, torch.empty(b * n * o_row, dtype=dtype, device=device)
 
 
 def _pack_cross_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dtype):
@@ -450,15 +490,13 @@ def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: in
         raise ValueError(f"cross_attn_block: wq {tuple(wq.shape)}, wkv {tuple(wkv.shape)} on "
                          f"{wq.device} do not take x {tuple(x.shape)}, ctx {tuple(ctx.shape)} "
                          f"on {x.device}")
-    dh = kernel_head_dim(dim_head)
-    q = torch.empty((b, heads, n, dh), dtype=x.dtype, device=x.device)
-    kv = torch.empty((2, b, heads, m, dh), dtype=x.dtype, device=x.device)
-    o = torch.empty_like(q)
+    q, kv, o = cross_scratch(b, n, m, dm, dc, heads, kernel_head_dim(dim_head), x.dtype,
+                             x.device)
     out = torch.empty_like(x)
     err = _build.entry("ns2_cross_attn_block", x.dtype, wq.dtype)(
         x.data_ptr(), ctx.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         *(p.data_ptr() for p in packed), q.data_ptr(), kv.data_ptr(), o.data_ptr(),
-        out.data_ptr(), b, n, m, dm, dc, heads, dh, float(scale), int(residual),
+        out.data_ptr(), b, n, m, dm, dc, heads, q.shape[-1], float(scale), int(residual),
         _build.stream(x),
     )
     _build.check(err, "ns2_cross_attn_block")
@@ -488,12 +526,19 @@ def cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: 
     x: [b, n, dm]; ctx: [b, m, dc]; gamma/beta: [b, dm]; wq: [dm, H·dh];
     wkv: [dc, 2·H·dh] (k first); wo: [H·dh, dm]. CUDA tensors run the
     kernel (four launches: q and k/v on the GEMM core, K4's attention core,
-    W_o on the GEMM core; counted as one launch of K2b; any dm, dc and head
-    width); CPU tensors run the plain version. ``residual=False`` returns
-    the heads' sum alone, without x.
+    W_o on the GEMM core; in bf16 a norm pre-pass first and the bf16 GEMM
+    core, five launches, six where the context is copied for TMA; counted
+    as one launch of K2b; any dm, dc and head width); CPU tensors run the
+    plain version. ``residual=False`` returns the heads' sum alone, without
+    x.
     """
-    return _CrossAttnBlock.apply(x, ctx, gamma, beta, wq, wkv, wo, heads, dim_head, float(scale),
-                                 bool(residual))
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, ctx, gamma, beta, wq, wkv, wo)):
+        return _CrossAttnBlock.apply(x, ctx, gamma, beta, wq, wkv, wo, heads, dim_head,
+                                     float(scale), bool(residual))
+    # no graph to record: the autograd Function's overhead spared
+    return _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, heads=heads, dim_head=dim_head,
+                          scale=float(scale), residual=bool(residual))
 
 
 cross_attn_block.launches = cross_attn_block.launches_bf16 = 0

@@ -215,7 +215,7 @@ def _pack_checked(w1, b1, wc, bc, w2, dtype: torch.dtype) -> FFWeights:
         "ff_block", w1=(w1, (dm, 2 * inner)), b1=(b1, (2 * inner,)),
         wc=(wc, (3, inner, inner)), bc=(bc, (inner,)), w2=(w2, (inner, dm)),
     )
-    wt = pack_ff_weights(w1, b1, wc, bc, w2, gemm_cache.fmt_of(dtype, w1.dtype, bf16_core=True))
+    wt = pack_ff_weights(w1, b1, wc, bc, w2, gemm_cache.fmt_of(dtype, w1.dtype))
     return wt._replace(b_val=wt.b_val.to(dtype), b_gate=wt.b_gate.to(dtype), bc=wt.bc.to(dtype))
 
 

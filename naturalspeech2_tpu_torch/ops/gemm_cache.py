@@ -12,21 +12,20 @@ one contiguous 16 KB run that the kernel copies into shared memory as it
 stands. ``pack_b`` builds it and ``unpack_b`` inverts it (hi + lo gives
 the weight back exactly).
 
-Two more formats carry bf16 weights (``pack_b(bt, fmt)``): ``"bf16"``,
-the bf16 values in the bf16 K-major order (a core matrix is 8 rows of 8
-bf16, a k-step 16 deep), one part, for the core's bf16 mode (K2b in bf16,
-K1b's ``bf16_matmul``); and ``"tf32"``, the bf16 values as f32 (exact in
-TF32) in the TF32 order with no lo part, for its two-pass mode (the mixed
-entry points of K1, K1b, K2, K2b, K3 and the bf16 K6, whose activations
-are f32).
+One more format of that core carries bf16 weights (``pack_b(bt, fmt)``):
+``"tf32"``, the bf16 values as f32 (exact in TF32) in the TF32 order with
+no lo part, for its two-pass mode (the mixed entry points of K1, K1b, K2,
+K2b, K3 and the bf16 K6, whose activations are f32).
 
 ``"bf16_sw128"`` is the operand format of the bf16 GEMM core
-(``csrc/gemm_bf16.cuh``, K1, K1b, K2 and K3 in bf16): Bᵀ [N, K] padded with zeros
-to multiples of 64 in both, laid out chunk by chunk as [K / 64, N, 64], each
-row of a chunk (64 bf16, 128 bytes) in the 128-byte swizzle that ``wgmma``
-reads: its 16-byte piece p holds the eight values of piece p ^ (n % 8).
-Rows n0 .. n0 + R of a chunk are then one contiguous run, whatever the
-kernel's tile width R, that it copies into shared memory as it stands.
+(``csrc/gemm_bf16.cuh``: K1, K1b, K2, K2b and K3 in bf16, and K1b's
+``bf16_matmul``, whose f32 weights it rounds to bf16 as it packs them): Bᵀ
+[N, K] padded with zeros to multiples of 64 in both, laid out chunk by
+chunk as [K / 64, N, 64], each row of a chunk (64 bf16, 128 bytes) in the
+128-byte swizzle that ``wgmma`` reads: its 16-byte piece p holds the eight
+values of piece p ^ (n % 8). Rows n0 .. n0 + R of a chunk are then one
+contiguous run, whatever the kernel's tile width R, that it copies into
+shared memory as it stands.
 
 ``cached(name, build, *tensors)`` keeps what ``build`` made from the
 tensors (packed, padded or concatenated weights) until one of them changes:
@@ -66,13 +65,13 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, x - hi
 
 
-# The shape of a chunk's 32 k in each format's K-major order: (k-steps,
-# halves, values a core-matrix row), and the permutation that takes (tile,
-# row group, row, chunk, k-step, half, k) to the packed order (tile, chunk,
+# The shape of a chunk's 32 k in the TF32 K-major order: (k-steps, halves,
+# values a core-matrix row), and the permutation that takes (tile, row
+# group, row, chunk, k-step, half, k) to the packed order (tile, chunk,
 # k-step, half, row group, row, k).
-_K_SPLIT = {torch.float32: (4, 2, 4), torch.bfloat16: (2, 2, 8)}
+_K_SPLIT = (4, 2, 4)
 _TO_PACKED = (0, 3, 4, 5, 1, 2, 6)
-FORMATS = ("split", "tf32", "bf16", "bf16_sw128")
+FORMATS = ("split", "tf32", "bf16_sw128")
 SW128_CHUNK = 64  # k per chunk of the bf16 core, and what it pads N to
 
 
@@ -114,27 +113,24 @@ def pack_b(bt: torch.Tensor, fmt: str = "split") -> torch.Tensor:
     k) of tile j, chunk c lies at ks·512 + half·256 + (r // 8)·32 + (r %
     8)·4 + k4 with k = 8·ks + 4·half + k4: `kmajor<64>` of
     ``csrc/wgmma.cuh``. "tf32": the same order, one part, for values exact
-    in TF32 (bf16 weights). "bf16": bf16, one part, at ks·1024 + half·512 +
-    (r // 8)·64 + (r % 8)·8 + k8 with k = 16·ks + 8·half + k8:
-    `kmajor_bf16<64>`. "bf16_sw128": bf16, [..., K_chunks, N_rows, 64], N
-    and K padded to 64 (see the module's docstring)."""
+    in TF32 (bf16 weights). "bf16_sw128": bf16, [..., K_chunks, N_rows, 64],
+    N and K padded to 64 (see the module's docstring)."""
     if fmt not in FORMATS:
         raise ValueError(f"pack_b: fmt must be one of {FORMATS}, got {fmt!r}")
     if fmt == "bf16_sw128":
         return _pack_sw128(bt)
-    dtype = torch.bfloat16 if fmt == "bf16" else torch.float32
     if fmt == "tf32" and bt.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"pack_b: tf32 packs bf16 values, got {bt.dtype}")
     *lead, n, k = bt.shape
-    bt = torch.nn.functional.pad(bt.to(dtype),
+    bt = torch.nn.functional.pad(bt.to(torch.float32),
                                  (0, round_up(k, CHUNK) - k, 0, round_up(n, TILE_ROWS) - n))
     tiles, chunks = bt.shape[-2] // TILE_ROWS, bt.shape[-1] // CHUNK
     nl = len(lead)
-    t = bt.reshape(*lead, tiles, 8, 8, chunks, *_K_SPLIT[dtype]).permute(
+    t = bt.reshape(*lead, tiles, 8, 8, chunks, *_K_SPLIT).permute(
         *range(nl), *(nl + i for i in _TO_PACKED))
-    if fmt != "split":
+    if fmt == "tf32":
         t = t.reshape(*lead, tiles, chunks, 1, -1)
-        if fmt == "tf32" and tf32_split(t)[1].any():
+        if tf32_split(t)[1].any():
             raise ValueError("pack_b: the tf32 format holds values exact in TF32 (bf16 weights)")
         return t.contiguous()
     hi, lo = tf32_split(t)
@@ -142,23 +138,21 @@ def pack_b(bt: torch.Tensor, fmt: str = "split") -> torch.Tensor:
                        dim=-2)
 
 
-def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None, *,
-           bf16_core: bool = False) -> str:
-    """The weight format of the core's mode for a block's activation dtype
-    and its weights' (default: the same): "split" for f32, "bf16" for bf16
-    ("bf16_sw128" with ``bf16_core``: the blocks on the bf16 GEMM core, K1,
-    K1b, K2 and K3), "tf32" for f32 activations against bf16 weights (the two-pass
-    mode)."""
+def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None) -> str:
+    """The weight format for a block's activation dtype and its weights'
+    (default: the same): "split" for f32 (the split-TF32 core), "bf16_sw128"
+    for bf16 (the bf16 core), "tf32" for f32 activations against bf16
+    weights (the split-TF32 core's two-pass mode)."""
     if dtype == torch.bfloat16:
-        return "bf16_sw128" if bf16_core else "bf16"
+        return "bf16_sw128"
     return "tf32" if weight_dtype == torch.bfloat16 else "split"
 
 
 def unpack_b(packed: torch.Tensor, fmt: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo), each the padded Bᵀ [..., N_tiles·64, K_chunks·32] back from
     ``pack_b``'s layout in ``fmt`` (lo zeros for the one-part formats). The
-    split-TF32 core's formats tell themselves apart by their parts and
-    dtype, so ``fmt`` may be left out for them; "bf16_sw128" must be named,
+    split-TF32 core's formats tell themselves apart by their parts, so
+    ``fmt`` may be left out for them; "bf16_sw128" must be named,
     and gives [..., N_rows, K_chunks·64]."""
     if fmt is not None and fmt not in FORMATS:
         raise ValueError(f"unpack_b: fmt must be one of {FORMATS}, got {fmt!r}")
@@ -169,7 +163,7 @@ def unpack_b(packed: torch.Tensor, fmt: str | None = None) -> tuple[torch.Tensor
     nl = len(lead)
 
     def dense(p):
-        ks, half, kk = _K_SPLIT[packed.dtype]
+        ks, half, kk = _K_SPLIT
         t = p.reshape(*lead, tiles, chunks, ks, half, 8, 8, kk).permute(
             *range(nl), *(nl + i for i in (0, 4, 5, 1, 2, 3, 6)))
         return t.reshape(*lead, tiles * TILE_ROWS, chunks * CHUNK)

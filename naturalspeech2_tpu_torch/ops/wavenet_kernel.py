@@ -62,10 +62,14 @@ weights held as TF32, exact) with the biases widened, counted in
 `naturalspeech2_tpu/ops/wavenet_kernel.py:172`, `:208-217`): every product
 reads bf16 operands with f32 accumulation, the lane rounded at each of its
 products and the stack's output before the skip product, the lane state,
-biases, FiLM, gate and the skips' sum f32, the output f32. On a card the
-core's kBf16 mode, whose A loader rounds the f32 lane as it stages it,
-against the weights packed as bf16 under a cache key of their own, counted
-in ``wavenet_body_lanes.launches_bf16mm``.
+biases, FiLM, gate and the skips' sum f32, the output f32. A lane enters
+the body only through products, so on a card K1b's bf16 path runs it with
+one bf16 plane a lane, bf16(v), in place of three (a rounding pre-pass of
+x, the gate on the f32 biases and FiLM, the skips summed into the f32
+output), against the f32 weights rounded to bf16 as they are packed
+("bf16_sw128", under a cache key of their own); counted in
+``wavenet_body_lanes.launches_bf16mm``. ``wavenet_body_planes_torch`` with
+``parts=1`` is that scheme in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -259,11 +263,11 @@ def pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b,
     f32) or K1b ("lanes": one product per lane) reads them. ``fmt``
     (default: "split" for f32 weights, "bf16_sw128" for bf16 ones, the bf16
     core's) is "tf32" for the mixed entry points (bf16 weights as TF32 with
-    no lo part) and "bf16" for K1b's ``bf16_matmul`` (f32 weights rounded to
-    bf16). The biases take ``bias_dtype`` (default: their own; float32 for
-    the mixed entry points) but for that f32 sum."""
+    no lo part) and "bf16_sw128" for K1b's ``bf16_matmul`` too (f32 weights
+    rounded to bf16). The biases take ``bias_dtype`` (default: their own;
+    float32 for the mixed entry points) but for that f32 sum."""
     if fmt is None:
-        fmt = gemm_cache.fmt_of(conv_w.dtype, bf16_core=True)
+        fmt = gemm_cache.fmt_of(conv_w.dtype)
     d = conv_w.shape[-1]
     d_p = _round_up(d, gemm_cache.chunk_of(fmt))
     if d_p != d:
@@ -296,9 +300,11 @@ def wavenet_body_packed_torch(x, film, weights: WavenetWeights, route: str):
     added in order ("lanes", K1b); at the padded width, cut back. Equal to
     ``wavenet_body_torch`` up to f32 reordering: the check of the padding,
     the packed layout and the dilated taps on the CPU. Weights packed
-    "bf16_sw128" (bf16) run ``wavenet_body_planes_torch``."""
+    "bf16_sw128" run ``wavenet_body_planes_torch``: three planes a lane on
+    bf16 x, one (``bf16_matmul``) on f32 x."""
     if weights.fmt == "bf16_sw128":
-        return wavenet_body_planes_torch(x, film, weights, route)[0]
+        parts = 3 if x.dtype == torch.bfloat16 else 1
+        return wavenet_body_planes_torch(x, film, weights, route, parts=parts)[0]
     b, n, d = x.shape
     d_p = weights.d
     x, film = pad_wavenet_inputs(x, film, d_p)
@@ -344,16 +350,21 @@ def split3(v):
     return hi, mid, (rest - mid.float()).to(torch.bfloat16)
 
 
-def wavenet_body_planes_torch(x, film, weights: WavenetWeights, route: str):
-    """The bf16 kernels' launches in plain PyTorch (weights packed
-    "bf16_sw128"; x and FiLM bf16): every lane carried as its three bf16
-    planes (``split3``), each block the three parts' products with its
-    interleaved B, lo first, summed in f32 (each product exact: a part and a
-    bf16 weight), the gate in f32 on the bf16 biases and FiLM, the skips
-    over the last stack's planes (``route`` "stack": the lanes side by side,
-    the biases' f32 sum; "lanes": lane by lane into an f32 sum), the output
-    rounded once to bf16. Returns (out [b, n, d] bf16, the last stack's f32
-    lanes hi + mid + lo [L, b, n, d_p])."""
+def wavenet_body_planes_torch(x, film, weights: WavenetWeights, route: str, *, parts: int = 3):
+    """The bf16 core's WaveNet launches in plain PyTorch (weights packed
+    "bf16_sw128"): every lane carried as ``parts`` bf16 planes, each block
+    the parts' products with its interleaved B, lo first, summed in f32, the
+    gate in f32, the skips over the last stack's planes (``route`` "stack":
+    the lanes side by side, the biases' f32 sum; "lanes": lane by lane into
+    an f32 sum). ``parts`` 3 (K1, K1b in bf16; x and FiLM bf16): the planes
+    are ``split3`` of the f32 lane, each product exact (a part and a bf16
+    weight), the biases and FiLM bf16, the output rounded once to bf16.
+    ``parts`` 1 (K1b's ``bf16_matmul``; x, FiLM and the biases f32): the
+    plane is the lane rounded to bf16 (and x too), the output f32. Returns
+    (out [b, n, d], the last stack's lanes as the planes' f32 sum [L, b, n,
+    d_p])."""
+    if parts not in (1, 3):
+        raise ValueError(f"wavenet_body_planes_torch: parts must be 3 or 1, got {parts}")
     b, n, d = x.shape
     d_p = weights.d
     x, film = pad_wavenet_inputs(x, film, d_p)
@@ -361,45 +372,48 @@ def wavenet_body_planes_torch(x, film, weights: WavenetWeights, route: str):
     S, L = weights.blocks.shape[:2]
     bt = _dense(weights.blocks, 2 * d_p, 3 * d_p, weights.fmt).float()
     conv_b, res_b = weights.conv_b.float(), weights.res_b.float()
+    split = split3 if parts == 3 else (lambda v: (v.to(torch.bfloat16),))
+    x_planes = (x.to(torch.bfloat16),)
 
-    def block(parts, s, l):
+    def block(planes, s, l):
         dil = 2**l
         y = 0
-        for part in reversed(parts):  # lo first
+        for part in reversed(planes):  # lo first
             a = part.float()
             y = y + torch.cat([_shift(a, 2 * dil), _shift(a, dil), a], dim=-1) @ bt[s, l].T
         y = y.reshape(b, n, d_p // KERNEL_ALIGN, 2, KERNEL_ALIGN)
         conv, res = (y[..., i, :].reshape(b, n, d_p) for i in (0, 1))
         f = film[:, s, l, None]
         conv = (conv + conv_b[s, l]) * f[..., :d_p] + f[..., d_p:]
-        return split3(torch.tanh(conv) * torch.sigmoid(conv) + res + res_b[s, l])
+        return split(torch.tanh(conv) * torch.sigmoid(conv) + res + res_b[s, l])
 
     def lanes_of(planes):
-        return torch.stack([sum(p.float() for p in reversed(parts)) for parts in planes])
+        return torch.stack([sum(p.float() for p in reversed(lane)) for lane in planes])
 
     if route == "stack":
-        planes = [(x,)] * L
+        planes = [x_planes] * L
         for s in range(S):
             planes = [block(planes[l], s, l) for l in range(L)]
         skip = _dense(weights.skip, d_p, L * d_p, weights.fmt).float()
         acc = 0
-        for q in (2, 1, 0):  # lo first
+        for q in reversed(range(parts)):  # lo first
             acc = acc + torch.cat([p[q].float() for p in planes], dim=-1) @ skip.T
         out = acc + weights.skip_b
     else:
         skip = _dense(weights.skip, d_p, d_p, weights.fmt).float()
         planes, out = [], None
         for l in range(L):
-            parts = (x,)
+            lane = x_planes
             for s in range(S):
-                parts = block(parts, s, l)
-            planes.append(parts)
+                lane = block(lane, s, l)
+            planes.append(lane)
             term = 0
-            for q in (2, 1, 0):
-                term = term + parts[q].float() @ skip[l].T
+            for q in reversed(range(parts)):
+                term = term + lane[q].float() @ skip[l].T
             term = term + weights.skip_b[l].float()
             out = term if out is None else term + out
-    return out[..., :d].to(torch.bfloat16), lanes_of(planes)
+    out = out[..., :d]
+    return out.to(torch.bfloat16) if parts == 3 else out, lanes_of(planes)
 
 
 # Lanes a launch of K1b's bf16 blocks (``csrc/wavenet_lane.cu``:
@@ -410,31 +424,31 @@ BF16_CHUNK = gemm_cache.SW128_CHUNK
 
 
 def split_taps_at(kc: int, t0: int, bi: int, *, w: int, per_lane: int, lane0: int, parts: int,
-                  b_block0: int):
+                  shared: bool, b_block0: int):
     """The twin of the bf16 core's ``SplitTaps::at`` (``csrc/gemm_bf16.cuh``):
     chunk ``kc`` of a block's A for the row tile from t0 of the grid's
     sequence bi is the box of BF16_CHUNK channels from c, rows t onward, of
-    plane ``part`` of the planes' sequence ``seq`` ([G·b, 3, n, w]; for x,
-    ``parts`` 1, its batch row), the parts lo first. Returns ((c, t, part,
-    seq), the chunk of the packed blocks it multiplies)."""
+    plane ``part`` of the planes' sequence ``seq`` ([G·b, parts, n, w]; for
+    x, ``shared`` and one part, its batch row), the parts lo first. Returns
+    ((c, t, part, seq), the chunk of the packed blocks it multiplies)."""
     per_part = 3 * w // BF16_CHUNK
     p, kb = divmod(kc, per_part)
     k = kb * BF16_CHUNK
     tap, lane = k // w, bi // per_lane
-    seq = bi - lane * per_lane if parts == 1 else bi
+    seq = bi - lane * per_lane if shared else bi
     return (k - tap * w, t0 - ((2 - tap) << (lane0 + lane)), parts - 1 - p, seq), \
         b_block0 + lane * per_part + kb
 
 
-def split_lanes_at(kc: int, t0: int, bi: int, *, batch: int, w: int, lanes: int, slot0: int,
-                   b_chunk0: int):
+def split_lanes_at(kc: int, t0: int, bi: int, *, batch: int, w: int, lanes: int, parts: int,
+                   slot0: int, b_chunk0: int):
     """The twin of ``SplitLanes::at``: chunk ``kc`` of the skips' A
-    (K = 3 parts · lanes · w, lo first) as ``split_taps_at`` returns it."""
+    (K = parts · lanes · w, lo first) as ``split_taps_at`` returns it."""
     per_part = lanes * w // BF16_CHUNK
     p, kb = divmod(kc, per_part)
     k = kb * BF16_CHUNK
     lane = k // w
-    return (k - lane * w, t0, 2 - p, (slot0 + lane) * batch + bi), b_chunk0 + kb
+    return (k - lane * w, t0, parts - 1 - p, (slot0 + lane) * batch + bi), b_chunk0 + kb
 
 
 def scratch(b: int, n: int, d_p: int, L: int, route: str, dtype: torch.dtype, device):
@@ -442,8 +456,14 @@ def scratch(b: int, n: int, d_p: int, L: int, route: str, dtype: torch.dtype, de
     f32 and mixed the f32 lanes' ping-pong pair ([L, b, n, d_p] each for K1,
     [b, n, d_p] for K1b); in bf16 the planes' pair ([L·b, 3, n, d_p] bf16
     for K1, [LANE_GROUP·b, 3, n, d_p] for K1b) and, for K1b, the skips' f32
-    sum [b, n, d_p]."""
-    if dtype == torch.bfloat16:
+    sum [b, n, d_p]; for ``route`` "bf16mm" (K1b's ``bf16_matmul``, f32 x,
+    whatever ``dtype``) x rounded to bf16 [b, n, d_p] and the one-plane
+    pair [LANE_GROUP·b, 1, n, d_p] bf16."""
+    bf16 = torch.bfloat16
+    if route == "bf16mm":
+        planes = torch.empty((2, LANE_GROUP * b, 1, n, d_p), dtype=bf16, device=device)
+        return [torch.empty((b, n, d_p), dtype=bf16, device=device), planes[0], planes[1]]
+    if dtype == bf16:
         lanes = LANE_GROUP if route == "lanes" else L
         planes = torch.empty((2, lanes * b, 3, n, d_p), dtype=dtype, device=device)
         if route == "lanes":
@@ -503,7 +523,7 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     _build.require_shapes("wavenet_body", conv_w=(conv_w, (S, L, 3 * d, d)),
                           film=(film, (b, S, L, 2 * d)))
     bias_dtype = torch.float32 if mixed else None
-    fmt = gemm_cache.fmt_of(x.dtype, conv_w.dtype, bf16_core=True)
+    fmt = gemm_cache.fmt_of(x.dtype, conv_w.dtype)
     wt = gemm_cache.cached(f"wavenet_body {route} {mixed}",
                            lambda *w: _pack_checked(*w, route, bias_dtype, fmt),
                            conv_w, conv_b, res_w, res_b, skip_w, skip_b)
@@ -528,7 +548,8 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
 
 def _forward_bf16mm(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     """K1b with ``bf16_matmul`` on f32 tensors: ``ns2_wavenet_lanes_bf16mm``
-    on a card, ``wavenet_body_lanes_bf16mm_torch`` on the CPU."""
+    on a card (the bf16 core, one plane a lane, S·L / LANE_GROUP + L + 1
+    launches), ``wavenet_body_lanes_bf16mm_torch`` on the CPU."""
     args = (x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
     bad = {t.dtype for t in args} - {torch.float32}
     if bad:
@@ -542,7 +563,7 @@ def _forward_bf16mm(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     _build.require_shapes("wavenet_body_lanes", conv_w=(conv_w, (S, L, 3 * d, d)),
                           film=(film, (b, S, L, 2 * d)))
     wt = gemm_cache.cached("wavenet_body lanes bf16mm",
-                           lambda *w: _pack_checked(*w, "lanes", None, "bf16"),
+                           lambda *w: _pack_checked(*w, "lanes", None, "bf16_sw128"),
                            conv_w, conv_b, res_w, res_b, skip_w, skip_b)
     if conv_w.device != x.device:
         raise ValueError(f"wavenet_body_lanes: the weights are on {conv_w.device}, x on {x.device}")
@@ -550,12 +571,12 @@ def _forward_bf16mm(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     if d_p != d:
         x, film = pad_wavenet_inputs(x, film, d_p)
     out = torch.empty((b, n, d_p), dtype=torch.float32, device=x.device)
-    lanes = torch.empty((2, b, n, d_p), dtype=torch.float32, device=x.device)
+    state = scratch(b, n, d_p, L, "bf16mm", x.dtype, x.device)
     entry = "ns2_wavenet_lanes_bf16mm"
     err = getattr(_build.library(), entry)(
         x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
-        wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(), lanes[0].data_ptr(),
-        lanes[1].data_ptr(), out.data_ptr(), b, n, d_p, S, L, _build.stream(x),
+        wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(), *(t.data_ptr() for t in state),
+        out.data_ptr(), b, n, d_p, S, L, _build.stream(x),
     )
     _build.check(err, entry)
     wavenet_body_lanes.launches_bf16mm += 1
@@ -602,7 +623,10 @@ def wavenet_body_lanes(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film,
     only), counted in ``wavenet_body_lanes.launches_bf16mm``; its backward
     is the vjp of ``wavenet_body_lanes_bf16mm_torch``."""
     route = "bf16mm" if bf16_matmul else "lanes"
-    return _WavenetBody.apply(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
+    args = (x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _WavenetBody.apply(route, *args)
+    return _forward(route, *args)  # no graph to record: the autograd Function's overhead spared
 
 
 wavenet_body.launches = wavenet_body.launches_bf16 = wavenet_body.launches_mixed = 0

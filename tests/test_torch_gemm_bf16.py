@@ -191,7 +191,7 @@ def test_ff_scratch_holds_the_normed_rows(dm, inner, dtype):
     writes n(x) there before the conv overwrites it. The two do not
     overlap."""
     b, n = 2, 24
-    fmt = gemm_cache.fmt_of(dtype, bf16_core=True)
+    fmt = gemm_cache.fmt_of(dtype)
     ip = gemm_cache.round_up(inner, gemm_cache.chunk_of(fmt))
     a, c = fk.scratch(b, n, dm, ip, dtype, "cpu")
     c_row = max(ip, gemm_cache.round_up(dm, CHUNK)) if dtype == torch.bfloat16 else ip
@@ -221,3 +221,51 @@ def test_attn_block_packed_bf16_matches_jax(dm, heads, dim_head):
     assert all(p.shape[-1] == CHUNK for p in packed)
     _hold(ak.attn_block_packed_torch(*t[:3], packed, heads=heads, scale=dim_head**-0.5),
           expected)
+
+
+@pytest.mark.parametrize("dm, dc, heads, dim_head", [(40, 20, 2, 64), (160, 36, 2, 8),
+                                                     (16, 24, 2, 8)],
+                         ids=["dm40-dc20", "dm160-over-hd", "16-24"])
+def test_cross_attn_block_packed_bf16_matches_jax(dm, dc, heads, dim_head):
+    """K2b's packed plain path on "bf16_sw128" against `_cross_attn_block_kernel`
+    at bf16: a ragged dm (40, padded to 64), contexts of dc 20 and 36 (not
+    multiples of 8: the kernel copies such rows for TMA), and dm 160 (padded
+    to 192) wider than the heads' 2 · 64 (heads of 8 padded to K4's 64)."""
+    hd = heads * dim_head
+    rng = np.random.default_rng(50 + dm + dc)
+    arrays = (normal(rng, 2, 16, dm), normal(rng, 2, 8, dc), 1 + normal(rng, 2, dm, scale=0.1),
+              normal(rng, 2, dm, scale=0.1), normal(rng, dm, hd, scale=dm**-0.5),
+              normal(rng, dc, 2 * hd, scale=dc**-0.5), normal(rng, hd, dm, scale=hd**-0.5))
+    j = [jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays]
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+    x, ctx, g, b, wq, wkv, wo = j
+    wk, wv = jnp.split(wkv, 2, axis=-1)
+    to_heads = lambda w: w.reshape(w.shape[0], heads, dim_head).transpose(1, 0, 2)  # noqa: E731
+    expected = jattn._cross_fused_forward(x, ctx, g, b, to_heads(wq), to_heads(wk), to_heads(wv),
+                                          wo.reshape(heads, dim_head, dm), scale=dim_head**-0.5)
+    packed = ak.pack_cross_weights(*t[4:], heads, dim_head, "bf16_sw128")
+    assert all(p.shape[-1] == CHUNK for p in packed)
+    _hold(ak.cross_attn_block_packed_torch(*t[:4], packed, heads=heads, scale=dim_head**-0.5),
+          expected)
+
+
+@pytest.mark.parametrize("dm, dc, heads, dh", [(128, 128, 8, 64), (512, 128, 4, 64),
+                                               (40, 20, 2, 64), (96, 100, 1, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cross_scratch_holds_the_normed_rows(dm, dc, heads, dh, dtype):
+    """K2b's scratch: q [b, H, n, dh]; in bf16 o holds max(H·dh, dm padded
+    to 64) values a row, since the norm pre-pass writes n(x) there before K4
+    overwrites it (dm 512 against 4 heads of 64: a tensor-parallel rank's),
+    and kv has room after its two planes for the context at a row of dc
+    rounded up to 8, 16-byte aligned for TMA; in f32 kv and o are K4's
+    [2, b, H, m, dh] and [b, H, n, dh]."""
+    b, n, m = 2, 24, 32
+    q, kv, o = ak.cross_scratch(b, n, m, dm, dc, heads, dh, dtype, "cpu")
+    assert q.shape == (b, heads, n, dh) and q.dtype == kv.dtype == o.dtype == dtype
+    if dtype == torch.bfloat16:
+        plane = b * heads * m * dh
+        assert o.numel() == b * n * max(heads * dh, gemm_cache.round_up(dm, CHUNK))
+        assert kv.numel() == 2 * plane + b * m * gemm_cache.round_up(dc, 8)
+        assert (kv.data_ptr() + 2 * plane * kv.element_size()) % 16 == 0
+    else:
+        assert kv.shape == (2, b, heads, m, dh) and o.shape == q.shape

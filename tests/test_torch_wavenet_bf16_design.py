@@ -1,11 +1,13 @@
-"""The design of K1's and K1b's bf16 kernels (csrc/wavenet.cu,
-csrc/wavenet_lane.cu on the bf16 GEMM core csrc/gemm_bf16.cuh), held on
-the CPU through torch models of their layouts and arithmetic: the
-three-part split of an f32 lane into bf16 planes, the "bf16_sw128" packing
-of the blocks and skips, the coordinates of the split, dilated tap loader
-(`SplitTaps`) and of the skips' loader (`SplitLanes`), and the
-planes-and-parts body against the JAX package's Pallas kernels at bf16
-(`_fused_forward`, `_fused_forward_per_lane`, interpret mode).
+"""The design of K1's and K1b's bf16 kernels and of K1b's `bf16_matmul`
+(csrc/wavenet.cu, csrc/wavenet_lane.cu on the bf16 GEMM core
+csrc/gemm_bf16.cuh), held on the CPU through torch models of their layouts
+and arithmetic: the three-part split of an f32 lane into bf16 planes, the
+"bf16_sw128" packing of the blocks and skips, the coordinates of the split,
+dilated tap loader (`SplitTaps`) and of the skips' loader (`SplitLanes`),
+with three planes a lane or one (`bf16_matmul`), and the planes-and-parts
+body against the JAX package's Pallas kernels at bf16 (`_fused_forward`,
+`_fused_forward_per_lane`, interpret mode) and, with one part, against
+`_fused_forward_per_lane(..., bf16_matmul=True)` in f32.
 
 These hold torch models of the kernel, not the kernel: no CUDA code runs
 here, so a change to the .cu or .cuh sources cannot fail them. The kernels
@@ -152,14 +154,16 @@ def _tile_rows(got, want, t0):
 
 
 @pytest.mark.parametrize("lanes", ["stack", "lanes"])
-@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("parts,first", [(3, False), (1, True), (1, False)],
+                         ids=["False", "True", "one-plane"])
 @pytest.mark.parametrize("d_p", [64, 128])
-def test_split_taps_loader_is_the_shifted_concatenation(d_p, first, lanes):
+def test_split_taps_loader_is_the_shifted_concatenation(d_p, parts, first, lanes):
     """(c) ``split_taps_at``, the twin of ``SplitTaps::at``: each row tile's
-    A assembled from boxes of the planes [G·b, 3, n, d_p] (or of x, one
-    part, in the first stack) is the three parts' [x_{t−2δ} | x_{t−δ} |
-    x_t], lo first, zeros before t = 0, at δ up to 128 with n < 2δ and n %
-    128 != 0; each part's chunks multiply the chunks of their lane's block."""
+    A assembled from boxes of the planes [G·b, parts, n, d_p] (three, or
+    `bf16_matmul`'s one) or of x (one part, every lane's, in the first
+    stack) is the parts' [x_{t−2δ} | x_{t−δ} | x_t], lo first, zeros before
+    t = 0, at δ up to 128 with n < 2δ and n % 128 != 0; each part's chunks
+    multiply the chunks of their lane's block."""
     rng = np.random.default_rng(223)
     b, n, S, L = 2, 200, 2, 8
     s = 1
@@ -167,9 +171,9 @@ def test_split_taps_loader_is_the_shifted_concatenation(d_p, first, lanes):
         lane0, group = 0, L
     else:  # K1b: lanes 6 and 7 in one launch
         lane0, group = 6, 2
-    planes = torch.from_numpy(normal(rng, group * b, 3, n, d_p)).to(torch.bfloat16)
+    planes = torch.from_numpy(normal(rng, group * b, parts, n, d_p)).to(torch.bfloat16)
     x = torch.from_numpy(normal(rng, b, 1, n, d_p)).to(torch.bfloat16)
-    src, parts = (x, 1) if first else (planes, 3)
+    src = x if first else planes
     per_part = 3 * d_p // wk.BF16_CHUNK
     b_block0 = (s * L + lane0) * per_part
     for bi in range(group * b):
@@ -186,7 +190,8 @@ def test_split_taps_loader_is_the_shifted_concatenation(d_p, first, lanes):
             got, chunks = [], []
             for kc in range(parts * per_part):
                 (c, row, part, sq), kb = wk.split_taps_at(
-                    kc, t0, bi, w=d_p, per_lane=b, lane0=lane0, parts=parts, b_block0=b_block0)
+                    kc, t0, bi, w=d_p, per_lane=b, lane0=lane0, parts=parts, shared=first,
+                    b_block0=b_block0)
                 got.append(_box(src, c, row, part, sq))
                 chunks.append(kb)
             assert torch.equal(*_tile_rows(torch.cat(got, dim=-1), want, t0))
@@ -194,36 +199,40 @@ def test_split_taps_loader_is_the_shifted_concatenation(d_p, first, lanes):
             assert chunks == [block + kc % per_part for kc in range(parts * per_part)]
 
 
-@pytest.mark.parametrize("lanes,slot0", [(8, 0), (1, 0), (1, 1)])
-def test_split_lanes_loader_is_the_lanes_side_by_side(lanes, slot0):
+@pytest.mark.parametrize("lanes,slot0,parts", [(8, 0, 3), (1, 0, 3), (1, 1, 3), (1, 1, 1)],
+                         ids=["8-0", "1-0", "1-1", "1-1-one-plane"])
+def test_split_lanes_loader_is_the_lanes_side_by_side(lanes, slot0, parts):
     """(c) ``split_lanes_at``, the twin of ``SplitLanes::at``: the skips'
     A is the lanes' planes side by side, lo first (K1: every lane; K1b: one
-    lane, at its place in the planes), and each part's chunks run over the
-    lanes' skips."""
+    lane, at its place in the planes; `bf16_matmul`: one plane a lane), and
+    each part's chunks run over the lanes' skips."""
     rng = np.random.default_rng(224)
     b, n, d_p = 2, 300, 128
     slots = max(lanes, slot0 + 1)
-    planes = torch.from_numpy(normal(rng, slots * b, 3, n, d_p)).to(torch.bfloat16)
+    planes = torch.from_numpy(normal(rng, slots * b, parts, n, d_p)).to(torch.bfloat16)
     per_part = lanes * d_p // wk.BF16_CHUNK
     b_chunk0 = 5 * d_p // wk.BF16_CHUNK
     for bi in range(b):
         want = torch.cat([torch.cat([planes[(slot0 + l) * b + bi, q] for l in range(lanes)],
-                                    dim=-1) for q in (2, 1, 0)], dim=-1)
+                                    dim=-1) for q in reversed(range(parts))], dim=-1)
         for t0 in range(0, n, TILE):
             got, chunks = [], []
-            for kc in range(3 * per_part):
+            for kc in range(parts * per_part):
                 (c, row, part, seq), kb = wk.split_lanes_at(
-                    kc, t0, bi, batch=b, w=d_p, lanes=lanes, slot0=slot0, b_chunk0=b_chunk0)
+                    kc, t0, bi, batch=b, w=d_p, lanes=lanes, parts=parts, slot0=slot0,
+                    b_chunk0=b_chunk0)
                 got.append(_box(planes, c, row, part, seq))
                 chunks.append(kb)
             assert torch.equal(*_tile_rows(torch.cat(got, dim=-1), want, t0))
-            assert chunks == [b_chunk0 + kc % per_part for kc in range(3 * per_part)]
+            assert chunks == [b_chunk0 + kc % per_part for kc in range(parts * per_part)]
 
 
 # (route, b, n, d, S, L): d 96 pads to 128; n 260 holds the last lanes' 2δ
 # = 256 taps; n % 128 != 0
 BODY_CASES = [("stack", 2, 100, 64, 2, 3), ("stack", 1, 130, 96, 2, 5),
               ("lanes", 1, 260, 96, 2, 8), ("lanes", 3, 40, 64, 2, 4)]
+# K1b's `bf16_matmul` (one plane a lane, f32 in and out), as "lanes"
+BF16MM_CASES = [("bf16mm", 1, 260, 96, 2, 8), ("bf16mm", 3, 40, 64, 2, 4)]
 
 
 def _f32_lanes(args, route):
@@ -238,24 +247,43 @@ def _f32_lanes(args, route):
     return torch.stack(lanes)
 
 
-@pytest.mark.parametrize("case", BODY_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", BODY_CASES + BF16MM_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
 def test_planes_body_matches_pallas_bf16(case):
     """(d) the planes-and-parts body, through both routes' packing, against
-    JAX's `_fused_forward` / `_fused_forward_per_lane` at bf16."""
+    JAX's `_fused_forward` / `_fused_forward_per_lane` at bf16; with one
+    part ("bf16mm": f32 x, weights and FiLM, the weights packed
+    "bf16_sw128") against `_fused_forward_per_lane(..., bf16_matmul=True)`
+    and the plain ``wavenet_body_lanes_bf16mm_torch``, which round the same
+    operands: both within BF16_TOL, the gap to the plain version printed."""
     route, b, n, d, S, L = case
     arrays = _wavenet_arrays(225, b, n, d, S, L)
-    targs = _bf16(*arrays)
-    jax_fn = jwn._fused_forward if route == "stack" else jwn._fused_forward_per_lane
-    expected = np.asarray(jax_fn(*[jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays]),
-                          dtype=np.float32)
-    wt = wk.pack_wavenet_weights(*targs[1:7], route)
-    out, _ = wk.wavenet_body_planes_torch(targs[0], targs[7], wt, route)
-    assert out.dtype == torch.bfloat16 and out.shape == (b, n, d)
+    if route == "bf16mm":
+        targs = [torch.from_numpy(a) for a in arrays]
+        expected = np.asarray(jwn._fused_forward_per_lane(
+            *[jnp.asarray(a) for a in arrays], bf16_matmul=True), dtype=np.float32)
+        wt = wk.pack_wavenet_weights(*targs[1:7], "lanes", fmt="bf16_sw128")
+        out, _ = wk.wavenet_body_planes_torch(targs[0], targs[7], wt, "lanes", parts=1)
+        assert out.dtype == torch.float32 and out.shape == (b, n, d)
+        plain = wk.wavenet_body_lanes_bf16mm_torch(*targs)
+        gap = ((out - plain).abs().max() / plain.abs().max()).item()
+        print(f"one-plane body against the plain bf16_matmul version: {gap:.3e} of its largest "
+              f"entry")
+        assert gap <= BF16_TOL
+        assert torch.equal(wk.wavenet_body_packed_torch(targs[0], targs[7], wt, "lanes"), out)
+    else:
+        targs = _bf16(*arrays)
+        jax_fn = jwn._fused_forward if route == "stack" else jwn._fused_forward_per_lane
+        expected = np.asarray(jax_fn(*[jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays]),
+                              dtype=np.float32)
+        wt = wk.pack_wavenet_weights(*targs[1:7], route)
+        out, _ = wk.wavenet_body_planes_torch(targs[0], targs[7], wt, route)
+        assert out.dtype == torch.bfloat16 and out.shape == (b, n, d)
+        assert torch.equal(wk.wavenet_body_packed_torch(targs[0], targs[7], wt, route), out)
     got = out.float().numpy()
     assert np.isfinite(got).all()
     err = np.abs(got - expected).max() / np.abs(expected).max()
     assert err <= BF16_TOL, f"max error {err:.3e} of the largest entry, above {BF16_TOL}"
-    assert torch.equal(wk.wavenet_body_packed_torch(targs[0], targs[7], wt, route), out)
 
 
 @pytest.mark.parametrize("case", BODY_CASES, ids=lambda c: "-".join(map(str, c)))
@@ -275,15 +303,22 @@ def test_planes_body_lanes_are_the_f32_lanes(case):
     assert err <= LANES_RTOL, f"lanes off by {err:.3e} of the largest entry"
 
 
-@pytest.mark.parametrize("route", ["stack", "lanes"])
+@pytest.mark.parametrize("route", ["stack", "lanes", "bf16mm"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_scratch_holds_the_planes(route, dtype):
-    """The wrapper's scratch: in bf16 two plane buffers [lanes·b, 3, n, d_p]
-    (L lanes for K1, LANE_GROUP for K1b) and K1b's f32 sum of the skips; in
-    f32 the f32 lanes' pair."""
+    """The wrapper's scratch, in the C entry's argument order: in bf16 two
+    plane buffers [lanes·b, 3, n, d_p] (L lanes for K1, LANE_GROUP for K1b)
+    and K1b's f32 sum of the skips; in f32 the f32 lanes' pair; for
+    `bf16_matmul` ("bf16mm", whatever the dtype) x's bf16 copy [b, n, d_p]
+    and two one-plane buffers [LANE_GROUP·b, 1, n, d_p], 16-byte aligned for
+    TMA."""
     b, n, d_p, L = 2, 50, 64, 4
     got = wk.scratch(b, n, d_p, L, route, dtype, "cpu")
-    if dtype == torch.bfloat16:
+    if route == "bf16mm":
+        assert [t.shape for t in got] == [(b, n, d_p)] + [(wk.LANE_GROUP * b, 1, n, d_p)] * 2
+        assert all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in got)
+        assert all(t.data_ptr() % 16 == 0 for t in got)
+    elif dtype == torch.bfloat16:
         lanes = L if route == "stack" else wk.LANE_GROUP
         assert [t.shape for t in got[:2]] == [(lanes * b, 3, n, d_p)] * 2
         assert all(t.dtype == torch.bfloat16 for t in got[:2])
