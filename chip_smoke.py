@@ -574,6 +574,12 @@ PEAK_F32_FLOPS, THREEFRY_OPS = 67e12, 75
 AMP_FUSED_FRAMES = 160
 AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_GRAD_CORR = 2e-2, 5e-2, 0.99
 AMP_FLOOR_DRAWS, AMP_FLOOR_FACTOR = 5, 6.0
+# K1 mixed at a width off 64 (padded to 128), (b, n, d); K6 bf16 (m, Q, K,
+# d) at a ragged shape (m off the row tile, K and d off 64) and at a d off
+# 8, whose rows TMA cannot read (x copied first)
+AMP_K1_PADDED = (2, 200, 96)
+AMP_RVQ_RAGGED = (510, 4, 1000, 72)
+AMP_RVQ_COPIED = (130, 4, 1000, 70)
 
 # Few-step sampling (phases 31-35). Phase 31: K1b's `bf16_matmul` option at
 # the JAX probe's shape (b16 x n1024 x d512, 4 x 8; examples/
@@ -2668,13 +2674,18 @@ def check_bf16_core(phase: str) -> None:
                                  f"split-TF32 core's {old} launched")
 
 
-def profile_counts(fn, attempts: int = 3) -> dict:
+def profile_counts(fn, attempts: int = 3, short=None) -> dict:
     """{device kernel name: launches} of one call of ``fn`` (torch.profiler,
-    after one warm-up call). A session that records no device activity at
-    all (seen now and then late in a whole run of this script, never in 150
-    sessions of a process that did nothing else; PERF.md) is made again,
-    logged, up to ``attempts`` sessions; the caller's check then fails on
-    what the last one saw."""
+    after one warm-up call). A session that lost events is made again,
+    logged, up to ``attempts`` sessions: one that recorded no device
+    activity at all (seen now and then late in a whole run of this script,
+    never in 150 sessions of a process that did nothing else; PERF.md), or,
+    with ``short``, one in which ``short`` finds only expected kernels, none
+    launched more often than expected and some less (a session late in a
+    whole run once lost the launch of a split pre-pass that the same call's
+    sessions in other runs recorded; PERF.md). Any other session is
+    returned as it is, an unexpected kernel or launch included, for the
+    caller's check to fail on; after ``attempts`` the last one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2687,9 +2698,10 @@ def profile_counts(fn, attempts: int = 3) -> dict:
             fn()
             torch.cuda.synchronize()
         counts = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-        if counts:
+        if counts and not (short and short(counts)):
             return counts
-        log("profile", f"session {attempt + 1} of {attempts} recorded no device activity")
+        log("profile", f"session {attempt + 1} of {attempts} recorded "
+                       + ("no device activity" if not counts else f"fewer launches: {counts}"))
     return counts
 
 
@@ -3555,7 +3567,8 @@ def _amp_rvq_case(gen, m, phase: str, num_q=8, size=1024, d=128) -> dict:
     kernel = lambda: rvq_ops.rvq(x, cb)  # noqa: E731
     ms, f32_ms, plain_ms = (cuda_ms(f) for f in (kernel, lambda: rvq_ops.rvq(x32, cb32),
                                                  lambda: rvq_ops.rvq_bf16_torch(x, cb)))
-    work = bound_bf16(2 * num_q * m * size * d, nbytes(x, cb, q, codes), f32_lanes=True)
+    # stage 0 multiplies bf16 x by bf16 codes, one pass; the f32 residual after it three
+    work = bound_bf16(2 * m * size * d * (1 + 3 * (num_q - 1)), nbytes(x, cb, q, codes))
     log(phase, f"rvq bf16 [{m},{d}]: kernel {ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, plain bf16 "
                f"{plain_ms:.4f} ms (median of 20), bound {work['bound_ms']:.4f} ms "
                f"({work['bound_by']})")
@@ -3626,12 +3639,15 @@ def phase27_amp_kernels(bf16_summary: list) -> list:
     dropout 0.2 (keep masks bit for bit against the f32 kernel's), K5 in
     bf16 at [16, 8, 150, 64] and [4, 8, 1024, 64] causal and masked, beside
     SDPA in bf16; K6 on bf16 x and codebooks at m 2400 and 1632 (Q 8, K
-    1024, d 128) against the f32 kernel on the widened values; the mixed
-    K1 at [16, 150, 128] and K2, K3 and K2b at [16, 160, 128] (f32
-    activations against bf16 weights) against the f32 plain versions on
-    the widened weights (WAVENET_TOL, BLOCK_TOL), timed beside the f32
-    kernels on the same values. Adds the bf16 dropout shape to phase 22's
-    bf16 K4 row; returns the new rows (bf16 K5 and K6, the mixed entries)."""
+    1024, d 128), AMP_RVQ_RAGGED and AMP_RVQ_COPIED against the f32 kernel
+    on the widened values; the mixed K1 at [16, 150, 128], [16, 160,
+    128] and [2, 200, 96], and K2, K3 and K2b at [16, 160, 128] (f32
+    activations against bf16 weights) against the f32 plain versions on the
+    widened weights (WAVENET_TOL, BLOCK_TOL), timed beside the f32 kernels
+    on the same values; K1b mixed at [1, 6733, 128] (on no AMP path) held and
+    timed likewise, logged. Adds the bf16 dropout shape to phase 22's bf16
+    K4 row; returns the new rows (bf16 K5 and K6, the mixed entries). The
+    profiles of K1 mixed and K6 bf16 run early (``check_amp_bf16_cores``)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 270)
@@ -3654,17 +3670,21 @@ def phase27_amp_kernels(bf16_summary: list) -> list:
     rvq_row = _amp_entry("rvq", "bfloat16", "rvq.cu", "rvq.py:60")
     for m in (TRAIN_BATCH * int(TRAIN_SECONDS * 24000) // 320, CT_BATCH * p):
         _add_shape(rvq_row, f"m {m}", _amp_rvq_case(gen, m, "27"))
+    for m, num_q, size, d in (AMP_RVQ_RAGGED, AMP_RVQ_COPIED):
+        _add_shape(rvq_row, f"m {m} Q{num_q} K{size} d{d}",
+                   _amp_rvq_case(gen, m, "27", num_q=num_q, size=size, d=d))
 
     rows = {}
     sources = {"wavenet_body": ("wavenet.cu", "wavenet_kernel.py:80"),
                "attn_block": ("attn_block.cu", "attn_block_kernel.py:92"),
                "ff_block": ("ff_block.cu", "ff_block_kernel.py:97"),
                "cross_attn_block": ("cross_attn_block.cu", "attn_block_kernel.py:237")}
-    for (bb, n), names in (((CT_BATCH, CT_FRAMES), ("wavenet_body",)),
-                           ((CT_BATCH, AMP_FUSED_FRAMES), ("attn_block", "ff_block",
-                                                           "cross_attn_block"))):
-        shape = f"[{bb},{n},{DIM}]"
-        for name, kernel, plain, f32_kernel, work, residual in amp_mixed_cases(gen, bb, n, DIM,
+    for bb, n, d, names in ((CT_BATCH, CT_FRAMES, DIM, ("wavenet_body",)),
+                            (CT_BATCH, AMP_FUSED_FRAMES, DIM, ("wavenet_body", "attn_block",
+                                                               "ff_block", "cross_attn_block")),
+                            (*AMP_K1_PADDED, ("wavenet_body",))):
+        shape = f"[{bb},{n},{d}]"
+        for name, kernel, plain, f32_kernel, work, residual in amp_mixed_cases(gen, bb, n, d,
                                                                                 names):
             out = kernel()
             torch.cuda.synchronize()
@@ -3682,14 +3702,91 @@ def phase27_amp_kernels(bf16_summary: list) -> list:
         torch.cuda.empty_cache()
     from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
 
+    # K1b mixed (the split-TF32 core's kSplit2): on no AMP path, held and timed
     wn, _ = wavenet_inputs(gen, 1, RAGGED_LANES, DIM)
     wn = (wn[0], *_bf16(*wn[1:7]), wn[7])
     wide = tuple(t.float() for t in wn)
-    out = wk.wavenet_body_lanes(*wn)
-    hold("27", f"wavenet_body_lanes mixed [1,{RAGGED_LANES},{DIM}] (no AMP path at the "
-               "slice's shapes: held, not timed)", out, wk.wavenet_body_lanes_torch(*wide))
-    del out, wn, wide
+    kernel = lambda: wk.wavenet_body_lanes(*wn)  # noqa: E731
+    plain = lambda: wk.wavenet_body_lanes_torch(*wide)  # noqa: E731
+    out = kernel()
+    label = f"wavenet_body_lanes mixed [1,{RAGGED_LANES},{DIM}] (on no AMP path)"
+    hold("27", label, out, plain())
+    del out
+    S, L = WAVENET_STACKS, WAVENET_LAYERS
+    work = bound_bf16(2 * RAGGED_LANES * DIM * DIM * (S * L * 4 + L),
+                      nbytes(*wn) + RAGGED_LANES * DIM * 4, f32_lanes=True)
+    ms, f32_ms, plain_ms = (cuda_ms(f) for f in (kernel, lambda: wk.wavenet_body_lanes(*wide),
+                                                 plain))
+    log("27", f"{label}: kernel {ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(median of 20), bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
+    del wn, wide
     return [bwd_row, rvq_row, *rows.values()]
+
+
+def check_amp_bf16_cores(phase: str) -> None:
+    """Profiles of the two AMP entry points on the bf16 GEMM core: K1 mixed
+    at [16, 150, 128] (S + 1 launches of the core, the blocks' gate on f32
+    parameters, one split pre-pass of x, no other kernel) and K6 bf16 at m
+    2400 (Q 8, K 1024, d 128), AMP_RVQ_RAGGED and AMP_RVQ_COPIED (Q launches
+    of the core with the ArgMin epilogue, Q updates, a copy of x where d % 8
+    != 0; other kernels, the wrapper's fill of the minima, logged); none of
+    the split-TF32 core's."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import rvq as rvq_ops
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 271)
+    S = WAVENET_STACKS
+    wn, _ = wavenet_inputs(gen, CT_BATCH, CT_FRAMES, DIM)
+    args = (wn[0], *_bf16(*wn[1:7]), wn[7])
+
+    def k1_launches(counts):
+        core = sum(c for k, c in counts.items() if "ns2::bgemm::bf16_gemm_kernel" in k)
+        gates = [k for k in counts if "WaveGateSplit<3, float" in k]
+        splits = sum(c for k, c in counts.items() if "split3_kernel" in k)
+        old = [k for k in counts if "ns2::gemm::" in k]
+        ok = (not old and core == S + 1 and splits == 1 and bool(gates)
+              and sum(counts.values()) == S + 2)
+        short = (core + splits == sum(counts.values()) < S + 2 and core <= S + 1
+                 and splits <= 1)
+        return core, gates, splits, old, ok, short
+
+    counts = profile_counts(lambda: wk._forward("stack", *args),
+                            short=lambda c: k1_launches(c)[-1])
+    core, gates, splits, old, ok, _ = k1_launches(counts)
+    log(phase, f"K1 mixed [{CT_BATCH},{CT_FRAMES},{DIM}] profile: {core} bf16 core launches, "
+               f"{splits} split pre-pass; {[(k[:110], c) for k, c in counts.items()]}")
+    if not ok:
+        raise AssertionError(f"K1 mixed: {core} bf16 core launches (expected {S + 1}), {splits} "
+                             f"split pre-passes (1), f32-parameter gates {gates}, split-TF32 "
+                             f"{old}, {sum(counts.values())} launches in all ({S + 2})")
+    del wn, args
+    for m, num_q, size, d in ((TRAIN_BATCH * int(TRAIN_SECONDS * 24000) // 320, 8, 1024, 128),
+                              AMP_RVQ_RAGGED, AMP_RVQ_COPIED):
+        x = torch.randn(m, d, generator=gen, device="cuda").bfloat16()
+        cb = torch.randn(num_q, size, d, generator=gen, device="cuda").bfloat16()
+
+        def k6_launches(counts, num_q=num_q, d=d):
+            core = sum(c for k, c in counts.items()
+                       if "ns2::bgemm::bf16_gemm_kernel" in k and "ArgMin" in k)
+            updates = sum(c for k, c in counts.items() if "rvq_update_bf16_kernel" in k)
+            copies = sum(c for k, c in counts.items() if "copy_rows_kernel" in k)
+            old = [k for k in counts if "ns2::gemm::" in k or "rvq_update_kernel" in k]
+            ok = not old and core == updates == num_q and copies == int(d % 8 != 0)
+            short = (not old and core <= num_q and updates <= num_q
+                     and copies <= int(d % 8 != 0) and not ok)
+            return core, updates, copies, old, ok, short
+
+        counts = profile_counts(lambda: rvq_ops.rvq(x, cb), short=lambda c: k6_launches(c)[-1])
+        core, updates, copies, old, ok, _ = k6_launches(counts)
+        log(phase, f"K6 bf16 m {m} Q{num_q} K{size} d{d} profile: {core} bf16 core launches, "
+                   f"{updates} updates, {copies} copies of x; "
+                   f"{[(k[:110], c) for k, c in counts.items()]}")
+        if not ok:
+            raise AssertionError(f"K6 bf16 m {m} d {d}: {core} bf16 core launches ({num_q}), "
+                                 f"{updates} updates ({num_q}), {copies} copies "
+                                 f"({int(d % 8 != 0)}), split-TF32 {old}")
 
 
 def _amp_counts(ops) -> dict:
@@ -6203,9 +6300,11 @@ def main() -> int:
     phase1_card_and_build()
     summary = phase2_sampling_kernels()
     bf16_summary = phase22_bf16_kernels()
-    # K1b's bf16_matmul beside the bf16 kernels: their profiles early in the
-    # run, where short torch.profiler sessions keep their device events
-    # (late in a whole run some came back without any, PERF.md)
+    # K1b's bf16_matmul and the AMP entry points' profiles beside the bf16
+    # kernels: early in the run, where short torch.profiler sessions keep
+    # their device events (late in a whole run some came back without any,
+    # PERF.md)
+    check_amp_bf16_cores("27")
     bf16mm_entry = phase31_bf16_matmul()
     torch.cuda.empty_cache()
     ns2_cpu = flagship(SEED)

@@ -11,7 +11,14 @@ denoise step at b4 x n1024 (CUDA events, median of 20), the flagship
 training step at b16 x 2 s (host clock, synchronised, median of steps
 3-8) and the served p50 of 12 sequential README config 2 requests at the
 (64, 512) bucket and 100 steps (host clock). With ``--kernels`` instead:
-K1 and K1b in bf16 at BF16_WAVENET_SHAPES, K3 and K2 in bf16 at
+K1 mixed at AMP_K1_SHAPES and K6 bf16 at AMP_RVQ_SHAPES, through the
+wrapper and through the C entry point alone (each tree's own signature,
+weights, codebooks and scratch; CUDA events, median of 20; K6's C entry
+also on the card alone, its launches queued behind a sleep), the AMP
+training steps that run them (`Trainer(amp=True)`: the flagship at b16 x
+2 s and README config 2 at b16 x 2 s with text and prompt; host clock,
+synchronised, median of steps 3-8 and 3-6), K1 and K1b in
+bf16 at BF16_WAVENET_SHAPES, K3 and K2 in bf16 at
 BF16_BLOCK_SHAPES (each also with its C entry's host time), K2b in bf16 at
 BF16_CROSS_SHAPES (wrapper, C entry and its host time), K1b's
 `bf16_matmul` at BF16MM_SHAPES (wrapper: the trees' C signatures differ)
@@ -67,6 +74,25 @@ BF16_CROSS_SHAPES = ((2, 512, 32), (8, 512, 32))
 BF16MM_SHAPES = ((16, 1024, 512), (1, 9000, 128), (2, 1000, 96))
 
 
+def device_ms(fn, args, reps: int = 20) -> float:
+    """The device time of one call of a C entry point (the median of
+    ``reps``, CUDA events): each call queued behind a sleep of the card's
+    (a million cycles, about 0.5 ms), so that its launches run back to back
+    whatever the host's time between them."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def host_ms(fn, args, calls: int = 50) -> float:
     """The host time of one call of a C entry point (the median of
     ``calls``, each after the card is idle): the call returns once its
@@ -88,6 +114,115 @@ def host_ms(fn, args, calls: int = 50) -> float:
 # long form's K1b
 BF16_WAVENET_SHAPES = (("stack", 4, 1024, 128), ("stack", 2, 512, 128), ("stack", 1, 4500, 128),
                        ("lanes", 1, 9000, 128))
+
+
+# AMP training's K1 mixed (b, n, d), 4 stacks x 8 layers: the flagship
+# AMP step's and the 160-frame check step's; K6 bf16 (m, Q, K, d): the
+# flagship AMP step's codec latents, README config 2's prompts, a 6.8-s
+# prompt's and one 102-frame prompt's latents, and chip_smoke's
+# AMP_RVQ_RAGGED and AMP_RVQ_COPIED
+AMP_K1_SHAPES = ((16, 150, 128), (16, 160, 128))
+AMP_RVQ_SHAPES = ((2400, 8, 1024, 128), (1632, 8, 1024, 128), (510, 8, 1024, 128),
+                  (102, 8, 1024, 128), (510, 4, 1000, 72), (130, 4, 1000, 70))
+
+
+def amp_kernels(cs, out: dict) -> None:
+    """K1 mixed and K6 bf16 through their wrappers and their C entry points
+    alone. A tree whose K1 mixed runs on the bf16 core packs its weights
+    in the format ``gemm_cache.fmt_of`` gives it and takes x's planes in its
+    scratch (``wavenet_kernel.scratch(..., fmt)``), an older one "tf32"
+    and the f32 lanes; a tree with ``rvq.scratch`` takes K6 bf16's scratch
+    from it (the codebooks packed by the tree's own ``pack_codebooks``),
+    an older one best, the residual and the sum."""
+    import inspect
+
+    import torch
+
+    from naturalspeech2_tpu_torch import _build
+    from naturalspeech2_tpu_torch.ops import rvq as rvq_ops
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    stream = torch.cuda.current_stream().cuda_stream
+    bf, f32 = torch.bfloat16, torch.float32
+    S, L = cs.WAVENET_STACKS, cs.WAVENET_LAYERS
+    from naturalspeech2_tpu_torch.ops import gemm_cache
+
+    on_core = "fmt" in inspect.signature(wk.scratch).parameters
+    fmt = gemm_cache.fmt_of(f32, bf, "stack") if on_core else "tf32"
+    for b, n, d in AMP_K1_SHAPES:
+        wn, _ = cs.wavenet_inputs(gen, b, n, d, S, L)
+        x, weights, film = wn[0], cs._bf16(*wn[1:7]), wn[7]
+        wt = wk._pack_checked(*weights, "stack", f32, fmt)
+        state = wk.scratch(b, n, wt.d, L, "stack", f32, x.device, *([fmt] if on_core else []))
+        y = torch.empty_like(x)
+        fn = _build.entry("ns2_wavenet_body", f32, bf)
+        args = (x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
+                wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(),
+                *(t.data_ptr() for t in state), y.data_ptr(), b, n, wt.d, S, L, stream)
+        out.setdefault("k1_mixed", {})[f"[{b},{n},{d}]"] = {
+            "wrapper_ms": cs.cuda_ms(lambda: wk._forward("stack", x, *weights, film)),
+            "c_entry_ms": cs.cuda_ms(lambda: fn(*args)), "c_entry_host_ms": host_ms(fn, args)}
+        del wn, x, weights, film, wt, state, y
+    for m, num_q, size, d in AMP_RVQ_SHAPES:
+        x = torch.randn(m, d, generator=gen, device="cuda").to(bf)
+        cb = torch.randn(num_q, size, d, generator=gen, device="cuda").to(bf)
+        packed, norms = rvq_ops.pack_codebooks(cb)
+        if hasattr(rvq_ops, "scratch"):
+            state = rvq_ops.scratch(m, d, num_q, bf, x.device)
+        else:
+            state = [torch.full((num_q, m), -1, dtype=torch.int64, device="cuda"),
+                     torch.empty((m, d), device="cuda"), torch.empty((m, d), device="cuda")]
+        q, codes = torch.empty_like(x), torch.empty((m, num_q), dtype=torch.int32, device="cuda")
+        fn = _build.entry("ns2_rvq", bf)
+        args = (x.data_ptr(), cb.data_ptr(), packed.data_ptr(), norms.data_ptr(),
+                *(t.data_ptr() for t in state), q.data_ptr(), codes.data_ptr(), m, d, num_q,
+                size, stream)
+        out.setdefault("k6_bf16", {})[f"m {m} Q{num_q} K{size} d{d}"] = {
+            "wrapper_ms": cs.cuda_ms(lambda: rvq_ops.rvq(x, cb)),
+            "c_entry_ms": cs.cuda_ms(lambda: fn(*args)), "c_entry_host_ms": host_ms(fn, args),
+            "c_entry_device_ms": device_ms(fn, args)}
+        del x, cb, packed, norms, state, q, codes
+    torch.cuda.empty_cache()
+
+
+def amp_steps(cs, out: dict) -> None:
+    """ms per optimizer step of `Trainer(amp=True)` (host clock,
+    synchronised): the flagship on phase 7's batches, median of steps 3-8,
+    and README config 2 on phase 18's dict batches, median of steps 3-6."""
+    import warnings
+
+    import torch
+
+    import naturalspeech2_tpu_torch as ns2pkg
+
+    def median_step(trainer, batches, count):
+        walls = []
+        for batch in batches[:count]:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - start) * 1e3)
+        return statistics.median(walls[2:])
+
+    with tempfile.TemporaryDirectory() as work, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        trainer = ns2pkg.Trainer(cs.flagship(cs.SEED).cuda(), batches=iter(()), amp=True,
+                                 train_batch_size=cs.TRAIN_BATCH, results_folder=work)
+        audio = [cs._seeded_audio(100 + i, cs.TRAIN_BATCH, int(cs.TRAIN_SECONDS * 24000)).numpy()
+                 for i in range(8)]
+        out["flagship_amp_train_ms"] = median_step(trainer, audio, 8)
+        del trainer
+        torch.cuda.empty_cache()
+        trainer = ns2pkg.Trainer(cs.flagship(cs.SEED + 290, conditional=True,
+                                             scan_layers=True).cuda(),
+                                 batches=iter(()), amp=True, train_batch_size=cs.CT_BATCH,
+                                 results_folder=work)
+        cond = cs._cond_train_batches(cs.SEED + 291)
+        out["config2_amp_train_ms"] = median_step(trainer, [next(cond) for _ in range(6)], 6)
+        del trainer
+        torch.cuda.empty_cache()
 
 
 def wavenet_kernels(cs, out: dict) -> None:
@@ -342,6 +477,8 @@ def main() -> int:
     cs.phase1_card_and_build()
     out = {"label": label}
     if "--kernels" in sys.argv[3:]:
+        amp_kernels(cs, out)
+        amp_steps(cs, out)
         wavenet_kernels(cs, out)
         block_kernels(cs, out)
         bf16mm_kernels(cs, out)

@@ -89,7 +89,8 @@ planes), timed at WAVENET_SHAPES with base's launches by kernel:
                stages the tile's columns in shared memory first
 
 K1b's `bf16_matmul` (one bf16 plane a lane) runs beside K1b bf16 at
-BF16MM_SHAPES under every WaveNet variant.
+BF16MM_SHAPES, and K1's mixed entry (x's three planes by a pre-pass, the
+gate on f32 parameters) at MIXED_SHAPES, under every WaveNet variant.
 
 With variant names, builds and times only those beside base. Exits
 non-zero without a CUDA device. Not part of the smoke run.
@@ -272,10 +273,10 @@ _GATE = ("        const float v0 = tanhf(y0) * sigmoid(y0) + acc[j + 4][2 * r] +
          "        const float v1 = tanhf(y1) * sigmoid(y1) + acc[j + 4][2 * r + 1] + rbc.y;\n")
 _NO_GATE = ("        const float v0 = acc[j][2 * r] + acc[j + 4][2 * r];\n"
             "        const float v1 = acc[j][2 * r + 1] + acc[j + 4][2 * r + 1];\n")
-# the gate's bias and FiLM: staged in shared memory with one part, read
-# from device memory with three
+# the gate's bias and FiLM: staged in shared memory when f32 (one part, and
+# K1 mixed), read from device memory when bf16
 _GATE_LOADS = ("      float2 cbc, rbc, gamma, beta;\n"
-               "      if constexpr (Parts == 1) {\n"
+               "      if constexpr (kStaged) {\n"
                "        cbc = ld_shared2(params + 4 * cc);\n"
                "        rbc = ld_shared2(params + 4 * (kCols + cc));\n"
                "        gamma = ld_shared2(params + 4 * (2 * kCols + cc));\n"
@@ -322,7 +323,7 @@ WAVENET_BF16_VARIANTS = {
     "bf16_gate_no_loads": [(BF16_CORE, _GATE_LOADS,
                             "      const float2 cbc = make_float2(0.1f, 0.2f), rbc = cbc, "
                             "gamma = make_float2(1.0f, 1.1f), beta = cbc;\n")],
-    "bf16mm_gate_loads": [(BF16_CORE, "    if constexpr (Parts == 1) {\n"
+    "bf16mm_gate_loads": [(BF16_CORE, "    if constexpr (kStaged) {\n"
                                       "      for (int t = 32 * warp + lane;",
                            "    if constexpr (false) {\n"
                            "      for (int t = 32 * warp + lane;"),
@@ -362,7 +363,9 @@ BF16_SHAPES = (("flagship", 4, 1024, 128, ("ff_block", "attn_block")),
                ("long", 1, 9000, 128, ("ff_block",)))
 ENTRIES = ("ns2_ff_block", "ns2_attn_block", "ns2_ff_block_bf16", "ns2_attn_block_bf16")
 WAVENET_ENTRIES = ("ns2_wavenet_body", "ns2_wavenet_lanes", "ns2_wavenet_body_bf16",
-                   "ns2_wavenet_lanes_bf16", "ns2_wavenet_lanes_bf16mm")
+                   "ns2_wavenet_lanes_bf16", "ns2_wavenet_lanes_bf16mm", "ns2_wavenet_body_mixed")
+# K1's mixed entry (f32 x against bf16 weights): AMP training's shape
+MIXED_SHAPES = (("amp", 16, 150, 128),)
 WAVENET_SOURCES = ("wavenet.cu", "wavenet_lane.cu", "runtime.cu")
 
 
@@ -626,6 +629,27 @@ def wavenet_bf16(cs, libs) -> None:
         print(f"K1b bf16_matmul {label} [{b},{n},{d}] base launches: " + "; ".join(
             f"{k[k.find('<'):][:90]} {ms:.4f} ms" for k, ms in by_kernel.items()), flush=True)
         del x, weights, film, ref, wt, state, out
+        torch.cuda.empty_cache()
+    for label, b, n, d in MIXED_SHAPES:
+        wn = cs.wavenet_inputs(gen, b, n, d, S, L)[0]
+        x, weights, film = wn[0], cs._bf16(*wn[1:7]), wn[7]
+        ref = wk.wavenet_body_torch(x, *(w.float() for w in weights), film)
+        wt = wk.pack_wavenet_weights(*weights, "stack", torch.float32, "bf16_sw128")
+        state = wk.scratch(b, n, wt.d, L, "stack", torch.float32, x.device, wt.fmt)
+        out = torch.empty_like(x)
+        args = (x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
+                wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(),
+                *(t.data_ptr() for t in state), out.data_ptr(), b, n, d, S, L, stream)
+        entry = "ns2_wavenet_body_mixed"
+        time_variants(cs, libs, f"K1 mixed {label} [{b},{n},{d}]", entry, args, out, ref, 0.0)
+        for variant in ("base", "k1_bf16_no_pdl"):
+            if variant in libs:
+                fn = getattr(libs[variant], entry)
+                by_kernel = _device_ms_by_kernel(lambda: fn(*args))
+                print(f"K1 mixed {label} [{b},{n},{d}] {variant} launches: " + "; ".join(
+                    f"{k[k.find('<'):][:90]} {ms:.4f} ms" for k, ms in by_kernel.items()),
+                    flush=True)
+        del wn, x, weights, film, ref, wt, state, out
         torch.cuda.empty_cache()
 
 

@@ -44,7 +44,7 @@ _FLASH_TAIL = [_F, _U, _U, _F, _I, _U, _F, _I, _I, _P]
 SIGNATURES = {
     "ns2_wavenet_body": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_wavenet_body_bf16": [_P] * 10 + [_I] * 5 + [_P],
-    "ns2_wavenet_body_mixed": [_P] * 10 + [_I] * 5 + [_P],
+    "ns2_wavenet_body_mixed": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes_bf16": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes_mixed": [_P] * 10 + [_I] * 5 + [_P],
@@ -63,7 +63,7 @@ SIGNATURES = {
     "ns2_flash_bwd": [_P] * 10 + [_I] * 6 + _FLASH_TAIL,
     "ns2_flash_bwd_bf16": [_P] * 10 + [_I] * 6 + _FLASH_TAIL,
     "ns2_rvq": [_P] * 8 + [_I] * 4 + [_P],
-    "ns2_rvq_bf16": [_P] * 9 + [_I] * 4 + [_P],
+    "ns2_rvq_bf16": [_P] * 10 + [_I] * 4 + [_P],
 }
 # The kernels' (activation, weight) types, and the suffix of their entry
 # points: f32, bf16, and f32 activations against bf16 weights (what AMP

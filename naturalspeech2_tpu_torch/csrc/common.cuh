@@ -65,12 +65,9 @@ __device__ __forceinline__ float4 unpack_bf16x4(uint2 u) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// p[0..3] as f32, p aligned to four elements.
+// p[0..3], p aligned to four elements.
 __device__ __forceinline__ float4 load4v(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4v(const bf16* p) {
-  return unpack_bf16x4(*reinterpret_cast<const uint2*>(p));
 }
 
 }  // namespace ns2

@@ -111,7 +111,7 @@ int cross_attn_block(const float* x, const float* ctx, const float* gamma, const
       (dm + gemm::kKC - 1) / gemm::kKC, heads * dh / gemm::kBN,
       gemm::QkvScatter{q, rows, n, heads, b, dh}, st);
   if (err != cudaSuccess) return err;
-  err = gemm::launch<M>(gemm::Rows<float>{ctx, ctx_rows, dc}, bt_kv, ctx_rows,
+  err = gemm::launch<M>(gemm::Rows{ctx, ctx_rows, dc}, bt_kv, ctx_rows,
                         (dc + gemm::kKC - 1) / gemm::kKC, 2 * heads * dh / gemm::kBN,
                         gemm::QkvScatter{kv, ctx_rows, m, heads, b, dh}, st);
   if (err != cudaSuccess) return err;

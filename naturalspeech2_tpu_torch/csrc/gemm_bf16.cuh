@@ -1,6 +1,7 @@
 // The bf16 GEMM core of K1 (wavenet.cu), K1b (wavenet_lane.cu, its
 // `bf16_matmul` option too), K2 (attn_block.cu), K2b (cross_attn_block.cu)
-// and K3 (ff_block.cu) in bf16:
+// and K3 (ff_block.cu) in bf16, of K1's mixed entry point (f32 x against
+// bf16 weights) and of K6 in bf16 (rvq.cu):
 //
 //   C[M x N] = epilogue(A[M x K] · B[K x N]),   A and B bf16, summed in f32,
 //
@@ -57,22 +58,24 @@
 // Epilogues: `Geglu` (each 64 columns of B hold 32 value and the same 32
 // gate columns, so both products share A), `Store` (bias and an optional
 // residual, summed in f32, rounded once), `QkvScatter` (into K4's [3, b,
-// H, n, dh]) and `WaveGateSplit` (K1's gate, into three bf16 planes, or
-// one for `bf16_matmul`). Every rounding point of the JAX kernels stays
-// where the callers put it: the core only sums A·B in f32 and hands the sum
-// to the epilogue.
+// H, n, dh]), `WaveGateSplit` (K1's gate, into three bf16 planes, or
+// one for `bf16_matmul`) and `ArgMin` (K6's distances and each row's
+// first minimum). Every rounding point of the JAX kernels stays where the
+// callers put it: the core only sums A·B in f32 and hands the sum to the
+// epilogue.
 //
-// f32 activations against bf16 weights (K1 and K1b in bf16, whose JAX
-// kernels keep their lanes in f32 and multiply them by the bf16 weights
-// with f32 products): a lane v is carried as three bf16 planes, hi =
-// bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), which sum to v
-// exactly (8 + 8 + 8 of f32's 24 significant bits), and each part times a
-// bf16 weight is exact in f32. So the product is three bf16 passes over the
-// same B chunks, issued lo first: the tensor cores truncate where they add
-// (gemm_tf32x3.cuh), so the small terms go in before the accumulator holds
-// the large ones. K1b's `bf16_matmul` rounds both operands of every product
-// to bf16, so there a lane is one plane, bf16(v): the same loaders and
-// epilogue with one part.
+// f32 operands against bf16 values (K1 and K1b in bf16, whose JAX kernels
+// keep their lanes in f32 and multiply them by the bf16 weights with f32
+// products; K1's mixed entry, whose x is f32 too; K6 in bf16, whose f32
+// residual meets bf16 codebooks): an f32 value v is carried as three bf16
+// planes, hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), which
+// sum to v exactly (8 + 8 + 8 of f32's 24 significant bits), and each part
+// times a bf16 value is exact in f32. So the product is three bf16 passes
+// over the same B chunks, issued lo first: the tensor cores truncate where
+// they add (gemm_tf32x3.cuh), so the small terms go in before the
+// accumulator holds the large ones. K1b's `bf16_matmul` rounds both
+// operands of every product to bf16, so there a lane is one plane, bf16(v):
+// the same loaders and epilogue with one part.
 #pragma once
 
 #include <cuda.h>
@@ -534,21 +537,22 @@ inline cudaError_t planes_map(CUtensorMap* map, const bf16* planes, int seqs, in
 // K1 and K1b in bf16) or one, bf16(v) rounded to nearest even (K1b's
 // `bf16_matmul`, whose products read the lane so). The grid's sequence s
 // is lane s / per_lane of the launch and batch s % per_lane. cb, rb:
-// [lanes, w] of P (bf16, or f32 for `bf16_matmul`) from the launch's first
-// lane; film: [b, ·, 2w] of P from it, batch rows film_b apart, lanes 2w
-// apart. A warpgroup stages its 64 rows' planes in shared memory (the ring,
-// free once both warpgroups' products are done; `kStaging` bytes each), in
-// the layout `planes_map`'s boxes take, and one thread stores them by TMA:
-// stored by each thread in 4-byte pieces, three planes to a value, they
-// took about a fifth of K1's time at b4 n1024 d128 (PERF.md). With one
-// part the warpgroup first copies the tile's cb, rb, γ and β (f32, one
-// column a thread) into shared memory past its planes, and the gate reads
-// them there: read from device memory in the gate's loop, as the three
-// parts do, they took 10–16 % of `bf16_matmul`'s time (gemm_variants.py's
+// [lanes, w] of P (bf16, or f32 for `bf16_matmul` and K1's mixed entry)
+// from the launch's first lane; film: [b, ·, 2w] of P from it, batch rows
+// film_b apart, lanes 2w apart. A warpgroup stages its 64 rows' planes in
+// shared memory (the ring, free once both warpgroups' products are done;
+// `kStaging` bytes each), in the layout `planes_map`'s boxes take, and one
+// thread stores them by TMA: stored by each thread in 4-byte pieces, three
+// planes to a value, they took about a fifth of K1's time at b4 n1024 d128
+// (PERF.md). With f32 parameters the warpgroup first copies the tile's cb,
+// rb, γ and β (one column a thread) into shared memory past its planes, and
+// the gate reads them there: read from device memory in the gate's loop,
+// they took 10–16 % of `bf16_matmul`'s time (gemm_variants.py's
 // bf16_gate_no_loads).
 template <int Parts = 3, class P = bf16>
 struct WaveGateSplit {
   static_assert(Parts == 3 || Parts == 1, "three parts of an f32 lane, or its bf16 value");
+  static constexpr bool kStaged = std::is_same<P, float>::value;  // the parameters staged
   CUtensorMap out;  // planes_map of the planes written
   const P* cb;
   const P* rb;
@@ -559,11 +563,11 @@ struct WaveGateSplit {
   // shared memory of a warpgroup's planes: BN / 128 boxes of [Parts][64][64]
   template <int BN>
   static constexpr uint32_t kPlanes = BN / 128 * Parts * 64 * sm90::kPanelRowBytes;
-  // and of what it stages in all: with one part, then the tile's cb, rb, γ,
-  // β [4][BN / 2] f32, the next warpgroup's planes 1024-byte aligned
+  // and of what it stages in all: with f32 parameters, then the tile's cb,
+  // rb, γ, β [4][BN / 2] f32, the next warpgroup's planes 1024-byte aligned
   template <int BN>
   static constexpr uint32_t kStaging =
-      kPlanes<BN> + (Parts == 1 ? (uint32_t)round_up(4 * BN / 2 * 4, 1024) : 0u);
+      kPlanes<BN> + (kStaged ? (uint32_t)round_up(4 * BN / 2 * 4, 1024) : 0u);
 
   template <int NJ>
   __device__ void operator()(const float (&acc)[NJ][4], int m0, int row_end, int n0, int warp,
@@ -578,9 +582,9 @@ struct WaveGateSplit {
     const P* cbl = cb + (size_t)ln * w;
     const P* rbl = rb + (size_t)ln * w;
     const int r0 = 16 * warp + lane / 4;  // this thread's first row of the 64
-    // with one part: [4][kCols] f32, the tile's cb, rb, γ, β
+    // with f32 parameters: [4][kCols] f32, the tile's cb, rb, γ, β
     [[maybe_unused]] const uint32_t params = stage + kPlanes<8 * NJ>;
-    if constexpr (Parts == 1) {
+    if constexpr (kStaged) {
       for (int t = 32 * warp + lane; t < kCols; t += 128) {
         const int c = n0 / 2 + t;
         const bool in = c < w;
@@ -598,7 +602,7 @@ struct WaveGateSplit {
       const int c = n0 / 2 + cc;
       if (c >= w) continue;
       float2 cbc, rbc, gamma, beta;
-      if constexpr (Parts == 1) {
+      if constexpr (kStaged) {
         cbc = ld_shared2(params + 4 * cc);
         rbc = ld_shared2(params + 4 * (kCols + cc));
         gamma = ld_shared2(params + 4 * (2 * kCols + cc));
@@ -658,6 +662,63 @@ struct WaveGateSplit {
     float2 v;
     asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(at) : "memory");
     return v;
+  }
+};
+
+// K6's distances (rvq.cu): B holds a stage's codebook C [K, w] as Bᵀ, so
+// column c of the tile is code c, and
+//   d²[row, c] = ‖C_c‖² − 2·acc   (‖r‖² is the same for every code: dropped)
+// for the codes c < ncols. Each row's first minimum in the tile (columns
+// ascending within a thread, then the four threads of the row by code) is
+// merged into best[row] by a 64-bit atomicMin on (d²'s bits made to order
+// as unsigned, code): the least d² wins and, among equal ones, the least
+// code, so the first minimal index of the whole row survives every merge, as
+// the JAX kernel's argmin keeps it. best holds all ones before the first
+// merge. The split-TF32 core's gemm::ArgMin on this core's layout.
+struct ArgMin {
+  const float* norms;  // [ncols] f32
+  unsigned long long* best;
+  int ncols;
+
+  template <int NJ>
+  __device__ void operator()(const float (&acc)[NJ][4], int m0, int row_end, int n0, int warp,
+                             int lane) const {
+    float bd[2] = {INFINITY, INFINITY};  // the thread's two rows, 8 apart
+    int bc[2] = {-1, -1};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // ascending columns: a strict < keeps the first
+        const int col = n0 + 8 * j + 2 * (lane % 4) + e;
+        if (col >= ncols) continue;
+        const float norm = norms[col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float d2 = -2.0f * acc[j][2 * r + e] + norm;
+          if (bc[r] < 0 || d2 < bd[r]) {
+            bd[r] = d2;
+            bc[r] = col;
+          }
+        }
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the four threads of the row
+        const float od = __shfl_xor_sync(0xffffffffu, bd[r], off);
+        const int oc = __shfl_xor_sync(0xffffffffu, bc[r], off);
+        if (oc >= 0 && (bc[r] < 0 || od < bd[r] || (od == bd[r] && oc < bc[r]))) {
+          bd[r] = od;
+          bc[r] = oc;
+        }
+      }
+      const int row = m0 + 16 * warp + lane / 4 + 8 * r;
+      if (lane % 4 == 0 && row < row_end && bc[r] >= 0) {
+        uint32_t u = __float_as_uint(bd[r] + 0.0f);  // -0 as +0
+        u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+        atomicMin(best + row, (unsigned long long)u << 32 | (uint32_t)bc[r]);
+      }
+    }
   }
 };
 
@@ -940,6 +1001,34 @@ inline cudaError_t round_bf16(const float* x, bf16* out, size_t count, cudaStrea
   if (count == 0 || count % 2 != 0) return cudaErrorInvalidValue;
   const size_t blocks = (count / 2 + kCopyThreads - 1) / kCopyThreads;
   round_bf16_kernel<float><<<(unsigned)blocks, kCopyThreads, 0, stream>>>(x, out, count);
+  return cudaGetLastError();
+}
+
+// planes[bi, q, t, c] = part q (0 hi, 1 mid, 2 lo: `split3`) of x[bi, t, c]
+// for x [b, n, w] f32, nw = n·w even: K1's mixed entry carries its f32 x
+// so. Two values a thread.
+template <class In>
+__global__ void __launch_bounds__(kCopyThreads)
+split3_kernel(const In* __restrict__ x, bf16* __restrict__ planes, size_t count, size_t nw) {
+  const size_t i = 2 * ((size_t)blockIdx.x * kCopyThreads + threadIdx.x);
+  if (i >= count) return;
+  const size_t bi = i / nw;
+  float p[2][3];
+  split3(to_f32(x[i]), p[0]);
+  split3(to_f32(x[i + 1]), p[1]);
+  bf16* dst = planes + bi * 2 * nw + i;  // plane 0 of sequence bi at bi·3·nw
+#pragma unroll
+  for (int q = 0; q < 3; ++q) store2(dst + q * nw, p[0][q], p[1][q]);
+}
+
+// x [b, n, w] (f32, n·w even) as three bf16 planes [b, 3, n, w], launched
+// on `stream` without synchronising.
+inline cudaError_t split_planes(const float* x, bf16* planes, int b, int n, int w,
+                                cudaStream_t stream) {
+  const size_t nw = (size_t)n * w, count = (size_t)b * nw;
+  if (count == 0 || nw % 2 != 0) return cudaErrorInvalidValue;
+  const size_t blocks = (count / 2 + kCopyThreads - 1) / kCopyThreads;
+  split3_kernel<float><<<(unsigned)blocks, kCopyThreads, 0, stream>>>(x, planes, count, nw);
   return cudaGetLastError();
 }
 

@@ -55,11 +55,12 @@
 //  - kSplit2: f32 A, B a bf16 weight held as TF32 (exact: bf16 has 8
 //    significant bits, TF32 11), packed with no lo part, so a_hi·b +
 //    a_lo·b is the whole f32-accurate product in two passes: the mixed
-//    entry points of K1, K1b, K2, K2b and K3 (AMP training's f32
-//    activations against bf16 weights) and K6 in bf16.
-// Every bf16 block (K1, K1b and its `bf16_matmul`, K2, K2b, K3) runs the
-// bf16 core instead (gemm_bf16.cuh). Loaders read f32 activations (K6's
-// `Rows` bf16 ones too) and hand f32 values to the staging; epilogues take
+//    entry points of K1b, K2, K2b and K3 (AMP training's f32 activations
+//    against bf16 weights).
+// Every bf16 block (K1, K1b and its `bf16_matmul`, K2, K2b, K3), K1's
+// mixed entry point and K6 in bf16 run the bf16 core instead
+// (gemm_bf16.cuh). Loaders read f32 activations and hand f32 values to the
+// staging; epilogues take
 // the types of their outputs, biases and residuals as template parameters
 // and round once, where they store.
 #pragma once
@@ -105,13 +106,7 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ p, int k, int 
                      k + 2 < n ? p[k + 2] : 0.0f, k + 3 < n ? p[k + 3] : 0.0f);
 }
 
-__device__ __forceinline__ float4 load4(const bf16* __restrict__ p, int k, int n, bool vec) {
-  if (vec && k + 4 <= n) return load4v(p + k);
-  return make_float4(k < n ? to_f32(p[k]) : 0.0f, k + 1 < n ? to_f32(p[k + 1]) : 0.0f,
-                     k + 2 < n ? to_f32(p[k + 2]) : 0.0f, k + 3 < n ? to_f32(p[k + 3]) : 0.0f);
-}
-
-// p aligned to four elements of T (a float4, or four bf16).
+// p aligned to four elements of T.
 template <class T>
 __device__ __forceinline__ bool aligned4(const T* p) {
   return ((uintptr_t)p & (4 * sizeof(T) - 1)) == 0;
@@ -179,13 +174,12 @@ struct NormRows {
   }
 };
 
-// A = a [rows, w] of In (f32, or K6's bf16 x) as it stands, zero past w
-// (any w): K2b's context and K6's input and residual.
-template <class In>
+// A = a [rows, w] as it stands, zero past w (any w): K2b's context and
+// K6's input and residual.
 struct Rows {
-  const In* a;
+  const float* a;
   int rows, w;
-  const In *p, *pc;  // the row, and the chunk's
+  const float *p, *pc;  // the row, and the chunk's
   int left;             // w - the chunk's first k
   bool ok, vec;
 

@@ -40,6 +40,13 @@
 //    is deterministic without atomics.
 // S + 1 launches in all.
 //
+// Mixed (`ns2_wavenet_body_mixed`, AMP training's denoiser: f32 x, biases
+// and FiLM against bf16 weights, the JAX kernel's products promoting the
+// weights to f32): the bf16 path below with x split into three planes too
+// by a pre-pass (`split3_kernel`), the gate on the f32 biases and FiLM and
+// the skips' sum stored in f32; the weights packed "bf16_sw128", exact for
+// bf16 weights. S + 2 launches.
+//
 // bf16 (`ns2_wavenet_body_bf16`, wavenet_kernel.py:80-129 with bf16 x,
 // weights and FiLM): the JAX kernel keeps its lanes in f32 scratch and
 // multiplies them by the bf16 weights with f32 products, rounding only its
@@ -72,13 +79,11 @@ using ns2::bf16;
 
 namespace {
 
-// The split-TF32 core's body: f32 (kSplit3) or the mixed entry point
-// (kSplit2: f32 x, biases and FiLM against bf16 weights held as TF32); the
-// lanes f32 [L, b, n, d].
-template <gemm::Mode M>
+// The f32 body on the split-TF32 core (kSplit3); the lanes f32 [L, b, n, d].
 int wavenet_body(const float* x, const float* blocks, const float* conv_b, const float* res_b,
                  const float* skip, const float* skip_b, const float* film, float* lanes_a,
                  float* lanes_b, float* out, int b, int n, int d, int S, int L, void* stream) {
+  constexpr gemm::Mode M = gemm::Mode::kSplit3;
   constexpr int kB = gemm::Fmt<M>::kB;
   if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -105,18 +110,19 @@ int wavenet_body(const float* x, const float* blocks, const float* conv_b, const
                          gemm::Store{out, skip_b, nullptr, rows, d, d}, st);
 }
 
-// The bf16 body on the bf16 core.
-int wavenet_body_bf16(const bf16* x, const bf16* blocks, const bf16* conv_b, const bf16* res_b,
-                      const bf16* skip, const float* skip_b, const bf16* film, bf16* planes_a,
-                      bf16* planes_b, bf16* out, int b, int n, int d, int S, int L,
-                      void* stream) {
-  if (d % bgemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The body on the bf16 core: x16 the planes [b, x_parts, n, d] the first
+// stack reads (bf16 x as one part; the mixed entry's f32 x as three), the
+// biases and FiLM of P (bf16, or f32 for the mixed entry), the output of P.
+template <class P>
+int body_on_bf16_core(const bf16* x16, int x_parts, const bf16* blocks, const P* conv_b,
+                      const P* res_b, const bf16* skip, const float* skip_b, const P* film,
+                      bf16* planes_a, bf16* planes_b, P* out, int b, int n, int d, int S, int L,
+                      cudaStream_t st) {
   const int per_part = 3 * d / bgemm::kKC;  // chunks of one part of a block
   const bgemm::Shape sh = bgemm::choose(L * b, n, 2 * d, true);
   CUtensorMap map_x, map_planes[2], map_out[2], map_blocks;
   bf16* planes[2] = {planes_a, planes_b};
-  cudaError_t err = bgemm::rows_map(&map_x, x, b, 1, n, d, d, sh.bm);
+  cudaError_t err = bgemm::rows_map(&map_x, x16, b, x_parts, n, d, d, sh.bm);
   for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
     err = bgemm::rows_map(&map_planes[i], planes[i], L * b, 3, n, d, d, sh.bm);
     if (err == cudaSuccess) err = bgemm::planes_map(&map_out[i], planes[i], L * b, 3, n, d);
@@ -124,9 +130,10 @@ int wavenet_body_bf16(const bf16* x, const bf16* blocks, const bf16* conv_b, con
   if (err == cudaSuccess) err = bgemm::b_map(&map_blocks, blocks, 2 * d, S * L * per_part, sh.bn);
   for (int s = 0; s < S && err == cudaSuccess; ++s) {
     const size_t sl = (size_t)s * L;
-    const bgemm::WaveGateSplit<> gate{map_out[s % 2], conv_b + sl * d, res_b + sl * d,
-                                      film + sl * 2 * d, (size_t)S * L * 2 * d, b, n, d};
-    const bgemm::SplitTaps taps{L * b, n, d, b, 0, s == 0 ? 1 : 3, s == 0, (int)sl * per_part};
+    const bgemm::WaveGateSplit<3, P> gate{map_out[s % 2], conv_b + sl * d, res_b + sl * d,
+                                          film + sl * 2 * d, (size_t)S * L * 2 * d, b, n, d};
+    const bgemm::SplitTaps taps{L * b, n, d, b, 0, s == 0 ? x_parts : 3, s == 0,
+                                (int)sl * per_part};
     err = bgemm::launch_at(sh, s == 0 ? map_x : map_planes[(s - 1) % 2], map_blocks, taps,
                            2 * d, taps.parts * per_part, gate, st);
   }
@@ -139,7 +146,11 @@ int wavenet_body_bf16(const bf16* x, const bf16* blocks, const bf16* conv_b, con
   if (err != cudaSuccess) return err;
   return bgemm::launch_at(sk, map_lanes, map_skip, bgemm::SplitLanes{b, n, d, L, 3, 0, 0}, d,
                           3 * L * d / bgemm::kKC,
-                          bgemm::Store<bf16, float>{out, skip_b, nullptr, d, d}, st);
+                          bgemm::Store<P, float>{out, skip_b, nullptr, d, d}, st);
+}
+
+bool body_ok(int b, int n, int d, int S, int L) {
+  return d % bgemm::kKC == 0 && b > 0 && n > 0 && S > 0 && L > 0;
 }
 
 }  // namespace
@@ -153,20 +164,30 @@ NS2_API int ns2_wavenet_body(const float* x, const float* blocks, const float* c
                              const float* res_b, const float* skip, const float* skip_b,
                              const float* film, float* lanes_a, float* lanes_b, float* out, int b,
                              int n, int d, int S, int L, void* stream) {
-  return wavenet_body<gemm::Mode::kSplit3>(x, blocks, conv_b, res_b, skip, skip_b, film, lanes_a,
-                                           lanes_b, out, b, n, d, S, L, stream);
+  return wavenet_body(x, blocks, conv_b, res_b, skip, skip_b, film, lanes_a, lanes_b, out, b, n,
+                      d, S, L, stream);
 }
 
 // Mixed (AMP training's denoiser, wavenet_kernel.py:80-129 with f32 x and
-// FiLM against bf16 weights): every pointer f32, the biases widened, blocks
-// and skip the bf16 weights packed as TF32 with no lo part, the products in
-// the kSplit2 mode; the JAX kernel's products promote the weights to f32.
-NS2_API int ns2_wavenet_body_mixed(const float* x, const float* blocks, const float* conv_b,
-                                   const float* res_b, const float* skip, const float* skip_b,
-                                   const float* film, float* lanes_a, float* lanes_b, float* out,
-                                   int b, int n, int d, int S, int L, void* stream) {
-  return wavenet_body<gemm::Mode::kSplit2>(x, blocks, conv_b, res_b, skip, skip_b, film,
-                                           lanes_a, lanes_b, out, b, n, d, S, L, stream);
+// FiLM against bf16 weights, whose products the JAX kernel promotes to f32)
+// on the bf16 core: x, conv_b, res_b, skip_b, film and out f32, d % 64 ==
+// 0; blocks and skip the bf16 weights packed "bf16_sw128" as for
+// ns2_wavenet_body_bf16; x_planes [b, 3, n, d] bf16 scratch for x's three
+// planes, planes_a / planes_b [L·b, 3, n, d] bf16 scratch. A pre-pass splits
+// x into its planes, then the bf16 entry's launches run with three parts of
+// x and the gate on the f32 biases and FiLM (staged in shared memory), the
+// skips' sum stored in f32: S + 2 launches.
+NS2_API int ns2_wavenet_body_mixed(const float* x, const bf16* blocks, const float* conv_b,
+                                   const float* res_b, const bf16* skip, const float* skip_b,
+                                   const float* film, bf16* x_planes, bf16* planes_a,
+                                   bf16* planes_b, float* out, int b, int n, int d, int S, int L,
+                                   void* stream) {
+  if (!body_ok(b, n, d, S, L)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = bgemm::split_planes(x, x_planes, b, n, d, st);
+  if (err != cudaSuccess) return err;
+  return body_on_bf16_core(x_planes, 3, blocks, conv_b, res_b, skip, skip_b, film, planes_a,
+                           planes_b, out, b, n, d, S, L, st);
 }
 
 // bf16 on the bf16 core: x [b,n,d], conv_b, res_b, film and out bf16, d %
@@ -177,6 +198,7 @@ NS2_API int ns2_wavenet_body_bf16(const bf16* x, const bf16* blocks, const bf16*
                                   const bf16* res_b, const bf16* skip, const float* skip_b,
                                   const bf16* film, bf16* planes_a, bf16* planes_b, bf16* out,
                                   int b, int n, int d, int S, int L, void* stream) {
-  return wavenet_body_bf16(x, blocks, conv_b, res_b, skip, skip_b, film, planes_a, planes_b, out,
-                           b, n, d, S, L, stream);
+  if (!body_ok(b, n, d, S, L)) return cudaErrorInvalidValue;
+  return body_on_bf16_core(x, 1, blocks, conv_b, res_b, skip, skip_b, film, planes_a, planes_b,
+                           out, b, n, d, S, L, static_cast<cudaStream_t>(stream));
 }

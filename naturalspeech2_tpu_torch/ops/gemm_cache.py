@@ -1,8 +1,8 @@
 """Weights laid out once for the kernels, and the split-TF32 GEMM core's
 operand format.
 
-The GEMM core (``csrc/gemm_tf32x3.cuh``) of K1, K1b, K2, K2b, K3 and K6
-reads its B operand, a weight (K6: a codebook), from a packed tensor: Bᵀ
+The split-TF32 GEMM core (``csrc/gemm_tf32x3.cuh``) of K1, K1b, K2, K2b,
+K3 and K6 in f32 reads its B operand, a weight (K6: a codebook), from a packed tensor: Bᵀ
 padded with zeros to 64-row tiles and 32-column chunks, each element
 split into TF32 hi and lo as the kernels
 split their operands (flash.cuh: hi = x rounded half away from zero at
@@ -14,12 +14,13 @@ the weight back exactly).
 
 One more format of that core carries bf16 weights (``pack_b(bt, fmt)``):
 ``"tf32"``, the bf16 values as f32 (exact in TF32) in the TF32 order with
-no lo part, for its two-pass mode (the mixed entry points of K1, K1b, K2,
-K2b, K3 and the bf16 K6, whose activations are f32).
+no lo part, for its two-pass mode (the mixed entry points of K1b, K2, K2b
+and K3, whose activations are f32).
 
 ``"bf16_sw128"`` is the operand format of the bf16 GEMM core
-(``csrc/gemm_bf16.cuh``: K1, K1b, K2, K2b and K3 in bf16, and K1b's
-``bf16_matmul``, whose f32 weights it rounds to bf16 as it packs them): Bᵀ
+(``csrc/gemm_bf16.cuh``: K1, K1b, K2, K2b, K3 and K6 in bf16, K1's mixed
+entry point, and K1b's ``bf16_matmul``, whose f32 weights it rounds to
+bf16 as it packs them): Bᵀ
 [N, K] padded with zeros to multiples of 64 in both, laid out chunk by
 chunk as [K / 64, N, 64], each row of a chunk (64 bf16, 128 bytes) in the
 128-byte swizzle that ``wgmma`` reads: its 16-byte piece p holds the eight
@@ -138,14 +139,19 @@ def pack_b(bt: torch.Tensor, fmt: str = "split") -> torch.Tensor:
                        dim=-2)
 
 
-def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None) -> str:
-    """The weight format for a block's activation dtype and its weights'
-    (default: the same): "split" for f32 (the split-TF32 core), "bf16_sw128"
-    for bf16 (the bf16 core), "tf32" for f32 activations against bf16
-    weights (the split-TF32 core's two-pass mode)."""
+def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None,
+           route: str | None = None) -> str:
+    """The weight format, and so the GEMM core, for a block's activation
+    dtype and its weights' (default: the same): "split" for f32 (the
+    split-TF32 core), "bf16_sw128" for bf16 (the bf16 core), and for f32
+    activations against bf16 weights "bf16_sw128" on K1's ``route``
+    "stack" (the bf16 core, the f32 operands as three bf16 parts), else
+    "tf32" (the split-TF32 core's two-pass mode)."""
     if dtype == torch.bfloat16:
         return "bf16_sw128"
-    return "tf32" if weight_dtype == torch.bfloat16 else "split"
+    if weight_dtype != torch.bfloat16:
+        return "split"
+    return "bf16_sw128" if route == "stack" else "tf32"
 
 
 def unpack_b(packed: torch.Tensor, fmt: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:

@@ -6,19 +6,21 @@ r −= C[idx]. Returns the quantized sum ``[m, d]`` and the codes ``[m, Q]``
 (int32).
 
 ``rvq`` launches the kernels of ``csrc/rvq.cu`` on CUDA tensors (per stage
-the distances on the split-TF32 GEMM core with a first-minimum epilogue,
-then the residual update; any codebook dim and size) and runs the plain
-version ``rvq_torch`` on CPU tensors. bf16 ``x`` and codebooks (AMP
-training's codec) run the f32 function on their values, as the JAX kernel
-upcasts x and promotes the codebooks in its dots, and return ``quantized``
-in bf16 (``rvq_bf16_torch``; on a card ``ns2_rvq_bf16``, the codebooks
-packed as TF32 with no lo part, two passes, the residual and the sum in
-f32). The kernels read the codebooks
-packed for the core with their squared norms (``pack_codebooks``, once per
-parameter version); ``rvq_packed_torch`` computes the function from that
-layout in plain PyTorch. ``rvq_quantize`` adds the straight-through
-gradient; ``rvq_reference`` is the twin of ``rvq_xla`` (which keeps ‖r‖²,
-so a near-tie may pick another code than the kernel).
+the distances on a GEMM core with a first-minimum epilogue, then the
+residual update; any codebook dim and size) and runs the plain version
+``rvq_torch`` on CPU tensors. bf16 ``x`` and codebooks (AMP training's
+codec) run the f32 function on their values, as the JAX kernel upcasts x
+and promotes the codebooks in its dots, and return ``quantized`` in bf16
+(``rvq_bf16_torch``; on a card ``ns2_rvq_bf16`` on the bf16 GEMM core: x
+one bf16 pass, from the second stage on the f32 residual as three bf16
+planes that sum to it exactly, three passes, the residual and the sum in
+f32; ``rvq_planes_torch`` is that scheme in plain PyTorch). The kernels
+read the codebooks packed for their core with their squared norms
+(``pack_codebooks``, once per parameter version); ``rvq_packed_torch``
+computes the function from that layout in plain PyTorch. ``rvq_quantize``
+adds the straight-through gradient; ``rvq_reference`` is the twin of
+``rvq_xla`` (which keeps ‖r‖², so a near-tie may pick another code than
+the kernel).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
+from naturalspeech2_tpu_torch.ops.wavenet_kernel import split3
 
 
 def rvq_torch(x, codebooks, norms=None):
@@ -71,12 +74,13 @@ def rvq_reference(x, codebooks):
 
 
 def pack_codebooks(codebooks):
-    """(packed, norms): each stage's codebook C_q [K, d] as the GEMM core's
-    packed Bᵀ (``gemm_cache.pack_b``: codes in 64-row tiles, dims in
-    32-wide chunks, zero-padded; f32 codebooks split into TF32 hi and lo,
-    bf16 ones as TF32 with no lo part) and the squared norms [Q, K] in f32
-    (a plain reduction, as XLA computes them outside the Pallas kernel)."""
-    fmt = "tf32" if codebooks.dtype == torch.bfloat16 else "split"
+    """(packed, norms): each stage's codebook C_q [K, d] as its GEMM core's
+    packed Bᵀ (``gemm_cache.pack_b``; f32 codebooks "split", the split-TF32
+    core's TF32 hi and lo in 64-row tiles of 32-wide chunks, bf16 ones
+    "bf16_sw128", the bf16 core's [Q, d / 64, K, 64], exact; zero-padded)
+    and the squared norms [Q, K] in f32 (a plain reduction, as XLA computes
+    them outside the Pallas kernel)."""
+    fmt = "bf16_sw128" if codebooks.dtype == torch.bfloat16 else "split"
     wide = codebooks.to(torch.float32)
     return gemm_cache.pack_b(codebooks, fmt), (wide * wide).sum(dim=-1).contiguous()
 
@@ -87,9 +91,49 @@ def rvq_packed_torch(x, packed, norms, size: int):
     ``size`` codes of each, x padded with zero dims to match; the quantized
     sum cut back to d. The check of K6's packing on the CPU."""
     d = x.shape[-1]
-    codebooks = sum(gemm_cache.unpack_b(packed))[:, :size]
+    fmt = "bf16_sw128" if packed.dtype == torch.bfloat16 else None
+    codebooks = sum(gemm_cache.unpack_b(packed, fmt))[:, :size]
     total, codes = rvq_torch(F.pad(x, (0, codebooks.shape[-1] - d)), codebooks, norms)
     return total[:, :d], codes
+
+
+def rvq_planes_torch(x, packed, norms, size: int):
+    """``ns2_rvq_bf16``'s scheme in plain PyTorch, from its layout (bf16 x,
+    the codebooks packed "bf16_sw128"): each stage's distances are the bf16
+    core's products summed in f32, x itself at the first stage, then the
+    f32 residual's three bf16 planes (``split3``, lo first), each product
+    of a part and a bf16 code exact; d² = ‖C‖² − 2·acc over the first
+    ``size`` codes, the first minimum; the residual and the sum in f32, the
+    sum rounded to bf16 once. The check of the bf16 kernel's design on the
+    CPU (the order of its f32 sums aside)."""
+    m, d = x.shape
+    codebooks = gemm_cache.unpack_b(packed, "bf16_sw128")[0][:, :size].float()  # [Q, K, d_p]
+    x = x.to(torch.bfloat16).float()
+    planes = [F.pad(x, (0, codebooks.shape[-1] - d))]
+    r, total, codes = x, torch.zeros_like(x), []
+    for qi in range(codebooks.shape[0]):
+        acc = sum(p.float() @ codebooks[qi].T for p in reversed(planes))
+        idx = torch.argmin(norms[qi] - 2.0 * acc, dim=-1)  # the first minimal index
+        q = codebooks[qi][idx, :d]
+        r, total = r - q, total + q
+        planes = [F.pad(p.float(), (0, codebooks.shape[-1] - d)) for p in split3(r)]
+        codes.append(idx)
+    return total.to(torch.bfloat16), torch.stack(codes, dim=-1).to(torch.int32)
+
+
+def scratch(m: int, d: int, num_q: int, dtype: torch.dtype, device) -> list:
+    """The scratch of K6's entry point for x [m, d] of ``dtype``, in its
+    argument order: best [Q, m] int64, all ones (no minimum yet), the f32
+    residual [m, d]; in bf16 also the f32 sum [m, d] and the residual's
+    three bf16 planes [3, m, d padded to 64] (the first plane holds x's
+    rows where TMA cannot read x itself)."""
+    best = torch.full((num_q, m), -1, dtype=torch.int64, device=device)
+    residual = torch.empty((m, d), dtype=torch.float32, device=device)
+    if dtype != torch.bfloat16:
+        return [best, residual]
+    d_p = gemm_cache.round_up(d, gemm_cache.SW128_CHUNK)
+    return [best, residual, torch.empty_like(residual),
+            torch.empty((3, m, d_p), dtype=torch.bfloat16, device=device)]
 
 
 def rvq(x, codebooks):
@@ -106,16 +150,12 @@ def rvq(x, codebooks):
     if m < 1:
         raise ValueError("rvq: no rows")
     packed, norms = gemm_cache.cached("rvq", pack_codebooks, codebooks)
-    residual = torch.empty((m, d), dtype=torch.float32, device=x.device)
     quantized = torch.empty_like(x)
     codes = torch.empty((m, num_q), dtype=torch.int32, device=x.device)
-    # per stage and row the packed (distance, code) minimum; all ones = none yet
-    best = torch.full((num_q, m), -1, dtype=torch.int64, device=x.device)
-    # in bf16 the sum runs in an f32 scratch and is rounded once
-    total = [torch.empty_like(residual).data_ptr()] if x.dtype == torch.bfloat16 else []
+    state = scratch(m, d, num_q, x.dtype, x.device)
     err = _build.entry("ns2_rvq", x.dtype)(
-        x.data_ptr(), codebooks.data_ptr(), packed.data_ptr(), norms.data_ptr(), best.data_ptr(),
-        residual.data_ptr(), *total, quantized.data_ptr(), codes.data_ptr(), m, d, num_q, size,
+        x.data_ptr(), codebooks.data_ptr(), packed.data_ptr(), norms.data_ptr(),
+        *(t.data_ptr() for t in state), quantized.data_ptr(), codes.data_ptr(), m, d, num_q, size,
         _build.stream(x),
     )
     _build.check(err, "ns2_rvq")

@@ -22,9 +22,10 @@ Shapes: x [b, n, d]; conv_w [S, L, 3d, d]; conv_b, res_b [S, L, d];
 res_w [S, L, d, d]; skip_w [L, d, d]; skip_b [L, d]; film [b, S, L, 2d]
 (γ first, β second). Returns the summed skips [b, n, d].
 
-In f32 and mixed both kernels run every product on the split-TF32 GEMM
-core (``csrc/gemm_tf32x3.cuh``); in bf16 on the bf16 GEMM core
-(``csrc/gemm_bf16.cuh``). They read their weights packed once per
+In f32 both kernels run every product on the split-TF32 GEMM core
+(``csrc/gemm_tf32x3.cuh``); in bf16, and K1 mixed, on the bf16 GEMM core
+(``csrc/gemm_bf16.cuh``); K1b mixed on the split-TF32 core's two-pass
+mode. They read their weights packed once per
 parameter version (``pack_wavenet_weights``): each block's conv and
 residual as one B [3d, 2d] whose 64-column groups interleave 32 conv and
 32 residual columns, and the skips. ``wavenet_body_packed_torch``
@@ -53,10 +54,14 @@ Mixed (x and FiLM float32, the weights and biases bfloat16: AMP training,
 whose denoiser promotes its f32 activations against the bf16 copies of
 the weights) each route computes the f32 body on the weights' values,
 exact in f32, as the JAX kernels' products and `wavenet_body_xla` (which
-casts every operand to x.dtype) do: the kernels' mixed entry points run
-the core's kSplit2 mode (the f32 lanes split in two against the bf16
-weights held as TF32, exact) with the biases widened, counted in
-``launches_mixed``; the plain versions run on the widened weights.
+casts every operand to x.dtype) do, the biases widened, counted in
+``launches_mixed``; the plain versions run on the widened weights. K1's
+mixed entry point runs the bf16 path with x split into three planes too
+(a pre-pass) and the gate, biases, FiLM and output in f32, the weights
+packed "bf16_sw128" (``wavenet_body_planes_torch`` with three parts on f32
+x is its scheme in plain PyTorch); K1b's runs the split-TF32 core's
+kSplit2 mode (the f32 lanes split in two against the bf16 weights held as
+TF32, exact).
 
 ``bf16_matmul`` (f32 x, weights and FiLM; `_lane_kernel`'s option,
 `naturalspeech2_tpu/ops/wavenet_kernel.py:172`, `:208-217`): every product
@@ -262,10 +267,11 @@ def pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b,
     "stack": one product over the lanes side by side, the biases summed in
     f32) or K1b ("lanes": one product per lane) reads them. ``fmt``
     (default: "split" for f32 weights, "bf16_sw128" for bf16 ones, the bf16
-    core's) is "tf32" for the mixed entry points (bf16 weights as TF32 with
-    no lo part) and "bf16_sw128" for K1b's ``bf16_matmul`` too (f32 weights
-    rounded to bf16). The biases take ``bias_dtype`` (default: their own;
-    float32 for the mixed entry points) but for that f32 sum."""
+    core's) is "tf32" for K1b's mixed entry point (bf16 weights as TF32 with
+    no lo part) and "bf16_sw128" for K1's mixed one and K1b's
+    ``bf16_matmul`` too (f32 weights rounded to bf16). The biases take
+    ``bias_dtype`` (default: their own; float32 for the mixed entry points)
+    but for that f32 sum."""
     if fmt is None:
         fmt = gemm_cache.fmt_of(conv_w.dtype)
     d = conv_w.shape[-1]
@@ -301,9 +307,10 @@ def wavenet_body_packed_torch(x, film, weights: WavenetWeights, route: str):
     ``wavenet_body_torch`` up to f32 reordering: the check of the padding,
     the packed layout and the dilated taps on the CPU. Weights packed
     "bf16_sw128" run ``wavenet_body_planes_torch``: three planes a lane on
-    bf16 x, one (``bf16_matmul``) on f32 x."""
+    bf16 x and on K1's f32 x (the mixed entry), one on K1b's f32 x
+    (``bf16_matmul``, the one f32 entry that reads them per lane)."""
     if weights.fmt == "bf16_sw128":
-        parts = 3 if x.dtype == torch.bfloat16 else 1
+        parts = 3 if x.dtype == torch.bfloat16 or route == "stack" else 1
         return wavenet_body_planes_torch(x, film, weights, route, parts=parts)[0]
     b, n, d = x.shape
     d_p = weights.d
@@ -358,10 +365,12 @@ def wavenet_body_planes_torch(x, film, weights: WavenetWeights, route: str, *, p
     the lanes side by side, the biases' f32 sum; "lanes": lane by lane into
     an f32 sum). ``parts`` 3 (K1, K1b in bf16; x and FiLM bf16): the planes
     are ``split3`` of the f32 lane, each product exact (a part and a bf16
-    weight), the biases and FiLM bf16, the output rounded once to bf16.
-    ``parts`` 1 (K1b's ``bf16_matmul``; x, FiLM and the biases f32): the
-    plane is the lane rounded to bf16 (and x too), the output f32. Returns
-    (out [b, n, d], the last stack's lanes as the planes' f32 sum [L, b, n,
+    weight), the biases and FiLM bf16, the output rounded once to bf16; on
+    f32 x, FiLM and biases (K1's mixed entry: bf16 weights) x is split into
+    three planes too and the output is f32. ``parts`` 1 (K1b's
+    ``bf16_matmul``; x, FiLM and the biases f32): the plane is the lane
+    rounded to bf16 (and x too), the output f32. Returns (out [b, n, d] at
+    x's dtype, the last stack's lanes as the planes' f32 sum [L, b, n,
     d_p])."""
     if parts not in (1, 3):
         raise ValueError(f"wavenet_body_planes_torch: parts must be 3 or 1, got {parts}")
@@ -373,7 +382,7 @@ def wavenet_body_planes_torch(x, film, weights: WavenetWeights, route: str, *, p
     bt = _dense(weights.blocks, 2 * d_p, 3 * d_p, weights.fmt).float()
     conv_b, res_b = weights.conv_b.float(), weights.res_b.float()
     split = split3 if parts == 3 else (lambda v: (v.to(torch.bfloat16),))
-    x_planes = (x.to(torch.bfloat16),)
+    x_planes = split(x) if x.dtype == torch.float32 else (x,)
 
     def block(planes, s, l):
         dil = 2**l
@@ -412,8 +421,7 @@ def wavenet_body_planes_torch(x, film, weights: WavenetWeights, route: str, *, p
                 term = term + lane[q].float() @ skip[l].T
             term = term + weights.skip_b[l].float()
             out = term if out is None else term + out
-    out = out[..., :d]
-    return out.to(torch.bfloat16) if parts == 3 else out, lanes_of(planes)
+    return out[..., :d].to(x.dtype), lanes_of(planes)
 
 
 # Lanes a launch of K1b's bf16 blocks (``csrc/wavenet_lane.cu``:
@@ -451,15 +459,22 @@ def split_lanes_at(kc: int, t0: int, bi: int, *, batch: int, w: int, lanes: int,
     return (k - lane * w, t0, parts - 1 - p, (slot0 + lane) * batch + bi), b_chunk0 + kb
 
 
-def scratch(b: int, n: int, d_p: int, L: int, route: str, dtype: torch.dtype, device):
-    """The scratch of a kernel's entry point, in its argument order: in
-    f32 and mixed the f32 lanes' ping-pong pair ([L, b, n, d_p] each for K1,
+def scratch(b: int, n: int, d_p: int, L: int, route: str, dtype: torch.dtype, device,
+            fmt: str | None = None):
+    """The scratch of a kernel's entry point, in its argument order, for
+    activations of ``dtype`` against weights packed in ``fmt`` (default:
+    ``gemm_cache.fmt_of(dtype)``): in f32 on the split-TF32 core (K1b
+    mixed too) the f32 lanes' ping-pong pair ([L, b, n, d_p] each for K1,
     [b, n, d_p] for K1b); in bf16 the planes' pair ([L·b, 3, n, d_p] bf16
     for K1, [LANE_GROUP·b, 3, n, d_p] for K1b) and, for K1b, the skips' f32
-    sum [b, n, d_p]; for ``route`` "bf16mm" (K1b's ``bf16_matmul``, f32 x,
-    whatever ``dtype``) x rounded to bf16 [b, n, d_p] and the one-plane
-    pair [LANE_GROUP·b, 1, n, d_p] bf16."""
+    sum [b, n, d_p]; f32 on the bf16 core (K1 mixed) x's three planes [b,
+    3, n, d_p] bf16, then K1's planes' pair; for ``route`` "bf16mm" (K1b's
+    ``bf16_matmul``, f32 x, whatever ``dtype``) x rounded to bf16 [b, n,
+    d_p] and the one-plane pair [LANE_GROUP·b, 1, n, d_p] bf16."""
     bf16 = torch.bfloat16
+    if route == "stack" and dtype == torch.float32 and fmt == "bf16_sw128":
+        planes = torch.empty((2, L * b, 3, n, d_p), dtype=bf16, device=device)
+        return [torch.empty((b, 3, n, d_p), dtype=bf16, device=device), planes[0], planes[1]]
     if route == "bf16mm":
         planes = torch.empty((2, LANE_GROUP * b, 1, n, d_p), dtype=bf16, device=device)
         return [torch.empty((b, n, d_p), dtype=bf16, device=device), planes[0], planes[1]]
@@ -523,7 +538,7 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     _build.require_shapes("wavenet_body", conv_w=(conv_w, (S, L, 3 * d, d)),
                           film=(film, (b, S, L, 2 * d)))
     bias_dtype = torch.float32 if mixed else None
-    fmt = gemm_cache.fmt_of(x.dtype, conv_w.dtype)
+    fmt = gemm_cache.fmt_of(x.dtype, conv_w.dtype, route)
     wt = gemm_cache.cached(f"wavenet_body {route} {mixed}",
                            lambda *w: _pack_checked(*w, route, bias_dtype, fmt),
                            conv_w, conv_b, res_w, res_b, skip_w, skip_b)
@@ -535,7 +550,7 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     out = torch.empty((b, n, d_p), dtype=x.dtype, device=x.device)
     entry, counter = (("ns2_wavenet_lanes", wavenet_body_lanes) if route == "lanes"
                       else ("ns2_wavenet_body", wavenet_body))
-    state = scratch(b, n, d_p, L, route, x.dtype, x.device)
+    state = scratch(b, n, d_p, L, route, x.dtype, x.device, fmt)
     err = _build.entry(entry, x.dtype, conv_w.dtype)(
         x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),
         wt.skip.data_ptr(), wt.skip_b.data_ptr(), film.data_ptr(), *(t.data_ptr() for t in state),
@@ -605,7 +620,8 @@ class _WavenetBody(torch.autograd.Function):
 def wavenet_body(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     """The WaveNet body, differentiable, by ``wavenet_route``: CUDA tensors
     run K1 (S stack launches and one skip launch of the GEMM core, counted
-    as one launch in ``wavenet_body.launches``), K1b (L·S block launches,
+    as one launch in ``wavenet_body.launches``; mixed: a split pre-pass of x
+    before them), K1b (L·S block launches,
     S·L / LANE_GROUP in bf16, and L skip launches, counted as one in
     ``wavenet_body_lanes.launches``)
     or the plain body; CPU tensors run ``wavenet_body_torch``. bf16 and
