@@ -580,6 +580,12 @@ AMP_FLOOR_DRAWS, AMP_FLOOR_FACTOR = 5, 6.0
 AMP_K1_PADDED = (2, 200, 96)
 AMP_RVQ_RAGGED = (510, 4, 1000, 72)
 AMP_RVQ_COPIED = (130, 4, 1000, 70)
+# K3 and K2 mixed at one ragged shape each that the wrappers take, (b, n,
+# dm, inner or None): K3 with neither dm nor inner a multiple of 64 (PERF's
+# ragged K3 bf16 shape), K2 at a length off the row tile (held with the
+# residual off too)
+AMP_K3_RAGGED = (4, 256, 96, 200)
+AMP_K2_RAGGED = (3, 1000, 128, None)
 
 # Few-step sampling (phases 31-35). Phase 31: K1b's `bf16_matmul` option at
 # the JAX probe's shape (b16 x n1024 x d512, 4 x 8; examples/
@@ -2517,10 +2523,13 @@ def ff_c_entry(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     from naturalspeech2_tpu_torch import _build
     from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
 
+    from naturalspeech2_tpu_torch.ops import gemm_cache
+
     b, n, dm = x.shape
     wt = fk._pack_checked(w1, b1, wc, bc, w2, x.dtype)
     b2 = b2.to(x.dtype)
-    scratch = fk.scratch(b, n, dm, wt.ip, x.dtype, x.device)
+    scratch = fk.scratch(b, n, dm, wt.ip, x.dtype, x.device,
+                         gemm_cache.fmt_of(x.dtype, w1.dtype, "ff_block"))
     out = torch.empty_like(x)
     fn = _build.entry("ns2_ff_block", x.dtype, w1.dtype)
     args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.geglu.data_ptr(),
@@ -2538,8 +2547,8 @@ def ff_c_entry(x, gamma, beta, w1, b1, wc, bc, w2, b2):
 
 def attn_c_entry(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float,
                  residual: bool = True):
-    """K2's C entry point alone, as ``ff_c_entry``: the o scratch sized as
-    the wrapper sizes it (in bf16 it first holds n(x) at dm padded to 64)."""
+    """K2's C entry point alone, as ``ff_c_entry``: the scratch sized as the
+    wrapper sizes it (``attn_scratch``)."""
     import torch
 
     from naturalspeech2_tpu_torch import _build
@@ -2550,20 +2559,19 @@ def attn_c_entry(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scal
     b, n, dm = x.shape
     dh = kernel_head_dim(dim_head)
     bt_qkv, bt_out = ak._pack_checked(wq, wkv, wo, heads, dim_head, x.dtype)
-    qkv = torch.empty((3, b, heads, n, dh), dtype=x.dtype, device=x.device)
-    o = torch.empty(b * n * max(heads * dh, gemm_cache.round_up(dm, 64)), dtype=x.dtype,
-                    device=x.device)
+    state = ak.attn_scratch(b, n, dm, heads, dh, x.dtype, x.device,
+                            gemm_cache.fmt_of(x.dtype, wq.dtype, "attn_block"))
     out = torch.empty_like(x)
     fn = _build.entry("ns2_attn_block", x.dtype, wq.dtype)
     args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), bt_qkv.data_ptr(),
-            bt_out.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, dm, heads, dh,
-            float(scale), int(residual), torch.cuda.current_stream().cuda_stream)
+            bt_out.data_ptr(), *(t.data_ptr() for t in state), out.data_ptr(), b, n, dm, heads,
+            dh, float(scale), int(residual), torch.cuda.current_stream().cuda_stream)
 
     def call():
         _build.check(fn(*args), "ns2_attn_block")
         return out
 
-    call.args, call.keep = args, (bt_qkv, bt_out, qkv, o, out)
+    call.args, call.keep = args, (bt_qkv, bt_out, state, out)
     return call
 
 
@@ -3576,10 +3584,16 @@ def _amp_rvq_case(gen, m, phase: str, num_q=8, size=1024, d=128) -> dict:
             "library_ms": None, **work}
 
 
-def amp_mixed_cases(gen, b, n, d, names) -> list:
+def amp_mixed_cases(gen, b, n, d, names, inner=None, residual=True) -> list:
     """(name, mixed kernel, plain f32 on the widened weights, f32 kernel on
     the same values, bound, residual) of K1, K2, K3 and K2b at one shape:
-    f32 activations against bf16 weights, as AMP's denoiser runs them."""
+    f32 activations against bf16 weights, as AMP's denoiser runs them. K3's
+    inner width int(8d/3) unless given; with ``residual`` False K2 leaves x
+    out (tensor parallelism's partial sums) and its case's residual is
+    None. K1's, K2's and K3's bounds count their f32 operands' products as
+    three exact bf16 passes (989 / 3 TFLOP/s), K2's attention core on K4
+    f32 in split TF32 (495 / 3), K2b's kSplit2 products as three bf16
+    passes too (the cheapest exact scheme)."""
     from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
     from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
     from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
@@ -3606,14 +3620,21 @@ def amp_mixed_cases(gen, b, n, d, names) -> list:
                       bound_bf16(flops, nbytes(*w16) + out_bytes, f32_lanes=True), None))
     if "attn_block" in names:
         a16, a32 = split(attn_inputs(gen, b, n, d, heads, dim_head), 3)
-        flops = 2 * b * n * d * 4 * hd + 4 * b * heads * n * n * dim_head
         heads_32 = ak.split_heads(*a32[3:], heads, dim_head)
-        cases.append(("attn_block", lambda: ak.attn_block(*a16, **cfg),
-                      lambda: ak.attn_block_torch(*a32[:3], *heads_32, scale=scale),
-                      lambda: ak.attn_block(*a32, **cfg),
-                      bound_bf16(flops, nbytes(*a16) + out_bytes, f32_lanes=True), a16[0]))
+        rcfg = dict(cfg, residual=residual)
+        # the projections at three bf16 passes, the core (4·b·H·n²·dh) at
+        # three TF32 passes
+        gemm_ms = bound_bf16(2 * b * n * d * 4 * hd, 0, f32_lanes=True)["bound_ms"]
+        core_ms = TF32_PASSES * 4 * b * heads * n * n * dim_head / PEAK_TF32_FLOPS * 1e3
+        bytes_ms = (nbytes(*a16) + out_bytes) / PEAK_BYTES_PER_S * 1e3
+        work = {"bound_ms": max(gemm_ms + core_ms, bytes_ms),
+                "bound_by": "operations" if gemm_ms + core_ms >= bytes_ms else "bytes"}
+        cases.append(("attn_block", lambda: ak.attn_block(*a16, **rcfg),
+                      lambda: ak.attn_block_torch(*a32[:3], *heads_32, scale=scale,
+                                                  residual=residual),
+                      lambda: ak.attn_block(*a32, **rcfg), work, a16[0] if residual else None))
     if "ff_block" in names:
-        inner = int(d * 4 * 2 / 3)
+        inner = inner or int(d * 4 * 2 / 3)
         f16, f32 = split((rn(b, n, d), 1 + rn(b, d, scale=0.1), rn(b, d, scale=0.1),
                           rn(d, 2 * inner, scale=d**-0.5), rn(2 * inner, scale=0.1),
                           rn(3, inner, inner, scale=(3 * inner) ** -0.5), rn(inner, scale=0.1),
@@ -3644,10 +3665,13 @@ def phase27_amp_kernels(bf16_summary: list) -> list:
     128] and [2, 200, 96], and K2, K3 and K2b at [16, 160, 128] (f32
     activations against bf16 weights) against the f32 plain versions on the
     widened weights (WAVENET_TOL, BLOCK_TOL), timed beside the f32 kernels
-    on the same values; K1b mixed at [1, 6733, 128] (on no AMP path) held and
-    timed likewise, logged. Adds the bf16 dropout shape to phase 22's bf16
-    K4 row; returns the new rows (bf16 K5 and K6, the mixed entries). The
-    profiles of K1 mixed and K6 bf16 run early (``check_amp_bf16_cores``)."""
+    on the same values; K3 mixed at AMP_K3_RAGGED and K2 mixed at
+    AMP_K2_RAGGED, K2 also with the residual off at both of its shapes
+    (the partial sum within BLOCK_TOL of its largest entry); K1b mixed at
+    [1, 6733, 128] (on no AMP path) held and timed likewise, logged. Adds
+    the bf16 dropout shape to phase 22's bf16 K4 row; returns the new rows
+    (bf16 K5 and K6, the mixed entries). The profiles of the mixed K1, K2
+    and K3 and of K6 bf16 run early (``check_amp_bf16_cores``)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 270)
@@ -3679,13 +3703,21 @@ def phase27_amp_kernels(bf16_summary: list) -> list:
                "attn_block": ("attn_block.cu", "attn_block_kernel.py:92"),
                "ff_block": ("ff_block.cu", "ff_block_kernel.py:97"),
                "cross_attn_block": ("cross_attn_block.cu", "attn_block_kernel.py:237")}
-    for bb, n, d, names in ((CT_BATCH, CT_FRAMES, DIM, ("wavenet_body",)),
-                            (CT_BATCH, AMP_FUSED_FRAMES, DIM, ("wavenet_body", "attn_block",
-                                                               "ff_block", "cross_attn_block")),
-                            (*AMP_K1_PADDED, ("wavenet_body",))):
-        shape = f"[{bb},{n},{d}]"
+    k3b, k3n, k3d, k3_inner = AMP_K3_RAGGED
+    k2b, k2n, k2d, _ = AMP_K2_RAGGED
+    for bb, n, d, names, kw in (
+            (CT_BATCH, CT_FRAMES, DIM, ("wavenet_body",), {}),
+            (CT_BATCH, AMP_FUSED_FRAMES, DIM, ("wavenet_body", "attn_block", "ff_block",
+                                               "cross_attn_block"), {}),
+            (CT_BATCH, AMP_FUSED_FRAMES, DIM, ("attn_block",), {"residual": False}),
+            (*AMP_K1_PADDED, ("wavenet_body",), {}),
+            (k3b, k3n, k3d, ("ff_block",), {"inner": k3_inner}),
+            (k2b, k2n, k2d, ("attn_block",), {}),
+            (k2b, k2n, k2d, ("attn_block",), {"residual": False})):
+        shape = (f"[{bb},{n},{d}]" + (f" inner {kw['inner']}" if "inner" in kw else "")
+                 + (" residual off" if kw.get("residual") is False else ""))
         for name, kernel, plain, f32_kernel, work, residual in amp_mixed_cases(gen, bb, n, d,
-                                                                                names):
+                                                                                names, **kw):
             out = kernel()
             torch.cuda.synchronize()
             if out.dtype != torch.float32:
@@ -3723,8 +3755,48 @@ def phase27_amp_kernels(bf16_summary: list) -> list:
     return [bwd_row, rvq_row, *rows.values()]
 
 
+# K3's and K2's mixed entry points as torch.profiler names their launches:
+# {kind: (the strings one kernel's name holds, launches a call)}
+K3_MIXED_LAUNCHES = {"norm pre-pass": (("norm_rows_kernel<float, 3>",), 1),
+                     "GEGLU GEMM": (("bf16_gemm_kernel", "GegluSplit"), 1),
+                     "conv GEMM": (("bf16_gemm_kernel", "StoreSplit"), 1),
+                     "W2 GEMM": (("bf16_gemm_kernel", "Store<float"), 1)}
+K2_MIXED_LAUNCHES = {"norm pre-pass": (("norm_rows_kernel<float, 3>",), 1),
+                     "q/k/v GEMM": (("bf16_gemm_kernel", "QkvScatterT<float>"), 1),
+                     "K4 f32": (("flash_fwd_kernel<float",), 1),
+                     "o split": (("split3_kernel",), 1),
+                     "W_o GEMM": (("bf16_gemm_kernel", "SplitHeadRows"), 1)}
+
+
+def check_mixed_block(phase: str, label: str, fn, expect: dict) -> None:
+    """A profile of one mixed K2 or K3 call: each kind of launch of
+    ``expect`` as often as it says, no other kernel, none of the split-TF32
+    core's (``gemm_tf32x3.cuh``)."""
+    def tally(counts):
+        got = {kind: sum(c for k, c in counts.items() if all(part in k for part in parts))
+               for kind, (parts, _) in expect.items()}
+        old = [k for k in counts if "ns2::gemm::" in k]
+        want = sum(n for _, n in expect.values())
+        ok = (not old and all(got[k] == n for k, (_, n) in expect.items())
+              and sum(counts.values()) == want)
+        short = (not old and all(got[k] <= n for k, (_, n) in expect.items())
+                 and sum(got.values()) == sum(counts.values()) < want)
+        return got, old, ok, short
+
+    counts = profile_counts(fn, short=lambda c: tally(c)[-1])
+    got, old, ok, _ = tally(counts)
+    log(phase, f"{label} profile: {got}; {[(k[:110], c) for k, c in counts.items()]}")
+    if not ok:
+        raise AssertionError(f"{label}: launches {got}, expected "
+                             f"{ {k: n for k, (_, n) in expect.items()} } and nothing else "
+                             f"({sum(counts.values())} in all), split-TF32 core {old}")
+
+
 def check_amp_bf16_cores(phase: str) -> None:
-    """Profiles of the two AMP entry points on the bf16 GEMM core: K1 mixed
+    """Profiles of the AMP entry points on the bf16 GEMM core: K3 and K2
+    mixed at [16, 160, 128] (``check_mixed_block``: the norm pre-pass and
+    three GEMMs; the norm pre-pass, the q/k/v GEMM, K4 f32, the split of o
+    and the W_o GEMM), K1 mixed
     at [16, 150, 128] (S + 1 launches of the core, the blocks' gate on f32
     parameters, one split pre-pass of x, no other kernel) and K6 bf16 at m
     2400 (Q 8, K 1024, d 128), AMP_RVQ_RAGGED and AMP_RVQ_COPIED (Q launches
@@ -3737,6 +3809,10 @@ def check_amp_bf16_cores(phase: str) -> None:
     from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 271)
+    for name, kernel, *_ in amp_mixed_cases(gen, CT_BATCH, AMP_FUSED_FRAMES, DIM,
+                                            ("ff_block", "attn_block")):
+        check_mixed_block(phase, f"{name} mixed [{CT_BATCH},{AMP_FUSED_FRAMES},{DIM}]", kernel,
+                          K3_MIXED_LAUNCHES if name == "ff_block" else K2_MIXED_LAUNCHES)
     S = WAVENET_STACKS
     wn, _ = wavenet_inputs(gen, CT_BATCH, CT_FRAMES, DIM)
     args = (wn[0], *_bf16(*wn[1:7]), wn[7])

@@ -2,7 +2,7 @@
 """One source tree's end-to-end figures on one NVIDIA GPU, to hold two
 versions of the port against each other within one machine.
 
-    python3 compare_trees.py <tree root> <label> [--kernels]
+    python3 compare_trees.py <tree root> <label> [--kernels[=<group>,...]]
 
 Imports `chip_smoke.py` and the port from ``<tree root>`` (this checkout,
 or another unpacked with ``git archive <commit> | tar -x -C <dir>``),
@@ -29,8 +29,11 @@ through the wrapper and through the C entry point alone, which both trees
 export with one signature), the bf16 flagship (b4 x n1024) and scaled
 (b16 x n1024, dim 512, depth 12) denoise steps, the f32 flagship step and
 the long-form bf16 denoise step at n 4500 and n 9000 (CUDA events, median
-of 10). Run the two trees in turns in one command (A, B, B, A): the
-host-bound figures move between machines.
+of 10); first of all K3 and K2 mixed at AMP_BLOCK_SHAPES (wrapper, C entry
+and its host time, the f32 kernel's C entry on the same values).
+``--kernels=<group>,...`` runs those groups alone (amp_blocks, amp,
+amp_steps, wavenet, blocks, bf16mm, bf16). Run the two trees in turns in
+one command (A, B, B, A): the host-bound figures move between machines.
 
 Exits non-zero without a CUDA device. Not part of the smoke run.
 """
@@ -149,7 +152,9 @@ def amp_kernels(cs, out: dict) -> None:
     from naturalspeech2_tpu_torch.ops import gemm_cache
 
     on_core = "fmt" in inspect.signature(wk.scratch).parameters
-    fmt = gemm_cache.fmt_of(f32, bf, "stack") if on_core else "tf32"
+    # K1's entry point by name, or (an older fmt_of) by its route
+    k1 = "wavenet_body" if "entry" in inspect.signature(gemm_cache.fmt_of).parameters else "stack"
+    fmt = gemm_cache.fmt_of(f32, bf, k1) if on_core else "tf32"
     for b, n, d in AMP_K1_SHAPES:
         wn, _ = cs.wavenet_inputs(gen, b, n, d, S, L)
         x, weights, film = wn[0], cs._bf16(*wn[1:7]), wn[7]
@@ -184,6 +189,54 @@ def amp_kernels(cs, out: dict) -> None:
             "c_entry_device_ms": device_ms(fn, args)}
         del x, cb, packed, norms, state, q, codes
     torch.cuda.empty_cache()
+
+
+# AMP training's K3 and K2 mixed (block, b, n, dm, inner): the 160-frame
+# step's, and chip_smoke's ragged AMP_K3_RAGGED and AMP_K2_RAGGED
+AMP_BLOCK_SHAPES = (("ff_block", 16, 160, 128, 341), ("attn_block", 16, 160, 128, None),
+                    ("ff_block", 4, 256, 96, 200), ("attn_block", 3, 1000, 128, None))
+
+
+def mixed_block_kernels(cs, out: dict) -> None:
+    """K3 and K2 mixed (f32 x, γ and β against bf16 weights) at
+    AMP_BLOCK_SHAPES: the wrapper, the C entry point alone and its host
+    time, through each tree's own ``ff_c_entry`` / ``attn_c_entry`` (its
+    signature, weights and scratch), and the f32 kernel's C entry on the
+    same values (CUDA events, median of 20)."""
+    import torch
+
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+    from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    heads, dh = cs.HEADS, cs.DIM_HEAD
+    cfg = dict(heads=heads, dim_head=dh, scale=dh**-0.5)
+    for name, b, n, dm, inner in AMP_BLOCK_SHAPES:
+        acts = (rn(b, n, dm), 1 + rn(b, dm, scale=0.1), rn(b, dm, scale=0.1))
+        if name == "ff_block":
+            weights = cs._bf16(rn(dm, 2 * inner, scale=dm**-0.5), rn(2 * inner, scale=0.1),
+                               rn(3, inner, inner, scale=(3 * inner) ** -0.5),
+                               rn(inner, scale=0.1), rn(inner, dm, scale=inner**-0.5),
+                               rn(dm, scale=0.1))
+            wrapper = lambda a=acts, w=weights: fk.ff_block(*a, *w)  # noqa: E731
+            entry, kw, key = cs.ff_c_entry, {}, "k3_mixed"
+        else:
+            hd = heads * dh
+            weights = cs._bf16(rn(dm, hd, scale=dm**-0.5), rn(dm, 2 * hd, scale=dm**-0.5),
+                               rn(hd, dm, scale=hd**-0.5))
+            wrapper = lambda a=acts, w=weights: ak.attn_block(*a, *w, **cfg)  # noqa: E731
+            entry, kw, key = cs.attn_c_entry, cfg, "k2_mixed"
+        call = entry(*acts, *weights, **kw)
+        f32_call = entry(*acts, *(w.float() for w in weights), **kw)
+        out.setdefault(key, {})[f"[{b},{n},{dm}]" + (f" inner {inner}" if inner else "")] = {
+            "wrapper_ms": cs.cuda_ms(wrapper), "c_entry_ms": cs.cuda_ms(call),
+            "c_entry_host_ms": host_ms(call, ()), "f32_c_entry_ms": cs.cuda_ms(f32_call)}
+        del acts, weights, call, f32_call
+        torch.cuda.empty_cache()
 
 
 def amp_steps(cs, out: dict) -> None:
@@ -476,13 +529,14 @@ def main() -> int:
     torch.manual_seed(cs.SEED)
     cs.phase1_card_and_build()
     out = {"label": label}
-    if "--kernels" in sys.argv[3:]:
-        amp_kernels(cs, out)
-        amp_steps(cs, out)
-        wavenet_kernels(cs, out)
-        block_kernels(cs, out)
-        bf16mm_kernels(cs, out)
-        bf16_kernels(cs, out)
+    kernels = [a for a in sys.argv[3:] if a.startswith("--kernels")]
+    if kernels:
+        groups = {"amp_blocks": mixed_block_kernels, "amp": amp_kernels, "amp_steps": amp_steps,
+                  "wavenet": wavenet_kernels, "blocks": block_kernels, "bf16mm": bf16mm_kernels,
+                  "bf16": bf16_kernels}
+        chosen = kernels[0].partition("=")[2]
+        for name in chosen.split(",") if chosen else groups:
+            groups[name](cs, out)
         print("RESULT", json.dumps(out), flush=True)
         return 0
     ns2 = cs.flagship(cs.SEED).cuda()

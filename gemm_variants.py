@@ -287,7 +287,7 @@ _GATE_LOADS = ("      float2 cbc, rbc, gamma, beta;\n"
                "        gamma = load2(f + c);\n"
                "        beta = load2(f + w + c);\n"
                "      }\n")
-_PLANE_STORES = "      for (int b = 0; b < 8 * NJ / 128 && n0 / 2 + 64 * b < w; ++b)\n"
+_PLANE_STORES = "      for (int b = 0; b < boxes && c0 + 64 * b < w; ++b)\n"
 _WAVE_SHAPE = "  const bgemm::Shape sh = bgemm::choose("
 _MMA = ("#pragma unroll\n    for (int ks = 0; ks < kKC / 16; ++ks)\n"
         "      mma<BN>(acc, sm90::desc(a_at + 32 * ks), sm90::desc(b_at + 32 * ks));\n")
@@ -318,7 +318,7 @@ WAVENET_BF16_VARIANTS = {
     "k1_bf16_no_shift": [(BF16_CORE, "    c[1] = t0 - ((2 - tap) << (lane0 + lane));\n",
                           "    c[1] = t0;\n")],
     "bf16_gate_no_clobber": [(BF16_CORE, "\"r\"(pack_bf16x2(p[0][q], p[1][q]))\n"
-                                         "                       : \"memory\");",
+                                         "                   : \"memory\");",
                               "\"r\"(pack_bf16x2(p[0][q], p[1][q])));")],
     "bf16_gate_no_loads": [(BF16_CORE, _GATE_LOADS,
                             "      const float2 cbc = make_float2(0.1f, 0.2f), rbc = cbc, "

@@ -51,7 +51,7 @@ SIGNATURES = {
     "ns2_wavenet_lanes_bf16mm": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_attn_block": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     "ns2_attn_block_bf16": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
-    "ns2_attn_block_mixed": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    "ns2_attn_block_mixed": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
     "ns2_cross_attn_block": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
     "ns2_cross_attn_block_bf16": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
     "ns2_cross_attn_block_mixed": [_P] * 11 + [_I] * 7 + [_F, _I, _P],

@@ -43,6 +43,25 @@
 // tile, so P is rounded against the running row max, not the final one (one
 // bf16 ulp on some probabilities; chip_smoke.py holds the block to its
 // plain version).
+//
+// Mixed (`ns2_attn_block_mixed`: f32 x, γ and β against bf16 weights, AMP
+// training's denoiser; the JAX kernel with `mm = float32`: the norm, q, k,
+// v, the attention and every product in f32, the bf16 weights widened
+// exactly): the projections on the bf16 core with each f32 operand carried
+// as three bf16 planes (hi, mid, lo: `split3`, an exact sum), each part's
+// product with a bf16 weight exact in f32, so a product is three bf16
+// passes over the same chunks of B, lo first. Five launches, every GEMM a
+// programmatic dependent of the kernel before it:
+//  1. the norm pre-pass writes n(x)'s three planes [b, 3, n, dm_pad] into
+//     the planes scratch (the norm, γ and β in f32);
+//  2. q/k/v over those parts (`SplitLanes`, one lane), stored in f32 into
+//     K4's layout (`QkvScatterT<float>`), as the JAX kernel keeps them;
+//  3. the attention core on K4's f32 kernel (flash_fwd.cu, split TF32), as
+//     the JAX kernel runs it in f32;
+//  4. o split into its three planes (`split_planes` of o as [b, H·n, dh]:
+//     [b, 3·H, n, dh]), over n(x)'s planes, which are dead by then;
+//  5. y = (x +) Σ_h o_h · W_o,h over o's three parts (`SplitHeadRows`),
+//     stored in f32, x added only when the residual is on.
 #include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 
@@ -78,9 +97,7 @@ int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, 
                             0u, 0.0f, 0, 0u, 1.0f, 0, 0, stream);
 }
 
-// The block on the split-TF32 core: f32 (kSplit3) or, M = kSplit2, the
-// mixed entry point (f32 rows against TF32-exact bf16 weights).
-template <gemm::Mode M = gemm::Mode::kSplit3>
+// The block on the split-TF32 core (f32).
 int attn_block(const float* x, const float* gamma, const float* beta, const float* bt_qkv,
                const float* bt_out, float* qkv, float* o, float* out, int b, int n, int dm,
                int heads, int dh, float scale, int residual, void* stream) {
@@ -88,7 +105,7 @@ int attn_block(const float* x, const float* gamma, const float* beta, const floa
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = b * n;
-  cudaError_t err = gemm::launch<M>(
+  cudaError_t err = gemm::launch(
       gemm::NormRows{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_qkv, rows,
       (dm + gemm::kKC - 1) / gemm::kKC, 3 * heads * dh / gemm::kBN,
       gemm::QkvScatter{qkv, rows, n, heads, b, dh}, st);
@@ -97,9 +114,9 @@ int attn_block(const float* x, const float* gamma, const float* beta, const floa
   err = (cudaError_t)attention_core(qkv, qkv + plane, qkv + 2 * plane, o, b, heads, n, n, dh,
                                     scale, stream);
   if (err != cudaSuccess) return err;
-  return gemm::launch<M>(gemm::HeadRows{o, rows, n, heads, dh}, bt_out, rows,
-                         heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store{out, nullptr, residual ? x : nullptr, rows, dm, dm}, st);
+  return gemm::launch(gemm::HeadRows{o, rows, n, heads, dh}, bt_out, rows,
+                      heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
+                      gemm::Store{out, nullptr, residual ? x : nullptr, rows, dm, dm}, st);
 }
 
 // The block on the bf16 core (gemm_bf16.cuh); o holds max(H·dh, dm_pad)
@@ -122,6 +139,32 @@ int attn_block_bf16(const bf16* x, const bf16* gamma, const bf16* beta, const bf
                        bgemm::Store<>{out, nullptr, residual ? x : nullptr, dm, dm}, st);
 }
 
+// The mixed block on the bf16 core: qkv [3, b, H, n, dh] and o [b, H, n, dh]
+// f32 scratch, planes [b, 3, ·] bf16 scratch of 3·max(H·dh, dm_pad) values a
+// row (n(x)'s planes, then o's).
+int attn_block_mixed(const float* x, const float* gamma, const float* beta, const bf16* bt_qkv,
+                     const bf16* bt_out, float* qkv, float* o, bf16* planes, float* out, int b,
+                     int n, int dm, int heads, int dh, float scale, int residual, void* stream) {
+  if (dm <= 0 || n <= 0 || b <= 0 || heads <= 0 || (dh != 64 && (dh <= 0 || dh % 128 != 0)))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hd = heads * dh;
+  cudaError_t err = bgemm::launch_normed_split(x, gamma, beta, planes, b, n, dm, bt_qkv, 3 * hd,
+                                               bgemm::QkvScatterT<float>{qkv, n, heads, b, dh},
+                                               st);
+  if (err != cudaSuccess) return err;
+  const size_t plane = (size_t)b * n * hd;
+  err = (cudaError_t)attention_core(qkv, qkv + plane, qkv + 2 * plane, o, b, heads, n, n, dh,
+                                    scale, stream);
+  if (err == cudaSuccess) err = bgemm::split_planes(o, planes, b, heads * n, dh, st);
+  if (err != cudaSuccess) return err;
+  return bgemm::launch_planes(planes, 3 * heads, dh, bgemm::SplitHeadRows{b, heads, n, dh},
+                              bt_out, bgemm::round_up(dm, bgemm::kPad), hd / bgemm::kKC,
+                              3 * hd / bgemm::kKC,
+                              bgemm::Store<float>{out, nullptr, residual ? x : nullptr, dm, dm},
+                              st);
+}
+
 }  // namespace
 
 // x [b,n,dm] -> out [b,n,dm], heads of dh = 64 or a multiple of 128 (K4's
@@ -139,18 +182,18 @@ NS2_API int ns2_attn_block(const float* x, const float* gamma, const float* beta
                     residual, stream);
 }
 
-// Mixed (`ns2_attn_block_mixed`: f32 activations, γ, β and biases against bf16
-// weights packed as TF32 with no lo part, AMP training's denoiser): the f32
-// block, the GEMM core in its two-pass kSplit2 mode (the f32 rows split
-// into hi and lo against the weights' exact TF32 values), the attention
-// core on K4's f32 kernel. The JAX kernel computes the same, its products
-// promoting the bf16 weights to f32 (`mm = float32`).
+// Mixed (`ns2_attn_block_mixed`, see the top of this file): x, γ, β and out
+// f32; the weights bf16 packed "bf16_sw128" as for ns2_attn_block_bf16;
+// qkv [3, b, H, n, dh] and o [b, H, n, dh] f32 scratch, planes bf16 scratch
+// of 3·max(H·dh, dm padded to 64) values for each of the b·n rows. Five
+// launches: the norm pre-pass, the q/k/v GEMM, K4 f32, the split of o and
+// the W_o GEMM. residual 0 as for ns2_attn_block.
 NS2_API int ns2_attn_block_mixed(const float* x, const float* gamma, const float* beta,
-                                 const float* bt_qkv, const float* bt_out, float* qkv, float* o,
-                                 float* out, int b, int n, int dm, int heads, int dh, float scale,
-                                 int residual, void* stream) {
-  return attn_block<gemm::Mode::kSplit2>(x, gamma, beta, bt_qkv, bt_out, qkv, o, out, b,
-                                                n, dm, heads, dh, scale, residual, stream);
+                                 const bf16* bt_qkv, const bf16* bt_out, float* qkv, float* o,
+                                 bf16* planes, float* out, int b, int n, int dm, int heads, int dh,
+                                 float scale, int residual, void* stream) {
+  return attn_block_mixed(x, gamma, beta, bt_qkv, bt_out, qkv, o, planes, out, b, n, dm, heads,
+                          dh, scale, residual, stream);
 }
 
 // The same in bf16 on the bf16 core: every pointer bf16, the weights packed

@@ -1,7 +1,7 @@
 // The bf16 GEMM core of K1 (wavenet.cu), K1b (wavenet_lane.cu, its
 // `bf16_matmul` option too), K2 (attn_block.cu), K2b (cross_attn_block.cu)
-// and K3 (ff_block.cu) in bf16, of K1's mixed entry point (f32 x against
-// bf16 weights) and of K6 in bf16 (rvq.cu):
+// and K3 (ff_block.cu) in bf16, of the mixed entry points of K1, K2 and K3
+// (f32 activations against bf16 weights) and of K6 in bf16 (rvq.cu):
 //
 //   C[M x N] = epilogue(A[M x K] · B[K x N]),   A and B bf16, summed in f32,
 //
@@ -59,15 +59,18 @@
 // gate columns, so both products share A), `Store` (bias and an optional
 // residual, summed in f32, rounded once), `QkvScatter` (into K4's [3, b,
 // H, n, dh]), `WaveGateSplit` (K1's gate, into three bf16 planes, or
-// one for `bf16_matmul`) and `ArgMin` (K6's distances and each row's
-// first minimum). Every rounding point of the JAX kernels stays where the
+// one for `bf16_matmul`), `GegluSplit` and `StoreSplit` (K3 mixed: a's and
+// c's three planes) and `ArgMin` (K6's distances and each row's first
+// minimum). Every rounding point of the JAX kernels stays where the
 // callers put it: the core only sums A·B in f32 and hands the sum to the
 // epilogue.
 //
 // f32 operands against bf16 values (K1 and K1b in bf16, whose JAX kernels
 // keep their lanes in f32 and multiply them by the bf16 weights with f32
-// products; K1's mixed entry, whose x is f32 too; K6 in bf16, whose f32
-// residual meets bf16 codebooks): an f32 value v is carried as three bf16
+// products; the mixed entries of K1, K2 and K3, whose activations are f32
+// too: n(x) by `norm_planes`, K3's a and c by their epilogues, K2's o by
+// `split_planes`; K6 in bf16, whose f32 residual meets bf16 codebooks): an
+// f32 value v is carried as three bf16
 // planes, hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), which
 // sum to v exactly (8 + 8 + 8 of f32's 24 significant bits), and each part
 // times a bf16 value is exact in f32. So the product is three bf16 passes
@@ -385,6 +388,25 @@ struct SplitLanes {
   }
 };
 
+// K2's W_o product in its mixed entry: A[bi·n + t, (part, h, e)] = part
+// `part` of K4's f32 output o[bi, h, t, e], from the planes [b, 3·H, n, dh]
+// that `split_planes` writes of o read as [b, H·n, dh] (part q of head h at
+// slice q·H + h); K = 3·H·dh, the parts lo first, each against the same
+// chunks of W_o. dh a multiple of 64, so each chunk lies in one head.
+struct SplitHeadRows {
+  int batch, heads, n, dh;
+
+  __device__ int at(int kc, int t0, int bi, int (&c)[4]) const {
+    const int per_part = heads * dh / kKC, p = kc / per_part, kb = kc - p * per_part;
+    const int k = kb * kKC, h = k / dh;
+    c[0] = k - h * dh;
+    c[1] = t0;
+    c[2] = (2 - p) * heads + h;
+    c[3] = bi;
+    return kb;
+  }
+};
+
 // B: the packed Bᵀ [chunks, b_rows, 64] as a 3-dim map, boxes of BN rows of
 // one chunk, copied as they lie (already swizzled); rows past b_rows read
 // as zeros. `chunks` may cover several packed B's one after another (K1's
@@ -476,10 +498,12 @@ struct Geglu {
 };
 
 // K2's q/k/v: column which·H·dh + h·dh + e (which: q, k, v) is column e of
-// head h of that projection, scattered into K4's layout qkv [3, b, H, n, dh];
+// head h of that projection, scattered into K4's layout qkv [3, b, H, n, dh]
+// of Out (bf16, rounded once; f32 for K2's mixed entry, whose K4 is f32);
 // dh % 64 == 0, so each 64 columns lie within one head.
-struct QkvScatter {
-  bf16* qkv;
+template <class Out>
+struct QkvScatterT {
+  Out* qkv;
   int n, heads, batch, dh;
 
   template <int NJ>
@@ -496,7 +520,7 @@ struct QkvScatter {
         const int col = n0 + 64 * p, which = col / hd;
         if (which >= 3) continue;
         const int h = col % hd / dh, e0 = col % dh;
-        bf16* dst = qkv + ((((size_t)which * batch + bi) * heads + h) * n + t) * dh + e0;
+        Out* dst = qkv + ((((size_t)which * batch + bi) * heads + h) * n + t) * dh + e0;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj)
           store2(dst + 8 * jj + 2 * (lane % 4), acc[8 * p + jj][2 * r],
@@ -505,6 +529,7 @@ struct QkvScatter {
     }
   }
 };
+using QkvScatter = QkvScatterT<bf16>;
 
 // The parts of an f32 value: hi = bf16(v), mid = bf16(v - hi), lo = bf16(v
 // - hi - mid), each rounded to nearest even; lo + mid + hi == v exactly
@@ -527,6 +552,59 @@ inline cudaError_t planes_map(CUtensorMap* map, const bf16* planes, int seqs, in
   return make_map(map, planes, 4, dims, strides, box, true);
 }
 
+// f32 values written as bf16 planes by an epilogue (`WaveGateSplit`,
+// `GegluSplit`, `StoreSplit`): a warpgroup stages its 64 rows of them in
+// shared memory (the ring, free once both warpgroups' products are done),
+// box by box in the layout `planes_map`'s boxes take ([Parts][64 rows][64
+// columns], each 128-byte row swizzled), and one thread stores the boxes by
+// TMA. Parts: three (`split3`) or one, bf16(v) rounded to nearest even.
+// Stored by each thread in 4-byte pieces, three planes to a value, they
+// took about a fifth of K1's time at b4 n1024 d128 (PERF.md).
+template <int Parts>
+struct StagedPlanes {
+  static_assert(Parts == 3 || Parts == 1, "three parts of an f32 value, or its bf16 value");
+  static constexpr uint32_t kBox = Parts * 64 * sm90::kPanelRowBytes;
+
+  // values v0, v1 of columns cc, cc + 1 (cc even) of the staged tile, row
+  // `row` of the warpgroup's 64, into the boxes from shared address `stage`
+  __device__ static void put(uint32_t stage, int row, int cc, float v0, float v1) {
+    float p[2][Parts];
+    if constexpr (Parts == 3) {
+      split3(v0, p[0]);
+      split3(v1, p[1]);
+    } else {  // pack_bf16x2 rounds them to nearest even
+      p[0][0] = v0;
+      p[1][0] = v1;
+    }
+    const uint32_t box = stage + cc / 64 * kBox;
+#pragma unroll
+    for (int q = 0; q < Parts; ++q) {
+      const uint32_t at = box + sm90::swizzled(64 * q + row, cc % 64 / 8) + 2 * (cc % 8);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(pack_bf16x2(p[0][q], p[1][q]))
+                   : "memory");
+    }
+  }
+
+  // once the warpgroup has put its values: up to `boxes` boxes, those of
+  // columns c0 + 64·i < w, stored through `map` (planes_map) at row t of
+  // sequence seq; rows past n are not written
+  __device__ static void store(const CUtensorMap* map, uint32_t stage, int boxes, int c0, int w,
+                               int t, int seq, int warp, int lane, int wg) {
+    fence_proxy_async();          // the stores, made visible to the TMA unit
+    sm90::bar_sync(3 + wg, 128);  // the warpgroup's planes are staged
+    if (warp == 0 && lane == 0) {
+      for (int b = 0; b < boxes && c0 + 64 * b < w; ++b)
+        asm volatile(
+            "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], "
+            "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+            "r"(stage + b * kBox), "r"(c0 + 64 * b), "r"(t), "r"(0), "r"(seq)
+            : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // before the block exits
+    }
+  }
+};
+
 // K1's gated block on the bf16 core: each 64 columns of B hold 32 conv
 // columns and the same 32 residual columns (ops/wavenet_kernel.py's
 // `block_weights`), so conv column c sits at j in [8g, 8g + 4) of group g
@@ -539,12 +617,9 @@ inline cudaError_t planes_map(CUtensorMap* map, const bf16* planes, int seqs, in
 // is lane s / per_lane of the launch and batch s % per_lane. cb, rb:
 // [lanes, w] of P (bf16, or f32 for `bf16_matmul` and K1's mixed entry)
 // from the launch's first lane; film: [b, ·, 2w] of P from it, batch rows
-// film_b apart, lanes 2w apart. A warpgroup stages its 64 rows' planes in
-// shared memory (the ring, free once both warpgroups' products are done;
-// `kStaging` bytes each), in the layout `planes_map`'s boxes take, and one
-// thread stores them by TMA: stored by each thread in 4-byte pieces, three
-// planes to a value, they took about a fifth of K1's time at b4 n1024 d128
-// (PERF.md). With f32 parameters the warpgroup first copies the tile's cb,
+// film_b apart, lanes 2w apart. A warpgroup stages its 64 rows' planes
+// (`StagedPlanes`, `kStaging` bytes each). With f32 parameters the
+// warpgroup first copies the tile's cb,
 // rb, γ and β (one column a thread) into shared memory past its planes, and
 // the gate reads them there: read from device memory in the gate's loop,
 // they took 10–16 % of `bf16_matmul`'s time (gemm_variants.py's
@@ -562,7 +637,7 @@ struct WaveGateSplit {
 
   // shared memory of a warpgroup's planes: BN / 128 boxes of [Parts][64][64]
   template <int BN>
-  static constexpr uint32_t kPlanes = BN / 128 * Parts * 64 * sm90::kPanelRowBytes;
+  static constexpr uint32_t kPlanes = BN / 128 * StagedPlanes<Parts>::kBox;
   // and of what it stages in all: with f32 parameters, then the tile's cb,
   // rb, γ, β [4][BN / 2] f32, the next warpgroup's planes 1024-byte aligned
   template <int BN>
@@ -573,7 +648,6 @@ struct WaveGateSplit {
   __device__ void operator()(const float (&acc)[NJ][4], int m0, int row_end, int n0, int warp,
                              int lane, uint32_t stage, int wg) const {
     static_assert(NJ >= 16, "a tile of 128 columns or more: 64 conv columns a box");
-    constexpr uint32_t kBox = Parts * 64 * sm90::kPanelRowBytes;
     constexpr int kCols = 4 * NJ;  // the tile's conv columns: BN / 2
     if (m0 >= row_end) return;  // the warpgroup's rows all past its sequence
     // a tile's rows lie in one sequence: one lane, one batch row
@@ -613,42 +687,17 @@ struct WaveGateSplit {
         gamma = load2(f + c);
         beta = load2(f + w + c);
       }
-      const uint32_t box = stage + cc / 64 * kBox;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = r0 + 8 * r;
         const float y0 = (acc[j][2 * r] + cbc.x) * gamma.x + beta.x;
         const float y1 = (acc[j][2 * r + 1] + cbc.y) * gamma.y + beta.y;
         const float v0 = tanhf(y0) * sigmoid(y0) + acc[j + 4][2 * r] + rbc.x;
         const float v1 = tanhf(y1) * sigmoid(y1) + acc[j + 4][2 * r + 1] + rbc.y;
-        float p[2][Parts];
-        if constexpr (Parts == 3) {
-          split3(v0, p[0]);
-          split3(v1, p[1]);
-        } else {  // pack_bf16x2 rounds them to nearest even
-          p[0][0] = v0;
-          p[1][0] = v1;
-        }
-#pragma unroll
-        for (int q = 0; q < Parts; ++q) {
-          const uint32_t at = box + sm90::swizzled(64 * q + row, cc % 64 / 8) + 4 * (lane % 4);
-          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(pack_bf16x2(p[0][q], p[1][q]))
-                       : "memory");
-        }
+        StagedPlanes<Parts>::put(stage, r0 + 8 * r, cc, v0, v1);
       }
     }
-    fence_proxy_async();                   // the stores, made visible to the TMA unit
-    sm90::bar_sync(3 + wg, 128);           // the warpgroup's planes are staged
-    if (warp == 0 && lane == 0) {
-      for (int b = 0; b < 8 * NJ / 128 && n0 / 2 + 64 * b < w; ++b)
-        asm volatile(
-            "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], "
-            "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(&out)),
-            "r"(stage + b * kBox), "r"(n0 / 2 + 64 * b), "r"(m0 - seq * n), "r"(0), "r"(seq)
-            : "memory");
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // before the block exits
-    }
+    StagedPlanes<Parts>::store(&out, stage, 8 * NJ / 128, n0 / 2, w, m0 - seq * n, seq, warp,
+                               lane, wg);
   }
 
   // two adjacent bf16 (p 4-byte aligned) as f32
@@ -662,6 +711,73 @@ struct WaveGateSplit {
     float2 v;
     asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(at) : "memory");
     return v;
+  }
+};
+
+// K3's GEGLU in its mixed entry (f32 x against bf16 weights): as `Geglu`
+// (each 64 columns of B hold 32 value and the same 32 gate columns), with
+// f32 biases, a = gelu_tanh(gate + b_gate[c]) · (val + b_val[c]) in f32,
+// written as the three bf16 planes of a [b, 3, n, w] (`StagedPlanes`, the
+// tile's BN / 2 columns of a), which the conv reads as its A.
+struct GegluSplit {
+  CUtensorMap out;  // planes_map of a's planes
+  const float* b_val;
+  const float* b_gate;
+  int n, w;
+
+  template <int BN>
+  static constexpr uint32_t kStaging = BN / 128 * StagedPlanes<3>::kBox;
+
+  template <int NJ>
+  __device__ void operator()(const float (&acc)[NJ][4], int m0, int row_end, int n0, int warp,
+                             int lane, uint32_t stage, int wg) const {
+    static_assert(NJ >= 16, "a tile of 128 columns or more: 64 columns of a a box");
+    if (m0 >= row_end) return;  // the warpgroup's rows all past its sequence
+    const int seq = m0 / n, r0 = 16 * warp + lane / 4;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j % 8 >= 4) continue;  // a gate tile: read with its value tile
+      const int cc = 32 * (j / 8) + 8 * (j % 8) + 2 * (lane % 4);  // column of a in the tile
+      const int c = n0 / 2 + cc;
+      if (c >= w) continue;
+      const float bv0 = b_val[c], bv1 = b_val[c + 1], bg0 = b_gate[c], bg1 = b_gate[c + 1];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        StagedPlanes<3>::put(stage, r0 + 8 * r, cc,
+                             gelu_tanh(acc[j + 4][2 * r] + bg0) * (acc[j][2 * r] + bv0),
+                             gelu_tanh(acc[j + 4][2 * r + 1] + bg1) * (acc[j][2 * r + 1] + bv1));
+    }
+    StagedPlanes<3>::store(&out, stage, 8 * NJ / 128, n0 / 2, w, m0 - seq * n, seq, warp, lane,
+                           wg);
+  }
+};
+
+// K3's conv in its mixed entry: c[row, col] = acc + bias[col] in f32 for
+// col < w (bias f32), written as the three bf16 planes of c [b, 3, n, w]
+// (`StagedPlanes`, the tile's BN columns), which W₂'s product reads.
+struct StoreSplit {
+  CUtensorMap out;  // planes_map of c's planes
+  const float* bias;
+  int n, w;
+
+  template <int BN>
+  static constexpr uint32_t kStaging = BN / 64 * StagedPlanes<3>::kBox;
+
+  template <int NJ>
+  __device__ void operator()(const float (&acc)[NJ][4], int m0, int row_end, int n0, int warp,
+                             int lane, uint32_t stage, int wg) const {
+    if (m0 >= row_end) return;
+    const int seq = m0 / n, r0 = 16 * warp + lane / 4;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int cc = 8 * j + 2 * (lane % 4), c = n0 + cc;
+      if (c >= w) continue;
+      const float b0 = bias[c], b1 = bias[c + 1];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        StagedPlanes<3>::put(stage, r0 + 8 * r, cc, acc[j][2 * r] + b0, acc[j][2 * r + 1] + b1);
+    }
+    StagedPlanes<3>::store(&out, stage, 8 * NJ / 64, n0, w, m0 - seq * n, seq, warp, lane, wg);
   }
 };
 
@@ -727,6 +843,10 @@ template <class E>
 constexpr bool kStagesOut = false;
 template <int Parts, class P>
 constexpr bool kStagesOut<WaveGateSplit<Parts, P>> = true;
+template <>
+constexpr bool kStagesOut<GegluSplit> = true;
+template <>
+constexpr bool kStagesOut<StoreSplit> = true;
 
 // ---- the kernel -----------------------------------------------------------
 
@@ -940,8 +1060,9 @@ constexpr int kNormRowsPerBlock = 8;  // one warp a row
 // out[row, k] = n(x)[row, k] rounded to bf16 for k < dm, 0 for dm <= k < ld:
 // the adaptive RMSNorm x / max(‖x‖, 1e-12) · √dm · γ_b + β_b of x [rows,
 // dm] (row = b·n + t, γ, β [b, dm]) in f32, as the split-TF32 core's
-// NormRows loader computes it; ld even.
-template <class In>
+// NormRows loader computes it; ld even. Parts 3 (the mixed entries' f32
+// x): its three parts (`split3`) into the planes [b, 3, n, ld] instead.
+template <class In, int Parts = 1>
 __global__ void __launch_bounds__(32 * kNormRowsPerBlock)
 norm_rows_kernel(const In* __restrict__ x, const In* __restrict__ gamma,
                  const In* __restrict__ beta, bf16* __restrict__ out, int rows, int n, int dm,
@@ -958,7 +1079,8 @@ norm_rows_kernel(const In* __restrict__ x, const In* __restrict__ gamma,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
   const float scale = sqrt_dm / fmaxf(sqrtf(ss), 1e-12f);
-  bf16* o = out + (size_t)row * ld;
+  const size_t plane = (size_t)n * ld;  // row t of sequence bi, plane q: (bi·Parts + q)·n + t
+  bf16* o = out + (size_t)(row / n) * (Parts - 1) * plane + (size_t)row * ld;
   for (int k = 2 * lane; k < ld; k += 64) {
     float v[2];
 #pragma unroll
@@ -966,7 +1088,15 @@ norm_rows_kernel(const In* __restrict__ x, const In* __restrict__ gamma,
       v[e] = k + e < dm
                  ? to_f32(p[k + e]) * scale * to_f32(gamma[bd + k + e]) + to_f32(beta[bd + k + e])
                  : 0.0f;
-    store2(o + k, v[0], v[1]);
+    if constexpr (Parts == 1) {
+      store2(o + k, v[0], v[1]);
+    } else {
+      float q[2][3];
+      split3(v[0], q[0]);
+      split3(v[1], q[1]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) store2(o + i * plane + k, q[0][i], q[1][i]);
+    }
   }
 }
 
@@ -978,6 +1108,18 @@ inline cudaError_t norm_rows(const bf16* x, const bf16* gamma, const bf16* beta,
   norm_rows_kernel<bf16><<<(rows + kNormRowsPerBlock - 1) / kNormRowsPerBlock,
                            32 * kNormRowsPerBlock, 0, stream>>>(x, gamma, beta, out, rows, n, dm,
                                                                 ld, sqrtf((float)dm));
+  return cudaGetLastError();
+}
+
+// The three parts of n(x) of f32 x [b·n, dm] into the planes [b, 3, n, ld]
+// (ld >= dm, even), launched on `stream` without synchronising.
+inline cudaError_t norm_planes(const float* x, const float* gamma, const float* beta,
+                               bf16* planes, int rows, int n, int dm, int ld,
+                               cudaStream_t stream) {
+  if (rows <= 0 || n <= 0 || dm <= 0 || ld < dm || ld % 2 != 0) return cudaErrorInvalidValue;
+  norm_rows_kernel<float, 3><<<(rows + kNormRowsPerBlock - 1) / kNormRowsPerBlock,
+                               32 * kNormRowsPerBlock, 0, stream>>>(x, gamma, beta, planes, rows,
+                                                                    n, dm, ld, sqrtf((float)dm));
   return cudaGetLastError();
 }
 
@@ -1067,6 +1209,43 @@ cudaError_t launch_normed(const bf16* x, const bf16* gamma, const bf16* beta, bf
   const cudaError_t err = norm_rows(x, gamma, beta, scratch, b * n, n, dm, dm_pad, stream);
   if (err != cudaSuccess) return err;
   return launch(Rows{scratch, b, n, dm_pad, dm_pad}, bt, b_rows, chunks, epi, stream);
+}
+
+// C = epilogue(A · B) with A read from bf16 planes [batch, slices, n, w]
+// (ld.batch, ld.n; a loader over parts: `SplitLanes`, `SplitTaps`,
+// `SplitHeadRows`) and B the packed Bᵀ of b_rows rows and b_chunks chunks;
+// chunks · 64 = K (each part's chunks against the same B chunks). The tile
+// shape by waves (of 128 columns or more for an epilogue that stages its
+// output), both maps encoded for this launch.
+template <class Loader, class Epilogue>
+cudaError_t launch_planes(const bf16* planes, int slices, int w, const Loader& ld, const bf16* bt,
+                          int b_rows, int b_chunks, int chunks, const Epilogue& epi,
+                          cudaStream_t stream) {
+  if (ld.batch <= 0 || ld.n <= 0 || chunks <= 0 || b_rows <= 0 || b_rows % kPad != 0 ||
+      w % kKC != 0)
+    return cudaErrorInvalidValue;
+  const Shape s = choose(ld.batch, ld.n, b_rows, kStagesOut<Epilogue>);
+  CUtensorMap map_a, map_b;
+  cudaError_t err = rows_map(&map_a, planes, ld.batch, slices, ld.n, w, w, s.bm);
+  if (err != cudaSuccess) return err;
+  err = b_map(&map_b, bt, b_rows, b_chunks, s.bn);
+  if (err != cudaSuccess) return err;
+  return launch_at(s, map_a, map_b, ld, b_rows, chunks, epi, stream);
+}
+
+// `launch_normed` for f32 x against bf16 B (the mixed entries of K2 and
+// K3): the pre-pass writes the three parts of n(x) into `planes` [b, 3, n,
+// dm padded to 64], then one GEMM over them, K = 3 · dm padded, the parts
+// lo first (`SplitLanes` with one lane).
+template <class Epilogue>
+cudaError_t launch_normed_split(const float* x, const float* gamma, const float* beta,
+                                bf16* planes, int b, int n, int dm, const bf16* bt, int b_rows,
+                                const Epilogue& epi, cudaStream_t stream) {
+  const int dm_pad = round_up(dm, kPad), per_part = dm_pad / kKC;
+  const cudaError_t err = norm_planes(x, gamma, beta, planes, b * n, n, dm, dm_pad, stream);
+  if (err != cudaSuccess) return err;
+  return launch_planes(planes, 3, dm_pad, SplitLanes{b, n, dm_pad, 1, 3, 0, 0}, bt, b_rows,
+                       per_part, 3 * per_part, epi, stream);
 }
 
 }  // namespace bgemm

@@ -4,8 +4,9 @@ launches in ``<wrapper>.launches`` (f32 entry points; the blocks' products
 on the split-TF32 GEMM core), ``<wrapper>.launches_bf16`` (bf16 entry
 points; K1, K1b, K2, K2b, K3 and K6 on the bf16 GEMM core) and, where it
 has them, ``<wrapper>.launches_mixed`` (f32 activations against bf16
-weights: K1, K1b, K2, K2b and K3 under AMP training; K1 on the bf16 GEMM
-core, the others on the split-TF32 core's two-pass mode) and, for K1b's
+weights: K1, K1b, K2, K2b and K3 under AMP training; K1, K2 and K3 on
+the bf16 GEMM core, K1b and K2b on the split-TF32 core's two-pass mode)
+and, for K1b's
 ``bf16_matmul`` option (the bf16 core, one bf16 plane a lane),
 ``wavenet_body_lanes.launches_bf16mm``. The six noise-schedule functions
 are exported here too, as the JAX package's `ops` does."""

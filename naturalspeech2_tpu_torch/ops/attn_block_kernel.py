@@ -42,12 +42,17 @@ K2b's).
 Mixed (x, γ, β and the context float32, the weights bfloat16: AMP
 training's denoiser) both compute the f32 block on the weights' values,
 exact in f32, as the JAX kernels do with `mm = float32`: on a card through
-their mixed entry points (the weights packed as TF32 with no lo part, the
-GEMM core's two-pass kSplit2 mode, counted in ``launches_mixed``), on the
-CPU the plain f32 versions on the widened weights. The backward in every
-dtype is the vjp of a function that widens its inputs to f32 and returns
-y at x's dtype, as the JAX package's twins do (`_attn_core_flash`,
-`cross_attn_block_xla`), so each gradient comes back at its input's dtype.
+their mixed entry points (counted in ``launches_mixed``), on the CPU the
+plain f32 versions on the widened weights. K2's runs the bf16 GEMM core
+(the weights packed "bf16_sw128"; n(x) and K4 f32's output o each carried
+as three bf16 planes, ``gemm_cache.split3``, so every product is three
+exact bf16 passes; q, k, v in f32 for K4 f32; ``attn_block_planes_torch``
+is its model, ``attn_scratch`` sizes its scratch); K2b's the split-TF32
+core's two-pass kSplit2 mode on weights packed as TF32 with no lo part.
+The backward in every dtype is the vjp of a function that widens its
+inputs to f32 and returns y at x's dtype, as the JAX package's twins do
+(`_attn_core_flash`, `cross_attn_block_xla`), so each gradient comes back
+at its input's dtype.
 
 ``residual=False`` leaves x out of y in every version, kernel and plain
 alike: y = Σ_h o_h · W_o,h, the partial sum of a rank that holds some of
@@ -273,6 +278,65 @@ def _packed_bf16(x, gamma, beta, packed, *, heads: int, scale: float):
     return (xf + o.transpose(1, 2).reshape(b, n, hd) @ dense[1][:dm, :hd].T).to(x.dtype)
 
 
+def attn_block_planes_torch(x, gamma, beta, packed, *, heads: int, scale: float,
+                            residual: bool = True):
+    """The mixed entry point's launches in plain PyTorch (f32 x, γ and β
+    against weights packed "bf16_sw128"): n(x) split into its three bf16
+    planes, q/k/v as three-part products kept in f32 in K4's layout, the
+    attention core in f32 (``flash_forward_torch``), o split into its three
+    planes [b, 3·H, n, dh] (part q of head h at slice q·H + h), the heads'
+    concatenation of o's parts times W_o, x added when ``residual``.
+    Returns (y, the planes of n(x) [b, 3, n, dm], q/k/v [3, b, H, n, dh]
+    f32, o's planes)."""
+    b, n, dm = x.shape
+    dense = [gemm_cache.unpack_b(p, "bf16_sw128")[0] for p in packed]
+    hd = dense[1].shape[1]
+    dh = hd // heads
+    xn = torch.stack(gemm_cache.split3(ada_norm(x, gamma, beta)), dim=1)
+    qkv = gemm_cache.parts_product(xn.unbind(1), dense[0][:3 * hd, :dm].T)
+    qkv = qkv.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    o, _ = flash_forward_torch(*qkv, None, None, causal=False, scale=scale)
+    o_planes = torch.cat(gemm_cache.split3(o), dim=1)
+    parts = [p.transpose(1, 2).reshape(b, n, hd) for p in o_planes.chunk(3, dim=1)]
+    y = gemm_cache.parts_product(parts, dense[1][:dm, :hd].T)
+    return (x + y if residual else y), xn, qkv, o_planes
+
+
+def split_head_rows_at(kc: int, t0: int, bi: int, *, heads: int, dh: int):
+    """The twin of the bf16 core's ``SplitHeadRows::at`` (``csrc/
+    gemm_bf16.cuh``): chunk ``kc`` of the W_o product's A (K = 3·H·dh, the
+    parts lo first) for the row tile from t0 of sequence bi is the box of
+    64 columns from c, rows t onward, of slice ``part·H + h`` of o's planes
+    [b, 3·H, n, dh]. Returns ((c, t, slice, bi), the chunk of the packed
+    W_o it multiplies)."""
+    per_part = heads * dh // gemm_cache.SW128_CHUNK
+    p, kb = divmod(kc, per_part)
+    k = kb * gemm_cache.SW128_CHUNK
+    h = k // dh
+    return (k - h * dh, t0, (2 - p) * heads + h, bi), kb
+
+
+def attn_scratch(b: int, n: int, dm: int, heads: int, dh: int, dtype: torch.dtype, device,
+                 fmt: str | None = None) -> tuple:
+    """The scratch of K2's entry point at head width dh (K4's), in its
+    argument order, for activations of ``dtype`` against weights packed in
+    ``fmt`` (default: ``gemm_cache.fmt_of(dtype)``): qkv [3, b, H, n, dh]
+    and o [b, H, n, dh] of the block's type; in bf16 o first holds n(x) at
+    dm padded to 64, so it holds max(H·dh, dm padded to 64) values a row;
+    for f32 activations on the bf16 core (the mixed entry) qkv and o f32,
+    then bf16 planes of 3·max(H·dh, dm padded to 64) values a row (n(x)'s
+    three planes, then o's)."""
+    fmt = fmt or gemm_cache.fmt_of(dtype)
+    qkv = torch.empty((3, b, heads, n, dh), dtype=dtype, device=device)
+    row = max(heads * dh, gemm_cache.round_up(dm, gemm_cache.SW128_CHUNK))
+    if fmt != "bf16_sw128":
+        return qkv, torch.empty((b, heads, n, dh), dtype=dtype, device=device)
+    if dtype == torch.bfloat16:
+        return qkv, torch.empty(b * n * row, dtype=dtype, device=device)
+    return (qkv, torch.empty((b, heads, n, dh), dtype=dtype, device=device),
+            torch.empty(b * n * 3 * row, dtype=torch.bfloat16, device=device))
+
+
 def _pack_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dtype):
     """``pack_attn_weights`` after the wrapper's checks of the weights,
     which a cache hit then need not repeat; ``dtype`` is x's."""
@@ -280,7 +344,8 @@ def _pack_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dtype):
     dm, hd = wq.shape[0], heads * dim_head
     _build.require_shapes("attn_block", wq=(wq, (dm, hd)), wkv=(wkv, (dm, 2 * hd)),
                           wo=(wo, (hd, dm)))
-    return pack_attn_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype, wq.dtype))
+    return pack_attn_weights(wq, wkv, wo, heads, dim_head,
+                             gemm_cache.fmt_of(dtype, wq.dtype, "attn_block"))
 
 
 def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float,
@@ -302,18 +367,13 @@ def _forward(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: f
     if wq.shape[0] != dm or wq.device != x.device:
         raise ValueError(f"attn_block: wq {tuple(wq.shape)} on {wq.device} does not take x "
                          f"{tuple(x.shape)} on {x.device}")
-    dh = kernel_head_dim(dim_head)
-    qkv = torch.empty((3, b, heads, n, dh), dtype=x.dtype, device=x.device)
-    # o [b, H, n, dh]; in bf16 it first holds n(x) at dm padded to 64
-    o_row = heads * dh
-    if x.dtype == torch.bfloat16:
-        o_row = max(o_row, gemm_cache.round_up(dm, gemm_cache.SW128_CHUNK))
-    o = torch.empty(b * n * o_row, dtype=x.dtype, device=x.device)
+    state = attn_scratch(b, n, dm, heads, kernel_head_dim(dim_head), x.dtype, x.device,
+                         gemm_cache.fmt_of(x.dtype, wq.dtype, "attn_block"))
     out = torch.empty_like(x)
     err = _build.entry("ns2_attn_block", x.dtype, wq.dtype)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), bt_qkv.data_ptr(), bt_out.data_ptr(),
-        qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, dm, heads, dh, float(scale),
-        int(residual), _build.stream(x),
+        *(t.data_ptr() for t in state), out.data_ptr(), b, n, dm, heads, state[0].shape[-1],
+        float(scale), int(residual), _build.stream(x),
     )
     _build.check(err, "ns2_attn_block")
     _build.count(attn_block, x.dtype, wq.dtype)
@@ -341,9 +401,10 @@ def attn_block(x, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale:
     x: [b, n, dm]; gamma/beta: [b, dm]; wq: [dm, H·dh]; wkv: [dm, 2·H·dh];
     wo: [H·dh, dm]. CUDA tensors run the kernel (three launches: q/k/v on
     the GEMM core, K4's attention core, W_o on the GEMM core; in bf16 a norm
-    pre-pass first and the bf16 GEMM core; counted as one launch of K2); CPU
-    tensors run the plain version. ``residual=False``
-    returns the heads' sum alone, without x.
+    pre-pass first and the bf16 GEMM core; mixed the norm pre-pass, q/k/v
+    on the bf16 core, K4 f32, the split of o and W_o on the bf16 core;
+    counted as one launch of K2); CPU tensors run the plain version.
+    ``residual=False`` returns the heads' sum alone, without x.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta, wq, wkv, wo)):
         return _AttnBlock.apply(x, gamma, beta, wq, wkv, wo, heads, dim_head, float(scale),
@@ -467,7 +528,8 @@ def _pack_cross_checked(wq, wkv, wo, heads: int, dim_head: int, dtype: torch.dty
     dm, dc, hd = wq.shape[0], wkv.shape[0], heads * dim_head
     _build.require_shapes("cross_attn_block", wq=(wq, (dm, hd)), wkv=(wkv, (dc, 2 * hd)),
                           wo=(wo, (hd, dm)))
-    return pack_cross_weights(wq, wkv, wo, heads, dim_head, gemm_cache.fmt_of(dtype, wq.dtype))
+    return pack_cross_weights(wq, wkv, wo, heads, dim_head,
+                              gemm_cache.fmt_of(dtype, wq.dtype, "cross_attn_block"))
 
 
 def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int, scale: float,

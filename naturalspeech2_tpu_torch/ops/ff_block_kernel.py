@@ -25,8 +25,10 @@ from the packed weights at the same rounding points.
 Mixed (x, γ and β float32, the weights and biases bfloat16: AMP
 training's denoiser) the block is the f32 one on the weights' values,
 exact in f32, as the JAX kernel computes it with `mm = float32`: on a card
-the kernel's mixed entry point (the weights packed as TF32 with no lo
-part, the core's two-pass kSplit2 mode, the biases widened; counted in
+the kernel's mixed entry point on the bf16 GEMM core (the weights packed
+"bf16_sw128", the biases widened; n(x), ``a`` and c each carried as three
+bf16 planes, ``gemm_cache.split3``, so every product is three exact bf16
+passes; ``ff_block_planes_torch`` is its model; counted in
 ``ff_block.launches_mixed``), on the CPU ``ff_block_torch`` on the widened
 weights. The backward in every dtype is the vjp of the twin of
 ``ff_block_xla``, which widens its inputs to f32 and returns y at x's
@@ -188,7 +190,7 @@ def ff_block_packed_torch(x, gamma, beta, weights: FFWeights, b2):
     rd = _rd if low else (lambda t: t)
     xf = x.float() if low else x
 
-    fmt = "bf16_sw128" if low else None  # bf16: the bf16 core's format
+    fmt = "bf16_sw128" if weights.geglu.dtype == torch.bfloat16 else None  # the bf16 core's
 
     def dense(packed, rows, cols):
         hi, lo = gemm_cache.unpack_b(packed, fmt)
@@ -205,6 +207,38 @@ def ff_block_packed_torch(x, gamma, beta, weights: FFWeights, b2):
     return (xf + (y + b2.float())).to(x.dtype) if low else x + y + b2
 
 
+def ff_block_planes_torch(x, gamma, beta, weights: FFWeights, b2):
+    """The mixed entry point's launches in plain PyTorch (f32 x, γ, β, the
+    biases and b2 against weights packed "bf16_sw128"): n(x) split into its
+    three bf16 planes, the GEGLU as three-part products over interleaved
+    value / gate tiles with a in f32 from f32 biases, a's three planes, the
+    conv as one product over the 3 parts × 3 taps of a (the rows before t =
+    0 zeros), c = conv + b_c in f32 and its three planes, y = x + c·W₂ + b₂
+    over c's parts. Returns (y, the planes of n(x), a and c, each [b, 3, n,
+    ·] bf16, hi, mid, lo)."""
+    n, dm = x.shape[1:]
+    ip = weights.ip
+
+    def dense(packed, rows, cols):
+        return gemm_cache.unpack_b(packed, "bf16_sw128")[0][:rows, :cols]
+
+    def planes(v):
+        return torch.stack(gemm_cache.split3(v), dim=1)
+
+    xn = planes(ada_norm(x, gamma, beta))
+    geglu = dense(weights.geglu, 2 * ip, dm).reshape(ip // 32, 2, 32, dm)
+    w_val, w_gate = (geglu[:, i].reshape(ip, dm).T for i in (0, 1))
+    parts = xn.unbind(1)
+    val = gemm_cache.parts_product(parts, w_val) + weights.b_val
+    gate = gemm_cache.parts_product(parts, w_gate) + weights.b_gate
+    a = planes(F.gelu(gate, approximate="tanh") * val)
+    taps = [torch.cat([F.pad(p, (0, 0, 2, 0))[:, :n], F.pad(p, (0, 0, 1, 0))[:, :n], p], dim=-1)
+            for p in a.unbind(1)]
+    c = planes(gemm_cache.parts_product(taps, dense(weights.conv, ip, 3 * ip).T) + weights.bc)
+    y = gemm_cache.parts_product(c.unbind(1), dense(weights.out, dm, ip).T)
+    return x + y + b2, xn, a, c
+
+
 def _pack_checked(w1, b1, wc, bc, w2, dtype: torch.dtype) -> FFWeights:
     """``pack_ff_weights`` after the wrapper's checks of the weights, which
     a cache hit then need not repeat; ``dtype`` is x's, which the biases
@@ -215,20 +249,28 @@ def _pack_checked(w1, b1, wc, bc, w2, dtype: torch.dtype) -> FFWeights:
         "ff_block", w1=(w1, (dm, 2 * inner)), b1=(b1, (2 * inner,)),
         wc=(wc, (3, inner, inner)), bc=(bc, (inner,)), w2=(w2, (inner, dm)),
     )
-    wt = pack_ff_weights(w1, b1, wc, bc, w2, gemm_cache.fmt_of(dtype, w1.dtype))
+    wt = pack_ff_weights(w1, b1, wc, bc, w2, gemm_cache.fmt_of(dtype, w1.dtype, "ff_block"))
     return wt._replace(b_val=wt.b_val.to(dtype), b_gate=wt.b_gate.to(dtype), bc=wt.bc.to(dtype))
 
 
-def scratch(b: int, n: int, dm: int, ip: int, dtype: torch.dtype,
-            device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's a and c scratch, in one allocation: b·n rows of ip
-    each, but in bf16 c first holds n(x) at dm padded to 64, so its rows
-    are the wider of the two (dm 512 at ff_mult 1 pads past ip 384)."""
-    c_row = ip
-    if dtype == torch.bfloat16:
+def scratch(b: int, n: int, dm: int, ip: int, dtype: torch.dtype, device,
+            fmt: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's a and c scratch, in one allocation, for activations of
+    ``dtype`` against weights packed in ``fmt`` (default:
+    ``gemm_cache.fmt_of(dtype)``): b·n rows of ip each, of the block's
+    type, on the split-TF32 core; on the bf16 core c first holds n(x) at dm
+    padded to 64, so its rows are the wider of the two (dm 512 at ff_mult 1
+    pads past ip 384), and for f32 activations (the mixed entry) each is
+    three bf16 planes, [b, 3, n, ·]."""
+    fmt = fmt or gemm_cache.fmt_of(dtype)
+    c_row, parts = ip, 1
+    if fmt == "bf16_sw128":
         c_row = max(ip, gemm_cache.round_up(dm, gemm_cache.SW128_CHUNK))
-    buf = torch.empty(b * n * (ip + c_row), dtype=dtype, device=device)
-    return buf[:b * n * ip], buf[b * n * ip:]
+        parts = 3 if dtype == torch.float32 else 1
+        dtype = torch.bfloat16
+    a_size = b * n * parts * ip
+    buf = torch.empty(a_size + b * n * parts * c_row, dtype=dtype, device=device)
+    return buf[:a_size], buf[a_size:]
 
 
 def _forward(x, gamma, beta, w1, b1, wc, bc, w2, b2):
@@ -241,12 +283,14 @@ def _forward(x, gamma, beta, w1, b1, wc, bc, w2, b2):
                           b2=(b2, (dm,)))
     wt = gemm_cache.cached(f"ff_block {x.dtype}", lambda *w: _pack_checked(*w, x.dtype),
                            w1, b1, wc, bc, w2)
+    fmt = gemm_cache.fmt_of(x.dtype, w1.dtype, "ff_block")
     if w1.shape[0] != dm or w1.device != x.device or b2.dtype != w1.dtype:
         raise ValueError(f"ff_block: w1 {tuple(w1.shape)} {w1.dtype} on {w1.device}, b2 "
                          f"{b2.dtype} do not take x {tuple(x.shape)} {x.dtype} on {x.device}")
-    b2 = b2.to(x.dtype)
+    if b2.dtype != x.dtype:  # mixed: widened once per version, as the packed weights
+        b2 = gemm_cache.cached(f"ff_block b2 {x.dtype}", lambda t: t.to(x.dtype), b2)
     _build.require_cuda("ff_block", x.dtype, b2=b2)
-    a_buf, c_buf = scratch(b, n, dm, wt.ip, x.dtype, x.device)
+    a_buf, c_buf = scratch(b, n, dm, wt.ip, x.dtype, x.device, fmt)
     out = torch.empty_like(x)
     err = _build.entry("ns2_ff_block", x.dtype, w1.dtype)(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.geglu.data_ptr(), wt.b_val.data_ptr(),
@@ -276,7 +320,7 @@ def ff_block(x, gamma, beta, w1, b1, wc, bc, w2, b2):
     w1/b1: the GEGLU Dense(2·inner), value half first and gate half
     second; wc/bc: the causal conv [3, inner, inner]; w2/b2: the out
     Dense [inner, dm]. CUDA tensors run the kernel (three launches of the
-    split-TF32 GEMM core at every width in f32 and mixed; in bf16 the norm
+    split-TF32 GEMM core at every width in f32; in bf16 and mixed the norm
     pre-pass and three launches of the bf16 GEMM core; counted as one launch
     of K3); CPU tensors run the plain version.
     """

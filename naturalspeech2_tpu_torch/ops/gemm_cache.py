@@ -14,13 +14,14 @@ the weight back exactly).
 
 One more format of that core carries bf16 weights (``pack_b(bt, fmt)``):
 ``"tf32"``, the bf16 values as f32 (exact in TF32) in the TF32 order with
-no lo part, for its two-pass mode (the mixed entry points of K1b, K2, K2b
-and K3, whose activations are f32).
+no lo part, for its two-pass mode (the mixed entry points of K1b and K2b,
+whose activations are f32).
 
 ``"bf16_sw128"`` is the operand format of the bf16 GEMM core
-(``csrc/gemm_bf16.cuh``: K1, K1b, K2, K2b, K3 and K6 in bf16, K1's mixed
-entry point, and K1b's ``bf16_matmul``, whose f32 weights it rounds to
-bf16 as it packs them): Bᵀ
+(``csrc/gemm_bf16.cuh``: K1, K1b, K2, K2b, K3 and K6 in bf16, the mixed
+entry points of K1, K2 and K3, whose f32 operands it carries as three bf16
+parts (``split3``), and K1b's ``bf16_matmul``, whose f32 weights it rounds
+to bf16 as it packs them): Bᵀ
 [N, K] padded with zeros to multiples of 64 in both, laid out chunk by
 chunk as [K / 64, N, 64], each row of a chunk (64 bf16, 128 bytes) in the
 128-byte swizzle that ``wgmma`` reads: its 16-byte piece p holds the eight
@@ -139,19 +140,54 @@ def pack_b(bt: torch.Tensor, fmt: str = "split") -> torch.Tensor:
                        dim=-2)
 
 
+# The entry points whose mixed calls (f32 activations against bf16 weights)
+# run on the bf16 core, their f32 operands carried as three bf16 parts; the
+# others' run the split-TF32 core's two-pass mode (K1b's, K2b's).
+MIXED_ON_BF16_CORE = frozenset({"wavenet_body", "attn_block", "ff_block"})
+MIXED_ENTRIES = MIXED_ON_BF16_CORE | {"wavenet_lanes", "cross_attn_block"}
+
+
 def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None,
-           route: str | None = None) -> str:
-    """The weight format, and so the GEMM core, for a block's activation
+           entry: str | None = None) -> str:
+    """The weight format, and so the GEMM core, for a kernel's activation
     dtype and its weights' (default: the same): "split" for f32 (the
     split-TF32 core), "bf16_sw128" for bf16 (the bf16 core), and for f32
-    activations against bf16 weights "bf16_sw128" on K1's ``route``
-    "stack" (the bf16 core, the f32 operands as three bf16 parts), else
-    "tf32" (the split-TF32 core's two-pass mode)."""
+    activations against bf16 weights by the C ``entry`` point that takes
+    them (``ns2_<entry>_mixed``: "wavenet_body", K1; "wavenet_lanes", K1b;
+    "attn_block", "cross_attn_block", "ff_block"): "bf16_sw128" where it
+    runs on the bf16 core (``MIXED_ON_BF16_CORE``), else "tf32" (the
+    split-TF32 core's two-pass mode)."""
     if dtype == torch.bfloat16:
         return "bf16_sw128"
     if weight_dtype != torch.bfloat16:
         return "split"
-    return "bf16_sw128" if route == "stack" else "tf32"
+    if entry not in MIXED_ENTRIES:
+        raise ValueError(f"fmt_of: mixed operands need one of the entry points "
+                         f"{sorted(MIXED_ENTRIES)}, got {entry!r}")
+    return "bf16_sw128" if entry in MIXED_ON_BF16_CORE else "tf32"
+
+
+def split3(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(hi, mid, lo), bf16 parts of the f32 ``v`` as the bf16 core carries
+    an f32 operand (``csrc/gemm_bf16.cuh``: ``split3``): hi = bf16(v), mid
+    = bf16(v − hi), lo = bf16(v − hi − mid), each rounded to nearest even;
+    lo + mid + hi == v exactly (the differences are exact in f32, and what
+    hi and mid leave has at most 8 significant bits)."""
+    hi = v.to(torch.bfloat16)
+    rest = v - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
+def parts_product(parts, b: torch.Tensor) -> torch.Tensor:
+    """Σ_part part · b in f32 over the bf16 ``parts`` of an f32 operand,
+    lo first, as the bf16 core issues them: each part's product with a bf16
+    ``b`` is exact in f32, so the sum is the f32 product up to the order of
+    its additions."""
+    out = 0
+    for p in reversed(parts):
+        out = out + p.float() @ b.float()
+    return out
 
 
 def unpack_b(packed: torch.Tensor, fmt: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
-from naturalspeech2_tpu_torch.ops.wavenet_kernel import split3
+from naturalspeech2_tpu_torch.ops.gemm_cache import split3
 
 
 def rvq_torch(x, codebooks, norms=None):

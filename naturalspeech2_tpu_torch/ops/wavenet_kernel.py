@@ -86,6 +86,7 @@ import torch.nn.functional as F
 
 from naturalspeech2_tpu_torch import _build
 from naturalspeech2_tpu_torch.ops import gemm_cache
+from naturalspeech2_tpu_torch.ops.gemm_cache import split3
 from naturalspeech2_tpu_torch.utils.helpers import round_bf16, vjp
 
 # The kernels' channel multiple (the GEMM core's chunk), to which other
@@ -345,18 +346,6 @@ def wavenet_body_packed_torch(x, film, weights: WavenetWeights, route: str):
     return out[..., :d]
 
 
-def split3(v):
-    """(hi, mid, lo), bf16 parts of the f32 ``v`` as the bf16 kernels carry
-    a lane (``csrc/gemm_bf16.cuh``: ``split3``): hi = bf16(v), mid = bf16(v −
-    hi), lo = bf16(v − hi − mid), each rounded to nearest even; lo + mid +
-    hi == v exactly (the differences are exact in f32, and what hi and mid
-    leave has at most 8 significant bits)."""
-    hi = v.to(torch.bfloat16)
-    rest = v - hi.float()
-    mid = rest.to(torch.bfloat16)
-    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
-
-
 def wavenet_body_planes_torch(x, film, weights: WavenetWeights, route: str, *, parts: int = 3):
     """The bf16 core's WaveNet launches in plain PyTorch (weights packed
     "bf16_sw128"): every lane carried as ``parts`` bf16 planes, each block
@@ -538,7 +527,9 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     _build.require_shapes("wavenet_body", conv_w=(conv_w, (S, L, 3 * d, d)),
                           film=(film, (b, S, L, 2 * d)))
     bias_dtype = torch.float32 if mixed else None
-    fmt = gemm_cache.fmt_of(x.dtype, conv_w.dtype, route)
+    entry, counter = (("ns2_wavenet_lanes", wavenet_body_lanes) if route == "lanes"
+                      else ("ns2_wavenet_body", wavenet_body))
+    fmt = gemm_cache.fmt_of(x.dtype, conv_w.dtype, entry[len("ns2_"):])
     wt = gemm_cache.cached(f"wavenet_body {route} {mixed}",
                            lambda *w: _pack_checked(*w, route, bias_dtype, fmt),
                            conv_w, conv_b, res_w, res_b, skip_w, skip_b)
@@ -548,8 +539,6 @@ def _forward(route, x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     if d_p != d:
         x, film = pad_wavenet_inputs(x, film, d_p)
     out = torch.empty((b, n, d_p), dtype=x.dtype, device=x.device)
-    entry, counter = (("ns2_wavenet_lanes", wavenet_body_lanes) if route == "lanes"
-                      else ("ns2_wavenet_body", wavenet_body))
     state = scratch(b, n, d_p, L, route, x.dtype, x.device, fmt)
     err = _build.entry(entry, x.dtype, conv_w.dtype)(
         x.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(), wt.res_b.data_ptr(),

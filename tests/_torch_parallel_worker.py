@@ -6,7 +6,7 @@ process (the reference the test computes, and with ``move`` its audio
 moved by one ulp, to measure the reference's own noise floor), or as one
 rank of a gloo group when this file runs as a script:
 
-    python _torch_parallel_worker.py <rank> <world> <port> <out_dir>
+    python _torch_parallel_worker.py <rank> <world> <init method> <out_dir>
 
 Every rank runs every scenario in order; rank 0 writes each result to
 ``<out_dir>/<name>.pt`` and every rank its layout at rest to
@@ -313,10 +313,9 @@ def main() -> None:
 
     from naturalspeech2_tpu_torch.parallel import make_mesh
 
-    rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])
+    rank, world, init, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-                            rank=rank)
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
     mesh = make_mesh(n_data=world, device="cpu")
     scenarios = {
         "replicated": lambda f: run_replicated(mesh, f),

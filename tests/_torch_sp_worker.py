@@ -1,7 +1,7 @@
 """The port's sequence-parallel attention on gloo ranks, for
 tests/test_torch_sp.py:
 
-    python _torch_sp_worker.py <rank> <world=4> <port> <out_dir>
+    python _torch_sp_worker.py <rank> <world=4> <init method> <out_dir>
 
 Four ranks make two meshes: (4, 1), whose data axis shards a sequence
 over four ranks, and (2, 2), whose model axis shards it over two (each
@@ -83,10 +83,9 @@ def main() -> None:
 
     from naturalspeech2_tpu_torch.parallel import make_mesh
 
-    rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])
+    rank, world, init, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-                            rank=rank)
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
     results = run(make_mesh(n_data=4, device="cpu"), "data")
     results.update(run(make_mesh(n_data=2, n_model=2, device="cpu"), "model"))
     if rank == 0:

@@ -6,7 +6,7 @@ process (the reference the test computes, and with ``move`` its audio
 moved by one ulp, to measure the reference's own noise floor), or as one
 rank of a gloo group when this file runs as a script:
 
-    python _torch_tp_worker.py <group> <rank> <world> <port> <out_dir>
+    python _torch_tp_worker.py <group> <rank> <world> <init method> <out_dir>
 
 Group "model" is two ranks on a (1, 2) mesh, group "grid" four ranks on a
 (2, 2) mesh. Every rank runs its group's scenarios in order; rank 0 writes
@@ -243,11 +243,10 @@ def main() -> None:
 
     from naturalspeech2_tpu_torch.parallel import make_mesh
 
-    group, rank, world, port, out = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
+    group, rank, world, init, out = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
                                      sys.argv[4], Path(sys.argv[5]))
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-                            rank=rank)
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
     mesh = make_mesh(n_data=world // 2, n_model=2, device="cpu")
     if group == "model":
         scenarios = {

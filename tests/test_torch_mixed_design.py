@@ -1,5 +1,6 @@
-"""The design of K1's mixed entry point and of K6 in bf16 on the bf16 GEMM
-core (csrc/wavenet.cu, csrc/rvq.cu, csrc/gemm_bf16.cuh), held on the CPU
+"""The design of the mixed entry points of K1, K2 and K3 and of K6 in bf16
+on the bf16 GEMM core (csrc/wavenet.cu, csrc/attn_block.cu,
+csrc/ff_block.cu, csrc/rvq.cu, csrc/gemm_bf16.cuh), held on the CPU
 through torch models of their layouts and arithmetic:
 
 - K1 mixed (AMP training's denoiser: f32 x and FiLM against bf16 weights):
@@ -13,7 +14,18 @@ through torch models of their layouts and arithmetic:
   minimum (``rvq_planes_torch``), against `rvq_quantize` at bf16 x and
   codebooks; the skips' loader twin (``split_lanes_at``) over the
   residual's planes and the packed codebooks' chunks;
-- the packing of the codebooks and the scratch of both entry points.
+- K3 mixed (AMP's feed-forward block: f32 x, γ, β and biases against bf16
+  weights): n(x)'s three planes, the GEGLU over their parts with a in f32,
+  a's three planes, the conv over the 3 parts × 3 causal taps of a, c's
+  three planes, W₂ over c's parts (``ff_block_planes_torch``), against
+  `_ff_block_kernel` at f32 x and bf16 weights, and the conv's loader twin
+  (``split_taps_at``) over a's planes;
+- K2 mixed (AMP's attention block): n(x)'s planes, q/k/v kept in f32, the
+  f32 attention core, o's three planes, W_o over them with and without the
+  residual (``attn_block_planes_torch``), against `_attn_block_kernel` at
+  f32 x and bf16 weights, and the W_o loader's twin
+  (``split_head_rows_at``) over o's planes;
+- the packing of the weights and the scratch of every entry point.
 
 These hold torch models of the kernels, not the kernels: no CUDA code runs
 here, so a change to the .cu or .cuh sources cannot fail them. The kernels
@@ -25,9 +37,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from naturalspeech2_tpu.ops import attn_block_kernel as jattn
+from naturalspeech2_tpu.ops import ff_block_kernel as jff
 from naturalspeech2_tpu.ops import rvq as jrvq
 from naturalspeech2_tpu.ops import wavenet_kernel as jwn
+from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
 from naturalspeech2_tpu_torch.ops import gemm_cache
 from naturalspeech2_tpu_torch.ops import rvq
 from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
@@ -44,6 +61,12 @@ WAVENET_TOL = 1e-5
 # order; chip_smoke.py's RVQ_TIE_TOL).
 RVQ_TIE_TOL = 1e-3
 ROW_TILE = 128  # the kernels' row tile (BM)
+# The blocks' planes carry every f32 operand exactly and each part's
+# product with a bf16 weight is exact, so the models differ from JAX's f32
+# kernels only by f32 summation order (≈ 1e-7 of the largest entry of y −
+# x); a dropped part leaves ≥ 2^-16 ≈ 1.5e-5 (chip_smoke.py's BLOCK_TOL,
+# relative to the largest entry of y − x).
+BLOCK_TOL = 1e-5
 
 
 def _wavenet_arrays(seed, b, n, d, S, L):
@@ -197,11 +220,14 @@ def test_scratch_of_both_entries():
     format, and so the core, of each mixed route comes from ``fmt_of``."""
     b, n, d_p, L = 2, 50, 128, 4
     f32 = torch.float32
-    assert [gemm_cache.fmt_of(f32, BF16, r) for r in ("stack", "lanes")] == ["bf16_sw128", "tf32"]
-    got = wk.scratch(b, n, d_p, L, "stack", f32, "cpu", gemm_cache.fmt_of(f32, BF16, "stack"))
+    assert [gemm_cache.fmt_of(f32, BF16, e) for e in ("wavenet_body", "wavenet_lanes")] == \
+        ["bf16_sw128", "tf32"]
+    got = wk.scratch(b, n, d_p, L, "stack", f32, "cpu",
+                     gemm_cache.fmt_of(f32, BF16, "wavenet_body"))
     assert [t.shape for t in got] == [(b, 3, n, d_p)] + [(L * b, 3, n, d_p)] * 2
     assert all(t.dtype == BF16 and t.is_contiguous() and t.data_ptr() % 16 == 0 for t in got)
-    lanes = wk.scratch(b, n, d_p, L, "lanes", f32, "cpu", gemm_cache.fmt_of(f32, BF16, "lanes"))
+    lanes = wk.scratch(b, n, d_p, L, "lanes", f32, "cpu",
+                       gemm_cache.fmt_of(f32, BF16, "wavenet_lanes"))
     assert [(t.shape, t.dtype) for t in lanes] == [((b, n, d_p), torch.float32)] * 2
     m, d, num_q = 130, 72, 4
     best, residual, total, planes = rvq.scratch(m, d, num_q, BF16, "cpu")
@@ -211,3 +237,251 @@ def test_scratch_of_both_entries():
     assert planes.shape == (3, m, 128) and planes.dtype == BF16 and planes.data_ptr() % 16 == 0
     f32 = rvq.scratch(m, d, num_q, torch.float32, "cpu")
     assert [t.shape for t in f32] == [(num_q, m), (m, d)]
+
+
+def _mixed_block(arrays, n_act):
+    """(torch, JAX) operands of a mixed block: the first ``n_act`` arrays
+    (the activations) f32, the rest (weights and biases) rounded to bf16."""
+    t = [torch.from_numpy(a) for a in arrays]
+    t[n_act:] = [w.to(BF16) for w in t[n_act:]]
+    j = [jnp.asarray(a) for a in arrays[:n_act]]
+    j += [jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays[n_act:]]
+    return t, j
+
+
+def _block_err(y, expected, x) -> float:
+    """max |y − expected| relative to the largest entry of expected − x."""
+    expected = np.asarray(expected, dtype=np.float32)
+    return np.abs(y.numpy() - expected).max() / np.abs(expected - x.numpy()).max()
+
+
+def _is_split(planes: torch.Tensor, dim: int = 1) -> bool:
+    """Whether the three bf16 planes along ``dim`` (hi, mid, lo) are
+    ``split3`` of the f32 value they sum to."""
+    parts = planes.unbind(dim)
+    total = sum(p.float() for p in parts)
+    return all(torch.equal(a, b) for a, b in zip(gemm_cache.split3(total), parts)) and \
+        torch.equal(sum(p.double() for p in parts), total.double())
+
+
+def _box(planes, seq: int, part: int, t: int, c: int) -> torch.Tensor:
+    """A TMA box of ROW_TILE rows from t and 64 columns from c of plane
+    ``part`` of sequence ``seq`` (planes [b, parts, n, w]), rows outside the
+    sequence zeros."""
+    n = planes.shape[2]
+    rows = torch.arange(t, t + ROW_TILE)
+    inside = (rows >= 0) & (rows < n)
+    out = torch.zeros(ROW_TILE, 64)
+    out[inside] = planes[seq, part, rows[inside], c:c + 64].float()
+    return out
+
+
+def _ff_arrays(seed, b, n, dm, inner):
+    rng = np.random.default_rng(seed)
+    return (normal(rng, b, n, dm), 1 + normal(rng, b, dm, scale=0.1),
+            normal(rng, b, dm, scale=0.1), normal(rng, dm, 2 * inner, scale=dm**-0.5),
+            normal(rng, 2 * inner, scale=0.1),
+            normal(rng, 3, inner, inner, scale=(3 * inner) ** -0.5),
+            normal(rng, inner, scale=0.1), normal(rng, inner, dm, scale=inner**-0.5),
+            normal(rng, dm, scale=0.1))
+
+
+def _ff_packed(targs):
+    """The mixed entry's weights as the wrapper packs them: "bf16_sw128",
+    the biases widened to f32."""
+    wt = fk.pack_ff_weights(*targs[3:8], gemm_cache.fmt_of(torch.float32, BF16, "ff_block"))
+    return wt._replace(b_val=wt.b_val.float(), b_gate=wt.b_gate.float(), bc=wt.bc.float())
+
+
+# (b, n, dm, inner): AMP's widths at a short crop; dm and inner off 64
+K3_CASES = [(2, 16, 128, 341), (2, 40, 96, 200)]
+
+
+@pytest.mark.parametrize("case", K3_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_k3_mixed_planes_model_matches_pallas(case):
+    """K3 mixed: the weights packed "bf16_sw128" unpack to the bf16 weights
+    exactly (32 value and the same 32 gate rows a tile, inner padded to 64
+    with zeros); n(x)'s, a's and c's planes are `split3` of f32 values and
+    n(x)'s sum to the f32 norm exactly; y against `_ff_block_kernel` at f32
+    x and bf16 weights within BLOCK_TOL of its largest entry of y − x."""
+    b, n, dm, inner = case
+    targs, jargs = _mixed_block(_ff_arrays(250, *case), 3)
+    x, gamma, beta = targs[:3]
+    wt = _ff_packed(targs)
+    ip = wt.ip
+    assert ip == -(-inner // 64) * 64 and wt.geglu.dtype == wt.conv.dtype == BF16
+    assert wt.b_val.dtype == wt.bc.dtype == torch.float32
+    w1, wc, w2 = targs[3], targs[5], targs[7]
+    geglu = gemm_cache.unpack_b(wt.geglu, "bf16_sw128")[0][:2 * ip].reshape(ip // 32, 2, 32, -1)
+    for half, w in enumerate((w1[:, :inner], w1[:, inner:])):
+        rows = geglu[:, half].reshape(ip, -1)
+        assert torch.equal(rows[:inner, :dm], w.T) and not rows[inner:].any()
+    conv = gemm_cache.unpack_b(wt.conv, "bf16_sw128")[0][:ip, :3 * ip]
+    assert torch.equal(conv.reshape(ip, 3, ip).permute(1, 2, 0)[:, :inner, :inner], wc)
+    out = gemm_cache.unpack_b(wt.out, "bf16_sw128")[0]
+    assert torch.equal(out[:dm, :inner], w2.T) and not out[:, inner:].any()
+
+    y, xn, a, c = fk.ff_block_planes_torch(x, gamma, beta, wt, targs[8].float())
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    assert [t.shape for t in (xn, a, c)] == [(b, 3, n, dm), (b, 3, n, ip), (b, 3, n, ip)]
+    assert all(t.dtype == BF16 and _is_split(t) for t in (xn, a, c))
+    assert torch.equal(sum(p.double() for p in xn.unbind(1)),
+                       fk.ada_norm(x, gamma, beta).double())
+    expected = jff.fused_ff_block(*jargs, approximate=True)
+    err = _block_err(y, expected, x)
+    assert err <= BLOCK_TOL, f"max error {err:.3e} of the largest entry of y - x, above {BLOCK_TOL}"
+    # one plane of x instead of three: the JAX kernel's f32 x is not bf16
+    one = fk.ff_block_planes_torch(x.to(BF16).float(), gamma, beta, wt, targs[8].float())[0]
+    assert _block_err(one, expected, x) > BLOCK_TOL
+
+
+def test_k3_mixed_conv_loader_reads_three_parts_of_three_taps():
+    """The twin of the conv's loader (`SplitTaps` with dilation 1, three
+    parts, one lane of b sequences) over a's planes [b, 3, n, ip]: each
+    chunk of A is a box of one plane and one tap, lo first, shifted back by
+    2 − tap rows (the rows before t = 0 zeros), against the packed conv's
+    chunk of that tap; summed over the chunks, A·B is the causal conv of a
+    (f32 sums, other orders)."""
+    b, n, dm, inner = 2, 150, 96, 200
+    targs, _ = _mixed_block(_ff_arrays(251, b, n, dm, inner), 3)
+    wt = _ff_packed(targs)
+    ip = wt.ip
+    _, _, a, _ = fk.ff_block_planes_torch(*targs[:3], wt, targs[8].float())
+    a_f32 = sum(p.float() for p in a.unbind(1))
+    want = fk.causal_conv3(a_f32, F.pad(targs[5].float(), (0, ip - inner, 0, ip - inner)),
+                           torch.zeros(ip))
+    chunks = wt.conv.reshape(3 * ip // 64, 1, ip, 64)
+    for bi in range(b):
+        for t0 in range(0, n, ROW_TILE):
+            acc = 0
+            for kc in range(9 * ip // 64):
+                (c, t, part, seq), kb = wk.split_taps_at(kc, t0, bi, w=ip, per_lane=b, lane0=0,
+                                                         parts=3, shared=False, b_block0=0)
+                tap = kc % (3 * ip // 64) * 64 // ip
+                assert seq == bi and part == 2 - kc // (3 * ip // 64) and t == t0 - (2 - tap)
+                b_chunk = gemm_cache.unpack_b(chunks[kb], "bf16_sw128")[0].float()  # [ip, 64]
+                acc = acc + _box(a, seq, part, t, c) @ b_chunk.T
+            rows = want[bi, t0:t0 + ROW_TILE]
+            assert torch.allclose(acc[:rows.shape[0]], rows, rtol=0, atol=1e-5 * want.abs().max())
+
+
+def _attn_arrays(seed, b, n, dm, heads, dim_head):
+    rng = np.random.default_rng(seed)
+    hd = heads * dim_head
+    return (normal(rng, b, n, dm), 1 + normal(rng, b, dm, scale=0.1),
+            normal(rng, b, dm, scale=0.1), normal(rng, dm, hd, scale=dm**-0.5),
+            normal(rng, dm, 2 * hd, scale=dm**-0.5), normal(rng, hd, dm, scale=hd**-0.5))
+
+
+# (b, n, dm, heads, dim_head): 8 heads of 64 at dm 128 (AMP's); heads of 8
+# (padded to K4's 64) at dm 96
+K2_CASES = [(2, 16, 128, 8, 64), (2, 24, 96, 2, 8)]
+
+
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "no_residual"])
+@pytest.mark.parametrize("case", K2_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_k2_mixed_planes_model_matches_pallas(case, residual):
+    """K2 mixed: the weights packed "bf16_sw128" unpack to the bf16 heads
+    exactly (each padded to K4's width with zeros); n(x)'s planes sum to the
+    f32 norm exactly, q/k/v are f32 and equal n(x)·W in f32, o's planes
+    [b, 3·H, n, dh] are `split3` of o; y against `_attn_block_kernel` at
+    f32 x and bf16 weights (without the residual: y − x) within BLOCK_TOL
+    of its largest entry of y − x."""
+    b, n, dm, heads, dim_head = case
+    targs, jargs = _mixed_block(_attn_arrays(252, *case), 3)
+    x, gamma, beta, wq, wkv, wo = targs
+    scale = dim_head**-0.5
+    packed = ak.pack_attn_weights(wq, wkv, wo, heads, dim_head,
+                                  gemm_cache.fmt_of(torch.float32, BF16, "attn_block"))
+    dh = ak.kernel_head_dim(dim_head)
+    assert all(p.dtype == BF16 for p in packed)
+    qkv_w = gemm_cache.unpack_b(packed[0], "bf16_sw128")[0][:3 * heads * dh].reshape(
+        3, heads, dh, -1)
+    for which, w in enumerate((wq, *wkv.chunk(2, dim=-1))):
+        heads_w = w.reshape(dm, heads, dim_head).permute(1, 2, 0)
+        assert torch.equal(qkv_w[which, :, :dim_head, :dm], heads_w)
+        assert not qkv_w[which, :, dim_head:].any()
+
+    y, xn, qkv, o_planes = ak.attn_block_planes_torch(x, gamma, beta, packed, heads=heads,
+                                                      scale=scale, residual=residual)
+    assert y.dtype == qkv.dtype == torch.float32 and y.shape == x.shape
+    assert qkv.shape == (3, b, heads, n, dh) and o_planes.shape == (b, 3 * heads, n, dh)
+    assert xn.dtype == o_planes.dtype == BF16 and _is_split(xn)
+    assert _is_split(o_planes.reshape(b, 3, heads, n, dh))
+    xn_f32 = fk.ada_norm(x, gamma, beta)
+    assert torch.equal(sum(p.double() for p in xn.unbind(1)), xn_f32.double())
+    q = (xn_f32 @ wq.float()).reshape(b, n, heads, dim_head).transpose(1, 2)
+    assert torch.allclose(qkv[0, ..., :dim_head], q, rtol=0, atol=1e-6 * q.abs().max())
+    assert not qkv[..., dim_head:].any()
+    wk_, wv_ = jnp.split(jargs[4], 2, axis=-1)
+    to_heads = lambda w: w.reshape(dm, heads, dim_head).transpose(1, 0, 2)  # noqa: E731
+    expected = jattn._fused_forward(*jargs[:3], to_heads(jargs[3]), to_heads(wk_), to_heads(wv_),
+                                    jargs[5].reshape(heads, dim_head, dm), scale=scale)
+    got = y if residual else y + x
+    err = _block_err(got, expected, x)
+    assert err <= BLOCK_TOL, f"max error {err:.3e} of the largest entry of y - x, above {BLOCK_TOL}"
+
+
+def test_k2_mixed_wo_loader_reads_the_heads_parts():
+    """The twin of the W_o loader (`SplitHeadRows`) over o's planes [b,
+    3·H, n, dh]: each chunk of A is a box of one head's part, lo first,
+    against the packed W_o's chunk of that head; summed over the chunks,
+    A·B is o's heads' concatenation times W_o (f32 sums, other orders)."""
+    b, n, dm, heads, dim_head = 2, 150, 96, 2, 128
+    targs, _ = _mixed_block(_attn_arrays(253, b, n, dm, heads, dim_head), 3)
+    packed = ak.pack_attn_weights(*targs[3:], heads, dim_head,
+                                  gemm_cache.fmt_of(torch.float32, BF16, "attn_block"))
+    _, _, _, o_planes = ak.attn_block_planes_torch(*targs[:3], packed, heads=heads,
+                                                   scale=dim_head**-0.5)
+    dh = ak.kernel_head_dim(dim_head)
+    hd = heads * dh
+    o = sum(p.float() for p in o_planes.reshape(b, 3, heads, n, dh).unbind(1))
+    want = o.transpose(1, 2).reshape(b, n, hd) @ targs[5].float()
+    chunks = packed[1].reshape(hd // 64, 1, -1, 64)
+    for bi in range(b):
+        for t0 in range(0, n, ROW_TILE):
+            acc = 0
+            for kc in range(3 * hd // 64):
+                (c, t, sl, seq), kb = ak.split_head_rows_at(kc, t0, bi, heads=heads, dh=dh)
+                assert seq == bi and t == t0 and sl // heads == 2 - kc // (hd // 64)
+                b_chunk = gemm_cache.unpack_b(chunks[kb], "bf16_sw128")[0].float()
+                acc = acc + _box(o_planes, seq, sl, t, c) @ b_chunk[:dm].T
+            rows = want[bi, t0:t0 + ROW_TILE]
+            assert torch.allclose(acc[:rows.shape[0]], rows, rtol=0, atol=1e-5 * want.abs().max())
+
+
+def test_blocks_mixed_scratch_and_format():
+    """The mixed entries of K2 and K3 pack "bf16_sw128" (``fmt_of`` by entry
+    point; K2b and K1b mixed "tf32"); their scratch in the C entries'
+    argument order: K3 a's planes [b, 3, n, ip] and c's [b, 3, n, max(ip,
+    dm padded to 64)] (n(x)'s planes first), bf16; K2 qkv [3, b, H, n, dh]
+    and o [b, H, n, dh] f32, then the planes of 3·max(H·dh, dm padded to
+    64) values a row, bf16; TMA reads each 16-byte aligned. f32 and bf16
+    keep their scratch."""
+    f32 = torch.float32
+    fmts = {e: gemm_cache.fmt_of(f32, BF16, e) for e in sorted(gemm_cache.MIXED_ENTRIES)}
+    assert fmts == {"attn_block": "bf16_sw128", "cross_attn_block": "tf32",
+                    "ff_block": "bf16_sw128", "wavenet_body": "bf16_sw128",
+                    "wavenet_lanes": "tf32"}
+    assert gemm_cache.fmt_of(f32) == "split" and gemm_cache.fmt_of(BF16) == "bf16_sw128"
+    with pytest.raises(ValueError):
+        gemm_cache.fmt_of(f32, BF16)
+    b, n = 2, 50
+    for dm, ip in ((128, 384), (512, 384)):
+        a, c = fk.scratch(b, n, dm, ip, f32, "cpu", "bf16_sw128")
+        assert a.dtype == c.dtype == BF16
+        assert a.numel() == b * 3 * n * ip and c.numel() == b * 3 * n * max(ip, dm)
+        assert a.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0
+        a, c = fk.scratch(b, n, dm, ip, BF16, "cpu")
+        assert a.numel() == b * n * ip and c.numel() == b * n * max(ip, dm)
+    a, c = fk.scratch(b, n, 128, 352, f32, "cpu")
+    assert a.dtype == f32 and a.numel() == c.numel() == b * n * 352
+    for dm, heads, dh in ((128, 8, 64), (640, 2, 128)):
+        qkv, o, planes = ak.attn_scratch(b, n, dm, heads, dh, f32, "cpu", "bf16_sw128")
+        assert qkv.shape == (3, b, heads, n, dh) and o.shape == (b, heads, n, dh)
+        assert qkv.dtype == o.dtype == f32 and planes.dtype == BF16
+        assert planes.numel() == b * n * 3 * max(heads * dh, dm) and planes.data_ptr() % 16 == 0
+        qkv, o = ak.attn_scratch(b, n, dm, heads, dh, BF16, "cpu")
+        assert qkv.dtype == BF16 and o.numel() == b * n * max(heads * dh, dm)
+        qkv, o = ak.attn_scratch(b, n, dm, heads, dh, f32, "cpu")
+        assert o.shape == (b, heads, n, dh) and o.dtype == f32

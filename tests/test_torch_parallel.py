@@ -7,7 +7,8 @@ FSDP layout rule against JAX's `fsdp_spec`.
 
 The two ranks are one group of worker processes
 (tests/_torch_parallel_worker.py) started once for the module, with a
-time limit: past it both are killed and the tests fail. The one-process
+time limit, meeting through a file (tests/_rank_groups.py): past the
+limit, or once a rank fails, both are killed and the tests fail. The one-process
 references are computed here while the ranks run.
 
 Tolerances: the ranks sum the same products in another order, which moves
@@ -23,12 +24,7 @@ the halves' own masked means moves it a hundredfold past the bound
 (checked here).
 """
 
-import os
 import shutil
-import socket
-import subprocess
-import sys
-import time
 from pathlib import Path
 
 import jax
@@ -54,6 +50,7 @@ from naturalspeech2_tpu_torch.parallel import (
 )
 
 import _torch_parallel_worker as worker
+from _rank_groups import RankGroups
 
 WORKER = Path(__file__).with_name("_torch_parallel_worker.py")
 WORLD = 2
@@ -62,47 +59,12 @@ RTOL = 1e-6
 FLOOR_DRAWS, FLOOR_FACTOR = 3, 10.0
 
 
-class Ranks:
-    """The worker group: started at once, waited for (within the limit)
-    on the first result asked for."""
+class Ranks(RankGroups):
+    """The worker group (tests/_rank_groups.py), its results read once both
+    ranks are done."""
 
     def __init__(self, out: Path):
-        self.out = out
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-        env["OMP_NUM_THREADS"] = "1"
-        self.start = time.monotonic()
-        self.procs = [subprocess.Popen(
-            [sys.executable, str(WORKER), str(rank), str(WORLD), str(port), str(out)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-            for rank in range(WORLD)]
-        self.outputs = None
-
-    def kill(self) -> None:
-        for p in self.procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-
-    def wait(self) -> None:
-        if self.outputs is not None:
-            return
-        outputs = []
-        for rank, p in enumerate(self.procs):
-            left = GROUP_LIMIT_S - (time.monotonic() - self.start)
-            try:
-                out, _ = p.communicate(timeout=max(left, 1.0))
-            except subprocess.TimeoutExpired:
-                self.kill()
-                pytest.fail(f"the ranks exceeded their {GROUP_LIMIT_S}-s limit (rank {rank} "
-                            "still running); both were killed")
-            outputs.append(out)
-        self.outputs = outputs
-        failed = [(r, p.returncode) for r, p in enumerate(self.procs) if p.returncode != 0]
-        if failed:
-            pytest.fail(f"ranks failed {failed}:\n" + "\n".join(o[-4000:] for o in outputs))
+        super().__init__(WORKER, out, None, world=WORLD, limit_s=GROUP_LIMIT_S)
 
     def result(self, name: str) -> dict:
         self.wait()

@@ -8,16 +8,12 @@ against the plain ones; `sp_attend`'s and the ring's gradients against
 full attention's.
 
 The ranks are one group of worker processes (tests/_torch_sp_worker.py),
-started once for the module with a time limit, one torch thread each;
+started once for the module with a time limit, one torch thread each,
+meeting through a file (tests/_rank_groups.py);
 the JAX results are computed here meanwhile. ATOL is
 tests/test_sequence_parallel.py's.
 """
 
-import os
-import socket
-import subprocess
-import sys
-import time
 from pathlib import Path
 
 import jax
@@ -33,6 +29,7 @@ from naturalspeech2_tpu_torch.parallel import Mesh
 from naturalspeech2_tpu_torch.parallel.sp import _use_flash
 
 import _torch_sp_worker as worker
+from _rank_groups import RankGroups
 
 WORKER = Path(__file__).with_name("_torch_sp_worker.py")
 WORLD, GROUP_LIMIT_S = 4, 200
@@ -43,39 +40,18 @@ JAX_FUNCTIONS = {"sp_xla": sp_attend, "sp_flash": sp_attend, "ulysses": ulysses_
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    out = tmp_path_factory.mktemp("sp_ranks")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["OMP_NUM_THREADS"] = "1"
-    start = time.monotonic()
-    procs = [subprocess.Popen([sys.executable, str(WORKER), str(r), str(WORLD), str(port),
-                               str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, env=env) for r in range(WORLD)]
+    group = RankGroups(WORKER, tmp_path_factory.mktemp("sp_ranks"), None, world=WORLD,
+                       limit_s=GROUP_LIMIT_S)
     state = {}
 
     def results():
         if "out" not in state:
-            outputs = []
-            for p in procs:
-                try:
-                    left = max(GROUP_LIMIT_S - (time.monotonic() - start), 1.0)
-                    outputs.append(p.communicate(timeout=left)[0])
-                except subprocess.TimeoutExpired:
-                    for q in procs:
-                        q.kill()
-                    pytest.fail(f"the ranks exceeded their {GROUP_LIMIT_S}-s limit")
-            if any(p.returncode for p in procs):
-                pytest.fail("ranks failed:\n" + "\n".join(o[-4000:] for o in outputs))
-            state["out"] = torch.load(out / "sp.pt", weights_only=False)
+            group.wait()
+            state["out"] = torch.load(group.out / "sp.pt", weights_only=False)
         return state["out"]
 
     yield results
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-        p.wait()
+    group.kill()
 
 
 @pytest.fixture(scope="module")

@@ -9,8 +9,9 @@ and heads) against their plain versions.
 
 The ranks are two groups of worker processes (tests/_torch_tp_worker.py):
 two ranks on a (1, 2) mesh and four on a (2, 2) mesh, started once for
-the module with a time limit, one torch thread each. The one-process
-references run here meanwhile. Tolerances are
+the module with a time limit, one torch thread each, meeting through a
+file (tests/_rank_groups.py). The one-process references run here
+meanwhile. Tolerances are
 tests/test_torch_parallel.py's: FLOOR_FACTOR times the reference's own
 change under a one-ulp move of its audio, relative to each tensor's
 largest entry, or 1e-6 where that is larger.
@@ -22,7 +23,6 @@ import json
 import os
 import re
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -53,6 +53,7 @@ from naturalspeech2_tpu_torch.ops.dropout import Dropout, batch_rows
 from naturalspeech2_tpu_torch.parallel import Mesh, tp
 
 import _torch_tp_worker as worker
+from _rank_groups import RankGroups
 from test_torch_parallel import Held, _scale
 from torch_parity import jitter, normal, numpy_tree
 
@@ -62,48 +63,12 @@ GROUP_LIMIT_S = 300
 GROUPS = {"model": 2, "grid": 4}
 
 
-class Ranks:
-    """Both worker groups: started at once, waited for (within the limit)
-    on the first result asked for."""
+class Ranks(RankGroups):
+    """Both worker groups (tests/_rank_groups.py), their results read once
+    every rank is done."""
 
     def __init__(self, out: Path):
-        self.out = out
-        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-        env["OMP_NUM_THREADS"] = "1"
-        self.start = time.monotonic()
-        self.procs = []
-        for group, world in GROUPS.items():
-            with socket.socket() as sock:
-                sock.bind(("127.0.0.1", 0))
-                port = sock.getsockname()[1]
-            self.procs += [subprocess.Popen(
-                [sys.executable, str(WORKER), group, str(rank), str(world), str(port), str(out)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-                for rank in range(world)]
-        self.done = False
-
-    def kill(self) -> None:
-        for p in self.procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-
-    def wait(self) -> None:
-        if self.done:
-            return
-        outputs = []
-        for i, p in enumerate(self.procs):
-            left = GROUP_LIMIT_S - (time.monotonic() - self.start)
-            try:
-                outputs.append(p.communicate(timeout=max(left, 1.0))[0])
-            except subprocess.TimeoutExpired:
-                self.kill()
-                pytest.fail(f"the ranks exceeded their {GROUP_LIMIT_S}-s limit (process {i} "
-                            "still running); all were killed")
-        self.done = True
-        failed = [(i, p.returncode) for i, p in enumerate(self.procs) if p.returncode != 0]
-        if failed:
-            pytest.fail(f"ranks failed {failed}:\n" + "\n".join(o[-4000:] for o in outputs))
+        super().__init__(WORKER, out, GROUPS, limit_s=GROUP_LIMIT_S)
 
     def result(self, name: str):
         self.wait()
