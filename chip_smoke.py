@@ -163,8 +163,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      codebooks at m 2400 and 1632 (codes equal to the f32 kernel's on the
      same values but for near-ties, the sum bit-equal), and the mixed
      entry points (f32 activations against bf16 weights): K1 at [16, 150,
-     128], K2, K3 and K2b at [16, 160, 128], K1b at [1, 6733, 128], within
-     WAVENET_TOL / BLOCK_TOL of the f32 plain versions;
+     128], K2, K3 and K2b at [16, 160, 128] (K2 and K2b also with the
+     residual off), K3, K2 and K2b at a ragged shape each, K1b at
+     AMP_K1B_SHAPES, within WAVENET_TOL / BLOCK_TOL of the f32 plain
+     versions; the profiles of the mixed K1, K1b, K2, K2b and K3 show the
+     bf16 core's launches, their pre-passes and K4 f32 alone;
  28. flagship AMP training: `Trainer(amp=True)` on synthetic WAVs, b16 x
      2 s, 10 steps with the EMA sample and checkpoint: finite losses,
      moved parameters, f32 master state, EMA and checkpoint, a resume,
@@ -586,6 +589,12 @@ AMP_RVQ_COPIED = (130, 4, 1000, 70)
 # residual off too)
 AMP_K3_RAGGED = (4, 256, 96, 200)
 AMP_K2_RAGGED = (3, 1000, 128, None)
+# K2b mixed at a ragged shape, (b, n, dm, dc, heads, dim_head): dm and dc
+# off 64 (dc 100 off 8 too: the context's rows as they lie are no TMA
+# rows), heads of 128, n off the row tile; K1b mixed (b, n, d) at the
+# long form's first K1b length and at a width off 64 (padded to 128)
+AMP_K2B_RAGGED = (3, 200, 96, 100, 2, 128)
+AMP_K1B_SHAPES = ((1, RAGGED_LANES, DIM), (2, 1000, 96))
 
 # Few-step sampling (phases 31-35). Phase 31: K1b's `bf16_matmul` option at
 # the JAX probe's shape (b16 x n1024 x d512, 4 x 8; examples/
@@ -2583,25 +2592,27 @@ def cross_c_entry(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: int
 
     from naturalspeech2_tpu_torch import _build
     from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+    from naturalspeech2_tpu_torch.ops import gemm_cache
     from naturalspeech2_tpu_torch.ops.flash_attention import kernel_head_dim
 
     b, n, dm = x.shape
     m, dc = ctx.shape[1:]
     dh = kernel_head_dim(dim_head)
     packed = ak._pack_cross_checked(wq, wkv, wo, heads, dim_head, x.dtype)
-    q, kv, o = ak.cross_scratch(b, n, m, dm, dc, heads, dh, x.dtype, x.device)
+    state = ak.cross_scratch(b, n, m, dm, dc, heads, dh, x.dtype, x.device,
+                             gemm_cache.fmt_of(x.dtype, wq.dtype, "cross_attn_block"))
     out = torch.empty_like(x)
     fn = _build.entry("ns2_cross_attn_block", x.dtype, wq.dtype)
     args = (x.data_ptr(), ctx.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            *(p.data_ptr() for p in packed), q.data_ptr(), kv.data_ptr(), o.data_ptr(),
-            out.data_ptr(), b, n, m, dm, dc, heads, dh, float(scale), int(residual),
+            *(p.data_ptr() for p in packed), *(t.data_ptr() for t in state), out.data_ptr(), b,
+            n, m, dm, dc, heads, dh, float(scale), int(residual),
             torch.cuda.current_stream().cuda_stream)
 
     def call():
         _build.check(fn(*args), "ns2_cross_attn_block")
         return out
 
-    call.args, call.keep = args, (packed, q, kv, o, out)
+    call.args, call.keep = args, (packed, state, out)
     return call
 
 
@@ -3584,16 +3595,18 @@ def _amp_rvq_case(gen, m, phase: str, num_q=8, size=1024, d=128) -> dict:
             "library_ms": None, **work}
 
 
-def amp_mixed_cases(gen, b, n, d, names, inner=None, residual=True) -> list:
+def amp_mixed_cases(gen, b, n, d, names, inner=None, residual=True, dc=None, heads=HEADS,
+                    dim_head=DIM_HEAD) -> list:
     """(name, mixed kernel, plain f32 on the widened weights, f32 kernel on
     the same values, bound, residual) of K1, K2, K3 and K2b at one shape:
     f32 activations against bf16 weights, as AMP's denoiser runs them. K3's
-    inner width int(8d/3) unless given; with ``residual`` False K2 leaves x
-    out (tensor parallelism's partial sums) and its case's residual is
-    None. K1's, K2's and K3's bounds count their f32 operands' products as
-    three exact bf16 passes (989 / 3 TFLOP/s), K2's attention core on K4
-    f32 in split TF32 (495 / 3), K2b's kSplit2 products as three bf16
-    passes too (the cheapest exact scheme)."""
+    inner width int(8d/3) unless given; K2b's context NUM_LATENTS rows of dc
+    (default d); K2's and K2b's ``heads`` of ``dim_head``; with ``residual``
+    False K2 and K2b leave x out (tensor parallelism's partial sums) and
+    their cases' residual is None. The bounds count the f32 operands'
+    products as three exact bf16 passes (989 / 3 TFLOP/s, the cheapest
+    exact scheme), K2's and K2b's attention cores on K4 f32 in split TF32
+    (495 / 3)."""
     from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
     from naturalspeech2_tpu_torch.ops import ff_block_kernel as fk
     from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
@@ -3601,7 +3614,6 @@ def amp_mixed_cases(gen, b, n, d, names, inner=None, residual=True) -> list:
     rn = _randn(gen)
     cases = []
     out_bytes = b * n * d * 4
-    heads, dim_head = HEADS, DIM_HEAD
     scale, hd = dim_head**-0.5, heads * dim_head
 
     def split(args, n_act):
@@ -3610,6 +3622,17 @@ def amp_mixed_cases(gen, b, n, d, names, inner=None, residual=True) -> list:
         return (*acts, *weights), (*acts, *(w.float() for w in weights))
 
     cfg = dict(heads=heads, dim_head=dim_head, scale=scale)
+    rcfg = dict(cfg, residual=residual)
+
+    def blocks_bound(gemm_flops, core_flops, moved):
+        """The projections at three bf16 passes, the core at three TF32
+        passes, against the bytes."""
+        ops_ms = (bound_bf16(gemm_flops, 0, f32_lanes=True)["bound_ms"]
+                  + TF32_PASSES * core_flops / PEAK_TF32_FLOPS * 1e3)
+        bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+        return {"bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
     if "wavenet_body" in names:
         wn, _ = wavenet_inputs(gen, b, n, d)
         w16, w32 = split((wn[0], wn[7], *wn[1:7]), 2)
@@ -3621,14 +3644,9 @@ def amp_mixed_cases(gen, b, n, d, names, inner=None, residual=True) -> list:
     if "attn_block" in names:
         a16, a32 = split(attn_inputs(gen, b, n, d, heads, dim_head), 3)
         heads_32 = ak.split_heads(*a32[3:], heads, dim_head)
-        rcfg = dict(cfg, residual=residual)
-        # the projections at three bf16 passes, the core (4·b·H·n²·dh) at
-        # three TF32 passes
-        gemm_ms = bound_bf16(2 * b * n * d * 4 * hd, 0, f32_lanes=True)["bound_ms"]
-        core_ms = TF32_PASSES * 4 * b * heads * n * n * dim_head / PEAK_TF32_FLOPS * 1e3
-        bytes_ms = (nbytes(*a16) + out_bytes) / PEAK_BYTES_PER_S * 1e3
-        work = {"bound_ms": max(gemm_ms + core_ms, bytes_ms),
-                "bound_by": "operations" if gemm_ms + core_ms >= bytes_ms else "bytes"}
+        # the core: 4·b·H·n²·dh
+        work = blocks_bound(2 * b * n * d * 4 * hd, 4 * b * heads * n * n * dim_head,
+                            nbytes(*a16) + out_bytes)
         cases.append(("attn_block", lambda: ak.attn_block(*a16, **rcfg),
                       lambda: ak.attn_block_torch(*a32[:3], *heads_32, scale=scale,
                                                   residual=residual),
@@ -3644,13 +3662,15 @@ def amp_mixed_cases(gen, b, n, d, names, inner=None, residual=True) -> list:
                       lambda: fk.ff_block(*f32),
                       bound_bf16(flops, nbytes(*f16) + out_bytes, f32_lanes=True), f16[0]))
     if "cross_attn_block" in names:
-        m = NUM_LATENTS
-        c16, c32 = split(cross_inputs(gen, b, n, m, d, d, heads, dim_head), 4)
-        flops = (2 * b * n * d * hd + 2 * b * m * d * 2 * hd + 4 * b * heads * n * m * dim_head
-                 + 2 * b * n * hd * d)
-        cases.append(("cross_attn_block", lambda: ak.cross_attn_block(*c16, **cfg),
-                      lambda: ak._cross_plain(*c32, **cfg), lambda: ak.cross_attn_block(*c32, **cfg),
-                      bound_bf16(flops, nbytes(*c16) + out_bytes, f32_lanes=True), c16[0]))
+        m, dc = NUM_LATENTS, dc or d
+        c16, c32 = split(cross_inputs(gen, b, n, m, d, dc, heads, dim_head), 4)
+        # q, k/v and W_o; the core: 4·b·H·n·m·dh
+        work = blocks_bound(2 * b * n * d * hd + 2 * b * m * dc * 2 * hd + 2 * b * n * hd * d,
+                            4 * b * heads * n * m * dim_head, nbytes(*c16) + out_bytes)
+        cases.append(("cross_attn_block", lambda: ak.cross_attn_block(*c16, **rcfg),
+                      lambda: ak._cross_plain(*c32, **rcfg),
+                      lambda: ak.cross_attn_block(*c32, **rcfg), work,
+                      c16[0] if residual else None))
     return cases
 
 
@@ -3663,15 +3683,16 @@ def phase27_amp_kernels(bf16_summary: list) -> list:
     1024, d 128), AMP_RVQ_RAGGED and AMP_RVQ_COPIED against the f32 kernel
     on the widened values; the mixed K1 at [16, 150, 128], [16, 160,
     128] and [2, 200, 96], and K2, K3 and K2b at [16, 160, 128] (f32
-    activations against bf16 weights) against the f32 plain versions on the
-    widened weights (WAVENET_TOL, BLOCK_TOL), timed beside the f32 kernels
-    on the same values; K3 mixed at AMP_K3_RAGGED and K2 mixed at
-    AMP_K2_RAGGED, K2 also with the residual off at both of its shapes
-    (the partial sum within BLOCK_TOL of its largest entry); K1b mixed at
-    [1, 6733, 128] (on no AMP path) held and timed likewise, logged. Adds
-    the bf16 dropout shape to phase 22's bf16 K4 row; returns the new rows
-    (bf16 K5 and K6, the mixed entries). The profiles of the mixed K1, K2
-    and K3 and of K6 bf16 run early (``check_amp_bf16_cores``)."""
+    activations against bf16 weights; K2b's context [16, 32, 128]) against
+    the f32 plain versions on the widened weights (WAVENET_TOL, BLOCK_TOL),
+    timed beside the f32 kernels on the same values; K3 mixed at
+    AMP_K3_RAGGED, K2 mixed at AMP_K2_RAGGED and K2b mixed at
+    AMP_K2B_RAGGED, K2 and K2b also with the residual off (the partial sum
+    within BLOCK_TOL of its largest entry); K1b mixed at AMP_K1B_SHAPES (on
+    no AMP path) held and timed likewise, logged. Adds the bf16 dropout
+    shape to phase 22's bf16 K4 row; returns the new rows (bf16 K5 and K6,
+    the mixed entries). The profiles of the mixed K1, K1b, K2, K2b and K3
+    and of K6 bf16 run early (``check_amp_bf16_cores``)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 270)
@@ -3705,6 +3726,7 @@ def phase27_amp_kernels(bf16_summary: list) -> list:
                "cross_attn_block": ("cross_attn_block.cu", "attn_block_kernel.py:237")}
     k3b, k3n, k3d, k3_inner = AMP_K3_RAGGED
     k2b, k2n, k2d, _ = AMP_K2_RAGGED
+    xb, xn, xdm, xdc, xheads, xdh = AMP_K2B_RAGGED
     for bb, n, d, names, kw in (
             (CT_BATCH, CT_FRAMES, DIM, ("wavenet_body",), {}),
             (CT_BATCH, AMP_FUSED_FRAMES, DIM, ("wavenet_body", "attn_block", "ff_block",
@@ -3713,8 +3735,13 @@ def phase27_amp_kernels(bf16_summary: list) -> list:
             (*AMP_K1_PADDED, ("wavenet_body",), {}),
             (k3b, k3n, k3d, ("ff_block",), {"inner": k3_inner}),
             (k2b, k2n, k2d, ("attn_block",), {}),
-            (k2b, k2n, k2d, ("attn_block",), {"residual": False})):
+            (k2b, k2n, k2d, ("attn_block",), {"residual": False}),
+            (CT_BATCH, AMP_FUSED_FRAMES, DIM, ("cross_attn_block",), {"residual": False}),
+            (xb, xn, xdm, ("cross_attn_block",), {"dc": xdc, "heads": xheads,
+                                                   "dim_head": xdh})):
         shape = (f"[{bb},{n},{d}]" + (f" inner {kw['inner']}" if "inner" in kw else "")
+                 + (f" ctx [{bb},{NUM_LATENTS},{kw['dc']}], {kw['heads']} heads of "
+                    f"{kw['dim_head']}" if "dc" in kw else "")
                  + (" residual off" if kw.get("residual") is False else ""))
         for name, kernel, plain, f32_kernel, work, residual in amp_mixed_cases(gen, bb, n, d,
                                                                                 names, **kw):
@@ -3734,29 +3761,35 @@ def phase27_amp_kernels(bf16_summary: list) -> list:
         torch.cuda.empty_cache()
     from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
 
-    # K1b mixed (the split-TF32 core's kSplit2): on no AMP path, held and timed
-    wn, _ = wavenet_inputs(gen, 1, RAGGED_LANES, DIM)
-    wn = (wn[0], *_bf16(*wn[1:7]), wn[7])
-    wide = tuple(t.float() for t in wn)
-    kernel = lambda: wk.wavenet_body_lanes(*wn)  # noqa: E731
-    plain = lambda: wk.wavenet_body_lanes_torch(*wide)  # noqa: E731
-    out = kernel()
-    label = f"wavenet_body_lanes mixed [1,{RAGGED_LANES},{DIM}] (on no AMP path)"
-    hold("27", label, out, plain())
-    del out
+    # K1b mixed: on no AMP path, held and timed
     S, L = WAVENET_STACKS, WAVENET_LAYERS
-    work = bound_bf16(2 * RAGGED_LANES * DIM * DIM * (S * L * 4 + L),
-                      nbytes(*wn) + RAGGED_LANES * DIM * 4, f32_lanes=True)
-    ms, f32_ms, plain_ms = (cuda_ms(f) for f in (kernel, lambda: wk.wavenet_body_lanes(*wide),
-                                                 plain))
-    log("27", f"{label}: kernel {ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(median of 20), bound {work['bound_ms']:.4f} ms ({work['bound_by']})")
-    del wn, wide
+    for b, n, d in AMP_K1B_SHAPES:
+        wn, _ = wavenet_inputs(gen, b, n, d)
+        wn = (wn[0], *_bf16(*wn[1:7]), wn[7])
+        wide = tuple(t.float() for t in wn)
+        kernel = lambda: wk.wavenet_body_lanes(*wn)  # noqa: E731
+        plain = lambda: wk.wavenet_body_lanes_torch(*wide)  # noqa: E731
+        out = kernel()
+        torch.cuda.synchronize()
+        if out.dtype != torch.float32:
+            raise AssertionError(f"wavenet_body_lanes mixed: output {out.dtype}")
+        label = f"wavenet_body_lanes mixed [{b},{n},{d}] (on no AMP path)"
+        hold("27", label, out, plain())
+        del out
+        work = bound_bf16(2 * b * n * d * d * (S * L * 4 + L), nbytes(*wn) + b * n * d * 4,
+                          f32_lanes=True)
+        ms, f32_ms, plain_ms = (cuda_ms(f) for f in (
+            kernel, lambda: wk.wavenet_body_lanes(*wide), plain))
+        log("27", f"{label}: kernel {ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms (median of 20), bound {work['bound_ms']:.4f} ms "
+                  f"({work['bound_by']})")
+        del wn, wide
     return [bwd_row, rvq_row, *rows.values()]
 
 
-# K3's and K2's mixed entry points as torch.profiler names their launches:
-# {kind: (the strings one kernel's name holds, launches a call)}
+# K3's, K2's, K2b's and K1b's mixed entry points as torch.profiler names
+# their launches: {kind: (the strings one kernel's name holds, launches a
+# call)}
 K3_MIXED_LAUNCHES = {"norm pre-pass": (("norm_rows_kernel<float, 3>",), 1),
                      "GEGLU GEMM": (("bf16_gemm_kernel", "GegluSplit"), 1),
                      "conv GEMM": (("bf16_gemm_kernel", "StoreSplit"), 1),
@@ -3766,10 +3799,28 @@ K2_MIXED_LAUNCHES = {"norm pre-pass": (("norm_rows_kernel<float, 3>",), 1),
                      "K4 f32": (("flash_fwd_kernel<float",), 1),
                      "o split": (("split3_kernel",), 1),
                      "W_o GEMM": (("bf16_gemm_kernel", "SplitHeadRows"), 1)}
+# (K2b's norm pre-pass splits its context too)
+K2B_MIXED_LAUNCHES = {"norm pre-pass": (("norm_rows_kernel<float, 3>",), 1),
+                      "q and k/v GEMMs": (("bf16_gemm_kernel", "SplitLanes",
+                                           "QkvScatterT<float>"), 2),
+                      "K4 f32": (("flash_fwd_kernel<float",), 1),
+                      "o split": (("split3_kernel",), 1),
+                      "W_o GEMM": (("bf16_gemm_kernel", "SplitHeadRows"), 1)}
+
+
+def k1b_mixed_launches(S: int, L: int) -> dict:
+    """K1b mixed's launches: x's split, the blocks (LANE_GROUP lanes a
+    launch, the gate on f32 parameters) and one skip GEMM a lane."""
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    return {"split pre-pass": (("split3_kernel",), 1),
+            "block GEMMs": (("bf16_gemm_kernel", "WaveGateSplit<3, float"),
+                            S * -(-L // wk.LANE_GROUP)),
+            "skip GEMMs": (("bf16_gemm_kernel", "SplitLanes", "Store<float"), L)}
 
 
 def check_mixed_block(phase: str, label: str, fn, expect: dict) -> None:
-    """A profile of one mixed K2 or K3 call: each kind of launch of
+    """A profile of one mixed K1b, K2, K2b or K3 call: each kind of launch of
     ``expect`` as often as it says, no other kernel, none of the split-TF32
     core's (``gemm_tf32x3.cuh``)."""
     def tally(counts):
@@ -3793,10 +3844,13 @@ def check_mixed_block(phase: str, label: str, fn, expect: dict) -> None:
 
 
 def check_amp_bf16_cores(phase: str) -> None:
-    """Profiles of the AMP entry points on the bf16 GEMM core: K3 and K2
-    mixed at [16, 160, 128] (``check_mixed_block``: the norm pre-pass and
-    three GEMMs; the norm pre-pass, the q/k/v GEMM, K4 f32, the split of o
-    and the W_o GEMM), K1 mixed
+    """Profiles of the AMP entry points on the bf16 GEMM core: K3, K2 and
+    K2b mixed at [16, 160, 128] (``check_mixed_block``: the norm pre-pass
+    and three GEMMs; the norm pre-pass, the q/k/v GEMM, K4 f32, the split of
+    o and the W_o GEMM; the norm pre-pass with the context's split, the q
+    and k/v GEMMs, K4 f32, the split of o and the W_o GEMM), K1b mixed at
+    [1, 6733, 128] (x's split, S·L / LANE_GROUP block and L skip GEMMs), K1
+    mixed
     at [16, 150, 128] (S + 1 launches of the core, the blocks' gate on f32
     parameters, one split pre-pass of x, no other kernel) and K6 bf16 at m
     2400 (Q 8, K 1024, d 128), AMP_RVQ_RAGGED and AMP_RVQ_COPIED (Q launches
@@ -3809,11 +3863,20 @@ def check_amp_bf16_cores(phase: str) -> None:
     from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 271)
+    expect = {"ff_block": K3_MIXED_LAUNCHES, "attn_block": K2_MIXED_LAUNCHES,
+              "cross_attn_block": K2B_MIXED_LAUNCHES}
     for name, kernel, *_ in amp_mixed_cases(gen, CT_BATCH, AMP_FUSED_FRAMES, DIM,
-                                            ("ff_block", "attn_block")):
+                                            ("ff_block", "attn_block", "cross_attn_block")):
         check_mixed_block(phase, f"{name} mixed [{CT_BATCH},{AMP_FUSED_FRAMES},{DIM}]", kernel,
-                          K3_MIXED_LAUNCHES if name == "ff_block" else K2_MIXED_LAUNCHES)
+                          expect[name])
     S = WAVENET_STACKS
+    b, n, d = AMP_K1B_SHAPES[0]
+    wn, _ = wavenet_inputs(gen, b, n, d)
+    lanes_args = (wn[0], *_bf16(*wn[1:7]), wn[7])
+    check_mixed_block(phase, f"wavenet_body_lanes mixed [{b},{n},{d}]",
+                      lambda: wk.wavenet_body_lanes(*lanes_args),
+                      k1b_mixed_launches(S, WAVENET_LAYERS))
+    del wn, lanes_args
     wn, _ = wavenet_inputs(gen, CT_BATCH, CT_FRAMES, DIM)
     args = (wn[0], *_bf16(*wn[1:7]), wn[7])
 

@@ -29,10 +29,11 @@ through the wrapper and through the C entry point alone, which both trees
 export with one signature), the bf16 flagship (b4 x n1024) and scaled
 (b16 x n1024, dim 512, depth 12) denoise steps, the f32 flagship step and
 the long-form bf16 denoise step at n 4500 and n 9000 (CUDA events, median
-of 10); first of all K3 and K2 mixed at AMP_BLOCK_SHAPES (wrapper, C entry
-and its host time, the f32 kernel's C entry on the same values).
-``--kernels=<group>,...`` runs those groups alone (amp_blocks, amp,
-amp_steps, wavenet, blocks, bf16mm, bf16). Run the two trees in turns in
+of 10); first of all K2b mixed at AMP_CROSS_SHAPES and K1b mixed at
+AMP_LANES_SHAPES, then K3 and K2 mixed at AMP_BLOCK_SHAPES (wrapper, C
+entry and its host time, the f32 kernel's C entry on the same values).
+``--kernels=<group>,...`` runs those groups alone (amp_cross_lanes,
+amp_blocks, amp, amp_steps, wavenet, blocks, bf16mm, bf16). Run the two trees in turns in
 one command (A, B, B, A): the host-bound figures move between machines.
 
 Exits non-zero without a CUDA device. Not part of the smoke run.
@@ -236,6 +237,70 @@ def mixed_block_kernels(cs, out: dict) -> None:
             "wrapper_ms": cs.cuda_ms(wrapper), "c_entry_ms": cs.cuda_ms(call),
             "c_entry_host_ms": host_ms(call, ()), "f32_c_entry_ms": cs.cuda_ms(f32_call)}
         del acts, weights, call, f32_call
+        torch.cuda.empty_cache()
+
+
+# K2b mixed (b, n, dm, dc, heads, dim_head), context NUM_LATENTS rows: the
+# 160-frame AMP step's and chip_smoke's AMP_K2B_RAGGED; K1b mixed (b, n, d),
+# 4 stacks x 8 layers: chip_smoke's AMP_K1B_SHAPES
+AMP_CROSS_SHAPES = ((16, 160, 128, 128, 8, 64), (3, 200, 96, 100, 2, 128))
+AMP_LANES_SHAPES = ((1, 6733, 128), (2, 1000, 96))
+
+
+def mixed_cross_lanes_kernels(cs, out: dict) -> None:
+    """K2b mixed at AMP_CROSS_SHAPES (through each tree's own
+    ``cross_c_entry``) and K1b mixed at AMP_LANES_SHAPES (weights packed in
+    the format the tree's ``gemm_cache.fmt_of`` gives them, scratch from its
+    ``wavenet_kernel.scratch``): the wrapper, the C entry point alone and
+    its host time, and the f32 kernel's C entry on the same values (CUDA
+    events, median of 20)."""
+    import torch
+
+    from naturalspeech2_tpu_torch import _build
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
+    from naturalspeech2_tpu_torch.ops import gemm_cache
+    from naturalspeech2_tpu_torch.ops import wavenet_kernel as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    bf, f32 = torch.bfloat16, torch.float32
+    for b, n, dm, dc, heads, dim_head in AMP_CROSS_SHAPES:
+        args = cs.cross_inputs(gen, b, n, cs.NUM_LATENTS, dm, dc, heads, dim_head)
+        acts, weights = args[:4], cs._bf16(*args[4:])
+        cfg = dict(heads=heads, dim_head=dim_head, scale=dim_head**-0.5)
+        call = cs.cross_c_entry(*acts, *weights, **cfg)
+        f32_call = cs.cross_c_entry(*acts, *(w.float() for w in weights), **cfg)
+        key = f"[{b},{n},{dm}] ctx [{b},{cs.NUM_LATENTS},{dc}] {heads}x{dim_head}"
+        out.setdefault("k2b_mixed", {})[key] = {
+            "wrapper_ms": cs.cuda_ms(lambda: ak.cross_attn_block(*acts, *weights, **cfg)),
+            "c_entry_ms": cs.cuda_ms(call), "c_entry_host_ms": host_ms(call, ()),
+            "f32_c_entry_ms": cs.cuda_ms(f32_call)}
+        del args, acts, weights, call, f32_call
+        torch.cuda.empty_cache()
+    stream = torch.cuda.current_stream().cuda_stream
+    S, L = cs.WAVENET_STACKS, cs.WAVENET_LAYERS
+    for b, n, d in AMP_LANES_SHAPES:
+        wn, _ = cs.wavenet_inputs(gen, b, n, d, S, L)
+        x, weights, film = wn[0], cs._bf16(*wn[1:7]), wn[7]
+        entries = {}
+        for name, ws, wdt in (("mixed", weights, bf), ("f32", [w.float() for w in weights], f32)):
+            fmt = gemm_cache.fmt_of(f32, wdt, "wavenet_lanes")
+            wt = wk._pack_checked(*ws, "lanes", f32, fmt)
+            xp, filmp = wk.pad_wavenet_inputs(x, film, wt.d) if wt.d != d else (x, film)
+            state = wk.scratch(b, n, wt.d, L, "lanes", f32, x.device, fmt)
+            y = torch.empty((b, n, wt.d), device="cuda")
+            fn = _build.entry("ns2_wavenet_lanes", f32, wdt)
+            c_args = (xp.data_ptr(), wt.blocks.data_ptr(), wt.conv_b.data_ptr(),
+                      wt.res_b.data_ptr(), wt.skip.data_ptr(), wt.skip_b.data_ptr(),
+                      filmp.data_ptr(), *(t.data_ptr() for t in state), y.data_ptr(), b, n,
+                      wt.d, S, L, stream)
+            entries[name] = (fn, c_args, (wt, xp, filmp, state, y))
+        fn, c_args, _ = entries["mixed"]
+        f32_fn, f32_args, _ = entries["f32"]
+        out.setdefault("k1b_mixed", {})[f"[{b},{n},{d}]"] = {
+            "wrapper_ms": cs.cuda_ms(lambda: wk.wavenet_body_lanes(x, *weights, film)),
+            "c_entry_ms": cs.cuda_ms(lambda: fn(*c_args)), "c_entry_host_ms": host_ms(fn, c_args),
+            "f32_c_entry_ms": cs.cuda_ms(lambda: f32_fn(*f32_args))}
+        del wn, x, weights, film, entries
         torch.cuda.empty_cache()
 
 
@@ -531,7 +596,8 @@ def main() -> int:
     out = {"label": label}
     kernels = [a for a in sys.argv[3:] if a.startswith("--kernels")]
     if kernels:
-        groups = {"amp_blocks": mixed_block_kernels, "amp": amp_kernels, "amp_steps": amp_steps,
+        groups = {"amp_cross_lanes": mixed_cross_lanes_kernels, "amp_blocks": mixed_block_kernels,
+                  "amp": amp_kernels, "amp_steps": amp_steps,
                   "wavenet": wavenet_kernels, "blocks": block_kernels, "bf16mm": bf16mm_kernels,
                   "bf16": bf16_kernels}
         chosen = kernels[0].partition("=")[2]

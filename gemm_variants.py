@@ -50,6 +50,11 @@ their other launches' device times):
                every GEMM at that tile shape, where base chooses by waves
   bf16_no_pdl  every launch after the stream's previous kernel has ended,
                where base launches each as a programmatic dependent
+  k2b_mixed_two_prepasses
+               K2b mixed's context split by a launch of its own, where base
+               splits it in the norm pre-pass's launch; K2b mixed is timed
+               at AMP's shape and chip_smoke.AMP_K2B_RAGGED under every
+               bf16 variant
 
 The bf16 core's WaveNet (K1 and K1b in bf16: the f32 lanes as three bf16
 planes), timed at WAVENET_SHAPES with base's launches by kernel:
@@ -113,11 +118,9 @@ VARIANTS = {
     "no_a_stores": [(CORE, "store_split4(sm.a[s][0], sm.a[s][1], kmajor<kBM>(sr, k), areg[i]);",
                      "if (areg[i].x == 12345.0f) sm.a[s][0][i] = areg[i].y;")],
     "no_b_copies": [(CORE, "cp_async16(dst + e, src + e, true);", "(void)dst; (void)src;")],
-    "one_pass": [(CORE, "      if constexpr (M == Mode::kSplit3)\n"
-                        "        wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));\n"
+    "one_pass": [(CORE, "      wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][1], ks));\n"
                         "      wgmma_ss_n64(small, a_lo, b_hi);\n", "")],
-    "no_products": [(CORE, "      if constexpr (M == Mode::kSplit3)\n"
-                           "        wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));\n"
+    "no_products": [(CORE, "      wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][1], ks));\n"
                            "      wgmma_ss_n64(small, a_lo, b_hi);\n"
                            "      wgmma_ss_n64(big, a_hi, b_hi);\n", "")],
     "late_b": [(CORE, "    cp_async_wait<1>();  // chunk c of B has landed (c + 1 may be in flight)\n",
@@ -130,10 +133,10 @@ VARIANTS = {
                       "    if (c + 2 < chunks) load_b(c + 2, s);\n"
                       "    cp_async_commit();  // possibly empty: one group per chunk keeps the count\n",
                 "")],
-    "k1_wn1": [("wavenet.cu", "gemm::launch_wn<2, M>(", "gemm::launch_wn<1, M>("),
-               ("wavenet_lane.cu", "gemm::launch_wn<2, M>(", "gemm::launch_wn<1, M>(")],
+    "k1_wn1": [("wavenet.cu", "gemm::launch_wn<2>(", "gemm::launch_wn<1>("),
+               ("wavenet_lane.cu", "gemm::launch_wn<2>(", "gemm::launch_wn<1>(")],
     "k1_wn2_x1": [(CORE, "WN == 1 ? 3 : (WN == 2 ? 2 : 1)", "WN == 1 ? 3 : 1")],
-    "k1_wn3": [("wavenet.cu", "gemm::launch_wn<2, M>(", "gemm::launch<M>(")],
+    "k1_wn3": [("wavenet.cu", "gemm::launch_wn<2>(", "gemm::launch(")],
 }
 # bf16_norm_loader's loader: A = n(x), the adaptive RMSNorm x / max(‖x‖,
 # 1e-12) · √dm · γ_b + β_b of x [b, n, dm] (γ, β [b, dm]) in f32, rounded to
@@ -232,6 +235,18 @@ _TILE = "  const Shape s = choose(ld.batch, ld.n, b_rows);\n"
 _PDL = "attr[0].val.programmaticStreamSerializationAllowed = 1;"
 _NO_PDL = "attr[0].val.programmaticStreamSerializationAllowed = 0;"
 _STAGES = "constexpr int kStages = 4; "
+# k2b_mixed_two_prepasses: K2b mixed's context split by a launch of its own
+# before the norm pre-pass, where base splits it in the norm pre-pass's
+# launch (`bgemm::SplitTail`)
+_K2B_ONE_PREPASS = """  cudaError_t err = bgemm::launch_normed_split(
+      x, gamma, beta, planes, b, n, dm, bt_q, hd, bgemm::QkvScatterT<float>{q, n, heads, b, dh, 1},
+      st, bgemm::SplitTail{ctx, ctx_planes, b * m, m, dc, dc_pad});
+"""
+_K2B_TWO_PREPASSES = """  cudaError_t err = bgemm::split_planes(ctx, ctx_planes, b, m, dc, dc_pad, st);
+  if (err == cudaSuccess)
+    err = bgemm::launch_normed_split(x, gamma, beta, planes, b, n, dm, bt_q, hd,
+                                     bgemm::QkvScatterT<float>{q, n, heads, b, dh, 1}, st);
+"""
 BF16_VARIANTS = {
     "bf16_stages3": [(BF16_CORE, _STAGES, "constexpr int kStages = 3; ")],
     "bf16_stages2": [(BF16_CORE, _STAGES, "constexpr int kStages = 2; ")],
@@ -257,6 +272,7 @@ BF16_VARIANTS = {
     "bf16_tile_128x128": [(BF16_CORE, _TILE, "  const Shape s = kShapes[1];\n")],
     "bf16_tile_64x64": [(BF16_CORE, _TILE, "  const Shape s = kShapes[2];\n")],
     "bf16_no_pdl": [(BF16_CORE, _PDL, _NO_PDL)],
+    "k2b_mixed_two_prepasses": [("cross_attn_block.cu", _K2B_ONE_PREPASS, _K2B_TWO_PREPASSES)],
 }
 # k1_bf16_res_tap2's products: a chunk of taps 0 and 1 of a WaveNet block
 # (`SplitTaps`) runs on the conv columns of each 64-column group alone
@@ -340,8 +356,9 @@ WAVENET_BF16_VARIANTS = {
     "k1b_bf16_tile_128x128": [("wavenet_lane.cu", _WAVE_SHAPE,
                                "  const bgemm::Shape sh = bgemm::kShapes[1];  // ")],
 }
-# the sources each set of variants builds (K2's attention core is K4)
-BF16_SOURCES = ("ff_block.cu", "attn_block.cu", "flash_fwd.cu", "flash_fwd_bf16.cu", "runtime.cu")
+# the sources each set of variants builds (K2's and K2b's attention core is K4)
+BF16_SOURCES = ("ff_block.cu", "attn_block.cu", "cross_attn_block.cu", "flash_fwd.cu",
+                "flash_fwd_bf16.cu", "runtime.cu")
 SOURCES = (*BF16_SOURCES, "wavenet.cu", "wavenet_lane.cu")
 # (name, b, n, dm)
 SHAPES = (("flagship", 4, 1024, 128), ("conditional", 8, 512, 128), ("long", 1, 9000, 128),
@@ -361,7 +378,8 @@ BF16_SHAPES = (("flagship", 4, 1024, 128, ("ff_block", "attn_block")),
                ("served", 2, 512, 128, ("ff_block", "attn_block")),
                ("scaled", 16, 1024, 512, ("ff_block", "attn_block")),
                ("long", 1, 9000, 128, ("ff_block",)))
-ENTRIES = ("ns2_ff_block", "ns2_attn_block", "ns2_ff_block_bf16", "ns2_attn_block_bf16")
+ENTRIES = ("ns2_ff_block", "ns2_attn_block", "ns2_ff_block_bf16", "ns2_attn_block_bf16",
+           "ns2_cross_attn_block_mixed")
 WAVENET_ENTRIES = ("ns2_wavenet_body", "ns2_wavenet_lanes", "ns2_wavenet_body_bf16",
                    "ns2_wavenet_lanes_bf16", "ns2_wavenet_lanes_bf16mm", "ns2_wavenet_body_mixed")
 # K1's mixed entry (f32 x against bf16 weights): AMP training's shape
@@ -521,10 +539,11 @@ def _device_ms_by_kernel(fn, calls: int = 10) -> dict:
 
 def bf16_cores(cs, libs) -> None:
     """The bf16 core's variants: K3 and K2 bf16 at BF16_SHAPES; base's K3
-    launches by kernel beside torch.matmul in bf16 at their M x N x K."""
+    launches by kernel beside torch.matmul in bf16 at their M x N x K; K2b
+    mixed at AMP's shape and AMP_K2B_RAGGED, with its launches by kernel."""
     import torch
 
-    from naturalspeech2_tpu_torch import _build
+    from naturalspeech2_tpu_torch.ops import attn_block_kernel as ak
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 200)
     for label, b, n, dm, blocks in BF16_SHAPES:
@@ -547,6 +566,26 @@ def bf16_cores(cs, libs) -> None:
                          ("::HeadRows, ns2::bgemm::Store", dm, hd))
             yardstick(cs, c_entry, b * n, gemms, f"{block} bf16 {label} [{b},{n},{dm}]")
             del ref, out, c_entry
+        torch.cuda.empty_cache()
+    # K2b mixed (f32 x and ctx against bf16 weights): AMP's step and a ragged
+    # shape, (b, n, dm, dc, heads, dim_head)
+    for b, n, dm, dc, heads, dim_head in ((16, 160, 128, 128, 8, 64), cs.AMP_K2B_RAGGED):
+        args = cs.cross_inputs(gen, b, n, cs.NUM_LATENTS, dm, dc, heads, dim_head)
+        acts, weights = args[:4], cs._bf16(*args[4:])
+        cfg = dict(heads=heads, dim_head=dim_head, scale=dim_head**-0.5)
+        ref = ak._cross_plain(*acts, *(w.float() for w in weights), **cfg)
+        c_entry = cs.cross_c_entry(*acts, *weights, **cfg)
+        out = c_entry()
+        time_variants(cs, libs, f"K2b mixed [{b},{n},{dm}] ctx [{b},{cs.NUM_LATENTS},{dc}] "
+                                f"{heads}x{dim_head}", "ns2_cross_attn_block_mixed",
+                      c_entry.args, out, ref, acts[0])
+        for variant in ("base", "k2b_mixed_two_prepasses"):
+            if variant in libs:
+                fn = getattr(libs[variant], "ns2_cross_attn_block_mixed")
+                by_kernel = _device_ms_by_kernel(lambda: fn(*c_entry.args))
+                print(f"K2b mixed [{b},{n},{dm}] {variant} launches: " + "; ".join(
+                    f"{k[:80]} {ms:.4f} ms" for k, ms in by_kernel.items()), flush=True)
+        del args, acts, weights, ref, c_entry, out
         torch.cuda.empty_cache()
 
 

@@ -47,14 +47,14 @@ SIGNATURES = {
     "ns2_wavenet_body_mixed": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes": [_P] * 10 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes_bf16": [_P] * 11 + [_I] * 5 + [_P],
-    "ns2_wavenet_lanes_mixed": [_P] * 10 + [_I] * 5 + [_P],
+    "ns2_wavenet_lanes_mixed": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_wavenet_lanes_bf16mm": [_P] * 11 + [_I] * 5 + [_P],
     "ns2_attn_block": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     "ns2_attn_block_bf16": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     "ns2_attn_block_mixed": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
     "ns2_cross_attn_block": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
     "ns2_cross_attn_block_bf16": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
-    "ns2_cross_attn_block_mixed": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    "ns2_cross_attn_block_mixed": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
     "ns2_ff_block": [_P] * 13 + [_I] * 4 + [_P],
     "ns2_ff_block_bf16": [_P] * 13 + [_I] * 4 + [_P],
     "ns2_ff_block_mixed": [_P] * 13 + [_I] * 4 + [_P],

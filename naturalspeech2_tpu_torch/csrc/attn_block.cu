@@ -156,7 +156,7 @@ int attn_block_mixed(const float* x, const float* gamma, const float* beta, cons
   const size_t plane = (size_t)b * n * hd;
   err = (cudaError_t)attention_core(qkv, qkv + plane, qkv + 2 * plane, o, b, heads, n, n, dh,
                                     scale, stream);
-  if (err == cudaSuccess) err = bgemm::split_planes(o, planes, b, heads * n, dh, st);
+  if (err == cudaSuccess) err = bgemm::split_planes(o, planes, b, heads * n, dh, dh, st);
   if (err != cudaSuccess) return err;
   return bgemm::launch_planes(planes, 3 * heads, dh, bgemm::SplitHeadRows{b, heads, n, dh},
                               bt_out, bgemm::round_up(dm, bgemm::kPad), hd / bgemm::kKC,

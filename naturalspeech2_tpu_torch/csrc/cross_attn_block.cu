@@ -60,6 +60,34 @@
 // What bounds it at the served shapes (x [2|8, 512, 128], ctx [·, 32, 128])
 // is latency: 0.4–1.4 µs of work at the card's rates against five launches,
 // so the GEMMs start their blocks during their predecessors' tails.
+//
+// Mixed (`ns2_cross_attn_block_mixed`: f32 x, ctx, γ and β against bf16
+// weights, AMP training's denoiser; the JAX kernel with `mm = float32`,
+// attn_block_kernel.py:244: the norm, q, k, v, the attention and every
+// product in f32, the bf16 weights widened exactly): the projections on the
+// bf16 core with each f32 operand carried as three bf16 planes (`split3`,
+// an exact sum), each part's product with a bf16 weight exact in f32, so a
+// product is three bf16 passes over the same chunks of B, lo first, as K2's
+// mixed entry (attn_block.cu). Six launches, every GEMM a programmatic
+// dependent of the kernel before it:
+//  1. the norm pre-pass writes n(x)'s three planes [b, 3, n, dm_pad] and,
+//     in the same launch, the context's [b, 3, m, dc_pad] into the planes
+//     scratch's tail (`SplitTail`: dc padded to 64 with zeros, so the copy
+//     that TMA needs where dc % 8 != 0 comes with it);
+//  2. q over n(x)'s parts (`SplitLanes`, one lane), stored in f32 into
+//     K4's layout [b, H, n, dh] (`QkvScatterT<float>`);
+//  3. k, v over the context's parts (`SplitLanes` of m-row sequences: m =
+//     32 rows fill half a 64-row box, the rest TMA's zeros), stored in f32
+//     into [2, b, H, m, dh];
+//  4. the attention core on K4's f32 kernel (flash_fwd.cu, split TF32);
+//  5. o split into its three planes (`split_planes` of o as [b, H·n, dh]:
+//     [b, 3·H, n, dh]), over n(x)'s planes, which are dead by then;
+//  6. y = (x +) Σ_h o_h · W_o,h over o's three parts (`SplitHeadRows`),
+//     stored in f32, x added only when the residual is on.
+// What bounds it at AMP's shape (x [16, 160, 128], ctx [16, 32, 128]) is
+// latency too: some 3.5 µs of work at the card's rates (the projections'
+// three bf16 passes at 989 TFLOP/s, the core's three TF32 ones at 495)
+// against six launches, K4 f32 the longest of them.
 #include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 
@@ -94,9 +122,7 @@ int attention_core(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b, 
                             0u, 0.0f, 0, 0u, 1.0f, 0, 0, stream);
 }
 
-// The block on the split-TF32 core: f32 (kSplit3) or, M = kSplit2, the
-// mixed entry point (f32 rows against TF32-exact bf16 weights).
-template <gemm::Mode M = gemm::Mode::kSplit3>
+// The block on the split-TF32 core (f32).
 int cross_attn_block(const float* x, const float* ctx, const float* gamma, const float* beta,
                      const float* bt_q, const float* bt_kv, const float* bt_out, float* q,
                      float* kv, float* o, float* out, int b, int n, int m, int dm, int dc,
@@ -106,21 +132,21 @@ int cross_attn_block(const float* x, const float* ctx, const float* gamma, const
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = b * n, ctx_rows = b * m;
-  cudaError_t err = gemm::launch<M>(
+  cudaError_t err = gemm::launch(
       gemm::NormRows{x, gamma, beta, rows, n, dm, sqrtf((float)dm)}, bt_q, rows,
       (dm + gemm::kKC - 1) / gemm::kKC, heads * dh / gemm::kBN,
       gemm::QkvScatter{q, rows, n, heads, b, dh}, st);
   if (err != cudaSuccess) return err;
-  err = gemm::launch<M>(gemm::Rows{ctx, ctx_rows, dc}, bt_kv, ctx_rows,
-                        (dc + gemm::kKC - 1) / gemm::kKC, 2 * heads * dh / gemm::kBN,
-                        gemm::QkvScatter{kv, ctx_rows, m, heads, b, dh}, st);
+  err = gemm::launch(gemm::Rows{ctx, ctx_rows, dc}, bt_kv, ctx_rows,
+                     (dc + gemm::kKC - 1) / gemm::kKC, 2 * heads * dh / gemm::kBN,
+                     gemm::QkvScatter{kv, ctx_rows, m, heads, b, dh}, st);
   if (err != cudaSuccess) return err;
   const size_t plane = (size_t)ctx_rows * heads * dh;
   err = (cudaError_t)attention_core(q, kv, kv + plane, o, b, heads, n, m, dh, scale, stream);
   if (err != cudaSuccess) return err;
-  return gemm::launch<M>(gemm::HeadRows{o, rows, n, heads, dh}, bt_out, rows,
-                         heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store{out, nullptr, residual ? x : nullptr, rows, dm, dm}, st);
+  return gemm::launch(gemm::HeadRows{o, rows, n, heads, dh}, bt_out, rows,
+                      heads * dh / gemm::kKC, (dm + gemm::kBN - 1) / gemm::kBN,
+                      gemm::Store{out, nullptr, residual ? x : nullptr, rows, dm, dm}, st);
 }
 
 // The block on the bf16 core (gemm_bf16.cuh); o holds max(H·dh, dm_pad)
@@ -135,7 +161,7 @@ int cross_attn_block_bf16(const bf16* x, const bf16* ctx, const bf16* gamma, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int hd = heads * dh, dm_pad = bgemm::round_up(dm, bgemm::kPad);
   cudaError_t err = bgemm::launch_normed(x, gamma, beta, o, b, n, dm, bt_q, hd,
-                                         bgemm::QkvScatter{q, n, heads, b, dh}, st);
+                                         bgemm::QkvScatter{q, n, heads, b, dh, 1}, st);
   if (err != cudaSuccess) return err;
   const size_t plane = (size_t)b * m * hd;
   const bf16* rows = ctx;
@@ -148,12 +174,46 @@ int cross_attn_block_bf16(const bf16* x, const bf16* ctx, const bf16* gamma, con
   }
   err = bgemm::launch(bgemm::Rows{rows, b, m, ld, dc}, bt_kv, 2 * hd,
                       bgemm::round_up(dc, bgemm::kPad) / bgemm::kKC,
-                      bgemm::QkvScatter{kv, m, heads, b, dh}, st);
+                      bgemm::QkvScatter{kv, m, heads, b, dh, 2}, st);
   if (err != cudaSuccess) return err;
   err = (cudaError_t)attention_core(q, kv, kv + plane, o, b, heads, n, m, dh, scale, stream);
   if (err != cudaSuccess) return err;
   return bgemm::launch(bgemm::HeadRows{o, b, heads, n, dh}, bt_out, dm_pad, hd / bgemm::kKC,
                        bgemm::Store<>{out, nullptr, residual ? x : nullptr, dm, dm}, st);
+}
+
+// The mixed block on the bf16 core: q [b, H, n, dh], kv [2, b, H, m, dh] and
+// o [b, H, n, dh] f32 scratch; planes bf16 scratch of b·n rows of
+// 3·max(H·dh, dm_pad) values (n(x)'s planes, then o's), then the context's
+// planes [b, 3, m, dc_pad].
+int cross_attn_block_mixed(const float* x, const float* ctx, const float* gamma,
+                           const float* beta, const bf16* bt_q, const bf16* bt_kv,
+                           const bf16* bt_out, float* q, float* kv, float* o, bf16* planes,
+                           float* out, int b, int n, int m, int dm, int dc, int heads, int dh,
+                           float scale, int residual, void* stream) {
+  if (dm <= 0 || dc <= 0 || n <= 0 || m <= 0 || b <= 0 || heads <= 0 ||
+      (dh != 64 && (dh <= 0 || dh % 128 != 0)))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hd = heads * dh, dm_pad = bgemm::round_up(dm, bgemm::kPad);
+  const int dc_pad = bgemm::round_up(dc, bgemm::kPad), per_part = dc_pad / bgemm::kKC;
+  bf16* ctx_planes = planes + (size_t)b * n * 3 * (hd > dm_pad ? hd : dm_pad);
+  cudaError_t err = bgemm::launch_normed_split(
+      x, gamma, beta, planes, b, n, dm, bt_q, hd, bgemm::QkvScatterT<float>{q, n, heads, b, dh, 1},
+      st, bgemm::SplitTail{ctx, ctx_planes, b * m, m, dc, dc_pad});
+  if (err == cudaSuccess)
+    err = bgemm::launch_planes(ctx_planes, 3, dc_pad, bgemm::SplitLanes{b, m, dc_pad, 1, 3, 0, 0},
+                               bt_kv, 2 * hd, per_part, 3 * per_part,
+                               bgemm::QkvScatterT<float>{kv, m, heads, b, dh, 2}, st);
+  if (err != cudaSuccess) return err;
+  const size_t plane = (size_t)b * m * hd;
+  err = (cudaError_t)attention_core(q, kv, kv + plane, o, b, heads, n, m, dh, scale, stream);
+  if (err == cudaSuccess) err = bgemm::split_planes(o, planes, b, heads * n, dh, dh, st);
+  if (err != cudaSuccess) return err;
+  return bgemm::launch_planes(planes, 3 * heads, dh, bgemm::SplitHeadRows{b, heads, n, dh},
+                              bt_out, dm_pad, hd / bgemm::kKC, 3 * hd / bgemm::kKC,
+                              bgemm::Store<float>{out, nullptr, residual ? x : nullptr, dm, dm},
+                              st);
 }
 
 }  // namespace
@@ -173,20 +233,22 @@ NS2_API int ns2_cross_attn_block(const float* x, const float* ctx, const float* 
                           dc, heads, dh, scale, residual, stream);
 }
 
-// Mixed (`ns2_cross_attn_block_mixed`: f32 activations, the context, γ and
-// β against bf16 weights packed as TF32 with no lo part, AMP training's
-// denoiser): the f32 block, the GEMM core in its two-pass kSplit2 mode (the
-// f32 rows split into hi and lo against the weights' exact TF32 values),
-// the attention core on K4's f32 kernel. The JAX kernel computes the same,
-// its products promoting the bf16 weights to f32 (`mm = float32`).
+// Mixed (`ns2_cross_attn_block_mixed`, see the top of this file): x, ctx, γ,
+// β and out f32; the weights bf16 packed "bf16_sw128" as for
+// ns2_cross_attn_block_bf16; q [b, H, n, dh], kv [2, b, H, m, dh] and o [b,
+// H, n, dh] f32 scratch; planes bf16 scratch of 3·max(H·dh, dm padded to
+// 64) values for each of the b·n rows, then 3·(dc padded to 64) for each of
+// the b·m rows of the context. Six launches: the norm pre-pass (with the
+// context's split), the q GEMM, the k/v GEMM, K4 f32, the split of o and
+// the W_o GEMM. residual 0 as for ns2_cross_attn_block.
 NS2_API int ns2_cross_attn_block_mixed(const float* x, const float* ctx, const float* gamma,
-                                       const float* beta, const float* bt_q, const float* bt_kv,
-                                       const float* bt_out, float* q, float* kv, float* o,
-                                       float* out, int b, int n, int m, int dm, int dc, int heads,
-                                       int dh, float scale, int residual, void* stream) {
-  return cross_attn_block<gemm::Mode::kSplit2>(x, ctx, gamma, beta, bt_q, bt_kv, bt_out, q, kv,
-                                               o, out, b, n, m, dm, dc, heads, dh, scale,
-                                               residual, stream);
+                                       const float* beta, const bf16* bt_q, const bf16* bt_kv,
+                                       const bf16* bt_out, float* q, float* kv, float* o,
+                                       bf16* planes, float* out, int b, int n, int m, int dm,
+                                       int dc, int heads, int dh, float scale, int residual,
+                                       void* stream) {
+  return cross_attn_block_mixed(x, ctx, gamma, beta, bt_q, bt_kv, bt_out, q, kv, o, planes, out,
+                                b, n, m, dm, dc, heads, dh, scale, residual, stream);
 }
 
 // The same in bf16 on the bf16 core: every pointer bf16, the weights

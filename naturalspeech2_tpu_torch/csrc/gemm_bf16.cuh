@@ -1,7 +1,8 @@
 // The bf16 GEMM core of K1 (wavenet.cu), K1b (wavenet_lane.cu, its
 // `bf16_matmul` option too), K2 (attn_block.cu), K2b (cross_attn_block.cu)
-// and K3 (ff_block.cu) in bf16, of the mixed entry points of K1, K2 and K3
-// (f32 activations against bf16 weights) and of K6 in bf16 (rvq.cu):
+// and K3 (ff_block.cu) in bf16, of the mixed entry points of K1, K1b, K2,
+// K2b and K3 (f32 activations against bf16 weights) and of K6 in bf16
+// (rvq.cu):
 //
 //   C[M x N] = epilogue(A[M x K] · B[K x N]),   A and B bf16, summed in f32,
 //
@@ -42,8 +43,9 @@
 //    the sequence zeros), `HeadRows` (K4's output [b, H, n, dh] as the
 //    heads' concatenation; a chunk of 64 lies in one head), and the
 //    WaveNet's `SplitTaps` and `SplitLanes` (below). K2b's context is
-//    `Rows` of ctx [b, m, dc] itself: m = 32 rows fill half a 64-row box,
-//    the rest TMA's zeros. A loader also names each chunk's B chunk (`at`
+//    `Rows` of ctx [b, m, dc] itself (its mixed entry: `SplitLanes` of the
+//    context's planes): m = 32 rows fill half a 64-row box, the rest TMA's
+//    zeros. A loader also names each chunk's B chunk (`at`
 //    returns it), so that chunks of A may share one chunk of B.
 //  - B is a weight, packed once by the Python wrapper (`pack_b(bt,
 //    "bf16_sw128")` in ops/gemm_cache.py): Bᵀ [N, K] padded with zeros to
@@ -67,9 +69,10 @@
 //
 // f32 operands against bf16 values (K1 and K1b in bf16, whose JAX kernels
 // keep their lanes in f32 and multiply them by the bf16 weights with f32
-// products; the mixed entries of K1, K2 and K3, whose activations are f32
-// too: n(x) by `norm_planes`, K3's a and c by their epilogues, K2's o by
-// `split_planes`; K6 in bf16, whose f32 residual meets bf16 codebooks): an
+// products; the mixed entries of K1, K1b, K2, K2b and K3, whose
+// activations are f32 too: n(x) by `norm_planes`, K3's a and c by their
+// epilogues, x, K2's and K2b's o and K2b's context by `split_planes`; K6 in
+// bf16, whose f32 residual meets bf16 codebooks): an
 // f32 value v is carried as three bf16
 // planes, hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), which
 // sum to v exactly (8 + 8 + 8 of f32's 24 significant bits), and each part
@@ -498,13 +501,16 @@ struct Geglu {
 };
 
 // K2's q/k/v: column which·H·dh + h·dh + e (which: q, k, v) is column e of
-// head h of that projection, scattered into K4's layout qkv [3, b, H, n, dh]
-// of Out (bf16, rounded once; f32 for K2's mixed entry, whose K4 is f32);
-// dh % 64 == 0, so each 64 columns lie within one head.
+// head h of that projection, scattered into K4's layout qkv [parts, b, H,
+// n, dh] of Out (bf16, rounded once; f32 for the mixed entries, whose K4 is
+// f32); dh % 64 == 0, so each 64 columns lie within one head. K2b's q
+// (parts 1) and k/v (parts 2) take it too; a tile's columns past the
+// parts' are not stored.
 template <class Out>
 struct QkvScatterT {
   Out* qkv;
   int n, heads, batch, dh;
+  int parts = 3;
 
   template <int NJ>
   __device__ void operator()(const float (&acc)[NJ][4], int m0, int row_end, int n0, int warp,
@@ -518,7 +524,7 @@ struct QkvScatterT {
 #pragma unroll
       for (int p = 0; p < NJ / 8; ++p) {
         const int col = n0 + 64 * p, which = col / hd;
-        if (which >= 3) continue;
+        if (which >= parts) continue;
         const int h = col % hd / dh, e0 = col % dh;
         Out* dst = qkv + ((((size_t)which * batch + bi) * heads + h) * n + t) * dh + e0;
 #pragma unroll
@@ -1057,18 +1063,47 @@ cudaError_t launch(const Loader& ld, const bf16* bt, int b_rows, int chunks, con
 
 constexpr int kNormRowsPerBlock = 8;  // one warp a row
 
+// f32 rows split into their three planes in the norm pre-pass's launch,
+// after n(x)'s rows (K2b mixed's context): a [rows, w] into planes
+// [rows / n, 3, n, ld] (ld even), columns past w zeros, as `split_planes`
+// writes them; none where rows is 0. One launch fewer than a split of its
+// own: K2b mixed at x [16, 160, 128] took 0.064 ms against 0.068–0.069 with
+// the split launched alone, on an H100 (gemm_variants.py, PERF.md).
+struct SplitTail {
+  const float* a = nullptr;
+  bf16* planes = nullptr;
+  int rows = 0, n = 1, w = 0, ld = 0;
+};
+
 // out[row, k] = n(x)[row, k] rounded to bf16 for k < dm, 0 for dm <= k < ld:
 // the adaptive RMSNorm x / max(‖x‖, 1e-12) · √dm · γ_b + β_b of x [rows,
 // dm] (row = b·n + t, γ, β [b, dm]) in f32, as the split-TF32 core's
 // NormRows loader computes it; ld even. Parts 3 (the mixed entries' f32
-// x): its three parts (`split3`) into the planes [b, 3, n, ld] instead.
+// x): its three parts (`split3`) into the planes [b, 3, n, ld] instead,
+// and the rows after x's split as `tail` says.
 template <class In, int Parts = 1>
 __global__ void __launch_bounds__(32 * kNormRowsPerBlock)
 norm_rows_kernel(const In* __restrict__ x, const In* __restrict__ gamma,
                  const In* __restrict__ beta, bf16* __restrict__ out, int rows, int n, int dm,
-                 int ld, float sqrt_dm) {
+                 int ld, float sqrt_dm, const SplitTail tail) {
   const int row = blockIdx.x * kNormRowsPerBlock + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
+  if (row >= rows) {
+    const int r = row - rows;
+    if constexpr (Parts == 3) {
+      if (r >= tail.rows) return;
+      const float* p = tail.a + (size_t)r * tail.w;
+      const size_t plane = (size_t)tail.n * tail.ld;
+      bf16* o = tail.planes + (size_t)(r / tail.n) * 2 * plane + (size_t)r * tail.ld;
+      for (int k = 2 * lane; k < tail.ld; k += 64) {
+        float q[2][3];
+        split3(k < tail.w ? p[k] : 0.0f, q[0]);
+        split3(k + 1 < tail.w ? p[k + 1] : 0.0f, q[1]);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) store2(o + i * plane + k, q[0][i], q[1][i]);
+      }
+    }
+    return;
+  }
   const In* p = x + (size_t)row * dm;
   const size_t bd = (size_t)(row / n) * dm;
   float ss = 0.0f;
@@ -1107,19 +1142,23 @@ inline cudaError_t norm_rows(const bf16* x, const bf16* gamma, const bf16* beta,
   if (rows <= 0 || n <= 0 || dm <= 0 || ld < dm || ld % 2 != 0) return cudaErrorInvalidValue;
   norm_rows_kernel<bf16><<<(rows + kNormRowsPerBlock - 1) / kNormRowsPerBlock,
                            32 * kNormRowsPerBlock, 0, stream>>>(x, gamma, beta, out, rows, n, dm,
-                                                                ld, sqrtf((float)dm));
+                                                                ld, sqrtf((float)dm), SplitTail{});
   return cudaGetLastError();
 }
 
 // The three parts of n(x) of f32 x [b·n, dm] into the planes [b, 3, n, ld]
-// (ld >= dm, even), launched on `stream` without synchronising.
+// (ld >= dm, even), and the `tail` rows' parts, launched on `stream`
+// without synchronising.
 inline cudaError_t norm_planes(const float* x, const float* gamma, const float* beta,
                                bf16* planes, int rows, int n, int dm, int ld,
-                               cudaStream_t stream) {
-  if (rows <= 0 || n <= 0 || dm <= 0 || ld < dm || ld % 2 != 0) return cudaErrorInvalidValue;
-  norm_rows_kernel<float, 3><<<(rows + kNormRowsPerBlock - 1) / kNormRowsPerBlock,
-                               32 * kNormRowsPerBlock, 0, stream>>>(x, gamma, beta, planes, rows,
-                                                                    n, dm, ld, sqrtf((float)dm));
+                               cudaStream_t stream, const SplitTail& tail = SplitTail{}) {
+  if (rows <= 0 || n <= 0 || dm <= 0 || ld < dm || ld % 2 != 0 || tail.rows < 0 ||
+      (tail.rows > 0 && (tail.n <= 0 || tail.w <= 0 || tail.ld < tail.w || tail.ld % 2 != 0)))
+    return cudaErrorInvalidValue;
+  const int all = rows + tail.rows;
+  norm_rows_kernel<float, 3><<<(all + kNormRowsPerBlock - 1) / kNormRowsPerBlock,
+                               32 * kNormRowsPerBlock, 0, stream>>>(
+      x, gamma, beta, planes, rows, n, dm, ld, sqrtf((float)dm), tail);
   return cudaGetLastError();
 }
 
@@ -1147,30 +1186,35 @@ inline cudaError_t round_bf16(const float* x, bf16* out, size_t count, cudaStrea
 }
 
 // planes[bi, q, t, c] = part q (0 hi, 1 mid, 2 lo: `split3`) of x[bi, t, c]
-// for x [b, n, w] f32, nw = n·w even: K1's mixed entry carries its f32 x
-// so. Two values a thread.
+// for x [b, n, w] f32 and c < w, 0 for w <= c < ld (ld even): the f32 x of
+// K1's and K1b's mixed entries, K2's and K2b's o, and K2b's context (dc
+// padded to 64) are carried so. count = b·n·ld; two values a thread.
 template <class In>
 __global__ void __launch_bounds__(kCopyThreads)
-split3_kernel(const In* __restrict__ x, bf16* __restrict__ planes, size_t count, size_t nw) {
+split3_kernel(const In* __restrict__ x, bf16* __restrict__ planes, size_t count, int n, int w,
+              int ld) {
   const size_t i = 2 * ((size_t)blockIdx.x * kCopyThreads + threadIdx.x);
   if (i >= count) return;
-  const size_t bi = i / nw;
+  const size_t r = i / ld, bi = r / n;
+  const int c = (int)(i - r * ld);
+  const In* src = x + r * w + c;
   float p[2][3];
-  split3(to_f32(x[i]), p[0]);
-  split3(to_f32(x[i + 1]), p[1]);
-  bf16* dst = planes + bi * 2 * nw + i;  // plane 0 of sequence bi at bi·3·nw
+  split3(c < w ? to_f32(src[0]) : 0.0f, p[0]);
+  split3(c + 1 < w ? to_f32(src[1]) : 0.0f, p[1]);
+  const size_t plane = (size_t)n * ld;
+  bf16* dst = planes + bi * 2 * plane + i;  // plane 0 of sequence bi at bi·3·n·ld
 #pragma unroll
-  for (int q = 0; q < 3; ++q) store2(dst + q * nw, p[0][q], p[1][q]);
+  for (int q = 0; q < 3; ++q) store2(dst + q * plane, p[0][q], p[1][q]);
 }
 
-// x [b, n, w] (f32, n·w even) as three bf16 planes [b, 3, n, w], launched
-// on `stream` without synchronising.
-inline cudaError_t split_planes(const float* x, bf16* planes, int b, int n, int w,
+// x [b, n, w] (f32) as three bf16 planes [b, 3, n, ld] (ld >= w, even;
+// columns past w zeros), launched on `stream` without synchronising.
+inline cudaError_t split_planes(const float* x, bf16* planes, int b, int n, int w, int ld,
                                 cudaStream_t stream) {
-  const size_t nw = (size_t)n * w, count = (size_t)b * nw;
-  if (count == 0 || nw % 2 != 0) return cudaErrorInvalidValue;
+  const size_t count = (size_t)b * n * ld;
+  if (count == 0 || w <= 0 || ld < w || ld % 2 != 0) return cudaErrorInvalidValue;
   const size_t blocks = (count / 2 + kCopyThreads - 1) / kCopyThreads;
-  split3_kernel<float><<<(unsigned)blocks, kCopyThreads, 0, stream>>>(x, planes, count, nw);
+  split3_kernel<float><<<(unsigned)blocks, kCopyThreads, 0, stream>>>(x, planes, count, n, w, ld);
   return cudaGetLastError();
 }
 
@@ -1233,16 +1277,19 @@ cudaError_t launch_planes(const bf16* planes, int slices, int w, const Loader& l
   return launch_at(s, map_a, map_b, ld, b_rows, chunks, epi, stream);
 }
 
-// `launch_normed` for f32 x against bf16 B (the mixed entries of K2 and
+// `launch_normed` for f32 x against bf16 B (the mixed entries of K2, K2b and
 // K3): the pre-pass writes the three parts of n(x) into `planes` [b, 3, n,
-// dm padded to 64], then one GEMM over them, K = 3 · dm padded, the parts
-// lo first (`SplitLanes` with one lane).
+// dm padded to 64] (and splits the `tail` rows, K2b's context), then one
+// GEMM over them, K = 3 · dm padded, the parts lo first (`SplitLanes` with
+// one lane).
 template <class Epilogue>
 cudaError_t launch_normed_split(const float* x, const float* gamma, const float* beta,
                                 bf16* planes, int b, int n, int dm, const bf16* bt, int b_rows,
-                                const Epilogue& epi, cudaStream_t stream) {
+                                const Epilogue& epi, cudaStream_t stream,
+                                const SplitTail& tail = SplitTail{}) {
   const int dm_pad = round_up(dm, kPad), per_part = dm_pad / kKC;
-  const cudaError_t err = norm_planes(x, gamma, beta, planes, b * n, n, dm, dm_pad, stream);
+  const cudaError_t err =
+      norm_planes(x, gamma, beta, planes, b * n, n, dm, dm_pad, stream, tail);
   if (err != cudaSuccess) return err;
   return launch_planes(planes, 3, dm_pad, SplitLanes{b, n, dm_pad, 1, 3, 0, 0}, bt, b_rows,
                        per_part, 3 * per_part, epi, stream);

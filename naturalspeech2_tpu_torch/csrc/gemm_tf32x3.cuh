@@ -50,19 +50,13 @@
 // lanes of a stack); the loader and the epilogue take the group's operands
 // in `group(z)`, and group z's B lies z · b_group elements on.
 //
-// Operand modes (the template parameter `Mode`):
-//  - kSplit3: the above, f32 A and B, three TF32 passes;
-//  - kSplit2: f32 A, B a bf16 weight held as TF32 (exact: bf16 has 8
-//    significant bits, TF32 11), packed with no lo part, so a_hi·b +
-//    a_lo·b is the whole f32-accurate product in two passes: the mixed
-//    entry points of K1b, K2, K2b and K3 (AMP training's f32 activations
-//    against bf16 weights).
-// Every bf16 block (K1, K1b and its `bf16_matmul`, K2, K2b, K3), K1's
-// mixed entry point and K6 in bf16 run the bf16 core instead
-// (gemm_bf16.cuh). Loaders read f32 activations and hand f32 values to the
-// staging; epilogues take
-// the types of their outputs, biases and residuals as template parameters
-// and round once, where they store.
+// Every bf16 block (K1, K1b and its `bf16_matmul`, K2, K2b, K3), the mixed
+// entry points of K1, K1b, K2, K2b and K3 (f32 activations against bf16
+// weights) and K6 in bf16 run the bf16 core instead (gemm_bf16.cuh): this
+// one multiplies f32 by f32 alone. Loaders read f32 activations and hand
+// f32 values to the staging; epilogues take the types of their outputs,
+// biases and residuals as template parameters and round once, where they
+// store.
 #pragma once
 
 #include <stdint.h>
@@ -79,22 +73,16 @@ constexpr int kThreads = 128;           // one warpgroup
 constexpr int kTile = kBM * kKC;        // elements of one operand tile (kBN == kBM)
 static_assert(kBN == kBM, "A and B tiles share the K-major layout");
 
-enum class Mode { kSplit3, kSplit2 };
-
-// A mode's parts of A and of B (hi, lo).
-template <Mode M>
-struct Fmt {
-  static constexpr int kA = 2, kB = M == Mode::kSplit3 ? 2 : 1;
-};
+constexpr int kBParts = 2;              // parts of a packed B element: hi, lo
 
 // Threads that stage A: one warpgroup, or the first two of a larger block.
 template <int WN>
 constexpr int kStagers = (WN == 1 ? 1 : 2) * kThreads;
 
-template <int WN, Mode M>
+template <int WN>
 struct Smem {
-  float a[2][Fmt<M>::kA][kTile];      // [stage][hi, lo], K-major, shared by the warpgroups
-  float b[2][WN][Fmt<M>::kB][kTile];  // [stage][warpgroup][hi, lo], K-major, as cached
+  float a[2][2][kTile];                 // [stage][hi, lo], K-major, shared by the warpgroups
+  float b[2][WN][kBParts][kTile];       // [stage][warpgroup][hi, lo], K-major, as cached
   float part[kStagers<WN> / kBM][kBM];  // the norm prologue's partial sums of squares
 };
 
@@ -453,31 +441,29 @@ struct WaveGate {
 // ---- the kernel -----------------------------------------------------------
 
 // grid (ceil(M / 64), ceil(n_tiles / WN), groups), 128·WN threads, dynamic
-// shared memory sizeof(Smem<WN, M>). bt: the packed Bᵀ of group 0, tile
-// (j, c) at (j·chunks + c)·kB·kTile elements, hi then lo where there is a lo
-// (Fmt<M>); group z's at bt + z·b_group. A warpgroup past the last column
-// tile runs its products on whatever its B stage holds and stores nothing.
+// shared memory sizeof(Smem<WN>). bt: the packed Bᵀ of group 0, tile
+// (j, c) at (j·chunks + c)·kBParts·kTile elements, hi then lo; group z's at
+// bt + z·b_group. A warpgroup past the last column tile runs its products
+// on whatever its B stage holds and stores nothing.
 // Blocks an SM: three of one warpgroup, two of two (at most 128 registers a
 // thread: K1's and K1b's blocks), one of three.
 template <int WN>
 constexpr int kBlocksPerSm = WN == 1 ? 3 : (WN == 2 ? 2 : 1);
 
-template <int WN, Mode M, class Loader, class Epilogue>
+template <int WN, class Loader, class Epilogue>
 __global__ void __launch_bounds__(WN * kThreads, kBlocksPerSm<WN>)
 gemm_kernel(Loader loader, const float* __restrict__ bt, size_t b_group,
             int chunks, int n_tiles, Epilogue epi) {
-  constexpr int kB = Fmt<M>::kB;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem<WN, M>& sm = *reinterpret_cast<Smem<WN, M>*>(smem_raw);
+  Smem<WN>& sm = *reinterpret_cast<Smem<WN>*>(smem_raw);
 
   const int tid = threadIdx.x, wg = tid / kThreads, t = tid % kThreads;
   const int warp = t / 32, lane = t % 32;
   const int m0 = blockIdx.x * kBM, tile = blockIdx.y * WN + wg, n0 = tile * kBN;
   const bool live = tile < n_tiles;  // the same for the whole warpgroup
-  const float* bj = bt + blockIdx.z * b_group + (size_t)tile * chunks * kB * kTile;
+  const float* bj = bt + blockIdx.z * b_group + (size_t)tile * chunks * kBParts * kTile;
   // a staging thread's row and its float4 columns 4·(cq + lanes·i) of a
-  // chunk: a warp stores 32 rows' 16 (TF32) or 8 (bf16) bytes, one
-  // contiguous run per k-half
+  // chunk: a warp stores 32 rows' 16 bytes, one contiguous run per k-half
   constexpr int kLanes = kStagers<WN> / kBM;      // staging threads per row of A
   constexpr int kA4 = kTile / 4 / kStagers<WN>;   // float4s per staging thread
   static_assert(kA4 * kStagers<WN> * 4 == kTile, "A's chunk divides over its stagers");
@@ -489,9 +475,9 @@ gemm_kernel(Loader loader, const float* __restrict__ bt, size_t b_group,
 
   auto load_b = [&](int c, int s) {
     if (!live) return;
-    const char* src = reinterpret_cast<const char*>(bj + (size_t)c * kB * kTile);
+    const char* src = reinterpret_cast<const char*>(bj + (size_t)c * kBParts * kTile);
     char* dst = reinterpret_cast<char*>(&sm.b[s][wg][0][0]);
-    constexpr int kBytes = kB * kTile * (int)sizeof(float);
+    constexpr int kBytes = kBParts * kTile * (int)sizeof(float);
     for (int e = 16 * t; e < kBytes; e += 16 * kThreads) cp_async16(dst + e, src + e, true);
   };
   float4 areg[kA4];
@@ -545,8 +531,7 @@ gemm_kernel(Loader loader, const float* __restrict__ bt, size_t b_group,
       const uint64_t a_hi = kmajor_desc<kBM>(sm.a[s][0], ks);
       const uint64_t a_lo = kmajor_desc<kBM>(sm.a[s][1], ks);
       const uint64_t b_hi = kmajor_desc<kBN>(sm.b[s][wg][0], ks);
-      if constexpr (M == Mode::kSplit3)
-        wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][kB - 1], ks));
+      wgmma_ss_n64(small, a_hi, kmajor_desc<kBN>(sm.b[s][wg][1], ks));
       wgmma_ss_n64(small, a_lo, b_hi);
       wgmma_ss_n64(big, a_hi, b_hi);
     }
@@ -590,17 +575,17 @@ struct Groups {
   size_t b_group = 0;
 };
 
-template <int WN, Mode M = Mode::kSplit3, class Loader, class Epilogue>
+template <int WN, class Loader, class Epilogue>
 cudaError_t launch_wn(const Loader& loader, const float* bt, int rows, int chunks,
                       int n_tiles, const Epilogue& epi, cudaStream_t stream,
                       Groups g = Groups()) {
   if (rows <= 0 || chunks <= 0 || n_tiles <= 0 || g.groups <= 0) return cudaErrorInvalidValue;
-  const int bytes = (int)sizeof(Smem<WN, M>);
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<WN, M, Loader, Epilogue>,
+  const int bytes = (int)sizeof(Smem<WN>);
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<WN, Loader, Epilogue>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((rows + kBM - 1) / kBM, (n_tiles + WN - 1) / WN, g.groups);
-  gemm_kernel<WN, M, Loader, Epilogue><<<grid, WN * kThreads, bytes, stream>>>(
+  gemm_kernel<WN, Loader, Epilogue><<<grid, WN * kThreads, bytes, stream>>>(
       loader, bt, g.b_group, chunks, n_tiles, epi);
   return cudaGetLastError();
 }
@@ -608,19 +593,19 @@ cudaError_t launch_wn(const Loader& loader, const float* bt, int rows, int chunk
 constexpr int kSharedWN = 3;  // warpgroups sharing an A tile where the grid is large
 
 // C = epilogue(A · B) over `rows` rows and n_tiles · 64 columns, K =
-// chunks · 32 (for each of g.groups groups), in operand mode M; launched on
+// chunks · 32 (for each of g.groups groups), launched on
 // `stream` without synchronising. Three warpgroups share each A tile where
 // that still gives every SM such a block (one fits), else a block is one
 // warpgroup (three an SM).
-template <Mode M = Mode::kSplit3, class Loader, class Epilogue>
+template <class Loader, class Epilogue>
 cudaError_t launch(const Loader& loader, const float* bt, int rows, int chunks,
                    int n_tiles, const Epilogue& epi, cudaStream_t stream, Groups g = Groups()) {
   if (rows <= 0 || chunks <= 0 || n_tiles <= 0) return cudaErrorInvalidValue;
   const long shared = (long)((rows + kBM - 1) / kBM) * ((n_tiles + kSharedWN - 1) / kSharedWN) *
                       g.groups;
   if (shared >= sm_count())
-    return launch_wn<kSharedWN, M>(loader, bt, rows, chunks, n_tiles, epi, stream, g);
-  return launch_wn<1, M>(loader, bt, rows, chunks, n_tiles, epi, stream, g);
+    return launch_wn<kSharedWN>(loader, bt, rows, chunks, n_tiles, epi, stream, g);
+  return launch_wn<1>(loader, bt, rows, chunks, n_tiles, epi, stream, g);
 }
 
 }  // namespace gemm

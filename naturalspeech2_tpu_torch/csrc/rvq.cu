@@ -74,21 +74,20 @@ rvq_update_kernel(const float* r_in, float* r_out, const float* total_in, float*
   if (col == 0) codes[(size_t)row * num_q + qi] = idx;
 }
 
-// The f32 path on the split-TF32 core (kSplit3, three passes): total is
-// the output.
+// The f32 path on the split-TF32 core (three TF32 passes): total is the
+// output.
 int rvq_f32(const float* x, const float* cb, const float* cb_packed, const float* norms,
             unsigned long long* best, float* residual, float* total, int* codes, int m, int d,
             int num_q, int size, cudaStream_t st) {
-  constexpr gemm::Mode M = gemm::Mode::kSplit3;
   const int chunks = (d + gemm::kKC - 1) / gemm::kKC;
   const int n_tiles = (size + gemm::kBN - 1) / gemm::kBN;
-  const size_t packed_stage = (size_t)n_tiles * chunks * gemm::Fmt<M>::kB * gemm::kTile;
+  const size_t packed_stage = (size_t)n_tiles * chunks * gemm::kBParts * gemm::kTile;
   const unsigned update_blocks = (unsigned)(((size_t)m * d + ns2::kThreads - 1) / ns2::kThreads);
   for (int qi = 0; qi < num_q; ++qi) {
     const gemm::ArgMin argmin{norms + (size_t)qi * size, best + (size_t)qi * m, m, size};
     const float* r = qi == 0 ? x : residual;
-    cudaError_t err = gemm::launch<M>(gemm::Rows{r, m, d}, cb_packed + qi * packed_stage,
-                                      m, chunks, n_tiles, argmin, st);
+    cudaError_t err = gemm::launch(gemm::Rows{r, m, d}, cb_packed + qi * packed_stage, m,
+                                   chunks, n_tiles, argmin, st);
     if (err != cudaSuccess) return err;
     rvq_update_kernel<<<update_blocks, ns2::kThreads, 0, st>>>(
         r, residual, qi == 0 ? nullptr : total, total, cb + (size_t)qi * size * d,

@@ -79,12 +79,11 @@ using ns2::bf16;
 
 namespace {
 
-// The f32 body on the split-TF32 core (kSplit3); the lanes f32 [L, b, n, d].
+// The f32 body on the split-TF32 core; the lanes f32 [L, b, n, d].
 int wavenet_body(const float* x, const float* blocks, const float* conv_b, const float* res_b,
                  const float* skip, const float* skip_b, const float* film, float* lanes_a,
                  float* lanes_b, float* out, int b, int n, int d, int S, int L, void* stream) {
-  constexpr gemm::Mode M = gemm::Mode::kSplit3;
-  constexpr int kB = gemm::Fmt<M>::kB;
+  constexpr int kB = gemm::kBParts;
   if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = b * n, chunks = 3 * d / gemm::kKC, tiles = 2 * d / gemm::kBN;
@@ -100,14 +99,14 @@ int wavenet_body(const float* x, const float* blocks, const float* conv_b, const
     // the first stack's lanes all read x
     const gemm::TapRows taps = s == 0 ? gemm::TapRows{x, rows, n, d, 3, 1, 0, 0}
                                       : gemm::TapRows{in, rows, n, d, 3, 1, 0, lane};
-    cudaError_t err = gemm::launch_wn<2, M>(taps, blocks + sl * b_blk, rows, chunks, tiles, gate,
-                                            st, g);
+    cudaError_t err =
+        gemm::launch_wn<2>(taps, blocks + sl * b_blk, rows, chunks, tiles, gate, st, g);
     if (err != cudaSuccess) return err;
     in = dst;
   }
-  return gemm::launch<M>(gemm::TapRows{in, rows, n, d, L, 0, lane, 0}, skip, rows,
-                         L * d / gemm::kKC, (d + gemm::kBN - 1) / gemm::kBN,
-                         gemm::Store{out, skip_b, nullptr, rows, d, d}, st);
+  return gemm::launch(gemm::TapRows{in, rows, n, d, L, 0, lane, 0}, skip, rows,
+                      L * d / gemm::kKC, (d + gemm::kBN - 1) / gemm::kBN,
+                      gemm::Store{out, skip_b, nullptr, rows, d, d}, st);
 }
 
 // The body on the bf16 core: x16 the planes [b, x_parts, n, d] the first
@@ -184,7 +183,7 @@ NS2_API int ns2_wavenet_body_mixed(const float* x, const bf16* blocks, const flo
                                    void* stream) {
   if (!body_ok(b, n, d, S, L)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bgemm::split_planes(x, x_planes, b, n, d, st);
+  const cudaError_t err = bgemm::split_planes(x, x_planes, b, n, d, d, st);
   if (err != cudaSuccess) return err;
   return body_on_bf16_core(x_planes, 3, blocks, conv_b, res_b, skip, skip_b, film, planes_a,
                            planes_b, out, b, n, d, S, L, st);

@@ -62,6 +62,16 @@
 // L + 1 launches. Bound: the products at the dense bf16 rate, 989 TFLOP/s
 // (H100 SXM, 700 W), a third of the bf16 path's, whose lanes take three
 // passes.
+//
+// Mixed (`ns2_wavenet_lanes_mixed`, wavenet_kernel.py:167-240 with f32 x and
+// FiLM against bf16 weights, whose products the JAX kernel promotes to
+// f32): the bf16 path's launches with the f32 parameters, as K1's mixed
+// entry (wavenet.cu): a pre-pass splits x into its three planes [b, 3, n,
+// d] (`split_planes`), the first stack reads three parts of x, the gate
+// runs on the f32 biases and FiLM (`WaveGateSplit<3, float>`, the tile's
+// columns staged in shared memory first), and the skips are summed into the
+// f32 output, its own residual from the second lane on, as `bf16_matmul`
+// sums them. 1 + S·L / kLaneGroup + L launches.
 #include "gemm_bf16.cuh"
 #include "gemm_tf32x3.cuh"
 
@@ -77,15 +87,13 @@ namespace {
 // k1b_bf16_one_lane and k1b_bf16_two_lanes were slower (PERF.md).
 constexpr int kLaneGroup = 4;
 
-// The split-TF32 core's lanes, f32 in and out: M the core's mode (kSplit3
-// for f32, kSplit2 for the mixed entry point); blocks and skip are packed
+// The lanes on the split-TF32 core, f32 in and out; blocks and skip packed
 // in its B format. The lane state and the skips' sum are f32, the sum in
 // the output.
-template <gemm::Mode M>
 int wavenet_lanes(const float* x, const float* blocks, const float* conv_b, const float* res_b,
                   const float* skip, const float* skip_b, const float* film, float* lane_a,
                   float* lane_b, float* out, int b, int n, int d, int S, int L, void* stream) {
-  constexpr int kB = gemm::Fmt<M>::kB;
+  constexpr int kB = gemm::kBParts;
   if (d % gemm::kKC != 0 || b <= 0 || n <= 0 || S <= 0 || L <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = b * n, chunks = 3 * d / gemm::kKC, tiles = 2 * d / gemm::kBN;
@@ -102,12 +110,12 @@ int wavenet_lanes(const float* x, const float* blocks, const float* conv_b, cons
                                 (size_t)S * L * 2 * d, rows, n, d};
       const gemm::TapRows taps{s == 0 ? x : in, rows, n, d, 3, 1 << l, 0, 0};
       cudaError_t err =
-          gemm::launch_wn<2, M>(taps, blocks + sl * b_blk, rows, chunks, tiles, gate, st);
+          gemm::launch_wn<2>(taps, blocks + sl * b_blk, rows, chunks, tiles, gate, st);
       if (err != cudaSuccess) return err;
       in = dst;
     }
     const gemm::TapRows lane{in, rows, n, d, 1, 0, 0, 0};
-    const cudaError_t err = gemm::launch_wn<1, M>(
+    const cudaError_t err = gemm::launch_wn<1>(
         lane, skip + l * b_skip, rows, d / gemm::kKC, skip_tiles,
         gemm::Store{out, skip_b + (size_t)l * d, l > 0 ? out : nullptr, rows, d, d}, st);
     if (err != cudaSuccess) return err;
@@ -115,23 +123,25 @@ int wavenet_lanes(const float* x, const float* blocks, const float* conv_b, cons
   return cudaSuccess;
 }
 
-// The lanes on the bf16 core, Parts planes a lane (3: K1b in bf16, hi, mid
-// and lo of the f32 lane; 1: `bf16_matmul`, bf16(v)): x16 the bf16 x [b, n,
-// d] the first stack reads; planes_a / planes_b [kLaneGroup·b, Parts, n, d]
-// bf16; the biases, FiLM and skip_b of P (bf16, or f32 for `bf16_matmul`);
-// the skips summed in f32 into acc [b, n, d], the last lane's sum stored to
-// out (bf16, or the f32 acc itself).
+// The lanes on the bf16 core, Parts planes a lane (3: K1b in bf16 and
+// mixed, hi, mid and lo of the f32 lane; 1: `bf16_matmul`, bf16(v)): x16 the
+// planes [b, x_parts, n, d] the first stack reads (bf16 x, or `bf16_matmul`'s
+// rounded x, as one part; the mixed entry's f32 x as three); planes_a /
+// planes_b [kLaneGroup·b, Parts, n, d] bf16; the biases, FiLM and skip_b of
+// P (bf16, or f32 for `bf16_matmul` and the mixed entry); the skips summed
+// in f32 into acc [b, n, d], the last lane's sum stored to out (bf16, or the
+// f32 acc itself).
 template <int Parts, class P, class Out>
-int lanes_on_bf16_core(const bf16* x16, const bf16* blocks, const P* conv_b, const P* res_b,
-                       const bf16* skip, const P* skip_b, const P* film, bf16* planes_a,
-                       bf16* planes_b, float* acc, Out* out, int b, int n, int d, int S, int L,
-                       cudaStream_t st) {
+int lanes_on_bf16_core(const bf16* x16, int x_parts, const bf16* blocks, const P* conv_b,
+                       const P* res_b, const bf16* skip, const P* skip_b, const P* film,
+                       bf16* planes_a, bf16* planes_b, float* acc, Out* out, int b, int n, int d,
+                       int S, int L, cudaStream_t st) {
   const int per_part = 3 * d / bgemm::kKC, skip_chunks = d / bgemm::kKC;
   const bgemm::Shape sh = bgemm::choose(kLaneGroup * b, n, 2 * d, true);
   const bgemm::Shape sk = bgemm::choose(b, n, d);
   bf16* planes[2] = {planes_a, planes_b};
   CUtensorMap map_x, map_planes[2], map_out[2], map_blocks, map_lane, map_skip;
-  cudaError_t err = bgemm::rows_map(&map_x, x16, b, 1, n, d, d, sh.bm);
+  cudaError_t err = bgemm::rows_map(&map_x, x16, b, x_parts, n, d, d, sh.bm);
   for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
     err = bgemm::rows_map(&map_planes[i], planes[i], kLaneGroup * b, Parts, n, d, d, sh.bm);
     if (err == cudaSuccess)
@@ -148,7 +158,7 @@ int lanes_on_bf16_core(const bf16* x16, const bf16* blocks, const P* conv_b, con
       const size_t sl = (size_t)s * L + l0;  // block (s, l0)
       const bgemm::WaveGateSplit<Parts, P> gate{map_out[s % 2], conv_b + sl * d, res_b + sl * d,
                                                 film + sl * 2 * d, (size_t)S * L * 2 * d, b, n, d};
-      const bgemm::SplitTaps taps{lanes * b, n, d, b, l0, s == 0 ? 1 : Parts, s == 0,
+      const bgemm::SplitTaps taps{lanes * b, n, d, b, l0, s == 0 ? x_parts : Parts, s == 0,
                                   (int)sl * per_part};
       err = bgemm::launch_at(sh, s == 0 ? map_x : map_planes[(s - 1) % 2], map_blocks, taps,
                              2 * d, taps.parts * per_part, gate, st);
@@ -186,19 +196,26 @@ NS2_API int ns2_wavenet_lanes(const float* x, const float* blocks, const float* 
                               const float* res_b, const float* skip, const float* skip_b,
                               const float* film, float* lane_a, float* lane_b, float* out, int b,
                               int n, int d, int S, int L, void* stream) {
-  return wavenet_lanes<gemm::Mode::kSplit3>(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a,
-                                            lane_b, out, b, n, d, S, L, stream);
+  return wavenet_lanes(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a, lane_b, out, b, n, d,
+                       S, L, stream);
 }
 
-// Mixed (f32 x and FiLM against bf16 weights): as ns2_wavenet_lanes with
-// the biases widened and blocks and skip the bf16 weights packed as TF32
-// with no lo part, the products in the kSplit2 mode.
-NS2_API int ns2_wavenet_lanes_mixed(const float* x, const float* blocks, const float* conv_b,
-                                    const float* res_b, const float* skip, const float* skip_b,
-                                    const float* film, float* lane_a, float* lane_b, float* out,
-                                    int b, int n, int d, int S, int L, void* stream) {
-  return wavenet_lanes<gemm::Mode::kSplit2>(x, blocks, conv_b, res_b, skip, skip_b, film, lane_a,
-                                            lane_b, out, b, n, d, S, L, stream);
+// Mixed (see the top of this file): x, conv_b, res_b, skip_b, film and out
+// f32, d % 64 == 0; blocks and skip the bf16 weights packed "bf16_sw128" as
+// for ns2_wavenet_lanes_bf16; x_planes [b, 3, n, d] bf16 scratch for x's
+// three planes, planes_a / planes_b [kLaneGroup·b, 3, n, d] bf16 scratch.
+// 1 + S·L / kLaneGroup + L launches.
+NS2_API int ns2_wavenet_lanes_mixed(const float* x, const bf16* blocks, const float* conv_b,
+                                    const float* res_b, const bf16* skip, const float* skip_b,
+                                    const float* film, bf16* x_planes, bf16* planes_a,
+                                    bf16* planes_b, float* out, int b, int n, int d, int S,
+                                    int L, void* stream) {
+  if (!lanes_ok(b, n, d, S, L)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = bgemm::split_planes(x, x_planes, b, n, d, d, st);
+  if (err != cudaSuccess) return err;
+  return lanes_on_bf16_core<3>(x_planes, 3, blocks, conv_b, res_b, skip, skip_b, film, planes_a,
+                               planes_b, out, out, b, n, d, S, L, st);
 }
 
 // bf16 on the bf16 core: x, conv_b, res_b, skip_b, film and out bf16, d %
@@ -211,8 +228,9 @@ NS2_API int ns2_wavenet_lanes_bf16(const bf16* x, const bf16* blocks, const bf16
                                    const bf16* film, bf16* planes_a, bf16* planes_b, float* acc,
                                    bf16* out, int b, int n, int d, int S, int L, void* stream) {
   if (!lanes_ok(b, n, d, S, L)) return cudaErrorInvalidValue;
-  return lanes_on_bf16_core<3>(x, blocks, conv_b, res_b, skip, skip_b, film, planes_a, planes_b,
-                               acc, out, b, n, d, S, L, static_cast<cudaStream_t>(stream));
+  return lanes_on_bf16_core<3>(x, 1, blocks, conv_b, res_b, skip, skip_b, film, planes_a,
+                               planes_b, acc, out, b, n, d, S, L,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // `bf16_matmul` on the bf16 core: x, conv_b, res_b, skip_b, film and out
@@ -229,6 +247,6 @@ NS2_API int ns2_wavenet_lanes_bf16mm(const float* x, const bf16* blocks, const f
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = bgemm::round_bf16(x, x16, (size_t)b * n * d, st);
   if (err != cudaSuccess) return err;
-  return lanes_on_bf16_core<1>(x16, blocks, conv_b, res_b, skip, skip_b, film, planes_a,
+  return lanes_on_bf16_core<1>(x16, 1, blocks, conv_b, res_b, skip, skip_b, film, planes_a,
                                planes_b, out, out, b, n, d, S, L, st);
 }

@@ -43,12 +43,12 @@ Mixed (x, γ, β and the context float32, the weights bfloat16: AMP
 training's denoiser) both compute the f32 block on the weights' values,
 exact in f32, as the JAX kernels do with `mm = float32`: on a card through
 their mixed entry points (counted in ``launches_mixed``), on the CPU the
-plain f32 versions on the widened weights. K2's runs the bf16 GEMM core
-(the weights packed "bf16_sw128"; n(x) and K4 f32's output o each carried
-as three bf16 planes, ``gemm_cache.split3``, so every product is three
-exact bf16 passes; q, k, v in f32 for K4 f32; ``attn_block_planes_torch``
-is its model, ``attn_scratch`` sizes its scratch); K2b's the split-TF32
-core's two-pass kSplit2 mode on weights packed as TF32 with no lo part.
+plain f32 versions on the widened weights. Both run the bf16 GEMM core
+(the weights packed "bf16_sw128"; n(x), K2b's context and K4 f32's output
+o each carried as three bf16 planes, ``gemm_cache.split3``, so every
+product is three exact bf16 passes; q, k, v in f32 for K4 f32;
+``attn_block_planes_torch`` and ``cross_attn_block_planes_torch`` are
+their models, ``attn_scratch`` and ``cross_scratch`` size their scratch).
 The backward in every dtype is the vjp of a function that widens its
 inputs to f32 and returns y at x's dtype, as the JAX package's twins do
 (`_attn_core_flash`, `cross_attn_block_xla`), so each gradient comes back
@@ -504,17 +504,60 @@ def _cross_packed_bf16(x, ctx, gamma, beta, packed, *, heads: int, scale: float)
     return (xf + o.transpose(1, 2).reshape(b, n, hd) @ wo[:dm, :hd].T).to(x.dtype)
 
 
+def cross_attn_block_planes_torch(x, ctx, gamma, beta, packed, *, heads: int, scale: float,
+                                  residual: bool = True):
+    """K2b's mixed entry point's launches in plain PyTorch (f32 x, ctx, γ and
+    β against weights packed "bf16_sw128"), as ``attn_block_planes_torch``
+    is K2's: the context split into its three bf16 planes at dc padded to
+    64 (zeros past dc), n(x) into its three, q and k/v as three-part
+    products kept in f32 in K4's layout, the attention core in f32
+    (``flash_forward_torch``), o split into its three planes [b, 3·H, n,
+    dh] (part q of head h at slice q·H + h), the heads' concatenation of
+    o's parts times W_o, x added when ``residual``. Returns (y, the planes
+    of n(x) [b, 3, n, dm], the context's planes [b, 3, m, dc padded], q [b,
+    H, n, dh] and kv [2, b, H, m, dh] f32, o's planes)."""
+    b, n, dm = x.shape
+    m, dc = ctx.shape[1:]
+    wq, wkv, wo = [gemm_cache.unpack_b(p, "bf16_sw128")[0] for p in packed]
+    hd = wo.shape[1]
+    dh = hd // heads
+    xn = torch.stack(gemm_cache.split3(ada_norm(x, gamma, beta)), dim=1)
+    q = gemm_cache.parts_product(xn.unbind(1), wq[:hd, :dm].T)
+    q = q.reshape(b, n, heads, dh).transpose(1, 2)
+    c = torch.stack(gemm_cache.split3(F.pad(ctx, (0, wkv.shape[1] - dc))), dim=1)
+    kv = gemm_cache.parts_product(c.unbind(1), wkv[:2 * hd].T)
+    kv = kv.reshape(b, m, 2, heads, dh).permute(2, 0, 3, 1, 4)
+    o, _ = flash_forward_torch(q, *kv, None, None, causal=False, scale=scale)
+    o_planes = torch.cat(gemm_cache.split3(o), dim=1)
+    parts = [p.transpose(1, 2).reshape(b, n, hd) for p in o_planes.chunk(3, dim=1)]
+    y = gemm_cache.parts_product(parts, wo[:dm, :hd].T)
+    return (x + y if residual else y), xn, c, q, kv, o_planes
+
+
 def cross_scratch(b: int, n: int, m: int, dm: int, dc: int, heads: int, dh: int,
-                  dtype: torch.dtype, device):
-    """(q, kv, o): the scratch of K2b's entry point at head width dh (K4's):
-    q [b, H, n, dh], kv [2, b, H, m, dh] and o [b, H, n, dh] of the block's
-    type. In bf16 o first holds n(x) at dm padded to 64, so it holds
-    max(H·dh, dm padded to 64) values a row, and kv is flat with room after
-    its two planes for b·m rows of dc rounded up to 8 (the kernel's copy of
-    the context where TMA cannot read it as it is)."""
+                  dtype: torch.dtype, device, fmt: str | None = None) -> tuple:
+    """The scratch of K2b's entry point at head width dh (K4's), in its
+    argument order, for activations of ``dtype`` against weights packed in
+    ``fmt`` (default: ``gemm_cache.fmt_of(dtype)``): q [b, H, n, dh], kv [2,
+    b, H, m, dh] and o [b, H, n, dh] of the block's type. In bf16 o first
+    holds n(x) at dm padded to 64, so it holds max(H·dh, dm padded to 64)
+    values a row, and kv is flat with room after its two planes for b·m rows
+    of dc rounded up to 8 (the kernel's copy of the context where TMA cannot
+    read it as it is). For f32 activations on the bf16 core (the mixed
+    entry) q, kv and o f32, then bf16 planes of 3·max(H·dh, dm padded to
+    64) values for each of the b·n rows (n(x)'s three planes, then o's)
+    and 3·(dc padded to 64) for each of the b·m rows of the context."""
+    fmt = fmt or gemm_cache.fmt_of(dtype)
     q = torch.empty((b, heads, n, dh), dtype=dtype, device=device)
     if dtype != torch.bfloat16:
-        return q, torch.empty((2, b, heads, m, dh), dtype=dtype, device=device), torch.empty_like(q)
+        kv = torch.empty((2, b, heads, m, dh), dtype=dtype, device=device)
+        if fmt != "bf16_sw128":
+            return q, kv, torch.empty_like(q)
+        pad = gemm_cache.SW128_CHUNK
+        row = max(heads * dh, gemm_cache.round_up(dm, pad))
+        planes = b * n * 3 * row + b * m * 3 * gemm_cache.round_up(dc, pad)
+        return q, kv, torch.empty_like(q), torch.empty(planes, dtype=torch.bfloat16,
+                                                       device=device)
     kv = torch.empty(2 * b * heads * m * dh + b * m * gemm_cache.round_up(dc, 8), dtype=dtype,
                      device=device)
     o_row = max(heads * dh, gemm_cache.round_up(dm, gemm_cache.SW128_CHUNK))
@@ -552,14 +595,13 @@ def _cross_forward(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: in
         raise ValueError(f"cross_attn_block: wq {tuple(wq.shape)}, wkv {tuple(wkv.shape)} on "
                          f"{wq.device} do not take x {tuple(x.shape)}, ctx {tuple(ctx.shape)} "
                          f"on {x.device}")
-    q, kv, o = cross_scratch(b, n, m, dm, dc, heads, kernel_head_dim(dim_head), x.dtype,
-                             x.device)
+    state = cross_scratch(b, n, m, dm, dc, heads, kernel_head_dim(dim_head), x.dtype, x.device,
+                          gemm_cache.fmt_of(x.dtype, wq.dtype, "cross_attn_block"))
     out = torch.empty_like(x)
     err = _build.entry("ns2_cross_attn_block", x.dtype, wq.dtype)(
         x.data_ptr(), ctx.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        *(p.data_ptr() for p in packed), q.data_ptr(), kv.data_ptr(), o.data_ptr(),
-        out.data_ptr(), b, n, m, dm, dc, heads, q.shape[-1], float(scale), int(residual),
-        _build.stream(x),
+        *(p.data_ptr() for p in packed), *(t.data_ptr() for t in state), out.data_ptr(), b, n,
+        m, dm, dc, heads, state[0].shape[-1], float(scale), int(residual), _build.stream(x),
     )
     _build.check(err, "ns2_cross_attn_block")
     _build.count(cross_attn_block, x.dtype, wq.dtype)
@@ -589,10 +631,11 @@ def cross_attn_block(x, ctx, gamma, beta, wq, wkv, wo, *, heads: int, dim_head: 
     wkv: [dc, 2·H·dh] (k first); wo: [H·dh, dm]. CUDA tensors run the
     kernel (four launches: q and k/v on the GEMM core, K4's attention core,
     W_o on the GEMM core; in bf16 a norm pre-pass first and the bf16 GEMM
-    core, five launches, six where the context is copied for TMA; counted
-    as one launch of K2b; any dm, dc and head width); CPU tensors run the
-    plain version. ``residual=False`` returns the heads' sum alone, without
-    x.
+    core, five launches, six where the context is copied for TMA; mixed the
+    norm pre-pass with the context's split, q and k/v on the bf16 core, K4
+    f32, the split of o and W_o on the bf16 core, six; counted as one launch
+    of K2b; any dm, dc and head width); CPU tensors run the plain version.
+    ``residual=False`` returns the heads' sum alone, without x.
     """
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, ctx, gamma, beta, wq, wkv, wo)):

@@ -12,16 +12,11 @@ one contiguous 16 KB run that the kernel copies into shared memory as it
 stands. ``pack_b`` builds it and ``unpack_b`` inverts it (hi + lo gives
 the weight back exactly).
 
-One more format of that core carries bf16 weights (``pack_b(bt, fmt)``):
-``"tf32"``, the bf16 values as f32 (exact in TF32) in the TF32 order with
-no lo part, for its two-pass mode (the mixed entry points of K1b and K2b,
-whose activations are f32).
-
-``"bf16_sw128"`` is the operand format of the bf16 GEMM core
-(``csrc/gemm_bf16.cuh``: K1, K1b, K2, K2b, K3 and K6 in bf16, the mixed
-entry points of K1, K2 and K3, whose f32 operands it carries as three bf16
-parts (``split3``), and K1b's ``bf16_matmul``, whose f32 weights it rounds
-to bf16 as it packs them): Bᵀ
+``"bf16_sw128"`` (``pack_b(bt, fmt)``) is the operand format of the bf16
+GEMM core (``csrc/gemm_bf16.cuh``: K1, K1b, K2, K2b, K3 and K6 in bf16,
+the mixed entry points of K1, K1b, K2, K2b and K3, whose f32 operands it
+carries as three bf16 parts (``split3``), and K1b's ``bf16_matmul``, whose
+f32 weights it rounds to bf16 as it packs them): Bᵀ
 [N, K] padded with zeros to multiples of 64 in both, laid out chunk by
 chunk as [K / 64, N, 64], each row of a chunk (64 bf16, 128 bytes) in the
 128-byte swizzle that ``wgmma`` reads: its 16-byte piece p holds the eight
@@ -73,7 +68,7 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 # k-step, half, row group, row, k).
 _K_SPLIT = (4, 2, 4)
 _TO_PACKED = (0, 3, 4, 5, 1, 2, 6)
-FORMATS = ("split", "tf32", "bf16_sw128")
+FORMATS = ("split", "bf16_sw128")
 SW128_CHUNK = 64  # k per chunk of the bf16 core, and what it pads N to
 
 
@@ -114,15 +109,12 @@ def pack_b(bt: torch.Tensor, fmt: str = "split") -> torch.Tensor:
     one packed B each). ``fmt`` "split": f32, parts hi and lo; element (r,
     k) of tile j, chunk c lies at ks·512 + half·256 + (r // 8)·32 + (r %
     8)·4 + k4 with k = 8·ks + 4·half + k4: `kmajor<64>` of
-    ``csrc/wgmma.cuh``. "tf32": the same order, one part, for values exact
-    in TF32 (bf16 weights). "bf16_sw128": bf16, [..., K_chunks, N_rows, 64],
-    N and K padded to 64 (see the module's docstring)."""
+    ``csrc/wgmma.cuh``. "bf16_sw128": bf16, [..., K_chunks, N_rows, 64], N
+    and K padded to 64 (see the module's docstring)."""
     if fmt not in FORMATS:
         raise ValueError(f"pack_b: fmt must be one of {FORMATS}, got {fmt!r}")
     if fmt == "bf16_sw128":
         return _pack_sw128(bt)
-    if fmt == "tf32" and bt.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"pack_b: tf32 packs bf16 values, got {bt.dtype}")
     *lead, n, k = bt.shape
     bt = torch.nn.functional.pad(bt.to(torch.float32),
                                  (0, round_up(k, CHUNK) - k, 0, round_up(n, TILE_ROWS) - n))
@@ -130,21 +122,16 @@ def pack_b(bt: torch.Tensor, fmt: str = "split") -> torch.Tensor:
     nl = len(lead)
     t = bt.reshape(*lead, tiles, 8, 8, chunks, *_K_SPLIT).permute(
         *range(nl), *(nl + i for i in _TO_PACKED))
-    if fmt == "tf32":
-        t = t.reshape(*lead, tiles, chunks, 1, -1)
-        if tf32_split(t)[1].any():
-            raise ValueError("pack_b: the tf32 format holds values exact in TF32 (bf16 weights)")
-        return t.contiguous()
     hi, lo = tf32_split(t)
     return torch.stack([hi.reshape(*lead, tiles, chunks, -1), lo.reshape(*lead, tiles, chunks, -1)],
                        dim=-2)
 
 
-# The entry points whose mixed calls (f32 activations against bf16 weights)
-# run on the bf16 core, their f32 operands carried as three bf16 parts; the
-# others' run the split-TF32 core's two-pass mode (K1b's, K2b's).
-MIXED_ON_BF16_CORE = frozenset({"wavenet_body", "attn_block", "ff_block"})
-MIXED_ENTRIES = MIXED_ON_BF16_CORE | {"wavenet_lanes", "cross_attn_block"}
+# The entry points with a mixed call (f32 activations against bf16
+# weights, ``ns2_<entry>_mixed``), all on the bf16 core, their f32 operands
+# carried as three bf16 parts.
+MIXED_ENTRIES = frozenset({"wavenet_body", "wavenet_lanes", "attn_block", "cross_attn_block",
+                           "ff_block"})
 
 
 def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None,
@@ -152,11 +139,10 @@ def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None,
     """The weight format, and so the GEMM core, for a kernel's activation
     dtype and its weights' (default: the same): "split" for f32 (the
     split-TF32 core), "bf16_sw128" for bf16 (the bf16 core), and for f32
-    activations against bf16 weights by the C ``entry`` point that takes
-    them (``ns2_<entry>_mixed``: "wavenet_body", K1; "wavenet_lanes", K1b;
-    "attn_block", "cross_attn_block", "ff_block"): "bf16_sw128" where it
-    runs on the bf16 core (``MIXED_ON_BF16_CORE``), else "tf32" (the
-    split-TF32 core's two-pass mode)."""
+    activations against bf16 weights "bf16_sw128" too, for any C ``entry``
+    point that has a mixed call (``ns2_<entry>_mixed``: "wavenet_body", K1;
+    "wavenet_lanes", K1b; "attn_block", "cross_attn_block", "ff_block");
+    another entry raises."""
     if dtype == torch.bfloat16:
         return "bf16_sw128"
     if weight_dtype != torch.bfloat16:
@@ -164,7 +150,7 @@ def fmt_of(dtype: torch.dtype, weight_dtype: torch.dtype | None = None,
     if entry not in MIXED_ENTRIES:
         raise ValueError(f"fmt_of: mixed operands need one of the entry points "
                          f"{sorted(MIXED_ENTRIES)}, got {entry!r}")
-    return "bf16_sw128" if entry in MIXED_ON_BF16_CORE else "tf32"
+    return "bf16_sw128"
 
 
 def split3(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -192,16 +178,14 @@ def parts_product(parts, b: torch.Tensor) -> torch.Tensor:
 
 def unpack_b(packed: torch.Tensor, fmt: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo), each the padded Bᵀ [..., N_tiles·64, K_chunks·32] back from
-    ``pack_b``'s layout in ``fmt`` (lo zeros for the one-part formats). The
-    split-TF32 core's formats tell themselves apart by their parts, so
-    ``fmt`` may be left out for them; "bf16_sw128" must be named,
-    and gives [..., N_rows, K_chunks·64]."""
+    ``pack_b``'s layout in ``fmt`` (default "split"); "bf16_sw128" gives
+    [..., N_rows, K_chunks·64] and lo zeros."""
     if fmt is not None and fmt not in FORMATS:
         raise ValueError(f"unpack_b: fmt must be one of {FORMATS}, got {fmt!r}")
     if fmt == "bf16_sw128":
         hi = _unpack_sw128(packed)
         return hi, torch.zeros_like(hi)
-    *lead, tiles, chunks, parts = packed.shape[:-1]
+    *lead, tiles, chunks, _ = packed.shape[:-1]
     nl = len(lead)
 
     def dense(p):
@@ -210,8 +194,7 @@ def unpack_b(packed: torch.Tensor, fmt: str | None = None) -> tuple[torch.Tensor
             *range(nl), *(nl + i for i in (0, 4, 5, 1, 2, 3, 6)))
         return t.reshape(*lead, tiles * TILE_ROWS, chunks * CHUNK)
 
-    hi = dense(packed[..., 0, :])
-    return hi, dense(packed[..., 1, :]) if parts == 2 else torch.zeros_like(hi)
+    return dense(packed[..., 0, :]), dense(packed[..., 1, :])
 
 
 def cached(name: str, build: Callable, *tensors: torch.Tensor):

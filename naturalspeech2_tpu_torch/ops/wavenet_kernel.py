@@ -23,9 +23,8 @@ res_w [S, L, d, d]; skip_w [L, d, d]; skip_b [L, d]; film [b, S, L, 2d]
 (γ first, β second). Returns the summed skips [b, n, d].
 
 In f32 both kernels run every product on the split-TF32 GEMM core
-(``csrc/gemm_tf32x3.cuh``); in bf16, and K1 mixed, on the bf16 GEMM core
-(``csrc/gemm_bf16.cuh``); K1b mixed on the split-TF32 core's two-pass
-mode. They read their weights packed once per
+(``csrc/gemm_tf32x3.cuh``); in bf16 and mixed on the bf16 GEMM core
+(``csrc/gemm_bf16.cuh``). They read their weights packed once per
 parameter version (``pack_wavenet_weights``): each block's conv and
 residual as one B [3d, 2d] whose 64-column groups interleave 32 conv and
 32 residual columns, and the skips. ``wavenet_body_packed_torch``
@@ -55,13 +54,11 @@ whose denoiser promotes its f32 activations against the bf16 copies of
 the weights) each route computes the f32 body on the weights' values,
 exact in f32, as the JAX kernels' products and `wavenet_body_xla` (which
 casts every operand to x.dtype) do, the biases widened, counted in
-``launches_mixed``; the plain versions run on the widened weights. K1's
-mixed entry point runs the bf16 path with x split into three planes too
-(a pre-pass) and the gate, biases, FiLM and output in f32, the weights
-packed "bf16_sw128" (``wavenet_body_planes_torch`` with three parts on f32
-x is its scheme in plain PyTorch); K1b's runs the split-TF32 core's
-kSplit2 mode (the f32 lanes split in two against the bf16 weights held as
-TF32, exact).
+``launches_mixed``; the plain versions run on the widened weights. The
+mixed entry points of K1 and K1b run the bf16 path with x split into three
+planes too (a pre-pass) and the gate, biases, FiLM and output in f32, the
+weights packed "bf16_sw128" (``wavenet_body_planes_torch`` with three
+parts on f32 x is their scheme in plain PyTorch).
 
 ``bf16_matmul`` (f32 x, weights and FiLM; `_lane_kernel`'s option,
 `naturalspeech2_tpu/ops/wavenet_kernel.py:172`, `:208-217`): every product
@@ -267,10 +264,9 @@ def pack_wavenet_weights(conv_w, conv_b, res_w, res_b, skip_w, skip_b,
     (``gemm_cache.pack_b``): the blocks' B, and the skips as K1 (``route``
     "stack": one product over the lanes side by side, the biases summed in
     f32) or K1b ("lanes": one product per lane) reads them. ``fmt``
-    (default: "split" for f32 weights, "bf16_sw128" for bf16 ones, the bf16
-    core's) is "tf32" for K1b's mixed entry point (bf16 weights as TF32 with
-    no lo part) and "bf16_sw128" for K1's mixed one and K1b's
-    ``bf16_matmul`` too (f32 weights rounded to bf16). The biases take
+    (default: "split" for f32 weights; "bf16_sw128", the bf16 core's, for
+    bf16 ones, the mixed entry points' too) is "bf16_sw128" for K1b's
+    ``bf16_matmul`` as well (f32 weights rounded to bf16). The biases take
     ``bias_dtype`` (default: their own; float32 for the mixed entry points)
     but for that f32 sum."""
     if fmt is None:
@@ -309,7 +305,8 @@ def wavenet_body_packed_torch(x, film, weights: WavenetWeights, route: str):
     the packed layout and the dilated taps on the CPU. Weights packed
     "bf16_sw128" run ``wavenet_body_planes_torch``: three planes a lane on
     bf16 x and on K1's f32 x (the mixed entry), one on K1b's f32 x
-    (``bf16_matmul``, the one f32 entry that reads them per lane)."""
+    (``bf16_matmul``: the packed weights do not tell it from K1b's mixed
+    entry, whose model is ``wavenet_body_planes_torch`` with three parts)."""
     if weights.fmt == "bf16_sw128":
         parts = 3 if x.dtype == torch.bfloat16 or route == "stack" else 1
         return wavenet_body_planes_torch(x, film, weights, route, parts=parts)[0]
@@ -355,8 +352,8 @@ def wavenet_body_planes_torch(x, film, weights: WavenetWeights, route: str, *, p
     an f32 sum). ``parts`` 3 (K1, K1b in bf16; x and FiLM bf16): the planes
     are ``split3`` of the f32 lane, each product exact (a part and a bf16
     weight), the biases and FiLM bf16, the output rounded once to bf16; on
-    f32 x, FiLM and biases (K1's mixed entry: bf16 weights) x is split into
-    three planes too and the output is f32. ``parts`` 1 (K1b's
+    f32 x, FiLM and biases (the mixed entries of K1 and K1b: bf16 weights) x
+    is split into three planes too and the output is f32. ``parts`` 1 (K1b's
     ``bf16_matmul``; x, FiLM and the biases f32): the plane is the lane
     rounded to bf16 (and x too), the output f32. Returns (out [b, n, d] at
     x's dtype, the last stack's lanes as the planes' f32 sum [L, b, n,
@@ -452,17 +449,19 @@ def scratch(b: int, n: int, d_p: int, L: int, route: str, dtype: torch.dtype, de
             fmt: str | None = None):
     """The scratch of a kernel's entry point, in its argument order, for
     activations of ``dtype`` against weights packed in ``fmt`` (default:
-    ``gemm_cache.fmt_of(dtype)``): in f32 on the split-TF32 core (K1b
-    mixed too) the f32 lanes' ping-pong pair ([L, b, n, d_p] each for K1,
-    [b, n, d_p] for K1b); in bf16 the planes' pair ([L·b, 3, n, d_p] bf16
-    for K1, [LANE_GROUP·b, 3, n, d_p] for K1b) and, for K1b, the skips' f32
-    sum [b, n, d_p]; f32 on the bf16 core (K1 mixed) x's three planes [b,
-    3, n, d_p] bf16, then K1's planes' pair; for ``route`` "bf16mm" (K1b's
+    ``gemm_cache.fmt_of(dtype)``): in f32 on the split-TF32 core the f32
+    lanes' ping-pong pair ([L, b, n, d_p] each for K1, [b, n, d_p] for
+    K1b); in bf16 the planes' pair ([L·b, 3, n, d_p] bf16 for K1,
+    [LANE_GROUP·b, 3, n, d_p] for K1b) and, for K1b, the skips' f32 sum [b,
+    n, d_p]; f32 on the bf16 core (the mixed entries) x's three planes [b,
+    3, n, d_p] bf16, then the planes' pair (K1's, K1b's, as in bf16; the
+    skips are summed into the f32 output); for ``route`` "bf16mm" (K1b's
     ``bf16_matmul``, f32 x, whatever ``dtype``) x rounded to bf16 [b, n,
     d_p] and the one-plane pair [LANE_GROUP·b, 1, n, d_p] bf16."""
     bf16 = torch.bfloat16
-    if route == "stack" and dtype == torch.float32 and fmt == "bf16_sw128":
-        planes = torch.empty((2, L * b, 3, n, d_p), dtype=bf16, device=device)
+    if route in ("stack", "lanes") and dtype == torch.float32 and fmt == "bf16_sw128":
+        lanes = LANE_GROUP if route == "lanes" else L
+        planes = torch.empty((2, lanes * b, 3, n, d_p), dtype=bf16, device=device)
         return [torch.empty((b, 3, n, d_p), dtype=bf16, device=device), planes[0], planes[1]]
     if route == "bf16mm":
         planes = torch.empty((2, LANE_GROUP * b, 1, n, d_p), dtype=bf16, device=device)
@@ -610,9 +609,9 @@ def wavenet_body(x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film):
     """The WaveNet body, differentiable, by ``wavenet_route``: CUDA tensors
     run K1 (S stack launches and one skip launch of the GEMM core, counted
     as one launch in ``wavenet_body.launches``; mixed: a split pre-pass of x
-    before them), K1b (L·S block launches,
-    S·L / LANE_GROUP in bf16, and L skip launches, counted as one in
-    ``wavenet_body_lanes.launches``)
+    before them), K1b (L·S block launches, S·L / LANE_GROUP in bf16 and
+    mixed, and L skip launches, counted as one in
+    ``wavenet_body_lanes.launches``; mixed: a split pre-pass of x first)
     or the plain body; CPU tensors run ``wavenet_body_torch``. bf16 and
     mixed operands count in ``launches_bf16`` and ``launches_mixed``."""
     args = (x, conv_w, conv_b, res_w, res_b, skip_w, skip_b, film)

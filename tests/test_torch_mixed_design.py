@@ -1,14 +1,16 @@
-"""The design of the mixed entry points of K1, K2 and K3 and of K6 in bf16
-on the bf16 GEMM core (csrc/wavenet.cu, csrc/attn_block.cu,
-csrc/ff_block.cu, csrc/rvq.cu, csrc/gemm_bf16.cuh), held on the CPU
-through torch models of their layouts and arithmetic:
+"""The design of the mixed entry points of K1, K1b, K2, K2b and K3 and of
+K6 in bf16 on the bf16 GEMM core (csrc/wavenet.cu, csrc/wavenet_lane.cu,
+csrc/attn_block.cu, csrc/cross_attn_block.cu, csrc/ff_block.cu,
+csrc/rvq.cu, csrc/gemm_bf16.cuh), held on the CPU through torch models of
+their layouts and arithmetic:
 
-- K1 mixed (AMP training's denoiser: f32 x and FiLM against bf16 weights):
-  x's three bf16 planes (``split3``, exact sum), three-part products
-  against the blocks packed "bf16_sw128", the gate on f32 biases and FiLM,
-  the skips summed to f32 (``wavenet_body_planes_torch`` on f32 x), against
-  the JAX package's `_fused_forward` at f32 x and bf16 weights (Pallas in
-  interpret mode);
+- K1 and K1b mixed (AMP training's denoiser: f32 x and FiLM against bf16
+  weights): x's three bf16 planes (``split3``, exact sum), three-part
+  products against the blocks packed "bf16_sw128", the gate on f32 biases
+  and FiLM, the skips summed to f32 (``wavenet_body_planes_torch`` on f32
+  x), against the JAX package's `_fused_forward` and
+  `_fused_forward_per_lane` at f32 x and bf16 weights (Pallas in interpret
+  mode);
 - K6 bf16: x one bf16 pass, then the f32 residual's three planes against
   the bf16 codebook packed "bf16_sw128", d² = ‖C‖² − 2·acc and the first
   minimum (``rvq_planes_torch``), against `rvq_quantize` at bf16 x and
@@ -25,6 +27,12 @@ through torch models of their layouts and arithmetic:
   residual (``attn_block_planes_torch``), against `_attn_block_kernel` at
   f32 x and bf16 weights, and the W_o loader's twin
   (``split_head_rows_at``) over o's planes;
+- K2b mixed (AMP's cross-attention block): the context's and n(x)'s
+  planes, q and k/v kept in f32, the f32 attention core, o's planes, W_o
+  over them with and without the residual
+  (``cross_attn_block_planes_torch``), against `_cross_attn_block_kernel`
+  at f32 x and ctx and bf16 weights, and the k/v loader's twin
+  (``split_lanes_at``) over the context's planes;
 - the packing of the weights and the scratch of every entry point.
 
 These hold torch models of the kernels, not the kernels: no CUDA code runs
@@ -87,18 +95,25 @@ def _mixed(arrays):
     return t, j
 
 
-# (b, n, d, S, L): d 128, and d 96 padded to 128; n 260 holds the last
-# lanes' 2δ = 256 taps and is not a multiple of the row tile
-K1_CASES = [(2, 100, 128, 2, 3), (1, 260, 96, 2, 8)]
+# (route, (b, n, d, S, L)): K1 at d 128, and d 96 padded to 128, n 260
+# holding the last lanes' 2δ = 256 taps and off the row tile; K1b at d 128
+K1_CASES = [("stack", (2, 100, 128, 2, 3)), ("stack", (1, 260, 96, 2, 8)),
+            ("lanes", (2, 100, 128, 2, 3))]
 
 
-@pytest.mark.parametrize("case", K1_CASES, ids=lambda c: "-".join(map(str, c)))
+def _k1_id(c) -> str:
+    route, case = c
+    return ("" if route == "stack" else "lanes-") + "-".join(map(str, case))
+
+
+@pytest.mark.parametrize("case", K1_CASES, ids=_k1_id)
 def test_k1_mixed_planes_model_matches_pallas(case):
-    """K1 mixed: x's planes sum to x exactly, the weights packed
+    """K1 and K1b mixed: x's planes sum to x exactly, the weights packed
     "bf16_sw128" unpack to the bf16 blocks exactly, and the three-part body
-    (f32 biases, FiLM and output) against `_fused_forward` at f32 x and bf16
-    weights within WAVENET_TOL of its largest entry."""
-    b, n, d, S, L = case
+    (f32 biases, FiLM and output) against `_fused_forward` (K1b:
+    `_fused_forward_per_lane`) at f32 x and bf16 weights within WAVENET_TOL
+    of its largest entry."""
+    route, (b, n, d, S, L) = case
     arrays = _wavenet_arrays(240, b, n, d, S, L)
     targs, jargs = _mixed(arrays)
     x = targs[0]
@@ -106,7 +121,9 @@ def test_k1_mixed_planes_model_matches_pallas(case):
     assert all(p.dtype == BF16 for p in planes)
     assert torch.equal(sum(p.double() for p in planes), x.double())
 
-    wt = wk.pack_wavenet_weights(*targs[1:7], "stack", torch.float32, "bf16_sw128")
+    fmt = gemm_cache.fmt_of(torch.float32, BF16, "wavenet_body" if route == "stack"
+                            else "wavenet_lanes")
+    wt = wk.pack_wavenet_weights(*targs[1:7], route, torch.float32, fmt)
     d_p = wt.d
     assert d_p == -(-d // 64) * 64 and wt.blocks.dtype == BF16
     assert wt.conv_b.dtype == wt.res_b.dtype == wt.skip_b.dtype == torch.float32
@@ -114,14 +131,16 @@ def test_k1_mixed_planes_model_matches_pallas(case):
     blocks = wk.block_weights(padded[0], padded[2]).transpose(-1, -2)
     assert torch.equal(gemm_cache.unpack_b(wt.blocks, "bf16_sw128")[0].float(), blocks)
 
-    expected = np.asarray(jwn._fused_forward(*jargs), dtype=np.float32)
-    out, _ = wk.wavenet_body_planes_torch(x, targs[7], wt, "stack")
+    jax_fwd = jwn._fused_forward if route == "stack" else jwn._fused_forward_per_lane
+    expected = np.asarray(jax_fwd(*jargs), dtype=np.float32)
+    out, _ = wk.wavenet_body_planes_torch(x, targs[7], wt, route)
     assert out.dtype == torch.float32 and out.shape == (b, n, d)
-    assert torch.equal(wk.wavenet_body_packed_torch(x, targs[7], wt, "stack"), out)
+    if route == "stack":
+        assert torch.equal(wk.wavenet_body_packed_torch(x, targs[7], wt, "stack"), out)
     err = np.abs(out.numpy() - expected).max() / np.abs(expected).max()
     assert err <= WAVENET_TOL, f"max error {err:.3e} of the largest entry, above {WAVENET_TOL}"
     # one plane of x instead of three: the JAX kernel's f32 x is not bf16
-    one = wk.wavenet_body_planes_torch(x.to(BF16).float(), targs[7], wt, "stack")[0]
+    one = wk.wavenet_body_planes_torch(x.to(BF16).float(), targs[7], wt, route)[0]
     assert np.abs(one.numpy() - expected).max() / np.abs(expected).max() > WAVENET_TOL
 
 
@@ -214,21 +233,26 @@ def test_pack_codebooks_bf16_is_the_bf16_core_format():
 def test_scratch_of_both_entries():
     """The scratch in the C entries' argument order: K1 mixed x's three
     planes [b, 3, n, d_p] and the lanes' planes [L·b, 3, n, d_p], bf16; K1b
-    mixed still the f32 lane pair; K6 bf16 best [Q, m] all ones, the f32
-    residual and sum [m, d] and the residual's planes [3, m, d_p], bf16;
-    K6 f32 best and the residual. TMA reads each 16-byte aligned. The
-    format, and so the core, of each mixed route comes from ``fmt_of``."""
-    b, n, d_p, L = 2, 50, 128, 4
+    mixed x's three planes and LANE_GROUP lanes' planes [LANE_GROUP·b, 3, n,
+    d_p], bf16 (the skips summed into the f32 output); f32 K1b the f32 lane
+    pair; K6 bf16 best [Q, m] all ones, the f32 residual and sum [m, d] and
+    the residual's planes [3, m, d_p], bf16; K6 f32 best and the residual.
+    TMA reads each 16-byte aligned. The format, and so the core, of each
+    mixed route comes from ``fmt_of``."""
+    b, n, d_p, L = 2, 50, 128, 8
     f32 = torch.float32
     assert [gemm_cache.fmt_of(f32, BF16, e) for e in ("wavenet_body", "wavenet_lanes")] == \
-        ["bf16_sw128", "tf32"]
+        ["bf16_sw128", "bf16_sw128"]
     got = wk.scratch(b, n, d_p, L, "stack", f32, "cpu",
                      gemm_cache.fmt_of(f32, BF16, "wavenet_body"))
     assert [t.shape for t in got] == [(b, 3, n, d_p)] + [(L * b, 3, n, d_p)] * 2
     assert all(t.dtype == BF16 and t.is_contiguous() and t.data_ptr() % 16 == 0 for t in got)
     lanes = wk.scratch(b, n, d_p, L, "lanes", f32, "cpu",
                        gemm_cache.fmt_of(f32, BF16, "wavenet_lanes"))
-    assert [(t.shape, t.dtype) for t in lanes] == [((b, n, d_p), torch.float32)] * 2
+    assert [t.shape for t in lanes] == [(b, 3, n, d_p)] + [(wk.LANE_GROUP * b, 3, n, d_p)] * 2
+    assert all(t.dtype == BF16 and t.is_contiguous() and t.data_ptr() % 16 == 0 for t in lanes)
+    f32_lanes = wk.scratch(b, n, d_p, L, "lanes", f32, "cpu")
+    assert [(t.shape, t.dtype) for t in f32_lanes] == [((b, n, d_p), torch.float32)] * 2
     m, d, num_q = 130, 72, 4
     best, residual, total, planes = rvq.scratch(m, d, num_q, BF16, "cpu")
     assert best.shape == (num_q, m) and best.dtype == torch.int64 and bool((best == -1).all())
@@ -450,19 +474,112 @@ def test_k2_mixed_wo_loader_reads_the_heads_parts():
             assert torch.allclose(acc[:rows.shape[0]], rows, rtol=0, atol=1e-5 * want.abs().max())
 
 
+def _cross_arrays(seed, b, n, dm, heads, dim_head, m, dc):
+    rng = np.random.default_rng(seed)
+    hd = heads * dim_head
+    return (normal(rng, b, n, dm), normal(rng, b, m, dc), 1 + normal(rng, b, dm, scale=0.1),
+            normal(rng, b, dm, scale=0.1), normal(rng, dm, hd, scale=dm**-0.5),
+            normal(rng, dc, 2 * hd, scale=dc**-0.5), normal(rng, hd, dm, scale=hd**-0.5))
+
+
+# (b, n, dm, heads, dim_head, m, dc): AMP's widths (8 heads of 64, dm = dc
+# = 128) at a short crop; heads of 8 (padded to K4's 64), dm 96 and dc 100
+# off 64, and m 5 off every tile
+K2B_CASES = [(2, 16, 128, 8, 64, 8, 128), (2, 24, 96, 2, 8, 5, 100)]
+
+
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "no_residual"])
+@pytest.mark.parametrize("case", K2B_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_k2b_mixed_planes_model_matches_pallas(case, residual):
+    """K2b mixed: the context's planes [b, 3, m, dc padded to 64] and n(x)'s
+    sum to their f32 values exactly (zeros past dc), q and kv are f32; y
+    against `_cross_fused_forward` at f32 x and ctx and bf16 weights
+    (without the residual: y − x) within BLOCK_TOL of its largest entry of
+    y − x, and past it with one plane of the context or of x in place of
+    three."""
+    b, n, dm, heads, dim_head, m, dc = case
+    targs, jargs = _mixed_block(_cross_arrays(254, *case), 4)
+    x, ctx, gamma, beta, wq, wkv, wo = targs
+    scale = dim_head**-0.5
+    packed = ak.pack_cross_weights(wq, wkv, wo, heads, dim_head,
+                                   gemm_cache.fmt_of(torch.float32, BF16, "cross_attn_block"))
+    dh = ak.kernel_head_dim(dim_head)
+    dc_pad = -(-dc // 64) * 64
+    assert all(p.dtype == BF16 for p in packed)
+
+    y, xn, c, q, kv, o_planes = ak.cross_attn_block_planes_torch(
+        x, ctx, gamma, beta, packed, heads=heads, scale=scale, residual=residual)
+    assert y.dtype == q.dtype == kv.dtype == torch.float32 and y.shape == x.shape
+    assert q.shape == (b, heads, n, dh) and kv.shape == (2, b, heads, m, dh)
+    assert c.shape == (b, 3, m, dc_pad) and o_planes.shape == (b, 3 * heads, n, dh)
+    assert xn.dtype == c.dtype == o_planes.dtype == BF16 and _is_split(xn) and _is_split(c)
+    assert torch.equal(sum(p.double() for p in xn.unbind(1)),
+                       fk.ada_norm(x, gamma, beta).double())
+    assert torch.equal(sum(p.double() for p in c.unbind(1))[..., :dc], ctx.double())
+    assert not c[..., dc:].any()
+    k = (ctx @ wkv[:, :heads * dim_head].float()).reshape(b, m, heads, dim_head).transpose(1, 2)
+    assert torch.allclose(kv[0, ..., :dim_head], k, rtol=0, atol=1e-6 * k.abs().max())
+    assert not kv[..., dim_head:].any() and not q[..., dim_head:].any()
+    wk_, wv_ = jnp.split(jargs[5], 2, axis=-1)
+    to_heads = lambda w, rows: w.reshape(rows, heads, dim_head).transpose(1, 0, 2)  # noqa: E731
+    expected = jattn._cross_fused_forward(
+        *jargs[:4], to_heads(jargs[4], dm), to_heads(wk_, dc), to_heads(wv_, dc),
+        jargs[6].reshape(heads, dim_head, dm), scale=scale)
+    got = y if residual else y + x
+    err = _block_err(got, expected, x)
+    assert err <= BLOCK_TOL, f"max error {err:.3e} of the largest entry of y - x, above {BLOCK_TOL}"
+    # one plane of the context (or of x) instead of three: the JAX kernel's
+    # f32 ctx and x are not bf16 (the lo plane alone moves y by ~3e-6 of its
+    # largest entry here, under BLOCK_TOL: the softmax averages it away)
+    for args in ((x, ctx.to(BF16).float()), (x.to(BF16).float(), ctx)):
+        one = ak.cross_attn_block_planes_torch(*args, gamma, beta, packed, heads=heads,
+                                               scale=scale, residual=residual)[0]
+        assert _block_err(one if residual else one + x, expected, x) > BLOCK_TOL
+
+
+def test_k2b_mixed_kv_loader_reads_the_context_parts():
+    """The twin of the k/v GEMM's loader (`SplitLanes` with one lane and
+    three parts over the context's planes [b, 3, m, dc_pad], sequences of m
+    rows): each chunk of A is a box of one plane, lo first, the rows past m
+    zeros, against the packed [W_k | W_v]'s chunk; summed over the chunks,
+    A·B is the context times [W_k | W_v] (f32 sums, other orders)."""
+    b, n, dm, heads, dim_head, m, dc = 2, 16, 96, 2, 128, 32, 100
+    targs, _ = _mixed_block(_cross_arrays(255, b, n, dm, heads, dim_head, m, dc), 4)
+    packed = ak.pack_cross_weights(*targs[4:], heads, dim_head,
+                                   gemm_cache.fmt_of(torch.float32, BF16, "cross_attn_block"))
+    _, _, c, _, _, _ = ak.cross_attn_block_planes_torch(*targs[:4], packed, heads=heads,
+                                                        scale=dim_head**-0.5)
+    dc_pad = c.shape[-1]
+    hd = heads * ak.kernel_head_dim(dim_head)
+    want = targs[1] @ targs[5].float()  # [b, m, 2·H·dh]: k's heads, then v's
+    per_part = dc_pad // 64
+    chunks = packed[1].reshape(per_part, 1, -1, 64)
+    for bi in range(b):
+        acc = 0
+        for kc in range(3 * per_part):
+            (col, t, part, seq), kb = wk.split_lanes_at(kc, 0, bi, batch=b, w=dc_pad, lanes=1,
+                                                        parts=3, slot0=0, b_chunk0=0)
+            assert seq == bi and t == 0 and part == 2 - kc // per_part and kb == kc % per_part
+            b_chunk = gemm_cache.unpack_b(chunks[kb], "bf16_sw128")[0].float()  # [2·hd, 64]
+            acc = acc + _box(c, seq, part, t, col) @ b_chunk[:2 * hd].T
+        assert not acc[m:].any()
+        assert torch.allclose(acc[:m], want[bi], rtol=0, atol=1e-5 * want.abs().max())
+
+
 def test_blocks_mixed_scratch_and_format():
-    """The mixed entries of K2 and K3 pack "bf16_sw128" (``fmt_of`` by entry
-    point; K2b and K1b mixed "tf32"); their scratch in the C entries'
-    argument order: K3 a's planes [b, 3, n, ip] and c's [b, 3, n, max(ip,
-    dm padded to 64)] (n(x)'s planes first), bf16; K2 qkv [3, b, H, n, dh]
-    and o [b, H, n, dh] f32, then the planes of 3·max(H·dh, dm padded to
-    64) values a row, bf16; TMA reads each 16-byte aligned. f32 and bf16
-    keep their scratch."""
+    """Every mixed entry packs "bf16_sw128" (``fmt_of`` by entry point);
+    their scratch in the C entries' argument order: K3 a's planes [b, 3, n,
+    ip] and c's [b, 3, n, max(ip, dm padded to 64)] (n(x)'s planes first),
+    bf16; K2 qkv [3, b, H, n, dh] and o [b, H, n, dh] f32, then the planes
+    of 3·max(H·dh, dm padded to 64) values a row, bf16; K2b q, kv and o f32,
+    then the same planes and the context's [b, 3, m, dc padded to 64],
+    bf16; TMA reads each 16-byte aligned. f32 and bf16 keep their
+    scratch."""
     f32 = torch.float32
     fmts = {e: gemm_cache.fmt_of(f32, BF16, e) for e in sorted(gemm_cache.MIXED_ENTRIES)}
-    assert fmts == {"attn_block": "bf16_sw128", "cross_attn_block": "tf32",
+    assert fmts == {"attn_block": "bf16_sw128", "cross_attn_block": "bf16_sw128",
                     "ff_block": "bf16_sw128", "wavenet_body": "bf16_sw128",
-                    "wavenet_lanes": "tf32"}
+                    "wavenet_lanes": "bf16_sw128"}
     assert gemm_cache.fmt_of(f32) == "split" and gemm_cache.fmt_of(BF16) == "bf16_sw128"
     with pytest.raises(ValueError):
         gemm_cache.fmt_of(f32, BF16)
@@ -485,3 +602,14 @@ def test_blocks_mixed_scratch_and_format():
         assert qkv.dtype == BF16 and o.numel() == b * n * max(heads * dh, dm)
         qkv, o = ak.attn_scratch(b, n, dm, heads, dh, f32, "cpu")
         assert o.shape == (b, heads, n, dh) and o.dtype == f32
+    for dm, dc, heads, dh in ((128, 128, 8, 64), (96, 100, 2, 128)):
+        m = 32
+        q, kv, o, planes = ak.cross_scratch(b, n, m, dm, dc, heads, dh, f32, "cpu", "bf16_sw128")
+        assert q.shape == o.shape == (b, heads, n, dh) and kv.shape == (2, b, heads, m, dh)
+        assert q.dtype == kv.dtype == o.dtype == f32 and planes.dtype == BF16
+        assert planes.numel() == b * n * 3 * max(heads * dh, -(-dm // 64) * 64) + \
+            b * m * 3 * -(-dc // 64) * 64
+        assert planes.data_ptr() % 16 == 0 and (planes.numel() - b * m * 3 * -(-dc // 64) * 64) \
+            * 2 % 16 == 0
+        q, kv, o = ak.cross_scratch(b, n, m, dm, dc, heads, dh, f32, "cpu")
+        assert kv.shape == (2, b, heads, m, dh) and o.dtype == f32

@@ -142,7 +142,9 @@ class Held:
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """The one-process runs and their floors, computed once (while the ranks
-    run)."""
+    run), on two threads; the thread count is restored after the module, so
+    that it does not leak into the files a worker runs next."""
+    threads = torch.get_num_threads()
     torch.set_num_threads(2)
     root = tmp_path_factory.mktemp("one_process")
 
@@ -154,7 +156,7 @@ def reference(tmp_path_factory):
         first.train(log_every=1)
         return {"state": worker.state_of(first)}
 
-    return {
+    yield {
         "root": root,
         "replicated": Held(lambda m: worker.run_replicated(None, folder("rep", m), m)[0]),
         "fsdp64": Held(lambda m: worker.run_fsdp(None, folder("fsdp", m), "replicated", m)[0]),
@@ -166,6 +168,7 @@ def reference(tmp_path_factory):
         "losses": Held(lambda m: worker.run_losses(None, m)),
         "resume_step2": Held(resume_step2),
     }
+    torch.set_num_threads(threads)
 
 
 # --------------------------------------------------------------------- #

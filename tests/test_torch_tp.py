@@ -116,16 +116,19 @@ def ranks(tmp_path_factory, jax_case):
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """The one-process runs and their floors, computed once (while the ranks
-    run)."""
+    run), on two threads; the thread count is restored after the module, so
+    that it does not leak into the files a worker runs next."""
+    threads = torch.get_num_threads()
     torch.set_num_threads(2)
     root = tmp_path_factory.mktemp("tp_one_process")
-    return {
+    yield {
         "root": root,
         "uncond": Held(lambda m: worker.run_uncond(None, root / f"uncond-{m}", m)[0]),
         "cond": Held(lambda m: worker.run_cond(None, root / f"cond-{m}", m)[0]),
         "resume": Held(lambda m: worker.run_resume(None, root / f"resume-{m}", "replicated",
                                                    "replicated", m)[0]),
     }
+    torch.set_num_threads(threads)
 
 
 # --------------------------------------------------------------------- #
